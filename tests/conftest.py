@@ -48,6 +48,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running tier-2 test — excluded from the tier-1 "
         "`-m 'not slow'` run")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card, skips without one (on the card: "
+        "python -m pytest --noconftest -m cuda tests/test_torch_cuda.py)")
 
 
 def pytest_collection_modifyitems(config, items):
