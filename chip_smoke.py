@@ -11,17 +11,18 @@ exits non-zero without printing a result:
   2. build    nvcc builds the kernels from paddle_tpu_torch/csrc (one
               process per source, started together) and the seconds it
               took are printed with ptxas's register report.
-  3. kernels  each kernel's wrapper against its plain PyTorch version on
-              the card: the ragged kernel (K1) at LLaMA-2-7B heads and at a
-              GQA layout over mixed spans (decode, chunks at start_pos > 0
-              crossing page boundaries, a dead slot, padded bucket rows),
-              the paged-decode kernel (K2) at b=8, h=32, d=128 with pos on
-              and off page boundaries, then both at the shapes the engine
-              gives them (phase 6). Tolerance: max |kernel - plain| <= 1e-4
-              in fp32 (the two sum in different orders); padded and dead
-              rows must be exactly 0. Times are medians of CUDA-event
-              timings. The sweep over every head dim the gates admit, GQA
-              group and page size is tests/test_torch_cuda.py.
+  3. kernels  each serving kernel's wrapper against its plain PyTorch
+              version on the card: the ragged kernel (K1) at LLaMA-2-7B
+              heads and at a GQA layout over mixed spans (decode, chunks at
+              start_pos > 0 crossing page boundaries, a dead slot, padded
+              bucket rows), the paged-decode kernel (K2) at b=8, h=32,
+              d=128 with pos on and off page boundaries, then both at the
+              shapes the engine gives them (phase 6). Tolerance: max
+              |kernel - plain| <= 1e-4 in fp32 (the two sum in different
+              orders); padded and dead rows must be exactly 0. Times are
+              medians of CUDA-event timings. The sweep over every head dim
+              the gates admit, GQA group and page size is
+              tests/test_torch_cuda.py.
   4. engine   LLaMA-2-7B at full width and depth, fp32, seeded random
               weights built on the card, served through
               inference.create_serving_engine: 8 requests with seeded
@@ -30,15 +31,42 @@ exits non-zero without printing a result:
               and neither plain version; two requests must match
               naive_generate token for token (the first divergence, if
               any, is printed and fails the run).
-  5. profile  where a step's time goes: torch.profiler over steps of one
-              256-token prefill chunk each and over decode-only steps of 8
-              sequences, device time by kernel group, each kernel's device
-              time per launch, and the idle share against the wall of as
-              many unprofiled steps.
-  6. timing   each kernel at the engine's shapes against its plain
+  5. profile  where a serving step's time goes: torch.profiler over steps
+              of one 256-token prefill chunk each and over decode-only
+              steps of 8 sequences, device time by kernel group, each
+              kernel's device time per launch, and the idle share against
+              the wall of as many unprofiled steps.
+  6. timing   each serving kernel at the engine's shapes against its plain
               version, its bound and the library yardstick, with L2
-              flushed before every timed call.
-  7. summary  one JSON line of every kernel's launches, error and times,
+              flushed before every timed call. Then the engine is freed:
+              under 1 GiB may stay allocated before the trainer is built.
+  7. flash    the flash kernels (K3a forward, K3b-dq, K3b-dkv) through the
+              autograd.Function and torch.autograd.grad against their
+              plain versions: b=1, s=4096, h=32, d=128 causal, and a sweep
+              over d in {64, 128, 256}, causal or not, s in {1, 100, 1000}
+              and cross lengths sq=128 < sk=384 (and sq=384 > sk=128).
+              o and lse within 1e-4; each of dq, dk, dv within 1e-4 *
+              max|plain gradient| (with one key, where the exact dq and dk
+              are 0, within 1e-4 * max|plain dv|).
+  8. trainer  the training path: LLaMA-2-7B widths at 8 of 32 layers,
+              fp32, seeded random weights on the card, jit.TrainStep with
+              AdamW(1e-4, weight decay 0.01, global-norm clip 1.0) on one
+              seeded batch of 4096 tokens, 2 warm-up and 6 timed steps.
+              Losses must be finite and fall, each flash kernel must launch
+              8 times per step and no plain version at all.
+  9. profile  where a training step's time goes: torch.profiler over 2
+              steps, device time by group (matmul, K3a, K3b-dq, K3b-dkv,
+              optimizer, other), each flash kernel's ms per launch and the
+              idle share against 2 unprofiled steps.
+ 10. check    a 2-layer model at full width, seq 1024, trained one step
+              through the kernels and once on the dense path
+              (FLAGS_use_flash_attention off) from the same weights and
+              batch: loss within 1e-5 relative, every gradient within 1e-3
+              * its max|grad|.
+ 11. timing   each flash kernel at the trainer's shape (b=1, s=4096, h=32,
+              d=128, causal) against its plain version, its bound and
+              scaled_dot_product_attention as the yardstick, L2 flushed.
+ 12. summary  one JSON line of every kernel's launches, error and times,
               the nvidia-smi line, then the result line.
 
 fp32 products stay fp32: TF32 is switched off for matmuls and cuDNN.
@@ -46,11 +74,13 @@ fp32 products stay fp32: TF32 is switched off for matmuls and cuDNN.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -362,8 +392,16 @@ def engine_phase(cfg, seed=0, n_requests=8, max_tokens=32, device="cuda"):
 
 # ------------------------------------------------------------ profile
 
+FLASH_GROUPS = {"flash_fwd_kernel": "K3a flash_forward",
+                "flash_bwd_dq_kernel": "K3b-dq flash_backward_dq",
+                "flash_bwd_dkv_kernel": "K3b-dkv flash_backward_dkv"}
+
+
 def _kernel_group(name: str) -> str:
     low = name.lower()
+    for kernel, group in FLASH_GROUPS.items():
+        if kernel in name:
+            return group
     if "paged_decode_kernel" in name:
         return "K2 paged_decode_attention"
     if "ragged_kernel" in name:
@@ -381,7 +419,10 @@ def _device_ms(prof):
     from torch.autograd import DeviceType
     groups, kernels = {}, {}
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
+        # record_function ranges also show on the device's timeline; their
+        # spans are not kernels and would count the time twice
+        if evt.device_type != DeviceType.CUDA or \
+                getattr(evt, "is_user_annotation", False):
             continue
         ms = 1e-3 * getattr(evt, "self_device_time_total",
                             getattr(evt, "self_cuda_time_total", 0.0))
@@ -466,6 +507,367 @@ def profile_phase(eng, cfg, seed=1, n_requests=8, prompt_len=300,
         raise AssertionError("engine leaked KV pages in the profile phase")
 
 
+# ------------------------------------------------------------- flash
+
+# (COUNTS key, replaced TPU kernel) of K3a, K3b-dq and K3b-dkv
+FLASH_KERNELS = (
+    ("flash_forward", "paddle_tpu/ops/pallas/flash_attention.py:251"),
+    ("flash_backward_dq", "paddle_tpu/ops/pallas/flash_attention.py:312"),
+    ("flash_backward_dkv", "paddle_tpu/ops/pallas/flash_attention.py:351"),
+)
+
+
+def check_flash(gen, b, sq, sk, h, d, causal):
+    """K3a/K3b through the autograd.Function and torch.autograd.grad
+    against the plain versions; returns each kernel's max abs error."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q = torch.randn(b, sq, h, d, device="cuda", generator=gen,
+                    requires_grad=True)
+    k, v = (torch.randn(b, sk, h, d, device="cuda", generator=gen,
+                        requires_grad=True) for _ in range(2))
+    do = torch.randn(b, sq, h, d, device="cuda", generator=gen)
+    o = fa.flash_attention(q, k, v, causal=causal)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    with torch.no_grad():
+        _, lse = fa.flash_forward(q, k, v, causal)
+        ro, rlse = fa.flash_forward_reference(q, k, v, causal)
+        refs = fa.flash_backward_reference(q, k, v, ro, do, rlse, causal)
+    torch.cuda.synchronize()
+    err = {"o": (o - ro).abs().max().item(),
+           "lse": (lse - rlse).abs().max().item()}
+    label = (f"b={b} sq={sq} sk={sk} h={h} d={d} "
+             f"{'causal' if causal else 'full'}")
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"flash {label}: {name} is not finite")
+        err[name] = (g - r).abs().max().item()
+        # one key: the softmax is constant, the exact dq and dk are 0 and
+        # both sides are rounding noise, held to dv's scale
+        scale = r.abs().max().item()
+        if sk == 1:
+            scale = max(scale, refs[2].abs().max().item())
+        if not err[name] <= TOL * scale:
+            raise AssertionError(f"flash {label}: {name} max_abs_err "
+                                 f"{err[name]:.3e} > {TOL} * {scale:.3e}")
+    if not (err["o"] <= TOL and err["lse"] <= TOL):
+        raise AssertionError(f"flash {label}: o/lse max_abs_err "
+                             f"{err['o']:.3e}/{err['lse']:.3e} > {TOL}")
+    return err
+
+
+def flash_checks(gen):
+    """Phase 7: the trainer's shape, then the sweep; returns the largest
+    abs error of each kernel over all cases."""
+    cases = [(1, 4096, 4096, 32, 128, True)]
+    cases += [(1, s, s, 4, d, c) for d in (64, 128, 256)
+              for c in (True, False) for s in (1, 100, 1000)]
+    cases += [(1, 128, 384, 4, d, True) for d in (64, 128, 256)]
+    cases += [(1, 384, 128, 4, 128, True)]
+    worst = {"flash_forward": 0.0, "flash_backward_dq": 0.0,
+             "flash_backward_dkv": 0.0}
+    for case in cases:
+        err = check_flash(gen, *case)
+        worst["flash_forward"] = max(worst["flash_forward"], err["o"],
+                                     err["lse"])
+        worst["flash_backward_dq"] = max(worst["flash_backward_dq"],
+                                         err["dq"])
+        worst["flash_backward_dkv"] = max(worst["flash_backward_dkv"],
+                                          err["dk"], err["dv"])
+        if case[1] == 4096:
+            log(f"flash check b=1 s=4096 h=32 d=128 causal: max_abs_err "
+                + ", ".join(f"{n} {e:.3e}" for n, e in err.items()))
+    log(f"flash checks: {len(cases)} cases (the trainer's shape; d in "
+        f"64/128/256 x causal/full x s in 1/100/1000; sq 128 < sk 384; "
+        f"sq 384 > sk 128) within tolerance; worst abs errors "
+        + json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
+    return worst
+
+
+def _flash_counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    return {name: (c.kernel_launches, c.plain_launches)
+            for name, c in fa.COUNTS.items()}
+
+
+def trainer_phase(cfg, seed=0, warmup=2, steps=6, seq=4096):
+    """Phase 8, the training path: TrainStep + AdamW over seeded random
+    weights and one seeded batch. Returns the trainer, its batch and the
+    flash launches of the run."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import Llama, llama_loss_fn
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Llama(cfg, device="cuda", seed=seed)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.named_parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    trainer = TrainStep(model, llama_loss_fn, opt)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (1, seq + 1), device="cuda",
+                         generator=gen)
+    ids, labels = toks[:, :-1], toks[:, 1:]
+    n_params = sum(p.numel() for p in model.parameters())
+    per_layer = sum(p.numel() for p in model.layers[0].parameters())
+    n_full = n_params + (32 - cfg.num_layers) * per_layer
+    log(f"trainer setup: {cfg.num_layers} of 32 layers at LLaMA-2-7B "
+        f"widths (hidden {cfg.hidden_size}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads}, ffn {cfg.ffn_hidden}, vocab "
+        f"{cfg.vocab_size}), {n_params / 1e9:.3f} B fp32 params "
+        f"({per_layer / 1e6:.1f} M per layer; parameters, gradients and "
+        f"two AdamW moments {16 * n_params / 1e9:.1f} GB, at 32 layers "
+        f"{n_full / 1e9:.2f} B params and {16 * n_full / 1e9:.1f} GB), "
+        f"batch [1, {seq}], {time.perf_counter() - t0:.1f} s")
+
+    for counts in fa.COUNTS.values():
+        counts.reset()
+    losses = []
+
+    def one_step():
+        before = _flash_counts()
+        losses.append(trainer(ids, labels))
+        after = _flash_counts()
+        for name in after:
+            if after[name][0] - before[name][0] != cfg.num_layers:
+                raise AssertionError(
+                    f"{name} launched {after[name][0] - before[name][0]} "
+                    f"times in a step, not {cfg.num_layers}")
+
+    for _ in range(warmup):
+        one_step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        one_step()
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t) / steps
+    counts = _flash_counts()
+    launches = {name: kl for name, (kl, _) in counts.items()}
+    plain = sum(pl for _, pl in counts.values())
+    values = [x.item() for x in losses]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"trainer losses: {[round(x, 5) for x in values]}")
+    log(f"trainer run: {warmup} warm-up + {steps} timed steps, mean step "
+        f"{step_ms:.1f} ms = {seq / step_ms * 1e3:.1f} tokens/s, peak "
+        f"memory {peak:.2f} GiB, flash launches {launches} "
+        f"({cfg.num_layers} each per step), plain launches {plain}")
+    if not all(np.isfinite(values)) or not values[-1] < values[0]:
+        raise AssertionError(f"trainer losses not finite and falling: "
+                             f"{values}")
+    if plain != 0 or any(n != cfg.num_layers * (warmup + steps)
+                         for n in launches.values()):
+        raise AssertionError(f"main path missed a flash kernel: "
+                             f"{launches}, plain launches {plain}")
+    return trainer, (ids, labels), launches
+
+
+def _optimizer_ms(trainer, batch, steps):
+    """Median device ms of `optimizer.step()` (the clip and AdamW), from
+    CUDA events around it in steps run by hand: the forward and backward
+    as TrainStep runs them, then the timed update. The backward is still
+    running when the update is queued, so the window holds no launch
+    gaps."""
+    times = []
+    n = trainer.n_inputs
+    for _ in range(steps):
+        loss = trainer.loss_fn(trainer.model(*batch[:n]), *batch[n:])
+        loss.backward()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.optimizer.step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        trainer.optimizer.zero_grad(set_to_none=True)
+    return statistics.median(times)
+
+
+def train_profile_phase(trainer, batch, layers, steps=2):
+    """Phase 9: torch.profiler over `steps` training steps, device time by
+    kernel group; the optimizer's share is timed apart with CUDA events
+    (`_optimizer_ms`) and taken out of the elementwise group, where its
+    kernels fall by name. The idle share is 1 - device busy / host wall
+    of as many unprofiled steps just before."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        trainer(*batch)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            trainer(*batch)
+        torch.cuda.synchronize()
+    groups, top = _device_ms(prof)
+    opt_ms = steps * _optimizer_ms(trainer, batch, steps)
+    other = "other (elementwise, norms, gathers)"
+    groups["optimizer (clip + AdamW)"] = opt_ms
+    groups[other] = groups.get(other, 0.0) - opt_ms
+    busy = sum(groups.values()) / steps
+    per = {g: round(ms / steps, 3) for g, ms in
+           sorted(groups.items(), key=lambda kv: -kv[1])}
+    per_launch = {g: round(groups.get(g, 0.0) / (steps * layers), 4)
+                  for g in FLASH_GROUPS.values()}
+    # 2 FLOPs per weight and token forward, 4 backward, over every matmul
+    # weight (the embedding is a gather)
+    model, tokens = trainer.model, batch[0].numel()
+    mm_flops = 6 * tokens * sum(p.numel() for n, p in model.named_parameters()
+                                if p.dim() == 2
+                                and n != "embed_tokens.weight")
+    mm_ms = groups.get("matmul (cuBLAS)", 0.0) / steps
+    log(f"profile training step: host wall {wall:.1f} ms/step, device "
+        f"busy {busy:.1f} ms/step, idle share {1 - busy / wall:.3f}; "
+        f"flash device ms per launch {json.dumps(per_launch)}; device "
+        f"ms/step by group {json.dumps(per)}")
+    if mm_ms > 0:
+        log(f"  matmuls: {mm_flops / 1e12:.2f} TFLOP per step at "
+            f"{mm_flops / mm_ms / 1e9:.1f} TFLOP/s")
+    if groups[other] < 0:
+        log("  the optimizer's timed update exceeds the elementwise group "
+            "it was taken from: the split of those two is not measured")
+    for name, ms in top:
+        log(f"  {ms / steps:.3f} ms/step  {name[:110]}")
+
+
+def dense_check_phase(cfg, seed=1, seq=1024):
+    """Phase 10: one step's loss and gradients through the flash kernels
+    against the dense path, same weights and batch."""
+    from paddle_tpu_torch.models import Llama, llama_loss_fn
+    from paddle_tpu_torch.utils.flags import flag, set_flags
+
+    model = Llama(cfg, device="cuda", seed=seed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (1, seq + 1), device="cuda",
+                         generator=gen)
+
+    def run(use_flash):
+        old = flag("FLAGS_use_flash_attention")
+        set_flags({"FLAGS_use_flash_attention": use_flash})
+        try:
+            loss = llama_loss_fn(model(toks[:, :-1]), toks[:, 1:])
+            loss.backward()
+        finally:
+            set_flags({"FLAGS_use_flash_attention": old})
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    before = _flash_counts()
+    loss_k, grads_k = run(True)
+    mid = _flash_counts()
+    loss_d, grads_d = run(False)
+    if _flash_counts() != mid or any(
+            mid[n][0] - before[n][0] != cfg.num_layers for n in mid):
+        raise AssertionError("the kernel run missed a flash kernel or the "
+                             "dense run launched one")
+    rel = abs(loss_k - loss_d) / abs(loss_d)
+    worst = max(((g - grads_d[n]).abs().max()
+                 / grads_d[n].abs().max()).item()
+                for n, g in grads_k.items())
+    log(f"kernels vs dense ({cfg.num_layers} layers, full width, seq {seq}):"
+        f" loss {loss_k:.6f} vs {loss_d:.6f} (rel {rel:.2e}), worst grad "
+        f"max|diff| / max|grad| {worst:.2e} over {len(grads_k)} params")
+    if not (rel <= 1e-5 and worst <= 1e-3):
+        raise AssertionError("the kernels' step differs from the dense "
+                             "path's beyond 1e-5 (loss) / 1e-3 (grads)")
+
+
+def measure_flash(gen, b=1, s=4096, h=32, d=128):
+    """Phase 11: each flash kernel at the trainer's shape against its plain
+    version, its bound and SDPA (forward; forward+backward minus forward
+    for the two backward kernels together)."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
+    import torch.nn.functional as F
+
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                   for _ in range(4))
+    o, lse = fa.flash_forward(q, k, v, True)
+    delta = fa.backward_delta(o, do)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lib, stream = _build.library(), torch.cuda.current_stream().cuda_stream
+    scale = 1.0 / d ** 0.5
+
+    def dq_kernel():
+        _build.check(lib.flash_attention_bwd_dq_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, s, s, d,
+            scale, 1, stream), "flash_backward_dq")
+
+    def dkv_kernel():
+        _build.check(lib.flash_attention_bwd_dkv_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, s, s, d, scale, 1, stream), "flash_backward_dkv")
+
+    ms = {"flash_forward": median_ms(lambda: fa.flash_forward(q, k, v,
+                                                                True)),
+          "flash_backward_dq": median_ms(dq_kernel),
+          "flash_backward_dkv": median_ms(dkv_kernel)}
+    plain = {
+        "flash_forward": median_ms(
+            lambda: fa.flash_forward_reference(q, k, v, True), iters=5),
+        "flash_backward_dq": median_ms(
+            lambda: fa.flash_backward_dq_reference(q, k, v, do, lse, delta,
+                                                   True), iters=5),
+        "flash_backward_dkv": median_ms(
+            lambda: fa.flash_backward_dkv_reference(q, k, v, do, lse,
+                                                    delta, True), iters=5)}
+    qT, kT, vT, doT = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    lib_fwd = median_ms(lambda: F.scaled_dot_product_attention(
+        qT, kT, vT, is_causal=True))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (qT, kT, vT))
+    lib_fb = median_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
+        (qg, kg, vg), doT))
+    library = {"flash_forward": lib_fwd, "flash_backward_dq": lib_fb - lib_fwd,
+               "flash_backward_dkv": lib_fb - lib_fwd}
+    # the least work: each input read once, each output written once; fp32
+    # FLOPs per visible (query, key) pair of every head: 4 d (q.k and p.v),
+    # 6 d (q.k, do.v, ds.k), 8 d (q.k, do.v, p^T.do, ds^T.q)
+    pairs = b * h * s * (s + 1) // 2
+    row = 4 * b * s * h * d
+    work = {"flash_forward": (3 * row + row + 4 * b * h * s, 4 * d * pairs),
+            "flash_backward_dq": (5 * row + 8 * b * h * s, 6 * d * pairs),
+            "flash_backward_dkv": (6 * row + 8 * b * h * s, 8 * d * pairs)}
+    log("flash work at the trainer's shape: " + ", ".join(
+        f"{name} {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP"
+        for name, (nbytes, flops) in work.items()))
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        t_ops = flops / PEAK_FP32_FLOP_PER_S
+        out[name] = dict(ms=ms[name], plain_ms=plain[name],
+                         bound_ms=1e3 * max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations",
+                         library_ms=library[name])
+        log(f"timing {name} at q/k/v [{b},{s},{h},{d}] causal: kernel "
+            f"{ms[name]:.4f} ms, plain {plain[name]:.4f} ms, bound "
+            f"{out[name]['bound_ms']:.4f} ms ({out[name]['bound_by']}, "
+            f"{100 * out[name]['bound_ms'] / ms[name]:.1f} % of it), "
+            f"library {library[name]:.4f} ms")
+    log(f"library yardstick: scaled_dot_product_attention fp32 [b,h,s,d] "
+        f"is_causal forward {lib_fwd:.4f} ms, forward+backward "
+        f"{lib_fb:.4f} ms")
+    return out
+
+
+def _free_the_card() -> float:
+    """Collect what the freed phases left; returns GiB still allocated."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 2**30
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -528,6 +930,29 @@ def main() -> int:
                      "bound_ms": meas["bound_ms"],
                      "bound_by": meas["bound_by"],
                      "library_ms": meas["library_ms"]})
+
+    # the training path: the engine, its model and runner are gone
+    _free_the_card()
+    flash_err = flash_checks(gen)
+    left = _free_the_card()
+    log(f"before the trainer: {left:.3f} GiB allocated")
+    if left >= 1.0:
+        raise AssertionError(f"{left:.2f} GiB still allocated after the "
+                             "serving phases; the trainer needs the card")
+    train_cfg = replace(cfg, num_layers=8)
+    trainer, batch, flash_launches = trainer_phase(train_cfg)
+    train_profile_phase(trainer, batch, train_cfg.num_layers)
+    del trainer, batch
+    _free_the_card()
+    dense_check_phase(replace(cfg, num_layers=2))
+    _free_the_card()
+    flash = measure_flash(gen)
+    for name, replaces in FLASH_KERNELS:
+        rows.append({"name": name, "route": "cuda",
+                     "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+                     "replaces": replaces,
+                     "launches": flash_launches[name],
+                     "max_abs_err": flash_err[name], **flash[name]})
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

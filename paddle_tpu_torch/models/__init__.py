@@ -1,5 +1,6 @@
 from paddle_tpu_torch.models.llama import (
-    LLAMA2_7B, Llama, LlamaConfig, rope_tables,
+    LLAMA2_7B, Llama, LlamaConfig, llama_loss_fn, rope_tables,
 )
 
-__all__ = ["LLAMA2_7B", "Llama", "LlamaConfig", "rope_tables"]
+__all__ = ["LLAMA2_7B", "Llama", "LlamaConfig", "llama_loss_fn",
+           "rope_tables"]

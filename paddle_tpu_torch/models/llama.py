@@ -1,4 +1,4 @@
-"""LLaMA-family decoder weights (RMSNorm + RoPE + GQA + SwiGLU).
+"""LLaMA-family decoder (RMSNorm + RoPE + GQA + SwiGLU).
 
 Counterpart of paddle_tpu/models/llama.py. The serving runner reads the
 model's parameters as one flat dict, so this module keeps exactly the
@@ -7,9 +7,13 @@ JAX package's parameter names (``embed_tokens.weight``,
 ``lm_head.weight``) and its ``[in, out]`` linear layout: a weight dict
 exported from the JAX model loads here unchanged (``weights.py``).
 
-The dense forward of the JAX Layer runs the flash-attention kernel,
-which is not ported yet, so ``Llama.forward`` raises; serving goes
-through ``serving.model_runner.LlamaRunner``.
+``Llama.forward`` is the dense forward of the JAX Layer, the training
+path: embedding, pre-norm blocks (RMSNorm with fp32 statistics, q/k/v
+projections, rotate-half RoPE at positions 0..s-1, GQA by
+repeat_interleave of the kv heads, causal scaled_dot_product_attention
+through the flash kernels, o_proj, SwiGLU MLP), the final norm and the
+head (or the tied embedding). Serving goes through
+``serving.model_runner.LlamaRunner`` over the paged pools instead.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from torch import nn
 
 from paddle_tpu_torch.device import resolve_device
+from paddle_tpu_torch.ops import impl
 
 
 @dataclass
@@ -79,18 +84,28 @@ class Linear(nn.Module):
         self.std = std
         self.weight = nn.Parameter(torch.empty(n_in, n_out, device=device))
 
+    def forward(self, x):
+        return impl.linear(x, self.weight)
+
 
 class RMSNorm(nn.Module):
-    """RMSNorm gain, initialised to ones."""
+    """RMSNorm with its gain initialised to ones."""
 
-    def __init__(self, hidden: int, device):
+    def __init__(self, hidden: int, eps: float, device):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(hidden, device=device))
+
+    def forward(self, x):
+        return impl.rms_norm(x, self.weight, epsilon=self.eps)
 
 
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
+        self.cfg = cfg
+        self.n_h, self.n_kv = cfg.num_heads, cfg.num_kv_heads
+        self.head_dim = cfg.hidden_size // cfg.num_heads
         h = cfg.hidden_size
         kv_out = cfg.num_kv_heads * (h // cfg.num_heads)
         wo = 0.02 / math.sqrt(2 * cfg.num_layers)
@@ -98,6 +113,22 @@ class LlamaAttention(nn.Module):
         self.k_proj = Linear(h, kv_out, 0.02, device)
         self.v_proj = Linear(h, kv_out, 0.02, device)
         self.o_proj = Linear(h, h, wo, device)
+
+    def forward(self, x):
+        b, s, h = x.shape
+        d = self.head_dim
+        q = self.q_proj(x).reshape(b, s, self.n_h, d)
+        k = self.k_proj(x).reshape(b, s, self.n_kv, d)
+        v = self.v_proj(x).reshape(b, s, self.n_kv, d)
+        cos, sin = rope_tables(s, d, self.cfg.rope_theta, device=x.device)
+        q, k = impl.rotary_embedding(q, k, cos, sin)
+        if self.n_kv != self.n_h:
+            # GQA: kv head j serves query heads j*rep .. j*rep + rep - 1
+            rep = self.n_h // self.n_kv
+            k = impl.repeat_interleave(k, rep, axis=2)
+            v = impl.repeat_interleave(v, rep, axis=2)
+        out = impl.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return self.o_proj(out.reshape(b, s, h))
 
 
 class LlamaMLP(nn.Module):
@@ -109,14 +140,22 @@ class LlamaMLP(nn.Module):
         self.up_proj = Linear(h, f, 0.02, device)
         self.down_proj = Linear(f, h, wo, device)
 
+    def forward(self, x):
+        return self.down_proj(impl.swiglu(self.gate_proj(x), self.up_proj(x)))
+
 
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
-        self.input_layernorm = RMSNorm(cfg.hidden_size, device)
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_eps, device)
         self.self_attn = LlamaAttention(cfg, device)
-        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, device)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
+                                                cfg.rms_eps, device)
         self.mlp = LlamaMLP(cfg, device)
+
+    def forward(self, x):
+        x = x + self.self_attn(self.input_layernorm(x))
+        return x + self.mlp(self.post_attention_layernorm(x))
 
 
 class Llama(nn.Module):
@@ -139,7 +178,7 @@ class Llama(nn.Module):
             torch.empty(cfg.vocab_size, cfg.hidden_size, device=dev))
         self.layers = nn.ModuleList([LlamaBlock(cfg, dev)
                                      for _ in range(cfg.num_layers)])
-        self.norm = RMSNorm(cfg.hidden_size, dev)
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, dev)
         if not cfg.tie_embeddings:
             self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, 0.02, dev)
         gen = torch.Generator(device=dev)
@@ -151,7 +190,17 @@ class Llama(nn.Module):
                     mod.weight.normal_(0.0, mod.std, generator=gen)
 
     def forward(self, input_ids):
-        raise NotImplementedError(
-            "the dense Llama forward runs the flash-attention kernel, which "
-            "is not ported yet: ROADMAP.md 'Still to port' item 2 (K3a/K3b); "
-            "serve through paddle_tpu_torch.serving.LlamaRunner")
+        """input_ids [b, s] -> logits [b, s, vocab]."""
+        x = impl.embedding(input_ids, self.embed_tokens.weight)
+        for blk in self.layers:
+            x = blk(x)
+        x = self.norm(x)
+        if self.cfg.tie_embeddings:
+            return x @ self.embed_tokens.weight.T
+        return self.lm_head(x)
+
+
+def llama_loss_fn(logits, labels):
+    """Mean next-token cross-entropy over the flattened batch."""
+    v = logits.shape[-1]
+    return impl.cross_entropy(logits.reshape(-1, v), labels.reshape(-1))

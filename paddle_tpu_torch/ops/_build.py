@@ -27,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("ragged_paged_attention.cu", "paged_decode_attention.cu")
+SOURCES = ("ragged_paged_attention.cu", "paged_decode_attention.cu",
+           "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,6 +38,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "ragged_paged_attention_f32": [_P] * 7 + [_I] * 7 + [_F, _P],
     "paged_decode_attention_f32": [_P] * 6 + [_I] * 5 + [_F, _P],
+    "flash_attention_fwd_f32": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+    "flash_attention_bwd_dq_f32": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
+    "flash_attention_bwd_dkv_f32": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
 }
 
 
@@ -143,8 +147,8 @@ def require_launchable(name: str, floats, ints) -> None:
     operands, all contiguous, float operands 16-byte aligned (the kernels
     read them as float4)."""
     if any(t.dtype != torch.float32 for t in floats):
-        raise TypeError(f"{name}: the CUDA kernel takes fp32 q and pools, "
-                        f"got {[str(t.dtype) for t in floats]}")
+        raise TypeError(f"{name}: the CUDA kernel takes fp32 operands, got "
+                        f"{[str(t.dtype) for t in floats]}")
     if any(t.dtype != torch.int32 for t in ints):
         raise TypeError(f"{name}: index operands must be int32, got "
                         f"{[str(t.dtype) for t in ints]}")

@@ -11,18 +11,26 @@ Each kernel is held against its plain PyTorch version on the same CUDA
 tensors at max |kernel - plain| <= 1e-4 (fp32, summed in another order),
 with rows past q_len and dead slots exactly 0; a small engine on the card
 must equal its own naive_generate token for token, through the kernels.
+The flash kernels (K3a, K3b-dq, K3b-dkv) hold o and lse within 1e-4 and
+each gradient within 1e-4 * max|plain gradient|; a small Llama trained
+through them must match the same model trained on the dense path.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import paddle_tpu_torch.ops.flash_attention as fa
 import paddle_tpu_torch.ops.paged_attention as k2
 import paddle_tpu_torch.ops.ragged_paged_attention as k1
-from paddle_tpu_torch.models import Llama, LlamaConfig
+from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch.models import Llama, LlamaConfig, llama_loss_fn
+from paddle_tpu_torch.ops import impl
+from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
 from paddle_tpu_torch.serving import (
     LlamaRunner, SamplingParams, ServingEngine, naive_generate,
 )
+from paddle_tpu_torch.utils.flags import flag, set_flags
 
 pytestmark = pytest.mark.cuda
 
@@ -117,3 +125,89 @@ def test_engine_on_the_card_matches_naive_through_the_kernels(gen, n_kv):
         assert outs[rid].output_tokens == naive_generate(
             runner, p, SamplingParams(max_tokens=n))
     assert eng.pool.allocator.check_no_leaks()
+
+
+def _grad_bound(ref, dv_ref, sk):
+    # with one key the softmax is constant: the exact dq and dk are 0 and
+    # both sides are rounding noise, so they are held to dv's scale
+    scale = ref.abs().max().item()
+    return 1e-4 * (max(scale, dv_ref.abs().max().item()) if sk == 1
+                   else scale)
+
+
+@pytest.mark.parametrize("d", [8, 16, 64, 120, 128, 136, 256])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("sq,sk", [(1, 1), (63, 63), (100, 100), (65, 200),
+                                   (200, 65)])
+def test_flash_kernels_match_plain(gen, d, causal, sq, sk):
+    q = torch.randn(2, sq, 3, d, device="cuda", generator=gen)
+    k, v = (torch.randn(2, sk, 3, d, device="cuda", generator=gen)
+            for _ in range(2))
+    do = torch.randn(2, sq, 3, d, device="cuda", generator=gen)
+    for counts in fa.COUNTS.values():
+        counts.reset()
+    o, lse = fa.flash_forward(q, k, v, causal)
+    grads = fa.flash_backward(q, k, v, o, do, lse, causal)
+    assert {n: (c.kernel_launches, c.plain_launches)
+            for n, c in fa.COUNTS.items()} == dict.fromkeys(fa.COUNTS, (1, 0))
+    ro, rlse = fa.flash_forward_reference(q, k, v, causal)
+    refs = fa.flash_backward_reference(q, k, v, ro, do, rlse, causal)
+    torch.cuda.synchronize()
+    assert (o - ro).abs().max().item() <= TOL
+    assert (lse - rlse).abs().max().item() <= TOL
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert torch.isfinite(g).all(), name
+        assert (g - r).abs().max().item() <= _grad_bound(r, refs[2], sk), name
+    if causal and sq > sk:          # rows that see no key
+        dead = sq - sk
+        assert (o[:, :dead] == 0).all() and (grads[0][:, :dead] == 0).all()
+
+
+def test_flash_kernels_refuse_what_they_cannot_take(gen):
+    for d in (12, 264):
+        q = torch.zeros(1, 8, 2, d, device="cuda")
+        with pytest.raises(ValueError, match="d % 8 == 0"):
+            fa.flash_forward(q, q, q)
+        with pytest.raises(ValueError, match="FLAGS_use_flash_attention"):
+            impl.scaled_dot_product_attention(q, q, q, is_causal=True)
+    q = torch.zeros(1, 8, 2, 8, device="cuda")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        fa.flash_attention(q, q, q, mask=torch.zeros(1, 8, device="cuda"))
+
+
+def _train_once(cfg, ids, labels, use_flash):
+    model = Llama(cfg, device="cuda", seed=3)
+    old = flag("FLAGS_use_flash_attention")
+    set_flags({"FLAGS_use_flash_attention": use_flash})
+    try:
+        loss = llama_loss_fn(model(ids), labels)
+        loss.backward()
+    finally:
+        set_flags({"FLAGS_use_flash_attention": old})
+    return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("n_kv", [4, 2], ids=["mha", "gqa"])
+def test_small_llama_through_the_kernels_matches_the_dense_path(gen, n_kv):
+    cfg = LlamaConfig(vocab_size=211, hidden_size=256, num_layers=2,
+                      num_heads=4, num_kv_heads=n_kv, max_seq_len=256)
+    toks = torch.randint(0, 211, (2, 201), device="cuda", generator=gen)
+    ids, labels = toks[:, :-1], toks[:, 1:]
+    for counts in fa.COUNTS.values():
+        counts.reset()
+    loss_k, grads_k = _train_once(cfg, ids, labels, True)
+    assert all(c.kernel_launches == 2 and c.plain_launches == 0
+               for c in fa.COUNTS.values())
+    loss_d, grads_d = _train_once(cfg, ids, labels, False)
+    assert abs(loss_k - loss_d) <= 1e-5 * abs(loss_d)
+    for name, g in grads_k.items():
+        ref = grads_d[name]
+        assert (g - ref).abs().max().item() <= \
+            1e-3 * ref.abs().max().item(), name
+    # and a few AdamW steps through the kernels bring the loss down
+    model = Llama(cfg, device="cuda", seed=3)
+    step = TrainStep(model, llama_loss_fn, AdamW(
+        learning_rate=1e-3, parameters=model.named_parameters(),
+        grad_clip=ClipGradByGlobalNorm(1.0)))
+    losses = [step(ids, labels).item() for _ in range(4)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]

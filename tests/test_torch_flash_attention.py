@@ -1,0 +1,270 @@
+"""The port's flash attention (K3a, K3b-dq, K3b-dkv) against the JAX
+package's, on the CPU.
+
+The same seeded numpy inputs go through the JAX Pallas kernels in
+interpret mode (`_flash_forward`, `_flash_backward`, the custom VJP
+`_flash`) and through the port's plain versions, which the wrappers run
+on CPU tensors:
+
+  * plain forward (o, lse) and plain backward (dq, dk, dv) against the
+    Pallas kernels at atol = rtol = 1e-5 (fp32, summed in another order);
+  * the autograd.Function's gradients against jax.grad through `_flash`
+    at 1e-4 (two more sums of fp32 products in between);
+  * sq > sk causal (rows that see no key) against the JAX `_reference`,
+    with exact zeros and zero gradient on those rows;
+  * the port's scaled_dot_product_attention against the JAX one, with
+    FLAGS_use_flash_attention on (flash and dense paths) and off;
+  * what the port refuses: the masked forms everywhere, and on the card
+    (`on_card` patched) a mask or a shape the kernels do not take.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu.ops.impl as jax_impl
+import paddle_tpu.ops.pallas.flash_attention as jfa
+from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import impl
+from paddle_tpu_torch.utils.flags import flag, set_flags
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+# tiny shapes: intra-op threads only contend with the other test workers
+torch.set_num_threads(1)
+
+ATOL = RTOL = 1e-5
+GRAD_TOL = 1e-4
+# (b, sq, sk, h, d): the two square shapes, and a cross-length one whose
+# causal offset sk - sq is a whole tile
+SHAPES = [(1, 256, 256, 2, 64), (2, 128, 128, 4, 16), (1, 128, 256, 2, 32)]
+
+
+def _qkv(seed, b, sq, sk, h, d):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, sk, h, d)).astype(np.float32)
+    v = rng.standard_normal((b, sk, h, d)).astype(np.float32)
+    do = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    return q, k, v, do
+
+
+def _jax_forward(q, k, v, causal):
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    o, lse = jfa._flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None, None, None,
+        None, None, causal, scale, 128, 128, True, with_lse=True)
+    b, sq, h, _ = q.shape
+    # lse is value-broadcast over its trailing lanes: lane 0 is the row's
+    return np.asarray(o), np.asarray(lse)[..., 0].reshape(b, h, sq), lse
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_plain_forward_matches_pallas_kernel(shape, causal):
+    q, k, v, _ = _qkv(1, *shape)
+    o_ref, lse_ref, _ = _jax_forward(q, k, v, causal)
+    o, lse = fa.flash_forward_reference(*_t(q, k, v), causal)
+    np.testing.assert_allclose(o.numpy(), o_ref, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), lse_ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_plain_backward_matches_pallas_kernels(shape, causal):
+    q, k, v, do = _qkv(2, *shape)
+    o, lse, lse_lanes = _jax_forward(q, k, v, causal)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    ref = jfa._flash_backward(
+        *(jnp.asarray(a) for a in (q, k, v, o, do)), lse_lanes, None, None,
+        None, None, None, causal, scale, 128, 128, True)
+    ours = fa.flash_backward_reference(*_t(q, k, v, o, do, lse), causal)
+    for name, a, r in zip(("dq", "dk", "dv"), ours, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=RTOL,
+                                   atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_autograd_function_matches_jax_grad_through_flash(shape, causal):
+    q, k, v, w = _qkv(3, *shape)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+
+    def jax_loss(q, k, v):
+        o = jfa._flash(q, k, v, None, None, None, None, None, causal, scale,
+                       128, 128, True)
+        return jnp.sum(o * jnp.asarray(w))
+
+    jax_grads = jax.grad(jax_loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    o = fa.flash_attention(tq, tk, tv, causal=causal)
+    grads = torch.autograd.grad((o * torch.from_numpy(w)).sum(),
+                                (tq, tk, tv))
+    np.testing.assert_allclose(
+        o.detach().numpy(), np.asarray(jfa._reference(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, scale)),
+        rtol=GRAD_TOL, atol=GRAD_TOL)
+    for name, a, r in zip(("dq", "dk", "dv"), grads, jax_grads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, err_msg=name)
+
+
+def test_rows_that_see_no_key_are_zero_with_zero_gradient():
+    """sq > sk causal: the first sq - sk rows see no key. JAX sends this
+    shape to `_reference`; the port's kernels (and plain versions) take
+    it, and must give exact zeros there, with zero gradient."""
+    q, k, v, w = _qkv(4, 1, 96, 40, 2, 16)
+    scale = 1.0 / math.sqrt(16)
+    ref = np.asarray(jfa._reference(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), True, scale))
+    jax_dq = np.asarray(jax.grad(lambda q: jnp.sum(jfa._reference(
+        q, jnp.asarray(k), jnp.asarray(v), True, scale) * w))(
+            jnp.asarray(q)))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    o = fa.flash_attention(tq, tk, tv, causal=True)
+    (dq,) = torch.autograd.grad((o * torch.from_numpy(w)).sum(), (tq,))
+    np.testing.assert_allclose(o.detach().numpy(), ref, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(dq.numpy(), jax_dq, rtol=GRAD_TOL,
+                               atol=GRAD_TOL)
+    dead = 96 - 40
+    assert (o[:, :dead] == 0).all() and (dq[:, :dead] == 0).all()
+    assert torch.isfinite(o).all() and torch.isfinite(dq).all()
+    _, lse = fa.flash_forward_reference(*_t(q, k, v), True)
+    assert (lse[..., :dead] == np.float32(fa.NEG_INF)).all()
+
+
+def test_gate_follows_the_kernels():
+    z = torch.zeros
+    assert fa.flash_attention_ok(z(1, 5, 2, 8), z(1, 7, 2, 8), z(1, 7, 2, 8))
+    assert fa.flash_attention_ok(z(2, 1, 3, 256), z(2, 1, 3, 256),
+                                 z(2, 1, 3, 256))
+    for q, k in [((1, 4, 2, 12), (1, 4, 2, 12)),      # d % 8
+                 ((1, 4, 2, 264), (1, 4, 2, 264)),    # d > 256
+                 ((1, 4, 2, 8), (1, 4, 1, 8)),        # heads differ
+                 ((1, 4, 2, 8), (2, 4, 2, 8)),        # batch differs
+                 ((1, 0, 2, 8), (1, 4, 2, 8))]:       # empty
+        assert not fa.flash_attention_ok(z(q), z(k), z(k))
+
+
+def test_cpu_tensors_count_plain_launches_only():
+    for counts in fa.COUNTS.values():
+        counts.reset()
+    q, k, v, _ = (t.requires_grad_() for t in _t(*_qkv(5, 1, 16, 16, 2, 8)))
+    fa.flash_attention(q, k, v).sum().backward()
+    assert {n: (c.kernel_launches, c.plain_launches)
+            for n, c in fa.COUNTS.items()} == {
+        "flash_forward": (0, 1), "flash_backward_dq": (0, 1),
+        "flash_backward_dkv": (0, 1)}
+
+
+@pytest.mark.parametrize("arg", ["mask", "segment_ids", "block_mask"])
+def test_masked_forms_raise_naming_roadmap(arg):
+    q = torch.zeros(1, 8, 2, 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*K3-m"):
+        fa.flash_attention(q, q, q, **{arg: torch.zeros(1, 8)})
+
+
+def _sdpa_pair(q, k, v, **kw):
+    ours = impl.scaled_dot_product_attention(*_t(q, k, v), **kw)
+    jkw = {key: (jnp.asarray(val.numpy()) if torch.is_tensor(val) else val)
+           for key, val in kw.items()}
+    ref = jax_impl.scaled_dot_product_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **jkw)
+    return ours.numpy(), np.asarray(ref)
+
+
+@pytest.mark.parametrize("use_flash", [True, False], ids=["flag_on",
+                                                          "flag_off"])
+@pytest.mark.parametrize("case", ["causal", "full", "cross", "d12", "mask"])
+def test_sdpa_matches_jax(use_flash, case):
+    """With the flag on, kernel shapes take the flash path (the plain
+    versions here) and the rest the dense path, as on the CPU the JAX
+    package does; with it off, every case is dense."""
+    shape = {"cross": (1, 20, 36, 2, 16), "d12": (2, 24, 24, 2, 12)}.get(
+        case, (2, 24, 24, 2, 16))
+    q, k, v, _ = _qkv(6, *shape)
+    kw = {"is_causal": case != "full"}
+    if case == "mask":
+        keep = np.random.default_rng(7).random((2, 1, 24, 24)) < 0.8
+        kw["attn_mask"] = torch.from_numpy(keep)
+    flash_taken = use_flash and case in ("causal", "full", "cross")
+    before = fa.COUNTS["flash_forward"].plain_launches
+    old = flag("FLAGS_use_flash_attention")
+    set_flags({"FLAGS_use_flash_attention": use_flash})
+    try:
+        ours, ref = _sdpa_pair(q, k, v, **kw)
+    finally:
+        set_flags({"FLAGS_use_flash_attention": old})
+    np.testing.assert_allclose(ours, ref, rtol=RTOL, atol=ATOL)
+    assert (fa.COUNTS["flash_forward"].plain_launches - before) == \
+        int(flash_taken)
+
+
+def test_sdpa_ignores_dropout_as_the_jax_package_does():
+    q, k, v, _ = _qkv(8, 1, 16, 16, 2, 8)
+    ours, ref = _sdpa_pair(q, k, v, is_causal=True, dropout_p=0.5)
+    np.testing.assert_allclose(ours, ref, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(
+        ours, impl.scaled_dot_product_attention(*_t(q, k, v),
+                                                is_causal=True).numpy())
+
+
+@pytest.fixture
+def on_the_card(monkeypatch):
+    """The dispatch as it runs on CUDA tensors, checked before any launch
+    (the kernels themselves are tests/test_torch_cuda.py's)."""
+    monkeypatch.setattr(fa, "on_card", lambda t: True)
+
+
+@pytest.mark.parametrize("d", [12, 264])
+def test_no_quiet_dense_path_on_the_card(on_the_card, d):
+    q = torch.zeros(1, 8, 2, d)
+    with pytest.raises(ValueError, match="FLAGS_use_flash_attention"):
+        impl.scaled_dot_product_attention(q, q, q, is_causal=True)
+    with pytest.raises(ValueError, match="d % 8 == 0"):
+        fa.flash_forward(q, q, q)
+    with pytest.raises(ValueError, match="d % 8 == 0"):
+        fa.flash_backward(q, q, q, q, q, torch.zeros(1, 2, 8))
+
+
+def test_mask_on_the_card_raises_naming_the_flag(on_the_card):
+    q = torch.zeros(1, 8, 2, 8)
+    with pytest.raises(NotImplementedError,
+                       match="K3-m.*FLAGS_use_flash_attention"):
+        impl.scaled_dot_product_attention(
+            q, q, q, attn_mask=torch.ones(1, 1, 8, 8, dtype=torch.bool))
+
+
+def test_flag_off_takes_the_dense_path_on_the_card(on_the_card):
+    q, k, v, _ = _qkv(9, 1, 8, 8, 2, 12)
+    old = flag("FLAGS_use_flash_attention")
+    set_flags({"FLAGS_use_flash_attention": False})
+    try:
+        ours, ref = _sdpa_pair(q, k, v, is_causal=True)
+    finally:
+        set_flags({"FLAGS_use_flash_attention": old})
+    np.testing.assert_allclose(ours, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_operands_the_kernels_cannot_read_are_refused_on_both_devices():
+    q = torch.zeros(1, 8, 2, 8)
+    with pytest.raises(TypeError, match="fp32"):
+        fa.flash_forward(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_forward(q.transpose(1, 2), q, q)
+    with pytest.raises(ValueError, match="several devices"):
+        fa.flash_forward(q, q, q.to("meta"))
+
+
+def test_unknown_flag_is_refused():
+    with pytest.raises(KeyError, match="FLAGS_no_such_flag"):
+        set_flags({"FLAGS_no_such_flag": True})

@@ -27,9 +27,11 @@ import paddle_tpu_torch
 import paddle_tpu_torch.ops.paged_attention as k2
 import paddle_tpu_torch.ops.ragged_paged_attention as k1
 from paddle_tpu_torch.inference import create_serving_engine
-from paddle_tpu_torch.models import Llama, LlamaConfig
+from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch.models import Llama, LlamaConfig, llama_loss_fn
 from paddle_tpu_torch.models.llama import rope_tables
 from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import SamplingParams, create_engine
 from paddle_tpu_torch.serving.engine import UNPORTED_KNOBS
 from paddle_tpu_torch.serving.kv_cache import KVCachePool
@@ -67,7 +69,9 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_scan_sees_the_whole_port():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "model_runner.py", "ragged_paged_attention.py",
-            "paged_attention.py", "_build.py", "chip_smoke.py"} <= names
+            "paged_attention.py", "_build.py", "chip_smoke.py",
+            "flash_attention.py", "impl.py", "flags.py", "optimizer.py",
+            "clip.py", "api.py", "weights.py"} <= names
 
 
 # ------------------------------------------------------------- devices
@@ -210,7 +214,8 @@ def test_unported_model_and_pool_options_raise(model):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         KVCachePool(1, 4, 4, 1, 8, dtype=torch.bfloat16, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Llama(LlamaConfig(**SIZES), device="cpu")(torch.zeros(1, 4).long())
+        TrainStep(model, llama_loss_fn, AdamW(parameters=model.parameters()),
+                  amp_level="O1")
 
 
 def test_sampled_decoding_raises(model):
