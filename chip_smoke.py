@@ -12,17 +12,21 @@ exits non-zero without printing a result:
               process per source, started together) and the seconds it
               took are printed with ptxas's register report.
   3. kernels  each serving kernel's wrapper against its plain PyTorch
-              version on the card: the ragged kernel (K1) at LLaMA-2-7B
-              heads and at a GQA layout over mixed spans (decode, chunks at
-              start_pos > 0 crossing page boundaries, a dead slot, padded
-              bucket rows), the paged-decode kernel (K2) at b=8, h=32,
-              d=128 with pos on and off page boundaries, then both at the
-              shapes the engine gives them (phase 6). Tolerance: max
-              |kernel - plain| <= 1e-4 in fp32 (the two sum in different
-              orders); padded and dead rows must be exactly 0. Times are
-              medians of CUDA-event timings. The sweep over every head dim
-              the gates admit, GQA group and page size is
-              tests/test_torch_cuda.py.
+              version on the card: the ragged kernel over fp32 pools (K1)
+              at LLaMA-2-7B heads and at a GQA layout over mixed spans
+              (decode, chunks at start_pos > 0 crossing page boundaries, a
+              dead slot, padded bucket rows); the ragged kernel over int8
+              pools with per-page, per-kv-head scales and over
+              float8_e4m3fn pools (K1-q) on the same codes and scales at
+              LLaMA-2-7B heads (8 decode rows, T = 1, and a 256-row chunk
+              at start_pos 256) and at the GQA layout; the paged-decode
+              kernel (K2) at b=8, h=32, d=128 with pos on and off page
+              boundaries; then each at the shapes the engine gives it
+              (phase 8). Tolerance: max |kernel - plain| <= 1e-4 in fp32
+              (the two sum in different orders); padded and dead rows must
+              be exactly 0. Times are medians of CUDA-event timings. The
+              sweep over every head dim the gates admit, GQA group and page
+              size is tests/test_torch_cuda.py.
   4. engine   LLaMA-2-7B at full width and depth, fp32, seeded random
               weights built on the card, served through
               inference.create_serving_engine: 8 requests with seeded
@@ -36,11 +40,36 @@ exits non-zero without printing a result:
               steps of 8 sequences, device time by kernel group, each
               kernel's device time per launch, and the idle share against
               the wall of as many unprofiled steps.
-  6. timing   each serving kernel at the engine's shapes against its plain
-              version, its bound and the library yardstick, with L2
-              flushed before every timed call. Then the engine is freed:
-              under 1 GiB may stay allocated before the trainer is built.
-  7. flash    the flash kernels (K3a forward, K3b-dq, K3b-dkv) through the
+  6. int8,    the same model, requests and budget served from an int8 and
+     fp8      then an fp8 KV pool (kv_dtype="int8" / "fp8", 1024 pages of
+              16, about 4 GiB each). Every prefill chunk and every decode
+              step must launch the K1-q kernel of that dtype once per
+              layer, and nothing else: no plain version, no K1 over fp32
+              pools, no K2. No page may leak. Each engine is then
+              profiled as in phase 5. Reported, not gated: each
+              engine's greedy agreement with the fp32 engine and with its
+              own naive_generate on two requests. cuBLAS rounds a row of
+              an fp32 x @ w differently for another row count (printed
+              first), the batch-8 engine and naive_generate run other row
+              counts, and 1-byte K/V turn those 1-ulp differences into
+              whole quantization steps. Gated instead: an engine with one
+              slot serves the two shortest prompts (one chunk each, then
+              batch-1 decode steps, naive_generate's row counts) through
+              K1-q alone and must equal naive_generate token for token,
+              for int8 and for fp8.
+  7. check    a 2-layer model at full width over int8 and over fp8 pools:
+              two 256-token prefill chunks and 8 decode steps (a dead slot
+              beside the live one) through K1-q, then the same steps on the
+              plain gather path (attn_impl="reference") from fresh pools;
+              the logits of every call within 1e-4 * max|logit|.
+  8. timing   each serving kernel at the engine's shapes against its plain
+              version, its bound and the library yardstick (SDPA on K/V
+              gathered and dequantized beforehand), with L2 flushed before
+              every timed call: K1 and K1-q at a 256-token chunk at
+              start_pos 256, K1-q also at the decode step of 8 sequences,
+              K2 at that decode step. Then the engine is freed: under 1 GiB
+              may stay allocated before the trainer is built.
+  9. flash    the flash kernels (K3a forward, K3b-dq, K3b-dkv) through the
               autograd.Function and torch.autograd.grad against their
               plain versions: b=1, s=4096, h=32, d=128 causal, and a sweep
               over d in {64, 128, 256}, causal or not, s in {1, 100, 1000}
@@ -48,26 +77,27 @@ exits non-zero without printing a result:
               o and lse within 1e-4; each of dq, dk, dv within 1e-4 *
               max|plain gradient| (with one key, where the exact dq and dk
               are 0, within 1e-4 * max|plain dv|).
-  8. trainer  the training path: LLaMA-2-7B widths at 8 of 32 layers,
+ 10. trainer  the training path: LLaMA-2-7B widths at 8 of 32 layers,
               fp32, seeded random weights on the card, jit.TrainStep with
               AdamW(1e-4, weight decay 0.01, global-norm clip 1.0) on one
               seeded batch of 4096 tokens, 2 warm-up and 6 timed steps.
               Losses must be finite and fall, each flash kernel must launch
               8 times per step and no plain version at all.
-  9. profile  where a training step's time goes: torch.profiler over 2
+ 11. profile  where a training step's time goes: torch.profiler over 2
               steps, device time by group (matmul, K3a, K3b-dq, K3b-dkv,
               optimizer, other), each flash kernel's ms per launch and the
               idle share against 2 unprofiled steps.
- 10. check    a 2-layer model at full width, seq 1024, trained one step
+ 12. check    a 2-layer model at full width, seq 1024, trained one step
               through the kernels and once on the dense path
               (FLAGS_use_flash_attention off) from the same weights and
               batch: loss within 1e-5 relative, every gradient within 1e-3
               * its max|grad|.
- 11. timing   each flash kernel at the trainer's shape (b=1, s=4096, h=32,
+ 13. timing   each flash kernel at the trainer's shape (b=1, s=4096, h=32,
               d=128, causal) against its plain version, its bound and
               scaled_dot_product_attention as the yardstick, L2 flushed.
- 12. summary  one JSON line of every kernel's launches, error and times,
-              the nvidia-smi line, then the result line.
+ 14. summary  one JSON line of every kernel's launches, error and times
+              (K1-q's decode-step times as extra decode_* keys), the
+              nvidia-smi line, then the result line.
 
 fp32 products stay fp32: TF32 is switched off for matmuls and cuDNN.
 """
@@ -156,35 +186,66 @@ def _tables(B, P, num_pages, gen, used=None):
     return table.to(gen.device)
 
 
-def check_ragged(n_q, n_kv, gen, label):
-    """K1 against ragged_reference over mixed spans; returns max error."""
+# (COUNTS attribute, label) of the ragged kernel per pool storage type
+K1_VARIANTS = {"fp32": ("COUNTS", "K1 ragged"),
+               "int8": ("COUNTS_I8", "K1-q int8 ragged"),
+               "fp8": ("COUNTS_F8", "K1-q fp8 ragged")}
+# spans (start_pos, q_len, padded T) of the kernel checks
+SPANS_MIXED = ([37, 40, 0, 0, 100], [1, 50, 0, 64, 20], 64)
+SPANS_DECODE = ([0, 15, 16, 17, 31, 100, 255, 600], [1] * 8, 1)
+SPANS_CHUNK = ([256], [256], 256)
+
+
+def _as_kind(k_pool, v_pool, kind, gen):
+    """fp32 pools -> (k, v, k_scale, v_scale) of a ``kind`` pool: int8
+    codes with seeded per-page, per-kv-head scales in [1e-3, 5.1e-2], or
+    the float8_e4m3fn cast of the values; fp32 as given."""
+    if kind == "fp32":
+        return k_pool, v_pool, None, None
+    if kind == "fp8":
+        return (k_pool.to(torch.float8_e4m3fn),
+                v_pool.to(torch.float8_e4m3fn), None, None)
+    codes = [torch.randint(-127, 128, k_pool.shape, device=gen.device,
+                           generator=gen, dtype=torch.int8)
+             for _ in range(2)]
+    scales = [torch.rand(k_pool.shape[0], k_pool.shape[2], device=gen.device,
+                         generator=gen) * 0.05 + 1e-3 for _ in range(2)]
+    return (*codes, *scales)
+
+
+def check_ragged(n_q, n_kv, gen, label, kind="fp32", spans=SPANS_MIXED):
+    """K1 (fp32 pools) or K1-q (int8 / fp8 pools) against ragged_reference
+    on the same operands; returns the max abs error."""
     from paddle_tpu_torch.ops.ragged_paged_attention import (
         ragged_paged_attention, ragged_reference,
     )
-    d, ps, T, P = 128, 16, 64, 16
-    # decode, chunk crossing pages at an offset, dead slot, full chunk,
-    # short chunk with padded bucket rows
-    start = [37, 40, 0, 0, 100]
-    qlen = [1, 50, 0, 64, 20]
+    d, ps = 128, 16
+    start, qlen, T = spans
     B = len(start)
+    P = -(-(max(start) + T) // ps)
     k_pool, v_pool = _pools(B * P + 1, ps, n_kv, d, gen)
+    k, v, ks, vs = _as_kind(k_pool, v_pool, kind, gen)
     table = _tables(B, P, B * P + 1, gen)
-    table[2] = 0                                  # dead slot: all scratch
+    for b, n in enumerate(qlen):
+        if n == 0:
+            table[b] = 0                          # dead slot: all scratch
     q = torch.randn(B, T, n_q, d, device=gen.device, generator=gen)
     st = torch.tensor(start, dtype=torch.int32, device=gen.device)
     ql = torch.tensor(qlen, dtype=torch.int32, device=gen.device)
-    out = ragged_paged_attention(q, k_pool, v_pool, table, st, ql)
-    ref = ragged_reference(q, k_pool, v_pool, table, st, ql)
+    out = ragged_paged_attention(q, k, v, table, st, ql, k_scale=ks,
+                                 v_scale=vs)
+    ref = ragged_reference(q, k, v, table, st, ql, k_scale=ks, v_scale=vs)
     err = (out - ref).abs().max().item()
+    name = K1_VARIANTS[kind][1]
     for b in range(B):
         if not bool((out[b, qlen[b]:] == 0).all()):
-            raise AssertionError(f"K1 {label}: rows past q_len of sequence "
-                                 f"{b} are not exactly 0")
-    log(f"kernel K1 ragged {label} (n_q={n_q}, n_kv={n_kv}, d={d}, ps={ps}, "
-        f"spans start={start} q_len={qlen}): max_abs_err={err:.3e}, padded "
-        "and dead rows exactly 0")
+            raise AssertionError(f"{name} {label}: rows past q_len of "
+                                 f"sequence {b} are not exactly 0")
+    log(f"kernel {name} {label} (n_q={n_q}, n_kv={n_kv}, d={d}, ps={ps}, "
+        f"T={T}, spans start={start} q_len={qlen}): max_abs_err={err:.3e}, "
+        "padded and dead rows exactly 0")
     if not err <= TOL:
-        raise AssertionError(f"K1 {label}: max_abs_err {err} > {TOL}")
+        raise AssertionError(f"{name} {label}: max_abs_err {err} > {TOL}")
     return err
 
 
@@ -209,48 +270,67 @@ def check_paged(gen):
     return err
 
 
-def measure_ragged(gen, n_heads, num_blocks, P):
-    """K1 at the engine's prefill-chunk shape: the second 256-token chunk
-    of a longer prompt (keys 0..511 visible), MHA at 7B heads."""
+def measure_ragged(gen, n_heads, num_blocks, P, kind="fp32",
+                   spans=SPANS_CHUNK):
+    """K1 / K1-q at an engine shape, MHA at 7B heads: by default the
+    second 256-token chunk of a longer prompt (keys 0..511 visible), or
+    the decode step of the engine's sequences (T = 1)."""
     from paddle_tpu_torch.ops.ragged_paged_attention import (
-        ragged_paged_attention, ragged_reference,
+        dequantize_pages, ragged_paged_attention, ragged_reference,
     )
-    d, ps, T, start = 128, 16, 256, 256
+    d, ps = 128, 16
+    start, qlen, T = spans
+    B = len(start)
     k_pool, v_pool = _pools(num_blocks, ps, n_heads, d, gen)
-    table = _tables(1, P, num_blocks, gen, used=[(start + T) // ps])
-    q = torch.randn(1, T, n_heads, d, device="cuda", generator=gen)
-    st = torch.tensor([start], dtype=torch.int32, device="cuda")
-    ql = torch.tensor([T], dtype=torch.int32, device="cuda")
-    out = ragged_paged_attention(q, k_pool, v_pool, table, st, ql)
-    ref = ragged_reference(q, k_pool, v_pool, table, st, ql)
+    k, v, ks, vs = _as_kind(k_pool, v_pool, kind, gen)
+    del k_pool, v_pool
+    pages = [-(-(s + T) // ps) for s in start]   # pages each walk reads
+    table = _tables(B, P, num_blocks, gen, used=pages)
+    q = torch.randn(B, T, n_heads, d, device="cuda", generator=gen)
+    st = torch.tensor(start, dtype=torch.int32, device="cuda")
+    ql = torch.tensor(qlen, dtype=torch.int32, device="cuda")
+    args = (q, k, v, table, st, ql)
+    kw = dict(k_scale=ks, v_scale=vs)
+    out = ragged_paged_attention(*args, **kw)
+    ref = ragged_reference(*args, **kw)
     err = (out - ref).abs().max().item()
     if not err <= TOL:
-        raise AssertionError(f"K1 engine shape: max_abs_err {err} > {TOL}")
-    ms = median_ms(lambda: ragged_paged_attention(q, k_pool, v_pool, table,
-                                                  st, ql))
-    plain = median_ms(lambda: ragged_reference(q, k_pool, v_pool, table,
-                                               st, ql), iters=5)
-    # library yardstick: SDPA over the pre-gathered visible keys
-    L = start + T
-    idx = table[0, :L // ps].long()
-    kg = k_pool[idx].reshape(1, L, n_heads, d).transpose(1, 2).contiguous()
-    vg = v_pool[idx].reshape(1, L, n_heads, d).transpose(1, 2).contiguous()
+        raise AssertionError(f"{K1_VARIANTS[kind][1]} engine shape: "
+                             f"max_abs_err {err} > {TOL}")
+    ms = median_ms(lambda: ragged_paged_attention(*args, **kw))
+    plain = median_ms(lambda: ragged_reference(*args, **kw), iters=5)
+    # library yardstick: SDPA over the visible keys, gathered (and
+    # dequantized) beforehand
+    L = max(s + T for s in start)
+    idx = table[:, :-(-L // ps)].long()
+    kg, vg = ((dequantize_pages(pool, idx, sc).flatten(1, 2)[:, :L]
+               .transpose(1, 2).contiguous())
+              for pool, sc in ((k, ks), (v, vs)))
     qT = q.transpose(1, 2).contiguous()
-    mask = (torch.arange(L, device="cuda")[None, :]
-            <= start + torch.arange(T, device="cuda")[:, None])
+    mask = (torch.arange(L, device="cuda")[None, None, :]
+            <= (st.long()[:, None, None]
+                + torch.arange(T, device="cuda")[None, :, None]))[:, None]
     lib = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qT, kg, vg, attn_mask=mask))
-    # the least work: each visible K/V row read once, q read, out written;
+    # the least work: each visible K/V row read once (1 byte per element
+    # on int8 / fp8 pools, plus one fp32 scale per page and kv head for
+    # K and V on int8), the table entries walked, q read and out written;
     # 4*d FLOPs per visible (row, key, head)
-    nbytes = 4 * (2 * q.numel() + 2 * L * n_heads * d) + 4 * (P + 2)
-    flops = 4 * d * n_heads * sum(start + t + 1 for t in range(T))
+    keys = sum(s + T for s in start)
+    elem = 4 if kind == "fp32" else 1
+    nbytes = (4 * 2 * q.numel() + elem * 2 * keys * n_heads * d
+              + 4 * (sum(pages) + 2 * B))
+    if kind == "int8":
+        nbytes += 4 * 2 * sum(pages) * n_heads
+    flops = 4 * d * n_heads * sum(s + t + 1 for s in start for t in range(T))
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOP_PER_S
     return dict(max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=lib,
-                shape=f"q[1,{T},{n_heads},{d}] start_pos={start} "
-                      f"pool[{num_blocks},{ps},{n_heads},{d}] table[1,{P}]")
+                shape=f"q[{B},{T},{n_heads},{d}] start_pos={start} "
+                      f"{kind} pool[{num_blocks},{ps},{n_heads},{d}] "
+                      f"table[{B},{P}]")
 
 
 def measure_paged(gen, n_heads, num_blocks, P, positions):
@@ -298,12 +378,6 @@ def measure_paged(gen, n_heads, num_blocks, P, positions):
 
 # ------------------------------------------------------------- engine
 
-def _peak_gib(device) -> float:
-    if device.type != "cuda":
-        return float("nan")
-    return torch.cuda.max_memory_allocated() / 2**30
-
-
 def check_against_naive(runner, prompt, out_tokens, sp, max_model_len):
     """The engine's tokens must equal naive_generate's, token for token."""
     from paddle_tpu_torch.serving import naive_generate
@@ -318,23 +392,36 @@ def check_against_naive(runner, prompt, out_tokens, sp, max_model_len):
     return "token-exact"
 
 
-def engine_phase(cfg, seed=0, n_requests=8, max_tokens=32, device="cuda"):
+def _all_counts():
+    """(name, LaunchCounts) of every serving kernel wrapper."""
     import paddle_tpu_torch.ops.paged_attention as k2
     import paddle_tpu_torch.ops.ragged_paged_attention as k1
+    return (("ragged_paged_attention", k1.COUNTS),
+            ("ragged_paged_attention_int8", k1.COUNTS_I8),
+            ("ragged_paged_attention_fp8", k1.COUNTS_F8),
+            ("paged_decode_attention", k2.COUNTS))
+
+
+def engine_phase(model, cfg, kv_dtype="fp32", seed=0, n_requests=8,
+                 max_tokens=32, ref_tokens=None):
+    """Serve the seeded requests from a ``kv_dtype`` pool through
+    create_serving_engine and gate the run (phases 4 and 6). Returns the
+    engine, the launches of each kernel of the path, the decode positions
+    for phase 8 and every request's tokens."""
     from paddle_tpu_torch.inference import create_serving_engine
-    from paddle_tpu_torch.models import Llama
     from paddle_tpu_torch.serving import SamplingParams
 
     t0 = time.perf_counter()
-    model = Llama(cfg, device=device, seed=seed)
     eng = create_serving_engine(
-        model, device=device, block_size=16, num_blocks=1024,
+        model, device="cuda", block_size=16, num_blocks=1024,
         max_batch_size=8, max_model_len=4096,
-        max_prefill_tokens_per_step=256, audit=True)
-    log(f"engine setup: {cfg.num_layers} layers, hidden {cfg.hidden_size}, "
-        f"heads {cfg.num_heads}/{cfg.num_kv_heads}, fp32 weights "
-        f"{sum(p.numel() for p in model.parameters()) * 4 / 2**30:.2f} GiB, "
-        f"pool {eng.pool.memory_bytes() / 2**30:.2f} GiB, "
+        max_prefill_tokens_per_step=256, kv_dtype=kv_dtype, audit=True)
+    m = eng.metrics
+    log(f"engine setup ({kv_dtype} KV): {cfg.num_layers} layers, hidden "
+        f"{cfg.hidden_size}, heads {cfg.num_heads}/{cfg.num_kv_heads}, fp32 "
+        f"weights {sum(p.numel() for p in model.parameters()) * 4 / 2**30:.2f}"
+        f" GiB, pool {eng.pool.memory_bytes() / 2**30:.3f} GiB "
+        f"(kv_bytes_reduction_x {m.kv_bytes_reduction_x.value:.4f}), "
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(seed)
     lens = rng.integers(100, 601, n_requests)
@@ -342,52 +429,190 @@ def engine_phase(cfg, seed=0, n_requests=8, max_tokens=32, device="cuda"):
                for n in lens]
     sp = SamplingParams(max_tokens=max_tokens)
 
-    for counts in (k1.COUNTS, k2.COUNTS):
-        counts.reset()
-    if eng.runner.device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
+    counts = _all_counts()
+    for _, c in counts:
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
     ids = [eng.add_request(p, sp) for p in prompts]
     decode_ms = []
     t_run = time.perf_counter()
     while eng.has_work():
-        chunks = eng.metrics.prefill_chunks.value
+        chunks = m.prefill_chunks.value
         t = time.perf_counter()
         eng.step()      # ends in a blocking drain of the step's tokens
-        if eng.metrics.prefill_chunks.value == chunks:
+        if m.prefill_chunks.value == chunks:
             decode_ms.append(1e3 * (time.perf_counter() - t))
     wall = time.perf_counter() - t_run
-    launches = {"ragged_paged_attention": k1.COUNTS.kernel_launches,
-                "paged_decode_attention": k2.COUNTS.kernel_launches}
-    plain = k1.COUNTS.plain_launches + k2.COUNTS.plain_launches
+    kernel = {name: c.kernel_launches for name, c in counts}
+    plain = sum(c.plain_launches for _, c in counts)
     outs = eng.outputs()
-    m = eng.metrics
-    log(f"engine run: {len(outs)}/{n_requests} finished, prompt lens "
-        f"{lens.tolist()}, {int(m.tokens_generated.value)} tokens in "
-        f"{wall:.3f} s = {m.tokens_generated.value / wall:.1f} tokens/s, "
+    log(f"engine run ({kv_dtype} KV): {len(outs)}/{n_requests} finished, "
+        f"prompt lens {lens.tolist()}, {int(m.tokens_generated.value)} tokens"
+        f" in {wall:.3f} s = {m.tokens_generated.value / wall:.1f} tokens/s, "
         f"TTFT mean {1e3 * m.ttft_s.mean:.1f} ms p50 "
         f"{1e3 * m.ttft_s.percentile(50):.1f} ms, {len(decode_ms)} "
         f"decode-only steps mean {statistics.mean(decode_ms):.2f} ms, "
         f"{int(m.prefill_chunks.value)} prefill chunks, "
+        f"{m.batch_occupancy.count} decode calls, "
         f"{int(m.preemptions.value)} preemptions, peak memory "
-        f"{_peak_gib(eng.runner.device):.2f} GiB")
-    log(f"engine launches: {launches}, plain launches {plain}")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"engine launches ({kv_dtype} KV): {kernel}, plain launches {plain}")
     if len(outs) != n_requests or any(
             o.finish_reason != "length" or len(o.output_tokens) != max_tokens
             for o in outs.values()):
         raise AssertionError("not every request finished with max_tokens")
-    if min(launches.values()) == 0 or plain != 0:
-        raise AssertionError(f"main path missed a kernel: {launches}, "
-                             f"plain launches {plain}")
+    if kv_dtype == "fp32":
+        path = ("ragged_paged_attention", "paged_decode_attention")
+        if min(kernel[n] for n in path) == 0:
+            raise AssertionError(f"main path missed a kernel: {kernel}")
+    else:
+        # K1-q on every prefill chunk and every decode call, once a layer
+        path = (f"ragged_paged_attention_{kv_dtype}",)
+        calls = int(m.prefill_chunks.value) + m.batch_occupancy.count
+        if kernel[path[0]] != cfg.num_layers * calls:
+            raise AssertionError(
+                f"{path[0]} launched {kernel[path[0]]} times, not "
+                f"{cfg.num_layers} layers x {calls} calls")
+    if plain != 0 or any(n not in path and k for n, k in kernel.items()):
+        raise AssertionError(f"the {kv_dtype} path launched another kernel "
+                             f"or a plain version: {kernel}, plain {plain}")
     if not eng.pool.allocator.check_no_leaks():
         raise AssertionError("engine leaked KV pages")
+    tokens = [outs[i].output_tokens for i in ids]
     # the longest prompt (prefilled in three chunks) and the shortest
-    for i in (int(np.argmax(lens)), int(np.argmin(lens))):
-        verdict = check_against_naive(eng.runner, prompts[i],
-                                      outs[ids[i]].output_tokens, sp, 4096)
-        log(f"naive_generate check, request {i} (prompt {lens[i]}): "
-            f"{verdict}")
+    checked = (int(np.argmax(lens)), int(np.argmin(lens)))
+    if kv_dtype == "fp32":
+        for i in checked:
+            verdict = check_against_naive(eng.runner, prompts[i], tokens[i],
+                                          sp, 4096)
+            log(f"naive_generate check ({kv_dtype} KV), request {i} (prompt "
+                f"{lens[i]}): {verdict}")
+    else:
+        # reported, not gated: cuBLAS rounds a row of x @ w differently
+        # for another row count (gemm_row_invariance), the batch-8 engine
+        # and naive_generate run other row counts, and 1-byte K/V turn
+        # those 1-ulp differences into whole quantization steps
+        from paddle_tpu_torch.serving import naive_generate
+        refs = [naive_generate(eng.runner, prompts[i], sp, max_model_len=4096)
+                for i in checked]
+        _agreement(f"{kv_dtype} engine vs its naive_generate on requests "
+                   f"{list(checked)}", [tokens[i] for i in checked], refs)
+        _agreement(f"{kv_dtype} engine vs fp32 engine", tokens, ref_tokens)
     positions = [int(n) + max_tokens // 2 for n in lens]
-    return eng, launches, positions
+    return eng, {n: kernel[n] for n in path}, positions, tokens, prompts
+
+
+def _agreement(label, tokens, refs):
+    same = sum(int(a == b) for t, r in zip(tokens, refs) for a, b in zip(t, r))
+    total = sum(map(len, refs))
+    first = [next((j for j, (a, b) in enumerate(zip(t, r)) if a != b), None)
+             for t, r in zip(tokens, refs)]
+    log(f"{label} (reported, not gated): greedy agreement {same}/{total} "
+        f"tokens = {same / total:.4f}; first divergence per request {first}")
+
+
+def gemm_row_invariance(gen, ms=(1, 8, 16, 256, 1024)):
+    """Whether cuBLAS's fp32 x @ w gives row 0 the same bits at every row
+    count M, for the runner's four weight shapes at 7B width."""
+    same = {}
+    for k, n in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)):
+        w = torch.randn(k, n, device="cuda", generator=gen) * 0.02
+        x = torch.randn(max(ms), k, device="cuda", generator=gen)
+        row = {m: (x[:m] @ w)[0] for m in ms}
+        same[f"{k}x{n}"] = [m for m in ms if torch.equal(row[m], row[1])]
+    log(f"gemm row invariance: row counts M whose row 0 of x[:M] @ w equals "
+        f"M=1's bit for bit, per weight shape: {json.dumps(same)}")
+
+
+def single_slot_check(model, cfg, kv_dtype, prompts, max_tokens=32):
+    """An engine with one slot serves each prompt in one prefill chunk and
+    then batch-1 decode steps: the row counts of naive_generate, so its
+    tokens must equal naive_generate's exactly (int8 scales too: both
+    write the same chunks), through K1-q alone."""
+    from paddle_tpu_torch.inference import create_serving_engine
+    from paddle_tpu_torch.serving import SamplingParams
+
+    eng = create_serving_engine(
+        model, device="cuda", block_size=16, num_blocks=128,
+        max_batch_size=1, max_model_len=1024,
+        max_prefill_tokens_per_step=256, kv_dtype=kv_dtype, audit=True)
+    sp = SamplingParams(max_tokens=max_tokens)
+    counts = _all_counts()
+    for _, c in counts:
+        c.reset()
+    ids = [eng.add_request(p, sp) for p in prompts]
+    outs = eng.run()
+    kernel = {name: c.kernel_launches for name, c in counts}
+    name = f"ragged_paged_attention_{kv_dtype}"
+    calls = int(eng.metrics.prefill_chunks.value) + \
+        eng.metrics.batch_occupancy.count
+    if (kernel[name] != cfg.num_layers * calls or sum(kernel.values())
+            != kernel[name] or any(c.plain_launches for _, c in counts)):
+        raise AssertionError(f"single-slot {kv_dtype} engine: {kernel}")
+    if not eng.pool.allocator.check_no_leaks():
+        raise AssertionError("single-slot engine leaked KV pages")
+    for rid, p in zip(ids, prompts):
+        verdict = check_against_naive(eng.runner, p, outs[rid].output_tokens,
+                                      sp, 1024)
+        log(f"naive_generate check ({kv_dtype} KV, one slot), prompt "
+            f"{len(p)}: {verdict}")
+
+
+def quant_model_check(cfg, kind, seed=2, chunk=256, n_chunks=2, steps=8):
+    """Phase 7: a model at full width over a ``kind`` pool, prefill chunks
+    and decode steps through K1-q against the same steps on the plain
+    gather path from fresh pools: every call's logits within TOL of its
+    max|logit|."""
+    import paddle_tpu_torch.ops.ragged_paged_attention as k1
+    from paddle_tpu_torch.models import Llama
+    from paddle_tpu_torch.serving import KVCachePool, LlamaRunner
+
+    model = Llama(cfg, device="cuda", seed=seed)
+    counts = getattr(k1, K1_VARIANTS[kind][0])
+    ps, P = 16, 64
+    prompt = np.random.default_rng(seed).integers(
+        1, cfg.vocab_size, chunk * n_chunks).tolist()
+
+    def run(attn_impl, feed):
+        runner = LlamaRunner(model, block_size=ps, max_model_len=ps * P,
+                             attn_impl=attn_impl, kv_dtype=kind)
+        pool = KVCachePool(cfg.num_layers, 1 + P, ps, runner.n_kv_heads,
+                           runner.head_dim, device="cuda", kv_dtype=kind)
+        table = pool.pad_table(pool.allocator.alloc(P), P)
+        pools, logits = pool.pools, []
+        for c in range(n_chunks):
+            lg, pools = runner.prefill_chunk(
+                prompt[c * chunk:(c + 1) * chunk], c * chunk, table, pools)
+            logits.append(lg)
+        tables = np.asarray([table, [0] * P], np.int32)    # slot 1 is dead
+        for i in range(steps):
+            if len(feed) <= i:
+                feed.append(int(torch.argmax(logits[-1])))
+            lg, pools = runner.decode(
+                np.asarray([feed[i], 0], np.int32), tables,
+                np.asarray([chunk * n_chunks + i, 0], np.int32), pools)
+            logits.append(lg[0])
+        return logits
+
+    feed = []
+    before = (counts.kernel_launches, counts.plain_launches)
+    out_k = run("auto", feed)
+    mid = (counts.kernel_launches, counts.plain_launches)
+    out_r = run("reference", feed)
+    calls = n_chunks + steps
+    if (mid[0] - before[0] != cfg.num_layers * calls or mid[1] != before[1]
+            or (counts.kernel_launches, counts.plain_launches) != mid):
+        raise AssertionError(f"{K1_VARIANTS[kind][1]}: the kernel run must "
+                             f"launch it {cfg.num_layers * calls} times and "
+                             "the reference run never")
+    worst = max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(out_k, out_r))
+    log(f"K1-q {kind} vs the gather path ({cfg.num_layers} layers, full "
+        f"width, {n_chunks} chunks of {chunk} + {steps} decode steps beside a "
+        f"dead slot): worst max|logit diff| / max|logit| {worst:.3e}")
+    if not worst <= TOL:
+        raise AssertionError(f"K1-q {kind}: logits differ from the gather "
+                             f"path by {worst:.3e} > {TOL} of their max")
 
 
 # ------------------------------------------------------------ profile
@@ -435,7 +660,8 @@ def _device_ms(prof):
 
 def profile_phase(eng, cfg, seed=1, n_requests=8, prompt_len=300,
                   steps=4):
-    """Where a step's time goes: torch.profiler over (a) steps that each
+    """Where a step's time goes (phases 5 and 6, K1 counting K1-q's
+    launches on an int8 / fp8 pool): torch.profiler over (a) steps that each
     compute one fresh 256-token prefill chunk and nothing else, and (b)
     decode-only steps of 8 sequences. Device time is summed by kernel
     group; the idle share is 1 - device busy / host wall, the wall taken
@@ -447,6 +673,7 @@ def profile_phase(eng, cfg, seed=1, n_requests=8, prompt_len=300,
     from paddle_tpu_torch.serving import SamplingParams
 
     rng = np.random.default_rng(seed)
+    c1 = getattr(k1, K1_VARIANTS[eng.kv_dtype][0])   # K1 or K1-q
 
     def add(n, length, max_tokens):
         for _ in range(n):
@@ -462,7 +689,7 @@ def profile_phase(eng, cfg, seed=1, n_requests=8, prompt_len=300,
         return 1e3 * (time.perf_counter() - t) / steps
 
     def window(label, wall):
-        launches = (k1.COUNTS.kernel_launches, k2.COUNTS.kernel_launches)
+        launches = (c1.kernel_launches, k2.COUNTS.kernel_launches)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -471,7 +698,7 @@ def profile_phase(eng, cfg, seed=1, n_requests=8, prompt_len=300,
             torch.cuda.synchronize()
         groups, top = _device_ms(prof)
         busy = sum(groups.values()) / steps
-        n1 = k1.COUNTS.kernel_launches - launches[0]
+        n1 = c1.kernel_launches - launches[0]
         n2 = k2.COUNTS.kernel_launches - launches[1]
         per = {g: round(ms / steps, 4) for g, ms in
                sorted(groups.items(), key=lambda kv: -kv[1])}
@@ -479,8 +706,8 @@ def profile_phase(eng, cfg, seed=1, n_requests=8, prompt_len=300,
                       for name, g, n in (
                           ("K1", "K1 ragged_paged_attention", n1),
                           ("K2", "K2 paged_decode_attention", n2)) if n}
-        log(f"profile {label}: host wall {wall:.3f} ms/step, device busy "
-            f"{busy:.3f} ms/step, idle share {1 - busy / wall:.3f}; K1/K2 "
+        log(f"profile ({eng.kv_dtype} KV) {label}: host wall {wall:.3f} "
+            f"ms/step, device busy {busy:.3f} ms/step, idle share {1 - busy / wall:.3f}; K1/K2 "
             f"launches per step {n1 / steps:.0f}/{n2 / steps:.0f}, device "
             f"ms per launch {json.dumps(per_launch)}; device ms/step by "
             f"group {json.dumps(per)}")
@@ -874,7 +1101,7 @@ def main() -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 2
     try:
-        from paddle_tpu_torch.models import LLAMA2_7B
+        from paddle_tpu_torch.models import LLAMA2_7B, Llama
         from paddle_tpu_torch.ops import _build
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run it from the "
@@ -896,42 +1123,81 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    err_k1 = max(check_ragged(32, 32, gen, "MHA"),
-                 check_ragged(32, 8, gen, "GQA"))
-    err_k2 = check_paged(gen)
+    errs = {"ragged_paged_attention": max(check_ragged(32, 32, gen, "MHA"),
+                                          check_ragged(32, 8, gen, "GQA"))}
+    for kind in ("int8", "fp8"):
+        errs[f"ragged_paged_attention_{kind}"] = max(
+            check_ragged(32, 32, gen, "MHA decode", kind, SPANS_DECODE),
+            check_ragged(32, 32, gen, "MHA chunk", kind, SPANS_CHUNK),
+            check_ragged(32, 8, gen, "GQA", kind))
+    errs["paged_decode_attention"] = check_paged(gen)
 
     cfg = LLAMA2_7B
-    eng, launches, positions = engine_phase(cfg)
+    model = Llama(cfg, device="cuda", seed=0)
+    eng, launches, positions, fp32_tokens, _ = engine_phase(model, cfg)
     profile_phase(eng, cfg)
     del eng
+    _free_the_card()
+    gemm_row_invariance(gen)
+    for kind in ("int8", "fp8"):
+        eng, more, _, _, prompts = engine_phase(model, cfg, kind,
+                                                ref_tokens=fp32_tokens)
+        launches.update(more)
+        profile_phase(eng, cfg)
+        del eng
+        _free_the_card()
+        # the two shortest prompts fit one 256-token chunk
+        single_slot_check(model, cfg, kind, sorted(prompts, key=len)[:2])
+        _free_the_card()
+    del model
+    _free_the_card()
+    for kind in ("int8", "fp8"):
+        quant_model_check(replace(cfg, num_layers=2), kind)
+    _free_the_card()
 
-    torch.cuda.empty_cache()
     P = 4096 // 16
-    k1 = measure_ragged(gen, cfg.num_heads, 1024, P)
-    k2 = measure_paged(gen, cfg.num_heads, 1024, P, positions)
+    decode = (positions, [1] * len(positions), 1)
+    meas = {"ragged_paged_attention": measure_ragged(gen, cfg.num_heads,
+                                                     1024, P)}
+    for kind in ("int8", "fp8"):
+        name = f"ragged_paged_attention_{kind}"
+        meas[name] = measure_ragged(gen, cfg.num_heads, 1024, P, kind)
+        dec = measure_ragged(gen, cfg.num_heads, 1024, P, kind, decode)
+        meas[name]["decode"] = dec
+        meas[name]["max_abs_err"] = max(meas[name]["max_abs_err"],
+                                        dec["max_abs_err"])
+    meas["paged_decode_attention"] = measure_paged(gen, cfg.num_heads, 1024,
+                                                   P, positions)
     rows = []
-    for name, src, replaces, meas, err in (
-            ("ragged_paged_attention",
-             "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
-             "paddle_tpu/ops/pallas/ragged_paged_attention.py:142", k1,
-             err_k1),
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    k1_src = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
+    k1_tpu = "paddle_tpu/ops/pallas/ragged_paged_attention.py:142"
+    for name, src, replaces in (
+            ("ragged_paged_attention", k1_src, k1_tpu),
+            ("ragged_paged_attention_int8", k1_src, k1_tpu),
+            ("ragged_paged_attention_fp8", k1_src, k1_tpu),
             ("paged_decode_attention",
              "paddle_tpu_torch/csrc/paged_decode_attention.cu",
-             "paddle_tpu/ops/pallas/paged_attention.py:92", k2, err_k2)):
-        log(f"timing {name} at {meas['shape']}: kernel {meas['ms']:.4f} ms, "
-            f"plain {meas['plain_ms']:.4f} ms, bound {meas['bound_ms']:.4f} "
-            f"ms ({meas['bound_by']}), library (SDPA on pre-gathered K/V) "
-            f"{meas['library_ms']:.4f} ms, max_abs_err "
-            f"{meas['max_abs_err']:.3e}")
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": max(err, meas["max_abs_err"]),
-                     "ms": meas["ms"], "plain_ms": meas["plain_ms"],
-                     "bound_ms": meas["bound_ms"],
-                     "bound_by": meas["bound_by"],
-                     "library_ms": meas["library_ms"]})
+             "paddle_tpu/ops/pallas/paged_attention.py:92")):
+        m = meas[name]
+        shapes = [(m["shape"], m)]
+        if "decode" in m:
+            shapes.append((m["decode"]["shape"], m["decode"]))
+        for shape, t in shapes:
+            log(f"timing {name} at {shape}: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}), library (SDPA on pre-gathered K/V) "
+                f"{t['library_ms']:.4f} ms, max_abs_err "
+                f"{t['max_abs_err']:.3e}")
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": max(errs[name], m["max_abs_err"]),
+               **{k: m[k] for k in keys}}
+        if "decode" in m:
+            row.update({f"decode_{k}": m["decode"][k] for k in keys})
+        rows.append(row)
 
-    # the training path: the engine, its model and runner are gone
+    # the training path: the engines, the model and the runners are gone
     _free_the_card()
     flash_err = flash_checks(gen)
     left = _free_the_card()

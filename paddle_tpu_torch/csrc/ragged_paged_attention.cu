@@ -1,7 +1,10 @@
-// Ragged paged attention (fp32 pools) for Hopper, sm_90a.
+// Ragged paged attention for Hopper, sm_90a: fp32 pools (K1) and
+// quantized pools (K1-q: int8 codes with per-page, per-kv-head scales, or
+// float8_e4m3fn).
 //
 // Replaces: paddle_tpu/ops/pallas/ragged_paged_attention.py ::
-//   ragged_paged_attention (kernel body _ragged_kernel).
+//   ragged_paged_attention (kernel body _ragged_kernel, with its
+//   kscale_ref / vscale_ref dequantize for int8 pools).
 //
 // Computes causal attention for a ragged batch of query spans straight off
 // the paged K/V pools. q [B, T, n_q, d]; pools [N, page_size, n_kv, d];
@@ -9,30 +12,42 @@
 // b sees the keys at positions <= start_pos[b] + t; rows t >= q_len[b] (and
 // dead slots, q_len = 0) come out exactly 0.0. GQA groups the n_rep = n_q /
 // n_kv query heads of one kv head into n_rep * T rows, row r = (rep, t)
-// flattened with t = r % T, as the Pallas kernel does.
+// flattened with t = r % T, as the Pallas kernel does. The output is fp32.
 //
 // What bounds it on the H100: a prefill chunk does 4 * d fp32 FLOPs per
 // visible (row, key) pair against one read of the visible pages, so at
 // T >= 64 rows per kv head the fp32 FLOPs (67 TFLOP/s) are the bound; at
-// decode widths (T = 1, n_rep rows) it is the page bytes (3.35 TB/s).
+// decode widths (T = 1, n_rep rows) it is the page bytes (3.35 TB/s), which
+// 1-byte pools cut to a quarter (int8 adds 8 bytes of scales per page and
+// kv head).
 //
 // Design: one thread block per (sequence, kv head, tile of 16 grouped query
 // rows). The block loads its query tile once, then walks the keys in tiles
 // of 16 positions, each position resolved through the block table, so the
 // walk is independent of the page size and stops at the tile's last visible
 // key (pages past it cost neither loads nor FLOPs). K and V tiles are staged
-// in shared memory with a padded row stride (d + 4 floats) so that the
-// float4 reads of eight different key rows fall in distinct banks. Each row
+// in shared memory as fp32 with a padded row stride (d + 4 floats) so that
+// the float4 reads of eight different key rows fall in distinct banks. The
+// pool type only changes the tile load (the `Kv` template parameter): each
+// thread reads 4 consecutive elements (16 bytes of fp32, or 4 bytes of
+// codes), dequantizes them (int8: code * scale[page * n_kv + kv head], the
+// page taken from the same table entry as the codes; fp8: the e4m3 value
+// as fp32, NaN codes staying NaN) and stores a float4 to the tile. Each row
 // keeps an fp32 online softmax (m, l, acc) in registers across the walk;
 // keys that are masked contribute p = 0 exactly, so a row that sees no key
 // ends with l = 0 and acc = 0 and writes exact zeros. The scores are plain
 // CUDA-core FMAs: wgmma tiles, cp.async double buffering and a split of the
-// page walk across blocks are later work.
+// page walk across blocks are later work. At MHA decode (T = 1) only one of
+// a block's 16 rows is live.
 
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// storage type of the K/V pools
+enum class Kv { F32, I8, F8 };
 
 constexpr int kThreads = 128;   // 16 rows x 8 threads per row
 constexpr int kRows = 16;       // grouped query rows per block
@@ -43,12 +58,46 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
+__device__ __forceinline__ float e4m3_to_float(uint32_t byte) {
+  __nv_fp8_e4m3 v;
+  v.__x = static_cast<__nv_fp8_storage_t>(byte);
+  return static_cast<float>(v);   // exact; NaN codes give NaN
+}
+
+// Elements elem .. elem + 3 of a pool (elem a multiple of 4) as fp32; s is
+// the int8 page scale.
+template <Kv K>
+__device__ __forceinline__ float4 load4(const void* pool, int64_t elem,
+                                        float s) {
+  if constexpr (K == Kv::F32) {
+    return *reinterpret_cast<const float4*>(
+        static_cast<const float*>(pool) + elem);
+  } else if constexpr (K == Kv::I8) {
+    const char4 c = *reinterpret_cast<const char4*>(
+        static_cast<const int8_t*>(pool) + elem);
+    return make_float4(static_cast<float>(c.x) * s,
+                       static_cast<float>(c.y) * s,
+                       static_cast<float>(c.z) * s,
+                       static_cast<float>(c.w) * s);
+  } else {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(
+        static_cast<const uint8_t*>(pool) + elem);
+    return make_float4(e4m3_to_float(w & 0xffu),
+                       e4m3_to_float((w >> 8) & 0xffu),
+                       e4m3_to_float((w >> 16) & 0xffu),
+                       e4m3_to_float(w >> 24));
+  }
+}
+
 // MAXD bounds the head dim this instantiation holds in registers: each
-// thread owns MAXD / 32 float4 chunks of its row's accumulator.
-template <int MAXD>
+// thread owns MAXD / 32 float4 chunks of its row's accumulator. K is the
+// pools' storage type; k_scale / v_scale [N, n_kv] are read for Kv::I8 only.
+template <int MAXD, Kv K>
 __global__ void __launch_bounds__(kThreads)
-ragged_kernel(const float* __restrict__ q, const float* __restrict__ k_pool,
-              const float* __restrict__ v_pool,
+ragged_kernel(const float* __restrict__ q, const void* __restrict__ k_pool,
+              const void* __restrict__ v_pool,
+              const float* __restrict__ k_scale,
+              const float* __restrict__ v_scale,
               const int32_t* __restrict__ table,
               const int32_t* __restrict__ start_pos,
               const int32_t* __restrict__ q_len, float* __restrict__ out,
@@ -127,8 +176,13 @@ ragged_kernel(const float* __restrict__ q, const float* __restrict__ k_pool,
         const int page = trow[kpos / page_size];
         const int64_t base =
             ((int64_t)page * page_size + kpos % page_size) * n_kv + kvh;
-        kv = reinterpret_cast<const float4*>(k_pool + base * d)[c];
-        vv = reinterpret_cast<const float4*>(v_pool + base * d)[c];
+        float k_s = 1.f, v_s = 1.f;   // the page's int8 scales
+        if constexpr (K == Kv::I8) {
+          k_s = k_scale[(int64_t)page * n_kv + kvh];
+          v_s = v_scale[(int64_t)page * n_kv + kvh];
+        }
+        kv = load4<K>(k_pool, base * d + 4 * c, k_s);
+        vv = load4<K>(v_pool, base * d + 4 * c, v_s);
       }
       reinterpret_cast<float4*>(ks + kk * stride)[c] = kv;
       reinterpret_cast<float4*>(vs + kk * stride)[c] = vv;
@@ -204,8 +258,9 @@ ragged_kernel(const float* __restrict__ q, const float* __restrict__ k_pool,
   }
 }
 
-template <int MAXD>
-cudaError_t launch(const float* q, const float* k_pool, const float* v_pool,
+template <int MAXD, Kv K>
+cudaError_t launch(const float* q, const void* k_pool, const void* v_pool,
+                   const float* k_scale, const float* v_scale,
                    const int32_t* table, const int32_t* start_pos,
                    const int32_t* q_len, float* out, int B, int T, int n_q,
                    int n_kv, int d, int page_size, int pages_per_seq,
@@ -215,41 +270,81 @@ cudaError_t launch(const float* q, const float* k_pool, const float* v_pool,
     // only d = 256 (49,920 B) needs more than the default 48 KiB; the
     // attribute is per device, so it is set on the current one each time
     cudaError_t err = cudaFuncSetAttribute(
-        ragged_kernel<MAXD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ragged_kernel<MAXD, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
   const int G = (n_q / n_kv) * T;
   dim3 grid((G + kRows - 1) / kRows, n_kv, B);
-  ragged_kernel<MAXD><<<grid, kThreads, smem, stream>>>(
-      q, k_pool, v_pool, table, start_pos, q_len, out, T, n_q, n_kv, d,
-      page_size, pages_per_seq, scale);
+  ragged_kernel<MAXD, K><<<grid, kThreads, smem, stream>>>(
+      q, k_pool, v_pool, k_scale, v_scale, table, start_pos, q_len, out, T,
+      n_q, n_kv, d, page_size, pages_per_seq, scale);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int ragged_paged_attention_f32(
-    const void* q, const void* k_pool, const void* v_pool, const void* table,
-    const void* start_pos, const void* q_len, void* out, int B, int T,
-    int n_q, int n_kv, int d, int page_size, int pages_per_seq, float scale,
-    void* stream) {
+template <Kv K>
+int dispatch(const void* q, const void* k_pool, const void* v_pool,
+             const void* k_scale, const void* v_scale, const void* table,
+             const void* start_pos, const void* q_len, void* out, int B,
+             int T, int n_q, int n_kv, int d, int page_size,
+             int pages_per_seq, float scale, void* stream) {
   if (d <= 0 || d % 8 != 0 || d > 256 || n_kv <= 0 || n_q % n_kv != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (K == Kv::I8 && (k_scale == nullptr || v_scale == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   if (B == 0 || T == 0) return (int)cudaSuccess;
   const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k_pool);
-  const float* vf = static_cast<const float*>(v_pool);
+  const float* ksf = static_cast<const float*>(k_scale);
+  const float* vsf = static_cast<const float*>(v_scale);
   const int32_t* tb = static_cast<const int32_t*>(table);
   const int32_t* sp = static_cast<const int32_t*>(start_pos);
   const int32_t* ql = static_cast<const int32_t*>(q_len);
   float* of = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d <= 128) {
-    return (int)launch<128>(qf, kf, vf, tb, sp, ql, of, B, T, n_q, n_kv, d,
-                            page_size, pages_per_seq, scale, st);
+    return (int)launch<128, K>(qf, k_pool, v_pool, ksf, vsf, tb, sp, ql, of,
+                               B, T, n_q, n_kv, d, page_size, pages_per_seq,
+                               scale, st);
   }
-  return (int)launch<256>(qf, kf, vf, tb, sp, ql, of, B, T, n_q, n_kv, d,
-                          page_size, pages_per_seq, scale, st);
+  return (int)launch<256, K>(qf, k_pool, v_pool, ksf, vsf, tb, sp, ql, of, B,
+                             T, n_q, n_kv, d, page_size, pages_per_seq, scale,
+                             st);
+}
+
+}  // namespace
+
+// fp32 pools (K1)
+extern "C" int ragged_paged_attention_f32(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* start_pos, const void* q_len, void* out, int B, int T,
+    int n_q, int n_kv, int d, int page_size, int pages_per_seq, float scale,
+    void* stream) {
+  return dispatch<Kv::F32>(q, k_pool, v_pool, nullptr, nullptr, table,
+                           start_pos, q_len, out, B, T, n_q, n_kv, d,
+                           page_size, pages_per_seq, scale, stream);
+}
+
+// int8 code pools with k_scale / v_scale [N, n_kv] fp32 (K1-q)
+extern "C" int ragged_paged_attention_i8(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* table,
+    const void* start_pos, const void* q_len, void* out, int B, int T,
+    int n_q, int n_kv, int d, int page_size, int pages_per_seq, float scale,
+    void* stream) {
+  return dispatch<Kv::I8>(q, k_pool, v_pool, k_scale, v_scale, table,
+                          start_pos, q_len, out, B, T, n_q, n_kv, d,
+                          page_size, pages_per_seq, scale, stream);
+}
+
+// float8_e4m3fn pools (K1-q)
+extern "C" int ragged_paged_attention_f8(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* start_pos, const void* q_len, void* out, int B, int T,
+    int n_q, int n_kv, int d, int page_size, int pages_per_seq, float scale,
+    void* stream) {
+  return dispatch<Kv::F8>(q, k_pool, v_pool, nullptr, nullptr, table,
+                          start_pos, q_len, out, B, T, n_q, n_kv, d,
+                          page_size, pages_per_seq, scale, stream);
 }

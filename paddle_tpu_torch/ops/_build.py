@@ -37,6 +37,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # cudaError_t of the launch)
 SIGNATURES = {
     "ragged_paged_attention_f32": [_P] * 7 + [_I] * 7 + [_F, _P],
+    "ragged_paged_attention_i8": [_P] * 9 + [_I] * 7 + [_F, _P],
+    "ragged_paged_attention_f8": [_P] * 7 + [_I] * 7 + [_F, _P],
     "paged_decode_attention_f32": [_P] * 6 + [_I] * 5 + [_F, _P],
     "flash_attention_fwd_f32": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
     "flash_attention_bwd_dq_f32": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
@@ -142,20 +144,33 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
 
-def require_launchable(name: str, floats, ints) -> None:
+# 1-byte element types of quantized pools (the kernels read 4 at a time)
+CODE_DTYPES = (torch.int8, torch.float8_e4m3fn)
+
+
+def require_launchable(name: str, floats, ints, codes=(), scales=()) -> None:
     """What every kernel here takes: fp32 float operands and int32 index
     operands, all contiguous, float operands 16-byte aligned (the kernels
-    read them as float4)."""
-    if any(t.dtype != torch.float32 for t in floats):
+    read them as float4); 1-byte code operands (int8 or float8_e4m3fn
+    pools, one dtype) contiguous and 4-byte aligned (read 4 at a time);
+    fp32 scale operands contiguous and 4-byte aligned (read one by one)."""
+    if any(t.dtype != torch.float32 for t in (*floats, *scales)):
         raise TypeError(f"{name}: the CUDA kernel takes fp32 operands, got "
-                        f"{[str(t.dtype) for t in floats]}")
+                        f"{[str(t.dtype) for t in (*floats, *scales)]}")
     if any(t.dtype != torch.int32 for t in ints):
         raise TypeError(f"{name}: index operands must be int32, got "
                         f"{[str(t.dtype) for t in ints]}")
-    if not all(t.is_contiguous() for t in (*floats, *ints)):
+    if len({t.dtype for t in codes}) > 1 or any(
+            t.dtype not in CODE_DTYPES for t in codes):
+        raise TypeError(f"{name}: code operands must all be int8 or all "
+                        f"float8_e4m3fn, got {[str(t.dtype) for t in codes]}")
+    if not all(t.is_contiguous() for t in (*floats, *ints, *codes, *scales)):
         raise ValueError(f"{name} needs contiguous operands")
     if any(t.data_ptr() % 16 for t in floats):
         raise ValueError(f"{name}: float operands must be 16-byte aligned")
+    if any(t.data_ptr() % 4 for t in (*codes, *scales)):
+        raise ValueError(f"{name}: code and scale operands must be 4-byte "
+                         "aligned")
 
 
 class LaunchCounts:

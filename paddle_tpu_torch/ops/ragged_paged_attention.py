@@ -1,10 +1,14 @@
 """Ragged paged attention: the serving path's prefill/GQA kernel (K1).
 
-Counterpart of paddle_tpu/ops/pallas/ragged_paged_attention.py (fp32
-pools). One call computes causal attention for a ragged batch of query
-spans straight off the paged K/V pools: decode steps (q_len = 1),
-prefill chunks (q_len = chunk at an offset), and dead batch slots
-(q_len = 0).
+Counterpart of paddle_tpu/ops/pallas/ragged_paged_attention.py, over fp32
+pools (K1) and over quantized pools (K1-q): int8 codes with k_scale /
+v_scale [num_pages, n_kv] fp32 (one scale per page per kv head), or
+float8_e4m3fn pools. One call computes causal attention for a ragged
+batch of query spans straight off the paged K/V pools: decode steps
+(q_len = 1), prefill chunks (q_len = chunk at an offset), and dead batch
+slots (q_len = 0). Quantized pages are dequantized inside the page walk
+(code * scale[page, kv head], or the fp8 value as fp32); the softmax and
+the output stay fp32.
 
 Layout: q [B, T, n_q, d] (T is the padded span length); pools
 [num_pages, page_size, n_kv, d]; block_table [B, P] int32; start_pos and
@@ -13,9 +17,11 @@ q_len [B] int32. Query row t of sequence b attends the keys at positions
 the n_q / n_kv query heads of a kv head from one page walk.
 
 `ragged_paged_attention` is the wrapper: on a CUDA tensor it launches the
-hand-written kernel in csrc/ragged_paged_attention.cu, on a CPU tensor it
-runs `ragged_reference`, the plain gather + dense-mask version with the
-same output contract. There is no other path.
+hand-written kernel in csrc/ragged_paged_attention.cu for the pools'
+dtype, on a CPU tensor it runs `ragged_reference`, the plain gather +
+dense-mask version with the same output contract. There is no other
+path. Each pool dtype counts its own launches: `COUNTS` (fp32 pools),
+`COUNTS_I8` and `COUNTS_F8`.
 """
 
 from __future__ import annotations
@@ -33,7 +39,16 @@ NEG_INF = -1e30
 # the widest head the kernels hold in registers (they refuse wider ones)
 MAX_HEAD_DIM = 256
 
-COUNTS = LaunchCounts()
+COUNTS = LaunchCounts()        # fp32 pools (K1)
+COUNTS_I8 = LaunchCounts()     # int8 pools + scales (K1-q)
+COUNTS_F8 = LaunchCounts()     # float8_e4m3fn pools (K1-q)
+
+# pool dtype -> (launch counts, C entry point)
+_VARIANTS = {
+    torch.float32: (COUNTS, "ragged_paged_attention_f32"),
+    torch.int8: (COUNTS_I8, "ragged_paged_attention_i8"),
+    torch.float8_e4m3fn: (COUNTS_F8, "ragged_paged_attention_f8"),
+}
 
 
 def _check_shapes(q, k_pool, v_pool, block_table, start_pos, q_len):
@@ -61,36 +76,69 @@ def _check_shapes(q, k_pool, v_pool, block_table, start_pos, q_len):
                          f"devices {sorted(map(str, devices))}")
 
 
+def _check_scales(k_pool, v_pool, k_scale, v_scale):
+    """int8 pools take both scale pools [num_pages, n_kv]; fp32 and fp8
+    pools take none."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale or neither")
+    if k_pool.dtype != v_pool.dtype or k_pool.dtype not in _VARIANTS:
+        raise TypeError(f"ragged_paged_attention takes fp32, int8 or "
+                        f"float8_e4m3fn pools of one dtype, got "
+                        f"{k_pool.dtype} / {v_pool.dtype}")
+    if (k_pool.dtype == torch.int8) != (k_scale is not None):
+        raise ValueError(f"{k_pool.dtype} pools: int8 pools need k_scale "
+                         "and v_scale, fp32 and fp8 pools take none")
+    if k_scale is not None:
+        want = (k_pool.shape[0], k_pool.shape[2])
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if tuple(t.shape) != want:
+                raise ValueError(f"{name} must be {list(want)} (one scale "
+                                 f"per page per kv head), got "
+                                 f"{tuple(t.shape)}")
+
+
 def ragged_paged_attention(q, k_pool, v_pool, block_table, start_pos, q_len,
-                           scale=None):
+                           scale=None, k_scale=None, v_scale=None):
     """Causal attention for a ragged batch of query spans over paged KV.
-    Returns [B, T, n_q, d] in q's dtype."""
+    q is fp32; the pools fp32, int8 (with k_scale / v_scale) or
+    float8_e4m3fn. Returns [B, T, n_q, d] fp32."""
     _check_shapes(q, k_pool, v_pool, block_table, start_pos, q_len)
+    _check_scales(k_pool, v_pool, k_scale, v_scale)
     B, T, n_q, d = q.shape
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"ragged_paged_attention runs on cuda or cpu "
                          f"tensors, got {q.device}")
+    scales = () if k_scale is None else (k_scale, v_scale)
+    if any(t.device != q.device for t in scales):
+        raise ValueError("ragged_paged_attention: the scales lie on another "
+                         "device than q")
     # the same operand rules on both devices, so a CPU run refuses what
     # the kernel would refuse
-    require_launchable("ragged_paged_attention", (q, k_pool, v_pool),
-                       (block_table, start_pos, q_len))
+    quantized = k_pool.dtype != torch.float32
+    require_launchable(
+        "ragged_paged_attention", (q,) if quantized else (q, k_pool, v_pool),
+        (block_table, start_pos, q_len),
+        codes=(k_pool, v_pool) if quantized else (), scales=scales)
+    counts, entry = _VARIANTS[k_pool.dtype]
     if q.device.type == "cpu":
-        COUNTS.plain_launches += 1
+        counts.plain_launches += 1
         return ragged_reference(q, k_pool, v_pool, block_table, start_pos,
-                                q_len, scale)
+                                q_len, scale, k_scale, v_scale)
     _, page_size, n_kv, _ = k_pool.shape
     if not ragged_attention_ok(d, n_q, n_kv) or d > MAX_HEAD_DIM:
         raise ValueError(f"the CUDA ragged kernel takes head_dim % 8 == 0 "
                          f"and <= {MAX_HEAD_DIM}; got {d}")
     out = torch.empty_like(q)
-    err = library().ragged_paged_attention_f32(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_table.data_ptr(), start_pos.data_ptr(), q_len.data_ptr(),
-        out.data_ptr(), B, T, n_q, n_kv, d, page_size, block_table.shape[1],
-        scale, torch.cuda.current_stream(q.device).cuda_stream)
+    pools = (k_pool.data_ptr(), v_pool.data_ptr(),
+             *(t.data_ptr() for t in scales))
+    err = getattr(library(), entry)(
+        q.data_ptr(), *pools, block_table.data_ptr(), start_pos.data_ptr(),
+        q_len.data_ptr(), out.data_ptr(), B, T, n_q, n_kv, d, page_size,
+        block_table.shape[1], scale,
+        torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "ragged_paged_attention")
-    COUNTS.kernel_launches += 1
+    counts.kernel_launches += 1
     return out
 
 
@@ -101,18 +149,30 @@ def ragged_attention_ok(head_dim: int, n_q_heads: int,
     return head_dim % 8 == 0 and n_q_heads % max(1, n_kv_heads) == 0
 
 
+def dequantize_pages(pool, pages, scale=None):
+    """Gather pool[pages] ([..., page_size, n_kv, d]) as fp32: int8 codes
+    times their page's per-kv-head scale, fp8 values cast, fp32 as is."""
+    if pool.dtype == torch.float8_e4m3fn:   # gathered as bytes
+        return pool.view(torch.uint8)[pages].view(pool.dtype).float()
+    out = pool[pages].float()
+    if scale is not None:
+        out = out * scale[pages].unsqueeze(-2).unsqueeze(-1)
+    return out
+
+
 def ragged_reference(q, k_pool, v_pool, block_table, start_pos, q_len,
-                     scale=None):
-    """Plain PyTorch version of the kernel: gather every table page, mask,
-    dense softmax. Padded rows and dead slots produce exact zeros."""
+                     scale=None, k_scale=None, v_scale=None):
+    """Plain PyTorch version of the kernel: gather every table page (and
+    dequantize it), mask, dense softmax. Padded rows and dead slots
+    produce exact zeros."""
     B, T, n_q, d = q.shape
     page_size, n_kv = k_pool.shape[1], k_pool.shape[2]
     n_rep = n_q // n_kv
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     idx = block_table.long()
     L = idx.shape[1] * page_size
-    kg = k_pool[idx].reshape(B, L, n_kv, d)        # [B, L, n_kv, d]
-    vg = v_pool[idx].reshape(B, L, n_kv, d)
+    kg = dequantize_pages(k_pool, idx, k_scale).reshape(B, L, n_kv, d)
+    vg = dequantize_pages(v_pool, idx, v_scale).reshape(B, L, n_kv, d)
     if n_rep > 1:
         kg = kg.repeat_interleave(n_rep, dim=2)
         vg = vg.repeat_interleave(n_rep, dim=2)
@@ -131,7 +191,7 @@ def ragged_reference(q, k_pool, v_pool, block_table, start_pos, q_len,
     row_live = (s > NEG_INF * 0.5).any(dim=-1, keepdim=True)
     p = torch.where(row_live, torch.softmax(s, dim=-1),
                     torch.zeros_like(s))
-    out = torch.einsum("bhtL,bhLd->bhtd", p, vT).to(q.dtype)
+    out = torch.einsum("bhtL,bhLd->bhtd", p, vT)
     return out.transpose(1, 2).contiguous()
 
 

@@ -207,9 +207,13 @@ class ServingEngine:
                              "'abort' or 'greedy'")
         if max_queue_depth is not None and max_queue_depth < 1:
             raise ValueError("max_queue_depth must be >= 1 (None = unbounded)")
+        # the KV storage rung is a runner property: the runner quantizes at
+        # append time, so the engine builds its pools with the same rung
+        self.kv_dtype = runner.kv_dtype
         self.pool = KVCachePool(runner.num_layers, num_blocks, block_size,
                                 runner.n_kv_heads, runner.head_dim,
-                                runner.dtype, device=runner.device)
+                                runner.dtype, device=runner.device,
+                                kv_dtype=self.kv_dtype)
         self.max_pages_per_seq = self.pool.blocks_for_tokens(
             self.max_model_len)
         self.scheduler = FCFSScheduler(self.pool, max_batch_size,
@@ -229,16 +233,35 @@ class ServingEngine:
                                    "") not in ("", "0")
         self.audit = audit
         self.metrics = metrics or EngineMetrics()
+        # static per-pool ratios: the page-byte reduction (scale bytes
+        # counted) and the matching sessions-per-fixed-memory factor
+        self.metrics.kv_bytes_reduction_x.set(
+            self.pool.kv_bytes_reduction_x())
+        self.metrics.sessions_per_pool_x.set(
+            self.pool.kv_bytes_reduction_x())
         self._requests: Dict[str, Request] = {}
         self._outputs: Dict[str, RequestOutput] = {}
 
     # ----------------------------------------------------------- intake
+
+    def _check_kv_dtype(self, sampling: SamplingParams) -> None:
+        """Per-request KV precision gate: a pool serves only its own
+        rung. Loud at intake: a silently widened or narrowed tenant would
+        break the byte accounting and the accuracy story."""
+        want = sampling.kv_dtype
+        if want is not None and want != self.kv_dtype:
+            raise ValueError(
+                f"SamplingParams.kv_dtype={want!r} is not servable by this "
+                f"engine's kv_dtype={self.kv_dtype!r} pool (allowed: "
+                f"{[self.kv_dtype]}); the 'mixed' pool that serves several "
+                "is ROADMAP.md 'Still to port' item 8")
 
     def add_request(self, prompt_tokens: Sequence[int],
                     sampling: Optional[SamplingParams] = None,
                     request_id: Optional[str] = None) -> str:
         sampling = sampling or SamplingParams()
         _refuse_sampled(sampling)
+        self._check_kv_dtype(sampling)
         req = Request(prompt_tokens=list(map(int, prompt_tokens)),
                       sampling=sampling, request_id=request_id or "")
         if len(req.prompt_tokens) + sampling.max_tokens > self.max_model_len:
@@ -544,7 +567,7 @@ def naive_generate(runner: PagedModelRunner, prompt_tokens: Sequence[int],
     max_pages = -(-max_model_len // runner.block_size)
     pool = KVCachePool(runner.num_layers, max_pages + 1, runner.block_size,
                        runner.n_kv_heads, runner.head_dim, runner.dtype,
-                       device=runner.device)
+                       device=runner.device, kv_dtype=runner.kv_dtype)
     pages = pool.allocator.alloc(max_pages)
     table = pool.pad_table(pages, max_pages)
     tokens = list(map(int, prompt_tokens))

@@ -114,6 +114,12 @@ class EngineMetrics:
         # from the runner's host-side accounting each step
         self.attn_kv_bytes_read = Gauge("attn_kv_bytes_read")
         self.attn_kv_bytes_gather = Gauge("attn_kv_bytes_gather")
+        # per-page byte reduction of the pool against storing it at the
+        # logical dtype (scale bytes counted; 1.0 on fp32 pools), and the
+        # matching sessions-per-fixed-memory factor, set from the pool's
+        # geometry when the engine is built
+        self.kv_bytes_reduction_x = Gauge("kv_bytes_reduction_x")
+        self.sessions_per_pool_x = Gauge("sessions_per_pool_x")
         self.pool_used_pages = Gauge("pool_used_pages")
         self.pool_utilization = Gauge("pool_utilization")
         self.batch_occupancy = Histogram("batch_occupancy")

@@ -1,8 +1,9 @@
 """Model runners: paged-KV step functions for the serving engine.
 
 Counterpart of paddle_tpu/serving/model_runner.py for fp32 Llama on one
-device. A runner adapts a model's flat parameter dict into the step
-functions the engine calls over the shared page pool:
+device, over fp32, int8 or fp8 KV pools (``kv_dtype``). A runner adapts
+a model's flat parameter dict into the step functions the engine calls
+over the shared page pool:
 
   prefill(tokens, table_row, pools)                 -> (logits[V], pools)
   prefill_chunk(tokens, start_pos, table_row, pools) -> (logits[V], pools)
@@ -13,10 +14,12 @@ through one of three paths chosen per span bucket by `_attn_impl_for`:
 the ragged paged-attention kernel (prefill chunks, GQA decode), the
 single-token paged-decode kernel (MHA decode), or the gather + dense-mask
 reference. "auto" resolves exactly as `best_paged_impl` says on every
-device; on CUDA tensors the wrappers launch the CUDA kernels, on CPU
-tensors they run their plain versions. A shape no kernel tiles takes the
-gather path on the CPU and raises on CUDA unless the caller asked for
-attn_impl="reference". Chunk lengths are padded to
+device, except that int8 and fp8 pools never go to the paged-decode
+kernel (it has no dequantize step): their MHA decode takes the ragged
+kernel, as in the JAX package. On CUDA tensors the wrappers launch the
+CUDA kernels, on CPU tensors they run their plain versions. A shape no
+kernel tiles takes the gather path on the CPU and raises on CUDA unless
+the caller asked for attn_impl="reference". Chunk lengths are padded to
 power-of-2 buckets (`bucket_len`); padded positions write to the scratch
 page and their logits are never read. Dead decode slots carry
 all-scratch tables, so they self-neutralize without a mask.
@@ -26,8 +29,8 @@ Where the port departs from the JAX package:
     the runner returns new pools; here `paged_attend` writes them in
     place with `index_put_` and the steps still return `(logits, pools)`
     (the same list), so the call signatures stay the same. A retried
-    step rewrites the same slots with the same values, so retries stay
-    idempotent;
+    step rewrites the same slots with the same values (an int8 write
+    re-derives the same scales and codes), so retries stay idempotent;
   * dispatch: the JAX package's shape-keyed jit cache becomes plain
     method calls (PyTorch runs eagerly; CUDA graphs are later work).
 
@@ -54,9 +57,12 @@ from paddle_tpu_torch.ops.paged_attention import (
     best_paged_impl, paged_decode_attention,
 )
 from paddle_tpu_torch.ops.ragged_paged_attention import (
-    attention_page_reads, ragged_attention_ok, ragged_paged_attention,
+    attention_page_reads, dequantize_pages, ragged_attention_ok,
+    ragged_paged_attention,
 )
-from paddle_tpu_torch.serving.kv_cache import SCRATCH_PAGE
+from paddle_tpu_torch.serving.kv_cache import (
+    SCRATCH_PAGE, check_kv_dtype, fp8_page_write, quantized_page_write,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -74,27 +80,59 @@ def paged_attend(q, k_new, v_new, layer_pools, tables, write_page,
     """Write this step's K/V through the block table, then attend.
 
     q: [B, T, n_h, d]; k_new/v_new: [B, T, n_kv, d]; layer_pools: one
-    layer's fp32 (k_pool, v_pool), written IN PLACE; tables: [B, P]
-    int32; write_page/write_off: [B, T] int64; pos_q: [B] int32 context
-    position of q row 0; q_len: [B] int32 live rows per span. impl is the
-    resolved attention path ("reference" | "paged_decode" | "ragged").
-    Returns ([B, T, n_h*d], layer_pools)."""
-    k_pool, v_pool = layer_pools
-    k_pool[write_page, write_off] = k_new
-    v_pool[write_page, write_off] = v_new
+    layer's pool tuple, written IN PLACE: fp32 or float8_e4m3fn (k_pool,
+    v_pool) (fp8 appends are a pure cast, `fp8_page_write`), or int8
+    (k_codes, v_codes, k_scale, v_scale) (`quantized_page_write`
+    quantizes at append time; the attend paths dequantize with the
+    per-page-per-head scales); tables: [B, P] int32; write_page/
+    write_off: [B, T] int64; pos_q: [B] int32 context position of q row
+    0; q_len: [B] int32 live rows per span. impl is the resolved
+    attention path ("reference" | "paged_decode" | "ragged"). Returns
+    ([B, T, n_h*d], layer_pools)."""
+    k_pool, v_pool = layer_pools[:2]
+    scales = (None, None)
+    if len(layer_pools) == 4:
+        scales = layer_pools[2:]
+        quantized_page_write(k_pool, scales[0], write_page, write_off, k_new)
+        quantized_page_write(v_pool, scales[1], write_page, write_off, v_new)
+    elif k_pool.dtype == torch.float8_e4m3fn:
+        fp8_page_write(k_pool, write_page, write_off, k_new)
+        fp8_page_write(v_pool, write_page, write_off, v_new)
+    else:
+        k_pool[write_page, write_off] = k_new
+        v_pool[write_page, write_off] = v_new
     B, T = q.shape[0], q.shape[1]
     if impl == "paged_decode":
+        if k_pool.dtype != torch.float32:
+            raise ValueError("paged_decode has no int8/fp8-pool path: "
+                             "_attn_impl_for routes quantized pools to the "
+                             "ragged kernel or the gather reference")
         out = paged_decode_attention(q[:, 0], k_pool, v_pool, tables, pos_q)
         return out.reshape(B, 1, -1), layer_pools
     if impl == "ragged":
-        out = ragged_paged_attention(q, k_pool, v_pool, tables, pos_q, q_len)
+        out = ragged_paged_attention(q, k_pool, v_pool, tables, pos_q, q_len,
+                                     k_scale=scales[0], v_scale=scales[1])
         return out.reshape(B, T, -1), layer_pools
-    kg = paged_gather(k_pool, tables)
-    vg = paged_gather(v_pool, tables)
+    if k_pool.dtype == torch.float32:
+        kg = paged_gather(k_pool, tables)
+        vg = paged_gather(v_pool, tables)
+    else:   # dequantize the gathered pages with their page/head scales
+        idx = tables.long()
+        kg = dequantize_pages(k_pool, idx, scales[0]).flatten(1, 2)
+        vg = dequantize_pages(v_pool, idx, scales[1]).flatten(1, 2)
     if n_rep > 1:  # GQA: repeat kv groups up to the query heads
         kg = kg.repeat_interleave(n_rep, dim=2)
         vg = vg.repeat_interleave(n_rep, dim=2)
     return masked_cache_attention(q, kg, vg, pos_q), layer_pools
+
+
+def check_weight_dtype(weight_dtype: str) -> None:
+    """Only fp32 weights are ported: the weight ladder raises."""
+    if weight_dtype != "fp32":
+        raise NotImplementedError(
+            f"weight_dtype={weight_dtype!r}: only fp32 weights are ported; "
+            "the weight ladder (int8, int4, fp8) is ROADMAP.md 'Still to "
+            "port' item 8 (quantized serving)")
 
 
 class PagedModelRunner:
@@ -114,14 +152,19 @@ class PagedModelRunner:
     ATTN_IMPLS = ("auto", "pallas", "ragged", "reference")
 
     def __init__(self, params: Dict[str, torch.Tensor], block_size: int,
-                 max_model_len: int, attn_impl: str = "auto"):
+                 max_model_len: int, attn_impl: str = "auto",
+                 kv_dtype: str = "fp32", weight_dtype: str = "fp32"):
         if attn_impl not in self.ATTN_IMPLS:
             raise ValueError(f"attn_impl={attn_impl!r}; expected one of "
                              f"{self.ATTN_IMPLS}")
+        check_kv_dtype(kv_dtype, type(self).__name__)
+        check_weight_dtype(weight_dtype)
         self.params = params
         self.block_size = block_size
         self.max_model_len = max_model_len
         self.attn_impl = attn_impl
+        # the engine builds its pools with the runner's kv_dtype
+        self.kv_dtype = kv_dtype
         self.device = next(iter(params.values())).device
         self.dtype = torch.float32
         self._impl_logged: set = set()
@@ -153,6 +196,11 @@ class PagedModelRunner:
         else:
             impl = best_paged_impl(self.head_dim, self.n_heads,
                                    self.n_kv_heads, q_len_bucket)
+        if self.kv_dtype in ("int8", "fp8") and impl == "paged_decode":
+            # the paged-decode kernel has no dequantize step: int8 and fp8
+            # pools take the ragged kernel, which dequantizes in its walk
+            impl = ("ragged" if ragged_attention_ok(
+                self.head_dim, self.n_heads, self.n_kv_heads) else None)
         if impl is None:
             if self.device.type == "cuda":
                 raise ValueError(
@@ -173,9 +221,15 @@ class PagedModelRunner:
         return impl
 
     def _kv_page_bytes(self) -> int:
-        """Device bytes ONE page costs this runner's attention per call."""
-        return (2 * self.num_layers * self.block_size * self.n_kv_heads
-                * self.head_dim * self.dtype.itemsize)
+        """Device bytes ONE page costs this runner's attention per call:
+        int8 pools count the code bytes PLUS the per-page-per-head scale
+        bytes the dequantize reads, fp8 pools one byte per element."""
+        data = self.block_size * self.n_kv_heads * self.head_dim
+        if self.kv_dtype == "int8":
+            return 2 * self.num_layers * (data + self.n_kv_heads * 4)
+        if self.kv_dtype == "fp8":
+            return 2 * self.num_layers * data
+        return 2 * self.num_layers * data * self.dtype.itemsize
 
     def _account_attn(self, impl: str, starts, q_lens, table_width: int):
         """Bump the instrumented-pool counters for one step call: the
@@ -269,13 +323,15 @@ class LlamaRunner(PagedModelRunner):
 
     def __init__(self, model: Llama, block_size: int = 16,
                  max_model_len: int | None = None, attn_impl: str = "auto",
-                 device=None):
+                 device=None, kv_dtype: str = "fp32",
+                 weight_dtype: str = "fp32"):
         cfg = model.cfg
         dev = resolve_device(device) if device is not None else None
         params = {k: (v.detach().to(dev) if dev is not None else v.detach())
                   for k, v in model.named_parameters()}
         super().__init__(params, block_size,
-                         max_model_len or cfg.max_seq_len, attn_impl)
+                         max_model_len or cfg.max_seq_len, attn_impl,
+                         kv_dtype, weight_dtype)
         self.cfg = cfg
         self.num_layers = cfg.num_layers
         self.n_heads = cfg.num_heads
@@ -333,14 +389,9 @@ def runner_for(model, block_size: int = 16, max_model_len: int | None = None,
                attn_impl: str = "auto", kv_dtype: str = "fp32",
                weight_dtype: str = "fp32", device=None) -> PagedModelRunner:
     """Pick the runner for a supported model (Llama only so far)."""
-    if kv_dtype != "fp32" or weight_dtype != "fp32":
-        raise NotImplementedError(
-            f"kv_dtype={kv_dtype!r}, weight_dtype={weight_dtype!r}: only "
-            "fp32 serving is ported; quantized serving is ROADMAP.md "
-            "'Still to port' item 8")
     if isinstance(model, Llama):
         return LlamaRunner(model, block_size, max_model_len, attn_impl,
-                           device)
+                           device, kv_dtype, weight_dtype)
     raise TypeError(
         f"no serving runner for {type(model).__name__}: the port serves "
         "paddle_tpu_torch.models.Llama; the GPT runner is ROADMAP.md "

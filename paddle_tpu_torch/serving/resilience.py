@@ -1,12 +1,14 @@
 """Failure vocabulary and the invariant auditor of the serving engine.
 
 Counterpart of paddle_tpu/serving/resilience.py, limited to the state
-this port has: one fp32 pool, no prefix cache, no host tier, no in-flight
-launches. The fault injector and snapshot/restore are not ported yet
-(ROADMAP.md 'Still to port' item 15).
+this port has: one fp32, int8 or fp8 pool, no prefix cache, no host
+tier, no in-flight launches. The fault injector and snapshot/restore are
+not ported yet (ROADMAP.md 'Still to port' item 15).
 """
 
 from __future__ import annotations
+
+import torch
 
 from paddle_tpu_torch.serving.kv_cache import SCRATCH_PAGE
 
@@ -29,7 +31,8 @@ def audit_engine(engine) -> None:
     allocated page has an owner (no leaks), a page appears at most once
     in one table, each running sequence holds the pages its live tokens
     need and no more than its context plus one upcoming token needs, and
-    slots partition between running requests and the free list. Raises
+    slots partition between running requests and the free list, and the
+    pool's layer tuples have the layout of its kv_dtype. Raises
     InvariantViolation listing every broken invariant. Host work only."""
     alloc = engine.pool.allocator
     sched = engine.scheduler
@@ -107,6 +110,32 @@ def audit_engine(engine) -> None:
                 or sset & set(free_slots)):
             problems.append(f"slot accounting broken: used={sorted(sset)} "
                             f"free={sorted(free_slots)}")
+
+    # -- pool layout: an int8 pool's layer tuples carry int8 code pools
+    #    and ONE fp32 scale per page per kv head; an fp8 pool stores
+    #    float8 pages and carries NO scale rows (fp8 casts are scale-free);
+    #    an fp32 pool the plain (k, v) pairs
+    pool = engine.pool
+    want_len = 4 if pool.kv_dtype == "int8" else 2
+    want_dtype = {"int8": torch.int8,
+                  "fp8": torch.float8_e4m3fn}.get(pool.kv_dtype,
+                                                  torch.float32)
+    for li, layer in enumerate(pool.pools):
+        if len(layer) != want_len:
+            problems.append(f"layer {li} pool tuple has {len(layer)} entries "
+                            f"!= {want_len} for kv_dtype={pool.kv_dtype}")
+            continue
+        for nm, arr in zip("kv", layer[:2]):
+            if arr.dtype != want_dtype:
+                problems.append(f"layer {li} {nm}-pool dtype {arr.dtype} != "
+                                f"{want_dtype} on a {pool.kv_dtype} pool")
+        for nm, arr in zip("kv", layer[2:]):
+            if (tuple(arr.shape) != (pool.num_blocks, pool.n_kv_heads)
+                    or arr.dtype != torch.float32):
+                problems.append(
+                    f"layer {li} {nm}-scale pool {tuple(arr.shape)} "
+                    f"{arr.dtype} != {(pool.num_blocks, pool.n_kv_heads)} "
+                    "float32: one scale per page per kv head")
 
     # -- waiting requests hold no device resources
     for req in sched.waiting:

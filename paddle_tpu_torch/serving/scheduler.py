@@ -41,12 +41,20 @@ class SamplingParams:
     seed: Optional[int] = None
     stop_token_ids: Tuple[int, ...] = ()
     timeout_s: Optional[float] = None   # deadline from arrival; None = never
+    # per-request KV precision: None = the pool's own rung; otherwise it
+    # must name the engine's kv_dtype (the engine checks at intake; the
+    # "mixed" pool that serves several is ROADMAP.md item 8)
+    kv_dtype: Optional[str] = None
 
     def __post_init__(self):
         if self.max_tokens < 1:
             raise ValueError("max_tokens must be >= 1")
         if self.timeout_s is not None and self.timeout_s <= 0:
             raise ValueError("timeout_s must be positive (None = no deadline)")
+        if self.kv_dtype not in (None, "fp32", "fp8", "int8"):
+            raise ValueError(
+                f"kv_dtype={self.kv_dtype!r}; expected None, 'fp32', "
+                "'fp8', or 'int8'")
 
 
 class RequestState(Enum):

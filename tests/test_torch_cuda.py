@@ -9,8 +9,10 @@ card, from the root of a checkout, without the JAX test configuration
 
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors at max |kernel - plain| <= 1e-4 (fp32, summed in another order),
-with rows past q_len and dead slots exactly 0; a small engine on the card
-must equal its own naive_generate token for token, through the kernels.
+with rows past q_len and dead slots exactly 0 (the ragged kernel over fp32
+pools, K1, and over int8 and float8_e4m3fn pools, K1-q); a small engine
+on the card must equal its own naive_generate token for token, through
+the kernels (an int8 or fp8 engine through K1-q alone).
 The flash kernels (K3a, K3b-dq, K3b-dkv) hold o and lse within 1e-4 and
 each gradient within 1e-4 * max|plain gradient|; a small Llama trained
 through them must match the same model trained on the dense path.
@@ -92,6 +94,79 @@ def test_paged_decode_kernel_matches_plain(gen, d, ps):
     ref = k2.paged_decode_reference(q[:, 0], kp, vp, table, pos)
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= TOL
+
+
+def _quantize(gen, kp, vp, kind):
+    """fp32 pools -> (k, v, k_scale, v_scale) int8 codes with random
+    per-page, per-kv-head scales, or float8_e4m3fn pools and no scales."""
+    if kind == "fp8":
+        return (kp.to(torch.float8_e4m3fn), vp.to(torch.float8_e4m3fn),
+                None, None)
+    codes = [torch.randint(-127, 128, kp.shape, device="cuda", generator=gen,
+                           dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand(kp.shape[0], kp.shape[2], device="cuda",
+                         generator=gen) * 0.05 + 1e-3 for _ in range(2)]
+    return (*codes, *scales)
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("n_rep", [1, 4])
+@pytest.mark.parametrize("ps", [8, 16])
+def test_quantized_ragged_kernel_matches_plain(gen, kind, d, n_rep, ps):
+    T = 16
+    starts, qlens = [0, 5, 30, 3], [16, 1, 9, 0]
+    pages = (T + max(starts)) // ps + 2
+    q, kp, vp, table = _operands(gen, 4, T, 2, n_rep, d, ps, pages)
+    table[3] = 0                                   # dead slot: all scratch
+    kq, vq, ks, vs = _quantize(gen, kp, vp, kind)
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    ql = torch.tensor(qlens, dtype=torch.int32, device="cuda")
+    counts = k1.COUNTS_I8 if kind == "int8" else k1.COUNTS_F8
+    counts.reset()
+    out = k1.ragged_paged_attention(q, kq, vq, table, st, ql, k_scale=ks,
+                                    v_scale=vs)
+    assert counts.kernel_launches == 1 and counts.plain_launches == 0
+    ref = k1.ragged_reference(q, kq, vq, table, st, ql, k_scale=ks,
+                              v_scale=vs)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= TOL
+    for b, n in enumerate(qlens):
+        assert bool((out[b, n:] == 0).all()), f"sequence {b}: rows >= {n}"
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("n_kv", [4, 2], ids=["mha", "gqa"])
+def test_quantized_engine_on_the_card_runs_the_k1q_kernel(gen, kv_dtype,
+                                                          n_kv):
+    """int8 / fp8 pools: every attention call is K1-q (MHA decode too),
+    never a plain version, K1 or K2; the fp8 engine equals its own
+    naive_generate token for token."""
+    cfg = LlamaConfig(vocab_size=211, hidden_size=256, num_layers=2,
+                      num_heads=4, num_kv_heads=n_kv, max_seq_len=128)
+    runner = LlamaRunner(Llama(cfg, device="cuda", seed=0), block_size=16,
+                         kv_dtype=kv_dtype)
+    eng = ServingEngine(runner, num_blocks=24, max_batch_size=4,
+                        max_prefill_tokens_per_step=32, audit=True)
+    rng = np.random.default_rng(0)
+    work = [(rng.integers(1, 211, int(rng.integers(5, 70))).tolist(),
+             int(rng.integers(2, 12))) for _ in range(8)]
+    counts = k1.COUNTS_I8 if kv_dtype == "int8" else k1.COUNTS_F8
+    every = (k1.COUNTS, k1.COUNTS_I8, k1.COUNTS_F8, k2.COUNTS)
+    for c in every:
+        c.reset()
+    ids = [eng.add_request(p, SamplingParams(max_tokens=n)) for p, n in work]
+    outs = eng.run()
+    m = eng.metrics
+    calls = m.prefill_chunks.value + m.batch_occupancy.count
+    assert counts.kernel_launches == cfg.num_layers * calls
+    assert sum(c.plain_launches for c in every) == 0
+    assert k1.COUNTS.kernel_launches == k2.COUNTS.kernel_launches == 0
+    assert eng.pool.allocator.check_no_leaks()
+    if kv_dtype == "fp8":
+        for rid, (p, n) in zip(ids, work):
+            assert outs[rid].output_tokens == naive_generate(
+                runner, p, SamplingParams(max_tokens=n))
 
 
 def test_kernels_refuse_what_they_cannot_tile(gen):

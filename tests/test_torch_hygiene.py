@@ -198,7 +198,9 @@ def test_unported_engine_knob_raises(model, knob):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(kv_dtype="int8"), dict(kv_dtype="fp8"), dict(weight_dtype="int4"),
+    # int8 / fp8 KV pools are served; quantized weights beside them are not
+    dict(kv_dtype="int8", weight_dtype="int8"),
+    dict(kv_dtype="fp8", weight_dtype="fp8"), dict(weight_dtype="int4"),
     dict(mesh=object()), dict(dtype="bfloat16"), dict(comm_dtype="int8"),
 ], ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values())))[:8])
 def test_unported_bridge_options_raise(model, kw):
