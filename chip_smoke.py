@@ -77,33 +77,65 @@ exits non-zero without printing a result:
               o and lse within 1e-4; each of dq, dk, dv within 1e-4 *
               max|plain gradient| (with one key, where the exact dq and dk
               are 0, within 1e-4 * max|plain dv|).
- 10. trainer  the training path: LLaMA-2-7B widths at 8 of 32 layers,
+ 10. masked   the same three kernels in their masked forms (K3-m), each
+              through the autograd.Function and then through the plain
+              versions on the same operands on the card (the wrappers'
+              plain branch), at phase 9's tolerances: ERNIE's -1e4 key
+              padding and a bool key padding (both lowered to the per-key
+              bias), a dense additive mask shared by the heads and one per
+              head, a bool mask whose rows 50.. see no key (o and dq
+              exactly 0 there), segment ids with causal, a block mask
+              implied by a dense mask; then flash_attn_unpadded,
+              flashmask_attention (row ranges; a window) and
+              sparse_attention (CSR + key padding). d in {64, 128},
+              lengths on and off multiples of 64, sq != sk.
+ 11. trainer  the training path: LLaMA-2-7B widths at 8 of 32 layers,
               fp32, seeded random weights on the card, jit.TrainStep with
               AdamW(1e-4, weight decay 0.01, global-norm clip 1.0) on one
               seeded batch of 4096 tokens, 2 warm-up and 6 timed steps.
               Losses must be finite and fall, each flash kernel must launch
               8 times per step and no plain version at all.
- 11. profile  where a training step's time goes: torch.profiler over 2
+ 12. profile  where a training step's time goes: torch.profiler over 2
               steps, device time by group (matmul, K3a, K3b-dq, K3b-dkv,
               optimizer, other), each flash kernel's ms per launch and the
               idle share against 2 unprofiled steps.
- 12. check    a 2-layer model at full width, seq 1024, trained one step
+ 13. check    a 2-layer model at full width, seq 1024, trained one step
               through the kernels and once on the dense path
               (FLAGS_use_flash_attention off) from the same weights and
               batch: loss within 1e-5 relative, every gradient within 1e-3
               * its max|grad|.
- 13. timing   each flash kernel at the trainer's shape (b=1, s=4096, h=32,
+ 14. timing   each flash kernel at the trainer's shape (b=1, s=4096, h=32,
               d=128, causal) against its plain version, its bound and
               scaled_dot_product_attention as the yardstick, L2 flushed.
- 14. summary  one JSON line of every kernel's launches, error and times
-              (K1-q's decode-step times as extra decode_* keys), the
-              nvidia-smi line, then the result line.
+ 15. ERNIE    ERNIE-3.0-base pretraining (vocab 40000, hidden 768, 12
+              layers, 12 heads, ffn 3072, 512 positions) at full width and
+              depth, fp32, seeded random weights on the card, through
+              jit.TrainStep(n_inputs=3) and AdamW(1e-4, weight decay 0.01)
+              on bench.py::child_ernie's batch: 16 x 512 tokens at 85-100 %
+              fill, 15 % masked, dropout 0; 2 warm-up and 6 timed steps.
+              Losses must be finite and fall, each masked kernel must
+              launch 12 times per step, and no dense flash kernel, plain
+              version or dense attention at all.
+ 16. profile  where an ERNIE step's time goes, as phase 12 (groups K3a-m,
+              K3b-dq-m, K3b-dkv-m).
+ 17. check    a 2-layer ERNIE at full width stepped once through the masked
+              kernels and once on the dense path from the same weights and
+              padded batch, phase 13's tolerances; then the outputs at
+              real positions with the pad ids redrawn, within 2e-5.
+ 18. timing   each masked kernel at the ERNIE shape (q/k/v [16,512,12,64],
+              kbias [16,512], full) against its plain version, its bound
+              and SDPA with the broadcast float mask, L2 flushed.
+ 19. summary  one JSON line of every kernel's launches, error and times
+              (K1-q's decode-step times as extra decode_* keys; the masked
+              kernels as *_masked rows with the ERNIE trainer's launches),
+              the nvidia-smi line, then the result line.
 
 fp32 products stay fp32: TF32 is switched off for matmuls and cuDNN.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import statistics
@@ -783,7 +815,7 @@ def check_flash(gen, b, sq, sk, h, d, causal):
 
 
 def flash_checks(gen):
-    """Phase 7: the trainer's shape, then the sweep; returns the largest
+    """Phase 9: the trainer's shape, then the sweep; returns the largest
     abs error of each kernel over all cases."""
     cases = [(1, 4096, 4096, 32, 128, True)]
     cases += [(1, s, s, 4, d, c) for d in (64, 128, 256)
@@ -810,14 +842,204 @@ def flash_checks(gen):
     return worst
 
 
-def _flash_counts():
+def _flash_counts(masked=False):
     from paddle_tpu_torch.ops import flash_attention as fa
     return {name: (c.kernel_launches, c.plain_launches)
-            for name, c in fa.COUNTS.items()}
+            for name, c in (fa.COUNTS_MASKED if masked else fa.COUNTS).items()}
+
+
+# ------------------------------------------------------ masked flash (K3-m)
+
+@contextlib.contextmanager
+def _plain_on_card():
+    """The flash wrappers' plain branch on CUDA tensors: the plain versions
+    run on the card, on the same operands (the checks' reference only)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    on_card = fa.on_card
+    fa.on_card = lambda t: False
+    try:
+        yield
+    finally:
+        fa.on_card = on_card
+
+
+def _padded(gen, b, s, lo=0.85):
+    """[b, s] int64 attention mask, 1 on each row's first lengths drawn
+    from [lo * s, s] (child_ernie's 85-100 % fill)."""
+    lens = torch.randint(int(lo * s), s + 1, (b, 1), device="cuda",
+                         generator=gen)
+    return (torch.arange(s, device="cuda")[None, :] < lens).long()
+
+
+def check_masked(gen, label, fn, b, sq, sk, h, d, masks=None,
+                 dead_rows=None):
+    """One masked form: o = fn(q, k, v) and its three gradients through the
+    kernels, then through the plain versions on the same operands. o (and,
+    with the canonical `masks`, lse) within TOL, each gradient within TOL *
+    max|plain gradient|; the rows `dead_rows` (that see no key) exactly 0
+    with zero dq. Returns each kernel's max abs error."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q = torch.randn(b, sq, h, d, device="cuda", generator=gen)
+    k, v = (torch.randn(b, sk, h, d, device="cuda", generator=gen)
+            for _ in range(2))
+    do = torch.randn(b, sq, h, d, device="cuda", generator=gen)
+
+    def run():
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        o = fn(qq, kk, vv)
+        grads = torch.autograd.grad(o, (qq, kk, vv), do)
+        lse = None
+        if masks is not None:
+            with torch.no_grad():
+                lse = fa.flash_forward(q, k, v, masks[0],
+                                       **masks[1]._asdict())[1]
+        return o.detach(), lse, grads
+
+    before = _flash_counts(masked=True)
+    o, lse, grads = run()
+    launched = {n: kl - before[n][0]
+                for n, (kl, _) in _flash_counts(masked=True).items()}
+    with _plain_on_card():
+        ro, rlse, refs = run()
+    torch.cuda.synchronize()
+    if min(launched.values()) == 0:
+        raise AssertionError(f"masked flash {label}: a masked kernel did not "
+                             f"launch: {launched}")
+    err = {"o": (o - ro).abs().max().item(),
+           "lse": 0.0 if lse is None else (lse - rlse).abs().max().item()}
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"masked flash {label}: {name} not finite")
+        err[name] = (g - r).abs().max().item()
+        if not err[name] <= TOL * r.abs().max().item():
+            raise AssertionError(
+                f"masked flash {label}: {name} max_abs_err {err[name]:.3e} "
+                f"> {TOL} * {r.abs().max().item():.3e}")
+    if not (err["o"] <= TOL and err["lse"] <= TOL):
+        raise AssertionError(f"masked flash {label}: o/lse max_abs_err "
+                             f"{err['o']:.3e}/{err['lse']:.3e} > {TOL}")
+    if dead_rows is not None and not (bool((o[:, dead_rows] == 0).all())
+                                      and bool((grads[0][:, dead_rows] == 0)
+                                               .all())):
+        raise AssertionError(f"masked flash {label}: rows that see no key "
+                             "are not exactly 0 with zero dq")
+    log(f"masked flash {label} (b={b} sq={sq} sk={sk} h={h} d={d}): "
+        + ", ".join(f"{n} {e:.3e}" for n, e in err.items())
+        + ("; dead rows exactly 0, dq 0" if dead_rows is not None else ""))
+    return {"flash_forward": max(err["o"], err["lse"]),
+            "flash_backward_dq": err["dq"],
+            "flash_backward_dkv": max(err["dk"], err["dv"])}
+
+
+def _csr(b, h, M, gen):
+    """sparse_attention's CSR pattern: each row sees a local window of 16
+    keys in its own 128-block and two keys drawn from the blocks up to
+    its own, so blocks above the diagonal stay dead."""
+    rows = []
+    for _ in range(b * h):
+        for r in range(M):
+            blk = r // 128 * 128
+            cols = {blk + (r - blk) // 16 * 16 + j for j in range(16)}
+            cols |= set(torch.randint(0, blk + 1, (2,), generator=gen,
+                                      device=gen.device).tolist())
+            rows.append(sorted(cols))
+    lens = torch.tensor([len(c) for c in rows]).reshape(b * h, M)
+    offset = torch.zeros(b * h, M + 1, dtype=torch.int64)
+    offset[:, 1:] = lens.cumsum(1)
+    nnz = int(offset[:, -1].max())
+    columns = torch.zeros(b * h, nnz, dtype=torch.int64)
+    for i in range(b * h):
+        flat = [c for cols in rows[i * M:(i + 1) * M] for c in cols]
+        columns[i, :len(flat)] = torch.tensor(flat)
+    return (offset.reshape(b, h, M + 1).cuda(),
+            columns.reshape(b, h, nnz).cuda())
+
+
+def masked_checks(gen):
+    """Phase 10: every masked form through the kernels against the plain
+    versions (d 64 and 128, lengths on and off multiples of 64, sq != sk),
+    then the entry points over them; returns each kernel's worst error."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import impl
+    worst = dict.fromkeys(("flash_forward", "flash_backward_dq",
+                           "flash_backward_dkv"), 0.0)
+
+    def form(label, b, sq, sk, h, d, causal, dead_rows=None, **kw):
+        def fn(q, k, v):
+            return fa.flash_attention(q, k, v, causal=causal, **kw)
+        qs = torch.empty(b, sq, h, d, device="cuda")
+        ks = torch.empty(b, sk, h, d, device="cuda")
+        masks = (causal, fa.canonical_masks(qs, ks, ks, causal, **kw))
+        err = check_masked(gen, label, fn, b, sq, sk, h, d, masks, dead_rows)
+        for n, e in err.items():
+            worst[n] = max(worst[n], e)
+
+    def entry(label, fn, b, sq, h, d):
+        err = check_masked(gen, label, fn, b, sq, sq, h, d)
+        for n, e in err.items():
+            worst[n] = max(worst[n], e)
+
+    att = _padded(gen, 2, 512)
+    form("kbias, ERNIE's -1e4 key padding", 2, 512, 512, 12, 64, False,
+         mask=(1.0 - att[:, None, None, :].float()) * -1e4)
+    form("kbias, bool key padding, causal", 2, 200, 333, 4, 128, True,
+         mask=_padded(gen, 2, 333, 0.5)[:, None, None, :].bool())
+    m = torch.randn(2, 1, 300, 300, device="cuda", generator=gen) * 2
+    m.masked_fill_(torch.rand(m.shape, device="cuda", generator=gen) < 0.3,
+                   fa.NEG_INF)
+    form("additive mask, mh = 1", 2, 300, 300, 4, 64, False, mask=m)
+    m = torch.randn(1, 4, 256, 256, device="cuda", generator=gen)
+    m.masked_fill_(torch.rand(m.shape, device="cuda", generator=gen) < 0.3,
+                   fa.NEG_INF)
+    form("additive mask, mh = h, causal", 1, 256, 256, 4, 128, True, mask=m)
+    keep = torch.rand(2, 1, 100, 160, device="cuda", generator=gen) < 0.7
+    keep[:, :, 50:] = False
+    form("bool mask, rows 50.. see no key", 2, 100, 160, 4, 64, False,
+         dead_rows=slice(50, None), mask=keep)
+    cuts = torch.randint(1, 384, (2, 3), device="cuda", generator=gen)
+    seg = (torch.arange(384, device="cuda")[None, :, None]
+           >= cuts.sort(1).values[:, None, :]).sum(-1)
+    form("segment ids, causal", 2, 384, 384, 4, 128, True, segment_ids=seg)
+    # a dense mask that hides the off-diagonal 128-blocks, and the block
+    # mask it implies: skipping those tiles must change nothing
+    m = torch.randn(1, 1, 512, 512, device="cuda", generator=gen)
+    blocks = torch.eye(4, dtype=torch.int32, device="cuda")
+    blocks[3, 0] = 1
+    live = fa._block_live(blocks, 512, 512)
+    m.masked_fill_(~live, fa.NEG_INF)
+    form("block mask implied by a dense mask", 1, 512, 512, 4, 64, False,
+         mask=m, block_mask=blocks)
+
+    lens = [100, 257, 64]
+    cu = torch.tensor([0, 100, 357, 421], dtype=torch.int32, device="cuda")
+    entry(f"flash_attn_unpadded causal, lengths {lens}",
+          lambda q, k, v: impl.flash_attn_unpadded(
+              q[0], k[0], v[0], cu, cu, causal=True)[None],
+          1, sum(lens), 4, 64)
+    lo = torch.randint(0, 321, (1, 1, 320, 1), device="cuda", generator=gen)
+    hi = torch.maximum(lo, torch.randint(0, 321, lo.shape, device="cuda",
+                                         generator=gen))
+    entry("flashmask_attention causal (LTS, LTE)",
+          lambda q, k, v: impl.flashmask_attention(
+              q, k, v, torch.cat([lo, hi], -1).int(), causal=True),
+          1, 320, 4, 128)
+    entry("flashmask_attention full window (32, 64)",
+          lambda q, k, v: impl.flashmask_attention(
+              q, k, v, window_size=(32, 64)), 2, 256, 4, 64)
+    offset, columns = _csr(1, 4, 256, gen)
+    kpm = _padded(gen, 1, 256, 0.7)
+    entry("sparse_attention with key_padding_mask",
+          lambda q, k, v: impl.sparse_attention(
+              q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+              offset, columns, key_padding_mask=kpm).transpose(1, 2),
+          1, 256, 4, 64)
+    log("masked flash checks: 11 forms within tolerance; worst abs errors "
+        + json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
+    return worst
 
 
 def trainer_phase(cfg, seed=0, warmup=2, steps=6, seq=4096):
-    """Phase 8, the training path: TrainStep + AdamW over seeded random
+    """Phase 11, the training path: TrainStep + AdamW over seeded random
     weights and one seeded batch. Returns the trainer, its batch and the
     flash launches of the run."""
     from paddle_tpu_torch.jit import TrainStep
@@ -892,33 +1114,56 @@ def trainer_phase(cfg, seed=0, warmup=2, steps=6, seq=4096):
 
 
 def _optimizer_ms(trainer, batch, steps):
-    """Median device ms of `optimizer.step()` (the clip and AdamW), from
-    CUDA events around it in steps run by hand: the forward and backward
-    as TrainStep runs them, then the timed update. The backward is still
-    running when the update is queued, so the window holds no launch
-    gaps."""
-    times = []
+    """(device ms, span ms) of `optimizer.step()` (the clip and AdamW),
+    medians over steps run by hand: the forward and backward as TrainStep
+    runs them, then, on an idle card, the update alone, once between CUDA
+    events (its span on the device's clock, launch gaps included) and once
+    under torch.profiler (its kernels' device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    device, span = [], []
     n = trainer.n_inputs
-    for _ in range(steps):
+
+    def update(profiled):
         loss = trainer.loss_fn(trainer.model(*batch[:n]), *batch[n:])
         loss.backward()
+        torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        trainer.optimizer.step()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                     ) if profiled else contextlib.nullcontext() as prof:
+            start.record()
+            trainer.optimizer.step()
+            end.record()
+            end.synchronize()
         trainer.optimizer.zero_grad(set_to_none=True)
-    return statistics.median(times)
+        if profiled:
+            device.append(sum(_device_ms(prof)[0].values()))
+        else:
+            span.append(start.elapsed_time(end))
+
+    for _ in range(steps):
+        update(False)
+        update(True)
+    return statistics.median(device), statistics.median(span)
 
 
-def train_profile_phase(trainer, batch, layers, steps=2):
-    """Phase 9: torch.profiler over `steps` training steps, device time by
-    kernel group; the optimizer's share is timed apart with CUDA events
-    (`_optimizer_ms`) and taken out of the elementwise group, where its
-    kernels fall by name. The idle share is 1 - device busy / host wall
-    of as many unprofiled steps just before."""
+# the flash groups under their masked names, for a path that runs only the
+# masked forms (the CUDA kernels are the same instantiations)
+MASKED_GROUPS = {"K3a flash_forward": "K3a-m flash_forward_masked",
+                 "K3b-dq flash_backward_dq": "K3b-dq-m flash_backward_dq_masked",
+                 "K3b-dkv flash_backward_dkv":
+                     "K3b-dkv-m flash_backward_dkv_masked"}
+
+
+def train_profile_phase(trainer, batch, layers, matmul_weights, label,
+                        masked=False, steps=2):
+    """Phases 12 and 16: torch.profiler over `steps` training steps, device
+    time by kernel group; the optimizer's kernels are profiled apart
+    (`_optimizer_ms`) and their time taken out of the elementwise group,
+    where they fall by name. The idle share is 1 - device busy / host
+    wall of as many unprofiled steps just before. `matmul_weights` counts
+    the elements of every weight used as a matmul operand (6 FLOPs per
+    element and token)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -932,38 +1177,40 @@ def train_profile_phase(trainer, batch, layers, steps=2):
             trainer(*batch)
         torch.cuda.synchronize()
     groups, top = _device_ms(prof)
-    opt_ms = steps * _optimizer_ms(trainer, batch, steps)
+    if masked:
+        groups = {MASKED_GROUPS.get(g, g): ms for g, ms in groups.items()}
+    opt_device, opt_span = _optimizer_ms(trainer, batch, steps)
     other = "other (elementwise, norms, gathers)"
-    groups["optimizer (clip + AdamW)"] = opt_ms
-    groups[other] = groups.get(other, 0.0) - opt_ms
+    groups["optimizer (clip + AdamW)"] = steps * opt_device
+    groups[other] = groups.get(other, 0.0) - steps * opt_device
     busy = sum(groups.values()) / steps
     per = {g: round(ms / steps, 3) for g, ms in
            sorted(groups.items(), key=lambda kv: -kv[1])}
+    flash = MASKED_GROUPS.values() if masked else FLASH_GROUPS.values()
     per_launch = {g: round(groups.get(g, 0.0) / (steps * layers), 4)
-                  for g in FLASH_GROUPS.values()}
-    # 2 FLOPs per weight and token forward, 4 backward, over every matmul
-    # weight (the embedding is a gather)
-    model, tokens = trainer.model, batch[0].numel()
-    mm_flops = 6 * tokens * sum(p.numel() for n, p in model.named_parameters()
-                                if p.dim() == 2
-                                and n != "embed_tokens.weight")
+                  for g in flash}
+    tokens = batch[0].numel()
+    mm_flops = 6 * tokens * matmul_weights
     mm_ms = groups.get("matmul (cuBLAS)", 0.0) / steps
-    log(f"profile training step: host wall {wall:.1f} ms/step, device "
+    log(f"profile {label} step: host wall {wall:.1f} ms/step, device "
         f"busy {busy:.1f} ms/step, idle share {1 - busy / wall:.3f}; "
         f"flash device ms per launch {json.dumps(per_launch)}; device "
         f"ms/step by group {json.dumps(per)}")
+    log(f"  optimizer.step() alone: device {opt_device:.3f} ms, span on the "
+        f"device's clock {opt_span:.3f} ms (busy {opt_device / opt_span:.3f}"
+        f" of it)")
     if mm_ms > 0:
         log(f"  matmuls: {mm_flops / 1e12:.2f} TFLOP per step at "
             f"{mm_flops / mm_ms / 1e9:.1f} TFLOP/s")
     if groups[other] < 0:
-        log("  the optimizer's timed update exceeds the elementwise group "
-            "it was taken from: the split of those two is not measured")
+        log("  the optimizer's profiled kernels exceed the elementwise group "
+            "they were taken from: the split of those two is not measured")
     for name, ms in top:
         log(f"  {ms / steps:.3f} ms/step  {name[:110]}")
 
 
 def dense_check_phase(cfg, seed=1, seq=1024):
-    """Phase 10: one step's loss and gradients through the flash kernels
+    """Phase 13: one step's loss and gradients through the flash kernels
     against the dense path, same weights and batch."""
     from paddle_tpu_torch.models import Llama, llama_loss_fn
     from paddle_tpu_torch.utils.flags import flag, set_flags
@@ -1007,10 +1254,9 @@ def dense_check_phase(cfg, seed=1, seq=1024):
 
 
 def measure_flash(gen, b=1, s=4096, h=32, d=128):
-    """Phase 11: each flash kernel at the trainer's shape against its plain
+    """Phase 14: each flash kernel at the trainer's shape against its plain
     version, its bound and SDPA (forward; forward+backward minus forward
     for the two backward kernels together)."""
-    from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
     import torch.nn.functional as F
 
@@ -1019,25 +1265,13 @@ def measure_flash(gen, b=1, s=4096, h=32, d=128):
     o, lse = fa.flash_forward(q, k, v, True)
     delta = fa.backward_delta(o, do)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    lib, stream = _build.library(), torch.cuda.current_stream().cuda_stream
     scale = 1.0 / d ** 0.5
-
-    def dq_kernel():
-        _build.check(lib.flash_attention_bwd_dq_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, s, s, d,
-            scale, 1, stream), "flash_backward_dq")
-
-    def dkv_kernel():
-        _build.check(lib.flash_attention_bwd_dkv_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, s, s, d, scale, 1, stream), "flash_backward_dkv")
-
-    ms = {"flash_forward": median_ms(lambda: fa.flash_forward(q, k, v,
-                                                                True)),
-          "flash_backward_dq": median_ms(dq_kernel),
-          "flash_backward_dkv": median_ms(dkv_kernel)}
+    ms = {"flash_forward": median_ms(lambda: fa.launch_forward(
+              q, k, v, o, lse, True, scale)),
+          "flash_backward_dq": median_ms(lambda: fa.launch_backward_dq(
+              q, k, v, do, lse, delta, dq, True, scale)),
+          "flash_backward_dkv": median_ms(lambda: fa.launch_backward_dkv(
+              q, k, v, do, lse, delta, dk, dv, True, scale))}
     plain = {
         "flash_forward": median_ms(
             lambda: fa.flash_forward_reference(q, k, v, True), iters=5),
@@ -1087,6 +1321,271 @@ def measure_flash(gen, b=1, s=4096, h=32, d=128):
     return out
 
 
+# -------------------------------------------------------------- ERNIE
+
+def ernie_batch(vocab, batch, seq, seed):
+    """bench.py::child_ernie's batch on the card: mask_tokens at 15 % of
+    seeded ids, lengths drawn from 85-100 % of seq, labels -100 on pads,
+    token types 0, random sentence-order labels."""
+    from paddle_tpu_torch.models import mask_tokens
+    rng = np.random.default_rng(seed)
+    base = rng.integers(5, vocab, (batch, seq))
+    ids, labels = mask_tokens(base, vocab, rng)
+    lens = rng.integers(int(seq * 0.85), seq + 1, (batch,))
+    att = (np.arange(seq)[None, :] < lens[:, None]).astype(np.int64)
+    labels = np.where(att > 0, labels, -100)
+    types = np.zeros((batch, seq), np.int64)
+    sop = rng.integers(0, 2, (batch,))
+    return tuple(torch.from_numpy(a).cuda() for a in
+                 (ids, types, att, labels, sop))
+
+
+@contextlib.contextmanager
+def _no_dense_attention():
+    """Fail on any call of the dense O(s^2) attention path."""
+    from paddle_tpu_torch.ops import impl
+    dense = impl._dense_attention
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the ERNIE trainer reached the dense attention "
+                             "path")
+    impl._dense_attention = refuse
+    try:
+        yield
+    finally:
+        impl._dense_attention = dense
+
+
+def ernie_matmul_weights(model) -> int:
+    """Elements of every weight used as a matmul operand on all tokens:
+    the encoder's linears, the MLM transform and the tied decoder (the
+    word embedding); not the position and token-type tables (gathers) or
+    the pooler and SOP head (one token per row)."""
+    return sum(p.numel() for n, p in model.named_parameters()
+               if p.dim() == 2 and "position" not in n and "token_type"
+               not in n and "pooler" not in n and "seq_relationship" not in n)
+
+
+def ernie_trainer_phase(cfg, seed=0, batch=16, seq=512, warmup=2, steps=6):
+    """Phase 15: ERNIE-3.0-base pretraining at full width and depth through
+    jit.TrainStep and AdamW (child_ernie's recipe, fp32). Returns the
+    trainer, its batch and the masked flash launches of the run."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import ErnieForPretraining, \
+        ernie_pretrain_loss_fn
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = ErnieForPretraining(cfg, device="cuda", seed=seed)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.named_parameters())
+    trainer = TrainStep(model, ernie_pretrain_loss_fn, opt, n_inputs=3)
+    data = ernie_batch(cfg.vocab_size, batch, seq, seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    fill = data[2].float().mean().item()
+    log(f"ERNIE setup: {cfg.num_layers} layers, hidden {cfg.hidden_size}, "
+        f"heads {cfg.num_heads}, ffn {cfg.ffn_hidden}, vocab "
+        f"{cfg.vocab_size}, {n_params / 1e6:.2f} M fp32 params (decoder tied "
+        f"to the word embedding; with gradients and two AdamW moments "
+        f"{16 * n_params / 1e9:.2f} GB), batch [{batch}, {seq}] at "
+        f"{100 * fill:.1f} % fill, {time.perf_counter() - t0:.1f} s")
+
+    for counts in (*fa.COUNTS.values(), *fa.COUNTS_MASKED.values()):
+        counts.reset()
+    losses = []
+
+    def one_step():
+        before = _flash_counts(masked=True)
+        losses.append(trainer(*data))
+        after = _flash_counts(masked=True)
+        for name in after:
+            if after[name][0] - before[name][0] != cfg.num_layers:
+                raise AssertionError(
+                    f"masked {name} launched "
+                    f"{after[name][0] - before[name][0]} times in a step, "
+                    f"not {cfg.num_layers}")
+
+    with _no_dense_attention():
+        for _ in range(warmup):
+            one_step()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps):
+            one_step()
+        torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t) / steps
+    masked = _flash_counts(masked=True)
+    dense = _flash_counts()
+    launches = {name: kl for name, (kl, _) in masked.items()}
+    others = sum(kl + pl for kl, pl in dense.values()) + \
+        sum(pl for _, pl in masked.values())
+    values = [x.item() for x in losses]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"ERNIE losses: {[round(x, 5) for x in values]}")
+    log(f"ERNIE run: {warmup} warm-up + {steps} timed steps, mean step "
+        f"{step_ms:.1f} ms = {batch * seq / step_ms * 1e3:.1f} tokens/s "
+        f"({batch * seq} tokens a step, pads included), peak memory "
+        f"{peak:.2f} GiB, masked flash launches {launches} "
+        f"({cfg.num_layers} each per step), dense flash and plain launches "
+        f"{others}, dense attention calls 0")
+    if not all(np.isfinite(values)) or not values[-1] < values[0]:
+        raise AssertionError(f"ERNIE losses not finite and falling: "
+                             f"{values}")
+    if others != 0 or any(n != cfg.num_layers * (warmup + steps)
+                          for n in launches.values()):
+        raise AssertionError(f"the ERNIE path missed a masked kernel or ran "
+                             f"another: {launches}, others {others}")
+    return trainer, data, launches
+
+
+def ernie_check_phase(cfg, seed=1, batch=4, seq=512):
+    """Phase 17: a 2-layer ERNIE at full width, one step's loss and
+    gradients through the masked kernels against the dense path
+    (FLAGS_use_flash_attention off), same weights and padded batch; then
+    the JAX package's padding invariance through the kernels: outputs at
+    real positions do not depend on the pad tokens' ids."""
+    from paddle_tpu_torch.models import ErnieForPretraining, \
+        ernie_pretrain_loss_fn
+    from paddle_tpu_torch.utils.flags import flag, set_flags
+
+    model = ErnieForPretraining(cfg, device="cuda", seed=seed)
+    ids, types, att, labels, sop = ernie_batch(cfg.vocab_size, batch, seq,
+                                               seed)
+
+    def run(use_flash):
+        old = flag("FLAGS_use_flash_attention")
+        set_flags({"FLAGS_use_flash_attention": use_flash})
+        try:
+            loss = ernie_pretrain_loss_fn(model(ids, types, att), labels, sop)
+            loss.backward()
+        finally:
+            set_flags({"FLAGS_use_flash_attention": old})
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    before = _flash_counts(masked=True)
+    loss_k, grads_k = run(True)
+    mid = _flash_counts(masked=True)
+    loss_d, grads_d = run(False)
+    if _flash_counts(masked=True) != mid or any(
+            mid[n][0] - before[n][0] != cfg.num_layers for n in mid):
+        raise AssertionError("the ERNIE kernel run missed a masked kernel or "
+                             "the dense run launched one")
+    rel = abs(loss_k - loss_d) / abs(loss_d)
+    worst = max(((g - grads_d[n]).abs().max()
+                 / grads_d[n].abs().max()).item()
+                for n, g in grads_k.items())
+    log(f"ERNIE kernels vs dense ({cfg.num_layers} layers, full width, batch "
+        f"[{batch}, {seq}] padded): loss {loss_k:.6f} vs {loss_d:.6f} (rel "
+        f"{rel:.2e}), worst grad max|diff| / max|grad| {worst:.2e} over "
+        f"{len(grads_k)} params")
+    if not (rel <= 1e-5 and worst <= 1e-3):
+        raise AssertionError("the ERNIE kernels' step differs from the dense "
+                             "path's beyond 1e-5 (loss) / 1e-3 (grads)")
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    other = torch.where(att > 0, ids, torch.randint(
+        5, cfg.vocab_size, ids.shape, device="cuda", generator=gen))
+    model.eval()
+    with torch.no_grad():
+        outs = [model.ernie(x, token_type_ids=types, attention_mask=att)
+                for x in (ids, other)]
+    real = att > 0
+    diff = max((outs[0][0] - outs[1][0])[real].abs().max().item(),
+               (outs[0][1] - outs[1][1]).abs().max().item())
+    log(f"ERNIE padding invariance ({int((~real).sum())} pad ids redrawn): "
+        f"max|diff| at real positions and pooled {diff:.3e}")
+    if not diff <= 2e-5:
+        raise AssertionError(f"ERNIE outputs at real positions depend on "
+                             f"the pad ids: {diff:.3e} > 2e-5")
+
+
+def measure_masked(gen, att, h=12, d=64):
+    """Phase 18: each masked kernel at the ERNIE shape (q/k/v [b, s, h, d],
+    the batch's -1e4 key padding as kbias [b, s], non-causal) against its
+    plain version, its bound and SDPA with the broadcast float mask
+    (forward; forward+backward minus forward for the backward pair)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    import torch.nn.functional as F
+
+    b, s = att.shape
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                   for _ in range(4))
+    kbias = ((1.0 - att.float()) * -1e4).contiguous()
+    m = fa.Masks(kbias=kbias)
+    o, lse = fa.flash_forward(q, k, v, False, kbias=kbias)
+    delta = fa.backward_delta(o, do)
+    dq, dk, dv = fa.flash_backward(q, k, v, o, do, lse, False, kbias=kbias)
+    ro, rlse = fa.flash_forward_reference(q, k, v, False, kbias=kbias)
+    refs = fa.flash_backward_reference(q, k, v, ro, do, rlse, False,
+                                       kbias=kbias)
+    err = {"flash_forward": max((o - ro).abs().max().item(),
+                                (lse - rlse).abs().max().item()),
+           "flash_backward_dq": (dq - refs[0]).abs().max().item(),
+           "flash_backward_dkv": max((dk - refs[1]).abs().max().item(),
+                                     (dv - refs[2]).abs().max().item())}
+    if not all(e <= TOL for e in err.values()):
+        raise AssertionError(f"K3-m at the ERNIE shape: {err} > {TOL}")
+    del ro, rlse, refs
+    scale = 1.0 / d ** 0.5
+    ms = {"flash_forward": median_ms(lambda: fa.launch_forward(
+              q, k, v, o, lse, False, scale, m)),
+          "flash_backward_dq": median_ms(lambda: fa.launch_backward_dq(
+              q, k, v, do, lse, delta, dq, False, scale, m)),
+          "flash_backward_dkv": median_ms(lambda: fa.launch_backward_dkv(
+              q, k, v, do, lse, delta, dk, dv, False, scale, m))}
+    plain = {
+        "flash_forward": median_ms(lambda: fa.flash_forward_reference(
+            q, k, v, False, kbias=kbias), iters=5),
+        "flash_backward_dq": median_ms(lambda: fa.flash_backward_dq_reference(
+            q, k, v, do, lse, delta, False, kbias=kbias), iters=5),
+        "flash_backward_dkv": median_ms(
+            lambda: fa.flash_backward_dkv_reference(
+                q, k, v, do, lse, delta, False, kbias=kbias), iters=5)}
+    qT, kT, vT, doT = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    bias = kbias[:, None, None, :]
+    lib_fwd = median_ms(lambda: F.scaled_dot_product_attention(
+        qT, kT, vT, attn_mask=bias))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (qT, kT, vT))
+    lib_fb = median_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias),
+        (qg, kg, vg), doT))
+    library = {"flash_forward": lib_fwd, "flash_backward_dq": lib_fb - lib_fwd,
+               "flash_backward_dkv": lib_fb - lib_fwd}
+    # every (query, key) pair is computed (a soft mask skips nothing); the
+    # kbias is read once besides the phase-14 operands
+    pairs = b * h * s * s
+    row, kb = 4 * b * s * h * d, 4 * b * s
+    work = {"flash_forward": (4 * row + kb + 4 * b * h * s, 4 * d * pairs),
+            "flash_backward_dq": (5 * row + kb + 8 * b * h * s, 6 * d * pairs),
+            "flash_backward_dkv": (6 * row + kb + 8 * b * h * s,
+                                   8 * d * pairs)}
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        t_ops = flops / PEAK_FP32_FLOP_PER_S
+        out[name] = dict(max_abs_err=err[name], ms=ms[name],
+                         plain_ms=plain[name],
+                         bound_ms=1e3 * max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations",
+                         library_ms=library[name])
+        log(f"timing {name}_masked at q/k/v [{b},{s},{h},{d}] kbias "
+            f"[{b},{s}] full: kernel {ms[name]:.4f} ms, plain "
+            f"{plain[name]:.4f} ms, bound {out[name]['bound_ms']:.4f} ms "
+            f"({out[name]['bound_by']}, "
+            f"{100 * out[name]['bound_ms'] / ms[name]:.1f} % of it), library "
+            f"{library[name]:.4f} ms, max_abs_err {err[name]:.3e}")
+    log(f"library yardstick: scaled_dot_product_attention fp32 [b,h,s,d] "
+        f"with the [b,1,1,s] float mask forward {lib_fwd:.4f} ms, "
+        f"forward+backward {lib_fb:.4f} ms")
+    return out
+
+
 def _free_the_card() -> float:
     """Collect what the freed phases left; returns GiB still allocated."""
     gc.collect()
@@ -1101,7 +1600,7 @@ def main() -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 2
     try:
-        from paddle_tpu_torch.models import LLAMA2_7B, Llama
+        from paddle_tpu_torch.models import ERNIE3_BASE, LLAMA2_7B, Llama
         from paddle_tpu_torch.ops import _build
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run it from the "
@@ -1200,6 +1699,7 @@ def main() -> int:
     # the training path: the engines, the model and the runners are gone
     _free_the_card()
     flash_err = flash_checks(gen)
+    masked_err = masked_checks(gen)
     left = _free_the_card()
     log(f"before the trainer: {left:.3f} GiB allocated")
     if left >= 1.0:
@@ -1207,18 +1707,40 @@ def main() -> int:
                              "serving phases; the trainer needs the card")
     train_cfg = replace(cfg, num_layers=8)
     trainer, batch, flash_launches = trainer_phase(train_cfg)
-    train_profile_phase(trainer, batch, train_cfg.num_layers)
+    train_profile_phase(
+        trainer, batch, train_cfg.num_layers,
+        sum(p.numel() for n, p in trainer.model.named_parameters()
+            if p.dim() == 2 and n != "embed_tokens.weight"), "training")
     del trainer, batch
     _free_the_card()
     dense_check_phase(replace(cfg, num_layers=2))
     _free_the_card()
     flash = measure_flash(gen)
+    _free_the_card()
+
+    # the ERNIE pretraining path: the masked kernels (K3-m)
+    ernie, data, masked_launches = ernie_trainer_phase(ERNIE3_BASE)
+    train_profile_phase(ernie, data, ERNIE3_BASE.num_layers,
+                        ernie_matmul_weights(ernie.model), "ERNIE",
+                        masked=True)
+    del ernie
+    _free_the_card()
+    ernie_check_phase(replace(ERNIE3_BASE, num_layers=2))
+    _free_the_card()
+    masked = measure_masked(gen, data[2])
     for name, replaces in FLASH_KERNELS:
         rows.append({"name": name, "route": "cuda",
                      "source": "paddle_tpu_torch/csrc/flash_attention.cu",
                      "replaces": replaces,
                      "launches": flash_launches[name],
                      "max_abs_err": flash_err[name], **flash[name]})
+    for name, replaces in FLASH_KERNELS:
+        row = dict(masked[name])
+        row["max_abs_err"] = max(row["max_abs_err"], masked_err[name])
+        rows.append({"name": f"{name}_masked", "route": "cuda",
+                     "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+                     "replaces": replaces,
+                     "launches": masked_launches[name], **row})
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@
 //   _flash_forward (kernel _flash_fwd_kernel)          -> flash_fwd_kernel
 //   _flash_backward (kernel _flash_bwd_dq_kernel)      -> flash_bwd_dq_kernel
 //   _flash_backward (kernel _flash_bwd_dkv_kernel)     -> flash_bwd_dkv_kernel
-// for the dense forms (no additive mask, kv bias, segment ids or block
-// mask), causal or not.
+// in every form: dense, and with the masking inputs of _extra_inputs_specs
+// (an additive mask, a per-key bias, segment ids, a block mask), each
+// optional and composable with causal.
 //
 // Layout: q [B, Sq, H, d], k and v [B, Sk, H, d], read and written in place
 // with a row stride of H * d floats; lse and delta [B, H, Sq] fp32. Causal
@@ -13,22 +14,35 @@
 // so with Sq > Sk the first rows see no key at all. Any Sq, Sk >= 1 works:
 // the tails of the last tiles are bounds-checked, nothing is padded.
 //
+// Masking (what _tile_scores computes, per (row, key) of a head):
+//   s = q.k * scale + mask[b, mh == 1 ? 0 : head, row, key] + kbias[b, key]
+// with mask fp32 [B, mh, Sq, Sk] (mh 1 or H) and kbias fp32 [B, Sk], each
+// added where given; s = -1e30 where qseg[b, row] != kseg[b, key] (int32
+// [B, Sq] and [B, Sk]) or where the causal mask hides the key. The block
+// mask, int32 [Sq / bq, Sk / bk], names dead (query, key) blocks at the
+// JAX kernel's granularity (bq = min(128, Sq), bk = min(128, Sk)); a tile
+// of this kernel (64 or 32 rows, both dividing 128) lies inside one such
+// block, so a tile whose block is 0 is skipped whole: its loads and
+// products never run, as on the TPU. A null pointer means "absent".
+//
 // What the three compute (scale applied to the q.k products):
 //   forward  o = softmax(s) v with an fp32 online softmax (m, l, acc) over
 //            key tiles, lse = m + log(max(l, 1e-30)), o = acc / max(l, 1e-30)
 //   dq       dq = scale * sum_k dS K, dS = P * (dO V^T - delta)
 //   dk, dv   dv = P^T dO, dk = scale * dS^T Q
-// with P recomputed from the lse in both backward kernels. A masked score
-// gives p = 0 exactly (the masked-row guard of the Pallas kernels): on a
-// row that sees no key, m stays -1e30 and exp(s - m) would be 1, so the
-// guard is what makes such rows come out as exact zeros, with zero
-// gradient.
+// with P recomputed from the lse in both backward kernels. A hard-masked
+// score (s <= -5e29) gives p = 0 exactly (the masked-row guard of the
+// Pallas kernels): on a row that sees no key, m stays -1e30 and exp(s - m)
+// would be 1, so the guard is what makes such rows come out as exact
+// zeros, with zero gradient.
 //
 // What bounds them on the H100: 4 d (forward), 6 d (dq) and 8 d (dk/dv)
-// fp32 FLOPs per visible (query, key) pair against one read of q, k, v,
-// do and one write of each output, so at the training shapes (s = 4096,
-// d = 128) the fp32 FLOPs (67 TFLOP/s outside the tensor cores) are the
-// bound by two orders of magnitude.
+// fp32 FLOPs per computed (query, key) pair against one read of q, k, v,
+// do, the masks, and one write of each output, so at the training shapes
+// (s = 512..4096, d = 64..128) the fp32 FLOPs (67 TFLOP/s outside the
+// tensor cores) are the bound by one to two orders of magnitude. The
+// masks add a few loads per score (the per-key bias and segment ids stay
+// in L1; a dense mask is read once per tile that uses it).
 //
 // Design: FlashAttention-2's split. The forward and dq kernels run one
 // thread block per (batch * head, tile of BR query rows) and walk the key
@@ -42,7 +56,11 @@
 // cores), reduces rows across its 16 lanes with shuffles, and owns float4
 // column chunks 4 tx + 64 c of its rows' accumulators. Causal blocks skip
 // the key (query) tiles past their last visible pair and are launched
-// heaviest first. BR = BC = 64 for d <= 128 and 32 for d <= 256, which
+// heaviest first; block-masked tiles are skipped the same way. The masks
+// are runtime operands of the same instantiations: a tile's scores take
+// the masked loop only when a mask, bias or segment ids are given (a
+// branch uniform across the block), so the dense forms run the unmasked
+// loop as before. BR = BC = 64 for d <= 128 and 32 for d <= 256, which
 // keeps each kernel's shared memory under the 227 KB a block may use. The
 // forward keeps K and V in one buffer, in turn, so two of its blocks fit
 // on an SM. wgmma tiles (TF32 or bf16 operands), cp.async or TMA double
@@ -68,11 +86,19 @@ struct Tile<256> {
   static constexpr int R = 32;
 };
 
-// Problem sizes shared by the three kernels.
+// Problem sizes and the optional masking operands, shared by the three
+// kernels (a null pointer: that operand is absent).
 struct Dims {
   int H, Sq, Sk, d;
   float scale;
   int causal;
+  const float* mask;        // [B, mh, Sq, Sk] additive
+  int mh;                   // the mask's heads: 1 (shared) or H
+  const float* kbias;       // [B, Sk] additive, per key
+  const int* qseg;          // [B, Sq]; with kseg [B, Sk]: attend iff equal
+  const int* kseg;
+  const int* block_mask;    // [Sq / bq, Sk / bk], 0 = dead block
+  int bq, bk;               // the block mask's rows and keys per block
 };
 
 // Rows [row0, row0 + R) of a [B, S, H, d] tensor (base already at (b, 0,
@@ -188,6 +214,70 @@ __device__ __forceinline__ bool visible(int row, int key, const Dims& dm) {
          (!dm.causal || key <= row + (dm.Sk - dm.Sq));
 }
 
+// The score of (row, key) of batch b, head `head` from its raw q.k product,
+// as _tile_scores computes it: s * scale, plus the mask and the per-key bias
+// where given; kNegInf where the pair is out of range, hidden by the causal
+// mask or crosses segments. Out-of-range pairs read no mask.
+__device__ __forceinline__ float masked_score(float s, int b, int head,
+                                              int row, int key,
+                                              const Dims& dm) {
+  if (!visible(row, key, dm)) return kNegInf;
+  float v = s * dm.scale;
+  if (dm.mask) {
+    const int mhead = dm.mh == 1 ? 0 : head;
+    v += __ldg(dm.mask + (((int64_t)b * dm.mh + mhead) * dm.Sq + row) *
+                             dm.Sk + key);
+  }
+  if (dm.kbias) v += __ldg(dm.kbias + (int64_t)b * dm.Sk + key);
+  if (dm.qseg && __ldg(dm.qseg + (int64_t)b * dm.Sq + row) !=
+                     __ldg(dm.kseg + (int64_t)b * dm.Sk + key)) {
+    v = kNegInf;
+  }
+  return v;
+}
+
+// A thread's RM x RM scores in place, from their raw q.k products: s[i][j]
+// is (row0 + 16 i, key0 + 16 j), or with TRANSPOSED (key0 + 16 i, row0 +
+// 16 j). MASKED reads the masks (masked_score); otherwise only the causal
+// and range checks apply.
+template <bool MASKED, bool TRANSPOSED, int RM>
+__device__ __forceinline__ void scores_of(float (&s)[RM][RM], int b,
+                                          int head, int row0, int key0,
+                                          const Dims& dm) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+#pragma unroll
+    for (int j = 0; j < RM; ++j) {
+      const int row = row0 + 16 * (TRANSPOSED ? j : i);
+      const int key = key0 + 16 * (TRANSPOSED ? i : j);
+      s[i][j] = MASKED ? masked_score(s[i][j], b, head, row, key, dm)
+                       : visible(row, key, dm) ? s[i][j] * dm.scale
+                                               : kNegInf;
+    }
+  }
+}
+
+// scores_of on a branch uniform across the block, so the dense forms run
+// the unmasked loop and pay nothing for the masks.
+template <bool TRANSPOSED, int RM>
+__device__ __forceinline__ void tile_scores(float (&s)[RM][RM], int b,
+                                            int head, int row0, int key0,
+                                            const Dims& dm) {
+  if (dm.mask || dm.kbias || dm.qseg) {
+    scores_of<true, TRANSPOSED>(s, b, head, row0, key0, dm);
+  } else {
+    scores_of<false, TRANSPOSED>(s, b, head, row0, key0, dm);
+  }
+}
+
+// Whether the tile of rows from q0 and keys from k0 lies in a live block of
+// the block mask (always, without one). The tile lies inside one block.
+__device__ __forceinline__ bool tile_live(int q0, int k0, const Dims& dm) {
+  if (!dm.block_mask) return true;
+  const int nbk = dm.Sk / dm.bk;
+  return __ldg(dm.block_mask + (q0 / dm.bq) * nbk + k0 / dm.bk) != 0;
+}
+
 // Keys a query tile [q0, q0 + R) needs: all of them, or under the causal
 // mask those up to its last live row's last visible key.
 __device__ __forceinline__ int key_end(int q0, int R, const Dims& dm) {
@@ -255,6 +345,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int kend = key_end(q0, R, dm);
   for (int k0 = 0; k0 < kend; k0 += R) {
+    if (!tile_live(q0, k0, dm)) continue;   // uniform across the block
     __syncthreads();   // V and P of the previous tile are consumed
     load_rows<R>(kvs, kb, k0, dm.Sk - k0, d, ld, rs);
     __syncthreads();
@@ -262,16 +353,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     gemm_nt<RM, RM>(s, qs, kvs, ld, d, ty, tx);
     __syncthreads();   // K is consumed: V takes its place
     load_rows<R>(kvs, vb, k0, dm.Sk - k0, d, ld, rs);
+    tile_scores<false>(s, b, head, q0 + ty, k0 + tx, dm);
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
-      const int row = q0 + ty + 16 * i;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < RM; ++j) {
-        s[i][j] = visible(row, k0 + tx + 16 * j, dm) ? s[i][j] * dm.scale
-                                                      : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
+      for (int j = 0; j < RM; ++j) mx = fmaxf(mx, s[i][j]);
       const float m_new = fmaxf(m[i], max16(mx));
       float rsum = 0.f;
 #pragma unroll
@@ -345,6 +432,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int kend = key_end(q0, R, dm);
   for (int k0 = 0; k0 < kend; k0 += R) {
+    if (!tile_live(q0, k0, dm)) continue;
     __syncthreads();   // K and dS of the previous tile are consumed
     load_rows<R>(ks, k + koff, k0, dm.Sk - k0, d, ld, rs);
     load_rows<R>(vs, v + koff, k0, dm.Sk - k0, d, ld, rs);
@@ -352,13 +440,12 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float s[RM][RM], dp[RM][RM];
     gemm_nt<RM, RM>(s, qs, ks, ld, d, ty, tx);
     gemm_nt<RM, RM>(dp, dos, vs, ld, d, ty, tx);
+    tile_scores<false>(s, b, head, q0 + ty, k0 + tx, dm);
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
-      const int row = q0 + ty + 16 * i;
 #pragma unroll
       for (int j = 0; j < RM; ++j) {
-        const float sv = visible(row, k0 + tx + 16 * j, dm)
-                             ? s[i][j] * dm.scale : kNegInf;
+        const float sv = s[i][j];
         const float p = sv <= kMaskedBelow ? 0.f : expf(sv - row_lse[i]);
         dss[(ty + 16 * i) * ldp + tx + 16 * j] =
             dm.scale * (p * (dp[i][j] - row_delta[i]));
@@ -419,10 +506,12 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  // under the causal mask, rows before k0 - (Sk - Sq) see none of these keys
+  // under the causal mask, rows before k0 - (Sk - Sq) see none of these
+  // keys (the other masks only hide more)
   int qstart = 0;
   if (dm.causal) qstart = max(0, k0 - (dm.Sk - dm.Sq)) / R * R;
   for (int q0 = qstart; q0 < dm.Sq; q0 += R) {
+    if (!tile_live(q0, k0, dm)) continue;
     __syncthreads();   // Q, dO, P^T and dS^T of the previous tile are consumed
     load_rows<R>(qs, q + qoff, q0, dm.Sq - q0, d, ld, rs);
     load_rows<R>(dos, dout + qoff, q0, dm.Sq - q0, d, ld, rs);
@@ -436,14 +525,13 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float st[RM][RM], dpt[RM][RM];
     gemm_nt<RM, RM>(st, ks, qs, ld, d, ty, tx);
     gemm_nt<RM, RM>(dpt, vs, dos, ld, d, ty, tx);
+    tile_scores<true>(st, b, head, q0 + tx, k0 + ty, dm);
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
-      const int key = k0 + ty + 16 * i;
 #pragma unroll
       for (int j = 0; j < RM; ++j) {
         const int r = tx + 16 * j;
-        const float sv = visible(q0 + r, key, dm) ? st[i][j] * dm.scale
-                                                  : kNegInf;
+        const float sv = st[i][j];
         const float p = sv <= kMaskedBelow ? 0.f : expf(sv - lse_s[r]);
         pts[(ty + 16 * i) * ldp + r] = p;
         dsts[(ty + 16 * i) * ldp + r] =
@@ -528,26 +616,54 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
 }
 
 // The shapes every entry point takes (the grid's y extent is at most
-// 65535 tiles).
-bool shapes_ok(int B, int H, int Sq, int Sk, int d) {
-  if (B < 0 || H <= 0 || Sq < 0 || Sk < 0) return false;
+// 65535 tiles), and the masking operands' sizes: mh is 1 or H with a mask;
+// with a block mask the blocks tile both lengths and each is 128 long or
+// the whole length (so every kernel tile lies inside one block); segment
+// ids come in pairs.
+bool shapes_ok(const Dims& dm, int B) {
+  const int d = dm.d;
+  if (B < 0 || dm.H <= 0 || dm.Sq < 0 || dm.Sk < 0) return false;
   if (d <= 0 || d % 8 != 0 || d > 256) return false;
   const int R = d <= 128 ? Tile<128>::R : Tile<256>::R;
-  const int64_t tiles = ((int64_t)(Sq > Sk ? Sq : Sk) + R - 1) / R;
-  return tiles <= 65535 && (int64_t)B * H <= 0x7fffffff;
+  const int64_t tiles = ((int64_t)(dm.Sq > dm.Sk ? dm.Sq : dm.Sk) + R - 1) / R;
+  if (tiles > 65535 || (int64_t)B * dm.H > 0x7fffffff) return false;
+  if (dm.mask && dm.mh != 1 && dm.mh != dm.H) return false;
+  if ((dm.qseg == nullptr) != (dm.kseg == nullptr)) return false;
+  if (dm.block_mask) {
+    if (dm.bq <= 0 || dm.bk <= 0 || dm.Sq % dm.bq || dm.Sk % dm.bk)
+      return false;
+    if ((dm.bq != 128 && dm.bq != dm.Sq) || (dm.bk != 128 && dm.bk != dm.Sk))
+      return false;
+  }
+  return true;
+}
+
+Dims make_dims(int H, int Sq, int Sk, int d, float scale, int causal,
+               const void* mask, int mh, const void* kbias, const void* qseg,
+               const void* kseg, const void* block_mask, int bq, int bk) {
+  return Dims{H, Sq, Sk, d, scale, causal,
+              static_cast<const float*>(mask), mh,
+              static_cast<const float*>(kbias),
+              static_cast<const int*>(qseg), static_cast<const int*>(kseg),
+              static_cast<const int*>(block_mask), bq, bk};
 }
 
 }  // namespace
 
-extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
-                                       const void* v, void* o, void* lse,
-                                       int B, int H, int Sq, int Sk, int d,
-                                       float scale, int causal,
-                                       void* stream) {
-  if (!shapes_ok(B, H, Sq, Sk, d)) return (int)cudaErrorInvalidValue;
+// Every entry point takes the five masking operands (null = absent) after
+// its tensors, then the sizes: mh is the mask's head count (1 or H), bq and
+// bk the block mask's block lengths.
+
+extern "C" int flash_attention_fwd_f32(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* mask, const void* kbias, const void* qseg, const void* kseg,
+    const void* block_mask, int B, int H, int Sq, int Sk, int d, int mh,
+    int bq, int bk, float scale, int causal, void* stream) {
+  const Dims dm = make_dims(H, Sq, Sk, d, scale, causal, mask, mh, kbias,
+                            qseg, kseg, block_mask, bq, bk);
+  if (!shapes_ok(dm, B)) return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return (int)cudaSuccess;
   if (Sk == 0) return (int)cudaErrorInvalidValue;
-  const Dims dm{H, Sq, Sk, d, scale, causal};
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
@@ -558,16 +674,17 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
   return (int)launch_fwd<256>(qf, kf, vf, of, lf, B, dm, st);
 }
 
-extern "C" int flash_attention_bwd_dq_f32(const void* q, const void* k,
-                                          const void* v, const void* dout,
-                                          const void* lse, const void* delta,
-                                          void* dq, int B, int H, int Sq,
-                                          int Sk, int d, float scale,
-                                          int causal, void* stream) {
-  if (!shapes_ok(B, H, Sq, Sk, d)) return (int)cudaErrorInvalidValue;
+extern "C" int flash_attention_bwd_dq_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, const void* mask,
+    const void* kbias, const void* qseg, const void* kseg,
+    const void* block_mask, int B, int H, int Sq, int Sk, int d, int mh,
+    int bq, int bk, float scale, int causal, void* stream) {
+  const Dims dm = make_dims(H, Sq, Sk, d, scale, causal, mask, mh, kbias,
+                            qseg, kseg, block_mask, bq, bk);
+  if (!shapes_ok(dm, B)) return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return (int)cudaSuccess;
   if (Sk == 0) return (int)cudaErrorInvalidValue;
-  const Dims dm{H, Sq, Sk, d, scale, causal};
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
@@ -582,17 +699,17 @@ extern "C" int flash_attention_bwd_dq_f32(const void* q, const void* k,
   return (int)launch_dq<256>(qf, kf, vf, df, lf, ef, gf, B, dm, st);
 }
 
-extern "C" int flash_attention_bwd_dkv_f32(const void* q, const void* k,
-                                           const void* v, const void* dout,
-                                           const void* lse,
-                                           const void* delta, void* dk,
-                                           void* dv, int B, int H, int Sq,
-                                           int Sk, int d, float scale,
-                                           int causal, void* stream) {
-  if (!shapes_ok(B, H, Sq, Sk, d)) return (int)cudaErrorInvalidValue;
+extern "C" int flash_attention_bwd_dkv_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, const void* mask,
+    const void* kbias, const void* qseg, const void* kseg,
+    const void* block_mask, int B, int H, int Sq, int Sk, int d, int mh,
+    int bq, int bk, float scale, int causal, void* stream) {
+  const Dims dm = make_dims(H, Sq, Sk, d, scale, causal, mask, mh, kbias,
+                            qseg, kseg, block_mask, bq, bk);
+  if (!shapes_ok(dm, B)) return (int)cudaErrorInvalidValue;
   if (B == 0 || Sk == 0) return (int)cudaSuccess;
   if (Sq == 0) return (int)cudaErrorInvalidValue;
-  const Dims dm{H, Sq, Sk, d, scale, causal};
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);

@@ -40,9 +40,12 @@ SIGNATURES = {
     "ragged_paged_attention_i8": [_P] * 9 + [_I] * 7 + [_F, _P],
     "ragged_paged_attention_f8": [_P] * 7 + [_I] * 7 + [_F, _P],
     "paged_decode_attention_f32": [_P] * 6 + [_I] * 5 + [_F, _P],
-    "flash_attention_fwd_f32": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
-    "flash_attention_bwd_dq_f32": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
-    "flash_attention_bwd_dkv_f32": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+    # the flash kernels: their tensors, the five masking operands (mask,
+    # kbias, qseg, kseg, block_mask; null = absent), then B, H, Sq, Sk, d,
+    # the mask's heads and the block mask's block lengths
+    "flash_attention_fwd_f32": [_P] * 10 + [_I] * 8 + [_F, _I, _P],
+    "flash_attention_bwd_dq_f32": [_P] * 12 + [_I] * 8 + [_F, _I, _P],
+    "flash_attention_bwd_dkv_f32": [_P] * 13 + [_I] * 8 + [_F, _I, _P],
 }
 
 

@@ -1,19 +1,37 @@
-"""Flash attention, forward and backward: the training path's dense
-attention kernels (K3a, K3b-dq, K3b-dkv).
+"""Flash attention, forward and backward: the training path's attention
+kernels (K3a, K3b-dq, K3b-dkv), dense and masked (K3-m).
 
-Counterpart of paddle_tpu/ops/pallas/flash_attention.py for the dense
-forms (no additive mask, kv bias, segment ids or block mask), causal or
-not. Layout [b, s, h, d] for q, k, v and o; causal masking is bottom-right
-aligned (query i sees keys j <= i + sk - sq), so with sq > sk the first
-rows see no key and come out as exact zeros with zero gradient. The
-forward writes the per-row log-sum-exp as fp32 [b, h, sq] (the JAX
-kernel's trailing LSE_LANES broadcast is a TPU layout detail, dropped
-here).
+Counterpart of paddle_tpu/ops/pallas/flash_attention.py. Layout
+[b, s, h, d] for q, k, v and o; causal masking is bottom-right aligned
+(query i sees keys j <= i + sk - sq), so with sq > sk the first rows see
+no key and come out as exact zeros with zero gradient. The forward writes
+the per-row log-sum-exp as fp32 [b, h, sq] (the JAX kernel's trailing
+LSE_LANES broadcast is a TPU layout detail, dropped here).
 
-  flash_attention           the entry point: FlashAttention.apply
+Four masking operands compose with causal, as in the JAX kernels
+(`_tile_scores`, `_extra_inputs_specs`), each optional:
+
+  mask        fp32 [b, 1|h, sq, sk], added to the scaled scores
+  kbias       fp32 [b, sk], a per-key bias added at every query row (the
+              O(s) form of a key-padding mask)
+  qseg, kseg  int32 [b, sq] and [b, sk]: a pair attends iff the ids match
+  block_mask  int32 [sq // bq, sk // bk] with bq = min(128, sq) and
+              bk = min(128, sk), the JAX kernel's tiles: a 0 names a dead
+              block, whose pairs are skipped whole
+
+A hard-masked score (<= -5e29) gives p = 0 exactly, so a row with no
+visible key comes out as zeros with zero gradient.
+
+  flash_attention           the entry point: canonicalizes the masks as
+                            the JAX function does (`canon_mask`,
+                            `canon_segments`, the block mask only where
+                            the JAX kernel path would apply it), then
+                            FlashAttention.apply
   FlashAttention            torch.autograd.Function tying the forward
                             kernel (with LSE) to the two backward kernels,
-                            as the custom VJP `_flash` ties them in JAX
+                            as the custom VJP `_flash` ties them in JAX;
+                            the masks get no gradient (JAX: zero
+                            cotangents)
   flash_forward             wrapper of K3a -> (o, lse)
   flash_backward            wrappers of K3b-dq and K3b-dkv -> (dq, dk, dv);
                             delta = rowsum(dO * O) is plain torch before
@@ -22,16 +40,21 @@ here).
   flash_backward_reference  contract (masked-row guard, 1e-30 clamps);
                             the backward is flash_backward_dq_reference and
                             flash_backward_dkv_reference over one delta
+  launch_forward,           the bare launches (no checks, no counts), for
+  launch_backward_dq,       timing the kernels
+  launch_backward_dkv
   flash_attention_ok        the kernels' shape gate
 
 On CUDA tensors the wrappers launch the hand-written kernels in
 csrc/flash_attention.cu or raise; on CPU tensors they run the plain
-versions. `COUNTS` holds one LaunchCounts per kernel.
+versions. `COUNTS` holds one LaunchCounts per kernel for the dense forms,
+`COUNTS_MASKED` the same for calls with any masking operand.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -44,12 +67,24 @@ NEG_INF = -1e30
 MASKED_BELOW = NEG_INF * 0.5
 # the widest head the kernels take (two instantiations: d <= 128, <= 256)
 MAX_HEAD_DIM = 256
-MASKED_FORMS = ("the masked flash forms are not ported yet: ROADMAP.md "
-                "'Still to port' item 2a (K3-m)")
+# the JAX kernel's tile, the granularity of its block mask
+JAX_BLOCK = 128
 
-COUNTS = {"flash_forward": LaunchCounts(),
-          "flash_backward_dq": LaunchCounts(),
-          "flash_backward_dkv": LaunchCounts()}
+_KERNELS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+COUNTS = {name: LaunchCounts() for name in _KERNELS}
+COUNTS_MASKED = {name: LaunchCounts() for name in _KERNELS}
+
+
+class Masks(NamedTuple):
+    """The kernels' masking operands in canonical form (None = absent)."""
+    mask: Optional[torch.Tensor] = None         # fp32 [b, 1|h, sq, sk]
+    kbias: Optional[torch.Tensor] = None        # fp32 [b, sk]
+    qseg: Optional[torch.Tensor] = None         # int32 [b, sq]
+    kseg: Optional[torch.Tensor] = None         # int32 [b, sk]
+    block_mask: Optional[torch.Tensor] = None   # int32 [sq // bq, sk // bk]
+
+    def given(self) -> bool:
+        return any(t is not None for t in self)
 
 
 def flash_attention_ok(q, k, v) -> bool:
@@ -70,19 +105,42 @@ def on_card(t) -> bool:
     return t.device.type == "cuda"
 
 
+def jax_blocks(sq: int, sk: int):
+    """(bq, bk): the rows and keys of one block of the JAX kernel's grid,
+    by which a block mask is indexed."""
+    return min(JAX_BLOCK, sq), min(JAX_BLOCK, sk)
+
+
 def _scale(q, scale):
     return float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
 
 
-def _scores(q, k, causal, scale):
-    """[b, h, sq, sk] fp32 scaled scores, NEG_INF where the causal mask
-    hides a key."""
+def _block_live(block_mask, sq, sk):
+    """[sq, sk] bool: the pairs of the live blocks of ``block_mask``."""
+    bq, bk = jax_blocks(sq, sk)
+    return (block_mask != 0).repeat_interleave(bq, 0).repeat_interleave(bk, 1)
+
+
+def _scores(q, k, causal, scale, m: Masks = Masks()):
+    """[b, h, sq, sk] fp32 scores as `_tile_scores` forms them: q.k * scale
+    plus the mask and the per-key bias; NEG_INF where segments differ,
+    the causal mask hides a key or the block mask names a dead block."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if m.mask is not None:
+        s = s + m.mask.float()
+    if m.kbias is not None:
+        s = s + m.kbias.float()[:, None, None, :]
+    neg = torch.full_like(s, NEG_INF)
+    if m.qseg is not None:
+        same = m.qseg[:, None, :, None] == m.kseg[:, None, None, :]
+        s = torch.where(same, s, neg)
+    sq, sk = s.shape[-2], s.shape[-1]
     if causal:
-        sq, sk = s.shape[-2], s.shape[-1]
         keep = torch.ones(sq, sk, dtype=torch.bool, device=s.device).tril(
             sk - sq)
-        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+        s = torch.where(keep, s, neg)
+    if m.block_mask is not None:
+        s = torch.where(_block_live(m.block_mask, sq, sk), s, neg)
     return s
 
 
@@ -93,12 +151,16 @@ def _guarded_exp(s, m):
                        torch.exp(s - m))
 
 
-def flash_forward_reference(q, k, v, causal=True, scale=None):
+def flash_forward_reference(q, k, v, causal=True, scale=None, *, mask=None,
+                            kbias=None, qseg=None, kseg=None,
+                            block_mask=None):
     """Plain version of K3a: (o [b, sq, h, d] in q's dtype, lse [b, h, sq]
-    fp32), o = acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30))."""
+    fp32), o = acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)), the
+    running max starting at NEG_INF as in the kernels."""
     scale = _scale(q, scale)
-    s = _scores(q, k, causal, scale)
-    m = s.amax(dim=-1, keepdim=True)
+    s = _scores(q, k, causal, scale, Masks(mask, kbias, qseg, kseg,
+                                           block_mask))
+    m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)
     p = _guarded_exp(s, m)
     den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     o = torch.einsum("bhqk,bkhd->bhqd", p, v.float()) / den
@@ -106,29 +168,33 @@ def flash_forward_reference(q, k, v, causal=True, scale=None):
     return o.transpose(1, 2).to(q.dtype).contiguous(), lse
 
 
-def _backward_p_ds(q, k, v, do, lse, delta, causal, scale):
+def _backward_p_ds(q, k, v, do, lse, delta, causal, scale, masks):
     """P recomputed from lse, and dS = P * (dO V^T - delta)."""
-    s = _scores(q, k, causal, scale)
+    s = _scores(q, k, causal, scale, masks)
     p = _guarded_exp(s, lse.float()[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     return p, p * (dp - delta.float()[..., None])
 
 
 def flash_backward_dq_reference(q, k, v, do, lse, delta, causal=True,
-                                scale=None):
+                                scale=None, *, mask=None, kbias=None,
+                                qseg=None, kseg=None, block_mask=None):
     """Plain version of K3b-dq: dq = scale * dS K, [b, sq, h, d]."""
     scale = _scale(q, scale)
-    _, ds = _backward_p_ds(q, k, v, do, lse, delta, causal, scale)
+    _, ds = _backward_p_ds(q, k, v, do, lse, delta, causal, scale,
+                           Masks(mask, kbias, qseg, kseg, block_mask))
     return (scale * torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
             ).to(q.dtype)
 
 
 def flash_backward_dkv_reference(q, k, v, do, lse, delta, causal=True,
-                                 scale=None):
+                                 scale=None, *, mask=None, kbias=None,
+                                 qseg=None, kseg=None, block_mask=None):
     """Plain version of K3b-dkv: (dk = scale * dS^T Q, dv = P^T dO),
     [b, sk, h, d] each."""
     scale = _scale(q, scale)
-    p, ds = _backward_p_ds(q, k, v, do, lse, delta, causal, scale)
+    p, ds = _backward_p_ds(q, k, v, do, lse, delta, causal, scale,
+                           Masks(mask, kbias, qseg, kseg, block_mask))
     dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -141,18 +207,21 @@ def backward_delta(o, do):
         .contiguous()
 
 
-def flash_backward_reference(q, k, v, o, do, lse, causal=True, scale=None):
+def flash_backward_reference(q, k, v, o, do, lse, causal=True, scale=None,
+                             **masks):
     """Plain version of K3b: (dq, dk, dv) in the [b, s, h, d] layout, with P
     recomputed from lse and delta = rowsum(dO * O)."""
     delta = backward_delta(o, do)
-    dq = flash_backward_dq_reference(q, k, v, do, lse, delta, causal, scale)
+    dq = flash_backward_dq_reference(q, k, v, do, lse, delta, causal, scale,
+                                     **masks)
     dk, dv = flash_backward_dkv_reference(q, k, v, do, lse, delta, causal,
-                                          scale)
+                                          scale, **masks)
     return dq, dk, dv
 
 
-def _check_operands(name, tensors):
-    devices = {t.device for t in tensors}
+def _check_operands(name, tensors, masks: Masks):
+    given = [t for t in (*tensors, *masks) if t is not None]
+    devices = {t.device for t in given}
     if len(devices) != 1:
         raise ValueError(f"{name}: operands on several devices "
                          f"{sorted(map(str, devices))}")
@@ -160,9 +229,38 @@ def _check_operands(name, tensors):
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
     # the same operand rules on both devices, so a CPU run refuses what
-    # the kernel would refuse
-    require_launchable(name, tensors, ())
+    # the kernel would refuse; the masks are read one element at a time
+    ints = [t for t in (masks.qseg, masks.kseg, masks.block_mask)
+            if t is not None]
+    floats = [t for t in (masks.mask, masks.kbias) if t is not None]
+    require_launchable(name, tensors, ints, scales=floats)
     return dev
+
+
+def _check_mask_shapes(name, q, k, m: Masks):
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    if m.mask is not None and (m.mask.dim() != 4 or tuple(m.mask.shape) not in
+                               ((b, 1, sq, sk), (b, h, sq, sk))):
+        raise ValueError(f"{name}: mask {tuple(m.mask.shape)} is not "
+                         f"[{b}, 1|{h}, {sq}, {sk}]")
+    if m.kbias is not None and tuple(m.kbias.shape) != (b, sk):
+        raise ValueError(f"{name}: kbias {tuple(m.kbias.shape)} is not "
+                         f"[{b}, {sk}]")
+    if (m.qseg is None) != (m.kseg is None):
+        raise ValueError(f"{name}: qseg and kseg come together")
+    if m.qseg is not None and (tuple(m.qseg.shape) != (b, sq)
+                               or tuple(m.kseg.shape) != (b, sk)):
+        raise ValueError(f"{name}: segment ids {tuple(m.qseg.shape)} / "
+                         f"{tuple(m.kseg.shape)} are not [{b}, {sq}] / "
+                         f"[{b}, {sk}]")
+    if m.block_mask is not None:
+        bq, bk = jax_blocks(sq, sk)
+        if sq % bq or sk % bk or tuple(m.block_mask.shape) != (sq // bq,
+                                                                sk // bk):
+            raise ValueError(
+                f"{name}: block_mask {tuple(m.block_mask.shape)} does not "
+                f"tile sq={sq}, sk={sk} in blocks of {bq} x {bk}")
 
 
 def _require_kernel_shapes(q, k, v):
@@ -173,38 +271,90 @@ def _require_kernel_shapes(q, k, v):
             f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
 
 
-def flash_forward(q, k, v, causal=True, scale=None):
-    """K3a: (o, lse) of dense attention over [b, s, h, d] operands."""
-    dev = _check_operands("flash_forward", (q, k, v))
-    scale = _scale(q, scale)
-    if not on_card(q):
-        COUNTS["flash_forward"].plain_launches += 1
-        return flash_forward_reference(q, k, v, causal, scale)
-    _require_kernel_shapes(q, k, v)
+def _mask_args(q, k, m: Masks):
+    """The masking operands' C arguments after the tensors, and the sizes
+    (mh, bq, bk) after d."""
+    ptrs = [t.data_ptr() if t is not None else None for t in m]
+    mh = m.mask.shape[1] if m.mask is not None else 1
+    return ptrs, (mh, *jax_blocks(q.shape[1], k.shape[1]))
+
+
+def _stream(q):
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def launch_forward(q, k, v, o, lse, causal, scale, masks=Masks()):
+    """K3a into o and lse; the caller has checked the operands."""
     b, sq, h, d = q.shape
+    ptrs, sizes = _mask_args(q, k, masks)
+    check(library().flash_attention_fwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), *ptrs, b, h, sq, k.shape[1], d, *sizes, scale,
+        int(causal), _stream(q)), "flash_forward")
+
+
+def launch_backward_dq(q, k, v, do, lse, delta, dq, causal, scale,
+                       masks=Masks()):
+    """K3b-dq into dq; the caller has checked the operands."""
+    b, sq, h, d = q.shape
+    ptrs, sizes = _mask_args(q, k, masks)
+    check(library().flash_attention_bwd_dq_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *ptrs, b, h, sq,
+        k.shape[1], d, *sizes, scale, int(causal), _stream(q)),
+        "flash_backward_dq")
+
+
+def launch_backward_dkv(q, k, v, do, lse, delta, dk, dv, causal, scale,
+                        masks=Masks()):
+    """K3b-dkv into dk and dv; the caller has checked the operands."""
+    b, sq, h, d = q.shape
+    ptrs, sizes = _mask_args(q, k, masks)
+    check(library().flash_attention_bwd_dkv_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *ptrs, b, h, sq, k.shape[1], d, *sizes, scale, int(causal),
+        _stream(q)), "flash_backward_dkv")
+
+
+def flash_forward(q, k, v, causal=True, scale=None, *, mask=None,
+                  kbias=None, qseg=None, kseg=None, block_mask=None):
+    """K3a: (o, lse) of attention over [b, s, h, d] operands, with the
+    masking operands in canonical form (see the module docstring)."""
+    m = Masks(mask, kbias, qseg, kseg, block_mask)
+    dev = _check_operands("flash_forward", (q, k, v), m)
+    _check_mask_shapes("flash_forward", q, k, m)
+    scale = _scale(q, scale)
+    counts = (COUNTS_MASKED if m.given() else COUNTS)["flash_forward"]
+    if not on_card(q):
+        counts.plain_launches += 1
+        return flash_forward_reference(q, k, v, causal, scale, **m._asdict())
+    _require_kernel_shapes(q, k, v)
+    b, sq, h, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=dev)
-    err = library().flash_attention_fwd_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b, h, sq, k.shape[1], d, scale, int(causal),
-        torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "flash_forward")
-    COUNTS["flash_forward"].kernel_launches += 1
+    launch_forward(q, k, v, o, lse, causal, scale, m)
+    counts.kernel_launches += 1
     return o, lse
 
 
-def flash_backward(q, k, v, o, do, lse, causal=True, scale=None):
-    """K3b-dq and K3b-dkv: (dq, dk, dv) given the forward's o and lse and
-    the output gradient do."""
-    dev = _check_operands("flash_backward", (q, k, v, o, do, lse))
+def flash_backward(q, k, v, o, do, lse, causal=True, scale=None, *,
+                   mask=None, kbias=None, qseg=None, kseg=None,
+                   block_mask=None):
+    """K3b-dq and K3b-dkv: (dq, dk, dv) given the forward's o and lse, the
+    output gradient do and the forward's masking operands."""
+    m = Masks(mask, kbias, qseg, kseg, block_mask)
+    _check_operands("flash_backward", (q, k, v, o, do, lse), m)
+    _check_mask_shapes("flash_backward", q, k, m)
     scale = _scale(q, scale)
+    counts = COUNTS_MASKED if m.given() else COUNTS
     if not on_card(q):
-        COUNTS["flash_backward_dq"].plain_launches += 1
-        COUNTS["flash_backward_dkv"].plain_launches += 1
-        return flash_backward_reference(q, k, v, o, do, lse, causal, scale)
+        counts["flash_backward_dq"].plain_launches += 1
+        counts["flash_backward_dkv"].plain_launches += 1
+        return flash_backward_reference(q, k, v, o, do, lse, causal, scale,
+                                        **m._asdict())
     _require_kernel_shapes(q, k, v)
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
+    b, sq, h, _ = q.shape
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape) \
             or tuple(lse.shape) != (b, h, sq):
         raise ValueError(f"flash_backward: o {tuple(o.shape)}, do "
@@ -212,49 +362,126 @@ def flash_backward(q, k, v, o, do, lse, causal=True, scale=None):
                          f"not match q {tuple(q.shape)}")
     delta = backward_delta(o, do)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = library()
-    err = lib.flash_attention_bwd_dq_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk, d,
-        scale, int(causal), stream)
-    check(err, "flash_backward_dq")
-    COUNTS["flash_backward_dq"].kernel_launches += 1
-    err = lib.flash_attention_bwd_dkv_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
-        h, sq, sk, d, scale, int(causal), stream)
-    check(err, "flash_backward_dkv")
-    COUNTS["flash_backward_dkv"].kernel_launches += 1
+    launch_backward_dq(q, k, v, do, lse, delta, dq, causal, scale, m)
+    counts["flash_backward_dq"].kernel_launches += 1
+    launch_backward_dkv(q, k, v, do, lse, delta, dk, dv, causal, scale, m)
+    counts["flash_backward_dkv"].kernel_launches += 1
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
     """o = attention(q, k, v); the backward recomputes P from the saved
-    per-row lse (K3b) instead of keeping the [sq, sk] probabilities."""
+    per-row lse (K3b) instead of keeping the [sq, sk] probabilities. The
+    masking operands are constants: they get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        o, lse = flash_forward(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, mask, kbias, qseg, kseg, block_mask, causal,
+                scale):
+        m = Masks(mask, kbias, qseg, kseg, block_mask)
+        o, lse = flash_forward(q, k, v, causal, scale, **m._asdict())
+        ctx.save_for_backward(q, k, v, o, lse, *m)
         ctx.causal, ctx.scale = causal, scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, *m = ctx.saved_tensors
         dq, dk, dv = flash_backward(q, k, v, o, do.contiguous(), lse,
-                                    ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+                                    ctx.causal, ctx.scale,
+                                    **Masks(*m)._asdict())
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def canon_mask(mask, b, h, sq, sk, device=None):
+    """The JAX `_canon_mask`: a bool (True = attend) or additive float
+    mask broadcastable to [b, 1|h, sq, sk] -> (mask, kbias). Key-padding
+    forms [*, *, 1, sk] lower to kbias fp32 [b, sk] (O(s) memory) with
+    mask None; anything with a per-query axis becomes fp32 [b, 1|h, sq,
+    sk] with kbias None. Bool False becomes NEG_INF."""
+    mask = torch.as_tensor(mask, device=device)
+    if mask.dtype == torch.bool:
+        mask = torch.zeros(mask.shape, dtype=torch.float32,
+                           device=mask.device).masked_fill_(~mask, NEG_INF)
+    if mask.dim() == 2:          # [sq|1, sk]
+        mask = mask[None, None]
+    elif mask.dim() == 3:        # [b, sq|1, sk]
+        mask = mask[:, None]
+    if mask.dim() != 4:
+        raise ValueError(f"attn mask rank {mask.dim()} not supported")
+    if mask.shape[1] == 1 and mask.shape[2] == 1:
+        return None, mask[:, 0, 0, :].float().expand(b, sk).contiguous()
+    mh = 1 if mask.shape[1] == 1 else h
+    return mask.float().expand(b, mh, sq, sk).contiguous(), None
+
+
+def canon_segments(segment_ids, b, sq, sk, device=None):
+    """The JAX `_canon_segments`: int [b, s] ids (self-attention) or a
+    (q_seg, kv_seg) pair -> int32 ([b, sq], [b, sk])."""
+    if isinstance(segment_ids, (tuple, list)):
+        qseg, kseg = segment_ids
+    else:
+        qseg = kseg = segment_ids
+    qseg, kseg = (torch.as_tensor(t, device=device).to(torch.int32)
+                  .contiguous() for t in (qseg, kseg))
+    if tuple(qseg.shape) != (b, sq) or tuple(kseg.shape) != (b, sk):
+        raise ValueError(
+            f"segment_ids shapes {tuple(qseg.shape)}/{tuple(kseg.shape)} "
+            f"don't match q/kv sequences ({b},{sq})/({b},{sk})")
+    return qseg, kseg
+
+
+def block_mask_applies(q, k, v, causal) -> bool:
+    """Whether the JAX `flash_attention` would take its kernel path, the
+    only one that reads a block mask: the shapes tile its 128-blocks (or
+    are shorter than one), d % 8 == 0, and not causal with sq > sk. On its
+    `_reference` path the block mask is ignored; so it is here."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    bq, bk = jax_blocks(sq, sk)
+    return (not (causal and sq > sk) and sq % bq == 0 and sk % bk == 0
+            and d % 8 == 0 and k.shape[0] == b and k.shape[2:] == q.shape[2:]
+            and tuple(v.shape) == tuple(k.shape))
+
+
+def canonical_masks(q, k, v, causal, mask=None, segment_ids=None,
+                    block_mask=None) -> Masks:
+    """The JAX function's masking arguments as the kernels take them:
+    `canon_mask`, `canon_segments`, and the block mask checked against
+    the JAX tile grid (a shape off it raises) and dropped where the JAX
+    function would ignore it (`block_mask_applies`)."""
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    kbias = qseg = kseg = None
+    if mask is not None:
+        mask, kbias = canon_mask(mask, b, h, sq, sk, q.device)
+    if segment_ids is not None:
+        qseg, kseg = canon_segments(segment_ids, b, sq, sk, q.device)
+    if block_mask is not None:
+        bq, bk = jax_blocks(sq, sk)
+        block_mask = torch.as_tensor(block_mask, device=q.device).to(
+            torch.int32).contiguous()
+        if tuple(block_mask.shape) != (sq // bq, sk // bk):
+            raise ValueError(
+                f"block_mask {tuple(block_mask.shape)} != tile grid "
+                f"({sq // bq}, {sk // bk})")
+        if not block_mask_applies(q, k, v, causal):
+            block_mask = None
+    return Masks(mask, kbias, qseg, kseg, block_mask)
 
 
 def flash_attention(q, k, v, causal=True, scale=None, mask=None,
                     segment_ids=None, block_mask=None):
-    """Dense flash attention over [b, s, h, d] operands, differentiable
-    through the kernels. The masked forms raise NotImplementedError."""
-    for name, arg in (("mask", mask), ("segment_ids", segment_ids),
-                      ("block_mask", block_mask)):
-        if arg is not None:
-            raise NotImplementedError(f"flash_attention({name}=...): "
-                                      f"{MASKED_FORMS}")
-    return FlashAttention.apply(q, k, v, bool(causal), _scale(q, scale))
+    """Flash attention over [b, s, h, d] operands, differentiable through
+    the kernels, with the JAX function's masking arguments:
+
+    mask: bool (True = attend) or additive float, broadcastable to
+    [b, 1|h, sq, sk]; key-padding forms ([*, *, 1, sk]) lower to the
+    per-key bias. segment_ids: int [b, s] or (q_seg [b, sq], kv_seg
+    [b, sk]). block_mask: int/bool [sq // bq, sk // bk] block liveness at
+    the JAX kernel's blocks (`jax_blocks`); a shape that does not match
+    raises, and it is ignored where the JAX function ignores it
+    (`block_mask_applies`). Strided views of q, k, v (a packed qkv's
+    slices) are made contiguous first: the kernels read whole rows."""
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    m = canonical_masks(q, k, v, causal, mask, segment_ids, block_mask)
+    return FlashAttention.apply(q, k, v, *m, bool(causal), _scale(q, scale))

@@ -14,8 +14,11 @@ pools, K1, and over int8 and float8_e4m3fn pools, K1-q); a small engine
 on the card must equal its own naive_generate token for token, through
 the kernels (an int8 or fp8 engine through K1-q alone).
 The flash kernels (K3a, K3b-dq, K3b-dkv) hold o and lse within 1e-4 and
-each gradient within 1e-4 * max|plain gradient|; a small Llama trained
-through them must match the same model trained on the dense path.
+each gradient within 1e-4 * max|plain gradient|, dense and in every
+masked form (K3-m: per-key bias, a dense mask shared or per head, a bool
+mask with rows that see nothing, segment ids, a block mask), with fully
+masked rows exactly 0; a small Llama and a small padded ERNIE trained
+through them must match the same models trained on the dense path.
 """
 
 import numpy as np
@@ -26,7 +29,10 @@ import paddle_tpu_torch.ops.flash_attention as fa
 import paddle_tpu_torch.ops.paged_attention as k2
 import paddle_tpu_torch.ops.ragged_paged_attention as k1
 from paddle_tpu_torch.jit import TrainStep
-from paddle_tpu_torch.models import Llama, LlamaConfig, llama_loss_fn
+from paddle_tpu_torch.models import (
+    ErnieConfig, ErnieForPretraining, Llama, LlamaConfig,
+    ernie_pretrain_loss_fn, llama_loss_fn,
+)
 from paddle_tpu_torch.ops import impl
 from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
 from paddle_tpu_torch.serving import (
@@ -246,8 +252,120 @@ def test_flash_kernels_refuse_what_they_cannot_take(gen):
         with pytest.raises(ValueError, match="FLAGS_use_flash_attention"):
             impl.scaled_dot_product_attention(q, q, q, is_causal=True)
     q = torch.zeros(1, 8, 2, 8, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fa.flash_attention(q, q, q, mask=torch.zeros(1, 8, device="cuda"))
+    with pytest.raises(ValueError, match="K3-m"):
+        impl.scaled_dot_product_attention(
+            q, q, q, attn_mask=torch.zeros(8, 8, device="cuda"))
+    with pytest.raises(ValueError, match="kbias"):
+        fa.flash_forward(q, q, q, kbias=torch.zeros(1, 9, device="cuda"))
+
+
+def _masked_operands(gen, form, b, sq, sk, h):
+    """Canonical masking operands of one form on the card."""
+    dev = "cuda"
+    if form == "kbias_soft":
+        lens = torch.randint(1, sk + 1, (b,), device=dev, generator=gen)
+        pad = torch.arange(sk, device=dev)[None, :] >= lens[:, None]
+        return dict(kbias=pad.float() * -1e4)
+    if form == "kbias_hard":
+        pad = torch.rand(b, sk, device=dev, generator=gen) < 0.3
+        return dict(kbias=torch.zeros(b, sk, device=dev).masked_fill_(
+            pad, fa.NEG_INF))
+    if form in ("mask_mh1", "mask_mhh"):
+        mh = 1 if form == "mask_mh1" else h
+        m = torch.randn(b, mh, sq, sk, device=dev, generator=gen) * 2
+        hide = torch.rand(m.shape, device=dev, generator=gen) < 0.3
+        return dict(mask=m.masked_fill_(hide, fa.NEG_INF))
+    if form == "bool_dead_rows":
+        keep = torch.rand(b, 1, sq, sk, device=dev, generator=gen) < 0.7
+        keep[:, :, sq // 2:] = False
+        return dict(mask=fa.canon_mask(keep, b, h, sq, sk)[0])
+    if form == "segments":
+        qseg = (torch.arange(sq, device=dev) * 3 // sq).repeat(b, 1)
+        kseg = (torch.arange(sk, device=dev) * 3 // sk).repeat(b, 1)
+        return dict(qseg=qseg.int(), kseg=kseg.int())
+    bq, bk = fa.jax_blocks(sq, sk)                       # block mask
+    bm = (torch.rand(sq // bq, sk // bk, device=dev, generator=gen) < 0.6)
+    bm[:, 0] = True
+    bm[-1, -1] = False
+    return dict(block_mask=bm.int())
+
+
+def _check_masked(gen, form, d, causal, sq, sk, b=2, h=3):
+    q = torch.randn(b, sq, h, d, device="cuda", generator=gen)
+    k, v = (torch.randn(b, sk, h, d, device="cuda", generator=gen)
+            for _ in range(2))
+    do = torch.randn(b, sq, h, d, device="cuda", generator=gen)
+    ops = _masked_operands(gen, form, b, sq, sk, h)
+    for counts in (*fa.COUNTS.values(), *fa.COUNTS_MASKED.values()):
+        counts.reset()
+    o, lse = fa.flash_forward(q, k, v, causal, **ops)
+    grads = fa.flash_backward(q, k, v, o, do, lse, causal, **ops)
+    assert {n: (c.kernel_launches, c.plain_launches)
+            for n, c in fa.COUNTS_MASKED.items()} == \
+        dict.fromkeys(fa.COUNTS_MASKED, (1, 0))
+    assert all(c.kernel_launches == 0 for c in fa.COUNTS.values())
+    ro, rlse = fa.flash_forward_reference(q, k, v, causal, **ops)
+    refs = fa.flash_backward_reference(q, k, v, ro, do, rlse, causal, **ops)
+    torch.cuda.synchronize()
+    assert (o - ro).abs().max().item() <= TOL
+    assert (lse - rlse).abs().max().item() <= TOL
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert torch.isfinite(g).all(), name
+        assert (g - r).abs().max().item() <= _grad_bound(r, refs[2], sk), name
+    if form == "bool_dead_rows":
+        assert (o[:, sq // 2:] == 0).all()
+        assert (grads[0][:, sq // 2:] == 0).all()
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("sq,sk", [(63, 63), (200, 200), (65, 200),
+                                   (200, 65)])
+@pytest.mark.parametrize("form", ["kbias_soft", "kbias_hard", "mask_mh1",
+                                  "mask_mhh", "bool_dead_rows", "segments"])
+def test_masked_flash_kernels_match_plain(gen, form, d, causal, sq, sk):
+    _check_masked(gen, form, d, causal, sq, sk)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("sq,sk", [(256, 256), (100, 384), (384, 100)])
+def test_block_masked_flash_kernels_match_plain(gen, d, causal, sq, sk):
+    _check_masked(gen, "block_mask", d, causal, sq, sk)
+
+
+def test_small_ernie_through_the_masked_kernels_matches_the_dense_path(
+        gen):
+    cfg = ErnieConfig(vocab_size=301, hidden_size=256, num_layers=2,
+                      num_heads=4, max_position=200, dropout=0.0)
+    ids = torch.randint(5, 301, (3, 200), device="cuda", generator=gen)
+    att = (torch.arange(200, device="cuda")[None, :]
+           < torch.tensor([[200], [171], [77]], device="cuda")).long()
+    labels = torch.where(att > 0, ids, -100)
+    sop = torch.tensor([0, 1, 1], device="cuda")
+
+    def once(use_flash):
+        model = ErnieForPretraining(cfg, device="cuda", seed=4)
+        old = flag("FLAGS_use_flash_attention")
+        set_flags({"FLAGS_use_flash_attention": use_flash})
+        try:
+            loss = ernie_pretrain_loss_fn(model(ids, None, att), labels, sop)
+            loss.backward()
+        finally:
+            set_flags({"FLAGS_use_flash_attention": old})
+        return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+
+    for counts in fa.COUNTS_MASKED.values():
+        counts.reset()
+    loss_k, grads_k = once(True)
+    assert all(c.kernel_launches == 2 and c.plain_launches == 0
+               for c in fa.COUNTS_MASKED.values())
+    loss_d, grads_d = once(False)
+    assert abs(loss_k - loss_d) <= 1e-5 * abs(loss_d)
+    for name, g in grads_k.items():
+        ref = grads_d[name]
+        assert (g - ref).abs().max().item() <= \
+            1e-3 * ref.abs().max().item(), name
 
 
 def _train_once(cfg, ids, labels, use_flash):

@@ -14,8 +14,10 @@ on CPU tensors:
     with exact zeros and zero gradient on those rows;
   * the port's scaled_dot_product_attention against the JAX one, with
     FLAGS_use_flash_attention on (flash and dense paths) and off;
-  * what the port refuses: the masked forms everywhere, and on the card
-    (`on_card` patched) a mask or a shape the kernels do not take.
+  * what the port refuses: masking operands of the wrong shape
+    everywhere, and on the card (`on_card` patched) a mask or a shape the
+    kernels do not take. The masked forms themselves are pinned in
+    tests/test_torch_flash_masked.py.
 """
 
 import math
@@ -168,9 +170,17 @@ def test_cpu_tensors_count_plain_launches_only():
 
 @pytest.mark.parametrize("arg", ["mask", "segment_ids", "block_mask"])
 def test_masked_forms_raise_naming_roadmap(arg):
+    """The masked forms are ported (K3-m); what still raises is a masking
+    operand the kernels cannot take: a rank-5 mask, segment ids of another
+    length, a block mask off the JAX tile grid."""
     q = torch.zeros(1, 8, 2, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*K3-m"):
-        fa.flash_attention(q, q, q, **{arg: torch.zeros(1, 8)})
+    bad = {"mask": torch.zeros(1, 1, 1, 8, 8),
+           "segment_ids": torch.zeros(1, 9, dtype=torch.int32),
+           "block_mask": torch.ones(2, 1, dtype=torch.int32)}[arg]
+    match = {"mask": "rank 5", "segment_ids": "segment_ids shapes",
+             "block_mask": "tile grid"}[arg]
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention(q, q, q, **{arg: bad})
 
 
 def _sdpa_pair(q, k, v, **kw):
@@ -187,8 +197,9 @@ def _sdpa_pair(q, k, v, **kw):
 @pytest.mark.parametrize("case", ["causal", "full", "cross", "d12", "mask"])
 def test_sdpa_matches_jax(use_flash, case):
     """With the flag on, kernel shapes take the flash path (the plain
-    versions here) and the rest the dense path, as on the CPU the JAX
-    package does; with it off, every case is dense."""
+    versions here), the mask included, and the rest the dense path, which
+    the JAX package takes on the CPU for every case; with the flag off,
+    every case is dense."""
     shape = {"cross": (1, 20, 36, 2, 16), "d12": (2, 24, 24, 2, 12)}.get(
         case, (2, 24, 24, 2, 16))
     q, k, v, _ = _qkv(6, *shape)
@@ -196,8 +207,13 @@ def test_sdpa_matches_jax(use_flash, case):
     if case == "mask":
         keep = np.random.default_rng(7).random((2, 1, 24, 24)) < 0.8
         kw["attn_mask"] = torch.from_numpy(keep)
-    flash_taken = use_flash and case in ("causal", "full", "cross")
-    before = fa.COUNTS["flash_forward"].plain_launches
+    flash_taken = use_flash and case in ("causal", "full", "cross", "mask")
+
+    def plain():
+        return (fa.COUNTS["flash_forward"].plain_launches
+                + fa.COUNTS_MASKED["flash_forward"].plain_launches)
+
+    before = plain()
     old = flag("FLAGS_use_flash_attention")
     set_flags({"FLAGS_use_flash_attention": use_flash})
     try:
@@ -205,8 +221,7 @@ def test_sdpa_matches_jax(use_flash, case):
     finally:
         set_flags({"FLAGS_use_flash_attention": old})
     np.testing.assert_allclose(ours, ref, rtol=RTOL, atol=ATOL)
-    assert (fa.COUNTS["flash_forward"].plain_launches - before) == \
-        int(flash_taken)
+    assert plain() - before == int(flash_taken)
 
 
 def test_sdpa_ignores_dropout_as_the_jax_package_does():
@@ -237,11 +252,12 @@ def test_no_quiet_dense_path_on_the_card(on_the_card, d):
 
 
 def test_mask_on_the_card_raises_naming_the_flag(on_the_card):
+    """A mask the K3-m kernels do not take (here rank 2, which the JAX
+    package sends to its dense path) raises on the card."""
     q = torch.zeros(1, 8, 2, 8)
-    with pytest.raises(NotImplementedError,
-                       match="K3-m.*FLAGS_use_flash_attention"):
+    with pytest.raises(ValueError, match="K3-m.*FLAGS_use_flash_attention"):
         impl.scaled_dot_product_attention(
-            q, q, q, attn_mask=torch.ones(1, 1, 8, 8, dtype=torch.bool))
+            q, q, q, attn_mask=torch.ones(8, 8, dtype=torch.bool))
 
 
 def test_flag_off_takes_the_dense_path_on_the_card(on_the_card):

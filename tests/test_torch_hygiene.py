@@ -28,7 +28,11 @@ import paddle_tpu_torch.ops.paged_attention as k2
 import paddle_tpu_torch.ops.ragged_paged_attention as k1
 from paddle_tpu_torch.inference import create_serving_engine
 from paddle_tpu_torch.jit import TrainStep
-from paddle_tpu_torch.models import Llama, LlamaConfig, llama_loss_fn
+from paddle_tpu_torch.models import (
+    ErnieConfig, ErnieForPretraining, ErnieForSequenceClassification,
+    ErnieForTokenClassification, ErnieModel, Llama, LlamaConfig,
+    llama_loss_fn,
+)
 from paddle_tpu_torch.models.llama import rope_tables
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.optimizer import AdamW
@@ -71,7 +75,7 @@ def test_scan_sees_the_whole_port():
     assert {"engine.py", "model_runner.py", "ragged_paged_attention.py",
             "paged_attention.py", "_build.py", "chip_smoke.py",
             "flash_attention.py", "impl.py", "flags.py", "optimizer.py",
-            "clip.py", "api.py", "weights.py"} <= names
+            "clip.py", "api.py", "weights.py", "ernie.py"} <= names
 
 
 # ------------------------------------------------------------- devices
@@ -83,7 +87,10 @@ def _no_card(monkeypatch):
 
 def test_entry_points_default_to_cuda():
     for fn in (create_serving_engine, create_engine, Llama.__init__,
-               KVCachePool.__init__, rope_tables):
+               KVCachePool.__init__, rope_tables, ErnieModel.__init__,
+               ErnieForPretraining.__init__,
+               ErnieForSequenceClassification.__init__,
+               ErnieForTokenClassification.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
@@ -95,6 +102,9 @@ def test_cuda_without_a_card_raises_clearly(monkeypatch):
         KVCachePool(1, 4, 4, 1, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         rope_tables(8, 8, 1e4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ErnieForPretraining(ErnieConfig(vocab_size=16, hidden_size=8,
+                                        num_layers=1, num_heads=2))
     model = Llama(LlamaConfig(**SIZES), device="cpu")
     with pytest.raises(RuntimeError, match="is_available"):
         create_serving_engine(model, num_blocks=8)
