@@ -9,8 +9,11 @@ exits non-zero without printing a result:
   1. device   the card's name and power limit (nvidia-smi) and
               torch.cuda.get_device_name(0); no usable card raises.
   2. build    nvcc builds the kernels from paddle_tpu_torch/csrc (one
-              process per source, started together) and the seconds it
-              took are printed with ptxas's register report.
+              process per source, started together); printed: the seconds
+              it took, each kernel's registers and spills (ptxas), the
+              backward kernels' shared memory per instantiation and their
+              tensor-core instructions in the SASS (cuobjdump -sass: HMMA
+              for mma.sync, HGMMA for wgmma; none fails the run).
   3. kernels  each serving kernel's wrapper against its plain PyTorch
               version on the card: the ragged kernel over fp32 pools (K1)
               at LLaMA-2-7B heads and at a GQA layout over mixed spans
@@ -72,7 +75,8 @@ exits non-zero without printing a result:
   9. flash    the flash kernels (K3a forward, K3b-dq, K3b-dkv) through the
               autograd.Function and torch.autograd.grad against their
               plain versions: b=1, s=4096, h=32, d=128 causal, and a sweep
-              over d in {64, 128, 256}, causal or not, s in {1, 100, 1000}
+              over d in {64, 128, 256}, causal or not, s in {1, 100, 257,
+              1000}
               and cross lengths sq=128 < sk=384 (and sq=384 > sk=128).
               o and lse within 1e-4; each of dq, dk, dv within 1e-4 *
               max|plain gradient| (with one key, where the exact dq and dk
@@ -104,9 +108,16 @@ exits non-zero without printing a result:
               (FLAGS_use_flash_attention off) from the same weights and
               batch: loss within 1e-5 relative, every gradient within 1e-3
               * its max|grad|.
- 14. timing   each flash kernel at the trainer's shape (b=1, s=4096, h=32,
-              d=128, causal) against its plain version, its bound and
-              scaled_dot_product_attention as the yardstick, L2 flushed.
+ 14. timing   at the trainer's shape (b=1, s=4096, h=32, d=128, causal):
+              first the kernels against their plain versions (phase 9's
+              tolerances) and dq, dk, dv against the plain versions in
+              fp64, within twice the fp32 plain versions' own error
+              (fp32-class products); then each flash kernel against its
+              plain version, its bound and scaled_dot_product_attention
+              as the yardstick, L2 flushed; the backward pair like for
+              like: the whole flash_backward and the two kernels alone
+              against SDPA's backward alone (autograd.grad of a retained
+              graph).
  15. ERNIE    ERNIE-3.0-base pretraining (vocab 40000, hidden 768, 12
               layers, 12 heads, ffn 3072, 512 positions) at full width and
               depth, fp32, seeded random weights on the card, through
@@ -122,15 +133,17 @@ exits non-zero without printing a result:
               kernels and once on the dense path from the same weights and
               padded batch, phase 13's tolerances; then the outputs at
               real positions with the pad ids redrawn, within 2e-5.
- 18. timing   each masked kernel at the ERNIE shape (q/k/v [16,512,12,64],
-              kbias [16,512], full) against its plain version, its bound
-              and SDPA with the broadcast float mask, L2 flushed.
+ 18. timing   phase 14 for the masked kernels at the ERNIE shape (q/k/v
+              [16,512,12,64], the batch's kbias [16,512], full; SDPA with
+              the broadcast float mask).
  19. summary  one JSON line of every kernel's launches, error and times
               (K1-q's decode-step times as extra decode_* keys; the masked
               kernels as *_masked rows with the ERNIE trainer's launches),
               the nvidia-smi line, then the result line.
 
-fp32 products stay fp32: TF32 is switched off for matmuls and cuDNN.
+fp32 products stay fp32: TF32 is switched off for matmuls and cuDNN. Bounds
+by operations are at fp32-accurate tensor-core products (3xTF32, 495 / 3
+TFLOP/s), by bytes at 3.35 TB/s.
 """
 
 from __future__ import annotations
@@ -138,6 +151,8 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -148,7 +163,9 @@ import numpy as np
 import torch
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+# fp32-accurate products on the H100 SXM's tensor cores: 3xTF32 (three
+# TF32 products per fp32 product) at a third of the 495 TFLOP/s TF32 peak
+PEAK_FP32_ACCURATE_FLOP_PER_S = 495e12 / 3
 TOL = 1e-4
 
 
@@ -355,7 +372,8 @@ def measure_ragged(gen, n_heads, num_blocks, P, kind="fp32",
     if kind == "int8":
         nbytes += 4 * 2 * sum(pages) * n_heads
     flops = 4 * d * n_heads * sum(s + t + 1 for s in start for t in range(T))
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOP_PER_S
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_FP32_ACCURATE_FLOP_PER_S
     return dict(max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -399,7 +417,8 @@ def measure_paged(gen, n_heads, num_blocks, P, positions):
     keys = sum(p + 1 for p in positions)
     nbytes = 4 * (2 * q.numel() + 2 * keys * n_heads * d) + 4 * b * (P + 1)
     flops = 4 * d * n_heads * keys
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOP_PER_S
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_FP32_ACCURATE_FLOP_PER_S
     return dict(max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -819,7 +838,7 @@ def flash_checks(gen):
     abs error of each kernel over all cases."""
     cases = [(1, 4096, 4096, 32, 128, True)]
     cases += [(1, s, s, 4, d, c) for d in (64, 128, 256)
-              for c in (True, False) for s in (1, 100, 1000)]
+              for c in (True, False) for s in (1, 100, 257, 1000)]
     cases += [(1, 128, 384, 4, d, True) for d in (64, 128, 256)]
     cases += [(1, 384, 128, 4, 128, True)]
     worst = {"flash_forward": 0.0, "flash_backward_dq": 0.0,
@@ -836,7 +855,7 @@ def flash_checks(gen):
             log(f"flash check b=1 s=4096 h=32 d=128 causal: max_abs_err "
                 + ", ".join(f"{n} {e:.3e}" for n, e in err.items()))
     log(f"flash checks: {len(cases)} cases (the trainer's shape; d in "
-        f"64/128/256 x causal/full x s in 1/100/1000; sq 128 < sk 384; "
+        f"64/128/256 x causal/full x s in 1/100/257/1000; sq 128 < sk 384; "
         f"sq 384 > sk 128) within tolerance; worst abs errors "
         + json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
     return worst
@@ -1253,72 +1272,182 @@ def dense_check_phase(cfg, seed=1, seq=1024):
                              "path's beyond 1e-5 (loss) / 1e-3 (grads)")
 
 
-def measure_flash(gen, b=1, s=4096, h=32, d=128):
-    """Phase 14: each flash kernel at the trainer's shape against its plain
-    version, its bound and SDPA (forward; forward+backward minus forward
-    for the two backward kernels together)."""
+def visible_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs of one head that attention computes: all of them,
+    or under the bottom-right-aligned causal mask the keys j <= i + sk - sq
+    of each row i (rows before sq - sk see none)."""
+    if not causal:
+        return sq * sk
+    lo = max(0, sq - sk)                 # the first row that sees a key
+    # row i sees i + sk - sq + 1 keys, from lo up to the last row's sk
+    return (sq - lo) * (lo + sk - sq + 1 + sk) // 2
+
+
+def flash_work(b, sq, sk, h, d, causal, kbias=False):
+    """{kernel: (bytes, FLOPs)}: the least work of K3a, K3b-dq and K3b-dkv
+    on q [b, sq, h, d] and k, v [b, sk, h, d]. Each input is read once
+    and each output written once (fp32; lse and delta [b, h, sq], the
+    per-key bias [b, sk] where given); FLOPs per visible (query, key) pair
+    of every head: 4 d (q.k and p.v), 6 d (q.k, do.v, ds.k), 8 d (q.k,
+    do.v, p^T.do, ds^T.q)."""
+    pairs = b * h * visible_pairs(sq, sk, causal)
+    qrow, krow, rowv = 4 * b * sq * h * d, 4 * b * sk * h * d, 4 * b * h * sq
+    kb = 4 * b * sk if kbias else 0
+    return {"flash_forward": (2 * qrow + 2 * krow + rowv + kb, 4 * d * pairs),
+            "flash_backward_dq": (3 * qrow + 2 * krow + 2 * rowv + kb,
+                                  6 * d * pairs),
+            "flash_backward_dkv": (2 * qrow + 4 * krow + 2 * rowv + kb,
+                                   8 * d * pairs)}
+
+
+def measure_flash(gen, b=1, s=4096, h=32, d=128, causal=True, att=None):
+    """Phases 14 and 18: each flash kernel against its plain version, its
+    bound and SDPA. The dense forms at the trainer's shape, causal; with
+    ``att`` ([b, s] 0/1), the masked forms at that batch, its -1e4 key
+    padding as kbias [b, s] (SDPA: the broadcast float mask), non-causal.
+    The backward pair is held like for like against SDPA's backward alone
+    (torch.autograd.grad of a retained graph): the whole flash_backward
+    (backward_delta and both kernels) and the two kernels alone. Returns
+    {kernel: row} with the pair's times under "pair"."""
     from paddle_tpu_torch.ops import flash_attention as fa
     import torch.nn.functional as F
 
+    if att is not None:
+        b, s = att.shape
     q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
                    for _ in range(4))
-    o, lse = fa.flash_forward(q, k, v, True)
+    kbias = None if att is None else ((1.0 - att.float()) * -1e4).contiguous()
+    m = fa.Masks(kbias=kbias)
+    o, lse = fa.flash_forward(q, k, v, causal, kbias=kbias)
     delta = fa.backward_delta(o, do)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     scale = 1.0 / d ** 0.5
+
+    def dq_kernel():
+        fa.launch_backward_dq(q, k, v, do, lse, delta, dq, causal, scale, m)
+
+    def dkv_kernel():
+        fa.launch_backward_dkv(q, k, v, do, lse, delta, dk, dv, causal,
+                               scale, m)
+
     ms = {"flash_forward": median_ms(lambda: fa.launch_forward(
-              q, k, v, o, lse, True, scale)),
-          "flash_backward_dq": median_ms(lambda: fa.launch_backward_dq(
-              q, k, v, do, lse, delta, dq, True, scale)),
-          "flash_backward_dkv": median_ms(lambda: fa.launch_backward_dkv(
-              q, k, v, do, lse, delta, dk, dv, True, scale))}
+              q, k, v, o, lse, causal, scale, m)),
+          "flash_backward_dq": median_ms(dq_kernel),
+          "flash_backward_dkv": median_ms(dkv_kernel)}
+    pair_kernels = median_ms(lambda: (dq_kernel(), dkv_kernel()))
+    pair_whole = median_ms(lambda: fa.flash_backward(
+        q, k, v, o, do, lse, causal, kbias=kbias))
     plain = {
-        "flash_forward": median_ms(
-            lambda: fa.flash_forward_reference(q, k, v, True), iters=5),
-        "flash_backward_dq": median_ms(
-            lambda: fa.flash_backward_dq_reference(q, k, v, do, lse, delta,
-                                                   True), iters=5),
+        "flash_forward": median_ms(lambda: fa.flash_forward_reference(
+            q, k, v, causal, kbias=kbias), iters=5),
+        "flash_backward_dq": median_ms(lambda: fa.flash_backward_dq_reference(
+            q, k, v, do, lse, delta, causal, kbias=kbias), iters=5),
         "flash_backward_dkv": median_ms(
-            lambda: fa.flash_backward_dkv_reference(q, k, v, do, lse,
-                                                    delta, True), iters=5)}
+            lambda: fa.flash_backward_dkv_reference(
+                q, k, v, do, lse, delta, causal, kbias=kbias), iters=5)}
     qT, kT, vT, doT = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    kw = (dict(is_causal=True) if causal
+          else dict(attn_mask=None if kbias is None
+                    else kbias[:, None, None, :]))
     lib_fwd = median_ms(lambda: F.scaled_dot_product_attention(
-        qT, kT, vT, is_causal=True))
+        qT, kT, vT, **kw))
     qg, kg, vg = (t.clone().requires_grad_() for t in (qT, kT, vT))
-    lib_fb = median_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
-        (qg, kg, vg), doT))
-    library = {"flash_forward": lib_fwd, "flash_backward_dq": lib_fb - lib_fwd,
-               "flash_backward_dkv": lib_fb - lib_fwd}
-    # the least work: each input read once, each output written once; fp32
-    # FLOPs per visible (query, key) pair of every head: 4 d (q.k and p.v),
-    # 6 d (q.k, do.v, ds.k), 8 d (q.k, do.v, p^T.do, ds^T.q)
-    pairs = b * h * s * (s + 1) // 2
-    row = 4 * b * s * h * d
-    work = {"flash_forward": (3 * row + row + 4 * b * h * s, 4 * d * pairs),
-            "flash_backward_dq": (5 * row + 8 * b * h * s, 6 * d * pairs),
-            "flash_backward_dkv": (6 * row + 8 * b * h * s, 8 * d * pairs)}
-    log("flash work at the trainer's shape: " + ", ".join(
+    out = F.scaled_dot_product_attention(qg, kg, vg, **kw)
+    lib_bwd = median_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), doT, retain_graph=True))
+    del out
+    library = {"flash_forward": lib_fwd, "flash_backward_dq": lib_bwd,
+               "flash_backward_dkv": lib_bwd}
+    work = flash_work(b, s, s, h, d, causal, kbias is not None)
+    form = "causal" if causal else f"kbias [{b},{s}] full"
+    label = "" if kbias is None else "_masked"
+    log(f"flash work at q/k/v [{b},{s},{h},{d}] {form}: " + ", ".join(
         f"{name} {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP"
         for name, (nbytes, flops) in work.items()))
-    out = {}
+    rows = {}
     for name, (nbytes, flops) in work.items():
         t_bytes = nbytes / PEAK_BYTES_PER_S
-        t_ops = flops / PEAK_FP32_FLOP_PER_S
-        out[name] = dict(ms=ms[name], plain_ms=plain[name],
-                         bound_ms=1e3 * max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops
-                         else "operations",
-                         library_ms=library[name])
-        log(f"timing {name} at q/k/v [{b},{s},{h},{d}] causal: kernel "
-            f"{ms[name]:.4f} ms, plain {plain[name]:.4f} ms, bound "
-            f"{out[name]['bound_ms']:.4f} ms ({out[name]['bound_by']}, "
-            f"{100 * out[name]['bound_ms'] / ms[name]:.1f} % of it), "
+        t_ops = flops / PEAK_FP32_ACCURATE_FLOP_PER_S
+        rows[name] = dict(ms=ms[name], plain_ms=plain[name],
+                          bound_ms=1e3 * max(t_bytes, t_ops),
+                          bound_by="bytes" if t_bytes >= t_ops
+                          else "operations",
+                          library_ms=library[name])
+        log(f"timing {name}{label} at q/k/v [{b},{s},{h},{d}] {form}: "
+            f"kernel {ms[name]:.4f} ms, plain {plain[name]:.4f} ms, bound "
+            f"{rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']}, "
+            f"{100 * rows[name]['bound_ms'] / ms[name]:.1f} % of it), "
             f"library {library[name]:.4f} ms")
-    log(f"library yardstick: scaled_dot_product_attention fp32 [b,h,s,d] "
-        f"is_causal forward {lib_fwd:.4f} ms, forward+backward "
-        f"{lib_fb:.4f} ms")
-    return out
+    rows["pair"] = dict(kernels_ms=pair_kernels, flash_backward_ms=pair_whole,
+                        library_ms=lib_bwd)
+    log(f"backward pair{label} at q/k/v [{b},{s},{h},{d}] {form}, like for "
+        f"like: flash_backward (delta + K3b-dq + K3b-dkv) {pair_whole:.4f} "
+        f"ms, the two kernels alone {pair_kernels:.4f} ms; SDPA backward "
+        f"alone (autograd.grad of a retained graph) {lib_bwd:.4f} ms; "
+        f"factor {pair_whole / lib_bwd:.3f} (kernels alone "
+        f"{pair_kernels / lib_bwd:.3f}); SDPA forward {lib_fwd:.4f} ms")
+    return rows
+
+
+def check_vs_fp64(gen, b=1, s=4096, h=32, d=128, causal=True, att=None):
+    """Phases 14 and 18, first: the kernels at the trainer's (or with
+    ``att``, the ERNIE batch's kbias) shape against their plain versions on
+    the same operands (o, lse within 1e-4; each gradient within 1e-4 *
+    max|plain gradient|), then dq, dk and dv against the plain versions
+    evaluated once in fp64: the kernels' max error must stay within twice
+    the fp32 plain versions' own, the mark of fp32-class products (TF32
+    products would be ~1000 times off). Returns each kernel's max abs
+    error against the fp32 plain version."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    if att is not None:
+        b, s = att.shape
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                   for _ in range(4))
+    kbias = None if att is None else ((1.0 - att.float()) * -1e4).contiguous()
+    o, lse = fa.flash_forward(q, k, v, causal, kbias=kbias)
+    kern = fa.flash_backward(q, k, v, o, do, lse, causal, kbias=kbias)
+    ro, rlse = fa.flash_forward_reference(q, k, v, causal, kbias=kbias)
+    err = {"flash_forward": max((o - ro).abs().max().item(),
+                                (lse - rlse).abs().max().item())}
+    del ro, rlse
+    plain = fa.flash_backward_reference(q, k, v, o, do, lse, causal,
+                                        kbias=kbias)
+    form = (f"q/k/v [{b},{s},{h},{d}] "
+            + ("causal" if causal else f"kbias [{b},{s}] full"))
+    grad_err = {}
+    for name, g, r in zip(("dq", "dk", "dv"), kern, plain):
+        grad_err[name] = (g - r).abs().max().item()
+        if not (torch.isfinite(g).all()
+                and grad_err[name] <= TOL * r.abs().max().item()):
+            raise AssertionError(f"K3b {name} at {form}: max_abs_err "
+                                 f"{grad_err[name]:.3e} > {TOL} * max|plain|")
+    if not err["flash_forward"] <= TOL:
+        raise AssertionError(f"K3a at {form}: o/lse max_abs_err "
+                             f"{err['flash_forward']:.3e} > {TOL}")
+    err["flash_backward_dq"] = grad_err["dq"]
+    err["flash_backward_dkv"] = max(grad_err["dk"], grad_err["dv"])
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    o64, lse64 = fa.flash_forward_reference(q64, k64, v64, causal,
+                                            kbias=kbias)
+    exact = fa.flash_backward_reference(q64, k64, v64, o64, do64, lse64,
+                                        causal, kbias=kbias)
+    del o64, lse64
+    parts = []
+    for name, g, p, r in zip(("dq", "dk", "dv"), kern, plain, exact):
+        e_kernel = (g.double() - r).abs().max().item()
+        e_plain = (p.double() - r).abs().max().item()
+        parts.append(f"{name} kernel {e_kernel:.3e} plain {e_plain:.3e} "
+                     f"({e_kernel / e_plain:.2f}x)")
+        if not e_kernel <= 2 * e_plain:
+            raise AssertionError(f"K3b {name} at {form}: error against fp64 "
+                                 f"{e_kernel:.3e} > 2 x the fp32 plain "
+                                 f"version's {e_plain:.3e}")
+    log(f"flash kernels vs plain at {form}: max_abs_err " + ", ".join(
+        f"{n} {e:.3e}" for n, e in {**err, **grad_err}.items()))
+    log(f"flash backward vs fp64 at {form} (max abs error): "
+        + "; ".join(parts) + "; each within 2x the fp32 plain version's")
+    return err
 
 
 # -------------------------------------------------------------- ERNIE
@@ -1504,94 +1633,70 @@ def ernie_check_phase(cfg, seed=1, batch=4, seq=512):
                              f"the pad ids: {diff:.3e} > 2e-5")
 
 
-def measure_masked(gen, att, h=12, d=64):
-    """Phase 18: each masked kernel at the ERNIE shape (q/k/v [b, s, h, d],
-    the batch's -1e4 key padding as kbias [b, s], non-causal) against its
-    plain version, its bound and SDPA with the broadcast float mask
-    (forward; forward+backward minus forward for the backward pair)."""
-    from paddle_tpu_torch.ops import flash_attention as fa
-    import torch.nn.functional as F
-
-    b, s = att.shape
-    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
-                   for _ in range(4))
-    kbias = ((1.0 - att.float()) * -1e4).contiguous()
-    m = fa.Masks(kbias=kbias)
-    o, lse = fa.flash_forward(q, k, v, False, kbias=kbias)
-    delta = fa.backward_delta(o, do)
-    dq, dk, dv = fa.flash_backward(q, k, v, o, do, lse, False, kbias=kbias)
-    ro, rlse = fa.flash_forward_reference(q, k, v, False, kbias=kbias)
-    refs = fa.flash_backward_reference(q, k, v, ro, do, rlse, False,
-                                       kbias=kbias)
-    err = {"flash_forward": max((o - ro).abs().max().item(),
-                                (lse - rlse).abs().max().item()),
-           "flash_backward_dq": (dq - refs[0]).abs().max().item(),
-           "flash_backward_dkv": max((dk - refs[1]).abs().max().item(),
-                                     (dv - refs[2]).abs().max().item())}
-    if not all(e <= TOL for e in err.values()):
-        raise AssertionError(f"K3-m at the ERNIE shape: {err} > {TOL}")
-    del ro, rlse, refs
-    scale = 1.0 / d ** 0.5
-    ms = {"flash_forward": median_ms(lambda: fa.launch_forward(
-              q, k, v, o, lse, False, scale, m)),
-          "flash_backward_dq": median_ms(lambda: fa.launch_backward_dq(
-              q, k, v, do, lse, delta, dq, False, scale, m)),
-          "flash_backward_dkv": median_ms(lambda: fa.launch_backward_dkv(
-              q, k, v, do, lse, delta, dk, dv, False, scale, m))}
-    plain = {
-        "flash_forward": median_ms(lambda: fa.flash_forward_reference(
-            q, k, v, False, kbias=kbias), iters=5),
-        "flash_backward_dq": median_ms(lambda: fa.flash_backward_dq_reference(
-            q, k, v, do, lse, delta, False, kbias=kbias), iters=5),
-        "flash_backward_dkv": median_ms(
-            lambda: fa.flash_backward_dkv_reference(
-                q, k, v, do, lse, delta, False, kbias=kbias), iters=5)}
-    qT, kT, vT, doT = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
-    bias = kbias[:, None, None, :]
-    lib_fwd = median_ms(lambda: F.scaled_dot_product_attention(
-        qT, kT, vT, attn_mask=bias))
-    qg, kg, vg = (t.clone().requires_grad_() for t in (qT, kT, vT))
-    lib_fb = median_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias),
-        (qg, kg, vg), doT))
-    library = {"flash_forward": lib_fwd, "flash_backward_dq": lib_fb - lib_fwd,
-               "flash_backward_dkv": lib_fb - lib_fwd}
-    # every (query, key) pair is computed (a soft mask skips nothing); the
-    # kbias is read once besides the phase-14 operands
-    pairs = b * h * s * s
-    row, kb = 4 * b * s * h * d, 4 * b * s
-    work = {"flash_forward": (4 * row + kb + 4 * b * h * s, 4 * d * pairs),
-            "flash_backward_dq": (5 * row + kb + 8 * b * h * s, 6 * d * pairs),
-            "flash_backward_dkv": (6 * row + kb + 8 * b * h * s,
-                                   8 * d * pairs)}
-    out = {}
-    for name, (nbytes, flops) in work.items():
-        t_bytes = nbytes / PEAK_BYTES_PER_S
-        t_ops = flops / PEAK_FP32_FLOP_PER_S
-        out[name] = dict(max_abs_err=err[name], ms=ms[name],
-                         plain_ms=plain[name],
-                         bound_ms=1e3 * max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops
-                         else "operations",
-                         library_ms=library[name])
-        log(f"timing {name}_masked at q/k/v [{b},{s},{h},{d}] kbias "
-            f"[{b},{s}] full: kernel {ms[name]:.4f} ms, plain "
-            f"{plain[name]:.4f} ms, bound {out[name]['bound_ms']:.4f} ms "
-            f"({out[name]['bound_by']}, "
-            f"{100 * out[name]['bound_ms'] / ms[name]:.1f} % of it), library "
-            f"{library[name]:.4f} ms, max_abs_err {err[name]:.3e}")
-    log(f"library yardstick: scaled_dot_product_attention fp32 [b,h,s,d] "
-        f"with the [b,1,1,s] float mask forward {lib_fwd:.4f} ms, "
-        f"forward+backward {lib_fb:.4f} ms")
-    return out
-
-
 def _free_the_card() -> float:
     """Collect what the freed phases left; returns GiB still allocated."""
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return torch.cuda.memory_allocated() / 2**30
+
+
+# (BM, BN) of the backward kernels' instantiations (Bwd<MAXD> in
+# csrc/flash_attention.cu), for their dynamic shared memory at d = MAXD
+BWD_TILES = {64: (128, 32), 128: (128, 32), 256: (64, 16)}
+
+
+def _kernel_label(mangled: str) -> str:
+    """'flash_bwd_dq_kernel<128>' from a mangled entry name: its
+    length-prefixed name that ends in _kernel, with the first integer
+    template argument after it. Every position of a digit run is tried,
+    since a length may follow the digits of an anonymous namespace's
+    hash ('...a219flash_bwd_dq_kernelILi128E...')."""
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        at = m.start() + len(m.group(1))
+        name = mangled[at:at + int(m.group(1))]
+        if name.endswith("_kernel") and name.isidentifier():
+            arg = re.match(r"ILi(\d+)E", mangled[at + len(name):])
+            return name + (f"<{arg.group(1)}>" if arg else "")
+    return mangled
+
+
+def build_report(build) -> None:
+    """Phase 2's report: each kernel entry's registers and spills (ptxas),
+    the backward kernels' shared memory per instantiation, and whether
+    their SASS holds tensor-core instructions (HMMA: mma.sync, HGMMA:
+    wgmma), from cuobjdump -sass of the built library."""
+    name = None
+    for ln in build.log.splitlines():
+        if "Compiling entry function" in ln:
+            name = _kernel_label(ln.split("'")[1])
+        elif name and ("registers" in ln or "spill" in ln):
+            log(f"  ptxas {name}: {ln.split(':', 1)[-1].strip()}")
+    for maxd, (bm, bn) in BWD_TILES.items():
+        ld = (maxd + 31) // 32 * 32
+        base = (2 * bm + 4 * bn) * ld + 8 * 16 * 32
+        log(f"  shared memory at d = {maxd}: flash_bwd_dq_kernel<{maxd}> "
+            f"{4 * base} B, flash_bwd_dkv_kernel<{maxd}> "
+            f"{4 * (base + 4 * bn)} B (BM {bm}, BN {bn})")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(build.path)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        log(f"  SASS: cuobjdump not usable ({e}); tensor-core use unchecked")
+        return
+    found = {}
+    for section in sass.split("Function : ")[1:]:
+        label = _kernel_label(section.split("\n", 1)[0].strip())
+        if label.startswith("flash_bwd"):
+            found[label] = (section.count("HMMA"), section.count("HGMMA"))
+            log(f"  SASS {label}: {found[label][0]} HMMA, "
+                f"{found[label][1]} HGMMA instructions")
+    if len(found) != 2 * len(BWD_TILES) or not all(
+            sum(n) > 0 for n in found.values()):
+        raise AssertionError(f"the backward kernels' SASS holds no "
+                             f"tensor-core products: {found}")
 
 
 def main() -> int:
@@ -1614,11 +1719,8 @@ def main() -> int:
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
 
     _build.library()
-    regs = [ln.strip() for ln in _build.BUILD.log.splitlines()
-            if "registers" in ln or "spill" in ln]
     log(f"build: {_build.BUILD.seconds:.1f} s -> {_build.BUILD.path.name}")
-    for ln in regs:
-        log(f"  ptxas {ln}")
+    build_report(_build.BUILD)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1715,6 +1817,8 @@ def main() -> int:
     _free_the_card()
     dense_check_phase(replace(cfg, num_layers=2))
     _free_the_card()
+    acc = check_vs_fp64(gen)
+    _free_the_card()
     flash = measure_flash(gen)
     _free_the_card()
 
@@ -1727,20 +1831,18 @@ def main() -> int:
     _free_the_card()
     ernie_check_phase(replace(ERNIE3_BASE, num_layers=2))
     _free_the_card()
-    masked = measure_masked(gen, data[2])
-    for name, replaces in FLASH_KERNELS:
-        rows.append({"name": name, "route": "cuda",
-                     "source": "paddle_tpu_torch/csrc/flash_attention.cu",
-                     "replaces": replaces,
-                     "launches": flash_launches[name],
-                     "max_abs_err": flash_err[name], **flash[name]})
-    for name, replaces in FLASH_KERNELS:
-        row = dict(masked[name])
-        row["max_abs_err"] = max(row["max_abs_err"], masked_err[name])
-        rows.append({"name": f"{name}_masked", "route": "cuda",
-                     "source": "paddle_tpu_torch/csrc/flash_attention.cu",
-                     "replaces": replaces,
-                     "launches": masked_launches[name], **row})
+    acc_masked = check_vs_fp64(gen, h=12, d=64, causal=False, att=data[2])
+    _free_the_card()
+    masked = measure_flash(gen, h=12, d=64, causal=False, att=data[2])
+    for label, times, launches, errs in (
+            ("", flash, flash_launches, (flash_err, acc)),
+            ("_masked", masked, masked_launches, (masked_err, acc_masked))):
+        for name, replaces in FLASH_KERNELS:
+            rows.append({"name": name + label, "route": "cuda",
+                         "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+                         "replaces": replaces, "launches": launches[name],
+                         "max_abs_err": max(e[name] for e in errs),
+                         **times[name]})
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -44,6 +44,9 @@ visible key comes out as zeros with zero gradient.
   launch_backward_dq,       timing the kernels
   launch_backward_dkv
   flash_attention_ok        the kernels' shape gate
+  tf32_split                the backward kernels' 3xTF32 operand split,
+                            mirrored on the CPU (the plain versions compute
+                            in fp32, or fp64 for fp64 operands)
 
 On CUDA tensors the wrappers launch the hand-written kernels in
 csrc/flash_attention.cu or raise; on CPU tensors they run the plain
@@ -121,15 +124,22 @@ def _block_live(block_mask, sq, sk):
     return (block_mask != 0).repeat_interleave(bq, 0).repeat_interleave(bk, 1)
 
 
+def _compute_dtype(q):
+    """What the plain versions compute in: fp32, or fp64 for fp64 operands
+    (the accuracy reference of the kernels' checks)."""
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
 def _scores(q, k, causal, scale, m: Masks = Masks()):
     """[b, h, sq, sk] fp32 scores as `_tile_scores` forms them: q.k * scale
     plus the mask and the per-key bias; NEG_INF where segments differ,
     the causal mask hides a key or the block mask names a dead block."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    dt = _compute_dtype(q)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(dt), k.to(dt)) * scale
     if m.mask is not None:
-        s = s + m.mask.float()
+        s = s + m.mask.to(dt)
     if m.kbias is not None:
-        s = s + m.kbias.float()[:, None, None, :]
+        s = s + m.kbias.to(dt)[:, None, None, :]
     neg = torch.full_like(s, NEG_INF)
     if m.qseg is not None:
         same = m.qseg[:, None, :, None] == m.kseg[:, None, None, :]
@@ -142,6 +152,22 @@ def _scores(q, k, causal, scale, m: Masks = Masks()):
     if m.block_mask is not None:
         s = torch.where(_block_live(m.block_mask, sq, sk), s, neg)
     return s
+
+
+def tf32_split(x):
+    """The backward kernels' operand split (3xTF32) of ``x`` in fp32, as
+    `split` in csrc/flash_attention.cu forms it: big = x rounded to tf32's
+    10 mantissa bits, to nearest with ties away from zero, and small = x -
+    big rounded the same way, both fp32 with their low 13 mantissa bits
+    zero; big + small is x within 2^-22 |x|. The kernels form a * b as
+    small_a big_b + big_a small_b + big_a big_b; the plain versions do not
+    use this, it pins the split on the CPU."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    big = rna(x.float())
+    return big, rna(x.float() - big)
 
 
 def _guarded_exp(s, m):
@@ -163,7 +189,7 @@ def flash_forward_reference(q, k, v, causal=True, scale=None, *, mask=None,
     m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)
     p = _guarded_exp(s, m)
     den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.einsum("bhqk,bkhd->bhqd", p, v.float()) / den
+    o = torch.einsum("bhqk,bkhd->bhqd", p, v.to(p.dtype)) / den
     lse = (m + torch.log(den)).squeeze(-1)
     return o.transpose(1, 2).to(q.dtype).contiguous(), lse
 
@@ -171,9 +197,10 @@ def flash_forward_reference(q, k, v, causal=True, scale=None, *, mask=None,
 def _backward_p_ds(q, k, v, do, lse, delta, causal, scale, masks):
     """P recomputed from lse, and dS = P * (dO V^T - delta)."""
     s = _scores(q, k, causal, scale, masks)
-    p = _guarded_exp(s, lse.float()[..., None])
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
-    return p, p * (dp - delta.float()[..., None])
+    dt = s.dtype
+    p = _guarded_exp(s, lse.to(dt)[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.to(dt), v.to(dt))
+    return p, p * (dp - delta.to(dt)[..., None])
 
 
 def flash_backward_dq_reference(q, k, v, do, lse, delta, causal=True,
@@ -183,7 +210,7 @@ def flash_backward_dq_reference(q, k, v, do, lse, delta, causal=True,
     scale = _scale(q, scale)
     _, ds = _backward_p_ds(q, k, v, do, lse, delta, causal, scale,
                            Masks(mask, kbias, qseg, kseg, block_mask))
-    return (scale * torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    return (scale * torch.einsum("bhqk,bkhd->bqhd", ds, k.to(ds.dtype))
             ).to(q.dtype)
 
 
@@ -195,16 +222,16 @@ def flash_backward_dkv_reference(q, k, v, do, lse, delta, causal=True,
     scale = _scale(q, scale)
     p, ds = _backward_p_ds(q, k, v, do, lse, delta, causal, scale,
                            Masks(mask, kbias, qseg, kseg, block_mask))
-    dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, q.to(ds.dtype))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.to(p.dtype))
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def backward_delta(o, do):
     """delta = rowsum(dO * O) as fp32 [b, h, sq], the per-row term both
     backward kernels read (plain torch, as in JAX)."""
-    return (o.float() * do.float()).sum(dim=-1).transpose(1, 2) \
-        .contiguous()
+    dt = _compute_dtype(o)
+    return (o.to(dt) * do.to(dt)).sum(dim=-1).transpose(1, 2).contiguous()
 
 
 def flash_backward_reference(q, k, v, o, do, lse, causal=True, scale=None,

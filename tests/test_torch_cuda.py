@@ -18,7 +18,11 @@ each gradient within 1e-4 * max|plain gradient|, dense and in every
 masked form (K3-m: per-key bias, a dense mask shared or per head, a bool
 mask with rows that see nothing, segment ids, a block mask), with fully
 masked rows exactly 0; a small Llama and a small padded ERNIE trained
-through them must match the same models trained on the dense path.
+through them must match the same models trained on the dense path. At
+the Llama trainer's and the ERNIE shapes, the backward kernels' dq, dk
+and dv against the plain versions evaluated in fp64 must stay within
+twice the fp32 plain versions' own error (fp32-class products on the
+tensor cores).
 """
 
 import numpy as np
@@ -218,8 +222,8 @@ def _grad_bound(ref, dv_ref, sk):
 
 @pytest.mark.parametrize("d", [8, 16, 64, 120, 128, 136, 256])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("sq,sk", [(1, 1), (63, 63), (100, 100), (65, 200),
-                                   (200, 65)])
+@pytest.mark.parametrize("sq,sk", [(1, 1), (63, 63), (100, 100), (257, 257),
+                                   (4096, 4096), (65, 200), (200, 65)])
 def test_flash_kernels_match_plain(gen, d, causal, sq, sk):
     q = torch.randn(2, sq, 3, d, device="cuda", generator=gen)
     k, v = (torch.randn(2, sk, 3, d, device="cuda", generator=gen)
@@ -242,6 +246,38 @@ def test_flash_kernels_match_plain(gen, d, causal, sq, sk):
     if causal and sq > sk:          # rows that see no key
         dead = sq - sk
         assert (o[:, :dead] == 0).all() and (grads[0][:, :dead] == 0).all()
+
+
+@pytest.mark.parametrize("shape", ["llama", "ernie"])
+def test_backward_kernels_are_fp32_class_against_fp64(gen, shape):
+    """dq, dk and dv of the backward kernels (3xTF32 products) against the
+    plain versions evaluated in fp64, at the Llama trainer's shape (causal)
+    and the ERNIE shape with a key-padding bias: within twice the fp32 plain
+    versions' own error (TF32 products would be ~1000 times off)."""
+    b, s, h, d, causal = ((1, 4096, 32, 128, True) if shape == "llama"
+                          else (16, 512, 12, 64, False))
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                   for _ in range(4))
+    kbias = None
+    if shape == "ernie":
+        lens = torch.randint(s * 85 // 100, s + 1, (b, 1), device="cuda",
+                             generator=gen)
+        kbias = (torch.arange(s, device="cuda")[None, :] >= lens).float() \
+            * -1e4
+    o, lse = fa.flash_forward(q, k, v, causal, kbias=kbias)
+    kern = fa.flash_backward(q, k, v, o, do, lse, causal, kbias=kbias)
+    plain = fa.flash_backward_reference(q, k, v, o, do, lse, causal,
+                                        kbias=kbias)
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    o64, lse64 = fa.flash_forward_reference(q64, k64, v64, causal,
+                                            kbias=kbias)
+    exact = fa.flash_backward_reference(q64, k64, v64, o64, do64, lse64,
+                                        causal, kbias=kbias)
+    for name, g, p, r in zip(("dq", "dk", "dv"), kern, plain, exact):
+        assert (g - p).abs().max().item() <= TOL * p.abs().max().item(), name
+        e_kernel = (g.double() - r).abs().max().item()
+        e_plain = (p.double() - r).abs().max().item()
+        assert e_kernel <= 2 * e_plain, (name, e_kernel, e_plain)
 
 
 def test_flash_kernels_refuse_what_they_cannot_take(gen):
@@ -319,8 +355,8 @@ def _check_masked(gen, form, d, causal, sq, sk, b=2, h=3):
 
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("sq,sk", [(63, 63), (200, 200), (65, 200),
-                                   (200, 65)])
+@pytest.mark.parametrize("sq,sk", [(63, 63), (200, 200), (257, 257),
+                                   (4096, 4096), (65, 200), (200, 65)])
 @pytest.mark.parametrize("form", ["kbias_soft", "kbias_hard", "mask_mh1",
                                   "mask_mhh", "bool_dead_rows", "segments"])
 def test_masked_flash_kernels_match_plain(gen, form, d, causal, sq, sk):

@@ -20,7 +20,9 @@ on CPU tensors:
     tests/test_torch_flash_masked.py.
 """
 
+import importlib.util
 import math
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -284,3 +286,159 @@ def test_operands_the_kernels_cannot_read_are_refused_on_both_devices():
 def test_unknown_flag_is_refused():
     with pytest.raises(KeyError, match="FLAGS_no_such_flag"):
         set_flags({"FLAGS_no_such_flag": True})
+
+
+# ------------------------------------------- the backward kernels' 3xTF32
+
+
+def _low_bits(t):
+    return t.view(torch.int32) & 0x1FFF
+
+
+@pytest.mark.parametrize("magnitude", [1e-30, 1e-3, 1.0, 1e3, 1e30])
+def test_tf32_split_reproduces_fp32(magnitude):
+    """big and small are tf32 (low 13 mantissa bits zero), big is x to
+    within half a tf32 ulp, and big + small is x within 2^-22 |x|."""
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        4096).astype(np.float32)) * magnitude
+    big, small = fa.tf32_split(x)
+    assert (_low_bits(big) == 0).all() and (_low_bits(small) == 0).all()
+    x64 = x.double()
+    assert ((big.double() - x64).abs() <= 2.0 ** -11 * x64.abs()).all()
+    assert ((big.double() + small.double() - x64).abs()
+            <= 2.0 ** -22 * x64.abs()).all()
+
+
+def test_tf32_split_rounds_to_nearest_with_ties_away_from_zero():
+    x = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -11 - 2 ** -20,
+                      1 + 3 * 2 ** -11, 1 + 2 ** -12 + 2 ** -23],
+                     dtype=torch.float32)
+    big, small = fa.tf32_split(x)
+    assert big.tolist() == [1 + 2 ** -10, -(1 + 2 ** -10), 1.0, 1 + 2 ** -9,
+                            1.0]
+    # residuals of up to 11 significant bits are kept whole; 2^-12 +
+    # 2^-23 has 12, a tie, rounded away to 2^-12 + 2^-22
+    assert small.tolist() == [-2 ** -11, 2 ** -11, 2 ** -11 - 2 ** -20,
+                              -2 ** -11, 2 ** -12 + 2 ** -22]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("d", [64, 128])
+def test_three_products_of_split_tiles_are_fp32_class(d, seed):
+    """q k^T of 64-row tiles as the kernels form it (each tf32 x tf32
+    product exact in fp32, sums in fp32, the small products first) stays
+    within twice the error of the fp32 product against fp64: the bound the
+    card's gate (chip_smoke.py::check_vs_fp64) assumes. One TF32 product
+    is about a thousand times further off."""
+    rng = np.random.default_rng(seed)
+    q, k = (torch.from_numpy(rng.standard_normal((64, d)).astype(np.float32))
+            for _ in range(2))
+    (qb, qs), (kb, ks) = fa.tf32_split(q), fa.tf32_split(k)
+    three = (qs @ kb.T + qb @ ks.T) + qb @ kb.T
+    exact = q.double() @ k.double().T
+
+    def err(t):
+        return (t.double() - exact).abs().max().item()
+
+    assert err(three) <= 2 * err(q @ k.T)
+    assert err(qb @ kb.T) >= 100 * err(q @ k.T)
+
+
+def test_plain_versions_compute_in_fp64_for_fp64_operands():
+    q, k, v, do = (torch.from_numpy(a) for a in _qkv(12, 1, 40, 56, 2, 16))
+    kbias = torch.zeros(1, 56).index_fill_(1, torch.arange(50, 56), -1e4)
+    o, lse = fa.flash_forward_reference(q, k, v, True, kbias=kbias)
+    grads = fa.flash_backward_reference(q, k, v, o, do, lse, True,
+                                        kbias=kbias)
+    o64, lse64 = fa.flash_forward_reference(q.double(), k.double(),
+                                            v.double(), True, kbias=kbias)
+    assert o64.dtype == lse64.dtype == torch.float64
+    grads64 = fa.flash_backward_reference(
+        q.double(), k.double(), v.double(), o64, do.double(), lse64, True,
+        kbias=kbias)
+    np.testing.assert_allclose(o.numpy(), o64.numpy(), rtol=RTOL, atol=ATOL)
+    for name, g, g64 in zip(("dq", "dk", "dv"), grads, grads64):
+        assert g64.dtype == torch.float64, name
+        np.testing.assert_allclose(g.numpy(), g64.numpy(), rtol=RTOL,
+                                   atol=ATOL, err_msg=name)
+        assert not torch.equal(g.double(), g64), name
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("sq,sk", [(1, 1), (7, 7), (5, 13), (13, 5), (1, 9),
+                                   (9, 1), (64, 200), (200, 64)])
+def test_flash_work_counts_the_visible_pairs(sq, sk, causal):
+    """chip_smoke.py's bound of the flash kernels counts the pairs the
+    kernels compute: every pair, or under the bottom-right-aligned causal
+    mask key j <= i + sk - sq of row i, for any sq and sk."""
+    cs = _chip_smoke()
+    i, j = np.meshgrid(np.arange(sq), np.arange(sk), indexing="ij")
+    pairs = int((j <= i + sk - sq).sum()) if causal else sq * sk
+    assert cs.visible_pairs(sq, sk, causal) == pairs
+    b, h, d = 2, 3, 16
+    work = cs.flash_work(b, sq, sk, h, d, causal, kbias=True)
+    q_bytes, k_bytes, row_bytes = 4 * b * sq * h * d, 4 * b * sk * h * d, \
+        4 * b * h * sq
+    assert work == {
+        "flash_forward": (2 * q_bytes + 2 * k_bytes + row_bytes + 4 * b * sk,
+                          4 * d * b * h * pairs),
+        "flash_backward_dq": (3 * q_bytes + 2 * k_bytes + 2 * row_bytes
+                              + 4 * b * sk, 6 * d * b * h * pairs),
+        "flash_backward_dkv": (2 * q_bytes + 4 * k_bytes + 2 * row_bytes
+                               + 4 * b * sk, 8 * d * b * h * pairs)}
+
+
+_HASH = "_ZN51_GLOBAL__N__4af27cb8_18_flash_attention_cu_6928a1a2"
+_ARGS = "EEEvPKfS2_S2_S2_S2_S2_PfNS_4DimsE"
+
+
+def _entry(name, maxd):
+    return f"{_HASH}{len(name)}{name}ILi{maxd}{_ARGS}"
+
+
+@pytest.mark.parametrize("name", ["flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                  "flash_bwd_dkv_kernel"])
+@pytest.mark.parametrize("maxd", [64, 128, 256])
+def test_smoke_names_kernels_from_their_mangled_entries(name, maxd):
+    """chip_smoke.py's build report finds each kernel's name after the
+    digits of the anonymous namespace's hash, and its instantiation."""
+    assert _chip_smoke()._kernel_label(_entry(name, maxd)) == \
+        f"{name}<{maxd}>"
+
+
+@pytest.mark.parametrize("hmma_in_all", [True, False])
+def test_smoke_build_report_requires_tensor_core_products(monkeypatch,
+                                                          hmma_in_all):
+    """The build report passes when the SASS of every backward
+    instantiation holds HMMA, and fails the smoke when one holds none."""
+    import subprocess
+    from types import SimpleNamespace
+
+    cs = _chip_smoke()
+    entries = [_entry(n, d) for n in ("flash_bwd_dq_kernel",
+                                      "flash_bwd_dkv_kernel")
+               for d in (64, 128, 256)]
+    log = "\n".join(f"ptxas info    : Compiling entry function '{e}' for "
+                    f"'sm_90a'\nptxas info    : Used 200 registers" for e in
+                    entries)
+    sass = "".join(f"\tFunction : {e}\n\tHMMA.1688.F32.TF32 R0, R4, R8, R0\n"
+                   for e in entries)
+    if not hmma_in_all:
+        sass = sass.replace("HMMA.1688.F32.TF32 R0, R4, R8, R0\n", "FADD\n", 1)
+    monkeypatch.setattr(cs.subprocess, "run", lambda *a, **k:
+                        subprocess.CompletedProcess(a, 0, stdout=sass))
+    monkeypatch.setattr(cs, "log", lambda msg: None)
+    build = SimpleNamespace(log=log, path=Path("libkernels.so"))
+    if hmma_in_all:
+        cs.build_report(build)
+    else:
+        with pytest.raises(AssertionError, match="tensor-core"):
+            cs.build_report(build)
