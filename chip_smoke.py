@@ -11,9 +11,11 @@ exits non-zero without printing a result:
   2. build    nvcc builds the kernels from paddle_tpu_torch/csrc (one
               process per source, started together); printed: the seconds
               it took, each kernel's registers and spills (ptxas), the
-              backward kernels' shared memory per instantiation and their
+              backward kernels' shared memory per instantiation and the
               tensor-core instructions in the SASS (cuobjdump -sass: HMMA
-              for mma.sync, HGMMA for wgmma; none fails the run).
+              for mma.sync, HGMMA for wgmma) of every instantiation of the
+              three flash kernels and of the ragged span form; one without
+              them, or missing, fails the run.
   3. kernels  each serving kernel's wrapper against its plain PyTorch
               version on the card: the ragged kernel over fp32 pools (K1)
               at LLaMA-2-7B heads and at a GQA layout over mixed spans
@@ -48,7 +50,8 @@ exits non-zero without printing a result:
               16, about 4 GiB each). Every prefill chunk and every decode
               step must launch the K1-q kernel of that dtype once per
               layer, and nothing else: no plain version, no K1 over fp32
-              pools, no K2. No page may leak. Each engine is then
+              pools, no K2; chunks launch its span form and decode steps
+              its decode form, both at least once. No page may leak. Each engine is then
               profiled as in phase 5. Reported, not gated: each
               engine's greedy agreement with the fp32 engine and with its
               own naive_generate on two requests. cuBLAS rounds a row of
@@ -68,10 +71,16 @@ exits non-zero without printing a result:
   8. timing   each serving kernel at the engine's shapes against its plain
               version, its bound and the library yardstick (SDPA on K/V
               gathered and dequantized beforehand), with L2 flushed before
-              every timed call: K1 and K1-q at a 256-token chunk at
-              start_pos 256, K1-q also at the decode step of 8 sequences,
-              K2 at that decode step. Then the engine is freed: under 1 GiB
-              may stay allocated before the trainer is built.
+              every timed call and the card held ~0.5 ms before it, so the
+              host's launch overhead is not timed: K1 and K1-q at a
+              256-token chunk at start_pos 256 (span form) and at the
+              decode step of 8 sequences (decode form; over fp32 pools at
+              GQA n_rep 4, the timed row, and MHA), K2 at that decode
+              step. K1 and K1-q are first held against the plain version
+              in fp64 at each of these shapes: the kernel's max error
+              within twice the fp32 plain version's own; the mean signed
+              error of both is printed. Then the engine is freed: under
+              1 GiB may stay allocated before the trainer is built.
   9. flash    the flash kernels (K3a forward, K3b-dq, K3b-dkv) through the
               autograd.Function and torch.autograd.grad against their
               plain versions: b=1, s=4096, h=32, d=128 causal, and a sweep
@@ -110,8 +119,8 @@ exits non-zero without printing a result:
               * its max|grad|.
  14. timing   at the trainer's shape (b=1, s=4096, h=32, d=128, causal):
               first the kernels against their plain versions (phase 9's
-              tolerances) and dq, dk, dv against the plain versions in
-              fp64, within twice the fp32 plain versions' own error
+              tolerances) and o, lse, dq, dk, dv against the plain versions
+              in fp64, within twice the fp32 plain versions' own error
               (fp32-class products); then each flash kernel against its
               plain version, its bound and scaled_dot_product_attention
               as the yardstick, L2 flushed; the backward pair like for
@@ -137,8 +146,10 @@ exits non-zero without printing a result:
               [16,512,12,64], the batch's kbias [16,512], full; SDPA with
               the broadcast float mask).
  19. summary  one JSON line of every kernel's launches, error and times
-              (K1-q's decode-step times as extra decode_* keys; the masked
-              kernels as *_masked rows with the ERNIE trainer's launches),
+              (K1's decode-form times as extra decode_* keys, its engine
+              launches by form under launches_by_form, the fp64 ratios
+              under fp64_ratio; the masked kernels as *_masked rows with
+              the ERNIE trainer's launches),
               the nvidia-smi line, then the result line.
 
 fp32 products stay fp32: TF32 is switched off for matmuls and cuDNN. Bounds
@@ -194,15 +205,25 @@ def _flush_l2() -> None:
     _L2_FLUSH[0].sum()
 
 
+# cycles the card spins before each timed call (~0.5 ms), so that the host
+# has enqueued the call before the start event is reached
+_HOLD_CYCLES = 1_000_000
+
+
 def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Median CUDA-event time of ``fn`` with a cold L2 before each call
-    (the flush runs outside the timed interval)."""
+    (the flush runs outside the timed interval). Before the start event the
+    card spins for ~0.5 ms (torch.cuda._sleep) while the host enqueues the
+    call, so the interval holds the call's device time and not the host's
+    launch overhead (a wrapper's checks and ctypes call, ~0.1 ms, which a
+    kernel of a few microseconds would otherwise wait for)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
         _flush_l2()
+        torch.cuda._sleep(_HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -319,18 +340,38 @@ def check_paged(gen):
     return err
 
 
+def fp64_ratio(kern, plain, exact) -> float:
+    """The kernel's max error against the fp64 evaluation over the fp32
+    plain version's own."""
+    e_kernel = (kern.double() - exact).abs().max().item()
+    e_plain = (plain.double() - exact).abs().max().item()
+    return e_kernel / e_plain
+
+
+def signed_error(x, exact) -> float:
+    """The mean error against the fp64 evaluation in the direction of the
+    exact value, over its mean magnitude: below 0, a result shrunk toward
+    zero (a bias rounding to nearest does not have)."""
+    return ((x.double() - exact) * exact.sign()).mean().item() \
+        / exact.abs().mean().item()
+
+
 def measure_ragged(gen, n_heads, num_blocks, P, kind="fp32",
-                   spans=SPANS_CHUNK):
-    """K1 / K1-q at an engine shape, MHA at 7B heads: by default the
-    second 256-token chunk of a longer prompt (keys 0..511 visible), or
-    the decode step of the engine's sequences (T = 1)."""
+                   spans=SPANS_CHUNK, n_kv=None):
+    """K1 / K1-q at an engine shape, 7B heads (MHA, or ``n_kv`` kv heads):
+    by default the second 256-token chunk of a longer prompt (keys 0..511
+    visible), or the decode step of the engine's sequences (T = 1). Held
+    against the plain version in fp32 (1e-4) and in fp64 (within twice the
+    fp32 plain version's error), then timed."""
     from paddle_tpu_torch.ops.ragged_paged_attention import (
-        dequantize_pages, ragged_paged_attention, ragged_reference,
+        dequantize_pages, ragged_form, ragged_paged_attention,
+        ragged_reference,
     )
     d, ps = 128, 16
+    n_kv = n_kv or n_heads
     start, qlen, T = spans
     B = len(start)
-    k_pool, v_pool = _pools(num_blocks, ps, n_heads, d, gen)
+    k_pool, v_pool = _pools(num_blocks, ps, n_kv, d, gen)
     k, v, ks, vs = _as_kind(k_pool, v_pool, kind, gen)
     del k_pool, v_pool
     pages = [-(-(s + T) // ps) for s in start]   # pages each walk reads
@@ -340,19 +381,33 @@ def measure_ragged(gen, n_heads, num_blocks, P, kind="fp32",
     ql = torch.tensor(qlen, dtype=torch.int32, device="cuda")
     args = (q, k, v, table, st, ql)
     kw = dict(k_scale=ks, v_scale=vs)
+    form = ragged_form(n_heads // n_kv, T)
+    name = f"{K1_VARIANTS[kind][1]} {form} form"
     out = ragged_paged_attention(*args, **kw)
     ref = ragged_reference(*args, **kw)
     err = (out - ref).abs().max().item()
     if not err <= TOL:
-        raise AssertionError(f"{K1_VARIANTS[kind][1]} engine shape: "
-                             f"max_abs_err {err} > {TOL}")
+        raise AssertionError(f"{name} engine shape: max_abs_err {err} > "
+                             f"{TOL}")
+    pools64 = (k.double(), v.double()) if kind == "fp32" else (k, v)
+    exact = ragged_reference(q.double(), *pools64, table, st, ql, **kw)
+    ratio = fp64_ratio(out, ref, exact)
+    bias = (signed_error(out, exact), signed_error(ref, exact))
+    del exact
+    log(f"{name} vs fp64 at q[{B},{T},{n_heads},{d}], {n_kv} kv heads: "
+        f"kernel error {ratio:.2f}x the fp32 plain version's; mean signed "
+        f"error kernel {bias[0]:+.2e}, plain {bias[1]:+.2e}")
+    if not ratio <= 2.0:
+        raise AssertionError(f"{name}: error against fp64 {ratio:.2f}x the "
+                             "fp32 plain version's, above 2x")
     ms = median_ms(lambda: ragged_paged_attention(*args, **kw))
     plain = median_ms(lambda: ragged_reference(*args, **kw), iters=5)
     # library yardstick: SDPA over the visible keys, gathered (and
-    # dequantized) beforehand
+    # dequantized) beforehand, kv heads repeated for GQA
     L = max(s + T for s in start)
     idx = table[:, :-(-L // ps)].long()
     kg, vg = ((dequantize_pages(pool, idx, sc).flatten(1, 2)[:, :L]
+               .repeat_interleave(n_heads // n_kv, dim=2)
                .transpose(1, 2).contiguous())
               for pool, sc in ((k, ks), (v, vs)))
     qT = q.transpose(1, 2).contiguous()
@@ -364,23 +419,23 @@ def measure_ragged(gen, n_heads, num_blocks, P, kind="fp32",
     # the least work: each visible K/V row read once (1 byte per element
     # on int8 / fp8 pools, plus one fp32 scale per page and kv head for
     # K and V on int8), the table entries walked, q read and out written;
-    # 4*d FLOPs per visible (row, key, head)
+    # 4*d FLOPs per visible (row, key, query head)
     keys = sum(s + T for s in start)
     elem = 4 if kind == "fp32" else 1
-    nbytes = (4 * 2 * q.numel() + elem * 2 * keys * n_heads * d
+    nbytes = (4 * 2 * q.numel() + elem * 2 * keys * n_kv * d
               + 4 * (sum(pages) + 2 * B))
     if kind == "int8":
-        nbytes += 4 * 2 * sum(pages) * n_heads
+        nbytes += 4 * 2 * sum(pages) * n_kv
     flops = 4 * d * n_heads * sum(s + t + 1 for s in start for t in range(T))
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_FP32_ACCURATE_FLOP_PER_S
     return dict(max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=lib,
+                library_ms=lib, fp64_ratio=ratio,
                 shape=f"q[{B},{T},{n_heads},{d}] start_pos={start} "
-                      f"{kind} pool[{num_blocks},{ps},{n_heads},{d}] "
-                      f"table[{B},{P}]")
+                      f"{kind} pool[{num_blocks},{ps},{n_kv},{d}] "
+                      f"table[{B},{P}] ({form} form)")
 
 
 def measure_paged(gen, n_heads, num_blocks, P, positions):
@@ -495,6 +550,8 @@ def engine_phase(model, cfg, kv_dtype="fp32", seed=0, n_requests=8,
             decode_ms.append(1e3 * (time.perf_counter() - t))
     wall = time.perf_counter() - t_run
     kernel = {name: c.kernel_launches for name, c in counts}
+    forms = {name: dict(c.form_launches) for name, c in counts
+             if c.form_launches}
     plain = sum(c.plain_launches for _, c in counts)
     outs = eng.outputs()
     log(f"engine run ({kv_dtype} KV): {len(outs)}/{n_requests} finished, "
@@ -507,7 +564,8 @@ def engine_phase(model, cfg, kv_dtype="fp32", seed=0, n_requests=8,
         f"{m.batch_occupancy.count} decode calls, "
         f"{int(m.preemptions.value)} preemptions, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"engine launches ({kv_dtype} KV): {kernel}, plain launches {plain}")
+    log(f"engine launches ({kv_dtype} KV): {kernel}, by form {forms}, "
+        f"plain launches {plain}")
     if len(outs) != n_requests or any(
             o.finish_reason != "length" or len(o.output_tokens) != max_tokens
             for o in outs.values()):
@@ -524,6 +582,10 @@ def engine_phase(model, cfg, kv_dtype="fp32", seed=0, n_requests=8,
             raise AssertionError(
                 f"{path[0]} launched {kernel[path[0]]} times, not "
                 f"{cfg.num_layers} layers x {calls} calls")
+        # chunks take the span form, decode steps (G = 1) the decode form
+        if set(forms.get(path[0], {})) != {"span", "decode"}:
+            raise AssertionError(f"{path[0]} did not launch both forms: "
+                                 f"{forms}")
     if plain != 0 or any(n not in path and k for n, k in kernel.items()):
         raise AssertionError(f"the {kv_dtype} path launched another kernel "
                              f"or a plain version: {kernel}, plain {plain}")
@@ -550,7 +612,8 @@ def engine_phase(model, cfg, kv_dtype="fp32", seed=0, n_requests=8,
                    f"{list(checked)}", [tokens[i] for i in checked], refs)
         _agreement(f"{kv_dtype} engine vs fp32 engine", tokens, ref_tokens)
     positions = [int(n) + max_tokens // 2 for n in lens]
-    return eng, {n: kernel[n] for n in path}, positions, tokens, prompts
+    return (eng, {n: kernel[n] for n in path}, positions, tokens, prompts,
+            {n: forms.get(n, {}) for n in path})
 
 
 def _agreement(label, tokens, refs):
@@ -609,11 +672,11 @@ def single_slot_check(model, cfg, kv_dtype, prompts, max_tokens=32):
             f"{len(p)}: {verdict}")
 
 
-def quant_model_check(cfg, kind, seed=2, chunk=256, n_chunks=2, steps=8):
-    """Phase 7: a model at full width over a ``kind`` pool, prefill chunks
-    and decode steps through K1-q against the same steps on the plain
-    gather path from fresh pools: every call's logits within TOL of its
-    max|logit|."""
+def quant_paths(cfg, kind, seed=2, chunk=256, n_chunks=2, steps=8):
+    """A model at full width over a ``kind`` pool: prefill chunks and
+    decode steps (a dead slot beside the live one) through K1-q, then the
+    same steps on the plain gather path from fresh pools. Returns each
+    run's logits of every call and its pools (kernel run first)."""
     import paddle_tpu_torch.ops.ragged_paged_attention as k1
     from paddle_tpu_torch.models import Llama
     from paddle_tpu_torch.serving import KVCachePool, LlamaRunner
@@ -643,19 +706,27 @@ def quant_model_check(cfg, kind, seed=2, chunk=256, n_chunks=2, steps=8):
                 np.asarray([feed[i], 0], np.int32), tables,
                 np.asarray([chunk * n_chunks + i, 0], np.int32), pools)
             logits.append(lg[0])
-        return logits
+        return logits, pools
 
     feed = []
     before = (counts.kernel_launches, counts.plain_launches)
-    out_k = run("auto", feed)
+    out_k, pools_k = run("auto", feed)
     mid = (counts.kernel_launches, counts.plain_launches)
-    out_r = run("reference", feed)
+    out_r, pools_r = run("reference", feed)
     calls = n_chunks + steps
     if (mid[0] - before[0] != cfg.num_layers * calls or mid[1] != before[1]
             or (counts.kernel_launches, counts.plain_launches) != mid):
         raise AssertionError(f"{K1_VARIANTS[kind][1]}: the kernel run must "
                              f"launch it {cfg.num_layers * calls} times and "
                              "the reference run never")
+    return out_k, out_r, pools_k, pools_r
+
+
+def quant_model_check(cfg, kind, chunk=256, n_chunks=2, steps=8):
+    """Phase 7: quant_paths' two runs, every call's logits within TOL of
+    its max|logit|."""
+    out_k, out_r, _, _ = quant_paths(cfg, kind, chunk=chunk,
+                                     n_chunks=n_chunks, steps=steps)
     worst = max(((a - b).abs().max() / b.abs().max()).item()
                 for a, b in zip(out_k, out_r))
     log(f"K1-q {kind} vs the gather path ({cfg.num_layers} layers, full "
@@ -680,7 +751,7 @@ def _kernel_group(name: str) -> str:
             return group
     if "paged_decode_kernel" in name:
         return "K2 paged_decode_attention"
-    if "ragged_kernel" in name:
+    if "ragged_span_kernel" in name or "ragged_decode_kernel" in name:
         return "K1 ragged_paged_attention"
     if "gemm" in low or "gemv" in low or "cutlass" in low or "xmma" in low:
         return "matmul (cuBLAS)"
@@ -1393,11 +1464,12 @@ def check_vs_fp64(gen, b=1, s=4096, h=32, d=128, causal=True, att=None):
     """Phases 14 and 18, first: the kernels at the trainer's (or with
     ``att``, the ERNIE batch's kbias) shape against their plain versions on
     the same operands (o, lse within 1e-4; each gradient within 1e-4 *
-    max|plain gradient|), then dq, dk and dv against the plain versions
-    evaluated once in fp64: the kernels' max error must stay within twice
-    the fp32 plain versions' own, the mark of fp32-class products (TF32
-    products would be ~1000 times off). Returns each kernel's max abs
-    error against the fp32 plain version."""
+    max|plain gradient|), then o, lse, dq, dk and dv against the plain
+    versions evaluated once in fp64: the kernels' max error must stay within
+    twice the fp32 plain versions' own, the mark of fp32-class products
+    (TF32 products would be ~1000 times off). Returns each kernel's max abs
+    error against the fp32 plain version, and the forward's larger fp64
+    ratio under "fwd_fp64_ratio"."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     if att is not None:
@@ -1432,7 +1504,19 @@ def check_vs_fp64(gen, b=1, s=4096, h=32, d=128, causal=True, att=None):
                                             kbias=kbias)
     exact = fa.flash_backward_reference(q64, k64, v64, o64, do64, lse64,
                                         causal, kbias=kbias)
-    del o64, lse64
+    ro, rlse = fa.flash_forward_reference(q, k, v, causal, kbias=kbias)
+    fwd = {"o": fp64_ratio(o, ro, o64), "lse": fp64_ratio(lse, rlse, lse64)}
+    bias = (signed_error(o, o64), signed_error(ro, o64))
+    del o64, lse64, ro, rlse
+    log(f"flash forward vs fp64 at {form}: o {fwd['o']:.2f}x, lse "
+        f"{fwd['lse']:.2f}x the fp32 plain version's error; o's mean signed "
+        f"error kernel {bias[0]:+.2e}, plain {bias[1]:+.2e}")
+    for name, ratio in fwd.items():
+        if not ratio <= 2.0:
+            raise AssertionError(f"K3a {name} at {form}: error against fp64 "
+                                 f"{ratio:.2f}x the fp32 plain version's, "
+                                 "above 2x")
+    err["fwd_fp64_ratio"] = max(fwd.values())
     parts = []
     for name, g, p, r in zip(("dq", "dk", "dv"), kern, plain, exact):
         e_kernel = (g.double() - r).abs().max().item()
@@ -1444,7 +1528,8 @@ def check_vs_fp64(gen, b=1, s=4096, h=32, d=128, causal=True, att=None):
                                  f"{e_kernel:.3e} > 2 x the fp32 plain "
                                  f"version's {e_plain:.3e}")
     log(f"flash kernels vs plain at {form}: max_abs_err " + ", ".join(
-        f"{n} {e:.3e}" for n, e in {**err, **grad_err}.items()))
+        f"{n} {e:.3e}" for n, e in {**err, **grad_err}.items()
+        if n != "fwd_fp64_ratio"))
     log(f"flash backward vs fp64 at {form} (max abs error): "
         + "; ".join(parts) + "; each within 2x the fp32 plain version's")
     return err
@@ -1647,25 +1732,40 @@ BWD_TILES = {64: (128, 32), 128: (128, 32), 256: (64, 16)}
 
 
 def _kernel_label(mangled: str) -> str:
-    """'flash_bwd_dq_kernel<128>' from a mangled entry name: its
-    length-prefixed name that ends in _kernel, with the first integer
-    template argument after it. Every position of a digit run is tried,
-    since a length may follow the digits of an anonymous namespace's
-    hash ('...a219flash_bwd_dq_kernelILi128E...')."""
+    """'flash_bwd_dq_kernel<128>' or 'ragged_span_kernel<128,1>' from a
+    mangled entry name: its length-prefixed name that ends in _kernel,
+    with the integer template arguments after it. Every position of a
+    digit run is tried, since a length may follow the digits of an
+    anonymous namespace's hash ('...a219flash_bwd_dq_kernelILi128E...')."""
     for m in re.finditer(r"(?=(\d+))", mangled):
         at = m.start() + len(m.group(1))
         name = mangled[at:at + int(m.group(1))]
         if name.endswith("_kernel") and name.isidentifier():
-            arg = re.match(r"ILi(\d+)E", mangled[at + len(name):])
-            return name + (f"<{arg.group(1)}>" if arg else "")
+            args = re.match(r"I((?:Li\d+E)+)E", mangled[at + len(name):])
+            if not args:
+                return name
+            return name + "<" + ",".join(
+                re.findall(r"Li(\d+)E", args.group(1))) + ">"
     return mangled
+
+
+# the kernels that multiply on the tensor cores, and every instantiation
+# of them the build must hold (the ragged span form's second argument is
+# the pool type: 0 fp32, 1 int8, 2 fp8)
+TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                       "flash_bwd_dkv_kernel", "ragged_span_kernel")
+TENSOR_CORE_INSTANTIATIONS = (
+    *(f"{k}<{d}>" for k in TENSOR_CORE_KERNELS[:3] for d in (64, 128, 256)),
+    *(f"ragged_span_kernel<{d},{kv}>" for d in (128, 256) for kv in range(3)))
 
 
 def build_report(build) -> None:
     """Phase 2's report: each kernel entry's registers and spills (ptxas),
-    the backward kernels' shared memory per instantiation, and whether
-    their SASS holds tensor-core instructions (HMMA: mma.sync, HGMMA:
-    wgmma), from cuobjdump -sass of the built library."""
+    the backward kernels' shared memory per instantiation, and whether the
+    SASS of every tensor-core kernel (the three flash kernels, the ragged
+    span form) holds tensor-core instructions in every instantiation
+    (HMMA: mma.sync, HGMMA: wgmma), from cuobjdump -sass of the built
+    library; one without them fails the run."""
     name = None
     for ln in build.log.splitlines():
         if "Compiling entry function" in ln:
@@ -1689,14 +1789,15 @@ def build_report(build) -> None:
     found = {}
     for section in sass.split("Function : ")[1:]:
         label = _kernel_label(section.split("\n", 1)[0].strip())
-        if label.startswith("flash_bwd"):
+        if label.startswith(TENSOR_CORE_KERNELS):
             found[label] = (section.count("HMMA"), section.count("HGMMA"))
             log(f"  SASS {label}: {found[label][0]} HMMA, "
                 f"{found[label][1]} HGMMA instructions")
-    if len(found) != 2 * len(BWD_TILES) or not all(
+    if set(found) != set(TENSOR_CORE_INSTANTIATIONS) or not all(
             sum(n) > 0 for n in found.values()):
-        raise AssertionError(f"the backward kernels' SASS holds no "
-                             f"tensor-core products: {found}")
+        raise AssertionError(f"a tensor-core kernel's SASS holds no "
+                             f"tensor-core products, or an instantiation is "
+                             f"missing: {found}")
 
 
 def main() -> int:
@@ -1735,15 +1836,17 @@ def main() -> int:
 
     cfg = LLAMA2_7B
     model = Llama(cfg, device="cuda", seed=0)
-    eng, launches, positions, fp32_tokens, _ = engine_phase(model, cfg)
+    eng, launches, positions, fp32_tokens, _, forms = engine_phase(model,
+                                                                   cfg)
     profile_phase(eng, cfg)
     del eng
     _free_the_card()
     gemm_row_invariance(gen)
     for kind in ("int8", "fp8"):
-        eng, more, _, _, prompts = engine_phase(model, cfg, kind,
-                                                ref_tokens=fp32_tokens)
+        eng, more, _, _, prompts, more_forms = engine_phase(
+            model, cfg, kind, ref_tokens=fp32_tokens)
         launches.update(more)
+        forms.update(more_forms)
         profile_phase(eng, cfg)
         del eng
         _free_the_card()
@@ -1758,19 +1861,28 @@ def main() -> int:
 
     P = 4096 // 16
     decode = (positions, [1] * len(positions), 1)
-    meas = {"ragged_paged_attention": measure_ragged(gen, cfg.num_heads,
-                                                     1024, P)}
-    for kind in ("int8", "fp8"):
-        name = f"ragged_paged_attention_{kind}"
+    meas = {}
+    for kind in ("fp32", "int8", "fp8"):
+        name = ("ragged_paged_attention" if kind == "fp32"
+                else f"ragged_paged_attention_{kind}")
         meas[name] = measure_ragged(gen, cfg.num_heads, 1024, P, kind)
+        # the decode form at the engine's decode positions, MHA; over fp32
+        # pools also at GQA n_rep 4 (8 kv heads), the decode form's other
+        # caller (the fp32 MHA engine decodes through K2)
         dec = measure_ragged(gen, cfg.num_heads, 1024, P, kind, decode)
+        if kind == "fp32":
+            gqa = measure_ragged(gen, cfg.num_heads, 1024, P, kind, decode,
+                                 n_kv=cfg.num_heads // 4)
+            meas[name]["decode_mha_fp64_ratio"] = dec["fp64_ratio"]
+            dec = gqa
         meas[name]["decode"] = dec
         meas[name]["max_abs_err"] = max(meas[name]["max_abs_err"],
                                         dec["max_abs_err"])
     meas["paged_decode_attention"] = measure_paged(gen, cfg.num_heads, 1024,
                                                    P, positions)
     rows = []
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "fp64_ratio")
     k1_src = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
     k1_tpu = "paddle_tpu/ops/pallas/ragged_paged_attention.py:142"
     for name, src, replaces in (
@@ -1793,9 +1905,13 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": launches[name],
                "max_abs_err": max(errs[name], m["max_abs_err"]),
-               **{k: m[k] for k in keys}}
+               **{k: m[k] for k in keys if k in m}}
+        if name in forms:
+            row["launches_by_form"] = forms[name]
         if "decode" in m:
             row.update({f"decode_{k}": m["decode"][k] for k in keys})
+        if "decode_mha_fp64_ratio" in m:
+            row["decode_mha_fp64_ratio"] = m["decode_mha_fp64_ratio"]
         rows.append(row)
 
     # the training path: the engines, the model and the runners are gone
@@ -1838,11 +1954,14 @@ def main() -> int:
             ("", flash, flash_launches, (flash_err, acc)),
             ("_masked", masked, masked_launches, (masked_err, acc_masked))):
         for name, replaces in FLASH_KERNELS:
-            rows.append({"name": name + label, "route": "cuda",
-                         "source": "paddle_tpu_torch/csrc/flash_attention.cu",
-                         "replaces": replaces, "launches": launches[name],
-                         "max_abs_err": max(e[name] for e in errs),
-                         **times[name]})
+            row = {"name": name + label, "route": "cuda",
+                   "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+                   "replaces": replaces, "launches": launches[name],
+                   "max_abs_err": max(e[name] for e in errs),
+                   **times[name]}
+            if name == "flash_forward":
+                row["fp64_ratio"] = errs[1]["fwd_fp64_ratio"]
+            rows.append(row)
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

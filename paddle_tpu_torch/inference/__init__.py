@@ -11,7 +11,7 @@ from paddle_tpu_torch.serving.engine import ServingEngine
 from paddle_tpu_torch.serving.model_runner import runner_for
 
 _RUNNER_KNOBS = ("block_size", "max_model_len", "attn_impl", "kv_dtype",
-                 "weight_dtype")
+                 "weight_dtype", "weight_group_size")
 
 
 def create_serving_engine(model, dtype=None, device="cuda", **kw):
@@ -19,12 +19,12 @@ def create_serving_engine(model, dtype=None, device="cuda", **kw):
     (default "cuda", which raises where no card is usable; pass "cpu" to
     run the kernels' plain versions). The model's parameters are moved to
     ``device`` unless they already live there. Runner knobs (block_size,
-    max_model_len, attn_impl, kv_dtype, weight_dtype) go to the runner,
-    everything else to ServingEngine; ``num_blocks`` defaults to 128.
-    fp32 weights on one device are ported, over fp32, int8 or fp8 KV
-    pools (``kv_dtype``): another ``dtype``, ``weight_dtype`` or
-    ``kv_dtype="mixed"``, or a ``mesh``, raises NotImplementedError
-    naming its ROADMAP item."""
+    max_model_len, attn_impl, kv_dtype, weight_dtype, weight_group_size)
+    go to the runner, everything else to ServingEngine; ``num_blocks``
+    defaults to 128. fp32 weights on one device are ported, over fp32,
+    int8 or fp8 KV pools (``kv_dtype``): another ``dtype``,
+    ``weight_dtype``, ``weight_group_size`` or ``kv_dtype="mixed"``, or a
+    ``mesh``, raises NotImplementedError naming its ROADMAP item."""
     if dtype is not None and dtype not in ("float32", torch.float32):
         raise NotImplementedError(
             f"dtype={dtype!r}: only fp32 serving is ported; lower-precision "

@@ -5,7 +5,8 @@ interface (every pointer and the stream as ``void*``, sizes as ``int``), so
 they compile in seconds without PyTorch's headers. The first call to
 ``library()`` compiles each source in its own nvcc process (all started
 together), links the objects into one shared library under
-``paddle_tpu_torch/csrc/build/`` named by a hash of the sources and flags,
+``paddle_tpu_torch/csrc/build/`` named by a hash of the sources, the
+headers they include (``csrc/*.cuh``) and the flags,
 and loads it. A later process finds the library by that name and skips the
 build. Nothing here runs at import time: the CPU tests import every module
 on a machine without nvcc.
@@ -36,9 +37,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every kernel entry point: (argtypes, restype int = the
 # cudaError_t of the launch)
 SIGNATURES = {
-    "ragged_paged_attention_f32": [_P] * 7 + [_I] * 7 + [_F, _P],
-    "ragged_paged_attention_i8": [_P] * 9 + [_I] * 7 + [_F, _P],
-    "ragged_paged_attention_f8": [_P] * 7 + [_I] * 7 + [_F, _P],
+    # the ragged kernel: its tensors, then B, T, n_q, n_kv, d, page_size,
+    # pages_per_seq and the form (0 span, 1 decode)
+    "ragged_paged_attention_f32": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "ragged_paged_attention_i8": [_P] * 9 + [_I] * 8 + [_F, _P],
+    "ragged_paged_attention_f8": [_P] * 7 + [_I] * 8 + [_F, _P],
     "paged_decode_attention_f32": [_P] * 6 + [_I] * 5 + [_F, _P],
     # the flash kernels: their tensors, the five masking operands (mask,
     # kbias, qseg, kseg, block_mask; null = absent), then B, H, Sq, Sk, d,
@@ -80,11 +83,16 @@ def _nvcc() -> str:
     return found
 
 
+def _inputs():
+    """Every file a build reads: the sources and the headers in csrc."""
+    return [CSRC / name for name in SOURCES] + sorted(CSRC.glob("*.cuh"))
+
+
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in _inputs():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -179,12 +187,17 @@ def require_launchable(name: str, floats, ints, codes=(), scales=()) -> None:
 class LaunchCounts:
     """How often a kernel wrapper launched its CUDA kernel and how often it
     ran its plain PyTorch version instead (CPU tensors only). A run reads
-    these to show which path it took."""
+    these to show which path it took. A wrapper with several kernel forms
+    also counts each form's launches in ``form_launches``."""
 
     def __init__(self):
-        self.kernel_launches = 0
-        self.plain_launches = 0
+        self.reset()
 
     def reset(self) -> None:
         self.kernel_launches = 0
         self.plain_launches = 0
+        self.form_launches = {}
+
+    def count_kernel(self, form: str) -> None:
+        self.kernel_launches += 1
+        self.form_launches[form] = self.form_launches.get(form, 0) + 1

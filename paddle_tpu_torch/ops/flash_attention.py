@@ -44,7 +44,8 @@ visible key comes out as zeros with zero gradient.
   launch_backward_dq,       timing the kernels
   launch_backward_dkv
   flash_attention_ok        the kernels' shape gate
-  tf32_split                the backward kernels' 3xTF32 operand split,
+  tf32_split                the kernels' 3xTF32 operand split (flash and
+                            the ragged span form),
                             mirrored on the CPU (the plain versions compute
                             in fp32, or fp64 for fp64 operands)
 
@@ -155,8 +156,8 @@ def _scores(q, k, causal, scale, m: Masks = Masks()):
 
 
 def tf32_split(x):
-    """The backward kernels' operand split (3xTF32) of ``x`` in fp32, as
-    `split` in csrc/flash_attention.cu forms it: big = x rounded to tf32's
+    """The tensor-core kernels' operand split (3xTF32) of ``x`` in fp32, as
+    `split` in csrc/tf32_mma.cuh forms it: big = x rounded to tf32's
     10 mantissa bits, to nearest with ties away from zero, and small = x -
     big rounded the same way, both fp32 with their low 13 mantissa bits
     zero; big + small is x within 2^-22 |x|. The kernels form a * b as

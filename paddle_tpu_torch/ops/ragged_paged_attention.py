@@ -18,10 +18,15 @@ the n_q / n_kv query heads of a kv head from one page walk.
 
 `ragged_paged_attention` is the wrapper: on a CUDA tensor it launches the
 hand-written kernel in csrc/ragged_paged_attention.cu for the pools'
-dtype, on a CPU tensor it runs `ragged_reference`, the plain gather +
-dense-mask version with the same output contract. There is no other
-path. Each pool dtype counts its own launches: `COUNTS` (fp32 pools),
-`COUNTS_I8` and `COUNTS_F8`.
+dtype, in the form `ragged_form` picks from the grouped rows G = n_rep *
+T (the span form on the tensor cores for prefill chunks and GQA spans,
+the key-parallel decode form for G <= DECODE_ROWS); on a CPU tensor it
+runs `ragged_reference`, the plain gather + dense-mask version with the
+same output contract, which computes in q's dtype (fp64 operands give the
+fp64 oracle the card's accuracy gate uses). There is no other path. Each
+pool dtype counts its own launches: `COUNTS` (fp32 pools), `COUNTS_I8`
+and `COUNTS_F8`, with the kernel launches of each form under
+`form_launches`.
 """
 
 from __future__ import annotations
@@ -38,6 +43,12 @@ from paddle_tpu_torch.ops._build import (
 NEG_INF = -1e30
 # the widest head the kernels hold in registers (they refuse wider ones)
 MAX_HEAD_DIM = 256
+
+# G = n_rep * T at or below this takes the decode form (kDecodeRows in
+# csrc/ragged_paged_attention.cu)
+DECODE_ROWS = 8
+# the C side's form argument
+_FORMS = {"span": 0, "decode": 1}
 
 COUNTS = LaunchCounts()        # fp32 pools (K1)
 COUNTS_I8 = LaunchCounts()     # int8 pools + scales (K1-q)
@@ -129,17 +140,27 @@ def ragged_paged_attention(q, k_pool, v_pool, block_table, start_pos, q_len,
     if not ragged_attention_ok(d, n_q, n_kv) or d > MAX_HEAD_DIM:
         raise ValueError(f"the CUDA ragged kernel takes head_dim % 8 == 0 "
                          f"and <= {MAX_HEAD_DIM}; got {d}")
+    form = ragged_form(n_q // n_kv, T)
     out = torch.empty_like(q)
     pools = (k_pool.data_ptr(), v_pool.data_ptr(),
              *(t.data_ptr() for t in scales))
     err = getattr(library(), entry)(
         q.data_ptr(), *pools, block_table.data_ptr(), start_pos.data_ptr(),
         q_len.data_ptr(), out.data_ptr(), B, T, n_q, n_kv, d, page_size,
-        block_table.shape[1], scale,
+        block_table.shape[1], _FORMS[form], scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "ragged_paged_attention")
-    counts.kernel_launches += 1
+    counts.count_kernel(form)
     return out
+
+
+def ragged_form(n_rep: int, T: int) -> str:
+    """The kernel form for a launch of G = n_rep * T grouped rows per kv
+    head: "decode" (one block per sequence and kv head, its warps splitting
+    the keys, on the CUDA cores) for G <= DECODE_ROWS, where the page
+    bytes bound the work; "span" (tiles of 32 rows on the tensor cores)
+    above, where the products do."""
+    return "decode" if n_rep * T <= DECODE_ROWS else "span"
 
 
 def ragged_attention_ok(head_dim: int, n_q_heads: int,
@@ -149,14 +170,15 @@ def ragged_attention_ok(head_dim: int, n_q_heads: int,
     return head_dim % 8 == 0 and n_q_heads % max(1, n_kv_heads) == 0
 
 
-def dequantize_pages(pool, pages, scale=None):
-    """Gather pool[pages] ([..., page_size, n_kv, d]) as fp32: int8 codes
-    times their page's per-kv-head scale, fp8 values cast, fp32 as is."""
+def dequantize_pages(pool, pages, scale=None, dtype=torch.float32):
+    """Gather pool[pages] ([..., page_size, n_kv, d]) in ``dtype`` (fp32,
+    or fp64 for the oracle): int8 codes times their page's per-kv-head
+    scale, fp8 values cast, float pools as they are."""
     if pool.dtype == torch.float8_e4m3fn:   # gathered as bytes
-        return pool.view(torch.uint8)[pages].view(pool.dtype).float()
-    out = pool[pages].float()
+        return pool.view(torch.uint8)[pages].view(pool.dtype).to(dtype)
+    out = pool[pages].to(dtype)
     if scale is not None:
-        out = out * scale[pages].unsqueeze(-2).unsqueeze(-1)
+        out = out * scale[pages].to(dtype).unsqueeze(-2).unsqueeze(-1)
     return out
 
 
@@ -164,23 +186,26 @@ def ragged_reference(q, k_pool, v_pool, block_table, start_pos, q_len,
                      scale=None, k_scale=None, v_scale=None):
     """Plain PyTorch version of the kernel: gather every table page (and
     dequantize it), mask, dense softmax. Padded rows and dead slots
-    produce exact zeros."""
+    produce exact zeros. It computes in q's dtype: fp32 for fp32 q, fp64
+    for fp64 q (with fp64 float pools, or 1-byte pools and their scales,
+    which fp64 holds exactly)."""
     B, T, n_q, d = q.shape
     page_size, n_kv = k_pool.shape[1], k_pool.shape[2]
     n_rep = n_q // n_kv
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     idx = block_table.long()
     L = idx.shape[1] * page_size
-    kg = dequantize_pages(k_pool, idx, k_scale).reshape(B, L, n_kv, d)
-    vg = dequantize_pages(v_pool, idx, v_scale).reshape(B, L, n_kv, d)
+    dt = q.dtype
+    kg = dequantize_pages(k_pool, idx, k_scale, dt).reshape(B, L, n_kv, d)
+    vg = dequantize_pages(v_pool, idx, v_scale, dt).reshape(B, L, n_kv, d)
     if n_rep > 1:
         kg = kg.repeat_interleave(n_rep, dim=2)
         vg = vg.repeat_interleave(n_rep, dim=2)
     start = start_pos.long().reshape(-1)
     qlen = q_len.long().reshape(-1)
-    qT = q.transpose(1, 2).float()                 # [B, nq, T, d]
-    kT = kg.transpose(1, 2).float()                # [B, nq, L, d]
-    vT = vg.transpose(1, 2).float()
+    qT = q.transpose(1, 2)                         # [B, nq, T, d]
+    kT = kg.transpose(1, 2)                        # [B, nq, L, d]
+    vT = vg.transpose(1, 2)
     s = torch.einsum("bhtd,bhLd->bhtL", qT, kT) * scale
     t_idx = torch.arange(T, device=q.device)
     q_pos = start[:, None] + t_idx[None, :]        # [B, T]

@@ -121,6 +121,14 @@ def _refuse_sampled(sampling: SamplingParams) -> None:
             + "4 (seeded sampling)")
 
 
+def _refuse_session(sampling: SamplingParams) -> None:
+    if sampling.session_id is not None:
+        raise NotImplementedError(
+            f"session_id={sampling.session_id!r}: session affinity belongs "
+            "to the serving tier (router, replicas), not ported yet: "
+            + _ITEM + "11 (tier)")
+
+
 def sample_token(logits_row: np.ndarray, sampling: SamplingParams) -> int:
     """The next token from one [V] logits row, host-side (greedy)."""
     _refuse_sampled(sampling)
@@ -261,6 +269,7 @@ class ServingEngine:
                     request_id: Optional[str] = None) -> str:
         sampling = sampling or SamplingParams()
         _refuse_sampled(sampling)
+        _refuse_session(sampling)
         self._check_kv_dtype(sampling)
         req = Request(prompt_tokens=list(map(int, prompt_tokens)),
                       sampling=sampling, request_id=request_id or "")
@@ -556,13 +565,17 @@ class ServingEngine:
 
 def naive_generate(runner: PagedModelRunner, prompt_tokens: Sequence[int],
                    sampling: Optional[SamplingParams] = None,
-                   max_model_len: Optional[int] = None) -> List[int]:
+                   max_model_len: Optional[int] = None,
+                   fallback_seed: int = 0) -> List[int]:
     """Sequential single-request generation — the scheduling oracle.
 
     Same runner, same page layout (a private identity-mapped pool), no
     scheduler, no batching, no preemption. ServingEngine must match this
-    token-for-token for every request."""
+    token-for-token for every request. ``fallback_seed`` (the stream of a
+    sampled request without a seed) is read only on a sampled path, which
+    raises until seeded sampling is ported."""
     sampling = sampling or SamplingParams()
+    _refuse_sampled(sampling)
     max_model_len = max_model_len or runner.max_model_len
     max_pages = -(-max_model_len // runner.block_size)
     pool = KVCachePool(runner.num_layers, max_pages + 1, runner.block_size,

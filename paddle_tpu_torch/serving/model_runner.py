@@ -135,6 +135,16 @@ def check_weight_dtype(weight_dtype: str) -> None:
             "port' item 8 (quantized serving)")
 
 
+def check_weight_group_size(weight_group_size: int) -> None:
+    """The JAX runners' default of 128 rows per weight scale is accepted;
+    another value only matters to the weight ladder, which raises."""
+    if weight_group_size != 128:
+        raise NotImplementedError(
+            f"weight_group_size={weight_group_size!r}: grouped weight "
+            "scales belong to the weight ladder (int4, int8, fp8), "
+            "ROADMAP.md 'Still to port' item 8 (quantized serving)")
+
+
 class PagedModelRunner:
     """Shared runner chassis: write-index math, dispatch, byte counters.
 
@@ -153,12 +163,15 @@ class PagedModelRunner:
 
     def __init__(self, params: Dict[str, torch.Tensor], block_size: int,
                  max_model_len: int, attn_impl: str = "auto",
-                 kv_dtype: str = "fp32", weight_dtype: str = "fp32"):
+                 kv_dtype: str = "fp32", weight_dtype: str = "fp32",
+                 weight_group_size: int = 128):
         if attn_impl not in self.ATTN_IMPLS:
             raise ValueError(f"attn_impl={attn_impl!r}; expected one of "
                              f"{self.ATTN_IMPLS}")
         check_kv_dtype(kv_dtype, type(self).__name__)
         check_weight_dtype(weight_dtype)
+        check_weight_group_size(weight_group_size)
+        self.weight_group_size = weight_group_size
         self.params = params
         self.block_size = block_size
         self.max_model_len = max_model_len
@@ -319,19 +332,20 @@ class LlamaRunner(PagedModelRunner):
     """Paged-step adapter for models.Llama (RMSNorm + RoPE + GQA +
     SwiGLU). The runner serves the model's own parameters (moved to
     ``device`` when they live elsewhere). The model's `x @ w` products are
-    plain torch.matmul in full fp32."""
+    plain torch.matmul in full fp32. The positional parameters are the JAX
+    runner's; ``device`` is keyword-only after them."""
 
     def __init__(self, model: Llama, block_size: int = 16,
                  max_model_len: int | None = None, attn_impl: str = "auto",
-                 device=None, kv_dtype: str = "fp32",
-                 weight_dtype: str = "fp32"):
+                 kv_dtype: str = "fp32", weight_dtype: str = "fp32",
+                 weight_group_size: int = 128, *, device=None):
         cfg = model.cfg
         dev = resolve_device(device) if device is not None else None
         params = {k: (v.detach().to(dev) if dev is not None else v.detach())
                   for k, v in model.named_parameters()}
         super().__init__(params, block_size,
                          max_model_len or cfg.max_seq_len, attn_impl,
-                         kv_dtype, weight_dtype)
+                         kv_dtype, weight_dtype, weight_group_size)
         self.cfg = cfg
         self.num_layers = cfg.num_layers
         self.n_heads = cfg.num_heads
@@ -387,11 +401,13 @@ class LlamaRunner(PagedModelRunner):
 
 def runner_for(model, block_size: int = 16, max_model_len: int | None = None,
                attn_impl: str = "auto", kv_dtype: str = "fp32",
-               weight_dtype: str = "fp32", device=None) -> PagedModelRunner:
+               weight_dtype: str = "fp32", weight_group_size: int = 128, *,
+               device=None) -> PagedModelRunner:
     """Pick the runner for a supported model (Llama only so far)."""
     if isinstance(model, Llama):
         return LlamaRunner(model, block_size, max_model_len, attn_impl,
-                           device, kv_dtype, weight_dtype)
+                           kv_dtype, weight_dtype, weight_group_size,
+                           device=device)
     raise TypeError(
         f"no serving runner for {type(model).__name__}: the port serves "
         "paddle_tpu_torch.models.Llama; the GPT runner is ROADMAP.md "

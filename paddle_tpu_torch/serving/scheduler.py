@@ -45,6 +45,9 @@ class SamplingParams:
     # must name the engine's kv_dtype (the engine checks at intake; the
     # "mixed" pool that serves several is ROADMAP.md item 8)
     kv_dtype: Optional[str] = None
+    # session affinity across the replicas of a tier; the engine refuses
+    # any value but None (the tier is ROADMAP.md 'Still to port' item 11)
+    session_id: Optional[str] = None
 
     def __post_init__(self):
         if self.max_tokens < 1:

@@ -13,7 +13,10 @@ with rows past q_len and dead slots exactly 0 (the ragged kernel over fp32
 pools, K1, and over int8 and float8_e4m3fn pools, K1-q); a small engine
 on the card must equal its own naive_generate token for token, through
 the kernels (an int8 or fp8 engine through K1-q alone).
-The flash kernels (K3a, K3b-dq, K3b-dkv) hold o and lse within 1e-4 and
+The ragged kernel's two forms (the span form on the tensor cores, the
+decode form for G = n_rep * T <= 8) are held, over the three pool types,
+against its plain version evaluated in fp64. The flash kernels (K3a,
+K3b-dq, K3b-dkv) hold o and lse within 1e-4 and
 each gradient within 1e-4 * max|plain gradient|, dense and in every
 masked form (K3-m: per-key bias, a dense mask shared or per head, a bool
 mask with rows that see nothing, segment ids, a block mask), with fully
@@ -22,7 +25,11 @@ through them must match the same models trained on the dense path. At
 the Llama trainer's and the ERNIE shapes, the backward kernels' dq, dk
 and dv against the plain versions evaluated in fp64 must stay within
 twice the fp32 plain versions' own error (fp32-class products on the
-tensor cores).
+tensor cores); the forward's o and lse, and the ragged kernel's output,
+are held so in every form the plain-version tests cover, with a floor of
+FP64_FLOOR * max|exact| under the fp32 error: where the fp32 plain
+version is exact (one key: o = v) the kernel's split products still
+round at 2^-22.
 """
 
 import numpy as np
@@ -47,6 +54,18 @@ from paddle_tpu_torch.utils.flags import flag, set_flags
 pytestmark = pytest.mark.cuda
 
 TOL = 1e-4
+# the least error against fp64 a gate asks of a kernel, relative to the
+# largest exact value: a few fp32 ulp, the 3xTF32 split's own rounding
+FP64_FLOOR = 2.0 ** -21
+
+
+def _fp32_class(kern, plain, exact, what):
+    """The kernel's error against the fp64 evaluation within twice the
+    fp32 plain version's own (with the FP64_FLOOR floor)."""
+    e_kernel = (kern.double() - exact).abs().max().item()
+    e_plain = (plain.double() - exact).abs().max().item()
+    floor = FP64_FLOOR * exact.abs().max().item()
+    assert e_kernel <= 2 * max(e_plain, floor), (what, e_kernel, e_plain)
 
 
 @pytest.fixture
@@ -145,6 +164,53 @@ def test_quantized_ragged_kernel_matches_plain(gen, kind, d, n_rep, ps):
         assert bool((out[b, n:] == 0).all()), f"sequence {b}: rows >= {n}"
 
 
+def _as_fp64(kind, kp, vp):
+    """The pools as the fp64 evaluation reads them: fp32 pools widened,
+    1-byte codes as they are (their scales widen inside the plain
+    version)."""
+    return (kp.double(), vp.double()) if kind == "fp32" else (kp, vp)
+
+
+@pytest.mark.parametrize("kind", ["fp32", "int8", "fp8"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+def test_ragged_kernel_forms_are_fp32_class_against_fp64(gen, kind, d, ps,
+                                                         n_rep):
+    """Both forms of K1 / K1-q: spans with G = n_rep * T at the decode
+    threshold (decode form), one row above it and at a longer span (span
+    form), four sequences with a dead slot and rows past q_len (exact
+    zeros), against the plain version in fp64 and in fp32."""
+    counts = {"fp32": k1.COUNTS, "int8": k1.COUNTS_I8,
+              "fp8": k1.COUNTS_F8}[kind]
+    T_dec = k1.DECODE_ROWS // n_rep
+    for T, form in ((T_dec, "decode"), (T_dec + 1, "span"), (37, "span")):
+        assert k1.ragged_form(n_rep, T) == form
+        starts, qlens = [0, 5, 70, 3], [T, 1, max(1, T - 2), 0]
+        pages = (T + max(starts)) // ps + 2
+        q, kp, vp, table = _operands(gen, 4, T, 2, n_rep, d, ps, pages)
+        table[3] = 0                               # dead slot: all scratch
+        k, v, ks, vs = ((kp, vp, None, None) if kind == "fp32"
+                        else _quantize(gen, kp, vp, kind))
+        st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+        ql = torch.tensor(qlens, dtype=torch.int32, device="cuda")
+        counts.reset()
+        out = k1.ragged_paged_attention(q, k, v, table, st, ql, k_scale=ks,
+                                        v_scale=vs)
+        assert counts.form_launches == {form: 1}
+        assert counts.plain_launches == 0
+        plain = k1.ragged_reference(q, k, v, table, st, ql, k_scale=ks,
+                                    v_scale=vs)
+        exact = k1.ragged_reference(q.double(), *_as_fp64(kind, k, v),
+                                    table, st, ql, k_scale=ks, v_scale=vs)
+        assert exact.dtype == torch.float64
+        assert torch.isfinite(out).all()
+        assert (out - plain).abs().max().item() <= TOL, (T, form)
+        _fp32_class(out, plain, exact, (T, form))
+        for b, n in enumerate(qlens):
+            assert bool((out[b, n:] == 0).all()), f"sequence {b}: rows >= {n}"
+
+
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
 @pytest.mark.parametrize("n_kv", [4, 2], ids=["mha", "gqa"])
 def test_quantized_engine_on_the_card_runs_the_k1q_kernel(gen, kv_dtype,
@@ -170,6 +236,10 @@ def test_quantized_engine_on_the_card_runs_the_k1q_kernel(gen, kv_dtype,
     m = eng.metrics
     calls = m.prefill_chunks.value + m.batch_occupancy.count
     assert counts.kernel_launches == cfg.num_layers * calls
+    # decode steps (G = n_rep <= 8) take the decode form, chunks the span
+    # form
+    assert counts.form_launches.get("span", 0) > 0
+    assert counts.form_launches.get("decode", 0) > 0
     assert sum(c.plain_launches for c in every) == 0
     assert k1.COUNTS.kernel_launches == k2.COUNTS.kernel_launches == 0
     assert eng.pool.allocator.check_no_leaks()
@@ -278,6 +348,56 @@ def test_backward_kernels_are_fp32_class_against_fp64(gen, shape):
         e_kernel = (g.double() - r).abs().max().item()
         e_plain = (p.double() - r).abs().max().item()
         assert e_kernel <= 2 * e_plain, (name, e_kernel, e_plain)
+
+
+def _forward_vs_fp64(q, k, v, causal, o, lse, what, **ops):
+    """The forward's o and lse against the plain version in fp64 (lse on
+    the rows that see a key: a hard-masked row's -1e30 is no number to
+    hold), within twice the fp32 plain version's error."""
+    ro, rlse = fa.flash_forward_reference(q, k, v, causal, **ops)
+    o64, lse64 = fa.flash_forward_reference(q.double(), k.double(),
+                                            v.double(), causal, **ops)
+    assert o64.dtype == lse64.dtype == torch.float64
+    _fp32_class(o, ro, o64, ("o",) + what)
+    seen = lse64 > fa.MASKED_BELOW
+    if seen.any():
+        _fp32_class(lse[seen], rlse[seen], lse64[seen], ("lse",) + what)
+
+
+@pytest.mark.parametrize("d", [8, 16, 64, 120, 128, 136, 256])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("sq,sk", [(1, 1), (63, 63), (100, 100), (257, 257),
+                                   (4096, 4096), (65, 200), (200, 65)])
+def test_forward_kernel_is_fp32_class_against_fp64(gen, d, causal, sq, sk):
+    """K3a (3xTF32 products, Q split once) in test_flash_kernels_match_
+    plain's forms against the plain version in fp64."""
+    q = torch.randn(2, sq, 3, d, device="cuda", generator=gen)
+    k, v = (torch.randn(2, sk, 3, d, device="cuda", generator=gen)
+            for _ in range(2))
+    o, lse = fa.flash_forward(q, k, v, causal)
+    _forward_vs_fp64(q, k, v, causal, o, lse, (d, causal, sq, sk))
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("sq,sk", [(63, 63), (200, 200), (257, 257),
+                                   (4096, 4096), (65, 200), (200, 65)])
+@pytest.mark.parametrize("form", ["kbias_soft", "kbias_hard", "mask_mh1",
+                                  "mask_mhh", "bool_dead_rows", "segments"])
+def test_masked_forward_kernel_is_fp32_class_against_fp64(gen, form, d,
+                                                          causal, sq, sk):
+    """K3a-m in test_masked_flash_kernels_match_plain's forms against the
+    plain version in fp64."""
+    q = torch.randn(2, sq, 3, d, device="cuda", generator=gen)
+    k, v = (torch.randn(2, sk, 3, d, device="cuda", generator=gen)
+            for _ in range(2))
+    ops = _masked_operands(gen, form, 2, sq, sk, 3)
+    for counts in fa.COUNTS_MASKED.values():
+        counts.reset()
+    o, lse = fa.flash_forward(q, k, v, causal, **ops)
+    assert fa.COUNTS_MASKED["flash_forward"].kernel_launches == 1
+    _forward_vs_fp64(q, k, v, causal, o, lse, (form, d, causal, sq, sk),
+                     **ops)
 
 
 def test_flash_kernels_refuse_what_they_cannot_take(gen):

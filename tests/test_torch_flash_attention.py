@@ -322,6 +322,21 @@ def test_tf32_split_rounds_to_nearest_with_ties_away_from_zero():
                               -2 ** -11, 2 ** -12 + 2 ** -22]
 
 
+def test_one_byte_pool_values_are_exact_in_tf32():
+    """The ragged span form multiplies 1-byte pools' values unsplit (two
+    products a k-step, not three): every int8 code and every finite e4m3
+    value is its own big half under the 3xTF32 split, with a zero small
+    half."""
+    codes = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8).float()
+    e4m3 = torch.arange(256, dtype=torch.int32).to(torch.uint8).view(
+        torch.float8_e4m3fn).float()
+    e4m3 = e4m3[torch.isfinite(e4m3)]
+    assert e4m3.numel() == 254                  # all but the two NaNs
+    for x in (codes, e4m3):
+        big, small = fa.tf32_split(x)
+        assert torch.equal(big, x) and (small == 0).all()
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("d", [64, 128])
 def test_three_products_of_split_tiles_are_fp32_class(d, seed):
@@ -414,18 +429,37 @@ def test_smoke_names_kernels_from_their_mangled_entries(name, maxd):
         f"{name}<{maxd}>"
 
 
+_RAGGED_HASH = ("_ZN58_GLOBAL__N__f6e2226a_25_ragged_paged_attention_cu_"
+                "769a5bd4")
+
+
+def _span_entry(maxd, kv):
+    name = "ragged_span_kernel"
+    return f"{_RAGGED_HASH}{len(name)}{name}ILi{maxd}ELi{kv}EEEvNS_6RaggedE"
+
+
+@pytest.mark.parametrize("maxd", [128, 256])
+@pytest.mark.parametrize("kv", [0, 1, 2])
+def test_smoke_names_the_ragged_span_instantiations(maxd, kv):
+    assert _chip_smoke()._kernel_label(_span_entry(maxd, kv)) == \
+        f"ragged_span_kernel<{maxd},{kv}>"
+
+
 @pytest.mark.parametrize("hmma_in_all", [True, False])
 def test_smoke_build_report_requires_tensor_core_products(monkeypatch,
                                                           hmma_in_all):
-    """The build report passes when the SASS of every backward
-    instantiation holds HMMA, and fails the smoke when one holds none."""
+    """The build report passes when the SASS of every instantiation of the
+    tensor-core kernels (the three flash kernels, the ragged span form)
+    holds HMMA, and fails the smoke when one holds none."""
     import subprocess
     from types import SimpleNamespace
 
     cs = _chip_smoke()
-    entries = [_entry(n, d) for n in ("flash_bwd_dq_kernel",
+    entries = [_entry(n, d) for n in ("flash_fwd_kernel",
+                                      "flash_bwd_dq_kernel",
                                       "flash_bwd_dkv_kernel")
                for d in (64, 128, 256)]
+    entries += [_span_entry(d, kv) for d in (128, 256) for kv in range(3)]
     log = "\n".join(f"ptxas info    : Compiling entry function '{e}' for "
                     f"'sm_90a'\nptxas info    : Used 200 registers" for e in
                     entries)
@@ -439,6 +473,13 @@ def test_smoke_build_report_requires_tensor_core_products(monkeypatch,
     build = SimpleNamespace(log=log, path=Path("libkernels.so"))
     if hmma_in_all:
         cs.build_report(build)
+        # an instantiation missing from the build fails it as well
+        cut = sass.split("\tFunction : ")
+        monkeypatch.setattr(cs.subprocess, "run", lambda *a, **k:
+                            subprocess.CompletedProcess(
+                                a, 0, stdout="\tFunction : ".join(cut[:-1])))
+        with pytest.raises(AssertionError, match="missing"):
+            cs.build_report(build)
     else:
         with pytest.raises(AssertionError, match="tensor-core"):
             cs.build_report(build)

@@ -8,6 +8,9 @@ kernel wrapper takes, and what it refuses.
     `kernel_launches` never does;
   * every engine knob the port does not carry raises NotImplementedError
     naming its ROADMAP item;
+  * the serving entry points take the JAX package's positional and
+    keyword arguments (runner, runner_for, create_serving_engine,
+    SamplingParams, naive_generate), `device` only by keyword;
   * chip_smoke.py fails, and prints no result, without a card or outside
     a checkout.
 """
@@ -23,9 +26,16 @@ import numpy as np
 import pytest
 import torch
 
+import paddle_tpu as paddle
 import paddle_tpu_torch
 import paddle_tpu_torch.ops.paged_attention as k2
 import paddle_tpu_torch.ops.ragged_paged_attention as k1
+from paddle_tpu.inference import create_serving_engine as \
+    jax_create_serving_engine
+from paddle_tpu.models.llama import Llama as JaxLlama
+from paddle_tpu.models.llama import LlamaConfig as JaxLlamaConfig
+from paddle_tpu.serving import LlamaRunner as JaxLlamaRunner
+from paddle_tpu.serving import runner_for as jax_runner_for
 from paddle_tpu_torch.inference import create_serving_engine
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import (
@@ -36,10 +46,12 @@ from paddle_tpu_torch.models import (
 from paddle_tpu_torch.models.llama import rope_tables
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.optimizer import AdamW
-from paddle_tpu_torch.serving import SamplingParams, create_engine
+from paddle_tpu_torch.serving import (
+    SamplingParams, create_engine, naive_generate,
+)
 from paddle_tpu_torch.serving.engine import UNPORTED_KNOBS
 from paddle_tpu_torch.serving.kv_cache import KVCachePool
-from paddle_tpu_torch.serving.model_runner import LlamaRunner
+from paddle_tpu_torch.serving.model_runner import LlamaRunner, runner_for
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(Path(paddle_tpu_torch.__file__).parent.rglob("*.py")) \
@@ -239,6 +251,84 @@ def test_sampled_decoding_raises(model):
 def test_unknown_knob_is_a_type_error(model):
     with pytest.raises(TypeError, match="no_such_knob"):
         _engine(model, no_such_knob=1)
+
+
+# ------------------------------------------- the JAX entry signatures
+
+# block_size, max_model_len, attn_impl and kv_dtype by position (the fifth
+# positional is kv_dtype in both packages), the rest by keyword
+RUNNER_ARGS = (8, 32, "auto", "int8")
+RUNNER_KW = dict(weight_dtype="fp32", weight_group_size=128)
+
+
+@pytest.fixture(scope="module")
+def jax_model():
+    paddle.seed(0)
+    jm = JaxLlama(JaxLlamaConfig(dropout=0.0, **SIZES))
+    jm.eval()
+    return jm
+
+
+def _positional_names(fn):
+    return [p.name for p in inspect.signature(fn).parameters.values()
+            if p.kind is inspect.Parameter.POSITIONAL_OR_KEYWORD]
+
+
+def _runner_fields(runner):
+    return (runner.block_size, runner.max_model_len, runner.attn_impl,
+            runner.kv_dtype, runner.weight_group_size)
+
+
+@pytest.mark.parametrize("entry", ["LlamaRunner", "runner_for"])
+def test_runner_entry_points_take_the_jax_arguments(model, jax_model,
+                                                    entry):
+    jax_fn, port_fn = {"LlamaRunner": (JaxLlamaRunner, LlamaRunner),
+                       "runner_for": (jax_runner_for, runner_for)}[entry]
+    assert _positional_names(port_fn) == _positional_names(jax_fn)
+    assert inspect.signature(port_fn).parameters["device"].kind \
+        is inspect.Parameter.KEYWORD_ONLY
+    jr = jax_fn(jax_model, *RUNNER_ARGS, **RUNNER_KW)
+    pr = port_fn(model, *RUNNER_ARGS, **RUNNER_KW)
+    assert _runner_fields(pr) == _runner_fields(jr) \
+        == (8, 32, "auto", "int8", 128)
+    assert type(pr).__name__ == type(jr).__name__ == "LlamaRunner"
+
+
+def test_create_serving_engine_takes_the_jax_arguments(model, jax_model):
+    kw = dict(block_size=8, max_model_len=32, kv_dtype="int8",
+              weight_group_size=128, num_blocks=8)
+    jeng = jax_create_serving_engine(jax_model, **kw)
+    peng = create_serving_engine(model, device="cpu", **kw)
+    assert _runner_fields(peng.runner) == _runner_fields(jeng.runner)
+    assert peng.pool.kv_dtype == jeng.pool.kv_dtype == "int8"
+
+
+@pytest.mark.parametrize("entry", ["LlamaRunner", "runner_for",
+                                   "create_serving_engine"])
+def test_other_weight_group_sizes_raise_naming_item_8(model, entry):
+    build = {"LlamaRunner": LlamaRunner, "runner_for": runner_for,
+             "create_serving_engine": _engine}[entry]
+    with pytest.raises(NotImplementedError, match="item 8"):
+        build(model, weight_group_size=64)
+
+
+def test_session_id_raises_naming_item_11(model):
+    eng = _engine(model)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        eng.add_request([1, 2], SamplingParams(session_id="s"))
+    rid = eng.add_request([1, 2], SamplingParams(max_tokens=3,
+                                                 session_id=None))
+    assert len(eng.run()[rid].output_tokens) == 3
+
+
+def test_naive_generate_fallback_seed_is_read_on_sampled_paths_only(model):
+    runner = LlamaRunner(model, 8, 32)
+    greedy = SamplingParams(max_tokens=3)
+    assert naive_generate(runner, [1, 2], greedy, fallback_seed=1) \
+        == naive_generate(runner, [1, 2], greedy)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        naive_generate(runner, [1, 2], SamplingParams(temperature=0.8),
+                       fallback_seed=1)
 
 
 # ---------------------------------------------------------- chip_smoke

@@ -168,3 +168,65 @@ def test_wrapper_rejects_bad_shapes():
     with pytest.raises(ValueError, match="q_len"):
         k1.ragged_paged_attention(t(q), t(kp), t(vp), t(tbl), starts,
                                   starts[:1])
+
+
+@pytest.mark.parametrize("kind", ["fp32", "int8", "fp8"])
+def test_plain_version_computes_in_fp64_for_fp64_operands(kind):
+    """ragged_reference computes in q's dtype: an fp64 q (with fp64 float
+    pools, or 1-byte pools and their fp32 scales, which fp64 holds
+    exactly) gives the fp64 oracle the card's accuracy gate holds the
+    kernel to; an fp32 q stays fp32 and still matches the JAX reference."""
+    rng = np.random.default_rng(21)
+    q, kp, vp, tbl = _inputs(seed=21, n_rep=2)
+    starts, qlens = [3, 17, 0], [8, 2, 0]
+    t = torch.from_numpy
+    ks = vs = None
+    if kind == "fp32":
+        k, v = t(kp), t(vp)
+        k64, v64 = k.double(), v.double()
+    elif kind == "int8":
+        k, v = (t(rng.integers(-127, 128, kp.shape).astype(np.int8))
+                for _ in range(2))
+        ks, vs = (t(rng.uniform(1e-3, 5e-2, (kp.shape[0], kp.shape[2]))
+                    .astype(np.float32)) for _ in range(2))
+        k64, v64 = k, v
+    else:
+        k, v = t(kp).to(torch.float8_e4m3fn), t(vp).to(torch.float8_e4m3fn)
+        k64, v64 = k, v
+    args = (t(tbl), torch.tensor(starts, dtype=torch.int32),
+            torch.tensor(qlens, dtype=torch.int32))
+    out = k1.ragged_reference(t(q), k, v, *args, k_scale=ks, v_scale=vs)
+    out64 = k1.ragged_reference(t(q).double(), k64, v64, *args, k_scale=ks,
+                                v_scale=vs)
+    assert out.dtype == torch.float32 and out64.dtype == torch.float64
+    np.testing.assert_allclose(out.numpy(), out64.numpy(), rtol=RTOL,
+                               atol=ATOL)
+    assert not torch.equal(out.double(), out64)
+    _assert_dead_rows_zero(out64.numpy(), qlens)
+    if kind == "fp32":
+        np.testing.assert_allclose(
+            out.numpy(), _jax(q, kp, vp, tbl, starts, qlens,
+                              interpret=False), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("n_rep,T,form", [
+    (1, 1, "decode"), (1, 8, "decode"), (1, 9, "span"), (2, 4, "decode"),
+    (4, 2, "decode"), (4, 3, "span"), (8, 1, "decode"), (8, 2, "span"),
+    (16, 1, "span"), (1, 256, "span"), (4, 64, "span"),
+])
+def test_form_choice(n_rep, T, form):
+    """The kernel form follows the grouped rows G = n_rep * T: the decode
+    form (key-parallel, CUDA cores) up to DECODE_ROWS = 8, the span form
+    (tensor cores) above. The engine's MHA decode step (G = 1) and GQA
+    decode up to n_rep 8 take the decode form, its 256-token chunk the
+    span form."""
+    assert k1.DECODE_ROWS == 8
+    assert k1.ragged_form(n_rep, T) == form
+
+
+def test_cpu_launches_count_no_kernel_form():
+    q, kp, vp, tbl = _inputs(seed=4)
+    k1.COUNTS.reset()
+    _port(q, kp, vp, tbl, [0, 3, 5], [1, 1, 0])
+    assert (k1.COUNTS.plain_launches, k1.COUNTS.kernel_launches,
+            k1.COUNTS.form_launches) == (1, 0, {})
