@@ -25,9 +25,11 @@ exits non-zero without printing a result:
               float8_e4m3fn pools (K1-q) on the same codes and scales at
               LLaMA-2-7B heads (8 decode rows, T = 1, and a 256-row chunk
               at start_pos 256) and at the GQA layout; the paged-decode
-              kernel (K2) at b=8, h=32, d=128 with pos on and off page
-              boundaries; then each at the shapes the engine gives it
-              (phase 8). Tolerance: max |kernel - plain| <= 1e-4 in fp32
+              kernel (K2) at b=12, h=32, d=128 over a 4096-key table
+              with pos on and off page and split boundaries, up to 4095
+              and past the table, and a dead slot, then each of its
+              sequences alone (bit for bit its batch output); then each
+              at the shapes the engine gives it (phase 8). Tolerance: max |kernel - plain| <= 1e-4 in fp32
               (the two sum in different orders); padded and dead rows must
               be exactly 0. Times are medians of CUDA-event timings. The
               sweep over every head dim the gates admit, GQA group and page
@@ -37,7 +39,8 @@ exits non-zero without printing a result:
               inference.create_serving_engine: 8 requests with seeded
               prompt lengths 100-600 and max_tokens=32 under a 256-token
               prefill budget. Both kernels must have launched on this run
-              and neither plain version; two requests must match
+              (K2 once a layer on every decode call) and neither plain
+              version; two requests must match
               naive_generate token for token (the first divergence, if
               any, is printed and fails the run).
   5. profile  where a serving step's time goes: torch.profiler over steps
@@ -76,8 +79,8 @@ exits non-zero without printing a result:
               256-token chunk at start_pos 256 (span form) and at the
               decode step of 8 sequences (decode form; over fp32 pools at
               GQA n_rep 4, the timed row, and MHA), K2 at that decode
-              step. K1 and K1-q are first held against the plain version
-              in fp64 at each of these shapes: the kernel's max error
+              step. K1, K1-q and K2 are first held against the plain
+              version in fp64 at each of these shapes: the kernel's max error
               within twice the fp32 plain version's own; the mean signed
               error of both is printed. Then the engine is freed: under
               1 GiB may stay allocated before the trainer is built.
@@ -320,23 +323,38 @@ def check_ragged(n_q, n_kv, gen, label, kind="fp32", spans=SPANS_MIXED):
 
 
 def check_paged(gen):
-    """K2 against paged_decode_reference, pos on and off page boundaries."""
+    """K2 against paged_decode_reference over the engine's 4096-key table:
+    pos on and off page and split boundaries, walks of one split and of
+    many (up to the table's last key, 4095), pos past the table (capped)
+    and a dead slot (all-scratch table, pos 0). Then batch invariance: each
+    sequence alone must give its batch output bit for bit."""
     from paddle_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_reference,
+        KEYS_PER_SPLIT, paged_decode_attention, paged_decode_reference,
     )
-    b, h, d, ps, P = 8, 32, 128, 16, 40
-    pos = [0, 15, 16, 17, 31, 100, 255, 600]
+    b, h, d, ps, P = 12, 32, 128, 16, 256
+    pos = [0, 15, 16, 17, KEYS_PER_SPLIT - 1, KEYS_PER_SPLIT, 600, 1000,
+           2049, 4095, 5000, 0]
     k_pool, v_pool = _pools(b * P + 1, ps, h, d, gen)
     table = _tables(b, P, b * P + 1, gen)
+    table[-1] = 0                                 # dead slot: all scratch
     q = torch.randn(b, h, d, device=gen.device, generator=gen)
     p = torch.tensor(pos, dtype=torch.int32, device=gen.device)
     out = paged_decode_attention(q, k_pool, v_pool, table, p)
     ref = paged_decode_reference(q, k_pool, v_pool, table, p)
     err = (out - ref).abs().max().item()
-    log(f"kernel K2 paged_decode (b={b}, h={h}, d={d}, ps={ps}, pos={pos}): "
+    log(f"kernel K2 paged_decode (b={b}, h={h}, d={d}, ps={ps}, P={P}, "
+        f"{KEYS_PER_SPLIT} keys a split, pos={pos}, the last a dead slot): "
         f"max_abs_err={err:.3e}")
-    if not err <= TOL:
+    if not (err <= TOL and bool(torch.isfinite(out).all())):
         raise AssertionError(f"K2: max_abs_err {err} > {TOL}")
+    differ = [i for i in range(b) if not torch.equal(
+        paged_decode_attention(q[i:i + 1], k_pool, v_pool, table[i:i + 1],
+                               p[i:i + 1])[0], out[i])]
+    log(f"kernel K2 batch invariance: each of the {b} sequences alone "
+        f"equals its batch output bit for bit: {not differ}")
+    if differ:
+        raise AssertionError(f"K2: sequences {differ} differ alone from "
+                             "their batch output")
     return err
 
 
@@ -439,7 +457,9 @@ def measure_ragged(gen, n_heads, num_blocks, P, kind="fp32",
 
 
 def measure_paged(gen, n_heads, num_blocks, P, positions):
-    """K2 at the engine's decode shape: 8 sequences at ``positions``."""
+    """K2 at the engine's decode shape: 8 sequences at ``positions``. Held
+    against the plain version in fp32 (1e-4) and in fp64 (within twice the
+    fp32 plain version's error), then timed."""
     from paddle_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_reference,
     )
@@ -454,6 +474,17 @@ def measure_paged(gen, n_heads, num_blocks, P, positions):
     err = (out - ref).abs().max().item()
     if not err <= TOL:
         raise AssertionError(f"K2 engine shape: max_abs_err {err} > {TOL}")
+    exact = paged_decode_reference(q.double(), k_pool.double(),
+                                   v_pool.double(), table, pos)
+    ratio = fp64_ratio(out, ref, exact)
+    bias = (signed_error(out, exact), signed_error(ref, exact))
+    del exact
+    log(f"K2 vs fp64 at q[{b},{n_heads},{d}]: kernel error {ratio:.2f}x the "
+        f"fp32 plain version's; mean signed error kernel {bias[0]:+.2e}, "
+        f"plain {bias[1]:+.2e}")
+    if not ratio <= 2.0:
+        raise AssertionError(f"K2: error against fp64 {ratio:.2f}x the fp32 "
+                             "plain version's, above 2x")
     ms = median_ms(lambda: paged_decode_attention(q, k_pool, v_pool, table,
                                                   pos))
     plain = median_ms(lambda: paged_decode_reference(q, k_pool, v_pool,
@@ -477,7 +508,7 @@ def measure_paged(gen, n_heads, num_blocks, P, positions):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=lib,
+                library_ms=lib, fp64_ratio=ratio,
                 shape=f"q[{b},{n_heads},{d}] pos={positions} "
                       f"pool[{num_blocks},{ps},{n_heads},{d}] table[{b},{P}]")
 
@@ -574,6 +605,12 @@ def engine_phase(model, cfg, kv_dtype="fp32", seed=0, n_requests=8,
         path = ("ragged_paged_attention", "paged_decode_attention")
         if min(kernel[n] for n in path) == 0:
             raise AssertionError(f"main path missed a kernel: {kernel}")
+        # MHA decode: K2 once a layer on every decode call
+        calls = m.batch_occupancy.count
+        if kernel[path[1]] != cfg.num_layers * calls:
+            raise AssertionError(
+                f"{path[1]} launched {kernel[path[1]]} times, not "
+                f"{cfg.num_layers} layers x {calls} decode calls")
     else:
         # K1-q on every prefill chunk and every decode call, once a layer
         path = (f"ragged_paged_attention_{kv_dtype}",)
@@ -1766,6 +1803,9 @@ def build_report(build) -> None:
     span form) holds tensor-core instructions in every instantiation
     (HMMA: mma.sync, HGMMA: wgmma), from cuobjdump -sass of the built
     library; one without them fails the run."""
+    if not build.log:
+        log("  ptxas: the library was built by an earlier process (its "
+            "register report is in that build's log)")
     name = None
     for ln in build.log.splitlines():
         if "Compiling entry function" in ln:

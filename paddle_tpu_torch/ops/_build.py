@@ -42,7 +42,9 @@ SIGNATURES = {
     "ragged_paged_attention_f32": [_P] * 7 + [_I] * 8 + [_F, _P],
     "ragged_paged_attention_i8": [_P] * 9 + [_I] * 8 + [_F, _P],
     "ragged_paged_attention_f8": [_P] * 7 + [_I] * 8 + [_F, _P],
-    "paged_decode_attention_f32": [_P] * 6 + [_I] * 5 + [_F, _P],
+    # the paged-decode kernel: its tensors, the workspace and the tickets,
+    # then b, h, d, page_size, pages_per_seq, keys_per_split, n_splits
+    "paged_decode_attention_f32": [_P] * 8 + [_I] * 7 + [_F, _P],
     # the flash kernels: their tensors, the five masking operands (mask,
     # kbias, qseg, kseg, block_mask; null = absent), then B, H, Sq, Sk, d,
     # the mask's heads and the block mask's block lengths

@@ -7,8 +7,12 @@ int32, keys at positions <= pos visible (the current token's K/V is written
 before the call). Returns [b, h, d].
 
 `paged_decode_attention` launches csrc/paged_decode_attention.cu on a CUDA
-tensor and runs `paged_decode_reference` on a CPU tensor. `best_paged_impl`
-is the serving runner's single dispatch gate, copied from the JAX package.
+tensor and runs `paged_decode_reference` on a CPU tensor. The kernel cuts
+each sequence's visible keys into splits of KEYS_PER_SPLIT keys, scores
+the splits in parallel and merges them in split order;
+`paged_decode_split_reference` is the plain twin of that algebra, for the
+tests. `best_paged_impl` is the serving runner's single dispatch gate,
+copied from the JAX package.
 """
 
 from __future__ import annotations
@@ -25,6 +29,31 @@ from paddle_tpu_torch.ops.ragged_paged_attention import (
 )
 
 COUNTS = LaunchCounts()
+
+# keys of one split of a sequence's page walk (a multiple of SPLIT_TILE, the
+# four warps' tiles of the kernel). A constant: a sequence's splits, and so
+# its output bit for bit, never depend on the rest of the batch.
+KEYS_PER_SPLIT = 256
+SPLIT_TILE = 16
+
+# (device index, stream) -> int32 tickets of the kernel's last-split merge,
+# zero between calls (the kernel resets each one it uses)
+_TICKETS = {}
+
+
+def _tickets(device, stream, n):
+    key = (device.index, stream.cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                        device=device)
+    return t
+
+
+def n_splits(pages_per_seq: int, page_size: int,
+             keys_per_split: int = KEYS_PER_SPLIT) -> int:
+    """Splits of the longest walk a [b, pages_per_seq] table allows."""
+    return max(1, -(-pages_per_seq * page_size // keys_per_split))
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_table, pos, scale=None):
@@ -59,12 +88,18 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos, scale=None):
     if not paged_decode_ok(d) or d > MAX_HEAD_DIM:
         raise ValueError(f"the CUDA paged-decode kernel takes head_dim % 8 "
                          f"== 0 and <= {MAX_HEAD_DIM}; got {d}")
+    ps, P, ks = k_pool.shape[1], block_table.shape[1], KEYS_PER_SPLIT
+    S = n_splits(P, ps, ks)
+    stream = torch.cuda.current_stream(q.device)
     out = torch.empty_like(q)
+    # each split's (acc [d], m, l), read only where a sequence has several
+    part = torch.empty(b * h * S * (d + 2), dtype=torch.float32,
+                       device=q.device)
     err = library().paged_decode_attention_f32(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h, d,
-        k_pool.shape[1], block_table.shape[1], scale,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        part.data_ptr(), _tickets(q.device, stream, b * h).data_ptr(), b, h,
+        d, ps, P, ks, S, scale, stream.cuda_stream)
     check(err, "paged_decode_attention")
     COUNTS.kernel_launches += 1
     return out
@@ -75,16 +110,59 @@ def paged_decode_reference(q, k_pool, v_pool, block_table, pos, scale=None):
     dense softmax."""
     b, h, d = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    idx = block_table.long()
-    L = idx.shape[1] * k_pool.shape[1]
-    k = k_pool[idx].reshape(b, L, h, d).float()
-    v = v_pool[idx].reshape(b, L, h, d).float()
-    s = torch.einsum("bhd,bLhd->bhL", q.float(), k) * scale
+    k, v, L = _gather(q, k_pool, v_pool, block_table)
+    s = torch.einsum("bhd,bLhd->bhL", q, k) * scale
     visible = torch.arange(L, device=q.device)[None, :] \
         <= pos.long()[:, None]                     # [b, L]
     s = torch.where(visible[:, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhL,bLhd->bhd", p, v).to(q.dtype)
+    return torch.einsum("bhL,bLhd->bhd", p, v)
+
+
+def _gather(q, k_pool, v_pool, block_table):
+    """The table's pages as [b, L, h, d] K and V in q's dtype (fp64
+    operands give the fp64 evaluation), and L."""
+    b, h, d = q.shape
+    idx = block_table.long()
+    L = idx.shape[1] * k_pool.shape[1]
+    return (k_pool[idx].reshape(b, L, h, d).to(q.dtype),
+            v_pool[idx].reshape(b, L, h, d).to(q.dtype), L)
+
+
+def paged_decode_split_reference(q, k_pool, v_pool, block_table, pos,
+                                 scale=None, keys_per_split=KEYS_PER_SPLIT):
+    """Plain twin of the kernel's split-and-merge algebra (tests only).
+
+    Sequence b's visible keys (positions <= pos[b], capped at the table's
+    P * page_size; none for pos < 0) are cut at multiples of
+    ``keys_per_split``. Split s keeps m_s = its max score, l_s = sum
+    exp(score - m_s) and acc_s = sum exp(score - m_s) v over its own keys;
+    a split with no visible key keeps m_s = NEG_INF, l_s = 0, acc_s = 0.
+    The merge, over every split of the table in split order: M = max m_s,
+    f_s = exp(m_s - M), out = sum f_s acc_s / max(sum f_s l_s, 1e-30), so
+    an empty split adds nothing and a sequence without keys gets zeros."""
+    b, h, d = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    k, v, L = _gather(q, k_pool, v_pool, block_table)
+    S = n_splits(block_table.shape[1], k_pool.shape[1], keys_per_split)
+    pad = S * keys_per_split - L
+    s = torch.einsum("bhd,bLhd->bhL", q, k) * scale
+    s = torch.nn.functional.pad(s, (0, pad), value=NEG_INF)
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    n = pos.long().clamp(min=-1, max=L - 1) + 1               # [b]
+    visible = torch.arange(S * keys_per_split, device=q.device)[None, :] \
+        < n[:, None]
+    s = torch.where(visible[:, None, :], s, torch.full_like(s, NEG_INF))
+    s = s.reshape(b, h, S, keys_per_split)
+    m = s.max(dim=-1).values                                  # [b, h, S]
+    p = torch.where(s <= NEG_INF * 0.5, torch.zeros_like(s),
+                    torch.exp(s - m[..., None]))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhSk,bSkhd->bhSd", p,
+                       v.reshape(b, S, keys_per_split, h, d))
+    f = torch.exp(m - m.max(dim=-1, keepdim=True).values)
+    den = (f * l).sum(dim=-1).clamp(min=1e-30)
+    return (f[..., None] * acc).sum(dim=2) / den[..., None]
 
 
 def paged_decode_ok(h_dim: int) -> bool:

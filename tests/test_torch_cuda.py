@@ -15,7 +15,9 @@ on the card must equal its own naive_generate token for token, through
 the kernels (an int8 or fp8 engine through K1-q alone).
 The ragged kernel's two forms (the span form on the tensor cores, the
 decode form for G = n_rep * T <= 8) are held, over the three pool types,
-against its plain version evaluated in fp64. The flash kernels (K3a,
+against its plain version evaluated in fp64, and so is the paged-decode
+kernel (K2), whose output must also not depend on the rest of the batch
+(bit for bit) and whose call must not synchronise with the host. The flash kernels (K3a,
 K3b-dq, K3b-dkv) hold o and lse within 1e-4 and
 each gradient within 1e-4 * max|plain gradient|, dense and in every
 masked form (K3-m: per-key bias, a dense mask shared or per head, a bool
@@ -122,6 +124,69 @@ def test_paged_decode_kernel_matches_plain(gen, d, ps):
     assert k2.COUNTS.kernel_launches == 1 and k2.COUNTS.plain_launches == 0
     ref = k2.paged_decode_reference(q[:, 0], kp, vp, table, pos)
     assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("keys_per_split", [k2.SPLIT_TILE,
+                                            k2.KEYS_PER_SPLIT])
+# d = 96: a 48 KiB ring, where the kernel's static shared memory needs the
+# opt-in above the default limit
+@pytest.mark.parametrize("d", [8, 64, 96, 128, 256])
+@pytest.mark.parametrize("ps", [1, 8, 16, 32])
+def test_paged_decode_kernel_is_fp32_class_against_fp64(gen, monkeypatch,
+                                                        keys_per_split, d,
+                                                        ps):
+    """K2 over a 640-key table: positions on and off split and page
+    boundaries up to the table's last key and past it (capped), a dead
+    slot; against the plain version in fp64 and in fp32, at the wrapper's
+    split size and at one tile a split (every walk cut many times)."""
+    monkeypatch.setattr(k2, "KEYS_PER_SPLIT", keys_per_split)
+    cap = 640
+    pages = cap // ps
+    pos_list = [0, keys_per_split - 1, keys_per_split, 301, cap - 1,
+                cap + 77, 0]
+    b, h = len(pos_list), 2
+    q, kp, vp, table = _operands(gen, b, 1, h, 1, d, ps, pages)
+    table[-1] = 0                                  # dead slot: all scratch
+    pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+    k2.COUNTS.reset()
+    out = k2.paged_decode_attention(q[:, 0], kp, vp, table, pos)
+    assert k2.COUNTS.kernel_launches == 1 and k2.COUNTS.plain_launches == 0
+    ref = k2.paged_decode_reference(q[:, 0], kp, vp, table, pos)
+    exact = k2.paged_decode_reference(q[:, 0].double(), kp.double(),
+                                      vp.double(), table, pos)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= TOL
+    _fp32_class(out, ref, exact, f"K2 d={d} ps={ps} ks={keys_per_split}")
+
+
+def test_paged_decode_kernel_is_batch_invariant(gen):
+    """A sequence's output alone equals, bit for bit, its output inside a
+    batch of 8 with longer and shorter neighbours (a 4096-key table)."""
+    h, d, ps, pages = 4, 128, 16, 256
+    pos_list = [300, 4095, 0, 129, 2047, 16, 3000, 127]
+    q, kp, vp, table = _operands(gen, len(pos_list), 1, h, 1, d, ps, pages)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+    out = k2.paged_decode_attention(q[:, 0], kp, vp, table, pos)
+    for i in range(len(pos_list)):
+        alone = k2.paged_decode_attention(q[i:i + 1, 0], kp, vp,
+                                          table[i:i + 1], pos[i:i + 1])
+        assert torch.equal(alone[0], out[i]), f"sequence {i}"
+
+
+def test_paged_decode_kernel_never_syncs_with_the_host(gen):
+    """The wrapper sizes everything from the shapes: no read of pos."""
+    q, kp, vp, table = _operands(gen, 4, 1, 2, 1, 128, 16, 20)
+    pos = torch.tensor([3, 300, 17, 0], dtype=torch.int32, device="cuda")
+    k2.paged_decode_attention(q[:, 0], kp, vp, table, pos)   # builds
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            out = k2.paged_decode_attention(q[:, 0], kp, vp, table, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ref = k2.paged_decode_reference(q[:, 0], kp, vp, table, pos)
     assert (out - ref).abs().max().item() <= TOL
 
 

@@ -123,3 +123,82 @@ def test_wrapper_rejects_gqa_pools():
     with pytest.raises(ValueError, match="MHA"):
         k2.paged_decode_attention(t(q), t(kp[:, :, :2]), t(vp[:, :, :2]),
                                   t(tbl), torch.zeros(3, dtype=torch.int32))
+
+
+# ------------------------------------------------ the kernel's split algebra
+
+def _split(q, kp, vp, tbl, pos, keys_per_split):
+    return k2.paged_decode_split_reference(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(tbl), torch.tensor(pos, dtype=torch.int32),
+        keys_per_split=keys_per_split).numpy()
+
+
+# a table of 24 pages of 4 keys: 96 keys, cut into splits of 16 (one tile),
+# 32 (two tiles) or 128 (longer than any sequence)
+SPLIT_SIZES = [k2.SPLIT_TILE, 2 * k2.SPLIT_TILE, 128]
+
+
+@pytest.mark.parametrize("keys_per_split", SPLIT_SIZES)
+@pytest.mark.parametrize("pos", [
+    [0, 15, 16, 31],        # the first split's last key, the next's first
+    [32, 63, 64, 95],       # split and page boundaries, the table's last key
+    [3, 17, 50, 90],        # off split and page boundaries
+    [1, 6, 37, 300],        # inside a page; past the table (capped)
+])
+def test_split_twin_matches_jax_kernel_and_plain(keys_per_split, pos):
+    """Most sequences leave empty splits after their last key (and at 16
+    keys a split, splits end inside pages); they must merge as nothing."""
+    q, kp, vp, tbl = _inputs(seed=sum(pos) + keys_per_split, b=4, ps=4,
+                             pages=24)
+    got = _split(q, kp, vp, tbl, pos, keys_per_split)
+    np.testing.assert_allclose(got, _jax(q, kp, vp, tbl, pos),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, _port(q, kp, vp, tbl, pos),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("keys_per_split", SPLIT_SIZES)
+def test_split_twin_over_a_dead_slot(keys_per_split):
+    """A dead slot (all-scratch table, pos 0) sees one key of the scratch
+    page: its output is that key's V row, and its neighbours' outputs are
+    unchanged by it."""
+    q, kp, vp, tbl = _inputs(seed=keys_per_split, b=3, ps=4, pages=24)
+    tbl[1] = 0
+    pos = [70, 0, 33]
+    got = _split(q, kp, vp, tbl, pos, keys_per_split)
+    np.testing.assert_allclose(got[1], vp[0, 0], rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, _jax(q, kp, vp, tbl, pos),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_split_twin_without_keys_gives_zeros():
+    """pos < 0 (no visible key, every split empty): zeros, not NaN."""
+    q, kp, vp, tbl = _inputs(seed=5, ps=4, pages=8)
+    got = _split(q, kp, vp, tbl, [-1, 0, 31], k2.SPLIT_TILE)
+    assert np.isfinite(got).all()
+    assert (got[0] == 0).all()
+    np.testing.assert_allclose(got[1:], _port(q, kp, vp, tbl, [-1, 0, 31])[1:],
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("ps,pages", [(1, 40), (16, 3)])
+def test_split_twin_over_page_sizes(ps, pages):
+    """Page size 1 (every key its own page) and pages of 16 (a split of
+    one tile per page)."""
+    q, kp, vp, tbl = _inputs(seed=ps + 1, h=3, d=8, ps=ps, pages=pages)
+    cap = ps * pages
+    pos = [cap - 1, k2.SPLIT_TILE, cap // 2 + 1]
+    got = _split(q, kp, vp, tbl, pos, k2.SPLIT_TILE)
+    np.testing.assert_allclose(got, _jax(q, kp, vp, tbl, pos),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_split_count_follows_the_table_not_the_batch():
+    """The kernel's workspace holds ceil(P * page_size / keys_per_split)
+    splits a (sequence, head), at least one."""
+    assert k2.KEYS_PER_SPLIT % k2.SPLIT_TILE == 0
+    assert k2.n_splits(256, 16) == 4096 // k2.KEYS_PER_SPLIT
+    assert k2.n_splits(3, 5, 16) == 1
+    assert k2.n_splits(0, 16) == 1
+    assert k2.n_splits(17, 1, 16) == 2

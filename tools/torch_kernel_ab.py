@@ -22,6 +22,10 @@ Rows (LLaMA-2-7B heads, d = 128, pages of 16, a 1024-page pool):
   K1-q fp8 decode      the same over fp8 pools
   K1 fp32 decode GQA4  q [8, 1, 32, 128] at DECODE_POS over 8 kv heads
                        (n_rep 4), fp32 pools
+  K2 fp32 decode       paged decode, q [8, 32, 128] at DECODE_POS, fp32
+                       pools, a [8, 256] table
+  K2 fp32 decode long  the same at LONG_POS (540 pages of the pool): the
+                       walk at max_model_len 4096
   K3a Llama            flash forward, q/k/v [1, 4096, 32, 128], causal
   K3a-m ERNIE          flash forward, q/k/v [16, 512, 12, 64] with the
                        ERNIE batch's key-padding bias [16, 512], full
@@ -40,9 +44,11 @@ ROOT = Path(__file__).resolve().parent.parent
 # eight decode positions spread over the engine's range (chip_smoke.py's
 # engine decodes at positions 124-542)
 DECODE_POS = [124, 183, 242, 301, 360, 419, 478, 542]
+# four sequences up to the engine's max_model_len of 4096 tokens
+LONG_POS = [4095, 3000, 1500, 16]
 ROWS = ("K1 fp32 chunk", "K1-q int8 chunk", "K1-q fp8 chunk",
         "K1-q int8 decode", "K1-q fp8 decode", "K1 fp32 decode GQA4",
-        "K3a Llama", "K3a-m ERNIE")
+        "K2 fp32 decode", "K2 fp32 decode long", "K3a Llama", "K3a-m ERNIE")
 
 
 def _smoke():
@@ -62,6 +68,7 @@ def child(tree: str) -> dict:
 
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops._build import library
+    from paddle_tpu_torch.ops.paged_attention import paged_decode_attention
     from paddle_tpu_torch.ops.ragged_paged_attention import (
         ragged_paged_attention,
     )
@@ -95,6 +102,16 @@ def child(tree: str) -> dict:
         ms[row] = cs.median_ms(lambda: ragged_paged_attention(
             q, k, v, table, st, ql, k_scale=ks, v_scale=vs))
         del k, v, ks, vs
+    k_pool, v_pool = cs._pools(N, ps, 32, d, gen)
+    for row, positions in (("K2 fp32 decode", DECODE_POS),
+                           ("K2 fp32 decode long", LONG_POS)):
+        B = len(positions)
+        table = cs._tables(B, P, N, gen, used=[p // ps + 1 for p in positions])
+        q = torch.randn(B, 32, d, device="cuda", generator=gen)
+        pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+        ms[row] = cs.median_ms(lambda: paged_decode_attention(
+            q, k_pool, v_pool, table, pos))
+    del k_pool, v_pool
     for row, (b, s, h, dh, causal, ernie) in (
             ("K3a Llama", (1, 4096, 32, 128, True, False)),
             ("K3a-m ERNIE", (16, 512, 12, 64, False, True))):
