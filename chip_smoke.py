@@ -34,6 +34,13 @@ exits non-zero without printing a result:
               be exactly 0. Times are medians of CUDA-event timings. The
               sweep over every head dim the gates admit, GQA group and page
               size is tests/test_torch_cuda.py.
+ 3s. sampler  the seeded sampler (the runner's _sampled_rows, which every
+              sampled token goes through) on the card against the same
+              function on the CPU: 64 rows of vocabulary 32000, seeds 0-7 x
+              steps 0-31 x temperatures {0.3, 0.7, 1.0, 1.5} x (top_k,
+              top_p) in {(None, None), (1, None), (50, None), (None, 0.9),
+              (8, 0.9)}. Every token must be equal; one that parts prints
+              its perturbed top-2 margin and fails the run.
   4. engine   LLaMA-2-7B at full width and depth, fp32, seeded random
               weights built on the card, served through
               inference.create_serving_engine: 8 requests with seeded
@@ -47,7 +54,32 @@ exits non-zero without printing a result:
               of one 256-token prefill chunk each and over decode-only
               steps of 8 sequences, device time by kernel group, each
               kernel's device time per launch, and the idle share against
-              the wall of as many unprofiled steps.
+              the wall of as many unprofiled steps. Decode steps run as
+              replays of the runner's captured CUDA graph.
+ 5g. graphs   the same model, 8 sequences of 100-400 tokens prefilled into
+              two copies of one pool: a decode step, a greedy horizon of 8
+              (decode_multi) and a seeded early-stop horizon of 8, each run
+              eagerly on one copy and through its graph on the other, twice
+              (the first graphed call runs for real and captures, the second
+              replays). Outputs and pools must be bitwise equal (max |diff|
+              printed), and the launches a replay credits equal the eager
+              call's. Each capture's seconds and graph pool are printed.
+ 5h. horizon  phase 4's 8 prompts with max_tokens 64: requests 0-3 greedy
+              (a stop token each: their fp32 stream's 21st token), 4-7 at
+              temperature 0.7, top_k 50, top_p 0.9, seeds 0-3 and a random
+              stop token. Served by the per-step engine run eagerly and by
+              the engine with decode_horizon=8, pipelined, horizon_sampling
+              and horizon_early_stop, its decode kinds as CUDA graphs, each
+              engine twice (its first round captures, its second replays).
+              The streams must be equal token for token (the first
+              divergence is printed), every request must finish and no
+              page leak; the
+              decode kernel (K2 over fp32 pools, K1-q's decode form over
+              int8 / fp8) must launch once a layer on every inner decode
+              step, and no plain version. Printed: tokens/s, TTFT, ms per
+              decode token, host_syncs_per_token, horizon_overshoot_tokens,
+              and a torch.profiler split of a horizon of 8 (device busy,
+              host wall, idle share) beside phase 5's per-step decode.
   6. int8,    the same model, requests and budget served from an int8 and
      fp8      then an fp8 KV pool (kv_dtype="int8" / "fp8", 1024 pages of
               16, about 4 GiB each). Every prefill chunk and every decode
@@ -65,7 +97,7 @@ exits non-zero without printing a result:
               slot serves the two shortest prompts (one chunk each, then
               batch-1 decode steps, naive_generate's row counts) through
               K1-q alone and must equal naive_generate token for token,
-              for int8 and for fp8.
+              for int8 and for fp8. Each pool then runs phases 5g and 5h.
   7. check    a 2-layer model at full width over int8 and over fp8 pools:
               two 256-token prefill chunks and 8 decode steps (a dead slot
               beside the live one) through K1-q, then the same steps on the
@@ -152,7 +184,8 @@ exits non-zero without printing a result:
               (K1's decode-form times as extra decode_* keys, its engine
               launches by form under launches_by_form, the fp64 ratios
               under fp64_ratio; the masked kernels as *_masked rows with
-              the ERNIE trainer's launches),
+              the ERNIE trainer's launches; the horizon engines' launches
+              of the decode kernels under horizon_launches),
               the nvidia-smi line, then the result line.
 
 fp32 products stay fp32: TF32 is switched off for matmuls and cuDNN. Bounds
@@ -772,6 +805,368 @@ def quant_model_check(cfg, kind, chunk=256, n_chunks=2, steps=8):
     if not worst <= TOL:
         raise AssertionError(f"K1-q {kind}: logits differ from the gather "
                              f"path by {worst:.3e} > {TOL} of their max")
+
+
+# ---------------------------------------- sampling, graphs, horizons
+
+SAMPLE_TEMPS = (0.3, 0.7, 1.0, 1.5)
+SAMPLE_CONFIGS = ((None, None), (1, None), (50, None), (None, 0.9), (8, 0.9))
+
+
+def sampler_phase(rows=64, vocab=32000):
+    """The seeded sampler (`_sampled_rows`, every sampled token's path) on
+    the card against the same function on the CPU: 64 rows of vocabulary
+    32000, seeds 0-7 x steps 0-31 x the temperatures, for every (top_k,
+    top_p); every token equal. A token that parts prints its perturbed
+    top-2 margin (masked logits + Gumbel noise, on the CPU) and fails the
+    run."""
+    from paddle_tpu_torch.core import random as prandom
+    from paddle_tpu_torch.models.generation import _masked_logits
+    from paddle_tpu_torch.serving.model_runner import PagedModelRunner
+
+    rng = np.random.default_rng(0)
+    logits = torch.from_numpy(
+        (rng.standard_normal((rows, vocab)) * 3).astype(np.float32))
+    on_card = logits.cuda()
+    grid = [(seed, step, t) for t in SAMPLE_TEMPS for step in range(32)
+            for seed in range(8)]
+    parted, total, card_ms = [], 0, []
+    for top_k, top_p in SAMPLE_CONFIGS:
+        for i in range(0, len(grid), rows):
+            seeds, steps, temps = (torch.tensor(c) for c in
+                                   zip(*grid[i:i + rows]))
+            temps = temps.float()
+            cpu = PagedModelRunner._sampled_rows(logits, seeds, steps, temps,
+                                                 top_k, top_p)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            card = PagedModelRunner._sampled_rows(
+                on_card, seeds.cuda(), steps.cuda(), temps.cuda(), top_k,
+                top_p)
+            end.record()
+            card = card.cpu()
+            card_ms.append(start.elapsed_time(end))
+            total += len(seeds)
+            for b in torch.nonzero(card != cpu).flatten().tolist():
+                key = prandom.fold_in(prandom.key(seeds[b:b + 1]),
+                                      steps[b:b + 1])
+                noisy = (_masked_logits(logits[b:b + 1],
+                                        temps[b:b + 1, None], top_k, top_p)
+                         + prandom.gumbel(key, (vocab,)))[0]
+                top2 = torch.topk(noisy, 2).values
+                parted.append((int(seeds[b]), int(steps[b]),
+                               float(temps[b]), top_k, top_p, int(card[b]),
+                               int(cpu[b]), float(top2[0] - top2[1])))
+    log(f"sampler: {total} draws ({rows} rows of vocab {vocab}, seeds 0-7 x "
+        f"steps 0-31 x temperatures {list(SAMPLE_TEMPS)} x (top_k, top_p) "
+        f"{list(SAMPLE_CONFIGS)}): card equals CPU on "
+        f"{total - len(parted)}; card ms per {rows}-row call median "
+        f"{statistics.median(card_ms):.3f} (first call included in max "
+        f"{max(card_ms):.3f})")
+    for seed, step, t, k, p, a, b, margin in parted:
+        log(f"  parted: seed {seed} step {step} temperature {t} top_k {k} "
+            f"top_p {p}: card {a} cpu {b}, perturbed top-2 margin "
+            f"{margin:.3e}")
+    if parted:
+        raise AssertionError(f"{len(parted)} sampled tokens differ between "
+                             "the card and the CPU")
+
+
+def _count_inner_steps(runner):
+    """Wrap a runner's decode calls to count the decode steps they run (a
+    horizon of s counts s)."""
+    seen = {"steps": 0}
+    decode, multi = runner.decode, runner.decode_multi
+
+    def counted_decode(*a, **kw):
+        out = decode(*a, **kw)
+        seen["steps"] += 1
+        return out
+
+    def counted_multi(tokens, tables, pos, pools, num_steps, **kw):
+        out = multi(tokens, tables, pos, pools, num_steps, **kw)
+        seen["steps"] += num_steps
+        return out
+
+    runner.decode, runner.decode_multi = counted_decode, counted_multi
+    return seen
+
+
+def graphs_phase(model, cfg, kv_dtype, B=8, seed=3):
+    """A captured decode step, greedy horizon of 8 and seeded early-stop
+    horizon of 8, each replayed from its graph and run eagerly on the same
+    inputs over two copies of the same pools: outputs and pools equal bit
+    for bit, the launches one replay credits equal to the eager call's.
+    The first graphed call of a kind runs for real and captures; the
+    second replays."""
+    from paddle_tpu_torch.serving import KVCachePool, LlamaRunner
+
+    runner = LlamaRunner(model, block_size=16, max_model_len=512,
+                         kv_dtype=kv_dtype)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(100, 400, B)]
+    P = 32
+    pools, tables = [], None
+    for _ in range(2):
+        pool = KVCachePool(cfg.num_layers, B * P + 1, 16, runner.n_kv_heads,
+                           runner.head_dim, device="cuda", kv_dtype=kv_dtype)
+        rows = [pool.pad_table(pool.allocator.alloc(P), P) for _ in prompts]
+        firsts = [int(torch.argmax(runner.prefill(p, r, pool.pools)[0]))
+                  for p, r in zip(prompts, rows)]
+        pools.append(pool.pools)
+        tables = np.asarray(rows, np.int32)
+    pos = np.asarray([len(p) for p in prompts], np.int32)
+    fed = np.asarray(firsts, np.int32)
+    ext = dict(seeds=np.arange(B), base_steps=np.ones(B, np.int32),
+               temps=np.asarray([0.7] * (B // 2) + [0.0] * (B - B // 2),
+                                np.float32), top_k=50, top_p=0.9,
+               stop_ids=np.full((B, 1), -1, np.int32),
+               remaining=np.full(B, 8, np.int32), early_stop=True)
+    calls = [("decode", (), {}, 0), ("decode", (), {}, 1),
+             ("decode_multi", (8,), {}, 2), ("decode_multi", (8,), {}, 10),
+             ("decode_multi", (8,), ext, 18), ("decode_multi", (8,), ext, 26)]
+    every = _all_counts()
+    for i, (kind, n, kw, off) in enumerate(calls):
+        args = (fed, tables, pos + off)
+        c0 = [c.kernel_launches for _, c in every]
+        runner.graphs = False
+        eager, _ = getattr(runner, kind)(*args, pools[0], *n, **kw)
+        eager = eager.clone()
+        c1 = [c.kernel_launches for _, c in every]
+        runner.graphs = True
+        graphed, _ = getattr(runner, kind)(*args, pools[1], *n, **kw)
+        torch.cuda.synchronize()
+        c2 = [c.kernel_launches for _, c in every]
+        launches_e = {nm: b - a for (nm, _), a, b in zip(every, c0, c1)
+                      if b - a}
+        launches_g = {nm: b - a for (nm, _), a, b in zip(every, c1, c2)
+                      if b - a}
+        diff = (graphed.double() - eager.double()).abs().max().item()
+        label = kind + ("_x" if kw else "")
+        how = "replay" if i % 2 else "first call (real run + capture)"
+        log(f"graphs ({kv_dtype} KV) {label} {how}: bitwise equal to eager "
+            f"{torch.equal(graphed, eager)}, max|diff| {diff:.3e}; launches "
+            f"eager {launches_e}, graphed {launches_g}")
+        if not torch.equal(graphed, eager) or launches_e != launches_g:
+            raise AssertionError(f"graphs ({kv_dtype}): {label} {how} differs"
+                                 " from the eager call")
+        last = (torch.argmax(eager, dim=-1) if kind == "decode"
+                else eager[0, :, -1])
+        fed = last.to(torch.int32).cpu().numpy()
+    plain = sum(c.plain_launches for _, c in every)
+    same_pools = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                     for la, lb in zip(*pools) for a, b in zip(la, lb))
+    for cap in runner.captures:
+        log(f"graphs ({kv_dtype} KV) capture {cap['kind']} key {cap['key']}:"
+            f" {cap['seconds']:.3f} s, graph pool "
+            f"{cap['pool_bytes'] / 2**20:.1f} MiB")
+    log(f"graphs ({kv_dtype} KV): pools bitwise equal after both runs "
+        f"{same_pools}, plain launches {plain}")
+    if not same_pools or plain:
+        raise AssertionError(f"graphs ({kv_dtype}): pools differ or a plain "
+                             "version ran")
+
+
+def horizon_requests(cfg, seed=0, n=8, max_tokens=64, greedy_stops=None):
+    """Phase 4's prompts with max_tokens 64: requests 0-3 greedy, 4-7 at
+    temperature 0.7, top_k 50, top_p 0.9 and seeds 0-3; one stop token
+    each (a greedy request's is its fp32 stream's 21st token)."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(100, 601, n)
+    prompts = [rng.integers(1, cfg.vocab_size, int(k)).tolist()
+               for k in lens]
+    stops = np.random.default_rng(seed + 1).integers(1, cfg.vocab_size, n)
+    sps = []
+    for i in range(n):
+        if i < n // 2:
+            stop = greedy_stops[i] if greedy_stops else int(stops[i])
+            sps.append(SamplingParams(max_tokens=max_tokens,
+                                      stop_token_ids=(int(stop),)))
+        else:
+            sps.append(SamplingParams(
+                max_tokens=max_tokens, temperature=0.7, top_k=50,
+                top_p=0.9, seed=i - n // 2, stop_token_ids=(int(stops[i]),)))
+    return prompts, sps
+
+
+HORIZON_KNOBS = dict(decode_horizon=8, pipelined=True, horizon_sampling=True,
+                     horizon_early_stop=True)
+
+
+def horizon_phase(model, cfg, kv_dtype, greedy_stops):
+    """The 8 requests served by the per-step engine, run eagerly, and by
+    the engine with HORIZON_KNOBS, its decode kinds as CUDA graphs, each
+    twice (the first round captures the graphs it needs, the second
+    replays them): the streams equal token for token, every request
+    finished, no page leaked; the attention kernel of the decode path (K2
+    over fp32 pools, K1-q's decode form over int8 / fp8) launched once a
+    layer on every inner decode step, the prefill kernel once a layer on
+    every chunk, nothing else and no plain version. Returns the horizon
+    engine's decode-kernel launches of its first round."""
+    from paddle_tpu_torch.inference import create_serving_engine
+
+    prompts, sps = horizon_requests(cfg, greedy_stops=greedy_stops)
+    streams, launches = [], []
+    for label, knobs in (("per-step, eager", {}),
+                         ("horizon 8, pipelined, graphs", HORIZON_KNOBS)):
+        eng = create_serving_engine(
+            model, device="cuda", block_size=16, num_blocks=1024,
+            max_batch_size=8, max_model_len=4096,
+            max_prefill_tokens_per_step=256, kv_dtype=kv_dtype, audit=True,
+            **knobs)
+        eng.runner.graphs = bool(knobs)
+        inner = _count_inner_steps(eng.runner)
+        for rnd in (1, 2):
+            tokens, kernel = _horizon_round(eng, cfg, f"{label}, round {rnd}",
+                                            inner, prompts, sps)
+            streams.append(tokens)
+            launches.append(kernel)
+        if knobs:
+            horizon_profile(eng, cfg)
+        del eng
+        _free_the_card()
+    for n, other in enumerate(streams[1:], 1):
+        if other != streams[0]:
+            for i, (a, b) in enumerate(zip(streams[0], other)):
+                j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                         min(len(a), len(b)))
+                if a != b:
+                    log(f"  request {i}: first divergence at token {j}: "
+                        f"per-step {a[j:j + 4]}, run {n} {b[j:j + 4]}")
+            raise AssertionError(f"horizon ({kv_dtype}): run {n}'s streams "
+                                 "differ from the per-step engine's")
+    log(f"horizon ({kv_dtype} KV): the per-step and horizon engines' "
+        f"streams are equal token for token in both rounds "
+        f"({sum(map(len, streams[0]))} tokens a round)")
+    return launches[2]
+
+
+def _horizon_round(eng, cfg, label, inner, prompts, sps):
+    """Serve the requests once on ``eng`` and gate the run (horizon_phase);
+    returns the streams and the decode kernel's launches."""
+    kv_dtype = eng.kv_dtype
+    decode_kernel = ("paged_decode_attention" if kv_dtype == "fp32"
+                     else f"ragged_paged_attention_{kv_dtype}")
+    counts = _all_counts()
+    for _, c in counts:
+        c.reset()
+    m = eng.metrics
+    base = m.snapshot()
+    inner0 = inner["steps"]
+    ttft0 = m.ttft_s.count
+    ids = [eng.add_request(p, sp) for p, sp in zip(prompts, sps)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    # decode-only steps: wall, tokens committed, inner steps launched
+    dec = [0.0, 0, 0]
+    while eng.has_work():
+        chunks, toks0, i0 = (m.prefill_chunks.value,
+                             m.tokens_generated.value, inner["steps"])
+        t1 = time.perf_counter()
+        eng.step()          # a drain ends every step (pipelined: mid-step)
+        if m.prefill_chunks.value == chunks:
+            dec[0] += time.perf_counter() - t1
+            dec[1] += int(m.tokens_generated.value - toks0)
+            dec[2] += inner["steps"] - i0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    outs = eng.outputs()
+    kernel = {nm: c.kernel_launches for nm, c in counts}
+    forms = {nm: dict(c.form_launches) for nm, c in counts
+             if c.form_launches}
+    plain = sum(c.plain_launches for _, c in counts)
+    snap = m.snapshot()
+    toks = snap["tokens_generated"] - base["tokens_generated"]
+    syncs = snap["host_syncs"] - base["host_syncs"]
+    steps = inner["steps"] - inner0
+    ttft = m.ttft_s._samples[ttft0:]
+    caps = [(c["kind"], c["key"][2] if len(c["key"]) > 2 else 1,
+             round(c["seconds"], 3)) for c in eng.runner.captures]
+    grew = {k: int(snap[k] - base[k]) for k in (
+        "decode_horizon_steps", "horizon_overshoot_tokens")}
+    log(f"horizon ({kv_dtype} KV) {label}: {int(toks)} tokens in "
+        f"{wall:.3f} s = {toks / wall:.1f} tokens/s, TTFT mean "
+        f"{1e3 * statistics.mean(ttft):.1f} ms, {steps} inner decode steps; "
+        f"decode-only steps {1e3 * dec[0]:.1f} ms for {dec[1]} tokens = "
+        f"{1e3 * dec[0] / max(dec[1], 1):.3f} ms per decode token, "
+        f"{1e3 * dec[0] / max(dec[2], 1):.3f} ms per inner step; "
+        f"host_syncs_per_token {syncs / toks:.4f}, {grew}, finish reasons "
+        f"{sorted(outs[i].finish_reason for i in ids)}; captures so far "
+        f"(kind, steps, s) {caps}")
+    log(f"horizon ({kv_dtype} KV) {label} launches: {kernel}, by form "
+        f"{forms}, plain {plain}")
+    if any(outs.get(i) is None or outs[i].finish_reason not in
+           ("stop", "length") for i in ids):
+        raise AssertionError(f"horizon ({kv_dtype}) {label}: not every "
+                             "request finished")
+    if not eng.pool.allocator.check_no_leaks():
+        raise AssertionError(f"horizon ({kv_dtype}) {label}: leaked pages")
+    # K2 (fp32) or K1-q (int8 / fp8) once a layer on every inner decode
+    # step, K1 / K1-q once a layer on every prefill chunk; a chunk of
+    # G <= 8 rows takes K1-q's decode form too
+    L = cfg.num_layers
+    chunks = int(snap["prefill_chunks"] - base["prefill_chunks"])
+    if kv_dtype == "fp32":
+        want = {decode_kernel: L * steps, "ragged_paged_attention": L * chunks}
+        decode_form = kernel[decode_kernel]
+    else:
+        want = {decode_kernel: L * (steps + chunks)}
+        decode_form = forms.get(decode_kernel, {}).get("decode", 0)
+    got = {nm: k for nm, k in kernel.items() if k}
+    if got != want or plain or decode_form < L * steps:
+        raise AssertionError(
+            f"horizon ({kv_dtype}) {label}: launches {got}, want {want} for "
+            f"{steps} inner decode steps and {chunks} prefill chunks of {L} "
+            f"layers; decode form {decode_form}; plain {plain}")
+    return [outs[i].output_tokens for i in ids], kernel[decode_kernel]
+
+
+def horizon_profile(eng, cfg, steps=3, prompt_len=300):
+    """Where a horizon's time goes: 8 greedy requests in decode on the
+    horizon engine, `steps` steps (one horizon of 8 each, pipelined)
+    timed, then as many under torch.profiler; device busy against the
+    host wall, idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.serving import SamplingParams
+
+    rng = np.random.default_rng(5)
+    for _ in range(8):
+        eng.add_request(rng.integers(1, cfg.vocab_size, prompt_len).tolist(),
+                        SamplingParams(max_tokens=8 * (2 * steps + 3)))
+    while eng.scheduler.waiting or any(
+            r.phase == "prefill" for r in eng.scheduler.running) \
+            or eng._inflight is None or eng._inflight.s != 8:
+        eng.step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    groups, top = _device_ms(prof)
+    busy = sum(groups.values()) / steps
+    per = {g: round(ms / steps, 4) for g, ms in
+           sorted(groups.items(), key=lambda kv: -kv[1])}
+    log(f"profile ({eng.kv_dtype} KV) horizon of 8 decode steps (8 "
+        f"sequences, graph replay): host wall {wall:.3f} ms/horizon "
+        f"({wall / 8:.3f} ms/step), device busy {busy:.3f} ms/horizon, idle "
+        f"share {1 - busy / wall:.3f}; device ms/horizon by group "
+        f"{json.dumps(per)}")
+    for name, ms in top:
+        log(f"  {ms / steps:.4f} ms/horizon  {name[:110]}")
+    if busy == 0.0:
+        log("  torch.profiler recorded no device time here: the device "
+            "split of this window is not measured")
+    eng.run()
 
 
 # ------------------------------------------------------------ profile
@@ -1873,6 +2268,7 @@ def main() -> int:
             check_ragged(32, 32, gen, "MHA chunk", kind, SPANS_CHUNK),
             check_ragged(32, 8, gen, "GQA", kind))
     errs["paged_decode_attention"] = check_paged(gen)
+    sampler_phase()
 
     cfg = LLAMA2_7B
     model = Llama(cfg, device="cuda", seed=0)
@@ -1881,6 +2277,12 @@ def main() -> int:
     profile_phase(eng, cfg)
     del eng
     _free_the_card()
+    greedy_stops = [t[20] for t in fp32_tokens[:4]]
+    graphs_phase(model, cfg, "fp32")
+    _free_the_card()
+    horizon_launches = {
+        "paged_decode_attention": horizon_phase(model, cfg, "fp32",
+                                                greedy_stops)}
     gemm_row_invariance(gen)
     for kind in ("int8", "fp8"):
         eng, more, _, _, prompts, more_forms = engine_phase(
@@ -1890,6 +2292,10 @@ def main() -> int:
         profile_phase(eng, cfg)
         del eng
         _free_the_card()
+        graphs_phase(model, cfg, kind)
+        _free_the_card()
+        horizon_launches[f"ragged_paged_attention_{kind}"] = horizon_phase(
+            model, cfg, kind, greedy_stops)
         # the two shortest prompts fit one 256-token chunk
         single_slot_check(model, cfg, kind, sorted(prompts, key=len)[:2])
         _free_the_card()
@@ -1948,6 +2354,8 @@ def main() -> int:
                **{k: m[k] for k in keys if k in m}}
         if name in forms:
             row["launches_by_form"] = forms[name]
+        if name in horizon_launches:
+            row["horizon_launches"] = horizon_launches[name]
         if "decode" in m:
             row.update({f"decode_{k}": m["decode"][k] for k in keys})
         if "decode_mha_fp64_ratio" in m:

@@ -20,11 +20,13 @@ def create_serving_engine(model, dtype=None, device="cuda", **kw):
     run the kernels' plain versions). The model's parameters are moved to
     ``device`` unless they already live there. Runner knobs (block_size,
     max_model_len, attn_impl, kv_dtype, weight_dtype, weight_group_size)
-    go to the runner, everything else to ServingEngine; ``num_blocks``
-    defaults to 128. fp32 weights on one device are ported, over fp32,
-    int8 or fp8 KV pools (``kv_dtype``): another ``dtype``,
-    ``weight_dtype``, ``weight_group_size`` or ``kv_dtype="mixed"``, or a
-    ``mesh``, raises NotImplementedError naming its ROADMAP item."""
+    go to the runner, everything else to ServingEngine (decode_horizon,
+    pipelined, horizon_sampling and horizon_early_stop among them);
+    ``num_blocks`` defaults to 128. fp32 weights on one device are
+    ported, over fp32, int8 or fp8 KV pools (``kv_dtype``): another
+    ``dtype``, ``weight_dtype``, ``weight_group_size`` or
+    ``kv_dtype="mixed"``, or a ``mesh``, raises NotImplementedError naming
+    its ROADMAP item."""
     if dtype is not None and dtype not in ("float32", torch.float32):
         raise NotImplementedError(
             f"dtype={dtype!r}: only fp32 serving is ported; lower-precision "

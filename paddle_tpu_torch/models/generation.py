@@ -1,9 +1,11 @@
-"""The gather reference path of paged attention.
+"""The gather reference path of paged attention, and the token sampler.
 
-Counterpart of the two helpers of paddle_tpu/models/generation.py that
-the serving runner's ``attn_impl="reference"`` path uses: gather every
-page of the block table into a contiguous cache, then one dense masked
-softmax. O(table width) bytes per call; the kernels exist to avoid it.
+Counterpart of three helpers of paddle_tpu/models/generation.py: the two
+that the serving runner's ``attn_impl="reference"`` path uses (gather
+every page of the block table into a contiguous cache, then one dense
+masked softmax; O(table width) bytes per call, the kernels exist to
+avoid it) and `_sample`, the temperature / top-k / top-p / categorical
+draw every sampled token of the serving path goes through.
 """
 
 from __future__ import annotations
@@ -11,6 +13,50 @@ from __future__ import annotations
 import math
 
 import torch
+
+from paddle_tpu_torch.core import random as prandom
+
+
+def _sample(logits, key, temperature, top_k, top_p):
+    """The JAX package's `_sample`, op for op, on a [..., V] batch of rows
+    with one threefry key per row (``key`` [..., 2], `core.random`): the
+    argmax at temperature 0 (a number), else `core.random.categorical` of
+    `_masked_logits`. Returns int64 tokens [...]."""
+    if not isinstance(temperature, torch.Tensor) and temperature == 0.0:
+        return torch.argmax(logits.float(), dim=-1)
+    return prandom.categorical(
+        key, _masked_logits(logits, temperature, top_k, top_p))
+
+
+def _masked_logits(logits, temperature, top_k, top_p):
+    """`_sample`'s logits before the draw. ``temperature`` is a number or
+    an fp32 tensor broadcasting against the rows ([..., 1]); it divides
+    the logits as a tensor on every device (torch turns a division by a
+    CPU scalar on the card into a multiplication by its reciprocal, which
+    rounds otherwise). top-k masks the logits below the k-th largest
+    (from one sort); top-p masks those below the cutoff of the sorted
+    softmax's cumulative sum, its index ``sum(cum < top_p)``, the softmax
+    as ``exp(x - max) / sum``."""
+    logits = logits.float()
+    if not isinstance(temperature, torch.Tensor):
+        temperature = torch.full((1,), float(temperature),
+                                 dtype=torch.float32, device=logits.device)
+    logits = logits / temperature
+    neg_inf = torch.full_like(logits, float("-inf"))
+    V = logits.shape[-1]
+    if top_k is not None and top_k > 0:
+        # jnp's sort(...)[..., -top_k] clamps an index past the front to 0
+        kth = torch.sort(logits, dim=-1).values[..., max(V - top_k, 0)]
+        logits = torch.where(logits < kth[..., None], neg_inf, logits)
+    if top_p is not None and top_p < 1.0:
+        sorted_l = torch.sort(logits, dim=-1, descending=True).values
+        un = torch.exp(sorted_l - sorted_l.max(dim=-1, keepdim=True).values)
+        probs = un / un.sum(dim=-1, keepdim=True)
+        cum = torch.cumsum(probs, dim=-1)
+        cutoff_idx = (cum < top_p).sum(dim=-1, keepdim=True)
+        cutoff = torch.gather(sorted_l, -1, cutoff_idx.clamp(max=V - 1))
+        logits = torch.where(logits < cutoff, neg_inf, logits)
+    return logits
 
 
 def masked_cache_attention(q, k_cache, v_cache, pos, scale=None):

@@ -186,14 +186,24 @@ def require_launchable(name: str, floats, ints, codes=(), scales=()) -> None:
                          "aligned")
 
 
+# every LaunchCounts of the port, in creation order
+_ALL_COUNTS = []
+
+
 class LaunchCounts:
     """How often a kernel wrapper launched its CUDA kernel and how often it
     ran its plain PyTorch version instead (CPU tensors only). A run reads
     these to show which path it took. A wrapper with several kernel forms
-    also counts each form's launches in ``form_launches``."""
+    also counts each form's launches in ``form_launches``.
+
+    The counts are taken in Python where a wrapper launches, so a CUDA
+    graph's capture would add them once and its replays never: a captured
+    step takes the counts its capture added back out (`counts_delta`,
+    `counts_credit(delta, -1)`) and credits them on every replay."""
 
     def __init__(self):
         self.reset()
+        _ALL_COUNTS.append(self)
 
     def reset(self) -> None:
         self.kernel_launches = 0
@@ -203,3 +213,27 @@ class LaunchCounts:
     def count_kernel(self, form: str) -> None:
         self.kernel_launches += 1
         self.form_launches[form] = self.form_launches.get(form, 0) + 1
+
+
+def counts_snapshot():
+    """Every LaunchCounts' (kernel, plain, forms) as they stand."""
+    return [(c.kernel_launches, c.plain_launches, dict(c.form_launches))
+            for c in _ALL_COUNTS]
+
+
+def counts_delta(before, after):
+    """What the counts gained from one snapshot to a later one."""
+    return [(k1 - k0, p1 - p0, {f: n - f0.get(f, 0) for f, n in f1.items()
+                                if n != f0.get(f, 0)})
+            for (k0, p0, f0), (k1, p1, f1) in zip(before, after)]
+
+
+def counts_credit(delta, times: int = 1) -> None:
+    """Add ``times`` x a `counts_delta` to the counts (negative undoes)."""
+    for c, (k, p, forms) in zip(_ALL_COUNTS, delta):
+        c.kernel_launches += times * k
+        c.plain_launches += times * p
+        for f, n in forms.items():
+            c.form_launches[f] = c.form_launches.get(f, 0) + times * n
+            if c.form_launches[f] == 0:
+                del c.form_launches[f]

@@ -12,7 +12,10 @@ each sequence's visible keys into splits of KEYS_PER_SPLIT keys, scores
 the splits in parallel and merges them in split order;
 `paged_decode_split_reference` is the plain twin of that algebra, for the
 tests. `best_paged_impl` is the serving runner's single dispatch gate,
-copied from the JAX package.
+copied from the JAX package. Under a captured CUDA graph the launch
+counts are credited per replay by the capturing runner (see
+`_build.LaunchCounts`), and the ticket buffer must exist before the
+capture (`_tickets`).
 """
 
 from __future__ import annotations
@@ -42,9 +45,19 @@ _TICKETS = {}
 
 
 def _tickets(device, stream, n):
+    """The stream's ticket buffer, at least n long. It is made (zeroed)
+    outside any CUDA graph capture: made inside one, it would live in the
+    graph's private pool and the graph would zero it on every replay. A
+    capture's warm-up on the capture stream makes it first; a capture
+    that finds none large enough raises."""
     key = (device.index, stream.cuda_stream)
     t = _TICKETS.get(key)
     if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "paged_decode_attention: no ticket buffer of "
+                f"{n} entries for this stream; run the step once on the "
+                "capture stream (the warm-up) before capturing it")
         t = _TICKETS[key] = torch.zeros(max(n, 256), dtype=torch.int32,
                                         device=device)
     return t

@@ -26,7 +26,11 @@ same output contract, which computes in q's dtype (fp64 operands give the
 fp64 oracle the card's accuracy gate uses). There is no other path. Each
 pool dtype counts its own launches: `COUNTS` (fp32 pools), `COUNTS_I8`
 and `COUNTS_F8`, with the kernel launches of each form under
-`form_launches`.
+`form_launches`. A launch inside a captured CUDA graph counts at its
+capture; the capturing runner takes that count back out and credits it
+on every replay (`_build.counts_delta`). The output is allocated per
+call, so under a graph it is the graph's buffer, which each replay
+overwrites.
 """
 
 from __future__ import annotations

@@ -1,15 +1,17 @@
 """Continuous-batching LLM serving over a paged KV cache, in PyTorch.
 
-Counterpart of paddle_tpu/serving for the fp32, single-device, greedy
-Llama path: `ServingEngine` (FCFS admission, chunked prefill, batched
-decode, youngest-first preemption with recompute-on-resume, deadlines,
-retries, NaN guard, invariant auditor) over `KVCachePool` and a
-`LlamaRunner` whose attention runs the port's CUDA kernels.
+Counterpart of paddle_tpu/serving for the single-device Llama path over
+fp32, int8 and fp8 KV pools: `ServingEngine` (FCFS admission, chunked
+prefill, batched decode or device-resident decode horizons, the pipelined
+loop, greedy or seeded sampling, youngest-first preemption with
+recompute-on-resume, deadlines, retries, NaN guard, invariant auditor)
+over `KVCachePool` and a `LlamaRunner` whose attention runs the port's
+CUDA kernels, its decode kinds as CUDA graphs on the card.
 """
 
 from paddle_tpu_torch.serving.engine import (
     RequestOutput, ServingEngine, TokenEvent, create_engine, greedy_grid,
-    naive_generate, sample_token,
+    naive_generate, sample_token, seeded_sample,
 )
 from paddle_tpu_torch.serving.kv_cache import (
     SCRATCH_PAGE, BlockAllocator, KVCachePool, SequenceKV,
@@ -34,5 +36,5 @@ __all__ = [
     "Request", "RequestOutput", "RequestState", "SamplingParams",
     "SequenceKV", "ServingEngine", "TokenEvent", "audit_engine",
     "bucket_len", "create_engine", "greedy_grid", "naive_generate",
-    "paged_attend", "runner_for", "sample_token",
+    "paged_attend", "runner_for", "sample_token", "seeded_sample",
 ]

@@ -320,6 +320,20 @@ class SequenceKV:
         if short:
             self.pages.extend(self.pool.allocator.alloc(short))
 
+    def truncate(self, num_tokens: int) -> int:
+        """Roll back over-committed tail pages: keep the pages covering
+        ``num_tokens`` live positions and free the rest (a decode horizon's
+        pre-committed pages, when non-finite logits cut it short). The
+        dropped pages were grown for the horizon and never shared, so they
+        go straight back to the free list. Returns the pages dropped."""
+        keep = self.pool.blocks_for_tokens(max(num_tokens, 1))
+        dropped = self.pages[keep:]
+        if dropped:
+            del self.pages[keep:]
+            self.pool.allocator.free(dropped)
+        self.num_tokens = num_tokens
+        return len(dropped)
+
     def release(self) -> None:
         if self.pages:
             self.pool.allocator.free(self.pages)   # decref each

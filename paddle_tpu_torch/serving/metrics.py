@@ -102,6 +102,13 @@ class EngineMetrics:
         self.prefill_chunks = Counter("prefill_chunks")
         # every blocking device->host drain the engine performs
         self.host_syncs = Counter("host_syncs")
+        # decode steps run inside device-resident horizons, and the tokens
+        # a horizon computed past a request's stop and discarded
+        self.decode_horizon_steps = Counter("decode_horizon_steps")
+        self.horizon_overshoot_tokens = Counter("horizon_overshoot_tokens")
+        # pipelined loop: steps whose planning ran while a launch was in
+        # flight
+        self.planned_ahead_steps = Counter("planned_ahead_steps")
         # host-clock split of each step: planning, blocking drains, total
         self.host_plan_seconds = Counter("host_plan_seconds")
         self.drain_wait_seconds = Counter("drain_wait_seconds")

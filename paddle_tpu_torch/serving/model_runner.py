@@ -8,6 +8,14 @@ over the shared page pool:
   prefill(tokens, table_row, pools)                 -> (logits[V], pools)
   prefill_chunk(tokens, start_pos, table_row, pools) -> (logits[V], pools)
   decode(tokens[B], tables[B, P], pos[B], pools)     -> (logits[B, V], pools)
+  decode_multi(tokens, tables, pos, pools, s, ...)   -> (packed[2|3, B, s],
+                                                         pools)
+
+`decode_multi` is the device-resident horizon: s decode steps in one
+call, each step's token (the argmax, or a seeded sample with
+``horizon_sampling``) fed back on the device, drained by the engine as
+one packed int32 buffer. Each inner step is `decode`'s body: the same
+`_forward`, `paged_attend` and kernels.
 
 Every step writes this step's K/V through the block table, then attends
 through one of three paths chosen per span bucket by `_attn_impl_for`:
@@ -31,8 +39,19 @@ Where the port departs from the JAX package:
     (the same list), so the call signatures stay the same. A retried
     step rewrites the same slots with the same values (an int8 write
     re-derives the same scales and codes), so retries stay idempotent;
-  * dispatch: the JAX package's shape-keyed jit cache becomes plain
-    method calls (PyTorch runs eagerly; CUDA graphs are later work).
+  * dispatch: the JAX package's shape-keyed jit cache (`_jitted`)
+    becomes `_graphed`, a cache of captured CUDA graphs of the decode
+    kinds ("decode", "decode_multi", "decode_multi_x"), keyed by the
+    jit key plus the pools' addresses (a graph writes the pools it was
+    captured on). Host operands go through pinned staging buffers into
+    the graph's static inputs before each replay; the output buffer is
+    the graph's own, so a caller drains it before the same graph
+    replays again. Prefill chunks run eagerly. On CPU tensors (or with
+    ``graphs`` set False) every kind runs eagerly: the caller's choice.
+    On the card a capture or replay that fails raises; nothing retries
+    eagerly;
+  * the horizon loop is a Python loop of the decode body (the JAX
+    `lax.scan`), inside one graph on the card.
 
 The instrumented-pool counters (`attn_kv_bytes_read` /
 `attn_kv_bytes_gather`) account the pool bytes each dispatch touches vs
@@ -42,17 +61,24 @@ what the gather path would read, host-side from the call's operands.
 from __future__ import annotations
 
 import logging
+import os
+import time
+from collections import OrderedDict
 from typing import Dict, List
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch.core import random as prandom
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.models.generation import (
-    masked_cache_attention, paged_gather,
+    _sample, masked_cache_attention, paged_gather,
 )
 from paddle_tpu_torch.models.llama import Llama, rope_tables
+from paddle_tpu_torch.ops._build import (
+    counts_credit, counts_delta, counts_snapshot,
+)
 from paddle_tpu_torch.ops.paged_attention import (
     best_paged_impl, paged_decode_attention,
 )
@@ -145,6 +171,112 @@ def check_weight_group_size(weight_group_size: int) -> None:
             "ROADMAP.md 'Still to port' item 8 (quantized serving)")
 
 
+class _CudaGraph:
+    """A torch.cuda.CUDAGraph captured on the runner's capture stream."""
+
+    def __init__(self, stream):
+        self.graph = torch.cuda.CUDAGraph()
+        self.stream = stream
+
+    def capture(self, fn):
+        with torch.cuda.graph(self.graph, stream=self.stream):
+            return fn()
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+    def pool_bytes(self) -> int:
+        """Bytes of the segments of the graph's private memory pool."""
+        pool = tuple(self.graph.pool())
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+class CapturedStep:
+    """One captured step: its static operands on the device, their pinned
+    host staging, the graph, its output buffer and the launch counts one
+    replay credits (what the capture added, taken back out at capture)."""
+
+    def __init__(self, graph, operands, staging, out, credit, seconds,
+                 pool_bytes):
+        self.graph = graph
+        self.operands = operands
+        self.staging = staging
+        self.out = out
+        self.credit = credit
+        self.seconds = seconds
+        self.pool_bytes = pool_bytes
+        self._copied = None     # event after the last staging copies
+
+    def replay(self, host):
+        """Copy the host operands in, replay, credit the launch counts;
+        returns the graph's output buffer (the next replay overwrites
+        it). A staging buffer is rewritten only once the copy that read
+        it last has run."""
+        if self._copied is not None:
+            self._copied.synchronize()
+        for a, pin, dev in zip(host, self.staging, self.operands):
+            if pin is None:
+                dev.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+            else:
+                pin.numpy()[...] = a
+                dev.copy_(pin, non_blocking=True)
+        if self.staging and self.staging[0] is not None:
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+        self.graph.replay()
+        counts_credit(self.credit)
+        return self.out
+
+
+def capture_step(body, host, pools, device, graph):
+    """Run ``body(pools, *operands)`` once for real on the host operands,
+    then capture it into ``graph`` (a `_CudaGraph`, or an object with the
+    same capture(fn) / replay()). The real call is the warm-up: it runs
+    on the capture stream, so it builds the kernel library and makes
+    every lazily allocated buffer (the K2 ticket buffer of that stream)
+    outside the capture, and its launches count as any call's. The
+    captured launches did not run, so their counts are taken back out
+    and credited per replay. Returns (the step, the real call's output)."""
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    staging = [None] * len(host)
+    operands = []
+    for i, a in enumerate(host):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if cuda:
+            staging[i] = t.pin_memory()
+        operands.append(t.to(device))
+    stream = getattr(graph, "stream", None)
+    if stream is not None:
+        main = torch.cuda.current_stream(device)
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            first = body(pools, *operands)
+        main.wait_stream(stream)
+        first.record_stream(main)
+    else:
+        first = body(pools, *operands)
+    before = counts_snapshot()
+    out = graph.capture(lambda: body(pools, *operands))
+    credit = counts_delta(before, counts_snapshot())
+    counts_credit(credit, -1)
+    if cuda:
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    pool_bytes = graph.pool_bytes() if hasattr(graph, "pool_bytes") else 0
+    step = CapturedStep(graph, operands, staging, out, credit, seconds,
+                        pool_bytes)
+    return step, first
+
+
+def _pools_key(pools) -> tuple:
+    """The pools' addresses, shapes and dtypes: a graph writes the pools it
+    was captured on, or any that later lie at the same addresses."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                 for layer in pools for t in layer)
+
+
 class PagedModelRunner:
     """Shared runner chassis: write-index math, dispatch, byte counters.
 
@@ -185,6 +317,13 @@ class PagedModelRunner:
         # attention path touches vs what the gather path would have read
         self.attn_kv_bytes_read = 0.0
         self.attn_kv_bytes_gather = 0.0
+        # CUDA graphs of the decode kinds on the card (`_graphed`); False
+        # runs them eagerly there too
+        self.graphs = True
+        self._graph_cache: "OrderedDict[tuple, CapturedStep]" = OrderedDict()
+        self._capture_stream = None
+        # one entry per capture: kind, key, seconds, graph pool bytes
+        self.captures: List[dict] = []
 
     @property
     def n_rep(self) -> int:
@@ -306,22 +445,207 @@ class PagedModelRunner:
                                       span[:1], span[1:], pools)
         return logits[0, t - 1], pools
 
+    # --------------------------------------------------- graphs (kinds)
+
+    def _use_graphs(self) -> bool:
+        return self.graphs and self.device.type == "cuda"
+
+    def _new_graph(self):
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        return _CudaGraph(self._capture_stream)
+
+    def _graphed(self, kind: str, shape_key, body, host, pools):
+        """The counterpart of the JAX runner's `_jitted`: the captured
+        step of (kind, shape_key) on these pools. Its first call runs the
+        step for real and captures it (`capture_step`), later calls
+        replay it. Every capture is logged; PADDLE_TPU_MAX_JIT_CACHE
+        bounds the entries with LRU eviction. Returns the step's output."""
+        key = (kind, shape_key, _pools_key(pools))
+        step = self._graph_cache.get(key)
+        if step is not None:
+            self._graph_cache.move_to_end(key)
+            return step.replay(host)
+        step, first = capture_step(body, host, pools, self.device,
+                                   self._new_graph())
+        self._graph_cache[key] = step
+        self.captures.append(dict(kind=kind, key=shape_key,
+                                  seconds=step.seconds,
+                                  pool_bytes=step.pool_bytes))
+        logger.info("serving graph capture %s key=%s in %.3f s, graph pool "
+                    "%d bytes (cache entries: %d)", kind, shape_key,
+                    step.seconds, step.pool_bytes, len(self._graph_cache))
+        cap = int(os.environ.get("PADDLE_TPU_MAX_JIT_CACHE", "0") or "0")
+        if cap > 0:
+            while len(self._graph_cache) > cap:
+                evicted, _ = self._graph_cache.popitem(last=False)
+                logger.warning(
+                    "serving graph cache over PADDLE_TPU_MAX_JIT_CACHE=%d; "
+                    "evicting %s", cap, evicted[:2])
+        return first
+
+    def _launch(self, kind: str, shape_key, body, host, pools):
+        """``body(pools, *operands)`` on the host operands (numpy):
+        eagerly, or through its graph."""
+        if not self._use_graphs():
+            return body(pools, *self._stage(*host))
+        return self._graphed(kind, shape_key, body, host, pools)
+
+    # ----------------------------------------------------- decode bodies
+
+    def _decode_body(self, pools, tokens, tables, pos, write_mask=None):
+        """One decode step on device operands: tokens and pos [B] int32,
+        tables [B, P] int32. ``write_mask`` [B] False sends a row's K/V
+        write to the scratch page (an early-stopped horizon row). Returns
+        logits [B, V]."""
+        positions = pos.long()[:, None]                            # [B, 1]
+        valid = (torch.ones_like(positions, dtype=torch.bool)
+                 if write_mask is None else write_mask[:, None])
+        page, off = self._write_indices(positions, tables, valid)
+        ones = torch.ones_like(pos)
+        logits, _ = self._forward(tokens.long()[:, None], positions, page,
+                                  off, tables, pos, ones, pools)
+        return logits[:, 0]
+
+    def _decode_multi_body(self, pools, tokens, tables, pos, *,
+                           num_steps: int):
+        """The greedy horizon: ``num_steps`` decode steps, each argmax
+        fed back as the next token, positions pos, pos+1, ... Returns
+        packed [2, B, s] int32: the tokens and the per-step all-finite
+        flags."""
+        toks, p, out_t, out_f = tokens, pos, [], []
+        for _ in range(num_steps):
+            logits = self._decode_body(pools, toks, tables, p)
+            toks = torch.argmax(logits, dim=-1).to(torch.int32)
+            out_t.append(toks)
+            out_f.append(torch.isfinite(logits).all(dim=-1).to(torch.int32))
+            p = p + 1
+        return torch.stack([torch.stack(out_t, 1), torch.stack(out_f, 1)])
+
+    def _decode_multi_x_body(self, pools, tokens, tables, pos, seeds,
+                             base_steps, temps, stop_ids, remaining, *,
+                             num_steps: int, top_k, top_p, sampling: bool,
+                             early_stop: bool):
+        """The extended horizon: rows with temps > 0 draw their seeded
+        step-indexed sample (`_sampled_rows`) instead of the argmax, and
+        with ``early_stop`` a row whose token hits its stop set (stop_ids,
+        -1-padded) or exhausts ``remaining`` sets a done bit that sends
+        its later K/V writes to the scratch page and holds its position.
+        Returns packed [3, B, s] int32: tokens, finite flags, LIVE flags
+        (0 after a row's done bit: not a real token)."""
+        B = tokens.shape[0]
+        toks, p = tokens, pos
+        done = torch.zeros(B, dtype=torch.bool, device=tokens.device)
+        cnt = torch.zeros_like(pos)
+        out_t, out_f, out_l = [], [], []
+        for _ in range(num_steps):
+            logits = self._decode_body(pools, toks, tables, p,
+                                       write_mask=torch.logical_not(done))
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            fin = torch.isfinite(logits).all(dim=-1)
+            if sampling:
+                # the row's step index is its generated-token count
+                sampled = self._sampled_rows(logits, seeds, base_steps + cnt,
+                                             temps, top_k, top_p)
+                nxt = torch.where(temps > 0.0, sampled.to(torch.int32), nxt)
+            live = torch.logical_not(done)
+            if early_stop:
+                hit = (nxt[:, None] == stop_ids).any(dim=1)
+                cnt = cnt + live.to(torch.int32)
+                done = done | (live & (hit | (cnt >= remaining)))
+            else:
+                cnt = cnt + 1
+            p = torch.where(live, p + 1, p)      # frozen rows hold position
+            toks = nxt
+            out_t.append(nxt)
+            out_f.append(fin.to(torch.int32))
+            out_l.append(live.to(torch.int32))
+        return torch.stack([torch.stack(out_t, 1), torch.stack(out_f, 1),
+                            torch.stack(out_l, 1)])
+
+    @staticmethod
+    def _sampled_rows(logits, seeds, steps, temps, top_k, top_p):
+        """Seeded sampling of every row of logits [B, V]: row b draws with
+        fold_in(key(seeds[b]), steps[b]) at temperature temps[b] (1 where
+        temps[b] is 0; the caller takes the argmax for those rows), through
+        `models.generation._sample` with one (top_k, top_p) for the batch.
+        The per-step engine, `seeded_sample` and the horizon loop all
+        sample through here, so a horizon's stream equals the per-step
+        stream bit for bit where both run on one device. Returns int64
+        tokens [B]."""
+        keys = prandom.fold_in(prandom.key(seeds), steps)
+        t = torch.where(temps > 0.0, temps, torch.ones_like(temps))
+        return _sample(logits, keys, t.float()[:, None], top_k, top_p)
+
+    # ------------------------------------------------------------ decode
+
     @torch.no_grad()
     def decode(self, tokens, tables, pos, pools):
         """Batched decode step; tokens [B], tables [B, P], pos [B]."""
         pos_np = np.asarray(pos, np.int32)
-        B = pos_np.shape[0]
+        tabs = np.asarray(tables, np.int32)
+        B, P = tabs.shape
         self._account_attn(self._attn_impl_for(1), pos_np,
-                           np.ones_like(pos_np), np.asarray(tables).shape[1])
-        toks, tabs, pos_t, ones = self._stage(
-            np.asarray(tokens, np.int64)[:, None],
-            np.asarray(tables, np.int32), pos_np, np.ones((B,), np.int32))
-        positions = pos_t.long()[:, None]                          # [B, 1]
-        page, off = self._write_indices(
-            positions, tabs, torch.ones_like(positions, dtype=torch.bool))
-        logits, pools = self._forward(toks, positions, page, off, tabs,
-                                      pos_t, ones, pools)
-        return logits[:, 0], pools
+                           np.ones_like(pos_np), P)
+        host = (np.asarray(tokens, np.int32), tabs, pos_np)
+        return self._launch("decode", (B, P), self._decode_body, host,
+                            pools), pools
+
+    @torch.no_grad()
+    def decode_multi(self, tokens, tables, pos, pools, num_steps: int, *,
+                     seeds=None, base_steps=None, temps=None, top_k=None,
+                     top_p=None, stop_ids=None, remaining=None,
+                     early_stop: bool = False):
+        """Device-resident multi-step decode: ``num_steps`` decode steps
+        in one call, each step's token fed back on the device. tokens [B]
+        (the fed last tokens), tables [B, P] (mapping every page the
+        horizon's live rows write), pos [B].
+
+        With no extension operands the loop is greedy and returns
+        (packed [2, B, num_steps] int32, pools): tokens and finite flags.
+        ``seeds`` / ``base_steps`` / ``temps`` [B] turn on seeded sampling
+        (rows with temps > 0 draw fold_in(key(seed), base_step +
+        emitted)); ``stop_ids`` [B, S] (-1-padded), ``remaining`` [B] and
+        ``early_stop`` set the per-row done bit. Any extension returns
+        [3, B, num_steps] (tokens, finite, live)."""
+        if num_steps < 1:
+            raise ValueError("decode_multi needs num_steps >= 1")
+        pos_np = np.asarray(pos, np.int32)
+        tabs = np.asarray(tables, np.int32)
+        B, P = tabs.shape
+        impl = self._attn_impl_for(1)
+        for t in range(num_steps):      # inner step t attends at pos + t
+            self._account_attn(impl, pos_np + t, np.ones_like(pos_np), P)
+        toks = np.asarray(tokens, np.int32)
+        sampling = temps is not None
+        if not (sampling or early_stop):
+            def body(pools_, *ops):
+                return self._decode_multi_body(pools_, *ops,
+                                               num_steps=num_steps)
+            return self._launch("decode_multi", (B, P, num_steps), body,
+                                (toks, tabs, pos_np), pools), pools
+        seeds = np.zeros((B,), np.int64) if seeds is None \
+            else np.asarray(seeds, np.int64)
+        base_steps = np.zeros((B,), np.int32) if base_steps is None \
+            else np.asarray(base_steps, np.int32)
+        temps = np.zeros((B,), np.float32) if temps is None \
+            else np.asarray(temps, np.float32)
+        stop_ids = np.full((B, 1), -1, np.int32) if stop_ids is None \
+            else np.asarray(stop_ids, np.int32)
+        remaining = np.full((B,), num_steps, np.int32) if remaining is None \
+            else np.asarray(remaining, np.int32)
+        early_stop = bool(early_stop)
+
+        def body_x(pools_, *ops):
+            return self._decode_multi_x_body(
+                pools_, *ops, num_steps=num_steps, top_k=top_k, top_p=top_p,
+                sampling=sampling, early_stop=early_stop)
+        key = (B, P, num_steps, top_k, top_p, sampling, early_stop,
+               stop_ids.shape[1])
+        host = (toks, tabs, pos_np, seeds, base_steps, temps, stop_ids,
+                remaining)
+        return self._launch("decode_multi_x", key, body_x, host,
+                            pools), pools
 
     def _forward(self, tokens, positions, write_page, write_off, tables,
                  pos_q, q_lens, pools):

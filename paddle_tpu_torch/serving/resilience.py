@@ -2,7 +2,8 @@
 
 Counterpart of paddle_tpu/serving/resilience.py, limited to the state
 this port has: one fp32, int8 or fp8 pool, no prefix cache, no host
-tier, no in-flight launches. The fault injector and snapshot/restore are
+tier, at most one in-flight launch (the pipelined loop). The fault
+injector and snapshot/restore are
 not ported yet (ROADMAP.md 'Still to port' item 15).
 """
 
@@ -32,11 +33,16 @@ def audit_engine(engine) -> None:
     in one table, each running sequence holds the pages its live tokens
     need and no more than its context plus one upcoming token needs, and
     slots partition between running requests and the free list, and the
-    pool's layer tuples have the layout of its kv_dtype. Raises
-    InvariantViolation listing every broken invariant. Host work only."""
+    pool's layer tuples have the layout of its kv_dtype. A member of the
+    pipelined loop's in-flight launch may also hold the pages its
+    undrained horizon was funded. Raises InvariantViolation listing every
+    broken invariant. Host work only."""
     alloc = engine.pool.allocator
     sched = engine.scheduler
     problems = []
+    inflight = getattr(engine, "_inflight", None)
+    inflight_horizon = ({id(r): inflight.s for r, _ in inflight.batch}
+                        if inflight is not None else {})
 
     # -- allocator self-consistency
     free_list = list(alloc._free)
@@ -81,10 +87,12 @@ def audit_engine(engine) -> None:
         if len(pages) > engine.max_pages_per_seq:
             problems.append(f"{rid} holds {len(pages)} pages > "
                             "max_pages_per_seq")
-        cap = engine.pool.blocks_for_tokens(req.num_context + 1)
+        upcoming = 1 + inflight_horizon.get(id(req), 0)
+        cap = engine.pool.blocks_for_tokens(req.num_context + upcoming)
         if len(pages) > cap:
             problems.append(f"{rid} holds {len(pages)} pages > {cap} needed "
-                            "for its context plus one token")
+                            f"for its context plus {upcoming} tokens "
+                            "(horizon pages survived their step)")
         for p in pages:
             owner_counts[p] = owner_counts.get(p, 0) + 1
     if set(owner_counts) != aset:

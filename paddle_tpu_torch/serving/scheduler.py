@@ -2,7 +2,8 @@
 decode reservation, youngest-first preemption.
 
 Counterpart of paddle_tpu/serving/scheduler.py without the prefix cache,
-the host tier, decode horizons and speculation. Determinism contract (the
+the host tier and speculation. `plan_decode_horizon` pre-commits the
+pages of a device-resident decode horizon. Determinism contract (the
 equivalence test with naive_generate leans on every clause):
   * admission is strict FCFS with head-of-line blocking;
   * pages come from a sorted free list, so the same trace of events
@@ -29,10 +30,10 @@ from paddle_tpu_torch.serving.kv_cache import KVCachePool, SequenceKV
 
 @dataclass
 class SamplingParams:
-    """Per-request sampling controls; greedy by default. The port samples
-    greedily only: temperature > 0 is refused at intake (seeded sampling
-    needs the threefry port, ROADMAP.md 'Still to port' item 4), so
-    top_k, top_p and seed are carried but not yet read."""
+    """Per-request sampling controls; greedy by default. temperature > 0
+    draws from fold_in(key(seed), generated-token index) through top_k /
+    top_p (engine.sample_token); without a seed the engine uses the
+    request's arrival index."""
 
     max_tokens: int = 16
     temperature: float = 0.0          # 0.0 = greedy
@@ -85,6 +86,10 @@ class Request:                # requests by object, never by field value
     # "prefill" until the chunk that completes the context samples its
     # token, then "decode"; reset at every (re-)admission
     phase: str = "prefill"
+    # set when a decode horizon hit non-finite logits it could not rescue
+    # without the row (nan_policy="greedy"): the next engine step takes
+    # the per-step path once, which fetches the real logits
+    defer_horizon: bool = False
     admission_index: int = -1              # set fresh at every admission
     num_preemptions: int = 0
     arrival_time: float = 0.0
@@ -157,6 +162,11 @@ class FCFSScheduler:
 
     # --------------------------------------------------------- admission
 
+    def _effective_watermark(self) -> int:
+        """The admission high watermark in pages (the port has no host
+        tier whose free slots the JAX package may count as headroom)."""
+        return self._watermark_pages
+
     def admit(self) -> List[Request]:
         """Admit queue-head requests while a slot and enough pages exist
         for their full context PLUS one decode token. Strict FCFS: stop at
@@ -174,7 +184,7 @@ class FCFSScheduler:
             # over the high watermark: stop admitting — unless nothing is
             # running at all (a request larger than the watermark must
             # still be servable alone)
-            over_watermark = (used + need > self._watermark_pages
+            over_watermark = (used + need > self._effective_watermark()
                               and (self.running or admitted))
             if not alloc.can_alloc(need) or over_watermark:
                 break
@@ -217,6 +227,43 @@ class FCFSScheduler:
         """Decode-phase running requests in admission order — the spans
         the batched decode step feeds."""
         return [r for r in self.running if r.phase == "decode"]
+
+    # ------------------------------------------------- multi-step decode
+
+    def plan_decode_horizon(self, s: int, row_caps=None) -> int:
+        """Pre-commit pages for up to ``s`` future decode tokens per
+        decode-ready request: a horizon writes K/V against block tables
+        fixed at launch, so every page must exist before the call. Trims
+        ``s``, never preempting, while the free list or the admission
+        watermark cannot fund the extra pages; assumes reserve_decode()
+        funded step one. Grows every decode-ready sequence to the returned
+        horizon and returns it (0 with no decode-ready request).
+
+        ``row_caps`` ({request: max upcoming tokens}, on-device early
+        stop): a row that freezes after its budget funds pages for only
+        min(s, cap) tokens."""
+        batch = self.decode_ready()
+        if not batch:
+            return 0
+        s = max(1, int(s))
+        alloc = self.pool.allocator
+
+        def up(r, n):
+            return min(n, row_caps[r]) if row_caps else n
+
+        while s > 1:
+            short = sum(r.kv.pages_short(up(r, s)) for r in batch)
+            if short == 0:
+                break
+            used = alloc.num_usable - alloc.num_free
+            if (alloc.can_alloc(short)
+                    and used + short <= self._effective_watermark()):
+                break
+            s -= 1
+        if s > 1:
+            for r in batch:
+                r.kv.grow(up(r, s))
+        return s
 
     # -------------------------------------------------------- preemption
 

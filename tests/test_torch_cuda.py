@@ -32,6 +32,14 @@ are held so in every form the plain-version tests cover, with a floor of
 FP64_FLOOR * max|exact| under the fp32 error: where the fp32 plain
 version is exact (one key: o = v) the kernel's split products still
 round at 2^-22.
+
+The decode kinds run as CUDA graphs on the card: a replayed decode step
+and horizon (greedy and seeded) must equal the eager call on the same
+inputs and pools bit for bit, logits, tokens and pools, over fp32, int8
+and fp8 pools, crediting the eager call's launch counts on every replay;
+a horizon engine with every knob on must give the per-step engine's
+streams token for token, with the sampler's tokens on the card equal to
+the same function's on the CPU.
 """
 
 import numpy as np
@@ -625,3 +633,107 @@ def test_small_llama_through_the_kernels_matches_the_dense_path(gen, n_kv):
         grad_clip=ClipGradByGlobalNorm(1.0)))
     losses = [step(ids, labels).item() for _ in range(4)]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+# ---------------------------------------------- CUDA graphs and horizons
+
+GRAPH_CFG = dict(vocab_size=211, hidden_size=256, num_layers=2, num_heads=4,
+                 num_kv_heads=4, max_seq_len=128)
+
+
+def _prefilled_pools(runner, prompt, P=8):
+    from paddle_tpu_torch.serving import KVCachePool
+    pool = KVCachePool(runner.num_layers, P + 2, runner.block_size,
+                       runner.n_kv_heads, runner.head_dim, device="cuda",
+                       kv_dtype=runner.kv_dtype)
+    table = pool.pad_table(pool.allocator.alloc(P), P)
+    runner.prefill(prompt, table, pool.pools)
+    return pool.pools, np.asarray([table, [0] * P], np.int32)
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8", "fp8"])
+def test_graph_replay_equals_eager_bitwise(gen, kv_dtype):
+    model = Llama(LlamaConfig(**GRAPH_CFG), device="cuda", seed=0)
+    runner = LlamaRunner(model, block_size=16, kv_dtype=kv_dtype)
+    prompt = np.random.default_rng(0).integers(1, 211, 40).tolist()
+    pools_g, tabs = _prefilled_pools(runner, prompt)
+    pools_e, _ = _prefilled_pools(runner, prompt)
+    ext = dict(seeds=np.asarray([3, 0]), base_steps=np.asarray([1, 0]),
+               temps=np.asarray([0.8, 0.0], np.float32), top_k=20,
+               top_p=0.9, stop_ids=np.asarray([[-1], [-1]]),
+               remaining=[30, 1], early_stop=True)
+    every = (k1.COUNTS, k1.COUNTS_I8, k1.COUNTS_F8, k2.COUNTS)
+    calls = [("decode", (np.asarray([5 + i, 0]), tabs,
+                         np.asarray([40 + i, 0])), (), {}) for i in range(3)]
+    calls += [("decode_multi", (np.asarray([3, 0]), tabs,
+                                np.asarray([43 + 8 * i, 0])), (8,), kw)
+              for i, kw in enumerate(({}, {}, ext, ext))]
+    # the first graphed call of a kind runs for real and captures it, the
+    # later ones replay
+    for kind, args, n, kw in calls:
+        before = [c.kernel_launches for c in every]
+        runner.graphs = False
+        out_e, _ = getattr(runner, kind)(*args, pools_e, *n, **kw)
+        out_e = out_e.clone()
+        mid = [c.kernel_launches for c in every]
+        runner.graphs = True
+        out_g, _ = getattr(runner, kind)(*args, pools_g, *n, **kw)
+        torch.cuda.synchronize()
+        after = [c.kernel_launches for c in every]
+        assert [b - a for a, b in zip(mid, after)] == \
+            [b - a for a, b in zip(before, mid)]
+        assert torch.equal(out_g, out_e), (kind, kv_dtype)
+    assert sum(c.plain_launches for c in every) == 0
+    assert [c["kind"] for c in runner.captures] == [
+        "decode", "decode_multi", "decode_multi_x"]
+    for a, b in zip(pools_e, pools_g):
+        for x, y in zip(a, b):
+            assert torch.equal(x.view(torch.uint8) if x.element_size() == 1
+                               else x, y.view(torch.uint8)
+                               if y.element_size() == 1 else y)
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8", "fp8"])
+def test_horizon_engine_equals_per_step_engine_on_the_card(gen, kv_dtype):
+    model = Llama(LlamaConfig(**GRAPH_CFG), device="cuda", seed=0)
+    rng = np.random.default_rng(1)
+    work = []
+    for i in range(6):
+        p = rng.integers(1, 211, int(rng.integers(5, 40))).tolist()
+        sp = (SamplingParams(max_tokens=24) if i < 3 else SamplingParams(
+            max_tokens=24, temperature=0.7, top_k=50, top_p=0.9, seed=i,
+            stop_token_ids=(int(rng.integers(1, 211)),)))
+        work.append((p, sp))
+    streams = []
+    for knobs in ({}, dict(decode_horizon=8, pipelined=True,
+                           horizon_sampling=True, horizon_early_stop=True)):
+        runner = LlamaRunner(model, block_size=16, kv_dtype=kv_dtype)
+        runner.graphs = bool(knobs)
+        eng = ServingEngine(runner, num_blocks=40, max_batch_size=4,
+                            max_prefill_tokens_per_step=32, audit=True,
+                            **knobs)
+        ids = [eng.add_request(p, sp) for p, sp in work]
+        outs = eng.run()
+        streams.append([outs[i].output_tokens for i in ids])
+        assert eng.pool.allocator.check_no_leaks()
+        if knobs:
+            assert eng.metrics.decode_horizon_steps.value > 0
+    assert streams[0] == streams[1]
+
+
+def test_sampler_on_the_card_equals_the_cpu(gen):
+    from paddle_tpu_torch.serving.model_runner import PagedModelRunner
+    rng = np.random.default_rng(2)
+    logits = torch.from_numpy((rng.standard_normal((64, 32000)) * 3).astype(
+        np.float32))
+    seeds = torch.arange(64, dtype=torch.int64) % 8
+    steps = torch.arange(64, dtype=torch.int64) % 32
+    temps = torch.tensor([0.3, 0.7, 1.0, 1.5] * 16)
+    for top_k, top_p in ((None, None), (1, None), (50, None), (None, 0.9),
+                         (8, 0.9)):
+        cpu = PagedModelRunner._sampled_rows(logits, seeds, steps, temps,
+                                             top_k, top_p)
+        card = PagedModelRunner._sampled_rows(
+            logits.cuda(), seeds.cuda(), steps.cuda(), temps.cuda(), top_k,
+            top_p)
+        assert torch.equal(card.cpu(), cpu), (top_k, top_p)

@@ -7,7 +7,8 @@ kernel wrapper takes, and what it refuses.
   * CPU tensors run the plain versions: `plain_launches` moves and
     `kernel_launches` never does;
   * every engine knob the port does not carry raises NotImplementedError
-    naming its ROADMAP item;
+    naming its ROADMAP item; the four horizon and pipeline knobs, and
+    temperature > 0, are served;
   * the serving entry points take the JAX package's positional and
     keyword arguments (runner, runner_for, create_serving_engine,
     SamplingParams, naive_generate), `device` only by keyword;
@@ -87,7 +88,8 @@ def test_scan_sees_the_whole_port():
     assert {"engine.py", "model_runner.py", "ragged_paged_attention.py",
             "paged_attention.py", "_build.py", "chip_smoke.py",
             "flash_attention.py", "impl.py", "flags.py", "optimizer.py",
-            "clip.py", "api.py", "weights.py", "ernie.py"} <= names
+            "clip.py", "api.py", "weights.py", "ernie.py",
+            "random.py"} <= names
 
 
 # ------------------------------------------------------------- devices
@@ -219,6 +221,43 @@ def test_unported_engine_knob_raises(model, knob):
         _engine(model, **{knob: _other(default)})
 
 
+@pytest.mark.parametrize("knob", ["num_speculative_tokens", "spec_max_ngram",
+                                  "spec_adaptive_k"])
+def test_speculation_knobs_name_item_7_part_b(model, knob):
+    with pytest.raises(NotImplementedError, match="item 7 part B"):
+        _engine(model, **{knob: _other(UNPORTED_KNOBS[knob][0])})
+
+
+def _serve(eng, prompts, sp):
+    ids = [eng.add_request(p, sp) for p in prompts]
+    outs = eng.run()
+    assert eng.pool.allocator.check_no_leaks()
+    return [outs[i].output_tokens for i in ids]
+
+
+PROMPTS = ([1, 2, 3], [4, 5, 6, 7, 8], [9, 10])
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("decode_horizon", 4), ("pipelined", True), ("horizon_sampling", True),
+    ("horizon_early_stop", True)])
+def test_horizon_and_pipeline_knobs_are_served(model, knob, value):
+    sp = SamplingParams(max_tokens=6)
+    extra = {} if knob == "decode_horizon" else {"decode_horizon": 4}
+    eng = _engine(model, max_batch_size=3, **{knob: value}, **extra)
+    assert getattr(eng, knob) == value
+    assert _serve(eng, PROMPTS, sp) == _serve(
+        _engine(model, max_batch_size=3), PROMPTS, sp)
+
+
+def test_sampled_decoding_is_served(model):
+    sp = SamplingParams(max_tokens=6, temperature=0.8, seed=1, top_k=20)
+    eng = _engine(model)
+    got = _serve(eng, PROMPTS[:1], sp)[0]
+    assert got == naive_generate(eng.runner, PROMPTS[0], sp,
+                                 max_model_len=32)
+
+
 @pytest.mark.parametrize("kw", [
     # int8 / fp8 KV pools are served; quantized weights beside them are not
     dict(kv_dtype="int8", weight_dtype="int8"),
@@ -240,12 +279,6 @@ def test_unported_model_and_pool_options_raise(model):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TrainStep(model, llama_loss_fn, AdamW(parameters=model.parameters()),
                   amp_level="O1")
-
-
-def test_sampled_decoding_raises(model):
-    eng = _engine(model)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        eng.add_request([1, 2], SamplingParams(temperature=0.8, seed=1))
 
 
 def test_unknown_knob_is_a_type_error(model):
@@ -323,12 +356,16 @@ def test_session_id_raises_naming_item_11(model):
 
 def test_naive_generate_fallback_seed_is_read_on_sampled_paths_only(model):
     runner = LlamaRunner(model, 8, 32)
-    greedy = SamplingParams(max_tokens=3)
+    greedy = SamplingParams(max_tokens=8)
     assert naive_generate(runner, [1, 2], greedy, fallback_seed=1) \
         == naive_generate(runner, [1, 2], greedy)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        naive_generate(runner, [1, 2], SamplingParams(temperature=0.8),
-                       fallback_seed=1)
+    sampled = SamplingParams(max_tokens=8, temperature=1.5)
+    streams = {tuple(naive_generate(runner, [1, 2], sampled,
+                                    fallback_seed=seed)) for seed in range(4)}
+    assert len(streams) > 1
+    seeded = SamplingParams(max_tokens=8, temperature=1.5, seed=7)
+    assert naive_generate(runner, [1, 2], seeded, fallback_seed=1) \
+        == naive_generate(runner, [1, 2], seeded, fallback_seed=2)
 
 
 # ---------------------------------------------------------- chip_smoke
