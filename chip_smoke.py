@@ -180,17 +180,45 @@ exits non-zero without printing a result:
  18. timing   phase 14 for the masked kernels at the ERNIE shape (q/k/v
               [16,512,12,64], the batch's kbias [16,512], full; SDPA with
               the broadcast float mask).
- 19. summary  one JSON line of every kernel's launches, error and times
+ 20. bf16     the flash kernels' bf16 instantiations (AMP): (a) on bf16
+              operands against the plain versions, both evaluated against
+              the plain versions in fp64 on the same operands: o, lse, dq,
+              dk and dv within twice the bf16 plain versions' own error,
+              and o, dq, dk and dv misrounded (of the outputs the plain
+              version rounds to bf16(exact), the share the kernel rounds
+              elsewhere) at most 1/16 of the time, which sees the inner
+              precision of the P and dS products that the max error
+              cannot; at the Llama trainer's shape (causal), the ERNIE batch's
+              shape and -1e4 key padding, a sweep over d in {64, 128} x
+              causal / full x lengths 1, 100, 257, 1000 and 128 / 384
+              crossed, and phase 10's masked forms; (b) phase 14 and 18's
+              timing at bf16 (plain versions and SDPA on the same bf16
+              operands; the bound at 2-byte operands and 989 TFLOP/s).
+ 21. ERNIE O1 phase 15 at bf16 AMP O1 (child_ernie's amp_level), each masked
+              bf16 kernel 12 times a step and nothing else (no fp32 flash
+              kernel, plain version or dense attention); profiled as 16.
+ 22. Llama O1 phase 11 at O1 through the dense bf16 kernels, profiled as 12.
+ 23. O2       a 2-layer Llama at full width after amp.decorate(level="O2"):
+              bf16 parameters, fp32 master copies in AdamW, each parameter
+              bit for bit its master cast to bf16 after every step; losses
+              fall.
+ 24. twins    a 2-layer O1 step against the same step on the dense path
+              (bf16) and against the fp32 step: loss within 1e-2, gradients
+              within 5e-2 / 1e-1 of max|grad|.
+ 25. summary  one JSON line of every kernel's launches, error and times
               (K1's decode-form times as extra decode_* keys, its engine
               launches by form under launches_by_form, the fp64 ratios
               under fp64_ratio; the masked kernels as *_masked rows with
-              the ERNIE trainer's launches; the horizon engines' launches
-              of the decode kernels under horizon_launches),
-              the nvidia-smi line, then the result line.
+              the ERNIE trainer's launches; the bf16 instantiations as
+              *_bf16 and *_masked_bf16 rows with the O1 trainers'
+              launches and their worst misround share under misround; the horizon engines' launches of the decode
+              kernels under horizon_launches), the nvidia-smi line, then
+              the result line.
 
 fp32 products stay fp32: TF32 is switched off for matmuls and cuDNN. Bounds
 by operations are at fp32-accurate tensor-core products (3xTF32, 495 / 3
-TFLOP/s), by bytes at 3.35 TB/s.
+TFLOP/s), for the bf16 kernels at 989 TFLOP/s, by bytes at 3.35 TB/s. bf16
+matmuls sum in fp32 (no reduced-precision split-K reduction).
 """
 
 from __future__ import annotations
@@ -213,6 +241,10 @@ PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 # fp32-accurate products on the H100 SXM's tensor cores: 3xTF32 (three
 # TF32 products per fp32 product) at a third of the 495 TFLOP/s TF32 peak
 PEAK_FP32_ACCURATE_FLOP_PER_S = 495e12 / 3
+# dense bf16 tensor-core products on the H100 SXM (NVIDIA data sheet): the
+# bound of the bf16 flash kernels counts the JAX kernel's FLOPs at this
+# rate, not the extra products of their two-term split of P and dS
+PEAK_BF16_FLOP_PER_S = 989e12
 TOL = 1e-4
 
 
@@ -1171,7 +1203,12 @@ def horizon_profile(eng, cfg, steps=3, prompt_len=300):
 
 # ------------------------------------------------------------ profile
 
-FLASH_GROUPS = {"flash_fwd_kernel": "K3a flash_forward",
+FLASH_GROUPS = {"flash_fwd_bf16_kernel": "K3a-bf16 flash_forward_bf16",
+                "flash_bwd_dq_bf16_kernel":
+                    "K3b-dq-bf16 flash_backward_dq_bf16",
+                "flash_bwd_dkv_bf16_kernel":
+                    "K3b-dkv-bf16 flash_backward_dkv_bf16",
+                "flash_fwd_kernel": "K3a flash_forward",
                 "flash_bwd_dq_kernel": "K3b-dq flash_backward_dq",
                 "flash_bwd_dkv_kernel": "K3b-dkv flash_backward_dkv"}
 
@@ -1185,7 +1222,8 @@ def _kernel_group(name: str) -> str:
         return "K2 paged_decode_attention"
     if "ragged_span_kernel" in name or "ragged_decode_kernel" in name:
         return "K1 ragged_paged_attention"
-    if "gemm" in low or "gemv" in low or "cutlass" in low or "xmma" in low:
+    if ("gemm" in low or "gemv" in low or "cutlass" in low or "xmma" in low
+            or "nvjet" in low):
         return "matmul (cuBLAS)"
     if "memcpy" in low or "memset" in low:
         return "copies"
@@ -1364,10 +1402,22 @@ def flash_checks(gen):
     return worst
 
 
-def _flash_counts(masked=False):
+def _flash_counts(masked=False, bf16=False):
+    """{kernel: (kernel launches, plain launches)} of one form: dense or
+    masked, fp32 or bf16."""
     from paddle_tpu_torch.ops import flash_attention as fa
+    dtype = torch.bfloat16 if bf16 else torch.float32
     return {name: (c.kernel_launches, c.plain_launches)
-            for name, c in (fa.COUNTS_MASKED if masked else fa.COUNTS).items()}
+            for name, c in fa.counts_for(masked, dtype).items()}
+
+
+def _other_flash_launches(masked, bf16) -> int:
+    """Every flash launch, kernel or plain, of the three forms that are not
+    (masked, bf16), plus that form's plain launches."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    ran = fa.counts_for(masked, torch.bfloat16 if bf16 else torch.float32)
+    return sum(c.plain_launches + (0 if group is ran else c.kernel_launches)
+               for group in fa.COUNTS.values() for c in group.values())
 
 
 # ------------------------------------------------------ masked flash (K3-m)
@@ -1560,10 +1610,11 @@ def masked_checks(gen):
     return worst
 
 
-def trainer_phase(cfg, seed=0, warmup=2, steps=6, seq=4096):
-    """Phase 11, the training path: TrainStep + AdamW over seeded random
-    weights and one seeded batch. Returns the trainer, its batch and the
-    flash launches of the run."""
+def trainer_phase(cfg, seed=0, warmup=2, steps=6, seq=4096, amp_level=None):
+    """Phases 11 and 22, the training path: TrainStep + AdamW over seeded
+    random weights and one seeded batch, fp32 or (amp_level "O1") bf16 AMP
+    through the bf16 kernels. Returns the trainer, its batch and the flash
+    launches of the run."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import Llama, llama_loss_fn
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -1575,7 +1626,8 @@ def trainer_phase(cfg, seed=0, warmup=2, steps=6, seq=4096):
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
                 parameters=model.named_parameters(),
                 grad_clip=ClipGradByGlobalNorm(1.0))
-    trainer = TrainStep(model, llama_loss_fn, opt)
+    trainer = TrainStep(model, llama_loss_fn, opt, amp_level=amp_level)
+    bf16 = amp_level is not None
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     toks = torch.randint(0, cfg.vocab_size, (1, seq + 1), device="cuda",
@@ -1584,7 +1636,8 @@ def trainer_phase(cfg, seed=0, warmup=2, steps=6, seq=4096):
     n_params = sum(p.numel() for p in model.parameters())
     per_layer = sum(p.numel() for p in model.layers[0].parameters())
     n_full = n_params + (32 - cfg.num_layers) * per_layer
-    log(f"trainer setup: {cfg.num_layers} of 32 layers at LLaMA-2-7B "
+    log(f"trainer setup ({amp_level or 'fp32'}): {cfg.num_layers} of 32 "
+        f"layers at LLaMA-2-7B "
         f"widths (hidden {cfg.hidden_size}, heads {cfg.num_heads}/"
         f"{cfg.num_kv_heads}, ffn {cfg.ffn_hidden}, vocab "
         f"{cfg.vocab_size}), {n_params / 1e9:.3f} B fp32 params "
@@ -1593,38 +1646,41 @@ def trainer_phase(cfg, seed=0, warmup=2, steps=6, seq=4096):
         f"{n_full / 1e9:.2f} B params and {16 * n_full / 1e9:.1f} GB), "
         f"batch [1, {seq}], {time.perf_counter() - t0:.1f} s")
 
-    for counts in fa.COUNTS.values():
-        counts.reset()
+    fa.reset_counts()
     losses = []
 
     def one_step():
-        before = _flash_counts()
+        before = _flash_counts(bf16=bf16)
         losses.append(trainer(ids, labels))
-        after = _flash_counts()
+        after = _flash_counts(bf16=bf16)
         for name in after:
             if after[name][0] - before[name][0] != cfg.num_layers:
                 raise AssertionError(
                     f"{name} launched {after[name][0] - before[name][0]} "
                     f"times in a step, not {cfg.num_layers}")
 
-    for _ in range(warmup):
-        one_step()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(steps):
-        one_step()
-    torch.cuda.synchronize()
+    with _no_dense_attention():
+        for _ in range(warmup):
+            one_step()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps):
+            one_step()
+        torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t) / steps
-    counts = _flash_counts()
+    counts = _flash_counts(bf16=bf16)
     launches = {name: kl for name, (kl, _) in counts.items()}
-    plain = sum(pl for _, pl in counts.values())
-    values = [x.item() for x in losses]
+    plain = _other_flash_launches(False, bf16)
+    values = [x.float().item() for x in losses]
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"trainer losses: {[round(x, 5) for x in values]}")
-    log(f"trainer run: {warmup} warm-up + {steps} timed steps, mean step "
-        f"{step_ms:.1f} ms = {seq / step_ms * 1e3:.1f} tokens/s, peak "
-        f"memory {peak:.2f} GiB, flash launches {launches} "
-        f"({cfg.num_layers} each per step), plain launches {plain}")
+    log(f"trainer losses ({amp_level or 'fp32'}, {losses[0].dtype}): "
+        f"{[round(x, 5) for x in values]}")
+    log(f"trainer run ({amp_level or 'fp32'}): {warmup} warm-up + {steps} "
+        f"timed steps, mean step {step_ms:.1f} ms = "
+        f"{seq / step_ms * 1e3:.1f} tokens/s, peak memory {peak:.2f} GiB, "
+        f"{'bf16 ' if bf16 else ''}flash launches {launches} "
+        f"({cfg.num_layers} each per step), plain versions and other flash "
+        f"forms {plain}, dense attention calls 0")
     if not all(np.isfinite(values)) or not values[-1] < values[0]:
         raise AssertionError(f"trainer losses not finite and falling: "
                              f"{values}")
@@ -1672,20 +1728,27 @@ def _optimizer_ms(trainer, batch, steps):
 # the flash groups under their masked names, for a path that runs only the
 # masked forms (the CUDA kernels are the same instantiations)
 MASKED_GROUPS = {"K3a flash_forward": "K3a-m flash_forward_masked",
-                 "K3b-dq flash_backward_dq": "K3b-dq-m flash_backward_dq_masked",
+                 "K3b-dq flash_backward_dq":
+                     "K3b-dq-m flash_backward_dq_masked",
                  "K3b-dkv flash_backward_dkv":
-                     "K3b-dkv-m flash_backward_dkv_masked"}
+                     "K3b-dkv-m flash_backward_dkv_masked",
+                 "K3a-bf16 flash_forward_bf16":
+                     "K3a-m-bf16 flash_forward_masked_bf16",
+                 "K3b-dq-bf16 flash_backward_dq_bf16":
+                     "K3b-dq-m-bf16 flash_backward_dq_masked_bf16",
+                 "K3b-dkv-bf16 flash_backward_dkv_bf16":
+                     "K3b-dkv-m-bf16 flash_backward_dkv_masked_bf16"}
 
 
 def train_profile_phase(trainer, batch, layers, matmul_weights, label,
-                        masked=False, steps=2):
-    """Phases 12 and 16: torch.profiler over `steps` training steps, device
-    time by kernel group; the optimizer's kernels are profiled apart
-    (`_optimizer_ms`) and their time taken out of the elementwise group,
-    where they fall by name. The idle share is 1 - device busy / host
-    wall of as many unprofiled steps just before. `matmul_weights` counts
-    the elements of every weight used as a matmul operand (6 FLOPs per
-    element and token)."""
+                        masked=False, steps=2, bf16=False):
+    """Phases 12, 16, 21 and 22: torch.profiler over `steps` training
+    steps, device time by kernel group; the optimizer's kernels are
+    profiled apart (`_optimizer_ms`) and their time taken out of the
+    elementwise group, where they fall by name. The idle share is 1 -
+    device busy / host wall of as many unprofiled steps just before.
+    `matmul_weights` counts the elements of every weight used as a matmul
+    operand (6 FLOPs per element and token)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1708,7 +1771,8 @@ def train_profile_phase(trainer, batch, layers, matmul_weights, label,
     busy = sum(groups.values()) / steps
     per = {g: round(ms / steps, 3) for g, ms in
            sorted(groups.items(), key=lambda kv: -kv[1])}
-    flash = MASKED_GROUPS.values() if masked else FLASH_GROUPS.values()
+    flash = [MASKED_GROUPS[g] if masked else g
+             for k, g in FLASH_GROUPS.items() if ("_bf16_" in k) == bf16]
     per_launch = {g: round(groups.get(g, 0.0) / (steps * layers), 4)
                   for g in flash}
     tokens = batch[0].numel()
@@ -1786,15 +1850,17 @@ def visible_pairs(sq: int, sk: int, causal: bool) -> int:
     return (sq - lo) * (lo + sk - sq + 1 + sk) // 2
 
 
-def flash_work(b, sq, sk, h, d, causal, kbias=False):
+def flash_work(b, sq, sk, h, d, causal, kbias=False, elem=4):
     """{kernel: (bytes, FLOPs)}: the least work of K3a, K3b-dq and K3b-dkv
     on q [b, sq, h, d] and k, v [b, sk, h, d]. Each input is read once
-    and each output written once (fp32; lse and delta [b, h, sq], the
-    per-key bias [b, sk] where given); FLOPs per visible (query, key) pair
-    of every head: 4 d (q.k and p.v), 6 d (q.k, do.v, ds.k), 8 d (q.k,
-    do.v, p^T.do, ds^T.q)."""
+    and each output written once (q, k, v, o, do, dq, dk, dv of `elem`
+    bytes: 4 fp32, 2 bf16; lse and delta [b, h, sq] and the per-key bias
+    [b, sk] where given fp32); FLOPs per visible (query, key) pair of every
+    head: 4 d (q.k and p.v), 6 d (q.k, do.v, ds.k), 8 d (q.k, do.v, p^T.do,
+    ds^T.q)."""
     pairs = b * h * visible_pairs(sq, sk, causal)
-    qrow, krow, rowv = 4 * b * sq * h * d, 4 * b * sk * h * d, 4 * b * h * sq
+    qrow, krow = elem * b * sq * h * d, elem * b * sk * h * d
+    rowv = 4 * b * h * sq
     kb = 4 * b * sk if kbias else 0
     return {"flash_forward": (2 * qrow + 2 * krow + rowv + kb, 4 * d * pairs),
             "flash_backward_dq": (3 * qrow + 2 * krow + 2 * rowv + kb,
@@ -1803,11 +1869,16 @@ def flash_work(b, sq, sk, h, d, causal, kbias=False):
                                    8 * d * pairs)}
 
 
-def measure_flash(gen, b=1, s=4096, h=32, d=128, causal=True, att=None):
-    """Phases 14 and 18: each flash kernel against its plain version, its
-    bound and SDPA. The dense forms at the trainer's shape, causal; with
-    ``att`` ([b, s] 0/1), the masked forms at that batch, its -1e4 key
-    padding as kbias [b, s] (SDPA: the broadcast float mask), non-causal.
+def measure_flash(gen, b=1, s=4096, h=32, d=128, causal=True, att=None,
+                  dtype=torch.float32):
+    """Phases 14, 18 and 20 (b): each flash kernel against its plain
+    version, its bound and SDPA. The dense forms at the trainer's shape,
+    causal; with ``att`` ([b, s] 0/1), the masked forms at that batch, its
+    -1e4 key padding as kbias [b, s] (SDPA: the broadcast float mask, in
+    the operands' dtype), non-causal. ``dtype`` bf16 times the bf16
+    instantiations on bf16 operands (the plain versions and SDPA on the
+    same operands), their bound at 2-byte operands and the dense bf16
+    rate.
     The backward pair is held like for like against SDPA's backward alone
     (torch.autograd.grad of a retained graph): the whole flash_backward
     (backward_delta and both kernels) and the two kernels alone. Returns
@@ -1818,7 +1889,7 @@ def measure_flash(gen, b=1, s=4096, h=32, d=128, causal=True, att=None):
     if att is not None:
         b, s = att.shape
     q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
-                   for _ in range(4))
+                   .to(dtype) for _ in range(4))
     kbias = None if att is None else ((1.0 - att.float()) * -1e4).contiguous()
     m = fa.Masks(kbias=kbias)
     o, lse = fa.flash_forward(q, k, v, causal, kbias=kbias)
@@ -1851,7 +1922,7 @@ def measure_flash(gen, b=1, s=4096, h=32, d=128, causal=True, att=None):
     qT, kT, vT, doT = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
     kw = (dict(is_causal=True) if causal
           else dict(attn_mask=None if kbias is None
-                    else kbias[:, None, None, :]))
+                    else kbias[:, None, None, :].to(dtype)))
     lib_fwd = median_ms(lambda: F.scaled_dot_product_attention(
         qT, kT, vT, **kw))
     qg, kg, vg = (t.clone().requires_grad_() for t in (qT, kT, vT))
@@ -1861,16 +1932,19 @@ def measure_flash(gen, b=1, s=4096, h=32, d=128, causal=True, att=None):
     del out
     library = {"flash_forward": lib_fwd, "flash_backward_dq": lib_bwd,
                "flash_backward_dkv": lib_bwd}
-    work = flash_work(b, s, s, h, d, causal, kbias is not None)
+    bf16 = dtype == torch.bfloat16
+    work = flash_work(b, s, s, h, d, causal, kbias is not None,
+                      elem=2 if bf16 else 4)
+    peak = PEAK_BF16_FLOP_PER_S if bf16 else PEAK_FP32_ACCURATE_FLOP_PER_S
     form = "causal" if causal else f"kbias [{b},{s}] full"
-    label = "" if kbias is None else "_masked"
+    label = ("" if kbias is None else "_masked") + ("_bf16" if bf16 else "")
     log(f"flash work at q/k/v [{b},{s},{h},{d}] {form}: " + ", ".join(
         f"{name} {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP"
         for name, (nbytes, flops) in work.items()))
     rows = {}
     for name, (nbytes, flops) in work.items():
         t_bytes = nbytes / PEAK_BYTES_PER_S
-        t_ops = flops / PEAK_FP32_ACCURATE_FLOP_PER_S
+        t_ops = flops / peak
         rows[name] = dict(ms=ms[name], plain_ms=plain[name],
                           bound_ms=1e3 * max(t_bytes, t_ops),
                           bound_by="bytes" if t_bytes >= t_ops
@@ -1967,6 +2041,307 @@ def check_vs_fp64(gen, b=1, s=4096, h=32, d=128, causal=True, att=None):
     return err
 
 
+# ------------------------------------------------- bf16 AMP (K3 at bf16)
+
+# an error against fp64 below this share of max|exact| counts as exact (a
+# few fp32 ulp: the fp32 plain version can be exact where the kernel's
+# two-term products still round)
+FP64_FLOOR = 2.0 ** -21
+
+
+def _vs_fp64(x, plain, exact):
+    """(the kernel's max error against the fp64 evaluation, the plain
+    version's, and their ratio with the FP64_FLOOR floor). The floor is
+    relative to max|exact| and at least to 1, the operands' scale: where
+    every output is a sum that cancels to 0 (dq and dk with one key, dS =
+    dP - delta) each fp32 evaluation leaves the noise of its unit-scale
+    terms, and the plain version's may be 0 by chance."""
+    e_kernel = (x.double() - exact).abs().max().item()
+    e_plain = (plain.double() - exact).abs().max().item()
+    den = max(e_plain, FP64_FLOOR * max(exact.abs().max().item(), 1.0))
+    return e_kernel, e_plain, (e_kernel / den if den > 0 else
+                               0.0 if e_kernel == 0 else float("inf"))
+
+
+# The max error of a bf16 output is its one bf16 rounding, for the kernel
+# and the plain version alike, so it cannot see an inner error up to half a
+# bf16 ulp. The misround share can: of the outputs the bf16 plain version
+# (fp32 throughout) rounds to bf16(exact), the share the kernel rounds to
+# another value. The hi + lo products keep P and dS to ~2^-17, which moves
+# only outputs that close to a rounding boundary (a few %); one bf16 term
+# of P or dS (2^-9) would move about a third. The gate sits between.
+MISROUND_GATE = 1 / 16
+# An output whose exact value is below this (the operands are unit
+# normals) is a sum that cancels exactly, as dq of a row that sees one key
+# (dS = dP - delta = 0): any fp32 evaluation leaves its own noise there,
+# so the share leaves it out.
+EXACT_ZERO = 2.0 ** -24
+
+
+def misround_share(x, plain, exact) -> float:
+    """Of the bf16 outputs where ``plain`` equals bf16(exact) (torch's
+    cast) and |exact| > EXACT_ZERO, the share where ``x`` does not (0
+    where there are none)."""
+    want = exact.to(torch.bfloat16)
+    right = (plain == want) & (exact.abs() > EXACT_ZERO)
+    n = int(right.sum())
+    return int((right & (x != want)).sum()) / n if n else 0.0
+
+
+def check_bf16(gen, label, b, sq, sk, h, d, causal, dead_rows=None, **kw):
+    """Phase 20 (a), one case: the bf16 kernels (K3a, K3b-dq, K3b-dkv) on
+    bf16 operands with the JAX function's masking arguments ``kw``, and
+    the plain versions on the same operands (fp32 compute, bf16 outputs),
+    both against the plain versions evaluated in fp64: o, lse (rows that
+    see a key), dq, dk and dv within twice the bf16 plain version's own
+    error, and o, dq, dk and dv misrounded (`misround_share`) at most
+    MISROUND_GATE of the time. Each kernel must launch once, as its bf16
+    instantiation. Returns ({kernel: fp64 ratio}, {kernel: max abs error
+    vs plain}, {kernel: misround share})."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    bf = torch.bfloat16
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                   .to(bf) for s in (sq, sk, sk, sq))
+    m = fa.canonical_masks(q, k, v, causal, **kw)
+    ops = m._asdict()
+    before = _flash_counts(m.given(), bf16=True)
+    o, lse = fa.flash_forward(q, k, v, causal, **ops)
+    kern = fa.flash_backward(q, k, v, o, do, lse, causal, **ops)
+    after = _flash_counts(m.given(), bf16=True)
+    if any(after[n][0] - before[n][0] != 1 for n in after):
+        raise AssertionError(f"bf16 flash {label}: the bf16 kernels did not "
+                             f"each launch once: {before} -> {after}")
+    ro, rlse = fa.flash_forward_reference(q, k, v, causal, **ops)
+    plain = fa.flash_backward_reference(q, k, v, o, do, lse, causal, **ops)
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    o64, lse64 = fa.flash_forward_reference(q64, k64, v64, causal, **ops)
+    exact = fa.flash_backward_reference(q64, k64, v64, o64, do64, lse64,
+                                        causal, **ops)
+    seen = lse64 > fa.MASKED_BELOW
+    outs = {"o": (o, ro, o64), "dq": (kern[0], plain[0], exact[0]),
+            "dk": (kern[1], plain[1], exact[1]),
+            "dv": (kern[2], plain[2], exact[2])}
+    if bool(seen.any()):
+        outs["lse"] = (lse[seen], rlse[seen], lse64[seen])
+    ratio, err, share, parts, failed = {}, {}, {}, [], []
+    for name, (x, p, e) in outs.items():
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"bf16 flash {label}: {name} not finite")
+        e_kernel, e_plain, ratio[name] = _vs_fp64(x, p, e)
+        err[name] = (x.float() - p.float()).abs().max().item()
+        parts.append(f"{name} {e_kernel:.2e}/{e_plain:.2e} "
+                     f"({ratio[name]:.2f}x)")
+        if not ratio[name] <= 2.0:
+            failed.append(f"{name} error against fp64 {e_kernel:.3e} > 2 x "
+                          f"the bf16 plain version's {e_plain:.3e}")
+        if name != "lse":
+            share[name] = misround_share(x, p, e)
+            parts[-1] += f" misround {share[name]:.4f}"
+            if not share[name] <= MISROUND_GATE:
+                failed.append(f"{name} misrounded {share[name]:.4f} > "
+                              f"{MISROUND_GATE}")
+    line = (f"bf16 flash {label} (b={b} sq={sq} sk={sk} h={h} d={d} "
+            f"{'causal' if causal else 'full'}) vs fp64, kernel/plain max "
+            "error: " + ", ".join(parts))
+    if failed:
+        raise AssertionError(f"{line}; failed: " + "; ".join(failed))
+    if dead_rows is not None and not (bool((o[:, dead_rows] == 0).all())
+                                      and bool((kern[0][:, dead_rows] == 0)
+                                               .all())):
+        raise AssertionError(f"bf16 flash {label}: rows that see no key are "
+                             "not exactly 0 with zero dq")
+    log(line)
+    return tuple({"flash_forward": max(x.get("o", 0.0), x.get("lse", 0.0)),
+                  "flash_backward_dq": x["dq"],
+                  "flash_backward_dkv": max(x["dk"], x["dv"])}
+                 for x in (ratio, err, share))
+
+
+def bf16_flash_checks(gen, att):
+    """Phase 20 (a): the bf16 kernels against fp64 at the Llama trainer's
+    shape (causal), at the ERNIE batch's shape with its -1e4 key padding
+    (``att``), over d in {64, 128} x causal / full x lengths 1, 100, 257,
+    1000 and 128 / 384 crossed, and in every masked form of phase 10.
+    Returns the worst fp64 ratio, abs error vs plain and misround share of
+    each kernel, dense and masked."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    names = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+    worst = {kind: {key: dict.fromkeys(names, 0.0)
+                    for key in ("ratio", "err", "misround")}
+             for kind in ("dense", "masked")}
+    n = 0
+
+    def case(label, *args, **kw):
+        nonlocal n
+        got = dict(zip(("ratio", "err", "misround"),
+                       check_bf16(gen, label, *args, **kw)))
+        kind = "masked" if any(kw.get(key) is not None for key in
+                               ("mask", "segment_ids", "block_mask")) \
+            else "dense"
+        for key, vals in got.items():
+            for name in names:
+                worst[kind][key][name] = max(worst[kind][key][name],
+                                             vals[name])
+        n += 1
+        _free_the_card()
+
+    case("Llama trainer shape", 1, 4096, 4096, 32, 128, True)
+    b, s = att.shape
+    case("ERNIE batch, -1e4 key padding", b, s, s, 12, 64, False,
+         mask=(1.0 - att[:, None, None, :].float()) * -1e4)
+    for d in (64, 128):
+        for causal in (True, False):
+            for sq, sk in ((1, 1), (100, 100), (257, 257), (1000, 1000),
+                           (128, 384), (384, 128)):
+                case("sweep", 1, sq, sk, 4, d, causal)
+    case("bool key padding", 2, 200, 333, 4, 128, True,
+         mask=_padded(gen, 2, 333, 0.5)[:, None, None, :].bool())
+    m = torch.randn(2, 1, 300, 300, device="cuda", generator=gen) * 2
+    m.masked_fill_(torch.rand(m.shape, device="cuda", generator=gen) < 0.3,
+                   fa.NEG_INF)
+    case("additive mask, mh = 1", 2, 300, 300, 4, 64, False, mask=m)
+    m = torch.randn(1, 4, 256, 256, device="cuda", generator=gen)
+    m.masked_fill_(torch.rand(m.shape, device="cuda", generator=gen) < 0.3,
+                   fa.NEG_INF)
+    case("additive mask, mh = h", 1, 256, 256, 4, 128, True, mask=m)
+    keep = torch.rand(2, 1, 100, 160, device="cuda", generator=gen) < 0.7
+    keep[:, :, 50:] = False
+    case("bool mask, rows 50.. see no key", 2, 100, 160, 4, 64, False,
+         dead_rows=slice(50, None), mask=keep)
+    cuts = torch.randint(1, 384, (2, 3), device="cuda", generator=gen)
+    seg = (torch.arange(384, device="cuda")[None, :, None]
+           >= cuts.sort(1).values[:, None, :]).sum(-1)
+    case("segment ids", 2, 384, 384, 4, 128, True, segment_ids=seg)
+    m = torch.randn(1, 1, 512, 512, device="cuda", generator=gen)
+    blocks = torch.eye(4, dtype=torch.int32, device="cuda")
+    blocks[3, 0] = 1
+    m.masked_fill_(~fa._block_live(blocks, 512, 512), fa.NEG_INF)
+    case("block mask", 1, 512, 512, 4, 64, False, mask=m,
+         block_mask=blocks)
+    log(f"bf16 flash checks: {n} cases within 2x the bf16 plain versions' "
+        f"error against fp64, misrounded at most {MISROUND_GATE}; worst "
+        "ratios, abs errors vs plain and misround shares "
+        + json.dumps({kind: {key: {nm: float(f"{x:.3e}") for nm, x in
+                                   vals.items()} for key, vals in w.items()}
+                      for kind, w in worst.items()}))
+    return worst
+
+
+def o2_phase(cfg, seed=2, seq=1024, steps=4):
+    """Phase 23: O2. A Llama at full width after amp.decorate(level="O2"):
+    every parameter bf16, AdamW keeping an fp32 master copy of each, and
+    after every step each parameter equal bit for bit to its master copy
+    cast to bf16; the losses fall; the bf16 kernels launch once per layer
+    and step, nothing else."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import Llama, llama_loss_fn
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+
+    model = Llama(cfg, device="cuda", seed=seed)
+    amp.decorate(model, level="O2")
+    params = dict(model.named_parameters())
+    if any(p.dtype != torch.bfloat16 for p in params.values()):
+        raise AssertionError("O2: a decorated parameter is not bf16")
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.named_parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    trainer = TrainStep(model, llama_loss_fn, opt, amp_level="O2")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (1, seq + 1), device="cuda",
+                         generator=gen)
+    before = _flash_counts(bf16=True)
+    others = _other_flash_launches(False, True)
+    losses = []
+    for _ in range(steps):
+        losses.append(trainer(toks[:, :-1], toks[:, 1:]).float().item())
+        for name, p in params.items():
+            master = opt.state[p]["master"]
+            if master.dtype != torch.float32 or not torch.equal(
+                    p, master.to(torch.bfloat16)):
+                raise AssertionError(f"O2: {name} is not its fp32 master "
+                                     "copy cast to bf16")
+    after = _flash_counts(bf16=True)
+    launched = {n: after[n][0] - before[n][0] for n in after}
+    log(f"O2 ({cfg.num_layers} layers, full width, seq {seq}): "
+        f"{len(params)} parameters bf16 with fp32 master copies, each equal "
+        f"to its master cast to bf16 after every step; losses "
+        f"{[round(x, 5) for x in losses]}; bf16 flash launches {launched}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"O2 losses not finite and falling: {losses}")
+    if any(n != steps * cfg.num_layers for n in launched.values()) or \
+            _other_flash_launches(False, True) != others:
+        raise AssertionError(f"O2 missed a bf16 kernel or ran another: "
+                             f"{launched}")
+
+
+def amp_twins_phase(cfg, seed=1, seq=1024):
+    """Phase 24: one O1 step of a Llama at full width through the bf16
+    kernels against the same step on the dense path (FLAGS_use_flash_
+    attention off: bf16 probabilities, where the kernels keep P in fp32)
+    and against the fp32 step through the fp32 kernels, same weights and
+    batch. Tolerances (bf16 operands round at 2^-9): the loss within 1e-2
+    relative of both twins, every gradient within 5e-2 * max|grad| of the
+    dense twin's and 1e-1 * max|grad| of the fp32 twin's."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import Llama, llama_loss_fn
+    from paddle_tpu_torch.utils.flags import flag, set_flags
+
+    model = Llama(cfg, device="cuda", seed=seed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (1, seq + 1), device="cuda",
+                         generator=gen)
+
+    def run(level, use_flash):
+        old = flag("FLAGS_use_flash_attention")
+        set_flags({"FLAGS_use_flash_attention": use_flash})
+        try:
+            with (amp.auto_cast(level=level) if level
+                  else contextlib.nullcontext()):
+                logits = model(toks[:, :-1])
+            loss = llama_loss_fn(logits, toks[:, 1:])
+            loss.backward()
+        finally:
+            set_flags({"FLAGS_use_flash_attention": old})
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return loss.float().item(), grads
+
+    before = (_flash_counts(bf16=True), _flash_counts())
+    loss_k, grads_k = run("O1", True)
+    mid = (_flash_counts(bf16=True), _flash_counts())
+    loss_d, grads_d = run("O1", False)
+    mid2 = (_flash_counts(bf16=True), _flash_counts())
+    loss_f, grads_f = run(None, True)
+    after = (_flash_counts(bf16=True), _flash_counts())
+    if any(mid[0][n][0] - before[0][n][0] != cfg.num_layers for n in mid[0]) \
+            or mid[1] != before[1] or mid2 != mid or after[0] != mid2[0] \
+            or any(after[1][n][0] - mid2[1][n][0] != cfg.num_layers
+                   for n in after[1]):
+        raise AssertionError("O1 twins: the O1 step missed a bf16 kernel, "
+                             "the dense step launched one, or the fp32 step "
+                             "ran other than the fp32 kernels")
+
+    def worst(grads):
+        return max(((g.float() - grads[n].float()).abs().max()
+                    / grads[n].float().abs().max()).item()
+                   for n, g in grads_k.items())
+
+    rel_d, rel_f = (abs(loss_k - x) / abs(x) for x in (loss_d, loss_f))
+    w_d, w_f = worst(grads_d), worst(grads_f)
+    log(f"O1 twins ({cfg.num_layers} layers, full width, seq {seq}): loss "
+        f"kernels {loss_k:.6f}, dense bf16 {loss_d:.6f} (rel {rel_d:.2e}), "
+        f"fp32 {loss_f:.6f} (rel {rel_f:.2e}); worst grad max|diff| / "
+        f"max|grad| vs dense {w_d:.2e}, vs fp32 {w_f:.2e}")
+    if not (rel_d <= 1e-2 and rel_f <= 1e-2 and w_d <= 5e-2
+            and w_f <= 1e-1):
+        raise AssertionError("the O1 step differs from its twins beyond "
+                             "1e-2 (loss), 5e-2 (grads vs dense) or 1e-1 "
+                             "(grads vs fp32)")
+
+
 # -------------------------------------------------------------- ERNIE
 
 def ernie_batch(vocab, batch, seq, seed):
@@ -2012,10 +2387,13 @@ def ernie_matmul_weights(model) -> int:
                not in n and "pooler" not in n and "seq_relationship" not in n)
 
 
-def ernie_trainer_phase(cfg, seed=0, batch=16, seq=512, warmup=2, steps=6):
-    """Phase 15: ERNIE-3.0-base pretraining at full width and depth through
-    jit.TrainStep and AdamW (child_ernie's recipe, fp32). Returns the
-    trainer, its batch and the masked flash launches of the run."""
+def ernie_trainer_phase(cfg, seed=0, batch=16, seq=512, warmup=2, steps=6,
+                        amp_level=None):
+    """Phases 15 and 21: ERNIE-3.0-base pretraining at full width and depth
+    through jit.TrainStep and AdamW (child_ernie's recipe), fp32 or
+    (amp_level "O1", as child_ernie trains) bf16 AMP through the masked
+    bf16 kernels. Returns the trainer, its batch and the masked flash
+    launches of the run."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import ErnieForPretraining, \
         ernie_pretrain_loss_fn
@@ -2027,25 +2405,27 @@ def ernie_trainer_phase(cfg, seed=0, batch=16, seq=512, warmup=2, steps=6):
     model = ErnieForPretraining(cfg, device="cuda", seed=seed)
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
                 parameters=model.named_parameters())
-    trainer = TrainStep(model, ernie_pretrain_loss_fn, opt, n_inputs=3)
+    trainer = TrainStep(model, ernie_pretrain_loss_fn, opt, n_inputs=3,
+                        amp_level=amp_level)
+    bf16 = amp_level is not None
     data = ernie_batch(cfg.vocab_size, batch, seq, seed)
     n_params = sum(p.numel() for p in model.parameters())
     fill = data[2].float().mean().item()
-    log(f"ERNIE setup: {cfg.num_layers} layers, hidden {cfg.hidden_size}, "
+    log(f"ERNIE setup ({amp_level or 'fp32'}): {cfg.num_layers} layers, "
+        f"hidden {cfg.hidden_size}, "
         f"heads {cfg.num_heads}, ffn {cfg.ffn_hidden}, vocab "
         f"{cfg.vocab_size}, {n_params / 1e6:.2f} M fp32 params (decoder tied "
         f"to the word embedding; with gradients and two AdamW moments "
         f"{16 * n_params / 1e9:.2f} GB), batch [{batch}, {seq}] at "
         f"{100 * fill:.1f} % fill, {time.perf_counter() - t0:.1f} s")
 
-    for counts in (*fa.COUNTS.values(), *fa.COUNTS_MASKED.values()):
-        counts.reset()
+    fa.reset_counts()
     losses = []
 
     def one_step():
-        before = _flash_counts(masked=True)
+        before = _flash_counts(masked=True, bf16=bf16)
         losses.append(trainer(*data))
-        after = _flash_counts(masked=True)
+        after = _flash_counts(masked=True, bf16=bf16)
         for name in after:
             if after[name][0] - before[name][0] != cfg.num_layers:
                 raise AssertionError(
@@ -2062,15 +2442,15 @@ def ernie_trainer_phase(cfg, seed=0, batch=16, seq=512, warmup=2, steps=6):
             one_step()
         torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t) / steps
-    masked = _flash_counts(masked=True)
-    dense = _flash_counts()
+    masked = _flash_counts(masked=True, bf16=bf16)
     launches = {name: kl for name, (kl, _) in masked.items()}
-    others = sum(kl + pl for kl, pl in dense.values()) + \
-        sum(pl for _, pl in masked.values())
-    values = [x.item() for x in losses]
+    others = _other_flash_launches(True, bf16)
+    values = [x.float().item() for x in losses]
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"ERNIE losses: {[round(x, 5) for x in values]}")
-    log(f"ERNIE run: {warmup} warm-up + {steps} timed steps, mean step "
+    log(f"ERNIE losses ({amp_level or 'fp32'}, {losses[0].dtype}): "
+        f"{[round(x, 5) for x in values]}")
+    log(f"ERNIE run ({amp_level or 'fp32'}): {warmup} warm-up + {steps} "
+        f"timed steps, mean step "
         f"{step_ms:.1f} ms = {batch * seq / step_ms * 1e3:.1f} tokens/s "
         f"({batch * seq} tokens a step, pads included), peak memory "
         f"{peak:.2f} GiB, masked flash launches {launches} "
@@ -2185,9 +2565,11 @@ def _kernel_label(mangled: str) -> str:
 # of them the build must hold (the ragged span form's second argument is
 # the pool type: 0 fp32, 1 int8, 2 fp8)
 TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                       "flash_bwd_dkv_kernel", "ragged_span_kernel")
+                       "flash_bwd_dkv_kernel", "flash_fwd_bf16_kernel",
+                       "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
+                       "ragged_span_kernel")
 TENSOR_CORE_INSTANTIATIONS = (
-    *(f"{k}<{d}>" for k in TENSOR_CORE_KERNELS[:3] for d in (64, 128, 256)),
+    *(f"{k}<{d}>" for k in TENSOR_CORE_KERNELS[:6] for d in (64, 128, 256)),
     *(f"ragged_span_kernel<{d},{kv}>" for d in (128, 256) for kv in range(3)))
 
 
@@ -2249,6 +2631,9 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 matmuls (AMP) sum in fp32 throughout, as XLA's do: no bf16
+    # rounding of cuBLAS's split-K partial sums
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     card = gpu_line()
     log(f"device: {card} | torch {torch.__version__} cuda "
@@ -2398,6 +2783,35 @@ def main() -> int:
     acc_masked = check_vs_fp64(gen, h=12, d=64, causal=False, att=data[2])
     _free_the_card()
     masked = measure_flash(gen, h=12, d=64, causal=False, att=data[2])
+    _free_the_card()
+
+    # the bf16 AMP paths: the bf16 kernels, ERNIE and Llama at O1, O2
+    bf16_checks = bf16_flash_checks(gen, data[2])
+    flash_bf16 = measure_flash(gen, dtype=torch.bfloat16)
+    _free_the_card()
+    masked_bf16 = measure_flash(gen, h=12, d=64, causal=False, att=data[2],
+                                dtype=torch.bfloat16)
+    _free_the_card()
+    ernie, data_o1, masked_bf16_launches = ernie_trainer_phase(
+        ERNIE3_BASE, amp_level="O1")
+    train_profile_phase(ernie, data_o1, ERNIE3_BASE.num_layers,
+                        ernie_matmul_weights(ernie.model), "ERNIE O1",
+                        masked=True, bf16=True)
+    del ernie, data_o1
+    _free_the_card()
+    trainer, batch, bf16_launches = trainer_phase(train_cfg, amp_level="O1")
+    train_profile_phase(
+        trainer, batch, train_cfg.num_layers,
+        sum(p.numel() for n, p in trainer.model.named_parameters()
+            if p.dim() == 2 and n != "embed_tokens.weight"), "training O1",
+        bf16=True)
+    del trainer, batch
+    _free_the_card()
+    o2_phase(replace(cfg, num_layers=2))
+    _free_the_card()
+    amp_twins_phase(replace(cfg, num_layers=2))
+    _free_the_card()
+
     for label, times, launches, errs in (
             ("", flash, flash_launches, (flash_err, acc)),
             ("_masked", masked, masked_launches, (masked_err, acc_masked))):
@@ -2410,6 +2824,17 @@ def main() -> int:
             if name == "flash_forward":
                 row["fp64_ratio"] = errs[1]["fwd_fp64_ratio"]
             rows.append(row)
+    for label, times, launches, kind in (
+            ("_bf16", flash_bf16, bf16_launches, "dense"),
+            ("_masked_bf16", masked_bf16, masked_bf16_launches, "masked")):
+        for name, replaces in FLASH_KERNELS:
+            rows.append({"name": name + label, "route": "cuda",
+                         "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+                         "replaces": replaces, "launches": launches[name],
+                         "max_abs_err": bf16_checks[kind]["err"][name],
+                         **times[name],
+                         "fp64_ratio": bf16_checks[kind]["ratio"][name],
+                         "misround": bf16_checks[kind]["misround"][name]})
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

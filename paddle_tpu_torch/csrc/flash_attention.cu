@@ -1,4 +1,5 @@
-// Flash attention forward and backward (fp32) for Hopper, sm_90a.
+// Flash attention forward and backward (fp32, and bf16 for AMP) for
+// Hopper, sm_90a.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py ::
 //   _flash_forward (kernel _flash_fwd_kernel)          -> flash_fwd_kernel
@@ -109,14 +110,15 @@
 //   are. The backward's every warp splits every operand element it
 //   reads; splitting its own-side tiles once, as the forward does, needs
 //   two planes for each of two tiles and does not fit at d = 128.
-// - bf16 operands (ROADMAP item 16) fit the same layout: a bf16 tile
-//   loads into the same rows, and a bf16 mma needs no split.
+// - bf16 operands (AMP): the bf16 instantiations at the end of this file,
+//   the same walk with bf16 tiles and bf16 mma (bf16_mma.cuh).
 // wgmma and TMA are not used: mma.sync keeps the fragments in registers,
 // where the masks and the softmax apply element by element.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -812,6 +814,427 @@ Dims make_dims(int H, int Sq, int Sk, int d, float scale, int causal,
               static_cast<const int*>(block_mask), bq, bk};
 }
 
+// ==================================================== bf16 instantiations
+//
+// The same three kernels for bf16 q, k, v, o, do, dq, dk, dv (AMP): the
+// same grid, tile walk (causal skip, block-mask skip, heaviest tiles
+// first), masks and fp32 softmax as the fp32 kernels above, with lse,
+// delta and the masks fp32. They replace the same Pallas kernels at bf16,
+// which upcast each tile to fp32, compute in fp32 and write o, dq, dk and
+// dv in the input dtype: here the products run on bf16 tensor cores with
+// fp32 accumulators (bf16_mma.cuh; P and dS, fp32 in registers, split in
+// two bf16 terms), and the outputs are rounded to bf16 once, at the end.
+//
+// Tiles hold bf16 rows (bf_ld), half the bytes of the fp32 kernels' rows,
+// so every operand tile is staged whole and double-buffered with
+// cp.async, the forward's K and V too (no planes: nothing is split), and
+// P and dS never leave registers: a C fragment pair is an A fragment
+// (bf16_mma.cuh). Fragments come through ldmatrix (.trans for the operands
+// contracted over their rows). What bounds them is still mma.sync's rate
+// and 8 warps per SM; the operand split of P and dS doubles the products
+// of P V, dS K, P^T dO and dS^T Q (not counted in the bound, which is the
+// JAX kernel's FLOPs at the dense bf16 rate). wgmma and TMA are later work.
+
+// BM rows of the block's own side, BN (forward) and BNB (backward) rows
+// of the streamed side per stage, WN warps sharing each 16 rows.
+template <int MAXD>
+struct TilesBf;
+template <>
+struct TilesBf<64> {
+  static constexpr int BM = 128, BN = 64, BNB = 32, WN = 1, kMinBlocks = 2;
+};
+template <>
+struct TilesBf<128> {
+  static constexpr int BM = 128, BN = 64, BNB = 32, WN = 1, kMinBlocks = 1;
+};
+template <>
+struct TilesBf<256> {
+  static constexpr int BM = 64, BN = 32, BNB = 16, WN = 2, kMinBlocks = 1;
+};
+
+// Start copying rows [row0, row0 + R) of a bf16 [B, S, H, d] tensor (base
+// at (b, 0, head, 0)) into a tile of row stride ld: columns up to d
+// rounded to 16, the ones past d and rows at or past n_valid zero-filled.
+template <int R, int NTHR>
+__device__ __forceinline__ void load_tile_bf16(uint16_t* dst,
+                                               const uint16_t* base,
+                                               int row0, int n_valid, int d,
+                                               int ld, int64_t row_stride) {
+  const int gpr = ((d + 15) & ~15) >> 3;   // 16-byte granules per row
+  for (int idx = threadIdx.x; idx < R * gpr; idx += NTHR) {
+    const int r = idx / gpr, c = 8 * (idx - r * gpr);
+    const bool valid = r < n_valid && c < d;
+    cp_async16(dst + r * ld + c,
+               valid ? base + (int64_t)(row0 + r) * row_stride + c : base,
+               valid);
+  }
+}
+
+// A warp's accumulators of rows row0 + g, + 8 and columns c0 + 8 j + 2 t,
+// times `mul` and rounded to bf16, into a bf16 [B, S, H, d] output (base at
+// (b, 0, head, 0)), rows below n_rows.
+template <int NTO>
+__device__ __forceinline__ void store_frags_bf16(uint16_t* base,
+                                                 int64_t row_stride,
+                                                 const float (&acc)[NTO][4],
+                                                 const float (&mul)[2],
+                                                 int row0, int n_rows,
+                                                 int c0, int d, int g,
+                                                 int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
+    if (row < n_rows) {
+      uint16_t* dst = base + (int64_t)row * row_stride;
+#pragma unroll
+      for (int j = 0; j < NTO; ++j) {
+        const int col = c0 + 8 * j + 2 * t;
+        if (col < d) {
+          *reinterpret_cast<uint32_t*>(dst + col) = pack_bf16(
+              acc[j][2 * h] * mul[h], acc[j][2 * h + 1] * mul[h]);
+        }
+      }
+    }
+  }
+}
+
+template <int MAXD>
+__global__ void __launch_bounds__(kThreads, TilesBf<MAXD>::kMinBlocks)
+flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
+                      const uint16_t* __restrict__ k,
+                      const uint16_t* __restrict__ v,
+                      uint16_t* __restrict__ o, float* __restrict__ lse,
+                      Dims dm) {
+  constexpr int BM = TilesBf<MAXD>::BM, BN = TilesBf<MAXD>::BN;
+  constexpr int WN = TilesBf<MAXD>::WN;
+  constexpr int NTHR = kThreads, WM = BM / 16;
+  static_assert(32 * WM * WN == NTHR, "a warp for each 16 rows and WN");
+  constexpr int NT = BN / 8, NTO = MAXD / WN / 8;
+  extern __shared__ float4 smem4[];
+  const int d = dm.d, ld = bf_ld(d);
+  uint16_t* qs = reinterpret_cast<uint16_t*>(smem4);   // [BM][ld]
+  uint16_t* ks = qs + BM * ld;                          // [2][BN][ld]
+  uint16_t* vs = ks + 2 * BN * ld;                      // [2][BN][ld]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = 16 * (warp % WM);
+  const int c0 = WN == 1 ? 0 : (warp / WM) * (MAXD / WN);
+
+  const int bh = blockIdx.x, b = bh / dm.H, head = bh - b * dm.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // heaviest tile first
+  const int64_t rs = (int64_t)dm.H * d;
+  const int64_t qoff = ((int64_t)b * dm.Sq * dm.H + head) * d;
+  const int64_t koff = ((int64_t)b * dm.Sk * dm.H + head) * d;
+
+  const int kend = key_end(q0, BM, dm);
+  int k0 = live_key_tile<BN>(q0, 0, kend, dm);
+  load_tile_bf16<BM, NTHR>(qs, q + qoff, q0, dm.Sq - q0, d, ld, rs);
+  if (k0 < kend) {
+    load_tile_bf16<BN, NTHR>(ks, k + koff, k0, dm.Sk - k0, d, ld, rs);
+    load_tile_bf16<BN, NTHR>(vs, v + koff, k0, dm.Sk - k0, d, ld, rs);
+  }
+  cp_async_commit();
+
+  // rows g (h = 0) and g + 8 (h = 1): running max, this lane's partial sum
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[NTO][4];
+#pragma unroll
+  for (int j = 0; j < NTO; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  }
+
+  for (int stage = 0; k0 < kend; stage ^= 1) {
+    // the next live tile's copy into the other stage runs under this
+    // tile's products
+    const int kn = live_key_tile<BN>(q0, k0 + BN, kend, dm);
+    if (kn < kend) {
+      const int so = (stage ^ 1) * BN * ld;
+      load_tile_bf16<BN, NTHR>(ks + so, k + koff, kn, dm.Sk - kn, d, ld, rs);
+      load_tile_bf16<BN, NTHR>(vs + so, v + koff, kn, dm.Sk - kn, d, ld, rs);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const uint16_t* kt = ks + stage * BN * ld;
+    const uint16_t* vt = vs + stage * BN * ld;
+    float s[NT][4];
+    mma_xyt_bf16<NT, MAXD>(s, qs, m0, kt, ld, d, lane);
+    frag_scores<false>(s, b, head, q0 + m0 + g, k0 + 2 * t, dm);
+    online_softmax(s, m, l, acc);
+    mma_cz_bf16<NT, NTO>(acc, s, vt, c0, ld, d, lane);
+    __syncthreads();   // this stage is consumed before it is refilled
+    k0 = kn;
+  }
+  cp_async_wait<0>();
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const float den = fmaxf(l[h], 1e-30f);
+    inv[h] = 1.f / den;
+    const int row = q0 + m0 + g + 8 * h;
+    if (row < dm.Sq && t == 0 && c0 == 0) {
+      lse[(int64_t)bh * dm.Sq + row] = m[h] + logf(den);
+    }
+  }
+  store_frags_bf16<NTO>(o + qoff, rs, acc, inv, q0 + m0, dm.Sq, c0, d, g,
+                        t);
+}
+
+template <int MAXD>
+__global__ void __launch_bounds__(kThreads, TilesBf<MAXD>::kMinBlocks)
+flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q,
+                         const uint16_t* __restrict__ k,
+                         const uint16_t* __restrict__ v,
+                         const uint16_t* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         uint16_t* __restrict__ dq, Dims dm) {
+  constexpr int BM = TilesBf<MAXD>::BM, BN = TilesBf<MAXD>::BNB;
+  constexpr int WN = TilesBf<MAXD>::WN;
+  constexpr int NTHR = kThreads, WM = BM / 16;
+  static_assert(32 * WM * WN == NTHR, "a warp for each 16 rows and WN");
+  constexpr int NT = BN / 8, NTO = MAXD / WN / 8;
+  extern __shared__ float4 smem4[];
+  const int d = dm.d, ld = bf_ld(d);
+  uint16_t* qs = reinterpret_cast<uint16_t*>(smem4);   // [BM][ld]
+  uint16_t* dos = qs + BM * ld;                         // [BM][ld]
+  uint16_t* ks = dos + BM * ld;                         // [2][BN][ld]
+  uint16_t* vs = ks + 2 * BN * ld;                      // [2][BN][ld]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = 16 * (warp % WM);
+  const int c0 = WN == 1 ? 0 : (warp / WM) * (MAXD / WN);
+
+  const int bh = blockIdx.x, b = bh / dm.H, head = bh - b * dm.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // heaviest tile first
+  const int64_t rs = (int64_t)dm.H * d;
+  const int64_t qoff = ((int64_t)b * dm.Sq * dm.H + head) * d;
+  const int64_t koff = ((int64_t)b * dm.Sk * dm.H + head) * d;
+
+  const int kend = key_end(q0, BM, dm);
+  int k0 = live_key_tile<BN>(q0, 0, kend, dm);
+  load_tile_bf16<BM, NTHR>(qs, q + qoff, q0, dm.Sq - q0, d, ld, rs);
+  load_tile_bf16<BM, NTHR>(dos, dout + qoff, q0, dm.Sq - q0, d, ld, rs);
+  if (k0 < kend) {
+    load_tile_bf16<BN, NTHR>(ks, k + koff, k0, dm.Sk - k0, d, ld, rs);
+    load_tile_bf16<BN, NTHR>(vs, v + koff, k0, dm.Sk - k0, d, ld, rs);
+  }
+  cp_async_commit();
+
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + m0 + g + 8 * h;
+    row_lse[h] = row < dm.Sq ? lse[(int64_t)bh * dm.Sq + row] : 0.f;
+    row_delta[h] = row < dm.Sq ? delta[(int64_t)bh * dm.Sq + row] : 0.f;
+  }
+  float acc[NTO][4];
+#pragma unroll
+  for (int j = 0; j < NTO; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  }
+
+  for (int stage = 0; k0 < kend; stage ^= 1) {
+    const int kn = live_key_tile<BN>(q0, k0 + BN, kend, dm);
+    if (kn < kend) {
+      const int so = (stage ^ 1) * BN * ld;
+      load_tile_bf16<BN, NTHR>(ks + so, k + koff, kn, dm.Sk - kn, d, ld, rs);
+      load_tile_bf16<BN, NTHR>(vs + so, v + koff, kn, dm.Sk - kn, d, ld, rs);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const uint16_t* kt = ks + stage * BN * ld;
+    const uint16_t* vt = vs + stage * BN * ld;
+    float s[NT][4], dp[NT][4];
+    mma_xyt_bf16<NT, MAXD>(s, qs, m0, kt, ld, d, lane);
+    mma_xyt_bf16<NT, MAXD>(dp, dos, m0, vt, ld, d, lane);
+    frag_scores<false>(s, b, head, q0 + m0 + g, k0 + 2 * t, dm);
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float sv = s[i][r];
+        const float p = sv <= kMaskedBelow ? 0.f : expf(sv - row_lse[r >> 1]);
+        dp[i][r] = dm.scale * (p * (dp[i][r] - row_delta[r >> 1]));
+      }
+    }
+    mma_cz_bf16<NT, NTO>(acc, dp, kt, c0, ld, d, lane);
+    __syncthreads();   // this stage is consumed before it is refilled
+    k0 = kn;
+  }
+  cp_async_wait<0>();
+  const float one[2] = {1.f, 1.f};
+  store_frags_bf16<NTO>(dq + qoff, rs, acc, one, q0 + m0, dm.Sq, c0, d, g,
+                        t);
+}
+
+template <int MAXD>
+__global__ void __launch_bounds__(kThreads, TilesBf<MAXD>::kMinBlocks)
+flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q,
+                          const uint16_t* __restrict__ k,
+                          const uint16_t* __restrict__ v,
+                          const uint16_t* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          uint16_t* __restrict__ dk,
+                          uint16_t* __restrict__ dv, Dims dm) {
+  constexpr int BM = TilesBf<MAXD>::BM, BN = TilesBf<MAXD>::BNB;
+  constexpr int WN = TilesBf<MAXD>::WN;
+  constexpr int NTHR = kThreads, WM = BM / 16;
+  static_assert(32 * WM * WN == NTHR, "a warp for each 16 rows and WN");
+  constexpr int NT = BN / 8, NTO = MAXD / WN / 8;
+  extern __shared__ float4 smem4[];
+  const int d = dm.d, ld = bf_ld(d);
+  uint16_t* ks = reinterpret_cast<uint16_t*>(smem4);   // [BM][ld], keys
+  uint16_t* vs = ks + BM * ld;                          // [BM][ld]
+  uint16_t* qs = vs + BM * ld;        // [2][BN][ld], stages of query rows
+  uint16_t* dos = qs + 2 * BN * ld;   // [2][BN][ld]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * BN * ld);   // [2][BN]
+  float* delta_s = lse_s + 2 * BN;                              // [2][BN]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = 16 * (warp % WM);
+  const int c0 = WN == 1 ? 0 : (warp / WM) * (MAXD / WN);
+
+  const int bh = blockIdx.x, b = bh / dm.H, head = bh - b * dm.H;
+  const int k0 = blockIdx.y * BM;   // the first key tiles see the most rows
+  const int64_t rs = (int64_t)dm.H * d;
+  const int64_t qoff = ((int64_t)b * dm.Sq * dm.H + head) * d;
+  const int64_t koff = ((int64_t)b * dm.Sk * dm.H + head) * d;
+  const float* lse_b = lse + (int64_t)bh * dm.Sq;
+  const float* delta_b = delta + (int64_t)bh * dm.Sq;
+
+  int qstart = 0;
+  if (dm.causal) qstart = max(0, k0 - (dm.Sk - dm.Sq)) / BN * BN;
+  int q0 = live_query_tile<BN>(qstart, k0, dm);
+
+  auto load_rows_of = [&](int q1, int st) {
+    const int so = st * BN * ld;
+    load_tile_bf16<BN, NTHR>(qs + so, q + qoff, q1, dm.Sq - q1, d, ld, rs);
+    load_tile_bf16<BN, NTHR>(dos + so, dout + qoff, q1, dm.Sq - q1, d, ld,
+                             rs);
+    for (int r = threadIdx.x; r < BN; r += NTHR) {
+      const bool valid = q1 + r < dm.Sq;
+      cp_async4(lse_s + st * BN + r, valid ? lse_b + q1 + r : lse_b, valid);
+      cp_async4(delta_s + st * BN + r, valid ? delta_b + q1 + r : delta_b,
+                valid);
+    }
+  };
+  load_tile_bf16<BM, NTHR>(ks, k + koff, k0, dm.Sk - k0, d, ld, rs);
+  load_tile_bf16<BM, NTHR>(vs, v + koff, k0, dm.Sk - k0, d, ld, rs);
+  if (q0 < dm.Sq) load_rows_of(q0, 0);
+  cp_async_commit();
+
+  float dk_acc[NTO][4], dv_acc[NTO][4];
+#pragma unroll
+  for (int j = 0; j < NTO; ++j) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) dk_acc[j][r] = dv_acc[j][r] = 0.f;
+  }
+
+  for (int stage = 0; q0 < dm.Sq; stage ^= 1) {
+    const int qn = live_query_tile<BN>(q0 + BN, k0, dm);
+    if (qn < dm.Sq) load_rows_of(qn, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const uint16_t* qt = qs + stage * BN * ld;
+    const uint16_t* dot = dos + stage * BN * ld;
+    const float* lse_t = lse_s + stage * BN;
+    const float* delta_t = delta_s + stage * BN;
+    // transposed scores: rows are this block's keys, columns the queries
+    float st[NT][4], dpt[NT][4];
+    mma_xyt_bf16<NT, MAXD>(st, ks, m0, qt, ld, d, lane);
+    mma_xyt_bf16<NT, MAXD>(dpt, vs, m0, dot, ld, d, lane);
+    frag_scores<true>(st, b, head, k0 + m0 + g, q0 + 2 * t, dm);
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int n = 8 * i + 2 * t + (r & 1);
+        const float sv = st[i][r];
+        const float p = sv <= kMaskedBelow ? 0.f : expf(sv - lse_t[n]);
+        st[i][r] = p;
+        dpt[i][r] = dm.scale * (p * (dpt[i][r] - delta_t[n]));
+      }
+    }
+    mma_cz_bf16<NT, NTO>(dv_acc, st, dot, c0, ld, d, lane);
+    mma_cz_bf16<NT, NTO>(dk_acc, dpt, qt, c0, ld, d, lane);
+    __syncthreads();   // this stage is consumed before it is refilled
+    q0 = qn;
+  }
+  cp_async_wait<0>();
+  const float one[2] = {1.f, 1.f};
+  store_frags_bf16<NTO>(dk + koff, rs, dk_acc, one, k0 + m0, dm.Sk, c0, d, g,
+                        t);
+  store_frags_bf16<NTO>(dv + koff, rs, dv_acc, one, k0 + m0, dm.Sk, c0, d, g,
+                        t);
+}
+
+// Shared memory of the bf16 kernels, in bytes.
+template <int MAXD>
+size_t fwd_bf16_bytes(int d) {
+  constexpr int BM = TilesBf<MAXD>::BM, BN = TilesBf<MAXD>::BN;
+  return 2 * (size_t)(BM + 4 * BN) * bf_ld(d);
+}
+
+template <int MAXD>
+size_t bwd_bf16_bytes(int d, int extra_floats) {
+  constexpr int BM = TilesBf<MAXD>::BM, BN = TilesBf<MAXD>::BNB;
+  return 2 * (size_t)(2 * BM + 4 * BN) * bf_ld(d) +
+         sizeof(float) * (size_t)extra_floats;
+}
+
+template <int MAXD>
+cudaError_t launch_fwd_bf16(const uint16_t* q, const uint16_t* k,
+                            const uint16_t* v, uint16_t* o, float* lse,
+                            int B, const Dims& dm, cudaStream_t st) {
+  constexpr int BM = TilesBf<MAXD>::BM;
+  const size_t smem = fwd_bf16_bytes<MAXD>(dm.d);
+  cudaError_t err = opt_in(flash_fwd_bf16_kernel<MAXD>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * dm.H, (dm.Sq + BM - 1) / BM);
+  flash_fwd_bf16_kernel<MAXD><<<grid, kThreads, smem, st>>>(q, k, v, o, lse,
+                                                            dm);
+  return cudaGetLastError();
+}
+
+template <int MAXD>
+cudaError_t launch_dq_bf16(const uint16_t* q, const uint16_t* k,
+                           const uint16_t* v, const uint16_t* dout,
+                           const float* lse, const float* delta,
+                           uint16_t* dq, int B, const Dims& dm,
+                           cudaStream_t st) {
+  constexpr int BM = TilesBf<MAXD>::BM;
+  const size_t smem = bwd_bf16_bytes<MAXD>(dm.d, 0);
+  cudaError_t err = opt_in(flash_bwd_dq_bf16_kernel<MAXD>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * dm.H, (dm.Sq + BM - 1) / BM);
+  flash_bwd_dq_bf16_kernel<MAXD><<<grid, kThreads, smem, st>>>(
+      q, k, v, dout, lse, delta, dq, dm);
+  return cudaGetLastError();
+}
+
+template <int MAXD>
+cudaError_t launch_dkv_bf16(const uint16_t* q, const uint16_t* k,
+                            const uint16_t* v, const uint16_t* dout,
+                            const float* lse, const float* delta,
+                            uint16_t* dk, uint16_t* dv, int B,
+                            const Dims& dm, cudaStream_t st) {
+  constexpr int BM = TilesBf<MAXD>::BM;
+  const size_t smem = bwd_bf16_bytes<MAXD>(dm.d, 4 * TilesBf<MAXD>::BNB);
+  cudaError_t err = opt_in(flash_bwd_dkv_bf16_kernel<MAXD>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * dm.H, (dm.Sk + BM - 1) / BM);
+  flash_bwd_dkv_bf16_kernel<MAXD><<<grid, kThreads, smem, st>>>(
+      q, k, v, dout, lse, delta, dk, dv, dm);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Every entry point takes the five masking operands (null = absent) after
@@ -894,4 +1317,90 @@ extern "C" int flash_attention_bwd_dkv_f32(
     return (int)launch_dkv<128>(qf, kf, vf, df, lf, ef, kg, vg, B, dm, st);
   }
   return (int)launch_dkv<256>(qf, kf, vf, df, lf, ef, kg, vg, B, dm, st);
+}
+
+// The bf16 instantiations: the same arguments, with q, k, v, o / dout, dq,
+// dk and dv bf16 (lse, delta and the masks fp32).
+
+extern "C" int flash_attention_fwd_bf16(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* mask, const void* kbias, const void* qseg, const void* kseg,
+    const void* block_mask, int B, int H, int Sq, int Sk, int d, int mh,
+    int bq, int bk, float scale, int causal, void* stream) {
+  const Dims dm = make_dims(H, Sq, Sk, d, scale, causal, mask, mh, kbias,
+                            qseg, kseg, block_mask, bq, bk);
+  if (!shapes_ok(dm, B)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || Sq == 0) return (int)cudaSuccess;
+  if (Sk == 0) return (int)cudaErrorInvalidValue;
+  const uint16_t* qh = static_cast<const uint16_t*>(q);
+  const uint16_t* kh = static_cast<const uint16_t*>(k);
+  const uint16_t* vh = static_cast<const uint16_t*>(v);
+  uint16_t* oh = static_cast<uint16_t*>(o);
+  float* lf = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d <= 64) return (int)launch_fwd_bf16<64>(qh, kh, vh, oh, lf, B, dm, st);
+  if (d <= 128) {
+    return (int)launch_fwd_bf16<128>(qh, kh, vh, oh, lf, B, dm, st);
+  }
+  return (int)launch_fwd_bf16<256>(qh, kh, vh, oh, lf, B, dm, st);
+}
+
+extern "C" int flash_attention_bwd_dq_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, const void* mask,
+    const void* kbias, const void* qseg, const void* kseg,
+    const void* block_mask, int B, int H, int Sq, int Sk, int d, int mh,
+    int bq, int bk, float scale, int causal, void* stream) {
+  const Dims dm = make_dims(H, Sq, Sk, d, scale, causal, mask, mh, kbias,
+                            qseg, kseg, block_mask, bq, bk);
+  if (!shapes_ok(dm, B)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || Sq == 0) return (int)cudaSuccess;
+  if (Sk == 0) return (int)cudaErrorInvalidValue;
+  const uint16_t* qh = static_cast<const uint16_t*>(q);
+  const uint16_t* kh = static_cast<const uint16_t*>(k);
+  const uint16_t* vh = static_cast<const uint16_t*>(v);
+  const uint16_t* dh = static_cast<const uint16_t*>(dout);
+  const float* lf = static_cast<const float*>(lse);
+  const float* ef = static_cast<const float*>(delta);
+  uint16_t* gh = static_cast<uint16_t*>(dq);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d <= 64) {
+    return (int)launch_dq_bf16<64>(qh, kh, vh, dh, lf, ef, gh, B, dm, st);
+  }
+  if (d <= 128) {
+    return (int)launch_dq_bf16<128>(qh, kh, vh, dh, lf, ef, gh, B, dm, st);
+  }
+  return (int)launch_dq_bf16<256>(qh, kh, vh, dh, lf, ef, gh, B, dm, st);
+}
+
+extern "C" int flash_attention_bwd_dkv_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, const void* mask,
+    const void* kbias, const void* qseg, const void* kseg,
+    const void* block_mask, int B, int H, int Sq, int Sk, int d, int mh,
+    int bq, int bk, float scale, int causal, void* stream) {
+  const Dims dm = make_dims(H, Sq, Sk, d, scale, causal, mask, mh, kbias,
+                            qseg, kseg, block_mask, bq, bk);
+  if (!shapes_ok(dm, B)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || Sk == 0) return (int)cudaSuccess;
+  if (Sq == 0) return (int)cudaErrorInvalidValue;
+  const uint16_t* qh = static_cast<const uint16_t*>(q);
+  const uint16_t* kh = static_cast<const uint16_t*>(k);
+  const uint16_t* vh = static_cast<const uint16_t*>(v);
+  const uint16_t* dh = static_cast<const uint16_t*>(dout);
+  const float* lf = static_cast<const float*>(lse);
+  const float* ef = static_cast<const float*>(delta);
+  uint16_t* kg = static_cast<uint16_t*>(dk);
+  uint16_t* vg = static_cast<uint16_t*>(dv);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d <= 64) {
+    return (int)launch_dkv_bf16<64>(qh, kh, vh, dh, lf, ef, kg, vg, B, dm,
+                                    st);
+  }
+  if (d <= 128) {
+    return (int)launch_dkv_bf16<128>(qh, kh, vh, dh, lf, ef, kg, vg, B, dm,
+                                     st);
+  }
+  return (int)launch_dkv_bf16<256>(qh, kh, vh, dh, lf, ef, kg, vg, B, dm,
+                                   st);
 }

@@ -14,7 +14,9 @@ fc1(x)))); a tanh pooler over the first token. Attention is one fused
 QKV projection, bidirectional, through
 ``ops.impl.scaled_dot_product_attention`` with the additive mask
 ``(1 - attention_mask) * -1e4`` of shape [b, 1, 1, s], which the flash
-kernels take as a per-key bias (the K3-m kernels on the card).
+kernels take as a per-key bias (the K3-m kernels on the card). The mask
+stays fp32 under AMP, as in the JAX model (a plain array there, which the
+registry's cast does not touch).
 
 Modules are built on an explicit ``device`` (default ``"cuda"``) with
 seeded random weights: N(0, 0.02) for the embeddings and the encoder's
@@ -156,7 +158,10 @@ class ErnieAttention(nn.Module):
         b, s, h = x.shape
         qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, self.head_dim)
         q, k, v = qkv.unbind(dim=2)
-        out = impl.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)
+        # the JAX model passes its mask as a plain array, which AMP does
+        # not cast: the kernels see it in fp32 at every level
+        out = impl.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                                cast_mask=False)
         return self.drop(self.out(out.reshape(b, s, h)))
 
 
@@ -252,7 +257,8 @@ class ErniePretrainingHeads(nn.Module):
     def forward(self, sequence_output, pooled_output, decoder_weight):
         x = self.layer_norm(impl.gelu(self.transform(sequence_output),
                                       approximate=True))
-        scores = torch.matmul(x, decoder_weight.t()) + self.decoder_bias
+        scores = impl.matmul(x, decoder_weight, transpose_y=True) \
+            + self.decoder_bias
         return scores, self.seq_relationship(pooled_output)
 
 

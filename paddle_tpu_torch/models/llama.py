@@ -196,7 +196,7 @@ class Llama(nn.Module):
             x = blk(x)
         x = self.norm(x)
         if self.cfg.tie_embeddings:
-            return x @ self.embed_tokens.weight.T
+            return impl.matmul(x, self.embed_tokens.weight, transpose_y=True)
         return self.lm_head(x)
 
 

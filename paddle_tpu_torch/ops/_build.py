@@ -51,6 +51,11 @@ SIGNATURES = {
     "flash_attention_fwd_f32": [_P] * 10 + [_I] * 8 + [_F, _I, _P],
     "flash_attention_bwd_dq_f32": [_P] * 12 + [_I] * 8 + [_F, _I, _P],
     "flash_attention_bwd_dkv_f32": [_P] * 13 + [_I] * 8 + [_F, _I, _P],
+    # their bf16 instantiations: the same arguments, q, k, v, o, do, dq,
+    # dk and dv bf16 (lse, delta and the masks fp32)
+    "flash_attention_fwd_bf16": [_P] * 10 + [_I] * 8 + [_F, _I, _P],
+    "flash_attention_bwd_dq_bf16": [_P] * 12 + [_I] * 8 + [_F, _I, _P],
+    "flash_attention_bwd_dkv_bf16": [_P] * 13 + [_I] * 8 + [_F, _I, _P],
 }
 
 
@@ -161,12 +166,22 @@ def check(err: int, name: str) -> None:
 CODE_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 
-def require_launchable(name: str, floats, ints, codes=(), scales=()) -> None:
+def require_launchable(name: str, floats, ints, codes=(), scales=(),
+                       halves=()) -> None:
     """What every kernel here takes: fp32 float operands and int32 index
     operands, all contiguous, float operands 16-byte aligned (the kernels
     read them as float4); 1-byte code operands (int8 or float8_e4m3fn
     pools, one dtype) contiguous and 4-byte aligned (read 4 at a time);
-    fp32 scale operands contiguous and 4-byte aligned (read one by one)."""
+    fp32 scale operands contiguous and 4-byte aligned (read one by one);
+    bf16 operands (the flash kernels' bf16 instantiations) contiguous and
+    16-byte aligned (read 8 at a time)."""
+    if any(t.dtype != torch.bfloat16 for t in halves):
+        raise TypeError(f"{name}: half operands must be bf16, got "
+                        f"{[str(t.dtype) for t in halves]}")
+    if not all(t.is_contiguous() for t in halves):
+        raise ValueError(f"{name} needs contiguous operands")
+    if any(t.data_ptr() % 16 for t in halves):
+        raise ValueError(f"{name}: bf16 operands must be 16-byte aligned")
     if any(t.dtype != torch.float32 for t in (*floats, *scales)):
         raise TypeError(f"{name}: the CUDA kernel takes fp32 operands, got "
                         f"{[str(t.dtype) for t in (*floats, *scales)]}")

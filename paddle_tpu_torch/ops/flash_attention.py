@@ -49,10 +49,22 @@ visible key comes out as zeros with zero gradient.
                             mirrored on the CPU (the plain versions compute
                             in fp32, or fp64 for fp64 operands)
 
+Operand dtypes: q, k, v (and o, do) are all fp32 or all bf16 (AMP); lse
+and delta are fp32 either way, and so are the mask and the per-key bias.
+bf16 operands launch the bf16 instantiations of the three kernels (`*_bf16`
+entry points): products on bf16 tensor cores with fp32 accumulators, the
+softmax, lse and delta in fp32, o, dq, dk and dv rounded to bf16 once at
+the end, as the JAX kernels upcast each bf16 tile to fp32 and write their
+outputs in the input dtype. The plain versions do the same (fp32 compute,
+outputs in the input dtype). Mixed operand dtypes raise.
+
 On CUDA tensors the wrappers launch the hand-written kernels in
 csrc/flash_attention.cu or raise; on CPU tensors they run the plain
-versions. `COUNTS` holds one LaunchCounts per kernel for the dense forms,
-`COUNTS_MASKED` the same for calls with any masking operand.
+versions. `COUNTS` holds one LaunchCounts per kernel for each form,
+keyed by (masked, operand dtype): masked is a call with any masking
+operand, and the dtype fp32 or bf16. `counts_for` looks a form up and
+`reset_counts` sets them all to 0, so a run can tell which instantiation
+ran.
 """
 
 from __future__ import annotations
@@ -75,8 +87,24 @@ MAX_HEAD_DIM = 256
 JAX_BLOCK = 128
 
 _KERNELS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
-COUNTS = {name: LaunchCounts() for name in _KERNELS}
-COUNTS_MASKED = {name: LaunchCounts() for name in _KERNELS}
+# the operand dtypes the kernels take, and each one's entry-point suffix
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+COUNTS = {(masked, dtype): {name: LaunchCounts() for name in _KERNELS}
+          for masked in (False, True) for dtype in _SUFFIX}
+
+
+def counts_for(masked: bool, dtype=torch.float32) -> dict:
+    """The LaunchCounts of one form: dense or masked, bf16 or not (the
+    plain versions' fp64 calls count with fp32)."""
+    return COUNTS[(bool(masked), torch.bfloat16 if dtype == torch.bfloat16
+                   else torch.float32)]
+
+
+def reset_counts() -> None:
+    """Every form's counts to 0."""
+    for group in COUNTS.values():
+        for counts in group.values():
+            counts.reset()
 
 
 class Masks(NamedTuple):
@@ -247,8 +275,10 @@ def flash_backward_reference(q, k, v, o, do, lse, causal=True, scale=None,
     return dq, dk, dv
 
 
-def _check_operands(name, tensors, masks: Masks):
-    given = [t for t in (*tensors, *masks) if t is not None]
+def _check_operands(name, tensors, masks: Masks, lse=()):
+    """``tensors`` are the attention operands (q, k, v, and o, do), all
+    fp32 or all bf16; ``lse`` the fp32 row operands."""
+    given = [t for t in (*tensors, *lse, *masks) if t is not None]
     devices = {t.device for t in given}
     if len(devices) != 1:
         raise ValueError(f"{name}: operands on several devices "
@@ -261,7 +291,14 @@ def _check_operands(name, tensors, masks: Masks):
     ints = [t for t in (masks.qseg, masks.kseg, masks.block_mask)
             if t is not None]
     floats = [t for t in (masks.mask, masks.kbias) if t is not None]
-    require_launchable(name, tensors, ints, scales=floats)
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or not dtypes <= set(_SUFFIX):
+        raise TypeError(f"{name}: q, k, v (and o, do) must all be fp32 or "
+                        f"all bf16, got {[str(t.dtype) for t in tensors]}")
+    if tensors[0].dtype == torch.bfloat16:
+        require_launchable(name, lse, ints, scales=floats, halves=tensors)
+    else:
+        require_launchable(name, (*tensors, *lse), ints, scales=floats)
     return dev
 
 
@@ -311,11 +348,16 @@ def _stream(q):
     return torch.cuda.current_stream(q.device).cuda_stream
 
 
+def _entry(name, q):
+    """The entry point of kernel ``name`` for q's dtype."""
+    return getattr(library(), f"{name}_{_SUFFIX[q.dtype]}")
+
+
 def launch_forward(q, k, v, o, lse, causal, scale, masks=Masks()):
     """K3a into o and lse; the caller has checked the operands."""
     b, sq, h, d = q.shape
     ptrs, sizes = _mask_args(q, k, masks)
-    check(library().flash_attention_fwd_f32(
+    check(_entry("flash_attention_fwd", q)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), *ptrs, b, h, sq, k.shape[1], d, *sizes, scale,
         int(causal), _stream(q)), "flash_forward")
@@ -326,7 +368,7 @@ def launch_backward_dq(q, k, v, do, lse, delta, dq, causal, scale,
     """K3b-dq into dq; the caller has checked the operands."""
     b, sq, h, d = q.shape
     ptrs, sizes = _mask_args(q, k, masks)
-    check(library().flash_attention_bwd_dq_f32(
+    check(_entry("flash_attention_bwd_dq", q)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *ptrs, b, h, sq,
         k.shape[1], d, *sizes, scale, int(causal), _stream(q)),
@@ -338,7 +380,7 @@ def launch_backward_dkv(q, k, v, do, lse, delta, dk, dv, causal, scale,
     """K3b-dkv into dk and dv; the caller has checked the operands."""
     b, sq, h, d = q.shape
     ptrs, sizes = _mask_args(q, k, masks)
-    check(library().flash_attention_bwd_dkv_f32(
+    check(_entry("flash_attention_bwd_dkv", q)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *ptrs, b, h, sq, k.shape[1], d, *sizes, scale, int(causal),
@@ -353,7 +395,7 @@ def flash_forward(q, k, v, causal=True, scale=None, *, mask=None,
     dev = _check_operands("flash_forward", (q, k, v), m)
     _check_mask_shapes("flash_forward", q, k, m)
     scale = _scale(q, scale)
-    counts = (COUNTS_MASKED if m.given() else COUNTS)["flash_forward"]
+    counts = counts_for(m.given(), q.dtype)["flash_forward"]
     if not on_card(q):
         counts.plain_launches += 1
         return flash_forward_reference(q, k, v, causal, scale, **m._asdict())
@@ -372,10 +414,10 @@ def flash_backward(q, k, v, o, do, lse, causal=True, scale=None, *,
     """K3b-dq and K3b-dkv: (dq, dk, dv) given the forward's o and lse, the
     output gradient do and the forward's masking operands."""
     m = Masks(mask, kbias, qseg, kseg, block_mask)
-    _check_operands("flash_backward", (q, k, v, o, do, lse), m)
+    _check_operands("flash_backward", (q, k, v, o, do), m, lse=(lse,))
     _check_mask_shapes("flash_backward", q, k, m)
     scale = _scale(q, scale)
-    counts = COUNTS_MASKED if m.given() else COUNTS
+    counts = counts_for(m.given(), q.dtype)
     if not on_card(q):
         counts["flash_backward_dq"].plain_launches += 1
         counts["flash_backward_dkv"].plain_launches += 1

@@ -20,6 +20,14 @@ package's pad-to-128 branch has no counterpart. With the flag off (the
 caller's explicit choice) it runs the dense path on either device.
 `dropout_p` is ignored on every path, as it is in the JAX package.
 
+AMP: every op here first casts its floating tensor inputs under its JAX op
+name (`amp.state.cast_inputs`, the cast of the JAX registry's dispatch),
+then computes as the JAX function does in the dtypes it was given: the
+norms take fp32 statistics and cast back to x's dtype before the gain,
+rotary_embedding computes with fp32 tables and returns q's dtype, and
+mixed dtypes promote as jnp promotes them (bf16 with fp32 is fp32).
+Outside auto_cast nothing is cast.
+
 The rest of the flash family lowers onto the same kernels as in JAX:
 `flash_attn_unpadded` (cu_seqlens -> segment ids), `flash_attn`,
 `flash_attn_qkvpacked`, `flash_attn_varlen_qkvpacked`,
@@ -34,6 +42,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch.amp.state import cast_inputs
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.utils.flags import flag
 
@@ -45,18 +54,21 @@ _DROPOUT_ITEM = ("attention dropout is not in the flash kernels: ROADMAP.md "
 
 
 def repeat_interleave(x, repeats, axis=None):
+    (x,) = cast_inputs("repeat_interleave", x)
     return torch.repeat_interleave(x, repeats, dim=axis)
 
 
 def swiglu(x, y=None):
     """silu(x) * y; with y None, x is split in two halves along its last
     axis (the fused swiglu op)."""
+    x, y = cast_inputs("swiglu", x, y)
     if y is None:
         x, y = x.chunk(2, dim=-1)
     return F.silu(x) * y
 
 
 def embedding(x, weight, padding_idx=None):
+    (weight,) = cast_inputs("embedding", weight)
     out = F.embedding(x, weight)
     if padding_idx is not None:
         out = torch.where((x == padding_idx)[..., None],
@@ -65,11 +77,13 @@ def embedding(x, weight, padding_idx=None):
 
 
 def tanh(x):
+    (x,) = cast_inputs("tanh", x)
     return torch.tanh(x)
 
 
 def gelu(x, approximate=False):
     """jax.nn.gelu: the tanh form with ``approximate``, else the erf form."""
+    (x,) = cast_inputs("gelu", x)
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
@@ -80,6 +94,7 @@ def dropout(x, generator=None, p=0.5, training=True,
     jax.random.bernoulli draws) and scaled by 1 / (1 - p) in
     upscale_in_train; in inference x as it is, or x * (1 - p) in
     downscale_in_infer."""
+    (x,) = cast_inputs("dropout", x)
     if p == 0.0:
         return x
     keep = 1.0 - p
@@ -97,6 +112,7 @@ def layer_norm(x, weight=None, bias=None, epsilon=1e-5, begin_norm_axis=-1):
     """Normalize over the trailing dims from begin_norm_axis with fp32
     statistics (mean, biased variance), cast back to x's dtype, then times
     weight plus bias, both shaped as those dims."""
+    x, weight, bias = cast_inputs("layer_norm", x, weight, bias)
     if begin_norm_axis < 0:
         begin_norm_axis += x.dim()
     shape = tuple(x.shape[begin_norm_axis:])
@@ -110,6 +126,7 @@ def layer_norm(x, weight=None, bias=None, epsilon=1e-5, begin_norm_axis=-1):
 
 def linear(x, weight, bias=None):
     """x @ weight (+ bias) with weight in the [in, out] layout."""
+    x, weight, bias = cast_inputs("linear", x, weight, bias)
     out = torch.matmul(x, weight)
     return out if bias is None else out + bias
 
@@ -117,6 +134,7 @@ def linear(x, weight, bias=None):
 def rms_norm(x, weight=None, epsilon=1e-6):
     """x / rms(x) with the statistics in fp32, cast back to x's dtype, then
     times weight."""
+    x, weight = cast_inputs("rms_norm", x, weight)
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     out = (xf * torch.rsqrt(var + epsilon)).to(x.dtype)
@@ -128,9 +146,22 @@ def _rotate_half(x):
     return torch.cat([-x2, x1], dim=-1)
 
 
+def matmul(x, y, transpose_x=False, transpose_y=False):
+    """x @ y, either operand transposed over its last two axes first (the
+    JAX `matmul` op; the tied heads of Llama and ERNIE call it)."""
+    x, y = cast_inputs("matmul", x, y)
+    if transpose_x and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if transpose_y and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    return torch.matmul(x, y)
+
+
 def rotary_embedding(q, k, cos, sin):
     """Rotate-half RoPE at positions 0..s-1. q, k: [b, s, h, d]; cos, sin:
-    [s, d]."""
+    [s, d]. The tables stay fp32 unless the AMP state casts them (O2), so
+    q * cos promotes to fp32 and the result is cast back to q's dtype."""
+    q, k, cos, sin = cast_inputs("rotary_embedding", q, k, cos, sin)
     cos = cos[None, :, None, :]
     sin = sin[None, :, None, :]
     q_out = q * cos + _rotate_half(q) * sin
@@ -170,9 +201,18 @@ def _mask_broadcasts(attn_mask, b, h, sq, sk) -> bool:
 
 
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
-                                 is_causal=False, scale=None):
+                                 is_causal=False, scale=None, *,
+                                 cast_mask=True):
     """Attention over [b, s, h, d] operands (paddle's flash-attn layout).
-    See the module docstring for the dispatch."""
+    See the module docstring for the dispatch. Under AMP q, k, v and a
+    floating attn_mask are cast as the op's inputs; ``cast_mask=False``
+    leaves the mask as it is, as the JAX registry leaves a mask passed as
+    a plain array and not a Tensor (ERNIE's additive key mask: it reaches
+    the kernels in fp32 at every AMP level)."""
+    q, k, v = cast_inputs("scaled_dot_product_attention", q, k, v)
+    if cast_mask:
+        (attn_mask,) = cast_inputs("scaled_dot_product_attention",
+                                   attn_mask)
     b, sq, h, _ = q.shape
     sk = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
@@ -209,6 +249,7 @@ def flash_attn_unpadded(q, k, v, cu_seqlens_q, cu_seqlens_k,
     (searchsorted, side right) and the kernels attend only within a
     segment; with `causal`, q and k must share a packing. No padding: the
     kernels take any length."""
+    q, k, v = cast_inputs("flash_attn_unpadded", q, k, v)
     tq, _, d = q.shape
     tk = k.shape[0]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -260,6 +301,7 @@ def flashmask_attention(q, k, v, startend_row_indices=None, dropout=0.0,
     LTS, UTE; LTS, LTE, UTS, UTE), and window_size a sliding window. They
     expand to an additive NEG_INF mask [b, 1|h, sq, sk] that the kernels
     read tile by tile, as in the JAX package."""
+    q, k, v = cast_inputs("flashmask_attention", q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = 1.0 / math.sqrt(d)
@@ -310,6 +352,8 @@ def sparse_attention(q, k, v, offset, columns, key_padding_mask=None,
     bool attn_mask composed in) becomes an additive NEG_INF mask read tile
     by tile and a block mask at the JAX kernel's 128-blocks (the whole
     length when M % 128 != 0), so dead blocks are skipped."""
+    q, k, v, key_padding_mask, attn_mask = cast_inputs(
+        "sparse_attention", q, k, v, key_padding_mask, attn_mask)
     b, h, M, _ = q.shape
     dev = q.device
     flat_off = torch.as_tensor(offset, device=dev).long().reshape(b * h,
@@ -355,6 +399,11 @@ def softmax_with_cross_entropy(logits, label, soft_label=False, axis=-1,
     ignore_index; the label may carry a trailing axis of 1."""
     if soft_label:
         raise NotImplementedError(f"soft_label: {_FRAMEWORK_ITEM}")
+    (logits,) = cast_inputs("softmax_with_cross_entropy", logits)
+    return _softmax_with_cross_entropy(logits, label, axis, ignore_index)
+
+
+def _softmax_with_cross_entropy(logits, label, axis, ignore_index):
     axis = axis % logits.dim()
     logp = torch.log_softmax(logits, dim=axis)
     lab = label.squeeze(axis) if label.dim() == logits.dim() else label
@@ -377,8 +426,8 @@ def cross_entropy(logits, label, soft_label=False, axis=-1,
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"reduction must be mean, sum or none, got "
                          f"{reduction!r}")
-    loss = softmax_with_cross_entropy(logits, label, axis=axis,
-                                      ignore_index=ignore_index)
+    (logits,) = cast_inputs("cross_entropy", logits)
+    loss = _softmax_with_cross_entropy(logits, label, axis, ignore_index)
     if reduction == "mean":
         axis = axis % logits.dim()
         lab = label.squeeze(axis) if label.dim() == logits.dim() else label

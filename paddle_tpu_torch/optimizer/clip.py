@@ -1,8 +1,10 @@
 """Gradient clipping (the global-norm clip of paddle_tpu/optimizer/clip.py).
 
 Paddle's scale is min(clip_norm / max(gn, 1e-12), 1), which is not
-torch.nn.utils.clip_grad_norm_'s clip_norm / (gn + 1e-6). The norm stays
-on the device: clipping never waits for the host.
+torch.nn.utils.clip_grad_norm_'s clip_norm / (gn + 1e-6). The norm is
+summed in fp32 whatever the gradients' dtype (bf16 under O2), as the JAX
+clip upcasts each one, and stays on the device: clipping never waits for
+the host.
 """
 
 from __future__ import annotations
@@ -31,4 +33,9 @@ class ClipGradByGlobalNorm:
         if grads:
             scale = self._scale(grads)
             for g in grads:
-                g.mul_(scale)
+                if g.dtype == torch.float32:
+                    g.mul_(scale)
+                else:
+                    # a bf16 gradient (O2): the product in fp32, rounded
+                    # once, as the JAX (g * scale).astype(g.dtype)
+                    g.copy_(g.float() * scale)

@@ -3,8 +3,8 @@
 Counterpart of paddle_tpu/optimizer/optimizer.py (Adam, AdamW) as
 torch.optim.Optimizer subclasses. `step()` does what the JAX eager step
 and the compiled TrainStep do: the optimizer's grad_clip over every
-gradient, then, for each parameter, the update of `_adam_core` and
-`AdamW._update` in the same order of operations:
+gradient, then the update of `_adam_core` and `AdamW._update` in the same
+order of operations, in fp32:
 
     m = b1 m + (1 - b1) g          v = b2 v + (1 - b2) g g
     bc1 = 1 - b1^step              bc2 = 1 - b2^step     (fp32)
@@ -12,15 +12,28 @@ gradient, then, for each parameter, the update of `_adam_core` and
     AdamW: p' = p' - lr wd p       (decoupled, from the old p)
     Adam:  g = g + wd p before the moments (coupled)
 
-Parameters, gradients and moments are updated in place. The moments are
-named as in the JAX package ("moment1", "moment2"), so its optimizer
-state moves across (`weights.optimizer_state_from_numpy`).
+with g the gradient in fp32 and p the parameter's fp32 master copy where
+it has one. Master weights (multi_precision, on by default): a parameter
+that is not fp32 (bf16 after `amp.decorate(level="O2")`) keeps an fp32
+copy under ``"master"`` in its state, as the JAX `Adam._init_state` does;
+the update reads and writes the master copy and then writes
+``master.to(p.dtype)`` into the parameter. Without multi_precision such a
+parameter is updated from its own value in fp32 and rounded back.
+
+`step()` runs the update as multi-tensor (`torch._foreach_*`) operations
+over the parameters grouped by (weight decay, fp32 or not); `_update`
+is that one body, over a list of parameters (one, in the tests that hold
+it against the JAX `_update`). A group goes through in chunks of at most
+FOREACH_ELEMENTS elements, so the update's temporaries (about five fp32
+copies of what it updates at once) stay near 2.5 GiB whatever the
+model's size. Parameters, gradients, moments and master copies are
+updated in place. The state is named as in
+the JAX package ("moment1", "moment2", "master"), so its optimizer state
+moves across (`weights.optimizer_state_from_numpy`).
 
 `parameters` may be `model.named_parameters()`; AdamW's
 `apply_decay_param_fun` receives each parameter's flat name, as the JAX
-functional path passes it. Only fp32 parameters are taken: master
-weights (multi_precision) exist only for lower-precision ones, and those
-wait for bf16 AMP training.
+functional path passes it.
 """
 
 from __future__ import annotations
@@ -30,15 +43,31 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-AMP_ITEM = "ROADMAP.md 'Still to port' item 16 (bf16 AMP training)"
 LR_ITEM = "ROADMAP.md 'Still to port' item 17 (LR schedulers)"
+# the elements one multi-tensor pass of `step()` updates at most
+FOREACH_ELEMENTS = 1 << 27
+
+
+def _chunks(params):
+    """Consecutive runs of ``params`` of at most FOREACH_ELEMENTS elements
+    (a larger parameter alone)."""
+    run, size = [], 0
+    for p in params:
+        if run and size + p.numel() > FOREACH_ELEMENTS:
+            yield run
+            run, size = [], 0
+        run.append(p)
+        size += p.numel()
+    if run:
+        yield run
 
 
 class Optimizer(torch.optim.Optimizer):
     """Paddle's optimizer constructor (learning_rate, parameters,
     weight_decay, grad_clip) over torch.optim."""
 
-    def __init__(self, learning_rate, parameters, weight_decay, grad_clip):
+    def __init__(self, learning_rate, parameters, weight_decay, grad_clip,
+                 multi_precision=False):
         if isinstance(learning_rate, bool) or \
                 not isinstance(learning_rate, (int, float)):
             raise NotImplementedError(
@@ -49,11 +78,9 @@ class Optimizer(torch.optim.Optimizer):
         params, self._names = [], {}
         for item in parameters:
             name, p = item if isinstance(item, tuple) else (None, item)
-            if p.dtype != torch.float32:
-                raise NotImplementedError(
-                    f"parameter {name or tuple(p.shape)} is {p.dtype}: only "
-                    f"fp32 parameters are trained (master weights wait for "
-                    f"{AMP_ITEM})")
+            if not p.is_floating_point():
+                raise TypeError(f"parameter {name or tuple(p.shape)} is "
+                                f"{p.dtype}, not a floating type")
             params.append(p)
             if name is not None:
                 self._names[p] = name
@@ -62,6 +89,7 @@ class Optimizer(torch.optim.Optimizer):
         self._weight_decay = 0.0 if weight_decay is None \
             else float(weight_decay)
         self._grad_clip = grad_clip
+        self._multi_precision = bool(multi_precision)
         self._step_i = 0
 
     def adopt_names(self, model) -> None:
@@ -75,10 +103,20 @@ class Optimizer(torch.optim.Optimizer):
         if not st:
             st["moment1"] = torch.zeros_like(p, dtype=torch.float32)
             st["moment2"] = torch.zeros_like(p, dtype=torch.float32)
+            if self._multi_precision and p.dtype != torch.float32:
+                st["master"] = p.detach().float()
         return st
 
     def _decay_for(self, p) -> float:
         return self._weight_decay
+
+    @staticmethod
+    def _fp32_of(p, st):
+        """The fp32 value the update works on: the master copy, the
+        parameter itself (fp32), or an fp32 copy of it (written back)."""
+        if "master" in st:
+            return st["master"]
+        return p if p.dtype == torch.float32 else p.detach().float()
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -89,9 +127,25 @@ class Optimizer(torch.optim.Optimizer):
         if self._grad_clip is not None:
             self._grad_clip.clip_([p.grad for p in params])
         self._step_i += 1
+        groups = {}
         for p in params:
-            self._update(p, p.grad, self._state(p), self._lr,
-                         self._decay_for(p), self._step_i)
+            key = (self._decay_for(p), p.dtype == torch.float32)
+            groups.setdefault(key, []).append(p)
+        for (wd, _), group in groups.items():
+            for ps in _chunks(group):
+                self._update(ps, [p.grad for p in ps], self._lr, wd,
+                             self._step_i)
+
+    def _update(self, ps, gs, lr, wd, step):
+        """The update of parameters ``ps`` of one decay by gradients
+        ``gs``: multi-tensor operations on their fp32 values (masters or
+        the parameters), written back into the parameters that are not
+        fp32."""
+        sts = [self._state(p) for p in ps]
+        p32s = [self._fp32_of(p, st) for p, st in zip(ps, sts)]
+        self._update_fp32(p32s, [g.float() for g in gs], sts, lr, wd, step)
+        if any(p32 is not p for p, p32 in zip(ps, p32s)):
+            torch._foreach_copy_(ps, p32s)
 
 
 class Adam(Optimizer):
@@ -102,7 +156,8 @@ class Adam(Optimizer):
         if lazy_mode:
             raise NotImplementedError(f"lazy_mode: ROADMAP.md 'Still to "
                                       f"port' item 12 (the framework)")
-        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
 
     def _bias_corrections(self, step: int):
@@ -111,21 +166,31 @@ class Adam(Optimizer):
         return (float(one - np.float32(self._beta1) ** st),
                 float(one - np.float32(self._beta2) ** st))
 
-    def _adam_update(self, g, st, lr, step):
-        """The Adam step of `_adam_core`: updates the moments in place and
-        returns lr * update."""
+    def _adam_update(self, gs, sts, lr, step):
+        """The Adam step of `_adam_core` over lists: updates the moments
+        in place and returns lr * update."""
         b1, b2 = self._beta1, self._beta2
-        m, v = st["moment1"], st["moment2"]
-        m.mul_(b1).add_(g * (1 - b1))
-        v.mul_(b2).add_(g * (1 - b2) * g)
+        ms = [st["moment1"] for st in sts]
+        vs = [st["moment2"] for st in sts]
+        torch._foreach_mul_(ms, b1)
+        torch._foreach_add_(ms, torch._foreach_mul(gs, 1 - b1))
+        torch._foreach_mul_(vs, b2)
+        gg = torch._foreach_mul(gs, 1 - b2)
+        torch._foreach_mul_(gg, gs)
+        torch._foreach_add_(vs, gg)
         bc1, bc2 = self._bias_corrections(step)
-        upd = (m / bc1).div_((v / bc2).sqrt_().add_(self._eps))
-        return upd.mul_(lr)
+        upd = torch._foreach_div(ms, bc1)
+        den = torch._foreach_div(vs, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self._eps)
+        torch._foreach_div_(upd, den)
+        torch._foreach_mul_(upd, lr)
+        return upd
 
-    def _update(self, p, g, st, lr, wd, step):
+    def _update_fp32(self, p32s, gs, sts, lr, wd, step):
         if wd:
-            g = g + wd * p
-        p.sub_(self._adam_update(g, st, lr, step))
+            gs = torch._foreach_add(gs, torch._foreach_mul(p32s, wd))
+        torch._foreach_sub_(p32s, self._adam_update(gs, sts, lr, step))
 
 
 class AdamW(Adam):
@@ -151,10 +216,16 @@ class AdamW(Adam):
         return self._weight_decay if self._apply_decay_param_fun(name) \
             else 0.0
 
-    def _update(self, p, g, st, lr, wd, step):
-        upd = self._adam_update(g, st, lr, step)
-        # the decoupled decay uses the old p: lr * wd * p is taken first
-        decay = p * float(np.float32(lr) * np.float32(wd)) if wd else None
-        p.sub_(upd)
+    @staticmethod
+    def _decay_factor(lr, wd) -> float:
+        """lr * wd in fp32, as the JAX update forms it before the product
+        with the old p."""
+        return float(np.float32(lr) * np.float32(wd))
+
+    def _update_fp32(self, p32s, gs, sts, lr, wd, step):
+        upd = self._adam_update(gs, sts, lr, step)
+        decay = (torch._foreach_mul(p32s, self._decay_factor(lr, wd))
+                 if wd else None)
+        torch._foreach_sub_(p32s, upd)
         if decay is not None:
-            p.sub_(decay)
+            torch._foreach_sub_(p32s, decay)

@@ -33,6 +33,16 @@ FP64_FLOOR * max|exact| under the fp32 error: where the fp32 plain
 version is exact (one key: o = v) the kernel's split products still
 round at 2^-22.
 
+The flash kernels' bf16 instantiations (AMP) hold o, lse, dq, dk and dv
+against the plain versions evaluated in fp64 on the same bf16 operands
+within twice the bf16 plain versions' own error, dense and in every masked
+form, and misround at most 1/16 of the outputs the plain versions round to
+bf16(exact) (which sees the P and dS products' inner precision); the bf16
+autograd path launches only them; AdamW's multi-tensor step
+(grouped, in chunks) equals its update over each parameter alone within
+1e-6 (fp32 and bf16 parameters with master copies); a small Llama's O1 /
+O2 step through them is held against the dense path at bf16 tolerances.
+
 The decode kinds run as CUDA graphs on the card: a replayed decode step
 and horizon (greedy and seeded) must equal the eager call on the same
 inputs and pools bit for bit, logits, tokens and pools, over fp32, int8
@@ -41,6 +51,10 @@ a horizon engine with every knob on must give the per-step engine's
 streams token for token, with the sampler's tokens on the card equal to
 the same function's on the CPU.
 """
+
+import functools
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -372,12 +386,12 @@ def test_flash_kernels_match_plain(gen, d, causal, sq, sk):
     k, v = (torch.randn(2, sk, 3, d, device="cuda", generator=gen)
             for _ in range(2))
     do = torch.randn(2, sq, 3, d, device="cuda", generator=gen)
-    for counts in fa.COUNTS.values():
-        counts.reset()
+    fa.reset_counts()
     o, lse = fa.flash_forward(q, k, v, causal)
     grads = fa.flash_backward(q, k, v, o, do, lse, causal)
+    dense = fa.counts_for(False)
     assert {n: (c.kernel_launches, c.plain_launches)
-            for n, c in fa.COUNTS.items()} == dict.fromkeys(fa.COUNTS, (1, 0))
+            for n, c in dense.items()} == dict.fromkeys(dense, (1, 0))
     ro, rlse = fa.flash_forward_reference(q, k, v, causal)
     refs = fa.flash_backward_reference(q, k, v, ro, do, rlse, causal)
     torch.cuda.synchronize()
@@ -465,10 +479,9 @@ def test_masked_forward_kernel_is_fp32_class_against_fp64(gen, form, d,
     k, v = (torch.randn(2, sk, 3, d, device="cuda", generator=gen)
             for _ in range(2))
     ops = _masked_operands(gen, form, 2, sq, sk, 3)
-    for counts in fa.COUNTS_MASKED.values():
-        counts.reset()
+    fa.reset_counts()
     o, lse = fa.flash_forward(q, k, v, causal, **ops)
-    assert fa.COUNTS_MASKED["flash_forward"].kernel_launches == 1
+    assert fa.counts_for(True)["flash_forward"].kernel_launches == 1
     _forward_vs_fp64(q, k, v, causal, o, lse, (form, d, causal, sq, sk),
                      **ops)
 
@@ -507,7 +520,9 @@ def _masked_operands(gen, form, b, sq, sk, h):
     if form == "bool_dead_rows":
         keep = torch.rand(b, 1, sq, sk, device=dev, generator=gen) < 0.7
         keep[:, :, sq // 2:] = False
-        return dict(mask=fa.canon_mask(keep, b, h, sq, sk)[0])
+        # one query row lowers to a per-key bias, more to a dense mask
+        mask, kbias = fa.canon_mask(keep, b, h, sq, sk)
+        return dict(mask=mask, kbias=kbias)
     if form == "segments":
         qseg = (torch.arange(sq, device=dev) * 3 // sq).repeat(b, 1)
         kseg = (torch.arange(sk, device=dev) * 3 // sk).repeat(b, 1)
@@ -525,14 +540,13 @@ def _check_masked(gen, form, d, causal, sq, sk, b=2, h=3):
             for _ in range(2))
     do = torch.randn(b, sq, h, d, device="cuda", generator=gen)
     ops = _masked_operands(gen, form, b, sq, sk, h)
-    for counts in (*fa.COUNTS.values(), *fa.COUNTS_MASKED.values()):
-        counts.reset()
+    fa.reset_counts()
     o, lse = fa.flash_forward(q, k, v, causal, **ops)
     grads = fa.flash_backward(q, k, v, o, do, lse, causal, **ops)
     assert {n: (c.kernel_launches, c.plain_launches)
-            for n, c in fa.COUNTS_MASKED.items()} == \
-        dict.fromkeys(fa.COUNTS_MASKED, (1, 0))
-    assert all(c.kernel_launches == 0 for c in fa.COUNTS.values())
+            for n, c in fa.counts_for(True).items()} == \
+        dict.fromkeys(fa.counts_for(True), (1, 0))
+    assert all(c.kernel_launches == 0 for c in fa.counts_for(False).values())
     ro, rlse = fa.flash_forward_reference(q, k, v, causal, **ops)
     refs = fa.flash_backward_reference(q, k, v, ro, do, rlse, causal, **ops)
     torch.cuda.synchronize()
@@ -584,11 +598,10 @@ def test_small_ernie_through_the_masked_kernels_matches_the_dense_path(
             set_flags({"FLAGS_use_flash_attention": old})
         return loss.item(), {n: p.grad for n, p in model.named_parameters()}
 
-    for counts in fa.COUNTS_MASKED.values():
-        counts.reset()
+    fa.reset_counts()
     loss_k, grads_k = once(True)
     assert all(c.kernel_launches == 2 and c.plain_launches == 0
-               for c in fa.COUNTS_MASKED.values())
+               for c in fa.counts_for(True).values())
     loss_d, grads_d = once(False)
     assert abs(loss_k - loss_d) <= 1e-5 * abs(loss_d)
     for name, g in grads_k.items():
@@ -615,11 +628,10 @@ def test_small_llama_through_the_kernels_matches_the_dense_path(gen, n_kv):
                       num_heads=4, num_kv_heads=n_kv, max_seq_len=256)
     toks = torch.randint(0, 211, (2, 201), device="cuda", generator=gen)
     ids, labels = toks[:, :-1], toks[:, 1:]
-    for counts in fa.COUNTS.values():
-        counts.reset()
+    fa.reset_counts()
     loss_k, grads_k = _train_once(cfg, ids, labels, True)
     assert all(c.kernel_launches == 2 and c.plain_launches == 0
-               for c in fa.COUNTS.values())
+               for c in fa.counts_for(False).values())
     loss_d, grads_d = _train_once(cfg, ids, labels, False)
     assert abs(loss_k - loss_d) <= 1e-5 * abs(loss_d)
     for name, g in grads_k.items():
@@ -632,6 +644,219 @@ def test_small_llama_through_the_kernels_matches_the_dense_path(gen, n_kv):
         learning_rate=1e-3, parameters=model.named_parameters(),
         grad_clip=ClipGradByGlobalNorm(1.0)))
     losses = [step(ids, labels).item() for _ in range(4)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+# ------------------------------------------------- bf16 (AMP) flash kernels
+
+BF16_FORMS = ["dense", "kbias_soft", "kbias_hard", "mask_mh1", "mask_mhh",
+              "bool_dead_rows", "segments", "block_mask"]
+
+
+def _bf16_operands(gen, b, sq, sk, h, d):
+    q = torch.randn(b, sq, h, d, device="cuda", generator=gen)
+    k, v = (torch.randn(b, sk, h, d, device="cuda", generator=gen)
+            for _ in range(2))
+    do = torch.randn(b, sq, h, d, device="cuda", generator=gen)
+    return tuple(t.to(torch.bfloat16) for t in (q, k, v, do))
+
+
+@functools.cache
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _bf16_class(kern, plain, exact, what):
+    """The bf16 kernel's error against the fp64 evaluation on the same bf16
+    inputs within twice the bf16 plain version's own (fp32 compute, the
+    outputs rounded to bf16 once), with `chip_smoke.py`'s floor
+    (`_vs_fp64`)."""
+    e_kernel, e_plain, ratio = _chip_smoke()._vs_fp64(kern, plain, exact)
+    assert ratio <= 2.0, (what, e_kernel, e_plain)
+
+
+def _bf16_misround(kern, plain, exact, what):
+    """Of the bf16 outputs the plain version rounds to bf16(exact), the
+    kernel rounds at most MISROUND_GATE elsewhere (`chip_smoke.py`'s
+    `misround_share`: the max error cannot see an inner error under half a
+    bf16 ulp, this share can)."""
+    cs = _chip_smoke()
+    share = cs.misround_share(kern, plain, exact)
+    assert share <= cs.MISROUND_GATE, (what, share)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("sq,sk", [(1, 1), (63, 63), (257, 257),
+                                   (1000, 1000), (65, 200), (200, 65),
+                                   (256, 256), (100, 384)])
+@pytest.mark.parametrize("form", BF16_FORMS)
+def test_bf16_flash_kernels_against_fp64(gen, form, d, causal, sq, sk):
+    """K3a, K3b-dq and K3b-dkv at bf16, dense and in every masked form:
+    o, lse, dq, dk and dv against the plain versions evaluated in fp64 on
+    the same bf16 operands, within twice the bf16 plain versions' error,
+    and o, dq, dk and dv misrounded at most 1/16 of the time."""
+    if form == "block_mask" and (sq % min(128, sq) or sk % min(128, sk)):
+        pytest.skip("a block mask tiles only lengths on the 128-blocks")
+    b, h = 2, 3
+    q, k, v, do = _bf16_operands(gen, b, sq, sk, h, d)
+    ops = {} if form == "dense" else _masked_operands(gen, form, b, sq, sk, h)
+    # (a bool mask over one key lowers to a per-key bias: mask is None)
+    ops = {n: t for n, t in ops.items() if t is not None}
+    counts = fa.counts_for(bool(ops), torch.bfloat16)
+    fa.reset_counts()
+    o, lse = fa.flash_forward(q, k, v, causal, **ops)
+    grads = fa.flash_backward(q, k, v, o, do, lse, causal, **ops)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+    assert {n: (c.kernel_launches, c.plain_launches)
+            for n, c in counts.items()} == dict.fromkeys(counts, (1, 0))
+    assert all(c.kernel_launches == 0 for c in (*fa.counts_for(False).values(),
+                                                *fa.counts_for(True).values()))
+    ro, rlse = fa.flash_forward_reference(q, k, v, causal, **ops)
+    plain = fa.flash_backward_reference(q, k, v, o, do, lse, causal, **ops)
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    o64, lse64 = fa.flash_forward_reference(q64, k64, v64, causal, **ops)
+    exact = fa.flash_backward_reference(q64, k64, v64, o64, do64, lse64,
+                                        causal, **ops)
+    what = (form, d, causal, sq, sk)
+    _bf16_class(o, ro, o64, ("o",) + what)
+    _bf16_misround(o, ro, o64, ("o",) + what)
+    seen = lse64 > fa.MASKED_BELOW
+    if seen.any():
+        _bf16_class(lse[seen], rlse[seen], lse64[seen], ("lse",) + what)
+    for name, g, p, r in zip(("dq", "dk", "dv"), grads, plain, exact):
+        assert torch.isfinite(g).all(), (name,) + what
+        _bf16_class(g, p, r, (name,) + what)
+        _bf16_misround(g, p, r, (name,) + what)
+    if form == "bool_dead_rows":
+        assert (o[:, sq // 2:] == 0).all()
+        assert (grads[0][:, sq // 2:] == 0).all()
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["dense", "masked"])
+def test_bf16_autograd_launches_only_the_bf16_kernels(gen, masked):
+    q, k, v, do = _bf16_operands(gen, 2, 200, 200, 4, 64)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    mask = None
+    if masked:
+        mask = ((torch.arange(200, device="cuda") >= 170).float()
+                * -1e4)[None, None, None, :].expand(2, 1, 1, 200)
+    fa.reset_counts()
+    o = fa.flash_attention(q, k, v, causal=not masked, mask=mask)
+    torch.autograd.grad(o, (q, k, v), do)
+    ran = fa.counts_for(masked, torch.bfloat16)
+    for group in fa.COUNTS.values():
+        want = (1, 0) if group is ran else (0, 0)
+        assert {n: (c.kernel_launches, c.plain_launches)
+                for n, c in group.items()} == dict.fromkeys(group, want)
+
+
+def test_bf16_kernels_refuse_mixed_dtypes(gen):
+    q, k, v, _ = _bf16_operands(gen, 1, 16, 16, 2, 64)
+    with pytest.raises(TypeError, match="all be fp32 or all bf16"):
+        fa.flash_forward(q, k.float(), v)
+    with pytest.raises(TypeError, match="all be fp32 or all bf16"):
+        fa.flash_forward(q.half(), k.half(), v.half())
+
+
+def test_foreach_adamw_equals_the_per_parameter_update(gen):
+    """AdamW.step (multi-tensor, grouped by decay and dtype, in chunks)
+    against its update over each parameter alone (`_update([p], ...)`) on
+    the same fp32 and bf16 (master) parameters, gradients and clip, over 5
+    steps: within 1e-6."""
+    shapes = [(64, 48), (48,), (7, 5, 3), (256, 128)]
+    dtypes = [torch.float32, torch.bfloat16, torch.float32, torch.bfloat16]
+
+    def params():
+        g = torch.Generator(device="cuda")
+        g.manual_seed(1)
+        return [(f"p{i}" + ("_norm" if i == 1 else ""),
+                 torch.randn(s, device="cuda", generator=g).to(dt))
+                for i, (s, dt) in enumerate(zip(shapes, dtypes))]
+
+    def make(ps):
+        return AdamW(1e-3, parameters=ps, weight_decay=0.1,
+                     grad_clip=ClipGradByGlobalNorm(1.0),
+                     apply_decay_param_fun=lambda n: "norm" not in n)
+
+    a, b = params(), params()
+    opt_a, opt_b = make(a), make(b)
+    for step in range(1, 6):
+        for (_, pa), (_, pb) in zip(a, b):
+            g = torch.randn(pa.shape, device="cuda", generator=gen) \
+                * 10.0 ** -step
+            # two copies: the clip scales each optimizer's in place
+            pa.grad, pb.grad = g.to(pa.dtype).clone(), g.to(pb.dtype).clone()
+        opt_a.step()
+        opt_b._grad_clip.clip_([p.grad for _, p in b])
+        opt_b._step_i += 1
+        for _, p in b:
+            opt_b._update([p], [p.grad], opt_b._lr, opt_b._decay_for(p),
+                          opt_b._step_i)
+        for (name, pa), (_, pb) in zip(a, b):
+            sa, sb = opt_a.state[pa], opt_b.state[pb]
+            assert set(sa) == set(sb)
+            for key in sa:
+                torch.testing.assert_close(sa[key], sb[key], rtol=1e-6,
+                                           atol=1e-6, msg=(name, key))
+            torch.testing.assert_close(pa.float(), pb.float(), rtol=1e-6,
+                                       atol=1e-6, msg=name)
+            if "master" in sa:
+                assert torch.equal(pa, sa["master"].to(pa.dtype))
+
+
+def _amp_llama_once(cfg, ids, labels, use_flash, level):
+    from paddle_tpu_torch import amp
+    model = Llama(cfg, device="cuda", seed=3)
+    if level == "O2":
+        amp.decorate(model, level="O2")
+    old = flag("FLAGS_use_flash_attention")
+    set_flags({"FLAGS_use_flash_attention": use_flash})
+    try:
+        with amp.auto_cast(level=level):
+            logits = model(ids)
+        loss = llama_loss_fn(logits, labels)
+        loss.backward()
+    finally:
+        set_flags({"FLAGS_use_flash_attention": old})
+    return loss.float().item(), {n: p.grad.float()
+                                 for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("level", ["O1", "O2"])
+def test_small_llama_amp_through_the_bf16_kernels_matches_dense(gen, level):
+    """A bf16 AMP step of a small Llama through the bf16 kernels against the
+    same step on the dense path (bf16 probabilities there, fp32 P in the
+    kernels): loss within 2e-2 relative, gradients within 5e-2 of max;
+    then AdamW steps through the kernels bring the loss down."""
+    from paddle_tpu_torch import amp
+    cfg = LlamaConfig(vocab_size=211, hidden_size=256, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=256)
+    toks = torch.randint(0, 211, (2, 201), device="cuda", generator=gen)
+    ids, labels = toks[:, :-1], toks[:, 1:]
+    fa.reset_counts()
+    loss_k, grads_k = _amp_llama_once(cfg, ids, labels, True, level)
+    assert all(c.kernel_launches == 2 and c.plain_launches == 0
+               for c in fa.counts_for(False, torch.bfloat16).values())
+    assert all(c.kernel_launches == 0 for c in fa.counts_for(False).values())
+    loss_d, grads_d = _amp_llama_once(cfg, ids, labels, False, level)
+    assert abs(loss_k - loss_d) <= 2e-2 * abs(loss_d)
+    for name, g in grads_k.items():
+        ref = grads_d[name]
+        assert (g - ref).abs().max().item() <= \
+            5e-2 * ref.abs().max().item(), name
+    model = Llama(cfg, device="cuda", seed=3)
+    if level == "O2":
+        amp.decorate(model, level="O2")
+    step = TrainStep(model, llama_loss_fn, AdamW(
+        learning_rate=1e-3, parameters=model.named_parameters(),
+        grad_clip=ClipGradByGlobalNorm(1.0)), amp_level=level)
+    losses = [step(ids, labels).float().item() for _ in range(4)]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 

@@ -154,8 +154,7 @@ def test_parameter_names_match_jax_and_the_decoder_is_tied(jax_run):
 def test_forward_outputs_match_jax(jax_run):
     model = _port_model(jax_run)
     ids, types, att, _, _ = _inputs()
-    for counts in fa.COUNTS_MASKED.values():
-        counts.reset()
+    fa.reset_counts()
     with torch.no_grad():
         scores, rel = model(ids, types, att)
         seq, pooled = model.ernie(ids, token_type_ids=types,
@@ -165,15 +164,14 @@ def test_forward_outputs_match_jax(jax_run):
         np.testing.assert_allclose(ours[name].numpy(), ref, rtol=1e-4,
                                    atol=1e-4, err_msg=name)
     # every layer's attention took the masked kernels' plain version
-    assert fa.COUNTS_MASKED["flash_forward"].plain_launches == \
+    assert fa.counts_for(True)["flash_forward"].plain_launches == \
         2 * SIZES["num_layers"]
 
 
 def test_step1_loss_and_every_gradient_match_jax(jax_run):
     model = _port_model(jax_run)
     ids, types, att, labels, sop = _inputs()
-    for counts in (*fa.COUNTS.values(), *fa.COUNTS_MASKED.values()):
-        counts.reset()
+    fa.reset_counts()
     loss = ernie_pretrain_loss_fn(model(ids, types, att), labels, sop)
     loss.backward()
     np.testing.assert_allclose(loss.item(), jax_run["loss"], rtol=1e-5)
@@ -183,10 +181,10 @@ def test_step1_loss_and_every_gradient_match_jax(jax_run):
         err = np.abs(grads[name].grad.numpy() - ref).max()
         assert err <= 1e-4 * np.abs(ref).max(), (name, err)
     n = SIZES["num_layers"]
-    assert {k: c.plain_launches for k, c in fa.COUNTS_MASKED.items()} == \
-        dict.fromkeys(fa.COUNTS_MASKED, n)
+    assert {k: c.plain_launches for k, c in fa.counts_for(True).items()} == \
+        dict.fromkeys(fa.counts_for(True), n)
     assert all(c.plain_launches == c.kernel_launches == 0
-               for c in fa.COUNTS.values())
+               for c in fa.counts_for(False).values())
 
 
 def test_adamw_losses_match_jax_trainstep(jax_run):

@@ -160,12 +160,11 @@ def test_gate_follows_the_kernels():
 
 
 def test_cpu_tensors_count_plain_launches_only():
-    for counts in fa.COUNTS.values():
-        counts.reset()
+    fa.reset_counts()
     q, k, v, _ = (t.requires_grad_() for t in _t(*_qkv(5, 1, 16, 16, 2, 8)))
     fa.flash_attention(q, k, v).sum().backward()
     assert {n: (c.kernel_launches, c.plain_launches)
-            for n, c in fa.COUNTS.items()} == {
+            for n, c in fa.counts_for(False).items()} == {
         "flash_forward": (0, 1), "flash_backward_dq": (0, 1),
         "flash_backward_dkv": (0, 1)}
 
@@ -212,8 +211,8 @@ def test_sdpa_matches_jax(use_flash, case):
     flash_taken = use_flash and case in ("causal", "full", "cross", "mask")
 
     def plain():
-        return (fa.COUNTS["flash_forward"].plain_launches
-                + fa.COUNTS_MASKED["flash_forward"].plain_launches)
+        return (fa.counts_for(False)["flash_forward"].plain_launches
+                + fa.counts_for(True)["flash_forward"].plain_launches)
 
     before = plain()
     old = flag("FLAGS_use_flash_attention")
@@ -419,8 +418,12 @@ def _entry(name, maxd):
     return f"{_HASH}{len(name)}{name}ILi{maxd}{_ARGS}"
 
 
-@pytest.mark.parametrize("name", ["flash_fwd_kernel", "flash_bwd_dq_kernel",
-                                  "flash_bwd_dkv_kernel"])
+FLASH_KERNEL_NAMES = ["flash_fwd_kernel", "flash_bwd_dq_kernel",
+                      "flash_bwd_dkv_kernel", "flash_fwd_bf16_kernel",
+                      "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel"]
+
+
+@pytest.mark.parametrize("name", FLASH_KERNEL_NAMES)
 @pytest.mark.parametrize("maxd", [64, 128, 256])
 def test_smoke_names_kernels_from_their_mangled_entries(name, maxd):
     """chip_smoke.py's build report finds each kernel's name after the
@@ -449,15 +452,14 @@ def test_smoke_names_the_ragged_span_instantiations(maxd, kv):
 def test_smoke_build_report_requires_tensor_core_products(monkeypatch,
                                                           hmma_in_all):
     """The build report passes when the SASS of every instantiation of the
-    tensor-core kernels (the three flash kernels, the ragged span form)
-    holds HMMA, and fails the smoke when one holds none."""
+    tensor-core kernels (the three flash kernels at fp32 and at bf16, the
+    ragged span form) holds HMMA, and fails the smoke when one holds
+    none."""
     import subprocess
     from types import SimpleNamespace
 
     cs = _chip_smoke()
-    entries = [_entry(n, d) for n in ("flash_fwd_kernel",
-                                      "flash_bwd_dq_kernel",
-                                      "flash_bwd_dkv_kernel")
+    entries = [_entry(n, d) for n in FLASH_KERNEL_NAMES
                for d in (64, 128, 256)]
     entries += [_span_entry(d, kv) for d in (128, 256) for kv in range(3)]
     log = "\n".join(f"ptxas info    : Compiling entry function '{e}' for "

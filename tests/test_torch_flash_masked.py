@@ -234,15 +234,14 @@ def _both_public(q, k, v, w, causal, kw):
 @pytest.mark.parametrize("name", sorted(FORMS))
 def test_autograd_function_matches_jax_grad_through_flash(name):
     q, k, v, w, causal, ops = _form(name, 3)
-    for counts in fa.COUNTS_MASKED.values():
-        counts.reset()
+    fa.reset_counts()
     (o, grads), (jo, jgrads) = _both_public(q, k, v, w, causal,
                                             _public_ops(ops))
     np.testing.assert_allclose(o, jo, rtol=RTOL, atol=ATOL)
     _assert_grads(grads, jgrads)
     assert {n: (c.kernel_launches, c.plain_launches)
-            for n, c in fa.COUNTS_MASKED.items()} == \
-        dict.fromkeys(fa.COUNTS_MASKED, (0, 1))
+            for n, c in fa.counts_for(True).items()} == \
+        dict.fromkeys(fa.counts_for(True), (0, 1))
 
 
 def test_fully_masked_rows_are_exact_zeros_with_zero_gradient():
@@ -433,8 +432,7 @@ def test_sparse_attention_matches_jax(with_kpm):
     offset, columns = _csr(rng, b, h, M)
     kpm = (_valid(rng, b, M, 200).astype(np.int64) if with_kpm else None)
     extra = {} if kpm is None else {"key_padding_mask": kpm}
-    for counts in fa.COUNTS_MASKED.values():
-        counts.reset()
+    fa.reset_counts()
     ours = impl.sparse_attention(
         *_t(q, k, v, offset, columns),
         **{n: torch.from_numpy(a) for n, a in extra.items()})
@@ -443,7 +441,7 @@ def test_sparse_attention_matches_jax(with_kpm):
         **{n: jnp.asarray(a) for n, a in extra.items()})
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=RTOL,
                                atol=ATOL)
-    assert fa.COUNTS_MASKED["flash_forward"].plain_launches == 1
+    assert fa.counts_for(True)["flash_forward"].plain_launches == 1
 
 
 def test_sdpa_mask_at_seq_300_matches_jax_pad_to_128(monkeypatch):
@@ -466,9 +464,9 @@ def test_sdpa_mask_at_seq_300_matches_jax_pad_to_128(monkeypatch):
     ref = jax_impl.scaled_dot_product_attention(
         *(jnp.asarray(a) for a in (q, k, v, mask)))
     assert seen == [(2, 384, 2, 32)]
-    before = fa.COUNTS_MASKED["flash_forward"].plain_launches
+    before = fa.counts_for(True)["flash_forward"].plain_launches
     ours = impl.scaled_dot_product_attention(*_t(q, k, v, mask))
-    assert fa.COUNTS_MASKED["flash_forward"].plain_launches == before + 1
+    assert fa.counts_for(True)["flash_forward"].plain_launches == before + 1
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=RTOL,
                                atol=ATOL)
 

@@ -1,8 +1,9 @@
 """The port's boundaries: what it imports, where it runs, which path each
 kernel wrapper takes, and what it refuses.
 
-  * nothing in paddle_tpu_torch/ or chip_smoke.py imports jax or the JAX
-    package (an AST scan, so a lazy import inside a function counts too);
+  * nothing in paddle_tpu_torch/ (amp/ included) or chip_smoke.py imports
+    jax or the JAX package (an AST scan, so a lazy import inside a
+    function counts too); the port's AMP lists equal the JAX lists;
   * entry points default to "cuda" and raise where no card is usable;
   * CPU tensors run the plain versions: `plain_launches` moves and
     `kernel_launches` never does;
@@ -89,7 +90,17 @@ def test_scan_sees_the_whole_port():
             "paged_attention.py", "_build.py", "chip_smoke.py",
             "flash_attention.py", "impl.py", "flags.py", "optimizer.py",
             "clip.py", "api.py", "weights.py", "ernie.py",
-            "random.py"} <= names
+            "random.py", "state.py"} <= names
+    assert REPO / "paddle_tpu_torch" / "amp" / "__init__.py" in PORT_FILES
+
+
+def test_amp_lists_equal_the_jax_lists():
+    """The port keeps its own copy of the JAX package's AMP lists (it may
+    not import them); the copies must stay equal by value."""
+    from paddle_tpu.amp import state as jax_state
+    from paddle_tpu_torch.amp import state
+    assert state.WHITE_LIST == jax_state.WHITE_LIST
+    assert state.BLACK_LIST == jax_state.BLACK_LIST
 
 
 # ------------------------------------------------------------- devices
@@ -276,9 +287,10 @@ def test_unported_model_and_pool_options_raise(model):
         Llama(LlamaConfig(tensor_parallel=True, **SIZES), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         KVCachePool(1, 4, 4, 1, 8, dtype=torch.bfloat16, device="cpu")
+    # bf16 AMP is ported; the fp16 one still raises, naming its item
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TrainStep(model, llama_loss_fn, AdamW(parameters=model.parameters()),
-                  amp_level="O1")
+                  amp_level="O1", amp_dtype="float16")
 
 
 def test_unknown_knob_is_a_type_error(model):
