@@ -14,8 +14,9 @@ exits non-zero without printing a result:
               backward kernels' shared memory per instantiation and the
               tensor-core instructions in the SASS (cuobjdump -sass: HMMA
               for mma.sync, HGMMA for wgmma) of every instantiation of the
-              three flash kernels and of the ragged span form; one without
-              them, or missing, fails the run.
+              three flash kernels, their bf16 wgmma kernels (forward and
+              dk/dv at d <= 128, which must hold HGMMA) and the ragged span
+              form; one without them, or missing, fails the run.
   3. kernels  each serving kernel's wrapper against its plain PyTorch
               version on the card: the ragged kernel over fp32 pools (K1)
               at LLaMA-2-7B heads and at a GQA layout over mixed spans
@@ -196,8 +197,12 @@ exits non-zero without printing a result:
               operands; the bound at 2-byte operands and 989 TFLOP/s).
  21. ERNIE O1 phase 15 at bf16 AMP O1 (child_ernie's amp_level), each masked
               bf16 kernel 12 times a step and nothing else (no fp32 flash
-              kernel, plain version or dense attention); profiled as 16.
- 22. Llama O1 phase 11 at O1 through the dense bf16 kernels, profiled as 12.
+              kernel, plain version or dense attention); the forward and
+              dk/dv through their wgmma kernels (d = 64) every time, the
+              mma.sync kernels of d > 128 never; profiled as 16.
+ 22. Llama O1 phase 11 at O1 through the dense bf16 kernels, the forward
+              and dk/dv through their wgmma kernels (d = 128) every time;
+              profiled as 12.
  23. O2       a 2-layer Llama at full width after amp.decorate(level="O2"):
               bf16 parameters, fp32 master copies in AdamW, each parameter
               bit for bit its master cast to bf16 after every step; losses
@@ -211,7 +216,9 @@ exits non-zero without printing a result:
               under fp64_ratio; the masked kernels as *_masked rows with
               the ERNIE trainer's launches; the bf16 instantiations as
               *_bf16 and *_masked_bf16 rows with the O1 trainers'
-              launches and their worst misround share under misround; the horizon engines' launches of the decode
+              launches, by kernel variant under launches_by_variant (the
+              kernel function under kernel), and their worst misround
+              share under misround; the horizon engines' launches of the decode
               kernels under horizon_launches), the nvidia-smi line, then
               the result line.
 
@@ -1203,7 +1210,10 @@ def horizon_profile(eng, cfg, steps=3, prompt_len=300):
 
 # ------------------------------------------------------------ profile
 
-FLASH_GROUPS = {"flash_fwd_bf16_kernel": "K3a-bf16 flash_forward_bf16",
+FLASH_GROUPS = {"flash_fwd_bf16_wgmma_kernel": "K3a-bf16 flash_forward_bf16",
+                "flash_bwd_dkv_bf16_wgmma_kernel":
+                    "K3b-dkv-bf16 flash_backward_dkv_bf16",
+                "flash_fwd_bf16_kernel": "K3a-bf16 flash_forward_bf16",
                 "flash_bwd_dq_bf16_kernel":
                     "K3b-dq-bf16 flash_backward_dq_bf16",
                 "flash_bwd_dkv_bf16_kernel":
@@ -1334,6 +1344,13 @@ FLASH_KERNELS = (
     ("flash_backward_dq", "paddle_tpu/ops/pallas/flash_attention.py:312"),
     ("flash_backward_dkv", "paddle_tpu/ops/pallas/flash_attention.py:351"),
 )
+# the kernel function of each bf16 wrapper: (mma.sync, wgmma)
+BF16_KERNEL_NAMES = {
+    "flash_forward": ("flash_fwd_bf16_kernel", "flash_fwd_bf16_wgmma_kernel"),
+    "flash_backward_dq": ("flash_bwd_dq_bf16_kernel", None),
+    "flash_backward_dkv": ("flash_bwd_dkv_bf16_kernel",
+                           "flash_bwd_dkv_bf16_wgmma_kernel"),
+}
 
 
 def check_flash(gen, b, sq, sk, h, d, causal):
@@ -1409,6 +1426,22 @@ def _flash_counts(masked=False, bf16=False):
     dtype = torch.bfloat16 if bf16 else torch.float32
     return {name: (c.kernel_launches, c.plain_launches)
             for name, c in fa.counts_for(masked, dtype).items()}
+
+
+def _variant_launches(label, masked, bf16, d, total):
+    """{kernel: {variant: launches}} of one form, checked: each kernel
+    launched `total` times, all through the variant the entry points take
+    for its dtype and head dim d (`kernel_variant`: the bf16 forward and
+    dk/dv on wgmma at d <= 128)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    got = {name: dict(c.form_launches)
+           for name, c in fa.counts_for(masked, dtype).items()}
+    want = {name: {fa.kernel_variant(name, dtype, d): total} for name in got}
+    if got != want:
+        raise AssertionError(f"{label}: flash launches by variant {got}, "
+                             f"not {want}")
+    return got
 
 
 def _other_flash_launches(masked, bf16) -> int:
@@ -1613,8 +1646,8 @@ def masked_checks(gen):
 def trainer_phase(cfg, seed=0, warmup=2, steps=6, seq=4096, amp_level=None):
     """Phases 11 and 22, the training path: TrainStep + AdamW over seeded
     random weights and one seeded batch, fp32 or (amp_level "O1") bf16 AMP
-    through the bf16 kernels. Returns the trainer, its batch and the flash
-    launches of the run."""
+    through the bf16 kernels. Returns the trainer, its batch, the flash
+    launches of the run and their split by kernel variant."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import Llama, llama_loss_fn
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -1688,7 +1721,11 @@ def trainer_phase(cfg, seed=0, warmup=2, steps=6, seq=4096, amp_level=None):
                          for n in launches.values()):
         raise AssertionError(f"main path missed a flash kernel: "
                              f"{launches}, plain launches {plain}")
-    return trainer, (ids, labels), launches
+    variants = _variant_launches(
+        f"trainer ({amp_level or 'fp32'})", False, bf16,
+        cfg.hidden_size // cfg.num_heads, cfg.num_layers * (warmup + steps))
+    log(f"trainer flash launches by variant: {json.dumps(variants)}")
+    return trainer, (ids, labels), launches, variants
 
 
 def _optimizer_ms(trainer, batch, steps):
@@ -1771,8 +1808,9 @@ def train_profile_phase(trainer, batch, layers, matmul_weights, label,
     busy = sum(groups.values()) / steps
     per = {g: round(ms / steps, 3) for g, ms in
            sorted(groups.items(), key=lambda kv: -kv[1])}
-    flash = [MASKED_GROUPS[g] if masked else g
-             for k, g in FLASH_GROUPS.items() if ("_bf16_" in k) == bf16]
+    flash = list(dict.fromkeys(
+        MASKED_GROUPS[g] if masked else g
+        for k, g in FLASH_GROUPS.items() if ("_bf16_" in k) == bf16))
     per_launch = {g: round(groups.get(g, 0.0) / (steps * layers), 4)
                   for g in flash}
     tokens = batch[0].numel()
@@ -2392,8 +2430,8 @@ def ernie_trainer_phase(cfg, seed=0, batch=16, seq=512, warmup=2, steps=6,
     """Phases 15 and 21: ERNIE-3.0-base pretraining at full width and depth
     through jit.TrainStep and AdamW (child_ernie's recipe), fp32 or
     (amp_level "O1", as child_ernie trains) bf16 AMP through the masked
-    bf16 kernels. Returns the trainer, its batch and the masked flash
-    launches of the run."""
+    bf16 kernels. Returns the trainer, its batch, the masked flash
+    launches of the run and their split by kernel variant."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import ErnieForPretraining, \
         ernie_pretrain_loss_fn
@@ -2463,7 +2501,11 @@ def ernie_trainer_phase(cfg, seed=0, batch=16, seq=512, warmup=2, steps=6,
                           for n in launches.values()):
         raise AssertionError(f"the ERNIE path missed a masked kernel or ran "
                              f"another: {launches}, others {others}")
-    return trainer, data, launches
+    variants = _variant_launches(
+        f"ERNIE ({amp_level or 'fp32'})", True, bf16,
+        cfg.hidden_size // cfg.num_heads, cfg.num_layers * (warmup + steps))
+    log(f"ERNIE flash launches by variant: {json.dumps(variants)}")
+    return trainer, data, launches, variants
 
 
 def ernie_check_phase(cfg, seed=1, batch=4, seq=512):
@@ -2563,23 +2605,30 @@ def _kernel_label(mangled: str) -> str:
 
 # the kernels that multiply on the tensor cores, and every instantiation
 # of them the build must hold (the ragged span form's second argument is
-# the pool type: 0 fp32, 1 int8, 2 fp8)
+# the pool type: 0 fp32, 1 int8, 2 fp8): the bf16 forward and dk/dv run on
+# wgmma at d <= 128 (flash_attention_wgmma.cu) and keep their mma.sync
+# kernels for d <= 256 only
+WGMMA_KERNELS = ("flash_fwd_bf16_wgmma_kernel",
+                 "flash_bwd_dkv_bf16_wgmma_kernel")
 TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                       "flash_bwd_dkv_kernel", "flash_fwd_bf16_kernel",
-                       "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
-                       "ragged_span_kernel")
+                       "flash_bwd_dkv_kernel", "flash_bwd_dq_bf16_kernel",
+                       "flash_fwd_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
+                       *WGMMA_KERNELS, "ragged_span_kernel")
 TENSOR_CORE_INSTANTIATIONS = (
-    *(f"{k}<{d}>" for k in TENSOR_CORE_KERNELS[:6] for d in (64, 128, 256)),
+    *(f"{k}<{d}>" for k in TENSOR_CORE_KERNELS[:4] for d in (64, 128, 256)),
+    "flash_fwd_bf16_kernel<256>", "flash_bwd_dkv_bf16_kernel<256>",
+    *(f"{k}<{d}>" for k in WGMMA_KERNELS for d in (64, 128)),
     *(f"ragged_span_kernel<{d},{kv}>" for d in (128, 256) for kv in range(3)))
 
 
 def build_report(build) -> None:
     """Phase 2's report: each kernel entry's registers and spills (ptxas),
     the backward kernels' shared memory per instantiation, and whether the
-    SASS of every tensor-core kernel (the three flash kernels, the ragged
-    span form) holds tensor-core instructions in every instantiation
-    (HMMA: mma.sync, HGMMA: wgmma), from cuobjdump -sass of the built
-    library; one without them fails the run."""
+    SASS of every tensor-core kernel (the three flash kernels, the bf16
+    wgmma kernels, the ragged span form) holds tensor-core instructions in
+    every instantiation (HMMA: mma.sync, HGMMA: wgmma; the wgmma kernels
+    HGMMA), from cuobjdump -sass of the built library; one without them,
+    or missing, fails the run."""
     if not build.log:
         log("  ptxas: the library was built by an earlier process (its "
             "register report is in that build's log)")
@@ -2611,10 +2660,12 @@ def build_report(build) -> None:
             log(f"  SASS {label}: {found[label][0]} HMMA, "
                 f"{found[label][1]} HGMMA instructions")
     if set(found) != set(TENSOR_CORE_INSTANTIATIONS) or not all(
-            sum(n) > 0 for n in found.values()):
+            (n[1] if label.startswith(WGMMA_KERNELS) else sum(n)) > 0
+            for label, n in found.items()):
         raise AssertionError(f"a tensor-core kernel's SASS holds no "
-                             f"tensor-core products, or an instantiation is "
-                             f"missing: {found}")
+                             f"tensor-core products (a wgmma kernel no "
+                             f"HGMMA), or an instantiation is missing: "
+                             f"{found}")
 
 
 def main() -> int:
@@ -2757,7 +2808,7 @@ def main() -> int:
         raise AssertionError(f"{left:.2f} GiB still allocated after the "
                              "serving phases; the trainer needs the card")
     train_cfg = replace(cfg, num_layers=8)
-    trainer, batch, flash_launches = trainer_phase(train_cfg)
+    trainer, batch, flash_launches, _ = trainer_phase(train_cfg)
     train_profile_phase(
         trainer, batch, train_cfg.num_layers,
         sum(p.numel() for n, p in trainer.model.named_parameters()
@@ -2772,7 +2823,7 @@ def main() -> int:
     _free_the_card()
 
     # the ERNIE pretraining path: the masked kernels (K3-m)
-    ernie, data, masked_launches = ernie_trainer_phase(ERNIE3_BASE)
+    ernie, data, masked_launches, _ = ernie_trainer_phase(ERNIE3_BASE)
     train_profile_phase(ernie, data, ERNIE3_BASE.num_layers,
                         ernie_matmul_weights(ernie.model), "ERNIE",
                         masked=True)
@@ -2792,14 +2843,15 @@ def main() -> int:
     masked_bf16 = measure_flash(gen, h=12, d=64, causal=False, att=data[2],
                                 dtype=torch.bfloat16)
     _free_the_card()
-    ernie, data_o1, masked_bf16_launches = ernie_trainer_phase(
-        ERNIE3_BASE, amp_level="O1")
+    ernie, data_o1, masked_bf16_launches, masked_bf16_variants = \
+        ernie_trainer_phase(ERNIE3_BASE, amp_level="O1")
     train_profile_phase(ernie, data_o1, ERNIE3_BASE.num_layers,
                         ernie_matmul_weights(ernie.model), "ERNIE O1",
                         masked=True, bf16=True)
     del ernie, data_o1
     _free_the_card()
-    trainer, batch, bf16_launches = trainer_phase(train_cfg, amp_level="O1")
+    trainer, batch, bf16_launches, bf16_variants = trainer_phase(
+        train_cfg, amp_level="O1")
     train_profile_phase(
         trainer, batch, train_cfg.num_layers,
         sum(p.numel() for n, p in trainer.model.named_parameters()
@@ -2824,13 +2876,19 @@ def main() -> int:
             if name == "flash_forward":
                 row["fp64_ratio"] = errs[1]["fwd_fp64_ratio"]
             rows.append(row)
-    for label, times, launches, kind in (
-            ("_bf16", flash_bf16, bf16_launches, "dense"),
-            ("_masked_bf16", masked_bf16, masked_bf16_launches, "masked")):
+    for label, times, launches, variants, kind in (
+            ("_bf16", flash_bf16, bf16_launches, bf16_variants, "dense"),
+            ("_masked_bf16", masked_bf16, masked_bf16_launches,
+             masked_bf16_variants, "masked")):
         for name, replaces in FLASH_KERNELS:
+            wgmma = "wgmma" in variants[name]
             rows.append({"name": name + label, "route": "cuda",
-                         "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+                         "source": "paddle_tpu_torch/csrc/" + (
+                             "flash_attention_wgmma.cu" if wgmma
+                             else "flash_attention.cu"),
+                         "kernel": BF16_KERNEL_NAMES[name][wgmma],
                          "replaces": replaces, "launches": launches[name],
+                         "launches_by_variant": variants[name],
                          "max_abs_err": bf16_checks[kind]["err"][name],
                          **times[name],
                          "fp64_ratio": bf16_checks[kind]["ratio"][name],

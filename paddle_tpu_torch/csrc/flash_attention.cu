@@ -7,7 +7,12 @@
 //   _flash_backward (kernel _flash_bwd_dkv_kernel)     -> flash_bwd_dkv_kernel
 // in every form: dense, and with the masking inputs of _extra_inputs_specs
 // (an additive mask, a per-key bias, segment ids, a block mask), each
-// optional and composable with causal.
+// optional and composable with causal. At bf16 (AMP) the forward and dk/dv
+// for d <= 128 run on wgmma with TMA rings (flash_attention_wgmma.cu); the
+// bf16 entry points at the end of this file choose between those kernels
+// and this file's by d. What both sources share (Dims, the masks at each
+// fragment element, the causal and block-mask walks, the bf16 store) is
+// flash_common.cuh.
 //
 // Layout: q [B, Sq, H, d], k and v [B, Sk, H, d], read and written in place
 // with a row stride of H * d floats; lse and delta [B, H, Sq] fp32. Causal
@@ -111,77 +116,22 @@
 //   reads; splitting its own-side tiles once, as the forward does, needs
 //   two planes for each of two tiles and does not fit at d = 128.
 // - bf16 operands (AMP): the bf16 instantiations at the end of this file,
-//   the same walk with bf16 tiles and bf16 mma (bf16_mma.cuh).
-// wgmma and TMA are not used: mma.sync keeps the fragments in registers,
-// where the masks and the softmax apply element by element.
+//   the same walk with bf16 tiles and bf16 mma (bf16_mma.cuh): dq at every
+//   d, the forward and dk/dv for 128 < d <= 256 (below, the wgmma kernels
+//   of flash_attention_wgmma.cu).
+// This file uses neither wgmma nor TMA: mma.sync keeps the fragments in
+// registers, where the masks and the softmax apply element by element.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bf16_mma.cuh"
+#include "flash_common.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps in every kernel
-
-// Problem sizes and the optional masking operands, shared by the three
-// kernels (a null pointer: that operand is absent).
-struct Dims {
-  int H, Sq, Sk, d;
-  float scale;
-  int causal;
-  const float* mask;        // [B, mh, Sq, Sk] additive
-  int mh;                   // the mask's heads: 1 (shared) or H
-  const float* kbias;       // [B, Sk] additive, per key
-  const int* qseg;          // [B, Sq]; with kseg [B, Sk]: attend iff equal
-  const int* kseg;
-  const int* block_mask;    // [Sq / bq, Sk / bk], 0 = dead block
-  int bq, bk;               // the block mask's rows and keys per block
-};
-
-__device__ __forceinline__ bool visible(int row, int key, const Dims& dm) {
-  return row < dm.Sq && key < dm.Sk &&
-         (!dm.causal || key <= row + (dm.Sk - dm.Sq));
-}
-
-// The score of (row, key) of batch b, head `head` from its raw q.k product,
-// as _tile_scores computes it: s * scale, plus the mask and the per-key bias
-// where given; kNegInf where the pair is out of range, hidden by the causal
-// mask or crosses segments. Out-of-range pairs read no mask.
-__device__ __forceinline__ float masked_score(float s, int b, int head,
-                                              int row, int key,
-                                              const Dims& dm) {
-  if (!visible(row, key, dm)) return kNegInf;
-  float v = s * dm.scale;
-  if (dm.mask) {
-    const int mhead = dm.mh == 1 ? 0 : head;
-    v += __ldg(dm.mask + (((int64_t)b * dm.mh + mhead) * dm.Sq + row) *
-                             dm.Sk + key);
-  }
-  if (dm.kbias) v += __ldg(dm.kbias + (int64_t)b * dm.Sk + key);
-  if (dm.qseg && __ldg(dm.qseg + (int64_t)b * dm.Sq + row) !=
-                     __ldg(dm.kseg + (int64_t)b * dm.Sk + key)) {
-    v = kNegInf;
-  }
-  return v;
-}
-
-// Whether the tile of rows from q0 and keys from k0 lies in a live block of
-// the block mask (always, without one). The tile lies inside one block.
-__device__ __forceinline__ bool tile_live(int q0, int k0, const Dims& dm) {
-  if (!dm.block_mask) return true;
-  const int nbk = dm.Sk / dm.bk;
-  return __ldg(dm.block_mask + (q0 / dm.bq) * nbk + k0 / dm.bk) != 0;
-}
-
-// Keys a query tile [q0, q0 + R) needs: all of them, or under the causal
-// mask those up to its last live row's last visible key.
-__device__ __forceinline__ int key_end(int q0, int R, const Dims& dm) {
-  if (!dm.causal) return dm.Sk;
-  const int last_row = min(q0 + R, dm.Sq) - 1;
-  return max(0, min(dm.Sk, last_row + (dm.Sk - dm.Sq) + 1));
-}
 
 // The tiles of all three kernels: BM rows of the block's own side (query
 // rows for the forward and dq, keys for dk/dv) in warps of 16 rows, BN
@@ -289,39 +239,6 @@ __device__ __forceinline__ void mma_xyt(float (&c)[NT][4], const float* X,
   }
 }
 
-// Scores in fragment coordinates, in place from the raw products:
-// c[i][r] is (m, n) = (mb + 8 (r >> 1), nb + 8 i + (r & 1)) with mb =
-// m0 + g, nb = n0 + 2 t; (row, key) = (m, n), or (n, m) when TRANSPOSED.
-template <bool MASKED, bool TRANSPOSED, int NT>
-__device__ __forceinline__ void frag_scores_of(float (&c)[NT][4], int b,
-                                               int head, int mb, int nb,
-                                               const Dims& dm) {
-#pragma unroll
-  for (int i = 0; i < NT; ++i) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int m = mb + 8 * (r >> 1), n = nb + 8 * i + (r & 1);
-      const int row = TRANSPOSED ? n : m, key = TRANSPOSED ? m : n;
-      c[i][r] = MASKED ? masked_score(c[i][r], b, head, row, key, dm)
-                : visible(row, key, dm) ? c[i][r] * dm.scale
-                                        : kNegInf;
-    }
-  }
-}
-
-// frag_scores_of on a branch uniform across the block, so the dense forms
-// pay nothing for the masks.
-template <bool TRANSPOSED, int NT>
-__device__ __forceinline__ void frag_scores(float (&c)[NT][4], int b,
-                                            int head, int mb, int nb,
-                                            const Dims& dm) {
-  if (dm.mask || dm.kbias || dm.qseg) {
-    frag_scores_of<true, TRANSPOSED>(c, b, head, mb, nb, dm);
-  } else {
-    frag_scores_of<false, TRANSPOSED>(c, b, head, mb, nb, dm);
-  }
-}
-
 // Start copying rows [row0, row0 + R) of a [B, S, H, d] tensor (base at
 // (b, 0, head, 0)) into a swizzled tile: columns up to d rounded to 16, the
 // ones past d and rows at or past n_valid zero-filled.
@@ -337,24 +254,6 @@ __device__ __forceinline__ void load_tile(float* dst, const float* base,
                valid ? base + (int64_t)(row0 + r) * row_stride + c : base,
                valid);
   }
-}
-
-// The first key tile at or after k0 (a multiple of BN) below kend whose
-// block is live for the query rows from q0.
-template <int BN>
-__device__ __forceinline__ int live_key_tile(int q0, int k0, int kend,
-                                             const Dims& dm) {
-  while (k0 < kend && !tile_live(q0, k0, dm)) k0 += BN;
-  return k0;
-}
-
-// The first query tile at or after q0 whose block is live for the keys
-// from k0.
-template <int BN>
-__device__ __forceinline__ int live_query_tile(int q0, int k0,
-                                               const Dims& dm) {
-  while (q0 < dm.Sq && !tile_live(q0, k0, dm)) q0 += BN;
-  return q0;
 }
 
 // A warp's accumulators of rows row0 + g, + 8 and columns c0 + 8 j + 2 t
@@ -715,17 +614,6 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ----------------------------------------------------------- launches
 
-// Above 48 KiB a kernel needs the opt-in attribute; it is set on the
-// instantiation being launched, on the current device, before each launch
-// that needs it.
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
 // Shared memory of a backward kernel: two tiles of BM rows (dq's Q and
 // dO, dk/dv's K and V), two stages of two BN-row tiles, the warps' P / dS
 // buffers and `extra` floats.
@@ -819,7 +707,9 @@ Dims make_dims(int H, int Sq, int Sk, int d, float scale, int causal,
 // The same three kernels for bf16 q, k, v, o, do, dq, dk, dv (AMP): the
 // same grid, tile walk (causal skip, block-mask skip, heaviest tiles
 // first), masks and fp32 softmax as the fp32 kernels above, with lse,
-// delta and the masks fp32. They replace the same Pallas kernels at bf16,
+// delta and the masks fp32: dq at every d, the forward and dk/dv only for
+// 128 < d <= 256 (instantiation 256; for d <= 128 the entry points take
+// the wgmma kernels of flash_attention_wgmma.cu). They replace the same Pallas kernels at bf16,
 // which upcast each tile to fp32, compute in fp32 and write o, dq, dk and
 // dv in the input dtype: here the products run on bf16 tensor cores with
 // fp32 accumulators (bf16_mma.cuh; P and dS, fp32 in registers, split in
@@ -833,19 +723,19 @@ Dims make_dims(int H, int Sq, int Sk, int d, float scale, int causal,
 // contracted over their rows). What bounds them is still mma.sync's rate
 // and 8 warps per SM; the operand split of P and dS doubles the products
 // of P V, dS K, P^T dO and dS^T Q (not counted in the bound, which is the
-// JAX kernel's FLOPs at the dense bf16 rate). wgmma and TMA are later work.
+// JAX kernel's FLOPs at the dense bf16 rate).
 
 // BM rows of the block's own side, BN (forward) and BNB (backward) rows
 // of the streamed side per stage, WN warps sharing each 16 rows.
 template <int MAXD>
 struct TilesBf;
 template <>
-struct TilesBf<64> {
-  static constexpr int BM = 128, BN = 64, BNB = 32, WN = 1, kMinBlocks = 2;
+struct TilesBf<64> {   // dq only
+  static constexpr int BM = 128, BNB = 32, WN = 1, kMinBlocks = 2;
 };
 template <>
-struct TilesBf<128> {
-  static constexpr int BM = 128, BN = 64, BNB = 32, WN = 1, kMinBlocks = 1;
+struct TilesBf<128> {   // dq only
+  static constexpr int BM = 128, BNB = 32, WN = 1, kMinBlocks = 1;
 };
 template <>
 struct TilesBf<256> {
@@ -867,34 +757,6 @@ __device__ __forceinline__ void load_tile_bf16(uint16_t* dst,
     cp_async16(dst + r * ld + c,
                valid ? base + (int64_t)(row0 + r) * row_stride + c : base,
                valid);
-  }
-}
-
-// A warp's accumulators of rows row0 + g, + 8 and columns c0 + 8 j + 2 t,
-// times `mul` and rounded to bf16, into a bf16 [B, S, H, d] output (base at
-// (b, 0, head, 0)), rows below n_rows.
-template <int NTO>
-__device__ __forceinline__ void store_frags_bf16(uint16_t* base,
-                                                 int64_t row_stride,
-                                                 const float (&acc)[NTO][4],
-                                                 const float (&mul)[2],
-                                                 int row0, int n_rows,
-                                                 int c0, int d, int g,
-                                                 int t) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + g + 8 * h;
-    if (row < n_rows) {
-      uint16_t* dst = base + (int64_t)row * row_stride;
-#pragma unroll
-      for (int j = 0; j < NTO; ++j) {
-        const int col = c0 + 8 * j + 2 * t;
-        if (col < d) {
-          *reinterpret_cast<uint32_t*>(dst + col) = pack_bf16(
-              acc[j][2 * h] * mul[h], acc[j][2 * h + 1] * mul[h]);
-        }
-      }
-    }
   }
 }
 
@@ -1338,9 +1200,10 @@ extern "C" int flash_attention_fwd_bf16(
   uint16_t* oh = static_cast<uint16_t*>(o);
   float* lf = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 64) return (int)launch_fwd_bf16<64>(qh, kh, vh, oh, lf, B, dm, st);
+  // d <= 128: the wgmma kernel (flash_attention_wgmma.cu); above, the
+  // mma.sync kernel of this file
   if (d <= 128) {
-    return (int)launch_fwd_bf16<128>(qh, kh, vh, oh, lf, B, dm, st);
+    return (int)flash::launch_fwd_bf16_wgmma(qh, kh, vh, oh, lf, B, dm, st);
   }
   return (int)launch_fwd_bf16<256>(qh, kh, vh, oh, lf, B, dm, st);
 }
@@ -1393,13 +1256,11 @@ extern "C" int flash_attention_bwd_dkv_bf16(
   uint16_t* kg = static_cast<uint16_t*>(dk);
   uint16_t* vg = static_cast<uint16_t*>(dv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 64) {
-    return (int)launch_dkv_bf16<64>(qh, kh, vh, dh, lf, ef, kg, vg, B, dm,
-                                    st);
-  }
+  // d <= 128: the wgmma kernel (flash_attention_wgmma.cu); above, the
+  // mma.sync kernel of this file
   if (d <= 128) {
-    return (int)launch_dkv_bf16<128>(qh, kh, vh, dh, lf, ef, kg, vg, B, dm,
-                                     st);
+    return (int)flash::launch_dkv_bf16_wgmma(qh, kh, vh, dh, lf, ef, kg, vg,
+                                             B, dm, st);
   }
   return (int)launch_dkv_bf16<256>(qh, kh, vh, dh, lf, ef, kg, vg, B, dm,
                                    st);

@@ -60,11 +60,15 @@ outputs in the input dtype). Mixed operand dtypes raise.
 
 On CUDA tensors the wrappers launch the hand-written kernels in
 csrc/flash_attention.cu or raise; on CPU tensors they run the plain
-versions. `COUNTS` holds one LaunchCounts per kernel for each form,
-keyed by (masked, operand dtype): masked is a call with any masking
-operand, and the dtype fp32 or bf16. `counts_for` looks a form up and
-`reset_counts` sets them all to 0, so a run can tell which instantiation
-ran.
+versions. At bf16 the forward and dk/dv entry points take, for d <= 128,
+the wgmma kernels of csrc/flash_attention_wgmma.cu (TMA rings, warp
+specialisation), and for wider heads the mma.sync kernels beside the fp32
+ones; `kernel_variant` names the one a launch takes. `COUNTS` holds one
+LaunchCounts per kernel for each form, keyed by (masked, operand dtype):
+masked is a call with any masking operand, and the dtype fp32 or bf16;
+each launch is also counted under its variant (`form_launches`).
+`counts_for` looks a form up and `reset_counts` sets them all to 0, so a
+run can tell which instantiation ran.
 """
 
 from __future__ import annotations
@@ -81,10 +85,13 @@ from paddle_tpu_torch.ops._build import (
 NEG_INF = -1e30
 # scores at or below this are hard-masked and give p = 0 exactly
 MASKED_BELOW = NEG_INF * 0.5
-# the widest head the kernels take (two instantiations: d <= 128, <= 256)
+# the widest head the kernels take (instantiations for d <= 64, <= 128,
+# <= 256)
 MAX_HEAD_DIM = 256
 # the JAX kernel's tile, the granularity of its block mask
 JAX_BLOCK = 128
+# the widest head of the bf16 forward and dk/dv kernels on wgmma
+WGMMA_MAX_HEAD_DIM = 128
 
 _KERNELS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
 # the operand dtypes the kernels take, and each one's entry-point suffix
@@ -98,6 +105,18 @@ def counts_for(masked: bool, dtype=torch.float32) -> dict:
     plain versions' fp64 calls count with fp32)."""
     return COUNTS[(bool(masked), torch.bfloat16 if dtype == torch.bfloat16
                    else torch.float32)]
+
+
+def kernel_variant(name: str, dtype, d: int) -> str:
+    """The kernel a launch of ``name`` (one of the three flash kernels)
+    takes on the card for operands of ``dtype`` and head dim ``d``, as the
+    entry points in csrc/flash_attention.cu choose it: "wgmma" for the bf16
+    forward and dk/dv at d <= WGMMA_MAX_HEAD_DIM (flash_attention_wgmma.cu),
+    "mma" for every other (mma.sync: 3xTF32 at fp32, bf16 above)."""
+    if (dtype == torch.bfloat16 and d <= WGMMA_MAX_HEAD_DIM
+            and name in ("flash_forward", "flash_backward_dkv")):
+        return "wgmma"
+    return "mma"
 
 
 def reset_counts() -> None:
@@ -404,7 +423,7 @@ def flash_forward(q, k, v, causal=True, scale=None, *, mask=None,
     o = torch.empty_like(q)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=dev)
     launch_forward(q, k, v, o, lse, causal, scale, m)
-    counts.kernel_launches += 1
+    counts.count_kernel(kernel_variant("flash_forward", q.dtype, q.shape[3]))
     return o, lse
 
 
@@ -432,10 +451,13 @@ def flash_backward(q, k, v, o, do, lse, causal=True, scale=None, *,
                          f"not match q {tuple(q.shape)}")
     delta = backward_delta(o, do)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    d = q.shape[3]
     launch_backward_dq(q, k, v, do, lse, delta, dq, causal, scale, m)
-    counts["flash_backward_dq"].kernel_launches += 1
+    counts["flash_backward_dq"].count_kernel(
+        kernel_variant("flash_backward_dq", q.dtype, d))
     launch_backward_dkv(q, k, v, do, lse, delta, dk, dv, causal, scale, m)
-    counts["flash_backward_dkv"].kernel_launches += 1
+    counts["flash_backward_dkv"].count_kernel(
+        kernel_variant("flash_backward_dkv", q.dtype, d))
     return dq, dk, dv
 
 

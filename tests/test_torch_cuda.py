@@ -37,8 +37,10 @@ The flash kernels' bf16 instantiations (AMP) hold o, lse, dq, dk and dv
 against the plain versions evaluated in fp64 on the same bf16 operands
 within twice the bf16 plain versions' own error, dense and in every masked
 form, and misround at most 1/16 of the outputs the plain versions round to
-bf16(exact) (which sees the P and dS products' inner precision); the bf16
-autograd path launches only them; AdamW's multi-tensor step
+bf16(exact) (which sees the P and dS products' inner precision), at head
+dims 40 to 256 and at 4096 x 4096; the forward and dk/dv launch their wgmma
+kernels for d <= 128 and their mma.sync kernels above (the profiler's
+kernel names); the bf16 autograd path launches only them; AdamW's multi-tensor step
 (grouped, in chunks) equals its update over each parameter alone within
 1e-6 (fp32 and bf16 parameters with master copies); a small Llama's O1 /
 O2 step through them is held against the dense path at bf16 tolerances.
@@ -689,20 +691,8 @@ def _bf16_misround(kern, plain, exact, what):
     assert share <= cs.MISROUND_GATE, (what, share)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
-@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("sq,sk", [(1, 1), (63, 63), (257, 257),
-                                   (1000, 1000), (65, 200), (200, 65),
-                                   (256, 256), (100, 384)])
-@pytest.mark.parametrize("form", BF16_FORMS)
-def test_bf16_flash_kernels_against_fp64(gen, form, d, causal, sq, sk):
-    """K3a, K3b-dq and K3b-dkv at bf16, dense and in every masked form:
-    o, lse, dq, dk and dv against the plain versions evaluated in fp64 on
-    the same bf16 operands, within twice the bf16 plain versions' error,
-    and o, dq, dk and dv misrounded at most 1/16 of the time."""
-    if form == "block_mask" and (sq % min(128, sq) or sk % min(128, sk)):
-        pytest.skip("a block mask tiles only lengths on the 128-blocks")
-    b, h = 2, 3
+def _bf16_vs_fp64(gen, form, d, causal, sq, sk, b=2, h=3):
+    """The bf16 kernels on one case against fp64 (see the sweep below)."""
     q, k, v, do = _bf16_operands(gen, b, sq, sk, h, d)
     ops = {} if form == "dense" else _masked_operands(gen, form, b, sq, sk, h)
     # (a bool mask over one key lowers to a per-key bias: mask is None)
@@ -736,6 +726,65 @@ def test_bf16_flash_kernels_against_fp64(gen, form, d, causal, sq, sk):
     if form == "bool_dead_rows":
         assert (o[:, sq // 2:] == 0).all()
         assert (grads[0][:, sq // 2:] == 0).all()
+
+
+# d <= 128 runs the forward and dk/dv on wgmma (d = 40 and 96: TMA's
+# zero-filled columns past d, K padded to 16), d = 256 the mma.sync kernels
+@pytest.mark.parametrize("d", [40, 64, 96, 128, 256])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("sq,sk", [(1, 1), (63, 63), (257, 257),
+                                   (1000, 1000), (65, 200), (200, 65),
+                                   (256, 256), (100, 384)])
+@pytest.mark.parametrize("form", BF16_FORMS)
+def test_bf16_flash_kernels_against_fp64(gen, form, d, causal, sq, sk):
+    """K3a, K3b-dq and K3b-dkv at bf16, dense and in every masked form:
+    o, lse, dq, dk and dv against the plain versions evaluated in fp64 on
+    the same bf16 operands, within twice the bf16 plain versions' error,
+    and o, dq, dk and dv misrounded at most 1/16 of the time."""
+    if form == "block_mask" and (sq % min(128, sq) or sk % min(128, sk)):
+        pytest.skip("a block mask tiles only lengths on the 128-blocks")
+    _bf16_vs_fp64(gen, form, d, causal, sq, sk)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_flash_kernels_against_fp64_at_4096(gen, d):
+    """The sweep's gates at 4096 x 4096, causal, b h = 1 x 2: the deepest
+    rings (64 key tiles of the forward, 128 query tiles of dk/dv)."""
+    _bf16_vs_fp64(gen, "dense", d, True, 4096, 4096, b=1, h=2)
+
+
+def _launched_kernels(fn):
+    """The names of the CUDA kernels ``fn`` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()}
+
+
+@pytest.mark.parametrize("d", [40, 64, 96, 128, 256])
+def test_bf16_head_dims_launch_their_kernel_variant(gen, d):
+    """At bf16 the forward and dk/dv launch their wgmma kernels for d <=
+    128 and the mma.sync kernels above, as `kernel_variant` names them and
+    the counts record them; dq keeps its mma.sync kernel."""
+    q, k, v, do = _bf16_operands(gen, 1, 200, 200, 2, d)
+    fa.reset_counts()
+
+    def run():
+        o, lse = fa.flash_forward(q, k, v, True)
+        fa.flash_backward(q, k, v, o, do, lse, True)
+
+    names = " ".join(_launched_kernels(run))
+    wgmma = d <= fa.WGMMA_MAX_HEAD_DIM
+    for kernel in ("flash_fwd_bf16", "flash_bwd_dkv_bf16"):
+        assert (f"{kernel}_wgmma_kernel" in names) == wgmma, (d, names)
+        assert (f"{kernel}_kernel" in names) != wgmma, (d, names)
+    assert "flash_bwd_dq_bf16_kernel" in names
+    for name, c in fa.counts_for(False, torch.bfloat16).items():
+        variant = fa.kernel_variant(name, torch.bfloat16, d)
+        assert variant == ("wgmma" if wgmma and name != "flash_backward_dq"
+                           else "mma")
+        assert c.form_launches == {variant: 1}, (name, c.form_launches)
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["dense", "masked"])

@@ -420,7 +420,9 @@ def _entry(name, maxd):
 
 FLASH_KERNEL_NAMES = ["flash_fwd_kernel", "flash_bwd_dq_kernel",
                       "flash_bwd_dkv_kernel", "flash_fwd_bf16_kernel",
-                      "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel"]
+                      "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
+                      "flash_fwd_bf16_wgmma_kernel",
+                      "flash_bwd_dkv_bf16_wgmma_kernel"]
 
 
 @pytest.mark.parametrize("name", FLASH_KERNEL_NAMES)
@@ -448,32 +450,52 @@ def test_smoke_names_the_ragged_span_instantiations(maxd, kv):
         f"ragged_span_kernel<{maxd},{kv}>"
 
 
-@pytest.mark.parametrize("hmma_in_all", [True, False])
+# True: every instantiation holds its tensor-core products; False: one
+# mma.sync instantiation holds none; a wgmma instantiation with HMMA but
+# no HGMMA; a wgmma instantiation missing from the build
+@pytest.mark.parametrize("case", [True, False, "wgmma_hmma_only",
+                                  "wgmma_missing"])
 def test_smoke_build_report_requires_tensor_core_products(monkeypatch,
-                                                          hmma_in_all):
+                                                          case):
     """The build report passes when the SASS of every instantiation of the
     tensor-core kernels (the three flash kernels at fp32 and at bf16, the
-    ragged span form) holds HMMA, and fails the smoke when one holds
-    none."""
+    bf16 wgmma kernels, the ragged span form) holds its tensor-core
+    products (HMMA; HGMMA in the wgmma kernels), and fails the smoke when
+    one holds none, when a wgmma kernel holds only HMMA, or when one is
+    missing."""
+    import re
     import subprocess
     from types import SimpleNamespace
 
     cs = _chip_smoke()
-    entries = [_entry(n, d) for n in FLASH_KERNEL_NAMES
-               for d in (64, 128, 256)]
-    entries += [_span_entry(d, kv) for d in (128, 256) for kv in range(3)]
-    log = "\n".join(f"ptxas info    : Compiling entry function '{e}' for "
-                    f"'sm_90a'\nptxas info    : Used 200 registers" for e in
-                    entries)
-    sass = "".join(f"\tFunction : {e}\n\tHMMA.1688.F32.TF32 R0, R4, R8, R0\n"
-                   for e in entries)
-    if not hmma_in_all:
-        sass = sass.replace("HMMA.1688.F32.TF32 R0, R4, R8, R0\n", "FADD\n", 1)
+
+    def entry(label):
+        name, args = re.fullmatch(r"(\w+)<([\d,]+)>", label).groups()
+        if name == "ragged_span_kernel":
+            return _span_entry(*map(int, args.split(",")))
+        return _entry(name, int(args))
+
+    labels = list(cs.TENSOR_CORE_INSTANTIATIONS)
+    wgmma = [lb for lb in labels if lb.startswith(cs.WGMMA_KERNELS)]
+    assert len(wgmma) == 4
+    if case == "wgmma_missing":
+        labels.remove(wgmma[-1])
+    log = "\n".join(f"ptxas info    : Compiling entry function "
+                    f"'{entry(lb)}' for 'sm_90a'\nptxas info    : Used 200 "
+                    f"registers" for lb in labels)
+    hmma = "\tHMMA.1688.F32.TF32 R0, R4, R8, R0\n"
+    hgmma = "\tHGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24\n"
+    sass = "".join(
+        f"\tFunction : {entry(lb)}\n"
+        + (hgmma if lb in wgmma and case != "wgmma_hmma_only" else hmma)
+        for lb in labels)
+    if case is False:
+        sass = sass.replace(hmma, "\tFADD\n", 1)
     monkeypatch.setattr(cs.subprocess, "run", lambda *a, **k:
                         subprocess.CompletedProcess(a, 0, stdout=sass))
     monkeypatch.setattr(cs, "log", lambda msg: None)
     build = SimpleNamespace(log=log, path=Path("libkernels.so"))
-    if hmma_in_all:
+    if case is True:
         cs.build_report(build)
         # an instantiation missing from the build fails it as well
         cut = sass.split("\tFunction : ")

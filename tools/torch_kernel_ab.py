@@ -29,6 +29,10 @@ Rows (LLaMA-2-7B heads, d = 128, pages of 16, a 1024-page pool):
   K3a Llama            flash forward, q/k/v [1, 4096, 32, 128], causal
   K3a-m ERNIE          flash forward, q/k/v [16, 512, 12, 64] with the
                        ERNIE batch's key-padding bias [16, 512], full
+  K3a-bf16 Llama       the two K3a rows on bf16 q/k/v (the bf16 forward;
+  K3a-m-bf16 ERNIE     fp32 kbias)
+  K3b-dkv-bf16 Llama   the bf16 dk/dv kernel on the same bf16 operands and
+  K3b-dkv-m-bf16 ERNIE a bf16 dO, with the forward's lse and delta
 """
 
 from __future__ import annotations
@@ -48,7 +52,9 @@ DECODE_POS = [124, 183, 242, 301, 360, 419, 478, 542]
 LONG_POS = [4095, 3000, 1500, 16]
 ROWS = ("K1 fp32 chunk", "K1-q int8 chunk", "K1-q fp8 chunk",
         "K1-q int8 decode", "K1-q fp8 decode", "K1 fp32 decode GQA4",
-        "K2 fp32 decode", "K2 fp32 decode long", "K3a Llama", "K3a-m ERNIE")
+        "K2 fp32 decode", "K2 fp32 decode long", "K3a Llama", "K3a-m ERNIE",
+        "K3a-bf16 Llama", "K3a-m-bf16 ERNIE", "K3b-dkv-bf16 Llama",
+        "K3b-dkv-m-bf16 ERNIE")
 
 
 def _smoke():
@@ -112,20 +118,31 @@ def child(tree: str) -> dict:
         ms[row] = cs.median_ms(lambda: paged_decode_attention(
             q, k_pool, v_pool, table, pos))
     del k_pool, v_pool
-    for row, (b, s, h, dh, causal, ernie) in (
-            ("K3a Llama", (1, 4096, 32, 128, True, False)),
-            ("K3a-m ERNIE", (16, 512, 12, 64, False, True))):
-        q, k, v = (torch.randn(b, s, h, dh, device="cuda", generator=gen)
-                   for _ in range(3))
+    for row, (b, s, h, dh, causal, ernie), dtype in (
+            ("K3a Llama", (1, 4096, 32, 128, True, False), torch.float32),
+            ("K3a-m ERNIE", (16, 512, 12, 64, False, True), torch.float32),
+            ("K3a-bf16 Llama", (1, 4096, 32, 128, True, False),
+             torch.bfloat16),
+            ("K3a-m-bf16 ERNIE", (16, 512, 12, 64, False, True),
+             torch.bfloat16)):
+        q, k, v, do = (torch.randn(b, s, h, dh, device="cuda", generator=gen)
+                       .to(dtype) for _ in range(4))
         kbias = None
         if ernie:
             att = cs.ernie_batch(40000, b, s, 0)[2]
             kbias = ((1.0 - att.float()) * -1e4).contiguous()
         o, lse = fa.flash_forward(q, k, v, causal, kbias=kbias)
         m = fa.Masks(kbias=kbias)
+        scale = 1.0 / dh ** 0.5
         ms[row] = cs.median_ms(lambda: fa.launch_forward(
-            q, k, v, o, lse, causal, 1.0 / dh ** 0.5, m))
-        del q, k, v, o, lse
+            q, k, v, o, lse, causal, scale, m))
+        if dtype == torch.bfloat16:
+            delta = fa.backward_delta(o, do)
+            dk, dv = torch.empty_like(k), torch.empty_like(v)
+            ms[row.replace("K3a", "K3b-dkv")] = cs.median_ms(
+                lambda: fa.launch_backward_dkv(q, k, v, do, lse, delta, dk,
+                                               dv, causal, scale, m))
+        del q, k, v, do, o, lse
     return ms
 
 
