@@ -14,9 +14,10 @@ exits non-zero without printing a result:
               backward kernels' shared memory per instantiation and the
               tensor-core instructions in the SASS (cuobjdump -sass: HMMA
               for mma.sync, HGMMA for wgmma) of every instantiation of the
-              three flash kernels, their bf16 wgmma kernels (forward and
-              dk/dv at d <= 128, which must hold HGMMA) and the ragged span
-              form; one without them, or missing, fails the run.
+              three flash kernels, their bf16 wgmma kernels (forward, dq
+              and dk/dv at d <= 128, which must hold HGMMA and spill
+              nothing) and the ragged span form; one without them, or
+              missing, fails the run.
   3. kernels  each serving kernel's wrapper against its plain PyTorch
               version on the card: the ragged kernel over fp32 pools (K1)
               at LLaMA-2-7B heads and at a GQA layout over mixed spans
@@ -192,17 +193,22 @@ exits non-zero without printing a result:
               cannot; at the Llama trainer's shape (causal), the ERNIE batch's
               shape and -1e4 key padding, a sweep over d in {64, 128} x
               causal / full x lengths 1, 100, 257, 1000 and 128 / 384
-              crossed, and phase 10's masked forms; (b) phase 14 and 18's
-              timing at bf16 (plain versions and SDPA on the same bf16
-              operands; the bound at 2-byte operands and 989 TFLOP/s).
+              crossed, phase 10's masked forms and one d = 256 case; each
+              launch through the kernel `kernel_variant` names (wgmma at
+              d <= 128, mma.sync above); (b) phase 14 and 18's timing at
+              bf16 (plain versions and SDPA on the same bf16 operands; the
+              bound at 2-byte operands and 989 TFLOP/s), then dq's time,
+              its share of the bound and the pair's factor over SDPA's
+              bf16 backward at both shapes.
  21. ERNIE O1 phase 15 at bf16 AMP O1 (child_ernie's amp_level), each masked
               bf16 kernel 12 times a step and nothing else (no fp32 flash
-              kernel, plain version or dense attention); the forward and
-              dk/dv through their wgmma kernels (d = 64) every time, the
-              mma.sync kernels of d > 128 never; profiled as 16.
- 22. Llama O1 phase 11 at O1 through the dense bf16 kernels, the forward
-              and dk/dv through their wgmma kernels (d = 128) every time;
-              profiled as 12.
+              kernel, plain version or dense attention); the forward, dq
+              and dk/dv through their wgmma kernels (d = 64) every time
+              (96 launches each), the mma.sync kernels of d > 128 never;
+              profiled as 16.
+ 22. Llama O1 phase 11 at O1 through the dense bf16 kernels, the forward,
+              dq and dk/dv through their wgmma kernels (d = 128) every
+              time (64 launches each); profiled as 12.
  23. O2       a 2-layer Llama at full width after amp.decorate(level="O2"):
               bf16 parameters, fp32 master copies in AdamW, each parameter
               bit for bit its master cast to bf16 after every step; losses
@@ -1211,6 +1217,8 @@ def horizon_profile(eng, cfg, steps=3, prompt_len=300):
 # ------------------------------------------------------------ profile
 
 FLASH_GROUPS = {"flash_fwd_bf16_wgmma_kernel": "K3a-bf16 flash_forward_bf16",
+                "flash_bwd_dq_bf16_wgmma_kernel":
+                    "K3b-dq-bf16 flash_backward_dq_bf16",
                 "flash_bwd_dkv_bf16_wgmma_kernel":
                     "K3b-dkv-bf16 flash_backward_dkv_bf16",
                 "flash_fwd_bf16_kernel": "K3a-bf16 flash_forward_bf16",
@@ -1347,7 +1355,8 @@ FLASH_KERNELS = (
 # the kernel function of each bf16 wrapper: (mma.sync, wgmma)
 BF16_KERNEL_NAMES = {
     "flash_forward": ("flash_fwd_bf16_kernel", "flash_fwd_bf16_wgmma_kernel"),
-    "flash_backward_dq": ("flash_bwd_dq_bf16_kernel", None),
+    "flash_backward_dq": ("flash_bwd_dq_bf16_kernel",
+                          "flash_bwd_dq_bf16_wgmma_kernel"),
     "flash_backward_dkv": ("flash_bwd_dkv_bf16_kernel",
                            "flash_bwd_dkv_bf16_wgmma_kernel"),
 }
@@ -2134,21 +2143,29 @@ def check_bf16(gen, label, b, sq, sk, h, d, causal, dead_rows=None, **kw):
     see a key), dq, dk and dv within twice the bf16 plain version's own
     error, and o, dq, dk and dv misrounded (`misround_share`) at most
     MISROUND_GATE of the time. Each kernel must launch once, as its bf16
-    instantiation. Returns ({kernel: fp64 ratio}, {kernel: max abs error
-    vs plain}, {kernel: misround share})."""
+    instantiation, through the variant `kernel_variant` names for d (wgmma
+    at d <= 128, mma.sync above). Returns ({kernel: fp64 ratio},
+    {kernel: max abs error vs plain}, {kernel: misround share})."""
     from paddle_tpu_torch.ops import flash_attention as fa
     bf = torch.bfloat16
     q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
                    .to(bf) for s in (sq, sk, sk, sq))
     m = fa.canonical_masks(q, k, v, causal, **kw)
     ops = m._asdict()
-    before = _flash_counts(m.given(), bf16=True)
+    counts = fa.counts_for(m.given(), bf)
+    before = {n: (c.kernel_launches, dict(c.form_launches))
+              for n, c in counts.items()}
     o, lse = fa.flash_forward(q, k, v, causal, **ops)
     kern = fa.flash_backward(q, k, v, o, do, lse, causal, **ops)
-    after = _flash_counts(m.given(), bf16=True)
-    if any(after[n][0] - before[n][0] != 1 for n in after):
-        raise AssertionError(f"bf16 flash {label}: the bf16 kernels did not "
-                             f"each launch once: {before} -> {after}")
+    for n, c in counts.items():
+        variant = fa.kernel_variant(n, bf, d)
+        if (c.kernel_launches - before[n][0] != 1
+                or c.form_launches.get(variant, 0)
+                - before[n][1].get(variant, 0) != 1):
+            raise AssertionError(
+                f"bf16 flash {label}: {n} did not launch once through its "
+                f"{variant} kernel: {before[n]} -> {c.kernel_launches}, "
+                f"{c.form_launches}")
     ro, rlse = fa.flash_forward_reference(q, k, v, causal, **ops)
     plain = fa.flash_backward_reference(q, k, v, o, do, lse, causal, **ops)
     q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
@@ -2199,7 +2216,8 @@ def bf16_flash_checks(gen, att):
     """Phase 20 (a): the bf16 kernels against fp64 at the Llama trainer's
     shape (causal), at the ERNIE batch's shape with its -1e4 key padding
     (``att``), over d in {64, 128} x causal / full x lengths 1, 100, 257,
-    1000 and 128 / 384 crossed, and in every masked form of phase 10.
+    1000 and 128 / 384 crossed, in every masked form of phase 10 and at
+    d = 256.
     Returns the worst fp64 ratio, abs error vs plain and misround share of
     each kernel, dense and masked."""
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -2256,6 +2274,7 @@ def bf16_flash_checks(gen, att):
     m.masked_fill_(~fa._block_live(blocks, 512, 512), fa.NEG_INF)
     case("block mask", 1, 512, 512, 4, 64, False, mask=m,
          block_mask=blocks)
+    case("d > 128: the mma.sync kernels", 1, 257, 257, 4, 256, True)
     log(f"bf16 flash checks: {n} cases within 2x the bf16 plain versions' "
         f"error against fp64, misrounded at most {MISROUND_GATE}; worst "
         "ratios, abs errors vs plain and misround shares "
@@ -2605,39 +2624,48 @@ def _kernel_label(mangled: str) -> str:
 
 # the kernels that multiply on the tensor cores, and every instantiation
 # of them the build must hold (the ragged span form's second argument is
-# the pool type: 0 fp32, 1 int8, 2 fp8): the bf16 forward and dk/dv run on
+# the pool type: 0 fp32, 1 int8, 2 fp8): the three bf16 kernels run on
 # wgmma at d <= 128 (flash_attention_wgmma.cu) and keep their mma.sync
 # kernels for d <= 256 only
 WGMMA_KERNELS = ("flash_fwd_bf16_wgmma_kernel",
+                 "flash_bwd_dq_bf16_wgmma_kernel",
                  "flash_bwd_dkv_bf16_wgmma_kernel")
 TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                       "flash_bwd_dkv_kernel", "flash_bwd_dq_bf16_kernel",
-                       "flash_fwd_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
+                       "flash_bwd_dkv_kernel", "flash_fwd_bf16_kernel",
+                       "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
                        *WGMMA_KERNELS, "ragged_span_kernel")
 TENSOR_CORE_INSTANTIATIONS = (
-    *(f"{k}<{d}>" for k in TENSOR_CORE_KERNELS[:4] for d in (64, 128, 256)),
-    "flash_fwd_bf16_kernel<256>", "flash_bwd_dkv_bf16_kernel<256>",
+    *(f"{k}<{d}>" for k in TENSOR_CORE_KERNELS[:3] for d in (64, 128, 256)),
+    *(f"{k}<256>" for k in TENSOR_CORE_KERNELS[3:6]),
     *(f"{k}<{d}>" for k in WGMMA_KERNELS for d in (64, 128)),
     *(f"ragged_span_kernel<{d},{kv}>" for d in (128, 256) for kv in range(3)))
 
 
 def build_report(build) -> None:
-    """Phase 2's report: each kernel entry's registers and spills (ptxas),
-    the backward kernels' shared memory per instantiation, and whether the
-    SASS of every tensor-core kernel (the three flash kernels, the bf16
-    wgmma kernels, the ragged span form) holds tensor-core instructions in
-    every instantiation (HMMA: mma.sync, HGMMA: wgmma; the wgmma kernels
-    HGMMA), from cuobjdump -sass of the built library; one without them,
-    or missing, fails the run."""
+    """Phase 2's report: each kernel entry's registers and spills (ptxas;
+    a wgmma kernel that spills fails the run: its accumulators would go
+    through local memory), the backward kernels' shared memory per
+    instantiation, and whether the SASS of every tensor-core kernel (the
+    three flash kernels, the bf16 wgmma kernels, the ragged span form)
+    holds tensor-core instructions in every instantiation (HMMA:
+    mma.sync, HGMMA: wgmma; the wgmma kernels HGMMA), from cuobjdump -sass
+    of the built library; one without them, or missing, fails the run."""
     if not build.log:
         log("  ptxas: the library was built by an earlier process (its "
             "register report is in that build's log)")
-    name = None
+    name, spilled = None, {}
     for ln in build.log.splitlines():
         if "Compiling entry function" in ln:
             name = _kernel_label(ln.split("'")[1])
         elif name and ("registers" in ln or "spill" in ln):
             log(f"  ptxas {name}: {ln.split(':', 1)[-1].strip()}")
+            if "spill" in ln and name.startswith(WGMMA_KERNELS):
+                spilled[name] = re.findall(r"(\d+) bytes spill", ln) \
+                    != ["0", "0"]
+        if "C7512" in ln:   # ptxas serialized a kernel's wgmma
+            log(f"  ptxas: {ln.strip()}")
+    if any(spilled.values()):
+        raise AssertionError(f"a wgmma kernel spills registers: {spilled}")
     for maxd, (bm, bn) in BWD_TILES.items():
         ld = (maxd + 31) // 32 * 32
         base = (2 * bm + 4 * bn) * ld + 8 * 16 * 32
@@ -2843,6 +2871,14 @@ def main() -> int:
     masked_bf16 = measure_flash(gen, h=12, d=64, causal=False, att=data[2],
                                 dtype=torch.bfloat16)
     _free_the_card()
+    for shape, times in (("q/k/v [1,4096,32,128] causal", flash_bf16),
+                         ("q/k/v [16,512,12,64] + kbias", masked_bf16)):
+        dq, pair = times["flash_backward_dq"], times["pair"]
+        log(f"K3b-dq-bf16 at {shape}: {dq['ms']:.4f} ms, "
+            f"{100 * dq['bound_ms'] / dq['ms']:.1f} % of its bound "
+            f"{dq['bound_ms']:.4f} ms; with dk/dv {pair['kernels_ms']:.4f} "
+            f"ms, {pair['kernels_ms'] / pair['library_ms']:.3f}x SDPA's bf16 "
+            f"backward {pair['library_ms']:.4f} ms")
     ernie, data_o1, masked_bf16_launches, masked_bf16_variants = \
         ernie_trainer_phase(ERNIE3_BASE, amp_level="O1")
     train_profile_phase(ernie, data_o1, ERNIE3_BASE.num_layers,

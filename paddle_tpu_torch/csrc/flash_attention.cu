@@ -7,7 +7,7 @@
 //   _flash_backward (kernel _flash_bwd_dkv_kernel)     -> flash_bwd_dkv_kernel
 // in every form: dense, and with the masking inputs of _extra_inputs_specs
 // (an additive mask, a per-key bias, segment ids, a block mask), each
-// optional and composable with causal. At bf16 (AMP) the forward and dk/dv
+// optional and composable with causal. At bf16 (AMP) all three kernels
 // for d <= 128 run on wgmma with TMA rings (flash_attention_wgmma.cu); the
 // bf16 entry points at the end of this file choose between those kernels
 // and this file's by d. What both sources share (Dims, the masks at each
@@ -116,9 +116,9 @@
 //   reads; splitting its own-side tiles once, as the forward does, needs
 //   two planes for each of two tiles and does not fit at d = 128.
 // - bf16 operands (AMP): the bf16 instantiations at the end of this file,
-//   the same walk with bf16 tiles and bf16 mma (bf16_mma.cuh): dq at every
-//   d, the forward and dk/dv for 128 < d <= 256 (below, the wgmma kernels
-//   of flash_attention_wgmma.cu).
+//   the same walk with bf16 tiles and bf16 mma (bf16_mma.cuh), for
+//   128 < d <= 256 (below, the wgmma kernels of
+//   flash_attention_wgmma.cu).
 // This file uses neither wgmma nor TMA: mma.sync keeps the fragments in
 // registers, where the masks and the softmax apply element by element.
 
@@ -707,9 +707,9 @@ Dims make_dims(int H, int Sq, int Sk, int d, float scale, int causal,
 // The same three kernels for bf16 q, k, v, o, do, dq, dk, dv (AMP): the
 // same grid, tile walk (causal skip, block-mask skip, heaviest tiles
 // first), masks and fp32 softmax as the fp32 kernels above, with lse,
-// delta and the masks fp32: dq at every d, the forward and dk/dv only for
-// 128 < d <= 256 (instantiation 256; for d <= 128 the entry points take
-// the wgmma kernels of flash_attention_wgmma.cu). They replace the same Pallas kernels at bf16,
+// delta and the masks fp32, only for 128 < d <= 256 (instantiation 256;
+// for d <= 128 the entry points take the wgmma kernels of
+// flash_attention_wgmma.cu). They replace the same Pallas kernels at bf16,
 // which upcast each tile to fp32, compute in fp32 and write o, dq, dk and
 // dv in the input dtype: here the products run on bf16 tensor cores with
 // fp32 accumulators (bf16_mma.cuh; P and dS, fp32 in registers, split in
@@ -729,14 +729,6 @@ Dims make_dims(int H, int Sq, int Sk, int d, float scale, int causal,
 // of the streamed side per stage, WN warps sharing each 16 rows.
 template <int MAXD>
 struct TilesBf;
-template <>
-struct TilesBf<64> {   // dq only
-  static constexpr int BM = 128, BNB = 32, WN = 1, kMinBlocks = 2;
-};
-template <>
-struct TilesBf<128> {   // dq only
-  static constexpr int BM = 128, BNB = 32, WN = 1, kMinBlocks = 1;
-};
 template <>
 struct TilesBf<256> {
   static constexpr int BM = 64, BN = 32, BNB = 16, WN = 2, kMinBlocks = 1;
@@ -1227,11 +1219,11 @@ extern "C" int flash_attention_bwd_dq_bf16(
   const float* ef = static_cast<const float*>(delta);
   uint16_t* gh = static_cast<uint16_t*>(dq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 64) {
-    return (int)launch_dq_bf16<64>(qh, kh, vh, dh, lf, ef, gh, B, dm, st);
-  }
+  // d <= 128: the wgmma kernel (flash_attention_wgmma.cu); above, the
+  // mma.sync kernel of this file
   if (d <= 128) {
-    return (int)launch_dq_bf16<128>(qh, kh, vh, dh, lf, ef, gh, B, dm, st);
+    return (int)flash::launch_dq_bf16_wgmma(qh, kh, vh, dh, lf, ef, gh, B,
+                                            dm, st);
   }
   return (int)launch_dq_bf16<256>(qh, kh, vh, dh, lf, ef, gh, B, dm, st);
 }

@@ -1,27 +1,33 @@
-// The bf16 flash forward and dk/dv kernels for Hopper, sm_90a, on wgmma
-// with TMA-fed shared-memory rings, for head dims d <= 128 (instantiations
-// MAXD = 64 and 128; the bf16 entry points of flash_attention.cu call
-// them there and keep their mma.sync kernels for 128 < d <= 256).
+// The bf16 flash forward, dq and dk/dv kernels for Hopper, sm_90a, on
+// wgmma with TMA-fed shared-memory rings, for head dims d <= 128
+// (instantiations MAXD = 64 and 128; the bf16 entry points of
+// flash_attention.cu call them there and keep their mma.sync kernels for
+// 128 < d <= 256).
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py at bf16 q, k, v ::
-//   _flash_forward (kernel _flash_fwd_kernel)      -> flash_fwd_bf16_wgmma_kernel
-//   _flash_backward (kernel _flash_bwd_dkv_kernel) -> flash_bwd_dkv_bf16_wgmma_kernel
+//   _flash_forward (kernel _flash_fwd_kernel)
+//     -> flash_fwd_bf16_wgmma_kernel
+//   _flash_backward (kernel _flash_bwd_dq_kernel)
+//     -> flash_bwd_dq_bf16_wgmma_kernel
+//   _flash_backward (kernel _flash_bwd_dkv_kernel)
+//     -> flash_bwd_dkv_bf16_wgmma_kernel
 // dense and in every masked form, with the contract of the mma.sync bf16
 // kernels (flash_attention.cu): layout [B, S, H, d], bottom-right causal
 // alignment, the masks of flash_common.cuh at each accumulator element,
 // the hard-mask guard (s <= -5e29 -> p = 0), lse and delta in fp32, the
 // outputs rounded to bf16 once.
 //
-// What bounds them on the H100: the JAX kernel's 4 d (forward) and 8 d
-// (dk/dv) FLOPs per visible pair at the dense bf16 rate (989 TFLOP/s),
-// one to two orders of magnitude above their bytes at the training
-// shapes. P and dS are fp32 in the JAX kernel; here each is split into
-// hi = bf16(x) and lo = bf16(x - hi) (bf16_mma.cuh) and multiplied twice,
-// so the forward does 1.5x and dk/dv 1.5x the bound's FLOPs. One bf16
-// term misrounds ~40 % of the outputs (chip_smoke.py's misround gate), so
-// both terms stay. At d = 64 and short sequences (ERNIE: 512) a tile's
-// products are small and its softmax, masks and split on the CUDA cores
-// take as long: there the kernels are bound by instruction issue.
+// What bounds them on the H100: the JAX kernel's 4 d (forward), 6 d (dq)
+// and 8 d (dk/dv) FLOPs per visible pair at the dense bf16 rate (989
+// TFLOP/s), one to two orders of magnitude above their bytes at the
+// training shapes. P and dS are fp32 in the JAX kernel; here each is
+// split into hi = bf16(x) and lo = bf16(x - hi) (bf16_mma.cuh) and
+// multiplied twice, so the forward and dk/dv do 1.5x and dq 4/3 the
+// bound's FLOPs. One bf16 term misrounds ~40 % of the outputs
+// (chip_smoke.py's misround gate), so both terms stay. At d = 64 and
+// short sequences (ERNIE: 512) a tile's products are small and its
+// softmax, masks and split on the CUDA cores take as long: there the
+// kernels are bound by instruction issue.
 //
 // Design (one block per (batch * head, tile of 128 rows of the block's
 // own side), heaviest causal tiles first, dead causal and block-mask
@@ -50,9 +56,18 @@
 //   guard, dS = scale P (dP - delta), each split, then dV += P^T dO and
 //   dK += dS^T Q, lo then hi per 16-row step (register A, dO and Q
 //   MN-major).
+// - dq: the forward's shape with a second score product. Q and dO
+//   [128 x d] once, lse and delta of each thread's two rows read once
+//   into registers; the ring streams K and V in tiles of 32 keys. S = Q
+//   K^T and dP = dO V^T (both operands in shared memory), P = exp(s -
+//   lse) with the masks and the guard (tile_scores), dS = scale P (dP -
+//   delta) split in two terms, then dQ += dS_lo K + dS_hi K per 16-key
+//   step (register A, K an MN-major operand: the forward's P V with dS
+//   for P and K for V). dQ's product of a tile stays in flight while the
+//   next tile's S and dP are issued; its stage is released after them.
 // - Accumulation: the chains of S, S^T and the split products sum their
 //   k-steps in the tensor cores (over d, over a tile's keys or queries);
-//   tiles add up in the fp32 accumulators. dP^T sums each k-step's
+//   tiles add up in the fp32 accumulators. dP and dP^T sum each k-step's
 //   product in fp32 instead (a zero-scaled wgmma per k-step into one of
 //   two scratch accumulators, two in flight, P formed meanwhile): where a
 //   row sees one key, dS = P (dP - delta) cancels to rounding noise, and
@@ -61,12 +76,14 @@
 //   2x gate against fp64).
 // - Registers: ptxas gives the consumers their 232 only if no path of the
 //   kernel traps (sm90_wgmma.cuh's barrier wait has no bounded-poll
-//   trap); tiles of 64 keys (forward) and 32 query rows (dk/dv) keep the
-//   accumulators, S, P's two terms and the scratch within them, unspilled.
+//   trap); tiles of 64 keys (forward) and 32 rows (dq's keys, dk/dv's
+//   queries) keep the accumulators, S, dP, P's or dS's two terms and the
+//   scratch within them, unspilled.
 // - Shared memory (d = 128): forward Q 32 KB + 4 stages x (K, V) 32 KB =
-//   160 KB; dk/dv K, V 64 KB + 4 stages x (Q, dO) 16 KB + lse and delta
-//   = 129 KB; one block per SM. Tiles are boxes of 64 columns in the
-//   128-byte swizzle (sm90_wgmma.cuh), two per row at d > 64.
+//   160 KB; dq Q, dO 64 KB + 4 stages x (K, V) 16 KB = 128 KB; dk/dv K, V
+//   64 KB + 4 stages x (Q, dO) 16 KB + lse and delta = 129 KB; one block
+//   per SM. Tiles are boxes of 64 columns in the 128-byte swizzle
+//   (sm90_wgmma.cuh), two per row at d > 64.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -444,6 +461,76 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         t);
 }
 
+// ------------------------------------------------- the backward's scores
+
+// The backward's two score products for a warpgroup's 64 rows (from row0
+// of the kRows-row tiles a and c) and the BN rows of the streamed tiles b
+// and d, all K-major over d: S = a b^T sums its k-steps in the tensor
+// cores; dP = c d^T sums each k-step's product in fp32 (dS = P (dP -
+// delta) cancels where a row sees one key, and the tensor cores' running
+// sum rounds coarser than fp32). issue_scores_bwd issues S with dP's
+// first k-step, then dP's second and third k-steps into the scratch pa
+// and pb, as three wgmma groups; the caller waits for the first
+// (wgmma_wait<2>) and forms P while the other two run, then
+// sum_dp_steps adds each scratch product to dP as it completes and
+// issues the next k-step into it, two in flight, until every group the
+// caller issued has completed.
+template <int MAXD, int BN>
+__device__ __forceinline__ void issue_scores_bwd(float (&s)[BN / 8][4],
+                                                 float (&dp)[BN / 8][4],
+                                                 float (&pa)[BN / 8][4],
+                                                 float (&pb)[BN / 8][4],
+                                                 uint32_t a, uint32_t b,
+                                                 uint32_t c, uint32_t d,
+                                                 int row0) {
+  reg_fence(pa);
+  reg_fence(pb);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < MAXD / 16; ++kk) {
+    wgmma_ss(s, kmajor_desc<kRows>(a, row0, kk), kmajor_desc<BN>(b, 0, kk),
+             kk > 0);
+  }
+  wgmma_ss(dp, kmajor_desc<kRows>(c, row0, 0), kmajor_desc<BN>(d, 0, 0), 0);
+  wgmma_commit();
+  wgmma_ss(pa, kmajor_desc<kRows>(c, row0, 1), kmajor_desc<BN>(d, 0, 1), 0);
+  wgmma_commit();
+  wgmma_ss(pb, kmajor_desc<kRows>(c, row0, 2), kmajor_desc<BN>(d, 0, 2), 0);
+  wgmma_commit();
+}
+
+template <int MAXD, int BN>
+__device__ __forceinline__ void sum_dp_steps(float (&dp)[BN / 8][4],
+                                             float (&pa)[BN / 8][4],
+                                             float (&pb)[BN / 8][4],
+                                             uint32_t c, uint32_t d,
+                                             int row0) {
+  constexpr int NK = MAXD / 16, NT = BN / 8;
+#pragma unroll
+  for (int kk = 1; kk < NK; ++kk) {
+    float (&part)[NT][4] = (kk & 1) ? pa : pb;
+    if (kk + 1 < NK) {
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    reg_fence(part);
+    reg_fence(dp);
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) dp[i][r] += part[i][r];
+    }
+    if (kk + 2 < NK) {
+      reg_fence(part);
+      wgmma_fence();
+      wgmma_ss(part, kmajor_desc<kRows>(c, row0, kk + 2),
+               kmajor_desc<BN>(d, 0, kk + 2), 0);
+      wgmma_commit();
+    }
+  }
+}
+
 // ------------------------------------------------------------- dk, dv
 
 // BN query rows per streamed tile, ST stages in the ring. The two fp32
@@ -566,31 +653,9 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const uint32_t qt = sq + st * T::kQ, dot = sdo + st * T::kQ;
     const float* lse_t = lse_s + st * BN;
     const float* delta_t = delta_s + st * BN;
-    // transposed scores: rows are this block's keys, columns the queries.
-    // S^T sums its k-steps in the tensor cores; dP^T sums each k-step's
-    // product in fp32 (dS = P (dP - delta) cancels where a row sees one
-    // key, and the tensor cores' running sum rounds coarser than fp32):
-    // the k-steps go through two scratch accumulators, two in flight, and
-    // P is formed while the first two run
-    constexpr int NK = MAXD / 16;
+    // transposed scores: rows are this block's keys, columns the queries
     float s[NT][4], dp[NT][4], pa[NT][4], pb[NT][4];
-    reg_fence(pa);
-    reg_fence(pb);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < NK; ++kk) {
-      wgmma_ss(s, kmajor_desc<kRows>(sk, 64 * cw, kk),
-               kmajor_desc<BN>(qt, 0, kk), kk > 0);
-    }
-    wgmma_ss(dp, kmajor_desc<kRows>(sv, 64 * cw, 0),
-             kmajor_desc<BN>(dot, 0, 0), 0);
-    wgmma_commit();
-    wgmma_ss(pa, kmajor_desc<kRows>(sv, 64 * cw, 1),
-             kmajor_desc<BN>(dot, 0, 1), 0);
-    wgmma_commit();
-    wgmma_ss(pb, kmajor_desc<kRows>(sv, 64 * cw, 2),
-             kmajor_desc<BN>(dot, 0, 2), 0);
-    wgmma_commit();
+    issue_scores_bwd<MAXD, BN>(s, dp, pa, pb, sk, qt, sv, dot, 64 * cw);
     wgmma_wait<2>();   // S^T and dP^T's first k-step
     tile_scores<true>(s, b, head, k0 + m0, q1, g, t, dm);
 #pragma unroll
@@ -604,29 +669,7 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                       : exp2_approx((x - lse_t[n]) * kLog2e);
       }
     }
-#pragma unroll
-    for (int kk = 1; kk < NK; ++kk) {
-      float (&part)[NT][4] = (kk & 1) ? pa : pb;
-      if (kk + 1 < NK) {
-        wgmma_wait<1>();
-      } else {
-        wgmma_wait<0>();
-      }
-      reg_fence(part);
-      reg_fence(dp);
-#pragma unroll
-      for (int i = 0; i < NT; ++i) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) dp[i][r] += part[i][r];
-      }
-      if (kk + 2 < NK) {
-        reg_fence(part);
-        wgmma_fence();
-        wgmma_ss(part, kmajor_desc<kRows>(sv, 64 * cw, kk + 2),
-                 kmajor_desc<BN>(dot, 0, kk + 2), 0);
-        wgmma_commit();
-      }
-    }
+    sum_dp_steps<MAXD, BN>(dp, pa, pb, sv, dot, 64 * cw);
 #pragma unroll
     for (int i = 0; i < NT; ++i) {
 #pragma unroll
@@ -658,6 +701,154 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         g, t);
   store_frags_bf16<NTO>(dv + koff, rs, dv_acc, one, k0 + m0, dm.Sk, 0, dm.d,
                         g, t);
+}
+
+// ----------------------------------------------------------------- dq
+
+// BN keys per streamed tile, ST stages in the ring. dQ takes 64 registers
+// a thread at d = 128, and S, dP, dP's two scratch accumulators BN / 2
+// each and dS's two terms (kept until dQ's product of the tile has run)
+// BN / 4 each: 144 at 32 keys, 224 at 64, which spills.
+template <int MAXD>
+struct DqWg {
+  static constexpr int BN = 32, ST = 4;
+  static constexpr uint32_t kQ = tile_bytes<kRows, MAXD>();
+  static constexpr uint32_t kKV = tile_bytes<BN, MAXD>();
+  // Q | dO | K[ST] | V[ST] | barriers (q, full[ST], empty[ST])
+  static constexpr uint32_t kBars = 2 * kQ + 2 * ST * kKV;
+  static constexpr size_t kSmem = 1024 + kBars + 8 * (1 + 2 * ST);
+};
+
+template <int MAXD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               uint16_t* __restrict__ dq, Dims dm) {
+  using T = DqWg<MAXD>;
+  constexpr int BN = T::BN, ST = T::ST, NT = BN / 8, NTO = MAXD / 8;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (shared_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sq = base, sdo = sq + T::kQ, sk = sdo + T::kQ;
+  const uint32_t sv = sk + ST * T::kKV;
+  const uint32_t qbar = base + T::kBars;
+  auto full = [&](int s) { return qbar + 8 * (1 + s); };
+  auto empty = [&](int s) { return qbar + 8 * (1 + ST + s); };
+
+  const int bh = blockIdx.x, b = bh / dm.H, head = bh - b * dm.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;   // heaviest first
+  const int kend = key_end(q0, kRows, dm);
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);   // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread issues every load
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(qbar, 2 * T::kQ);
+      load_tile_tma<kRows, MAXD>(sq, &tq, qbar, head, q0, b);
+      load_tile_tma<kRows, MAXD>(sdo, &tdo, qbar, head, q0, b);
+      int st = 0;
+      uint32_t ph = 0;
+      for (int k0 = live_key_tile<BN>(q0, 0, kend, dm); k0 < kend;
+           k0 = live_key_tile<BN>(q0, k0 + BN, kend, dm)) {
+        mbar_wait(empty(st), ph ^ 1);
+        mbar_arrive_expect_tx(full(st), 2 * T::kKV);
+        load_tile_tma<BN, MAXD>(sk + st * T::kKV, &tk, full(st), head, k0, b);
+        load_tile_tma<BN, MAXD>(sv + st * T::kKV, &tv, full(st), head, k0, b);
+        if (++st == ST) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup cw owns rows 64 cw .. + 64 of the tile
+  setmaxnreg_inc<kConsumerRegs>();
+  const int cw = (threadIdx.x - 128) >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = 64 * cw + 16 * warp;   // this warp's first row
+  // lse and delta of rows g (h = 0) and g + 8 (h = 1), read once
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + m0 + g + 8 * h;
+    const bool valid = row < dm.Sq;
+    row_lse[h] = valid ? __ldg(lse + (int64_t)bh * dm.Sq + row) : 0.f;
+    row_delta[h] = valid ? __ldg(delta + (int64_t)bh * dm.Sq + row) : 0.f;
+  }
+  float acc[NTO][4];
+#pragma unroll
+  for (int j = 0; j < NTO; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  }
+  uint32_t hi[NT / 2][4], lo[NT / 2][4];   // dS of the tile before
+
+  mbar_wait(qbar, 0);
+  int st = 0, prev = -1;   // prev: the stage dQ's last product reads
+  uint32_t ph = 0;
+  for (int k0 = live_key_tile<BN>(q0, 0, kend, dm); k0 < kend;
+       k0 = live_key_tile<BN>(q0, k0 + BN, kend, dm)) {
+    mbar_wait(full(st), ph);
+    const uint32_t kt = sk + st * T::kKV, vt = sv + st * T::kKV;
+    // the tile before's dQ product is still in flight ahead of S and dP
+    float s[NT][4], dp[NT][4], pa[NT][4], pb[NT][4];
+    issue_scores_bwd<MAXD, BN>(s, dp, pa, pb, sq, kt, sdo, vt, 64 * cw);
+    wgmma_wait<2>();   // the tile before's dQ, S and dP's first k-step
+    reg_fence(acc);
+    reg_fence(hi);
+    reg_fence(lo);
+    if (prev >= 0 && lane == 0) mbar_arrive(empty(prev));   // consumed
+    tile_scores<false>(s, b, head, q0 + m0, k0, g, t, dm);
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x = s[i][r];
+        s[i][r] = x <= kMaskedBelow
+                      ? 0.f
+                      : exp2_approx((x - row_lse[r >> 1]) * kLog2e);
+      }
+    }
+    sum_dp_steps<MAXD, BN>(dp, pa, pb, sdo, vt, 64 * cw);
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        dp[i][r] = dm.scale * (s[i][r] * (dp[i][r] - row_delta[r >> 1]));
+      }
+    }
+    split_all(dp, hi, lo);
+    wgmma_split<BN>(acc, hi, lo, kt);   // dQ += dS K, waited for next turn
+    prev = st;
+    if (++st == ST) {
+      st = 0;
+      ph ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+  reg_fence(acc);
+  if (prev >= 0 && lane == 0) mbar_arrive(empty(prev));
+
+  const int64_t rs = (int64_t)dm.H * dm.d;
+  const int64_t qoff = ((int64_t)b * dm.Sq * dm.H + head) * dm.d;
+  const float one[2] = {1.f, 1.f};
+  store_frags_bf16<NTO>(dq + qoff, rs, acc, one, q0 + m0, dm.Sq, 0, dm.d, g,
+                        t);
 }
 
 // ----------------------------------------------------------- launches
@@ -712,6 +903,33 @@ cudaError_t launch_dkv(const uint16_t* q, const uint16_t* k,
   return cudaGetLastError();
 }
 
+template <int MAXD>
+cudaError_t launch_dq(const uint16_t* q, const uint16_t* k,
+                      const uint16_t* v, const uint16_t* dout,
+                      const float* lse, const float* delta, uint16_t* dq,
+                      int B, const Dims& dm, cudaStream_t st) {
+  using T = DqWg<MAXD>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = encode_bshd_bf16(&tq, q, B, dm.Sq, dm.H, dm.d, kRows);
+  if (err == cudaSuccess) {
+    err = encode_bshd_bf16(&tdo, dout, B, dm.Sq, dm.H, dm.d, kRows);
+  }
+  if (err == cudaSuccess) {
+    err = encode_bshd_bf16(&tk, k, B, dm.Sk, dm.H, dm.d, T::BN);
+  }
+  if (err == cudaSuccess) {
+    err = encode_bshd_bf16(&tv, v, B, dm.Sk, dm.H, dm.d, T::BN);
+  }
+  if (err == cudaSuccess) {
+    err = opt_in(flash_bwd_dq_bf16_wgmma_kernel<MAXD>, T::kSmem);
+  }
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * dm.H, (dm.Sq + kRows - 1) / kRows);
+  flash_bwd_dq_bf16_wgmma_kernel<MAXD><<<grid, kWgThreads, T::kSmem, st>>>(
+      tq, tk, tv, tdo, lse, delta, dq, dm);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 namespace flash {
@@ -722,6 +940,17 @@ cudaError_t launch_fwd_bf16_wgmma(const uint16_t* q, const uint16_t* k,
                                   cudaStream_t st) {
   if (dm.d <= 64) return launch_fwd<64>(q, k, v, o, lse, B, dm, st);
   return launch_fwd<128>(q, k, v, o, lse, B, dm, st);
+}
+
+cudaError_t launch_dq_bf16_wgmma(const uint16_t* q, const uint16_t* k,
+                                 const uint16_t* v, const uint16_t* dout,
+                                 const float* lse, const float* delta,
+                                 uint16_t* dq, int B, const Dims& dm,
+                                 cudaStream_t st) {
+  if (dm.d <= 64) {
+    return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, dm, st);
+  }
+  return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, dm, st);
 }
 
 cudaError_t launch_dkv_bf16_wgmma(const uint16_t* q, const uint16_t* k,

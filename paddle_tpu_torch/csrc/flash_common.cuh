@@ -1,10 +1,10 @@
 // What the flash kernels of both sources share (flash_attention.cu, and
-// flash_attention_wgmma.cu with the bf16 forward and dk/dv kernels for
+// flash_attention_wgmma.cu with the bf16 forward, dq and dk/dv kernels for
 // d <= 128): the problem sizes and masking operands (Dims), the masks at
 // each fragment element (_tile_scores of the JAX kernel), the causal and
 // block-mask walks, the bf16 output store and the shared-memory opt-in,
-// and the two launchers the bf16 entry points of flash_attention.cu call
-// in flash_attention_wgmma.cu.
+// and the three launchers the bf16 entry points of flash_attention.cu
+// call in flash_attention_wgmma.cu.
 
 #pragma once
 
@@ -174,12 +174,18 @@ cudaError_t opt_in(Kernel kernel, size_t smem) {
 
 namespace flash {
 
-// The bf16 forward and dk/dv kernels on wgmma (flash_attention_wgmma.cu),
-// for d <= 128; the same operands as launch_fwd_bf16 / launch_dkv_bf16.
+// The bf16 forward, dq and dk/dv kernels on wgmma
+// (flash_attention_wgmma.cu), for d <= 128; the same operands as
+// launch_fwd_bf16 / launch_dq_bf16 / launch_dkv_bf16.
 cudaError_t launch_fwd_bf16_wgmma(const uint16_t* q, const uint16_t* k,
                                   const uint16_t* v, uint16_t* o,
                                   float* lse, int B, const Dims& dm,
                                   cudaStream_t st);
+cudaError_t launch_dq_bf16_wgmma(const uint16_t* q, const uint16_t* k,
+                                 const uint16_t* v, const uint16_t* dout,
+                                 const float* lse, const float* delta,
+                                 uint16_t* dq, int B, const Dims& dm,
+                                 cudaStream_t st);
 cudaError_t launch_dkv_bf16_wgmma(const uint16_t* q, const uint16_t* k,
                                   const uint16_t* v, const uint16_t* dout,
                                   const float* lse, const float* delta,

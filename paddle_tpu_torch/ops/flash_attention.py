@@ -60,8 +60,8 @@ outputs in the input dtype). Mixed operand dtypes raise.
 
 On CUDA tensors the wrappers launch the hand-written kernels in
 csrc/flash_attention.cu or raise; on CPU tensors they run the plain
-versions. At bf16 the forward and dk/dv entry points take, for d <= 128,
-the wgmma kernels of csrc/flash_attention_wgmma.cu (TMA rings, warp
+versions. At bf16 the three entry points take, for d <= 128, the wgmma
+kernels of csrc/flash_attention_wgmma.cu (TMA rings, warp
 specialisation), and for wider heads the mma.sync kernels beside the fp32
 ones; `kernel_variant` names the one a launch takes. `COUNTS` holds one
 LaunchCounts per kernel for each form, keyed by (masked, operand dtype):
@@ -90,7 +90,7 @@ MASKED_BELOW = NEG_INF * 0.5
 MAX_HEAD_DIM = 256
 # the JAX kernel's tile, the granularity of its block mask
 JAX_BLOCK = 128
-# the widest head of the bf16 forward and dk/dv kernels on wgmma
+# the widest head of the bf16 kernels on wgmma
 WGMMA_MAX_HEAD_DIM = 128
 
 _KERNELS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
@@ -111,10 +111,12 @@ def kernel_variant(name: str, dtype, d: int) -> str:
     """The kernel a launch of ``name`` (one of the three flash kernels)
     takes on the card for operands of ``dtype`` and head dim ``d``, as the
     entry points in csrc/flash_attention.cu choose it: "wgmma" for the bf16
-    forward and dk/dv at d <= WGMMA_MAX_HEAD_DIM (flash_attention_wgmma.cu),
-    "mma" for every other (mma.sync: 3xTF32 at fp32, bf16 above)."""
-    if (dtype == torch.bfloat16 and d <= WGMMA_MAX_HEAD_DIM
-            and name in ("flash_forward", "flash_backward_dkv")):
+    forward, dq and dk/dv at d <= WGMMA_MAX_HEAD_DIM
+    (flash_attention_wgmma.cu), "mma" for every other (mma.sync: 3xTF32 at
+    fp32, bf16 above)."""
+    if name not in _KERNELS:
+        raise ValueError(f"kernel_variant: {name!r} is none of {_KERNELS}")
+    if dtype == torch.bfloat16 and d <= WGMMA_MAX_HEAD_DIM:
         return "wgmma"
     return "mma"
 

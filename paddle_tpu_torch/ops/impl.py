@@ -157,13 +157,20 @@ def matmul(x, y, transpose_x=False, transpose_y=False):
     return torch.matmul(x, y)
 
 
-def rotary_embedding(q, k, cos, sin):
-    """Rotate-half RoPE at positions 0..s-1. q, k: [b, s, h, d]; cos, sin:
-    [s, d]. The tables stay fp32 unless the AMP state casts them (O2), so
-    q * cos promotes to fp32 and the result is cast back to q's dtype."""
+def rotary_embedding(q, k, cos, sin, position_ids=None):
+    """Rotate-half RoPE. q, k: [b, s, h, d]; cos, sin: [s, d] rows for
+    positions 0..s-1, or, with integer ``position_ids`` [b, s], the table
+    rows those ids name (the JAX `take`). The tables stay fp32 unless the
+    AMP state casts them (O2), so q * cos promotes to fp32 and the result
+    is cast back to q's dtype."""
     q, k, cos, sin = cast_inputs("rotary_embedding", q, k, cos, sin)
-    cos = cos[None, :, None, :]
-    sin = sin[None, :, None, :]
+    if position_ids is not None:
+        ids = torch.as_tensor(position_ids, device=cos.device).long()
+        cos = cos[ids][:, :, None, :]
+        sin = sin[ids][:, :, None, :]
+    else:
+        cos = cos[None, :, None, :]
+        sin = sin[None, :, None, :]
     q_out = q * cos + _rotate_half(q) * sin
     k_out = k * cos + _rotate_half(k) * sin
     return q_out.to(q.dtype), k_out.to(k.dtype)

@@ -25,7 +25,7 @@ the host tier (item 9) and mesh-sharded pools (item 10).
 from __future__ import annotations
 
 from bisect import insort
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -217,15 +217,23 @@ def check_kv_dtype(kv_dtype: str, context: str) -> None:
 class KVCachePool:
     """The device-side page pool: per-layer pool tuples + the allocator.
 
-    The pools live on ``device`` ("cuda" unless the caller passes "cpu").
-    ``dtype`` is the logical (compute) dtype, fp32; ``kv_dtype`` the
-    storage rung (module docstring). Block tables live host-side as
-    python lists per sequence; `pad_table` builds the fixed-width
-    operand."""
+    The pools live on ``device`` ("cuda" unless the caller passes "cpu";
+    keyword-only, after the JAX parameters). ``dtype`` is the logical
+    (compute) dtype, fp32; ``kv_dtype`` the storage rung (module
+    docstring). ``mesh`` and ``model_axis`` sit in the JAX places; a mesh
+    raises (sharded pools are ROADMAP.md item 10). Block tables live
+    host-side as python lists per sequence; `pad_table` builds the
+    fixed-width operand."""
 
     def __init__(self, num_layers: int, num_blocks: int, block_size: int,
                  n_kv_heads: int, head_dim: int, dtype=torch.float32,
-                 device="cuda", kv_dtype: str = "fp32"):
+                 mesh=None, model_axis: str = "model",
+                 kv_dtype: str = "fp32", *, device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "KVCachePool(mesh=...): pools sharded over a mesh's model "
+                "axis are not ported yet: ROADMAP.md 'Still to port' item "
+                "10 (tensor-parallel serving)")
         if dtype != torch.float32:
             raise NotImplementedError(
                 f"KVCachePool(dtype={dtype}): only fp32 is ported as the "
@@ -239,6 +247,8 @@ class KVCachePool:
         self.head_dim = head_dim
         self.dtype = dtype
         self.kv_dtype = kv_dtype
+        self.mesh = mesh
+        self.model_axis = model_axis
         self.device = resolve_device(device)
         self.allocator = BlockAllocator(num_blocks)
         shape = (num_blocks, block_size, n_kv_heads, head_dim)
@@ -306,7 +316,12 @@ class SequenceKV:
     `pages_short()` reports the deficit the scheduler must fund (or
     preempt to fund) before the next decode step."""
 
-    def __init__(self, pool: KVCachePool):
+    def __init__(self, pool: KVCachePool, kv_tag: Optional[str] = None):
+        if kv_tag is not None:
+            raise NotImplementedError(
+                f"SequenceKV(kv_tag={kv_tag!r}): per-sequence kv-dtype tags "
+                "belong to the mixed pool, ROADMAP.md 'Still to port' item 8 "
+                "(quantized serving)")
         self.pool = pool
         self.pages: List[int] = []
         self.num_tokens = 0

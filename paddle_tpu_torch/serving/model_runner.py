@@ -102,7 +102,8 @@ def bucket_len(t: int, minimum: int = 8) -> int:
 
 
 def paged_attend(q, k_new, v_new, layer_pools, tables, write_page,
-                 write_off, pos_q, q_len, n_rep: int, impl: str):
+                 write_off, pos_q, q_len, n_rep: int, impl: str,
+                 shard_ctx=None):
     """Write this step's K/V through the block table, then attend.
 
     q: [B, T, n_h, d]; k_new/v_new: [B, T, n_kv, d]; layer_pools: one
@@ -113,8 +114,14 @@ def paged_attend(q, k_new, v_new, layer_pools, tables, write_page,
     per-page-per-head scales); tables: [B, P] int32; write_page/
     write_off: [B, T] int64; pos_q: [B] int32 context position of q row
     0; q_len: [B] int32 live rows per span. impl is the resolved
-    attention path ("reference" | "paged_decode" | "ragged"). Returns
-    ([B, T, n_h*d], layer_pools)."""
+    attention path ("reference" | "paged_decode" | "ragged"). shard_ctx,
+    the JAX (mesh, model_axis) of a sharded runner, raises unless None
+    (ROADMAP.md item 10). Returns ([B, T, n_h*d], layer_pools)."""
+    if shard_ctx is not None:
+        raise NotImplementedError(
+            "paged_attend(shard_ctx=...): kernels mapped over a mesh's "
+            "model axis are not ported yet: ROADMAP.md 'Still to port' "
+            "item 10 (tensor-parallel serving)")
     k_pool, v_pool = layer_pools[:2]
     scales = (None, None)
     if len(layer_pools) == 4:

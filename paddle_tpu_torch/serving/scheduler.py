@@ -42,13 +42,13 @@ class SamplingParams:
     seed: Optional[int] = None
     stop_token_ids: Tuple[int, ...] = ()
     timeout_s: Optional[float] = None   # deadline from arrival; None = never
+    # session affinity across the replicas of a tier; the engine refuses
+    # any value but None (the tier is ROADMAP.md 'Still to port' item 11)
+    session_id: Optional[str] = None
     # per-request KV precision: None = the pool's own rung; otherwise it
     # must name the engine's kv_dtype (the engine checks at intake; the
     # "mixed" pool that serves several is ROADMAP.md item 8)
     kv_dtype: Optional[str] = None
-    # session affinity across the replicas of a tier; the engine refuses
-    # any value but None (the tier is ROADMAP.md 'Still to port' item 11)
-    session_id: Optional[str] = None
 
     def __post_init__(self):
         if self.max_tokens < 1:
@@ -121,7 +121,13 @@ class FCFSScheduler:
 
     def __init__(self, pool: KVCachePool, max_batch_size: int,
                  max_pages_per_seq: int, admission_watermark: float = 1.0,
-                 max_prefill_tokens_per_step: Optional[int] = None):
+                 max_prefill_tokens_per_step: Optional[int] = None,
+                 count_host_headroom: bool = False):
+        if count_host_headroom:
+            raise NotImplementedError(
+                "FCFSScheduler(count_host_headroom=True): the host KV tier "
+                "whose free slots it counts is not ported yet: ROADMAP.md "
+                "'Still to port' item 9 (host KV tier)")
         if max_pages_per_seq > pool.allocator.num_usable:
             raise ValueError(
                 f"max_pages_per_seq={max_pages_per_seq} exceeds the pool's "

@@ -38,8 +38,8 @@ against the plain versions evaluated in fp64 on the same bf16 operands
 within twice the bf16 plain versions' own error, dense and in every masked
 form, and misround at most 1/16 of the outputs the plain versions round to
 bf16(exact) (which sees the P and dS products' inner precision), at head
-dims 40 to 256 and at 4096 x 4096; the forward and dk/dv launch their wgmma
-kernels for d <= 128 and their mma.sync kernels above (the profiler's
+dims 40 to 256 and at 4096 x 4096; the forward, dq and dk/dv launch their
+wgmma kernels for d <= 128 and their mma.sync kernels above (the profiler's
 kernel names); the bf16 autograd path launches only them; AdamW's multi-tensor step
 (grouped, in chunks) equals its update over each parameter alone within
 1e-6 (fp32 and bf16 parameters with master copies); a small Llama's O1 /
@@ -728,7 +728,7 @@ def _bf16_vs_fp64(gen, form, d, causal, sq, sk, b=2, h=3):
         assert (grads[0][:, sq // 2:] == 0).all()
 
 
-# d <= 128 runs the forward and dk/dv on wgmma (d = 40 and 96: TMA's
+# d <= 128 runs the three kernels on wgmma (d = 40 and 96: TMA's
 # zero-filled columns past d, K padded to 16), d = 256 the mma.sync kernels
 @pytest.mark.parametrize("d", [40, 64, 96, 128, 256])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
@@ -764,9 +764,9 @@ def _launched_kernels(fn):
 
 @pytest.mark.parametrize("d", [40, 64, 96, 128, 256])
 def test_bf16_head_dims_launch_their_kernel_variant(gen, d):
-    """At bf16 the forward and dk/dv launch their wgmma kernels for d <=
-    128 and the mma.sync kernels above, as `kernel_variant` names them and
-    the counts record them; dq keeps its mma.sync kernel."""
+    """At bf16 the forward, dq and dk/dv launch their wgmma kernels for
+    d <= 128 and the mma.sync kernels above, as `kernel_variant` names them
+    and the counts record them."""
     q, k, v, do = _bf16_operands(gen, 1, 200, 200, 2, d)
     fa.reset_counts()
 
@@ -776,14 +776,13 @@ def test_bf16_head_dims_launch_their_kernel_variant(gen, d):
 
     names = " ".join(_launched_kernels(run))
     wgmma = d <= fa.WGMMA_MAX_HEAD_DIM
-    for kernel in ("flash_fwd_bf16", "flash_bwd_dkv_bf16"):
+    for kernel in ("flash_fwd_bf16", "flash_bwd_dq_bf16",
+                   "flash_bwd_dkv_bf16"):
         assert (f"{kernel}_wgmma_kernel" in names) == wgmma, (d, names)
         assert (f"{kernel}_kernel" in names) != wgmma, (d, names)
-    assert "flash_bwd_dq_bf16_kernel" in names
     for name, c in fa.counts_for(False, torch.bfloat16).items():
         variant = fa.kernel_variant(name, torch.bfloat16, d)
-        assert variant == ("wgmma" if wgmma and name != "flash_backward_dq"
-                           else "mma")
+        assert variant == ("wgmma" if wgmma else "mma")
         assert c.form_launches == {variant: 1}, (name, c.form_launches)
 
 

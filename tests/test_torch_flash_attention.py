@@ -422,6 +422,7 @@ FLASH_KERNEL_NAMES = ["flash_fwd_kernel", "flash_bwd_dq_kernel",
                       "flash_bwd_dkv_kernel", "flash_fwd_bf16_kernel",
                       "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
                       "flash_fwd_bf16_wgmma_kernel",
+                      "flash_bwd_dq_bf16_wgmma_kernel",
                       "flash_bwd_dkv_bf16_wgmma_kernel"]
 
 
@@ -432,6 +433,18 @@ def test_smoke_names_kernels_from_their_mangled_entries(name, maxd):
     digits of the anonymous namespace's hash, and its instantiation."""
     assert _chip_smoke()._kernel_label(_entry(name, maxd)) == \
         f"{name}<{maxd}>"
+
+
+@pytest.mark.parametrize("name", FLASH_KERNEL_NAMES)
+def test_smoke_profiles_group_each_flash_kernel_as_its_own(name):
+    """The profiles of chip_smoke.py count each flash kernel, the wgmma
+    ones included, under its own group (K3a, K3b-dq or K3b-dkv, -bf16 for
+    the bf16 kernels), never under "other"."""
+    kernel = ("K3a" if "_fwd_" in name else
+              "K3b-dq" if "_dq_" in name else "K3b-dkv")
+    want = kernel + ("-bf16" if "bf16" in name else "")
+    group = _chip_smoke()._kernel_group(_entry(name, 128))
+    assert group.split()[0] == want, (name, group)
 
 
 _RAGGED_HASH = ("_ZN58_GLOBAL__N__f6e2226a_25_ragged_paged_attention_cu_"
@@ -452,17 +465,18 @@ def test_smoke_names_the_ragged_span_instantiations(maxd, kv):
 
 # True: every instantiation holds its tensor-core products; False: one
 # mma.sync instantiation holds none; a wgmma instantiation with HMMA but
-# no HGMMA; a wgmma instantiation missing from the build
+# no HGMMA; a wgmma instantiation missing from the build; a wgmma
+# instantiation that spills
 @pytest.mark.parametrize("case", [True, False, "wgmma_hmma_only",
-                                  "wgmma_missing"])
+                                  "wgmma_missing", "wgmma_spills"])
 def test_smoke_build_report_requires_tensor_core_products(monkeypatch,
                                                           case):
     """The build report passes when the SASS of every instantiation of the
     tensor-core kernels (the three flash kernels at fp32 and at bf16, the
     bf16 wgmma kernels, the ragged span form) holds its tensor-core
     products (HMMA; HGMMA in the wgmma kernels), and fails the smoke when
-    one holds none, when a wgmma kernel holds only HMMA, or when one is
-    missing."""
+    one holds none, when a wgmma kernel holds only HMMA, when one is
+    missing, or when ptxas reports spills in a wgmma kernel."""
     import re
     import subprocess
     from types import SimpleNamespace
@@ -477,12 +491,17 @@ def test_smoke_build_report_requires_tensor_core_products(monkeypatch,
 
     labels = list(cs.TENSOR_CORE_INSTANTIATIONS)
     wgmma = [lb for lb in labels if lb.startswith(cs.WGMMA_KERNELS)]
-    assert len(wgmma) == 4
+    assert len(wgmma) == 6
     if case == "wgmma_missing":
         labels.remove(wgmma[-1])
+    spill = {lb: 0 for lb in labels}
+    if case == "wgmma_spills":
+        spill[wgmma[2]] = 24
     log = "\n".join(f"ptxas info    : Compiling entry function "
-                    f"'{entry(lb)}' for 'sm_90a'\nptxas info    : Used 200 "
-                    f"registers" for lb in labels)
+                    f"'{entry(lb)}' for 'sm_90a'\n    0 bytes stack frame, "
+                    f"{spill[lb]} bytes spill stores, {spill[lb]} bytes spill "
+                    f"loads\nptxas info    : Used 200 registers"
+                    for lb in labels)
     hmma = "\tHMMA.1688.F32.TF32 R0, R4, R8, R0\n"
     hgmma = "\tHGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24\n"
     sass = "".join(
@@ -505,5 +524,6 @@ def test_smoke_build_report_requires_tensor_core_products(monkeypatch,
         with pytest.raises(AssertionError, match="missing"):
             cs.build_report(build)
     else:
-        with pytest.raises(AssertionError, match="tensor-core"):
+        with pytest.raises(AssertionError, match="spills" if case ==
+                           "wgmma_spills" else "tensor-core"):
             cs.build_report(build)

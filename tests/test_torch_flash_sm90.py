@@ -5,10 +5,10 @@ The kernels are bound through ctypes (paddle_tpu_torch/ops/_build.py):
 every `extern "C"` entry point in paddle_tpu_torch/csrc/*.cu needs a
 SIGNATURES entry of the same arity, with a pointer type exactly where the C
 function takes a pointer (a pointer passed as a C int is cut to 32 bits,
-which only a card would show). At bf16 the forward and dk/dv entry points
-take their wgmma kernels (csrc/flash_attention_wgmma.cu) for d <= 128 and
-their mma.sync kernels above; `kernel_variant` names the one a launch
-takes, and the launch counts record it.
+which only a card would show). At bf16 the forward, dq and dk/dv entry
+points take their wgmma kernels (csrc/flash_attention_wgmma.cu) for
+d <= 128 and their mma.sync kernels above; `kernel_variant` names the one
+a launch takes, and the launch counts record it.
 """
 
 import ctypes
@@ -66,13 +66,18 @@ def test_every_source_is_built():
 @pytest.mark.parametrize("name", ["flash_forward", "flash_backward_dq",
                                   "flash_backward_dkv"])
 def test_kernel_variant_by_dtype_and_head_dim(name, dtype, d):
-    want = ("wgmma" if dtype == torch.bfloat16 and d <= 128
-            and name != "flash_backward_dq" else "mma")
+    want = "wgmma" if dtype == torch.bfloat16 and d <= 128 else "mma"
     assert fa.kernel_variant(name, dtype, d) == want
+
+
+def test_kernel_variant_refuses_other_names():
+    with pytest.raises(ValueError, match="flash_backward"):
+        fa.kernel_variant("flash_backward", torch.bfloat16, 64)
 
 
 @pytest.mark.parametrize("entry,launcher", [
     ("flash_attention_fwd_bf16", "launch_fwd_bf16_wgmma"),
+    ("flash_attention_bwd_dq_bf16", "launch_dq_bf16_wgmma"),
     ("flash_attention_bwd_dkv_bf16", "launch_dkv_bf16_wgmma")])
 def test_entry_points_take_wgmma_up_to_the_wrappers_head_dim(entry,
                                                              launcher):

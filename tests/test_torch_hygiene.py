@@ -12,23 +12,30 @@ kernel wrapper takes, and what it refuses.
     temperature > 0, are served;
   * the serving entry points take the JAX package's positional and
     keyword arguments (runner, runner_for, create_serving_engine,
-    SamplingParams, naive_generate), `device` only by keyword;
+    SamplingParams, naive_generate, KVCachePool), `device` only by
+    keyword; FCFSScheduler, SequenceKV and paged_attend take the JAX
+    parameters the port does not serve at their defaults and refuse any
+    other value naming its ROADMAP item; rotary_embedding takes
+    position_ids as the JAX op does;
   * chip_smoke.py fails, and prints no result, without a card or outside
     a checkout.
 """
 
 import ast
+import dataclasses
 import inspect
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu as paddle
+import paddle_tpu.ops.impl as jax_impl
 import paddle_tpu_torch
 import paddle_tpu_torch.ops.paged_attention as k2
 import paddle_tpu_torch.ops.ragged_paged_attention as k1
@@ -38,6 +45,11 @@ from paddle_tpu.models.llama import Llama as JaxLlama
 from paddle_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from paddle_tpu.serving import LlamaRunner as JaxLlamaRunner
 from paddle_tpu.serving import runner_for as jax_runner_for
+from paddle_tpu.serving.kv_cache import KVCachePool as JaxKVCachePool
+from paddle_tpu.serving.kv_cache import SequenceKV as JaxSequenceKV
+from paddle_tpu.serving.model_runner import paged_attend as jax_paged_attend
+from paddle_tpu.serving.scheduler import FCFSScheduler as JaxFCFSScheduler
+from paddle_tpu.serving.scheduler import SamplingParams as JaxSamplingParams
 from paddle_tpu_torch.inference import create_serving_engine
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import (
@@ -46,14 +58,17 @@ from paddle_tpu_torch.models import (
     llama_loss_fn,
 )
 from paddle_tpu_torch.models.llama import rope_tables
-from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import _build, impl
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import (
     SamplingParams, create_engine, naive_generate,
 )
 from paddle_tpu_torch.serving.engine import UNPORTED_KNOBS
-from paddle_tpu_torch.serving.kv_cache import KVCachePool
-from paddle_tpu_torch.serving.model_runner import LlamaRunner, runner_for
+from paddle_tpu_torch.serving.kv_cache import KVCachePool, SequenceKV
+from paddle_tpu_torch.serving.model_runner import (
+    LlamaRunner, paged_attend, runner_for,
+)
+from paddle_tpu_torch.serving.scheduler import FCFSScheduler
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(Path(paddle_tpu_torch.__file__).parent.rglob("*.py")) \
@@ -378,6 +393,82 @@ def test_naive_generate_fallback_seed_is_read_on_sampled_paths_only(model):
     seeded = SamplingParams(max_tokens=8, temperature=1.5, seed=7)
     assert naive_generate(runner, [1, 2], seeded, fallback_seed=1) \
         == naive_generate(runner, [1, 2], seeded, fallback_seed=2)
+
+
+def test_sampling_params_fields_follow_the_jax_order():
+    assert [f.name for f in dataclasses.fields(SamplingParams)] == \
+        [f.name for f in dataclasses.fields(JaxSamplingParams)]
+    # kv_dtype is the ninth positional argument in both packages
+    args = (4, 0.0, None, None, None, (), None, None, "fp8")
+    for sp in (SamplingParams(*args), JaxSamplingParams(*args)):
+        assert (sp.kv_dtype, sp.session_id) == ("fp8", None)
+
+
+def test_kv_cache_pool_takes_the_jax_arguments():
+    assert _positional_names(KVCachePool) == \
+        _positional_names(JaxKVCachePool)
+    assert inspect.signature(KVCachePool).parameters["device"].kind \
+        is inspect.Parameter.KEYWORD_ONLY
+    # (…, dtype, mesh, model_axis, kv_dtype) by position
+    ours = KVCachePool(1, 4, 4, 1, 8, torch.float32, None, "model", "int8",
+                       device="cpu")
+    ref = JaxKVCachePool(1, 4, 4, 1, 8, jnp.float32, None, "model", "int8")
+    assert (ours.kv_dtype, ours.mesh, ours.model_axis) == \
+        (ref.kv_dtype, ref.mesh, ref.model_axis) == ("int8", None, "model")
+    assert len(ours.pools[0]) == len(ref.pools[0]) == 4
+    with pytest.raises(NotImplementedError, match="item 10"):
+        KVCachePool(1, 4, 4, 1, 8, mesh=object(), device="cpu")
+
+
+def _attend_args(pool):
+    """paged_attend's operands for one decode token of one sequence."""
+    q, k_new, v_new = (torch.ones(1, 1, 1, 8) for _ in range(3))
+    tables = torch.tensor([[1, 2]], dtype=torch.int32)
+    one = torch.tensor([[1]]), torch.tensor([[0]])
+    pos = torch.zeros(1, dtype=torch.int32), torch.ones(1, dtype=torch.int32)
+    return (q, k_new, v_new, pool.pools[0], tables, *one, *pos, 1,
+            "reference")
+
+
+@pytest.mark.parametrize("entry,param,other,item", [
+    ("FCFSScheduler", "count_host_headroom", True, "item 9"),
+    ("SequenceKV", "kv_tag", "fp8", "item 8"),
+    ("paged_attend", "shard_ctx", (object(), "model"), "item 10"),
+])
+def test_unported_jax_parameters_take_their_default_only(entry, param,
+                                                         other, item):
+    port_fn, jax_fn = {
+        "FCFSScheduler": (FCFSScheduler, JaxFCFSScheduler),
+        "SequenceKV": (SequenceKV, JaxSequenceKV),
+        "paged_attend": (paged_attend, jax_paged_attend)}[entry]
+    assert _positional_names(port_fn) == _positional_names(jax_fn)
+    assert inspect.signature(port_fn).parameters[param].default \
+        == inspect.signature(jax_fn).parameters[param].default
+    pool = KVCachePool(1, 4, 4, 1, 8, device="cpu")
+    call = {"FCFSScheduler": lambda **kw: FCFSScheduler(pool, 1, 2, **kw),
+            "SequenceKV": lambda **kw: SequenceKV(pool, **kw),
+            "paged_attend": lambda **kw: paged_attend(*_attend_args(pool),
+                                                      **kw)}[entry]
+    default = inspect.signature(port_fn).parameters[param].default
+    call(**{param: default})
+    with pytest.raises(NotImplementedError, match=item):
+        call(**{param: other})
+
+
+def test_rotary_embedding_takes_position_ids_as_jax_does():
+    rng = np.random.default_rng(11)
+    q, k = (rng.standard_normal((2, 5, 3, 8)).astype(np.float32)
+            for _ in range(2))
+    cos, sin = (rng.standard_normal((12, 8)).astype(np.float32)
+                for _ in range(2))
+    ids = rng.integers(0, 12, (2, 5))
+    ours = impl.rotary_embedding(*map(torch.from_numpy, (q, k, cos, sin)),
+                                 position_ids=torch.from_numpy(ids))
+    ref = jax_impl.rotary_embedding(*map(jnp.asarray, (q, k, cos, sin)),
+                                    position_ids=jnp.asarray(ids))
+    for o, r in zip(ours, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-6,
+                                   atol=1e-6)
 
 
 # ---------------------------------------------------------- chip_smoke

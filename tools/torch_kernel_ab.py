@@ -31,8 +31,10 @@ Rows (LLaMA-2-7B heads, d = 128, pages of 16, a 1024-page pool):
                        ERNIE batch's key-padding bias [16, 512], full
   K3a-bf16 Llama       the two K3a rows on bf16 q/k/v (the bf16 forward;
   K3a-m-bf16 ERNIE     fp32 kbias)
-  K3b-dkv-bf16 Llama   the bf16 dk/dv kernel on the same bf16 operands and
-  K3b-dkv-m-bf16 ERNIE a bf16 dO, with the forward's lse and delta
+  K3b-dq-bf16 Llama    the bf16 dq and dk/dv kernels on the same bf16
+  K3b-dq-m-bf16 ERNIE  operands and a bf16 dO, with the forward's lse and
+  K3b-dkv-bf16 Llama   delta
+  K3b-dkv-m-bf16 ERNIE
 """
 
 from __future__ import annotations
@@ -53,8 +55,8 @@ LONG_POS = [4095, 3000, 1500, 16]
 ROWS = ("K1 fp32 chunk", "K1-q int8 chunk", "K1-q fp8 chunk",
         "K1-q int8 decode", "K1-q fp8 decode", "K1 fp32 decode GQA4",
         "K2 fp32 decode", "K2 fp32 decode long", "K3a Llama", "K3a-m ERNIE",
-        "K3a-bf16 Llama", "K3a-m-bf16 ERNIE", "K3b-dkv-bf16 Llama",
-        "K3b-dkv-m-bf16 ERNIE")
+        "K3a-bf16 Llama", "K3a-m-bf16 ERNIE", "K3b-dq-bf16 Llama",
+        "K3b-dq-m-bf16 ERNIE", "K3b-dkv-bf16 Llama", "K3b-dkv-m-bf16 ERNIE")
 
 
 def _smoke():
@@ -138,7 +140,10 @@ def child(tree: str) -> dict:
             q, k, v, o, lse, causal, scale, m))
         if dtype == torch.bfloat16:
             delta = fa.backward_delta(o, do)
-            dk, dv = torch.empty_like(k), torch.empty_like(v)
+            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            ms[row.replace("K3a", "K3b-dq")] = cs.median_ms(
+                lambda: fa.launch_backward_dq(q, k, v, do, lse, delta, dq,
+                                              causal, scale, m))
             ms[row.replace("K3a", "K3b-dkv")] = cs.median_ms(
                 lambda: fa.launch_backward_dkv(q, k, v, do, lse, delta, dk,
                                                dv, causal, scale, m))
