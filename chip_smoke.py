@@ -104,7 +104,9 @@ exits non-zero without printing a result:
               two 256-token prefill chunks and 8 decode steps (a dead slot
               beside the live one) through K1-q, then the same steps on the
               plain gather path (attn_impl="reference") from fresh pools;
-              the logits of every call within 1e-4 * max|logit|.
+              the logits of every call within 1e-4 * max|logit|; the
+              kernel run launches K1-q on every call (span form for the
+              chunks, decode form for the steps) and nothing else.
   8. timing   each serving kernel at the engine's shapes against its plain
               version, its bound and the library yardstick (SDPA on K/V
               gathered and dequantized beforehand), with L2 flushed before
@@ -216,7 +218,55 @@ exits non-zero without printing a result:
  24. twins    a 2-layer O1 step against the same step on the dense path
               (bf16) and against the fp32 step: loss within 1e-2, gradients
               within 5e-2 / 1e-1 of max|grad|.
- 25. summary  one JSON line of every kernel's launches, error and times
+ 25. GPT      GPT-3 1.3B (GPT3_1_3B: vocab 50304, hidden 2048, 24 layers,
+     serving  16 heads of 128, ffn 8192, 1024 positions, tied head) at full
+              width and depth, fp32, seeded random weights, served as phase
+              4 serves LLaMA-2-7B (1024 pages of 16, 8 slots, 256-token
+              prefill budget, 8 requests of 100-600 prompt tokens, 32
+              greedy tokens each; max_model_len 1024): every request
+              finishes, no leak, K1 on every prefill chunk and K2 once a
+              layer on every decode call, nothing else; two requests equal
+              naive_generate; then one-slot int8 and fp8 engines through
+              K1-q alone, token-exact against naive_generate (phase 6).
+              The fp32 engine is profiled as in phase 5. Then K1, K1-q
+              and K2 at the GPT shapes (16 heads) against their plain
+              versions as phase 1 holds them: 256-token chunks, chunks of
+              1-8 rows in the 8-row bucket, decode rows; and phase 7's
+              check through GPTRunner: chunks of 256, 256, 8, 3 and 1
+              tokens and 8 decode steps of 1-8 rows (the live sequence
+              beside dead slots), the logits of every call within 1e-4 *
+              max|logit| of the gather path's, at full depth over fp32
+              pools and at 2 layers over int8 / fp8 (full depth there
+              reported with the share of int8 / fp8 codes the two runs'
+              own quantization parted, not gated); the kernel run
+              launches K1's span form on the 256-token chunks and its
+              decode form on the short ones, K2 (fp32) or K1-q's decode
+              form (int8 / fp8) on the steps, and nothing else.
+ 26. gener-   the same model through models.generation at batch 8, prompt
+     ators    256, 32 new tokens, caches of 512 positions:
+              PagedGPTGenerator greedy launches K2 once a layer on every
+              decode step and nothing else; GPTGenerator (dense cache)
+              gives the same tokens, and both stepped on those tokens give
+              logits within 1e-4 * max|logit| at every step (where a token
+              parts, the top-2 margin there is printed and the run fails);
+              a seeded sampled run equals the CPU sampler on the card's
+              logits draw for draw; a beam run (num_beams 4) launches K2
+              once a layer a step. ms per token step of each, and one
+              greedy token step of each generator traced: host wall,
+              device busy, idle share, host-to-device copies and stream
+              waits a step.
+ 27. GPT      (a) GPT-3 1.3B at full depth, bf16 O1, [8, 1024] tokens,
+     training AdamW(LinearWarmup(CosineAnnealingDecay(2e-4, 6, 2e-5), 2,
+              0, 2e-4), weight decay 0.01, clip 1.0), 2 warm-up + 4 timed
+              steps, the scheduler stepped after each: losses finite and
+              falling, the rate each step reads equal to the scheduler's,
+              each bf16 flash kernel once a layer a step on wgmma, nothing
+              else; profiled as 12; (b) an fp32 2-layer GPT step at full
+              width against the dense path (phase 13's tolerances); (c)
+              the bf16 kernels at [8, 1024, 16, 128] causal against fp64
+              (phase 20 (a)) and timed against their plain versions, their
+              bound and SDPA (phase 20 (b)).
+ 28. summary  one JSON line of every kernel's launches, error and times
               (K1's decode-form times as extra decode_* keys, its engine
               launches by form under launches_by_form, the fp64 ratios
               under fp64_ratio; the masked kernels as *_masked rows with
@@ -225,7 +275,12 @@ exits non-zero without printing a result:
               launches, by kernel variant under launches_by_variant (the
               kernel function under kernel), and their worst misround
               share under misround; the horizon engines' launches of the decode
-              kernels under horizon_launches), the nvidia-smi line, then
+              kernels under horizon_launches; each serving kernel's and the
+              bf16 dense rows' launches on the GPT paths under
+              gpt_launches, each serving kernel's error against its plain
+              version at the GPT shapes under gpt_max_abs_err, the bf16
+              dense rows' numbers at the GPT trainer's shape under
+              gpt_shape), the nvidia-smi line, then
               the result line.
 
 fp32 products stay fp32: TF32 is switched off for matmuls and cuDNN. Bounds
@@ -345,6 +400,8 @@ K1_VARIANTS = {"fp32": ("COUNTS", "K1 ragged"),
 SPANS_MIXED = ([37, 40, 0, 0, 100], [1, 50, 0, 64, 20], 64)
 SPANS_DECODE = ([0, 15, 16, 17, 31, 100, 255, 600], [1] * 8, 1)
 SPANS_CHUNK = ([256], [256], 256)
+# the GPT engine's short chunks: 1-8 rows padded to the 8-row bucket
+SPANS_SHORT = ([512, 520, 523, 0, 100, 7, 0, 40], [8, 3, 1, 8, 5, 8, 0, 2], 8)
 
 
 def _as_kind(k_pool, v_pool, kind, gen):
@@ -400,8 +457,9 @@ def check_ragged(n_q, n_kv, gen, label, kind="fp32", spans=SPANS_MIXED):
     return err
 
 
-def check_paged(gen):
-    """K2 against paged_decode_reference over the engine's 4096-key table:
+def check_paged(gen, h=32, label=""):
+    """K2 at ``h`` heads against paged_decode_reference over the engine's
+    4096-key table:
     pos on and off page and split boundaries, walks of one split and of
     many (up to the table's last key, 4095), pos past the table (capped)
     and a dead slot (all-scratch table, pos 0). Then batch invariance: each
@@ -409,7 +467,7 @@ def check_paged(gen):
     from paddle_tpu_torch.ops.paged_attention import (
         KEYS_PER_SPLIT, paged_decode_attention, paged_decode_reference,
     )
-    b, h, d, ps, P = 12, 32, 128, 16, 256
+    b, d, ps, P = 12, 128, 16, 256
     pos = [0, 15, 16, 17, KEYS_PER_SPLIT - 1, KEYS_PER_SPLIT, 600, 1000,
            2049, 4095, 5000, 0]
     k_pool, v_pool = _pools(b * P + 1, ps, h, d, gen)
@@ -420,7 +478,7 @@ def check_paged(gen):
     out = paged_decode_attention(q, k_pool, v_pool, table, p)
     ref = paged_decode_reference(q, k_pool, v_pool, table, p)
     err = (out - ref).abs().max().item()
-    log(f"kernel K2 paged_decode (b={b}, h={h}, d={d}, ps={ps}, P={P}, "
+    log(f"kernel K2 paged_decode{label} (b={b}, h={h}, d={d}, ps={ps}, P={P}, "
         f"{KEYS_PER_SPLIT} keys a split, pos={pos}, the last a dead slot): "
         f"max_abs_err={err:.3e}")
     if not (err <= TOL and bool(torch.isfinite(out).all())):
@@ -618,22 +676,24 @@ def _all_counts():
 
 
 def engine_phase(model, cfg, kv_dtype="fp32", seed=0, n_requests=8,
-                 max_tokens=32, ref_tokens=None):
+                 max_tokens=32, ref_tokens=None, max_model_len=4096):
     """Serve the seeded requests from a ``kv_dtype`` pool through
-    create_serving_engine and gate the run (phases 4 and 6). Returns the
-    engine, the launches of each kernel of the path, the decode positions
-    for phase 8 and every request's tokens."""
+    create_serving_engine and gate the run (phases 4, 6 and 25). Returns
+    the engine, the launches of each kernel of the path, the decode
+    positions for phase 8 and every request's tokens."""
     from paddle_tpu_torch.inference import create_serving_engine
     from paddle_tpu_torch.serving import SamplingParams
 
     t0 = time.perf_counter()
     eng = create_serving_engine(
         model, device="cuda", block_size=16, num_blocks=1024,
-        max_batch_size=8, max_model_len=4096,
+        max_batch_size=8, max_model_len=max_model_len,
         max_prefill_tokens_per_step=256, kv_dtype=kv_dtype, audit=True)
     m = eng.metrics
-    log(f"engine setup ({kv_dtype} KV): {cfg.num_layers} layers, hidden "
-        f"{cfg.hidden_size}, heads {cfg.num_heads}/{cfg.num_kv_heads}, fp32 "
+    n_kv = getattr(cfg, "num_kv_heads", cfg.num_heads)
+    log(f"engine setup ({kv_dtype} KV): {type(model).__name__}, "
+        f"{cfg.num_layers} layers, hidden "
+        f"{cfg.hidden_size}, heads {cfg.num_heads}/{n_kv}, fp32 "
         f"weights {sum(p.numel() for p in model.parameters()) * 4 / 2**30:.2f}"
         f" GiB, pool {eng.pool.memory_bytes() / 2**30:.3f} GiB "
         f"(kv_bytes_reduction_x {m.kv_bytes_reduction_x.value:.4f}), "
@@ -712,7 +772,7 @@ def engine_phase(model, cfg, kv_dtype="fp32", seed=0, n_requests=8,
     if kv_dtype == "fp32":
         for i in checked:
             verdict = check_against_naive(eng.runner, prompts[i], tokens[i],
-                                          sp, 4096)
+                                          sp, max_model_len)
             log(f"naive_generate check ({kv_dtype} KV), request {i} (prompt "
                 f"{lens[i]}): {verdict}")
     else:
@@ -721,7 +781,8 @@ def engine_phase(model, cfg, kv_dtype="fp32", seed=0, n_requests=8,
         # and naive_generate run other row counts, and 1-byte K/V turn
         # those 1-ulp differences into whole quantization steps
         from paddle_tpu_torch.serving import naive_generate
-        refs = [naive_generate(eng.runner, prompts[i], sp, max_model_len=4096)
+        refs = [naive_generate(eng.runner, prompts[i], sp,
+                               max_model_len=max_model_len)
                 for i in checked]
         _agreement(f"{kv_dtype} engine vs its naive_generate on requests "
                    f"{list(checked)}", [tokens[i] for i in checked], refs)
@@ -787,69 +848,101 @@ def single_slot_check(model, cfg, kv_dtype, prompts, max_tokens=32):
             f"{len(p)}: {verdict}")
 
 
-def quant_paths(cfg, kind, seed=2, chunk=256, n_chunks=2, steps=8):
-    """A model at full width over a ``kind`` pool: prefill chunks and
-    decode steps (a dead slot beside the live one) through K1-q, then the
-    same steps on the plain gather path from fresh pools. Returns each
-    run's logits of every call and its pools (kernel run first)."""
-    import paddle_tpu_torch.ops.ragged_paged_attention as k1
-    from paddle_tpu_torch.models import Llama
-    from paddle_tpu_torch.serving import KVCachePool, LlamaRunner
+def quant_paths(model, runner_cls, kind, seed=2, chunks=(256, 256),
+                steps=8, rows=(2,)):
+    """``model`` (full width) served by ``runner_cls`` from a ``kind``
+    pool: prefill chunks of ``chunks`` tokens (a chunk of at most 8 takes
+    K1's decode form) and ``steps`` decode steps whose batch holds the
+    sequence in row 0 beside dead slots (``rows[i % len(rows)]`` rows at
+    step i); through the kernels, then the same calls on the plain gather
+    path from fresh pools. Every count is set to 0 before the kernel run,
+    and the reference run must add none. Returns each run's logits of
+    every call (row 0), the kernel run's launches {name: (kernel, plain,
+    forms)} and each run's pools."""
+    from paddle_tpu_torch.serving import KVCachePool
 
-    model = Llama(cfg, device="cuda", seed=seed)
-    counts = getattr(k1, K1_VARIANTS[kind][0])
+    cfg = model.cfg
     ps, P = 16, 64
+    n = sum(chunks)
     prompt = np.random.default_rng(seed).integers(
-        1, cfg.vocab_size, chunk * n_chunks).tolist()
+        1, cfg.vocab_size, n).tolist()
 
     def run(attn_impl, feed):
-        runner = LlamaRunner(model, block_size=ps, max_model_len=ps * P,
-                             attn_impl=attn_impl, kv_dtype=kind)
+        runner = runner_cls(model, block_size=ps, max_model_len=ps * P,
+                            attn_impl=attn_impl, kv_dtype=kind)
         pool = KVCachePool(cfg.num_layers, 1 + P, ps, runner.n_kv_heads,
                            runner.head_dim, device="cuda", kv_dtype=kind)
         table = pool.pad_table(pool.allocator.alloc(P), P)
-        pools, logits = pool.pools, []
-        for c in range(n_chunks):
-            lg, pools = runner.prefill_chunk(
-                prompt[c * chunk:(c + 1) * chunk], c * chunk, table, pools)
+        pools, logits, start = pool.pools, [], 0
+        for c in chunks:
+            lg, pools = runner.prefill_chunk(prompt[start:start + c], start,
+                                             table, pools)
             logits.append(lg)
-        tables = np.asarray([table, [0] * P], np.int32)    # slot 1 is dead
+            start += c
         for i in range(steps):
             if len(feed) <= i:
                 feed.append(int(torch.argmax(logits[-1])))
+            dead = rows[i % len(rows)] - 1             # rows 1.. are dead
             lg, pools = runner.decode(
-                np.asarray([feed[i], 0], np.int32), tables,
-                np.asarray([chunk * n_chunks + i, 0], np.int32), pools)
+                np.asarray([feed[i]] + [0] * dead, np.int32),
+                np.asarray([table] + [[0] * P] * dead, np.int32),
+                np.asarray([n + i] + [0] * dead, np.int32), pools)
             logits.append(lg[0])
         return logits, pools
 
+    counts = _all_counts()
+    for _, c in counts:
+        c.reset()
     feed = []
-    before = (counts.kernel_launches, counts.plain_launches)
     out_k, pools_k = run("auto", feed)
-    mid = (counts.kernel_launches, counts.plain_launches)
+
+    def now():
+        return {name: (c.kernel_launches, c.plain_launches,
+                       dict(c.form_launches)) for name, c in counts}
+
+    launched = now()
     out_r, pools_r = run("reference", feed)
-    calls = n_chunks + steps
-    if (mid[0] - before[0] != cfg.num_layers * calls or mid[1] != before[1]
-            or (counts.kernel_launches, counts.plain_launches) != mid):
-        raise AssertionError(f"{K1_VARIANTS[kind][1]}: the kernel run must "
-                             f"launch it {cfg.num_layers * calls} times and "
-                             "the reference run never")
-    return out_k, out_r, pools_k, pools_r
+    if now() != launched:
+        raise AssertionError(f"{runner_cls.__name__} {kind}: the reference "
+                             f"run launched a kernel: {now()}")
+    return out_k, out_r, launched, pools_k, pools_r
 
 
-def quant_model_check(cfg, kind, chunk=256, n_chunks=2, steps=8):
-    """Phase 7: quant_paths' two runs, every call's logits within TOL of
-    its max|logit|."""
-    out_k, out_r, _, _ = quant_paths(cfg, kind, chunk=chunk,
-                                     n_chunks=n_chunks, steps=steps)
+def quant_model_check(model, runner_cls, kind, want, gate=True, **kw):
+    """Phases 7 and 25: quant_paths' two runs. The kernel run must launch
+    exactly ``want`` ({name: (kernel launches, {form: launches})}) and no
+    plain version; every call's logits within TOL of its max|logit|
+    (reported only, with ``gate`` False). Over int8 / fp8 pools the share
+    of K codes that differ between the two runs' pools is reported by
+    layer: each run quantizes the K/V its own attention led to, so a
+    last-bit difference upstream can move a code by one step, and that
+    step is then read by every later layer and call."""
+    out_k, out_r, launched, pools_k, pools_r = quant_paths(
+        model, runner_cls, kind, **kw)
+    got = {name: (k, forms) for name, (k, _, forms) in launched.items()
+           if k}
+    if got != want or any(p for _, p, _ in launched.values()):
+        raise AssertionError(f"{runner_cls.__name__} {kind}: the kernel run "
+                             f"launched {launched}, not {want}")
     worst = max(((a - b).abs().max() / b.abs().max()).item()
                 for a, b in zip(out_k, out_r))
-    log(f"K1-q {kind} vs the gather path ({cfg.num_layers} layers, full "
-        f"width, {n_chunks} chunks of {chunk} + {steps} decode steps beside a "
-        f"dead slot): worst max|logit diff| / max|logit| {worst:.3e}")
-    if not worst <= TOL:
-        raise AssertionError(f"K1-q {kind}: logits differ from the gather "
-                             f"path by {worst:.3e} > {TOL} of their max")
+    cfg = model.cfg
+    codes = ""
+    if kind != "fp32":
+        share = [(a[0] != b[0]).float().mean().item()
+                 for a, b in zip(pools_k, pools_r)]
+        codes = (f"; K codes that differ between the runs' pools, by layer:"
+                 f" {' '.join(f'{x:.2e}' for x in share)}")
+    log(f"{runner_cls.__name__} {kind} pools, kernels {json.dumps(got)} vs "
+        f"the gather path ({cfg.num_layers} layers, full width, chunks "
+        f"{list(kw.get('chunks', (256, 256)))} + {kw.get('steps', 8)} "
+        f"decode steps of {list(kw.get('rows', (2,)))} rows, all but one "
+        f"dead): worst max|logit diff| / max|logit| {worst:.3e}"
+        f"{'' if gate else ' (reported, not gated)'}{codes}")
+    if gate and not worst <= TOL:
+        raise AssertionError(f"{runner_cls.__name__} {kind}: logits differ "
+                             f"from the gather path by {worst:.3e} > {TOL} "
+                             "of their max")
 
 
 # ---------------------------------------- sampling, graphs, horizons
@@ -1842,13 +1935,15 @@ def train_profile_phase(trainer, batch, layers, matmul_weights, label,
         log(f"  {ms / steps:.3f} ms/step  {name[:110]}")
 
 
-def dense_check_phase(cfg, seed=1, seq=1024):
-    """Phase 13: one step's loss and gradients through the flash kernels
-    against the dense path, same weights and batch."""
-    from paddle_tpu_torch.models import Llama, llama_loss_fn
+def dense_check_phase(cfg, seed=1, seq=1024, gpt=False):
+    """Phases 13 and 27 (b): one step's loss and gradients through the
+    flash kernels against the dense path, same weights and batch, for a
+    Llama or (``gpt``) a GPT."""
+    from paddle_tpu_torch.models import GPT, Llama, gpt_loss_fn, llama_loss_fn
     from paddle_tpu_torch.utils.flags import flag, set_flags
 
-    model = Llama(cfg, device="cuda", seed=seed)
+    model = (GPT if gpt else Llama)(cfg, device="cuda", seed=seed)
+    loss_fn = gpt_loss_fn if gpt else llama_loss_fn
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     toks = torch.randint(0, cfg.vocab_size, (1, seq + 1), device="cuda",
@@ -1858,7 +1953,7 @@ def dense_check_phase(cfg, seed=1, seq=1024):
         old = flag("FLAGS_use_flash_attention")
         set_flags({"FLAGS_use_flash_attention": use_flash})
         try:
-            loss = llama_loss_fn(model(toks[:, :-1]), toks[:, 1:])
+            loss = loss_fn(model(toks[:, :-1]), toks[:, 1:])
             loss.backward()
         finally:
             set_flags({"FLAGS_use_flash_attention": old})
@@ -1878,7 +1973,8 @@ def dense_check_phase(cfg, seed=1, seq=1024):
     worst = max(((g - grads_d[n]).abs().max()
                  / grads_d[n].abs().max()).item()
                 for n, g in grads_k.items())
-    log(f"kernels vs dense ({cfg.num_layers} layers, full width, seq {seq}):"
+    log(f"kernels vs dense ({type(model).__name__}, {cfg.num_layers} "
+        f"layers, full width, seq {seq}):"
         f" loss {loss_k:.6f} vs {loss_d:.6f} (rel {rel:.2e}), worst grad "
         f"max|diff| / max|grad| {worst:.2e} over {len(grads_k)} params")
     if not (rel <= 1e-5 and worst <= 1e-3):
@@ -2591,6 +2687,398 @@ def ernie_check_phase(cfg, seed=1, batch=4, seq=512):
                              f"the pad ids: {diff:.3e} > 2e-5")
 
 
+# ---------------------------------------------------------------- GPT
+
+def gpt_generator_phase(model, cfg, batch=8, prompt=256, new=32, seed=4,
+                        max_len=512):
+    """Phase 26: the generators at GPT-3 1.3B. PagedGPTGenerator greedy
+    must launch K2 once a layer on every decode step and nothing else; the
+    dense GPTGenerator's tokens must equal its tokens, and both stepped on
+    the paged run's tokens give logits within TOL * max|logit| of each
+    other at every step (the last step's reported; where a token parts,
+    the top-2 margin at that step is printed and the run fails). A sampled
+    run (seed 7, temperature 0.8, top-k 50, top-p 0.9) must equal, token
+    for token, the CPU sampler over the card's logits and keys; a beam run
+    (num_beams=4) must launch K2 once a layer a step. The steps run
+    eagerly; each generator first generates 2 tokens untimed (the first
+    calls' set-up). Returns the K2 launches of the greedy run."""
+    import paddle_tpu_torch.models.generation as generation
+    from paddle_tpu_torch.models.generation import (
+        GPTGenerator, PagedGPTGenerator,
+    )
+
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                        (batch, prompt))).to("cuda")
+    paged = PagedGPTGenerator(model, max_len=max_len)
+    dense = GPTGenerator(model, max_len=max_len)
+    counts = _all_counts()
+
+    def run(g, **kw):
+        for _, c in counts:
+            c.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = g.generate(ids, max_new_tokens=new, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        return out, wall, {n: (c.kernel_launches, c.plain_launches)
+                           for n, c in counts}
+
+    def prefill_ms(g):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        g._prefill_call(ids, g._make_state(batch))
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t)
+
+    def gate_k2(label, launched, rows):
+        want = {n: (0, 0) for n, _ in counts}
+        want["paged_decode_attention"] = (cfg.num_layers * (new - 1), 0)
+        if launched != want:
+            raise AssertionError(f"{label}: launches {launched}, not K2 once "
+                                 f"a layer on each of {new - 1} decode steps"
+                                 f" of {rows} rows and nothing else")
+
+    for g in (paged, dense):        # warm-up: the first calls' set-up
+        g.generate(ids, max_new_tokens=2, temperature=0.0)
+    torch.cuda.reset_peak_memory_stats()
+    out_p, wall_p, launched = run(paged, temperature=0.0)
+    gate_k2("PagedGPTGenerator greedy", launched, batch)
+    k2_launches = launched["paged_decode_attention"][0]
+    pre_p = prefill_ms(paged)
+    out_d, wall_d, dense_launched = run(dense, temperature=0.0)
+    if any(k or pl for k, pl in dense_launched.values()):
+        raise AssertionError(f"GPTGenerator launched a serving kernel: "
+                             f"{dense_launched}")
+    pre_d = prefill_ms(dense)
+    for label, wall, pre in (("PagedGPTGenerator (K2)", wall_p, pre_p),
+                             ("GPTGenerator (dense cache)", wall_d, pre_d)):
+        log(f"generator {label}: batch {batch}, prompt {prompt}, {new} "
+            f"greedy tokens in {wall:.3f} s = {1e3 * wall / new:.2f} ms per "
+            f"token step ({batch * new / wall:.1f} tokens/s); prefill alone "
+            f"{pre:.1f} ms, decode {1e3 * (wall - pre / 1e3) / (new - 1):.2f}"
+            f" ms per step")
+    for label, g in (("paged (K2)", paged), ("dense cache", dense)):
+        generator_step_trace(g, label, ids, out_p[:, prompt:])
+
+    # both generators stepped on the paged run's tokens
+    def stepwise(g):
+        state = g._make_state(batch)
+        logits, state = g._prefill_call(ids, state)
+        out = [logits]
+        for i in range(new - 1):
+            logits, state = g._decode_logits_call(out_p[:, prompt + i],
+                                                  state, prompt + i)
+            out.append(logits)
+        return out
+
+    lp, ld = stepwise(paged), stepwise(dense)
+    rel = [((a - b).abs().max() / b.abs().max()).item()
+           for a, b in zip(lp, ld)]
+    log(f"generators, paged (K2) vs dense cache on the same tokens: "
+        f"max|logit diff| / max|logit| at the last step {rel[-1]:.3e}, "
+        f"worst over the {new} steps {max(rel):.3e}")
+    parted = (out_p != out_d).nonzero()
+    if len(parted):
+        row, col = (int(x) for x in parted[0])
+        step = col - prompt
+        margins = []
+        for name, lg in (("paged", lp), ("dense", ld)):
+            top = torch.topk(lg[step][row].float(), 2).values
+            margins.append(f"{name} {(top[0] - top[1]).item():.3e}")
+        raise AssertionError(f"generators: tokens part at row {row}, step "
+                             f"{step}; top-2 margins there " +
+                             ", ".join(margins))
+    if not max(rel) <= TOL:
+        raise AssertionError(f"generators: paged logits differ from the "
+                             f"dense cache's by {max(rel):.3e} > {TOL}")
+    log(f"generators: greedy tokens of the paged and dense generators equal "
+        f"({batch} x {new})")
+
+    # a seeded sampled run against the CPU sampler on the card's logits
+    orig = generation._sample_shared_key
+    draws = []
+
+    def spy(logits, key, temperature, top_k, top_p):
+        tok = orig(logits, key, temperature, top_k, top_p)
+        draws.append((logits.cpu(), key.cpu(), tok.cpu()))
+        return tok
+
+    kw = dict(temperature=0.8, top_k=50, top_p=0.9, seed=7)
+    generation._sample_shared_key = spy
+    try:
+        out_s, wall_s, launched = run(paged, **kw)
+    finally:
+        generation._sample_shared_key = orig
+    gate_k2("PagedGPTGenerator sampled", launched, batch)
+    parts = [i for i, (lg, key, tok) in enumerate(draws)
+             if not torch.equal(orig(lg, key, 0.8, 50, 0.9), tok)]
+    log(f"generator sampled (seed 7, T 0.8, top-k 50, top-p 0.9): {len(draws)}"
+        f" draws of [{batch}, {cfg.vocab_size}], {len(parts)} differ from the"
+        f" CPU sampler on the card's logits; {1e3 * wall_s / new:.2f} ms per "
+        f"token step")
+    if parts or len(draws) != new:
+        raise AssertionError(f"sampled generator: draws {parts} differ from "
+                             "the CPU sampler")
+    out_b, wall_b, launched = run(paged, num_beams=4)
+    gate_k2("PagedGPTGenerator beams", launched, 4 * batch)
+    if tuple(out_b.shape) != (batch, prompt + new) or not torch.equal(
+            out_b[:, :prompt], ids):
+        raise AssertionError(f"beam run: output {tuple(out_b.shape)}")
+    log(f"generator beams (num_beams 4, {4 * batch} rows): {new} tokens in "
+        f"{wall_b:.3f} s = {1e3 * wall_b / new:.2f} ms per token step; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return k2_launches
+
+
+def generator_step_trace(g, label, ids, tokens, steps=4):
+    """Where a generator's greedy token step goes: `generate`'s loop body
+    (the key's fold_in, then `_decode_call`) for ``steps`` steps after a
+    prefill of ``ids``, fed ``tokens`` [b, steps + 1]; timed, then under
+    the profiler. Reports host wall and device busy ms a step, the idle
+    share, the host-to-device copies and cudaStreamSynchronize calls a
+    step (each blocking copy of a host number makes the host wait for the
+    stream), the host's op count and self CPU ms a step and its costliest
+    ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.core import random as prandom
+
+    prompt = ids.shape[1]
+
+    def body():
+        state = g._make_state(ids.shape[0])
+        _, state = g._prefill_call(ids, state)
+        key = prandom.key(0).to("cuda")
+        torch.cuda.synchronize()
+        return state, key
+
+    def loop(state, key):
+        for i in range(steps):
+            key = prandom.fold_in(key, i)
+            g._decode_call(tokens[:, i], state, prompt + i, key, 0.0, None,
+                           None)
+        torch.cuda.synchronize()
+
+    state, key = body()
+    t = time.perf_counter()
+    loop(state, key)
+    wall = 1e3 * (time.perf_counter() - t) / steps
+    state, key = body()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loop(state, key)
+    groups, top = _device_ms(prof)
+    busy = sum(groups.values()) / steps
+    h2d = waits = ops = 0
+    cpu = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            h2d += evt.count if "HtoD" in evt.key else 0
+            continue
+        waits += evt.count if evt.key == "cudaStreamSynchronize" else 0
+        if evt.key.startswith("aten::"):
+            ops += evt.count
+        if evt.key != "cudaDeviceSynchronize":   # the loop's own wait
+            cpu[evt.key] = 1e-3 * evt.self_cpu_time_total
+    per = {k: round(ms / steps, 4) for k, ms in
+           sorted(groups.items(), key=lambda kv: -kv[1])}
+    log(f"generator step trace, {label}: host wall {wall:.3f} ms a token "
+        f"step, device busy {busy:.3f} ms, idle share "
+        f"{1 - busy / wall:.3f}; host-to-device copies {h2d / steps:.2f}, "
+        f"cudaStreamSynchronize calls {waits / steps:.2f}, aten ops "
+        f"{ops / steps:.0f} and self CPU {sum(cpu.values()) / steps:.3f} ms "
+        f"(under the profiler) a step; device ms a step by group "
+        f"{json.dumps(per)}")
+    for name, ms in top:
+        log(f"  {ms / steps:.4f} ms/step  {name[:110]}")
+    for name, ms in sorted(cpu.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"  host {ms / steps:.4f} ms/step  {name[:100]}")
+    if busy == 0.0:
+        log("  torch.profiler recorded no device time here: the device "
+            "split of this window is not measured")
+
+
+def gpt_trainer_phase(cfg, seed=0, batch=8, seq=1024, warmup=2, steps=4):
+    """Phase 27 (a): GPT-3 1.3B at bf16 O1 through TrainStep and AdamW
+    under LinearWarmup(CosineAnnealingDecay(2e-4, T_max, eta_min=2e-5),
+    2 warm-up steps from 0 to 2e-4), weight decay 0.01, global-norm clip
+    1.0, the scheduler stepped after each step. Losses finite and falling;
+    the rate each step reads equals the scheduler's; each bf16 flash kernel
+    once a layer a step, all through the wgmma kernels (d = 128), nothing
+    else. Returns the trainer, its batch and the bf16 flash launches."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPT, gpt_loss_fn
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm, lr
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = GPT(cfg, device="cuda", seed=seed)
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(
+        2e-4, T_max=warmup + steps, eta_min=2e-5), 2, 0.0, 2e-4)
+    opt = AdamW(learning_rate=sched, weight_decay=0.01,
+                parameters=model.named_parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    trainer = TrainStep(model, gpt_loss_fn, opt, amp_level="O1")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1), device="cuda",
+                         generator=gen)
+    ids, labels = toks[:, :-1], toks[:, 1:]
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"GPT trainer setup (O1): GPT-3 1.3B widths at full depth "
+        f"({cfg.num_layers} layers, hidden {cfg.hidden_size}, "
+        f"{cfg.num_heads} heads of "
+        f"{cfg.hidden_size // cfg.num_heads}, ffn {cfg.ffn_hidden}, vocab "
+        f"{cfg.vocab_size}, tied head), {n_params / 1e9:.3f} B fp32 params, "
+        f"batch [{batch}, {seq}], {time.perf_counter() - t0:.1f} s")
+    fa.reset_counts()
+    losses, rates = [], []
+
+    def one_step():
+        before = _flash_counts(bf16=True)
+        want = sched.get_lr()
+        losses.append(trainer(ids, labels))
+        rates.append((opt.param_groups[0]["lr"], want))
+        sched.step()
+        after = _flash_counts(bf16=True)
+        for name in after:
+            if after[name][0] - before[name][0] != cfg.num_layers:
+                raise AssertionError(
+                    f"{name} launched {after[name][0] - before[name][0]} "
+                    f"times in a step, not {cfg.num_layers}")
+
+    with _no_dense_attention():
+        for _ in range(warmup):
+            one_step()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps):
+            one_step()
+        torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t) / steps
+    launches = {name: kl for name, (kl, _) in
+                _flash_counts(bf16=True).items()}
+    plain = _other_flash_launches(False, True)
+    values = [x.float().item() for x in losses]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"GPT trainer losses (O1, {losses[0].dtype}): "
+        f"{[round(x, 5) for x in values]}; rates read / scheduled "
+        f"{[(float(f'{a:.4e}'), float(f'{b:.4e}')) for a, b in rates]}")
+    log(f"GPT trainer run (O1): {warmup} warm-up + {steps} timed steps, mean "
+        f"step {step_ms:.1f} ms = {batch * seq / step_ms * 1e3:.1f} "
+        f"tokens/s, peak memory {peak:.2f} GiB, bf16 flash launches "
+        f"{launches} ({cfg.num_layers} each per step), plain versions and "
+        f"other flash forms {plain}, dense attention calls 0")
+    if not all(np.isfinite(values)) or not values[-1] < values[0]:
+        raise AssertionError(f"GPT losses not finite and falling: {values}")
+    if any(a != b for a, b in rates) or len({b for _, b in rates}) < 3:
+        raise AssertionError(f"GPT trainer: rates read {rates}")
+    if plain != 0 or any(n != cfg.num_layers * (warmup + steps)
+                         for n in launches.values()):
+        raise AssertionError(f"GPT trainer missed a flash kernel: "
+                             f"{launches}, plain launches {plain}")
+    variants = _variant_launches("GPT trainer (O1)", False, True,
+                                 cfg.hidden_size // cfg.num_heads,
+                                 cfg.num_layers * (warmup + steps))
+    if set(v for d in variants.values() for v in d) != {"wgmma"}:
+        raise AssertionError(f"GPT trainer: not all wgmma: {variants}")
+    log(f"GPT trainer flash launches by variant: {json.dumps(variants)}")
+    return trainer, (ids, labels), launches
+
+
+def gpt_phases(gen):
+    """Phases 25-27 at GPT-3 1.3B: serving, the generators, O1 training,
+    an fp32 2-layer step against the dense path and the bf16 K3 kernels
+    at the GPT trainer's shape. Returns {kernel: launches on the GPT
+    paths}, the bf16 K3 rows at that shape and {serving kernel: max abs
+    error against its plain version at the GPT shapes}."""
+    from paddle_tpu_torch.models import GPT, GPT3_1_3B
+    from paddle_tpu_torch.serving import GPTRunner
+
+    cfg = GPT3_1_3B
+    model = GPT(cfg, device="cuda", seed=0)
+    eng, launches, _, _, prompts, forms = engine_phase(
+        model, cfg, max_model_len=cfg.max_seq_len)
+    log(f"GPT engine launches by form: {json.dumps(forms)}")
+    profile_phase(eng, cfg)
+    del eng
+    _free_the_card()
+    gpt = {"engine": launches}
+    for kind in ("int8", "fp8"):
+        counts = dict(_all_counts())
+        name = f"ragged_paged_attention_{kind}"
+        counts[name].reset()
+        single_slot_check(model, cfg, kind, sorted(prompts, key=len)[:2])
+        gpt[f"single_slot_{kind}"] = {name: counts[name].kernel_launches}
+        _free_the_card()
+    # K1, K1-q and K2 at the GPT path's shapes (16 heads of 128, n_rep 1)
+    # against their plain versions on the same pools: 256-token chunks
+    # (K1's span form), chunks of 1-8 rows in the 8-row bucket (its
+    # decode form), decode rows (K1-q; K2 over fp32 pools)
+    h = cfg.num_heads
+    errs = {"paged_decode_attention": check_paged(gen, h, " GPT")}
+    for kind in ("fp32", "int8", "fp8"):
+        name = "ragged_paged_attention" + ("" if kind == "fp32"
+                                           else f"_{kind}")
+        errs[name] = max(check_ragged(h, h, gen, f"GPT {label}", kind, spans)
+                         for label, spans in (("chunk", SPANS_CHUNK),
+                                              ("short chunks", SPANS_SHORT),
+                                              ("decode", SPANS_DECODE)))
+    # then the same through GPTRunner against its gather path: chunks of
+    # 256, 256, 8, 3, 1, decode steps of 1-8 rows; at full depth over
+    # fp32 pools; over int8 / fp8 at 2 layers as phase 7 (each run
+    # quantizes its own K/V, so at full depth the two runs' codes part;
+    # that reading is reported beside them, not gated)
+    small = GPT(replace(cfg, num_layers=2), device="cuda", seed=2)
+    for kind, m, gate in (("fp32", model, True), ("int8", small, True),
+                          ("fp8", small, True), ("int8", model, False),
+                          ("fp8", model, False)):
+        n = m.cfg.num_layers
+        if kind == "fp32":
+            want = {"ragged_paged_attention": (5 * n, {"span": 2 * n,
+                                                       "decode": 3 * n}),
+                    "paged_decode_attention": (8 * n, {})}
+        else:
+            want = {f"ragged_paged_attention_{kind}": (
+                13 * n, {"span": 2 * n, "decode": 11 * n})}
+        quant_model_check(m, GPTRunner, kind, want, gate,
+                          chunks=(256, 256, 8, 3, 1), steps=8,
+                          rows=tuple(range(1, 9)))
+        _free_the_card()
+    del small
+    gpt["paged_generator"] = {
+        "paged_decode_attention": gpt_generator_phase(model, cfg)}
+    del model
+    _free_the_card()
+    trainer, batch, flash = gpt_trainer_phase(cfg)
+    gpt["trainer_o1"] = flash
+    train_profile_phase(
+        trainer, batch, cfg.num_layers,
+        sum(p.numel() for n, p in trainer.model.named_parameters()
+            if p.dim() == 2 and n != "wpe.weight"), "GPT O1", bf16=True)
+    del trainer, batch
+    _free_the_card()
+    dense_check_phase(replace(cfg, num_layers=2), gpt=True)
+    _free_the_card()
+    b, s, h, d = 8, cfg.max_seq_len, cfg.num_heads, \
+        cfg.hidden_size // cfg.num_heads
+    ratio, err, share = check_bf16(gen, "GPT trainer shape", b, s, s, h, d,
+                                   True)
+    _free_the_card()
+    times = measure_flash(gen, b=b, s=s, h=h, d=d, dtype=torch.bfloat16)
+    _free_the_card()
+    rows = {name: {"shape": f"[{b},{s},{h},{d}] causal", **times[name],
+                   "fp64_ratio": ratio[name], "max_abs_err": err[name],
+                   "misround": share[name]}
+            for name, _ in FLASH_KERNELS}
+    log(f"GPT paths' launches: {json.dumps(gpt)}")
+    return gpt, rows, errs
+
+
 def _free_the_card() -> float:
     """Collect what the freed phases left; returns GiB still allocated."""
     gc.collect()
@@ -2609,17 +3097,24 @@ def _kernel_label(mangled: str) -> str:
     mangled entry name: its length-prefixed name that ends in _kernel,
     with the integer template arguments after it. Every position of a
     digit run is tried, since a length may follow the digits of an
-    anonymous namespace's hash ('...a219flash_bwd_dq_kernelILi128E...')."""
+    anonymous namespace's hash ('...a219flash_bwd_dq_kernelILi128E...'),
+    and the last name found wins: the kernel's is the innermost part of
+    the nested name, while a hash that ends in digits can read as the
+    length of a longer span that also ends in _kernel."""
+    found = None
     for m in re.finditer(r"(?=(\d+))", mangled):
         at = m.start() + len(m.group(1))
         name = mangled[at:at + int(m.group(1))]
         if name.endswith("_kernel") and name.isidentifier():
-            args = re.match(r"I((?:Li\d+E)+)E", mangled[at + len(name):])
-            if not args:
-                return name
-            return name + "<" + ",".join(
-                re.findall(r"Li(\d+)E", args.group(1))) + ">"
-    return mangled
+            found = at, name
+    if found is None:
+        return mangled
+    at, name = found
+    args = re.match(r"I((?:Li\d+E)+)E", mangled[at + len(name):])
+    if not args:
+        return name
+    return name + "<" + ",".join(
+        re.findall(r"Li(\d+)E", args.group(1))) + ">"
 
 
 # the kernels that multiply on the tensor cores, and every instantiation
@@ -2704,6 +3199,7 @@ def main() -> int:
     try:
         from paddle_tpu_torch.models import ERNIE3_BASE, LLAMA2_7B, Llama
         from paddle_tpu_torch.ops import _build
+        from paddle_tpu_torch.serving import LlamaRunner
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run it from the "
               "root of a checkout", file=sys.stderr)
@@ -2714,6 +3210,7 @@ def main() -> int:
     # rounding of cuBLAS's split-K partial sums
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
+    t_start = time.perf_counter()
     card = gpu_line()
     log(f"device: {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
@@ -2765,8 +3262,12 @@ def main() -> int:
         _free_the_card()
     del model
     _free_the_card()
+    small = Llama(replace(cfg, num_layers=2), device="cuda", seed=2)
     for kind in ("int8", "fp8"):
-        quant_model_check(replace(cfg, num_layers=2), kind)
+        quant_model_check(small, LlamaRunner, kind, {
+            f"ragged_paged_attention_{kind}": (20, {"span": 4,
+                                                    "decode": 16})})
+    del small
     _free_the_card()
 
     P = 4096 // 16
@@ -2899,6 +3400,15 @@ def main() -> int:
     _free_the_card()
     amp_twins_phase(replace(cfg, num_layers=2))
     _free_the_card()
+    log(f"before the GPT phases: {time.perf_counter() - t_start:.1f} s")
+
+    # the GPT family at GPT-3 1.3B widths: serving, generators, O1 training
+    gpt_launches, gpt_bf16, gpt_errs = gpt_phases(gen)
+    log(f"after the GPT phases: {time.perf_counter() - t_start:.1f} s")
+    for row in rows:       # the serving kernels on the GPT paths
+        row["gpt_max_abs_err"] = gpt_errs[row["name"]]
+        row["gpt_launches"] = {path: n[row["name"]] for path, n in
+                               gpt_launches.items() if row["name"] in n}
 
     for label, times, launches, errs in (
             ("", flash, flash_launches, (flash_err, acc)),
@@ -2929,6 +3439,10 @@ def main() -> int:
                          **times[name],
                          "fp64_ratio": bf16_checks[kind]["ratio"][name],
                          "misround": bf16_checks[kind]["misround"][name]})
+            if kind == "dense":
+                rows[-1]["gpt_launches"] = {
+                    "trainer_o1": gpt_launches["trainer_o1"][name]}
+                rows[-1]["gpt_shape"] = gpt_bf16[name]
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -23,6 +23,9 @@ inside a captured CUDA graph.
   uniform(key, shape, lo, hi)   mantissa bits under exponent 0, minus 1
   gumbel(key, shape)            mode "low": -log(-log(uniform(tiny, 1)))
   categorical(key, logits)      argmax(gumbel + logits) over the last axis
+  Generator, default_generator, the JAX package's RNG state (seed, key,
+  seed, get_rng_state,          offset; next_key = fold_in(key, ++offset))
+  set_rng_state
 
 The logarithm is `xla_log`, not torch.log: XLA evaluates log on the CPU
 with its own polynomial (Cephes' coefficients, several steps fused into
@@ -51,7 +54,8 @@ def _words(x, device=None) -> torch.Tensor:
     """A python int or integer tensor as int64 uint32 words."""
     if isinstance(x, torch.Tensor):
         return x.to(torch.int64) & MASK
-    return torch.tensor(int(x) & MASK, dtype=torch.int64, device=device)
+    # a fill on the device: no blocking host-to-device copy
+    return torch.full((), int(x) & MASK, dtype=torch.int64, device=device)
 
 
 def threefry2x32(k1, k2, x1, x2):
@@ -186,3 +190,48 @@ def categorical(k: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """One draw per row of ``logits`` ([*batch, V], batch matching the
     key's): the Gumbel-max argmax over the last axis."""
     return torch.argmax(gumbel(k, logits.shape[-1:]) + logits, dim=-1)
+
+
+class Generator:
+    """The JAX package's RNG state (`core/random.py`: phi::Generator): a
+    threefry key of a seed and an offset counter; `next_key()` is
+    fold_in(key, ++offset). Keys are host tensors [2]; a caller moves one
+    to its device."""
+
+    def __init__(self, seed: int = 0):
+        self.manual_seed(seed)
+
+    def manual_seed(self, seed: int) -> "Generator":
+        self._seed = int(seed)
+        self.key = key(self._seed)
+        self.offset = 0
+        return self
+
+    def next_key(self) -> torch.Tensor:
+        self.offset += 1
+        return fold_in(self.key, self.offset)
+
+    def get_state(self) -> dict:
+        return {"seed": self._seed, "key": self.key.clone(),
+                "offset": self.offset}
+
+    def set_state(self, state) -> None:
+        self._seed = state["seed"]
+        self.key = state["key"].clone()
+        self.offset = state["offset"]
+
+
+default_generator = Generator(0)
+
+
+def seed(s: int) -> Generator:
+    """paddle.seed: reseed the default generator."""
+    return default_generator.manual_seed(s)
+
+
+def get_rng_state() -> dict:
+    return default_generator.get_state()
+
+
+def set_rng_state(state) -> None:
+    default_generator.set_state(state)

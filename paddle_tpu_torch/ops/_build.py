@@ -162,6 +162,17 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
 
+def refuse_interpret(name: str, interpret, t: torch.Tensor) -> None:
+    """The JAX wrappers' ``interpret`` flag: None or False run as the
+    device decides; True runs the plain version on a CPU tensor, which is
+    what a CPU tensor runs anyway, and raises on a CUDA tensor, where the
+    kernel has no interpreted mode."""
+    if interpret and t.device.type == "cuda":
+        raise ValueError(
+            f"{name}(interpret=True): a CUDA kernel has no interpret mode; "
+            "pass CPU tensors to run the plain version")
+
+
 # 1-byte element types of quantized pools (the kernels read 4 at a time)
 CODE_DTYPES = (torch.int8, torch.float8_e4m3fn)
 

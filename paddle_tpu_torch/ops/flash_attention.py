@@ -79,7 +79,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from paddle_tpu_torch.ops._build import (
-    LaunchCounts, check, library, require_launchable,
+    LaunchCounts, check, library, refuse_interpret, require_launchable,
 )
 
 NEG_INF = -1e30
@@ -158,20 +158,40 @@ def on_card(t) -> bool:
     return t.device.type == "cuda"
 
 
-def jax_blocks(sq: int, sk: int):
-    """(bq, bk): the rows and keys of one block of the JAX kernel's grid,
-    by which a block mask is indexed."""
-    return min(JAX_BLOCK, sq), min(JAX_BLOCK, sk)
+def jax_blocks(sq: int, sk: int, block_q: int = JAX_BLOCK,
+               block_k: int = JAX_BLOCK):
+    """(bq, bk): the rows and keys of one block of the JAX kernel's grid
+    of ``block_q`` x ``block_k`` tiles, by which a block mask is indexed."""
+    return min(block_q, sq), min(block_k, sk)
 
 
 def _scale(q, scale):
     return float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
 
 
-def _block_live(block_mask, sq, sk):
+def _block_live(block_mask, sq, sk, block_q=JAX_BLOCK, block_k=JAX_BLOCK):
     """[sq, sk] bool: the pairs of the live blocks of ``block_mask``."""
-    bq, bk = jax_blocks(sq, sk)
+    bq, bk = jax_blocks(sq, sk, block_q, block_k)
     return (block_mask != 0).repeat_interleave(bq, 0).repeat_interleave(bk, 1)
+
+
+def _on_kernel_grid(block_mask, sq, sk, block_q, block_k):
+    """``block_mask`` of the ``block_q`` x ``block_k`` grid restated on the
+    kernels' grid (`jax_blocks(sq, sk)`), where the shapes tile it and
+    each of its blocks is all live or all dead; else None. Both grids are
+    cut to their common divisor rows and keys first (at most
+    (sq / 8) x (sk / 8) entries, not [sq, sk] pairs)."""
+    bq, bk = jax_blocks(sq, sk, block_q, block_k)
+    cq, ck = jax_blocks(sq, sk)
+    if sq % cq or sk % ck:
+        return None
+    gq, gk = math.gcd(bq, cq), math.gcd(bk, ck)
+    fine = block_mask.repeat_interleave(bq // gq, 0).repeat_interleave(
+        bk // gk, 1)
+    groups = fine.reshape(sq // cq, cq // gq, sk // ck, ck // gk)
+    if not bool((groups == groups[:, :1, :, :1]).all()):
+        return None
+    return groups[:, 0, :, 0].contiguous()
 
 
 def _compute_dtype(q):
@@ -524,25 +544,37 @@ def canon_segments(segment_ids, b, sq, sk, device=None):
     return qseg, kseg
 
 
-def block_mask_applies(q, k, v, causal) -> bool:
+def block_mask_applies(q, k, v, causal, block_q=JAX_BLOCK,
+                       block_k=JAX_BLOCK) -> bool:
     """Whether the JAX `flash_attention` would take its kernel path, the
-    only one that reads a block mask: the shapes tile its 128-blocks (or
-    are shorter than one), d % 8 == 0, and not causal with sq > sk. On its
-    `_reference` path the block mask is ignored; so it is here."""
+    only one that reads a block mask: the shapes tile its ``block_q`` x
+    ``block_k`` blocks (or are shorter than one), d % 8 == 0, and not
+    causal with sq > sk. On its `_reference` path the block mask is
+    ignored; so it is here."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    bq, bk = jax_blocks(sq, sk)
+    bq, bk = jax_blocks(sq, sk, block_q, block_k)
     return (not (causal and sq > sk) and sq % bq == 0 and sk % bk == 0
             and d % 8 == 0 and k.shape[0] == b and k.shape[2:] == q.shape[2:]
             and tuple(v.shape) == tuple(k.shape))
 
 
 def canonical_masks(q, k, v, causal, mask=None, segment_ids=None,
-                    block_mask=None) -> Masks:
+                    block_mask=None, block_q=JAX_BLOCK,
+                    block_k=JAX_BLOCK) -> Masks:
     """The JAX function's masking arguments as the kernels take them:
     `canon_mask`, `canon_segments`, and the block mask checked against
-    the JAX tile grid (a shape off it raises) and dropped where the JAX
-    function would ignore it (`block_mask_applies`)."""
+    the JAX tile grid of ``block_q`` x ``block_k`` blocks (a shape off it
+    raises) and dropped where the JAX function would ignore it
+    (`block_mask_applies`). The kernels read a block mask at the default
+    128-blocks (or blocks as long as the sequence). One on another grid
+    is restated on theirs where each of their blocks is all live or all
+    dead (`_on_kernel_grid`); else it becomes NEG_INF on its dead blocks'
+    pairs in the additive mask, which hides those pairs exactly as a dead
+    block does (p = 0), at a cost: a dense fp32 [b, 1, sq, sk] mask
+    (4 b sq sk bytes, 512 MiB at b 8, s 4096) and the dense-mask form of
+    the kernels, which computes the dead pairs instead of skipping their
+    blocks."""
     b, sq, h, _ = q.shape
     sk = k.shape[1]
     kbias = qseg = kseg = None
@@ -551,20 +583,30 @@ def canonical_masks(q, k, v, causal, mask=None, segment_ids=None,
     if segment_ids is not None:
         qseg, kseg = canon_segments(segment_ids, b, sq, sk, q.device)
     if block_mask is not None:
-        bq, bk = jax_blocks(sq, sk)
+        bq, bk = jax_blocks(sq, sk, block_q, block_k)
         block_mask = torch.as_tensor(block_mask, device=q.device).to(
             torch.int32).contiguous()
         if tuple(block_mask.shape) != (sq // bq, sk // bk):
             raise ValueError(
                 f"block_mask {tuple(block_mask.shape)} != tile grid "
                 f"({sq // bq}, {sk // bk})")
-        if not block_mask_applies(q, k, v, causal):
+        if not block_mask_applies(q, k, v, causal, block_q, block_k):
             block_mask = None
+        elif (bq, bk) != jax_blocks(sq, sk):
+            regrid = _on_kernel_grid(block_mask, sq, sk, block_q, block_k)
+            if regrid is None:
+                dead = torch.where(
+                    _block_live(block_mask, sq, sk, block_q, block_k), 0.0,
+                    NEG_INF).to(device=q.device, dtype=torch.float32)
+                mask = (dead.expand(b, 1, sq, sk) if mask is None
+                        else mask + dead).contiguous()
+            block_mask = regrid
     return Masks(mask, kbias, qseg, kseg, block_mask)
 
 
 def flash_attention(q, k, v, causal=True, scale=None, mask=None,
-                    segment_ids=None, block_mask=None):
+                    segment_ids=None, block_mask=None, block_q=JAX_BLOCK,
+                    block_k=JAX_BLOCK, interpret=None):
     """Flash attention over [b, s, h, d] operands, differentiable through
     the kernels, with the JAX function's masking arguments:
 
@@ -572,10 +614,19 @@ def flash_attention(q, k, v, causal=True, scale=None, mask=None,
     [b, 1|h, sq, sk]; key-padding forms ([*, *, 1, sk]) lower to the
     per-key bias. segment_ids: int [b, s] or (q_seg [b, sq], kv_seg
     [b, sk]). block_mask: int/bool [sq // bq, sk // bk] block liveness at
-    the JAX kernel's blocks (`jax_blocks`); a shape that does not match
-    raises, and it is ignored where the JAX function ignores it
-    (`block_mask_applies`). Strided views of q, k, v (a packed qkv's
-    slices) are made contiguous first: the kernels read whole rows."""
+    the JAX kernel's blocks of ``block_q`` x ``block_k`` (`jax_blocks`);
+    a shape that does not match raises, and it is ignored where the JAX
+    function ignores it (`block_mask_applies`). The block sizes set that
+    grid and nothing else: the kernels keep their own tiles. A mask on
+    another grid than the kernels' 128-blocks is restated on theirs where
+    it can be; where it cannot (a 128-block part live, part dead) it costs
+    a dense fp32 [b, 1, sq, sk] mask (512 MiB at b 8, s 4096) and the
+    dense-mask kernels, which compute the dead pairs (`canonical_masks`).
+    ``interpret`` is the JAX flag (`_build.refuse_interpret`). Strided
+    views of q, k, v (a packed qkv's slices) are made contiguous first:
+    the kernels read whole rows."""
+    refuse_interpret("flash_attention", interpret, q)
     q, k, v = (t.contiguous() for t in (q, k, v))
-    m = canonical_masks(q, k, v, causal, mask, segment_ids, block_mask)
+    m = canonical_masks(q, k, v, causal, mask, segment_ids, block_mask,
+                        block_q, block_k)
     return FlashAttention.apply(q, k, v, *m, bool(causal), _scale(q, scale))

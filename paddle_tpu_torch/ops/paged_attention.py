@@ -2,8 +2,10 @@
 
 Counterpart of paddle_tpu/ops/pallas/paged_attention.py. One decode token
 per sequence attends over its pages through the block table: q [b, h, d];
-pools [num_blocks, block_size, h, d]; block_table [b, pages] int32; pos [b]
-int32, keys at positions <= pos visible (the current token's K/V is written
+pools [num_blocks, block_size, h, d]; block_table [b, pages] int32; pos
+int32 [b] or one position for the whole batch (a Python int or a 0-d
+tensor, broadcast to [b] on q's device, as the JAX kernel broadcasts it),
+keys at positions <= pos visible (the current token's K/V is written
 before the call). Returns [b, h, d].
 
 `paged_decode_attention` launches csrc/paged_decode_attention.cu on a CUDA
@@ -25,7 +27,7 @@ import math
 import torch
 
 from paddle_tpu_torch.ops._build import (
-    LaunchCounts, check, library, require_launchable,
+    LaunchCounts, check, library, refuse_interpret, require_launchable,
 )
 from paddle_tpu_torch.ops.ragged_paged_attention import (
     MAX_HEAD_DIM, NEG_INF, ragged_attention_ok,
@@ -69,12 +71,19 @@ def n_splits(pages_per_seq: int, page_size: int,
     return max(1, -(-pages_per_seq * page_size // keys_per_split))
 
 
-def paged_decode_attention(q, k_pool, v_pool, block_table, pos, scale=None):
-    """One-token decode attention over a paged KV cache (MHA)."""
+def paged_decode_attention(q, k_pool, v_pool, block_table, pos, scale=None,
+                           interpret=None):
+    """One-token decode attention over a paged KV cache (MHA).
+    ``interpret`` is the JAX flag (`_build.refuse_interpret`)."""
+    refuse_interpret("paged_decode_attention", interpret, q)
     if q.dim() != 3 or k_pool.dim() != 4:
         raise ValueError(f"q must be [b, h, d] and pools [N, bs, h, d]; got "
                          f"{tuple(q.shape)} and {tuple(k_pool.shape)}")
     b, h, d = q.shape
+    if not isinstance(pos, torch.Tensor):      # one position for the batch
+        pos = torch.full((b,), int(pos), dtype=torch.int32, device=q.device)
+    elif pos.dim() == 0:
+        pos = pos.to(q.device, torch.int32).expand(b).contiguous()
     if v_pool.shape != k_pool.shape or tuple(k_pool.shape[2:]) != (h, d):
         raise ValueError(f"pools {tuple(k_pool.shape)} must carry the "
                          f"query's {h} heads of dim {d} (MHA only)")

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.ops._build import (
-    LaunchCounts, check, library, require_launchable,
+    LaunchCounts, check, library, refuse_interpret, require_launchable,
 )
 
 NEG_INF = -1e30
@@ -113,10 +113,13 @@ def _check_scales(k_pool, v_pool, k_scale, v_scale):
 
 
 def ragged_paged_attention(q, k_pool, v_pool, block_table, start_pos, q_len,
-                           scale=None, k_scale=None, v_scale=None):
+                           scale=None, interpret=None, k_scale=None,
+                           v_scale=None):
     """Causal attention for a ragged batch of query spans over paged KV.
     q is fp32; the pools fp32, int8 (with k_scale / v_scale) or
-    float8_e4m3fn. Returns [B, T, n_q, d] fp32."""
+    float8_e4m3fn. Returns [B, T, n_q, d] fp32. ``interpret`` is the JAX
+    flag (`_build.refuse_interpret`)."""
+    refuse_interpret("ragged_paged_attention", interpret, q)
     _check_shapes(q, k_pool, v_pool, block_table, start_pos, q_len)
     _check_scales(k_pool, v_pool, k_scale, v_scale)
     B, T, n_q, d = q.shape

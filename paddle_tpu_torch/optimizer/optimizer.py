@@ -33,7 +33,12 @@ moves across (`weights.optimizer_state_from_numpy`).
 
 `parameters` may be `model.named_parameters()`; AdamW's
 `apply_decay_param_fun` receives each parameter's flat name, as the JAX
-functional path passes it.
+functional path passes it. ``learning_rate`` is a number or an
+`optimizer.lr.LRScheduler`, whose `get_lr()` is read once per `step()` on
+the host and passed as the ``lr`` of `_update`; the caller steps the
+scheduler, as in JAX. `state_dict` carries the scheduler's state under
+``"lr_scheduler"`` and the step count under ``"step"``, as the JAX
+optimizer's does.
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-LR_ITEM = "ROADMAP.md 'Still to port' item 17 (LR schedulers)"
+from paddle_tpu_torch.optimizer.lr import LRScheduler
+
 # the elements one multi-tensor pass of `step()` updates at most
 FOREACH_ELEMENTS = 1 << 27
 
@@ -64,33 +70,70 @@ def _chunks(params):
 
 class Optimizer(torch.optim.Optimizer):
     """Paddle's optimizer constructor (learning_rate, parameters,
-    weight_decay, grad_clip) over torch.optim."""
+    weight_decay, grad_clip, name), the JAX base's signature, over
+    torch.optim. torch.optim needs the parameters up front, so
+    ``parameters=None`` raises here (the JAX optimizer raises at its
+    first step instead)."""
 
-    def __init__(self, learning_rate, parameters, weight_decay, grad_clip,
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None, *,
                  multi_precision=False):
-        if isinstance(learning_rate, bool) or \
-                not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                f"learning_rate={type(learning_rate).__name__}: only a "
-                f"constant learning rate is ported; {LR_ITEM}")
+        if isinstance(learning_rate, bool) or not isinstance(
+                learning_rate, (int, float, LRScheduler)):
+            raise TypeError(
+                f"learning_rate={type(learning_rate).__name__}: expected a "
+                "number or a paddle_tpu_torch.optimizer.lr.LRScheduler")
         if parameters is None:
             raise ValueError("the optimizer needs its parameters")
         params, self._names = [], {}
         for item in parameters:
-            name, p = item if isinstance(item, tuple) else (None, item)
+            pname, p = item if isinstance(item, tuple) else (None, item)
             if not p.is_floating_point():
-                raise TypeError(f"parameter {name or tuple(p.shape)} is "
+                raise TypeError(f"parameter {pname or tuple(p.shape)} is "
                                 f"{p.dtype}, not a floating type")
             params.append(p)
-            if name is not None:
-                self._names[p] = name
-        super().__init__(params, {"lr": float(learning_rate)})
-        self._lr = float(learning_rate)
+            if pname is not None:
+                self._names[p] = pname
+        self._lr_scheduler = learning_rate \
+            if isinstance(learning_rate, LRScheduler) else None
+        self._lr = learning_rate if self._lr_scheduler is not None \
+            else float(learning_rate)
+        super().__init__(params, {"lr": self.get_lr()})
         self._weight_decay = 0.0 if weight_decay is None \
             else float(weight_decay)
         self._grad_clip = grad_clip
         self._multi_precision = bool(multi_precision)
         self._step_i = 0
+
+    def get_lr(self) -> float:
+        """The rate the next step uses: the scheduler's, or the number."""
+        if self._lr_scheduler is not None:
+            return float(self._lr_scheduler.get_lr())
+        return float(self._lr)
+
+    def set_lr(self, value) -> None:
+        if self._lr_scheduler is not None:
+            raise RuntimeError("cannot set_lr when using an LRScheduler")
+        self._lr = float(value)
+
+    def state_dict(self):
+        """torch.optim's state (the moments, the master copies) plus the
+        JAX optimizer's ``"step"`` and, under a scheduler,
+        ``"lr_scheduler"``."""
+        out = super().state_dict()
+        out["step"] = self._step_i
+        if self._lr_scheduler is not None:
+            out["lr_scheduler"] = self._lr_scheduler.state_dict()
+        return out
+
+    def set_state_dict(self, state) -> None:
+        """The inverse of `state_dict`."""
+        state = dict(state)
+        self._step_i = int(state.pop("step", 0))
+        sched = state.pop("lr_scheduler", None)
+        if self._lr_scheduler is not None and sched is not None:
+            self._lr_scheduler.set_state_dict(sched)
+        self.load_state_dict(state)
 
     def adopt_names(self, model) -> None:
         """Name the parameters that came without a name after `model`'s
@@ -127,13 +170,16 @@ class Optimizer(torch.optim.Optimizer):
         if self._grad_clip is not None:
             self._grad_clip.clip_([p.grad for p in params])
         self._step_i += 1
+        lr = self.get_lr()
+        for group in self.param_groups:
+            group["lr"] = lr
         groups = {}
         for p in params:
             key = (self._decay_for(p), p.dtype == torch.float32)
             groups.setdefault(key, []).append(p)
         for (wd, _), group in groups.items():
             for ps in _chunks(group):
-                self._update(ps, [p.grad for p in ps], self._lr, wd,
+                self._update(ps, [p.grad for p in ps], lr, wd,
                              self._step_i)
 
     def _update(self, ps, gs, lr, wd, step):
@@ -157,7 +203,7 @@ class Adam(Optimizer):
             raise NotImplementedError(f"lazy_mode: ROADMAP.md 'Still to "
                                       f"port' item 12 (the framework)")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
-                         multi_precision)
+                         name, multi_precision=multi_precision)
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
 
     def _bias_corrections(self, step: int):
@@ -201,7 +247,8 @@ class AdamW(Adam):
                  grad_clip=None, apply_decay_param_fun=None,
                  multi_precision=True, name=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         None, grad_clip, multi_precision=multi_precision)
+                         None, grad_clip, multi_precision=multi_precision,
+                         name=name)
         self._weight_decay = float(weight_decay)
         self._apply_decay_param_fun = apply_decay_param_fun
 

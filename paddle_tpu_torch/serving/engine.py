@@ -1008,8 +1008,8 @@ def create_engine(model, *, num_blocks: int = 128, block_size: int = 16,
                   attn_impl: str = "auto", device="cuda", mesh=None,
                   kv_dtype: str = "fp32", weight_dtype: str = "fp32",
                   **engine_kw) -> ServingEngine:
-    """Build a ServingEngine for a supported model (Llama) on ``device``
-    (default "cuda"; pass "cpu" for the plain versions)."""
+    """Build a ServingEngine for a supported model (Llama or GPT) on
+    ``device`` (default "cuda"; pass "cpu" for the plain versions)."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (tensor-parallel serving) is not ported yet: "

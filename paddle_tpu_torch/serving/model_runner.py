@@ -1,9 +1,9 @@
 """Model runners: paged-KV step functions for the serving engine.
 
-Counterpart of paddle_tpu/serving/model_runner.py for fp32 Llama on one
-device, over fp32, int8 or fp8 KV pools (``kv_dtype``). A runner adapts
-a model's flat parameter dict into the step functions the engine calls
-over the shared page pool:
+Counterpart of paddle_tpu/serving/model_runner.py for fp32 Llama and GPT
+on one device, over fp32, int8 or fp8 KV pools (``kv_dtype``). A runner
+adapts a model's flat parameter dict into the step functions the engine
+calls over the shared page pool:
 
   prefill(tokens, table_row, pools)                 -> (logits[V], pools)
   prefill_chunk(tokens, start_pos, table_row, pools) -> (logits[V], pools)
@@ -71,10 +71,11 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core import random as prandom
-from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.models.generation import (
-    _sample, masked_cache_attention, paged_gather,
+    _block_params, _head, _layer_norm, _mlp, _qkv, _sample,
+    masked_cache_attention, model_params, paged_gather,
 )
+from paddle_tpu_torch.models.gpt import GPT
 from paddle_tpu_torch.models.llama import Llama, rope_tables
 from paddle_tpu_torch.ops._build import (
     counts_credit, counts_delta, counts_snapshot,
@@ -671,10 +672,7 @@ class LlamaRunner(PagedModelRunner):
                  kv_dtype: str = "fp32", weight_dtype: str = "fp32",
                  weight_group_size: int = 128, *, device=None):
         cfg = model.cfg
-        dev = resolve_device(device) if device is not None else None
-        params = {k: (v.detach().to(dev) if dev is not None else v.detach())
-                  for k, v in model.named_parameters()}
-        super().__init__(params, block_size,
+        super().__init__(model_params(model, device), block_size,
                          max_model_len or cfg.max_seq_len, attn_impl,
                          kv_dtype, weight_dtype, weight_group_size)
         self.cfg = cfg
@@ -730,16 +728,65 @@ class LlamaRunner(PagedModelRunner):
         return x @ p["lm_head.weight"], pools
 
 
+class GPTRunner(PagedModelRunner):
+    """Paged-step adapter for models.GPT (pre-LN, learned positions, fused
+    QKV, GELU MLP), over the functional block helpers the generators run
+    (`models.generation._block_params`, `_layer_norm`, `_mlp`). MHA: the
+    pools hold all ``num_heads`` heads (n_rep 1), so a decode step takes
+    the paged-decode kernel (K2) over fp32 pools and the ragged kernel's
+    decode form (K1-q) over int8 / fp8 pools, and prefill chunks the
+    ragged kernel (its span form; a chunk of at most 8 rows its decode
+    form). fp32 weights only; the positional
+    parameters are the JAX runner's, ``device`` keyword-only after them.
+    The JAX runner's tensor-parallel placements (`_param_specs`,
+    `_constrain_heads`) wait for item 10."""
+
+    def __init__(self, model: GPT, block_size: int = 16,
+                 max_model_len: int | None = None, attn_impl: str = "auto",
+                 kv_dtype: str = "fp32", weight_dtype: str = "fp32",
+                 weight_group_size: int = 128, *, device=None):
+        cfg = model.cfg
+        super().__init__(model_params(model, device), block_size,
+                         max_model_len or cfg.max_seq_len, attn_impl,
+                         kv_dtype, weight_dtype, weight_group_size)
+        self.cfg = cfg
+        self.num_layers = cfg.num_layers
+        self.n_heads = cfg.num_heads
+        self.n_kv_heads = cfg.num_heads
+        self.head_dim = cfg.hidden_size // cfg.num_heads
+        self.vocab_size = cfg.vocab_size
+
+    def _forward(self, tokens, positions, write_page, write_off, tables,
+                 pos_q, q_lens, pools):
+        cfg, params = self.cfg, self.params
+        impl = self._attn_impl_for(tokens.shape[1])
+        x = (F.embedding(tokens, params["wte.weight"])
+             + params["wpe.weight"][positions])
+        for i in range(cfg.num_layers):
+            p = _block_params(params, i)
+            h = _layer_norm(x, p["ln1.weight"], p["ln1.bias"])
+            q, k, v = _qkv(p, h, self.n_heads)
+            out, _ = paged_attend(q, k, v, pools[i], tables, write_page,
+                                  write_off, pos_q, q_lens, 1, impl)
+            x = x + (out @ p["attn.out.weight"] + p["attn.out.bias"])
+            h = _layer_norm(x, p["ln2.weight"], p["ln2.bias"])
+            x = x + _mlp(p, h)
+        return _head(params, x), pools
+
+
 def runner_for(model, block_size: int = 16, max_model_len: int | None = None,
                attn_impl: str = "auto", kv_dtype: str = "fp32",
                weight_dtype: str = "fp32", weight_group_size: int = 128, *,
                device=None) -> PagedModelRunner:
-    """Pick the runner for a supported model (Llama only so far)."""
+    """Pick the runner for a supported decoder: Llama or GPT."""
     if isinstance(model, Llama):
         return LlamaRunner(model, block_size, max_model_len, attn_impl,
                            kv_dtype, weight_dtype, weight_group_size,
                            device=device)
+    if isinstance(model, GPT):
+        return GPTRunner(model, block_size, max_model_len, attn_impl,
+                         kv_dtype, weight_dtype, weight_group_size,
+                         device=device)
     raise TypeError(
-        f"no serving runner for {type(model).__name__}: the port serves "
-        "paddle_tpu_torch.models.Llama; the GPT runner is ROADMAP.md "
-        "'Still to port' item 3")
+        f"no serving runner for {type(model).__name__}; supported: Llama, "
+        "GPT (write a PagedModelRunner subclass for custom decoders)")

@@ -69,6 +69,12 @@ class RequestState(Enum):
 
 _req_counter = itertools.count()
 
+# Request fields of the JAX host tier (item 9) and prefix cache (item 5),
+# each taken at its default (None, [] or 0) only
+UNPORTED_REQUEST_FIELDS = {"offload": 9, "pending_pagein": 9,
+                           "admit_prefix_tokens": 5,
+                           "admit_pagein_tokens": 9}
+
 
 @dataclass(eq=False)          # identity semantics: the scheduler tracks
 class Request:                # requests by object, never by field value
@@ -90,6 +96,12 @@ class Request:                # requests by object, never by field value
     # without the row (nan_policy="greedy"): the next engine step takes
     # the per-step path once, which fetches the real logits
     defer_horizon: bool = False
+    # the JAX host-tier and prefix-cache state, in the JAX order: the port
+    # takes them at their defaults only (`__post_init__`)
+    offload: Optional[object] = None
+    pending_pagein: List[Tuple[int, int]] = field(default_factory=list)
+    admit_prefix_tokens: int = 0
+    admit_pagein_tokens: int = 0
     admission_index: int = -1              # set fresh at every admission
     num_preemptions: int = 0
     arrival_time: float = 0.0
@@ -99,6 +111,12 @@ class Request:                # requests by object, never by field value
     def __post_init__(self):
         if not self.prompt_tokens:
             raise ValueError("empty prompt")
+        for name, item in UNPORTED_REQUEST_FIELDS.items():
+            if getattr(self, name):
+                raise NotImplementedError(
+                    f"Request({name}={getattr(self, name)!r}): the port "
+                    f"takes it at its default only; ROADMAP.md 'Still to "
+                    f"port' item {item}")
         if not self.request_id:
             self.request_id = f"req-{self.arrival_index}"
 

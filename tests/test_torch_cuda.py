@@ -52,6 +52,14 @@ and fp8 pools, crediting the eager call's launch counts on every replay;
 a horizon engine with every knob on must give the per-step engine's
 streams token for token, with the sampler's tokens on the card equal to
 the same function's on the CPU.
+
+The GPT family: a GPT engine launches K1 for its prefill chunks and K2
+once a layer for each decode step and no plain version, token-exact
+against its naive_generate; PagedGPTGenerator launches K2 from its scalar
+pos and gives the dense generator's tokens, and a head dim K2 does not
+tile raises on the card unless the gather path is asked for; a greedy
+token step of either generator copies nothing from the host and waits on
+no stream; a scheduled GPT O1 step launches the bf16 flash kernels on wgmma only.
 """
 
 import functools
@@ -1010,3 +1018,129 @@ def test_sampler_on_the_card_equals_the_cpu(gen):
             logits.cuda(), seeds.cuda(), steps.cuda(), temps.cuda(), top_k,
             top_p)
         assert torch.equal(card.cpu(), cpu), (top_k, top_p)
+
+
+# ------------------------------------------------------------------- GPT
+
+GPT_SIZES = dict(vocab_size=97, hidden_size=128, num_layers=2, num_heads=2,
+                 max_seq_len=128)
+
+
+def _gpt(**kw):
+    from paddle_tpu_torch.models import GPT, GPTConfig
+    return GPT(GPTConfig(**{**GPT_SIZES, **kw}), device="cuda", seed=3)
+
+
+def _serving_counts():
+    return {"K1": k1.COUNTS, "K1-q int8": k1.COUNTS_I8,
+            "K1-q fp8": k1.COUNTS_F8, "K2": k2.COUNTS}
+
+
+def test_gpt_runner_launches_k1_for_prefill_and_k2_for_decode(gen):
+    """A GPT engine on the card: prefill chunks through K1, decode steps
+    through K2 once a layer each, no plain launch; its tokens equal its
+    naive_generate (one slot: naive_generate's row counts)."""
+    from paddle_tpu_torch.inference import create_serving_engine
+    model = _gpt()
+    eng = create_serving_engine(model, block_size=16, max_model_len=128,
+                                num_blocks=32, max_batch_size=1,
+                                max_prefill_tokens_per_step=32)
+    eng.runner.graphs = False
+    for c in _serving_counts().values():
+        c.reset()
+    sp = SamplingParams(max_tokens=8)
+    prompt = list(range(1, 50))
+    rid = eng.add_request(prompt, sp)
+    out = eng.run()[rid].output_tokens
+    chunks = int(eng.metrics.prefill_chunks.value)
+    decodes = eng.metrics.batch_occupancy.count
+    got = {n: (c.kernel_launches, c.plain_launches)
+           for n, c in _serving_counts().items()}
+    assert got == {"K1": (2 * chunks, 0), "K1-q int8": (0, 0),
+                   "K1-q fp8": (0, 0), "K2": (2 * decodes, 0)}
+    assert chunks == 2 and decodes == 7
+    assert out == naive_generate(eng.runner, prompt, sp, max_model_len=128)
+    assert eng.pool.allocator.check_no_leaks()
+
+
+def test_paged_gpt_generator_launches_k2_from_a_scalar_pos(gen):
+    from paddle_tpu_torch.models.generation import (
+        GPTGenerator, PagedGPTGenerator, block_multihead_attention,
+    )
+    model = _gpt()
+    ids = torch.randint(1, 97, (3, 20), device="cuda", generator=gen)
+    k2.COUNTS.reset()
+    out = PagedGPTGenerator(model, block_size=16).generate(
+        ids, max_new_tokens=6, temperature=0.0)
+    assert (k2.COUNTS.kernel_launches, k2.COUNTS.plain_launches) == (10, 0)
+    dense = GPTGenerator(model).generate(ids, max_new_tokens=6,
+                                         temperature=0.0)
+    assert torch.equal(out, dense)
+    # a head dim K2 does not tile raises on the card unless asked for the
+    # gather path
+    q = torch.randn(2, 1, 2, 12, device="cuda", generator=gen)
+    pool = torch.randn(4, 8, 2, 12, device="cuda", generator=gen)
+    table = torch.arange(4, dtype=torch.int32, device="cuda").reshape(2, 2)
+    with pytest.raises(ValueError, match="head_dim 12"):
+        block_multihead_attention(q, pool, pool, table, 5)
+    ref = block_multihead_attention(q, pool, pool, table, 5,
+                                    attn_impl="reference")
+    assert ref.shape == (2, 1, 24)
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_generator_token_steps_copy_nothing_from_the_host(gen, paged):
+    """`generate`'s loop body (the key's fold_in, then `_decode_call`),
+    greedy: no host-to-device copy and no stream wait, so the host runs
+    ahead of the card (the step's positions are made on the device)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.core import random as prandom
+    from paddle_tpu_torch.models.generation import (
+        GPTGenerator, PagedGPTGenerator,
+    )
+    model = _gpt()
+    g = PagedGPTGenerator(model, block_size=16) if paged else \
+        GPTGenerator(model)
+    ids = torch.randint(1, 97, (3, 20), device="cuda", generator=gen)
+    logits, state = g._prefill_call(ids, g._make_state(3))
+    tok = torch.argmax(logits, dim=-1)
+    key = prandom.key(0).to("cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            key = prandom.fold_in(key, i)
+            tok, state = g._decode_call(tok, state, 20 + i, key, 0.0, None,
+                                        None)
+    torch.cuda.synchronize()
+    events = prof.key_averages()
+    assert [e.key for e in events if e.device_type == DeviceType.CUDA
+            and "HtoD" in e.key] == []
+    assert [e.key for e in events if e.key == "cudaStreamSynchronize"] == []
+
+
+def test_gpt_o1_step_launches_the_wgmma_flash_route_only(gen):
+    from paddle_tpu_torch.models import gpt_loss_fn
+    from paddle_tpu_torch.optimizer import lr
+    model = _gpt()
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(1e-3, 4, 1e-4), 1, 0.0,
+                            1e-3)
+    opt = AdamW(learning_rate=sched, parameters=model.named_parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    step = TrainStep(model, gpt_loss_fn, opt, amp_level="O1")
+    toks = torch.randint(0, 97, (2, 129), device="cuda", generator=gen)
+    fa.reset_counts()
+    losses = []
+    for _ in range(3):
+        losses.append(step(toks[:, :-1], toks[:, 1:]).float().item())
+        sched.step()
+    for (masked, dtype), group in fa.COUNTS.items():
+        for name, c in group.items():
+            want = 6 if (not masked and dtype == torch.bfloat16) else 0
+            assert (c.kernel_launches, c.plain_launches) == (want, 0), \
+                (masked, dtype, name)
+            if want:
+                assert c.form_launches == {"wgmma": want}
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]

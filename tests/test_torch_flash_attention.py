@@ -436,6 +436,16 @@ def test_smoke_names_kernels_from_their_mangled_entries(name, maxd):
 
 
 @pytest.mark.parametrize("name", FLASH_KERNEL_NAMES)
+def test_smoke_names_kernels_after_a_hash_ending_in_a_length(name):
+    """A namespace hash whose last digits equal the length of the span
+    from there to the end of the kernel's name (a build on the card drew
+    one for flash_fwd_kernel) must not pass for the kernel's name."""
+    tail = f"_18_flash_attention_cu_6928a1a2{len(name)}{name}"
+    entry = (f"_ZN51_GLOBAL__N__4af27c{len(tail)}{tail}ILi128{_ARGS}")
+    assert _chip_smoke()._kernel_label(entry) == f"{name}<128>"
+
+
+@pytest.mark.parametrize("name", FLASH_KERNEL_NAMES)
 def test_smoke_profiles_group_each_flash_kernel_as_its_own(name):
     """The profiles of chip_smoke.py count each flash kernel, the wgmma
     ones included, under its own group (K3a, K3b-dq or K3b-dkv, -bf16 for

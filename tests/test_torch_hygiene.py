@@ -17,16 +17,26 @@ kernel wrapper takes, and what it refuses.
     parameters the port does not serve at their defaults and refuse any
     other value naming its ROADMAP item; rotary_embedding takes
     position_ids as the JAX op does;
+  * the faults F5-F8 stay repaired: `Request` has the JAX fields in the
+    JAX order and refuses the host-tier and prefix ones at other values
+    (F5); `Optimizer` takes the JAX base's signature (F6); the kernel
+    wrappers take the JAX `interpret` (and `block_q` / `block_k` for
+    flash_attention) in their JAX slots, every `ops.*` wrapper's positional
+    parameters are its `ops.pallas.*` twin's, and a 64-block block mask
+    equals the JAX one on the CPU (F7); `paged_decode_attention` takes a
+    scalar `pos` (F8);
   * chip_smoke.py fails, and prints no result, without a card or outside
     a checkout.
 """
 
 import ast
 import dataclasses
+import importlib
 import inspect
 import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -36,6 +46,7 @@ import torch
 
 import paddle_tpu as paddle
 import paddle_tpu.ops.impl as jax_impl
+import paddle_tpu_torch.ops.flash_attention as fa
 import paddle_tpu_torch
 import paddle_tpu_torch.ops.paged_attention as k2
 import paddle_tpu_torch.ops.ragged_paged_attention as k1
@@ -48,18 +59,21 @@ from paddle_tpu.serving import runner_for as jax_runner_for
 from paddle_tpu.serving.kv_cache import KVCachePool as JaxKVCachePool
 from paddle_tpu.serving.kv_cache import SequenceKV as JaxSequenceKV
 from paddle_tpu.serving.model_runner import paged_attend as jax_paged_attend
+from paddle_tpu.optimizer.optimizer import Optimizer as JaxOptimizer
 from paddle_tpu.serving.scheduler import FCFSScheduler as JaxFCFSScheduler
+from paddle_tpu.serving.scheduler import Request as JaxRequest
 from paddle_tpu.serving.scheduler import SamplingParams as JaxSamplingParams
 from paddle_tpu_torch.inference import create_serving_engine
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import (
-    ErnieConfig, ErnieForPretraining, ErnieForSequenceClassification,
+    GPT, ErnieConfig, ErnieForPretraining, ErnieForSequenceClassification,
     ErnieForTokenClassification, ErnieModel, Llama, LlamaConfig,
     llama_loss_fn,
 )
+from paddle_tpu_torch.models.generation import PagedKVCache
 from paddle_tpu_torch.models.llama import rope_tables
 from paddle_tpu_torch.ops import _build, impl
-from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.optimizer import AdamW, Optimizer
 from paddle_tpu_torch.serving import (
     SamplingParams, create_engine, naive_generate,
 )
@@ -68,7 +82,14 @@ from paddle_tpu_torch.serving.kv_cache import KVCachePool, SequenceKV
 from paddle_tpu_torch.serving.model_runner import (
     LlamaRunner, paged_attend, runner_for,
 )
-from paddle_tpu_torch.serving.scheduler import FCFSScheduler
+from paddle_tpu_torch.serving.scheduler import (
+    FCFSScheduler, Request, RequestState,
+)
+
+# the Pallas modules (the package re-exports functions of the same names)
+jfa, jk1, jk2 = (importlib.import_module(f"paddle_tpu.ops.pallas.{m}") for m in
+                 ("flash_attention", "ragged_paged_attention",
+                  "paged_attention"))
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(Path(paddle_tpu_torch.__file__).parent.rglob("*.py")) \
@@ -130,7 +151,8 @@ def test_entry_points_default_to_cuda():
                KVCachePool.__init__, rope_tables, ErnieModel.__init__,
                ErnieForPretraining.__init__,
                ErnieForSequenceClassification.__init__,
-               ErnieForTokenClassification.__init__):
+               ErnieForTokenClassification.__init__, GPT.__init__,
+               PagedKVCache.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
@@ -469,6 +491,194 @@ def test_rotary_embedding_takes_position_ids_as_jax_does():
     for o, r in zip(ours, ref):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-6,
                                    atol=1e-6)
+
+
+# ---------------------------------------------- faults F5-F8, repaired
+
+
+def test_request_fields_follow_the_jax_order():
+    """F5: the JAX host-tier and prefix fields sit before admission_index,
+    so the 12th positional argument is `offload` in both packages."""
+    assert [f.name for f in dataclasses.fields(Request)] == \
+        [f.name for f in dataclasses.fields(JaxRequest)]
+    args = ([1, 2], SamplingParams(), "r", 5, RequestState.WAITING, [],
+            None, None, None, "prefill", False, None)
+    req = Request(*args)
+    assert (req.offload, req.pending_pagein, req.admit_prefix_tokens,
+            req.admit_pagein_tokens, req.admission_index) == \
+        (None, [], 0, 0, -1)
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("offload", object(), "item 9"), ("pending_pagein", [(1, 2)], "item 9"),
+    ("admit_prefix_tokens", 3, "item 5"), ("admit_pagein_tokens", 3,
+                                           "item 9")])
+def test_request_host_tier_and_prefix_fields_take_their_defaults_only(
+        field, value, item):
+    with pytest.raises(NotImplementedError, match=item):
+        Request([1, 2], **{field: value})
+
+
+@pytest.mark.parametrize("param", ["learning_rate", "parameters",
+                                   "weight_decay", "grad_clip", "name"])
+def test_optimizer_takes_the_jax_base_signature(param):
+    """F6: the JAX base's parameters, in its order, with its defaults;
+    multi_precision only by keyword after them."""
+    ours = inspect.signature(Optimizer).parameters
+    ref = inspect.signature(JaxOptimizer).parameters
+    assert _positional_names(Optimizer) == _positional_names(JaxOptimizer)
+    assert ours[param].default == ref[param].default
+    assert ours["multi_precision"].kind is inspect.Parameter.KEYWORD_ONLY
+    opt = Optimizer(0.1, [torch.zeros(2)], None, None, "opt")
+    assert opt.get_lr() == 0.1 and opt._weight_decay == 0.0
+
+
+# the kernel wrappers and their ops.pallas.* twins
+WRAPPERS = {"ragged_paged_attention": (k1.ragged_paged_attention,
+                                       jk1.ragged_paged_attention),
+            "paged_decode_attention": (k2.paged_decode_attention,
+                                       jk2.paged_decode_attention),
+            "flash_attention": (fa.flash_attention, jfa.flash_attention)}
+
+
+def _shared_functions():
+    """(id, port function, JAX function) of every public function an
+    `ops.*` kernel module shares by name with its `ops.pallas.*` twin."""
+    out = []
+    for label, ours, ref in (("flash_attention", fa, jfa),
+                             ("ragged_paged_attention", k1, jk1),
+                             ("paged_attention", k2, jk2)):
+        for n in sorted(dir(ours)):
+            a, b = getattr(ours, n), getattr(ref, n, None)
+            if not n.startswith("_") and inspect.isfunction(a) \
+                    and inspect.isfunction(b):
+                out.append((f"{label}.{n}", a, b))
+    return out
+
+
+SHARED = _shared_functions()
+
+
+@pytest.mark.parametrize("name,ours,ref", SHARED, ids=[s[0] for s in SHARED])
+def test_wrappers_take_the_pallas_positional_parameters(name, ours, ref):
+    assert len(SHARED) >= 8
+    assert _positional_names(ours) == _positional_names(ref)
+    for p in inspect.signature(ref).parameters.values():
+        if p.default is not inspect.Parameter.empty:
+            assert inspect.signature(ours).parameters[p.name].default \
+                == p.default, p.name
+
+
+@pytest.mark.parametrize("name,param", [
+    ("ragged_paged_attention", "interpret"),
+    ("paged_decode_attention", "interpret"),
+    ("flash_attention", "interpret"), ("flash_attention", "block_q"),
+    ("flash_attention", "block_k")])
+def test_jax_wrapper_parameters_sit_in_their_jax_slot(name, param):
+    """F7: each parameter at the JAX position, so a positional call binds
+    it (ragged_paged_attention's k_scale no longer sits where JAX has
+    interpret)."""
+    ours, ref = WRAPPERS[name]
+    assert _positional_names(ours).index(param) == \
+        _positional_names(ref).index(param)
+
+
+def test_interpret_runs_the_plain_version_on_the_cpu_only():
+    q = torch.randn(2, 4, 8)
+    pool = torch.randn(4, 4, 4, 8)
+    table = torch.arange(4, dtype=torch.int32).reshape(2, 2)
+    pos = torch.tensor([3, 6], dtype=torch.int32)
+    out = k2.paged_decode_attention(q, pool, pool, table, pos, None, True)
+    assert torch.equal(out, k2.paged_decode_attention(q, pool, pool, table,
+                                                      pos))
+    # what the wrappers read of a CUDA operand: its device
+    cuda = types.SimpleNamespace(device=torch.device("cuda"))
+    with pytest.raises(ValueError, match="interpret mode"):
+        _build.refuse_interpret("paged_decode_attention", True, cuda)
+    _build.refuse_interpret("paged_decode_attention", False, cuda)
+
+
+def test_block_mask_on_a_64_grid_equals_jax():
+    """F7: flash_attention(..., block_mask, 64, 64) reads the mask at
+    64 x 64 blocks, as the JAX kernel does (interpret mode)."""
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal((1, 256, 2, 16)).astype(np.float32)
+               for _ in range(3))
+    bm = np.ones((4, 4), np.int32)
+    bm[0, 1] = bm[2, 0] = bm[3, 3] = 0
+    ref = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              False, None, None, None, bm, 64, 64, True)
+    got = fa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), False, None, None, None,
+                             bm, 64, 64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+    default = fa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), False, None, None,
+                                 None, np.ones((2, 2), np.int32))
+    assert not np.allclose(got.numpy(), default.numpy())
+    with pytest.raises(ValueError, match="tile grid"):
+        fa.flash_attention(torch.from_numpy(q), torch.from_numpy(q),
+                           torch.from_numpy(q), False, block_mask=bm)
+
+
+@pytest.mark.parametrize("case", ["uniform_64", "coarse_256", "mixed_64"])
+def test_block_mask_on_another_grid_is_restated_where_it_can_be(case):
+    """A block mask whose every 128-block is all live or all dead is
+    restated on the kernels' 128-grid (no dense mask); one that is not
+    becomes the dense additive mask. Either way the output equals the
+    JAX kernel's at that grid (interpret mode), within 1e-5."""
+    rng = np.random.default_rng(7)
+    s, blk = {"uniform_64": (256, 64), "coarse_256": (512, 256),
+              "mixed_64": (256, 64)}[case]
+    q, k, v = (rng.standard_normal((1, s, 2, 16)).astype(np.float32)
+               for _ in range(3))
+    if case == "uniform_64":
+        bm = np.kron(np.asarray([[1, 0], [1, 1]], np.int32),
+                     np.ones((2, 2), np.int32))
+    elif case == "coarse_256":
+        bm = np.asarray([[1, 0], [1, 1]], np.int32)
+    else:
+        bm = np.ones((4, 4), np.int32)
+        bm[0, 1] = 0
+    t = torch.from_numpy
+    m = fa.canonical_masks(t(q), t(k), t(v), False, block_mask=bm,
+                           block_q=blk, block_k=blk)
+    if case == "mixed_64":
+        assert m.block_mask is None and tuple(m.mask.shape) == (1, 1, s, s)
+    else:
+        assert m.mask is None and tuple(m.block_mask.shape) == (s // 128,
+                                                                s // 128)
+    ref = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              False, None, None, None, bm, blk, blk, True)
+    got = fa.flash_attention(t(q), t(k), t(v), False, None, None, None, bm,
+                             blk, blk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("pos", [7, "0-d"], ids=["int", "0-d"])
+def test_paged_decode_takes_a_scalar_pos(pos):
+    """F8: a scalar pos broadcasts to every sequence, equal to the [b]
+    pos and to the JAX kernel in interpret mode."""
+    rng = np.random.default_rng(6)
+    b, h, d, bs = 3, 2, 16, 4
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    kp, vp = (rng.standard_normal((b * 3, bs, h, d)).astype(np.float32)
+              for _ in range(2))
+    table = np.arange(b * 3, dtype=np.int32).reshape(b, 3)
+    scalar = torch.tensor(7) if pos == "0-d" else 7
+    t = torch.from_numpy
+    got = k2.paged_decode_attention(t(q), t(kp), t(vp), t(table), scalar)
+    per_seq = k2.paged_decode_attention(t(q), t(kp), t(vp), t(table),
+                                        torch.full((b,), 7,
+                                                   dtype=torch.int32))
+    assert torch.equal(got, per_seq)
+    ref = jk2.paged_decode_attention(jnp.asarray(q), jnp.asarray(kp),
+                                     jnp.asarray(vp), jnp.asarray(table), 7,
+                                     interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
 
 
 # ---------------------------------------------------------- chip_smoke

@@ -648,7 +648,8 @@ def test_create_engine_and_runner_for(gqa_runner):
     assert eng.run()[rid].output_tokens == naive_generate(
         gqa_runner, [1, 2, 3], SamplingParams(max_tokens=4),
         max_model_len=64)
-    with pytest.raises(TypeError, match="GPT runner"):
+    # Llama and GPT have runners (GPT: tests/test_torch_gpt_serving.py)
+    with pytest.raises(TypeError, match="supported: Llama, GPT"):
         runner_for(torch.nn.Linear(2, 2))
     with pytest.raises(ValueError, match="attn_impl"):
         LlamaRunner(model, attn_impl="flash")
