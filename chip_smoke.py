@@ -266,7 +266,50 @@ exits non-zero without printing a result:
               the bf16 kernels at [8, 1024, 16, 128] causal against fp64
               (phase 20 (a)) and timed against their plain versions, their
               bound and SDPA (phase 20 (b)).
- 28. summary  one JSON line of every kernel's launches, error and times
+ 28. prefix   the shared-prefix page cache at LLaMA-2-7B, full width and
+     cache    depth, fp32 pools (1024 pages of 16), 8 slots, max_model_len
+              1024, a 256-token prefill budget, audit on: a chat service's
+              shared 512-token system prompt, 8 requests of it plus 64-192
+              random tokens of their own, 32 greedy tokens each; request 0
+              first, the other seven once its first token is out; served
+              with the cache off and on: the streams of both arms equal,
+              two requests equal naive_generate, prefix_hit_tokens = 7 x
+              512, computed + hit tokens = the contexts, no leak after
+              release_prefix_cache(), K1 and K2 only, no plain launch;
+              cow_copies reported (no write lands on a shared page here).
+              A cached page of the live pool forked through
+              SequenceKV.ensure_writable: the source page's bytes (K, V,
+              int8 scale rows) unchanged and the fork equal to them, on
+              fp32, int8 and fp8 pools; the two arms again on one-slot
+              int8 and fp8 engines (the first 3 requests, 16 tokens): their
+              streams equal. Reported: TTFT (mean, requests 1-7), prefill
+              tokens computed, tokens/s of each arm.
+ 29. fused    fused ragged steps (ragged_batch=True) at LLaMA-2-7B with phase
+     ragged   4's traffic, plain then pipelined, counts zeroed before each:
+              the streams equal phase 4's unfused engine; each step with
+              chunks and decode rows is one ragged_step (K1 once a layer,
+              its span form, no K2), each decode-only step K2 once a
+              layer, no plain launch, the auditor clean. Profiled: lone
+              256-token chunk steps, decode-only steps of 7 rows and fused
+              steps of one 256-token chunk beside the 7 decode rows:
+              device ms, K1 ms a launch, idle share.
+ 30. specu-   GPT-3 1.3B at full depth with bench.py::child_serving_spec's
+     lation   traffic (8 requests, 256-token prompts repeating a random 3-6
+              token pattern, 64 tokens each, a 64-token prefill budget),
+              four arms, each served twice (the first round captures): off
+              (decode_horizon 8, pipelined, early stop), per_step (4 draft
+              tokens, ragged_batch, horizon 1), fused (4 drafts inside
+              horizons of 8) and draft (fused with spec_draft_model
+              "shadow:fp32" and spec_adaptive_k): every arm's streams
+              equal off's, two requests equal naive_generate, a seeded
+              request (temperature 0.8) on per_step equals naive_generate
+              with its seed, proposed > 0 in every speculative arm and
+              accepted > 0 in draft, the fused arm served eagerly gives
+              its graph replays' streams, no leak, no plain launch.
+              Reported: steps and host syncs a token, tokens/s,
+              acceptance, capture seconds, K1 launches by form (a T = 8
+              verify span at MHA n_rep 1 takes the decode form).
+ 31. summary  one JSON line of every kernel's launches, error and times
               (K1's decode-form times as extra decode_* keys, its engine
               launches by form under launches_by_form, the fp64 ratios
               under fp64_ratio; the masked kernels as *_masked rows with
@@ -280,8 +323,12 @@ exits non-zero without printing a result:
               gpt_launches, each serving kernel's error against its plain
               version at the GPT shapes under gpt_max_abs_err, the bf16
               dense rows' numbers at the GPT trainer's shape under
-              gpt_shape), the nvidia-smi line, then
-              the result line.
+              gpt_shape; phases 28-30's launches under
+              prefix_launches_by_form, fused_step and spec_launches, and
+              K1 timed at a fused step [8, 256, 32, 128] (one live chunk,
+              7 decode rows) and at verify spans [8, 8, 16, 128] (1-5 live
+              rows) under fused_step and verify_span), the nvidia-smi
+              line, then the result line.
 
 fp32 products stay fp32: TF32 is switched off for matmuls and cuDNN. Bounds
 by operations are at fp32-accurate tensor-core products (3xTF32, 495 / 3
@@ -402,6 +449,13 @@ SPANS_DECODE = ([0, 15, 16, 17, 31, 100, 255, 600], [1] * 8, 1)
 SPANS_CHUNK = ([256], [256], 256)
 # the GPT engine's short chunks: 1-8 rows padded to the 8-row bucket
 SPANS_SHORT = ([512, 520, 523, 0, 100, 7, 0, 40], [8, 3, 1, 8, 5, 8, 0, 2], 8)
+# a fused ragged step (phase 29): one 256-token chunk beside 7 decode rows,
+# every row padded to the chunk's bucket
+SPANS_FUSED = ([256, 300, 345, 410, 470, 520, 580, 630],
+               [256, 1, 1, 1, 1, 1, 1, 1], 256)
+# verify spans (phase 30): the fed token plus 0-4 drafts in the 8-row bucket
+SPANS_VERIFY = ([256, 263, 270, 281, 290, 300, 305, 311],
+                [5, 3, 1, 4, 2, 5, 1, 3], 8)
 
 
 def _as_kind(k_pool, v_pool, kind, gen):
@@ -570,17 +624,20 @@ def measure_ragged(gen, n_heads, num_blocks, P, kind="fp32",
                 + torch.arange(T, device="cuda")[None, :, None]))[:, None]
     lib = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qT, kg, vg, attn_mask=mask))
-    # the least work: each visible K/V row read once (1 byte per element
-    # on int8 / fp8 pools, plus one fp32 scale per page and kv head for
-    # K and V on int8), the table entries walked, q read and out written;
-    # 4*d FLOPs per visible (row, key, query head)
-    keys = sum(s + T for s in start)
+    # the least work of this run's spans: each K/V row the live rows see
+    # read once (1 byte per element on int8 / fp8 pools, plus one fp32
+    # scale per page and kv head for K and V on int8), the table entries
+    # walked, the live q rows read and their out rows written; 4*d FLOPs
+    # per visible (live row, key, query head); a dead slot reads nothing
+    keys = sum(s + n for s, n in zip(start, qlen) if n)
+    walked = sum(-(-(s + n) // ps) for s, n in zip(start, qlen) if n)
     elem = 4 if kind == "fp32" else 1
-    nbytes = (4 * 2 * q.numel() + elem * 2 * keys * n_kv * d
-              + 4 * (sum(pages) + 2 * B))
+    nbytes = (4 * 2 * sum(qlen) * n_heads * d + elem * 2 * keys * n_kv * d
+              + 4 * (walked + 2 * B))
     if kind == "int8":
-        nbytes += 4 * 2 * sum(pages) * n_kv
-    flops = 4 * d * n_heads * sum(s + t + 1 for s in start for t in range(T))
+        nbytes += 4 * 2 * walked * n_kv
+    flops = 4 * d * n_heads * sum(s + t + 1 for s, n in zip(start, qlen)
+                                  for t in range(n))
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_FP32_ACCURATE_FLOP_PER_S
     return dict(max_abs_err=err, ms=ms, plain_ms=plain,
@@ -1305,6 +1362,542 @@ def horizon_profile(eng, cfg, steps=3, prompt_len=300):
         log("  torch.profiler recorded no device time here: the device "
             "split of this window is not measured")
     eng.run()
+
+
+# ------------------------------- prefix cache, fused steps, speculation
+
+def _zeroed_counts():
+    """Every serving kernel's LaunchCounts, set to 0."""
+    counts = _all_counts()
+    for _, c in counts:
+        c.reset()
+    return counts
+
+
+def _launches(counts):
+    """(kernel launches, launches by form, plain launches) of a run."""
+    kernel = {n: c.kernel_launches for n, c in counts if c.kernel_launches}
+    forms = {n: dict(c.form_launches) for n, c in counts if c.form_launches}
+    return kernel, forms, sum(c.plain_launches for _, c in counts)
+
+
+def _top2_margin(runner, prompt, tokens, j) -> float:
+    """The top-1 minus top-2 logit where a stream's token j is sampled:
+    the context prompt + tokens[:j] prefilled on a private pool."""
+    from paddle_tpu_torch.serving import KVCachePool
+    ctx = list(prompt) + list(tokens[:j])
+    n = -(-len(ctx) // runner.block_size)
+    pool = KVCachePool(runner.num_layers, n + 1, runner.block_size,
+                       runner.n_kv_heads, runner.head_dim,
+                       device=runner.device, kv_dtype=runner.kv_dtype)
+    logits, _ = runner.prefill(ctx, pool.allocator.alloc(n), pool.pools)
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def _gate_streams(label, runner, prompts, got, want):
+    """Every request's stream equal to the reference's; where a token
+    parts, the top-2 margin there is printed and the run fails."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        margin = _top2_margin(runner, prompts[i], b, j)
+        log(f"{label}: request {i} parts at token {j}: {a[j:j + 4]} against "
+            f"{b[j:j + 4]}; the top-2 margin of the reference there "
+            f"{margin:.4e}")
+        raise AssertionError(f"{label}: request {i}'s stream parts at token "
+                             f"{j}")
+
+
+def _fork_check(eng, prompt, label):
+    """Fork a cached page of the engine's live pool through
+    SequenceKV.ensure_writable (as tests/test_serving_prefix.py's
+    copy-on-write pin does): the source page's bytes (every layer's K and
+    V, and the scale rows of an int8 pool) are the same before and after,
+    and the fork equals them."""
+    from paddle_tpu_torch.serving import SequenceKV
+    pool, cache = eng.pool, eng.pool.prefix_cache
+    seq = SequenceKV(pool)
+    matched = cache.match(prompt)
+    if not matched:
+        raise AssertionError(f"{label}: no cached page to fork")
+    cache.acquire(matched)
+    seq.adopt_prefix(matched, pool.block_size)
+    src = seq.pages[0]
+
+    def page(p):
+        return [t.view(torch.uint8)[p].clone() for layer in pool.pools
+                for t in layer]
+    before = page(src)
+    forked = seq.ensure_writable(0, pool.block_size)
+    torch.cuda.synchronize()
+    after, fork = page(src), page(seq.pages[0])
+    same = all(torch.equal(a, b) for a, b in zip(before, after))
+    copied = all(torch.equal(a, c) for a, c in zip(before, fork))
+    refs, new = pool.allocator.refcount(src), seq.pages[0]
+    seq.release()
+    log(f"prefix ({label}): forked cached page {src} -> page {new}: "
+        f"{forked} fork, "
+        f"{len(before)} tensors a page (every layer's K, V"
+        f"{' and scale rows' if pool.kv_dtype == 'int8' else ''}); source "
+        f"bytes unchanged {same}, fork equal {copied}, source refcount "
+        f"{refs} after the fork")
+    if forked != 1 or not same or not copied:
+        raise AssertionError(f"prefix ({label}): copy-on-write fork failed")
+
+
+# phase 28: a chat service's shared 512-token system prompt
+PREFIX_SYSTEM = 512
+
+
+def prefix_requests(cfg, seed=6, n=8):
+    """8 requests: the same 512-token system prompt plus 64-192 random
+    tokens of their own."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(1, cfg.vocab_size, PREFIX_SYSTEM).tolist()
+    return [system + rng.integers(1, cfg.vocab_size,
+                                  int(rng.integers(64, 193))).tolist()
+            for _ in range(n)]
+
+
+def _prefix_arm(model, prompts, on, kv_dtype="fp32", slots=8, max_tokens=32):
+    """Serve request 0, then the others once its first token is out, on an
+    engine with the prefix cache ``on`` or off. Returns the engine and
+    what the run read."""
+    from paddle_tpu_torch.inference import create_serving_engine
+    from paddle_tpu_torch.serving import SamplingParams
+
+    eng = create_serving_engine(
+        model, device="cuda", block_size=16, num_blocks=1024,
+        max_batch_size=slots, max_model_len=1024,
+        max_prefill_tokens_per_step=256, kv_dtype=kv_dtype,
+        enable_prefix_cache=on, audit=True)
+    sp = SamplingParams(max_tokens=max_tokens)
+    m = eng.metrics
+    counts = _zeroed_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = [eng.add_request(prompts[0], sp)]
+    while m.tokens_generated.value == 0:
+        eng.step()
+    ids += [eng.add_request(p, sp) for p in prompts[1:]]
+    while eng.has_work():
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernel, forms, plain = _launches(counts)
+    outs = eng.outputs()
+    if any(outs[i].finish_reason != "length" for i in ids):
+        raise AssertionError(f"prefix arm ({kv_dtype}, cache {on}): not "
+                             "every request finished")
+    ttft = [1e3 * outs[i].ttft_s for i in ids]
+    run = dict(tokens=[outs[i].output_tokens for i in ids], ttft_ms=ttft,
+               prefill=int(m.prefill_tokens.value),
+               hits=int(m.prefix_hit_tokens.value),
+               cow=int(m.cow_copies.value), wall=wall,
+               tps=m.tokens_generated.value / wall, kernel=kernel,
+               forms=forms, plain=plain)
+    log(f"prefix ({kv_dtype} KV, {slots} slots, cache "
+        f"{'on' if on else 'off'}): {int(m.tokens_generated.value)} tokens "
+        f"in {wall:.3f} s = {run['tps']:.1f} tokens/s; TTFT mean "
+        f"{statistics.mean(ttft):.1f} ms, request 0 {ttft[0]:.1f} ms, "
+        f"requests 1-{len(ids) - 1} mean {statistics.mean(ttft[1:]):.1f} "
+        f"ms; prefill tokens computed {run['prefill']}, prefix_hit_tokens "
+        f"{run['hits']}, cow_copies {run['cow']}; launches {kernel}, by "
+        f"form {forms}, plain {plain}")
+    return eng, run
+
+
+def prefix_phase(model, cfg):
+    """Phase 28: the shared-prefix page cache at LLaMA-2-7B. The 8 requests
+    of `prefix_requests` (32 greedy tokens each) with the cache off and
+    on, 8 slots, fp32 pools: streams equal, two requests equal
+    naive_generate, prefix_hit_tokens = 7 x 512, computed + hit = the
+    contexts, no leak after release_prefix_cache(), no plain launch;
+    cow_copies reported (no write lands on a shared page in this
+    traffic). A cached page of the live pool forked on the card (fp32,
+    then int8 and fp8). Then both arms on one-slot int8 and fp8 engines
+    (the first 3 requests, 16 tokens each): streams equal between the
+    arms. Returns the launches by form of the cache-on fp32 run."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    prompts = prefix_requests(cfg)
+    total = sum(map(len, prompts))
+    runs = {}
+    for on in (False, True):
+        eng, runs[on] = _prefix_arm(model, prompts, on)
+        r = runs[on]
+        if r["plain"] or set(r["kernel"]) != {"ragged_paged_attention",
+                                              "paged_decode_attention"}:
+            raise AssertionError(f"prefix arm (cache {on}): launches "
+                                 f"{r['kernel']}, plain {r['plain']}")
+        if r["prefill"] + r["hits"] != total:
+            raise AssertionError(f"prefix arm (cache {on}): computed "
+                                 f"{r['prefill']} + hit {r['hits']} != "
+                                 f"context {total}")
+        if on:
+            want = (len(prompts) - 1) * PREFIX_SYSTEM
+            if r["hits"] != want:
+                raise AssertionError(f"prefix_hit_tokens {r['hits']} != "
+                                     f"{want}")
+            for i in (0, int(np.argmax([len(p) for p in prompts]))):
+                verdict = check_against_naive(
+                    eng.runner, prompts[i], r["tokens"][i],
+                    SamplingParams(max_tokens=32), 1024)
+                log(f"naive_generate check (prefix cache on), request {i} "
+                    f"(prompt {len(prompts[i])}): {verdict}")
+            _fork_check(eng, prompts[0], "fp32, 8 slots")
+            released = eng.release_prefix_cache()
+            log(f"prefix: release_prefix_cache() dropped {released} pages")
+        if not eng.pool.allocator.check_no_leaks():
+            raise AssertionError(f"prefix arm (cache {on}): leaked pages")
+        runner = eng.runner
+        del eng
+        _free_the_card()
+    _gate_streams("prefix (fp32, cache on vs off)", runner, prompts,
+                  runs[True]["tokens"], runs[False]["tokens"])
+    log(f"prefix (fp32): streams of both arms equal token for token; TTFT "
+        f"of requests 1-7 {statistics.mean(runs[False]['ttft_ms'][1:]):.1f}"
+        f" -> {statistics.mean(runs[True]['ttft_ms'][1:]):.1f} ms, prefill "
+        f"tokens {runs[False]['prefill']} -> {runs[True]['prefill']}, "
+        f"tokens/s {runs[False]['tps']:.1f} -> {runs[True]['tps']:.1f}")
+    for kind in ("int8", "fp8"):
+        few = {}
+        for on in (False, True):
+            eng, few[on] = _prefix_arm(model, prompts[:3], on, kind,
+                                       slots=1, max_tokens=16)
+            name = f"ragged_paged_attention_{kind}"
+            if few[on]["plain"] or set(few[on]["kernel"]) != {name}:
+                raise AssertionError(f"prefix one-slot {kind}: launches "
+                                     f"{few[on]['kernel']}")
+            if on:
+                if few[on]["hits"] != 2 * PREFIX_SYSTEM:
+                    raise AssertionError(f"prefix one-slot {kind}: hits "
+                                         f"{few[on]['hits']}")
+                _fork_check(eng, prompts[0], f"{kind}, one slot")
+                eng.release_prefix_cache()
+            if not eng.pool.allocator.check_no_leaks():
+                raise AssertionError(f"prefix one-slot {kind}: leaked")
+            runner = eng.runner
+            del eng
+            _free_the_card()
+        _gate_streams(f"prefix ({kind}, one slot, cache on vs off)", runner,
+                      prompts, few[True]["tokens"], few[False]["tokens"])
+        log(f"prefix ({kind} KV, one slot): streams of both arms equal")
+    return runs[True]["forms"]
+
+
+def _count_calls(runner, names):
+    """Wrap the runner's ``names`` methods to count their calls."""
+    seen = dict.fromkeys(names, 0)
+    for name in names:
+        real = getattr(runner, name)
+
+        def counted(*a, _n=name, _r=real, **kw):
+            seen[_n] += 1
+            return _r(*a, **kw)
+        setattr(runner, name, counted)
+    return seen
+
+
+def ragged_phase(model, cfg, ref_tokens, seed=0, n_requests=8):
+    """Phase 29: fused ragged steps at LLaMA-2-7B with phase 4's traffic
+    (its seed: 8 requests of 100-600 prompt tokens, 32 greedy tokens,
+    budget 256), `ragged_batch=True`, plain then pipelined, counts zeroed
+    before each run: tokens equal phase 4's unfused engine, every step
+    with chunks and decode rows one ragged_step (K1 once a layer, no K2),
+    K2 once a layer on each decode-only step, no plain launch, the
+    auditor clean. Then where a fused step's time goes (torch.profiler):
+    lone 256-token chunk steps, decode-only steps of 7 rows, and fused
+    steps of one 256-token chunk beside the 7 decode rows. Returns the K1
+    launches of the plain fused run and its forms, the fused K1 launches'
+    device ms and the fused step's numbers."""
+    from paddle_tpu_torch.inference import create_serving_engine
+    from paddle_tpu_torch.serving import SamplingParams
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(100, 601, n_requests)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in lens]
+    sp = SamplingParams(max_tokens=32)
+    L = cfg.num_layers
+    result = {}
+    for label, knobs in (("plain", {}), ("pipelined", {"pipelined": True})):
+        eng = create_serving_engine(
+            model, device="cuda", block_size=16, num_blocks=1024,
+            max_batch_size=8, max_model_len=4096,
+            max_prefill_tokens_per_step=256, audit=True, ragged_batch=True,
+            **knobs)
+        calls = _count_calls(eng.runner, ("ragged_step", "prefill_chunk",
+                                          "decode"))
+        counts = _zeroed_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = [eng.add_request(p, sp) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        kernel, forms, plain = _launches(counts)
+        outs = eng.outputs()
+        tokens = [outs[i].output_tokens for i in ids]
+        m = eng.metrics
+        log(f"fused ragged ({label}): {int(m.tokens_generated.value)} tokens "
+            f"in {wall:.3f} s = {m.tokens_generated.value / wall:.1f} "
+            f"tokens/s, TTFT mean {1e3 * m.ttft_s.mean:.1f} ms; runner calls "
+            f"{calls}; launches {kernel}, by form {forms}, plain {plain}")
+        want = {"ragged_paged_attention": L * (calls["ragged_step"]
+                                               + calls["prefill_chunk"]),
+                "paged_decode_attention": L * calls["decode"]}
+        if (plain or kernel != want or not calls["ragged_step"]
+                or not forms["ragged_paged_attention"].get("span")):
+            raise AssertionError(f"fused ragged ({label}): launches "
+                                 f"{kernel}, want {want}; plain {plain}")
+        if not eng.pool.allocator.check_no_leaks():
+            raise AssertionError(f"fused ragged ({label}): leaked pages")
+        _gate_streams(f"fused ragged ({label}) vs phase 4's engine",
+                      eng.runner, prompts, tokens, ref_tokens)
+        log(f"fused ragged ({label}): streams equal phase 4's unfused "
+            "engine token for token")
+        if label == "plain":
+            result["launches"] = kernel["ragged_paged_attention"]
+            result["forms"] = forms["ragged_paged_attention"]
+            result.update(fused_profile(eng, cfg))
+        del eng
+        _free_the_card()
+    return result
+
+
+def _profiled(eng, steps, before_step, label):
+    """Host wall of ``steps`` engine steps, then as many under
+    torch.profiler: (wall ms a step, device busy ms a step, {group: ms a
+    step}, K1 device ms a launch)."""
+    import paddle_tpu_torch.ops.ragged_paged_attention as k1
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        before_step()
+        eng.step()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t) / steps
+    n1 = k1.COUNTS.kernel_launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            before_step()
+            eng.step()
+        torch.cuda.synchronize()
+    n1 = k1.COUNTS.kernel_launches - n1
+    groups, top = _device_ms(prof)
+    busy = sum(groups.values()) / steps
+    per = {g: round(ms / steps, 4) for g, ms in
+           sorted(groups.items(), key=lambda kv: -kv[1])}
+    k1_ms = groups.get("K1 ragged_paged_attention", 0.0) / n1 if n1 else 0.0
+    log(f"profile {label}: host wall {wall:.3f} ms/step, device busy "
+        f"{busy:.3f} ms/step, idle share {1 - busy / wall:.3f}; K1 "
+        f"{k1_ms:.4f} device ms a launch over {n1 / steps:.0f} launches a "
+        f"step; device ms/step by group {json.dumps(per)}")
+    for name, ms in top:
+        log(f"  {ms / steps:.4f} ms/step  {name[:110]}")
+    if busy == 0.0:
+        log("  torch.profiler recorded no device time here: the device "
+            "split of this window is not measured")
+    return wall, busy, per, k1_ms
+
+
+def fused_profile(eng, cfg, steps=3):
+    """Where a fused step's time goes, on the fused engine: lone 256-token
+    chunk steps (no decode row: the unfused chunk path), decode-only steps
+    of 7 rows (K2), and fused steps of one 256-token chunk beside the same
+    7 decode rows (one ragged_step, T = 256)."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    rng = np.random.default_rng(7)
+    one = SamplingParams(max_tokens=1)
+
+    def add_chunk():
+        eng.add_request(rng.integers(1, cfg.vocab_size, 256).tolist(), one)
+    chunk = _profiled(eng, steps, add_chunk, "fused engine, lone 256-token "
+                      "chunk step")
+    for _ in range(7):
+        eng.add_request(rng.integers(1, cfg.vocab_size, 300).tolist(),
+                        SamplingParams(max_tokens=8 * steps + 8))
+    while eng.scheduler.waiting or any(
+            r.phase == "prefill" for r in eng.scheduler.running):
+        eng.step()
+    decode = _profiled(eng, steps, lambda: None, "fused engine, decode-only "
+                       "step (7 rows)")
+    fused = _profiled(eng, steps, add_chunk, "fused step (one 256-token "
+                      "chunk + 7 decode rows, T = 256)")
+    eng.run()
+    both = chunk[1] + decode[1]
+    log(f"fused step: {fused[1]:.3f} device ms against a lone chunk step "
+        f"{chunk[1]:.3f} + a decode step {decode[1]:.3f} = {both:.3f} ms "
+        f"({fused[1] / max(both, 1e-9):.3f}x); K1 {fused[3]:.4f} ms a launch in the "
+        f"fused step against {chunk[3]:.4f} in the lone chunk's; idle share "
+        f"{1 - fused[1] / fused[0]:.3f}")
+    return {"fused_step_device_ms": fused[1], "fused_step_wall_ms": fused[0],
+            "chunk_step_device_ms": chunk[1],
+            "decode_step_device_ms": decode[1],
+            "fused_k1_ms": fused[3], "chunk_k1_ms": chunk[3]}
+
+
+SPEC_ARMS = (
+    ("off", dict(decode_horizon=8, pipelined=True, horizon_early_stop=True)),
+    ("per_step", dict(num_speculative_tokens=4, ragged_batch=True)),
+    ("fused", dict(num_speculative_tokens=4, decode_horizon=8,
+                   pipelined=True, horizon_early_stop=True)),
+    ("draft", dict(num_speculative_tokens=4, decode_horizon=8,
+                   pipelined=True, horizon_early_stop=True,
+                   spec_draft_model="shadow:fp32", spec_adaptive_k=True)))
+
+
+def spec_requests(cfg, seed=0, n=8, prompt=256):
+    """bench.py::child_serving_spec's traffic: 256-token prompts that
+    repeat a random 3-6 token pattern."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        pattern = rng.integers(0, cfg.vocab_size,
+                               int(rng.integers(3, 7))).tolist()
+        out.append((pattern * (prompt // len(pattern) + 1))[:prompt])
+    return out
+
+
+def _spec_engine(model, knobs, prompt=256, gen=64, slots=8):
+    from paddle_tpu_torch.inference import create_serving_engine
+    max_len = prompt + gen
+    pages = -(-max_len // 16)
+    if "spec_draft_model" in knobs:
+        knobs = dict(knobs, spec_draft_blocks=slots * (pages + 1) + 1)
+    return create_serving_engine(
+        model, device="cuda", block_size=16,
+        num_blocks=slots * pages + 1, max_batch_size=slots,
+        max_model_len=max_len, max_prefill_tokens_per_step=64, audit=True,
+        **knobs)
+
+
+def _spec_round(eng, prompts, label, gen=64):
+    from paddle_tpu_torch.serving import SamplingParams
+
+    counts = _zeroed_counts()
+    m = eng.metrics
+    base = m.snapshot()
+    draft = getattr(eng.proposer, "runner", None)
+    runners = [eng.runner] + ([draft] if draft is not None else [])
+    caps0 = [len(r.captures) for r in runners]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = [eng.add_request(p, SamplingParams(max_tokens=gen))
+           for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernel, forms, plain = _launches(counts)
+    snap = m.snapshot()
+    d = {k: snap[k] - base[k] for k in (
+        "tokens_generated", "decode_steps", "host_syncs",
+        "spec_proposed_tokens", "spec_accepted_tokens",
+        "spec_fused_horizons", "spec_rollback_pages")}
+    toks = d["tokens_generated"]
+    caps = [c for r, n in zip(runners, caps0) for c in r.captures[n:]]
+    run = dict(
+        tokens=[eng.outputs()[i].output_tokens for i in ids],
+        steps_per_token=d["decode_steps"] / toks,
+        syncs_per_token=d["host_syncs"] / toks, tps=toks / wall,
+        acceptance=(d["spec_accepted_tokens"] / d["spec_proposed_tokens"]
+                    if d["spec_proposed_tokens"] else 0.0),
+        proposed=int(d["spec_proposed_tokens"]),
+        accepted=int(d["spec_accepted_tokens"]),
+        capture_s=sum(c["seconds"] for c in caps), kernel=kernel,
+        forms=forms, plain=plain)
+    log(f"speculation {label}: {int(toks)} tokens in {wall:.3f} s = "
+        f"{run['tps']:.1f} tokens/s; steps/token "
+        f"{run['steps_per_token']:.4f}, host syncs/token "
+        f"{run['syncs_per_token']:.4f}; proposed {run['proposed']}, accepted "
+        f"{run['accepted']} (acceptance {run['acceptance']:.4f}), fused "
+        f"horizons {int(d['spec_fused_horizons'])}, rollback pages "
+        f"{int(d['spec_rollback_pages'])}; {len(caps)} captures "
+        f"{run['capture_s']:.3f} s; launches {kernel}, by form {forms}, "
+        f"plain {plain}")
+    if plain:
+        raise AssertionError(f"speculation {label}: {plain} plain launches")
+    if not eng.pool.allocator.check_no_leaks():
+        raise AssertionError(f"speculation {label}: leaked pages")
+    return run
+
+
+def spec_phase(model, cfg):
+    """Phase 30: speculative decoding at GPT-3 1.3B with
+    bench.py::child_serving_spec's traffic (8 requests, 256-token periodic
+    prompts, 64 tokens each, a 64-token prefill budget), four arms of
+    SPEC_ARMS, each served twice (the first round captures its graphs):
+    every greedy arm's streams equal off's, two requests equal
+    naive_generate; one seeded request (temperature 0.8) on per_step
+    equals naive_generate with the same seed; proposed > 0 in every
+    speculative arm and accepted > 0 in draft; the fused arm served once
+    more eagerly (runner.graphs False) gives its graph-replayed streams;
+    no leak, no plain launch. Returns K1's and K2's launches by arm."""
+    from paddle_tpu_torch.serving import SamplingParams, naive_generate
+
+    prompts = spec_requests(cfg)
+    runs, launches = {}, {}
+    for name, knobs in SPEC_ARMS:
+        eng = _spec_engine(model, knobs)
+        for rnd in (1, 2):
+            runs[name, rnd] = _spec_round(eng, prompts,
+                                          f"{name}, round {rnd}")
+        launches[name] = {k: {"launches": n, "by_form": runs[name, 1][
+            "forms"].get(k, {})} for k, n in runs[name, 1]["kernel"].items()}
+        if name != "off" and not runs[name, 1]["proposed"]:
+            raise AssertionError(f"speculation {name}: nothing proposed")
+        if name == "draft" and not runs[name, 1]["accepted"]:
+            raise AssertionError("speculation draft: nothing accepted")
+        if name == "off":
+            for i in (0, 5):
+                verdict = check_against_naive(
+                    eng.runner, prompts[i], runs[name, 1]["tokens"][i],
+                    SamplingParams(max_tokens=64), 320)
+                log(f"naive_generate check (speculation off), request {i}: "
+                    f"{verdict}")
+        if name == "per_step":
+            sp = SamplingParams(max_tokens=64, temperature=0.8, seed=1000)
+            rid = eng.add_request(prompts[3], sp)
+            got = eng.run()[rid].output_tokens
+            want = naive_generate(eng.runner, prompts[3], sp,
+                                  max_model_len=320)
+            if got != want:
+                raise AssertionError("speculation per_step: the seeded "
+                                     "request parts from naive_generate")
+            log("speculation per_step: a seeded request (temperature 0.8, "
+                "seed 1000) equals naive_generate token for token; "
+                f"proposed so far {int(eng.metrics.spec_proposed_tokens.value)}")
+        if name == "fused":
+            eng.runner.graphs = False
+            eager = _spec_round(eng, prompts, "fused, eager (no graphs)")
+            if eager["tokens"] != runs[name, 1]["tokens"] or \
+                    eager["accepted"] != runs[name, 1]["accepted"]:
+                raise AssertionError("speculation fused: the eager run "
+                                     "parts from the graph replays")
+            log("speculation fused: the eager run equals the graph "
+                "replays token for token")
+        runner = eng.runner
+        del eng
+        _free_the_card()
+        for rnd in (1, 2):
+            if name != "off":
+                _gate_streams(f"speculation {name} round {rnd} vs off",
+                              runner, prompts, runs[name, rnd]["tokens"],
+                              runs["off", 1]["tokens"])
+    log("speculation: every arm's greedy streams equal off's; " + "; ".join(
+        f"{n}: steps/token {runs[n, 2]['steps_per_token']:.4f}, syncs/token "
+        f"{runs[n, 2]['syncs_per_token']:.4f}, {runs[n, 2]['tps']:.1f} "
+        f"tokens/s, acceptance {runs[n, 1]['acceptance']:.4f}, capture "
+        f"{runs[n, 1]['capture_s']:.3f} s" for n, _ in SPEC_ARMS))
+    return launches
 
 
 # ------------------------------------------------------------ profile
@@ -3052,6 +3645,10 @@ def gpt_phases(gen):
     del small
     gpt["paged_generator"] = {
         "paged_decode_attention": gpt_generator_phase(model, cfg)}
+    _free_the_card()
+    t_spec = time.perf_counter()
+    gpt["speculation"] = spec_phase(model, cfg)     # phase 30
+    log(f"phase 30: {time.perf_counter() - t_spec:.1f} s")
     del model
     _free_the_card()
     trainer, batch, flash = gpt_trainer_phase(cfg)
@@ -3260,6 +3857,12 @@ def main() -> int:
         # the two shortest prompts fit one 256-token chunk
         single_slot_check(model, cfg, kind, sorted(prompts, key=len)[:2])
         _free_the_card()
+    # phases 28-29: the shared-prefix page cache and fused ragged steps
+    t_new = time.perf_counter()
+    prefix_forms = prefix_phase(model, cfg)
+    _free_the_card()
+    ragged = ragged_phase(model, cfg, fp32_tokens)
+    log(f"phases 28-29: {time.perf_counter() - t_new:.1f} s")
     del model
     _free_the_card()
     small = Llama(replace(cfg, num_layers=2), device="cuda", seed=2)
@@ -3291,6 +3894,14 @@ def main() -> int:
                                         dec["max_abs_err"])
     meas["paged_decode_attention"] = measure_paged(gen, cfg.num_heads, 1024,
                                                    P, positions)
+    # K1 at the shapes of this slice's paths: phase 29's fused step (one
+    # live 256-token chunk beside 7 decode rows, T = 256, span form) and
+    # phase 30's verify spans at GPT-3 1.3B's 16 heads (1-5 live rows in
+    # the 8-row bucket, decode form)
+    new_shapes = {"fused_step": measure_ragged(gen, cfg.num_heads, 1024, P,
+                                               "fp32", SPANS_FUSED),
+                  "verify_span": measure_ragged(gen, 16, 1024, P, "fp32",
+                                                SPANS_VERIFY)}
     rows = []
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "fp64_ratio")
@@ -3325,6 +3936,23 @@ def main() -> int:
             row.update({f"decode_{k}": m["decode"][k] for k in keys})
         if "decode_mha_fp64_ratio" in m:
             row["decode_mha_fp64_ratio"] = m["decode_mha_fp64_ratio"]
+        if name == "ragged_paged_attention":
+            for label, t in new_shapes.items():
+                log(f"timing K1 at the {label.replace('_', ' ')} shape "
+                    f"{t['shape']}: kernel {t['ms']:.4f} ms, plain "
+                    f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                    f"({t['bound_by']}), library (SDPA on pre-gathered K/V) "
+                    f"{t['library_ms']:.4f} ms, max_abs_err "
+                    f"{t['max_abs_err']:.3e}")
+                row[label] = {k: t[k] for k in ("shape", "max_abs_err",
+                                                *keys)}
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         t["max_abs_err"])
+            row["fused_step"].update(
+                launches=ragged["launches"], launches_by_form=ragged["forms"],
+                **{k: v for k, v in ragged.items()
+                   if k not in ("launches", "forms")})
+            row["prefix_launches_by_form"] = prefix_forms
         rows.append(row)
 
     # the training path: the engines, the model and the runners are gone
@@ -3405,10 +4033,19 @@ def main() -> int:
     # the GPT family at GPT-3 1.3B widths: serving, generators, O1 training
     gpt_launches, gpt_bf16, gpt_errs = gpt_phases(gen)
     log(f"after the GPT phases: {time.perf_counter() - t_start:.1f} s")
+    spec = gpt_launches.pop("speculation")
     for row in rows:       # the serving kernels on the GPT paths
         row["gpt_max_abs_err"] = gpt_errs[row["name"]]
         row["gpt_launches"] = {path: n[row["name"]] for path, n in
                                gpt_launches.items() if row["name"] in n}
+        row["spec_launches"] = {arm: by[row["name"]] for arm, by in
+                                spec.items() if row["name"] in by}
+    # the verify spans' launches: K1's decode form in the per-step and
+    # fused arms (the draft arm's also counts its draft model's short
+    # catch-up chunks)
+    rows[0]["verify_span"]["launches"] = sum(
+        spec[arm]["ragged_paged_attention"]["by_form"].get("decode", 0)
+        for arm in ("per_step", "fused"))
 
     for label, times, launches, errs in (
             ("", flash, flash_launches, (flash_err, acc)),

@@ -21,7 +21,8 @@ def create_serving_engine(model, dtype=None, device="cuda", **kw):
     ``device`` unless they already live there. Runner knobs (block_size,
     max_model_len, attn_impl, kv_dtype, weight_dtype, weight_group_size)
     go to the runner, everything else to ServingEngine (decode_horizon,
-    pipelined, horizon_sampling and horizon_early_stop among them);
+    pipelined, horizon_sampling, horizon_early_stop, enable_prefix_cache,
+    ragged_batch, num_speculative_tokens and the spec_* knobs among them);
     ``num_blocks`` defaults to 128. fp32 weights on one device are
     ported, over fp32, int8 or fp8 KV pools (``kv_dtype``): another
     ``dtype``, ``weight_dtype``, ``weight_group_size`` or

@@ -5,9 +5,11 @@ paths over fp32, int8 and fp8 KV pools: `ServingEngine` (FCFS admission,
 chunked prefill, batched decode or device-resident decode horizons, the
 pipelined loop, greedy or seeded sampling, youngest-first preemption
 with recompute-on-resume, deadlines, retries, NaN guard, invariant
-auditor) over `KVCachePool` and a `LlamaRunner` or `GPTRunner` whose
-attention runs the port's CUDA kernels, its decode kinds as CUDA graphs
-on the card.
+auditor, the shared-prefix page cache with copy-on-write, fused ragged
+steps, speculative decoding) over `KVCachePool` and a `LlamaRunner` or
+`GPTRunner` whose attention runs the port's CUDA kernels, its decode
+kinds as CUDA graphs on the card. The draft proposers stay in
+`serving.speculate`, as in the JAX package.
 """
 
 from paddle_tpu_torch.serving.engine import (
@@ -15,7 +17,8 @@ from paddle_tpu_torch.serving.engine import (
     naive_generate, sample_token, seeded_sample,
 )
 from paddle_tpu_torch.serving.kv_cache import (
-    SCRATCH_PAGE, BlockAllocator, KVCachePool, SequenceKV,
+    SCRATCH_PAGE, BlockAllocator, KVCachePool, PrefixCache, SequenceKV,
+    page_content_hash,
 )
 from paddle_tpu_torch.serving.metrics import (
     Counter, EngineMetrics, Gauge, Histogram,
@@ -25,7 +28,8 @@ from paddle_tpu_torch.serving.model_runner import (
     runner_for,
 )
 from paddle_tpu_torch.serving.resilience import (
-    InvariantViolation, QueueFullError, audit_engine,
+    FaultInjector, InjectedDeviceError, InvariantViolation, QueueFullError,
+    audit_engine,
 )
 from paddle_tpu_torch.serving.scheduler import (
     FCFSScheduler, Request, RequestState, SamplingParams,
@@ -33,11 +37,12 @@ from paddle_tpu_torch.serving.scheduler import (
 
 __all__ = [
     "SCRATCH_PAGE", "BlockAllocator", "Counter", "EngineMetrics",
-    "FCFSScheduler", "GPTRunner", "Gauge", "Histogram",
-    "InvariantViolation",
-    "KVCachePool", "LlamaRunner", "PagedModelRunner", "QueueFullError",
-    "Request", "RequestOutput", "RequestState", "SamplingParams",
-    "SequenceKV", "ServingEngine", "TokenEvent", "audit_engine",
-    "bucket_len", "create_engine", "greedy_grid", "naive_generate",
-    "paged_attend", "runner_for", "sample_token", "seeded_sample",
+    "FCFSScheduler", "FaultInjector", "GPTRunner", "Gauge", "Histogram",
+    "InjectedDeviceError", "InvariantViolation",
+    "KVCachePool", "LlamaRunner", "PagedModelRunner", "PrefixCache",
+    "QueueFullError", "Request", "RequestOutput", "RequestState",
+    "SamplingParams", "SequenceKV", "ServingEngine", "TokenEvent",
+    "audit_engine", "bucket_len", "create_engine", "greedy_grid",
+    "naive_generate", "page_content_hash", "paged_attend", "runner_for",
+    "sample_token", "seeded_sample",
 ]

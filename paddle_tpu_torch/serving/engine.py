@@ -36,6 +36,32 @@ Four knobs change how decode runs, never its tokens:
                        returns the previous launch's tokens, and
                        run() / has_work() / flush() drain the tail
 
+Three more change what a step computes, never its tokens:
+  enable_prefix_cache  full KV pages are refcounted and hash-indexed;
+                       admission maps the longest cached page-aligned
+                       prefix into the table (prefix_hit_tokens), and a
+                       write that would touch a shared page forks it
+                       first (cow_copies); the fork is an in-place copy
+                       on the current stream, ordered before the step
+                       that writes it
+  ragged_batch         a step with prefill chunks AND decode rows runs
+                       them in ONE runner.ragged_step call (one
+                       ragged-kernel launch a layer); a request whose
+                       prefill completes inside it decodes next step
+  num_speculative_tokens=k
+                       up to k draft tokens (n-gram prompt lookup, or a
+                       draft model: spec_draft_model) ride each decode
+                       row's span; the longest prefix the target model
+                       reproduces is accepted in one step and the
+                       rejected tail's pages roll back. A step with
+                       prefill chunks (or a batch outside the horizon
+                       sampler's envelope) verifies through one
+                       full-logits ragged_step; otherwise the drafts
+                       ride a device-resident horizon
+                       (runner.decode_multi_spec, a CUDA graph on the
+                       card) that accepts on the device, one drain per
+                       horizon (spec_fused_horizons)
+
 Sampling runs where the logits live, through the runner's
 `_sampled_rows`: the per-step path samples the [B, V] logits of a decode
 call on the device and drains the tokens with the greedy grid in one
@@ -53,10 +79,9 @@ Failure modes end requests instead of raising from step():
                   was quarantined, or NaN/Inf logits under nan_policy
                   "abort" (or with no finite entry at all)
 
-The JAX engine's other knobs (prefix cache, fused ragged batches,
-speculation, host tiers, roles, the detokenizer) are not ported yet:
-passing any of them with a value other than its default raises
-NotImplementedError naming its ROADMAP item.
+The JAX engine's other knobs (host tiers, roles, the detokenizer) are
+not ported yet: passing any of them with a value other than its default
+raises NotImplementedError naming its ROADMAP item.
 
 Where the port departs from the JAX engine: the pools are written in
 place, so an in-flight launch carries no snapshot of the pools it read
@@ -80,10 +105,15 @@ import torch
 
 from paddle_tpu_torch.serving.kv_cache import KVCachePool, SCRATCH_PAGE
 from paddle_tpu_torch.serving.metrics import EngineMetrics
-from paddle_tpu_torch.serving.model_runner import PagedModelRunner, runner_for
+from paddle_tpu_torch.serving.model_runner import (
+    PagedModelRunner, bucket_len, runner_for,
+)
 from paddle_tpu_torch.serving.resilience import QueueFullError, audit_engine
 from paddle_tpu_torch.serving.scheduler import (
     FCFSScheduler, Request, RequestState, SamplingParams,
+)
+from paddle_tpu_torch.serving.speculate import (
+    AdaptiveK, DraftModelProposer, NgramProposer, shadow_runner,
 )
 
 logger = logging.getLogger(__name__)
@@ -93,15 +123,6 @@ _ITEM = "ROADMAP.md 'Still to port' item "
 # the JAX engine's knobs this port does not carry yet: name -> (the
 # default that keeps the feature off, the ROADMAP item that ports it)
 UNPORTED_KNOBS = {
-    "enable_prefix_cache": (False, _ITEM + "5 (prefix cache)"),
-    "ragged_batch": (False, _ITEM + "6 (ragged_batch)"),
-    "num_speculative_tokens": (0, _ITEM + "7 part B (speculation)"),
-    "spec_max_ngram": (3, _ITEM + "7 part B (speculation)"),
-    "spec_min_ngram": (1, _ITEM + "7 part B (speculation)"),
-    "spec_adaptive_k": (False, _ITEM + "7 part B (speculation)"),
-    "spec_draft_model": (None, _ITEM + "7 part B (speculation)"),
-    "spec_draft_blocks": (None, _ITEM + "7 part B (speculation)"),
-    "spec_ngram_window": (None, _ITEM + "7 part B (speculation)"),
     "host_tier_pages": (0, _ITEM + "9 (host tier)"),
     "host_tier_headroom": (False, _ITEM + "9 (host tier)"),
     "pagein_prefetch": (2, _ITEM + "9 (host tier)"),
@@ -203,42 +224,53 @@ def greedy_grid(logits):
     return packed[0], packed[1].astype(bool)
 
 
-# one sampled group of a decode batch: (top_k, top_p, seeds [B], steps
-# [B], temps [B], slots)
+# one sampled group of a launch: (top_k, top_p, seeds [B], steps [B]
+# (or [B, T] for full-logits spans), temps [B], slots)
 SampleGroup = Tuple[Optional[int], Optional[float], np.ndarray, np.ndarray,
                     np.ndarray, List[int]]
 
 
 def token_grid(logits, groups: Sequence[SampleGroup] = ()):
-    """The device side of a decode drain, not yet drained: [2 + G, ...]
+    """The device side of a drain, not yet drained: [2 + G, B(, T)]
     int32 holding the argmax, the all-finite flags and, for each sampled
     group (one (top_k, top_p) each), every row's seeded sample of the
-    [B, V] logits through `_sampled_rows`."""
+    [B, V] (or [B, T, V] verify-span) logits through `_sampled_rows`,
+    position t of row b at step steps[b, t]."""
     planes = [logits.argmax(dim=-1).to(torch.int32),
               torch.isfinite(logits).all(dim=-1).to(torch.int32)]
     dev = logits.device
+    rows = logits.reshape(-1, logits.shape[-1])
     for top_k, top_p, seeds, steps, temps, _ in groups:
+        n = rows.shape[0] // seeds.shape[0]       # span positions per row
         planes.append(PagedModelRunner._sampled_rows(
-            logits, torch.from_numpy(seeds).to(dev),
-            torch.from_numpy(steps).to(dev), torch.from_numpy(temps).to(dev),
-            top_k, top_p).to(torch.int32))
+            rows, torch.from_numpy(np.repeat(seeds, n)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(steps).reshape(-1)).to(dev),
+            torch.from_numpy(np.repeat(temps, n)).to(dev),
+            top_k, top_p).reshape(logits.shape[:-1]).to(torch.int32))
     return torch.stack(planes)
 
 
 @dataclass
 class _InflightLaunch:
-    """One dispatched-but-undrained decode launch (the pipelined loop's
-    unit of deferred work). ``batch`` pins (request, slot) pairs as of
-    launch time; a member aborted or expired before the commit is skipped
-    at replay. The pools are written in place, so no snapshot of them
-    rides along (module docstring)."""
+    """One dispatched-but-undrained launch (the pipelined loop's unit of
+    deferred work). ``batch`` pins (request, slot) pairs as of launch
+    time; a member aborted or expired before the commit is skipped at
+    replay. The pools are written in place, so no snapshot of them rides
+    along (module docstring)."""
 
-    kind: str                    # "decode" | "decode_multi"
+    kind: str        # "decode" | "decode_multi" | "decode_spec" | "ragged"
     batch: list                  # [(Request, slot), ...] at launch
-    result: object               # the token grid, or packed [2|3, B, s]
+    result: object               # the token grid, or the packed buffer
     s: int = 1                   # horizon length (decode_multi)
-    logits: object = None        # decode: the [B, V] rows for a NaN rescue
-    groups: tuple = ()           # decode: the grid's sampled groups
+    logits: object = None        # decode / ragged: the rows for a rescue
+    groups: tuple = ()           # decode / ragged: the grid's groups
+    # ragged: (req, start, end, prop, slot) per span as of launch time
+    spans: Optional[list] = None
+    # decode_spec: the draft grid [B, s, K] for the commit-time replay
+    spec: Optional[dict] = None
+    # decode_spec: {id(req): funded upcoming tokens} (the auditor's
+    # over-provision credit)
+    upcoming: Optional[dict] = None
 
 
 class ServingEngine:
@@ -270,6 +302,22 @@ class ServingEngine:
                            device-resident decode horizons and the
                            pipelined loop (module docstring); defaults
                            1 / False keep the per-step loop
+      enable_prefix_cache, ragged_batch, num_speculative_tokens
+                           the shared-prefix page cache, fused ragged
+                           steps and speculative decoding (module
+                           docstring); off by default
+      spec_max_ngram / spec_min_ngram
+                           suffix n-gram lengths the draft proposer
+                           matches (longest first, most recent wins)
+      spec_ngram_window    bound of the stateless n-gram scan (None =
+                           unbounded)
+      spec_adaptive_k      per-request draft length from an EWMA of the
+                           acceptance rate, in [0, num_speculative_tokens]
+      spec_draft_model     None = n-gram prompt lookup; "shadow:fp32" = a
+                           shadow of the target runner proposing greedy
+                           chains from its own pool (spec_draft_blocks
+                           pages); or a runner instance. The quantized
+                           shadows raise naming ROADMAP.md item 8
     """
 
     def __init__(self, runner: PagedModelRunner, *, num_blocks: int,
@@ -283,10 +331,19 @@ class ServingEngine:
                  retry_backoff_s: float = 0.02,
                  nan_policy: str = "abort",
                  max_prefill_tokens_per_step: Optional[int] = None,
+                 enable_prefix_cache: bool = False,
+                 ragged_batch: bool = False,
                  decode_horizon: int = 1,
                  pipelined: bool = False,
                  horizon_sampling: bool = False,
                  horizon_early_stop: bool = False,
+                 num_speculative_tokens: int = 0,
+                 spec_max_ngram: int = 3,
+                 spec_min_ngram: int = 1,
+                 spec_adaptive_k: bool = False,
+                 spec_draft_model=None,
+                 spec_draft_blocks: Optional[int] = None,
+                 spec_ngram_window: Optional[int] = None,
                  sleep_fn: Optional[Callable[[float], None]] = None,
                  audit: Optional[bool] = None,
                  **unported):
@@ -326,6 +383,50 @@ class ServingEngine:
                                 runner.n_kv_heads, runner.head_dim,
                                 runner.dtype, device=runner.device,
                                 kv_dtype=self.kv_dtype)
+        self.enable_prefix_cache = bool(enable_prefix_cache)
+        if self.enable_prefix_cache:
+            self.pool.enable_prefix_cache()
+        self.ragged_batch = bool(ragged_batch)
+        if num_speculative_tokens < 0:
+            raise ValueError("num_speculative_tokens must be >= 0 (0 = "
+                             "speculation off)")
+        self.num_speculative_tokens = int(num_speculative_tokens)
+        self.spec_max_ngram = int(spec_max_ngram)
+        self.spec_min_ngram = int(spec_min_ngram)
+        self.spec_adaptive_k = bool(spec_adaptive_k)
+        self.spec_ngram_window = (int(spec_ngram_window)
+                                  if spec_ngram_window else None)
+        self.spec_draft_blocks = (int(spec_draft_blocks)
+                                  if spec_draft_blocks else None)
+        # the draft rung: None = n-gram prompt lookup, a "shadow[:dtype]"
+        # string, or a runner instance (recorded as "custom")
+        self.spec_draft_model = (spec_draft_model
+                                 if isinstance(spec_draft_model, str)
+                                 else None if spec_draft_model is None
+                                 else "custom")
+        self.proposer = None
+        if self.num_speculative_tokens:
+            if spec_draft_model is not None:
+                if isinstance(spec_draft_model, str):
+                    base, _, dt = spec_draft_model.partition(":")
+                    if base != "shadow":
+                        raise ValueError(
+                            f"spec_draft_model={spec_draft_model!r}; "
+                            "expected a runner instance or "
+                            "'shadow[:int8|int4|fp8|fp32]'")
+                    draft = shadow_runner(runner, dt or "int8")
+                else:
+                    draft = spec_draft_model
+                self.proposer = DraftModelProposer(
+                    draft, num_blocks=self.spec_draft_blocks,
+                    max_model_len=self.max_model_len)
+            else:
+                self.proposer = NgramProposer(
+                    self.spec_max_ngram, self.spec_min_ngram,
+                    scan_window=self.spec_ngram_window)
+        self.adaptive_k = (AdaptiveK(self.num_speculative_tokens)
+                           if self.num_speculative_tokens
+                           and self.spec_adaptive_k else None)
         self.max_pages_per_seq = self.pool.blocks_for_tokens(
             self.max_model_len)
         self.scheduler = FCFSScheduler(self.pool, max_batch_size,
@@ -438,6 +539,7 @@ class ServingEngine:
             self.scheduler.remove_waiting(req)
             req.state = RequestState.FINISHED
             req.finish_reason = reason
+        self._release_spec_state(req)
         req.finish_time = now
         if not counted:        # shed is pre-counted at the add_request gate
             counter = {"timeout": self.metrics.requests_timed_out,
@@ -531,11 +633,12 @@ class ServingEngine:
     # ------------------------------------------------------------- step
 
     def step(self) -> List[TokenEvent]:
-        """One engine iteration: expire deadlines, admit new requests,
-        (pipelined: commit the previous step's launch,) run this step's
-        prefill chunks under the token budget, reserve decode pages
-        (preempting if needed), then one batched decode step or one
-        device-resident horizon over the decode-phase requests. Returns
+        """One engine iteration: expire deadlines, admit new requests
+        (mapping cached prefixes), (pipelined: commit the previous step's
+        launch,) run this step's prefill chunks under the token budget,
+        reserve decode pages (preempting if needed), then one batched
+        decode step, one device-resident horizon, one fused ragged step
+        or one speculative launch over the decode-phase requests. Returns
         the tokens produced this step (pipelined: the previous launch's).
         Load- and fault-induced failures never escape: they end requests
         with an explicit finish_reason."""
@@ -549,7 +652,9 @@ class ServingEngine:
         self._expire_deadlines()
         # admitting against a state that predates the in-flight launch's
         # tokens is safe: its commit only frees pages and slots
-        self.scheduler.admit()
+        for req in self.scheduler.admit():
+            if req.admit_prefix_tokens:
+                self.metrics.prefix_hit_tokens.inc(req.admit_prefix_tokens)
         plan = self.scheduler.prefill_plan()
         t_plan = self.metrics.clock() - t0
         self.metrics.host_plan_seconds.inc(t_plan)
@@ -557,25 +662,47 @@ class ServingEngine:
             self.metrics.planned_ahead_steps.inc()
         if self.pipelined:
             # ---- COMMIT: drain and replay the previous step's launch;
-            # re-slice the plan after it (a commit can end a request)
+            # re-slice the plan after it (a committed fused launch
+            # advanced chunk coverage, and a commit can end a request)
             events.extend(self._commit_inflight())
             plan = self.scheduler.prefill_plan()
         # ---- EXECUTE
-        for req, start, end in plan:
-            ev = self._prefill_chunk_with_recovery(req, start, end)
-            if ev is not None:
-                events.append(ev)
-        # decode-page reservation; pool pressure preempts youngest-first
-        for _ in self.scheduler.reserve_decode():
-            self.metrics.preemptions.inc()
-        if self.scheduler.running:
-            s = self._plan_horizon(chunks_in_flight=bool(plan))
-            if s > 1:
-                events.extend(self._decode_multi_with_recovery(
-                    s, defer=self.pipelined))
-            else:
-                events.extend(self._decode_with_recovery(
+        fused = bool(self.ragged_batch and plan
+                     and self.scheduler.decode_ready())
+        if self.num_speculative_tokens > 0 and self.scheduler.decode_ready():
+            chunk_tokens = sum(end - start for _, start, end in plan)
+            if not plan and self._spec_horizon_ready():
+                # drafts ride the device-resident horizon: accept on the
+                # device, one drain per horizon, deferred like any horizon
+                self._reserve_decode()
+                events.extend(self._decode_spec_with_recovery(
                     defer=self.pipelined))
+            else:
+                # the per-step verify path: prefill chunks this step (fused
+                # into the launch under ragged_batch) or a batch outside
+                # the horizon sampler's envelope
+                if not fused:
+                    events.extend(self._run_chunks(plan))
+                self._reserve_decode()
+                proposals = self._plan_speculation(chunk_tokens)
+                events.extend(self._ragged_step_with_recovery(
+                    proposals, include_chunks=fused))
+        elif fused:
+            self._reserve_decode()
+            # the fused launch defers exactly like a decode launch
+            events.extend(self._ragged_step_with_recovery(
+                defer=self.pipelined))
+        else:
+            events.extend(self._run_chunks(plan))
+            self._reserve_decode()
+            if self.scheduler.running:
+                s = self._plan_horizon(chunks_in_flight=bool(plan))
+                if s > 1:
+                    events.extend(self._decode_multi_with_recovery(
+                        s, defer=self.pipelined))
+                else:
+                    events.extend(self._decode_with_recovery(
+                        defer=self.pipelined))
         self.metrics.decode_steps.inc()
 
         self.metrics.attn_kv_bytes_read.set(self.runner.attn_kv_bytes_read)
@@ -586,10 +713,39 @@ class ServingEngine:
         self.metrics.running.set(len(self.scheduler.running))
         self.metrics.pool_used_pages.set(a.num_usable - a.num_free)
         self.metrics.pool_utilization.set(self.pool.utilization())
+        if self.pool.prefix_cache is not None:
+            self.metrics.prefix_cached_pages.set(len(self.pool.prefix_cache))
         self.metrics.step_seconds.inc(self.metrics.clock() - t0)
         if self.audit:
             audit_engine(self)
         return events
+
+    def _run_chunks(self, plan) -> List[TokenEvent]:
+        """This step's prefill chunks, oldest first, each its own call."""
+        events = []
+        for req, start, end in plan:
+            ev = self._prefill_chunk_with_recovery(req, start, end)
+            if ev is not None:
+                events.append(ev)
+        return events
+
+    def _reserve_decode(self) -> None:
+        """Decode-page reservation; pool pressure preempts youngest-first."""
+        for _ in self.scheduler.reserve_decode():
+            self.metrics.preemptions.inc()
+
+    def _cow(self, req: Request, start: int, end: int) -> None:
+        """Fork every shared page a write over [start, end) would touch
+        (idempotent: a forked page is private when a call retries)."""
+        cow = req.kv.ensure_writable(start, end)
+        if cow:
+            self.metrics.cow_copies.inc(cow)
+
+    def _register(self, req: Request, tokens=None) -> None:
+        """Push the request's newly full pages into the prefix cache."""
+        if self.pool.prefix_cache is not None:
+            self.pool.prefix_cache.register_seq(
+                req.kv, req.context_tokens if tokens is None else tokens)
 
     def _prefill_chunk_with_recovery(self, req: Request, start: int,
                                      end: int) -> Optional[TokenEvent]:
@@ -599,6 +755,7 @@ class ServingEngine:
         quarantined (finish_reason="error"). The chunk that completes the
         context samples the request's next token and flips it into the
         decode phase."""
+        self._cow(req, start, end)
         table = self.pool.pad_table(req.kv.pages, self.max_pages_per_seq)
         chunk = req.context_tokens[start:end]
         delay = self.retry_backoff_s
@@ -620,6 +777,7 @@ class ServingEngine:
         req.kv.num_tokens = end
         self.metrics.prefill_tokens.inc(end - start)
         self.metrics.prefill_chunks.inc()
+        self._register(req)
         if end < req.num_context:
             return None              # intermediate chunk: logits unread
         tok = self._guarded_sample(logits, req)
@@ -663,6 +821,8 @@ class ServingEngine:
             batch = self.scheduler.decode_ready()
             if not batch:
                 return []
+            for req in batch:    # the fed token's write: never on a shared
+                self._cow(req, req.num_context - 1, req.num_context)
             slots = [(r, r.slot) for r in batch]
             groups = self._sample_groups(slots, self.max_batch_size)
             try:
@@ -712,6 +872,7 @@ class ServingEngine:
             if req.done:
                 continue
             req.kv.num_tokens = req.num_context
+            self._register(req)
             tok = self._resolve_token(req, am[sl], fin[sl],
                                       lambda s=sl: _rows()[s],
                                       sampled.get(sl))
@@ -719,6 +880,485 @@ class ServingEngine:
                 self._finish_abnormal(req, "error")
                 continue
             events.append(self._append_token(req, tok))
+        return events
+
+    # ----------------------------------------- fused ragged / speculation
+
+    def _release_spec_state(self, req: Request) -> None:
+        """Drop per-request proposer and adaptive-k state on every terminal
+        path: the n-gram suffix index, a draft model's KV pages and the
+        acceptance EWMA key on request_id and would leak otherwise."""
+        if self.num_speculative_tokens <= 0:
+            return
+        release = getattr(self.proposer, "release", None)
+        if release is not None:
+            release(req.request_id)
+        if self.adaptive_k is not None:
+            self.adaptive_k.release(req.request_id)
+
+    def _draft_len(self, req: Request) -> int:
+        """The request's draft length before its own caps."""
+        k = self.num_speculative_tokens
+        if self.adaptive_k is not None:
+            k = min(k, self.adaptive_k.k_for(req.request_id))
+        return k
+
+    def _plan_speculation(self, chunk_tokens: int
+                          ) -> Dict[Request, List[int]]:
+        """Draft proposals for this step's decode batch, capped in
+        admission order by the request's remaining tokens (the corrected
+        or bonus token always fits), the model-length headroom, the
+        step's leftover token budget (verify spans count against
+        max_prefill_tokens_per_step as chunks do) and best-effort page
+        reservation (a proposal shrinks instead of preempting)."""
+        budget = self.scheduler.speculation_budget(chunk_tokens)
+        proposals: Dict[Request, List[int]] = {}
+        for req in self.scheduler.decode_ready():      # admission order
+            k = self._draft_len(req)
+            k = min(k, req.sampling.max_tokens - len(req.output_tokens) - 1)
+            k = min(k, self.max_model_len - req.num_context)
+            if budget is not None:
+                k = min(k, budget)
+            if k <= 0:
+                continue
+            prop = self.proposer.propose(req.context_tokens, k,
+                                         request_id=req.request_id)
+            if not prop:
+                continue
+            if budget is not None:
+                budget -= len(prop)
+            proposals[req] = prop
+        self.scheduler.reserve_speculation(proposals)
+        return proposals
+
+    def _span_groups(self, spans, B: int, T: Optional[int] = None
+                     ) -> List[SampleGroup]:
+        """The sampled rows of a ragged launch. With full logits (``T``)
+        each group's steps become a [B, T] grid: a verify span's position
+        i draws at generated-token index o + i, a chunk's rows all at o
+        (only its last live row is read)."""
+        groups = self._sample_groups([(r, sl) for r, _, _, _, sl in spans],
+                                     B)
+        if T is None:
+            return groups
+        chunk_slots = [sl for _, _, _, prop, sl in spans if prop is None]
+        out = []
+        for top_k, top_p, seeds, steps, temps, slots in groups:
+            grid = steps[:, None] + np.arange(T)
+            grid[chunk_slots] = steps[chunk_slots, None]
+            out.append((top_k, top_p, seeds, grid, temps, slots))
+        return out
+
+    def _ragged_step_with_recovery(
+            self, proposals: Optional[Dict[Request, List[int]]] = None,
+            include_chunks: bool = True,
+            defer: bool = False) -> List[TokenEvent]:
+        """ONE mixed ragged runner call for this step: every planned
+        prefill chunk and every decode-phase request rides its slot as a
+        (start, q_len) span into runner.ragged_step, one ragged-kernel
+        launch a layer. With ``proposals`` each decode span stretches to
+        1 + k rows (the fed token plus its draft) and the call returns
+        full per-position logits for `_accept_verify`. The launch carries
+        its `token_grid` (argmax, finite flags, seeded samples at each
+        position's step index). Transient failures retry the whole call
+        (exact: forks happen before it, and a retry rewrites the same
+        K/V); exhausted retries quarantine the youngest spanning request
+        and rebuild. With ``defer`` (pipelined, no proposals) the launch
+        is left in flight; the commit replays the span bookkeeping and
+        the next plan is re-sliced after it, so no chunk runs twice."""
+        full = proposals is not None
+        attempts = 0
+        delay = self.retry_backoff_s
+        while True:
+            # rebuild from live scheduler state each attempt: reservation
+            # may have preempted, quarantine may have removed
+            spans = []
+            if include_chunks:
+                spans += [(req, start, end, None, req.slot)
+                          for req, start, end
+                          in self.scheduler.prefill_plan()]
+            for req in self.scheduler.decode_ready():
+                prop = proposals.get(req, []) if full else []
+                spans.append((req, req.num_context - 1,
+                              req.num_context + len(prop), prop, req.slot))
+            if not spans:
+                return []
+            B, P = self.max_batch_size, self.max_pages_per_seq
+            T = bucket_len(max(end - start for _, start, end, _, _ in spans))
+            tokens = np.zeros((B, T), np.int32)
+            starts = np.zeros((B,), np.int32)
+            qlens = np.zeros((B,), np.int32)
+            tables = np.full((B, P), SCRATCH_PAGE, np.int32)
+            for req, start, end, prop, sl in spans:
+                self._cow(req, start, end)
+                span_toks = (req.context_tokens[start:end] if prop is None
+                             else req.output_tokens[-1:] + list(prop))
+                tokens[sl, :end - start] = span_toks
+                starts[sl] = start
+                qlens[sl] = end - start
+                tables[sl, :len(req.kv.pages)] = req.kv.pages
+            groups = self._span_groups(spans, B, T if full else None)
+            try:
+                logits, new_pools = self.runner.ragged_step(
+                    tokens, tables, starts, qlens, self.pool.pools,
+                    full_logits=full)
+                grid = token_grid(logits, groups)
+                break
+            except Exception:
+                if attempts < self.max_step_retries:
+                    attempts += 1
+                    self.metrics.step_retries.inc()
+                    self._sleep(delay)
+                    delay *= 2
+                    continue
+                victim = max((r for r, *_ in spans),
+                             key=lambda r: r.admission_index)
+                logger.exception("ragged step failed; quarantining %s",
+                                 victim.request_id)
+                self._finish_abnormal(victim, "error")
+                attempts = 0
+                delay = self.retry_backoff_s
+        self.pool.pools = new_pools
+        self.metrics.batch_occupancy.observe(len(spans))
+        if defer and not full:
+            self._inflight = _InflightLaunch(
+                "ragged", [(r, sl) for r, _, _, _, sl in spans], grid, 1,
+                logits, tuple(groups), spans=spans)
+            return []
+        return self._finish_ragged(spans, logits, full,
+                                   self._drain_grid(grid, groups))
+
+    def _finish_ragged(self, spans, logits, full: bool, drained
+                       ) -> List[TokenEvent]:
+        """Resolve one drained fused ragged launch: chunk coverage
+        advances and prefix registration, completing-chunk and fused
+        decode tokens, verify-span acceptance. Shared by the synchronous
+        path and the pipelined commit; a span member that finished while
+        the launch was in flight is skipped."""
+        am, fin, sampled = drained
+        host: Dict[str, np.ndarray] = {}
+
+        def _rows() -> np.ndarray:
+            if "l" not in host:
+                host["l"] = self._timed_drain(lambda: _to_host(logits))
+                self.metrics.host_syncs.inc()
+            return host["l"]
+
+        events: List[TokenEvent] = []
+        for req, start, end, prop, sl in spans:
+            if req.done:
+                continue
+            if prop is None:                    # prefill chunk span
+                req.kv.num_tokens = end
+                self.metrics.prefill_tokens.inc(end - start)
+                self.metrics.prefill_chunks.inc()
+                self._register(req)
+                if end < req.num_context:
+                    continue
+                if full:                        # its last live row
+                    r = end - start - 1
+                    tok = self._resolve_token(
+                        req, am[sl, r], fin[sl, r],
+                        lambda sl=sl, r=r: _rows()[sl, r],
+                        sampled[sl][r] if sl in sampled else None)
+                else:
+                    tok = self._resolve_token(
+                        req, am[sl], fin[sl], lambda sl=sl: _rows()[sl],
+                        sampled.get(sl))
+                if tok is None:
+                    self._finish_abnormal(req, "error")
+                    continue
+                req.phase = "decode"
+                events.append(self._append_token(req, tok))
+            elif not full:                      # plain fused decode
+                req.kv.num_tokens = req.num_context
+                self._register(req)
+                tok = self._resolve_token(req, am[sl], fin[sl],
+                                          lambda sl=sl: _rows()[sl],
+                                          sampled.get(sl))
+                if tok is None:
+                    self._finish_abnormal(req, "error")
+                    continue
+                events.append(self._append_token(req, tok))
+            else:                               # verify span
+                self._accept_verify(
+                    req, prop, am[sl], fin[sl],
+                    lambda i, sl=sl: _rows()[sl, i], sampled.get(sl),
+                    events)
+        return events
+
+    def _accept_verify(self, req: Request, prop: List[int], row_am, row_fin,
+                       row_fn, row_sampled, events: List[TokenEvent]) -> None:
+        """Token-exact acceptance of one verify span. Position i scored
+        the token after context + prop[:i]; its target token is the
+        request's own (the argmax, or the seeded sample at generated-token
+        index o + i, ``row_sampled[i]``), so accepting means "the draft IS
+        the token the model would have emitted". The longest matching
+        draft prefix is accepted, then the first divergent position adds
+        its corrected token (or the bonus token after a full accept). The
+        rejected tail rolls back before any append can finish the
+        request: coverage truncates to the accepted prefix and the pages
+        grown only for the span are decref'd."""
+        k = len(prop)
+        o = len(req.output_tokens)
+        C = req.num_context
+        toks: List[int] = []
+        accepted = 0
+        aborted = False
+        for i in range(k + 1):
+            tok = self._resolve_token(
+                req, row_am[i], row_fin[i], lambda i=i: row_fn(i),
+                None if row_sampled is None else row_sampled[i])
+            if tok is None:
+                aborted = True
+                break
+            toks.append(tok)
+            matched = i < k and int(prop[i]) == tok
+            if matched:
+                accepted += 1
+            done = (tok in req.sampling.stop_token_ids
+                    or o + len(toks) >= req.sampling.max_tokens)
+            if done or not matched:
+                break
+        self.metrics.spec_proposed_tokens.inc(k)
+        self.metrics.spec_accepted_tokens.inc(accepted)
+        self.metrics.spec_dead_positions.inc(max(k - accepted, 0))
+        if self.adaptive_k is not None:
+            self.adaptive_k.update(req.request_id, k, accepted)
+        # positions C..C+accepted-1 hold accepted-draft KV; the rejected
+        # tail [C+accepted, C+k) rolls back, then register / append
+        dropped = req.kv.truncate(C + accepted)
+        if dropped:
+            self.metrics.spec_rollback_pages.inc(dropped)
+        self._register(req, req.context_tokens + toks[:accepted])
+        for t in toks:
+            events.append(self._append_token(req, t))
+            if req.done:
+                break
+        if aborted and not req.done:
+            self._finish_abnormal(req, "error")
+
+    def _spec_horizon_ready(self) -> bool:
+        """Whether this step's decode batch can ride drafts inside the
+        device-resident horizon: the horizon sampler's envelope (one
+        (top_k, top_p) per batch, seeds below 2**31 as in the JAX
+        package) and no request deferred by a mid-horizon NaN (the
+        per-step path fetches real logits to rescue from). No
+        decode_horizon >= 2 requirement: a fused span wins at s == 1
+        too (one drain resolves k + 1 tokens)."""
+        batch = self.scheduler.decode_ready()
+        if not batch:
+            return False
+        deferred = False
+        for r in batch:
+            if r.defer_horizon:
+                r.defer_horizon = False
+                deferred = True
+        if deferred:
+            return False
+        sampled = [r for r in batch if r.sampling.temperature != 0.0]
+        if sampled:
+            if not self.horizon_sampling:
+                return False
+            if len({(r.sampling.top_k, r.sampling.top_p)
+                    for r in sampled}) > 1:
+                return False
+            if any((r.sampling.seed if r.sampling.seed is not None
+                    else r.arrival_index) >= 2 ** 31 for r in sampled):
+                return False
+        return True
+
+    def _decode_spec_with_recovery(self, defer: bool = False
+                                   ) -> List[TokenEvent]:
+        """One fused speculative horizon: the batch's next ``s`` inner
+        steps each carry a per-row draft span (k drafts, -1-padded to the
+        batch's bucketed K) through runner.decode_multi_spec, which
+        accepts on the device and feeds the corrected or bonus token
+        back; the host drains ONE packed [3, B, s, K+1] buffer and
+        replays it through `_replay_spec_horizon`.
+
+        Drafts come from one proposer chain per row (s * (k+1) - 1
+        tokens, the continuation under full acceptance) sliced at (k+1)
+        strides. Pages are funded by scheduler.plan_spec_horizon (s
+        trimmed first, then per-row k, never preempting); the stop plane
+        is always on, which bounds kept tokens by `remaining` and makes
+        that funding a true worst case. Retries are exact (proposals and
+        acceptance are deterministic given the context); exhausted
+        retries quarantine the youngest request and rebuild. With
+        ``defer`` the launch stays in flight with its draft grid and the
+        per-row funded token counts (the auditor's credit)."""
+        batch = self.scheduler.decode_ready()
+        if not batch:
+            return []
+        # plan once: deterministic given request state, so a retry rebuilds
+        # the identical launch
+        rem = {r: self._row_remaining(r) for r in batch}
+        s = max(1, min(self.decode_horizon, max(rem.values())))
+        budget = self.scheduler.speculation_budget(0)
+        row_k: Dict[Request, int] = {}
+        chains: Dict[Request, List[int]] = {}
+        for req in batch:
+            k = min(self._draft_len(req), max(rem[req] - 1, 0))
+            if budget is not None:
+                k = min(k, budget)
+            chain: List[int] = []
+            if k > 0:
+                chain = list(self.proposer.propose_chain(
+                    req.context_tokens, s * (k + 1) - 1,
+                    request_id=req.request_id))
+                if not chain:
+                    k = 0
+            if k > 0 and budget is not None:
+                budget -= k
+            row_k[req] = k
+            chains[req] = chain
+        s = self.scheduler.plan_spec_horizon(s, row_k, rem)
+        kmax = max(row_k.values())
+        if kmax <= 0:
+            # every draft shrank away: ride the plain horizon machinery,
+            # re-planned (grow is incremental) for its overshoot rules
+            s = self._plan_horizon(False)
+            if s > 1:
+                return self._decode_multi_with_recovery(s, defer=defer)
+            return self._decode_with_recovery(defer=defer)
+        K = bucket_len(1 + kmax) - 1
+        wall = self.max_pages_per_seq * self.pool.block_size
+        upc = {r: max(1, min(s * (row_k[r] + 1), rem[r] + row_k[r],
+                             wall - r.kv.num_tokens))
+               for r in batch}
+        attempts = 0
+        delay = self.retry_backoff_s
+        while True:
+            batch = [r for r in self.scheduler.decode_ready() if r in row_k]
+            if not batch:
+                return []
+            B, P = self.max_batch_size, self.max_pages_per_seq
+            tokens = np.zeros((B,), np.int32)
+            tables = np.full((B, P), SCRATCH_PAGE, np.int32)
+            pos = np.zeros((B,), np.int32)
+            drafts = np.full((B, s, K), -1, np.int32)
+            sampling = any(r.sampling.temperature != 0.0 for r in batch)
+            seeds = np.zeros((B,), np.int64)
+            base = np.zeros((B,), np.int32)
+            temps = np.zeros((B,), np.float32)
+            top_k = top_p = None
+            S = max([1] + [len(r.sampling.stop_token_ids) for r in batch])
+            stop_ids = np.full((B, S), -1, np.int32)
+            remaining = np.ones((B,), np.int32)
+            for req in batch:
+                # every page the horizon may write is private before the
+                # launch (idempotent: forks survive a retry)
+                self._cow(req, req.num_context - 1,
+                          req.num_context - 1 + upc[req])
+                sl, sp = req.slot, req.sampling
+                tokens[sl] = req.output_tokens[-1]
+                tables[sl, :len(req.kv.pages)] = req.kv.pages
+                pos[sl] = req.num_context - 1
+                k, chain = row_k[req], chains[req]
+                for t in range(s):
+                    piece = chain[t * (k + 1):t * (k + 1) + k]
+                    if piece:
+                        drafts[sl, t, :len(piece)] = piece
+                seeds[sl] = (sp.seed if sp.seed is not None
+                             else req.arrival_index)
+                base[sl] = len(req.output_tokens)
+                temps[sl] = sp.temperature
+                if sp.temperature != 0.0:
+                    top_k, top_p = sp.top_k, sp.top_p
+                ids = tuple(sp.stop_token_ids)
+                stop_ids[sl, :len(ids)] = ids
+                remaining[sl] = rem[req]
+            kw: dict = dict(stop_ids=stop_ids, remaining=remaining)
+            if sampling:
+                kw.update(seeds=seeds, base_steps=base, temps=temps,
+                          top_k=top_k, top_p=top_p)
+            try:
+                packed, new_pools = self.runner.decode_multi_spec(
+                    tokens, tables, pos, self.pool.pools, drafts, **kw)
+                break
+            except Exception:
+                if attempts < self.max_step_retries:
+                    attempts += 1
+                    self.metrics.step_retries.inc()
+                    self._sleep(delay)
+                    delay *= 2
+                    continue
+                logger.exception("speculative horizon failed; quarantining "
+                                 "%s", batch[-1].request_id)
+                self._finish_abnormal(batch[-1], "error")
+                attempts = 0
+                delay = self.retry_backoff_s
+        self.pool.pools = new_pools
+        self.metrics.batch_occupancy.observe(len(batch))
+        self.metrics.decode_horizon_steps.inc(s)
+        self.metrics.spec_fused_horizons.inc()
+        slots = [(r, r.slot) for r in batch]
+        if defer:
+            self._inflight = _InflightLaunch(
+                "decode_spec", slots, packed, s, spec={"drafts": drafts},
+                upcoming={id(r): upc[r] for r in batch})
+            return []
+        drained = self._timed_drain(lambda: _to_host(packed))
+        self.metrics.host_syncs.inc()       # the horizon's ONE host sync
+        return self._replay_spec_horizon(slots, drained, drafts)
+
+    def _replay_spec_horizon(self, batch_slots, drained, drafts
+                             ) -> List[TokenEvent]:
+        """Replay one drained speculative horizon, [3, B, s, K+1]: per
+        inner step the span's emitted tokens, finite flags and the KEEP
+        plane (position 0 the fed token's emission, then the accepted
+        drafts' continuations, all gated by the row's live bit). Each
+        kept position gets `_accept_verify`'s bookkeeping (acceptance
+        counts, coverage and registration before the append, the stop and
+        length handling, the NaN policy through `_horizon_nan`), so
+        streams, finish reasons and spec_* metrics match the per-step
+        verify path. An unfinished row then truncates back to the
+        per-step invariant (num_tokens = num_context - 1), dropping the
+        pages grown for rejected or unreached positions. A member that
+        finished while the launch was in flight is skipped."""
+        toks, fins, keeps = drained[0], drained[1], drained[2]
+        s = toks.shape[1]
+        events: List[TokenEvent] = []
+        for req, sl in batch_slots:
+            if req.done:
+                continue
+            C = req.num_context
+            emitted = proposed = accepted = 0
+            halted = False
+            for t in range(s):
+                krow = keeps[sl, t]
+                if not krow[0]:
+                    break          # row froze on the device: tail is dead
+                row_draft = drafts[sl, t]
+                ndraft = int(np.sum(row_draft >= 0))
+                proposed += ndraft
+                m = int(np.sum(krow != 0))
+                for i in range(m):
+                    if not fins[sl, t, i]:
+                        self._horizon_nan(req, C, emitted)
+                        halted = True
+                        break
+                    tok = int(toks[sl, t, i])
+                    if i < ndraft and int(row_draft[i]) == tok:
+                        accepted += 1
+                    req.kv.num_tokens = C + emitted
+                    self._register(req)
+                    events.append(self._append_token(req, tok))
+                    emitted += 1
+                    if req.done:
+                        halted = True
+                        break
+                if halted:
+                    break
+            self.metrics.spec_proposed_tokens.inc(proposed)
+            self.metrics.spec_accepted_tokens.inc(accepted)
+            self.metrics.spec_dead_positions.inc(max(proposed - accepted, 0))
+            if self.adaptive_k is not None:
+                self.adaptive_k.update(req.request_id, proposed, accepted)
+            if not req.done and emitted > 0:
+                dropped = req.kv.truncate(C + emitted - 1)
+                if dropped:
+                    self.metrics.spec_rollback_pages.inc(dropped)
         return events
 
     # ------------------------------------------- multi-step decode (s>1)
@@ -821,6 +1461,12 @@ class ServingEngine:
             batch = self.scheduler.decode_ready()
             if not batch:
                 return []
+            for req in batch:
+                # every page the horizon writes must be private before the
+                # launch; early-stop rows freeze past their own budget
+                w = s if not self.horizon_early_stop else \
+                    min(s, self._row_remaining(req))
+                self._cow(req, req.num_context - 1, req.num_context - 1 + w)
             ctx = self._horizon_ctx(batch, s)
             try:
                 packed, new_pools = self.runner.decode_multi(
@@ -873,6 +1519,7 @@ class ServingEngine:
                     self._horizon_nan(req, C, accepted)
                     break
                 req.kv.num_tokens = C + j
+                self._register(req)
                 events.append(self._append_token(req, int(toks[sl, j])))
                 accepted += 1
                 if req.done:
@@ -914,11 +1561,23 @@ class ServingEngine:
             self._sleep(self.retry_backoff_s)
             if inf.kind == "decode":
                 return self._decode_with_recovery()
+            if inf.kind == "ragged":
+                # chunk coverage never advanced (that happens at commit),
+                # so the rebuilt spans recompute the same chunks and feeds
+                return self._ragged_step_with_recovery()
+            if inf.kind == "decode_spec":
+                return self._decode_spec_with_recovery()
             return self._decode_multi_with_recovery(inf.s)
         self.metrics.host_syncs.inc()
         if inf.kind == "decode":
             return self._finish_decode(inf.batch, inf.logits,
                                        self._split_grid(drained, inf.groups))
+        if inf.kind == "ragged":
+            return self._finish_ragged(inf.spans, inf.logits, False,
+                                       self._split_grid(drained, inf.groups))
+        if inf.kind == "decode_spec":
+            return self._replay_spec_horizon(inf.batch, drained,
+                                             inf.spec["drafts"])
         return self._replay_horizon(inf.batch, drained, inf.s)
 
     def flush(self) -> List[TokenEvent]:
@@ -941,6 +1600,7 @@ class ServingEngine:
         if reason is not None:
             req.finish_time = now
             self.scheduler.finish(req, reason)
+            self._release_spec_state(req)
             self.metrics.requests_finished.inc()
             self.metrics.e2e_latency_s.observe(now - req.arrival_time)
             self._outputs[req.request_id] = RequestOutput(
@@ -967,6 +1627,15 @@ class ServingEngine:
 
     def outputs(self) -> Dict[str, RequestOutput]:
         return dict(self._outputs)
+
+    def release_prefix_cache(self) -> int:
+        """Drop the prefix cache's index and its page references:
+        cached-free pages return to the free list, pages still mapped by
+        running sequences stay live. Returns the pages released. After a
+        drain plus this call, check_no_leaks() holds again."""
+        if self.pool.prefix_cache is None:
+            return 0
+        return self.pool.prefix_cache.clear()
 
 
 def naive_generate(runner: PagedModelRunner, prompt_tokens: Sequence[int],
@@ -1005,19 +1674,34 @@ def naive_generate(runner: PagedModelRunner, prompt_tokens: Sequence[int],
 def create_engine(model, *, num_blocks: int = 128, block_size: int = 16,
                   max_batch_size: int = 8,
                   max_model_len: Optional[int] = None,
-                  attn_impl: str = "auto", device="cuda", mesh=None,
+                  attn_impl: str = "auto", mesh=None,
+                  data_axis: str = "data", model_axis: str = "model",
                   kv_dtype: str = "fp32", weight_dtype: str = "fp32",
+                  weight_group_size: int = 128,
+                  comm_dtype: str = "fp32", device="cuda",
                   **engine_kw) -> ServingEngine:
     """Build a ServingEngine for a supported model (Llama or GPT) on
-    ``device`` (default "cuda"; pass "cpu" for the plain versions)."""
+    ``device`` (default "cuda"; pass "cpu" for the plain versions). The
+    parameters are the JAX package's, in its order, ``device`` after
+    them. Without a mesh ``data_axis`` and ``model_axis`` are ignored, as
+    JAX ignores them, and ``comm_dtype`` other than "fp32" is an error of
+    the call (ValueError, as in JAX: the quantized collective needs a
+    mesh); a mesh (tensor-parallel serving) raises naming ROADMAP.md item
+    10; ``weight_group_size`` goes to the runner."""
+    if comm_dtype != "fp32" and mesh is None:
+        raise ValueError(
+            f"comm_dtype={comm_dtype!r} needs a tensor-parallel mesh: the "
+            "quantized collective replaces the row-parallel allreduce, "
+            "which only exists at tp > 1")
     if mesh is not None:
         raise NotImplementedError(
-            "mesh= (tensor-parallel serving) is not ported yet: "
+            f"mesh= (tensor-parallel serving over axes {data_axis!r} / "
+            f"{model_axis!r}, comm_dtype={comm_dtype!r}) is not ported yet: "
             + _ITEM + "10 (TP)")
     runner = runner_for(model, block_size=block_size,
                         max_model_len=max_model_len, attn_impl=attn_impl,
                         kv_dtype=kv_dtype, weight_dtype=weight_dtype,
-                        device=device)
+                        weight_group_size=weight_group_size, device=device)
     return ServingEngine(runner, num_blocks=num_blocks,
                          block_size=block_size,
                          max_batch_size=max_batch_size,

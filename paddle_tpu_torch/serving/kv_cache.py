@@ -17,15 +17,24 @@ The pools live on the engine's device and are written IN PLACE by the
 runner (the JAX package threads them functionally); see model_runner.
 The fp8 casts apply ml_dtypes' overflow rule on every device (|x| > 464
 and +-inf become NaN), where torch's own cast saturates to +-448.
-Not ported yet (ROADMAP.md 'Still to port'): the prefix cache with
-copy-on-write (item 5), the "mixed" pool with per-request tags (item 8),
-the host tier (item 9) and mesh-sharded pools (item 10).
+
+The shared-prefix page cache (`PrefixCache`, `KVCachePool.
+enable_prefix_cache`): full pages are keyed by a content-chain hash
+(`page_content_hash`), refcounted, mapped into a new sequence's table at
+admission, and forked before any write (`SequenceKV.ensure_writable`,
+`KVCachePool.copy_page`). A fork copies in place on the current stream,
+the stream the runner's steps and graph replays run on, so it is ordered
+before the write that follows it.
+
+Not ported yet (ROADMAP.md 'Still to port'): the "mixed" pool with
+per-request tags (item 8), the host tier (item 9) and mesh-sharded pools
+(item 10).
 """
 
 from __future__ import annotations
 
 from bisect import insort
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -136,14 +145,30 @@ def quantized_page_write(codes, scales, write_page, write_off, x):
     return codes, scales
 
 
+# seed of the per-page content hash chain: the chain makes page i's key
+# depend on every token in pages 0..i, so equal hash == equal token prefix
+_CHAIN_SEED = 0x5EED
+
+
+def page_content_hash(prev_hash: int, page_tokens: Sequence[int]) -> int:
+    """Hash key of one FULL page given its tokens and the previous page's
+    chain hash. Tuple-of-int hashing is deterministic in CPython (ints
+    hash to themselves), so equal prefixes always collide on purpose."""
+    return hash((prev_hash,) + tuple(int(t) for t in page_tokens))
+
+
 class BlockAllocator:
     """Deterministic refcounted free-list page allocator.
 
     Pages are handed out lowest-id-first (sorted free list) so a given
     request trace always produces the same block tables. Page 0 (scratch)
-    is never allocatable. `alloc` hands a page out at refcount 1; `free`
-    is decref-each, and a page returns to the free list when its count
-    hits zero. Over-release raises (the double-free guard)."""
+    is never allocatable. `alloc` hands a page out at refcount 1; a page
+    shared through the prefix cache is `incref`ed per extra user (the
+    cache holds one reference per registered page); `free` is decref-each,
+    and a page returns to the free list when its count hits zero.
+    Over-release raises (the double-free guard). Pages only the cache
+    still holds are evictable (`num_evictable`): `alloc` reclaims them,
+    least recently used first, when the free list runs short."""
 
     def __init__(self, num_blocks: int):
         if num_blocks < 2:
@@ -151,6 +176,7 @@ class BlockAllocator:
         self.num_blocks = num_blocks
         self._free = list(range(1, num_blocks))  # ascending
         self._ref: Dict[int, int] = {}           # page -> refcount (>= 1)
+        self.evictor: Optional["PrefixCache"] = None
 
     @property
     def num_free(self) -> int:
@@ -162,6 +188,12 @@ class BlockAllocator:
         return self.num_blocks - 1
 
     @property
+    def num_evictable(self) -> int:
+        """Cached pages only the prefix cache still references: they can
+        be reclaimed on demand, so admission treats them as free."""
+        return self.evictor.evictable_count() if self.evictor else 0
+
+    @property
     def allocated_pages(self) -> frozenset:
         """Read-only view of the live pages (resilience.audit_engine)."""
         return frozenset(self._ref)
@@ -170,9 +202,11 @@ class BlockAllocator:
         return self._ref.get(page, 0)
 
     def can_alloc(self, n: int) -> bool:
-        return n <= len(self._free)
+        return n <= len(self._free) + self.num_evictable
 
     def alloc(self, n: int) -> List[int]:
+        if n > len(self._free) and self.evictor is not None:
+            self.evictor.evict(n - len(self._free))
         if n > len(self._free):
             raise MemoryError(
                 f"KV pool exhausted: need {n} pages, {len(self._free)} free")
@@ -180,6 +214,12 @@ class BlockAllocator:
         for p in pages:
             self._ref[p] = 1
         return pages
+
+    def incref(self, page: int) -> int:
+        if page not in self._ref:
+            raise ValueError(f"incref of unallocated page {page}")
+        self._ref[page] += 1
+        return self._ref[page]
 
     def decref(self, page: int) -> int:
         if page not in self._ref:
@@ -197,6 +237,159 @@ class BlockAllocator:
 
     def check_no_leaks(self) -> bool:
         return not self._ref and len(self._free) == self.num_usable
+
+
+class PrefixCache:
+    """Hash-indexed cache of FULL, immutable KV pages.
+
+    Keys are content-chain hashes: page i of a sequence is keyed by
+    hash(chain(pages 0..i-1), tokens of page i), so a hit on page i
+    certifies the entire token prefix matches (the automatic prefix
+    caching contract of vLLM and SGLang, at page granularity).
+
+    The cache holds ONE allocator reference per registered page, so a
+    registered page survives its owning sequence at refcount 1 ("cached
+    free"). Those pages are evictable in LRU order (a logical tick, never
+    wall time) when the allocator runs dry; acquiring a page for a new
+    match increfs it back above 1, which pins it. Cached content is never
+    written: any page with refcount > 1 is forked before a write
+    (`SequenceKV.ensure_writable`). The JAX package's host-tier parts
+    (`evict_hook`, demoted-prefix matches) wait for ROADMAP.md item 9."""
+
+    def __init__(self, pool: "KVCachePool"):
+        self.pool = pool
+        self.block_size = pool.block_size
+        self._index: Dict[int, int] = {}        # chain hash -> page id
+        self._page_hash: Dict[int, int] = {}    # page id -> chain hash
+        self._page_tick: Dict[int, int] = {}    # page id -> last-use tick
+        self._tick = 0
+        self.hit_pages = 0
+        self.miss_pages = 0
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        return len(self._index)
+
+    def pages(self) -> frozenset:
+        return frozenset(self._page_hash)
+
+    def _touch(self, page: int) -> None:
+        self._tick += 1
+        self._page_tick[page] = self._tick
+
+    # ---------------------------------------------------------- matching
+
+    def match(self, tokens: Sequence[int],
+              tag: Optional[str] = None) -> List[Tuple[int, int]]:
+        """Longest cached page-aligned prefix of ``tokens``, as (chain
+        hash, page) pairs. Capped STRICTLY below len(tokens): at least one
+        token is always left to compute, so admission always produces the
+        logits it samples from. ``tag`` seeds the chain (`chain_seed`)."""
+        limit = (len(tokens) - 1) // self.block_size
+        out: List[Tuple[int, int]] = []
+        prev = self.pool.chain_seed(tag)
+        for i in range(limit):
+            h = page_content_hash(
+                prev, tokens[i * self.block_size:(i + 1) * self.block_size])
+            page = self._index.get(h)
+            if page is None:
+                self.miss_pages += 1
+                break
+            out.append((h, page))
+            prev = h
+        self.hit_pages += len(out)
+        return out
+
+    def match_tiered(self, tokens: Sequence[int], tag: Optional[str] = None
+                     ) -> Tuple[List[Tuple[int, int]], List[int]]:
+        """`match` and the host tier's demoted pages after it; the host
+        tier is ROADMAP.md item 9, so its part is always empty."""
+        return self.match(tokens, tag), []
+
+    def acquire(self, matched: List[Tuple[int, int]]) -> None:
+        """Pin a match for a sequence: one incref per page and an LRU
+        touch. Runs before any further allocation, so eviction cannot
+        reclaim the matched pages out from under the admission."""
+        for _, page in matched:
+            self.pool.allocator.incref(page)
+            self._touch(page)
+
+    def unacquire(self, matched: List[Tuple[int, int]]) -> None:
+        """Roll `acquire` back (admission did not take the seat)."""
+        for _, page in matched:
+            self.pool.allocator.decref(page)
+
+    # ------------------------------------------------------ registration
+
+    def register_seq(self, kv: "SequenceKV", tokens: Sequence[int]) -> int:
+        """Register every newly FULL page of ``kv`` (tokens = the owning
+        request's context). A page whose hash is already cached is skipped
+        (first writer wins; the duplicate stays private to its sequence).
+        Returns the number of pages the sequence's chain advanced by."""
+        full = kv.num_tokens // self.block_size
+        added = 0
+        while kv.registered_pages < full:
+            i = kv.registered_pages
+            prev = (kv.hash_chain[i - 1] if i
+                    else self.pool.chain_seed(kv.kv_tag))
+            h = page_content_hash(
+                prev, tokens[i * self.block_size:(i + 1) * self.block_size])
+            page = kv.pages[i]
+            if h not in self._index:
+                self._index[h] = page
+                self._page_hash[page] = h
+                self.pool.allocator.incref(page)   # the cache's own ref
+                self._touch(page)
+            kv.hash_chain.append(h)
+            kv.registered_pages += 1
+            added += 1
+        return added
+
+    def register_page(self, page: int, h: int) -> bool:
+        """Index an already-written page under its chain hash, first
+        writer wins as in `register_seq`. Returns False if the hash is
+        already indexed (the page then stays private)."""
+        if h in self._index:
+            return False
+        self._index[h] = page
+        self._page_hash[page] = h
+        self.pool.allocator.incref(page)
+        self._touch(page)
+        return True
+
+    # ---------------------------------------------------------- eviction
+
+    def evictable_count(self) -> int:
+        alloc = self.pool.allocator
+        return sum(1 for p in self._page_hash if alloc.refcount(p) == 1)
+
+    def evict(self, n: int) -> int:
+        """Reclaim up to n cached-free pages (refcount 1: only the cache
+        holds them), least recently used first."""
+        alloc = self.pool.allocator
+        victims = sorted((p for p in self._page_hash
+                          if alloc.refcount(p) == 1),
+                         key=lambda p: self._page_tick[p])[:n]
+        for page in victims:
+            self._unregister(page)
+            alloc.decref(page)         # rc 1 -> 0: back to the free list
+            self.evictions += 1
+        return len(victims)
+
+    def _unregister(self, page: int) -> None:
+        h = self._page_hash.pop(page)
+        del self._index[h]
+        del self._page_tick[page]
+
+    def clear(self) -> int:
+        """Drop the whole index and the cache's references: cached-free
+        pages return to the free list, pages still mapped by running
+        sequences stay live. Returns the number of pages dropped."""
+        pages = list(self._page_hash)
+        for page in pages:
+            self._unregister(page)
+            self.pool.allocator.decref(page)
+        return len(pages)
 
 
 def check_kv_dtype(kv_dtype: str, context: str) -> None:
@@ -251,6 +444,7 @@ class KVCachePool:
         self.model_axis = model_axis
         self.device = resolve_device(device)
         self.allocator = BlockAllocator(num_blocks)
+        self.prefix_cache: Optional[PrefixCache] = None
         shape = (num_blocks, block_size, n_kv_heads, head_dim)
 
         def zeros(shp, dt):
@@ -266,6 +460,37 @@ class KVCachePool:
             store = torch.float8_e4m3fn if kv_dtype == "fp8" else dtype
             self.pools = [(zeros(shape, store), zeros(shape, store))
                           for _ in range(num_layers)]
+
+    def native_kv_tag(self) -> str:
+        """The kv_dtype tag of every sequence: the pool's own rung (the
+        "mixed" pool with per-request tags is ROADMAP.md item 8)."""
+        return self.kv_dtype
+
+    def chain_seed(self, tag: Optional[str]) -> int:
+        """Prefix-chain seed of a kv-dtype tag: the native tag keeps the
+        fixed seed, any other tag folds itself in, so pages of two
+        precisions never share a chain (the JAX package's rule)."""
+        if tag is None or tag == self.native_kv_tag():
+            return _CHAIN_SEED
+        return hash((_CHAIN_SEED, tag))
+
+    def enable_prefix_cache(self) -> PrefixCache:
+        """Turn on shared-prefix page caching (idempotent)."""
+        if self.prefix_cache is None:
+            self.prefix_cache = PrefixCache(self)
+            self.allocator.evictor = self.prefix_cache
+        return self.prefix_cache
+
+    def copy_page(self, src: int, dst: int) -> None:
+        """Copy page ``src`` into page ``dst`` across every layer's pools,
+        IN PLACE on the current stream: the data move behind a
+        copy-on-write fork. Pages move as opaque bytes, so on an int8
+        pool the scale rows ([num_blocks, n_kv], page-indexed like the
+        codes) travel with the codes."""
+        for layer in self.pools:
+            for t in layer:
+                v = t.view(torch.uint8)
+                v[dst].copy_(v[src])
 
     def blocks_for_tokens(self, n_tokens: int) -> int:
         """Pages needed to hold n_tokens KV entries."""
@@ -314,17 +539,36 @@ class SequenceKV:
     """Host-side per-sequence cache state: the owned pages and how many
     token positions are live. Appending crosses page boundaries lazily —
     `pages_short()` reports the deficit the scheduler must fund (or
-    preempt to fund) before the next decode step."""
+    preempt to fund) before the next decode step.
+
+    With the prefix cache on, the leading pages may be SHARED (mapped from
+    the cache at admission); `registered_pages` / `hash_chain` track how
+    far this sequence's full pages have been pushed into the cache, and
+    `ensure_writable` forks any shared page before a write lands on it.
+    ``kv_tag`` is the JAX per-sequence kv-dtype tag: the pool's own rung
+    only (other tags belong to the mixed pool, ROADMAP.md item 8)."""
 
     def __init__(self, pool: KVCachePool, kv_tag: Optional[str] = None):
-        if kv_tag is not None:
+        if kv_tag is not None and kv_tag != pool.native_kv_tag():
             raise NotImplementedError(
                 f"SequenceKV(kv_tag={kv_tag!r}): per-sequence kv-dtype tags "
                 "belong to the mixed pool, ROADMAP.md 'Still to port' item 8 "
                 "(quantized serving)")
         self.pool = pool
+        self.kv_tag = kv_tag or pool.native_kv_tag()
         self.pages: List[int] = []
         self.num_tokens = 0
+        self.registered_pages = 0          # leading pages already cached
+        self.hash_chain: List[int] = []    # chain hash per registered page
+
+    def adopt_prefix(self, matched: List[Tuple[int, int]],
+                     block_size: int) -> None:
+        """Map an ALREADY-ACQUIRED PrefixCache match as this sequence's
+        leading pages: their KV is live, so prefill starts after them."""
+        self.pages = [page for _, page in matched]
+        self.hash_chain = [h for h, _ in matched]
+        self.registered_pages = len(matched)
+        self.num_tokens = len(matched) * block_size
 
     def pages_short(self, upcoming_tokens: int = 1) -> int:
         need = self.pool.blocks_for_tokens(self.num_tokens + upcoming_tokens)
@@ -337,11 +581,18 @@ class SequenceKV:
 
     def truncate(self, num_tokens: int) -> int:
         """Roll back over-committed tail pages: keep the pages covering
-        ``num_tokens`` live positions and free the rest (a decode horizon's
-        pre-committed pages, when non-finite logits cut it short). The
-        dropped pages were grown for the horizon and never shared, so they
-        go straight back to the free list. Returns the pages dropped."""
+        ``num_tokens`` live positions and decref the rest. A verify span's
+        rejected tail and a decode horizon's pre-committed pages come back
+        here; both were grown for the span and never registered or
+        shared, so they go straight back to the free list. Refuses to drop
+        a registered page (cached pages cannot be speculative). Returns
+        the pages dropped."""
         keep = self.pool.blocks_for_tokens(max(num_tokens, 1))
+        if keep < self.registered_pages:
+            raise ValueError(
+                f"truncate({num_tokens}) would drop registered page "
+                f"{keep} < {self.registered_pages}: cached pages cannot be "
+                "speculative")
         dropped = self.pages[keep:]
         if dropped:
             del self.pages[keep:]
@@ -349,8 +600,37 @@ class SequenceKV:
         self.num_tokens = num_tokens
         return len(dropped)
 
+    def ensure_writable(self, start_tok: int, end_tok: int) -> int:
+        """Copy-on-write guard for a write covering token positions
+        [start_tok, end_tok): every touched page with refcount > 1 (shared
+        with another sequence or held by the prefix cache) is forked: a
+        fresh page, its K/V (and int8 scale rows) copied in place on the
+        current stream, the table entry swapped, the old reference
+        dropped. Returns the number of pages forked."""
+        if end_tok <= start_tok:
+            return 0
+        alloc = self.pool.allocator
+        bs = self.pool.block_size
+        forked = 0
+        for idx in range(start_tok // bs, (end_tok - 1) // bs + 1):
+            page = self.pages[idx]
+            if alloc.refcount(page) > 1:
+                new = alloc.alloc(1)[0]
+                self.pool.copy_page(page, new)
+                alloc.decref(page)
+                self.pages[idx] = new
+                # the fork is private and will diverge: it leaves this
+                # sequence's registered chain
+                if idx < self.registered_pages:
+                    self.registered_pages = idx
+                    del self.hash_chain[idx:]
+                forked += 1
+        return forked
+
     def release(self) -> None:
         if self.pages:
             self.pool.allocator.free(self.pages)   # decref each
         self.pages = []
         self.num_tokens = 0
+        self.registered_pages = 0
+        self.hash_chain = []

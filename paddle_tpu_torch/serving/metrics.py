@@ -97,9 +97,22 @@ class EngineMetrics:
         self.nan_logit_events = Counter("nan_logit_events")
         self.shed_requests = Counter("shed_requests")
         self.tokens_generated = Counter("tokens_generated")
-        # tokens actually COMPUTED by prefill chunks
+        # tokens actually COMPUTED by prefill chunks; prefix-cache hits
+        # skip the compute and land in prefix_hit_tokens instead, so
+        # computed + hit = the contexts admitted
         self.prefill_tokens = Counter("prefill_tokens")
         self.prefill_chunks = Counter("prefill_chunks")
+        self.prefix_hit_tokens = Counter("prefix_hit_tokens")
+        self.cow_copies = Counter("cow_copies")
+        # speculative decoding: draft tokens proposed into verify spans,
+        # the ones the target model accepted, the pages rejected tails
+        # returned, the fused speculative horizons (one drain each) and
+        # the proposed-but-rejected verify positions
+        self.spec_proposed_tokens = Counter("spec_proposed_tokens")
+        self.spec_accepted_tokens = Counter("spec_accepted_tokens")
+        self.spec_rollback_pages = Counter("spec_rollback_pages")
+        self.spec_fused_horizons = Counter("spec_fused_horizons")
+        self.spec_dead_positions = Counter("spec_dead_positions")
         # every blocking device->host drain the engine performs
         self.host_syncs = Counter("host_syncs")
         # decode steps run inside device-resident horizons, and the tokens
@@ -128,6 +141,8 @@ class EngineMetrics:
         self.kv_bytes_reduction_x = Gauge("kv_bytes_reduction_x")
         self.sessions_per_pool_x = Gauge("sessions_per_pool_x")
         self.pool_used_pages = Gauge("pool_used_pages")
+        # pages the prefix cache's index holds after each step
+        self.prefix_cached_pages = Gauge("prefix_cached_pages")
         self.pool_utilization = Gauge("pool_utilization")
         self.batch_occupancy = Histogram("batch_occupancy")
         self.ttft_s = Histogram("ttft_s")
@@ -152,9 +167,20 @@ class EngineMetrics:
         dt = self.busy_seconds
         return self.tokens_generated.value / dt if dt > 0 else 0.0
 
+    def spec_acceptance_rate(self) -> float:
+        """Accepted / proposed draft tokens (0.0 when nothing proposed)."""
+        p = self.spec_proposed_tokens.value
+        return self.spec_accepted_tokens.value / p if p > 0 else 0.0
+
     def host_syncs_per_token(self) -> float:
         t = self.tokens_generated.value
         return self.host_syncs.value / t if t > 0 else 0.0
+
+    def steps_per_token(self) -> float:
+        """Engine steps per generated token: each accepted draft token is
+        a token that paid no engine step of its own."""
+        t = self.tokens_generated.value
+        return self.decode_steps.value / t if t > 0 else 0.0
 
     def snapshot(self) -> Dict[str, float]:
         snap = {name: inst.value for name, inst in vars(self).items()
@@ -168,6 +194,8 @@ class EngineMetrics:
             "ttft_s_mean": self.ttft_s.mean,
             "e2e_latency_s_p50": self.e2e_latency_s.percentile(50),
             "e2e_latency_s_p99": self.e2e_latency_s.percentile(99),
+            "spec_acceptance_rate": self.spec_acceptance_rate(),
+            "steps_per_token": self.steps_per_token(),
             "host_syncs_per_token": self.host_syncs_per_token(),
             "tokens_per_sec": self.tokens_per_sec(),
             "busy_seconds": self.busy_seconds,

@@ -10,12 +10,23 @@ calls over the shared page pool:
   decode(tokens[B], tables[B, P], pos[B], pools)     -> (logits[B, V], pools)
   decode_multi(tokens, tables, pos, pools, s, ...)   -> (packed[2|3, B, s],
                                                          pools)
+  decode_multi_spec(tokens, tables, pos, pools, drafts[B, s, K], ...)
+                                                     -> (packed[3, B, s,
+                                                         K+1], pools)
+  ragged_step(tokens[B, T], tables, start_pos[B], q_lens[B], pools,
+              full_logits=False)                     -> (logits[B, V] or
+                                                         [B, T, V], pools)
 
 `decode_multi` is the device-resident horizon: s decode steps in one
 call, each step's token (the argmax, or a seeded sample with
 ``horizon_sampling``) fed back on the device, drained by the engine as
 one packed int32 buffer. Each inner step is `decode`'s body: the same
-`_forward`, `paged_attend` and kernels.
+`_forward`, `paged_attend` and kernels. `ragged_step` is one mixed
+batch: prefill chunks at an offset, decode rows, verify spans of 1 + k
+rows and dead slots (q_len 0) in one forward, so one ragged-kernel
+launch a layer. `decode_multi_spec` is the speculative horizon: each
+inner step feeds every row its fed token plus a draft span, accepts on
+the device and advances each row by its kept count.
 
 Every step writes this step's K/V through the block table, then attends
 through one of three paths chosen per span bucket by `_attn_impl_for`:
@@ -41,17 +52,19 @@ Where the port departs from the JAX package:
     re-derives the same scales and codes), so retries stay idempotent;
   * dispatch: the JAX package's shape-keyed jit cache (`_jitted`)
     becomes `_graphed`, a cache of captured CUDA graphs of the decode
-    kinds ("decode", "decode_multi", "decode_multi_x"), keyed by the
-    jit key plus the pools' addresses (a graph writes the pools it was
-    captured on). Host operands go through pinned staging buffers into
-    the graph's static inputs before each replay; the output buffer is
-    the graph's own, so a caller drains it before the same graph
-    replays again. Prefill chunks run eagerly. On CPU tensors (or with
+    kinds ("decode", "decode_multi", "decode_multi_x",
+    "decode_multi_spec"), keyed by the jit key plus the pools' addresses
+    (a graph writes the pools it was captured on). Host operands go
+    through pinned staging buffers into the graph's static inputs before
+    each replay; the output buffer is the graph's own, so a caller drains
+    it before the same graph replays again. Prefill chunks and ragged
+    steps run eagerly. On CPU tensors (or with
     ``graphs`` set False) every kind runs eagerly: the caller's choice.
     On the card a capture or replay that fails raises; nothing retries
     eagerly;
-  * the horizon loop is a Python loop of the decode body (the JAX
-    `lax.scan`), inside one graph on the card.
+  * the horizon loops are Python loops of the decode bodies (the JAX
+    `lax.scan`), inside one graph on the card; a speculative horizon's
+    per-row positions, kept counts and stop bits stay device tensors.
 
 The instrumented-pool counters (`attn_kv_bytes_read` /
 `attn_kv_bytes_gather`) account the pool bytes each dispatch touches vs
@@ -571,6 +584,85 @@ class PagedModelRunner:
         return torch.stack([torch.stack(out_t, 1), torch.stack(out_f, 1),
                             torch.stack(out_l, 1)])
 
+    def _decode_multi_spec_body(self, pools, tokens, tables, pos, drafts,
+                                seeds, base_steps, temps, stop_ids,
+                                remaining, *, top_k, top_p, sampling: bool):
+        """The speculative horizon: every inner step feeds row b the span
+        [fed token, drafts[b, t, :]] (-1-padded drafts; q_len 1 + #real
+        drafts, 0 once the row is done) through the ragged forward, then
+        resolves accept / reject on the device: emission i is the argmax
+        (or the seeded sample at step base + emitted + i) of span position
+        i, KEPT iff the row is live, every earlier draft matched its
+        emission and no earlier kept emission hit a stop or the budget.
+        The last kept emission feeds the next step and the row's position
+        advances by its kept count. Writes past max_model_len go to the
+        scratch page. Returns packed [3, B, s, K + 1] int32: emitted
+        tokens, finite flags, the KEEP mask (a per-step prefix; the host
+        replays nothing past it)."""
+        B, num_steps, K = drafts.shape
+        T = K + 1
+        offs = torch.arange(T, device=tokens.device)[None, :]       # [1, T]
+        toks, p = tokens.long(), pos.long()
+        done = torch.zeros(B, dtype=torch.bool, device=tokens.device)
+        cnt = torch.zeros_like(p)
+        zero = torch.zeros_like(p)
+        out_t, out_f, out_k = [], [], []
+        for t in range(num_steps):
+            draft_t = drafts[:, t].long()                           # [B, K]
+            ndraft = (draft_t >= 0).long().sum(dim=1)
+            span = torch.cat([toks[:, None], draft_t.clamp(min=0)], dim=1)
+            q_lens = torch.where(done, zero, ndraft + 1)
+            valid = ((offs < q_lens[:, None])
+                     & (p[:, None] + offs < self.max_model_len))
+            positions = torch.where(valid, p[:, None] + offs,
+                                    torch.zeros_like(offs))
+            page, off = self._write_indices(positions, tables, valid)
+            logits, _ = self._forward(span, positions, page, off, tables,
+                                      p.to(torch.int32),
+                                      q_lens.to(torch.int32), pools)
+            nxt = torch.argmax(logits, dim=-1)                      # [B, T]
+            fin = torch.isfinite(logits).all(dim=-1)
+            if sampling:
+                steps = base_steps.long()[:, None] + cnt[:, None] + offs
+                sampled = self._sampled_span(logits, seeds, steps, temps,
+                                             top_k, top_p)
+                nxt = torch.where(temps[:, None] > 0.0, sampled, nxt)
+            match = (draft_t == nxt[:, :K]) & (draft_t >= 0)
+            hit = (nxt[:, :, None] == stop_ids.long()[:, None, :]).any(dim=2)
+            pos_done = hit | (cnt[:, None] + 1 + offs
+                              >= remaining.long()[:, None])
+            cont = match & torch.logical_not(pos_done[:, :K])
+            live = torch.logical_not(done)
+            keep = torch.cat(
+                [live[:, None],
+                 live[:, None] & torch.cumprod(cont.long(), dim=1).bool()],
+                dim=1)                                              # [B, T]
+            m = keep.long().sum(dim=1)
+            last = (m - 1).clamp(min=0)
+            fb = torch.gather(nxt, 1, last[:, None])[:, 0]
+            toks = torch.where(m > 0, fb, toks)
+            done = done | (keep & pos_done).any(dim=1)
+            p = p + m
+            cnt = cnt + m
+            out_t.append(nxt)
+            out_f.append(fin)
+            out_k.append(keep)
+        return torch.stack([torch.stack(out_t, 1).to(torch.int32),
+                            torch.stack(out_f, 1).to(torch.int32),
+                            torch.stack(out_k, 1).to(torch.int32)])
+
+    @staticmethod
+    def _sampled_span(logits, seeds, steps, temps, top_k, top_p):
+        """Seeded sampling of every position of logits [B, T, V]: position
+        i of row b draws with fold_in(key(seeds[b]), steps[b, i]) through
+        `_sampled_rows` (the per-step stream's function, row by row).
+        Returns int64 tokens [B, T]."""
+        B, T, V = logits.shape
+        return PagedModelRunner._sampled_rows(
+            logits.reshape(B * T, V), seeds.repeat_interleave(T),
+            steps.reshape(-1), temps.repeat_interleave(T), top_k,
+            top_p).reshape(B, T)
+
     @staticmethod
     def _sampled_rows(logits, seeds, steps, temps, top_k, top_p):
         """Seeded sampling of every row of logits [B, V]: row b draws with
@@ -654,6 +746,102 @@ class PagedModelRunner:
                 remaining)
         return self._launch("decode_multi_x", key, body_x, host,
                             pools), pools
+
+    @torch.no_grad()
+    def decode_multi_spec(self, tokens, tables, pos, pools, drafts, *,
+                          seeds=None, base_steps=None, temps=None,
+                          top_k=None, top_p=None, stop_ids=None,
+                          remaining=None):
+        """Speculative horizon: ``drafts.shape[1]`` inner steps, each
+        carrying a [B, K] -1-padded draft span verified and accepted on
+        the device (`_decode_multi_spec_body`). tokens [B] (the fed last
+        tokens), tables [B, P] (mapping every page the funded writes can
+        touch), pos [B], drafts [B, s, K] int32 with K + 1 a `bucket_len`
+        bucket, so a fused span takes the per-step verify path's
+        attention path. The stop plane (stop_ids [B, S] -1-padded,
+        remaining [B]) is always on; seeds / base_steps / temps turn on
+        seeded sampling as in `decode_multi`. Returns (packed [3, B, s,
+        K + 1] int32, pools): tokens, finite flags, keep mask; on the card
+        one CUDA graph replay."""
+        drafts = np.asarray(drafts, np.int32)
+        if drafts.ndim != 3 or drafts.shape[1] < 1:
+            raise ValueError(
+                f"drafts must be [B, num_steps>=1, K], got {drafts.shape}")
+        B, num_steps, K = drafts.shape
+        pos_np = np.asarray(pos, np.int32)
+        tabs = np.asarray(tables, np.int32)
+        P = tabs.shape[1]
+        impl = self._attn_impl_for(K + 1)
+        spans = np.full((B,), K + 1, np.int32)
+        for t in range(num_steps):   # upper-bounds the per-step reads
+            self._account_attn(impl, pos_np + t * (K + 1), spans, P)
+        sampling = temps is not None
+        seeds = np.zeros((B,), np.int64) if seeds is None \
+            else np.asarray(seeds, np.int64)
+        base_steps = np.zeros((B,), np.int32) if base_steps is None \
+            else np.asarray(base_steps, np.int32)
+        temps = np.zeros((B,), np.float32) if temps is None \
+            else np.asarray(temps, np.float32)
+        stop_ids = np.full((B, 1), -1, np.int32) if stop_ids is None \
+            else np.asarray(stop_ids, np.int32)
+        remaining = np.full((B,), num_steps * (K + 1), np.int32) \
+            if remaining is None else np.asarray(remaining, np.int32)
+
+        def body(pools_, *ops):
+            return self._decode_multi_spec_body(
+                pools_, *ops, top_k=top_k, top_p=top_p, sampling=sampling)
+        key = (B, P, num_steps, K, top_k, top_p, sampling,
+               stop_ids.shape[1])
+        host = (np.asarray(tokens, np.int32), tabs, pos_np, drafts, seeds,
+                base_steps, temps, stop_ids, remaining)
+        return self._launch("decode_multi_spec", key, body, host,
+                            pools), pools
+
+    # ------------------------------------------------------------ ragged
+
+    def _ragged_core(self, pools, tokens, tables, start_pos, q_lens):
+        """One mixed ragged batch on device operands: tokens [B, T], every
+        slot its own span (decode rows q_len 1, prefill chunks at an
+        offset, verify spans 1 + k, dead slots 0) in ONE forward. Returns
+        logits [B, T, V]; rows past a span's q_len are never read."""
+        T = tokens.shape[1]
+        offs = torch.arange(T, device=tokens.device)[None, :]       # [1, T]
+        valid = offs < q_lens.long()[:, None]
+        positions = torch.where(valid, start_pos.long()[:, None] + offs,
+                                torch.zeros_like(offs))
+        page, off = self._write_indices(positions, tables, valid)
+        logits, _ = self._forward(tokens.long(), positions, page, off,
+                                  tables, start_pos, q_lens, pools)
+        return logits
+
+    def _ragged_step(self, pools, tokens, tables, start_pos, q_lens):
+        """`_ragged_core` returning each slot's logits at its span's LAST
+        live row only: [B, V]."""
+        logits = self._ragged_core(pools, tokens, tables, start_pos, q_lens)
+        last = (q_lens.long() - 1).clamp(min=0)
+        return logits[torch.arange(logits.shape[0], device=logits.device),
+                      last]
+
+    @torch.no_grad()
+    def ragged_step(self, tokens, tables, start_pos, q_lens, pools,
+                    full_logits: bool = False):
+        """One mixed ragged batch (the fused chunk + decode step): tokens
+        [B, T] with T a `bucket_len` bucket (verify spans and chunks share
+        the bucket rule, so a 1 + k verify span lands in the 8-row
+        bucket), tables [B, P], start_pos / q_lens [B]. Returns (logits,
+        pools): [B, V] at each span's last live row, or [B, T, V] with
+        ``full_logits`` (the speculative verify step scores every span
+        position from one launch). Runs eagerly."""
+        tokens = np.asarray(tokens, np.int32)
+        T = tokens.shape[1]
+        start_pos = np.asarray(start_pos, np.int32)
+        q_lens = np.asarray(q_lens, np.int32)
+        tabs = np.asarray(tables, np.int32)
+        self._account_attn(self._attn_impl_for(T), start_pos, q_lens,
+                           tabs.shape[1])
+        body = self._ragged_core if full_logits else self._ragged_step
+        return body(pools, *self._stage(tokens, tabs, start_pos,
+                                        q_lens)), pools
 
     def _forward(self, tokens, positions, write_page, write_off, tables,
                  pos_q, q_lens, pools):

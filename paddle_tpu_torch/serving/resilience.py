@@ -1,17 +1,35 @@
-"""Failure vocabulary and the invariant auditor of the serving engine.
+"""Failure vocabulary, the fault injector and the invariant auditor of
+the serving engine.
 
 Counterpart of paddle_tpu/serving/resilience.py, limited to the state
-this port has: one fp32, int8 or fp8 pool, no prefix cache, no host
-tier, at most one in-flight launch (the pipelined loop). The fault
-injector and snapshot/restore are
-not ported yet (ROADMAP.md 'Still to port' item 15).
+this port has: one fp32, int8 or fp8 pool with its prefix cache, no host
+tier, at most one in-flight launch (the pipelined loop).
+
+  FaultInjector      a drop-in runner wrapper that raises simulated
+                     device errors, corrupts logits with NaN, or stalls
+                     chosen calls of its six ops (prefill, prefill_chunk,
+                     decode, decode_multi, decode_multi_spec, ragged_step)
+  audit_engine       page accounting, refcounts, the prefix-cache index,
+                     slots and block tables must agree after every step
+
+Fault schedules are keyed by call index (never wall time or RNG), so a
+failing trace replays exactly. The replica-crash fault class of the JAX
+injector belongs to the serving tier (ROADMAP.md item 11), and snapshot /
+restore to item 15.
 """
 
 from __future__ import annotations
 
+import time
+from typing import Callable, Iterable, Optional
+
 import torch
 
 from paddle_tpu_torch.serving.kv_cache import SCRATCH_PAGE
+
+
+class InjectedDeviceError(RuntimeError):
+    """A simulated transient device failure (FaultInjector's default)."""
 
 
 class QueueFullError(RuntimeError):
@@ -23,26 +41,167 @@ class InvariantViolation(AssertionError):
     corruption). Raised by audit_engine; always a bug, never load."""
 
 
+class FaultInjector:
+    """Wrap a PagedModelRunner and inject faults on selected calls.
+
+    Drop-in: the runner's attributes (block_size, num_layers, dtype, ...)
+    delegate through, so ``ServingEngine(FaultInjector(runner, ...),
+    ...)`` behaves exactly like the bare runner except on the scheduled
+    calls. Call indices are 1-based and counted PER OP ("prefill": prefill
+    and prefill_chunk; "decode": decode, decode_multi, decode_multi_spec
+    and ragged_step, each the step's decode call site), so
+    ``error_every=5`` fails decode calls 5, 10, 15, ...
+
+    Fault classes (each with ``*_every`` periodic and ``*_calls`` exact
+    schedules, and a target op "prefill" | "decode" | "both"):
+
+      error  raise InjectedDeviceError BEFORE the real runner runs (the
+             pools are untouched, so a retry is exact);
+      nan    run the real step, then set the leading ``nan_fraction`` of
+             the vocab to NaN (logits), or zero the finite plane of a
+             horizon's packed buffer (decode_multi, decode_multi_spec);
+      stall  call ``on_stall`` (default: time.sleep(stall_s)) first.
+
+    The replica-crash class (``crash_every`` / ``crash_calls``) belongs
+    to the serving tier: it takes its defaults only and raises naming
+    ROADMAP.md item 11 otherwise."""
+
+    def __init__(self, runner, *,
+                 error_every: int = 0, error_calls: Iterable[int] = (),
+                 error_target: str = "decode",
+                 nan_every: int = 0, nan_calls: Iterable[int] = (),
+                 nan_target: str = "decode", nan_fraction: float = 1.0,
+                 stall_every: int = 0, stall_calls: Iterable[int] = (),
+                 stall_target: str = "decode", stall_s: float = 0.0,
+                 on_stall: Optional[Callable[[], None]] = None,
+                 crash_every: int = 0, crash_calls: Iterable[int] = (),
+                 crash_target: str = "decode"):
+        self._runner = runner
+        for t in (error_target, nan_target, stall_target, crash_target):
+            if t not in ("prefill", "decode", "both"):
+                raise ValueError(f"fault target {t!r}")
+        if crash_every or tuple(crash_calls):
+            raise NotImplementedError(
+                "FaultInjector(crash_*): replica crashes belong to the "
+                "serving tier (router, supervisor), not ported yet: "
+                "ROADMAP.md 'Still to port' item 11 (tier)")
+        if not 0.0 < nan_fraction <= 1.0:
+            raise ValueError("nan_fraction must be in (0, 1]")
+        self._error = (error_every, frozenset(error_calls), error_target)
+        self._nan = (nan_every, frozenset(nan_calls), nan_target)
+        self._stall = (stall_every, frozenset(stall_calls), stall_target)
+        self.nan_fraction = nan_fraction
+        self._on_stall = on_stall or (lambda: time.sleep(stall_s))
+        self.calls = {"prefill": 0, "decode": 0}
+        self.injected = {"error": 0, "nan": 0, "stall": 0, "crash": 0}
+
+    def __getattr__(self, name):
+        return getattr(object.__getattribute__(self, "_runner"), name)
+
+    @staticmethod
+    def _hits(schedule, op: str, n: int) -> bool:
+        every, calls, target = schedule
+        if target not in (op, "both"):
+            return False
+        return (every > 0 and n % every == 0) or n in calls
+
+    def _corrupt(self, logits):
+        out = torch.as_tensor(logits).clone()
+        k = max(1, int(round(out.shape[-1] * self.nan_fraction)))
+        out[..., :k] = float("nan")
+        return out
+
+    def _pre(self, op: str) -> int:
+        self.calls[op] += 1
+        n = self.calls[op]
+        if self._hits(self._stall, op, n):
+            self.injected["stall"] += 1
+            self._on_stall()
+        if self._hits(self._error, op, n):
+            self.injected["error"] += 1
+            raise InjectedDeviceError(f"injected device error: {op} call {n}")
+        return n
+
+    def _post(self, op: str, n: int, out, packed: bool = False):
+        if not self._hits(self._nan, op, n):
+            return out
+        self.injected["nan"] += 1
+        if not packed:
+            return self._corrupt(out)
+        out = out.clone()
+        out[1] = 0                  # the finite plane of every layout
+        return out
+
+    def prefill(self, tokens, table, pools):
+        n = self._pre("prefill")
+        logits, pools = self._runner.prefill(tokens, table, pools)
+        return self._post("prefill", n, logits), pools
+
+    def prefill_chunk(self, tokens, start_pos, table, pools):
+        # chunks share the "prefill" counter: a chunked engine sees the
+        # same per-prefill-call schedule as a monolithic one
+        n = self._pre("prefill")
+        logits, pools = self._runner.prefill_chunk(tokens, start_pos, table,
+                                                   pools)
+        return self._post("prefill", n, logits), pools
+
+    def decode(self, tokens, tables, pos, pools):
+        n = self._pre("decode")
+        logits, pools = self._runner.decode(tokens, tables, pos, pools)
+        return self._post("decode", n, logits), pools
+
+    def decode_multi(self, tokens, tables, pos, pools, num_steps, **kw):
+        # NaN cannot reach the logits inside the device loop: it zeroes
+        # the packed finite plane, so the horizon "goes NaN" at step one
+        n = self._pre("decode")
+        packed, pools = self._runner.decode_multi(tokens, tables, pos,
+                                                  pools, num_steps, **kw)
+        return self._post("decode", n, packed, packed=True), pools
+
+    def decode_multi_spec(self, tokens, tables, pos, pools, drafts, **kw):
+        n = self._pre("decode")
+        packed, pools = self._runner.decode_multi_spec(
+            tokens, tables, pos, pools, drafts, **kw)
+        return self._post("decode", n, packed, packed=True), pools
+
+    def ragged_step(self, tokens, tables, start_pos, q_lens, pools,
+                    full_logits: bool = False):
+        # the fused chunk + decode call and the speculative verify call
+        # are the step's decode call site: the "decode" counter
+        n = self._pre("decode")
+        logits, pools = self._runner.ragged_step(
+            tokens, tables, start_pos, q_lens, pools,
+            full_logits=full_logits)
+        return self._post("decode", n, logits), pools
+
+
 def audit_engine(engine) -> None:
     """Assert that page accounting, slot assignment and block tables are
     mutually consistent — the opt-in post-step check
     (ServingEngine(..., audit=True) or PADDLE_TPU_SERVING_AUDIT=1).
 
-    A page's refcount equals the number of sequences mapping it, every
-    allocated page has an owner (no leaks), a page appears at most once
-    in one table, each running sequence holds the pages its live tokens
-    need and no more than its context plus one upcoming token needs, and
-    slots partition between running requests and the free list, and the
-    pool's layer tuples have the layout of its kv_dtype. A member of the
-    pipelined loop's in-flight launch may also hold the pages its
-    undrained horizon was funded. Raises InvariantViolation listing every
-    broken invariant. Host work only."""
+    A page's refcount equals the number of sequences mapping it plus one
+    if the prefix cache's index holds it, every allocated page has an
+    owner or a cache entry (no leaks), the cache's index is a bijection
+    that holds no free page, a page appears at most once in one table,
+    each running sequence holds the pages its live tokens need and no
+    more than its context plus one upcoming token needs, slots partition
+    between running requests and the free list, and the pool's layer
+    tuples have the layout of its kv_dtype. A member of the pipelined
+    loop's in-flight launch may also hold the pages its undrained horizon
+    was funded (a fused speculative horizon records them per request).
+    Raises InvariantViolation listing every broken invariant. Host work
+    only."""
     alloc = engine.pool.allocator
     sched = engine.scheduler
+    cache = engine.pool.prefix_cache
     problems = []
     inflight = getattr(engine, "_inflight", None)
     inflight_horizon = ({id(r): inflight.s for r, _ in inflight.batch}
                         if inflight is not None else {})
+    inflight_upcoming = (dict(inflight.upcoming)
+                         if inflight is not None and inflight.upcoming
+                         else {})
 
     # -- allocator self-consistency
     free_list = list(alloc._free)
@@ -58,6 +217,8 @@ def audit_engine(engine) -> None:
         problems.append(
             f"page accounting broken: lost={sorted(expected - fset - aset)} "
             f"foreign={sorted((fset | aset) - expected)}")
+    if any(rc < 1 for rc in alloc._ref.values()):
+        problems.append("allocated page with refcount < 1")
 
     # -- ownership: allocated pages == running sequences' pages
     owner_counts: dict = {}
@@ -87,23 +248,48 @@ def audit_engine(engine) -> None:
         if len(pages) > engine.max_pages_per_seq:
             problems.append(f"{rid} holds {len(pages)} pages > "
                             "max_pages_per_seq")
-        upcoming = 1 + inflight_horizon.get(id(req), 0)
+        upcoming = inflight_upcoming.get(
+            id(req), 1 + inflight_horizon.get(id(req), 0))
         cap = engine.pool.blocks_for_tokens(req.num_context + upcoming)
         if len(pages) > cap:
             problems.append(f"{rid} holds {len(pages)} pages > {cap} needed "
                             f"for its context plus {upcoming} tokens "
-                            "(horizon pages survived their step)")
+                            "(speculative or horizon pages survived their "
+                            "step)")
         for p in pages:
             owner_counts[p] = owner_counts.get(p, 0) + 1
-    if set(owner_counts) != aset:
+    cached = set(cache.pages()) if cache is not None else set()
+    oset = set(owner_counts)
+    if cache is None and len(owner_counts) != sum(owner_counts.values()):
+        dupes = sorted(p for p, c in owner_counts.items() if c > 1)
+        problems.append(f"pages owned by two sequences: {dupes}")
+    if oset | cached != aset:
         problems.append(
-            f"page leak: allocated-but-unowned="
-            f"{sorted(aset - set(owner_counts))} owned-but-not-allocated="
-            f"{sorted(set(owner_counts) - aset)}")
-    for p, n in owner_counts.items():
-        if alloc._ref.get(p) != n:
-            problems.append(f"page {p} refcount {alloc._ref.get(p)} != "
-                            f"{n} owners")
+            f"page leak: allocated-but-unowned={sorted(aset - oset - cached)}"
+            f" owned-but-not-allocated={sorted((oset | cached) - aset)}")
+    for p in aset:
+        want = owner_counts.get(p, 0) + (1 if p in cached else 0)
+        if alloc._ref.get(p) != want:
+            problems.append(
+                f"page {p} refcount {alloc._ref.get(p)} != "
+                f"{owner_counts.get(p, 0)} owners + {int(p in cached)} "
+                "cache refs")
+
+    # -- prefix-cache index consistency
+    if cache is not None:
+        if SCRATCH_PAGE in cached:
+            problems.append("scratch page registered in the prefix cache")
+        if cached & fset:
+            problems.append(
+                f"cached pages on the free list: {sorted(cached & fset)}")
+        index_pages = list(cache._index.values())
+        if len(index_pages) != len(set(index_pages)):
+            problems.append("prefix-cache index maps two hashes to one page")
+        if set(index_pages) != cached or any(
+                cache._index.get(cache._page_hash.get(p)) != p
+                for p in cached):
+            problems.append("prefix-cache hash index and page index "
+                            "disagree")
 
     # -- slot accounting
     slots = [r.slot for r in sched.running]

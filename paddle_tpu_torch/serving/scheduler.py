@@ -1,16 +1,20 @@
 """Continuous-batching scheduler: FCFS admission, chunked prefill plans,
 decode reservation, youngest-first preemption.
 
-Counterpart of paddle_tpu/serving/scheduler.py without the prefix cache,
-the host tier and speculation. `plan_decode_horizon` pre-commits the
-pages of a device-resident decode horizon. Determinism contract (the
-equivalence test with naive_generate leans on every clause):
+Counterpart of paddle_tpu/serving/scheduler.py without the host tier.
+Admission maps the longest cached prefix (the pool's `PrefixCache`) into
+a new request's table; `plan_decode_horizon` pre-commits the pages of a
+device-resident decode horizon; `speculation_budget`,
+`reserve_speculation` and `plan_spec_horizon` fund speculative verify
+spans, never by preempting. Determinism contract (the equivalence test
+with naive_generate leans on every clause):
   * admission is strict FCFS with head-of-line blocking;
   * pages come from a sorted free list, so the same trace of events
     always yields the same block tables;
   * preemption victims are chosen youngest-first (last admitted), and a
     preempted request resumes with its full context (prompt + generated
-    so far) re-prefilled: recompute, not cache migration.
+    so far) re-prefilled: recompute, not cache migration (with the
+    prefix cache on, its registered pages come back as cache hits).
 
 `max_prefill_tokens_per_step` bounds the prefill tokens computed per
 engine step, and `prefill_plan()` slices the running requests'
@@ -23,7 +27,7 @@ import itertools
 from collections import deque
 from dataclasses import dataclass, field
 from enum import Enum
-from typing import Deque, List, Optional, Sequence, Tuple
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 from paddle_tpu_torch.serving.kv_cache import KVCachePool, SequenceKV
 
@@ -69,10 +73,9 @@ class RequestState(Enum):
 
 _req_counter = itertools.count()
 
-# Request fields of the JAX host tier (item 9) and prefix cache (item 5),
-# each taken at its default (None, [] or 0) only
+# Request fields of the JAX host tier (item 9), each taken at its default
+# (None, [] or 0) only
 UNPORTED_REQUEST_FIELDS = {"offload": 9, "pending_pagein": 9,
-                           "admit_prefix_tokens": 5,
                            "admit_pagein_tokens": 9}
 
 
@@ -97,7 +100,9 @@ class Request:                # requests by object, never by field value
     # the per-step path once, which fetches the real logits
     defer_horizon: bool = False
     # the JAX host-tier and prefix-cache state, in the JAX order: the port
-    # takes them at their defaults only (`__post_init__`)
+    # takes the host-tier fields at their defaults only (`__post_init__`);
+    # admission sets admit_prefix_tokens to the tokens a prefix-cache
+    # match mapped in
     offload: Optional[object] = None
     pending_pagein: List[Tuple[int, int]] = field(default_factory=list)
     admit_prefix_tokens: int = 0
@@ -194,9 +199,17 @@ class FCFSScheduler:
     def admit(self) -> List[Request]:
         """Admit queue-head requests while a slot and enough pages exist
         for their full context PLUS one decode token. Strict FCFS: stop at
-        the first request that does not fit."""
+        the first request that does not fit.
+
+        With the pool's PrefixCache enabled, the longest cached
+        page-aligned prefix of the request's context is mapped (shared,
+        increfed) into its table before the rest is allocated: those
+        tokens are live KV already, so prefill starts after them, and
+        the pool funds only the unmatched tail. Cached-free pages count as
+        headroom, not pressure."""
         admitted: List[Request] = []
         alloc = self.pool.allocator
+        cache = self.pool.prefix_cache
         while self.waiting and self._free_slots:
             req = self.waiting[0]
             need = self.pool.blocks_for_tokens(req.num_context + 1)
@@ -204,17 +217,33 @@ class FCFSScheduler:
                 raise ValueError(
                     f"request {req.request_id} needs {need} pages > "
                     f"max_pages_per_seq={self.max_pages_per_seq}")
-            used = alloc.num_usable - alloc.num_free
-            # over the high watermark: stop admitting — unless nothing is
+            tag = req.sampling.kv_dtype or self.pool.native_kv_tag()
+            matched = (cache.match_tiered(req.context_tokens, tag=tag)[0]
+                       if cache is not None else [])
+            if matched:
+                # pin the match BEFORE any allocation: an incref lifts the
+                # pages above refcount 1, so the eviction alloc may run
+                # cannot reclaim them mid-admission
+                cache.acquire(matched)
+            need_new = need - len(matched)
+            used_live = (alloc.num_usable - alloc.num_free
+                         - alloc.num_evictable)
+            # over the high watermark: stop admitting, unless nothing is
             # running at all (a request larger than the watermark must
             # still be servable alone)
-            over_watermark = (used + need > self._effective_watermark()
+            over_watermark = (used_live + need_new
+                              > self._effective_watermark()
                               and (self.running or admitted))
-            if not alloc.can_alloc(need) or over_watermark:
+            if not alloc.can_alloc(need_new) or over_watermark:
+                if matched:
+                    cache.unacquire(matched)
                 break
             self.waiting.popleft()
-            req.kv = SequenceKV(self.pool)
-            req.kv.grow(req.num_context + 1)
+            req.kv = SequenceKV(self.pool, kv_tag=tag)
+            if matched:
+                req.kv.adopt_prefix(matched, self.pool.block_size)
+            req.admit_prefix_tokens = req.kv.num_tokens
+            req.kv.grow(req.num_context + 1 - req.kv.num_tokens)
             req.slot = self._free_slots.pop(0)
             req.admission_index = next(self._admission_counter)
             req.state = RequestState.RUNNING
@@ -252,6 +281,92 @@ class FCFSScheduler:
         the batched decode step feeds."""
         return [r for r in self.running if r.phase == "decode"]
 
+    # ------------------------------------------------------- speculation
+
+    def speculation_budget(self, chunk_tokens: int) -> Optional[int]:
+        """Per-step budget left for speculative (draft) tokens after this
+        step's prefill chunks: verify spans count against
+        `max_prefill_tokens_per_step` as chunk tokens do. Only the EXTRA
+        tokens are budgeted; the one-token decode feed always runs.
+        None = unbounded."""
+        if self.max_prefill_tokens_per_step is None:
+            return None
+        return max(0, self.max_prefill_tokens_per_step - chunk_tokens)
+
+    def reserve_speculation(self, proposals: Dict[Request, List[int]]
+                            ) -> int:
+        """Best-effort page reservation for this step's verify spans, in
+        admission order: each proposal is trimmed (in place) until the
+        pages its 1 + k span writes can be funded WITHOUT preempting;
+        under pool pressure speculation degrades to a plain decode.
+        Runs after reserve_decode(). Returns the reserved draft tokens."""
+        total = 0
+        for req in self.running:
+            prop = proposals.get(req)
+            if req.phase != "decode" or not prop:
+                continue
+            k = len(prop)
+            while k:
+                short = req.kv.pages_short(1 + k)
+                if short == 0 or self.pool.allocator.can_alloc(short):
+                    break
+                k -= 1
+            del prop[k:]
+            if k:
+                req.kv.grow(1 + k)
+                total += k
+        return total
+
+    def plan_spec_horizon(self, s: int, row_k: Dict[Request, int],
+                          row_rem: Dict[Request, int]) -> int:
+        """Page funding for a fused speculative horizon of ``s`` steps: a
+        row writes up to min(s * (k+1), remaining + k) tokens past its
+        coverage (full acceptance moves k + 1 tokens a step; the stop
+        plane bounds kept tokens by `remaining`, and one span's k drafts
+        may overhang), clamped at the table width. Never preempts: ``s``
+        is trimmed toward 1 under free-list or watermark pressure, then
+        each row's k shrinks in place. ``row_k`` is updated to the funded
+        draft lengths. Returns the horizon (0 with no decode-ready
+        request)."""
+        batch = self.decode_ready()
+        if not batch:
+            return 0
+        s = max(1, int(s))
+        alloc = self.pool.allocator
+        cap = self.max_pages_per_seq * self.pool.block_size
+
+        def up(r, n, k=None):
+            k = row_k.get(r, 0) if k is None else k
+            return max(1, min(n * (k + 1), row_rem.get(r, 1) + k,
+                              cap - r.kv.num_tokens))
+
+        while s > 1:
+            short = sum(r.kv.pages_short(up(r, s)) for r in batch)
+            if short == 0:
+                break
+            used_live = (alloc.num_usable - alloc.num_free
+                         - alloc.num_evictable)
+            if (alloc.can_alloc(short)
+                    and used_live + short <= self._effective_watermark()):
+                break
+            s -= 1
+        if s == 1:
+            # shrink and grow row by row: each grow lands before the next
+            # row's can_alloc check
+            for r in batch:
+                k = row_k.get(r, 0)
+                while k:
+                    short = r.kv.pages_short(up(r, 1, k))
+                    if short == 0 or alloc.can_alloc(short):
+                        break
+                    k -= 1
+                row_k[r] = k
+                r.kv.grow(up(r, 1, k))
+            return 1
+        for r in batch:
+            r.kv.grow(up(r, s))
+        return s
+
     # ------------------------------------------------- multi-step decode
 
     def plan_decode_horizon(self, s: int, row_caps=None) -> int:
@@ -279,9 +394,10 @@ class FCFSScheduler:
             short = sum(r.kv.pages_short(up(r, s)) for r in batch)
             if short == 0:
                 break
-            used = alloc.num_usable - alloc.num_free
+            used_live = (alloc.num_usable - alloc.num_free
+                         - alloc.num_evictable)
             if (alloc.can_alloc(short)
-                    and used + short <= self._effective_watermark()):
+                    and used_live + short <= self._effective_watermark()):
                 break
             s -= 1
         if s > 1:

@@ -53,6 +53,12 @@ a horizon engine with every knob on must give the per-step engine's
 streams token for token, with the sampler's tokens on the card equal to
 the same function's on the CPU.
 
+The serving extras: a fused ragged launch (a chunk beside decode rows
+and a dead slot) matches K1's plain version and the gather path; a
+replayed speculative horizon equals its eager call bit for bit; a
+copy-on-write fork leaves the source page's bytes unchanged, over the
+three pool types.
+
 The GPT family: a GPT engine launches K1 for its prefill chunks and K2
 once a layer for each decode step and no plain version, token-exact
 against its naive_generate; PagedGPTGenerator launches K2 from its scalar
@@ -1144,3 +1150,145 @@ def test_gpt_o1_step_launches_the_wgmma_flash_route_only(gen):
             if want:
                 assert c.form_launches == {"wgmma": want}
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+# ------------------------------- prefix cache, fused steps, speculation
+
+def _spec_pools(runner, prompts, P=8):
+    """A pool holding each prompt prefilled in its own table row."""
+    from paddle_tpu_torch.serving import KVCachePool
+    pool = KVCachePool(runner.num_layers, 1 + len(prompts) * P,
+                       runner.block_size, runner.n_kv_heads, runner.head_dim,
+                       device="cuda", kv_dtype=runner.kv_dtype)
+    tables = []
+    for p in prompts:
+        tables.append(pool.pad_table(pool.allocator.alloc(P), P))
+        runner.prefill(p, tables[-1], pool.pools)
+    return pool, np.asarray(tables, np.int32)
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8", "fp8"])
+def test_fused_ragged_launch_matches_plain(gen, kv_dtype):
+    """One fused launch (a 32-row chunk at start_pos 40 beside decode rows
+    and a dead slot): K1 / K1-q against its plain version on the same
+    tensors, and the runner's fused logits against its gather path."""
+    model = Llama(LlamaConfig(**GRAPH_CFG), device="cuda", seed=0)
+    runner = LlamaRunner(model, block_size=16, kv_dtype=kv_dtype)
+    ref = LlamaRunner(model, block_size=16, attn_impl="reference",
+                      kv_dtype=kv_dtype)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, 211, n).tolist() for n in (40, 17, 30)]
+    pool, tables = _spec_pools(runner, prompts)
+    pool_r, _ = _spec_pools(ref, prompts)
+    B, T = 4, 32
+    tokens = np.zeros((B, T), np.int32)
+    tokens[0] = rng.integers(1, 211, T)
+    tokens[1:3, 0] = [7, 9]
+    starts = np.asarray([40, 17, 30, 0], np.int32)
+    qlens = np.asarray([T, 1, 1, 0], np.int32)
+    tabs = np.concatenate([tables, np.zeros((1, 8), np.int32)])
+    k1_counts = {"fp32": k1.COUNTS, "int8": k1.COUNTS_I8,
+                 "fp8": k1.COUNTS_F8}[kv_dtype]
+    k1_counts.reset()
+    got, _ = runner.ragged_step(tokens, tabs, starts, qlens, pool.pools,
+                                full_logits=True)
+    want, _ = ref.ragged_step(tokens, tabs, starts, qlens, pool_r.pools,
+                              full_logits=True)
+    assert k1_counts.form_launches == {"span": GRAPH_CFG["num_layers"]}
+    rows = [(0, t) for t in range(T)] + [(1, 0), (2, 0)]
+    g = torch.stack([got[r] for r in rows])
+    w = torch.stack([want[r] for r in rows])
+    assert (g - w).abs().max().item() <= TOL * w.abs().max().item()
+    # the kernel alone at the launch's operands
+    layer = pool.pools[0]
+    scales = {} if kv_dtype != "int8" else dict(k_scale=layer[2],
+                                                v_scale=layer[3])
+    q = torch.randn(B, T, 4, 64, device="cuda", generator=gen)
+    ops = (q, layer[0], layer[1], torch.from_numpy(tabs).cuda(),
+           torch.from_numpy(starts).cuda(), torch.from_numpy(qlens).cuda())
+    out = k1.ragged_paged_attention(*ops, **scales)
+    plain = k1.ragged_reference(*ops, **scales)
+    assert (out - plain).abs().max().item() <= TOL
+    assert torch.equal(out[3], torch.zeros_like(out[3]))    # dead slot
+    assert torch.equal(out[1, 1:], torch.zeros_like(out[1, 1:]))
+
+
+@pytest.mark.parametrize("sampling", [False, True], ids=["greedy", "seeded"])
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8", "fp8"])
+def test_speculative_horizon_graph_replay_equals_eager(gen, kv_dtype,
+                                                       sampling):
+    model = Llama(LlamaConfig(**GRAPH_CFG), device="cuda", seed=0)
+    runner = LlamaRunner(model, block_size=16, kv_dtype=kv_dtype)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 211, n).tolist() for n in (40, 23)]
+    pool_g, tables = _spec_pools(runner, prompts)
+    pool_e, _ = _spec_pools(runner, prompts)
+    B, s, K = 2, 4, 7
+    kw = dict(stop_ids=np.asarray([[-1], [5]], np.int32),
+              remaining=np.asarray([30, 12], np.int32))
+    if sampling:
+        kw.update(seeds=np.asarray([3, 4]), base_steps=np.asarray([0, 2]),
+                  temps=np.asarray([0.8, 0.0], np.float32), top_k=20,
+                  top_p=None)
+    every = (k1.COUNTS, k1.COUNTS_I8, k1.COUNTS_F8, k2.COUNTS)
+    for i in range(3):          # capture, then two replays
+        drafts = np.full((B, s, K), -1, np.int32)
+        drafts[0, :, :3] = rng.integers(1, 211, (s, 3))
+        drafts[1, :, :5] = rng.integers(1, 211, (s, 5))
+        args = (np.asarray([3 + i, 4 + i]), tables,
+                np.asarray([40 + 16 * i, 23 + 16 * i]))
+        before = [c.kernel_launches for c in every]
+        runner.graphs = False
+        out_e, _ = runner.decode_multi_spec(*args, pool_e.pools, drafts, **kw)
+        out_e = out_e.clone()
+        mid = [c.kernel_launches for c in every]
+        runner.graphs = True
+        out_g, _ = runner.decode_multi_spec(*args, pool_g.pools, drafts,
+                                            **kw)
+        torch.cuda.synchronize()
+        after = [c.kernel_launches for c in every]
+        assert [b - a for a, b in zip(mid, after)] == \
+            [b - a for a, b in zip(before, mid)]
+        assert torch.equal(out_g, out_e), (i, kv_dtype)
+    assert sum(c.plain_launches for c in every) == 0
+    assert [c["kind"] for c in runner.captures] == ["decode_multi_spec"]
+    for a, b in zip(pool_e.pools, pool_g.pools):
+        for x, y in zip(a, b):
+            assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8", "fp8"])
+def test_copy_page_leaves_the_source_unchanged(gen, kv_dtype):
+    """A copy-on-write fork on the card: the source page's bytes (codes
+    and scale rows on int8) are the same before and after, and the fork
+    equals them."""
+    from paddle_tpu_torch.serving import KVCachePool, SequenceKV
+    model = Llama(LlamaConfig(**GRAPH_CFG), device="cuda", seed=0)
+    runner = LlamaRunner(model, block_size=16, kv_dtype=kv_dtype)
+    pool = KVCachePool(runner.num_layers, 8, 16, runner.n_kv_heads,
+                       runner.head_dim, device="cuda", kv_dtype=kv_dtype)
+    cache = pool.enable_prefix_cache()
+    prompt = np.random.default_rng(4).integers(1, 211, 20).tolist()
+    a = SequenceKV(pool)
+    a.grow(len(prompt) + 1)
+    runner.prefill(prompt, pool.pad_table(a.pages, 4), pool.pools)
+    a.num_tokens = len(prompt)
+    cache.register_seq(a, prompt)
+    b = SequenceKV(pool)
+    matched = cache.match(prompt)
+    cache.acquire(matched)
+    b.adopt_prefix(matched, 16)
+    src = b.pages[0]
+
+    def page_bytes(p):
+        return [t.view(torch.uint8)[p].clone() for layer in pool.pools
+                for t in layer]
+    before = page_bytes(src)
+    assert b.ensure_writable(0, 16) == 1
+    torch.cuda.synchronize()
+    for x, y, z in zip(before, page_bytes(src), page_bytes(b.pages[0])):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    b.release()
+    a.release()
+    cache.clear()
+    assert pool.allocator.check_no_leaks()

@@ -8,8 +8,9 @@ kernel wrapper takes, and what it refuses.
   * CPU tensors run the plain versions: `plain_launches` moves and
     `kernel_launches` never does;
   * every engine knob the port does not carry raises NotImplementedError
-    naming its ROADMAP item; the four horizon and pipeline knobs, and
-    temperature > 0, are served;
+    naming its ROADMAP item; the four horizon and pipeline knobs, the
+    prefix cache, fused ragged steps, speculation and temperature > 0 are
+    served;
   * the serving entry points take the JAX package's positional and
     keyword arguments (runner, runner_for, create_serving_engine,
     SamplingParams, naive_generate, KVCachePool), `device` only by
@@ -17,14 +18,15 @@ kernel wrapper takes, and what it refuses.
     parameters the port does not serve at their defaults and refuse any
     other value naming its ROADMAP item; rotary_embedding takes
     position_ids as the JAX op does;
-  * the faults F5-F8 stay repaired: `Request` has the JAX fields in the
-    JAX order and refuses the host-tier and prefix ones at other values
-    (F5); `Optimizer` takes the JAX base's signature (F6); the kernel
+  * the faults F5-F9 stay repaired: `Request` has the JAX fields in the
+    JAX order and refuses the host-tier ones at other values (F5); `Optimizer` takes the JAX base's signature (F6); the kernel
     wrappers take the JAX `interpret` (and `block_q` / `block_k` for
     flash_attention) in their JAX slots, every `ops.*` wrapper's positional
     parameters are its `ops.pallas.*` twin's, and a 64-block block mask
     equals the JAX one on the CPU (F7); `paged_decode_attention` takes a
-    scalar `pos` (F8);
+    scalar `pos` (F8); `serving.create_engine` takes the JAX parameters
+    in the JAX order, each at its JAX default, and `comm_dtype` other than
+    "fp32" without a mesh raises ValueError as JAX does (F9);
   * chip_smoke.py fails, and prints no result, without a card or outside
     a checkout.
 """
@@ -269,13 +271,6 @@ def test_unported_engine_knob_raises(model, knob):
         _engine(model, **{knob: _other(default)})
 
 
-@pytest.mark.parametrize("knob", ["num_speculative_tokens", "spec_max_ngram",
-                                  "spec_adaptive_k"])
-def test_speculation_knobs_name_item_7_part_b(model, knob):
-    with pytest.raises(NotImplementedError, match="item 7 part B"):
-        _engine(model, **{knob: _other(UNPORTED_KNOBS[knob][0])})
-
-
 def _serve(eng, prompts, sp):
     ids = [eng.add_request(p, sp) for p in prompts]
     outs = eng.run()
@@ -493,7 +488,7 @@ def test_rotary_embedding_takes_position_ids_as_jax_does():
                                    atol=1e-6)
 
 
-# ---------------------------------------------- faults F5-F8, repaired
+# ---------------------------------------------- faults F5-F9, repaired
 
 
 def test_request_fields_follow_the_jax_order():
@@ -511,12 +506,53 @@ def test_request_fields_follow_the_jax_order():
 
 @pytest.mark.parametrize("field,value,item", [
     ("offload", object(), "item 9"), ("pending_pagein", [(1, 2)], "item 9"),
-    ("admit_prefix_tokens", 3, "item 5"), ("admit_pagein_tokens", 3,
-                                           "item 9")])
+    ("admit_pagein_tokens", 3, "item 9")])
 def test_request_host_tier_and_prefix_fields_take_their_defaults_only(
         field, value, item):
     with pytest.raises(NotImplementedError, match=item):
         Request([1, 2], **{field: value})
+
+
+@pytest.mark.parametrize("param", ["data_axis", "model_axis",
+                                   "weight_group_size", "comm_dtype"])
+def test_create_engine_takes_the_jax_parameter(model, param):
+    """F9: serving.create_engine has each JAX parameter in its JAX slot
+    with the JAX default, and accepts it there; weight_group_size reaches
+    the runner."""
+    from paddle_tpu.serving import create_engine as jax_create_engine
+    ours = inspect.signature(create_engine).parameters
+    ref = inspect.signature(jax_create_engine).parameters
+    names = [n for n, p in ours.items() if n != "device"
+             and p.kind is inspect.Parameter.KEYWORD_ONLY]
+    assert names == [n for n, p in ref.items()
+                     if p.kind is inspect.Parameter.KEYWORD_ONLY]
+    assert ours["device"].kind is inspect.Parameter.KEYWORD_ONLY
+    assert ours[param].default == ref[param].default
+    eng = create_engine(model, device="cpu", block_size=8, max_model_len=32,
+                        num_blocks=8, **{param: ref[param].default})
+    assert eng.runner.weight_group_size == 128
+    if param == "weight_group_size":
+        with pytest.raises(NotImplementedError, match="item 8"):
+            create_engine(model, device="cpu", block_size=8,
+                          max_model_len=32, num_blocks=8,
+                          weight_group_size=64)
+    else:
+        with pytest.raises(NotImplementedError, match="item 10"):
+            create_engine(model, device="cpu", block_size=8,
+                          max_model_len=32, num_blocks=8, mesh=object(),
+                          **{param: ref[param].default})
+
+
+def test_comm_dtype_without_a_mesh_is_a_value_error(model, jax_model):
+    """F9: the quantized collective needs a mesh; both packages refuse it
+    without one as an error of the call."""
+    from paddle_tpu.serving import create_engine as jax_create_engine
+    with pytest.raises(ValueError, match="mesh"):
+        create_engine(model, device="cpu", block_size=8, max_model_len=32,
+                      num_blocks=8, comm_dtype="int8")
+    with pytest.raises(ValueError, match="mesh"):
+        jax_create_engine(jax_model, block_size=8, max_model_len=32,
+                          num_blocks=8, comm_dtype="int8")
 
 
 @pytest.mark.parametrize("param", ["learning_rate", "parameters",
