@@ -296,20 +296,58 @@ exits non-zero without printing a result:
  30. specu-   GPT-3 1.3B at full depth with bench.py::child_serving_spec's
      lation   traffic (8 requests, 256-token prompts repeating a random 3-6
               token pattern, 64 tokens each, a 64-token prefill budget),
-              four arms, each served twice (the first round captures): off
+              five arms, each served twice (the first round captures): off
               (decode_horizon 8, pipelined, early stop), per_step (4 draft
               tokens, ragged_batch, horizon 1), fused (4 drafts inside
-              horizons of 8) and draft (fused with spec_draft_model
-              "shadow:fp32" and spec_adaptive_k): every arm's streams
-              equal off's, two requests equal naive_generate, a seeded
-              request (temperature 0.8) on per_step equals naive_generate
-              with its seed, proposed > 0 in every speculative arm and
-              accepted > 0 in draft, the fused arm served eagerly gives
-              its graph replays' streams, no leak, no plain launch.
-              Reported: steps and host syncs a token, tokens/s,
-              acceptance, capture seconds, K1 launches by form (a T = 8
-              verify span at MHA n_rep 1 takes the decode form).
- 31. summary  one JSON line of every kernel's launches, error and times
+              horizons of 8), draft (fused with spec_draft_model
+              "shadow:fp32" and spec_adaptive_k) and draft_int8 (the same
+              with "shadow", the int8 rung of phase 32): every arm's
+              streams equal off's, two requests equal naive_generate, a
+              seeded request (temperature 0.8) on per_step equals
+              naive_generate with its seed, proposed > 0 in every
+              speculative arm and accepted > 0 in the draft arms, the
+              fused arm served eagerly gives its graph replays' streams,
+              no leak, no plain launch. Reported: steps and host syncs a
+              token, tokens/s, acceptance, capture seconds, K1 launches by
+              form (a T = 8 verify span at MHA n_rep 1 takes the decode
+              form).
+ 31. bf16     bf16 serving through create_serving_engine(dtype=bfloat16):
+     serving  phase 3's checks of the bf16 variants (K1-bf16 over bf16
+              pools, K1-q with bf16 q over int8 / fp8 pools, K2-bf16) at
+              the Llama and GPT shapes against their plain versions in
+              fp64, within twice the bf16 plain version's error and at
+              most 1/16 misrounded; LLaMA-2-7B (after phases 32-33, cast
+              to bf16 in place) and GPT-3 1.3B (after phase 30) on phase
+              4's traffic: every call through the bf16 variants, no fp32
+              kernel, no plain version; a horizon engine (decode_horizon
+              8, graphs) equal to the per-step engine token for token;
+              one-slot runs over bf16, int8 and fp8 pools token-exact
+              against naive_generate; a 2-layer model at full width: the
+              bf16 runner's logits within BF16_TWIN_TOL of max|logit| of
+              its fp32 twin's, and (as phases 7 and 25 hold the fp32
+              runner) its kernels over bf16, int8 and fp8 pools against
+              its own gather path within BF16_GATHER_TOL, with the exact
+              launches of every bf16 variant and form. Timed: the bf16
+              variants at phase 8's shapes and K1-bf16 at the verify
+              spans.
+ 32. weight   LLaMA-2-7B (fp32 compute) with weight_dtype int8, int4
+     ladder   (group 128) and fp8 on phase 4's traffic: the runner's bytes
+              equal the shapes' formula (ladder_bytes), the reduction
+              factor fp32 / those bytes, a one-slot engine token-exact
+              against naive_generate; reported: tokens/s, decode-step ms,
+              peak memory over the resident, the int4 rung's profile (the
+              int8 and fp8 rungs cast the same way, one copy a weight).
+              The int8 shadow draft runs as phase 30's draft_int8 arm.
+ 33. mixed    LLaMA-2-7B on a kv_dtype="mixed" pool with phase 28's
+     pool     shared-prompt traffic, tenants fp32 and fp8 in turn, prefix
+              cache on: no page mapped by both rungs after any step, the
+              auditor's tag bijection every step, K1 and K2 only, no
+              leak; one-slot twins: fp32 tenants equal the fp32 engine
+              token for token, fp8 tenants the native fp8 engine (K1-q
+              where the mixed pool decodes through K2) up to a parting
+              where the twin's top-2 margin is within MIXED_MARGIN of its
+              max|logit|.
+ 34. summary  one JSON line of every kernel's launches, error and times
               (K1's decode-form times as extra decode_* keys, its engine
               launches by form under launches_by_form, the fp64 ratios
               under fp64_ratio; the masked kernels as *_masked rows with
@@ -327,8 +365,12 @@ exits non-zero without printing a result:
               prefix_launches_by_form, fused_step and spec_launches, and
               K1 timed at a fused step [8, 256, 32, 128] (one live chunk,
               7 decode rows) and at verify spans [8, 8, 16, 128] (1-5 live
-              rows) under fused_step and verify_span), the nvidia-smi
-              line, then the result line.
+              rows) under fused_step and verify_span; the bf16 variants as
+              *_bf16 serving rows with phase 31's launches, their fp64
+              ratio and misround share, K1-bf16 at the verify spans, the
+              2-layer twin gap and gather-path gaps; the mixed pool's
+              launches under mixed_launches), the smoke's wall by part
+              (lap), the nvidia-smi line, then the result line.
 
 fp32 products stay fp32: TF32 is switched off for matmuls and cuDNN. Bounds
 by operations are at fp32-accurate tensor-core products (3xTF32, 495 / 3
@@ -365,6 +407,18 @@ TOL = 1e-4
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+# the smoke's wall by part: lap(label) books the seconds since the last
+# lap to label; main prints the whole at its end
+_LAPS = {}
+_LAP_CLOCK = [time.perf_counter()]
+
+
+def lap(label):
+    now = time.perf_counter()
+    _LAPS[label] = _LAPS.get(label, 0.0) + now - _LAP_CLOCK[0]
+    _LAP_CLOCK[0] = now
 
 
 def gpu_line() -> str:
@@ -439,10 +493,9 @@ def _tables(B, P, num_pages, gen, used=None):
     return table.to(gen.device)
 
 
-# (COUNTS attribute, label) of the ragged kernel per pool storage type
-K1_VARIANTS = {"fp32": ("COUNTS", "K1 ragged"),
-               "int8": ("COUNTS_I8", "K1-q int8 ragged"),
-               "fp8": ("COUNTS_F8", "K1-q fp8 ragged")}
+# the ragged kernel's label per pool storage type
+K1_VARIANTS = {"fp32": "K1 ragged", "int8": "K1-q int8 ragged",
+               "fp8": "K1-q fp8 ragged"}
 # spans (start_pos, q_len, padded T) of the kernel checks
 SPANS_MIXED = ([37, 40, 0, 0, 100], [1, 50, 0, 64, 20], 64)
 SPANS_DECODE = ([0, 15, 16, 17, 31, 100, 255, 600], [1] * 8, 1)
@@ -461,9 +514,12 @@ SPANS_VERIFY = ([256, 263, 270, 281, 290, 300, 305, 311],
 def _as_kind(k_pool, v_pool, kind, gen):
     """fp32 pools -> (k, v, k_scale, v_scale) of a ``kind`` pool: int8
     codes with seeded per-page, per-kv-head scales in [1e-3, 5.1e-2], or
-    the float8_e4m3fn cast of the values; fp32 as given."""
+    the float8_e4m3fn (bf16) cast of the values; fp32 as given."""
     if kind == "fp32":
         return k_pool, v_pool, None, None
+    if kind == "bf16":
+        return (k_pool.to(torch.bfloat16), v_pool.to(torch.bfloat16), None,
+                None)
     if kind == "fp8":
         return (k_pool.to(torch.float8_e4m3fn),
                 v_pool.to(torch.float8_e4m3fn), None, None)
@@ -475,9 +531,34 @@ def _as_kind(k_pool, v_pool, kind, gen):
     return (*codes, *scales)
 
 
-def check_ragged(n_q, n_kv, gen, label, kind="fp32", spans=SPANS_MIXED):
+def _k1_label(kind, bf16):
+    """The wrapper variant's label: K1 / K1-q, with bf16 q where asked (a
+    bf16 pool always has bf16 q)."""
+    if kind == "bf16":
+        return "K1-bf16 ragged"
+    return K1_VARIANTS[kind] + (" (bf16 q)" if bf16 else "")
+
+
+def _bf16_gates(name, out, ref, exact):
+    """The bf16 rules (phase 20's): the kernel within twice the bf16 plain
+    version's error against fp64 on the same operands, and at most
+    MISROUND_GATE of the outputs the plain version rounds to bf16(exact)
+    rounded elsewhere. Returns (ratio, misround share)."""
+    e_kernel, e_plain, ratio = _vs_fp64(out, ref, exact)
+    share = misround_share(out, ref, exact)
+    if not (ratio <= 2.0 and share <= MISROUND_GATE):
+        raise AssertionError(f"{name}: against fp64 {e_kernel:.3e} = "
+                             f"{ratio:.2f}x the bf16 plain version's "
+                             f"{e_plain:.3e}, misround {share:.4f}")
+    return ratio, share
+
+
+def check_ragged(n_q, n_kv, gen, label, kind="fp32", spans=SPANS_MIXED,
+                 bf16=False):
     """K1 (fp32 pools) or K1-q (int8 / fp8 pools) against ragged_reference
-    on the same operands; returns the max abs error."""
+    on the same operands; with ``bf16``, bf16 q (over bf16 pools for kind
+    "bf16") and the bf16 gates against fp64 in place of TOL. Returns the
+    max abs error (and with ``bf16`` the fp64 ratio and misround share)."""
     from paddle_tpu_torch.ops.ragged_paged_attention import (
         ragged_paged_attention, ragged_reference,
     )
@@ -492,32 +573,46 @@ def check_ragged(n_q, n_kv, gen, label, kind="fp32", spans=SPANS_MIXED):
         if n == 0:
             table[b] = 0                          # dead slot: all scratch
     q = torch.randn(B, T, n_q, d, device=gen.device, generator=gen)
+    if bf16:
+        q = q.to(torch.bfloat16)
     st = torch.tensor(start, dtype=torch.int32, device=gen.device)
     ql = torch.tensor(qlen, dtype=torch.int32, device=gen.device)
     out = ragged_paged_attention(q, k, v, table, st, ql, k_scale=ks,
                                  v_scale=vs)
     ref = ragged_reference(q, k, v, table, st, ql, k_scale=ks, v_scale=vs)
-    err = (out - ref).abs().max().item()
-    name = K1_VARIANTS[kind][1]
+    err = (out.float() - ref.float()).abs().max().item()
+    name = _k1_label(kind, bf16)
     for b in range(B):
         if not bool((out[b, qlen[b]:] == 0).all()):
             raise AssertionError(f"{name} {label}: rows past q_len of "
                                  f"sequence {b} are not exactly 0")
+    gates = ""
+    if bf16:
+        pools64 = ((k.double(), v.double()) if kind == "bf16" else (k, v))
+        exact = ragged_reference(q.double(), *pools64, table, st, ql,
+                                 k_scale=ks, v_scale=vs)
+        ratio, share = _bf16_gates(f"{name} {label}", out, ref, exact)
+        gates = (f", against fp64 {ratio:.2f}x the bf16 plain version's "
+                 f"error, misround {share:.4f}")
     log(f"kernel {name} {label} (n_q={n_q}, n_kv={n_kv}, d={d}, ps={ps}, "
-        f"T={T}, spans start={start} q_len={qlen}): max_abs_err={err:.3e}, "
-        "padded and dead rows exactly 0")
+        f"T={T}, spans start={start} q_len={qlen}): max_abs_err={err:.3e}"
+        f"{gates}, padded and dead rows exactly 0")
+    if bf16:
+        return err, ratio, share
     if not err <= TOL:
         raise AssertionError(f"{name} {label}: max_abs_err {err} > {TOL}")
     return err
 
 
-def check_paged(gen, h=32, label=""):
+def check_paged(gen, h=32, label="", bf16=False):
     """K2 at ``h`` heads against paged_decode_reference over the engine's
     4096-key table:
     pos on and off page and split boundaries, walks of one split and of
     many (up to the table's last key, 4095), pos past the table (capped)
     and a dead slot (all-scratch table, pos 0). Then batch invariance: each
-    sequence alone must give its batch output bit for bit."""
+    sequence alone must give its batch output bit for bit. With ``bf16``,
+    K2-bf16 (bf16 q and pools) under the bf16 gates against fp64 in place
+    of TOL, returning (max abs error, fp64 ratio, misround share)."""
     from paddle_tpu_torch.ops.paged_attention import (
         KEYS_PER_SPLIT, paged_decode_attention, paged_decode_reference,
     )
@@ -528,24 +623,35 @@ def check_paged(gen, h=32, label=""):
     table = _tables(b, P, b * P + 1, gen)
     table[-1] = 0                                 # dead slot: all scratch
     q = torch.randn(b, h, d, device=gen.device, generator=gen)
+    if bf16:
+        q, k_pool, v_pool = (t.to(torch.bfloat16) for t in (q, k_pool,
+                                                            v_pool))
     p = torch.tensor(pos, dtype=torch.int32, device=gen.device)
     out = paged_decode_attention(q, k_pool, v_pool, table, p)
     ref = paged_decode_reference(q, k_pool, v_pool, table, p)
-    err = (out - ref).abs().max().item()
-    log(f"kernel K2 paged_decode{label} (b={b}, h={h}, d={d}, ps={ps}, P={P}, "
-        f"{KEYS_PER_SPLIT} keys a split, pos={pos}, the last a dead slot): "
-        f"max_abs_err={err:.3e}")
-    if not (err <= TOL and bool(torch.isfinite(out).all())):
-        raise AssertionError(f"K2: max_abs_err {err} > {TOL}")
+    err = (out.float() - ref.float()).abs().max().item()
+    name = "K2-bf16" if bf16 else "K2"
+    gates = ""
+    if bf16:
+        exact = paged_decode_reference(q.double(), k_pool.double(),
+                                       v_pool.double(), table, p)
+        ratio, share = _bf16_gates(f"{name}{label}", out, ref, exact)
+        gates = (f", against fp64 {ratio:.2f}x the bf16 plain version's "
+                 f"error, misround {share:.4f}")
+    log(f"kernel {name} paged_decode{label} (b={b}, h={h}, d={d}, ps={ps}, "
+        f"P={P}, {KEYS_PER_SPLIT} keys a split, pos={pos}, the last a dead "
+        f"slot): max_abs_err={err:.3e}{gates}")
+    if not bool(torch.isfinite(out).all()) or (not bf16 and not err <= TOL):
+        raise AssertionError(f"{name}: max_abs_err {err} > {TOL}")
     differ = [i for i in range(b) if not torch.equal(
         paged_decode_attention(q[i:i + 1], k_pool, v_pool, table[i:i + 1],
                                p[i:i + 1])[0], out[i])]
-    log(f"kernel K2 batch invariance: each of the {b} sequences alone "
+    log(f"kernel {name} batch invariance: each of the {b} sequences alone "
         f"equals its batch output bit for bit: {not differ}")
     if differ:
-        raise AssertionError(f"K2: sequences {differ} differ alone from "
+        raise AssertionError(f"{name}: sequences {differ} differ alone from "
                              "their batch output")
-    return err
+    return (err, ratio, share) if bf16 else err
 
 
 def fp64_ratio(kern, plain, exact) -> float:
@@ -565,12 +671,14 @@ def signed_error(x, exact) -> float:
 
 
 def measure_ragged(gen, n_heads, num_blocks, P, kind="fp32",
-                   spans=SPANS_CHUNK, n_kv=None):
+                   spans=SPANS_CHUNK, n_kv=None, bf16=False):
     """K1 / K1-q at an engine shape, 7B heads (MHA, or ``n_kv`` kv heads):
     by default the second 256-token chunk of a longer prompt (keys 0..511
     visible), or the decode step of the engine's sequences (T = 1). Held
     against the plain version in fp32 (1e-4) and in fp64 (within twice the
-    fp32 plain version's error), then timed."""
+    fp32 plain version's error), then timed. With ``bf16``: bf16 q (over
+    bf16 pools for kind "bf16"), the bf16 gates against fp64, bf16 bytes
+    and the bf16 peak in the bound, SDPA at bf16."""
     from paddle_tpu_torch.ops.ragged_paged_attention import (
         dequantize_pages, ragged_form, ragged_paged_attention,
         ragged_reference,
@@ -585,26 +693,35 @@ def measure_ragged(gen, n_heads, num_blocks, P, kind="fp32",
     pages = [-(-(s + T) // ps) for s in start]   # pages each walk reads
     table = _tables(B, P, num_blocks, gen, used=pages)
     q = torch.randn(B, T, n_heads, d, device="cuda", generator=gen)
+    if bf16:
+        q = q.to(torch.bfloat16)
     st = torch.tensor(start, dtype=torch.int32, device="cuda")
     ql = torch.tensor(qlen, dtype=torch.int32, device="cuda")
     args = (q, k, v, table, st, ql)
     kw = dict(k_scale=ks, v_scale=vs)
     form = ragged_form(n_heads // n_kv, T)
-    name = f"{K1_VARIANTS[kind][1]} {form} form"
+    name = f"{_k1_label(kind, bf16)} {form} form"
     out = ragged_paged_attention(*args, **kw)
     ref = ragged_reference(*args, **kw)
-    err = (out - ref).abs().max().item()
-    if not err <= TOL:
+    err = (out.float() - ref.float()).abs().max().item()
+    if not bf16 and not err <= TOL:
         raise AssertionError(f"{name} engine shape: max_abs_err {err} > "
                              f"{TOL}")
-    pools64 = (k.double(), v.double()) if kind == "fp32" else (k, v)
+    pools64 = ((k.double(), v.double()) if kind in ("fp32", "bf16")
+               else (k, v))
     exact = ragged_reference(q.double(), *pools64, table, st, ql, **kw)
-    ratio = fp64_ratio(out, ref, exact)
+    extra = {}
+    if bf16:
+        ratio, extra["misround"] = _bf16_gates(name, out, ref, exact)
+    else:
+        ratio = fp64_ratio(out, ref, exact)
     bias = (signed_error(out, exact), signed_error(ref, exact))
     del exact
     log(f"{name} vs fp64 at q[{B},{T},{n_heads},{d}], {n_kv} kv heads: "
-        f"kernel error {ratio:.2f}x the fp32 plain version's; mean signed "
-        f"error kernel {bias[0]:+.2e}, plain {bias[1]:+.2e}")
+        f"kernel error {ratio:.2f}x the {'bf16' if bf16 else 'fp32'} plain "
+        f"version's; mean signed error kernel {bias[0]:+.2e}, plain "
+        f"{bias[1]:+.2e}"
+        + (f"; misround {extra['misround']:.4f}" if bf16 else ""))
     if not ratio <= 2.0:
         raise AssertionError(f"{name}: error against fp64 {ratio:.2f}x the "
                              "fp32 plain version's, above 2x")
@@ -616,7 +733,7 @@ def measure_ragged(gen, n_heads, num_blocks, P, kind="fp32",
     idx = table[:, :-(-L // ps)].long()
     kg, vg = ((dequantize_pages(pool, idx, sc).flatten(1, 2)[:, :L]
                .repeat_interleave(n_heads // n_kv, dim=2)
-               .transpose(1, 2).contiguous())
+               .transpose(1, 2).to(q.dtype).contiguous())
               for pool, sc in ((k, ks), (v, vs)))
     qT = q.transpose(1, 2).contiguous()
     mask = (torch.arange(L, device="cuda")[None, None, :]
@@ -631,28 +748,31 @@ def measure_ragged(gen, n_heads, num_blocks, P, kind="fp32",
     # per visible (live row, key, query head); a dead slot reads nothing
     keys = sum(s + n for s, n in zip(start, qlen) if n)
     walked = sum(-(-(s + n) // ps) for s, n in zip(start, qlen) if n)
-    elem = 4 if kind == "fp32" else 1
-    nbytes = (4 * 2 * sum(qlen) * n_heads * d + elem * 2 * keys * n_kv * d
+    elem = k.element_size()
+    qe = q.element_size()
+    nbytes = (qe * 2 * sum(qlen) * n_heads * d + elem * 2 * keys * n_kv * d
               + 4 * (walked + 2 * B))
     if kind == "int8":
         nbytes += 4 * 2 * walked * n_kv
     flops = 4 * d * n_heads * sum(s + t + 1 for s, n in zip(start, qlen)
                                   for t in range(n))
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_FP32_ACCURATE_FLOP_PER_S
+    t_ops = flops / (PEAK_BF16_FLOP_PER_S if bf16
+                     else PEAK_FP32_ACCURATE_FLOP_PER_S)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=lib, fp64_ratio=ratio,
-                shape=f"q[{B},{T},{n_heads},{d}] start_pos={start} "
-                      f"{kind} pool[{num_blocks},{ps},{n_kv},{d}] "
-                      f"table[{B},{P}] ({form} form)")
+                library_ms=lib, fp64_ratio=ratio, **extra,
+                shape=f"q[{B},{T},{n_heads},{d}]{' bf16' if bf16 else ''} "
+                      f"start_pos={start} {kind} pool[{num_blocks},{ps},"
+                      f"{n_kv},{d}] table[{B},{P}] ({form} form)")
 
 
-def measure_paged(gen, n_heads, num_blocks, P, positions):
+def measure_paged(gen, n_heads, num_blocks, P, positions, bf16=False):
     """K2 at the engine's decode shape: 8 sequences at ``positions``. Held
     against the plain version in fp32 (1e-4) and in fp64 (within twice the
-    fp32 plain version's error), then timed."""
+    fp32 plain version's error), then timed. With ``bf16``: K2-bf16 under
+    the bf16 gates, bf16 bytes in the bound, SDPA at bf16."""
     from paddle_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_reference,
     )
@@ -661,20 +781,29 @@ def measure_paged(gen, n_heads, num_blocks, P, positions):
     table = _tables(b, P, num_blocks, gen,
                     used=[p // ps + 1 for p in positions])
     q = torch.randn(b, n_heads, d, device="cuda", generator=gen)
+    if bf16:
+        q, k_pool, v_pool = (t.to(torch.bfloat16) for t in (q, k_pool,
+                                                            v_pool))
+    name = "K2-bf16" if bf16 else "K2"
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     out = paged_decode_attention(q, k_pool, v_pool, table, pos)
     ref = paged_decode_reference(q, k_pool, v_pool, table, pos)
-    err = (out - ref).abs().max().item()
-    if not err <= TOL:
+    err = (out.float() - ref.float()).abs().max().item()
+    if not bf16 and not err <= TOL:
         raise AssertionError(f"K2 engine shape: max_abs_err {err} > {TOL}")
     exact = paged_decode_reference(q.double(), k_pool.double(),
                                    v_pool.double(), table, pos)
-    ratio = fp64_ratio(out, ref, exact)
+    extra = {}
+    if bf16:
+        ratio, extra["misround"] = _bf16_gates(name, out, ref, exact)
+    else:
+        ratio = fp64_ratio(out, ref, exact)
     bias = (signed_error(out, exact), signed_error(ref, exact))
     del exact
-    log(f"K2 vs fp64 at q[{b},{n_heads},{d}]: kernel error {ratio:.2f}x the "
-        f"fp32 plain version's; mean signed error kernel {bias[0]:+.2e}, "
-        f"plain {bias[1]:+.2e}")
+    log(f"{name} vs fp64 at q[{b},{n_heads},{d}]: kernel error {ratio:.2f}x "
+        f"the {'bf16' if bf16 else 'fp32'} plain version's; mean signed "
+        f"error kernel {bias[0]:+.2e}, plain {bias[1]:+.2e}"
+        + (f"; misround {extra['misround']:.4f}" if bf16 else ""))
     if not ratio <= 2.0:
         raise AssertionError(f"K2: error against fp64 {ratio:.2f}x the fp32 "
                              "plain version's, above 2x")
@@ -694,16 +823,19 @@ def measure_paged(gen, n_heads, num_blocks, P, positions):
     lib = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qT, kg, vg, attn_mask=mask))
     keys = sum(p + 1 for p in positions)
-    nbytes = 4 * (2 * q.numel() + 2 * keys * n_heads * d) + 4 * b * (P + 1)
+    nbytes = (q.element_size() * (2 * q.numel() + 2 * keys * n_heads * d)
+              + 4 * b * (P + 1))
     flops = 4 * d * n_heads * keys
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_FP32_ACCURATE_FLOP_PER_S
+    t_ops = flops / (PEAK_BF16_FLOP_PER_S if bf16
+                     else PEAK_FP32_ACCURATE_FLOP_PER_S)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=lib, fp64_ratio=ratio,
-                shape=f"q[{b},{n_heads},{d}] pos={positions} "
-                      f"pool[{num_blocks},{ps},{n_heads},{d}] table[{b},{P}]")
+                library_ms=lib, fp64_ratio=ratio, **extra,
+                shape=f"q[{b},{n_heads},{d}]{' bf16' if bf16 else ''} "
+                      f"pos={positions} pool[{num_blocks},{ps},{n_heads},"
+                      f"{d}] table[{b},{P}]")
 
 
 # ------------------------------------------------------------- engine
@@ -723,36 +855,76 @@ def check_against_naive(runner, prompt, out_tokens, sp, max_model_len):
 
 
 def _all_counts():
-    """(name, LaunchCounts) of every serving kernel wrapper."""
+    """(name, LaunchCounts) of every serving kernel wrapper: the fp32-q
+    variants, then the bf16-q ones (a bf16 runner's)."""
     import paddle_tpu_torch.ops.paged_attention as k2
     import paddle_tpu_torch.ops.ragged_paged_attention as k1
     return (("ragged_paged_attention", k1.COUNTS),
             ("ragged_paged_attention_int8", k1.COUNTS_I8),
             ("ragged_paged_attention_fp8", k1.COUNTS_F8),
-            ("paged_decode_attention", k2.COUNTS))
+            ("paged_decode_attention", k2.COUNTS),
+            ("ragged_paged_attention_bf16", k1.COUNTS_BF16),
+            ("ragged_paged_attention_bf16_int8", k1.COUNTS_BF16_I8),
+            ("ragged_paged_attention_bf16_fp8", k1.COUNTS_BF16_F8),
+            ("paged_decode_attention_bf16", k2.COUNTS_BF16))
+
+
+def _bf16_name(base, kind):
+    """The bf16-q variant's name of a serving kernel over a ``kind`` pool
+    ("bf16" or "fp32": the runner's dtype; "int8", "fp8")."""
+    return base + "_bf16" + ("" if kind in ("bf16", "fp32") else f"_{kind}")
+
+
+def _path_kernels(kv_dtype, bf16=False):
+    """The kernels an MHA engine's path launches: K1 for its chunks and K2
+    for its decode steps over fp32 and mixed pools (bf16 variants for a
+    bf16 runner), K1-q for both over int8 / fp8 pools."""
+    sfx = "_bf16" if bf16 else ""
+    if kv_dtype in ("fp32", "mixed"):
+        return (f"ragged_paged_attention{sfx}", f"paged_decode_attention{sfx}")
+    return (f"ragged_paged_attention{sfx}_{kv_dtype}",)
 
 
 def engine_phase(model, cfg, kv_dtype="fp32", seed=0, n_requests=8,
-                 max_tokens=32, ref_tokens=None, max_model_len=4096):
+                 max_tokens=32, ref_tokens=None, max_model_len=4096,
+                 dtype=None, gate_naive=None, report_naive=True, **knobs):
     """Serve the seeded requests from a ``kv_dtype`` pool through
-    create_serving_engine and gate the run (phases 4, 6 and 25). Returns
-    the engine, the launches of each kernel of the path, the decode
-    positions for phase 8 and every request's tokens."""
+    create_serving_engine (``dtype`` and the engine ``knobs``, the weight
+    ladder's among them, passed on) and gate the run (phases 4, 6, 25,
+    31, 32). The batch engine is gated token-exact against naive_generate
+    on two requests only with fp32 pools, compute and weights
+    (``gate_naive``; elsewhere reported: cuBLAS rounds a row differently
+    at another row count; ``report_naive`` False skips that report where
+    a one-slot run gates the same runner). Returns the engine, the
+    launches of each kernel
+    of the path, the decode positions for phase 8 and every request's
+    tokens."""
     from paddle_tpu_torch.inference import create_serving_engine
     from paddle_tpu_torch.serving import SamplingParams
 
+    bf16 = dtype is not None
+    if gate_naive is None:
+        gate_naive = kv_dtype == "fp32" and not bf16 and not knobs
     t0 = time.perf_counter()
     eng = create_serving_engine(
-        model, device="cuda", block_size=16, num_blocks=1024,
+        model, dtype=dtype, device="cuda", block_size=16, num_blocks=1024,
         max_batch_size=8, max_model_len=max_model_len,
-        max_prefill_tokens_per_step=256, kv_dtype=kv_dtype, audit=True)
+        max_prefill_tokens_per_step=256, kv_dtype=kv_dtype, audit=True,
+        **knobs)
     m = eng.metrics
     n_kv = getattr(cfg, "num_kv_heads", cfg.num_heads)
-    log(f"engine setup ({kv_dtype} KV): {type(model).__name__}, "
+    what = f"{kv_dtype} KV" + (", bf16" if bf16 else "") + "".join(
+        f", {k}={v}" for k, v in knobs.items())
+    model_gib = sum(p.numel() * p.element_size()
+                    for p in model.parameters()) / 2**30
+    log(f"engine setup ({what}): {type(model).__name__}, "
         f"{cfg.num_layers} layers, hidden "
-        f"{cfg.hidden_size}, heads {cfg.num_heads}/{n_kv}, fp32 "
-        f"weights {sum(p.numel() for p in model.parameters()) * 4 / 2**30:.2f}"
-        f" GiB, pool {eng.pool.memory_bytes() / 2**30:.3f} GiB "
+        f"{cfg.hidden_size}, heads {cfg.num_heads}/{n_kv}, model "
+        f"{model_gib:.2f} GiB, runner weights "
+        f"{eng.runner.weight_bytes() / 2**30:.3f} GiB "
+        f"(weight_bytes_reduction_x "
+        f"{m.weight_bytes_reduction_x.value:.4f}), pool "
+        f"{eng.pool.memory_bytes() / 2**30:.3f} GiB "
         f"(kv_bytes_reduction_x {m.kv_bytes_reduction_x.value:.4f}), "
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(seed)
@@ -764,7 +936,9 @@ def engine_phase(model, cfg, kv_dtype="fp32", seed=0, n_requests=8,
     counts = _all_counts()
     for _, c in counts:
         c.reset()
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     ids = [eng.add_request(p, sp) for p in prompts]
     decode_ms = []
     t_run = time.perf_counter()
@@ -780,7 +954,8 @@ def engine_phase(model, cfg, kv_dtype="fp32", seed=0, n_requests=8,
              if c.form_launches}
     plain = sum(c.plain_launches for _, c in counts)
     outs = eng.outputs()
-    log(f"engine run ({kv_dtype} KV): {len(outs)}/{n_requests} finished, "
+    peak = torch.cuda.max_memory_allocated()
+    log(f"engine run ({what}): {len(outs)}/{n_requests} finished, "
         f"prompt lens {lens.tolist()}, {int(m.tokens_generated.value)} tokens"
         f" in {wall:.3f} s = {m.tokens_generated.value / wall:.1f} tokens/s, "
         f"TTFT mean {1e3 * m.ttft_s.mean:.1f} ms p50 "
@@ -789,15 +964,16 @@ def engine_phase(model, cfg, kv_dtype="fp32", seed=0, n_requests=8,
         f"{int(m.prefill_chunks.value)} prefill chunks, "
         f"{m.batch_occupancy.count} decode calls, "
         f"{int(m.preemptions.value)} preemptions, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"engine launches ({kv_dtype} KV): {kernel}, by form {forms}, "
+        f"{peak / 2**30:.2f} GiB ({(peak - resident) / 2**30:.3f} GiB over "
+        f"the {resident / 2**30:.2f} GiB resident at the start)")
+    log(f"engine launches ({what}): {kernel}, by form {forms}, "
         f"plain launches {plain}")
     if len(outs) != n_requests or any(
             o.finish_reason != "length" or len(o.output_tokens) != max_tokens
             for o in outs.values()):
         raise AssertionError("not every request finished with max_tokens")
-    if kv_dtype == "fp32":
-        path = ("ragged_paged_attention", "paged_decode_attention")
+    path = _path_kernels(kv_dtype, bf16)
+    if len(path) == 2:
         if min(kernel[n] for n in path) == 0:
             raise AssertionError(f"main path missed a kernel: {kernel}")
         # MHA decode: K2 once a layer on every decode call
@@ -808,7 +984,6 @@ def engine_phase(model, cfg, kv_dtype="fp32", seed=0, n_requests=8,
                 f"{cfg.num_layers} layers x {calls} decode calls")
     else:
         # K1-q on every prefill chunk and every decode call, once a layer
-        path = (f"ragged_paged_attention_{kv_dtype}",)
         calls = int(m.prefill_chunks.value) + m.batch_occupancy.count
         if kernel[path[0]] != cfg.num_layers * calls:
             raise AssertionError(
@@ -819,14 +994,14 @@ def engine_phase(model, cfg, kv_dtype="fp32", seed=0, n_requests=8,
             raise AssertionError(f"{path[0]} did not launch both forms: "
                                  f"{forms}")
     if plain != 0 or any(n not in path and k for n, k in kernel.items()):
-        raise AssertionError(f"the {kv_dtype} path launched another kernel "
+        raise AssertionError(f"the {what} path launched another kernel "
                              f"or a plain version: {kernel}, plain {plain}")
     if not eng.pool.allocator.check_no_leaks():
         raise AssertionError("engine leaked KV pages")
     tokens = [outs[i].output_tokens for i in ids]
     # the longest prompt (prefilled in three chunks) and the shortest
     checked = (int(np.argmax(lens)), int(np.argmin(lens)))
-    if kv_dtype == "fp32":
+    if gate_naive:
         for i in checked:
             verdict = check_against_naive(eng.runner, prompts[i], tokens[i],
                                           sp, max_model_len)
@@ -838,12 +1013,15 @@ def engine_phase(model, cfg, kv_dtype="fp32", seed=0, n_requests=8,
         # and naive_generate run other row counts, and 1-byte K/V turn
         # those 1-ulp differences into whole quantization steps
         from paddle_tpu_torch.serving import naive_generate
-        refs = [naive_generate(eng.runner, prompts[i], sp,
-                               max_model_len=max_model_len)
-                for i in checked]
-        _agreement(f"{kv_dtype} engine vs its naive_generate on requests "
-                   f"{list(checked)}", [tokens[i] for i in checked], refs)
-        _agreement(f"{kv_dtype} engine vs fp32 engine", tokens, ref_tokens)
+        if report_naive:
+            refs = [naive_generate(eng.runner, prompts[i], sp,
+                                   max_model_len=max_model_len)
+                    for i in checked]
+            _agreement(f"{what} engine vs its naive_generate on requests "
+                       f"{list(checked)}", [tokens[i] for i in checked],
+                       refs)
+        if ref_tokens is not None:
+            _agreement(f"{what} engine vs fp32 engine", tokens, ref_tokens)
     positions = [int(n) + max_tokens // 2 for n in lens]
     return (eng, {n: kernel[n] for n in path}, positions, tokens, prompts,
             {n: forms.get(n, {}) for n in path})
@@ -871,18 +1049,23 @@ def gemm_row_invariance(gen, ms=(1, 8, 16, 256, 1024)):
         f"M=1's bit for bit, per weight shape: {json.dumps(same)}")
 
 
-def single_slot_check(model, cfg, kv_dtype, prompts, max_tokens=32):
+def single_slot_check(model, cfg, kv_dtype, prompts, max_tokens=32,
+                      dtype=None, **knobs):
     """An engine with one slot serves each prompt in one prefill chunk and
     then batch-1 decode steps: the row counts of naive_generate, so its
     tokens must equal naive_generate's exactly (int8 scales too: both
-    write the same chunks), through K1-q alone."""
+    write the same chunks), through K1-q alone over int8 / fp8 pools, K1
+    for the chunk and K2 for the decode steps over fp32 pools (bf16
+    variants with ``dtype`` bf16; ``knobs`` such as the weight ladder's
+    passed on). Returns the launches by kernel."""
     from paddle_tpu_torch.inference import create_serving_engine
     from paddle_tpu_torch.serving import SamplingParams
 
     eng = create_serving_engine(
-        model, device="cuda", block_size=16, num_blocks=128,
+        model, dtype=dtype, device="cuda", block_size=16, num_blocks=128,
         max_batch_size=1, max_model_len=1024,
-        max_prefill_tokens_per_step=256, kv_dtype=kv_dtype, audit=True)
+        max_prefill_tokens_per_step=256, kv_dtype=kv_dtype, audit=True,
+        **knobs)
     sp = SamplingParams(max_tokens=max_tokens)
     counts = _all_counts()
     for _, c in counts:
@@ -890,25 +1073,33 @@ def single_slot_check(model, cfg, kv_dtype, prompts, max_tokens=32):
     ids = [eng.add_request(p, sp) for p in prompts]
     outs = eng.run()
     kernel = {name: c.kernel_launches for name, c in counts}
-    name = f"ragged_paged_attention_{kv_dtype}"
-    calls = int(eng.metrics.prefill_chunks.value) + \
-        eng.metrics.batch_occupancy.count
-    if (kernel[name] != cfg.num_layers * calls or sum(kernel.values())
-            != kernel[name] or any(c.plain_launches for _, c in counts)):
-        raise AssertionError(f"single-slot {kv_dtype} engine: {kernel}")
+    path = _path_kernels(kv_dtype, dtype is not None)
+    chunks = int(eng.metrics.prefill_chunks.value)
+    decodes = eng.metrics.batch_occupancy.count
+    L = cfg.num_layers
+    want = ({path[0]: L * (chunks + decodes)} if len(path) == 1
+            else {path[0]: L * chunks, path[1]: L * decodes})
+    what = f"{kv_dtype} KV" + (", bf16" if dtype is not None else "") + \
+        "".join(f", {k}={v}" for k, v in knobs.items())
+    if ({n: k for n, k in kernel.items() if k} != want
+            or any(c.plain_launches for _, c in counts)):
+        raise AssertionError(f"single-slot engine ({what}): {kernel}, want "
+                             f"{want}")
     if not eng.pool.allocator.check_no_leaks():
         raise AssertionError("single-slot engine leaked KV pages")
     for rid, p in zip(ids, prompts):
         verdict = check_against_naive(eng.runner, p, outs[rid].output_tokens,
                                       sp, 1024)
-        log(f"naive_generate check ({kv_dtype} KV, one slot), prompt "
+        log(f"naive_generate check ({what}, one slot), prompt "
             f"{len(p)}: {verdict}")
+    return want
 
 
 def quant_paths(model, runner_cls, kind, seed=2, chunks=(256, 256),
-                steps=8, rows=(2,)):
-    """``model`` (full width) served by ``runner_cls`` from a ``kind``
-    pool: prefill chunks of ``chunks`` tokens (a chunk of at most 8 takes
+                steps=8, rows=(2,), dtype=None):
+    """``model`` (full width) served by ``runner_cls`` (with ``dtype``, the
+    runner create_serving_engine casts to it) from a ``kind`` pool in the
+    runner's dtype: prefill chunks of ``chunks`` tokens (a chunk of at most 8 takes
     K1's decode form) and ``steps`` decode steps whose batch holds the
     sequence in row 0 beside dead slots (``rows[i % len(rows)]`` rows at
     step i); through the kernels, then the same calls on the plain gather
@@ -916,6 +1107,7 @@ def quant_paths(model, runner_cls, kind, seed=2, chunks=(256, 256),
     and the reference run must add none. Returns each run's logits of
     every call (row 0), the kernel run's launches {name: (kernel, plain,
     forms)} and each run's pools."""
+    from paddle_tpu_torch.inference import create_serving_engine
     from paddle_tpu_torch.serving import KVCachePool
 
     cfg = model.cfg
@@ -925,16 +1117,25 @@ def quant_paths(model, runner_cls, kind, seed=2, chunks=(256, 256),
         1, cfg.vocab_size, n).tolist()
 
     def run(attn_impl, feed):
-        runner = runner_cls(model, block_size=ps, max_model_len=ps * P,
-                            attn_impl=attn_impl, kv_dtype=kind)
+        knobs = dict(block_size=ps, max_model_len=ps * P,
+                     attn_impl=attn_impl, kv_dtype=kind)
+        if dtype is None:
+            runner = runner_cls(model, **knobs)
+        else:
+            runner = create_serving_engine(model, dtype, "cuda",
+                                           num_blocks=1 + P, **knobs).runner
+            assert isinstance(runner, runner_cls)
         pool = KVCachePool(cfg.num_layers, 1 + P, ps, runner.n_kv_heads,
-                           runner.head_dim, device="cuda", kv_dtype=kind)
+                           runner.head_dim, runner.dtype, device="cuda",
+                           kv_dtype=kind)
         table = pool.pad_table(pool.allocator.alloc(P), P)
         pools, logits, start = pool.pools, [], 0
+        # copies: a replayed decode returns its graph's output buffer,
+        # which the next replay overwrites
         for c in chunks:
             lg, pools = runner.prefill_chunk(prompt[start:start + c], start,
                                              table, pools)
-            logits.append(lg)
+            logits.append(lg.float().clone())
             start += c
         for i in range(steps):
             if len(feed) <= i:
@@ -944,7 +1145,7 @@ def quant_paths(model, runner_cls, kind, seed=2, chunks=(256, 256),
                 np.asarray([feed[i]] + [0] * dead, np.int32),
                 np.asarray([table] + [[0] * P] * dead, np.int32),
                 np.asarray([n + i] + [0] * dead, np.int32), pools)
-            logits.append(lg[0])
+            logits.append(lg[0].float().clone())
         return logits, pools
 
     counts = _all_counts()
@@ -965,11 +1166,12 @@ def quant_paths(model, runner_cls, kind, seed=2, chunks=(256, 256),
     return out_k, out_r, launched, pools_k, pools_r
 
 
-def quant_model_check(model, runner_cls, kind, want, gate=True, **kw):
-    """Phases 7 and 25: quant_paths' two runs. The kernel run must launch
-    exactly ``want`` ({name: (kernel launches, {form: launches})}) and no
-    plain version; every call's logits within TOL of its max|logit|
-    (reported only, with ``gate`` False). Over int8 / fp8 pools the share
+def quant_model_check(model, runner_cls, kind, want, gate=True, tol=TOL,
+                      **kw):
+    """Phases 7, 25 and 31: quant_paths' two runs. The kernel run must
+    launch exactly ``want`` ({name: (kernel launches, {form: launches})})
+    and no plain version; every call's logits within ``tol`` of its
+    max|logit| (reported only, with ``gate`` False). Over int8 / fp8 pools the share
     of K codes that differ between the two runs' pools is reported by
     layer: each run quantizes the K/V its own attention led to, so a
     last-bit difference upstream can move a code by one step, and that
@@ -984,22 +1186,25 @@ def quant_model_check(model, runner_cls, kind, want, gate=True, **kw):
     worst = max(((a - b).abs().max() / b.abs().max()).item()
                 for a, b in zip(out_k, out_r))
     cfg = model.cfg
+    dtype = kw.get("dtype")
+    label = f"{runner_cls.__name__} {kind}" + (
+        f" (dtype {str(dtype).replace('torch.', '')})" if dtype else "")
     codes = ""
     if kind != "fp32":
         share = [(a[0] != b[0]).float().mean().item()
                  for a, b in zip(pools_k, pools_r)]
         codes = (f"; K codes that differ between the runs' pools, by layer:"
                  f" {' '.join(f'{x:.2e}' for x in share)}")
-    log(f"{runner_cls.__name__} {kind} pools, kernels {json.dumps(got)} vs "
+    log(f"{label} pools, kernels {json.dumps(got)} vs "
         f"the gather path ({cfg.num_layers} layers, full width, chunks "
         f"{list(kw.get('chunks', (256, 256)))} + {kw.get('steps', 8)} "
         f"decode steps of {list(kw.get('rows', (2,)))} rows, all but one "
         f"dead): worst max|logit diff| / max|logit| {worst:.3e}"
-        f"{'' if gate else ' (reported, not gated)'}{codes}")
-    if gate and not worst <= TOL:
-        raise AssertionError(f"{runner_cls.__name__} {kind}: logits differ "
-                             f"from the gather path by {worst:.3e} > {TOL} "
-                             "of their max")
+        f" (gate {tol:.1e}){'' if gate else ', reported, not gated'}{codes}")
+    if gate and not worst <= tol:
+        raise AssertionError(f"{label}: logits differ from the gather path "
+                             f"by {worst:.3e} > {tol} of their max")
+    return worst
 
 
 # ---------------------------------------- sampling, graphs, horizons
@@ -1752,7 +1957,11 @@ SPEC_ARMS = (
                    pipelined=True, horizon_early_stop=True)),
     ("draft", dict(num_speculative_tokens=4, decode_horizon=8,
                    pipelined=True, horizon_early_stop=True,
-                   spec_draft_model="shadow:fp32", spec_adaptive_k=True)))
+                   spec_draft_model="shadow:fp32", spec_adaptive_k=True)),
+    # phase 32's draft rung: the JAX default shadow, int8 weights
+    ("draft_int8", dict(num_speculative_tokens=4, decode_horizon=8,
+                        pipelined=True, horizon_early_stop=True,
+                        spec_draft_model="shadow", spec_adaptive_k=True)))
 
 
 def spec_requests(cfg, seed=0, n=8, prompt=256):
@@ -1833,7 +2042,7 @@ def _spec_round(eng, prompts, label, gen=64):
 def spec_phase(model, cfg):
     """Phase 30: speculative decoding at GPT-3 1.3B with
     bench.py::child_serving_spec's traffic (8 requests, 256-token periodic
-    prompts, 64 tokens each, a 64-token prefill budget), four arms of
+    prompts, 64 tokens each, a 64-token prefill budget), the arms of
     SPEC_ARMS, each served twice (the first round captures its graphs):
     every greedy arm's streams equal off's, two requests equal
     naive_generate; one seeded request (temperature 0.8) on per_step
@@ -1854,8 +2063,8 @@ def spec_phase(model, cfg):
             "forms"].get(k, {})} for k, n in runs[name, 1]["kernel"].items()}
         if name != "off" and not runs[name, 1]["proposed"]:
             raise AssertionError(f"speculation {name}: nothing proposed")
-        if name == "draft" and not runs[name, 1]["accepted"]:
-            raise AssertionError("speculation draft: nothing accepted")
+        if name.startswith("draft") and not runs[name, 1]["accepted"]:
+            raise AssertionError(f"speculation {name}: nothing accepted")
         if name == "off":
             for i in (0, 5):
                 verdict = check_against_naive(
@@ -1898,6 +2107,376 @@ def spec_phase(model, cfg):
         f"tokens/s, acceptance {runs[n, 1]['acceptance']:.4f}, capture "
         f"{runs[n, 1]['capture_s']:.3f} s" for n, _ in SPEC_ARMS))
     return launches
+
+
+# ------------------- bf16 serving, the weight ladder, the mixed pool
+
+# phase 31's 2-layer gate: the bf16 runner's logits against its fp32
+# twin's (bf16 weights and activations against fp32 ones: eight bf16
+# rounding steps of 2^-9 through two layers and the head)
+BF16_TWIN_TOL = 2.0 ** -3
+# phase 33: a mixed pool's fp8 tenant decodes through K2 (MHA, its pool
+# holds fp32 values fp8_round gave), the native fp8 pool's through K1-q's
+# decode form: two orders of summation, whose last-bit differences each
+# layer's fp8 write of the next token's K/V can turn into a whole fp8
+# step (phase 25 reads 4.7e-4 to 5.2e-4 of max|logit| at 24 layers for
+# the same drift). The streams may part only where the twin's top-2
+# margin lies within this share of its max|logit|
+MIXED_MARGIN = 1e-3
+
+
+def bf16_twin_check(model, label):
+    """Phase 31: ``model`` (2 layers at full width, fp32) through two
+    create_serving_engine runners, fp32 and dtype=bfloat16, over their own
+    pools: chunks of 256 and 256 tokens, then 8 one-row decode steps fed
+    the fp32 run's argmax; every call's bf16 logits within BF16_TWIN_TOL
+    of max|logit| of the fp32 twin's; the bf16 run launches only bf16
+    variants (K1-bf16, K2-bf16) and no plain version."""
+    from paddle_tpu_torch.inference import create_serving_engine
+    from paddle_tpu_torch.serving import KVCachePool
+
+    cfg = model.cfg
+    ps, P = 16, 40
+    prompt = np.random.default_rng(4).integers(1, cfg.vocab_size,
+                                               512).tolist()
+    logits, launched = [], None
+    feed = []
+    for dtype in (None, torch.bfloat16):
+        runner = create_serving_engine(model, dtype=dtype, device="cuda",
+                                       block_size=ps, max_model_len=ps * P,
+                                       num_blocks=P + 1).runner
+        pool = KVCachePool(cfg.num_layers, 1 + P, ps, runner.n_kv_heads,
+                           runner.head_dim, runner.dtype, device="cuda")
+        table = pool.pad_table(pool.allocator.alloc(P), P)
+        counts = _zeroed_counts()
+        out = []
+        pools = pool.pools
+        # copies: a replayed decode returns its graph's output buffer,
+        # which the next replay overwrites
+        for start in (0, 256):
+            lg, pools = runner.prefill_chunk(prompt[start:start + 256],
+                                             start, table, pools)
+            out.append(lg.float().clone())
+        for i in range(8):
+            if dtype is None:
+                feed.append(int(torch.argmax(out[-1])))
+            lg, pools = runner.decode(np.asarray([feed[i]], np.int32),
+                                      np.asarray([table], np.int32),
+                                      np.asarray([512 + i], np.int32), pools)
+            out.append(lg[0].float().clone())
+        logits.append(out)
+        launched = _launches(counts)
+        del runner, pool, pools
+    kernel, forms, plain = launched
+    worst = max(((a - b).abs().max() / a.abs().max()).item()
+                for a, b in zip(*logits))
+    log(f"phase 31 {label}: 2-layer bf16 runner vs its fp32 twin, chunks "
+        f"256 + 256 and 8 decode steps: worst max|logit diff| / max|logit| "
+        f"{worst:.3e} (gate {BF16_TWIN_TOL:.3e}); the bf16 run's launches "
+        f"{kernel}, by form {forms}, plain {plain}")
+    if not worst <= BF16_TWIN_TOL:
+        raise AssertionError(f"{label}: bf16 logits {worst:.3e} of max from "
+                             "the fp32 twin's")
+    if plain or set(kernel) != set(_path_kernels("fp32", True)):
+        raise AssertionError(f"{label}: the bf16 twin launched {kernel}, "
+                             f"plain {plain}")
+    return worst
+
+
+# phase 31's gate of the bf16 runner's kernels against the same runner's
+# gather path (attn_impl="reference"), 2 layers at full width. Both runs
+# emit bf16 logits, whose step near the top is 2^-8 to 2^-7 of max|logit|,
+# so where the two runs' fp32 sums part in their last bits the logits
+# part by whole steps: 1-2 steps (5.2e-3 to 9.2e-3 of max at both widths
+# and over every pool) on an H100. Output stores that truncate to bf16 in
+# place of rounding to nearest (half a step of bias) part by 1.5e-2 to
+# 1.6e-2, bf16 halves read in the wrong order by 1.4 to 1.6, and both
+# fail this gate; a wrong pool dtype or kernel variant fails the exact
+# launches
+BF16_GATHER_TOL = 1.2e-2
+
+
+def bf16_gather_check(model, runner_cls, label, gate=True):
+    """Phase 31: ``model`` (2 layers at full width, fp32) through the
+    dtype=bfloat16 runner over bf16, int8 and fp8 pools, its kernels
+    (K1-bf16's span and decode forms and K2-bf16; K1-q with bf16 q)
+    against the same runner's gather path, as phases 7 and 25 hold the
+    fp32 runner: chunks of 256, 256, 8, 3, 1 and 8 decode steps of 1-8
+    rows; the exact launches, no plain version, every call's logits
+    within BF16_GATHER_TOL of max|logit|. Returns {pool: that share}."""
+    n, worst = model.cfg.num_layers, {}
+    for kind in ("fp32", "int8", "fp8"):
+        name = _bf16_name("ragged_paged_attention", kind)
+        if kind == "fp32":
+            want = {name: (5 * n, {"span": 2 * n, "decode": 3 * n}),
+                    "paged_decode_attention_bf16": (8 * n, {})}
+        else:
+            want = {name: (13 * n, {"span": 2 * n, "decode": 11 * n})}
+        log(f"phase 31 {label}: the bf16 runner against its gather path")
+        worst["bf16" if kind == "fp32" else kind] = quant_model_check(
+            model, runner_cls, kind, want, gate, BF16_GATHER_TOL,
+            chunks=(256, 256, 8, 3, 1), steps=8, rows=tuple(range(1, 9)),
+            dtype=torch.bfloat16)
+        _free_the_card()
+    return worst
+
+
+def bf16_serving_phase(model, cfg, max_model_len=4096):
+    """Phase 31: ``model`` (cast to bf16, its fp32 weights freed) served
+    through create_serving_engine(dtype=torch.bfloat16) on phase 4's
+    traffic: bf16 pools at 8 slots (every call through K1-bf16 and
+    K2-bf16, no other kernel, no plain version); a horizon engine
+    (decode_horizon=8, its decode kinds as CUDA graphs) whose streams
+    equal the per-step engine's token for token; one-slot runs over bf16,
+    int8 and fp8 pools token-exact against naive_generate (K1-q with bf16
+    q on the 1-byte pools). Returns {kernel: launches} of the phase's
+    runs and the per-step engine's launches by form."""
+    from paddle_tpu_torch.inference import create_serving_engine
+    from paddle_tpu_torch.serving import SamplingParams
+
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    eng, launches, _, tokens, prompts, forms = engine_phase(
+        model, cfg, dtype=bf16, max_model_len=max_model_len)
+    profile_phase(eng, cfg)
+    del eng
+    _free_the_card()
+    # the horizon engine on the same traffic: its streams equal the
+    # per-step engine's (the same kernels on the same row counts)
+    eng = create_serving_engine(
+        model, dtype=bf16, device="cuda", block_size=16, num_blocks=1024,
+        max_batch_size=8, max_model_len=max_model_len,
+        max_prefill_tokens_per_step=256, audit=True, decode_horizon=8)
+    counts = _zeroed_counts()
+    m = eng.metrics
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ids = [eng.add_request(p, SamplingParams(max_tokens=32))
+           for p in prompts]
+    outs = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    kernel, hforms, plain = _launches(counts)
+    got = [outs[i].output_tokens for i in ids]
+    log(f"phase 31 bf16 horizon engine (decode_horizon 8, graphs): "
+        f"{int(m.tokens_generated.value)} tokens in {wall:.3f} s = "
+        f"{m.tokens_generated.value / wall:.1f} tokens/s, "
+        f"{int(m.decode_horizon_steps.value)} horizon steps, captures "
+        f"{[(c['kind'], round(c['seconds'], 3)) for c in eng.runner.captures]}"
+        f"; launches {kernel}, by form {hforms}, plain {plain}; streams equal "
+        f"the per-step engine's {got == tokens}")
+    if got != tokens or plain or set(kernel) != set(
+            _path_kernels("fp32", True)):
+        raise AssertionError("phase 31: the bf16 horizon engine parts from "
+                             "the per-step engine or left its path")
+    if not eng.pool.allocator.check_no_leaks():
+        raise AssertionError("phase 31: the horizon engine leaked pages")
+    del eng
+    _free_the_card()
+    short = sorted(prompts, key=len)[:2]
+    single = {}
+    for kind in ("fp32", "int8", "fp8"):
+        single[kind] = single_slot_check(model, cfg, kind, short, dtype=bf16)
+        _free_the_card()
+    log(f"phase 31 ({type(model).__name__}): {time.perf_counter() - t0:.1f}"
+        " s")
+    path = {n: launches[n] for n in _path_kernels("fp32", True)}
+    for kind in ("int8", "fp8"):
+        path.update(single[kind])
+    return path, forms
+
+
+def ladder_bytes(model, weight_dtype, group=128):
+    """The bytes a runner on the weight ladder should hold, from the
+    shapes alone: every matmul weight the runner quantizes (the 2-D
+    weights but the embeddings) at its rung (int8 codes and an fp32 scale
+    an output channel; int4 half a byte an element and an fp32 scale a
+    group of rows and output channel; fp8 one byte), every other
+    parameter at fp32."""
+    from paddle_tpu_torch.quantization import int4_weight_bytes
+    total = 0
+    for name, p in model.named_parameters():
+        quantized = p.dim() == 2 and not any(
+            k in name for k in ("embed", "wte", "wpe"))
+        if not quantized:
+            total += 4 * p.numel()
+        elif weight_dtype == "int4":
+            total += int4_weight_bytes(*p.shape, group)
+        elif weight_dtype == "int8":
+            total += p.numel() + 4 * p.shape[1]
+        else:
+            total += p.numel()
+    return total
+
+
+def weight_ladder_phase(model, cfg, ref_tokens):
+    """Phase 32: ``model`` (fp32 compute) with its matmul weights on each
+    rung of the ladder, int8, int4 (group 128) and fp8, on phase 4's
+    traffic: the engine's tokens/s, decode-step ms and peak memory
+    (engine_phase's lines), the runner's weight bytes equal to
+    `ladder_bytes` and weight_bytes_reduction_x to the fp32 bytes over
+    them; a one-slot engine on the same rung token-exact against
+    naive_generate. Returns {rung: reduction factor}."""
+    from paddle_tpu_torch.quantization import INT4_GROUP_SIZE
+
+    t0 = time.perf_counter()
+    fp32_bytes = sum(4 * p.numel() for p in model.parameters())
+    factors = {}
+    for wd in ("int8", "int4", "fp8"):
+        knobs = dict(weight_dtype=wd, weight_group_size=INT4_GROUP_SIZE)
+        # the batch engine's naive_generate report is left out: the
+        # one-slot run below gates the same runner against it
+        eng, _, _, _, prompts, _ = engine_phase(
+            model, cfg, ref_tokens=ref_tokens, report_naive=False, **knobs)
+        got = eng.runner.weight_bytes()
+        want = ladder_bytes(model, wd, INT4_GROUP_SIZE)
+        factors[wd] = eng.metrics.weight_bytes_reduction_x.value
+        log(f"phase 32 {wd} weights: runner {got} bytes, the shapes' "
+            f"formula {want}; weight_bytes_reduction_x {factors[wd]:.4f} "
+            f"(fp32 {fp32_bytes} / formula = {fp32_bytes / want:.4f})")
+        if got != want or abs(factors[wd] - fp32_bytes / want) > 1e-9:
+            raise AssertionError(f"phase 32 {wd}: weight bytes {got} != "
+                                 f"{want} or the factor disagrees")
+        if wd == "int4":    # int8's and fp8's casts: one eager copy each
+            profile_phase(eng, cfg, steps=2)
+        del eng
+        _free_the_card()
+        single_slot_check(model, cfg, "fp32", sorted(prompts, key=len)[:2],
+                          **knobs)
+        _free_the_card()
+    log(f"phase 32: {time.perf_counter() - t0:.1f} s")
+    return factors
+
+
+def _gate_twin(label, runner, prompt, got, want, tol=None):
+    """A tenant's stream against its twin's: equal, or (with ``tol``)
+    parting only at a token where the twin's top-2 margin lies within
+    ``tol`` of its max|logit|. Returns the token where they part (None)."""
+    if got == want:
+        return None
+    from paddle_tpu_torch.serving import KVCachePool
+    j = next((k for k, (x, y) in enumerate(zip(got, want)) if x != y),
+             min(len(got), len(want)))
+    ctx = list(prompt) + list(want[:j])
+    n = -(-len(ctx) // runner.block_size)
+    pool = KVCachePool(runner.num_layers, n + 1, runner.block_size,
+                       runner.n_kv_heads, runner.head_dim,
+                       device=runner.device, kv_dtype=runner.kv_dtype)
+    pool.tag_pages(pool.allocator.alloc(n), pool.native_kv_tag())
+    logits = runner.prefill(ctx, list(range(1, n + 1)), pool.pools)[0]
+    top2 = torch.topk(logits.float(), 2).values
+    margin = (top2[0] - top2[1]).item()
+    top = logits.float().abs().max().item()
+    log(f"{label}: parts from its twin at token {j}: {got[j:j + 4]} against "
+        f"{want[j:j + 4]}; the twin's top-2 margin there {margin:.4e} = "
+        f"{margin / top:.3e} of its max|logit|")
+    if tol is None or margin > tol * top:
+        raise AssertionError(f"{label}: parts from its twin at token {j}")
+    return j
+
+
+def mixed_pool_phase(model, cfg):
+    """Phase 33: ``model`` on a kv_dtype="mixed" pool with the prefix cache
+    on, phase 28's shared-prompt traffic (request 0 first), requests
+    tagged fp32 and fp8 in turn: every request finishes; after every step
+    no page is mapped by an fp8 and an fp32 tenant at once (the armed
+    auditor also holds each tenant's pages to its tag and the device tag
+    planes to the host tags); K1 and K2 only (MHA), no plain version; no
+    leak once the cache is released. Then one-slot twins on the first
+    three requests (fp32, fp8, fp32 tenants, 16 tokens): each tenant's
+    stream equals its twin engine's, the fp32 engine's exactly, the
+    native fp8 engine's up to MIXED_MARGIN. Returns the run's launches."""
+    from paddle_tpu_torch.inference import create_serving_engine
+    from paddle_tpu_torch.serving import SamplingParams
+
+    t0 = time.perf_counter()
+    prompts = prefix_requests(cfg)
+    tags = ["fp32", "fp8"] * (len(prompts) // 2)
+    eng = create_serving_engine(
+        model, device="cuda", block_size=16, num_blocks=1024,
+        max_batch_size=8, max_model_len=1024,
+        max_prefill_tokens_per_step=256, kv_dtype="mixed",
+        enable_prefix_cache=True, audit=True)
+    m = eng.metrics
+    counts = _zeroed_counts()
+    shared = 0
+
+    def step():
+        nonlocal shared
+        eng.step()
+        pages = {"fp32": set(), "fp8": set()}
+        for req in eng.scheduler.running:
+            pages[req.kv.kv_tag].update(req.kv.pages)
+        shared += len(pages["fp32"] & pages["fp8"])
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ids = [eng.add_request(prompts[0], SamplingParams(max_tokens=32,
+                                                      kv_dtype=tags[0]))]
+    while m.tokens_generated.value == 0:
+        step()
+    ids += [eng.add_request(p, SamplingParams(max_tokens=32, kv_dtype=tg))
+            for p, tg in zip(prompts[1:], tags[1:])]
+    while eng.has_work():
+        step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    kernel, forms, plain = _launches(counts)
+    outs = eng.outputs()
+    ttft = [1e3 * outs[i].ttft_s for i in ids]
+    log(f"phase 33 mixed pool (prefix cache on, tenants {tags}): "
+        f"{int(m.tokens_generated.value)} tokens in {wall:.3f} s = "
+        f"{m.tokens_generated.value / wall:.1f} tokens/s; TTFT mean "
+        f"{statistics.mean(ttft):.1f} ms; prefill tokens computed "
+        f"{int(m.prefill_tokens.value)}, prefix_hit_tokens "
+        f"{int(m.prefix_hit_tokens.value)}; pages mapped by both rungs "
+        f"{shared}; pool {eng.pool.memory_bytes() / 2**30:.3f} GiB "
+        f"(kv_bytes_reduction_x {m.kv_bytes_reduction_x.value:.6f}); "
+        f"launches {kernel}, by form {forms}, plain {plain}")
+    if any(outs[i].finish_reason != "length" for i in ids):
+        raise AssertionError("phase 33: not every request finished")
+    if shared or plain or set(kernel) != set(_path_kernels("mixed")):
+        raise AssertionError(f"phase 33: {shared} pages shared across "
+                             f"rungs, launches {kernel}, plain {plain}")
+    eng.release_prefix_cache()
+    if not eng.pool.allocator.check_no_leaks():
+        raise AssertionError("phase 33: leaked pages")
+    run = dict(launches=kernel, forms=forms)
+    del eng
+    _free_the_card()
+    # one-slot twins
+    few, sps = prompts[:3], [SamplingParams(max_tokens=16, kv_dtype=t)
+                             for t in ("fp32", "fp8", "fp32")]
+    streams, runners = {}, {}
+    for kind in ("mixed", "fp32", "fp8"):
+        eng = create_serving_engine(
+            model, device="cuda", block_size=16, num_blocks=128,
+            max_batch_size=1, max_model_len=1024,
+            max_prefill_tokens_per_step=256, kv_dtype=kind,
+            enable_prefix_cache=True, audit=True)
+        rids = [eng.add_request(p, sp if kind == "mixed"
+                                else SamplingParams(max_tokens=16))
+                for p, sp in zip(few, sps)]
+        outs = eng.run()
+        streams[kind] = [outs[r].output_tokens for r in rids]
+        runners[kind] = eng.runner
+        eng.release_prefix_cache()
+        if not eng.pool.allocator.check_no_leaks():
+            raise AssertionError(f"phase 33 one-slot {kind}: leaked pages")
+        del eng
+        _free_the_card()
+    parted = []
+    for i, sp in enumerate(sps):
+        twin = sp.kv_dtype
+        j = _gate_twin(f"phase 33 one-slot {twin} tenant {i}",
+                       runners[twin], few[i], streams["mixed"][i],
+                       streams[twin][i],
+                       MIXED_MARGIN if twin == "fp8" else None)
+        parted.append(j)
+    log(f"phase 33 one-slot twins: fp32 tenants equal the fp32 engine, fp8 "
+        f"tenants the native fp8 engine (token where each parts, None = "
+        f"never: {parted}); {time.perf_counter() - t0:.1f} s")
+    return run
 
 
 # ------------------------------------------------------------ profile
@@ -1956,8 +2535,9 @@ def _device_ms(prof):
 
 def profile_phase(eng, cfg, seed=1, n_requests=8, prompt_len=300,
                   steps=4):
-    """Where a step's time goes (phases 5 and 6, K1 counting K1-q's
-    launches on an int8 / fp8 pool): torch.profiler over (a) steps that each
+    """Where a step's time goes (phases 5, 6, 31 and 32; K1 counting the
+    launches of the engine's variant: K1-q's on an int8 / fp8 pool, the
+    bf16 variants' on a bf16 runner): torch.profiler over (a) steps that each
     compute one fresh 256-token prefill chunk and nothing else, and (b)
     decode-only steps of 8 sequences. Device time is summed by kernel
     group; the idle share is 1 - device busy / host wall, the wall taken
@@ -1969,7 +2549,12 @@ def profile_phase(eng, cfg, seed=1, n_requests=8, prompt_len=300,
     from paddle_tpu_torch.serving import SamplingParams
 
     rng = np.random.default_rng(seed)
-    c1 = getattr(k1, K1_VARIANTS[eng.kv_dtype][0])   # K1 or K1-q
+    dt = eng.runner.dtype
+    c1 = k1.counts_for(dt, eng.pool.pools[0][0].dtype)   # K1 or K1-q
+    c2 = k2.counts_for(dt)
+    what = f"{eng.kv_dtype} KV" + (", bf16" if dt == torch.bfloat16 else "") \
+        + (f", {eng.runner.weight_dtype} weights"
+           if eng.runner.weight_dtype != "fp32" else "")
 
     def add(n, length, max_tokens):
         for _ in range(n):
@@ -1985,7 +2570,7 @@ def profile_phase(eng, cfg, seed=1, n_requests=8, prompt_len=300,
         return 1e3 * (time.perf_counter() - t) / steps
 
     def window(label, wall):
-        launches = (c1.kernel_launches, k2.COUNTS.kernel_launches)
+        launches = (c1.kernel_launches, c2.kernel_launches)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1995,14 +2580,14 @@ def profile_phase(eng, cfg, seed=1, n_requests=8, prompt_len=300,
         groups, top = _device_ms(prof)
         busy = sum(groups.values()) / steps
         n1 = c1.kernel_launches - launches[0]
-        n2 = k2.COUNTS.kernel_launches - launches[1]
+        n2 = c2.kernel_launches - launches[1]
         per = {g: round(ms / steps, 4) for g, ms in
                sorted(groups.items(), key=lambda kv: -kv[1])}
         per_launch = {name: round(groups.get(g, 0.0) / n, 4)
                       for name, g, n in (
                           ("K1", "K1 ragged_paged_attention", n1),
                           ("K2", "K2 paged_decode_attention", n2)) if n}
-        log(f"profile ({eng.kv_dtype} KV) {label}: host wall {wall:.3f} "
+        log(f"profile ({what}) {label}: host wall {wall:.3f} "
             f"ms/step, device busy {busy:.3f} ms/step, idle share {1 - busy / wall:.3f}; K1/K2 "
             f"launches per step {n1 / steps:.0f}/{n2 / steps:.0f}, device "
             f"ms per launch {json.dumps(per_launch)}; device ms/step by "
@@ -3600,6 +4185,7 @@ def gpt_phases(gen):
     profile_phase(eng, cfg)
     del eng
     _free_the_card()
+    lap("GPT fp32 engine and profile")
     gpt = {"engine": launches}
     for kind in ("int8", "fp8"):
         counts = dict(_all_counts())
@@ -3608,6 +4194,7 @@ def gpt_phases(gen):
         single_slot_check(model, cfg, kind, sorted(prompts, key=len)[:2])
         gpt[f"single_slot_{kind}"] = {name: counts[name].kernel_launches}
         _free_the_card()
+    lap("GPT int8 / fp8 one-slot")
     # K1, K1-q and K2 at the GPT path's shapes (16 heads of 128, n_rep 1)
     # against their plain versions on the same pools: 256-token chunks
     # (K1's span form), chunks of 1-8 rows in the 8-row bucket (its
@@ -3621,6 +4208,17 @@ def gpt_phases(gen):
                          for label, spans in (("chunk", SPANS_CHUNK),
                                               ("short chunks", SPANS_SHORT),
                                               ("decode", SPANS_DECODE)))
+    # and their bf16 variants (phase 31) at the same shapes, bf16 gates
+    errs["paged_decode_attention_bf16"] = check_paged(gen, h, " GPT",
+                                                      bf16=True)[0]
+    for kind in ("bf16", "int8", "fp8"):
+        errs[_bf16_name("ragged_paged_attention", kind)] = max(
+            check_ragged(h, h, gen, f"GPT {label}", kind, spans,
+                         bf16=True)[0]
+            for label, spans in (("chunk", SPANS_CHUNK),
+                                 ("short chunks", SPANS_SHORT),
+                                 ("decode", SPANS_DECODE)))
+    lap("serving kernels vs plain, GPT shapes (bf16 variants: phase 31)")
     # then the same through GPTRunner against its gather path: chunks of
     # 256, 256, 8, 3, 1, decode steps of 1-8 rows; at full depth over
     # fp32 pools; over int8 / fp8 at 2 layers as phase 7 (each run
@@ -3642,15 +4240,29 @@ def gpt_phases(gen):
                           chunks=(256, 256, 8, 3, 1), steps=8,
                           rows=tuple(range(1, 9)))
         _free_the_card()
+    lap("GPTRunner vs gather path")
+    bf16_twin_check(small, "GPT-3 1.3B width")
+    bf16_gather_check(small, GPTRunner, "GPT-3 1.3B width")
     del small
+    lap("phase 31 2-layer twin and gather-path checks")
     gpt["paged_generator"] = {
         "paged_decode_attention": gpt_generator_phase(model, cfg)}
     _free_the_card()
+    lap("GPT generators")
     t_spec = time.perf_counter()
     gpt["speculation"] = spec_phase(model, cfg)     # phase 30
     log(f"phase 30: {time.perf_counter() - t_spec:.1f} s")
+    _free_the_card()
+    lap("phase 30 (its draft_int8 arm: phase 32)")
+    # phase 31 at GPT-3 1.3B: the model cast to bf16 in place, phase 25's
+    # traffic
+    model.to(torch.bfloat16)
+    _free_the_card()
+    gpt["bf16"], _ = bf16_serving_phase(model, cfg,
+                                        max_model_len=cfg.max_seq_len)
     del model
     _free_the_card()
+    lap("phase 31 engines")
     trainer, batch, flash = gpt_trainer_phase(cfg)
     gpt["trainer_o1"] = flash
     train_profile_phase(
@@ -3661,6 +4273,7 @@ def gpt_phases(gen):
     _free_the_card()
     dense_check_phase(replace(cfg, num_layers=2), gpt=True)
     _free_the_card()
+    lap("GPT trainer and dense check")
     b, s, h, d = 8, cfg.max_seq_len, cfg.num_heads, \
         cfg.hidden_size // cfg.num_heads
     ratio, err, share = check_bf16(gen, "GPT trainer shape", b, s, s, h, d,
@@ -3673,6 +4286,7 @@ def gpt_phases(gen):
                    "misround": share[name]}
             for name, _ in FLASH_KERNELS}
     log(f"GPT paths' launches: {json.dumps(gpt)}")
+    lap("GPT bf16 flash checks and timings")
     return gpt, rows, errs
 
 
@@ -3707,16 +4321,22 @@ def _kernel_label(mangled: str) -> str:
     if found is None:
         return mangled
     at, name = found
-    args = re.match(r"I((?:Li\d+E)+)E", mangled[at + len(name):])
+    # template arguments: integers (Li128E) and the element types of the
+    # serving kernels (f: float, 13__nv_bfloat16), as 'f32' and 'bf16'
+    args = re.match(r"I((?:Li\d+E|f|13__nv_bfloat16)+)E",
+                    mangled[at + len(name):])
     if not args:
         return name
     return name + "<" + ",".join(
-        re.findall(r"Li(\d+)E", args.group(1))) + ">"
+        a or {"f": "f32"}.get(t, "bf16") for a, t in re.findall(
+            r"Li(\d+)E|(f|13__nv_bfloat16)", args.group(1))) + ">"
 
 
 # the kernels that multiply on the tensor cores, and every instantiation
 # of them the build must hold (the ragged span form's second argument is
-# the pool type: 0 fp32, 1 int8, 2 fp8): the three bf16 kernels run on
+# the pool type: 0 fp32, 1 int8, 2 fp8, 3 bf16, its third q's type: fp32
+# q over fp32, int8 and fp8 pools, bf16 q over bf16, int8 and fp8 pools,
+# RAGGED_SPAN_TYPES): the three bf16 kernels run on
 # wgmma at d <= 128 (flash_attention_wgmma.cu) and keep their mma.sync
 # kernels for d <= 256 only
 WGMMA_KERNELS = ("flash_fwd_bf16_wgmma_kernel",
@@ -3726,11 +4346,14 @@ TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                        "flash_bwd_dkv_kernel", "flash_fwd_bf16_kernel",
                        "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
                        *WGMMA_KERNELS, "ragged_span_kernel")
+RAGGED_SPAN_TYPES = ((0, "f32"), (1, "f32"), (2, "f32"), (3, "bf16"),
+                     (1, "bf16"), (2, "bf16"))
 TENSOR_CORE_INSTANTIATIONS = (
     *(f"{k}<{d}>" for k in TENSOR_CORE_KERNELS[:3] for d in (64, 128, 256)),
     *(f"{k}<256>" for k in TENSOR_CORE_KERNELS[3:6]),
     *(f"{k}<{d}>" for k in WGMMA_KERNELS for d in (64, 128)),
-    *(f"ragged_span_kernel<{d},{kv}>" for d in (128, 256) for kv in range(3)))
+    *(f"ragged_span_kernel<{d},{kv},{qt}>" for d in (128, 256)
+      for kv, qt in RAGGED_SPAN_TYPES))
 
 
 def build_report(build) -> None:
@@ -3812,9 +4435,11 @@ def main() -> int:
     log(f"device: {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
 
+    _LAP_CLOCK[0] = t_start
     _build.library()
     log(f"build: {_build.BUILD.seconds:.1f} s -> {_build.BUILD.path.name}")
     build_report(_build.BUILD)
+    lap("build")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -3826,7 +4451,24 @@ def main() -> int:
             check_ragged(32, 32, gen, "MHA chunk", kind, SPANS_CHUNK),
             check_ragged(32, 8, gen, "GQA", kind))
     errs["paged_decode_attention"] = check_paged(gen)
+    # phase 31's kernels at the Llama shapes: bf16 q over bf16 pools
+    # (K1-bf16), over int8 / fp8 pools (K1-q), and K2-bf16; each result
+    # (max abs error, fp64 ratio, misround share)
+    bf16_checks = {}
+    for kind in ("bf16", "int8", "fp8"):
+        bf16_checks[_bf16_name("ragged_paged_attention", kind)] = [
+            check_ragged(32, 32, gen, "MHA decode", kind, SPANS_DECODE,
+                         bf16=True),
+            check_ragged(32, 32, gen, "MHA chunk", kind, SPANS_CHUNK,
+                         bf16=True),
+            check_ragged(32, 8, gen, "GQA", kind, bf16=True)]
+    bf16_checks["paged_decode_attention_bf16"] = [check_paged(gen,
+                                                              bf16=True)]
+    for name, res in bf16_checks.items():
+        errs[name] = max(r[0] for r in res)
+    lap("serving kernels vs plain, Llama shapes (bf16 variants: phase 31)")
     sampler_phase()
+    lap("sampler")
 
     cfg = LLAMA2_7B
     model = Llama(cfg, device="cuda", seed=0)
@@ -3835,6 +4477,7 @@ def main() -> int:
     profile_phase(eng, cfg)
     del eng
     _free_the_card()
+    lap("Llama fp32 engine and profile")
     greedy_stops = [t[20] for t in fp32_tokens[:4]]
     graphs_phase(model, cfg, "fp32")
     _free_the_card()
@@ -3842,6 +4485,7 @@ def main() -> int:
         "paged_decode_attention": horizon_phase(model, cfg, "fp32",
                                                 greedy_stops)}
     gemm_row_invariance(gen)
+    lap("Llama fp32 graphs and horizons")
     for kind in ("int8", "fp8"):
         eng, more, _, _, prompts, more_forms = engine_phase(
             model, cfg, kind, ref_tokens=fp32_tokens)
@@ -3857,21 +4501,46 @@ def main() -> int:
         # the two shortest prompts fit one 256-token chunk
         single_slot_check(model, cfg, kind, sorted(prompts, key=len)[:2])
         _free_the_card()
+    lap("Llama int8 / fp8 engines, graphs, horizons, one-slot")
     # phases 28-29: the shared-prefix page cache and fused ragged steps
     t_new = time.perf_counter()
     prefix_forms = prefix_phase(model, cfg)
     _free_the_card()
     ragged = ragged_phase(model, cfg, fp32_tokens)
     log(f"phases 28-29: {time.perf_counter() - t_new:.1f} s")
+    _free_the_card()
+    lap("phases 28-29")
+    # phases 33 and 32 on the fp32 model, then phase 31 on the same model
+    # cast to bf16 in place (its fp32 weights freed)
+    t_new = time.perf_counter()
+    mixed = mixed_pool_phase(model, cfg)
+    _free_the_card()
+    lap("phase 33")
+    ladder = weight_ladder_phase(model, cfg, fp32_tokens)
+    _free_the_card()
+    lap("phase 32")
+    model.to(torch.bfloat16)
+    log(f"phase 31: the model cast to bf16, "
+        f"{_free_the_card():.2f} GiB allocated")
+    bf16_path, bf16_forms = bf16_serving_phase(model, cfg)
+    launches.update(bf16_path)
+    forms.update(bf16_forms)
+    log(f"phases 31-33: {time.perf_counter() - t_new:.1f} s; weight bytes "
+        f"reduction by rung {json.dumps(ladder)}")
     del model
     _free_the_card()
+    lap("phase 31 engines")
     small = Llama(replace(cfg, num_layers=2), device="cuda", seed=2)
     for kind in ("int8", "fp8"):
         quant_model_check(small, LlamaRunner, kind, {
             f"ragged_paged_attention_{kind}": (20, {"span": 4,
                                                     "decode": 16})})
+    lap("Llama 2-layer int8 / fp8 vs gather path")
+    twin = bf16_twin_check(small, "LLaMA-2-7B width")
+    gather = bf16_gather_check(small, LlamaRunner, "LLaMA-2-7B width")
     del small
     _free_the_card()
+    lap("phase 31 2-layer twin and gather-path checks")
 
     P = 4096 // 16
     decode = (positions, [1] * len(positions), 1)
@@ -3894,6 +4563,26 @@ def main() -> int:
                                         dec["max_abs_err"])
     meas["paged_decode_attention"] = measure_paged(gen, cfg.num_heads, 1024,
                                                    P, positions)
+    # the bf16 variants (phase 31) at the same shapes: the chunk and the
+    # decode step (over bf16 pools the decode form at GQA n_rep 4: MHA
+    # decode takes K2-bf16), K2-bf16 at the engine's decode positions
+    for kind in ("bf16", "int8", "fp8"):
+        name = _bf16_name("ragged_paged_attention", kind)
+        meas[name] = measure_ragged(gen, cfg.num_heads, 1024, P, kind,
+                                    bf16=True)
+        meas[name]["decode"] = measure_ragged(
+            gen, cfg.num_heads, 1024, P, kind, decode, bf16=True,
+            n_kv=cfg.num_heads // 4 if kind == "bf16" else None)
+    meas["paged_decode_attention_bf16"] = measure_paged(
+        gen, cfg.num_heads, 1024, P, positions, bf16=True)
+    for name, res in bf16_checks.items():
+        m = meas[name]
+        parts = [m] + ([m["decode"]] if "decode" in m else [])
+        m["fp64_ratio"] = max([r[1] for r in res]
+                              + [t["fp64_ratio"] for t in parts])
+        m["misround"] = max([r[2] for r in res]
+                            + [t["misround"] for t in parts])
+        m["max_abs_err"] = max(t["max_abs_err"] for t in parts)
     # K1 at the shapes of this slice's paths: phase 29's fused step (one
     # live 256-token chunk beside 7 decode rows, T = 256, span form) and
     # phase 30's verify spans at GPT-3 1.3B's 16 heads (1-5 live rows in
@@ -3902,18 +4591,25 @@ def main() -> int:
                                                "fp32", SPANS_FUSED),
                   "verify_span": measure_ragged(gen, 16, 1024, P, "fp32",
                                                 SPANS_VERIFY)}
+    bf16_verify = measure_ragged(gen, 16, 1024, P, "bf16", SPANS_VERIFY,
+                                 bf16=True)
+    lap("serving kernel timings (bf16 variants: phase 31)")
     rows = []
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "fp64_ratio")
+            "fp64_ratio", "misround")
     k1_src = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
     k1_tpu = "paddle_tpu/ops/pallas/ragged_paged_attention.py:142"
+    k2_src = "paddle_tpu_torch/csrc/paged_decode_attention.cu"
+    k2_tpu = "paddle_tpu/ops/pallas/paged_attention.py:92"
     for name, src, replaces in (
             ("ragged_paged_attention", k1_src, k1_tpu),
             ("ragged_paged_attention_int8", k1_src, k1_tpu),
             ("ragged_paged_attention_fp8", k1_src, k1_tpu),
-            ("paged_decode_attention",
-             "paddle_tpu_torch/csrc/paged_decode_attention.cu",
-             "paddle_tpu/ops/pallas/paged_attention.py:92")):
+            ("paged_decode_attention", k2_src, k2_tpu),
+            ("ragged_paged_attention_bf16", k1_src, k1_tpu),
+            ("ragged_paged_attention_bf16_int8", k1_src, k1_tpu),
+            ("ragged_paged_attention_bf16_fp8", k1_src, k1_tpu),
+            ("paged_decode_attention_bf16", k2_src, k2_tpu)):
         m = meas[name]
         shapes = [(m["shape"], m)]
         if "decode" in m:
@@ -3933,9 +4629,23 @@ def main() -> int:
         if name in horizon_launches:
             row["horizon_launches"] = horizon_launches[name]
         if "decode" in m:
-            row.update({f"decode_{k}": m["decode"][k] for k in keys})
+            row.update({f"decode_{k}": m["decode"][k] for k in keys
+                        if k in m["decode"]})
         if "decode_mha_fp64_ratio" in m:
             row["decode_mha_fp64_ratio"] = m["decode_mha_fp64_ratio"]
+        if name in mixed["launches"]:       # phase 33's mixed pool
+            row["mixed_launches"] = mixed["launches"][name]
+        if name == "ragged_paged_attention_bf16":
+            t = bf16_verify
+            log(f"timing K1-bf16 at the verify span shape {t['shape']}: "
+                f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+                f"(SDPA at bf16 on pre-gathered K/V) {t['library_ms']:.4f} "
+                f"ms, max_abs_err {t['max_abs_err']:.3e}")
+            row["verify_span"] = {k: t[k] for k in ("shape", "max_abs_err",
+                                                    *keys) if k in t}
+            row["twin_2_layer_max_rel"] = twin
+            row["gather_2_layer_max_rel"] = gather
         if name == "ragged_paged_attention":
             for label, t in new_shapes.items():
                 log(f"timing K1 at the {label.replace('_', ' ')} shape "
@@ -3945,7 +4655,7 @@ def main() -> int:
                     f"{t['library_ms']:.4f} ms, max_abs_err "
                     f"{t['max_abs_err']:.3e}")
                 row[label] = {k: t[k] for k in ("shape", "max_abs_err",
-                                                *keys)}
+                                                *keys) if k in t}
                 row["max_abs_err"] = max(row["max_abs_err"],
                                          t["max_abs_err"])
             row["fused_step"].update(
@@ -3959,6 +4669,7 @@ def main() -> int:
     _free_the_card()
     flash_err = flash_checks(gen)
     masked_err = masked_checks(gen)
+    lap("flash kernels vs plain")
     left = _free_the_card()
     log(f"before the trainer: {left:.3f} GiB allocated")
     if left >= 1.0:
@@ -3978,6 +4689,7 @@ def main() -> int:
     _free_the_card()
     flash = measure_flash(gen)
     _free_the_card()
+    lap("Llama trainer, dense check, flash timings")
 
     # the ERNIE pretraining path: the masked kernels (K3-m)
     ernie, data, masked_launches, _ = ernie_trainer_phase(ERNIE3_BASE)
@@ -3992,6 +4704,7 @@ def main() -> int:
     _free_the_card()
     masked = measure_flash(gen, h=12, d=64, causal=False, att=data[2])
     _free_the_card()
+    lap("ERNIE trainer, check, masked flash timings")
 
     # the bf16 AMP paths: the bf16 kernels, ERNIE and Llama at O1, O2
     bf16_checks = bf16_flash_checks(gen, data[2])
@@ -4028,6 +4741,7 @@ def main() -> int:
     _free_the_card()
     amp_twins_phase(replace(cfg, num_layers=2))
     _free_the_card()
+    lap("bf16 AMP paths")
     log(f"before the GPT phases: {time.perf_counter() - t_start:.1f} s")
 
     # the GPT family at GPT-3 1.3B widths: serving, generators, O1 training
@@ -4080,6 +4794,8 @@ def main() -> int:
                 rows[-1]["gpt_launches"] = {
                     "trainer_o1": gpt_launches["trainer_o1"][name]}
                 rows[-1]["gpt_shape"] = gpt_bf16[name]
+    lap("kernels line")
+    log(f"time by part (s): {json.dumps(_LAPS)}")
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

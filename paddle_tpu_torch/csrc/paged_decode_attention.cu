@@ -1,4 +1,5 @@
-// Paged single-token decode attention (fp32 pools, MHA) for Hopper, sm_90a.
+// Paged single-token decode attention (fp32 or bf16, MHA) for Hopper,
+// sm_90a.
 //
 // Replaces: paddle_tpu/ops/pallas/paged_attention.py ::
 //   paged_decode_attention (kernel body _paged_decode_kernel).
@@ -9,10 +10,19 @@
 // call), capped at P * page_size; pages past pos are never read. A sequence
 // with no visible key (pos < 0) gets zeros. Returns [b, h, d].
 //
-// What bounds it on the H100: the bytes. Each visible key costs 2 * d * 4
-// bytes of K and V against 4 * d FLOPs, about half an operation per byte,
-// so the page reads at 3.35 TB/s set the floor; the sums stay fp32 on the
-// CUDA cores (the tensor cores have nothing to offer at that ratio).
+// Types (the T template argument): q, the pools and the output all fp32
+// (K2), or all bf16 (K2-bf16, a bf16 serving runner's). As the Pallas
+// kernel casts each tile to fp32 (paged_attention.py:65-67), bf16 values
+// are staged as bf16 (a stage is half the bytes) and widened to fp32
+// where they are read (elem_io.cuh); the softmax, the warps' and the
+// splits' states and the merge stay fp32, and the output is rounded to
+// bf16 where it is written (:89).
+//
+// What bounds it on the H100: the bytes. Each visible key costs 2 * d *
+// sizeof(T) bytes of K and V against 4 * d FLOPs, at most one operation
+// per byte, so the page reads at 3.35 TB/s set the floor; the sums stay
+// fp32 on the CUDA cores (the tensor cores have nothing to offer at that
+// ratio).
 //
 // Design (flash-decoding over a persistent grid):
 // - Each (sequence, head)'s visible keys are cut into splits of
@@ -26,7 +36,8 @@
 //   one item above another (a stride over every possible split, live or
 //   not, left some blocks three items where most had one or two).
 // - Inside a split, warp w owns the tiles w, w + 4, ... of KT keys (4 at
-//   d <= 128, 2 above: 2 KB of K rows either way) and keeps its own online
+//   d <= 128, 2 above: 2 KB of fp32 K rows either way) and keeps its own
+//   online
 //   softmax (m, l, acc). The warp's tiles over all of its block's items are
 //   one stream of 16-byte cp.async.cg copies into a private ring of
 //   kStages shared-memory stages, kStages - 1 tiles ahead of the tile being
@@ -51,6 +62,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "elem_io.cuh"
 #include "tf32_mma.cuh"   // kNegInf, kMaskedBelow, cp_async16 and its waits
 
 namespace {
@@ -62,22 +74,24 @@ constexpr int kMaxD = 256;
 // keys_per_split must be a multiple of this (four warps' tiles at d <= 128)
 constexpr int kSplitTile = 16;
 
-template <int MAXD>
+template <int MAXD, typename T>
 struct Cfg {
   static constexpr int KT = 512 / MAXD;        // keys a warp tile
   static constexpr int LPK = 32 / KT;          // lanes scoring one key
-  static constexpr int QC = MAXD / 4 / LPK;    // q float4 chunks a lane
+  static constexpr int EPC = 16 / sizeof(T);   // elements a 16-byte chunk
+  static constexpr int QC = MAXD / EPC / LPK;  // row chunks a lane scores
   static constexpr int NC = MAXD / 128;        // acc float4 chunks a lane
 };
 
-// The operands and sizes of one launch.
+// The operands and sizes of one launch; q, the pools and out are T.
+template <typename T>
 struct Args {
-  const float* q;
-  const float* k_pool;
-  const float* v_pool;
+  const T* q;
+  const T* k_pool;
+  const T* v_pool;
   const int32_t* table;
   const int32_t* pos;
-  float* out;
+  T* out;
   float* part_acc;    // [b * h * n_splits, d] partial acc of each split
   float* part_ml;     // [b * h * n_splits, 2] its (m, l)
   int32_t* tickets;   // [b * h], 0 between calls
@@ -85,12 +99,14 @@ struct Args {
   float scale;
 };
 
-__device__ __forceinline__ int visible_keys(const Args& a, int seq) {
+template <typename T>
+__device__ __forceinline__ int visible_keys(const Args<T>& a, int seq) {
   const int p = __ldg(a.pos + seq);
   return p < 0 ? 0 : min(p, a.pages_per_seq * a.page_size - 1) + 1;
 }
 
-__device__ __forceinline__ int splits_of(const Args& a, int n_keys) {
+template <typename T>
+__device__ __forceinline__ int splits_of(const Args<T>& a, int n_keys) {
   return max(1, (n_keys + a.keys_per_split - 1) / a.keys_per_split);
 }
 
@@ -102,9 +118,9 @@ __host__ __device__ __forceinline__ int merge_floats(int d, int n_splits) {
 
 // dynamic shared memory: the rings, the merges' area, then the work
 // list's prefix over the sequences and its scan buffer (2 (b + 1) ints)
-template <int MAXD>
+template <int MAXD, typename T>
 size_t smem_bytes(int d, int n_splits, int b) {
-  return sizeof(float) * kWarps * kStages * 2 * Cfg<MAXD>::KT * d +
+  return sizeof(T) * kWarps * kStages * 2 * Cfg<MAXD, T>::KT * d +
          sizeof(float) * merge_floats(d, n_splits) +
          sizeof(int) * 2 * ((size_t)b + 1);
 }
@@ -117,7 +133,8 @@ struct Item {
 // item x of the work list -> (sequence, split, head): sequence-major
 // through cum (cum[s] = h * the splits of the sequences before s; cum[b]
 // = the items), then split, then head
-__device__ __forceinline__ Item item_at(const Args& a, const int* cum,
+template <typename T>
+__device__ __forceinline__ Item item_at(const Args<T>& a, const int* cum,
                                         int x) {
   int lo = 0, hi = a.b;   // cum[lo] <= x < cum[hi]
   while (hi - lo > 1) {
@@ -147,19 +164,22 @@ __device__ __forceinline__ int warp_tiles(const Item& it, int warp) {
   return nt > warp ? (nt - warp + kWarps - 1) / kWarps : 0;
 }
 
-template <int MAXD>
+template <int MAXD, typename T>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(Args a) {
-  using C = Cfg<MAXD>;
-  constexpr int KT = C::KT, LPK = C::LPK, QC = C::QC, NC = C::NC;
+paged_decode_kernel(Args<T> a) {
+  using C = Cfg<MAXD, T>;
+  constexpr int KT = C::KT, LPK = C::LPK, EPC = C::EPC, QC = C::QC;
+  constexpr int NC = C::NC;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  T* smem = reinterpret_cast<T*>(smem4);
   __shared__ int s_last;
-  const int d = a.d, d4 = d / 4;
+  // d4: float4 chunks of a row (the acc side), dch: 16-byte chunks (the
+  // copies and the scores)
+  const int d = a.d, d4 = d / 4, dch = d / EPC;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int stage = 2 * KT * d;                 // floats: K rows, V rows
-  float* ring = smem + warp * kStages * stage;
-  float* mg = smem + kWarps * kStages * stage;  // the merges' area
+  const int stage = 2 * KT * d;                 // elements: K rows, V rows
+  T* ring = smem + warp * kStages * stage;
+  float* mg = reinterpret_cast<float*>(smem + kWarps * kStages * stage);
   int* cum = reinterpret_cast<int*>(mg + merge_floats(d, a.n_splits));
   int* scan = cum + a.b + 1;
 
@@ -225,14 +245,14 @@ paged_decode_kernel(Args a) {
   // and V; a row past the split is zero-filled), then the cursor moves on
   auto issue = [&]() {
     if (p_valid) {                                // uniform across the warp
-      float* kd = ring + (issued % kStages) * stage + kk * d;
-      float* vd = kd + KT * d;
+      T* kd = ring + (issued % kStages) * stage + kk * d;
+      T* vd = kd + KT * d;
       const bool live = p_row >= 0;
-      const float* kp = a.k_pool + (live ? p_row : 0);
-      const float* vp = a.v_pool + (live ? p_row : 0);
-      for (int c = part; c < d4; c += LPK) {
-        cp_async16(kd + 4 * c, kp + 4 * c, live);
-        cp_async16(vd + 4 * c, vp + 4 * c, live);
+      const T* kp = a.k_pool + (live ? p_row : 0);
+      const T* vp = a.v_pool + (live ? p_row : 0);
+      for (int c = part; c < dch; c += LPK) {
+        cp_async16(kd + EPC * c, kp + EPC * c, live);
+        cp_async16(vd + EPC * c, vp + EPC * c, live);
       }
       ++issued;
       p_valid = advance();
@@ -249,12 +269,17 @@ paged_decode_kernel(Args a) {
     const Item it = item_at(a, cum, item);
     const int nj = warp_tiles<KT>(it, warp);
     const int64_t bhi = (int64_t)it.seq * a.h + it.head;
-    const float4* q4 = reinterpret_cast<const float4*>(a.q + bhi * d);
-    float4 qv[QC];
+    // this lane's chunks of q (chunk part + LPK i), as fp32
+    constexpr int QW = EPC / 4;   // float4s a chunk
+    float4 qv[QC * QW];
 #pragma unroll
     for (int i = 0; i < QC; ++i) {
       const int c = part + LPK * i;
-      qv[i] = c < d4 ? __ldg(q4 + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int w = 0; w < QW; ++w) {
+        qv[i * QW + w] = c < dch ? ldg4(a.q + bhi * d + EPC * c + 4 * w)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
     }
     float m = kNegInf, l = 0.f;
     float4 acc[NC];
@@ -265,19 +290,21 @@ paged_decode_kernel(Args a) {
       issue();
       cp_async_wait<kStages - 1>();
       __syncwarp();
-      const float* kt = ring + (consumed % kStages) * stage;
-      const float* vt = kt + KT * d;
+      const T* kt = ring + (consumed % kStages) * stage;
+      const T* vt = kt + KT * d;
 
       // q . k of this lane's key over its parts of d
       float s = 0.f;
 #pragma unroll
       for (int i = 0; i < QC; ++i) {
         const int c = part + LPK * i;
-        if (c < d4) {
-          const float4 kv =
-              *reinterpret_cast<const float4*>(kt + kk * d + 4 * c);
-          s += qv[i].x * kv.x + qv[i].y * kv.y + qv[i].z * kv.z +
-               qv[i].w * kv.w;
+        if (c < dch) {
+#pragma unroll
+          for (int w = 0; w < QW; ++w) {
+            const float4 kv = ld4(kt + kk * d + EPC * c + 4 * w);
+            const float4 qw = qv[i * QW + w];
+            s += qw.x * kv.x + qw.y * kv.y + qw.z * kv.z + qw.w * kv.w;
+          }
         }
       }
 #pragma unroll
@@ -313,8 +340,7 @@ paged_decode_kernel(Args a) {
         for (int i = 0; i < NC; ++i) {
           const int col = lane + 32 * i;
           if (col < d4) {
-            const float4 vv =
-                *reinterpret_cast<const float4*>(vt + k2 * d + 4 * col);
+            const float4 vv = ld4(vt + k2 * d + 4 * col);
             acc[i].x += pk * vv.x; acc[i].y += pk * vv.y;
             acc[i].z += pk * vv.z; acc[i].w += pk * vv.w;
           }
@@ -356,11 +382,12 @@ paged_decode_kernel(Args a) {
         A.x += f * v4.x; A.y += f * v4.y; A.z += f * v4.z; A.w += f * v4.w;
       }
     }
-    float4* out4 = reinterpret_cast<float4*>(a.out + bhi * d);
+    T* out = a.out + bhi * d;
     if (it.n_split == 1) {
       if (tid < d4) {
         const float inv = 1.f / fmaxf(L, 1e-30f);
-        out4[tid] = make_float4(A.x * inv, A.y * inv, A.z * inv, A.w * inv);
+        st4(out + 4 * tid,
+            make_float4(A.x * inv, A.y * inv, A.z * inv, A.w * inv));
       }
       __syncthreads();   // the merge area is read before the next item
       continue;
@@ -410,8 +437,8 @@ paged_decode_kernel(Args a) {
           As.z += f * v4.z; As.w += f * v4.w;
         }
         const float inv = 1.f / fmaxf(Ls, 1e-30f);
-        out4[tid] = make_float4(As.x * inv, As.y * inv, As.z * inv,
-                                As.w * inv);
+        st4(out + 4 * tid, make_float4(As.x * inv, As.y * inv, As.z * inv,
+                                       As.w * inv));
       }
       if (tid == 0) a.tickets[bhi] = 0;
     }
@@ -420,16 +447,16 @@ paged_decode_kernel(Args a) {
   cp_async_wait<0>();   // only empty groups are left
 }
 
-template <int MAXD>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<MAXD>(a.d, a.n_splits, a.b);
+template <int MAXD, typename T>
+cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
+  const size_t smem = smem_bytes<MAXD, T>(a.d, a.n_splits, a.b);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   // set at every size: the kernel's static shared memory counts against
   // the default 48 KiB too; the attribute is per device, so it is set on
   // the current one
   cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<MAXD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      paged_decode_kernel<MAXD, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   // as many blocks as the card holds at once (any grid of at least one
   // block computes the same result)
@@ -440,14 +467,45 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, paged_decode_kernel<MAXD>, kThreads, smem);
+        &per_sm, paged_decode_kernel<MAXD, T>, kThreads, smem);
   }
   if (err != cudaSuccess) return err;
   const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
   const int64_t items = (int64_t)a.n_splits * a.b * a.h;
   const int grid = (int)(items < resident ? items : resident);
-  paged_decode_kernel<MAXD><<<grid, kThreads, smem, stream>>>(a);
+  paged_decode_kernel<MAXD, T><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k_pool, const void* v_pool,
+             const void* table, const void* pos, void* out, void* part,
+             void* tickets, int b, int h, int d, int page_size,
+             int pages_per_seq, int keys_per_split, int n_splits,
+             float scale, void* stream) {
+  if (d <= 0 || d % 8 != 0 || d > kMaxD || page_size <= 0 ||
+      keys_per_split <= 0 || keys_per_split % kSplitTile != 0 ||
+      n_splits < 1 ||
+      (int64_t)n_splits * keys_per_split <
+          (int64_t)pages_per_seq * page_size) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (b == 0 || h == 0) return (int)cudaSuccess;
+  float* p = static_cast<float*>(part);
+  const int64_t n_part = (int64_t)b * h * n_splits;
+  const Args<T> a{static_cast<const T*>(q),
+                  static_cast<const T*>(k_pool),
+                  static_cast<const T*>(v_pool),
+                  static_cast<const int32_t*>(table),
+                  static_cast<const int32_t*>(pos),
+                  static_cast<T*>(out),
+                  p,
+                  p + n_part * d,
+                  static_cast<int32_t*>(tickets),
+                  b, h, d, page_size, pages_per_seq, keys_per_split,
+                  n_splits, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return d <= 128 ? (int)launch<128>(a, st) : (int)launch<256>(a, st);
 }
 
 }  // namespace
@@ -459,27 +517,18 @@ extern "C" int paged_decode_attention_f32(
     const void* pos, void* out, void* part, void* tickets, int b, int h,
     int d, int page_size, int pages_per_seq, int keys_per_split,
     int n_splits, float scale, void* stream) {
-  if (d <= 0 || d % 8 != 0 || d > kMaxD || page_size <= 0 ||
-      keys_per_split <= 0 || keys_per_split % kSplitTile != 0 ||
-      n_splits < 1 ||
-      (int64_t)n_splits * keys_per_split <
-          (int64_t)pages_per_seq * page_size) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (b == 0 || h == 0) return (int)cudaSuccess;
-  float* p = static_cast<float*>(part);
-  const int64_t n_part = (int64_t)b * h * n_splits;
-  const Args a{static_cast<const float*>(q),
-               static_cast<const float*>(k_pool),
-               static_cast<const float*>(v_pool),
-               static_cast<const int32_t*>(table),
-               static_cast<const int32_t*>(pos),
-               static_cast<float*>(out),
-               p,
-               p + n_part * d,
-               static_cast<int32_t*>(tickets),
-               b, h, d, page_size, pages_per_seq, keys_per_split, n_splits,
-               scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return d <= 128 ? (int)launch<128>(a, st) : (int)launch<256>(a, st);
+  return dispatch<float>(q, k_pool, v_pool, table, pos, out, part, tickets,
+                         b, h, d, page_size, pages_per_seq, keys_per_split,
+                         n_splits, scale, stream);
+}
+
+// the same with q, the pools and out bf16 (the workspace stays fp32)
+extern "C" int paged_decode_attention_bf16(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* pos, void* out, void* part, void* tickets, int b, int h,
+    int d, int page_size, int pages_per_seq, int keys_per_split,
+    int n_splits, float scale, void* stream) {
+  return dispatch<__nv_bfloat16>(q, k_pool, v_pool, table, pos, out, part,
+                                 tickets, b, h, d, page_size, pages_per_seq,
+                                 keys_per_split, n_splits, scale, stream);
 }

@@ -1,6 +1,6 @@
-// Ragged paged attention for Hopper, sm_90a: fp32 pools (K1) and
-// quantized pools (K1-q: int8 codes with per-page, per-kv-head scales, or
-// float8_e4m3fn).
+// Ragged paged attention for Hopper, sm_90a: fp32 pools (K1), bf16 pools
+// (K1-bf16) and quantized pools (K1-q: int8 codes with per-page,
+// per-kv-head scales, or float8_e4m3fn), with fp32 or bf16 queries.
 //
 // Replaces: paddle_tpu/ops/pallas/ragged_paged_attention.py ::
 //   ragged_paged_attention (kernel body _ragged_kernel, with its
@@ -13,7 +13,19 @@
 // dead slots, q_len = 0) come out exactly 0.0. GQA groups the n_rep = n_q /
 // n_kv query heads of one kv head into G = n_rep * T rows, row r = (rep, t)
 // flattened with t = r % T, as the Pallas kernel does. Any page_size, d a
-// multiple of 8 up to 256; the output is fp32.
+// multiple of 8 up to 256; the output is in q's type.
+//
+// Types (the QT and KV template arguments): fp32 q over fp32, int8 and
+// fp8 pools; bf16 q (a bf16 serving runner's) over bf16, int8 and fp8
+// pools. As in the Pallas kernel, which casts each tile to fp32
+// (ragged_paged_attention.py:98-100), every value is widened to fp32
+// where it is read (elem_io.cuh), the softmax and the sums stay fp32 and
+// the output is rounded to q's type where it is written (:139). A bf16
+// value is exact in fp32 and in tf32, so bf16 pools take the tensor-core
+// path of the fp8 pools: staged as bf16 (half the bytes of an fp32 tile),
+// widened in the split pass, one plane, two products a k-step. bf16 q is
+// read as bf16 and widened in the tile load (no cast pass in the
+// wrapper); its small half is zero, so its products stay exact.
 //
 // Two forms, chosen by the wrapper from G (ops/ragged_paged_attention.py
 // ragged_form): the span form for G > kDecodeRows, the decode form below.
@@ -81,24 +93,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "elem_io.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
 // storage type of the K/V pools (a template argument)
-constexpr int kF32 = 0, kI8 = 1, kF8 = 2;
+constexpr int kF32 = 0, kI8 = 1, kF8 = 2, kBF16 = 3;
 // G = n_rep * T at or below this takes the decode form (the wrapper's
 // ragged_form mirrors it)
 constexpr int kDecodeRows = 8;
 
 template <int KV>
 struct Elem {
-  static constexpr int bytes = KV == kF32 ? 4 : 1;
+  static constexpr int bytes = KV == kF32 ? 4 : KV == kBF16 ? 2 : 1;
 };
 
 // The operands and sizes of one launch.
 struct Ragged {
-  const float* q;
+  const void* q;      // fp32 or bf16 (the kernels' QT)
   const void* k_pool;
   const void* v_pool;
   const float* k_scale;   // [N, n_kv], int8 pools only
@@ -106,7 +119,7 @@ struct Ragged {
   const int32_t* table;
   const int32_t* start_pos;
   const int32_t* q_len;
-  float* out;
+  void* out;          // in q's type
   int T, n_q, n_kv, d, page_size, pages_per_seq;
   float scale;
   int cpy;   // bytes of one cp.async of a pool row: 16, 8 or 4
@@ -166,6 +179,20 @@ __device__ __forceinline__ float4 codes4(uint32_t w) {
   }
 }
 
+// Elements c .. c + 3 (c a multiple of 4) of a staged or pooled row of
+// storage type KV as fp32: fp32 as they are, bf16 widened, 1-byte codes
+// as codes4 gives them (an int8 code still wants its page scale).
+template <int KV>
+__device__ __forceinline__ float4 load4(const uint8_t* row, int c) {
+  if constexpr (KV == kF32) {
+    return ld4(reinterpret_cast<const float*>(row) + c);
+  } else if constexpr (KV == kBF16) {
+    return ld4(reinterpret_cast<const __nv_bfloat16*>(row) + c);
+  } else {
+    return codes4<KV>(*reinterpret_cast<const uint32_t*>(row + c));
+  }
+}
+
 // ------------------------------------------------------------ span form
 
 template <int MAXD, int KV>
@@ -177,25 +204,27 @@ struct Span {
   // left the tensor cores waiting); at d <= 256 one set fits
   static constexpr int KG = MAXD <= 128 ? 2 : 1;
   // key positions per tile: 32, or 16 where two planes of 32 do not fit
-  static constexpr int BN = KV == kF8 || (KV == kI8 && KG == 2) ? 32 : 16;
+  static constexpr int BN =
+      KV == kF8 || KV == kBF16 || (KV == kI8 && KG == 2) ? 32 : 16;
   static constexpr int GTHR = 2 * BM;   // a warp for each 16 rows, a group
   static constexpr int NTHR = KG * GTHR;
   // fp32 values and int8 values dequantized with their page scale are
-  // split (three products); e4m3 values are exact in tf32 (two)
-  static constexpr bool SPLIT = KV != kF8;
+  // split (three products); e4m3 and bf16 values are exact in tf32 (two)
+  static constexpr bool SPLIT = KV == kF32 || KV == kI8;
 };
 
-// Row stride (bytes) of a staged tile of 1-byte codes: d rounded to 16,
-// plus 16 bytes.
+// Row stride (bytes) of a staged tile of 1-byte codes or bf16 values: d
+// rounded to 16 elements, plus 16 bytes.
+template <int KV>
 __host__ __device__ __forceinline__ int code_ld(int d) {
-  return ((d + 15) & ~15) + 16;
+  return Elem<KV>::bytes * ((d + 15) & ~15) + 16;
 }
 
 // Bytes of one staged K (or V) tile: fp32 rows of tile_ld(d) floats
-// (swizzled), or 1-byte rows of code_ld(d) bytes.
+// (swizzled), or rows of code_ld(d) bytes.
 template <int KV>
 __host__ __device__ __forceinline__ int span_tile_bytes(int BN, int d) {
-  return KV == kF32 ? BN * tile_ld(d) * 4 : BN * code_ld(d);
+  return KV == kF32 ? BN * tile_ld(d) * 4 : BN * code_ld<KV>(d);
 }
 
 // Bytes of one key group's region: the staged K and V tiles and their
@@ -255,12 +284,14 @@ __device__ __forceinline__ void load_span_row(void* dst, float* sc,
                  valid ? src + c : src, valid);
     }
   } else {
-    const int cb = a.cpy;
+    // bytes of the row: d elements, zero-filled up to w
+    constexpr int EB = Elem<KV>::bytes;
+    const int cb = a.cpy, db = d * EB;
     const uint8_t* src = static_cast<const uint8_t*>(pool) +
-                         (live ? ref.off : 0);
-    uint8_t* out = static_cast<uint8_t*>(dst) + row * code_ld(d);
-    for (int c = cb * part; c < w; c += cb * parts) {
-      const bool valid = live && c < d;
+                         (live ? ref.off * EB : 0);
+    uint8_t* out = static_cast<uint8_t*>(dst) + row * code_ld<KV>(d);
+    for (int c = cb * part; c < w * EB; c += cb * parts) {
+      const bool valid = live && c < db;
       cp_async_n(out + c, valid ? src + c : src, valid, cb);
     }
     if constexpr (KV == kI8) {
@@ -284,7 +315,7 @@ __device__ __forceinline__ void group_sync(int kg) {
   }
 }
 
-template <int MAXD, int KV>
+template <int MAXD, int KV, typename QT>
 __global__ void __launch_bounds__(Span<MAXD, KV>::NTHR)
 ragged_span_kernel(Ragged a) {
   using S = Span<MAXD, KV>;
@@ -343,8 +374,8 @@ ragged_span_kernel(Ragged a) {
       float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
       if (row < G && c < d && kend > 0) {
         const int tt = row % a.T, head = kvh * n_rep + row / a.T;
-        val = __ldg(reinterpret_cast<const float4*>(
-            a.q + ((int64_t)(b * a.T + tt) * a.n_q + head) * d + c));
+        val = ldg4(static_cast<const QT*>(a.q) +
+                   ((int64_t)(b * a.T + tt) * a.n_q + head) * d + c);
       }
       store_split4(qbig, qsmall, r, c, ld, val);
     }
@@ -380,11 +411,11 @@ ragged_span_kernel(Ragged a) {
       });
     } else {
       // dequantize the codes: int8 times its page scale, rounded in fp32
-      // as the plain version rounds it (then split); e4m3 values exact
-      const int cld = code_ld(d);
+      // as the plain version rounds it (then split); e4m3 and bf16 values
+      // exact
+      const int cld = code_ld<KV>(d);
       auto deq = [&](const uint8_t* raw, const float* sc, int r, int c) {
-        float4 v = codes4<KV>(
-            *reinterpret_cast<const uint32_t*>(raw + r * cld + c));
+        float4 v = load4<KV>(raw + r * cld, c);
         if constexpr (KV == kI8) {
           const float s = sc[r];
           v = make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
@@ -482,13 +513,13 @@ ragged_span_kernel(Ragged a) {
     if (row < G) {
       const int tt = row % a.T, head = kvh * n_rep + row / a.T;
       const float inv = 1.f / fmaxf(l[h], 1e-30f);
-      float* dst = a.out + ((int64_t)(b * a.T + tt) * a.n_q + head) * d;
+      QT* dst = static_cast<QT*>(a.out) +
+                ((int64_t)(b * a.T + tt) * a.n_q + head) * d;
 #pragma unroll
       for (int j = 0; j < NTO; ++j) {
         const int col = 8 * j + 2 * t;
         if (col < d) {
-          *reinterpret_cast<float2*>(dst + col) =
-              make_float2(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
+          st2(dst + col, acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
         }
       }
     }
@@ -531,7 +562,7 @@ size_t dec_smem_bytes(int d) {
 
 // CB: the bytes of one read of a key row from a stage (16, or 8 for 1-byte
 // rows of d = 8 mod 16); the copies into the stage take a.cpy bytes.
-template <int MAXD, int KV, int CB>
+template <int MAXD, int KV, int CB, typename QT>
 __global__ void __launch_bounds__(32 * Dec<MAXD, KV>::NW)
 ragged_decode_kernel(Ragged a) {
   using D = Dec<MAXD, KV>;
@@ -591,8 +622,8 @@ ragged_decode_kernel(Ragged a) {
     const int r = idx / (d / 4), c = 4 * (idx - r * (d / 4));
     const int tt = r % a.T, head = kvh * n_rep + r / a.T;
     *reinterpret_cast<float4*>(qs + r * d + c) =
-        __ldg(reinterpret_cast<const float4*>(
-            a.q + ((int64_t)(b * a.T + tt) * a.n_q + head) * d + c));
+        ldg4(static_cast<const QT*>(a.q) +
+             ((int64_t)(b * a.T + tt) * a.n_q + head) * d + c);
   }
   __syncthreads();
 
@@ -630,25 +661,19 @@ ragged_decode_kernel(Ragged a) {
 #pragma unroll
     for (int r = 0; r < kDecodeRows; ++r) sg[r] = 0.f;
     for (int c = part * CB; c < d * EB; c += LPK * CB) {
-      float kv[EPC];
-      if constexpr (KV == kF32) {
-        const float4 v4 = *reinterpret_cast<const float4*>(kt + kk * rsb + c);
-        kv[0] = v4.x; kv[1] = v4.y; kv[2] = v4.z; kv[3] = v4.w;
-      } else {
-#pragma unroll
-        for (int w = 0; w < CB / 4; ++w) {
-          const float4 v4 = codes4<KV>(
-              *reinterpret_cast<const uint32_t*>(kt + kk * rsb + c + 4 * w));
-          kv[4 * w] = v4.x; kv[4 * w + 1] = v4.y;
-          kv[4 * w + 2] = v4.z; kv[4 * w + 3] = v4.w;
-        }
-        if constexpr (KV == kI8) {
-          // code * scale, rounded in fp32 as the plain version rounds it
-#pragma unroll
-          for (int e = 0; e < EPC; ++e) kv[e] *= sc[kk];
-        }
-      }
       const int e0 = c / EB;   // the first element of this read
+      float kv[EPC];
+#pragma unroll
+      for (int w = 0; w < EPC / 4; ++w) {
+        const float4 v4 = load4<KV>(kt + kk * rsb, e0 + 4 * w);
+        kv[4 * w] = v4.x; kv[4 * w + 1] = v4.y;
+        kv[4 * w + 2] = v4.z; kv[4 * w + 3] = v4.w;
+      }
+      if constexpr (KV == kI8) {
+        // code * scale, rounded in fp32 as the plain version rounds it
+#pragma unroll
+        for (int e = 0; e < EPC; ++e) kv[e] *= sc[kk];
+      }
 #pragma unroll
       for (int r = 0; r < kDecodeRows; ++r) {
         if (r < G) {
@@ -703,16 +728,11 @@ ragged_decode_kernel(Ragged a) {
         const int col = 4 * (lane + 32 * i);
         vv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (col < d) {
-          if constexpr (KV == kF32) {
-            vv[i] = *reinterpret_cast<const float4*>(vt + k2 * rsb + 4 * col);
-          } else {
-            vv[i] = codes4<KV>(
-                *reinterpret_cast<const uint32_t*>(vt + k2 * rsb + col));
-            if constexpr (KV == kI8) {
-              const float vs = sc[KT + k2];
-              vv[i] = make_float4(vv[i].x * vs, vv[i].y * vs, vv[i].z * vs,
-                                  vv[i].w * vs);
-            }
+          vv[i] = load4<KV>(vt + k2 * rsb, col);
+          if constexpr (KV == kI8) {
+            const float vs = sc[KT + k2];
+            vv[i] = make_float4(vv[i].x * vs, vv[i].y * vs, vv[i].z * vs,
+                                vv[i].w * vs);
           }
         }
       }
@@ -774,9 +794,9 @@ ragged_decode_kernel(Ragged a) {
     }
     const float inv = 1.f / fmaxf(den, 1e-30f);
     const int tt = r % a.T, head = kvh * n_rep + r / a.T;
-    *reinterpret_cast<float4*>(
-        a.out + ((int64_t)(b * a.T + tt) * a.n_q + head) * d + c) =
-        make_float4(num.x * inv, num.y * inv, num.z * inv, num.w * inv);
+    st4(static_cast<QT*>(a.out) +
+            ((int64_t)(b * a.T + tt) * a.n_q + head) * d + c,
+        make_float4(num.x * inv, num.y * inv, num.z * inv, num.w * inv));
   }
 }
 
@@ -791,38 +811,40 @@ cudaError_t opt_in(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-template <int MAXD, int KV>
+template <int MAXD, int KV, typename QT>
 cudaError_t launch_span(const Ragged& a, int B, cudaStream_t stream) {
   using S = Span<MAXD, KV>;
   const size_t smem = span_smem_bytes<MAXD, KV>(a.d);
-  cudaError_t err = opt_in(ragged_span_kernel<MAXD, KV>, smem);
+  cudaError_t err = opt_in(ragged_span_kernel<MAXD, KV, QT>, smem);
   if (err != cudaSuccess) return err;
   const int G = (a.n_q / a.n_kv) * a.T;
   const dim3 grid((G + S::BM - 1) / S::BM, a.n_kv, B);
-  ragged_span_kernel<MAXD, KV><<<grid, S::NTHR, smem, stream>>>(a);
+  ragged_span_kernel<MAXD, KV, QT><<<grid, S::NTHR, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int MAXD, int KV, int CB>
+template <int MAXD, int KV, int CB, typename QT>
 cudaError_t launch_decode_cb(const Ragged& a, int B, cudaStream_t stream) {
   const size_t smem = dec_smem_bytes<MAXD, KV>(a.d);
-  cudaError_t err = opt_in(ragged_decode_kernel<MAXD, KV, CB>, smem);
+  cudaError_t err = opt_in(ragged_decode_kernel<MAXD, KV, CB, QT>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.n_kv, B);
-  ragged_decode_kernel<MAXD, KV, CB>
+  ragged_decode_kernel<MAXD, KV, CB, QT>
       <<<grid, 32 * Dec<MAXD, KV>::NW, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int MAXD, int KV>
+template <int MAXD, int KV, typename QT>
 cudaError_t launch_decode(const Ragged& a, int B, cudaStream_t stream) {
-  if (KV != kF32 && a.d % 16 != 0) {
-    return launch_decode_cb<MAXD, KV, 8>(a, B, stream);
+  // 8-byte reads only for 1-byte rows of d = 8 mod 16 (fp32 and bf16 rows
+  // are whole 16-byte chunks)
+  if constexpr (Elem<KV>::bytes == 1) {
+    if (a.d % 16 != 0) return launch_decode_cb<MAXD, KV, 8, QT>(a, B, stream);
   }
-  return launch_decode_cb<MAXD, KV, 16>(a, B, stream);
+  return launch_decode_cb<MAXD, KV, 16, QT>(a, B, stream);
 }
 
-template <int KV>
+template <int KV, typename QT>
 int dispatch(const void* q, const void* k_pool, const void* v_pool,
              const void* k_scale, const void* v_scale, const void* table,
              const void* start_pos, const void* q_len, void* out, int B,
@@ -845,20 +867,20 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
   int cpy = (d * Elem<KV>::bytes) % 16 == 0 ? 16 : 8;
   while (((uintptr_t)k_pool | (uintptr_t)v_pool) % cpy) cpy /= 2;
   if (cpy < 4) return (int)cudaErrorMisalignedAddress;
-  const Ragged a{static_cast<const float*>(q), k_pool, v_pool,
+  const Ragged a{q, k_pool, v_pool,
                  static_cast<const float*>(k_scale),
                  static_cast<const float*>(v_scale),
                  static_cast<const int32_t*>(table),
                  static_cast<const int32_t*>(start_pos),
-                 static_cast<const int32_t*>(q_len), static_cast<float*>(out),
+                 static_cast<const int32_t*>(q_len), out,
                  T, n_q, n_kv, d, page_size, pages_per_seq, scale, cpy};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (form == 1) {
-    return d <= 128 ? (int)launch_decode<128, KV>(a, B, st)
-                    : (int)launch_decode<256, KV>(a, B, st);
+    return d <= 128 ? (int)launch_decode<128, KV, QT>(a, B, st)
+                    : (int)launch_decode<256, KV, QT>(a, B, st);
   }
-  return d <= 128 ? (int)launch_span<128, KV>(a, B, st)
-                  : (int)launch_span<256, KV>(a, B, st);
+  return d <= 128 ? (int)launch_span<128, KV, QT>(a, B, st)
+                  : (int)launch_span<256, KV, QT>(a, B, st);
 }
 
 }  // namespace
@@ -873,7 +895,7 @@ extern "C" int ragged_paged_attention_f32(
     const void* start_pos, const void* q_len, void* out, int B, int T,
     int n_q, int n_kv, int d, int page_size, int pages_per_seq, int form,
     float scale, void* stream) {
-  return dispatch<kF32>(q, k_pool, v_pool, nullptr, nullptr, table,
+  return dispatch<kF32, float>(q, k_pool, v_pool, nullptr, nullptr, table,
                         start_pos, q_len, out, B, T, n_q, n_kv, d, page_size,
                         pages_per_seq, form, scale, stream);
 }
@@ -885,7 +907,7 @@ extern "C" int ragged_paged_attention_i8(
     const void* start_pos, const void* q_len, void* out, int B, int T,
     int n_q, int n_kv, int d, int page_size, int pages_per_seq, int form,
     float scale, void* stream) {
-  return dispatch<kI8>(q, k_pool, v_pool, k_scale, v_scale, table,
+  return dispatch<kI8, float>(q, k_pool, v_pool, k_scale, v_scale, table,
                        start_pos, q_len, out, B, T, n_q, n_kv, d, page_size,
                        pages_per_seq, form, scale, stream);
 }
@@ -896,7 +918,41 @@ extern "C" int ragged_paged_attention_f8(
     const void* start_pos, const void* q_len, void* out, int B, int T,
     int n_q, int n_kv, int d, int page_size, int pages_per_seq, int form,
     float scale, void* stream) {
-  return dispatch<kF8>(q, k_pool, v_pool, nullptr, nullptr, table,
+  return dispatch<kF8, float>(q, k_pool, v_pool, nullptr, nullptr, table,
                        start_pos, q_len, out, B, T, n_q, n_kv, d, page_size,
                        pages_per_seq, form, scale, stream);
+}
+
+// bf16 q over bf16 pools (K1-bf16); the output is bf16
+extern "C" int ragged_paged_attention_bf16(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* start_pos, const void* q_len, void* out, int B, int T,
+    int n_q, int n_kv, int d, int page_size, int pages_per_seq, int form,
+    float scale, void* stream) {
+  return dispatch<kBF16, __nv_bfloat16>(
+      q, k_pool, v_pool, nullptr, nullptr, table, start_pos, q_len, out, B,
+      T, n_q, n_kv, d, page_size, pages_per_seq, form, scale, stream);
+}
+
+// bf16 q over int8 code pools with fp32 scales (K1-q); bf16 output
+extern "C" int ragged_paged_attention_bf16_i8(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* table,
+    const void* start_pos, const void* q_len, void* out, int B, int T,
+    int n_q, int n_kv, int d, int page_size, int pages_per_seq, int form,
+    float scale, void* stream) {
+  return dispatch<kI8, __nv_bfloat16>(
+      q, k_pool, v_pool, k_scale, v_scale, table, start_pos, q_len, out, B,
+      T, n_q, n_kv, d, page_size, pages_per_seq, form, scale, stream);
+}
+
+// bf16 q over float8_e4m3fn pools (K1-q); bf16 output
+extern "C" int ragged_paged_attention_bf16_f8(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* start_pos, const void* q_len, void* out, int B, int T,
+    int n_q, int n_kv, int d, int page_size, int pages_per_seq, int form,
+    float scale, void* stream) {
+  return dispatch<kF8, __nv_bfloat16>(
+      q, k_pool, v_pool, nullptr, nullptr, table, start_pos, q_len, out, B,
+      T, n_q, n_kv, d, page_size, pages_per_seq, form, scale, stream);
 }

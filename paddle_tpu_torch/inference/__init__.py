@@ -13,6 +13,25 @@ from paddle_tpu_torch.serving.model_runner import runner_for
 _RUNNER_KNOBS = ("block_size", "max_model_len", "attn_impl", "kv_dtype",
                  "weight_dtype", "weight_group_size")
 
+# the serving dtypes by name; float16 serving needs the fp16 kernels,
+# ROADMAP.md 'Still to port' item 21
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _serving_dtype(dtype):
+    """``dtype`` as a torch dtype: fp32 or bf16 (a torch dtype or its
+    name); float16 raises naming item 21."""
+    dt = _DTYPES.get(dtype, dtype)
+    if dt in (torch.float16, "float16"):
+        raise NotImplementedError(
+            "dtype=float16: fp16 serving needs the fp16 instantiations of "
+            "the serving kernels (K1, K2): ROADMAP.md 'Still to port' item "
+            "21")
+    if dt not in _DTYPES.values():
+        raise ValueError(f"dtype={dtype!r}; expected one of "
+                         f"{sorted(_DTYPES)} (or the torch dtypes)")
+    return dt
+
 
 def create_serving_engine(model, dtype=None, device="cuda", **kw):
     """Build a continuous-batching ServingEngine for a model on ``device``
@@ -23,15 +42,15 @@ def create_serving_engine(model, dtype=None, device="cuda", **kw):
     go to the runner, everything else to ServingEngine (decode_horizon,
     pipelined, horizon_sampling, horizon_early_stop, enable_prefix_cache,
     ragged_batch, num_speculative_tokens and the spec_* knobs among them);
-    ``num_blocks`` defaults to 128. fp32 weights on one device are
-    ported, over fp32, int8 or fp8 KV pools (``kv_dtype``): another
-    ``dtype``, ``weight_dtype``, ``weight_group_size`` or
-    ``kv_dtype="mixed"``, or a ``mesh``, raises NotImplementedError naming
-    its ROADMAP item."""
-    if dtype is not None and dtype not in ("float32", torch.float32):
-        raise NotImplementedError(
-            f"dtype={dtype!r}: only fp32 serving is ported; lower-precision "
-            "serving is ROADMAP.md 'Still to port' item 8")
+    ``num_blocks`` defaults to 128.
+
+    ``dtype`` (torch.float32 or torch.bfloat16, or their names) casts the
+    runner's parameters, and so its compute and its KV pools, as the JAX
+    bridge does: after the runner is built, every floating parameter is
+    cast, the weight ladder's own included (fp8 weights come back in
+    ``dtype``, int8 and int4 scales become ``dtype``); integer codes stay.
+    The runner's dict is cast, never the model. float16 raises naming
+    ROADMAP.md item 21, a ``mesh`` naming item 10."""
     if kw.pop("mesh", None) is not None:
         raise NotImplementedError(
             "mesh= (tensor-parallel serving) is not ported yet: ROADMAP.md "
@@ -40,7 +59,11 @@ def create_serving_engine(model, dtype=None, device="cuda", **kw):
         raise NotImplementedError(
             "comm_dtype (quantized collectives) is not ported yet: "
             "ROADMAP.md 'Still to port' item 10")
+    dt = _serving_dtype(dtype) if dtype is not None else None
     runner = runner_for(model, device=device,
                         **{k: kw.pop(k) for k in _RUNNER_KNOBS if k in kw})
+    if dt is not None:
+        runner.params = {k: (v.to(dt) if v.is_floating_point() else v)
+                         for k, v in runner.params.items()}
     kw.setdefault("num_blocks", 128)
     return ServingEngine(runner, **kw)

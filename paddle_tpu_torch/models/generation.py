@@ -167,11 +167,17 @@ def _sample_shared_key(logits, key, temperature, top_k, top_p):
     return torch.argmax(noise + masked, dim=-1)
 
 
-def _qkv(p, x, n_heads: int):
+def _matmul(p, name, x):
+    """x @ p[name]: the plain product the helpers below default to (a
+    serving runner passes its `_mm`, which also takes quantized weights)."""
+    return x @ p[name]
+
+
+def _qkv(p, x, n_heads: int, mm=_matmul):
     """The fused projection of x [b, t, H] split into contiguous q, k, v
     [b, t, n_heads, d] (the weight's columns in (3, n_heads, d) order)."""
     b, t, hdim = x.shape
-    qkv = (x @ p["attn.qkv.weight"] + p["attn.qkv.bias"]).reshape(
+    qkv = (mm(p, "attn.qkv.weight", x) + p["attn.qkv.bias"]).reshape(
         b, t, 3, n_heads, hdim // n_heads)
     return (qkv[:, :, j].contiguous() for j in range(3))
 
@@ -187,14 +193,14 @@ def _attn_with_cache(p, x, k_cache, v_cache, pos: int, n_heads: int):
     return out @ p["attn.out.weight"] + p["attn.out.bias"], k_cache, v_cache
 
 
-def _mlp(p, x):
+def _mlp(p, x, mm=_matmul):
     """fc2(gelu_tanh(fc1(x))); a switch-MoE block raises."""
     if "mlp.gate" in p:
         raise NotImplementedError(
             f"a switch-MoE block (mlp.gate) is not ported yet: {DIST_ITEM}")
-    h = F.gelu(x @ p["mlp.fc1.weight"] + p["mlp.fc1.bias"],
+    h = F.gelu(mm(p, "mlp.fc1.weight", x) + p["mlp.fc1.bias"],
                approximate="tanh")
-    return h @ p["mlp.fc2.weight"] + p["mlp.fc2.bias"]
+    return mm(p, "mlp.fc2.weight", h) + p["mlp.fc2.bias"]
 
 
 def _embed(params, tokens, pos: int):
@@ -206,11 +212,11 @@ def _embed(params, tokens, pos: int):
             + params["wpe.weight"][positions])
 
 
-def _head(params, x):
+def _head(params, x, mm=_matmul):
     """The final LayerNorm and the head (tied, or lm_head when untied)."""
     x = _layer_norm(x, params["ln_f.weight"], params["ln_f.bias"])
     if "lm_head.weight" in params:
-        return x @ params["lm_head.weight"]
+        return mm(params, "lm_head.weight", x)
     return x @ params["wte.weight"].T
 
 

@@ -110,8 +110,17 @@ class GPTMLP(nn.Module):
 
 
 class GPTBlock(nn.Module):
-    def __init__(self, cfg: GPTConfig, device, gen, use_moe: bool = False):
+    """The JAX block's signature, ``(cfg, use_moe=False)``, with the
+    port's ``device`` ("cuda" unless the caller asks for the CPU) and
+    ``gen`` (the dropout generator; None seeds one with 0 on ``device``)
+    keyword-only after it."""
+
+    def __init__(self, cfg: GPTConfig, use_moe: bool = False, *,
+                 device="cuda", gen=None):
         super().__init__()
+        device = resolve_device(device)
+        if gen is None:
+            gen = _seeded(0, device)
         if use_moe:
             raise NotImplementedError(
                 f"GPTConfig(moe_every={cfg.moe_every}): switch-MoE blocks "
@@ -148,7 +157,7 @@ class GPT(nn.Module):
         self.wpe = Embedding(cfg.max_seq_len, h, dev)
         self.drop = Dropout(cfg.dropout, gen)
         self.blocks = nn.ModuleList([
-            GPTBlock(cfg, dev, gen, use_moe=cfg.moe_every > 0
+            GPTBlock(cfg, device=dev, gen=gen, use_moe=cfg.moe_every > 0
                      and (i + 1) % cfg.moe_every == 0)
             for i in range(cfg.num_layers)])
         self.ln_f = LayerNorm(h, dev)

@@ -89,9 +89,10 @@ class Linear(nn.Module):
 
 
 class RMSNorm(nn.Module):
-    """RMSNorm with its gain initialised to ones."""
+    """RMSNorm with its gain initialised to ones: the JAX signature
+    ``(hidden, eps=1e-6)``, ``device`` keyword-only after it."""
 
-    def __init__(self, hidden: int, eps: float, device):
+    def __init__(self, hidden: int, eps: float = 1e-6, *, device="cuda"):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(hidden, device=device))
@@ -147,10 +148,11 @@ class LlamaMLP(nn.Module):
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, device):
         super().__init__()
-        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_eps, device)
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_eps,
+                                       device=device)
         self.self_attn = LlamaAttention(cfg, device)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
-                                                cfg.rms_eps, device)
+                                                cfg.rms_eps, device=device)
         self.mlp = LlamaMLP(cfg, device)
 
     def forward(self, x):
@@ -178,7 +180,7 @@ class Llama(nn.Module):
             torch.empty(cfg.vocab_size, cfg.hidden_size, device=dev))
         self.layers = nn.ModuleList([LlamaBlock(cfg, dev)
                                      for _ in range(cfg.num_layers)])
-        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, dev)
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, device=dev)
         if not cfg.tie_embeddings:
             self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, 0.02, dev)
         gen = torch.Generator(device=dev)

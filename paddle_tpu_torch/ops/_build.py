@@ -42,9 +42,15 @@ SIGNATURES = {
     "ragged_paged_attention_f32": [_P] * 7 + [_I] * 8 + [_F, _P],
     "ragged_paged_attention_i8": [_P] * 9 + [_I] * 8 + [_F, _P],
     "ragged_paged_attention_f8": [_P] * 7 + [_I] * 8 + [_F, _P],
+    # the same with bf16 q (and a bf16 output) over bf16, int8 and fp8 pools
+    "ragged_paged_attention_bf16": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "ragged_paged_attention_bf16_i8": [_P] * 9 + [_I] * 8 + [_F, _P],
+    "ragged_paged_attention_bf16_f8": [_P] * 7 + [_I] * 8 + [_F, _P],
     # the paged-decode kernel: its tensors, the workspace and the tickets,
     # then b, h, d, page_size, pages_per_seq, keys_per_split, n_splits
     "paged_decode_attention_f32": [_P] * 8 + [_I] * 7 + [_F, _P],
+    # the same with q, the pools and the output bf16
+    "paged_decode_attention_bf16": [_P] * 8 + [_I] * 7 + [_F, _P],
     # the flash kernels: their tensors, the five masking operands (mask,
     # kbias, qseg, kseg, block_mask; null = absent), then B, H, Sq, Sk, d,
     # the mask's heads and the block mask's block lengths

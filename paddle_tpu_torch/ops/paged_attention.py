@@ -6,10 +6,14 @@ pools [num_blocks, block_size, h, d]; block_table [b, pages] int32; pos
 int32 [b] or one position for the whole batch (a Python int or a 0-d
 tensor, broadcast to [b] on q's device, as the JAX kernel broadcasts it),
 keys at positions <= pos visible (the current token's K/V is written
-before the call). Returns [b, h, d].
+before the call). Returns [b, h, d]. q and the pools are all fp32 (K2) or
+all bf16 (K2-bf16, a bf16 runner's); the output is in q's dtype, the
+softmax and the sums fp32, as the Pallas kernel casts each tile to fp32.
 
 `paged_decode_attention` launches csrc/paged_decode_attention.cu on a CUDA
-tensor and runs `paged_decode_reference` on a CPU tensor. The kernel cuts
+tensor (its fp32 or its bf16 instantiation, never a cast to the other)
+and runs `paged_decode_reference` on a CPU tensor. Each dtype counts its
+own launches: `COUNTS` (fp32) and `COUNTS_BF16`. The kernel cuts
 each sequence's visible keys into splits of KEYS_PER_SPLIT keys, scores
 the splits in parallel and merges them in split order;
 `paged_decode_split_reference` is the plain twin of that algebra, for the
@@ -33,7 +37,19 @@ from paddle_tpu_torch.ops.ragged_paged_attention import (
     MAX_HEAD_DIM, NEG_INF, ragged_attention_ok,
 )
 
-COUNTS = LaunchCounts()
+COUNTS = LaunchCounts()        # fp32 (K2)
+COUNTS_BF16 = LaunchCounts()   # bf16 (K2-bf16)
+
+# dtype -> (launch counts, C entry point)
+_VARIANTS = {
+    torch.float32: (COUNTS, "paged_decode_attention_f32"),
+    torch.bfloat16: (COUNTS_BF16, "paged_decode_attention_bf16"),
+}
+
+
+def counts_for(dtype) -> LaunchCounts:
+    """The launch counts of the fp32 or the bf16 kernel."""
+    return _VARIANTS[dtype][0]
 
 # keys of one split of a sequence's page walk (a multiple of SPLIT_TILE, the
 # four warps' tiles of the kernel). A constant: a sequence's splits, and so
@@ -41,8 +57,10 @@ COUNTS = LaunchCounts()
 KEYS_PER_SPLIT = 256
 SPLIT_TILE = 16
 
-# (device index, stream) -> int32 tickets of the kernel's last-split merge,
-# zero between calls (the kernel resets each one it uses)
+# (device index, stream) -> the int32 ticket buffers of the kernel's
+# last-split merge made for that stream, the newest last, zero between calls
+# (the kernel resets each one it uses). A graph keeps the address of the
+# buffer it was captured with, so an outgrown buffer stays allocated.
 _TICKETS = {}
 
 
@@ -51,18 +69,18 @@ def _tickets(device, stream, n):
     outside any CUDA graph capture: made inside one, it would live in the
     graph's private pool and the graph would zero it on every replay. A
     capture's warm-up on the capture stream makes it first; a capture
-    that finds none large enough raises."""
-    key = (device.index, stream.cuda_stream)
-    t = _TICKETS.get(key)
-    if t is None or t.numel() < n:
+    that finds none large enough raises. The capture stream is shared by
+    every runner on the device (model_runner._capture_stream)."""
+    made = _TICKETS.setdefault((device.index, stream.cuda_stream), [])
+    if not made or made[-1].numel() < n:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
                 "paged_decode_attention: no ticket buffer of "
                 f"{n} entries for this stream; run the step once on the "
                 "capture stream (the warm-up) before capturing it")
-        t = _TICKETS[key] = torch.zeros(max(n, 256), dtype=torch.int32,
-                                        device=device)
-    return t
+        made.append(torch.zeros(max(n, 256), dtype=torch.int32,
+                                device=device))
+    return made[-1]
 
 
 def n_splits(pages_per_seq: int, page_size: int,
@@ -100,11 +118,18 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos, scale=None,
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"paged_decode_attention runs on cuda or cpu "
                          f"tensors, got {q.device}")
+    if q.dtype not in _VARIANTS or {k_pool.dtype, v_pool.dtype} != {q.dtype}:
+        raise TypeError(f"paged_decode_attention takes q and pools all fp32 "
+                        f"or all bf16, got {q.dtype} over {k_pool.dtype} / "
+                        f"{v_pool.dtype}")
     # the same operand rules on both devices (see ragged_paged_attention)
-    require_launchable("paged_decode_attention", (q, k_pool, v_pool),
-                       (block_table, pos))
+    bf16 = q.dtype == torch.bfloat16
+    floats = (q, k_pool, v_pool)
+    require_launchable("paged_decode_attention", () if bf16 else floats,
+                       (block_table, pos), halves=floats if bf16 else ())
+    counts, entry = _VARIANTS[q.dtype]
     if q.device.type == "cpu":
-        COUNTS.plain_launches += 1
+        counts.plain_launches += 1
         return paged_decode_reference(q, k_pool, v_pool, block_table, pos,
                                       scale)
     if not paged_decode_ok(d) or d > MAX_HEAD_DIM:
@@ -117,38 +142,39 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos, scale=None,
     # each split's (acc [d], m, l), read only where a sequence has several
     part = torch.empty(b * h * S * (d + 2), dtype=torch.float32,
                        device=q.device)
-    err = library().paged_decode_attention_f32(
+    err = getattr(library(), entry)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
         part.data_ptr(), _tickets(q.device, stream, b * h).data_ptr(), b, h,
         d, ps, P, ks, S, scale, stream.cuda_stream)
     check(err, "paged_decode_attention")
-    COUNTS.kernel_launches += 1
+    counts.kernel_launches += 1
     return out
 
 
 def paged_decode_reference(q, k_pool, v_pool, block_table, pos, scale=None):
     """Plain PyTorch version: gather the table's pages, mask keys past pos,
-    dense softmax."""
+    dense softmax; in fp32 (fp64 for fp64 q), returned in q's dtype."""
     b, h, d = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     k, v, L = _gather(q, k_pool, v_pool, block_table)
-    s = torch.einsum("bhd,bLhd->bhL", q, k) * scale
+    s = torch.einsum("bhd,bLhd->bhL", q.to(k.dtype), k) * scale
     visible = torch.arange(L, device=q.device)[None, :] \
         <= pos.long()[:, None]                     # [b, L]
     s = torch.where(visible[:, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhL,bLhd->bhd", p, v)
+    return torch.einsum("bhL,bLhd->bhd", p, v).to(q.dtype)
 
 
 def _gather(q, k_pool, v_pool, block_table):
-    """The table's pages as [b, L, h, d] K and V in q's dtype (fp64
-    operands give the fp64 evaluation), and L."""
+    """The table's pages as [b, L, h, d] K and V in the plain versions'
+    compute dtype (fp32; fp64 for fp64 q, the fp64 evaluation), and L."""
     b, h, d = q.shape
     idx = block_table.long()
     L = idx.shape[1] * k_pool.shape[1]
-    return (k_pool[idx].reshape(b, L, h, d).to(q.dtype),
-            v_pool[idx].reshape(b, L, h, d).to(q.dtype), L)
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
+    return (k_pool[idx].reshape(b, L, h, d).to(dt),
+            v_pool[idx].reshape(b, L, h, d).to(dt), L)
 
 
 def paged_decode_split_reference(q, k_pool, v_pool, block_table, pos,
@@ -168,7 +194,7 @@ def paged_decode_split_reference(q, k_pool, v_pool, block_table, pos,
     k, v, L = _gather(q, k_pool, v_pool, block_table)
     S = n_splits(block_table.shape[1], k_pool.shape[1], keys_per_split)
     pad = S * keys_per_split - L
-    s = torch.einsum("bhd,bLhd->bhL", q, k) * scale
+    s = torch.einsum("bhd,bLhd->bhL", q.to(k.dtype), k) * scale
     s = torch.nn.functional.pad(s, (0, pad), value=NEG_INF)
     v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     n = pos.long().clamp(min=-1, max=L - 1) + 1               # [b]
@@ -184,7 +210,7 @@ def paged_decode_split_reference(q, k_pool, v_pool, block_table, pos,
                        v.reshape(b, S, keys_per_split, h, d))
     f = torch.exp(m - m.max(dim=-1, keepdim=True).values)
     den = (f * l).sum(dim=-1).clamp(min=1e-30)
-    return (f[..., None] * acc).sum(dim=2) / den[..., None]
+    return ((f[..., None] * acc).sum(dim=2) / den[..., None]).to(q.dtype)
 
 
 def paged_decode_ok(h_dim: int) -> bool:

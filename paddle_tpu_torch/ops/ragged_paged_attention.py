@@ -1,14 +1,17 @@
 """Ragged paged attention: the serving path's prefill/GQA kernel (K1).
 
 Counterpart of paddle_tpu/ops/pallas/ragged_paged_attention.py, over fp32
-pools (K1) and over quantized pools (K1-q): int8 codes with k_scale /
-v_scale [num_pages, n_kv] fp32 (one scale per page per kv head), or
-float8_e4m3fn pools. One call computes causal attention for a ragged
+pools (K1), bf16 pools (K1-bf16) and quantized pools (K1-q): int8 codes
+with k_scale / v_scale [num_pages, n_kv] fp32 (one scale per page per kv
+head), or float8_e4m3fn pools. q is fp32 (over fp32, int8 and fp8 pools)
+or bf16 (a bf16 runner's: over bf16, int8 and fp8 pools), and the output
+is in q's dtype. One call computes causal attention for a ragged
 batch of query spans straight off the paged K/V pools: decode steps
 (q_len = 1), prefill chunks (q_len = chunk at an offset), and dead batch
 slots (q_len = 0). Quantized pages are dequantized inside the page walk
-(code * scale[page, kv head], or the fp8 value as fp32); the softmax and
-the output stay fp32.
+(code * scale[page, kv head], or the fp8 value as fp32) and bf16 values
+widened to fp32; the softmax and the sums stay fp32, as the Pallas kernel
+casts each tile to fp32, and the output is rounded to q's dtype.
 
 Layout: q [B, T, n_q, d] (T is the padded span length); pools
 [num_pages, page_size, n_kv, d]; block_table [B, P] int32; start_pos and
@@ -17,20 +20,22 @@ q_len [B] int32. Query row t of sequence b attends the keys at positions
 the n_q / n_kv query heads of a kv head from one page walk.
 
 `ragged_paged_attention` is the wrapper: on a CUDA tensor it launches the
-hand-written kernel in csrc/ragged_paged_attention.cu for the pools'
-dtype, in the form `ragged_form` picks from the grouped rows G = n_rep *
-T (the span form on the tensor cores for prefill chunks and GQA spans,
-the key-parallel decode form for G <= DECODE_ROWS); on a CPU tensor it
-runs `ragged_reference`, the plain gather + dense-mask version with the
-same output contract, which computes in q's dtype (fp64 operands give the
-fp64 oracle the card's accuracy gate uses). There is no other path. Each
-pool dtype counts its own launches: `COUNTS` (fp32 pools), `COUNTS_I8`
-and `COUNTS_F8`, with the kernel launches of each form under
+hand-written kernel in csrc/ragged_paged_attention.cu for the pair (q
+dtype, pool dtype), in the form `ragged_form` picks from the grouped rows
+G = n_rep * T (the span form on the tensor cores for prefill chunks and
+GQA spans, the key-parallel decode form for G <= DECODE_ROWS); on a CPU
+tensor it runs `ragged_reference`, the plain gather + dense-mask version
+with the same output contract, which computes in fp32 (fp64 for fp64
+operands: the fp64 oracle the card's accuracy gate uses). There is no
+other path: a bf16 q on the card launches a bf16 kernel or raises, never a
+cast and the fp32 one. Each (q dtype, pool dtype) pair counts its own
+launches: `COUNTS` (fp32 q over fp32 pools), `COUNTS_I8` and `COUNTS_F8`,
+and for bf16 q `COUNTS_BF16` (bf16 pools), `COUNTS_BF16_I8` and
+`COUNTS_BF16_F8`, with the kernel launches of each form under
 `form_launches`. A launch inside a captured CUDA graph counts at its
-capture; the capturing runner takes that count back out and credits it
-on every replay (`_build.counts_delta`). The output is allocated per
-call, so under a graph it is the graph's buffer, which each replay
-overwrites.
+capture; the capturing runner takes that count back out and credits it on
+every replay (`_build.counts_delta`). The output is allocated per call, so
+under a graph it is the graph's buffer, which each replay overwrites.
 """
 
 from __future__ import annotations
@@ -54,16 +59,29 @@ DECODE_ROWS = 8
 # the C side's form argument
 _FORMS = {"span": 0, "decode": 1}
 
-COUNTS = LaunchCounts()        # fp32 pools (K1)
-COUNTS_I8 = LaunchCounts()     # int8 pools + scales (K1-q)
-COUNTS_F8 = LaunchCounts()     # float8_e4m3fn pools (K1-q)
+COUNTS = LaunchCounts()        # fp32 q, fp32 pools (K1)
+COUNTS_I8 = LaunchCounts()     # fp32 q, int8 pools + scales (K1-q)
+COUNTS_F8 = LaunchCounts()     # fp32 q, float8_e4m3fn pools (K1-q)
+COUNTS_BF16 = LaunchCounts()     # bf16 q, bf16 pools (K1-bf16)
+COUNTS_BF16_I8 = LaunchCounts()  # bf16 q, int8 pools + scales (K1-q)
+COUNTS_BF16_F8 = LaunchCounts()  # bf16 q, float8_e4m3fn pools (K1-q)
 
-# pool dtype -> (launch counts, C entry point)
+_F32, _BF16 = torch.float32, torch.bfloat16
+_I8, _F8 = torch.int8, torch.float8_e4m3fn
+# (q dtype, pool dtype) -> (launch counts, C entry point)
 _VARIANTS = {
-    torch.float32: (COUNTS, "ragged_paged_attention_f32"),
-    torch.int8: (COUNTS_I8, "ragged_paged_attention_i8"),
-    torch.float8_e4m3fn: (COUNTS_F8, "ragged_paged_attention_f8"),
+    (_F32, _F32): (COUNTS, "ragged_paged_attention_f32"),
+    (_F32, _I8): (COUNTS_I8, "ragged_paged_attention_i8"),
+    (_F32, _F8): (COUNTS_F8, "ragged_paged_attention_f8"),
+    (_BF16, _BF16): (COUNTS_BF16, "ragged_paged_attention_bf16"),
+    (_BF16, _I8): (COUNTS_BF16_I8, "ragged_paged_attention_bf16_i8"),
+    (_BF16, _F8): (COUNTS_BF16_F8, "ragged_paged_attention_bf16_f8"),
 }
+
+
+def counts_for(q_dtype, pool_dtype) -> LaunchCounts:
+    """The launch counts of the (q dtype, pool dtype) variant."""
+    return _VARIANTS[(q_dtype, pool_dtype)][0]
 
 
 def _check_shapes(q, k_pool, v_pool, block_table, start_pos, q_len):
@@ -91,18 +109,21 @@ def _check_shapes(q, k_pool, v_pool, block_table, start_pos, q_len):
                          f"devices {sorted(map(str, devices))}")
 
 
-def _check_scales(k_pool, v_pool, k_scale, v_scale):
-    """int8 pools take both scale pools [num_pages, n_kv]; fp32 and fp8
-    pools take none."""
+def _check_scales(q, k_pool, v_pool, k_scale, v_scale):
+    """The (q dtype, pool dtype) pair is one of `_VARIANTS`; int8 pools
+    take both scale pools [num_pages, n_kv], the others none."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass both k_scale and v_scale or neither")
-    if k_pool.dtype != v_pool.dtype or k_pool.dtype not in _VARIANTS:
-        raise TypeError(f"ragged_paged_attention takes fp32, int8 or "
-                        f"float8_e4m3fn pools of one dtype, got "
-                        f"{k_pool.dtype} / {v_pool.dtype}")
+    if k_pool.dtype != v_pool.dtype \
+            or (q.dtype, k_pool.dtype) not in _VARIANTS:
+        raise TypeError(
+            f"ragged_paged_attention takes fp32 q over fp32, int8 or "
+            f"float8_e4m3fn pools, or bf16 q over bf16, int8 or "
+            f"float8_e4m3fn pools, of one dtype; got q {q.dtype} over "
+            f"{k_pool.dtype} / {v_pool.dtype}")
     if (k_pool.dtype == torch.int8) != (k_scale is not None):
         raise ValueError(f"{k_pool.dtype} pools: int8 pools need k_scale "
-                         "and v_scale, fp32 and fp8 pools take none")
+                         "and v_scale; bf16, fp32 and fp8 pools take none")
     if k_scale is not None:
         want = (k_pool.shape[0], k_pool.shape[2])
         for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
@@ -116,12 +137,13 @@ def ragged_paged_attention(q, k_pool, v_pool, block_table, start_pos, q_len,
                            scale=None, interpret=None, k_scale=None,
                            v_scale=None):
     """Causal attention for a ragged batch of query spans over paged KV.
-    q is fp32; the pools fp32, int8 (with k_scale / v_scale) or
-    float8_e4m3fn. Returns [B, T, n_q, d] fp32. ``interpret`` is the JAX
-    flag (`_build.refuse_interpret`)."""
+    q is fp32 over fp32, int8 (with k_scale / v_scale) or float8_e4m3fn
+    pools, or bf16 over bf16, int8 or float8_e4m3fn pools. Returns [B, T,
+    n_q, d] in q's dtype. ``interpret`` is the JAX flag
+    (`_build.refuse_interpret`)."""
     refuse_interpret("ragged_paged_attention", interpret, q)
     _check_shapes(q, k_pool, v_pool, block_table, start_pos, q_len)
-    _check_scales(k_pool, v_pool, k_scale, v_scale)
+    _check_scales(q, k_pool, v_pool, k_scale, v_scale)
     B, T, n_q, d = q.shape
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     if q.device.type not in ("cuda", "cpu"):
@@ -133,12 +155,14 @@ def ragged_paged_attention(q, k_pool, v_pool, block_table, start_pos, q_len,
                          "device than q")
     # the same operand rules on both devices, so a CPU run refuses what
     # the kernel would refuse
-    quantized = k_pool.dtype != torch.float32
+    floats = (q, k_pool, v_pool) if k_pool.dtype == q.dtype else (q,)
+    codes = () if k_pool.dtype == q.dtype else (k_pool, v_pool)
+    bf16 = q.dtype == torch.bfloat16
     require_launchable(
-        "ragged_paged_attention", (q,) if quantized else (q, k_pool, v_pool),
-        (block_table, start_pos, q_len),
-        codes=(k_pool, v_pool) if quantized else (), scales=scales)
-    counts, entry = _VARIANTS[k_pool.dtype]
+        "ragged_paged_attention", () if bf16 else floats,
+        (block_table, start_pos, q_len), codes=codes, scales=scales,
+        halves=floats if bf16 else ())
+    counts, entry = _VARIANTS[(q.dtype, k_pool.dtype)]
     if q.device.type == "cpu":
         counts.plain_launches += 1
         return ragged_reference(q, k_pool, v_pool, block_table, start_pos,
@@ -193,8 +217,9 @@ def ragged_reference(q, k_pool, v_pool, block_table, start_pos, q_len,
                      scale=None, k_scale=None, v_scale=None):
     """Plain PyTorch version of the kernel: gather every table page (and
     dequantize it), mask, dense softmax. Padded rows and dead slots
-    produce exact zeros. It computes in q's dtype: fp32 for fp32 q, fp64
-    for fp64 q (with fp64 float pools, or 1-byte pools and their scales,
+    produce exact zeros. It computes in fp32 for fp32 and bf16 q (the
+    Pallas kernel's tile casts) and returns q's dtype; fp64 q computes in
+    fp64 (with fp64 or bf16 pools, or 1-byte pools and their scales,
     which fp64 holds exactly)."""
     B, T, n_q, d = q.shape
     page_size, n_kv = k_pool.shape[1], k_pool.shape[2]
@@ -202,7 +227,7 @@ def ragged_reference(q, k_pool, v_pool, block_table, start_pos, q_len,
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     idx = block_table.long()
     L = idx.shape[1] * page_size
-    dt = q.dtype
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
     kg = dequantize_pages(k_pool, idx, k_scale, dt).reshape(B, L, n_kv, d)
     vg = dequantize_pages(v_pool, idx, v_scale, dt).reshape(B, L, n_kv, d)
     if n_rep > 1:
@@ -210,7 +235,7 @@ def ragged_reference(q, k_pool, v_pool, block_table, start_pos, q_len,
         vg = vg.repeat_interleave(n_rep, dim=2)
     start = start_pos.long().reshape(-1)
     qlen = q_len.long().reshape(-1)
-    qT = q.transpose(1, 2)                         # [B, nq, T, d]
+    qT = q.to(dt).transpose(1, 2)                  # [B, nq, T, d]
     kT = kg.transpose(1, 2)                        # [B, nq, L, d]
     vT = vg.transpose(1, 2)
     s = torch.einsum("bhtd,bhLd->bhtL", qT, kT) * scale
@@ -224,7 +249,7 @@ def ragged_reference(q, k_pool, v_pool, block_table, start_pos, q_len,
     p = torch.where(row_live, torch.softmax(s, dim=-1),
                     torch.zeros_like(s))
     out = torch.einsum("bhtL,bhLd->bhtd", p, vT)
-    return out.transpose(1, 2).contiguous()
+    return out.transpose(1, 2).to(q.dtype).contiguous()
 
 
 def attention_page_reads(start_pos, q_len, page_size: int):

@@ -211,6 +211,8 @@ def _to_host(x) -> np.ndarray:
     performs funnels through here, so a test can patch this one symbol
     and count how often a step waited on the device."""
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:   # numpy has no bf16: widen, exactly
+            x = x.float()
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
@@ -313,11 +315,12 @@ class ServingEngine:
                            unbounded)
       spec_adaptive_k      per-request draft length from an EWMA of the
                            acceptance rate, in [0, num_speculative_tokens]
-      spec_draft_model     None = n-gram prompt lookup; "shadow:fp32" = a
-                           shadow of the target runner proposing greedy
+      spec_draft_model     None = n-gram prompt lookup; "shadow[:int8|
+                           int4|fp8|fp32]" = a shadow of the target
+                           runner on that rung of the weight ladder
+                           ("shadow" alone is int8), proposing greedy
                            chains from its own pool (spec_draft_blocks
-                           pages); or a runner instance. The quantized
-                           shadows raise naming ROADMAP.md item 8
+                           pages); or a runner instance
     """
 
     def __init__(self, runner: PagedModelRunner, *, num_blocks: int,
@@ -377,7 +380,8 @@ class ServingEngine:
         # end of one step, drained and replayed by the next (or flush())
         self._inflight: Optional[_InflightLaunch] = None
         # the KV storage rung is a runner property: the runner quantizes at
-        # append time, so the engine builds its pools with the same rung
+        # append time, so the engine builds its pools with the same rung,
+        # in the runner's dtype (fp32, or bf16 after a dtype= cast)
         self.kv_dtype = runner.kv_dtype
         self.pool = KVCachePool(runner.num_layers, num_blocks, block_size,
                                 runner.n_kv_heads, runner.head_dim,
@@ -452,22 +456,31 @@ class ServingEngine:
             self.pool.kv_bytes_reduction_x())
         self.metrics.sessions_per_pool_x.set(
             self.pool.kv_bytes_reduction_x())
+        self.metrics.weight_bytes_reduction_x.set(
+            float(runner.weight_bytes_reduction_x()))
         self._requests: Dict[str, Request] = {}
         self._outputs: Dict[str, RequestOutput] = {}
 
     # ----------------------------------------------------------- intake
 
     def _check_kv_dtype(self, sampling: SamplingParams) -> None:
-        """Per-request KV precision gate: a pool serves only its own
-        rung. Loud at intake: a silently widened or narrowed tenant would
-        break the byte accounting and the accuracy story."""
+        """Per-request KV precision gate: a homogeneous pool serves only
+        its own rung; a "mixed" pool serves fp32 and fp8 tenants side by
+        side (pages tagged at allocation). Loud at intake: a silently
+        widened or narrowed tenant would break the byte accounting and
+        the accuracy story."""
         want = sampling.kv_dtype
-        if want is not None and want != self.kv_dtype:
+        if want is None:
+            return
+        allowed = ({"fp32", "fp8"} if self.kv_dtype == "mixed"
+                   else {self.pool.native_kv_tag()})
+        if want not in allowed:
             raise ValueError(
                 f"SamplingParams.kv_dtype={want!r} is not servable by this "
                 f"engine's kv_dtype={self.kv_dtype!r} pool (allowed: "
-                f"{[self.kv_dtype]}); the 'mixed' pool that serves several "
-                "is ROADMAP.md 'Still to port' item 8")
+                f"{sorted(allowed)}); build the engine with "
+                "kv_dtype='mixed' to serve mixed-precision tenants from "
+                "one pool geometry")
 
     def add_request(self, prompt_tokens: Sequence[int],
                     sampling: Optional[SamplingParams] = None,
@@ -1655,6 +1668,9 @@ def naive_generate(runner: PagedModelRunner, prompt_tokens: Sequence[int],
                        runner.n_kv_heads, runner.head_dim, runner.dtype,
                        device=runner.device, kv_dtype=runner.kv_dtype)
     pages = pool.allocator.alloc(max_pages)
+    # the oracle's pages carry the request's effective tag, so a mixed
+    # pool's fp8 tenant writes through the same fp8 round trip
+    pool.tag_pages(pages, sampling.kv_dtype or pool.native_kv_tag())
     table = pool.pad_table(pages, max_pages)
     tokens = list(map(int, prompt_tokens))
     logits, pools = runner.prefill(tokens, table, pool.pools)

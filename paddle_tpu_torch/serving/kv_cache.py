@@ -6,12 +6,21 @@ tables of int32 page ids. Page 0 is RESERVED as scratch: dead batch
 slots and padded prefill positions write there, so the allocator never
 hands it out and no live sequence reads it.
 
-Three storage rungs (``kv_dtype``):
-  "fp32"  (k_pool, v_pool) fp32;
+Four storage rungs (``kv_dtype``), over the logical ``dtype`` (the
+runner's: fp32, or bf16 for a bf16 runner):
+  "fp32"  (k_pool, v_pool) in ``dtype``;
   "int8"  (k_codes, v_codes, k_scale, v_scale): int8 codes and one fp32
           scale per page per kv head ([num_blocks, n_kv]), written by
           `quantized_page_write`;
-  "fp8"   (k_pool, v_pool) float8_e4m3fn, written by `fp8_page_write`.
+  "fp8"   (k_pool, v_pool) float8_e4m3fn, written by `fp8_page_write`;
+  "mixed" (k_pool, v_pool, tag) in ``dtype`` plus a bool tag plane per
+          layer ([num_blocks], the planes kept equal): pages of tenants
+          tagged "fp8" (per request, `SamplingParams.kv_dtype`) hold the
+          values `fp8_round` gives, the others verbatim values.
+Every page is tagged with its owner's kv-dtype at allocation
+(`tag_pages`, `page_tag`; the tag dies with the page's last reference),
+and a tenant's tag seeds its prefix chain (`chain_seed`), so tenants of
+two precisions never share a page.
 
 The pools live on the engine's device and are written IN PLACE by the
 runner (the JAX package threads them functionally); see model_runner.
@@ -26,13 +35,18 @@ admission, and forked before any write (`SequenceKV.ensure_writable`,
 the stream the runner's steps and graph replays run on, so it is ordered
 before the write that follows it.
 
-Not ported yet (ROADMAP.md 'Still to port'): the "mixed" pool with
-per-request tags (item 8), the host tier (item 9) and mesh-sharded pools
-(item 10).
+Not ported yet (ROADMAP.md 'Still to port'): the host tier (item 9) and
+mesh-sharded pools (item 10).
+
+A departure: the JAX `chain_seed` folds a tag in with Python's `hash` of a
+tuple holding a string, which changes from one process to the next
+(PYTHONHASHSEED); the port folds it in with a CRC-32 of the tag's name,
+the same in every process.
 """
 
 from __future__ import annotations
 
+import zlib
 from bisect import insort
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -45,8 +59,12 @@ SCRATCH_PAGE = 0
 # int8 symmetric quantization range of the quantized KV pools
 KV_QMAX = 127.0
 
-# the pool storage rungs of the JAX package; "mixed" is not ported
+# the pool storage rungs of the JAX package
 KV_DTYPES = ("fp32", "int8", "fp8", "mixed")
+
+# the logical dtypes a pool stores on its "fp32" and "mixed" rungs: the
+# runner's compute dtype (float16 is ROADMAP.md item 21)
+POOL_DTYPES = (torch.float32, torch.bfloat16)
 
 # ml_dtypes' float32 -> float8_e4m3fn overflow rule: 464 is the tie
 # between 448 (the largest finite value) and 480, which does not exist;
@@ -176,6 +194,9 @@ class BlockAllocator:
         self.num_blocks = num_blocks
         self._free = list(range(1, num_blocks))  # ascending
         self._ref: Dict[int, int] = {}           # page -> refcount (>= 1)
+        # page -> its owner's kv-dtype tag, stamped at allocation
+        # (`KVCachePool.tag_pages`), gone with the last reference
+        self._tags: Dict[int, str] = {}
         self.evictor: Optional["PrefixCache"] = None
 
     @property
@@ -228,6 +249,7 @@ class BlockAllocator:
         rc = self._ref[page]
         if rc == 0:
             del self._ref[page]
+            self._tags.pop(page, None)   # the tag dies with the last ref
             insort(self._free, page)   # keep sorted: allocation stays
         return rc                      # deterministic
 
@@ -393,18 +415,13 @@ class PrefixCache:
 
 
 def check_kv_dtype(kv_dtype: str, context: str) -> None:
-    """Refuse a kv_dtype the port does not serve: unknown names raise
-    ValueError, "mixed" NotImplementedError naming its ROADMAP item."""
+    """Unknown rungs raise ValueError; the fp8 and mixed rungs need
+    float8_e4m3fn (a mixed pool's fp8 tenants round through it)."""
     if kv_dtype not in KV_DTYPES:
         raise ValueError(f"kv_dtype={kv_dtype!r}; expected one of "
                          f"{KV_DTYPES}")
-    if kv_dtype == "mixed":
-        raise NotImplementedError(
-            f"{context}(kv_dtype='mixed'): the mixed pool with per-request "
-            "kv-dtype tags is not ported yet: ROADMAP.md 'Still to port' "
-            "item 8 (quantized serving)")
-    if kv_dtype == "fp8":
-        require_fp8(f"{context}(kv_dtype='fp8')")
+    if kv_dtype in ("fp8", "mixed"):
+        require_fp8(f"{context}(kv_dtype={kv_dtype!r})")
 
 
 class KVCachePool:
@@ -412,7 +429,7 @@ class KVCachePool:
 
     The pools live on ``device`` ("cuda" unless the caller passes "cpu";
     keyword-only, after the JAX parameters). ``dtype`` is the logical
-    (compute) dtype, fp32; ``kv_dtype`` the storage rung (module
+    (compute) dtype, fp32 or bf16; ``kv_dtype`` the storage rung (module
     docstring). ``mesh`` and ``model_axis`` sit in the JAX places; a mesh
     raises (sharded pools are ROADMAP.md item 10). Block tables live
     host-side as python lists per sequence; `pad_table` builds the
@@ -427,11 +444,11 @@ class KVCachePool:
                 "KVCachePool(mesh=...): pools sharded over a mesh's model "
                 "axis are not ported yet: ROADMAP.md 'Still to port' item "
                 "10 (tensor-parallel serving)")
-        if dtype != torch.float32:
+        if dtype not in POOL_DTYPES:
             raise NotImplementedError(
-                f"KVCachePool(dtype={dtype}): only fp32 is ported as the "
-                "logical dtype; lower-precision serving is ROADMAP.md "
-                "'Still to port' item 8 (quantized serving)")
+                f"KVCachePool(dtype={dtype}): fp32 and bf16 pools are "
+                "ported; float16 serving is ROADMAP.md 'Still to port' "
+                "item 21 (the fp16 kernels)")
         check_kv_dtype(kv_dtype, "KVCachePool")
         self.num_layers = num_layers
         self.num_blocks = num_blocks
@@ -456,23 +473,50 @@ class KVCachePool:
                            zeros(sshape, torch.float32),
                            zeros(sshape, torch.float32))
                           for _ in range(num_layers)]
+        elif kv_dtype == "mixed":
+            # storage in the logical dtype and a tag plane per layer (kept
+            # equal; `tag_pages` sets them all), which steers the writes
+            self.pools = [(zeros(shape, dtype), zeros(shape, dtype),
+                           zeros((num_blocks,), torch.bool))
+                          for _ in range(num_layers)]
         else:
             store = torch.float8_e4m3fn if kv_dtype == "fp8" else dtype
             self.pools = [(zeros(shape, store), zeros(shape, store))
                           for _ in range(num_layers)]
 
     def native_kv_tag(self) -> str:
-        """The kv_dtype tag of every sequence: the pool's own rung (the
-        "mixed" pool with per-request tags is ROADMAP.md item 8)."""
-        return self.kv_dtype
+        """The kv_dtype tag a request gets when it does not ask for one:
+        the pool's own rung, and "fp32" (its storage width) on a mixed
+        pool, where "fp8" is the tenant's opt-in."""
+        return "fp32" if self.kv_dtype == "mixed" else self.kv_dtype
 
     def chain_seed(self, tag: Optional[str]) -> int:
         """Prefix-chain seed of a kv-dtype tag: the native tag keeps the
         fixed seed, any other tag folds itself in, so pages of two
-        precisions never share a chain (the JAX package's rule)."""
+        precisions never share a chain (the JAX package's rule, with a
+        CRC-32 of the tag where JAX takes a per-process `hash`)."""
         if tag is None or tag == self.native_kv_tag():
             return _CHAIN_SEED
-        return hash((_CHAIN_SEED, tag))
+        return page_content_hash(_CHAIN_SEED, (zlib.crc32(tag.encode()),))
+
+    def tag_pages(self, pages: Sequence[int], tag: str) -> None:
+        """Stamp freshly allocated pages with their owner's kv-dtype tag
+        (the auditor's bijection reads the tags). On a mixed pool this
+        also sets the pages' bit in every layer's tag plane (in place on
+        the current stream), which steers the write path: fp8-tagged
+        pages get the fp8 round trip."""
+        if not pages:
+            return
+        for p in pages:
+            self.allocator._tags[p] = tag
+        if self.kv_dtype == "mixed":
+            idx = torch.tensor(list(pages), dtype=torch.long,
+                               device=self.device)
+            for layer in self.pools:
+                layer[2][idx] = tag == "fp8"
+
+    def page_tag(self, page: int) -> Optional[str]:
+        return self.allocator._tags.get(page)
 
     def enable_prefix_cache(self) -> PrefixCache:
         """Turn on shared-prefix page caching (idempotent)."""
@@ -486,7 +530,8 @@ class KVCachePool:
         IN PLACE on the current stream: the data move behind a
         copy-on-write fork. Pages move as opaque bytes, so on an int8
         pool the scale rows ([num_blocks, n_kv], page-indexed like the
-        codes) travel with the codes."""
+        codes) travel with the codes, and on a mixed pool the tag bits
+        (the fork is tagged again with its owner's tag right after)."""
         for layer in self.pools:
             for t in layer:
                 v = t.view(torch.uint8)
@@ -511,13 +556,16 @@ class KVCachePool:
     def page_bytes(self) -> int:
         """Device bytes ONE page occupies across all layers and both
         pools: int8 code bytes PLUS scale bytes on an int8 pool, one byte
-        per element on an fp8 pool."""
+        per element on an fp8 pool, the logical dtype's itemsize
+        otherwise, plus the page's tag bit on a mixed pool (counted as
+        the JAX package counts it, one byte)."""
         per_kv = self.block_size * self.n_kv_heads * self.head_dim
         if self.kv_dtype == "int8":
             return 2 * self.num_layers * (per_kv + self.n_kv_heads * 4)
         if self.kv_dtype == "fp8":
             return 2 * self.num_layers * per_kv
-        return 2 * self.num_layers * per_kv * self.dtype.itemsize
+        base = 2 * self.num_layers * per_kv * self.dtype.itemsize
+        return base + 1 if self.kv_dtype == "mixed" else base
 
     def unquantized_page_bytes(self) -> int:
         """What the same page costs stored at the logical dtype."""
@@ -545,15 +593,11 @@ class SequenceKV:
     the cache at admission); `registered_pages` / `hash_chain` track how
     far this sequence's full pages have been pushed into the cache, and
     `ensure_writable` forks any shared page before a write lands on it.
-    ``kv_tag`` is the JAX per-sequence kv-dtype tag: the pool's own rung
-    only (other tags belong to the mixed pool, ROADMAP.md item 8)."""
+    ``kv_tag`` is the sequence's effective kv-dtype (the per-request
+    override on a mixed pool, the pool's own rung otherwise): every page
+    it allocates is tagged with it."""
 
     def __init__(self, pool: KVCachePool, kv_tag: Optional[str] = None):
-        if kv_tag is not None and kv_tag != pool.native_kv_tag():
-            raise NotImplementedError(
-                f"SequenceKV(kv_tag={kv_tag!r}): per-sequence kv-dtype tags "
-                "belong to the mixed pool, ROADMAP.md 'Still to port' item 8 "
-                "(quantized serving)")
         self.pool = pool
         self.kv_tag = kv_tag or pool.native_kv_tag()
         self.pages: List[int] = []
@@ -577,7 +621,9 @@ class SequenceKV:
     def grow(self, upcoming_tokens: int = 1) -> None:
         short = self.pages_short(upcoming_tokens)
         if short:
-            self.pages.extend(self.pool.allocator.alloc(short))
+            fresh = self.pool.allocator.alloc(short)
+            self.pages.extend(fresh)
+            self.pool.tag_pages(fresh, self.kv_tag)   # tagged at alloc
 
     def truncate(self, num_tokens: int) -> int:
         """Roll back over-committed tail pages: keep the pages covering
@@ -617,6 +663,7 @@ class SequenceKV:
             if alloc.refcount(page) > 1:
                 new = alloc.alloc(1)[0]
                 self.pool.copy_page(page, new)
+                self.pool.tag_pages([new], self.kv_tag)
                 alloc.decref(page)
                 self.pages[idx] = new
                 # the fork is private and will diverge: it leaves this

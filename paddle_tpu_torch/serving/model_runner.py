@@ -1,9 +1,13 @@
 """Model runners: paged-KV step functions for the serving engine.
 
-Counterpart of paddle_tpu/serving/model_runner.py for fp32 Llama and GPT
-on one device, over fp32, int8 or fp8 KV pools (``kv_dtype``). A runner
-adapts a model's flat parameter dict into the step functions the engine
-calls over the shared page pool:
+Counterpart of paddle_tpu/serving/model_runner.py for Llama and GPT on one
+device: fp32 or bf16 compute (the dtype of the first floating parameter,
+`dtype`; `inference.create_serving_engine(dtype=...)` casts), over fp32
+(the runner's dtype), int8, fp8 or "mixed" KV pools (``kv_dtype``), with
+fp32, int8, int4 or fp8 matmul weights (``weight_dtype``, the weight
+ladder: `_quantize_weights`, `_mm`). A runner adapts a model's flat
+parameter dict into the step functions the engine calls over the shared
+page pool:
 
   prefill(tokens, table_row, pools)                 -> (logits[V], pools)
   prefill_chunk(tokens, start_pos, table_row, pools) -> (logits[V], pools)
@@ -35,7 +39,9 @@ single-token paged-decode kernel (MHA decode), or the gather + dense-mask
 reference. "auto" resolves exactly as `best_paged_impl` says on every
 device, except that int8 and fp8 pools never go to the paged-decode
 kernel (it has no dequantize step): their MHA decode takes the ragged
-kernel, as in the JAX package. On CUDA tensors the wrappers launch the
+kernel, as in the JAX package ("mixed" pools store the runner's dtype and
+keep the full dispatch). A bf16 runner's q and pools take the kernels'
+bf16 variants. On CUDA tensors the wrappers launch the
 CUDA kernels, on CPU tensors they run their plain versions. A shape no
 kernel tiles takes the gather path on the CPU and raises on CUDA unless
 the caller asked for attn_impl="reference". Chunk lengths are padded to
@@ -100,11 +106,23 @@ from paddle_tpu_torch.ops.ragged_paged_attention import (
     attention_page_reads, dequantize_pages, ragged_attention_ok,
     ragged_paged_attention,
 )
+from paddle_tpu_torch.quantization.int4 import int4_matmul, int4_quantize
+from paddle_tpu_torch.quantization.int8 import _weight_quantize
 from paddle_tpu_torch.serving.kv_cache import (
-    SCRATCH_PAGE, check_kv_dtype, fp8_page_write, quantized_page_write,
+    SCRATCH_PAGE, _fp8_cast, check_kv_dtype, fp8_page_write, fp8_round,
+    quantized_page_write, require_fp8,
 )
 
 logger = logging.getLogger(__name__)
+
+# params-dict key suffix of a quantized weight's scale tensor:
+# "layers.0.self_attn.q_proj.weight::scale" ([out] fp32 for int8,
+# [out, ceil(in / group)] fp32 for int4; fp8 weights have none)
+SCALE_SUFFIX = "::scale"
+
+# the weight ladder: "int8" codes with per-output-channel scales, "int4"
+# packed nibbles with group scales, "fp8" float8_e4m3fn, scale-free
+WEIGHT_DTYPES = ("fp32", "int8", "int4", "fp8")
 
 
 def bucket_len(t: int, minimum: int = 8) -> int:
@@ -121,13 +139,16 @@ def paged_attend(q, k_new, v_new, layer_pools, tables, write_page,
     """Write this step's K/V through the block table, then attend.
 
     q: [B, T, n_h, d]; k_new/v_new: [B, T, n_kv, d]; layer_pools: one
-    layer's pool tuple, written IN PLACE: fp32 or float8_e4m3fn (k_pool,
-    v_pool) (fp8 appends are a pure cast, `fp8_page_write`), or int8
-    (k_codes, v_codes, k_scale, v_scale) (`quantized_page_write`
-    quantizes at append time; the attend paths dequantize with the
-    per-page-per-head scales); tables: [B, P] int32; write_page/
-    write_off: [B, T] int64; pos_q: [B] int32 context position of q row
-    0; q_len: [B] int32 live rows per span. impl is the resolved
+    layer's pool tuple, written IN PLACE: (k_pool, v_pool) in the runner's
+    dtype or float8_e4m3fn (fp8 appends are a pure cast,
+    `fp8_page_write`), mixed (k_pool, v_pool, tag) (the runner's dtype
+    and a bool plane per page: rows landing on fp8-tagged pages are
+    written through `fp8_round`, the value a native fp8 pool holds,
+    the others verbatim), or int8 (k_codes, v_codes, k_scale, v_scale)
+    (`quantized_page_write` quantizes at append time; the attend paths
+    dequantize with the per-page-per-head scales); tables: [B, P] int32;
+    write_page/write_off: [B, T] int64; pos_q: [B] int32 context position
+    of q row 0; q_len: [B] int32 live rows per span. impl is the resolved
     attention path ("reference" | "paged_decode" | "ragged"). shard_ctx,
     the JAX (mesh, model_axis) of a sharded runner, raises unless None
     (ROADMAP.md item 10). Returns ([B, T, n_h*d], layer_pools)."""
@@ -138,10 +159,17 @@ def paged_attend(q, k_new, v_new, layer_pools, tables, write_page,
             "item 10 (tensor-parallel serving)")
     k_pool, v_pool = layer_pools[:2]
     scales = (None, None)
-    if len(layer_pools) == 4:
+    quantized = len(layer_pools) == 4
+    if quantized:
         scales = layer_pools[2:]
         quantized_page_write(k_pool, scales[0], write_page, write_off, k_new)
         quantized_page_write(v_pool, scales[1], write_page, write_off, v_new)
+    elif len(layer_pools) == 3:     # mixed: the tag plane steers the write
+        is8 = layer_pools[2][write_page][..., None, None]   # [B, T, 1, 1]
+        k_pool[write_page, write_off] = torch.where(is8, fp8_round(k_new),
+                                                    k_new)
+        v_pool[write_page, write_off] = torch.where(is8, fp8_round(v_new),
+                                                    v_new)
     elif k_pool.dtype == torch.float8_e4m3fn:
         fp8_page_write(k_pool, write_page, write_off, k_new)
         fp8_page_write(v_pool, write_page, write_off, v_new)
@@ -149,8 +177,9 @@ def paged_attend(q, k_new, v_new, layer_pools, tables, write_page,
         k_pool[write_page, write_off] = k_new
         v_pool[write_page, write_off] = v_new
     B, T = q.shape[0], q.shape[1]
+    one_byte = quantized or k_pool.dtype == torch.float8_e4m3fn
     if impl == "paged_decode":
-        if k_pool.dtype != torch.float32:
+        if one_byte:
             raise ValueError("paged_decode has no int8/fp8-pool path: "
                              "_attn_impl_for routes quantized pools to the "
                              "ragged kernel or the gather reference")
@@ -160,7 +189,7 @@ def paged_attend(q, k_new, v_new, layer_pools, tables, write_page,
         out = ragged_paged_attention(q, k_pool, v_pool, tables, pos_q, q_len,
                                      k_scale=scales[0], v_scale=scales[1])
         return out.reshape(B, T, -1), layer_pools
-    if k_pool.dtype == torch.float32:
+    if not one_byte:
         kg = paged_gather(k_pool, tables)
         vg = paged_gather(v_pool, tables)
     else:   # dequantize the gathered pages with their page/head scales
@@ -173,27 +202,8 @@ def paged_attend(q, k_new, v_new, layer_pools, tables, write_page,
     return masked_cache_attention(q, kg, vg, pos_q), layer_pools
 
 
-def check_weight_dtype(weight_dtype: str) -> None:
-    """Only fp32 weights are ported: the weight ladder raises."""
-    if weight_dtype != "fp32":
-        raise NotImplementedError(
-            f"weight_dtype={weight_dtype!r}: only fp32 weights are ported; "
-            "the weight ladder (int8, int4, fp8) is ROADMAP.md 'Still to "
-            "port' item 8 (quantized serving)")
-
-
-def check_weight_group_size(weight_group_size: int) -> None:
-    """The JAX runners' default of 128 rows per weight scale is accepted;
-    another value only matters to the weight ladder, which raises."""
-    if weight_group_size != 128:
-        raise NotImplementedError(
-            f"weight_group_size={weight_group_size!r}: grouped weight "
-            "scales belong to the weight ladder (int4, int8, fp8), "
-            "ROADMAP.md 'Still to port' item 8 (quantized serving)")
-
-
 class _CudaGraph:
-    """A torch.cuda.CUDAGraph captured on the runner's capture stream."""
+    """A torch.cuda.CUDAGraph captured on its device's capture stream."""
 
     def __init__(self, stream):
         self.graph = torch.cuda.CUDAGraph()
@@ -291,6 +301,22 @@ def capture_step(body, host, pools, device, graph):
     return step, first
 
 
+# the capture stream of each device, shared by every runner: cuBLAS keeps
+# a workspace for every stream it has run on (32 MiB a stream on the H100)
+# and never frees it, so a stream per runner would hold one per runner
+_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(device) -> "torch.cuda.Stream":
+    """The stream graphs are captured on for ``device``, made once."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    stream = _CAPTURE_STREAMS.get(idx)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[idx] = torch.cuda.Stream(device)
+    return stream
+
+
 def _pools_key(pools) -> tuple:
     """The pools' addresses, shapes and dtypes: a graph writes the pools it
     was captured on, or any that later lie at the same addresses."""
@@ -322,9 +348,19 @@ class PagedModelRunner:
             raise ValueError(f"attn_impl={attn_impl!r}; expected one of "
                              f"{self.ATTN_IMPLS}")
         check_kv_dtype(kv_dtype, type(self).__name__)
-        check_weight_dtype(weight_dtype)
-        check_weight_group_size(weight_group_size)
-        self.weight_group_size = weight_group_size
+        if weight_dtype not in WEIGHT_DTYPES:
+            raise ValueError(f"weight_dtype={weight_dtype!r}; expected one "
+                             f"of {WEIGHT_DTYPES}")
+        if weight_dtype == "fp8":
+            require_fp8(f"{type(self).__name__}(weight_dtype='fp8')")
+        if int(weight_group_size) < 1:
+            raise ValueError(f"weight_group_size must be >= 1, got "
+                             f"{weight_group_size}")
+        self.weight_dtype = weight_dtype
+        self.weight_group_size = int(weight_group_size)
+        # the params `_quantize_weights` converted: the byte accounting's
+        # map back to their logical fp32 shapes
+        self._quantized_names: frozenset = frozenset()
         self.params = params
         self.block_size = block_size
         self.max_model_len = max_model_len
@@ -332,7 +368,6 @@ class PagedModelRunner:
         # the engine builds its pools with the runner's kv_dtype
         self.kv_dtype = kv_dtype
         self.device = next(iter(params.values())).device
-        self.dtype = torch.float32
         self._impl_logged: set = set()
         # instrumented-pool counters: device bytes of KV pool the chosen
         # attention path touches vs what the gather path would have read
@@ -342,13 +377,91 @@ class PagedModelRunner:
         # runs them eagerly there too
         self.graphs = True
         self._graph_cache: "OrderedDict[tuple, CapturedStep]" = OrderedDict()
-        self._capture_stream = None
         # one entry per capture: kind, key, seconds, graph pool bytes
         self.captures: List[dict] = []
 
     @property
+    def dtype(self):
+        """The runner's compute dtype: the first floating parameter's
+        (int8 weight codes are storage, not the serving precision)."""
+        for v in self.params.values():
+            if v.is_floating_point():
+                return v.dtype
+        return next(iter(self.params.values())).dtype
+
+    @property
     def n_rep(self) -> int:
         return self.n_heads // self.n_kv_heads
+
+    # ------------------------------------------------- the weight ladder
+
+    def _quantize_weights(self, names) -> None:
+        """Convert the named 2-D [in, out] matmul weights to this runner's
+        rung: "int8" codes and a per-output-channel fp32 scale vector
+        (`quantization.int8._weight_quantize`), "int4" packed nibbles and
+        [out, ceil(in / weight_group_size)] fp32 group scales
+        (`quantization.int4.int4_quantize`), "fp8" a scale-free
+        float8_e4m3fn cast. Scales land as ``name + SCALE_SUFFIX``; the
+        matmul epilogue that applies them is `_mm`. Norms, biases and
+        embeddings stay floating. The runner's own dict entries are
+        replaced; the model's parameters are untouched."""
+        for name in names:
+            w = self.params[name]
+            if self.weight_dtype == "int4":
+                qw, scale = int4_quantize(w, self.weight_group_size)
+            elif self.weight_dtype == "fp8":
+                qw, scale = _fp8_cast(w), None      # ml_dtypes' rounding
+            else:
+                qw, scale = _weight_quantize(w)
+                scale = scale.float()
+            self.params[name] = qw
+            if scale is not None:
+                self.params[name + SCALE_SUFFIX] = scale
+        logger.info("serving weights %s: %d matrices (group %d)",
+                    self.weight_dtype, len(names), self.weight_group_size)
+        self._quantized_names = frozenset(names)
+
+    def _mm(self, params, name, x):
+        """x @ a possibly quantized weight. fp32 (or cast) weights take the
+        plain ``x @ w``; fp8 weights are cast to x's dtype first; int8
+        codes are cast to x's dtype and their per-output-channel scale
+        multiplies the product (``x @ (q * s)`` by linearity); int4 goes
+        through `int4_matmul`'s grouped epilogue. Codes and scales are
+        cast to x's dtype as the JAX runner casts them."""
+        w = params[name]
+        s = params.get(name + SCALE_SUFFIX)
+        if s is None:
+            if w.dtype == torch.float8_e4m3fn:
+                return x @ w.to(x.dtype)
+            return x @ w
+        if s.dim() == 2:
+            return int4_matmul(x, w, s, self.weight_group_size)
+        return (x @ w.to(x.dtype)) * s.to(x.dtype)
+
+    def weight_bytes(self) -> int:
+        """Resident bytes of the whole params dict at their storage dtypes:
+        codes, scales and the floating parameters."""
+        return int(sum(v.numel() * v.element_size()
+                       for v in self.params.values()))
+
+    def weight_bytes_fp32(self) -> int:
+        """What the same logical parameters would take at fp32: a packed
+        int4 byte holds two elements, scale tensors do not exist there."""
+        total = 0
+        for name, v in self.params.items():
+            if name.endswith(SCALE_SUFFIX):
+                continue
+            elems = v.numel()
+            if name in self._quantized_names and self.weight_dtype == "int4":
+                elems *= 2
+            total += elems * 4
+        return total
+
+    def weight_bytes_reduction_x(self) -> float:
+        """The whole model's weight-byte reduction against fp32 (1.0 on an
+        fp32 runner, 2.0 on a bf16-cast one)."""
+        wb = self.weight_bytes()
+        return self.weight_bytes_fp32() / wb if wb else 1.0
 
     # --------------------------------------------------------- dispatch
 
@@ -396,7 +509,9 @@ class PagedModelRunner:
     def _kv_page_bytes(self) -> int:
         """Device bytes ONE page costs this runner's attention per call:
         int8 pools count the code bytes PLUS the per-page-per-head scale
-        bytes the dequantize reads, fp8 pools one byte per element."""
+        bytes the dequantize reads, fp8 pools one byte per element, the
+        others (fp32 and "mixed" pools store the runner's dtype; the tag
+        plane is never read by the attention) its itemsize."""
         data = self.block_size * self.n_kv_heads * self.head_dim
         if self.kv_dtype == "int8":
             return 2 * self.num_layers * (data + self.n_kv_heads * 4)
@@ -472,9 +587,7 @@ class PagedModelRunner:
         return self.graphs and self.device.type == "cuda"
 
     def _new_graph(self):
-        if self._capture_stream is None:
-            self._capture_stream = torch.cuda.Stream(self.device)
-        return _CudaGraph(self._capture_stream)
+        return _CudaGraph(_capture_stream(self.device))
 
     def _graphed(self, kind: str, shape_key, body, host, pools):
         """The counterpart of the JAX runner's `_jitted`: the captured
@@ -851,9 +964,13 @@ class PagedModelRunner:
 class LlamaRunner(PagedModelRunner):
     """Paged-step adapter for models.Llama (RMSNorm + RoPE + GQA +
     SwiGLU). The runner serves the model's own parameters (moved to
-    ``device`` when they live elsewhere). The model's `x @ w` products are
-    plain torch.matmul in full fp32. The positional parameters are the JAX
-    runner's; ``device`` is keyword-only after them."""
+    ``device`` when they live elsewhere), the matmul weights through
+    `_mm` (the weight ladder quantizes its own dict entries). The `x @ w`
+    products are plain torch.matmul in the runner's dtype (fp32 with TF32
+    off, or bf16). The norms and RoPE compute in fp32 and cast back to the
+    activations' dtype at the JAX runner's points. The positional
+    parameters are the JAX runner's; ``device`` is keyword-only after
+    them."""
 
     def __init__(self, model: Llama, block_size: int = 16,
                  max_model_len: int | None = None, attn_impl: str = "auto",
@@ -872,16 +989,30 @@ class LlamaRunner(PagedModelRunner):
         self._rope_cos, self._rope_sin = rope_tables(
             self.max_model_len, self.head_dim, cfg.rope_theta,
             device=self.device)                              # [L, d] fp32
+        if weight_dtype != "fp32":
+            names = [f"layers.{i}.{n}" for i in range(self.num_layers)
+                     for n in ("self_attn.q_proj.weight",
+                               "self_attn.k_proj.weight",
+                               "self_attn.v_proj.weight",
+                               "self_attn.o_proj.weight",
+                               "mlp.gate_proj.weight", "mlp.up_proj.weight",
+                               "mlp.down_proj.weight")]
+            if "lm_head.weight" in self.params:
+                names.append("lm_head.weight")
+            # embeddings stay floating (a lookup table; a tied head too)
+            self._quantize_weights(names)
 
     def _rope(self, x, cos, sin):
-        # rotate-half convention of ops.rotary_embedding
+        # rotate-half convention of ops.rotary_embedding; the fp32 tables
+        # promote the product, cast back to x's dtype
         x1, x2 = x.chunk(2, dim=-1)
         rot = torch.cat([-x2, x1], dim=-1)
-        return x * cos[:, :, None, :] + rot * sin[:, :, None, :]
+        return (x * cos[:, :, None, :] + rot * sin[:, :, None, :]).to(x.dtype)
 
     def _rms(self, x, w):
-        var = x.pow(2).mean(-1, keepdim=True)
-        return x * torch.rsqrt(var + self.cfg.rms_eps) * w
+        xf = x.float()
+        var = xf.square().mean(-1, keepdim=True)
+        return (xf * torch.rsqrt(var + self.cfg.rms_eps)).to(x.dtype) * w
 
     def _forward(self, tokens, positions, write_page, write_off, tables,
                  pos_q, q_lens, pools):
@@ -895,36 +1026,39 @@ class LlamaRunner(PagedModelRunner):
         for i in range(cfg.num_layers):
             pre = f"layers.{i}."
             h = self._rms(x, p[pre + "input_layernorm.weight"])
-            q = (h @ p[pre + "self_attn.q_proj.weight"]
-                 ).reshape(B, T, self.n_heads, d)
-            k = (h @ p[pre + "self_attn.k_proj.weight"]
-                 ).reshape(B, T, self.n_kv_heads, d)
-            v = (h @ p[pre + "self_attn.v_proj.weight"]
-                 ).reshape(B, T, self.n_kv_heads, d)
+            q = self._mm(p, pre + "self_attn.q_proj.weight", h
+                         ).reshape(B, T, self.n_heads, d)
+            k = self._mm(p, pre + "self_attn.k_proj.weight", h
+                         ).reshape(B, T, self.n_kv_heads, d)
+            v = self._mm(p, pre + "self_attn.v_proj.weight", h
+                         ).reshape(B, T, self.n_kv_heads, d)
             q = self._rope(q, cos, sin)
             k = self._rope(k, cos, sin)
             out, _ = paged_attend(q, k, v, pools[i], tables, write_page,
                                   write_off, pos_q, q_lens, self.n_rep, impl)
-            x = x + out @ p[pre + "self_attn.o_proj.weight"]
+            x = x + self._mm(p, pre + "self_attn.o_proj.weight", out)
             h = self._rms(x, p[pre + "post_attention_layernorm.weight"])
-            gate = h @ p[pre + "mlp.gate_proj.weight"]
-            up = h @ p[pre + "mlp.up_proj.weight"]
-            x = x + (F.silu(gate) * up) @ p[pre + "mlp.down_proj.weight"]
+            gate = self._mm(p, pre + "mlp.gate_proj.weight", h)
+            up = self._mm(p, pre + "mlp.up_proj.weight", h)
+            x = x + self._mm(p, pre + "mlp.down_proj.weight",
+                             F.silu(gate) * up)
         x = self._rms(x, p["norm.weight"])
         if cfg.tie_embeddings:
             return x @ p["embed_tokens.weight"].T, pools
-        return x @ p["lm_head.weight"], pools
+        return self._mm(p, "lm_head.weight", x), pools
 
 
 class GPTRunner(PagedModelRunner):
     """Paged-step adapter for models.GPT (pre-LN, learned positions, fused
     QKV, GELU MLP), over the functional block helpers the generators run
-    (`models.generation._block_params`, `_layer_norm`, `_mlp`). MHA: the
+    (`models.generation._block_params`, `_layer_norm`, `_qkv`, `_mlp`,
+    `_head`; their matmuls through the runner's `_mm`). MHA: the
     pools hold all ``num_heads`` heads (n_rep 1), so a decode step takes
-    the paged-decode kernel (K2) over fp32 pools and the ragged kernel's
-    decode form (K1-q) over int8 / fp8 pools, and prefill chunks the
-    ragged kernel (its span form; a chunk of at most 8 rows its decode
-    form). fp32 weights only; the positional
+    the paged-decode kernel (K2) over fp32, bf16 and mixed pools and the
+    ragged kernel's decode form (K1-q) over int8 / fp8 pools, and prefill
+    chunks the ragged kernel (its span form; a chunk of at most 8 rows its
+    decode form). The weight ladder quantizes the fused QKV, the output
+    projection, the dense MLP and an untied head; the positional
     parameters are the JAX runner's, ``device`` keyword-only after them.
     The JAX runner's tensor-parallel placements (`_param_specs`,
     `_constrain_heads`) wait for item 10."""
@@ -943,23 +1077,38 @@ class GPTRunner(PagedModelRunner):
         self.n_kv_heads = cfg.num_heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
         self.vocab_size = cfg.vocab_size
+        if weight_dtype != "fp32":
+            # the fused QKV weight is flat [hidden, 3 nh d], so its
+            # per-output-channel and group scales are per fused column;
+            # MoE blocks (mlp.gate) keep their expert weights floating
+            names = []
+            for i in range(self.num_layers):
+                pre = f"blocks.{i}."
+                names += [pre + "attn.qkv.weight", pre + "attn.out.weight"]
+                if pre + "mlp.fc1.weight" in self.params:
+                    names += [pre + "mlp.fc1.weight", pre + "mlp.fc2.weight"]
+            if "lm_head.weight" in self.params:
+                names.append("lm_head.weight")
+            self._quantize_weights(names)
 
     def _forward(self, tokens, positions, write_page, write_off, tables,
                  pos_q, q_lens, pools):
         cfg, params = self.cfg, self.params
-        impl = self._attn_impl_for(tokens.shape[1])
+        T = tokens.shape[1]
+        impl = self._attn_impl_for(T)
         x = (F.embedding(tokens, params["wte.weight"])
              + params["wpe.weight"][positions])
         for i in range(cfg.num_layers):
             p = _block_params(params, i)
             h = _layer_norm(x, p["ln1.weight"], p["ln1.bias"])
-            q, k, v = _qkv(p, h, self.n_heads)
+            q, k, v = _qkv(p, h, self.n_heads, self._mm)
             out, _ = paged_attend(q, k, v, pools[i], tables, write_page,
                                   write_off, pos_q, q_lens, 1, impl)
-            x = x + (out @ p["attn.out.weight"] + p["attn.out.bias"])
+            x = x + (self._mm(p, "attn.out.weight", out)
+                     + p["attn.out.bias"])
             h = _layer_norm(x, p["ln2.weight"], p["ln2.bias"])
-            x = x + _mlp(p, h)
-        return _head(params, x), pools
+            x = x + _mlp(p, h, self._mm)
+        return _head(params, x, self._mm), pools
 
 
 def runner_for(model, block_size: int = 16, max_model_len: int | None = None,

@@ -26,6 +26,7 @@ from typing import Callable, Iterable, Optional
 import torch
 
 from paddle_tpu_torch.serving.kv_cache import SCRATCH_PAGE
+from paddle_tpu_torch.serving.model_runner import SCALE_SUFFIX
 
 
 class InjectedDeviceError(RuntimeError):
@@ -187,7 +188,12 @@ def audit_engine(engine) -> None:
     each running sequence holds the pages its live tokens need and no
     more than its context plus one upcoming token needs, slots partition
     between running requests and the free list, and the pool's layer
-    tuples have the layout of its kv_dtype. A member of the pipelined
+    tuples have the layout of its kv_dtype (a mixed pool's tag planes
+    equal across layers and the host tags), every page a running sequence
+    maps carries its owner's kv-dtype tag and no free page carries one,
+    and a quantized runner's weights keep the weight ladder's storage
+    contract (int8 codes with fp32 [out] or [out, ceil(in / group)]
+    scales, fp8 weights scale-free). A member of the pipelined
     loop's in-flight launch may also hold the pages its undrained horizon
     was funded (a fused speculative horizon records them per request).
     Raises InvariantViolation listing every broken invariant. Host work
@@ -308,12 +314,13 @@ def audit_engine(engine) -> None:
     # -- pool layout: an int8 pool's layer tuples carry int8 code pools
     #    and ONE fp32 scale per page per kv head; an fp8 pool stores
     #    float8 pages and carries NO scale rows (fp8 casts are scale-free);
-    #    an fp32 pool the plain (k, v) pairs
+    #    a mixed pool the (k, v) pair in its logical dtype and a bool tag
+    #    plane of one bit a page; an fp32 pool the plain (k, v) pair in its
+    #    logical dtype (the runner's)
     pool = engine.pool
-    want_len = 4 if pool.kv_dtype == "int8" else 2
+    want_len = {"int8": 4, "mixed": 3}.get(pool.kv_dtype, 2)
     want_dtype = {"int8": torch.int8,
-                  "fp8": torch.float8_e4m3fn}.get(pool.kv_dtype,
-                                                  torch.float32)
+                  "fp8": torch.float8_e4m3fn}.get(pool.kv_dtype, pool.dtype)
     for li, layer in enumerate(pool.pools):
         if len(layer) != want_len:
             problems.append(f"layer {li} pool tuple has {len(layer)} entries "
@@ -323,6 +330,14 @@ def audit_engine(engine) -> None:
             if arr.dtype != want_dtype:
                 problems.append(f"layer {li} {nm}-pool dtype {arr.dtype} != "
                                 f"{want_dtype} on a {pool.kv_dtype} pool")
+        if pool.kv_dtype == "mixed":
+            tag = layer[2]
+            if tag.dtype != torch.bool or tuple(tag.shape) != (
+                    pool.num_blocks,):
+                problems.append(
+                    f"layer {li} tag plane {tuple(tag.shape)} {tag.dtype} "
+                    f"!= ({pool.num_blocks},) bool")
+            continue
         for nm, arr in zip("kv", layer[2:]):
             if (tuple(arr.shape) != (pool.num_blocks, pool.n_kv_heads)
                     or arr.dtype != torch.float32):
@@ -331,6 +346,45 @@ def audit_engine(engine) -> None:
                     f"{arr.dtype} != {(pool.num_blocks, pool.n_kv_heads)} "
                     "float32: one scale per page per kv head")
 
+    # -- kv-dtype tags: every page a running sequence owns carries its
+    #    owner's tag, only allocated pages carry one, never the scratch
+    #    page; on a mixed pool the device tag planes agree with each
+    #    other and with the host tags on every allocated page (one host
+    #    read of the first plane)
+    tags = dict(alloc._tags)
+    if SCRATCH_PAGE in tags:
+        problems.append("scratch page carries a kv-dtype tag")
+    stray = sorted(set(tags) - aset)
+    if stray:
+        problems.append(f"kv-dtype tags on unallocated pages: {stray}")
+    for req in sched.running:
+        if req.kv is None:
+            continue
+        bad = [p for p in req.kv.pages if tags.get(p) != req.kv.kv_tag]
+        if bad:
+            problems.append(
+                f"{req.request_id} (kv_tag={req.kv.kv_tag!r}) owns pages "
+                f"with mismatched tags: "
+                f"{[(p, tags.get(p)) for p in bad[:8]]}")
+    if pool.kv_dtype == "mixed" and pool.pools and all(
+            len(layer) == 3 for layer in pool.pools):
+        planes = [layer[2] for layer in pool.pools]
+        if any(not torch.equal(planes[0], pl) for pl in planes[1:]):
+            problems.append("mixed-pool tag planes disagree across layers")
+        plane = planes[0].cpu().tolist()
+        for p in sorted(aset):
+            if plane[p] != (tags.get(p) == "fp8"):
+                problems.append(f"page {p} device tag bit {plane[p]} != "
+                                f"host tag {tags.get(p)!r}")
+                break
+        if plane[SCRATCH_PAGE]:
+            problems.append("scratch page tagged fp8 on the device plane")
+
+    # -- the weight ladder's storage contract: int4 codes int8 with fp32
+    #    scales [out, ceil(in / g)] (in = 2 x the packed rows), int8 codes
+    #    with an fp32 [out] scale, fp8 weights float8 and scale-free
+    problems += _weight_problems(engine.runner)
+
     # -- waiting requests hold no device resources
     for req in sched.waiting:
         if req.kv is not None or req.slot is not None:
@@ -338,3 +392,50 @@ def audit_engine(engine) -> None:
 
     if problems:
         raise InvariantViolation("; ".join(problems))
+
+
+def _weight_problems(runner) -> list:
+    """The broken weight-ladder invariants of a runner's params dict (the
+    JAX auditor's packed-weight checks, one device)."""
+    problems = []
+    w_dtype = getattr(runner, "weight_dtype", "fp32")
+    params = getattr(runner, "params", None)
+    if w_dtype == "fp32" or params is None:
+        return problems
+    for name in sorted(getattr(runner, "_quantized_names", ())):
+        w, s = params.get(name), params.get(name + SCALE_SUFFIX)
+        if w is None:
+            problems.append(f"quantized weight {name} missing from params")
+            continue
+        if w_dtype == "fp8":
+            if w.dtype != torch.float8_e4m3fn:
+                problems.append(f"{name} dtype {w.dtype} is not a float8 "
+                                "type on an fp8 runner")
+            if s is not None:
+                problems.append(f"{name} carries a scale tensor on an fp8 "
+                                "runner: fp8 weights are scale-free casts")
+            continue
+        if w.dtype != torch.int8:
+            problems.append(f"{name} code dtype {w.dtype} != int8 on a "
+                            f"{w_dtype} runner")
+        if s is None:
+            problems.append(f"{name} has no {SCALE_SUFFIX} tensor on a "
+                            f"{w_dtype} runner")
+            continue
+        if s.dtype != torch.float32:
+            problems.append(f"{name}{SCALE_SUFFIX} dtype {s.dtype} != "
+                            "float32")
+        if w_dtype == "int4":
+            k = 2 * int(w.shape[0])
+            g = min(int(runner.weight_group_size), k)
+            want = (int(w.shape[1]), -(-k // g))
+            if tuple(s.shape) != want:
+                problems.append(
+                    f"{name}{SCALE_SUFFIX} shape {tuple(s.shape)} != {want}"
+                    f": one fp32 scale per output channel per {g}-row "
+                    "reduction group")
+        elif s.dim() != 1 or int(s.shape[0]) != int(w.shape[1]):
+            problems.append(f"{name}{SCALE_SUFFIX} shape {tuple(s.shape)} "
+                            f"!= ({int(w.shape[1])},): one scale per output "
+                            "channel")
+    return problems

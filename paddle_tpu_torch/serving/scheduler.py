@@ -49,9 +49,9 @@ class SamplingParams:
     # session affinity across the replicas of a tier; the engine refuses
     # any value but None (the tier is ROADMAP.md 'Still to port' item 11)
     session_id: Optional[str] = None
-    # per-request KV precision: None = the pool's own rung; otherwise it
-    # must name the engine's kv_dtype (the engine checks at intake; the
-    # "mixed" pool that serves several is ROADMAP.md item 8)
+    # per-request KV precision: None = the pool's own rung; otherwise the
+    # engine's rung, or "fp32" / "fp8" on a kv_dtype="mixed" engine, whose
+    # "fp8" tenants get fp8-rounded pages (the engine checks at intake)
     kv_dtype: Optional[str] = None
 
     def __post_init__(self):

@@ -20,9 +20,8 @@ one step resolves. The proposers:
   prefill and one greedy ``decode_multi`` chain (two host syncs a
   proposal).
 
-The port's ``shadow_runner`` serves the "fp32" rung; the quantized
-shadows (int8, int4, fp8) wait for the weight ladder, ROADMAP.md 'Still
-to port' item 8.
+``shadow_runner`` builds a shadow on any rung of the weight ladder
+(``spec_draft_model="shadow"`` is int8, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -34,9 +33,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-# the weight rungs of the JAX package's shadow runner; the port serves fp32
-WEIGHT_DTYPES = ("fp32", "int8", "int4", "fp8")
-
+from paddle_tpu_torch.serving.kv_cache import KVCachePool, require_fp8
+from paddle_tpu_torch.serving.model_runner import WEIGHT_DTYPES
 
 class NgramProposer:
     """Prompt-lookup draft proposer: match the context's trailing n-gram
@@ -181,26 +179,38 @@ class AdaptiveK:
 
 
 def shadow_runner(target, weight_dtype: str = "int8"):
-    """A shadow of ``target`` for the draft rung: the same weights and
-    pool geometry, its own parameter dict, graph cache and capture log.
-    The port serves ``weight_dtype="fp32"`` (the exact shadow, the upper
-    bound of a draft model's acceptance); the quantized rungs are the
-    weight ladder, ROADMAP.md 'Still to port' item 8."""
+    """A weight-quantized shadow of ``target`` for the draft rung: the same
+    weights and pool geometry, its own parameter dict, graph cache and
+    capture log. On an fp32-weight target every 2-D non-embedding
+    ``.weight`` goes down the weight ladder to ``weight_dtype`` ("int8",
+    "int4" with the target's group size, "fp8"; "fp32" is the exact
+    shadow, the upper bound of a draft's acceptance), the epilogue in
+    `_mm`; embeddings and norms stay floating. The draft only proposes,
+    so its quantization costs acceptance, never exactness.
+
+    The JAX shadow picks the weights whose numpy dtype is a numpy floating
+    type, which bf16 (ml_dtypes) is not: the shadow of a bf16 target
+    keeps its bf16 weights there, and so it does here."""
     if weight_dtype not in WEIGHT_DTYPES:
         raise ValueError(f"unsupported shadow weight_dtype {weight_dtype!r}"
                          f"; expected one of {WEIGHT_DTYPES}")
-    if weight_dtype != "fp32":
-        raise NotImplementedError(
-            f"shadow_runner(weight_dtype={weight_dtype!r}): quantized "
-            "shadows ride the weight ladder (int8, int4, fp8), ROADMAP.md "
-            "'Still to port' item 8 (quantized serving)")
+    if weight_dtype == "fp8":
+        require_fp8(f"shadow_runner(weight_dtype={weight_dtype!r})")
     r = copy.copy(target)
     r.params = dict(target.params)
     r._graph_cache = OrderedDict()
-    r._capture_stream = None
     r._impl_logged = set()
     r.captures = []
     r.reset_attn_counters()
+    if weight_dtype != "fp32" and target.weight_dtype == "fp32":
+        skip = ("embed", "wte", "wpe", "norm", "ln_")
+        numpy_floats = (torch.float16, torch.float32, torch.float64)
+        names = [name for name, v in r.params.items()
+                 if name.endswith(".weight") and v.dim() == 2
+                 and v.dtype in numpy_floats
+                 and not any(k in name for k in skip)]
+        r.weight_dtype = weight_dtype
+        r._quantize_weights(names)
     return r
 
 
@@ -219,8 +229,6 @@ class DraftModelProposer:
 
     def __init__(self, runner, *, num_blocks: Optional[int] = None,
                  max_model_len: Optional[int] = None):
-        from paddle_tpu_torch.serving.kv_cache import KVCachePool
-
         self.runner = runner
         self.max_model_len = max_model_len or runner.max_model_len
         self.max_pages = -(-self.max_model_len // runner.block_size)
@@ -258,7 +266,9 @@ class DraftModelProposer:
             if victim is None:
                 return False
             self.release(victim)
-        st["pages"].extend(self.pool.allocator.alloc(need))
+        fresh = self.pool.allocator.alloc(need)
+        self.pool.tag_pages(fresh, self.pool.native_kv_tag())
+        st["pages"].extend(fresh)
         return True
 
     def _truncate(self, st: dict, num_tokens: int) -> None:

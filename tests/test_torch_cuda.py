@@ -59,6 +59,13 @@ replayed speculative horizon equals its eager call bit for bit; a
 copy-on-write fork leaves the source page's bytes unchanged, over the
 three pool types.
 
+The bf16 serving kernels: K1's bf16 forms (bf16 q over bf16, int8 and
+fp8 pools, both forms, head dims 8 to 256) and K2-bf16 (split sizes, page
+sizes, batch invariance) within twice their bf16 plain versions' error
+against fp64 and misrounding at most 1/16; a mixed (q, pool) pair raises;
+a bf16 engine launches only the bf16 variants, token-exact against its
+naive_generate with one slot, its horizon engine equal to it.
+
 The GPT family: a GPT engine launches K1 for its prefill chunks and K2
 once a layer for each decode step and no plain version, token-exact
 against its naive_generate; PagedGPTGenerator launches K2 from its scalar
@@ -268,10 +275,11 @@ def test_quantized_ragged_kernel_matches_plain(gen, kind, d, n_rep, ps):
 
 
 def _as_fp64(kind, kp, vp):
-    """The pools as the fp64 evaluation reads them: fp32 pools widened,
-    1-byte codes as they are (their scales widen inside the plain
+    """The pools as the fp64 evaluation reads them: fp32 and bf16 pools
+    widened, 1-byte codes as they are (their scales widen inside the plain
     version)."""
-    return (kp.double(), vp.double()) if kind == "fp32" else (kp, vp)
+    return ((kp.double(), vp.double()) if kind in ("fp32", "bf16")
+            else (kp, vp))
 
 
 @pytest.mark.parametrize("kind", ["fp32", "int8", "fp8"])
@@ -1292,3 +1300,160 @@ def test_copy_page_leaves_the_source_unchanged(gen, kv_dtype):
     a.release()
     cache.clear()
     assert pool.allocator.check_no_leaks()
+
+
+# ------------------------------------------- bf16 serving kernels (K1, K2)
+
+POOL_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8,
+               "fp8": torch.float8_e4m3fn}
+
+
+def _bf16_pools(gen, kind, kp, vp):
+    """fp32 pools -> what a bf16 runner serves from: bf16 pools, or the
+    int8 / fp8 pools of `_quantize`."""
+    if kind == "bf16":
+        return kp.to(torch.bfloat16), vp.to(torch.bfloat16), None, None
+    return _quantize(gen, kp, vp, kind)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("d", [8, 64, 128, 136, 256])
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+def test_bf16_ragged_kernel_forms_against_fp64(gen, kind, d, ps, n_rep):
+    """Both forms of K1 on bf16 q, over bf16 pools (K1-bf16) and int8 /
+    fp8 pools (K1-q): the spans of the fp32 test above, a bf16 output
+    held against the plain version (fp32 compute, one bf16 rounding) and
+    its fp64 evaluation on the same operands within the bf16 gates, with
+    rows past q_len and the dead slot exactly 0."""
+    counts = k1.counts_for(torch.bfloat16, POOL_DTYPES[kind])
+    T_dec = k1.DECODE_ROWS // n_rep
+    for T, form in ((T_dec, "decode"), (T_dec + 1, "span"), (37, "span")):
+        starts, qlens = [0, 5, 70, 3], [T, 1, max(1, T - 2), 0]
+        pages = (T + max(starts)) // ps + 2
+        q, kp, vp, table = _operands(gen, 4, T, 2, n_rep, d, ps, pages)
+        q = q.to(torch.bfloat16)
+        table[3] = 0                               # dead slot: all scratch
+        k, v, ks, vs = _bf16_pools(gen, kind, kp, vp)
+        st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+        ql = torch.tensor(qlens, dtype=torch.int32, device="cuda")
+        counts.reset()
+        out = k1.ragged_paged_attention(q, k, v, table, st, ql, k_scale=ks,
+                                        v_scale=vs)
+        assert counts.form_launches == {form: 1}
+        assert counts.plain_launches == 0
+        assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+        plain = k1.ragged_reference(q, k, v, table, st, ql, k_scale=ks,
+                                    v_scale=vs)
+        exact = k1.ragged_reference(q.double(), *_as_fp64(kind, k, v),
+                                    table, st, ql, k_scale=ks, v_scale=vs)
+        _bf16_class(out, plain, exact, (kind, d, T, form))
+        _bf16_misround(out, plain, exact, (kind, d, T, form))
+        for b, n in enumerate(qlens):
+            assert bool((out[b, n:] == 0).all()), f"sequence {b}: rows >= {n}"
+
+
+@pytest.mark.parametrize("keys_per_split", [k2.SPLIT_TILE,
+                                            k2.KEYS_PER_SPLIT])
+@pytest.mark.parametrize("d", [8, 64, 96, 128, 256])
+@pytest.mark.parametrize("ps", [1, 8, 16, 32])
+def test_bf16_paged_decode_kernel_against_fp64(gen, monkeypatch,
+                                               keys_per_split, d, ps):
+    """K2-bf16 over the fp32 test's 640-key table: bf16 q and pools, a
+    bf16 output within the bf16 gates against the plain version and its
+    fp64 evaluation on the same operands; the dead slot's output 0."""
+    monkeypatch.setattr(k2, "KEYS_PER_SPLIT", keys_per_split)
+    cap = 640
+    pages = cap // ps
+    pos_list = [0, keys_per_split - 1, keys_per_split, 301, cap - 1,
+                cap + 77, 0]
+    b, h = len(pos_list), 2
+    q, kp, vp, table = _operands(gen, b, 1, h, 1, d, ps, pages)
+    q, kp, vp = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    table[-1] = 0                                  # dead slot: all scratch
+    pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+    k2.COUNTS_BF16.reset()
+    out = k2.paged_decode_attention(q[:, 0], kp, vp, table, pos)
+    assert k2.COUNTS_BF16.kernel_launches == 1
+    assert k2.COUNTS_BF16.plain_launches == 0
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    plain = k2.paged_decode_reference(q[:, 0], kp, vp, table, pos)
+    exact = k2.paged_decode_reference(q[:, 0].double(), kp.double(),
+                                      vp.double(), table, pos)
+    what = f"K2-bf16 d={d} ps={ps} ks={keys_per_split}"
+    _bf16_class(out, plain, exact, what)
+    _bf16_misround(out, plain, exact, what)
+
+
+def test_bf16_paged_decode_kernel_is_batch_invariant(gen):
+    """As the fp32 kernel: a sequence's bf16 output alone equals its output
+    inside the batch, bit for bit."""
+    h, d, ps, pages = 4, 128, 16, 256
+    pos_list = [300, 4095, 0, 129, 2047, 16, 3000, 127]
+    q, kp, vp, table = _operands(gen, len(pos_list), 1, h, 1, d, ps, pages)
+    q, kp, vp = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+    out = k2.paged_decode_attention(q[:, 0], kp, vp, table, pos)
+    for i in range(len(pos_list)):
+        alone = k2.paged_decode_attention(q[i:i + 1, 0], kp, vp,
+                                          table[i:i + 1], pos[i:i + 1])
+        assert torch.equal(alone[0], out[i]), f"sequence {i}"
+
+
+def test_serving_kernels_refuse_mixed_dtypes(gen):
+    """bf16 q over fp32 pools (and fp32 q over bf16 pools) is no variant:
+    the wrappers raise, they never cast."""
+    q, kp, vp, table = _operands(gen, 1, 8, 2, 1, 64, 4, 4)
+    z = torch.zeros(1, dtype=torch.int32, device="cuda")
+    bq, bk, bv = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    for args in ((bq, kp, vp), (q, bk, bv)):
+        with pytest.raises(TypeError):
+            k1.ragged_paged_attention(*args, table, z, z + 1)
+        with pytest.raises(TypeError):
+            k2.paged_decode_attention(args[0][:, 0], *args[1:], table, z)
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8", "fp8"])
+@pytest.mark.parametrize("n_kv", [4, 2], ids=["mha", "gqa"])
+def test_bf16_engine_on_the_card_runs_the_bf16_kernels(gen, kv_dtype, n_kv):
+    """create_serving_engine(dtype=bfloat16) on the card: bf16 pools (the
+    "fp32" rung at the runner's dtype) or int8 / fp8 ones, every attention
+    call through a bf16-q kernel (K2-bf16 for MHA decode over bf16 pools),
+    no fp32 kernel and no plain version; a one-slot engine (cuBLAS rounds
+    a row differently at every row count) token-exact against its
+    naive_generate, with the horizon engine's streams equal to it."""
+    from paddle_tpu_torch.inference import create_serving_engine
+    cfg = LlamaConfig(vocab_size=211, hidden_size=256, num_layers=2,
+                      num_heads=4, num_kv_heads=n_kv, max_seq_len=128)
+    model = Llama(cfg, device="cuda", seed=0)
+    rng = np.random.default_rng(0)
+    work = [(rng.integers(1, 211, int(rng.integers(5, 70))).tolist(),
+             int(rng.integers(2, 12))) for _ in range(4)]
+    bf16 = {"fp32": torch.bfloat16, "int8": torch.int8,
+            "fp8": torch.float8_e4m3fn}[kv_dtype]
+    fp32_counts = (k1.COUNTS, k1.COUNTS_I8, k1.COUNTS_F8, k2.COUNTS)
+    streams = []
+    for knobs in ({}, dict(decode_horizon=4)):
+        eng = create_serving_engine(
+            model, dtype=torch.bfloat16, kv_dtype=kv_dtype, block_size=16,
+            num_blocks=24, max_batch_size=1, max_prefill_tokens_per_step=32,
+            audit=True, **knobs)
+        assert eng.pool.pools[0][0].dtype == bf16
+        for counts in (*fp32_counts, k1.counts_for(torch.bfloat16, bf16),
+                       k2.COUNTS_BF16):
+            counts.reset()
+        ids = [eng.add_request(p, SamplingParams(max_tokens=n))
+               for p, n in work]
+        outs = eng.run()
+        assert k1.counts_for(torch.bfloat16, bf16).kernel_launches > 0
+        mha_decode = n_kv == cfg.num_heads and kv_dtype == "fp32"
+        assert (k2.COUNTS_BF16.kernel_launches > 0) == mha_decode
+        assert all(c.kernel_launches == c.plain_launches == 0
+                   for c in fp32_counts)
+        assert k1.counts_for(torch.bfloat16, bf16).plain_launches == 0
+        streams.append([outs[rid].output_tokens for rid in ids])
+        assert eng.pool.allocator.check_no_leaks()
+    assert streams[0] == streams[1]
+    assert streams[0] == [naive_generate(eng.runner, p,
+                                         SamplingParams(max_tokens=n))
+                          for p, n in work]

@@ -473,6 +473,26 @@ def test_smoke_names_the_ragged_span_instantiations(maxd, kv):
         f"ragged_span_kernel<{maxd},{kv}>"
 
 
+def _typed_span_entry(maxd, kv, qt):
+    """The span form's entry with its third template argument, q's type
+    (float, or __nv_bfloat16 for a bf16 runner's q)."""
+    name = "ragged_span_kernel"
+    t = {"f32": "f", "bf16": "13__nv_bfloat16"}[qt]
+    return (f"{_RAGGED_HASH}{len(name)}{name}ILi{maxd}ELi{kv}E{t}EEvNS_6"
+            "RaggedE")
+
+
+@pytest.mark.parametrize("maxd", [128, 256])
+@pytest.mark.parametrize("kv,qt", [(0, "f32"), (1, "f32"), (2, "f32"),
+                                   (3, "bf16"), (1, "bf16"), (2, "bf16")])
+def test_smoke_names_the_typed_ragged_span_instantiations(maxd, kv, qt):
+    """Each (pool type, q type) instantiation of the span form, as the
+    build report must find it among TENSOR_CORE_INSTANTIATIONS."""
+    label = _chip_smoke()._kernel_label(_typed_span_entry(maxd, kv, qt))
+    assert label == f"ragged_span_kernel<{maxd},{kv},{qt}>"
+    assert label in _chip_smoke().TENSOR_CORE_INSTANTIATIONS
+
+
 # True: every instantiation holds its tensor-core products; False: one
 # mma.sync instantiation holds none; a wgmma instantiation with HMMA but
 # no HGMMA; a wgmma instantiation missing from the build; a wgmma
@@ -494,9 +514,10 @@ def test_smoke_build_report_requires_tensor_core_products(monkeypatch,
     cs = _chip_smoke()
 
     def entry(label):
-        name, args = re.fullmatch(r"(\w+)<([\d,]+)>", label).groups()
+        name, args = re.fullmatch(r"(\w+)<([\w,]+)>", label).groups()
         if name == "ragged_span_kernel":
-            return _span_entry(*map(int, args.split(",")))
+            maxd, kv, qt = args.split(",")
+            return _typed_span_entry(int(maxd), int(kv), qt)
         return _entry(name, int(args))
 
     labels = list(cs.TENSOR_CORE_INSTANTIATIONS)

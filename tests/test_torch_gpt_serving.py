@@ -213,6 +213,16 @@ def test_runner_takes_the_jax_arguments(pair):
             pr.vocab_size) == (jr.block_size, jr.max_model_len, jr.attn_impl,
                                jr.kv_dtype, jr.weight_group_size, jr.n_heads,
                                jr.n_kv_heads, jr.head_dim, jr.vocab_size)
+    # the weight ladder (item 8): the same matrices quantized as the JAX
+    # runner's, to the same codes
     for weight_dtype in ("int8", "int4", "fp8"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            GPTRunner(model, weight_dtype=weight_dtype)
+        qr = GPTRunner(model, weight_dtype=weight_dtype, device="cpu")
+        jq = JaxGPTRunner(jm, weight_dtype=weight_dtype)
+        assert qr._quantized_names == jq._quantized_names
+        assert qr.weight_bytes() == jq.weight_bytes()
+        for name in sorted(jq.params):
+            a = qr.params[name]
+            a = a.view(torch.uint8) if a.dtype == torch.float8_e4m3fn else a
+            b = np.asarray(jq.params[name])
+            b = b.view(np.uint8) if "float8" in str(b.dtype) else b
+            np.testing.assert_array_equal(a.numpy(), b)

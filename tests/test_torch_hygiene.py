@@ -18,7 +18,7 @@ kernel wrapper takes, and what it refuses.
     parameters the port does not serve at their defaults and refuse any
     other value naming its ROADMAP item; rotary_embedding takes
     position_ids as the JAX op does;
-  * the faults F5-F9 stay repaired: `Request` has the JAX fields in the
+  * the faults F5-F11 stay repaired: `Request` has the JAX fields in the
     JAX order and refuses the host-tier ones at other values (F5); `Optimizer` takes the JAX base's signature (F6); the kernel
     wrappers take the JAX `interpret` (and `block_q` / `block_k` for
     flash_attention) in their JAX slots, every `ops.*` wrapper's positional
@@ -26,7 +26,10 @@ kernel wrapper takes, and what it refuses.
     equals the JAX one on the CPU (F7); `paged_decode_attention` takes a
     scalar `pos` (F8); `serving.create_engine` takes the JAX parameters
     in the JAX order, each at its JAX default, and `comm_dtype` other than
-    "fp32" without a mesh raises ValueError as JAX does (F9);
+    "fp32" without a mesh raises ValueError as JAX does (F9); `GPTBlock`
+    takes (cfg, use_moe=False) (F10) and `RMSNorm` (hidden, eps=1e-6)
+    (F11), `device` (and `gen`) keyword-only after them; float16 serving
+    raises naming item 21;
   * chip_smoke.py fails, and prints no result, without a card or outside
     a checkout.
 """
@@ -258,6 +261,20 @@ def model():
     return Llama(LlamaConfig(**SIZES), device="cpu")
 
 
+@pytest.fixture(scope="module")
+def twin():
+    """A JAX Llama and the port's on the same numpy weights."""
+    from paddle_tpu.jit.functionalize import functionalize
+    from paddle_tpu_torch.weights import load_params
+    paddle.seed(0)
+    jm = JaxLlama(JaxLlamaConfig(dropout=0.0, **SIZES))
+    jm.eval()
+    pm = Llama(LlamaConfig(**SIZES), device="cpu")
+    load_params(pm, {k: np.asarray(v) for k, v in
+                     functionalize(jm).param_values().items()})
+    return jm, pm
+
+
 def _engine(model, **kw):
     return create_serving_engine(model, device="cpu", block_size=8,
                                  max_model_len=32, num_blocks=8, **kw)
@@ -302,14 +319,30 @@ def test_sampled_decoding_is_served(model):
 
 
 @pytest.mark.parametrize("kw", [
-    # int8 / fp8 KV pools are served; quantized weights beside them are not
     dict(kv_dtype="int8", weight_dtype="int8"),
     dict(kv_dtype="fp8", weight_dtype="fp8"), dict(weight_dtype="int4"),
     dict(mesh=object()), dict(dtype="bfloat16"), dict(comm_dtype="int8"),
 ], ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values())))[:8])
-def test_unported_bridge_options_raise(model, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _engine(model, **kw)
+def test_unported_bridge_options_raise(twin, kw):
+    """A mesh and a quantized collective raise naming their ROADMAP item
+    (10); the bridge options ported since (quantized KV beside quantized
+    weights, int4 weights, dtype="bfloat16") serve, token for token as
+    their naive_generate and as the JAX bridge on the same weights."""
+    jm, pm = twin
+    if next(iter(kw)) in ("mesh", "comm_dtype"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            _engine(pm, **kw)
+        return
+    sp = SamplingParams(max_tokens=4)
+    eng = _engine(pm, **kw)
+    got = _serve(eng, PROMPTS, sp)
+    assert got == [naive_generate(eng.runner, p, sp) for p in PROMPTS]
+    jeng = jax_create_serving_engine(jm, block_size=8, max_model_len=32,
+                                     num_blocks=8, **kw)
+    ids = [jeng.add_request(p, JaxSamplingParams(max_tokens=4))
+           for p in PROMPTS]
+    outs = jeng.run()
+    assert got == [outs[i].output_tokens for i in ids]
 
 
 def test_unported_model_and_pool_options_raise(model):
@@ -317,8 +350,12 @@ def test_unported_model_and_pool_options_raise(model):
         create_engine(model, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Llama(LlamaConfig(tensor_parallel=True, **SIZES), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        KVCachePool(1, 4, 4, 1, 8, dtype=torch.bfloat16, device="cpu")
+    # bf16 pools are ported (a bf16 runner's); float16 waits for the fp16
+    # kernels, item 21
+    assert KVCachePool(1, 4, 4, 1, 8, dtype=torch.bfloat16,
+                       device="cpu").pools[0][0].dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="item 21"):
+        KVCachePool(1, 4, 4, 1, 8, dtype=torch.float16, device="cpu")
     # bf16 AMP is ported; the fp16 one still raises, naming its item
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TrainStep(model, llama_loss_fn, AdamW(parameters=model.parameters()),
@@ -382,11 +419,29 @@ def test_create_serving_engine_takes_the_jax_arguments(model, jax_model):
 
 @pytest.mark.parametrize("entry", ["LlamaRunner", "runner_for",
                                    "create_serving_engine"])
-def test_other_weight_group_sizes_raise_naming_item_8(model, entry):
+def test_other_weight_group_sizes_raise_naming_item_8(twin, entry):
+    """Other weight_group_size values are ported (the weight ladder, item
+    8): an int4 runner groups its scales by it, as the JAX runner does;
+    a size below 1 is a ValueError in both packages."""
+    jm, pm = twin
     build = {"LlamaRunner": LlamaRunner, "runner_for": runner_for,
              "create_serving_engine": _engine}[entry]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build(model, weight_group_size=64)
+    made = build(pm, weight_dtype="int4", weight_group_size=16,
+                 **({} if entry == "create_serving_engine"
+                    else {"device": "cpu"}))
+    runner = getattr(made, "runner", made)
+    jr = JaxLlamaRunner(jm, 8, 32, weight_dtype="int4", weight_group_size=16)
+    assert runner.weight_group_size == jr.weight_group_size == 16
+    for name in jr._quantized_names:
+        scale = name + "::scale"
+        assert tuple(runner.params[scale].shape) == \
+            tuple(jr.params[scale].shape)
+        np.testing.assert_array_equal(runner.params[name].numpy(),
+                                      np.asarray(jr.params[name]))
+    with pytest.raises(ValueError, match="weight_group_size"):
+        build(pm, weight_group_size=0,
+              **({} if entry == "create_serving_engine"
+                 else {"device": "cpu"}))
 
 
 def test_session_id_raises_naming_item_11(model):
@@ -468,6 +523,21 @@ def test_unported_jax_parameters_take_their_default_only(entry, param,
                                                       **kw)}[entry]
     default = inspect.signature(port_fn).parameters[param].default
     call(**{param: default})
+    if entry == "SequenceKV":
+        # ported with the mixed pool (item 8): the tag stamps every page
+        # the sequence allocates, as the JAX SequenceKV stamps them
+        mixed = KVCachePool(1, 4, 4, 1, 8, device="cpu", kv_dtype="mixed")
+        jmixed = JaxKVCachePool(1, 4, 4, 1, 8, kv_dtype="mixed")
+        ours, ref = SequenceKV(mixed, kv_tag=other), \
+            JaxSequenceKV(jmixed, kv_tag=other)
+        ours.grow(5)
+        ref.grow(5)
+        assert ours.pages == ref.pages
+        assert [mixed.page_tag(p) for p in ours.pages] == \
+            [jmixed.page_tag(p) for p in ref.pages] == [other] * 2
+        assert mixed.pools[0][2].tolist() == \
+            np.asarray(jmixed.pools[0][2]).tolist()
+        return
     with pytest.raises(NotImplementedError, match=item):
         call(**{param: other})
 
@@ -532,10 +602,13 @@ def test_create_engine_takes_the_jax_parameter(model, param):
                         num_blocks=8, **{param: ref[param].default})
     assert eng.runner.weight_group_size == 128
     if param == "weight_group_size":
-        with pytest.raises(NotImplementedError, match="item 8"):
-            create_engine(model, device="cpu", block_size=8,
-                          max_model_len=32, num_blocks=8,
-                          weight_group_size=64)
+        # the weight ladder is ported: another group size reaches it
+        eng = create_engine(model, device="cpu", block_size=8,
+                            max_model_len=32, num_blocks=8,
+                            weight_dtype="int4", weight_group_size=16)
+        assert eng.runner.weight_group_size == 16
+        assert eng.runner.params["layers.0.mlp.up_proj.weight::scale"
+                                 ].shape[1] == SIZES["hidden_size"] // 16
     else:
         with pytest.raises(NotImplementedError, match="item 10"):
             create_engine(model, device="cpu", block_size=8,
@@ -715,6 +788,54 @@ def test_paged_decode_takes_a_scalar_pos(pos):
                                      interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-6)
+
+
+def test_gpt_block_takes_the_jax_signature():
+    """F10: GPTBlock takes the JAX (cfg, use_moe=False), device and gen
+    keyword-only after it, so the positional MoE flag reaches use_moe
+    (where it set the port's device before) and the JAX call GPTBlock(cfg)
+    builds a block."""
+    from paddle_tpu.models.gpt import GPTBlock as JaxGPTBlock
+    from paddle_tpu_torch.models.gpt import GPTBlock, GPTConfig
+    assert _positional_names(GPTBlock) == _positional_names(JaxGPTBlock)
+    ours = inspect.signature(GPTBlock).parameters
+    assert ours["use_moe"].default is \
+        inspect.signature(JaxGPTBlock).parameters["use_moe"].default
+    assert {ours[n].kind for n in ("device", "gen")} == {
+        inspect.Parameter.KEYWORD_ONLY}
+    cfg = GPTConfig(vocab_size=61, hidden_size=32, num_layers=1, num_heads=2,
+                    max_seq_len=32)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        GPTBlock(cfg, True, device="cpu")
+    blk = GPTBlock(cfg, device="cpu")
+    assert blk.ln1.weight.device.type == "cpu"
+
+
+def test_rms_norm_takes_the_jax_signature():
+    """F11: RMSNorm takes the JAX (hidden, eps=1e-6), device keyword-only
+    after it: RMSNorm(hidden) at the JAX default builds a norm (it raised
+    TypeError) that equals the JAX one on the same input."""
+    from paddle_tpu.models.llama import RMSNorm as JaxRMSNorm
+    from paddle_tpu_torch.models.llama import RMSNorm
+    assert _positional_names(RMSNorm) == _positional_names(JaxRMSNorm)
+    assert inspect.signature(RMSNorm).parameters["eps"].default == \
+        inspect.signature(JaxRMSNorm).parameters["eps"].default == 1e-6
+    assert inspect.signature(RMSNorm).parameters["device"].kind is \
+        inspect.Parameter.KEYWORD_ONLY
+    norm = RMSNorm(8, device="cpu")
+    assert norm.eps == 1e-6 and RMSNorm(8, 1e-5, device="cpu").eps == 1e-5
+    x = np.random.default_rng(2).standard_normal((3, 8)).astype(np.float32)
+    ref = JaxRMSNorm(8)(paddle.to_tensor(x)).numpy()
+    np.testing.assert_allclose(norm(torch.from_numpy(x)).detach().numpy(),
+                               ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float16", torch.float16])
+def test_float16_serving_raises_naming_item_21(model, dtype):
+    """bf16 serving is ported; float16 needs the fp16 kernels (K1-fp16,
+    K2-fp16), ROADMAP.md item 21."""
+    with pytest.raises(NotImplementedError, match="item 21"):
+        _engine(model, dtype=dtype)
 
 
 # ---------------------------------------------------------- chip_smoke

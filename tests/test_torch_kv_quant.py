@@ -651,19 +651,28 @@ def test_auditor_rejects_scale_rows_on_an_fp8_pool():
 # ------------------------------------------------------------ refusals
 
 def test_mixed_pools_and_quantized_weights_raise_naming_their_items():
-    model = Llama(LlamaConfig(num_heads=4, num_kv_heads=2, **SIZES),
-                  device="cpu", seed=0)
-    for call in (lambda: KVCachePool(1, 4, 4, 1, 8, device="cpu",
-                                     kv_dtype="mixed"),
-                 lambda: runner_for(model, kv_dtype="mixed", device="cpu"),
-                 lambda: runner_for(model, weight_dtype="int8",
-                                    device="cpu"),
-                 lambda: create_serving_engine(model, device="cpu",
-                                               kv_dtype="mixed"),
-                 lambda: create_serving_engine(model, device="cpu",
-                                               weight_dtype="int8")):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()
+    """The mixed pool and the quantized weights are ported (item 8): each
+    call that raised builds what the JAX call builds (the pool layout,
+    the runner's rung and its quantized matrices); an unknown rung is
+    still a ValueError."""
+    jm = _jax_model(2)
+    model = _bridge(jm)
+    pool = KVCachePool(1, 4, 4, 1, 8, device="cpu", kv_dtype="mixed")
+    jpool = JaxKVCachePool(1, 4, 4, 1, 8, kv_dtype="mixed")
+    assert [(tuple(t.shape), str(t.dtype).split(".")[-1])
+            for t in pool.pools[0]] == \
+        [(tuple(t.shape), str(t.dtype)) for t in jpool.pools[0]]
+    assert pool.page_bytes() == jpool.page_bytes()
+    for kw in (dict(kv_dtype="mixed"), dict(weight_dtype="int8")):
+        pr, jr = runner_for(model, device="cpu", **kw), \
+            JaxLlamaRunner(jm, **kw)
+        assert (pr.kv_dtype, pr.weight_dtype) == (jr.kv_dtype,
+                                                  jr.weight_dtype)
+        assert pr._quantized_names == jr._quantized_names
+        eng = create_serving_engine(model, device="cpu", num_blocks=16,
+                                    block_size=8, **kw)
+        assert eng.pool.kv_dtype == jr.kv_dtype
+        assert eng.runner._quantized_names == jr._quantized_names
     with pytest.raises(ValueError, match="kv_dtype"):
         KVCachePool(1, 4, 4, 1, 8, device="cpu", kv_dtype="int4")
 

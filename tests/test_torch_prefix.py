@@ -17,6 +17,8 @@ Follows tests/test_serving_prefix.py on a small Llama bridged from JAX:
 Every engine runs under the invariant auditor.
 """
 
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -127,10 +129,25 @@ def test_page_content_hash_and_chain_seed_equal_jax():
         ref = jax_page_content_hash(ref, page)
         assert ours == ref
     for kv_dtype, tag in (("fp32", "fp32"), ("fp32", "fp8"), ("int8", "int8"),
-                          ("fp8", "fp8"), ("int8", "fp32")):
-        assert KVCachePool(1, 4, 4, 1, 8, device="cpu",
-                           kv_dtype=kv_dtype).chain_seed(tag) == \
-            JaxKVCachePool(1, 4, 4, 1, 8, kv_dtype=kv_dtype).chain_seed(tag)
+                          ("fp8", "fp8"), ("int8", "fp32"), ("mixed", "fp32"),
+                          ("mixed", "fp8")):
+        seed = KVCachePool(1, 4, 4, 1, 8, device="cpu",
+                           kv_dtype=kv_dtype).chain_seed(tag)
+        jax_seed = JaxKVCachePool(1, 4, 4, 1, 8,
+                                  kv_dtype=kv_dtype).chain_seed(tag)
+        native = KVCachePool(1, 4, 4, 1, 8, device="cpu",
+                             kv_dtype=kv_dtype).chain_seed(None)
+        ref_native = JaxKVCachePool(1, 4, 4, 1, 8,
+                                    kv_dtype=kv_dtype).chain_seed(None)
+        if tag == ("fp32" if kv_dtype == "mixed" else kv_dtype):
+            assert seed == jax_seed == native
+        else:
+            # another tag folds itself in, in both packages: the JAX one
+            # by Python's per-process hash of (seed, tag), the port by a
+            # CRC-32 of the tag's name, the same in every process
+            assert seed != native and jax_seed != ref_native
+            assert seed == page_content_hash(native, [zlib.crc32(
+                tag.encode())])
 
 
 # ----------------------------------------------- allocator and the cache

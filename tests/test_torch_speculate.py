@@ -481,10 +481,23 @@ def test_shadow_fp32_draft_serves_token_exact_with_adaptive_k(pair):
 @pytest.mark.parametrize("rung", ["shadow:int8", "shadow:int4", "shadow:fp8",
                                   "shadow"])
 def test_quantized_shadows_raise_naming_item_8(pair, rung):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ServingEngine(runner_for(pair[1], 8, MAX_LEN), num_blocks=16,
-                      max_model_len=MAX_LEN, num_speculative_tokens=2,
-                      spec_draft_model=rung)
+    """The quantized shadows are ported with the weight ladder (item 8):
+    each rung ("shadow" alone is int8, as in JAX) drafts from weights on
+    its rung, the target's params untouched, and the engine keeps the
+    target's stream token for token."""
+    runner = runner_for(pair[1], 8, MAX_LEN)
+    eng = ServingEngine(runner, num_blocks=48, max_batch_size=3,
+                        max_model_len=MAX_LEN, num_speculative_tokens=2,
+                        spec_draft_model=rung)
+    dt = rung.partition(":")[2] or "int8"
+    assert eng.proposer.runner.weight_dtype == dt
+    assert eng.proposer.runner._quantized_names
+    assert runner.weight_dtype == "fp32"
+    prompts, sps = _periodic(21, n=3), _sps(SamplingParams, False, 3)
+    got = _serve(eng, prompts, sps)
+    assert got == [naive_generate(runner, p, sp, max_model_len=MAX_LEN)
+                   for p, sp in zip(prompts, sps)]
+    assert eng.proposer.pool.allocator.check_no_leaks()
 
 
 def test_shadow_runner_refuses_unknown_rungs(pair):
