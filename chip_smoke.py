@@ -16,8 +16,10 @@ exits non-zero without printing a result:
               for mma.sync, HGMMA for wgmma) of every instantiation of the
               three flash kernels, their bf16 wgmma kernels (forward, dq
               and dk/dv at d <= 128, which must hold HGMMA and spill
-              nothing) and the ragged span form; one without them, or
-              missing, fails the run.
+              nothing) and the ragged span forms (the bf16-q one on wgmma
+              at d <= 128: HGMMA, no spill; the bf16-q decode form's split
+              walk spills nothing either); one without them, or missing,
+              fails the run.
   3. kernels  each serving kernel's wrapper against its plain PyTorch
               version on the card: the ragged kernel over fp32 pools (K1)
               at LLaMA-2-7B heads and at a GQA layout over mixed spans
@@ -316,13 +318,18 @@ exits non-zero without printing a result:
               pools, K1-q with bf16 q over int8 / fp8 pools, K2-bf16) at
               the Llama and GPT shapes against their plain versions in
               fp64, within twice the bf16 plain version's error and at
-              most 1/16 misrounded; LLaMA-2-7B (after phases 32-33, cast
+              most 1/16 misrounded, also at GQA-4 decode rows whose walks
+              end on and across the decode form's 256-key splits and at
+              the verify spans; the decode form's split walk batch-
+              invariant bit for bit, and two chained launches under a
+              CUDA graph equal to the eager launches; LLaMA-2-7B (after phases 32-33, cast
               to bf16 in place) and GPT-3 1.3B (after phase 30) on phase
               4's traffic: every call through the bf16 variants, no fp32
               kernel, no plain version; a horizon engine (decode_horizon
               8, graphs) equal to the per-step engine token for token;
               one-slot runs over bf16, int8 and fp8 pools token-exact
-              against naive_generate; a 2-layer model at full width: the
+              against naive_generate (over int8 / fp8 through the span
+              form and the split walk, "decode_split"); a 2-layer model at full width: the
               bf16 runner's logits within BF16_TWIN_TOL of max|logit| of
               its fp32 twin's, and (as phases 7 and 25 hold the fp32
               runner) its kernels over bf16, int8 and fp8 pools against
@@ -509,6 +516,10 @@ SPANS_FUSED = ([256, 300, 345, 410, 470, 520, 580, 630],
 # verify spans (phase 30): the fed token plus 0-4 drafts in the 8-row bucket
 SPANS_VERIFY = ([256, 263, 270, 281, 290, 300, 305, 311],
                 [5, 3, 1, 4, 2, 5, 1, 3], 8)
+# decode rows whose walks end on and across the bf16 decode form's 256-key
+# splits (1, 255, 256, 257, 512 and 4096 keys), a dead slot
+SPANS_SPLITS = ([0, 254, 255, 256, 4095, 100, 0, 511],
+                [1, 1, 1, 1, 1, 0, 1, 1], 1)
 
 
 def _as_kind(k_pool, v_pool, kind, gen):
@@ -652,6 +663,93 @@ def check_paged(gen, h=32, label="", bf16=False):
         raise AssertionError(f"{name}: sequences {differ} differ alone from "
                              "their batch output")
     return (err, ratio, share) if bf16 else err
+
+
+def _ragged_operands(gen, n_q, n_kv, kind, spans, d=128, ps=16):
+    """Seeded bf16 q, ``kind`` pools (and int8 scales), a table of
+    distinct pages (all scratch for a dead slot), start_pos and q_len for
+    ``spans``: the operands of a bf16-q K1 launch."""
+    start, qlen, T = spans
+    B = len(start)
+    P = -(-(max(start) + T) // ps)
+    k_pool, v_pool = _pools(B * P + 1, ps, n_kv, d, gen)
+    k, v, ks, vs = _as_kind(k_pool, v_pool, kind, gen)
+    table = _tables(B, P, B * P + 1, gen)
+    for b, n in enumerate(qlen):
+        if n == 0:
+            table[b] = 0
+    q = torch.randn(B, T, n_q, d, device=gen.device,
+                    generator=gen).to(torch.bfloat16)
+    st = torch.tensor(start, dtype=torch.int32, device=gen.device)
+    ql = torch.tensor(qlen, dtype=torch.int32, device=gen.device)
+    return q, (k, v, table, st, ql), dict(k_scale=ks, v_scale=vs)
+
+
+def check_ragged_invariance(gen, kind, n_q=32, n_kv=8, spans=SPANS_SPLITS):
+    """Phase 31: the bf16-q decode form (the split walk) over a ``kind``
+    pool at decode rows on and across its split boundaries (GQA-4 by
+    default, n_kv = n_q: MHA, the one-row walk): each sequence launched
+    alone gives its row of the batch launch bit for bit."""
+    from paddle_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention,
+    )
+    q, (k, v, table, st, ql), sc = _ragged_operands(gen, n_q, n_kv, kind,
+                                                    spans)
+    out = ragged_paged_attention(q, k, v, table, st, ql, **sc)
+    differ = [b for b in range(q.shape[0]) if not torch.equal(
+        ragged_paged_attention(q[b:b + 1], k, v, table[b:b + 1],
+                               st[b:b + 1], ql[b:b + 1], **sc)[0], out[b])]
+    log(f"kernel {_k1_label(kind, True)} decode form batch invariance "
+        f"(q[{q.shape[0]},1,{n_q},128], {n_kv} kv heads, start_pos "
+        f"{spans[0]}): each sequence alone equals its batch row bit for "
+        f"bit: {not differ}")
+    if differ:
+        raise AssertionError(f"{_k1_label(kind, True)}: sequences {differ} "
+                             "differ alone from their batch rows")
+
+
+def check_ragged_graph(gen, kind, n_q=32, n_kv=8, spans=SPANS_SPLITS):
+    """Phase 31: two chained bf16-q decode-form launches (the second takes
+    the first's output as q, so one replay takes each ticket twice)
+    captured in one CUDA graph on a side stream, whose workspace and
+    tickets its warm-up made outside the capture; replayed on new q, the
+    graph's output equals the eager launches' bit for bit. The capture's
+    counts are taken back out, as the runners do."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention,
+    )
+    q, (k, v, table, st, ql), sc = _ragged_operands(gen, n_q, n_kv, kind,
+                                                    spans)
+
+    def body():
+        o = ragged_paged_attention(q, k, v, table, st, ql, **sc)
+        return ragged_paged_attention(o, k, v, table, st, ql, **sc)
+
+    side, main = torch.cuda.Stream(), torch.cuda.current_stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        body()                        # the warm-up: the stream's buffers
+    main.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = _build.counts_snapshot()
+    with torch.cuda.graph(graph, stream=side):
+        out = body()
+    _build.counts_credit(_build.counts_delta(before,
+                                             _build.counts_snapshot()), -1)
+    results = []
+    for _ in range(2):
+        q.copy_(torch.randn(q.shape, device="cuda", generator=gen))
+        graph.replay()
+        eager = body()
+        torch.cuda.synchronize()
+        results.append(torch.equal(out, eager))
+    log(f"kernel {_k1_label(kind, True)} decode form under a CUDA graph "
+        f"(two chained launches, replayed twice on new q): equals the eager "
+        f"launches bit for bit: {results}")
+    if not all(results):
+        raise AssertionError(f"{_k1_label(kind, True)}: the graph replay "
+                             "parts from the eager launches")
 
 
 def fp64_ratio(kern, plain, exact) -> float:
@@ -1050,14 +1148,15 @@ def gemm_row_invariance(gen, ms=(1, 8, 16, 256, 1024)):
 
 
 def single_slot_check(model, cfg, kv_dtype, prompts, max_tokens=32,
-                      dtype=None, **knobs):
+                      dtype=None, forms=None, **knobs):
     """An engine with one slot serves each prompt in one prefill chunk and
     then batch-1 decode steps: the row counts of naive_generate, so its
     tokens must equal naive_generate's exactly (int8 scales too: both
     write the same chunks), through K1-q alone over int8 / fp8 pools, K1
     for the chunk and K2 for the decode steps over fp32 pools (bf16
     variants with ``dtype`` bf16; ``knobs`` such as the weight ladder's
-    passed on). Returns the launches by kernel."""
+    passed on). Returns the launches by kernel; ``forms``, a dict, takes
+    the engine's launches by form of each kernel."""
     from paddle_tpu_torch.inference import create_serving_engine
     from paddle_tpu_torch.serving import SamplingParams
 
@@ -1073,6 +1172,9 @@ def single_slot_check(model, cfg, kv_dtype, prompts, max_tokens=32,
     ids = [eng.add_request(p, sp) for p in prompts]
     outs = eng.run()
     kernel = {name: c.kernel_launches for name, c in counts}
+    if forms is not None:
+        forms.update({name: dict(c.form_launches) for name, c in counts
+                      if c.form_launches})
     path = _path_kernels(kv_dtype, dtype is not None)
     chunks = int(eng.metrics.prefill_chunks.value)
     decodes = eng.metrics.batch_occupancy.count
@@ -2207,11 +2309,12 @@ def bf16_gather_check(model, runner_cls, label, gate=True):
     n, worst = model.cfg.num_layers, {}
     for kind in ("fp32", "int8", "fp8"):
         name = _bf16_name("ragged_paged_attention", kind)
+        # bf16 q's decode form walks the 64-page table in 4 splits
         if kind == "fp32":
-            want = {name: (5 * n, {"span": 2 * n, "decode": 3 * n}),
+            want = {name: (5 * n, {"span": 2 * n, "decode_split": 3 * n}),
                     "paged_decode_attention_bf16": (8 * n, {})}
         else:
-            want = {name: (13 * n, {"span": 2 * n, "decode": 11 * n})}
+            want = {name: (13 * n, {"span": 2 * n, "decode_split": 11 * n})}
         log(f"phase 31 {label}: the bf16 runner against its gather path")
         worst["bf16" if kind == "fp32" else kind] = quant_model_check(
             model, runner_cls, kind, want, gate, BF16_GATHER_TOL,
@@ -2276,7 +2379,19 @@ def bf16_serving_phase(model, cfg, max_model_len=4096):
     short = sorted(prompts, key=len)[:2]
     single = {}
     for kind in ("fp32", "int8", "fp8"):
-        single[kind] = single_slot_check(model, cfg, kind, short, dtype=bf16)
+        slot_forms = {}
+        single[kind] = single_slot_check(model, cfg, kind, short, dtype=bf16,
+                                         forms=slot_forms)
+        if kind != "fp32":
+            # chunks through the span form, decode steps through the split
+            # walk (the one-slot engine's 64-page tables: 4 splits)
+            name = _bf16_name("ragged_paged_attention", kind)
+            got = slot_forms.get(name, {})
+            log(f"phase 31 one-slot {kind} launches by form: {got}")
+            if set(got) != {"span", "decode_split"}:
+                raise AssertionError(f"phase 31: {name} did not launch the "
+                                     f"span form and the split walk: {got}")
+            forms[name] = got
         _free_the_card()
     log(f"phase 31 ({type(model).__name__}): {time.perf_counter() - t0:.1f}"
         " s")
@@ -2503,7 +2618,7 @@ def _kernel_group(name: str) -> str:
             return group
     if "paged_decode_kernel" in name:
         return "K2 paged_decode_attention"
-    if "ragged_span_kernel" in name or "ragged_decode_kernel" in name:
+    if "ragged_span" in name or "ragged_decode" in name:
         return "K1 ragged_paged_attention"
     if ("gemm" in low or "gemv" in low or "cutlass" in low or "xmma" in low
             or "nvjet" in low):
@@ -4335,17 +4450,26 @@ def _kernel_label(mangled: str) -> str:
 # the kernels that multiply on the tensor cores, and every instantiation
 # of them the build must hold (the ragged span form's second argument is
 # the pool type: 0 fp32, 1 int8, 2 fp8, 3 bf16, its third q's type: fp32
-# q over fp32, int8 and fp8 pools, bf16 q over bf16, int8 and fp8 pools,
-# RAGGED_SPAN_TYPES): the three bf16 kernels run on
-# wgmma at d <= 128 (flash_attention_wgmma.cu) and keep their mma.sync
-# kernels for d <= 256 only
+# q over fp32, int8 and fp8 pools at d <= 128 and 256, bf16 q over bf16,
+# int8 and fp8 pools at d <= 256 only, RAGGED_SPAN_TYPES; bf16 q's span
+# form for d <= 128 is ragged_span_bf16_kernel<pool type>): the three
+# bf16 kernels run on wgmma at d <= 128 (flash_attention_wgmma.cu) and
+# keep their mma.sync kernels for d <= 256 only
 WGMMA_KERNELS = ("flash_fwd_bf16_wgmma_kernel",
                  "flash_bwd_dq_bf16_wgmma_kernel",
                  "flash_bwd_dkv_bf16_wgmma_kernel")
+# kernels whose SASS must hold wgmma's HGMMA: the bf16 flash kernels on
+# wgmma and K1's bf16-q span form
+HGMMA_KERNELS = (*WGMMA_KERNELS, "ragged_span_bf16_kernel")
+# kernels whose ptxas report must show no spill: the wgmma kernels (their
+# accumulators would go through local memory) and K1's bf16-q forms
+NO_SPILL_KERNELS = (*WGMMA_KERNELS, "ragged_span_bf16_kernel",
+                    "ragged_decode_split_kernel", "ragged_decode_row_kernel")
 TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                        "flash_bwd_dkv_kernel", "flash_fwd_bf16_kernel",
                        "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
-                       *WGMMA_KERNELS, "ragged_span_kernel")
+                       *WGMMA_KERNELS, "ragged_span_kernel",
+                       "ragged_span_bf16_kernel")
 RAGGED_SPAN_TYPES = ((0, "f32"), (1, "f32"), (2, "f32"), (3, "bf16"),
                      (1, "bf16"), (2, "bf16"))
 TENSOR_CORE_INSTANTIATIONS = (
@@ -4353,17 +4477,20 @@ TENSOR_CORE_INSTANTIATIONS = (
     *(f"{k}<256>" for k in TENSOR_CORE_KERNELS[3:6]),
     *(f"{k}<{d}>" for k in WGMMA_KERNELS for d in (64, 128)),
     *(f"ragged_span_kernel<{d},{kv},{qt}>" for d in (128, 256)
-      for kv, qt in RAGGED_SPAN_TYPES))
+      for kv, qt in RAGGED_SPAN_TYPES if d == 256 or qt == "f32"),
+    *(f"ragged_span_bf16_kernel<{kv}>" for kv, qt in RAGGED_SPAN_TYPES
+      if qt == "bf16"))
 
 
 def build_report(build) -> None:
     """Phase 2's report: each kernel entry's registers and spills (ptxas;
-    a wgmma kernel that spills fails the run: its accumulators would go
-    through local memory), the backward kernels' shared memory per
+    a wgmma kernel or a bf16-q form of K1 that spills fails the run:
+    NO_SPILL_KERNELS), the backward kernels' shared memory per
     instantiation, and whether the SASS of every tensor-core kernel (the
-    three flash kernels, the bf16 wgmma kernels, the ragged span form)
+    three flash kernels, the bf16 wgmma kernels, the ragged span forms)
     holds tensor-core instructions in every instantiation (HMMA:
-    mma.sync, HGMMA: wgmma; the wgmma kernels HGMMA), from cuobjdump -sass
+    mma.sync, HGMMA: wgmma; the wgmma kernels and the bf16 span form
+    HGMMA), from cuobjdump -sass
     of the built library; one without them, or missing, fails the run."""
     if not build.log:
         log("  ptxas: the library was built by an earlier process (its "
@@ -4374,13 +4501,14 @@ def build_report(build) -> None:
             name = _kernel_label(ln.split("'")[1])
         elif name and ("registers" in ln or "spill" in ln):
             log(f"  ptxas {name}: {ln.split(':', 1)[-1].strip()}")
-            if "spill" in ln and name.startswith(WGMMA_KERNELS):
+            if "spill" in ln and name.startswith(NO_SPILL_KERNELS):
                 spilled[name] = re.findall(r"(\d+) bytes spill", ln) \
                     != ["0", "0"]
         if "C7512" in ln:   # ptxas serialized a kernel's wgmma
             log(f"  ptxas: {ln.strip()}")
     if any(spilled.values()):
-        raise AssertionError(f"a wgmma kernel spills registers: {spilled}")
+        raise AssertionError(f"a kernel that must not spill spills "
+                             f"registers: {spilled}")
     for maxd, (bm, bn) in BWD_TILES.items():
         ld = (maxd + 31) // 32 * 32
         base = (2 * bm + 4 * bn) * ld + 8 * 16 * 32
@@ -4403,7 +4531,7 @@ def build_report(build) -> None:
             log(f"  SASS {label}: {found[label][0]} HMMA, "
                 f"{found[label][1]} HGMMA instructions")
     if set(found) != set(TENSOR_CORE_INSTANTIATIONS) or not all(
-            (n[1] if label.startswith(WGMMA_KERNELS) else sum(n)) > 0
+            (n[1] if label.startswith(HGMMA_KERNELS) else sum(n)) > 0
             for label, n in found.items()):
         raise AssertionError(f"a tensor-core kernel's SASS holds no "
                              f"tensor-core products (a wgmma kernel no "
@@ -4461,7 +4589,14 @@ def main() -> int:
                          bf16=True),
             check_ragged(32, 32, gen, "MHA chunk", kind, SPANS_CHUNK,
                          bf16=True),
-            check_ragged(32, 8, gen, "GQA", kind, bf16=True)]
+            check_ragged(32, 8, gen, "GQA", kind, bf16=True),
+            check_ragged(32, 8, gen, "GQA-4 decode across splits", kind,
+                         SPANS_SPLITS, bf16=True),
+            check_ragged(16, 16, gen, "verify spans", kind, SPANS_VERIFY,
+                         bf16=True)]
+        check_ragged_invariance(gen, kind)              # GQA-4: mma
+        check_ragged_invariance(gen, kind, n_kv=32)     # MHA: one row
+        check_ragged_graph(gen, kind)
     bf16_checks["paged_decode_attention_bf16"] = [check_paged(gen,
                                                               bf16=True)]
     for name, res in bf16_checks.items():
@@ -4593,11 +4728,15 @@ def main() -> int:
                                                 SPANS_VERIFY)}
     bf16_verify = measure_ragged(gen, 16, 1024, P, "bf16", SPANS_VERIFY,
                                  bf16=True)
+    log(f"serving kernel timings on {card}")
     lap("serving kernel timings (bf16 variants: phase 31)")
     rows = []
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "fp64_ratio", "misround")
     k1_src = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
+    # bf16 q: the span form for d <= 128 and the split walk (the entry
+    # points and d > 128's span form stay in k1_src)
+    k1b_src = "paddle_tpu_torch/csrc/ragged_paged_attention_bf16.cu"
     k1_tpu = "paddle_tpu/ops/pallas/ragged_paged_attention.py:142"
     k2_src = "paddle_tpu_torch/csrc/paged_decode_attention.cu"
     k2_tpu = "paddle_tpu/ops/pallas/paged_attention.py:92"
@@ -4606,9 +4745,9 @@ def main() -> int:
             ("ragged_paged_attention_int8", k1_src, k1_tpu),
             ("ragged_paged_attention_fp8", k1_src, k1_tpu),
             ("paged_decode_attention", k2_src, k2_tpu),
-            ("ragged_paged_attention_bf16", k1_src, k1_tpu),
-            ("ragged_paged_attention_bf16_int8", k1_src, k1_tpu),
-            ("ragged_paged_attention_bf16_fp8", k1_src, k1_tpu),
+            ("ragged_paged_attention_bf16", k1b_src, k1_tpu),
+            ("ragged_paged_attention_bf16_int8", k1b_src, k1_tpu),
+            ("ragged_paged_attention_bf16_fp8", k1b_src, k1_tpu),
             ("paged_decode_attention_bf16", k2_src, k2_tpu)):
         m = meas[name]
         shapes = [(m["shape"], m)]

@@ -20,15 +20,15 @@
 // pools. As in the Pallas kernel, which casts each tile to fp32
 // (ragged_paged_attention.py:98-100), every value is widened to fp32
 // where it is read (elem_io.cuh), the softmax and the sums stay fp32 and
-// the output is rounded to q's type where it is written (:139). A bf16
-// value is exact in fp32 and in tf32, so bf16 pools take the tensor-core
-// path of the fp8 pools: staged as bf16 (half the bytes of an fp32 tile),
-// widened in the split pass, one plane, two products a k-step. bf16 q is
-// read as bf16 and widened in the tile load (no cast pass in the
-// wrapper); its small half is zero, so its products stay exact.
+// the output is rounded to q's type where it is written (:139).
 //
 // Two forms, chosen by the wrapper from G (ops/ragged_paged_attention.py
 // ragged_form): the span form for G > kDecodeRows, the decode form below.
+// This file holds both forms of fp32 q and both forms of bf16 q for d >
+// 128 (the tf32 span form, the unsplit decode form); bf16 q's span form
+// for d <= 128 (wgmma from a cp.async ring) and its decode form there (the
+// split walk) are in ragged_paged_attention_bf16.cu, whose launchers the
+// bf16 entry points below call (ragged_common.cuh).
 //
 // Span form (prefill chunks, GQA spans), ragged_span_kernel. What bounds it:
 // a chunk does 4 d FLOPs per visible (row, key) pair against one read of
@@ -69,7 +69,9 @@
 //   rounds otherwise, and through a model's next int8 page write that
 //   flips codes). 16-byte copies where the rows are 16-byte aligned, else
 //   8-byte ones (1-byte rows of d = 8 mod 16) or 4-byte ones (a pool 4
-//   bytes off).
+//   bytes off). bf16 pools (bf16 q at d > 128) take the fp8 pools' path:
+//   a bf16 value is exact in tf32, staged as bf16, one plane, two products
+//   a k-step.
 //
 // Decode form (G <= kDecodeRows: decode steps, short GQA spans),
 // ragged_decode_kernel, on the CUDA cores. What bounds it: the page bytes
@@ -86,112 +88,17 @@
 // (m, l, acc) for the G rows, each lane owning float4 column chunks of
 // acc; the warps' states are merged in shared memory at the end. At the
 // engine's decode step (B n_kv = 256 blocks) no split across blocks is
-// needed.
+// needed. bf16 q at d <= 128 takes the split walk instead
+// (ragged_paged_attention_bf16.cu).
 
-#include <cuda_fp16.h>
-#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "elem_io.cuh"
-#include "tf32_mma.cuh"
+#include <type_traits>
+
+#include "ragged_common.cuh"
 
 namespace {
-
-// storage type of the K/V pools (a template argument)
-constexpr int kF32 = 0, kI8 = 1, kF8 = 2, kBF16 = 3;
-// G = n_rep * T at or below this takes the decode form (the wrapper's
-// ragged_form mirrors it)
-constexpr int kDecodeRows = 8;
-
-template <int KV>
-struct Elem {
-  static constexpr int bytes = KV == kF32 ? 4 : KV == kBF16 ? 2 : 1;
-};
-
-// The operands and sizes of one launch.
-struct Ragged {
-  const void* q;      // fp32 or bf16 (the kernels' QT)
-  const void* k_pool;
-  const void* v_pool;
-  const float* k_scale;   // [N, n_kv], int8 pools only
-  const float* v_scale;
-  const int32_t* table;
-  const int32_t* start_pos;
-  const int32_t* q_len;
-  void* out;          // in q's type
-  int T, n_q, n_kv, d, page_size, pages_per_seq;
-  float scale;
-  int cpy;   // bytes of one cp.async of a pool row: 16, 8 or 4
-};
-
-// A cp.async of n = 16, 8 or 4 bytes (n uniform across the warp).
-__device__ __forceinline__ void cp_async_n(void* dst, const void* src,
-                                           bool valid, int n) {
-  if (n == 16) {
-    cp_async16(dst, src, valid);
-  } else if (n == 8) {
-    cp_async8(dst, src, valid);
-  } else {
-    cp_async4(dst, src, valid);
-  }
-}
-
-// The keys a block's rows [row0, row0 + n) need: up to the last visible
-// key of its last live row (0 without one), and no further than the table
-// maps.
-__device__ __forceinline__ int rows_key_end(const Ragged& a, int row0, int n,
-                                            int G, int start, int qlen) {
-  int max_t = -1;
-  for (int r = row0; r < min(row0 + n, G); ++r) {
-    const int t = r % a.T;
-    if (t < qlen && t > max_t) max_t = t;
-  }
-  if (max_t < 0) return 0;
-  return min(start + max_t + 1, a.pages_per_seq * a.page_size);
-}
-
-// (page, element offset of the kv head's row) of key position kpos of
-// sequence b: the block table resolves the page.
-__device__ __forceinline__ int64_t key_row(const Ragged& a, int b, int kvh,
-                                           int kpos, int& page) {
-  page = __ldg(a.table + (int64_t)b * a.pages_per_seq + kpos / a.page_size);
-  return (((int64_t)page * a.page_size + kpos % a.page_size) * a.n_kv +
-          kvh) * a.d;
-}
-
-// Four codes of a 1-byte pool (little-endian in w) as fp32: exact, so
-// their tf32 split has a zero small half. fp8 NaN codes give NaN.
-template <int KV>
-__device__ __forceinline__ float4 codes4(uint32_t w) {
-  if constexpr (KV == kI8) {
-    return make_float4(static_cast<float>(static_cast<int8_t>(w)),
-                       static_cast<float>(static_cast<int8_t>(w >> 8)),
-                       static_cast<float>(static_cast<int8_t>(w >> 16)),
-                       static_cast<float>(static_cast<int8_t>(w >> 24)));
-  } else {
-    const __half2 lo(__nv_cvt_fp8x2_to_halfraw2(
-        static_cast<__nv_fp8x2_storage_t>(w & 0xffffu), __NV_E4M3));
-    const __half2 hi(__nv_cvt_fp8x2_to_halfraw2(
-        static_cast<__nv_fp8x2_storage_t>(w >> 16), __NV_E4M3));
-    const float2 a = __half22float2(lo), b = __half22float2(hi);
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-}
-
-// Elements c .. c + 3 (c a multiple of 4) of a staged or pooled row of
-// storage type KV as fp32: fp32 as they are, bf16 widened, 1-byte codes
-// as codes4 gives them (an int8 code still wants its page scale).
-template <int KV>
-__device__ __forceinline__ float4 load4(const uint8_t* row, int c) {
-  if constexpr (KV == kF32) {
-    return ld4(reinterpret_cast<const float*>(row) + c);
-  } else if constexpr (KV == kBF16) {
-    return ld4(reinterpret_cast<const __nv_bfloat16*>(row) + c);
-  } else {
-    return codes4<KV>(*reinterpret_cast<const uint32_t*>(row + c));
-  }
-}
 
 // ------------------------------------------------------------ span form
 
@@ -212,13 +119,6 @@ struct Span {
   // split (three products); e4m3 and bf16 values are exact in tf32 (two)
   static constexpr bool SPLIT = KV == kF32 || KV == kI8;
 };
-
-// Row stride (bytes) of a staged tile of 1-byte codes or bf16 values: d
-// rounded to 16 elements, plus 16 bytes.
-template <int KV>
-__host__ __device__ __forceinline__ int code_ld(int d) {
-  return Elem<KV>::bytes * ((d + 15) & ~15) + 16;
-}
 
 // Bytes of one staged K (or V) tile: fp32 rows of tile_ld(d) floats
 // (swizzled), or rows of code_ld(d) bytes.
@@ -245,6 +145,15 @@ __host__ __device__ __forceinline__ size_t span_smem_bytes(int d) {
   using S = Span<MAXD, KV>;
   return (size_t)2 * S::BM * tile_ld(d) * 4 +
          (size_t)S::KG * span_group_bytes<MAXD, KV>(d);
+}
+
+// (page, element offset of the kv head's row) of key position kpos of
+// sequence b: the block table resolves the page.
+__device__ __forceinline__ int64_t key_row(const Ragged& a, int b, int kvh,
+                                           int kpos, int& page) {
+  page = __ldg(a.table + (int64_t)b * a.pages_per_seq + kpos / a.page_size);
+  return (((int64_t)page * a.page_size + kpos % a.page_size) * a.n_kv +
+          kvh) * a.d;
 }
 
 // The element offset of one key row in a pool, and its page, resolved
@@ -301,17 +210,6 @@ __device__ __forceinline__ void load_span_row(void* dst, float* sc,
                   live);
       }
     }
-  }
-}
-
-// A barrier of one key group's threads (named barrier 1 + kg), or of the
-// block where there is one group.
-template <int KG, int GTHR>
-__device__ __forceinline__ void group_sync(int kg) {
-  if constexpr (KG == 1) {
-    __syncthreads();
-  } else {
-    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + kg), "r"(GTHR));
   }
 }
 
@@ -802,15 +700,6 @@ ragged_decode_kernel(Ragged a) {
 
 // ------------------------------------------------------------ launches
 
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  // the attribute is per device, so it is set on the current one each time
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
 template <int MAXD, int KV, typename QT>
 cudaError_t launch_span(const Ragged& a, int B, cudaStream_t stream) {
   using S = Span<MAXD, KV>;
@@ -847,9 +736,10 @@ cudaError_t launch_decode(const Ragged& a, int B, cudaStream_t stream) {
 template <int KV, typename QT>
 int dispatch(const void* q, const void* k_pool, const void* v_pool,
              const void* k_scale, const void* v_scale, const void* table,
-             const void* start_pos, const void* q_len, void* out, int B,
-             int T, int n_q, int n_kv, int d, int page_size,
-             int pages_per_seq, int form, float scale, void* stream) {
+             const void* start_pos, const void* q_len, void* out,
+             const ragged::Split* split, int B, int T, int n_q, int n_kv,
+             int d, int page_size, int pages_per_seq, int form, float scale,
+             void* stream) {
   if (d <= 0 || d % 8 != 0 || d > 256 || n_kv <= 0 || n_q % n_kv != 0 ||
       page_size <= 0 || (form != 0 && form != 1)) {
     return (int)cudaErrorInvalidValue;
@@ -859,6 +749,18 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
   }
   // the decode form holds at most kDecodeRows grouped rows
   if (form == 1 && (n_q / n_kv) * T > kDecodeRows) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // bf16 q's split walk (the decode form at d <= 128): splits of a whole
+  // number of its warp tiles, enough of them for the table's longest
+  // walk, and the workspace and tickets wherever a walk can take two
+  if (split != nullptr && form == 1 && d <= 128 &&
+      (split->keys_per_split <= 0 || split->keys_per_split % 16 != 0 ||
+       split->n_splits < 1 ||
+       (int64_t)split->n_splits * split->keys_per_split <
+           (int64_t)pages_per_seq * page_size ||
+       (split->n_splits > 1 &&
+        (split->part == nullptr || split->tickets == nullptr)))) {
     return (int)cudaErrorInvalidValue;
   }
   if (B == 0 || T == 0) return (int)cudaSuccess;
@@ -875,12 +777,24 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
                  static_cast<const int32_t*>(q_len), out,
                  T, n_q, n_kv, d, page_size, pages_per_seq, scale, cpy};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (form == 1) {
-    return d <= 128 ? (int)launch_decode<128, KV, QT>(a, B, st)
-                    : (int)launch_decode<256, KV, QT>(a, B, st);
+  if constexpr (std::is_same_v<QT, __nv_bfloat16>) {
+    // bf16 q: for d <= 128 the wgmma span form and the split walk
+    // (ragged_paged_attention_bf16.cu), above this file's forms
+    if (split == nullptr) return (int)cudaErrorInvalidValue;
+    if (d > 128) {
+      return form == 1 ? (int)launch_decode<256, KV, QT>(a, B, st)
+                       : (int)launch_span<256, KV, QT>(a, B, st);
+    }
+    return form == 1 ? (int)ragged::launch_decode_split(a, *split, KV, B, st)
+                     : (int)ragged::launch_span_bf16(a, KV, B, st);
+  } else {
+    if (form == 1) {
+      return d <= 128 ? (int)launch_decode<128, KV, QT>(a, B, st)
+                      : (int)launch_decode<256, KV, QT>(a, B, st);
+    }
+    return d <= 128 ? (int)launch_span<128, KV, QT>(a, B, st)
+                    : (int)launch_span<256, KV, QT>(a, B, st);
   }
-  return d <= 128 ? (int)launch_span<128, KV, QT>(a, B, st)
-                  : (int)launch_span<256, KV, QT>(a, B, st);
 }
 
 }  // namespace
@@ -896,8 +810,8 @@ extern "C" int ragged_paged_attention_f32(
     int n_q, int n_kv, int d, int page_size, int pages_per_seq, int form,
     float scale, void* stream) {
   return dispatch<kF32, float>(q, k_pool, v_pool, nullptr, nullptr, table,
-                        start_pos, q_len, out, B, T, n_q, n_kv, d, page_size,
-                        pages_per_seq, form, scale, stream);
+                        start_pos, q_len, out, nullptr, B, T, n_q, n_kv, d,
+                        page_size, pages_per_seq, form, scale, stream);
 }
 
 // int8 code pools with k_scale / v_scale [N, n_kv] fp32 (K1-q)
@@ -908,8 +822,8 @@ extern "C" int ragged_paged_attention_i8(
     int n_q, int n_kv, int d, int page_size, int pages_per_seq, int form,
     float scale, void* stream) {
   return dispatch<kI8, float>(q, k_pool, v_pool, k_scale, v_scale, table,
-                       start_pos, q_len, out, B, T, n_q, n_kv, d, page_size,
-                       pages_per_seq, form, scale, stream);
+                       start_pos, q_len, out, nullptr, B, T, n_q, n_kv, d,
+                       page_size, pages_per_seq, form, scale, stream);
 }
 
 // float8_e4m3fn pools (K1-q)
@@ -919,40 +833,62 @@ extern "C" int ragged_paged_attention_f8(
     int n_q, int n_kv, int d, int page_size, int pages_per_seq, int form,
     float scale, void* stream) {
   return dispatch<kF8, float>(q, k_pool, v_pool, nullptr, nullptr, table,
-                       start_pos, q_len, out, B, T, n_q, n_kv, d, page_size,
-                       pages_per_seq, form, scale, stream);
+                       start_pos, q_len, out, nullptr, B, T, n_q, n_kv, d,
+                       page_size, pages_per_seq, form, scale, stream);
 }
 
-// bf16 q over bf16 pools (K1-bf16); the output is bf16
+// bf16 q (K1-bf16, K1-q with bf16 q; a bf16 output), with the split
+// walk's workspace part (B * n_kv * n_splits * G * (d + 2) floats, written
+// before it is read; null where n_splits is 1) and tickets (B * n_kv int32
+// zeros, left zero by the kernel; null where n_splits is 1), then
+// keys_per_split and n_splits (ops/ragged_paged_attention.py
+// decode_splits).
+
+// bf16 q over bf16 pools (K1-bf16)
 extern "C" int ragged_paged_attention_bf16(
     const void* q, const void* k_pool, const void* v_pool, const void* table,
-    const void* start_pos, const void* q_len, void* out, int B, int T,
-    int n_q, int n_kv, int d, int page_size, int pages_per_seq, int form,
+    const void* start_pos, const void* q_len, void* out, void* part,
+    void* tickets, int B, int T, int n_q, int n_kv, int d, int page_size,
+    int pages_per_seq, int form, int keys_per_split, int n_splits,
     float scale, void* stream) {
+  const ragged::Split split{static_cast<float*>(part),
+                            static_cast<int32_t*>(tickets), keys_per_split,
+                            n_splits};
   return dispatch<kBF16, __nv_bfloat16>(
-      q, k_pool, v_pool, nullptr, nullptr, table, start_pos, q_len, out, B,
-      T, n_q, n_kv, d, page_size, pages_per_seq, form, scale, stream);
+      q, k_pool, v_pool, nullptr, nullptr, table, start_pos, q_len, out,
+      &split, B, T, n_q, n_kv, d, page_size, pages_per_seq, form, scale,
+      stream);
 }
 
-// bf16 q over int8 code pools with fp32 scales (K1-q); bf16 output
+// bf16 q over int8 code pools with fp32 scales (K1-q)
 extern "C" int ragged_paged_attention_bf16_i8(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* table,
-    const void* start_pos, const void* q_len, void* out, int B, int T,
-    int n_q, int n_kv, int d, int page_size, int pages_per_seq, int form,
+    const void* start_pos, const void* q_len, void* out, void* part,
+    void* tickets, int B, int T, int n_q, int n_kv, int d, int page_size,
+    int pages_per_seq, int form, int keys_per_split, int n_splits,
     float scale, void* stream) {
+  const ragged::Split split{static_cast<float*>(part),
+                            static_cast<int32_t*>(tickets), keys_per_split,
+                            n_splits};
   return dispatch<kI8, __nv_bfloat16>(
-      q, k_pool, v_pool, k_scale, v_scale, table, start_pos, q_len, out, B,
-      T, n_q, n_kv, d, page_size, pages_per_seq, form, scale, stream);
+      q, k_pool, v_pool, k_scale, v_scale, table, start_pos, q_len, out,
+      &split, B, T, n_q, n_kv, d, page_size, pages_per_seq, form, scale,
+      stream);
 }
 
-// bf16 q over float8_e4m3fn pools (K1-q); bf16 output
+// bf16 q over float8_e4m3fn pools (K1-q)
 extern "C" int ragged_paged_attention_bf16_f8(
     const void* q, const void* k_pool, const void* v_pool, const void* table,
-    const void* start_pos, const void* q_len, void* out, int B, int T,
-    int n_q, int n_kv, int d, int page_size, int pages_per_seq, int form,
+    const void* start_pos, const void* q_len, void* out, void* part,
+    void* tickets, int B, int T, int n_q, int n_kv, int d, int page_size,
+    int pages_per_seq, int form, int keys_per_split, int n_splits,
     float scale, void* stream) {
+  const ragged::Split split{static_cast<float*>(part),
+                            static_cast<int32_t*>(tickets), keys_per_split,
+                            n_splits};
   return dispatch<kF8, __nv_bfloat16>(
-      q, k_pool, v_pool, nullptr, nullptr, table, start_pos, q_len, out, B,
-      T, n_q, n_kv, d, page_size, pages_per_seq, form, scale, stream);
+      q, k_pool, v_pool, nullptr, nullptr, table, start_pos, q_len, out,
+      &split, B, T, n_q, n_kv, d, page_size, pages_per_seq, form, scale,
+      stream);
 }

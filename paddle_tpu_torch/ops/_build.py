@@ -28,8 +28,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("ragged_paged_attention.cu", "paged_decode_attention.cu",
-           "flash_attention.cu", "flash_attention_wgmma.cu")
+SOURCES = ("ragged_paged_attention.cu", "ragged_paged_attention_bf16.cu",
+           "paged_decode_attention.cu", "flash_attention.cu",
+           "flash_attention_wgmma.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,10 +43,12 @@ SIGNATURES = {
     "ragged_paged_attention_f32": [_P] * 7 + [_I] * 8 + [_F, _P],
     "ragged_paged_attention_i8": [_P] * 9 + [_I] * 8 + [_F, _P],
     "ragged_paged_attention_f8": [_P] * 7 + [_I] * 8 + [_F, _P],
-    # the same with bf16 q (and a bf16 output) over bf16, int8 and fp8 pools
-    "ragged_paged_attention_bf16": [_P] * 7 + [_I] * 8 + [_F, _P],
-    "ragged_paged_attention_bf16_i8": [_P] * 9 + [_I] * 8 + [_F, _P],
-    "ragged_paged_attention_bf16_f8": [_P] * 7 + [_I] * 8 + [_F, _P],
+    # the same with bf16 q (and a bf16 output) over bf16, int8 and fp8
+    # pools, with the decode form's split walk: after out its workspace and
+    # tickets, after the form keys_per_split and n_splits
+    "ragged_paged_attention_bf16": [_P] * 9 + [_I] * 10 + [_F, _P],
+    "ragged_paged_attention_bf16_i8": [_P] * 11 + [_I] * 10 + [_F, _P],
+    "ragged_paged_attention_bf16_f8": [_P] * 9 + [_I] * 10 + [_F, _P],
     # the paged-decode kernel: its tensors, the workspace and the tickets,
     # then b, h, d, page_size, pages_per_seq, keys_per_split, n_splits
     "paged_decode_attention_f32": [_P] * 8 + [_I] * 7 + [_F, _P],
@@ -177,6 +180,35 @@ def refuse_interpret(name: str, interpret, t: torch.Tensor) -> None:
         raise ValueError(
             f"{name}(interpret=True): a CUDA kernel has no interpret mode; "
             "pass CPU tensors to run the plain version")
+
+
+# (name, device index, stream) -> the buffers `stream_buffer` made for that
+# stream, the newest last
+_STREAM_BUFFERS = {}
+
+
+def stream_buffer(name: str, device, stream, n: int, dtype,
+                  zeroed: bool) -> torch.Tensor:
+    """A kernel's persistent buffer ``name`` for ``stream``, at least n
+    elements of ``dtype``: the split walks' tickets (zeroed, and left zero
+    by every kernel that takes one) and workspaces (written before they are
+    read). It is made outside any CUDA graph capture: made inside one, it
+    would live in the graph's private pool (and a ticket buffer would be
+    zeroed on every replay). A capture's warm-up on the capture stream (the
+    first call, which runs for real) makes it first; a capture that finds
+    none large enough raises. A graph keeps the address of the buffer it
+    was captured with, so an outgrown buffer stays allocated."""
+    made = _STREAM_BUFFERS.setdefault(
+        (name, device.index, stream.cuda_stream), [])
+    if not made or made[-1].numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"no {name} buffer of {n} entries for this stream; run the "
+                "step once on the capture stream (the warm-up) before "
+                "capturing it")
+        make = torch.zeros if zeroed else torch.empty
+        made.append(make(max(n, 256), dtype=dtype, device=device))
+    return made[-1]
 
 
 # 1-byte element types of quantized pools (the kernels read 4 at a time)

@@ -32,6 +32,7 @@ import torch
 
 from paddle_tpu_torch.ops._build import (
     LaunchCounts, check, library, refuse_interpret, require_launchable,
+    stream_buffer,
 )
 from paddle_tpu_torch.ops.ragged_paged_attention import (
     MAX_HEAD_DIM, NEG_INF, ragged_attention_ok,
@@ -57,30 +58,13 @@ def counts_for(dtype) -> LaunchCounts:
 KEYS_PER_SPLIT = 256
 SPLIT_TILE = 16
 
-# (device index, stream) -> the int32 ticket buffers of the kernel's
-# last-split merge made for that stream, the newest last, zero between calls
-# (the kernel resets each one it uses). A graph keeps the address of the
-# buffer it was captured with, so an outgrown buffer stays allocated.
-_TICKETS = {}
-
-
 def _tickets(device, stream, n):
-    """The stream's ticket buffer, at least n long. It is made (zeroed)
-    outside any CUDA graph capture: made inside one, it would live in the
-    graph's private pool and the graph would zero it on every replay. A
-    capture's warm-up on the capture stream makes it first; a capture
-    that finds none large enough raises. The capture stream is shared by
-    every runner on the device (model_runner._capture_stream)."""
-    made = _TICKETS.setdefault((device.index, stream.cuda_stream), [])
-    if not made or made[-1].numel() < n:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "paged_decode_attention: no ticket buffer of "
-                f"{n} entries for this stream; run the step once on the "
-                "capture stream (the warm-up) before capturing it")
-        made.append(torch.zeros(max(n, 256), dtype=torch.int32,
-                                device=device))
-    return made[-1]
+    """The stream's int32 ticket buffer of the split walks' last-split
+    merges, at least n long, zero between calls (`_build.stream_buffer`;
+    K1's split walk shares it). The capture stream is shared by every
+    runner on the device (model_runner._capture_stream)."""
+    return stream_buffer("tickets", device, stream, n, torch.int32,
+                         zeroed=True)
 
 
 def n_splits(pages_per_seq: int, page_size: int,

@@ -20,22 +20,34 @@ q_len [B] int32. Query row t of sequence b attends the keys at positions
 the n_q / n_kv query heads of a kv head from one page walk.
 
 `ragged_paged_attention` is the wrapper: on a CUDA tensor it launches the
-hand-written kernel in csrc/ragged_paged_attention.cu for the pair (q
-dtype, pool dtype), in the form `ragged_form` picks from the grouped rows
-G = n_rep * T (the span form on the tensor cores for prefill chunks and
-GQA spans, the key-parallel decode form for G <= DECODE_ROWS); on a CPU
-tensor it runs `ragged_reference`, the plain gather + dense-mask version
-with the same output contract, which computes in fp32 (fp64 for fp64
-operands: the fp64 oracle the card's accuracy gate uses). There is no
-other path: a bf16 q on the card launches a bf16 kernel or raises, never a
-cast and the fp32 one. Each (q dtype, pool dtype) pair counts its own
-launches: `COUNTS` (fp32 q over fp32 pools), `COUNTS_I8` and `COUNTS_F8`,
-and for bf16 q `COUNTS_BF16` (bf16 pools), `COUNTS_BF16_I8` and
-`COUNTS_BF16_F8`, with the kernel launches of each form under
-`form_launches`. A launch inside a captured CUDA graph counts at its
+hand-written kernels in csrc/ragged_paged_attention.cu (fp32 q) and
+csrc/ragged_paged_attention_bf16.cu (bf16 q) for the pair (q dtype, pool
+dtype), in the form `ragged_form` picks from the grouped rows G = n_rep *
+T: the span form on the tensor cores for prefill chunks and GQA spans (bf16
+q: wgmma from a cp.async ring at d <= 128, the tf32 span form of fp32 q
+above), the decode form for G <= DECODE_ROWS (on the CUDA cores for fp32
+q, and bf16 q at d > SPLIT_MAX_HEAD_DIM: one block per sequence and kv
+head; bf16 q at d <= SPLIT_MAX_HEAD_DIM: the split walk on the tensor
+cores, each sequence's keys cut into splits of KEYS_PER_SPLIT on a
+persistent grid and merged in split order through a workspace and a
+ticket per sequence and kv head, `decode_splits`,
+`split_workspace_floats`). On a CPU tensor it runs
+`ragged_reference`, the plain gather + dense-mask version with the same
+output contract, which computes in fp32 (fp64 for fp64 operands: the fp64
+oracle the card's accuracy gate uses). There is no other path: a bf16 q on
+the card launches a bf16 kernel or raises, never a cast and the fp32 one.
+Each (q dtype, pool dtype) pair counts its own launches: `COUNTS` (fp32 q
+over fp32 pools), `COUNTS_I8` and `COUNTS_F8`, and for bf16 q
+`COUNTS_BF16` (bf16 pools), `COUNTS_BF16_I8` and `COUNTS_BF16_F8`, with the
+kernel launches of each form under `form_launches`: "span", "decode" (an
+unsplit decode launch: fp32 q, bf16 q at d > SPLIT_MAX_HEAD_DIM, or over
+a table no longer than one split) and "decode_split" (bf16 q over a
+longer table: the workspace and the tickets in play). A launch inside a captured CUDA graph counts at its
 capture; the capturing runner takes that count back out and credits it on
 every replay (`_build.counts_delta`). The output is allocated per call, so
-under a graph it is the graph's buffer, which each replay overwrites.
+under a graph it is the graph's buffer, which each replay overwrites; the
+split walk's workspace and tickets are per-stream buffers made outside any
+capture (`_build.stream_buffer`).
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ import torch
 
 from paddle_tpu_torch.ops._build import (
     LaunchCounts, check, library, refuse_interpret, require_launchable,
+    stream_buffer,
 )
 
 NEG_INF = -1e30
@@ -58,6 +71,14 @@ MAX_HEAD_DIM = 256
 DECODE_ROWS = 8
 # the C side's form argument
 _FORMS = {"span": 0, "decode": 1}
+# keys of one split of the bf16 decode form's walk (as K2's): a constant,
+# so a sequence's splits, and its output bit for bit, never depend on the
+# rest of the batch; a multiple of 16, the walk's warp tile
+KEYS_PER_SPLIT = 256
+# the widest head of bf16 q's redesigned forms (the wgmma span form, the
+# split walk); wider heads take the tf32 span form and the unsplit decode
+# form
+SPLIT_MAX_HEAD_DIM = 128
 
 COUNTS = LaunchCounts()        # fp32 q, fp32 pools (K1)
 COUNTS_I8 = LaunchCounts()     # fp32 q, int8 pools + scales (K1-q)
@@ -140,7 +161,17 @@ def ragged_paged_attention(q, k_pool, v_pool, block_table, start_pos, q_len,
     q is fp32 over fp32, int8 (with k_scale / v_scale) or float8_e4m3fn
     pools, or bf16 over bf16, int8 or float8_e4m3fn pools. Returns [B, T,
     n_q, d] in q's dtype. ``interpret`` is the JAX flag
-    (`_build.refuse_interpret`)."""
+    (`_build.refuse_interpret`).
+
+    On the card, bf16 q at d <= SPLIT_MAX_HEAD_DIM takes
+    csrc/ragged_paged_attention_bf16.cu: the span form on wgmma (P in two
+    bf16 terms), the decode form as the split walk (bf16 mma.sync), each
+    sequence's visible keys in splits of KEYS_PER_SPLIT. Where the table
+    allows more than one split (`decode_splits`), the launch takes the
+    stream's workspace of `split_workspace_floats` fp32 elements and its
+    ticket buffer (`_build.stream_buffer`, made outside any graph
+    capture) and counts as "decode_split". Wider heads take the forms of
+    fp32 q (the tf32 span form, the unsplit decode form)."""
     refuse_interpret("ragged_paged_attention", interpret, q)
     _check_shapes(q, k_pool, v_pool, block_table, start_pos, q_len)
     _check_scales(q, k_pool, v_pool, k_scale, v_scale)
@@ -172,25 +203,62 @@ def ragged_paged_attention(q, k_pool, v_pool, block_table, start_pos, q_len,
         raise ValueError(f"the CUDA ragged kernel takes head_dim % 8 == 0 "
                          f"and <= {MAX_HEAD_DIM}; got {d}")
     form = ragged_form(n_q // n_kv, T)
+    P = block_table.shape[1]
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device)
     pools = (k_pool.data_ptr(), v_pool.data_ptr(),
              *(t.data_ptr() for t in scales))
-    err = getattr(library(), entry)(
-        q.data_ptr(), *pools, block_table.data_ptr(), start_pos.data_ptr(),
-        q_len.data_ptr(), out.data_ptr(), B, T, n_q, n_kv, d, page_size,
-        block_table.shape[1], _FORMS[form], scale,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    front = (q.data_ptr(), *pools, block_table.data_ptr(),
+             start_pos.data_ptr(), q_len.data_ptr(), out.data_ptr())
+    sizes = (B, T, n_q, n_kv, d, page_size, P, _FORMS[form])
+    if not bf16:
+        err = getattr(library(), entry)(*front, *sizes, scale,
+                                        stream.cuda_stream)
+    else:
+        S = decode_splits(P, page_size)
+        part = tickets = None
+        if form == "decode" and d <= SPLIT_MAX_HEAD_DIM and S > 1:
+            floats = split_workspace_floats(B, n_kv, (n_q // n_kv) * T, d, S)
+            part = stream_buffer("ragged workspace", q.device, stream,
+                                 floats, torch.float32, zeroed=False)
+            tickets = stream_buffer("tickets", q.device, stream, B * n_kv,
+                                    torch.int32, zeroed=True)
+            form = "decode_split"
+        err = getattr(library(), entry)(
+            *front, *(None if t is None else t.data_ptr()
+                      for t in (part, tickets)),
+            *sizes, KEYS_PER_SPLIT, S, scale, stream.cuda_stream)
     check(err, "ragged_paged_attention")
     counts.count_kernel(form)
     return out
 
 
+def decode_splits(pages_per_seq: int, page_size: int,
+                  keys_per_split: int = KEYS_PER_SPLIT) -> int:
+    """Splits of the longest walk a [B, pages_per_seq] table allows: the
+    bf16 decode form's n_splits (1: no sequence can take two, the launch
+    needs no workspace)."""
+    return max(1, -(-pages_per_seq * page_size // keys_per_split))
+
+
+def split_workspace_floats(B: int, n_kv: int, G: int, d: int,
+                           n_splits: int) -> int:
+    """fp32 elements of the bf16 decode form's workspace: each split's
+    (acc [d], m, l) for each of its G grouped rows, for every (sequence,
+    kv head); none where no walk can split."""
+    return B * n_kv * n_splits * G * (d + 2) if n_splits > 1 else 0
+
+
 def ragged_form(n_rep: int, T: int) -> str:
     """The kernel form for a launch of G = n_rep * T grouped rows per kv
-    head: "decode" (one block per sequence and kv head, its warps splitting
-    the keys, on the CUDA cores) for G <= DECODE_ROWS, where the page
-    bytes bound the work; "span" (tiles of 32 rows on the tensor cores)
-    above, where the products do."""
+    head: "decode" for G <= DECODE_ROWS, where the page bytes bound the
+    work (fp32 q: one block per sequence and kv head on the CUDA cores, its
+    warps splitting the keys; bf16 q at d <= SPLIT_MAX_HEAD_DIM: the split
+    walk, the keys in splits of KEYS_PER_SPLIT on a persistent grid, the G
+    rows padded to 16 on bf16 mma.sync, merged in split order); "span"
+    (blocks of 64 grouped rows on the tensor cores: wgmma for bf16 q at d
+    <= SPLIT_MAX_HEAD_DIM, 3xTF32 mma.sync otherwise) above, where the
+    products do."""
     return "decode" if n_rep * T <= DECODE_ROWS else "span"
 
 

@@ -60,9 +60,12 @@ copy-on-write fork leaves the source page's bytes unchanged, over the
 three pool types.
 
 The bf16 serving kernels: K1's bf16 forms (bf16 q over bf16, int8 and
-fp8 pools, both forms, head dims 8 to 256) and K2-bf16 (split sizes, page
-sizes, batch invariance) within twice their bf16 plain versions' error
-against fp64 and misrounding at most 1/16; a mixed (q, pool) pair raises;
+fp8 pools, both forms, head dims 8 to 256, decode walks across the split
+walk's 256-key splits, int8 page scales of 1e-3 and 1e3) and K2-bf16
+(split sizes, page sizes, batch invariance) within twice their bf16 plain
+versions' error against fp64 and misrounding at most 1/16; K1's bf16
+decode form batch-invariant bit for bit, and its graph replay equal to
+its eager launches; a mixed (q, pool) pair raises;
 a bf16 engine launches only the bf16 variants, token-exact against its
 naive_generate with one slot, its horizon engine equal to it.
 
@@ -1322,24 +1325,46 @@ def _bf16_pools(gen, kind, kp, vp):
 @pytest.mark.parametrize("n_rep", [1, 4, 8])
 def test_bf16_ragged_kernel_forms_against_fp64(gen, kind, d, ps, n_rep):
     """Both forms of K1 on bf16 q, over bf16 pools (K1-bf16) and int8 /
-    fp8 pools (K1-q): the spans of the fp32 test above, a bf16 output
-    held against the plain version (fp32 compute, one bf16 rounding) and
-    its fp64 evaluation on the same operands within the bf16 gates, with
-    rows past q_len and the dead slot exactly 0."""
+    fp8 pools (K1-q): the spans of the fp32 test above, and decode-form
+    walks of 255, 257 and 4096 keys (on and across the split walk's
+    256-key splits; int8 pages there with scales of 1e-3 and 1e3), also
+    at decode steps (T = 1; at n_rep 1 the one-row walk), a bf16
+    output held against the plain version (fp32 compute, one bf16
+    rounding) and its fp64 evaluation on the same operands within the bf16
+    gates, with rows past q_len and the dead slot exactly 0. A decode
+    launch at d <= SPLIT_MAX_HEAD_DIM over a table of more than one split
+    counts as "decode_split"."""
     counts = k1.counts_for(torch.bfloat16, POOL_DTYPES[kind])
     T_dec = k1.DECODE_ROWS // n_rep
-    for T, form in ((T_dec, "decode"), (T_dec + 1, "span"), (37, "span")):
-        starts, qlens = [0, 5, 70, 3], [T, 1, max(1, T - 2), 0]
+    short = ([0, 5, 70, 3], lambda T: [T, 1, max(1, T - 2), 0])
+    long = ([255 - T_dec, 257 - T_dec, 4096 - T_dec, 3],
+            lambda T: [T, T, T, 0])
+    # decode steps (T = 1) on and across the splits; at n_rep 1 one row a
+    # kv head: the one-row walk
+    one = ([254, 256, 4095, 3], lambda T: [1, 1, 1, 0])
+    for T, form, (starts, lens) in ((T_dec, "decode", short),
+                                    (T_dec + 1, "span", short),
+                                    (37, "span", short),
+                                    (T_dec, "decode", long),
+                                    (1, "decode", one)):
+        qlens = lens(T)
         pages = (T + max(starts)) // ps + 2
         q, kp, vp, table = _operands(gen, 4, T, 2, n_rep, d, ps, pages)
         q = q.to(torch.bfloat16)
         table[3] = 0                               # dead slot: all scratch
         k, v, ks, vs = _bf16_pools(gen, kind, kp, vp)
+        if ks is not None and starts is not short[0]:
+            ks, vs = (torch.where(torch.rand(t.shape, device="cuda",
+                                             generator=gen) < 0.5, 1e-3,
+                                  1e3).float() for t in (ks, vs))
         st = torch.tensor(starts, dtype=torch.int32, device="cuda")
         ql = torch.tensor(qlens, dtype=torch.int32, device="cuda")
         counts.reset()
         out = k1.ragged_paged_attention(q, k, v, table, st, ql, k_scale=ks,
                                         v_scale=vs)
+        if form == "decode" and d <= k1.SPLIT_MAX_HEAD_DIM \
+                and k1.decode_splits(pages, ps) > 1:
+            form = "decode_split"
         assert counts.form_launches == {form: 1}
         assert counts.plain_launches == 0
         assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
@@ -1398,6 +1423,42 @@ def test_bf16_paged_decode_kernel_is_batch_invariant(gen):
         alone = k2.paged_decode_attention(q[i:i + 1, 0], kp, vp,
                                           table[i:i + 1], pos[i:i + 1])
         assert torch.equal(alone[0], out[i]), f"sequence {i}"
+
+
+@pytest.mark.parametrize("n_rep", [1, 4], ids=["mha", "gqa4"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
+def test_bf16_ragged_decode_form_is_batch_invariant(gen, kind, n_rep):
+    """As K2: the bf16-q decode form's split walk (on the tensor cores at
+    GQA-4, the one-row walk at MHA) gives each sequence's rows alone what
+    it gives them inside the batch, bit for bit, at walks on and across
+    its 256-key splits."""
+    h, d, ps, pages = 2, 128, 16, 256
+    pos_list = [300, 4095, 0, 255, 256, 16, 3000, 127]
+    q, kp, vp, table = _operands(gen, len(pos_list), 1, h, n_rep, d, ps,
+                                 pages)
+    q = q.to(torch.bfloat16)
+    k, v, ks, vs = _bf16_pools(gen, kind, kp, vp)
+    st = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+    ql = torch.ones_like(st)
+    counts = k1.counts_for(torch.bfloat16, POOL_DTYPES[kind])
+    counts.reset()
+    out = k1.ragged_paged_attention(q, k, v, table, st, ql, k_scale=ks,
+                                    v_scale=vs)
+    assert counts.form_launches == {"decode_split": 1}
+    for i in range(len(pos_list)):
+        alone = k1.ragged_paged_attention(q[i:i + 1], k, v, table[i:i + 1],
+                                          st[i:i + 1], ql[i:i + 1],
+                                          k_scale=ks, v_scale=vs)
+        assert torch.equal(alone[0], out[i]), f"sequence {i}"
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
+def test_bf16_ragged_decode_form_graph_replay_equals_eager(gen, kind):
+    """Two chained bf16-q decode-form launches captured in one CUDA graph
+    (the workspace and tickets made by the warm-up on the capture stream)
+    replay to the eager launches' output bit for bit (`chip_smoke.py`'s
+    check_ragged_graph, at 8 query heads over 2 kv heads)."""
+    _chip_smoke().check_ragged_graph(gen, kind, n_q=8, n_kv=2)
 
 
 def test_serving_kernels_refuse_mixed_dtypes(gen):

@@ -473,6 +473,10 @@ def test_smoke_names_the_ragged_span_instantiations(maxd, kv):
         f"ragged_span_kernel<{maxd},{kv}>"
 
 
+_RAGGED_BF16_HASH = ("_ZN63_GLOBAL__N__a1b9b748_30_ragged_paged_attention_"
+                     "bf16_cu_02800a36")
+
+
 def _typed_span_entry(maxd, kv, qt):
     """The span form's entry with its third template argument, q's type
     (float, or __nv_bfloat16 for a bf16 runner's q)."""
@@ -487,10 +491,20 @@ def _typed_span_entry(maxd, kv, qt):
                                    (3, "bf16"), (1, "bf16"), (2, "bf16")])
 def test_smoke_names_the_typed_ragged_span_instantiations(maxd, kv, qt):
     """Each (pool type, q type) instantiation of the span form, as the
-    build report must find it among TENSOR_CORE_INSTANTIATIONS."""
-    label = _chip_smoke()._kernel_label(_typed_span_entry(maxd, kv, qt))
+    build report must find it among TENSOR_CORE_INSTANTIATIONS; bf16 q at
+    d <= 128 takes the wgmma span form, ragged_span_bf16_kernel<pool
+    type>, in its place."""
+    cs = _chip_smoke()
+    label = cs._kernel_label(_typed_span_entry(maxd, kv, qt))
     assert label == f"ragged_span_kernel<{maxd},{kv},{qt}>"
-    assert label in _chip_smoke().TENSOR_CORE_INSTANTIATIONS
+    if qt == "bf16" and maxd == 128:
+        assert label not in cs.TENSOR_CORE_INSTANTIATIONS
+        name = "ragged_span_bf16_kernel"
+        label = cs._kernel_label(
+            f"{_RAGGED_BF16_HASH}{len(name)}{name}ILi{kv}EEEvN6ragged6RaggedE")
+        assert label == f"ragged_span_bf16_kernel<{kv}>"
+        assert label.startswith(cs.HGMMA_KERNELS)
+    assert label in cs.TENSOR_CORE_INSTANTIATIONS
 
 
 # True: every instantiation holds its tensor-core products; False: one
@@ -503,8 +517,9 @@ def test_smoke_build_report_requires_tensor_core_products(monkeypatch,
                                                           case):
     """The build report passes when the SASS of every instantiation of the
     tensor-core kernels (the three flash kernels at fp32 and at bf16, the
-    bf16 wgmma kernels, the ragged span form) holds its tensor-core
-    products (HMMA; HGMMA in the wgmma kernels), and fails the smoke when
+    bf16 wgmma kernels, the ragged span forms) holds its tensor-core
+    products (HMMA; HGMMA in the wgmma kernels and the bf16-q span form),
+    and fails the smoke when
     one holds none, when a wgmma kernel holds only HMMA, when one is
     missing, or when ptxas reports spills in a wgmma kernel."""
     import re
@@ -523,6 +538,7 @@ def test_smoke_build_report_requires_tensor_core_products(monkeypatch,
     labels = list(cs.TENSOR_CORE_INSTANTIATIONS)
     wgmma = [lb for lb in labels if lb.startswith(cs.WGMMA_KERNELS)]
     assert len(wgmma) == 6
+    hg_labels = [lb for lb in labels if lb.startswith(cs.HGMMA_KERNELS)]
     if case == "wgmma_missing":
         labels.remove(wgmma[-1])
     spill = {lb: 0 for lb in labels}
@@ -537,7 +553,7 @@ def test_smoke_build_report_requires_tensor_core_products(monkeypatch,
     hgmma = "\tHGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24\n"
     sass = "".join(
         f"\tFunction : {entry(lb)}\n"
-        + (hgmma if lb in wgmma and case != "wgmma_hmma_only" else hmma)
+        + (hgmma if lb in hg_labels and case != "wgmma_hmma_only" else hmma)
         for lb in labels)
     if case is False:
         sass = sass.replace(hmma, "\tFADD\n", 1)

@@ -22,6 +22,14 @@ Rows (LLaMA-2-7B heads, d = 128, pages of 16, a 1024-page pool):
   K1-q fp8 decode      the same over fp8 pools
   K1 fp32 decode GQA4  q [8, 1, 32, 128] at DECODE_POS over 8 kv heads
                        (n_rep 4), fp32 pools
+  K1-bf16 chunk        the K1 chunk row with bf16 q over bf16 pools, and
+  K1-q int8 chunk bf16 over int8 and fp8 pools (K1_BF16_ROWS)
+  K1-q fp8 chunk bf16
+  K1-bf16 decode GQA4  the GQA-4 decode row with bf16 q over bf16 pools
+  K1-bf16 verify       verify spans, q [8, 8, 16, 128] at VERIFY_POS with
+                       VERIFY_LEN live rows, 16 heads, bf16 pools
+  K1-q int8 decode bf16  the MHA decode rows with bf16 q (int8, fp8 pools)
+  K1-q fp8 decode bf16
   K2 fp32 decode       paged decode, q [8, 32, 128] at DECODE_POS, fp32
                        pools, a [8, 256] table
   K2 fp32 decode long  the same at LONG_POS (540 pages of the pool): the
@@ -52,8 +60,22 @@ ROOT = Path(__file__).resolve().parent.parent
 DECODE_POS = [124, 183, 242, 301, 360, 419, 478, 542]
 # four sequences up to the engine's max_model_len of 4096 tokens
 LONG_POS = [4095, 3000, 1500, 16]
+# GPT-3 1.3B's verify spans (chip_smoke.py's SPANS_VERIFY): the fed token
+# and 0-4 drafts in the 8-row bucket
+VERIFY_POS = [256, 263, 270, 281, 290, 300, 305, 311]
+VERIFY_LEN = [5, 3, 1, 4, 2, 5, 1, 3]
+# the bf16-q rows of K1: (row, pool kind, heads, kv heads, start, q_len, T)
+K1_BF16_ROWS = (
+    ("K1-bf16 chunk", "bf16", 32, 32, [256], [256], 256),
+    ("K1-q int8 chunk bf16", "int8", 32, 32, [256], [256], 256),
+    ("K1-q fp8 chunk bf16", "fp8", 32, 32, [256], [256], 256),
+    ("K1-bf16 decode GQA4", "bf16", 32, 8, DECODE_POS, [1] * 8, 1),
+    ("K1-bf16 verify", "bf16", 16, 16, VERIFY_POS, VERIFY_LEN, 8),
+    ("K1-q int8 decode bf16", "int8", 32, 32, DECODE_POS, [1] * 8, 1),
+    ("K1-q fp8 decode bf16", "fp8", 32, 32, DECODE_POS, [1] * 8, 1))
 ROWS = ("K1 fp32 chunk", "K1-q int8 chunk", "K1-q fp8 chunk",
         "K1-q int8 decode", "K1-q fp8 decode", "K1 fp32 decode GQA4",
+        *(row[0] for row in K1_BF16_ROWS),
         "K2 fp32 decode", "K2 fp32 decode long", "K3a Llama", "K3a-m ERNIE",
         "K3a-bf16 Llama", "K3a-m-bf16 ERNIE", "K3b-dq-bf16 Llama",
         "K3b-dq-m-bf16 ERNIE", "K3b-dkv-bf16 Llama", "K3b-dkv-m-bf16 ERNIE")
@@ -67,6 +89,31 @@ def _smoke():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def time_k1_bf16(cs, gen, ragged_paged_attention) -> dict:
+    """{row: ms} of K1_BF16_ROWS through ``ragged_paged_attention`` (a
+    tree's wrapper) on seeded operands: a 1024-page pool of 16-key pages,
+    a [B, 256] table, bf16 q."""
+    import torch
+
+    ms = {}
+    d, ps, N, P = 128, 16, 1024, 256
+    for row, kind, n_q, n_kv, start, qlen, T in K1_BF16_ROWS:
+        B = len(start)
+        k_pool, v_pool = cs._pools(N, ps, n_kv, d, gen)
+        k, v, ks, vs = cs._as_kind(k_pool, v_pool, kind, gen)
+        del k_pool, v_pool
+        table = cs._tables(B, P, N, gen,
+                           used=[-(-(s + T) // ps) for s in start])
+        q = torch.randn(B, T, n_q, d, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        st = torch.tensor(start, dtype=torch.int32, device="cuda")
+        ql = torch.tensor(qlen, dtype=torch.int32, device="cuda")
+        ms[row] = cs.median_ms(lambda: ragged_paged_attention(
+            q, k, v, table, st, ql, k_scale=ks, v_scale=vs))
+        del k, v, ks, vs
+    return ms
 
 
 def child(tree: str) -> dict:
@@ -110,6 +157,7 @@ def child(tree: str) -> dict:
         ms[row] = cs.median_ms(lambda: ragged_paged_attention(
             q, k, v, table, st, ql, k_scale=ks, v_scale=vs))
         del k, v, ks, vs
+    ms.update(time_k1_bf16(cs, gen, ragged_paged_attention))
     k_pool, v_pool = cs._pools(N, ps, 32, d, gen)
     for row, positions in (("K2 fp32 decode", DECODE_POS),
                            ("K2 fp32 decode long", LONG_POS)):
