@@ -354,7 +354,39 @@ exits non-zero without printing a result:
               where the mixed pool decodes through K2) up to a parting
               where the twin's top-2 margin is within MIXED_MARGIN of its
               max|logit|.
- 34. summary  one JSON line of every kernel's launches, error and times
+ 34. fp16     the flash kernels' fp16 instantiations (fp16 AMP; the same
+              wgmma kernels at d <= 128 and mma.sync kernels at d = 256 as
+              bf16's, with P times 2^14 before its two-term split and dS
+              times a power of two per accumulator row from a bound of its
+              |dS| (ops.flash_attention.ds_scales), fp16's range):
+              (a) phase 20 (a)'s sweep at fp16, and its range cases
+              (RANGE_CASES: dO x2^15 of 2^-3 unit normals with values 4x,
+              where |dS| passes 65504; dO x2^-15, below fp16's normal
+              range; values 64x, where dq and dk overflow) at d in {64,
+              128, 256} and ERNIE's batch: the same gates on the outputs
+              the plain version gives finite, and the kernels' outputs
+              finite exactly there (inf where the plain version's cast
+              is); (b) phase 20 (b)'s timing at fp16 at both shapes (the
+              plain versions and SDPA at fp16; the bound at 2-byte
+              operands and 989 TFLOP/s), each kernel beside its bf16 time.
+ 35. ERNIE    ERNIE-3.0-base at full width and depth, fp16 O2 with
+     fp16 O2  GradScaler in an eager loop (ScaledStep: auto_cast O2 fp16,
+              scale(loss).backward(), step, update) on phase 15's batch, 2
+              warm-up and 4 timed steps: losses finite and falling over
+              the steps taken, each masked fp16 kernel 12 times a step on
+              wgmma and nothing else (no bf16 or fp32 flash kernel, plain
+              version or dense attention), every parameter its fp32
+              master's cast after every step; the scale and any skipped
+              step reported; profiled as 16.
+ 36. Llama    phase 22 at fp16 O1 (TrainStep(amp_dtype="float16"), 8 of 32
+     fp16 O1  layers, 1 x 4096): losses finite and falling, the dense
+              fp16 kernels 64 launches each, all on wgmma (d = 128);
+              profiled as 12; then phase 24's twins at fp16: a 2-layer O1
+              step at full width against the dense path at fp16 and the
+              fp32 step, phase 24's tolerances, each backward from the
+              loss times 2^12 (GradScaler's recipe; unscaled, the dense
+              fp16 path's gradients fall under fp16's range).
+ 37. summary  one JSON line of every kernel's launches, error and times
               (K1's decode-form times as extra decode_* keys, its engine
               launches by form under launches_by_form, the fp64 ratios
               under fp64_ratio; the masked kernels as *_masked rows with
@@ -362,7 +394,8 @@ exits non-zero without printing a result:
               *_bf16 and *_masked_bf16 rows with the O1 trainers'
               launches, by kernel variant under launches_by_variant (the
               kernel function under kernel), and their worst misround
-              share under misround; the horizon engines' launches of the decode
+              share under misround; the fp16 instantiations as *_fp16 and
+              *_masked_fp16 rows with the phase 36 / 35 launches, likewise; the horizon engines' launches of the decode
               kernels under horizon_launches; each serving kernel's and the
               bf16 dense rows' launches on the GPT paths under
               gpt_launches, each serving kernel's error against its plain
@@ -381,8 +414,9 @@ exits non-zero without printing a result:
 
 fp32 products stay fp32: TF32 is switched off for matmuls and cuDNN. Bounds
 by operations are at fp32-accurate tensor-core products (3xTF32, 495 / 3
-TFLOP/s), for the bf16 kernels at 989 TFLOP/s, by bytes at 3.35 TB/s. bf16
-matmuls sum in fp32 (no reduced-precision split-K reduction).
+TFLOP/s), for the bf16 and fp16 kernels at 989 TFLOP/s, by bytes at 3.35
+TB/s. bf16 and fp16 matmuls sum in fp32 (no reduced-precision split-K
+reduction).
 """
 
 from __future__ import annotations
@@ -405,9 +439,10 @@ PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 # fp32-accurate products on the H100 SXM's tensor cores: 3xTF32 (three
 # TF32 products per fp32 product) at a third of the 495 TFLOP/s TF32 peak
 PEAK_FP32_ACCURATE_FLOP_PER_S = 495e12 / 3
-# dense bf16 tensor-core products on the H100 SXM (NVIDIA data sheet): the
-# bound of the bf16 flash kernels counts the JAX kernel's FLOPs at this
-# rate, not the extra products of their two-term split of P and dS
+# dense bf16 (and fp16) tensor-core products on the H100 SXM (NVIDIA data
+# sheet): the bound of the 16-bit flash kernels counts the JAX kernel's
+# FLOPs at this rate, not the extra products of their two-term split of P
+# and dS
 PEAK_BF16_FLOP_PER_S = 989e12
 TOL = 1e-4
 
@@ -2606,6 +2641,16 @@ FLASH_GROUPS = {"flash_fwd_bf16_wgmma_kernel": "K3a-bf16 flash_forward_bf16",
                     "K3b-dq-bf16 flash_backward_dq_bf16",
                 "flash_bwd_dkv_bf16_kernel":
                     "K3b-dkv-bf16 flash_backward_dkv_bf16",
+                "flash_fwd_f16_wgmma_kernel": "K3a-fp16 flash_forward_fp16",
+                "flash_bwd_dq_f16_wgmma_kernel":
+                    "K3b-dq-fp16 flash_backward_dq_fp16",
+                "flash_bwd_dkv_f16_wgmma_kernel":
+                    "K3b-dkv-fp16 flash_backward_dkv_fp16",
+                "flash_fwd_f16_kernel": "K3a-fp16 flash_forward_fp16",
+                "flash_bwd_dq_f16_kernel":
+                    "K3b-dq-fp16 flash_backward_dq_fp16",
+                "flash_bwd_dkv_f16_kernel":
+                    "K3b-dkv-fp16 flash_backward_dkv_fp16",
                 "flash_fwd_kernel": "K3a flash_forward",
                 "flash_bwd_dq_kernel": "K3b-dq flash_backward_dq",
                 "flash_bwd_dkv_kernel": "K3b-dkv flash_backward_dkv"}
@@ -2738,14 +2783,15 @@ FLASH_KERNELS = (
     ("flash_backward_dq", "paddle_tpu/ops/pallas/flash_attention.py:312"),
     ("flash_backward_dkv", "paddle_tpu/ops/pallas/flash_attention.py:351"),
 )
-# the kernel function of each bf16 wrapper: (mma.sync, wgmma)
-BF16_KERNEL_NAMES = {
-    "flash_forward": ("flash_fwd_bf16_kernel", "flash_fwd_bf16_wgmma_kernel"),
-    "flash_backward_dq": ("flash_bwd_dq_bf16_kernel",
-                          "flash_bwd_dq_bf16_wgmma_kernel"),
-    "flash_backward_dkv": ("flash_bwd_dkv_bf16_kernel",
-                           "flash_bwd_dkv_bf16_wgmma_kernel"),
-}
+# the kernel function of each 16-bit wrapper by dtype: (mma.sync, wgmma)
+HALF_KERNEL_NAMES = {
+    dtype: {"flash_forward": (f"flash_fwd_{t}_kernel",
+                              f"flash_fwd_{t}_wgmma_kernel"),
+            "flash_backward_dq": (f"flash_bwd_dq_{t}_kernel",
+                                  f"flash_bwd_dq_{t}_wgmma_kernel"),
+            "flash_backward_dkv": (f"flash_bwd_dkv_{t}_kernel",
+                                   f"flash_bwd_dkv_{t}_wgmma_kernel")}
+    for dtype, t in ((torch.bfloat16, "bf16"), (torch.float16, "f16"))}
 
 
 def check_flash(gen, b, sq, sk, h, d, causal):
@@ -2814,22 +2860,34 @@ def flash_checks(gen):
     return worst
 
 
-def _flash_counts(masked=False, bf16=False):
+def _half_dtype(half):
+    """The operand dtype of a flash path: ``half`` is False (fp32), True
+    (bf16) or the 16-bit torch dtype itself (bf16 or fp16)."""
+    if isinstance(half, torch.dtype):
+        return half
+    return torch.bfloat16 if half else torch.float32
+
+
+# the AMP dtypes by name, and each one's suffix in the kernels line
+AMP_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+HALF_SUFFIX = {torch.bfloat16: "bf16", torch.float16: "fp16"}
+
+
+def _flash_counts(masked=False, half=False):
     """{kernel: (kernel launches, plain launches)} of one form: dense or
-    masked, fp32 or bf16."""
+    masked, fp32, bf16 or fp16 (`_half_dtype`)."""
     from paddle_tpu_torch.ops import flash_attention as fa
-    dtype = torch.bfloat16 if bf16 else torch.float32
     return {name: (c.kernel_launches, c.plain_launches)
-            for name, c in fa.counts_for(masked, dtype).items()}
+            for name, c in fa.counts_for(masked, _half_dtype(half)).items()}
 
 
-def _variant_launches(label, masked, bf16, d, total):
+def _variant_launches(label, masked, half, d, total):
     """{kernel: {variant: launches}} of one form, checked: each kernel
     launched `total` times, all through the variant the entry points take
-    for its dtype and head dim d (`kernel_variant`: the bf16 forward and
-    dk/dv on wgmma at d <= 128)."""
+    for its dtype and head dim d (`kernel_variant`: the bf16 and fp16
+    forward, dq and dk/dv on wgmma at d <= 128)."""
     from paddle_tpu_torch.ops import flash_attention as fa
-    dtype = torch.bfloat16 if bf16 else torch.float32
+    dtype = _half_dtype(half)
     got = {name: dict(c.form_launches)
            for name, c in fa.counts_for(masked, dtype).items()}
     want = {name: {fa.kernel_variant(name, dtype, d): total} for name in got}
@@ -2839,11 +2897,11 @@ def _variant_launches(label, masked, bf16, d, total):
     return got
 
 
-def _other_flash_launches(masked, bf16) -> int:
-    """Every flash launch, kernel or plain, of the three forms that are not
-    (masked, bf16), plus that form's plain launches."""
+def _other_flash_launches(masked, half) -> int:
+    """Every flash launch, kernel or plain, of the forms that are not
+    (masked, dtype), plus that form's plain launches."""
     from paddle_tpu_torch.ops import flash_attention as fa
-    ran = fa.counts_for(masked, torch.bfloat16 if bf16 else torch.float32)
+    ran = fa.counts_for(masked, _half_dtype(half))
     return sum(c.plain_launches + (0 if group is ran else c.kernel_launches)
                for group in fa.COUNTS.values() for c in group.values())
 
@@ -3038,11 +3096,13 @@ def masked_checks(gen):
     return worst
 
 
-def trainer_phase(cfg, seed=0, warmup=2, steps=6, seq=4096, amp_level=None):
-    """Phases 11 and 22, the training path: TrainStep + AdamW over seeded
-    random weights and one seeded batch, fp32 or (amp_level "O1") bf16 AMP
-    through the bf16 kernels. Returns the trainer, its batch, the flash
-    launches of the run and their split by kernel variant."""
+def trainer_phase(cfg, seed=0, warmup=2, steps=6, seq=4096, amp_level=None,
+                  amp_dtype="bfloat16"):
+    """Phases 11, 22 and 36, the training path: TrainStep + AdamW over
+    seeded random weights and one seeded batch, fp32 or (amp_level "O1")
+    bf16 or fp16 AMP (amp_dtype) through the 16-bit kernels of that
+    dtype. Returns the trainer, its batch, the flash launches of the run
+    and their split by kernel variant."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import Llama, llama_loss_fn
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -3054,8 +3114,10 @@ def trainer_phase(cfg, seed=0, warmup=2, steps=6, seq=4096, amp_level=None):
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
                 parameters=model.named_parameters(),
                 grad_clip=ClipGradByGlobalNorm(1.0))
-    trainer = TrainStep(model, llama_loss_fn, opt, amp_level=amp_level)
-    bf16 = amp_level is not None
+    trainer = TrainStep(model, llama_loss_fn, opt, amp_level=amp_level,
+                        amp_dtype=amp_dtype)
+    half = AMP_DTYPES[amp_dtype] if amp_level else False
+    mode = f"{amp_level} {amp_dtype}" if amp_level else "fp32"
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     toks = torch.randint(0, cfg.vocab_size, (1, seq + 1), device="cuda",
@@ -3064,7 +3126,7 @@ def trainer_phase(cfg, seed=0, warmup=2, steps=6, seq=4096, amp_level=None):
     n_params = sum(p.numel() for p in model.parameters())
     per_layer = sum(p.numel() for p in model.layers[0].parameters())
     n_full = n_params + (32 - cfg.num_layers) * per_layer
-    log(f"trainer setup ({amp_level or 'fp32'}): {cfg.num_layers} of 32 "
+    log(f"trainer setup ({mode}): {cfg.num_layers} of 32 "
         f"layers at LLaMA-2-7B "
         f"widths (hidden {cfg.hidden_size}, heads {cfg.num_heads}/"
         f"{cfg.num_kv_heads}, ffn {cfg.ffn_hidden}, vocab "
@@ -3078,9 +3140,9 @@ def trainer_phase(cfg, seed=0, warmup=2, steps=6, seq=4096, amp_level=None):
     losses = []
 
     def one_step():
-        before = _flash_counts(bf16=bf16)
+        before = _flash_counts(half=half)
         losses.append(trainer(ids, labels))
-        after = _flash_counts(bf16=bf16)
+        after = _flash_counts(half=half)
         for name in after:
             if after[name][0] - before[name][0] != cfg.num_layers:
                 raise AssertionError(
@@ -3096,17 +3158,18 @@ def trainer_phase(cfg, seed=0, warmup=2, steps=6, seq=4096, amp_level=None):
             one_step()
         torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t) / steps
-    counts = _flash_counts(bf16=bf16)
+    counts = _flash_counts(half=half)
     launches = {name: kl for name, (kl, _) in counts.items()}
-    plain = _other_flash_launches(False, bf16)
+    plain = _other_flash_launches(False, half)
     values = [x.float().item() for x in losses]
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"trainer losses ({amp_level or 'fp32'}, {losses[0].dtype}): "
+    log(f"trainer losses ({mode}, {losses[0].dtype}): "
         f"{[round(x, 5) for x in values]}")
-    log(f"trainer run ({amp_level or 'fp32'}): {warmup} warm-up + {steps} "
+    log(f"trainer run ({mode}): {warmup} warm-up + {steps} "
         f"timed steps, mean step {step_ms:.1f} ms = "
         f"{seq / step_ms * 1e3:.1f} tokens/s, peak memory {peak:.2f} GiB, "
-        f"{'bf16 ' if bf16 else ''}flash launches {launches} "
+        f"{HALF_SUFFIX.get(_half_dtype(half), 'fp32')} flash launches "
+        f"{launches} "
         f"({cfg.num_layers} each per step), plain versions and other flash "
         f"forms {plain}, dense attention calls 0")
     if not all(np.isfinite(values)) or not values[-1] < values[0]:
@@ -3117,7 +3180,7 @@ def trainer_phase(cfg, seed=0, warmup=2, steps=6, seq=4096, amp_level=None):
         raise AssertionError(f"main path missed a flash kernel: "
                              f"{launches}, plain launches {plain}")
     variants = _variant_launches(
-        f"trainer ({amp_level or 'fp32'})", False, bf16,
+        f"trainer ({mode})", False, half,
         cfg.hidden_size // cfg.num_heads, cfg.num_layers * (warmup + steps))
     log(f"trainer flash launches by variant: {json.dumps(variants)}")
     return trainer, (ids, labels), launches, variants
@@ -3169,12 +3232,18 @@ MASKED_GROUPS = {"K3a flash_forward": "K3a-m flash_forward_masked",
                  "K3b-dq-bf16 flash_backward_dq_bf16":
                      "K3b-dq-m-bf16 flash_backward_dq_masked_bf16",
                  "K3b-dkv-bf16 flash_backward_dkv_bf16":
-                     "K3b-dkv-m-bf16 flash_backward_dkv_masked_bf16"}
+                     "K3b-dkv-m-bf16 flash_backward_dkv_masked_bf16",
+                 "K3a-fp16 flash_forward_fp16":
+                     "K3a-m-fp16 flash_forward_masked_fp16",
+                 "K3b-dq-fp16 flash_backward_dq_fp16":
+                     "K3b-dq-m-fp16 flash_backward_dq_masked_fp16",
+                 "K3b-dkv-fp16 flash_backward_dkv_fp16":
+                     "K3b-dkv-m-fp16 flash_backward_dkv_masked_fp16"}
 
 
 def train_profile_phase(trainer, batch, layers, matmul_weights, label,
-                        masked=False, steps=2, bf16=False):
-    """Phases 12, 16, 21 and 22: torch.profiler over `steps` training
+                        masked=False, steps=2, half=False):
+    """Phases 12, 16, 21, 22, 35 and 36: torch.profiler over `steps` training
     steps, device time by kernel group; the optimizer's kernels are
     profiled apart (`_optimizer_ms`) and their time taken out of the
     elementwise group, where they fall by name. The idle share is 1 -
@@ -3203,9 +3272,13 @@ def train_profile_phase(trainer, batch, layers, matmul_weights, label,
     busy = sum(groups.values()) / steps
     per = {g: round(ms / steps, 3) for g, ms in
            sorted(groups.items(), key=lambda kv: -kv[1])}
+    # the flash groups of the path's dtype (`_half_dtype`): kernel names
+    # with _bf16_ or _f16_ for the 16-bit forms, neither for fp32
+    tag = {torch.bfloat16: "_bf16_", torch.float16: "_f16_"}.get(
+        _half_dtype(half))
     flash = list(dict.fromkeys(
-        MASKED_GROUPS[g] if masked else g
-        for k, g in FLASH_GROUPS.items() if ("_bf16_" in k) == bf16))
+        MASKED_GROUPS[g] if masked else g for k, g in FLASH_GROUPS.items()
+        if (tag in k if tag else "_bf16_" not in k and "_f16_" not in k)))
     per_launch = {g: round(groups.get(g, 0.0) / (steps * layers), 4)
                   for g in flash}
     tokens = batch[0].numel()
@@ -3314,7 +3387,7 @@ def measure_flash(gen, b=1, s=4096, h=32, d=128, causal=True, att=None,
     the operands' dtype), non-causal. ``dtype`` bf16 times the bf16
     instantiations on bf16 operands (the plain versions and SDPA on the
     same operands), their bound at 2-byte operands and the dense bf16
-    rate.
+    rate; fp16 the same at fp16 (phase 34 (b)).
     The backward pair is held like for like against SDPA's backward alone
     (torch.autograd.grad of a retained graph): the whole flash_backward
     (backward_delta and both kernels) and the two kernels alone. Returns
@@ -3332,13 +3405,17 @@ def measure_flash(gen, b=1, s=4096, h=32, d=128, causal=True, att=None,
     delta = fa.backward_delta(o, do)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     scale = 1.0 / d ** 0.5
+    # fp16: dS's factors, plain torch before the launches as delta is
+    row_scale, key_scale = (fa.ds_scales(v, do, scale)
+                            if dtype == torch.float16 else (None, None))
 
     def dq_kernel():
-        fa.launch_backward_dq(q, k, v, do, lse, delta, dq, causal, scale, m)
+        fa.launch_backward_dq(q, k, v, do, lse, delta, dq, causal, scale, m,
+                              row_scale)
 
     def dkv_kernel():
         fa.launch_backward_dkv(q, k, v, do, lse, delta, dk, dv, causal,
-                               scale, m)
+                               scale, m, key_scale)
 
     ms = {"flash_forward": median_ms(lambda: fa.launch_forward(
               q, k, v, o, lse, causal, scale, m)),
@@ -3368,12 +3445,13 @@ def measure_flash(gen, b=1, s=4096, h=32, d=128, causal=True, att=None,
     del out
     library = {"flash_forward": lib_fwd, "flash_backward_dq": lib_bwd,
                "flash_backward_dkv": lib_bwd}
-    bf16 = dtype == torch.bfloat16
+    half = dtype in HALF_SUFFIX
     work = flash_work(b, s, s, h, d, causal, kbias is not None,
-                      elem=2 if bf16 else 4)
-    peak = PEAK_BF16_FLOP_PER_S if bf16 else PEAK_FP32_ACCURATE_FLOP_PER_S
+                      elem=2 if half else 4)
+    peak = PEAK_BF16_FLOP_PER_S if half else PEAK_FP32_ACCURATE_FLOP_PER_S
     form = "causal" if causal else f"kbias [{b},{s}] full"
-    label = ("" if kbias is None else "_masked") + ("_bf16" if bf16 else "")
+    label = (("" if kbias is None else "_masked")
+             + (f"_{HALF_SUFFIX[dtype]}" if half else ""))
     log(f"flash work at q/k/v [{b},{s},{h},{d}] {form}: " + ", ".join(
         f"{name} {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP"
         for name, (nbytes, flops) in work.items()))
@@ -3505,7 +3583,8 @@ def _vs_fp64(x, plain, exact):
 # (fp32 throughout) rounds to bf16(exact), the share the kernel rounds to
 # another value. The hi + lo products keep P and dS to ~2^-17, which moves
 # only outputs that close to a rounding boundary (a few %); one bf16 term
-# of P or dS (2^-9) would move about a third. The gate sits between.
+# of P or dS (2^-9) would move about a third. The gate sits between. fp16
+# outputs round at 2^-12, so the same share sees inner errors 8x finer.
 MISROUND_GATE = 1 / 16
 # An output whose exact value is below this (the operands are unit
 # normals) is a sum that cancels exactly, as dq of a row that sees one key
@@ -3515,30 +3594,47 @@ EXACT_ZERO = 2.0 ** -24
 
 
 def misround_share(x, plain, exact) -> float:
-    """Of the bf16 outputs where ``plain`` equals bf16(exact) (torch's
-    cast) and |exact| > EXACT_ZERO, the share where ``x`` does not (0
-    where there are none)."""
-    want = exact.to(torch.bfloat16)
+    """Of the 16-bit outputs (bf16 or fp16, x's dtype) where ``plain``
+    equals exact cast to that dtype (torch's cast) and |exact| >
+    EXACT_ZERO, the share where ``x`` does not (0 where there are none)."""
+    want = exact.to(x.dtype)
     right = (plain == want) & (exact.abs() > EXACT_ZERO)
     n = int(right.sum())
     return int((right & (x != want)).sum()) / n if n else 0.0
 
 
-def check_bf16(gen, label, b, sq, sk, h, d, causal, dead_rows=None, **kw):
-    """Phase 20 (a), one case: the bf16 kernels (K3a, K3b-dq, K3b-dkv) on
-    bf16 operands with the JAX function's masking arguments ``kw``, and
-    the plain versions on the same operands (fp32 compute, bf16 outputs),
-    both against the plain versions evaluated in fp64: o, lse (rows that
-    see a key), dq, dk and dv within twice the bf16 plain version's own
-    error, and o, dq, dk and dv misrounded (`misround_share`) at most
-    MISROUND_GATE of the time. Each kernel must launch once, as its bf16
-    instantiation, through the variant `kernel_variant` names for d (wgmma
-    at d <= 128, mma.sync above). Returns ({kernel: fp64 ratio},
-    {kernel: max abs error vs plain}, {kernel: misround share})."""
+# fp16's cast rounds a value to inf from here on (65504 plus half an ulp)
+FP16_OVERFLOW = 65520.0
+# half an fp16 ulp at the top of its range: within this of FP16_OVERFLOW
+# an exact value's fp32 evaluations may round to either side
+FP16_OVERFLOW_EDGE = 16.0
+
+
+def check_half(gen, label, b, sq, sk, h, d, causal, dead_rows=None,
+               dtype=torch.bfloat16, do_scale=1.0, v_scale=1.0, **kw):
+    """Phases 20 (a) and 34 (a), one case: the 16-bit kernels (K3a,
+    K3b-dq, K3b-dkv) on ``dtype`` operands (bf16 or fp16; unit normals, v
+    times v_scale and dO times do_scale) with the JAX function's masking
+    arguments ``kw``, and the plain versions on the same operands (fp32
+    compute, 16-bit outputs), both against the plain versions evaluated
+    in fp64: o, lse (rows that see a key), dq, dk and dv within twice the
+    plain version's own error, and o, dq, dk and dv misrounded
+    (`misround_share`) at most MISROUND_GATE of the time, on the outputs
+    both give finite; the kernels' outputs are finite exactly where the
+    plain version's are, and equal to its inf elsewhere (fp16's range:
+    past 65504 the cast of the fp32 result is inf), but where the exact
+    value lies within FP16_OVERFLOW_EDGE of FP16_OVERFLOW. Each kernel
+    must launch once, as its instantiation of that dtype, through the
+    variant `kernel_variant` names for d (wgmma at d <= 128, mma.sync
+    above). Returns ({kernel: fp64 ratio}, {kernel: max abs error vs
+    plain}, {kernel: misround share})."""
     from paddle_tpu_torch.ops import flash_attention as fa
-    bf = torch.bfloat16
+    bf = dtype
     q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
-                   .to(bf) for s in (sq, sk, sk, sq))
+                   for s in (sq, sk, sk, sq))
+    q, k, v, do = (t.to(bf) for t in (q, k, v * v_scale, do * do_scale))
+    if not all(bool(torch.isfinite(t).all()) for t in (q, k, v, do)):
+        raise AssertionError(f"{label}: an operand overflows {bf}")
     m = fa.canonical_masks(q, k, v, causal, **kw)
     ops = m._asdict()
     counts = fa.counts_for(m.given(), bf)
@@ -3552,9 +3648,9 @@ def check_bf16(gen, label, b, sq, sk, h, d, causal, dead_rows=None, **kw):
                 or c.form_launches.get(variant, 0)
                 - before[n][1].get(variant, 0) != 1):
             raise AssertionError(
-                f"bf16 flash {label}: {n} did not launch once through its "
-                f"{variant} kernel: {before[n]} -> {c.kernel_launches}, "
-                f"{c.form_launches}")
+                f"{HALF_SUFFIX[bf]} flash {label}: {n} did not launch once "
+                f"through its {variant} kernel: {before[n]} -> "
+                f"{c.kernel_launches}, {c.form_launches}")
     ro, rlse = fa.flash_forward_reference(q, k, v, causal, **ops)
     plain = fa.flash_backward_reference(q, k, v, o, do, lse, causal, **ops)
     q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
@@ -3568,32 +3664,48 @@ def check_bf16(gen, label, b, sq, sk, h, d, causal, dead_rows=None, **kw):
     if bool(seen.any()):
         outs["lse"] = (lse[seen], rlse[seen], lse64[seen])
     ratio, err, share, parts, failed = {}, {}, {}, [], []
+    n_inf = n_edge = 0
     for name, (x, p, e) in outs.items():
-        if not bool(torch.isfinite(x).all()):
-            raise AssertionError(f"bf16 flash {label}: {name} not finite")
+        fin_p, fin_x = torch.isfinite(p), torch.isfinite(x)
+        # where the exact value lies within half an fp16 ulp of the cast's
+        # overflow threshold, either side's fp32 rounding may tip it
+        edge = (e.abs() - FP16_OVERFLOW).abs() <= FP16_OVERFLOW_EDGE
+        both_inf = ~fin_p & ~fin_x
+        if bool(((fin_p != fin_x) & ~edge).any()) or not torch.equal(
+                x[both_inf], p[both_inf]):
+            raise AssertionError(
+                f"{HALF_SUFFIX[bf]} flash {label}: {name} is not finite "
+                "exactly where the plain version's is, with its inf there")
+        n_inf += int((~fin_p).sum())
+        n_edge += int((fin_p != fin_x).sum())
+        fin = fin_p & fin_x
+        x, p, e = x[fin], p[fin], e[fin]
         e_kernel, e_plain, ratio[name] = _vs_fp64(x, p, e)
         err[name] = (x.float() - p.float()).abs().max().item()
         parts.append(f"{name} {e_kernel:.2e}/{e_plain:.2e} "
                      f"({ratio[name]:.2f}x)")
         if not ratio[name] <= 2.0:
             failed.append(f"{name} error against fp64 {e_kernel:.3e} > 2 x "
-                          f"the bf16 plain version's {e_plain:.3e}")
+                          f"the plain version's {e_plain:.3e}")
         if name != "lse":
             share[name] = misround_share(x, p, e)
             parts[-1] += f" misround {share[name]:.4f}"
             if not share[name] <= MISROUND_GATE:
                 failed.append(f"{name} misrounded {share[name]:.4f} > "
                               f"{MISROUND_GATE}")
-    line = (f"bf16 flash {label} (b={b} sq={sq} sk={sk} h={h} d={d} "
-            f"{'causal' if causal else 'full'}) vs fp64, kernel/plain max "
-            "error: " + ", ".join(parts))
+    scaled = (f", dO x{do_scale:g}, v x{v_scale:g}, {n_inf} inf outputs, "
+              f"{n_edge} parted at the overflow edge"
+              if (do_scale, v_scale) != (1.0, 1.0) else "")
+    line = (f"{HALF_SUFFIX[bf]} flash {label} (b={b} sq={sq} sk={sk} h={h} "
+            f"d={d} {'causal' if causal else 'full'}{scaled}) vs fp64, "
+            "kernel/plain max error: " + ", ".join(parts))
     if failed:
         raise AssertionError(f"{line}; failed: " + "; ".join(failed))
     if dead_rows is not None and not (bool((o[:, dead_rows] == 0).all())
                                       and bool((kern[0][:, dead_rows] == 0)
                                                .all())):
-        raise AssertionError(f"bf16 flash {label}: rows that see no key are "
-                             "not exactly 0 with zero dq")
+        raise AssertionError(f"{HALF_SUFFIX[bf]} flash {label}: rows that see "
+                             "no key are not exactly 0 with zero dq")
     log(line)
     return tuple({"flash_forward": max(x.get("o", 0.0), x.get("lse", 0.0)),
                   "flash_backward_dq": x["dq"],
@@ -3601,12 +3713,25 @@ def check_bf16(gen, label, b, sq, sk, h, d, causal, dead_rows=None, **kw):
                  for x in (ratio, err, share))
 
 
-def bf16_flash_checks(gen, att):
-    """Phase 20 (a): the bf16 kernels against fp64 at the Llama trainer's
-    shape (causal), at the ERNIE batch's shape with its -1e4 key padding
-    (``att``), over d in {64, 128} x causal / full x lengths 1, 100, 257,
-    1000 and 128 / 384 crossed, in every masked form of phase 10 and at
-    d = 256.
+# phase 34 (a)'s range cases at fp16: (label, dO's factor, v's factor) on
+# unit normals. GradScaler's 2^15 on a gradient of 2^-3 with values 4x:
+# |dS| passes 65504 (the split's hi term would be inf without the row
+# scale) while the outputs stay finite; 2^-18: dO and dS below fp16's
+# normal range; values 64x: dq and dk overflow (inf where the plain
+# version's cast gives inf)
+RANGE_CASES = (("dO x2^15 of 2^-3, v x4", 2.0 ** 12, 4.0),
+               ("dO x2^-15 of 2^-3", 2.0 ** -18, 1.0),
+               ("overflow: dO x2^15 of 2^-3, v x64", 2.0 ** 12, 64.0))
+
+
+def half_flash_checks(gen, att, dtype=torch.bfloat16):
+    """Phases 20 (a) and 34 (a): the 16-bit kernels of ``dtype`` against
+    fp64 at the Llama trainer's shape (causal), at the ERNIE batch's shape
+    with its -1e4 key padding (``att``), over d in {64, 128} x causal /
+    full x lengths 1, 100, 257, 1000 and 128 / 384 crossed, in every
+    masked form of phase 10 and at d = 256; at fp16 also RANGE_CASES at
+    d = 64, 128 and 256 (dense, causal, 1000 x 1000; ERNIE's shape and
+    padding for the first).
     Returns the worst fp64 ratio, abs error vs plain and misround share of
     each kernel, dense and masked."""
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -3619,7 +3744,7 @@ def bf16_flash_checks(gen, att):
     def case(label, *args, **kw):
         nonlocal n
         got = dict(zip(("ratio", "err", "misround"),
-                       check_bf16(gen, label, *args, **kw)))
+                       check_half(gen, label, *args, dtype=dtype, **kw)))
         kind = "masked" if any(kw.get(key) is not None for key in
                                ("mask", "segment_ids", "block_mask")) \
             else "dense"
@@ -3664,9 +3789,18 @@ def bf16_flash_checks(gen, att):
     case("block mask", 1, 512, 512, 4, 64, False, mask=m,
          block_mask=blocks)
     case("d > 128: the mma.sync kernels", 1, 257, 257, 4, 256, True)
-    log(f"bf16 flash checks: {n} cases within 2x the bf16 plain versions' "
-        f"error against fp64, misrounded at most {MISROUND_GATE}; worst "
-        "ratios, abs errors vs plain and misround shares "
+    if dtype == torch.float16:
+        for label, do_scale, v_scale in RANGE_CASES:
+            for d in (64, 128, 256):
+                case(label, 1, 1000, 1000, 4, d, True, do_scale=do_scale,
+                     v_scale=v_scale)
+        case(RANGE_CASES[0][0] + ", ERNIE batch", b, s, s, 12, 64, False,
+             mask=(1.0 - att[:, None, None, :].float()) * -1e4,
+             do_scale=RANGE_CASES[0][1], v_scale=RANGE_CASES[0][2])
+    log(f"{HALF_SUFFIX[dtype]} flash checks: {n} cases within 2x the plain "
+        f"versions' error against fp64, misrounded at most "
+        f"{MISROUND_GATE}; worst ratios, abs errors vs plain and misround "
+        "shares "
         + json.dumps({kind: {key: {nm: float(f"{x:.3e}") for nm, x in
                                    vals.items()} for key, vals in w.items()}
                       for kind, w in worst.items()}))
@@ -3697,7 +3831,7 @@ def o2_phase(cfg, seed=2, seq=1024, steps=4):
     gen.manual_seed(seed)
     toks = torch.randint(0, cfg.vocab_size, (1, seq + 1), device="cuda",
                          generator=gen)
-    before = _flash_counts(bf16=True)
+    before = _flash_counts(half=True)
     others = _other_flash_launches(False, True)
     losses = []
     for _ in range(steps):
@@ -3708,7 +3842,7 @@ def o2_phase(cfg, seed=2, seq=1024, steps=4):
                     p, master.to(torch.bfloat16)):
                 raise AssertionError(f"O2: {name} is not its fp32 master "
                                      "copy cast to bf16")
-    after = _flash_counts(bf16=True)
+    after = _flash_counts(half=True)
     launched = {n: after[n][0] - before[n][0] for n in after}
     log(f"O2 ({cfg.num_layers} layers, full width, seq {seq}): "
         f"{len(params)} parameters bf16 with fp32 master copies, each equal "
@@ -3722,14 +3856,21 @@ def o2_phase(cfg, seed=2, seq=1024, steps=4):
                              f"{launched}")
 
 
-def amp_twins_phase(cfg, seed=1, seq=1024):
-    """Phase 24: one O1 step of a Llama at full width through the bf16
-    kernels against the same step on the dense path (FLAGS_use_flash_
-    attention off: bf16 probabilities, where the kernels keep P in fp32)
-    and against the fp32 step through the fp32 kernels, same weights and
-    batch. Tolerances (bf16 operands round at 2^-9): the loss within 1e-2
+def amp_twins_phase(cfg, seed=1, seq=1024, amp_dtype="bfloat16",
+                    loss_scale=1.0):
+    """Phases 24 and 36 (b): one O1 step of a Llama at full width through
+    the bf16 (or, amp_dtype "float16", fp16) kernels against the same step
+    on the dense path (FLAGS_use_flash_attention off: 16-bit
+    probabilities, where the kernels keep P in fp32) and against the fp32
+    step through the fp32 kernels, same weights and batch. Tolerances
+    (bf16 operands round at 2^-9, fp16 at 2^-12): the loss within 1e-2
     relative of both twins, every gradient within 5e-2 * max|grad| of the
-    dense twin's and 1e-1 * max|grad| of the fp32 twin's."""
+    dense twin's and 1e-1 * max|grad| of the fp32 twin's. Each backward
+    runs from the loss times ``loss_scale`` and its gradients are divided
+    by it (a power of two: exact), as GradScaler runs fp16: unscaled, the
+    dense fp16 path's own gradients fall below fp16's range (under 2^-24
+    they flush). The dense twin's own distance from the fp32 one is
+    printed beside."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.models import Llama, llama_loss_fn
     from paddle_tpu_torch.utils.flags import flag, set_flags
@@ -3744,43 +3885,46 @@ def amp_twins_phase(cfg, seed=1, seq=1024):
         old = flag("FLAGS_use_flash_attention")
         set_flags({"FLAGS_use_flash_attention": use_flash})
         try:
-            with (amp.auto_cast(level=level) if level
+            with (amp.auto_cast(level=level, dtype=amp_dtype) if level
                   else contextlib.nullcontext()):
                 logits = model(toks[:, :-1])
             loss = llama_loss_fn(logits, toks[:, 1:])
-            loss.backward()
+            (loss * loss_scale).backward()
         finally:
             set_flags({"FLAGS_use_flash_attention": old})
-        grads = {n: p.grad for n, p in model.named_parameters()}
+        grads = {n: p.grad / loss_scale for n, p in model.named_parameters()}
         model.zero_grad(set_to_none=True)
         return loss.float().item(), grads
 
-    before = (_flash_counts(bf16=True), _flash_counts())
+    half = AMP_DTYPES[amp_dtype]
+    before = (_flash_counts(half=half), _flash_counts())
     loss_k, grads_k = run("O1", True)
-    mid = (_flash_counts(bf16=True), _flash_counts())
+    mid = (_flash_counts(half=half), _flash_counts())
     loss_d, grads_d = run("O1", False)
-    mid2 = (_flash_counts(bf16=True), _flash_counts())
+    mid2 = (_flash_counts(half=half), _flash_counts())
     loss_f, grads_f = run(None, True)
-    after = (_flash_counts(bf16=True), _flash_counts())
+    after = (_flash_counts(half=half), _flash_counts())
     if any(mid[0][n][0] - before[0][n][0] != cfg.num_layers for n in mid[0]) \
             or mid[1] != before[1] or mid2 != mid or after[0] != mid2[0] \
             or any(after[1][n][0] - mid2[1][n][0] != cfg.num_layers
                    for n in after[1]):
-        raise AssertionError("O1 twins: the O1 step missed a bf16 kernel, "
-                             "the dense step launched one, or the fp32 step "
-                             "ran other than the fp32 kernels")
+        raise AssertionError(f"O1 twins ({amp_dtype}): the O1 step missed a "
+                             "16-bit kernel, the dense step launched one, or "
+                             "the fp32 step ran other than the fp32 kernels")
 
-    def worst(grads):
+    def worst(grads, of=grads_k):
         return max(((g.float() - grads[n].float()).abs().max()
                     / grads[n].float().abs().max()).item()
-                   for n, g in grads_k.items())
+                   for n, g in of.items())
 
     rel_d, rel_f = (abs(loss_k - x) / abs(x) for x in (loss_d, loss_f))
-    w_d, w_f = worst(grads_d), worst(grads_f)
-    log(f"O1 twins ({cfg.num_layers} layers, full width, seq {seq}): loss "
-        f"kernels {loss_k:.6f}, dense bf16 {loss_d:.6f} (rel {rel_d:.2e}), "
-        f"fp32 {loss_f:.6f} (rel {rel_f:.2e}); worst grad max|diff| / "
-        f"max|grad| vs dense {w_d:.2e}, vs fp32 {w_f:.2e}")
+    w_d, w_f, w_df = worst(grads_d), worst(grads_f), worst(grads_f, grads_d)
+    log(f"O1 twins ({amp_dtype}, loss scale {loss_scale:g}, "
+        f"{cfg.num_layers} layers, full width, seq {seq}): loss kernels "
+        f"{loss_k:.6f}, dense {HALF_SUFFIX[half]} {loss_d:.6f} (rel "
+        f"{rel_d:.2e}), fp32 {loss_f:.6f} (rel {rel_f:.2e}); worst grad "
+        f"max|diff| / max|grad| vs dense {w_d:.2e}, vs fp32 {w_f:.2e} (the "
+        f"dense twin vs fp32 {w_df:.2e})")
     if not (rel_d <= 1e-2 and rel_f <= 1e-2 and w_d <= 5e-2
             and w_f <= 1e-1):
         raise AssertionError("the O1 step differs from its twins beyond "
@@ -3853,7 +3997,7 @@ def ernie_trainer_phase(cfg, seed=0, batch=16, seq=512, warmup=2, steps=6,
                 parameters=model.named_parameters())
     trainer = TrainStep(model, ernie_pretrain_loss_fn, opt, n_inputs=3,
                         amp_level=amp_level)
-    bf16 = amp_level is not None
+    half = amp_level is not None
     data = ernie_batch(cfg.vocab_size, batch, seq, seed)
     n_params = sum(p.numel() for p in model.parameters())
     fill = data[2].float().mean().item()
@@ -3869,9 +4013,9 @@ def ernie_trainer_phase(cfg, seed=0, batch=16, seq=512, warmup=2, steps=6,
     losses = []
 
     def one_step():
-        before = _flash_counts(masked=True, bf16=bf16)
+        before = _flash_counts(masked=True, half=half)
         losses.append(trainer(*data))
-        after = _flash_counts(masked=True, bf16=bf16)
+        after = _flash_counts(masked=True, half=half)
         for name in after:
             if after[name][0] - before[name][0] != cfg.num_layers:
                 raise AssertionError(
@@ -3888,9 +4032,9 @@ def ernie_trainer_phase(cfg, seed=0, batch=16, seq=512, warmup=2, steps=6,
             one_step()
         torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t) / steps
-    masked = _flash_counts(masked=True, bf16=bf16)
+    masked = _flash_counts(masked=True, half=half)
     launches = {name: kl for name, (kl, _) in masked.items()}
-    others = _other_flash_launches(True, bf16)
+    others = _other_flash_launches(True, half)
     values = [x.float().item() for x in losses]
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"ERNIE losses ({amp_level or 'fp32'}, {losses[0].dtype}): "
@@ -3910,10 +4054,141 @@ def ernie_trainer_phase(cfg, seed=0, batch=16, seq=512, warmup=2, steps=6,
         raise AssertionError(f"the ERNIE path missed a masked kernel or ran "
                              f"another: {launches}, others {others}")
     variants = _variant_launches(
-        f"ERNIE ({amp_level or 'fp32'})", True, bf16,
+        f"ERNIE ({amp_level or 'fp32'})", True, half,
         cfg.hidden_size // cfg.num_heads, cfg.num_layers * (warmup + steps))
     log(f"ERNIE flash launches by variant: {json.dumps(variants)}")
     return trainer, data, launches, variants
+
+
+class ScaledStep:
+    """One eager fp16 O2 training step with dynamic loss scaling (upstream
+    Paddle's fp16 recipe; TrainStep does no loss scaling, as in JAX): the
+    forward under auto_cast(level="O2", dtype="float16"), the loss
+    outside it, scaler.scale(loss).backward(), scaler.step(optimizer),
+    scaler.update(), zero_grad. ``model`` runs the forward under the same
+    auto_cast (train_profile_phase times the optimizer apart through it);
+    ``skipped`` lists whether each step's gradients were not finite."""
+
+    def __init__(self, model, loss_fn, optimizer, scaler, n_inputs):
+        from paddle_tpu_torch import amp
+        self.module, self.loss_fn, self.optimizer = model, loss_fn, optimizer
+        self.scaler, self.n_inputs, self.skipped = scaler, n_inputs, []
+        self._amp = amp
+
+    def model(self, *inputs):
+        with self._amp.auto_cast(level="O2", dtype="float16"):
+            return self.module(*inputs)
+
+    def __call__(self, *batch):
+        loss = self.loss_fn(self.model(*batch[:self.n_inputs]),
+                            *batch[self.n_inputs:])
+        self.scaler.scale(loss).backward()
+        self.scaler.step(self.optimizer)
+        self.skipped.append(self.scaler._found_inf)
+        self.scaler.update()
+        self.optimizer.zero_grad(set_to_none=True)
+        return loss.detach()
+
+
+def ernie_fp16_scaler_phase(cfg, data, seed=0, warmup=2, steps=4):
+    """Phase 35: ERNIE-3.0-base pretraining at full width and depth in fp16
+    O2 with dynamic loss scaling, as an eager loop (`ScaledStep`):
+    amp.decorate(level="O2", dtype="float16") (fp16 parameters, fp32
+    master copies in AdamW(1e-4, weight decay 0.01)), GradScaler at its
+    defaults (2^15; halved on a non-finite gradient, the step skipped), on
+    phase 15's batch ``data``; 2 warm-up and 4 timed steps. Losses finite
+    and falling over the steps not skipped; each masked fp16 kernel 12
+    times a step through its wgmma kernel (d = 64) and nothing else (no
+    bf16 or fp32 flash kernel, plain version or dense attention); from the
+    first step taken, every parameter its master's cast to fp16 after
+    each warm-up step and after the run. Reports the scale and the
+    skipped steps. Returns the stepper, the masked flash
+    launches and their split by kernel variant."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import ErnieForPretraining, \
+        ernie_pretrain_loss_fn
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+
+    f16 = torch.float16
+    torch.cuda.reset_peak_memory_stats()
+    model = ErnieForPretraining(cfg, device="cuda", seed=seed)
+    amp.decorate(model, level="O2", dtype="float16")
+    params = dict(model.named_parameters())
+    if any(p.dtype != f16 for p in params.values()):
+        raise AssertionError("fp16 O2: a decorated parameter is not fp16")
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.named_parameters())
+    step = ScaledStep(model, ernie_pretrain_loss_fn, opt, amp.GradScaler(),
+                      n_inputs=3)
+    fa.reset_counts()
+    losses, scales = [], []
+
+    def one_step():
+        before = _flash_counts(masked=True, half=f16)
+        losses.append(step(*data))
+        scales.append(step.scaler.get_scale())
+        after = _flash_counts(masked=True, half=f16)
+        for name in after:
+            if after[name][0] - before[name][0] != cfg.num_layers:
+                raise AssertionError(
+                    f"fp16 O2 ERNIE: masked {name} launched "
+                    f"{after[name][0] - before[name][0]} times in a step, "
+                    f"not {cfg.num_layers}")
+
+    def check_masters():
+        # the masters exist from the first step taken (a skipped step
+        # leaves the optimizer as it was)
+        for name, p in params.items():
+            st = opt.state.get(p, {})
+            if ("master" in st) != (not all(step.skipped)) or (
+                    "master" in st
+                    and not torch.equal(p, st["master"].to(f16))):
+                raise AssertionError(f"fp16 O2 ERNIE: {name} is not its "
+                                     "fp32 master copy cast to fp16")
+
+    with _no_dense_attention():
+        for _ in range(warmup):
+            one_step()
+            check_masters()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps):
+            one_step()
+        torch.cuda.synchronize()
+    check_masters()
+    step_ms = 1e3 * (time.perf_counter() - t) / steps
+    counts = _flash_counts(masked=True, half=f16)
+    launches = {name: kl for name, (kl, _) in counts.items()}
+    others = _other_flash_launches(True, f16)
+    values = [x.float().item() for x in losses]
+    kept = [x for x, bad in zip(values, step.skipped) if not bad]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    b, s = data[0].shape
+    skipped = [i for i, bad in enumerate(step.skipped) if bad]
+    log(f"fp16 O2 ERNIE losses ({losses[0].dtype}): "
+        f"{[round(x, 5) for x in values]}; loss scale after each step "
+        f"{scales}; skipped steps {skipped}")
+    log(f"fp16 O2 ERNIE run (GradScaler): {warmup} warm-up + {steps} timed "
+        f"steps, mean step {step_ms:.1f} ms = {b * s / step_ms * 1e3:.1f} "
+        f"tokens/s ({b * s} tokens a step, pads included), peak memory "
+        f"{peak:.2f} GiB, masked fp16 flash launches {launches} "
+        f"({cfg.num_layers} each per step), other flash and plain launches "
+        f"{others}, dense attention calls 0")
+    if not all(np.isfinite(values)) or len(kept) < 2 or \
+            not kept[-1] < kept[0]:
+        raise AssertionError(f"fp16 O2 ERNIE losses not finite and falling "
+                             f"over the steps taken: {values}, skipped "
+                             f"{step.skipped}")
+    if others != 0 or any(n != cfg.num_layers * (warmup + steps)
+                          for n in launches.values()):
+        raise AssertionError(f"the fp16 ERNIE path missed a masked kernel "
+                             f"or ran another: {launches}, others {others}")
+    variants = _variant_launches(
+        "fp16 O2 ERNIE", True, f16, cfg.hidden_size // cfg.num_heads,
+        cfg.num_layers * (warmup + steps))
+    log(f"fp16 O2 ERNIE flash launches by variant: {json.dumps(variants)}")
+    return step, launches, variants
 
 
 def ernie_check_phase(cfg, seed=1, batch=4, seq=512):
@@ -4232,12 +4507,12 @@ def gpt_trainer_phase(cfg, seed=0, batch=8, seq=1024, warmup=2, steps=4):
     losses, rates = [], []
 
     def one_step():
-        before = _flash_counts(bf16=True)
+        before = _flash_counts(half=True)
         want = sched.get_lr()
         losses.append(trainer(ids, labels))
         rates.append((opt.param_groups[0]["lr"], want))
         sched.step()
-        after = _flash_counts(bf16=True)
+        after = _flash_counts(half=True)
         for name in after:
             if after[name][0] - before[name][0] != cfg.num_layers:
                 raise AssertionError(
@@ -4254,7 +4529,7 @@ def gpt_trainer_phase(cfg, seed=0, batch=8, seq=1024, warmup=2, steps=4):
         torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t) / steps
     launches = {name: kl for name, (kl, _) in
-                _flash_counts(bf16=True).items()}
+                _flash_counts(half=True).items()}
     plain = _other_flash_launches(False, True)
     values = [x.float().item() for x in losses]
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -4383,7 +4658,7 @@ def gpt_phases(gen):
     train_profile_phase(
         trainer, batch, cfg.num_layers,
         sum(p.numel() for n, p in trainer.model.named_parameters()
-            if p.dim() == 2 and n != "wpe.weight"), "GPT O1", bf16=True)
+            if p.dim() == 2 and n != "wpe.weight"), "GPT O1", half=True)
     del trainer, batch
     _free_the_card()
     dense_check_phase(replace(cfg, num_layers=2), gpt=True)
@@ -4391,7 +4666,7 @@ def gpt_phases(gen):
     lap("GPT trainer and dense check")
     b, s, h, d = 8, cfg.max_seq_len, cfg.num_heads, \
         cfg.hidden_size // cfg.num_heads
-    ratio, err, share = check_bf16(gen, "GPT trainer shape", b, s, s, h, d,
+    ratio, err, share = check_half(gen, "GPT trainer shape", b, s, s, h, d,
                                    True)
     _free_the_card()
     times = measure_flash(gen, b=b, s=s, h=h, d=d, dtype=torch.bfloat16)
@@ -4453,28 +4728,30 @@ def _kernel_label(mangled: str) -> str:
 # q over fp32, int8 and fp8 pools at d <= 128 and 256, bf16 q over bf16,
 # int8 and fp8 pools at d <= 256 only, RAGGED_SPAN_TYPES; bf16 q's span
 # form for d <= 128 is ragged_span_bf16_kernel<pool type>): the three
-# bf16 kernels run on wgmma at d <= 128 (flash_attention_wgmma.cu) and
-# keep their mma.sync kernels for d <= 256 only
-WGMMA_KERNELS = ("flash_fwd_bf16_wgmma_kernel",
-                 "flash_bwd_dq_bf16_wgmma_kernel",
-                 "flash_bwd_dkv_bf16_wgmma_kernel")
-# kernels whose SASS must hold wgmma's HGMMA: the bf16 flash kernels on
-# wgmma and K1's bf16-q span form
+# bf16 and the three fp16 kernels run on wgmma at d <= 128
+# (flash_attention_wgmma.cu) and keep their mma.sync kernels for d <= 256
+# only
+WGMMA_KERNELS = tuple(names[1] for by in HALF_KERNEL_NAMES.values()
+                      for names in by.values())
+# kernels whose SASS must hold wgmma's HGMMA: the bf16 and fp16 flash
+# kernels on wgmma and K1's bf16-q span form
 HGMMA_KERNELS = (*WGMMA_KERNELS, "ragged_span_bf16_kernel")
 # kernels whose ptxas report must show no spill: the wgmma kernels (their
 # accumulators would go through local memory) and K1's bf16-q forms
 NO_SPILL_KERNELS = (*WGMMA_KERNELS, "ragged_span_bf16_kernel",
                     "ragged_decode_split_kernel", "ragged_decode_row_kernel")
+# the mma.sync kernels of the 16-bit forms (d > 128)
+HALF_MMA_KERNELS = tuple(names[0] for by in HALF_KERNEL_NAMES.values()
+                         for names in by.values())
 TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                       "flash_bwd_dkv_kernel", "flash_fwd_bf16_kernel",
-                       "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
+                       "flash_bwd_dkv_kernel", *HALF_MMA_KERNELS,
                        *WGMMA_KERNELS, "ragged_span_kernel",
                        "ragged_span_bf16_kernel")
 RAGGED_SPAN_TYPES = ((0, "f32"), (1, "f32"), (2, "f32"), (3, "bf16"),
                      (1, "bf16"), (2, "bf16"))
 TENSOR_CORE_INSTANTIATIONS = (
     *(f"{k}<{d}>" for k in TENSOR_CORE_KERNELS[:3] for d in (64, 128, 256)),
-    *(f"{k}<256>" for k in TENSOR_CORE_KERNELS[3:6]),
+    *(f"{k}<256>" for k in HALF_MMA_KERNELS),
     *(f"{k}<{d}>" for k in WGMMA_KERNELS for d in (64, 128)),
     *(f"ragged_span_kernel<{d},{kv},{qt}>" for d in (128, 256)
       for kv, qt in RAGGED_SPAN_TYPES if d == 256 or qt == "f32"),
@@ -4557,6 +4834,7 @@ def main() -> int:
     # bf16 matmuls (AMP) sum in fp32 throughout, as XLA's do: no bf16
     # rounding of cuBLAS's split-K partial sums
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
     t_start = time.perf_counter()
     card = gpu_line()
@@ -4846,7 +5124,7 @@ def main() -> int:
     lap("ERNIE trainer, check, masked flash timings")
 
     # the bf16 AMP paths: the bf16 kernels, ERNIE and Llama at O1, O2
-    bf16_checks = bf16_flash_checks(gen, data[2])
+    bf16_checks = half_flash_checks(gen, data[2])
     flash_bf16 = measure_flash(gen, dtype=torch.bfloat16)
     _free_the_card()
     masked_bf16 = measure_flash(gen, h=12, d=64, causal=False, att=data[2],
@@ -4864,7 +5142,7 @@ def main() -> int:
         ernie_trainer_phase(ERNIE3_BASE, amp_level="O1")
     train_profile_phase(ernie, data_o1, ERNIE3_BASE.num_layers,
                         ernie_matmul_weights(ernie.model), "ERNIE O1",
-                        masked=True, bf16=True)
+                        masked=True, half=True)
     del ernie, data_o1
     _free_the_card()
     trainer, batch, bf16_launches, bf16_variants = trainer_phase(
@@ -4873,7 +5151,7 @@ def main() -> int:
         trainer, batch, train_cfg.num_layers,
         sum(p.numel() for n, p in trainer.model.named_parameters()
             if p.dim() == 2 and n != "embed_tokens.weight"), "training O1",
-        bf16=True)
+        half=True)
     del trainer, batch
     _free_the_card()
     o2_phase(replace(cfg, num_layers=2))
@@ -4886,6 +5164,48 @@ def main() -> int:
     # the GPT family at GPT-3 1.3B widths: serving, generators, O1 training
     gpt_launches, gpt_bf16, gpt_errs = gpt_phases(gen)
     log(f"after the GPT phases: {time.perf_counter() - t_start:.1f} s")
+    _free_the_card()
+
+    # phases 34-36, fp16 AMP: the fp16 kernels against fp64 and timed, the
+    # ERNIE fp16 O2 GradScaler loop, the Llama fp16 O1 TrainStep and twins
+    f16 = torch.float16
+    t_new = time.perf_counter()
+    fp16_checks = half_flash_checks(gen, data[2], f16)
+    flash_fp16 = measure_flash(gen, dtype=f16)
+    _free_the_card()
+    masked_fp16 = measure_flash(gen, h=12, d=64, causal=False, att=data[2],
+                                dtype=f16)
+    _free_the_card()
+    for shape, times in (("q/k/v [1,4096,32,128] causal", flash_fp16),
+                         ("q/k/v [16,512,12,64] + kbias", masked_fp16)):
+        log(f"fp16 kernels at {shape}: " + ", ".join(
+            f"{n} {times[n]['ms']:.4f} ms ({times[n]['ms'] / x['ms']:.3f}x "
+            f"bf16's {x['ms']:.4f})" for n, x in (
+                flash_bf16 if "4096" in shape else masked_bf16).items()
+            if n != "pair"))
+    lap("phase 34: fp16 flash kernels vs fp64, timings")
+    scaled, masked_fp16_launches, masked_fp16_variants = \
+        ernie_fp16_scaler_phase(ERNIE3_BASE, data)
+    train_profile_phase(scaled, data, ERNIE3_BASE.num_layers,
+                        ernie_matmul_weights(scaled.module), "ERNIE fp16 O2",
+                        masked=True, half=f16)
+    del scaled
+    _free_the_card()
+    lap("phase 35: ERNIE fp16 O2 GradScaler")
+    trainer, batch, fp16_launches, fp16_variants = trainer_phase(
+        train_cfg, amp_level="O1", amp_dtype="float16")
+    train_profile_phase(
+        trainer, batch, train_cfg.num_layers,
+        sum(p.numel() for n, p in trainer.model.named_parameters()
+            if p.dim() == 2 and n != "embed_tokens.weight"),
+        "training fp16 O1", half=f16)
+    del trainer, batch
+    _free_the_card()
+    amp_twins_phase(replace(cfg, num_layers=2), amp_dtype="float16",
+                    loss_scale=2.0 ** 12)
+    _free_the_card()
+    lap("phase 36: Llama fp16 O1 TrainStep and twins")
+    log(f"phases 34-36: {time.perf_counter() - t_new:.1f} s")
     spec = gpt_launches.pop("speculation")
     for row in rows:       # the serving kernels on the GPT paths
         row["gpt_max_abs_err"] = gpt_errs[row["name"]]
@@ -4912,24 +5232,29 @@ def main() -> int:
             if name == "flash_forward":
                 row["fp64_ratio"] = errs[1]["fwd_fp64_ratio"]
             rows.append(row)
-    for label, times, launches, variants, kind in (
-            ("_bf16", flash_bf16, bf16_launches, bf16_variants, "dense"),
+    for label, times, launches, variants, kind, dtype, checks in (
+            ("_bf16", flash_bf16, bf16_launches, bf16_variants, "dense",
+             torch.bfloat16, bf16_checks),
             ("_masked_bf16", masked_bf16, masked_bf16_launches,
-             masked_bf16_variants, "masked")):
+             masked_bf16_variants, "masked", torch.bfloat16, bf16_checks),
+            ("_fp16", flash_fp16, fp16_launches, fp16_variants, "dense", f16,
+             fp16_checks),
+            ("_masked_fp16", masked_fp16, masked_fp16_launches,
+             masked_fp16_variants, "masked", f16, fp16_checks)):
         for name, replaces in FLASH_KERNELS:
             wgmma = "wgmma" in variants[name]
             rows.append({"name": name + label, "route": "cuda",
                          "source": "paddle_tpu_torch/csrc/" + (
                              "flash_attention_wgmma.cu" if wgmma
                              else "flash_attention.cu"),
-                         "kernel": BF16_KERNEL_NAMES[name][wgmma],
+                         "kernel": HALF_KERNEL_NAMES[dtype][name][wgmma],
                          "replaces": replaces, "launches": launches[name],
                          "launches_by_variant": variants[name],
-                         "max_abs_err": bf16_checks[kind]["err"][name],
+                         "max_abs_err": checks[kind]["err"][name],
                          **times[name],
-                         "fp64_ratio": bf16_checks[kind]["ratio"][name],
-                         "misround": bf16_checks[kind]["misround"][name]})
-            if kind == "dense":
+                         "fp64_ratio": checks[kind]["ratio"][name],
+                         "misround": checks[kind]["misround"][name]})
+            if kind == "dense" and dtype == torch.bfloat16:
                 rows[-1]["gpt_launches"] = {
                     "trainer_o1": gpt_launches["trainer_o1"][name]}
                 rows[-1]["gpt_shape"] = gpt_bf16[name]

@@ -7,11 +7,15 @@ parameters to the AMP dtype, and Adam / AdamW keep an fp32 master copy of
 each (multi_precision, on by default); `GradScaler` is the JAX package's
 dynamic loss scaling over a torch optimizer's ``param_groups``.
 
-bf16 is the AMP dtype the port trains in (`jit.TrainStep(amp_level=...,
-amp_dtype="bfloat16")`). auto_cast and GradScaler take fp16 too, as the
-JAX ones do, but the flash kernels have no fp16 instantiation yet, so a
-TrainStep at fp16 raises (ROADMAP.md item 21). `amp.debugging` hooks the
-JAX registry, which the port does not have: it waits for item 12.
+The port trains in bf16 or fp16 (`jit.TrainStep(amp_level=...,
+amp_dtype="bfloat16" | "float16")`, or an eager loop under `auto_cast`);
+on the card the flash kernels launch their bf16 or fp16 forms. fp16 is
+the classic recipe with dynamic loss scaling (`GradScaler`, as in the JAX
+package; TrainStep does none, as the JAX one does none). The cast rules
+differ between the two as in JAX: the cast touches numpy's floating types
+only, so an fp16 input to a black-listed op is cast to fp32 where a bf16
+one is not (`state.cast_inputs`). `amp.debugging` hooks the JAX
+registry, which the port does not have: it waits for item 12.
 """
 
 from __future__ import annotations
@@ -193,8 +197,8 @@ class GradScaler:
 
 
 def is_float16_supported(device=None):
-    """True, as in the JAX package: torch computes fp16 on both devices
-    (the flash kernels' fp16 instantiation is ROADMAP.md item 21)."""
+    """True, as in the JAX package: the port trains in fp16, through the
+    fp16 flash kernels on the card."""
     return True
 
 

@@ -1,5 +1,5 @@
-// Flash attention forward and backward (fp32, and bf16 for AMP) for
-// Hopper, sm_90a.
+// Flash attention forward and backward (fp32, and bf16 and fp16 for AMP)
+// for Hopper, sm_90a.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py ::
 //   _flash_forward (kernel _flash_fwd_kernel)          -> flash_fwd_kernel
@@ -7,12 +7,12 @@
 //   _flash_backward (kernel _flash_bwd_dkv_kernel)     -> flash_bwd_dkv_kernel
 // in every form: dense, and with the masking inputs of _extra_inputs_specs
 // (an additive mask, a per-key bias, segment ids, a block mask), each
-// optional and composable with causal. At bf16 (AMP) all three kernels
-// for d <= 128 run on wgmma with TMA rings (flash_attention_wgmma.cu); the
-// bf16 entry points at the end of this file choose between those kernels
-// and this file's by d. What both sources share (Dims, the masks at each
-// fragment element, the causal and block-mask walks, the bf16 store) is
-// flash_common.cuh.
+// optional and composable with causal. At bf16 and fp16 (AMP) all three
+// kernels for d <= 128 run on wgmma with TMA rings
+// (flash_attention_wgmma.cu); the 16-bit entry points at the end of this
+// file choose between those kernels and this file's by d. What both
+// sources share (Dims, the masks at each fragment element, the causal and
+// block-mask walks, the 16-bit store, fp16's range) is flash_common.cuh.
 //
 // Layout: q [B, Sq, H, d], k and v [B, Sk, H, d], read and written in place
 // with a row stride of H * d floats; lse and delta [B, H, Sq] fp32. Causal
@@ -115,8 +115,8 @@
 //   are. The backward's every warp splits every operand element it
 //   reads; splitting its own-side tiles once, as the forward does, needs
 //   two planes for each of two tiles and does not fit at d = 128.
-// - bf16 operands (AMP): the bf16 instantiations at the end of this file,
-//   the same walk with bf16 tiles and bf16 mma (bf16_mma.cuh), for
+// - bf16 and fp16 operands (AMP): the 16-bit instantiations at the end of
+//   this file, the same walk with 16-bit tiles and mma (bf16_mma.cuh), for
 //   128 < d <= 256 (below, the wgmma kernels of
 //   flash_attention_wgmma.cu).
 // This file uses neither wgmma nor TMA: mma.sync keeps the fragments in
@@ -702,18 +702,22 @@ Dims make_dims(int H, int Sq, int Sk, int d, float scale, int causal,
               static_cast<const int*>(block_mask), bq, bk};
 }
 
-// ==================================================== bf16 instantiations
+// ============================================ bf16 and fp16 instantiations
 //
-// The same three kernels for bf16 q, k, v, o, do, dq, dk, dv (AMP): the
-// same grid, tile walk (causal skip, block-mask skip, heaviest tiles
-// first), masks and fp32 softmax as the fp32 kernels above, with lse,
-// delta and the masks fp32, only for 128 < d <= 256 (instantiation 256;
-// for d <= 128 the entry points take the wgmma kernels of
-// flash_attention_wgmma.cu). They replace the same Pallas kernels at bf16,
-// which upcast each tile to fp32, compute in fp32 and write o, dq, dk and
-// dv in the input dtype: here the products run on bf16 tensor cores with
-// fp32 accumulators (bf16_mma.cuh; P and dS, fp32 in registers, split in
-// two bf16 terms), and the outputs are rounded to bf16 once, at the end.
+// The same three kernels for bf16 (or fp16) q, k, v, o, do, dq, dk, dv
+// (AMP), one body each templated on the 16-bit type H with a kernel of
+// its own name per type (fwd16 -> flash_fwd_bf16_kernel /
+// flash_fwd_f16_kernel, and so on; fp16's range pieces in
+// flash_common.cuh): the same grid, tile walk (causal skip, block-mask
+// skip, heaviest tiles first), masks and fp32 softmax as the fp32 kernels
+// above, with lse, delta and the masks fp32, only for 128 < d <= 256
+// (instantiation 256; for d <= 128 the entry points take the wgmma kernels
+// of flash_attention_wgmma.cu). They replace the same Pallas kernels at
+// bf16 and fp16, which upcast each tile to fp32, compute in fp32 and write
+// o, dq, dk and dv in the input dtype: here the products run on 16-bit
+// tensor cores with fp32 accumulators (bf16_mma.cuh; P and dS, fp32 in
+// registers, split in two 16-bit terms), and the outputs are rounded to
+// the input dtype once, at the end.
 //
 // Tiles hold bf16 rows (bf_ld), half the bytes of the fp32 kernels' rows,
 // so every operand tile is staged whole and double-buffered with
@@ -752,13 +756,15 @@ __device__ __forceinline__ void load_tile_bf16(uint16_t* dst,
   }
 }
 
-template <int MAXD>
-__global__ void __launch_bounds__(kThreads, TilesBf<MAXD>::kMinBlocks)
-flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
-                      const uint16_t* __restrict__ k,
-                      const uint16_t* __restrict__ v,
-                      uint16_t* __restrict__ o, float* __restrict__ lse,
-                      Dims dm) {
+// The forward's body for 16-bit operands of type H; the kernels below
+// instantiate it for bf16 and fp16.
+template <int MAXD, int H>
+__device__ __forceinline__ void fwd16(const uint16_t* __restrict__ q,
+                                      const uint16_t* __restrict__ k,
+                                      const uint16_t* __restrict__ v,
+                                      uint16_t* __restrict__ o,
+                                      float* __restrict__ lse,
+                                      const Dims& dm) {
   constexpr int BM = TilesBf<MAXD>::BM, BN = TilesBf<MAXD>::BN;
   constexpr int WN = TilesBf<MAXD>::WN;
   constexpr int NTHR = kThreads, WM = BM / 16;
@@ -812,10 +818,11 @@ flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
     const uint16_t* kt = ks + stage * BN * ld;
     const uint16_t* vt = vs + stage * BN * ld;
     float s[NT][4];
-    mma_xyt_bf16<NT, MAXD>(s, qs, m0, kt, ld, d, lane);
+    mma_xyt16<NT, MAXD, H>(s, qs, m0, kt, ld, d, lane);
     frag_scores<false>(s, b, head, q0 + m0 + g, k0 + 2 * t, dm);
     online_softmax(s, m, l, acc);
-    mma_cz_bf16<NT, NTO>(acc, s, vt, c0, ld, d, lane);
+    if constexpr (H == kF16) scale_frags(s, kPScale);   // flash_common.cuh
+    mma_cz16<NT, NTO, H>(acc, s, vt, c0, ld, d, lane);
     __syncthreads();   // this stage is consumed before it is refilled
     k0 = kn;
   }
@@ -832,20 +839,42 @@ flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
     if (row < dm.Sq && t == 0 && c0 == 0) {
       lse[(int64_t)bh * dm.Sq + row] = m[h] + logf(den);
     }
+    if constexpr (H == kF16) inv[h] *= 1.f / kPScale;
   }
-  store_frags_bf16<NTO>(o + qoff, rs, acc, inv, q0 + m0, dm.Sq, c0, d, g,
+  store_frags16<NTO, H>(o + qoff, rs, acc, inv, q0 + m0, dm.Sq, c0, d, g,
                         t);
 }
 
 template <int MAXD>
 __global__ void __launch_bounds__(kThreads, TilesBf<MAXD>::kMinBlocks)
-flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q,
-                         const uint16_t* __restrict__ k,
-                         const uint16_t* __restrict__ v,
-                         const uint16_t* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         uint16_t* __restrict__ dq, Dims dm) {
+flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
+                      const uint16_t* __restrict__ k,
+                      const uint16_t* __restrict__ v,
+                      uint16_t* __restrict__ o, float* __restrict__ lse,
+                      Dims dm) {
+  fwd16<MAXD, kBf16>(q, k, v, o, lse, dm);
+}
+
+template <int MAXD>
+__global__ void __launch_bounds__(kThreads, TilesBf<MAXD>::kMinBlocks)
+flash_fwd_f16_kernel(const uint16_t* __restrict__ q,
+                     const uint16_t* __restrict__ k,
+                     const uint16_t* __restrict__ v,
+                     uint16_t* __restrict__ o, float* __restrict__ lse,
+                     Dims dm) {
+  fwd16<MAXD, kF16>(q, k, v, o, lse, dm);
+}
+
+// dq's body for 16-bit operands of type H (the kernels below).
+template <int MAXD, int H>
+__device__ __forceinline__ void dq16(const uint16_t* __restrict__ q,
+                                     const uint16_t* __restrict__ k,
+                                     const uint16_t* __restrict__ v,
+                                     const uint16_t* __restrict__ dout,
+                                     const float* __restrict__ lse,
+                                     const float* __restrict__ delta,
+                                     uint16_t* __restrict__ dq,
+                                     const Dims& dm) {
   constexpr int BM = TilesBf<MAXD>::BM, BN = TilesBf<MAXD>::BNB;
   constexpr int WN = TilesBf<MAXD>::WN;
   constexpr int NTHR = kThreads, WM = BM / 16;
@@ -890,6 +919,10 @@ flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q,
   for (int j = 0; j < NTO; ++j) {
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   }
+  // dS's multipliers of rows g and g + 8 (at fp16 with their ds_scale,
+  // flash_common.cuh)
+  float ds_mul[2];
+  ds_row_multipliers<H>(dm, bh, q0 + m0, dm.Sq, g, ds_mul);
 
   for (int stage = 0; k0 < kend; stage ^= 1) {
     const int kn = live_key_tile<BN>(q0, k0 + BN, kend, dm);
@@ -904,8 +937,8 @@ flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q,
     const uint16_t* kt = ks + stage * BN * ld;
     const uint16_t* vt = vs + stage * BN * ld;
     float s[NT][4], dp[NT][4];
-    mma_xyt_bf16<NT, MAXD>(s, qs, m0, kt, ld, d, lane);
-    mma_xyt_bf16<NT, MAXD>(dp, dos, m0, vt, ld, d, lane);
+    mma_xyt16<NT, MAXD, H>(s, qs, m0, kt, ld, d, lane);
+    mma_xyt16<NT, MAXD, H>(dp, dos, m0, vt, ld, d, lane);
     frag_scores<false>(s, b, head, q0 + m0 + g, k0 + 2 * t, dm);
 #pragma unroll
     for (int i = 0; i < NT; ++i) {
@@ -913,29 +946,55 @@ flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q,
       for (int r = 0; r < 4; ++r) {
         const float sv = s[i][r];
         const float p = sv <= kMaskedBelow ? 0.f : expf(sv - row_lse[r >> 1]);
-        dp[i][r] = dm.scale * (p * (dp[i][r] - row_delta[r >> 1]));
+        dp[i][r] = ds_mul[r >> 1] * (p * (dp[i][r] - row_delta[r >> 1]));
       }
     }
-    mma_cz_bf16<NT, NTO>(acc, dp, kt, c0, ld, d, lane);
+    mma_cz16<NT, NTO, H>(acc, dp, kt, c0, ld, d, lane);
     __syncthreads();   // this stage is consumed before it is refilled
     k0 = kn;
   }
   cp_async_wait<0>();
-  const float one[2] = {1.f, 1.f};
-  store_frags_bf16<NTO>(dq + qoff, rs, acc, one, q0 + m0, dm.Sq, c0, d, g,
+  float unf[2];   // dq's rows: 1 / their ds_scale at fp16
+  ds_row_inverses<H>(dm, ds_mul, unf);
+  store_frags16<NTO, H>(dq + qoff, rs, acc, unf, q0 + m0, dm.Sq, c0, d, g,
                         t);
 }
 
 template <int MAXD>
 __global__ void __launch_bounds__(kThreads, TilesBf<MAXD>::kMinBlocks)
-flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q,
-                          const uint16_t* __restrict__ k,
-                          const uint16_t* __restrict__ v,
-                          const uint16_t* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          uint16_t* __restrict__ dk,
-                          uint16_t* __restrict__ dv, Dims dm) {
+flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q,
+                         const uint16_t* __restrict__ k,
+                         const uint16_t* __restrict__ v,
+                         const uint16_t* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         uint16_t* __restrict__ dq, Dims dm) {
+  dq16<MAXD, kBf16>(q, k, v, dout, lse, delta, dq, dm);
+}
+
+template <int MAXD>
+__global__ void __launch_bounds__(kThreads, TilesBf<MAXD>::kMinBlocks)
+flash_bwd_dq_f16_kernel(const uint16_t* __restrict__ q,
+                        const uint16_t* __restrict__ k,
+                        const uint16_t* __restrict__ v,
+                        const uint16_t* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        uint16_t* __restrict__ dq, Dims dm) {
+  dq16<MAXD, kF16>(q, k, v, dout, lse, delta, dq, dm);
+}
+
+// dk/dv's body for 16-bit operands of type H (the kernels below).
+template <int MAXD, int H>
+__device__ __forceinline__ void dkv16(const uint16_t* __restrict__ q,
+                                      const uint16_t* __restrict__ k,
+                                      const uint16_t* __restrict__ v,
+                                      const uint16_t* __restrict__ dout,
+                                      const float* __restrict__ lse,
+                                      const float* __restrict__ delta,
+                                      uint16_t* __restrict__ dk,
+                                      uint16_t* __restrict__ dv,
+                                      const Dims& dm) {
   constexpr int BM = TilesBf<MAXD>::BM, BN = TilesBf<MAXD>::BNB;
   constexpr int WN = TilesBf<MAXD>::WN;
   constexpr int NTHR = kThreads, WM = BM / 16;
@@ -989,6 +1048,10 @@ flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < 4; ++r) dk_acc[j][r] = dv_acc[j][r] = 0.f;
   }
+  // dS^T's multipliers of rows g and g + 8 (this warp's keys; at fp16
+  // with their ds_scale)
+  float ds_mul[2];
+  ds_row_multipliers<H>(dm, bh, k0 + m0, dm.Sk, g, ds_mul);
 
   for (int stage = 0; q0 < dm.Sq; stage ^= 1) {
     const int qn = live_query_tile<BN>(q0 + BN, k0, dm);
@@ -1002,8 +1065,8 @@ flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q,
     const float* delta_t = delta_s + stage * BN;
     // transposed scores: rows are this block's keys, columns the queries
     float st[NT][4], dpt[NT][4];
-    mma_xyt_bf16<NT, MAXD>(st, ks, m0, qt, ld, d, lane);
-    mma_xyt_bf16<NT, MAXD>(dpt, vs, m0, dot, ld, d, lane);
+    mma_xyt16<NT, MAXD, H>(st, ks, m0, qt, ld, d, lane);
+    mma_xyt16<NT, MAXD, H>(dpt, vs, m0, dot, ld, d, lane);
     frag_scores<true>(st, b, head, k0 + m0 + g, q0 + 2 * t, dm);
 #pragma unroll
     for (int i = 0; i < NT; ++i) {
@@ -1013,20 +1076,50 @@ flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q,
         const float sv = st[i][r];
         const float p = sv <= kMaskedBelow ? 0.f : expf(sv - lse_t[n]);
         st[i][r] = p;
-        dpt[i][r] = dm.scale * (p * (dpt[i][r] - delta_t[n]));
+        dpt[i][r] = ds_mul[r >> 1] * (p * (dpt[i][r] - delta_t[n]));
       }
     }
-    mma_cz_bf16<NT, NTO>(dv_acc, st, dot, c0, ld, d, lane);
-    mma_cz_bf16<NT, NTO>(dk_acc, dpt, qt, c0, ld, d, lane);
+    if constexpr (H == kF16) scale_frags(st, kPScale);
+    mma_cz16<NT, NTO, H>(dv_acc, st, dot, c0, ld, d, lane);
+    mma_cz16<NT, NTO, H>(dk_acc, dpt, qt, c0, ld, d, lane);
     __syncthreads();   // this stage is consumed before it is refilled
     q0 = qn;
   }
   cp_async_wait<0>();
-  const float one[2] = {1.f, 1.f};
-  store_frags_bf16<NTO>(dk + koff, rs, dk_acc, one, k0 + m0, dm.Sk, c0, d, g,
+  float unp[2] = {1.f, 1.f};   // at fp16 dv's rows times 1 / kPScale
+  if constexpr (H == kF16) unp[0] = unp[1] = 1.f / kPScale;
+  float unf[2];   // dk's rows: 1 / their ds_scale at fp16
+  ds_row_inverses<H>(dm, ds_mul, unf);
+  store_frags16<NTO, H>(dk + koff, rs, dk_acc, unf, k0 + m0, dm.Sk, c0, d, g,
                         t);
-  store_frags_bf16<NTO>(dv + koff, rs, dv_acc, one, k0 + m0, dm.Sk, c0, d, g,
+  store_frags16<NTO, H>(dv + koff, rs, dv_acc, unp, k0 + m0, dm.Sk, c0, d, g,
                         t);
+}
+
+template <int MAXD>
+__global__ void __launch_bounds__(kThreads, TilesBf<MAXD>::kMinBlocks)
+flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q,
+                          const uint16_t* __restrict__ k,
+                          const uint16_t* __restrict__ v,
+                          const uint16_t* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          uint16_t* __restrict__ dk,
+                          uint16_t* __restrict__ dv, Dims dm) {
+  dkv16<MAXD, kBf16>(q, k, v, dout, lse, delta, dk, dv, dm);
+}
+
+template <int MAXD>
+__global__ void __launch_bounds__(kThreads, TilesBf<MAXD>::kMinBlocks)
+flash_bwd_dkv_f16_kernel(const uint16_t* __restrict__ q,
+                         const uint16_t* __restrict__ k,
+                         const uint16_t* __restrict__ v,
+                         const uint16_t* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         uint16_t* __restrict__ dk,
+                         uint16_t* __restrict__ dv, Dims dm) {
+  dkv16<MAXD, kF16>(q, k, v, dout, lse, delta, dk, dv, dm);
 }
 
 // Shared memory of the bf16 kernels, in bytes.
@@ -1043,49 +1136,52 @@ size_t bwd_bf16_bytes(int d, int extra_floats) {
          sizeof(float) * (size_t)extra_floats;
 }
 
-template <int MAXD>
-cudaError_t launch_fwd_bf16(const uint16_t* q, const uint16_t* k,
-                            const uint16_t* v, uint16_t* o, float* lse,
-                            int B, const Dims& dm, cudaStream_t st) {
+template <int MAXD, int H>
+cudaError_t launch_fwd16(const uint16_t* q, const uint16_t* k,
+                         const uint16_t* v, uint16_t* o, float* lse, int B,
+                         const Dims& dm, cudaStream_t st) {
   constexpr int BM = TilesBf<MAXD>::BM;
+  const auto kernel = H == kF16 ? flash_fwd_f16_kernel<MAXD>
+                                : flash_fwd_bf16_kernel<MAXD>;
   const size_t smem = fwd_bf16_bytes<MAXD>(dm.d);
-  cudaError_t err = opt_in(flash_fwd_bf16_kernel<MAXD>, smem);
+  cudaError_t err = opt_in(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * dm.H, (dm.Sq + BM - 1) / BM);
-  flash_fwd_bf16_kernel<MAXD><<<grid, kThreads, smem, st>>>(q, k, v, o, lse,
-                                                            dm);
+  kernel<<<grid, kThreads, smem, st>>>(q, k, v, o, lse, dm);
   return cudaGetLastError();
 }
 
-template <int MAXD>
-cudaError_t launch_dq_bf16(const uint16_t* q, const uint16_t* k,
-                           const uint16_t* v, const uint16_t* dout,
-                           const float* lse, const float* delta,
-                           uint16_t* dq, int B, const Dims& dm,
-                           cudaStream_t st) {
+template <int MAXD, int H>
+cudaError_t launch_dq16(const uint16_t* q, const uint16_t* k,
+                        const uint16_t* v, const uint16_t* dout,
+                        const float* lse, const float* delta, uint16_t* dq,
+                        int B, const Dims& dm, cudaStream_t st) {
   constexpr int BM = TilesBf<MAXD>::BM;
+  const auto kernel = H == kF16 ? flash_bwd_dq_f16_kernel<MAXD>
+                                : flash_bwd_dq_bf16_kernel<MAXD>;
   const size_t smem = bwd_bf16_bytes<MAXD>(dm.d, 0);
-  cudaError_t err = opt_in(flash_bwd_dq_bf16_kernel<MAXD>, smem);
+  cudaError_t err = opt_in(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * dm.H, (dm.Sq + BM - 1) / BM);
-  flash_bwd_dq_bf16_kernel<MAXD><<<grid, kThreads, smem, st>>>(
-      q, k, v, dout, lse, delta, dq, dm);
+  kernel<<<grid, kThreads, smem, st>>>(q, k, v, dout, lse, delta, dq, dm);
   return cudaGetLastError();
 }
 
-template <int MAXD>
-cudaError_t launch_dkv_bf16(const uint16_t* q, const uint16_t* k,
-                            const uint16_t* v, const uint16_t* dout,
-                            const float* lse, const float* delta,
-                            uint16_t* dk, uint16_t* dv, int B,
-                            const Dims& dm, cudaStream_t st) {
+template <int MAXD, int H>
+cudaError_t launch_dkv16(const uint16_t* q, const uint16_t* k,
+                         const uint16_t* v, const uint16_t* dout,
+                         const float* lse, const float* delta, uint16_t* dk,
+                         uint16_t* dv, int B, const Dims& dm,
+                         cudaStream_t st) {
   constexpr int BM = TilesBf<MAXD>::BM;
+  const auto kernel = H == kF16 ? flash_bwd_dkv_f16_kernel<MAXD>
+                                : flash_bwd_dkv_bf16_kernel<MAXD>;
   const size_t smem = bwd_bf16_bytes<MAXD>(dm.d, 4 * TilesBf<MAXD>::BNB);
-  cudaError_t err = opt_in(flash_bwd_dkv_bf16_kernel<MAXD>, smem);
+  cudaError_t err = opt_in(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * dm.H, (dm.Sk + BM - 1) / BM);
-  flash_bwd_dkv_bf16_kernel<MAXD><<<grid, kThreads, smem, st>>>(
-      q, k, v, dout, lse, delta, dk, dv, dm);
+  kernel<<<grid, kThreads, smem, st>>>(q, k, v, dout, lse, delta, dk, dv,
+                                       dm);
   return cudaGetLastError();
 }
 
@@ -1173,44 +1269,45 @@ extern "C" int flash_attention_bwd_dkv_f32(
   return (int)launch_dkv<256>(qf, kf, vf, df, lf, ef, kg, vg, B, dm, st);
 }
 
-// The bf16 instantiations: the same arguments, with q, k, v, o / dout, dq,
-// dk and dv bf16 (lse, delta and the masks fp32).
+// The bf16 and fp16 instantiations: the same arguments, with q, k, v, o /
+// dout, dq, dk and dv 16-bit (lse, delta and the masks fp32); the fp16
+// backward entry points take one more, after delta: ds_scale, the power
+// of two dS is multiplied by per query row ([B, H, Sq], dq) or per key
+// ([B, H, Sk], dk/dv), fp32 (flash_common.cuh). For d <= 128 they take the
+// wgmma kernels (flash_attention_wgmma.cu); above, the mma.sync kernels of
+// this file.
 
-extern "C" int flash_attention_fwd_bf16(
-    const void* q, const void* k, const void* v, void* o, void* lse,
-    const void* mask, const void* kbias, const void* qseg, const void* kseg,
-    const void* block_mask, int B, int H, int Sq, int Sk, int d, int mh,
-    int bq, int bk, float scale, int causal, void* stream) {
-  const Dims dm = make_dims(H, Sq, Sk, d, scale, causal, mask, mh, kbias,
-                            qseg, kseg, block_mask, bq, bk);
+namespace {
+
+template <int H>
+int fwd_entry16(const void* q, const void* k, const void* v, void* o,
+                void* lse, const Dims& dm, int B, void* stream) {
   if (!shapes_ok(dm, B)) return (int)cudaErrorInvalidValue;
-  if (B == 0 || Sq == 0) return (int)cudaSuccess;
-  if (Sk == 0) return (int)cudaErrorInvalidValue;
+  if (B == 0 || dm.Sq == 0) return (int)cudaSuccess;
+  if (dm.Sk == 0) return (int)cudaErrorInvalidValue;
   const uint16_t* qh = static_cast<const uint16_t*>(q);
   const uint16_t* kh = static_cast<const uint16_t*>(k);
   const uint16_t* vh = static_cast<const uint16_t*>(v);
   uint16_t* oh = static_cast<uint16_t*>(o);
   float* lf = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // d <= 128: the wgmma kernel (flash_attention_wgmma.cu); above, the
-  // mma.sync kernel of this file
-  if (d <= 128) {
-    return (int)flash::launch_fwd_bf16_wgmma(qh, kh, vh, oh, lf, B, dm, st);
+  if (dm.d <= 128) {
+    return (int)(H == kF16
+                     ? flash::launch_fwd_f16_wgmma(qh, kh, vh, oh, lf, B, dm,
+                                                   st)
+                     : flash::launch_fwd_bf16_wgmma(qh, kh, vh, oh, lf, B,
+                                                    dm, st));
   }
-  return (int)launch_fwd_bf16<256>(qh, kh, vh, oh, lf, B, dm, st);
+  return (int)launch_fwd16<256, H>(qh, kh, vh, oh, lf, B, dm, st);
 }
 
-extern "C" int flash_attention_bwd_dq_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, const void* mask,
-    const void* kbias, const void* qseg, const void* kseg,
-    const void* block_mask, int B, int H, int Sq, int Sk, int d, int mh,
-    int bq, int bk, float scale, int causal, void* stream) {
-  const Dims dm = make_dims(H, Sq, Sk, d, scale, causal, mask, mh, kbias,
-                            qseg, kseg, block_mask, bq, bk);
+template <int H>
+int dq_entry16(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dq, Dims dm, int B,
+               void* stream) {
   if (!shapes_ok(dm, B)) return (int)cudaErrorInvalidValue;
-  if (B == 0 || Sq == 0) return (int)cudaSuccess;
-  if (Sk == 0) return (int)cudaErrorInvalidValue;
+  if (B == 0 || dm.Sq == 0) return (int)cudaSuccess;
+  if (dm.Sk == 0) return (int)cudaErrorInvalidValue;
   const uint16_t* qh = static_cast<const uint16_t*>(q);
   const uint16_t* kh = static_cast<const uint16_t*>(k);
   const uint16_t* vh = static_cast<const uint16_t*>(v);
@@ -1219,26 +1316,23 @@ extern "C" int flash_attention_bwd_dq_bf16(
   const float* ef = static_cast<const float*>(delta);
   uint16_t* gh = static_cast<uint16_t*>(dq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // d <= 128: the wgmma kernel (flash_attention_wgmma.cu); above, the
-  // mma.sync kernel of this file
-  if (d <= 128) {
-    return (int)flash::launch_dq_bf16_wgmma(qh, kh, vh, dh, lf, ef, gh, B,
-                                            dm, st);
+  if (dm.d <= 128) {
+    return (int)(H == kF16
+                     ? flash::launch_dq_f16_wgmma(qh, kh, vh, dh, lf, ef, gh,
+                                                  B, dm, st)
+                     : flash::launch_dq_bf16_wgmma(qh, kh, vh, dh, lf, ef,
+                                                   gh, B, dm, st));
   }
-  return (int)launch_dq_bf16<256>(qh, kh, vh, dh, lf, ef, gh, B, dm, st);
+  return (int)launch_dq16<256, H>(qh, kh, vh, dh, lf, ef, gh, B, dm, st);
 }
 
-extern "C" int flash_attention_bwd_dkv_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, const void* mask,
-    const void* kbias, const void* qseg, const void* kseg,
-    const void* block_mask, int B, int H, int Sq, int Sk, int d, int mh,
-    int bq, int bk, float scale, int causal, void* stream) {
-  const Dims dm = make_dims(H, Sq, Sk, d, scale, causal, mask, mh, kbias,
-                            qseg, kseg, block_mask, bq, bk);
+template <int H>
+int dkv_entry16(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* delta,
+                void* dk, void* dv, Dims dm, int B, void* stream) {
   if (!shapes_ok(dm, B)) return (int)cudaErrorInvalidValue;
-  if (B == 0 || Sk == 0) return (int)cudaSuccess;
-  if (Sq == 0) return (int)cudaErrorInvalidValue;
+  if (B == 0 || dm.Sk == 0) return (int)cudaSuccess;
+  if (dm.Sq == 0) return (int)cudaErrorInvalidValue;
   const uint16_t* qh = static_cast<const uint16_t*>(q);
   const uint16_t* kh = static_cast<const uint16_t*>(k);
   const uint16_t* vh = static_cast<const uint16_t*>(v);
@@ -1248,12 +1342,92 @@ extern "C" int flash_attention_bwd_dkv_bf16(
   uint16_t* kg = static_cast<uint16_t*>(dk);
   uint16_t* vg = static_cast<uint16_t*>(dv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // d <= 128: the wgmma kernel (flash_attention_wgmma.cu); above, the
-  // mma.sync kernel of this file
-  if (d <= 128) {
-    return (int)flash::launch_dkv_bf16_wgmma(qh, kh, vh, dh, lf, ef, kg, vg,
-                                             B, dm, st);
+  if (dm.d <= 128) {
+    return (int)(H == kF16
+                     ? flash::launch_dkv_f16_wgmma(qh, kh, vh, dh, lf, ef,
+                                                   kg, vg, B, dm, st)
+                     : flash::launch_dkv_bf16_wgmma(qh, kh, vh, dh, lf, ef,
+                                                    kg, vg, B, dm, st));
   }
-  return (int)launch_dkv_bf16<256>(qh, kh, vh, dh, lf, ef, kg, vg, B, dm,
+  return (int)launch_dkv16<256, H>(qh, kh, vh, dh, lf, ef, kg, vg, B, dm,
                                    st);
+}
+
+}  // namespace
+
+extern "C" int flash_attention_fwd_bf16(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* mask, const void* kbias, const void* qseg, const void* kseg,
+    const void* block_mask, int B, int H, int Sq, int Sk, int d, int mh,
+    int bq, int bk, float scale, int causal, void* stream) {
+  return fwd_entry16<kBf16>(
+      q, k, v, o, lse,
+      make_dims(H, Sq, Sk, d, scale, causal, mask, mh, kbias, qseg, kseg,
+                block_mask, bq, bk),
+      B, stream);
+}
+
+extern "C" int flash_attention_bwd_dq_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, const void* mask,
+    const void* kbias, const void* qseg, const void* kseg,
+    const void* block_mask, int B, int H, int Sq, int Sk, int d, int mh,
+    int bq, int bk, float scale, int causal, void* stream) {
+  return dq_entry16<kBf16>(
+      q, k, v, dout, lse, delta, dq,
+      make_dims(H, Sq, Sk, d, scale, causal, mask, mh, kbias, qseg, kseg,
+                block_mask, bq, bk),
+      B, stream);
+}
+
+extern "C" int flash_attention_bwd_dkv_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, const void* mask,
+    const void* kbias, const void* qseg, const void* kseg,
+    const void* block_mask, int B, int H, int Sq, int Sk, int d, int mh,
+    int bq, int bk, float scale, int causal, void* stream) {
+  return dkv_entry16<kBf16>(
+      q, k, v, dout, lse, delta, dk, dv,
+      make_dims(H, Sq, Sk, d, scale, causal, mask, mh, kbias, qseg, kseg,
+                block_mask, bq, bk),
+      B, stream);
+}
+
+extern "C" int flash_attention_fwd_f16(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* mask, const void* kbias, const void* qseg, const void* kseg,
+    const void* block_mask, int B, int H, int Sq, int Sk, int d, int mh,
+    int bq, int bk, float scale, int causal, void* stream) {
+  return fwd_entry16<kF16>(
+      q, k, v, o, lse,
+      make_dims(H, Sq, Sk, d, scale, causal, mask, mh, kbias, qseg, kseg,
+                block_mask, bq, bk),
+      B, stream);
+}
+
+extern "C" int flash_attention_bwd_dq_f16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* ds_scale, void* dq,
+    const void* mask, const void* kbias, const void* qseg, const void* kseg,
+    const void* block_mask, int B, int H, int Sq, int Sk, int d, int mh,
+    int bq, int bk, float scale, int causal, void* stream) {
+  Dims dm = make_dims(H, Sq, Sk, d, scale, causal, mask, mh, kbias, qseg,
+                      kseg, block_mask, bq, bk);
+  dm.ds_scale = static_cast<const float*>(ds_scale);
+  if (dm.ds_scale == nullptr) return (int)cudaErrorInvalidValue;
+  return dq_entry16<kF16>(q, k, v, dout, lse, delta, dq, dm, B, stream);
+}
+
+extern "C" int flash_attention_bwd_dkv_f16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* ds_scale, void* dk,
+    void* dv, const void* mask, const void* kbias, const void* qseg,
+    const void* kseg, const void* block_mask, int B, int H, int Sq, int Sk,
+    int d, int mh, int bq, int bk, float scale, int causal, void* stream) {
+  Dims dm = make_dims(H, Sq, Sk, d, scale, causal, mask, mh, kbias, qseg,
+                      kseg, block_mask, bq, bk);
+  dm.ds_scale = static_cast<const float*>(ds_scale);
+  if (dm.ds_scale == nullptr) return (int)cudaErrorInvalidValue;
+  return dkv_entry16<kF16>(q, k, v, dout, lse, delta, dk, dv, dm, B,
+                           stream);
 }

@@ -1,29 +1,38 @@
-// The bf16 flash forward, dq and dk/dv kernels for Hopper, sm_90a, on
-// wgmma with TMA-fed shared-memory rings, for head dims d <= 128
-// (instantiations MAXD = 64 and 128; the bf16 entry points of
+// The bf16 and fp16 flash forward, dq and dk/dv kernels for Hopper,
+// sm_90a, on wgmma with TMA-fed shared-memory rings, for head dims d <=
+// 128 (instantiations MAXD = 64 and 128; the bf16 and fp16 entry points of
 // flash_attention.cu call them there and keep their mma.sync kernels for
 // 128 < d <= 256).
 //
-// Replaces: paddle_tpu/ops/pallas/flash_attention.py at bf16 q, k, v ::
+// Replaces: paddle_tpu/ops/pallas/flash_attention.py at bf16 (fp16) q, k,
+// v ::
 //   _flash_forward (kernel _flash_fwd_kernel)
-//     -> flash_fwd_bf16_wgmma_kernel
+//     -> flash_fwd_bf16_wgmma_kernel (flash_fwd_f16_wgmma_kernel)
 //   _flash_backward (kernel _flash_bwd_dq_kernel)
-//     -> flash_bwd_dq_bf16_wgmma_kernel
+//     -> flash_bwd_dq_bf16_wgmma_kernel (flash_bwd_dq_f16_wgmma_kernel)
 //   _flash_backward (kernel _flash_bwd_dkv_kernel)
-//     -> flash_bwd_dkv_bf16_wgmma_kernel
-// dense and in every masked form, with the contract of the mma.sync bf16
-// kernels (flash_attention.cu): layout [B, S, H, d], bottom-right causal
-// alignment, the masks of flash_common.cuh at each accumulator element,
-// the hard-mask guard (s <= -5e29 -> p = 0), lse and delta in fp32, the
-// outputs rounded to bf16 once.
+//     -> flash_bwd_dkv_bf16_wgmma_kernel (flash_bwd_dkv_f16_wgmma_kernel)
+// dense and in every masked form, with the contract of the mma.sync
+// 16-bit kernels (flash_attention.cu): layout [B, S, H, d], bottom-right
+// causal alignment, the masks of flash_common.cuh at each accumulator
+// element, the hard-mask guard (s <= -5e29 -> p = 0: an additive mask
+// cast to fp16 holds -inf, which the guard also takes), lse and delta in
+// fp32, the outputs rounded to the operands' type once.
+//
+// One body per kernel (fwd_wgmma, dq_wgmma, dkv_wgmma) takes the element
+// type as its template argument H, and two __global__ kernels instantiate
+// it, so each type keeps a kernel name of its own. The fp16 forms differ
+// from the bf16 ones in the wgmma type, the tensor maps' data type, the
+// split's and the store's conversions, and in the backward's row scale of
+// dS (flash_common.cuh: fp16's range is 2^-14 .. 65504, bf16's fp32's).
 //
 // What bounds them on the H100: the JAX kernel's 4 d (forward), 6 d (dq)
 // and 8 d (dk/dv) FLOPs per visible pair at the dense bf16 rate (989
 // TFLOP/s), one to two orders of magnitude above their bytes at the
 // training shapes. P and dS are fp32 in the JAX kernel; here each is
-// split into hi = bf16(x) and lo = bf16(x - hi) (bf16_mma.cuh) and
-// multiplied twice, so the forward and dk/dv do 1.5x and dq 4/3 the
-// bound's FLOPs. One bf16 term misrounds ~40 % of the outputs
+// split into hi = bf16(x) and lo = bf16(x - hi) (bf16_mma.cuh; fp16 the
+// same) and multiplied twice, so the forward and dk/dv do 1.5x and dq 4/3
+// the bound's FLOPs. One bf16 term misrounds ~40 % of the outputs
 // (chip_smoke.py's misround gate), so both terms stay. At d = 64 and
 // short sequences (ERNIE: 512) a tile's products are small and its
 // softmax, masks and split on the CUDA cores take as long: there the
@@ -136,8 +145,8 @@ __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int mm) {
 }
 
 // acc += (hi + lo) Y over the NK 16-row steps of a register operand split
-// in two terms, lo first, Y an MN-major tile of R rows.
-template <int R, int NK, int NTO>
+// in two terms of type H, lo first, Y an MN-major tile of R rows.
+template <int R, int H, int NK, int NTO>
 __device__ __forceinline__ void wgmma_split(float (&acc)[NTO][4],
                                             uint32_t (&hi)[NK][4],
                                             uint32_t (&lo)[NK][4],
@@ -149,29 +158,32 @@ __device__ __forceinline__ void wgmma_split(float (&acc)[NTO][4],
 #pragma unroll
   for (int mm = 0; mm < NK; ++mm) {
     const uint64_t desc = mnmajor_desc<R>(y, mm);
-    wgmma_rs(acc, lo[mm], desc, 1);
-    wgmma_rs(acc, hi[mm], desc, 1);
+    wgmma_rs<H>(acc, lo[mm], desc, 1);
+    wgmma_rs<H>(acc, hi[mm], desc, 1);
   }
   wgmma_commit();
 }
 
-// A warp's accumulator tiles split in two bf16 terms, as NT / 2 register
-// A fragments each.
-template <int NT>
+// A warp's accumulator tiles split in two terms of type H, as NT / 2
+// register A fragments each.
+template <int H, int NT>
 __device__ __forceinline__ void split_all(const float (&c)[NT][4],
                                           uint32_t (&hi)[NT / 2][4],
                                           uint32_t (&lo)[NT / 2][4]) {
 #pragma unroll
-  for (int mm = 0; mm < NT / 2; ++mm) split_frag_a(c, mm, hi[mm], lo[mm]);
+  for (int mm = 0; mm < NT / 2; ++mm) {
+    split_frag_a<H>(c, mm, hi[mm], lo[mm]);
+  }
 }
 
-template <int NT>
-__device__ __forceinline__ void scale_all(float (&c)[NT][4], float scale) {
-#pragma unroll
-  for (int i = 0; i < NT; ++i) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) c[i][r] *= scale;
-  }
+// P's tiles split for their products: at fp16 times kPScale first
+// (flash_common.cuh), the caller's output taking 1 / kPScale.
+template <int H, int NT>
+__device__ __forceinline__ void split_p(float (&p)[NT][4],
+                                        uint32_t (&hi)[NT / 2][4],
+                                        uint32_t (&lo)[NT / 2][4]) {
+  if constexpr (H == kF16) scale_frags(p, kPScale);
+  split_all<H>(p, hi, lo);
 }
 
 // Whether every pair of the rows [r0, r0 + nr) and the keys [k0, k0 + nk)
@@ -242,7 +254,7 @@ __device__ __forceinline__ void tile_scores(float (&c)[NT][4], int b,
   } else if (dm.kbias) {
     kbias_scores<TRANSPOSED>(c, b, r0 + g, k0 + 2 * t, inside, dm);
   } else if (inside) {
-    scale_all(c, dm.scale);
+    scale_frags(c, dm.scale);
   } else {
     frag_scores_of<false, TRANSPOSED>(c, b, head, r0 + g, k0 + 2 * t, dm);
   }
@@ -302,14 +314,14 @@ __device__ __forceinline__ void softmax_step(float (&s)[NT][4],
 // S = Q K^T for a warpgroup's 64 rows of Q (from shared address q64, a
 // tile of kRows rows) and the BN keys of the K tile at kt, issued as one
 // wgmma group.
-template <int MAXD, int BN>
+template <int MAXD, int BN, int H>
 __device__ __forceinline__ void issue_scores(float (&s)[BN / 8][4],
                                              uint32_t q64, uint32_t kt) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < MAXD / 16; ++kk) {
-    wgmma_ss(s, kmajor_desc<kRows>(q64, 0, kk), kmajor_desc<BN>(kt, 0, kk),
-             kk > 0);
+    wgmma_ss<H>(s, kmajor_desc<kRows>(q64, 0, kk),
+                kmajor_desc<BN>(kt, 0, kk), kk > 0);
   }
   wgmma_commit();
 }
@@ -325,13 +337,16 @@ struct FwdWg {
   static constexpr size_t kSmem = 1024 + kBars + 8 * (1 + 2 * ST);
 };
 
-template <int MAXD>
-__global__ void __launch_bounds__(kWgThreads, 1)
-flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
-                            const __grid_constant__ CUtensorMap tk,
-                            const __grid_constant__ CUtensorMap tv,
-                            uint16_t* __restrict__ o,
-                            float* __restrict__ lse, Dims dm) {
+// The forward's body for 16-bit operands of type H; the kernels below
+// instantiate it for bf16 and fp16 (tq, tk, tv: their __grid_constant__
+// tensor maps).
+template <int MAXD, int H>
+__device__ __forceinline__ void fwd_wgmma(const CUtensorMap& tq,
+                                          const CUtensorMap& tk,
+                                          const CUtensorMap& tv,
+                                          uint16_t* __restrict__ o,
+                                          float* __restrict__ lse,
+                                          const Dims& dm) {
   using T = FwdWg<MAXD>;
   constexpr int BN = T::BN, ST = T::ST, NT = BN / 8, NTO = MAXD / 8;
   extern __shared__ uint8_t smem_raw[];
@@ -399,11 +414,11 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint32_t ph = 0;
   if (k0 < kend) {
     mbar_wait(full(st), ph);
-    issue_scores<MAXD, BN>(s, sq + 64 * cw * 128, sk + st * T::kKV);
+    issue_scores<MAXD, BN, H>(s, sq + 64 * cw * 128, sk + st * T::kKV);
     wgmma_wait<0>();
     tile_scores<false>(s, b, head, q0 + m0, k0, g, t, dm);
     softmax_step(s, m, l, corr);   // acc is 0: no correction to apply
-    split_all(s, hi, lo);
+    split_p<H>(s, hi, lo);
     // each turn: S of the next tile and P V of this one go to the tensor
     // cores together; the next tile's softmax runs under this one's P V
     for (int kn = live_key_tile<BN>(q0, k0 + BN, kend, dm); kn < kend;
@@ -414,12 +429,12 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       reg_fence(acc);
       reg_fence(hi);
       reg_fence(lo);
-      issue_scores<MAXD, BN>(s, sq + 64 * cw * 128, sk + sn * T::kKV);
+      issue_scores<MAXD, BN, H>(s, sq + 64 * cw * 128, sk + sn * T::kKV);
 #pragma unroll
       for (int mm = 0; mm < NT / 2; ++mm) {
         const uint64_t desc = mnmajor_desc<BN>(sv + st * T::kKV, mm);
-        wgmma_rs(acc, lo[mm], desc, 1);
-        wgmma_rs(acc, hi[mm], desc, 1);
+        wgmma_rs<H>(acc, lo[mm], desc, 1);
+        wgmma_rs<H>(acc, hi[mm], desc, 1);
       }
       wgmma_commit();
       wgmma_wait<1>();   // S of the next tile
@@ -433,11 +448,11 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int r = 0; r < 4; ++r) acc[j][r] *= corr[r >> 1];
       }
-      split_all(s, hi, lo);
+      split_p<H>(s, hi, lo);
       st = sn;
       ph = pn;
     }
-    wgmma_split<BN>(acc, hi, lo, sv + st * T::kKV);   // the last tile's P V
+    wgmma_split<BN, H>(acc, hi, lo, sv + st * T::kKV);   // the last P V
     wgmma_wait<0>();
     reg_fence(acc);
     if (lane == 0) mbar_arrive(empty(st));
@@ -456,9 +471,30 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (row < dm.Sq && t == 0) {
       lse[(int64_t)bh * dm.Sq + row] = m[h] + logf(den);
     }
+    if constexpr (H == kF16) inv[h] *= 1.f / kPScale;
   }
-  store_frags_bf16<NTO>(o + qoff, rs, acc, inv, q0 + m0, dm.Sq, 0, dm.d, g,
+  store_frags16<NTO, H>(o + qoff, rs, acc, inv, q0 + m0, dm.Sq, 0, dm.d, g,
                         t);
+}
+
+template <int MAXD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            uint16_t* __restrict__ o,
+                            float* __restrict__ lse, Dims dm) {
+  fwd_wgmma<MAXD, kBf16>(tq, tk, tv, o, lse, dm);
+}
+
+template <int MAXD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_f16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           uint16_t* __restrict__ o,
+                           float* __restrict__ lse, Dims dm) {
+  fwd_wgmma<MAXD, kF16>(tq, tk, tv, o, lse, dm);
 }
 
 // ------------------------------------------------- the backward's scores
@@ -475,7 +511,7 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 // sum_dp_steps adds each scratch product to dP as it completes and
 // issues the next k-step into it, two in flight, until every group the
 // caller issued has completed.
-template <int MAXD, int BN>
+template <int MAXD, int BN, int H>
 __device__ __forceinline__ void issue_scores_bwd(float (&s)[BN / 8][4],
                                                  float (&dp)[BN / 8][4],
                                                  float (&pa)[BN / 8][4],
@@ -488,18 +524,21 @@ __device__ __forceinline__ void issue_scores_bwd(float (&s)[BN / 8][4],
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < MAXD / 16; ++kk) {
-    wgmma_ss(s, kmajor_desc<kRows>(a, row0, kk), kmajor_desc<BN>(b, 0, kk),
-             kk > 0);
+    wgmma_ss<H>(s, kmajor_desc<kRows>(a, row0, kk),
+                kmajor_desc<BN>(b, 0, kk), kk > 0);
   }
-  wgmma_ss(dp, kmajor_desc<kRows>(c, row0, 0), kmajor_desc<BN>(d, 0, 0), 0);
+  wgmma_ss<H>(dp, kmajor_desc<kRows>(c, row0, 0), kmajor_desc<BN>(d, 0, 0),
+              0);
   wgmma_commit();
-  wgmma_ss(pa, kmajor_desc<kRows>(c, row0, 1), kmajor_desc<BN>(d, 0, 1), 0);
+  wgmma_ss<H>(pa, kmajor_desc<kRows>(c, row0, 1), kmajor_desc<BN>(d, 0, 1),
+              0);
   wgmma_commit();
-  wgmma_ss(pb, kmajor_desc<kRows>(c, row0, 2), kmajor_desc<BN>(d, 0, 2), 0);
+  wgmma_ss<H>(pb, kmajor_desc<kRows>(c, row0, 2), kmajor_desc<BN>(d, 0, 2),
+              0);
   wgmma_commit();
 }
 
-template <int MAXD, int BN>
+template <int MAXD, int BN, int H>
 __device__ __forceinline__ void sum_dp_steps(float (&dp)[BN / 8][4],
                                              float (&pa)[BN / 8][4],
                                              float (&pb)[BN / 8][4],
@@ -524,8 +563,8 @@ __device__ __forceinline__ void sum_dp_steps(float (&dp)[BN / 8][4],
     if (kk + 2 < NK) {
       reg_fence(part);
       wgmma_fence();
-      wgmma_ss(part, kmajor_desc<kRows>(c, row0, kk + 2),
-               kmajor_desc<BN>(d, 0, kk + 2), 0);
+      wgmma_ss<H>(part, kmajor_desc<kRows>(c, row0, kk + 2),
+                  kmajor_desc<BN>(d, 0, kk + 2), 0);
       wgmma_commit();
     }
   }
@@ -549,16 +588,17 @@ struct DkvWg {
   static constexpr size_t kSmem = 1024 + kBars + 8 * (1 + 2 * ST);
 };
 
-template <int MAXD>
-__global__ void __launch_bounds__(kWgThreads, 1)
-flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
-                                const __grid_constant__ CUtensorMap tk,
-                                const __grid_constant__ CUtensorMap tv,
-                                const __grid_constant__ CUtensorMap tdo,
-                                const float* __restrict__ lse,
-                                const float* __restrict__ delta,
-                                uint16_t* __restrict__ dk,
-                                uint16_t* __restrict__ dv, Dims dm) {
+// dk/dv's body for 16-bit operands of type H (the kernels below).
+template <int MAXD, int H>
+__device__ __forceinline__ void dkv_wgmma(const CUtensorMap& tq,
+                                          const CUtensorMap& tk,
+                                          const CUtensorMap& tv,
+                                          const CUtensorMap& tdo,
+                                          const float* __restrict__ lse,
+                                          const float* __restrict__ delta,
+                                          uint16_t* __restrict__ dk,
+                                          uint16_t* __restrict__ dv,
+                                          const Dims& dm) {
   using T = DkvWg<MAXD>;
   constexpr int BN = T::BN, ST = T::ST, NT = BN / 8, NTO = MAXD / 8;
   extern __shared__ uint8_t smem_raw[];
@@ -643,6 +683,10 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int r = 0; r < 4; ++r) dk_acc[j][r] = dv_acc[j][r] = 0.f;
   }
+  // dS^T's multipliers of rows g and g + 8 (this warp's keys; at fp16
+  // with their ds_scale)
+  float ds_mul[2];
+  ds_row_multipliers<H>(dm, bh, k0 + m0, dm.Sk, g, ds_mul);
 
   mbar_wait(kvbar, 0);
   int st = 0;
@@ -655,7 +699,7 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const float* delta_t = delta_s + st * BN;
     // transposed scores: rows are this block's keys, columns the queries
     float s[NT][4], dp[NT][4], pa[NT][4], pb[NT][4];
-    issue_scores_bwd<MAXD, BN>(s, dp, pa, pb, sk, qt, sv, dot, 64 * cw);
+    issue_scores_bwd<MAXD, BN, H>(s, dp, pa, pb, sk, qt, sv, dot, 64 * cw);
     wgmma_wait<2>();   // S^T and dP^T's first k-step
     tile_scores<true>(s, b, head, k0 + m0, q1, g, t, dm);
 #pragma unroll
@@ -669,21 +713,21 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                       : exp2_approx((x - lse_t[n]) * kLog2e);
       }
     }
-    sum_dp_steps<MAXD, BN>(dp, pa, pb, sv, dot, 64 * cw);
+    sum_dp_steps<MAXD, BN, H>(dp, pa, pb, sv, dot, 64 * cw);
 #pragma unroll
     for (int i = 0; i < NT; ++i) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int n = 8 * i + 2 * t + (r & 1);
-        dp[i][r] = dm.scale * (s[i][r] * (dp[i][r] - delta_t[n]));
+        dp[i][r] = ds_mul[r >> 1] * (s[i][r] * (dp[i][r] - delta_t[n]));
       }
     }
     uint32_t hi[NT / 2][4], lo[NT / 2][4];
-    split_all(s, hi, lo);
-    wgmma_split<BN>(dv_acc, hi, lo, dot);   // dV += P^T dO
+    split_p<H>(s, hi, lo);
+    wgmma_split<BN, H>(dv_acc, hi, lo, dot);   // dV += P^T dO
     uint32_t dhi[NT / 2][4], dlo[NT / 2][4];
-    split_all(dp, dhi, dlo);
-    wgmma_split<BN>(dk_acc, dhi, dlo, qt);  // dK += dS^T Q
+    split_all<H>(dp, dhi, dlo);
+    wgmma_split<BN, H>(dk_acc, dhi, dlo, qt);  // dK += dS^T Q
     wgmma_wait<0>();
     reg_fence(dv_acc);
     reg_fence(dk_acc);
@@ -696,11 +740,40 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   const int64_t rs = (int64_t)dm.H * dm.d;
   const int64_t koff = ((int64_t)b * dm.Sk * dm.H + head) * dm.d;
-  const float one[2] = {1.f, 1.f};
-  store_frags_bf16<NTO>(dk + koff, rs, dk_acc, one, k0 + m0, dm.Sk, 0, dm.d,
+  float unp[2] = {1.f, 1.f};   // at fp16 dv's rows times 1 / kPScale
+  if constexpr (H == kF16) unp[0] = unp[1] = 1.f / kPScale;
+  float unf[2];   // dk's rows: 1 / their ds_scale at fp16
+  ds_row_inverses<H>(dm, ds_mul, unf);
+  store_frags16<NTO, H>(dk + koff, rs, dk_acc, unf, k0 + m0, dm.Sk, 0, dm.d,
                         g, t);
-  store_frags_bf16<NTO>(dv + koff, rs, dv_acc, one, k0 + m0, dm.Sk, 0, dm.d,
+  store_frags16<NTO, H>(dv + koff, rs, dv_acc, unp, k0 + m0, dm.Sk, 0, dm.d,
                         g, t);
+}
+
+template <int MAXD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tdo,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                uint16_t* __restrict__ dk,
+                                uint16_t* __restrict__ dv, Dims dm) {
+  dkv_wgmma<MAXD, kBf16>(tq, tk, tv, tdo, lse, delta, dk, dv, dm);
+}
+
+template <int MAXD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkv_f16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               uint16_t* __restrict__ dk,
+                               uint16_t* __restrict__ dv, Dims dm) {
+  dkv_wgmma<MAXD, kF16>(tq, tk, tv, tdo, lse, delta, dk, dv, dm);
 }
 
 // ----------------------------------------------------------------- dq
@@ -719,15 +792,16 @@ struct DqWg {
   static constexpr size_t kSmem = 1024 + kBars + 8 * (1 + 2 * ST);
 };
 
-template <int MAXD>
-__global__ void __launch_bounds__(kWgThreads, 1)
-flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
-                               const __grid_constant__ CUtensorMap tk,
-                               const __grid_constant__ CUtensorMap tv,
-                               const __grid_constant__ CUtensorMap tdo,
-                               const float* __restrict__ lse,
-                               const float* __restrict__ delta,
-                               uint16_t* __restrict__ dq, Dims dm) {
+// dq's body for 16-bit operands of type H (the kernels below).
+template <int MAXD, int H>
+__device__ __forceinline__ void dq_wgmma(const CUtensorMap& tq,
+                                         const CUtensorMap& tk,
+                                         const CUtensorMap& tv,
+                                         const CUtensorMap& tdo,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ delta,
+                                         uint16_t* __restrict__ dq,
+                                         const Dims& dm) {
   using T = DqWg<MAXD>;
   constexpr int BN = T::BN, ST = T::ST, NT = BN / 8, NTO = MAXD / 8;
   extern __shared__ uint8_t smem_raw[];
@@ -797,6 +871,9 @@ flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   }
   uint32_t hi[NT / 2][4], lo[NT / 2][4];   // dS of the tile before
+  // dS's multipliers of rows g and g + 8 (at fp16 with their ds_scale)
+  float ds_mul[2];
+  ds_row_multipliers<H>(dm, bh, q0 + m0, dm.Sq, g, ds_mul);
 
   mbar_wait(qbar, 0);
   int st = 0, prev = -1;   // prev: the stage dQ's last product reads
@@ -807,7 +884,7 @@ flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const uint32_t kt = sk + st * T::kKV, vt = sv + st * T::kKV;
     // the tile before's dQ product is still in flight ahead of S and dP
     float s[NT][4], dp[NT][4], pa[NT][4], pb[NT][4];
-    issue_scores_bwd<MAXD, BN>(s, dp, pa, pb, sq, kt, sdo, vt, 64 * cw);
+    issue_scores_bwd<MAXD, BN, H>(s, dp, pa, pb, sq, kt, sdo, vt, 64 * cw);
     wgmma_wait<2>();   // the tile before's dQ, S and dP's first k-step
     reg_fence(acc);
     reg_fence(hi);
@@ -824,16 +901,17 @@ flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                       : exp2_approx((x - row_lse[r >> 1]) * kLog2e);
       }
     }
-    sum_dp_steps<MAXD, BN>(dp, pa, pb, sdo, vt, 64 * cw);
+    sum_dp_steps<MAXD, BN, H>(dp, pa, pb, sdo, vt, 64 * cw);
 #pragma unroll
     for (int i = 0; i < NT; ++i) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        dp[i][r] = dm.scale * (s[i][r] * (dp[i][r] - row_delta[r >> 1]));
+        dp[i][r] = ds_mul[r >> 1] *
+                   (s[i][r] * (dp[i][r] - row_delta[r >> 1]));
       }
     }
-    split_all(dp, hi, lo);
-    wgmma_split<BN>(acc, hi, lo, kt);   // dQ += dS K, waited for next turn
+    split_all<H>(dp, hi, lo);
+    wgmma_split<BN, H>(acc, hi, lo, kt);   // dQ += dS K, waited next turn
     prev = st;
     if (++st == ST) {
       st = 0;
@@ -846,88 +924,144 @@ flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   const int64_t rs = (int64_t)dm.H * dm.d;
   const int64_t qoff = ((int64_t)b * dm.Sq * dm.H + head) * dm.d;
-  const float one[2] = {1.f, 1.f};
-  store_frags_bf16<NTO>(dq + qoff, rs, acc, one, q0 + m0, dm.Sq, 0, dm.d, g,
+  float unf[2];   // dq's rows: 1 / their ds_scale at fp16
+  ds_row_inverses<H>(dm, ds_mul, unf);
+  store_frags16<NTO, H>(dq + qoff, rs, acc, unf, q0 + m0, dm.Sq, 0, dm.d, g,
                         t);
+}
+
+template <int MAXD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               uint16_t* __restrict__ dq, Dims dm) {
+  dq_wgmma<MAXD, kBf16>(tq, tk, tv, tdo, lse, delta, dq, dm);
+}
+
+template <int MAXD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_f16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              uint16_t* __restrict__ dq, Dims dm) {
+  dq_wgmma<MAXD, kF16>(tq, tk, tv, tdo, lse, delta, dq, dm);
 }
 
 // ----------------------------------------------------------- launches
 
-template <int MAXD>
+template <int MAXD, int H>
 cudaError_t launch_fwd(const uint16_t* q, const uint16_t* k,
                        const uint16_t* v, uint16_t* o, float* lse, int B,
                        const Dims& dm, cudaStream_t st) {
   using T = FwdWg<MAXD>;
+  const auto kernel = H == kF16 ? flash_fwd_f16_wgmma_kernel<MAXD>
+                                : flash_fwd_bf16_wgmma_kernel<MAXD>;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = encode_bshd_bf16(&tq, q, B, dm.Sq, dm.H, dm.d, kRows);
+  cudaError_t err = encode_bshd16<H>(&tq, q, B, dm.Sq, dm.H, dm.d, kRows);
   if (err == cudaSuccess) {
-    err = encode_bshd_bf16(&tk, k, B, dm.Sk, dm.H, dm.d, T::BN);
+    err = encode_bshd16<H>(&tk, k, B, dm.Sk, dm.H, dm.d, T::BN);
   }
   if (err == cudaSuccess) {
-    err = encode_bshd_bf16(&tv, v, B, dm.Sk, dm.H, dm.d, T::BN);
+    err = encode_bshd16<H>(&tv, v, B, dm.Sk, dm.H, dm.d, T::BN);
   }
-  if (err == cudaSuccess) {
-    err = opt_in(flash_fwd_bf16_wgmma_kernel<MAXD>, T::kSmem);
-  }
+  if (err == cudaSuccess) err = opt_in(kernel, T::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * dm.H, (dm.Sq + kRows - 1) / kRows);
-  flash_fwd_bf16_wgmma_kernel<MAXD><<<grid, kWgThreads, T::kSmem, st>>>(
-      tq, tk, tv, o, lse, dm);
+  kernel<<<grid, kWgThreads, T::kSmem, st>>>(tq, tk, tv, o, lse, dm);
   return cudaGetLastError();
 }
 
-template <int MAXD>
+template <int MAXD, int H>
 cudaError_t launch_dkv(const uint16_t* q, const uint16_t* k,
                        const uint16_t* v, const uint16_t* dout,
                        const float* lse, const float* delta, uint16_t* dk,
                        uint16_t* dv, int B, const Dims& dm, cudaStream_t st) {
   using T = DkvWg<MAXD>;
+  const auto kernel = H == kF16 ? flash_bwd_dkv_f16_wgmma_kernel<MAXD>
+                                : flash_bwd_dkv_bf16_wgmma_kernel<MAXD>;
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = encode_bshd_bf16(&tq, q, B, dm.Sq, dm.H, dm.d, T::BN);
+  cudaError_t err = encode_bshd16<H>(&tq, q, B, dm.Sq, dm.H, dm.d, T::BN);
   if (err == cudaSuccess) {
-    err = encode_bshd_bf16(&tdo, dout, B, dm.Sq, dm.H, dm.d, T::BN);
+    err = encode_bshd16<H>(&tdo, dout, B, dm.Sq, dm.H, dm.d, T::BN);
   }
   if (err == cudaSuccess) {
-    err = encode_bshd_bf16(&tk, k, B, dm.Sk, dm.H, dm.d, kRows);
+    err = encode_bshd16<H>(&tk, k, B, dm.Sk, dm.H, dm.d, kRows);
   }
   if (err == cudaSuccess) {
-    err = encode_bshd_bf16(&tv, v, B, dm.Sk, dm.H, dm.d, kRows);
+    err = encode_bshd16<H>(&tv, v, B, dm.Sk, dm.H, dm.d, kRows);
   }
-  if (err == cudaSuccess) {
-    err = opt_in(flash_bwd_dkv_bf16_wgmma_kernel<MAXD>, T::kSmem);
-  }
+  if (err == cudaSuccess) err = opt_in(kernel, T::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * dm.H, (dm.Sk + kRows - 1) / kRows);
-  flash_bwd_dkv_bf16_wgmma_kernel<MAXD><<<grid, kWgThreads, T::kSmem, st>>>(
-      tq, tk, tv, tdo, lse, delta, dk, dv, dm);
+  kernel<<<grid, kWgThreads, T::kSmem, st>>>(tq, tk, tv, tdo, lse, delta,
+                                             dk, dv, dm);
   return cudaGetLastError();
 }
 
-template <int MAXD>
+template <int MAXD, int H>
 cudaError_t launch_dq(const uint16_t* q, const uint16_t* k,
                       const uint16_t* v, const uint16_t* dout,
                       const float* lse, const float* delta, uint16_t* dq,
                       int B, const Dims& dm, cudaStream_t st) {
   using T = DqWg<MAXD>;
+  const auto kernel = H == kF16 ? flash_bwd_dq_f16_wgmma_kernel<MAXD>
+                                : flash_bwd_dq_bf16_wgmma_kernel<MAXD>;
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = encode_bshd_bf16(&tq, q, B, dm.Sq, dm.H, dm.d, kRows);
+  cudaError_t err = encode_bshd16<H>(&tq, q, B, dm.Sq, dm.H, dm.d, kRows);
   if (err == cudaSuccess) {
-    err = encode_bshd_bf16(&tdo, dout, B, dm.Sq, dm.H, dm.d, kRows);
+    err = encode_bshd16<H>(&tdo, dout, B, dm.Sq, dm.H, dm.d, kRows);
   }
   if (err == cudaSuccess) {
-    err = encode_bshd_bf16(&tk, k, B, dm.Sk, dm.H, dm.d, T::BN);
+    err = encode_bshd16<H>(&tk, k, B, dm.Sk, dm.H, dm.d, T::BN);
   }
   if (err == cudaSuccess) {
-    err = encode_bshd_bf16(&tv, v, B, dm.Sk, dm.H, dm.d, T::BN);
+    err = encode_bshd16<H>(&tv, v, B, dm.Sk, dm.H, dm.d, T::BN);
   }
-  if (err == cudaSuccess) {
-    err = opt_in(flash_bwd_dq_bf16_wgmma_kernel<MAXD>, T::kSmem);
-  }
+  if (err == cudaSuccess) err = opt_in(kernel, T::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * dm.H, (dm.Sq + kRows - 1) / kRows);
-  flash_bwd_dq_bf16_wgmma_kernel<MAXD><<<grid, kWgThreads, T::kSmem, st>>>(
-      tq, tk, tv, tdo, lse, delta, dq, dm);
+  kernel<<<grid, kWgThreads, T::kSmem, st>>>(tq, tk, tv, tdo, lse, delta,
+                                             dq, dm);
   return cudaGetLastError();
+}
+
+// The launchers of one 16-bit type, by head dim.
+template <int H>
+cudaError_t launch_fwd16(const uint16_t* q, const uint16_t* k,
+                         const uint16_t* v, uint16_t* o, float* lse, int B,
+                         const Dims& dm, cudaStream_t st) {
+  if (dm.d <= 64) return launch_fwd<64, H>(q, k, v, o, lse, B, dm, st);
+  return launch_fwd<128, H>(q, k, v, o, lse, B, dm, st);
+}
+
+template <int H>
+cudaError_t launch_dq16(const uint16_t* q, const uint16_t* k,
+                        const uint16_t* v, const uint16_t* dout,
+                        const float* lse, const float* delta, uint16_t* dq,
+                        int B, const Dims& dm, cudaStream_t st) {
+  if (dm.d <= 64) {
+    return launch_dq<64, H>(q, k, v, dout, lse, delta, dq, B, dm, st);
+  }
+  return launch_dq<128, H>(q, k, v, dout, lse, delta, dq, B, dm, st);
+}
+
+template <int H>
+cudaError_t launch_dkv16(const uint16_t* q, const uint16_t* k,
+                         const uint16_t* v, const uint16_t* dout,
+                         const float* lse, const float* delta, uint16_t* dk,
+                         uint16_t* dv, int B, const Dims& dm,
+                         cudaStream_t st) {
+  if (dm.d <= 64) {
+    return launch_dkv<64, H>(q, k, v, dout, lse, delta, dk, dv, B, dm, st);
+  }
+  return launch_dkv<128, H>(q, k, v, dout, lse, delta, dk, dv, B, dm, st);
 }
 
 }  // namespace
@@ -938,8 +1072,7 @@ cudaError_t launch_fwd_bf16_wgmma(const uint16_t* q, const uint16_t* k,
                                   const uint16_t* v, uint16_t* o,
                                   float* lse, int B, const Dims& dm,
                                   cudaStream_t st) {
-  if (dm.d <= 64) return launch_fwd<64>(q, k, v, o, lse, B, dm, st);
-  return launch_fwd<128>(q, k, v, o, lse, B, dm, st);
+  return launch_fwd16<kBf16>(q, k, v, o, lse, B, dm, st);
 }
 
 cudaError_t launch_dq_bf16_wgmma(const uint16_t* q, const uint16_t* k,
@@ -947,10 +1080,7 @@ cudaError_t launch_dq_bf16_wgmma(const uint16_t* q, const uint16_t* k,
                                  const float* lse, const float* delta,
                                  uint16_t* dq, int B, const Dims& dm,
                                  cudaStream_t st) {
-  if (dm.d <= 64) {
-    return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, dm, st);
-  }
-  return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, dm, st);
+  return launch_dq16<kBf16>(q, k, v, dout, lse, delta, dq, B, dm, st);
 }
 
 cudaError_t launch_dkv_bf16_wgmma(const uint16_t* q, const uint16_t* k,
@@ -958,10 +1088,29 @@ cudaError_t launch_dkv_bf16_wgmma(const uint16_t* q, const uint16_t* k,
                                   const float* lse, const float* delta,
                                   uint16_t* dk, uint16_t* dv, int B,
                                   const Dims& dm, cudaStream_t st) {
-  if (dm.d <= 64) {
-    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, dm, st);
-  }
-  return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, dm, st);
+  return launch_dkv16<kBf16>(q, k, v, dout, lse, delta, dk, dv, B, dm, st);
+}
+
+cudaError_t launch_fwd_f16_wgmma(const uint16_t* q, const uint16_t* k,
+                                 const uint16_t* v, uint16_t* o, float* lse,
+                                 int B, const Dims& dm, cudaStream_t st) {
+  return launch_fwd16<kF16>(q, k, v, o, lse, B, dm, st);
+}
+
+cudaError_t launch_dq_f16_wgmma(const uint16_t* q, const uint16_t* k,
+                                const uint16_t* v, const uint16_t* dout,
+                                const float* lse, const float* delta,
+                                uint16_t* dq, int B, const Dims& dm,
+                                cudaStream_t st) {
+  return launch_dq16<kF16>(q, k, v, dout, lse, delta, dq, B, dm, st);
+}
+
+cudaError_t launch_dkv_f16_wgmma(const uint16_t* q, const uint16_t* k,
+                                 const uint16_t* v, const uint16_t* dout,
+                                 const float* lse, const float* delta,
+                                 uint16_t* dk, uint16_t* dv, int B,
+                                 const Dims& dm, cudaStream_t st) {
+  return launch_dkv16<kF16>(q, k, v, dout, lse, delta, dk, dv, B, dm, st);
 }
 
 }  // namespace flash

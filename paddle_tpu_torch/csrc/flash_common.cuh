@@ -1,10 +1,11 @@
 // What the flash kernels of both sources share (flash_attention.cu, and
-// flash_attention_wgmma.cu with the bf16 forward, dq and dk/dv kernels for
-// d <= 128): the problem sizes and masking operands (Dims), the masks at
-// each fragment element (_tile_scores of the JAX kernel), the causal and
-// block-mask walks, the bf16 output store and the shared-memory opt-in,
-// and the three launchers the bf16 entry points of flash_attention.cu
-// call in flash_attention_wgmma.cu.
+// flash_attention_wgmma.cu with the bf16 and fp16 forward, dq and dk/dv
+// kernels for d <= 128): the problem sizes and masking operands (Dims),
+// the masks at each fragment element (_tile_scores of the JAX kernel), the
+// causal and block-mask walks, the 16-bit output store, the fp16
+// backward's row scale of dS and the shared-memory opt-in, and the
+// launchers the bf16 and fp16 entry points of flash_attention.cu call in
+// flash_attention_wgmma.cu.
 
 #pragma once
 
@@ -29,6 +30,9 @@ struct Dims {
   const int* kseg;
   const int* block_mask;    // [Sq / bq, Sk / bk], 0 = dead block
   int bq, bk;               // the block mask's rows and keys per block
+  // the fp16 backward's power-of-two factor of dS per accumulator row
+  // (below): [B, H, Sq] for dq, [B, H, Sk] for dk/dv; null otherwise
+  const float* ds_scale;
 };
 
 }  // namespace flash
@@ -132,16 +136,15 @@ __device__ __forceinline__ int live_query_tile(int q0, int k0,
 }
 
 // A warp's accumulators of rows row0 + g, + 8 and columns c0 + 8 j + 2 t,
-// times `mul` and rounded to bf16, into a bf16 [B, S, H, d] output (base at
-// (b, 0, head, 0)), rows below n_rows.
-template <int NTO>
-__device__ __forceinline__ void store_frags_bf16(uint16_t* base,
-                                                 int64_t row_stride,
-                                                 const float (&acc)[NTO][4],
-                                                 const float (&mul)[2],
-                                                 int row0, int n_rows,
-                                                 int c0, int d, int g,
-                                                 int t) {
+// times `mul` and rounded to the 16-bit type H, into a [B, S, H, d] output
+// of that type (base at (b, 0, head, 0)), rows below n_rows.
+template <int NTO, int H>
+__device__ __forceinline__ void store_frags16(uint16_t* base,
+                                              int64_t row_stride,
+                                              const float (&acc)[NTO][4],
+                                              const float (&mul)[2],
+                                              int row0, int n_rows, int c0,
+                                              int d, int g, int t) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + g + 8 * h;
@@ -151,11 +154,82 @@ __device__ __forceinline__ void store_frags_bf16(uint16_t* base,
       for (int j = 0; j < NTO; ++j) {
         const int col = c0 + 8 * j + 2 * t;
         if (col < d) {
-          *reinterpret_cast<uint32_t*>(dst + col) = pack_bf16(
+          *reinterpret_cast<uint32_t*>(dst + col) = pack16<H>(
               acc[j][2 * h] * mul[h], acc[j][2 * h + 1] * mul[h]);
         }
       }
     }
+  }
+}
+
+// ----------------------------------------------- fp16's range
+//
+// dS = scale P (dP - delta) is fp32 and unbounded. Under GradScaler's
+// loss scale (2^15 by default) dO, dP and delta carry the scale and |dS|
+// can pass fp16's largest finite value, 65504: hi = fp16(dS) would be inf
+// and dq, dk NaN where the fp32 result is finite. Without one, small dS
+// falls below fp16's normal range (2^-14) and loses bits. So the fp16
+// backward multiplies each accumulator row's dS by a power of two before
+// the split, Dims::ds_scale, chosen by the wrapper from a bound of that
+// row's |dS| (ops/flash_attention.py::ds_scales: |dP_ij| <= |dO_i| |V_j|
+// and |delta_i| <= |dO_i| max|V_j|) so the bound times the factor lies in
+// [2^14, 2^15): the split's terms stay finite, and both normal down to
+// 2^-17 of the bound. The factor joins scale in dS's one multiply; the output
+// row is multiplied by its inverse once, at the end, and rounded to fp16
+// once: inf exactly where the fp32 result passes fp16's range, as the
+// plain version's cast gives it. A row is an accumulator row: a query row
+// for dq, a key (a column of dS) for dk. (A running factor lowered as a
+// row's maximum grew, the accumulator rescaled in the loop, took dq from
+// 0.65 to 0.92 ms at the Llama shape: PERF.md.)
+//
+// P is in [0, 1], but its split's lo term p - fp16(p) is subnormal in
+// fp16 for p < 2^-3 and keeps only 2^-25 of p in absolute terms; summed
+// over thousands of rows (dV's columns, the forward's long rows) that
+// moved 11 % of dV's fp16 outputs off their rounding at 4096 keys. So the
+// fp16 kernels multiply P by kPScale before its split (both terms stay
+// normal down to p = 2^-15) and their P products' outputs (o, dv) by
+// 1 / kPScale at the end; both are exact.
+constexpr float kPScale = 16384.f;   // 2^14
+
+// c *= x over a warp's fragments.
+template <int NT>
+__device__ __forceinline__ void scale_frags(float (&c)[NT][4], float x) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) c[i][r] *= x;
+  }
+}
+
+// The multipliers of a warp's two accumulator rows' dS (row0 + g and
+// row0 + g + 8 of n_rows, batch-head bh): at fp16 dm.scale times the
+// row's ds_scale, else dm.scale.
+template <int H>
+__device__ __forceinline__ void ds_row_multipliers(const Dims& dm, int bh,
+                                                   int row0, int n_rows,
+                                                   int g, float (&mul)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float f = 1.f;
+    if constexpr (H == kF16) {
+      const int row = row0 + g + 8 * h;
+      if (row < n_rows) f = __ldg(dm.ds_scale + (int64_t)bh * n_rows + row);
+    }
+    mul[h] = dm.scale * f;
+  }
+}
+
+// The factors that undo ds_row_multipliers' on the outputs: 1 / ds_scale
+// at fp16 (dm.scale / mul, exact: mul is dm.scale times a power of two),
+// else 1. Computed after the loop, so they hold no register inside it.
+template <int H>
+__device__ __forceinline__ void ds_row_inverses(const Dims& dm,
+                                                const float (&mul)[2],
+                                                float (&inv)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    inv[h] = 1.f;
+    if constexpr (H == kF16) inv[h] = dm.scale / mul[h];
   }
 }
 
@@ -174,9 +248,22 @@ cudaError_t opt_in(Kernel kernel, size_t smem) {
 
 namespace flash {
 
-// The bf16 forward, dq and dk/dv kernels on wgmma
+// The bf16 and fp16 forward, dq and dk/dv kernels on wgmma
 // (flash_attention_wgmma.cu), for d <= 128; the same operands as
-// launch_fwd_bf16 / launch_dq_bf16 / launch_dkv_bf16.
+// launch_fwd16 / launch_dq16 / launch_dkv16 of flash_attention.cu.
+cudaError_t launch_fwd_f16_wgmma(const uint16_t* q, const uint16_t* k,
+                                 const uint16_t* v, uint16_t* o, float* lse,
+                                 int B, const Dims& dm, cudaStream_t st);
+cudaError_t launch_dq_f16_wgmma(const uint16_t* q, const uint16_t* k,
+                                const uint16_t* v, const uint16_t* dout,
+                                const float* lse, const float* delta,
+                                uint16_t* dq, int B, const Dims& dm,
+                                cudaStream_t st);
+cudaError_t launch_dkv_f16_wgmma(const uint16_t* q, const uint16_t* k,
+                                 const uint16_t* v, const uint16_t* dout,
+                                 const float* lse, const float* delta,
+                                 uint16_t* dk, uint16_t* dv, int B,
+                                 const Dims& dm, cudaStream_t st);
 cudaError_t launch_fwd_bf16_wgmma(const uint16_t* q, const uint16_t* k,
                                   const uint16_t* v, uint16_t* o,
                                   float* lse, int B, const Dims& dm,

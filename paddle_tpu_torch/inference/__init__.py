@@ -13,20 +13,20 @@ from paddle_tpu_torch.serving.model_runner import runner_for
 _RUNNER_KNOBS = ("block_size", "max_model_len", "attn_impl", "kv_dtype",
                  "weight_dtype", "weight_group_size")
 
-# the serving dtypes by name; float16 serving needs the fp16 kernels,
-# ROADMAP.md 'Still to port' item 21
+# the serving dtypes by name; float16 serving needs the fp16 forms of the
+# serving kernels, ROADMAP.md 'Still to port' item 21, its serving half
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _serving_dtype(dtype):
     """``dtype`` as a torch dtype: fp32 or bf16 (a torch dtype or its
-    name); float16 raises naming item 21."""
+    name); float16 raises naming item 21's serving half."""
     dt = _DTYPES.get(dtype, dtype)
     if dt in (torch.float16, "float16"):
         raise NotImplementedError(
-            "dtype=float16: fp16 serving needs the fp16 instantiations of "
-            "the serving kernels (K1, K2): ROADMAP.md 'Still to port' item "
-            "21")
+            "dtype=float16: fp16 training is ported, fp16 serving needs the "
+            "fp16 forms of the serving kernels (K1-fp16, K2-fp16): "
+            "ROADMAP.md 'Still to port' item 21, its serving half (21B)")
     if dt not in _DTYPES.values():
         raise ValueError(f"dtype={dtype!r}; expected one of "
                          f"{sorted(_DTYPES)} (or the torch dtypes)")
@@ -50,15 +50,20 @@ def create_serving_engine(model, dtype=None, device="cuda", **kw):
     cast, the weight ladder's own included (fp8 weights come back in
     ``dtype``, int8 and int4 scales become ``dtype``); integer codes stay.
     The runner's dict is cast, never the model. float16 raises naming
-    ROADMAP.md item 21, a ``mesh`` naming item 10."""
-    if kw.pop("mesh", None) is not None:
+    ROADMAP.md item 21's serving half, a ``mesh`` naming item 10, and a
+    ``comm_dtype`` other than "fp32" without a mesh is a ValueError, as
+    in JAX."""
+    mesh = kw.pop("mesh", None)
+    comm_dtype = kw.pop("comm_dtype", "fp32")
+    if comm_dtype != "fp32" and mesh is None:
+        raise ValueError(
+            f"comm_dtype={comm_dtype!r} needs a tensor-parallel mesh: the "
+            "quantized collective replaces the row-parallel allreduce, "
+            "which only exists at tp > 1")
+    if mesh is not None:
         raise NotImplementedError(
-            "mesh= (tensor-parallel serving) is not ported yet: ROADMAP.md "
-            "'Still to port' item 10")
-    if kw.pop("comm_dtype", "fp32") != "fp32":
-        raise NotImplementedError(
-            "comm_dtype (quantized collectives) is not ported yet: "
-            "ROADMAP.md 'Still to port' item 10")
+            f"mesh= (tensor-parallel serving, comm_dtype={comm_dtype!r}) is "
+            "not ported yet: ROADMAP.md 'Still to port' item 10")
     dt = _serving_dtype(dtype) if dtype is not None else None
     runner = runner_for(model, device=device,
                         **{k: kw.pop(k) for k in _RUNNER_KNOBS if k in kw})

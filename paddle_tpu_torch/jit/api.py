@@ -18,10 +18,13 @@ the model's outputs, as in the JAX step: under O1 a Llama loss is bf16
 (its logits come out of a bf16 linear), an ERNIE loss fp32 (the MLM
 scores add an fp32 bias).
 
-AMP: amp_level "O1" (white-listed ops in bf16, fp32 parameters) or "O2"
-(after `amp.decorate(level="O2")`: bf16 parameters with fp32 master
-copies in Adam / AdamW) with amp_dtype "bfloat16". fp16 has no flash
-kernel instantiation yet and raises.
+AMP: amp_level "O1" (white-listed ops in the AMP dtype, fp32 parameters)
+or "O2" (after `amp.decorate(level="O2", dtype=...)`: parameters in the
+AMP dtype with fp32 master copies in Adam / AdamW), with amp_dtype
+"bfloat16" or "float16". As in JAX, the step only enters `auto_cast`: it
+does no loss scaling, at fp16 either (an eager loop with
+`amp.GradScaler` does; the flash kernels launch their fp16 forms on
+fp16 operands).
 """
 
 from __future__ import annotations
@@ -34,9 +37,8 @@ import torch
 
 from paddle_tpu_torch import amp
 
-FP16_ITEM = ("ROADMAP.md 'Still to port' item 21 (the fp16 instantiation "
-             "of the flash kernels)")
 AMP_LEVELS = ("O1", "O2")
+AMP_DTYPES = (torch.bfloat16, torch.float16)
 
 
 class TrainStep:
@@ -47,14 +49,9 @@ class TrainStep:
             if amp_level not in AMP_LEVELS:
                 raise ValueError(f"amp_level={amp_level!r}: expected one of "
                                  f"{AMP_LEVELS} or None")
-            dtype = amp.to_torch_dtype(amp_dtype)
-            if dtype == torch.float16:
-                raise NotImplementedError(
-                    f"amp_dtype={amp_dtype!r}: bf16 AMP is ported, fp16 "
-                    f"waits for {FP16_ITEM}")
-            if dtype != torch.bfloat16:
+            if amp.to_torch_dtype(amp_dtype) not in AMP_DTYPES:
                 raise ValueError(f"amp_dtype={amp_dtype!r}: AMP trains in "
-                                 "bfloat16")
+                                 "bfloat16 or float16")
         if mesh is not None or in_shardings is not None:
             raise NotImplementedError(
                 "mesh / in_shardings: sharded training is not ported yet: "

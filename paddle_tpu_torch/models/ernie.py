@@ -135,10 +135,10 @@ class ErnieEmbeddings(nn.Module):
         if position_ids is None:
             position_ids = torch.arange(s, device=input_ids.device)
         x = self.word_embeddings(input_ids)
-        x = x + self.position_embeddings(position_ids)
+        x = impl.add(x, self.position_embeddings(position_ids))
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = x + self.token_type_embeddings(token_type_ids)
+        x = impl.add(x, self.token_type_embeddings(token_type_ids))
         return self.dropout(self.layer_norm(x))
 
 
@@ -179,9 +179,9 @@ class ErnieBlock(nn.Module):
         self.drop = Dropout(cfg.dropout, gen)
 
     def forward(self, x, attn_mask=None):
-        x = self.ln1(x + self.attn(x, attn_mask=attn_mask))
-        return self.ln2(x + self.drop(self.fc2(
-            impl.gelu(self.fc1(x), approximate=True))))
+        x = self.ln1(impl.add(x, self.attn(x, attn_mask=attn_mask)))
+        return self.ln2(impl.add(x, self.drop(self.fc2(
+            impl.gelu(self.fc1(x), approximate=True)))))
 
 
 def _seeded(seed: int, device) -> torch.Generator:
@@ -236,7 +236,7 @@ class ErnieModel(nn.Module):
             mask = (1.0 - m[:, None, None, :].float()) * -1e4
         for blk in self.encoder:
             x = blk(x, attn_mask=mask)
-        pooled = impl.tanh(self.pooler(x[:, 0]))
+        pooled = impl.tanh(self.pooler(impl.getitem(x, (slice(None), 0))))
         return x, pooled
 
 
@@ -257,8 +257,8 @@ class ErniePretrainingHeads(nn.Module):
     def forward(self, sequence_output, pooled_output, decoder_weight):
         x = self.layer_norm(impl.gelu(self.transform(sequence_output),
                                       approximate=True))
-        scores = impl.matmul(x, decoder_weight, transpose_y=True) \
-            + self.decoder_bias
+        scores = impl.add(impl.matmul(x, decoder_weight, transpose_y=True),
+                          self.decoder_bias)
         return scores, self.seq_relationship(pooled_output)
 
 

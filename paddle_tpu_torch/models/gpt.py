@@ -131,8 +131,8 @@ class GPTBlock(nn.Module):
         self.mlp = GPTMLP(cfg, device, gen)
 
     def forward(self, x):
-        x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+        x = impl.add(x, self.attn(self.ln1(x)))
+        return impl.add(x, self.mlp(self.ln2(x)))
 
 
 class GPT(nn.Module):
@@ -176,7 +176,7 @@ class GPT(nn.Module):
         """input_ids [b, s] -> logits [b, s, vocab]."""
         s = input_ids.shape[1]
         pos = torch.arange(s, device=input_ids.device)
-        x = self.drop(self.wte(input_ids) + self.wpe(pos))
+        x = self.drop(impl.add(self.wte(input_ids), self.wpe(pos)))
         for blk in self.blocks:
             x = blk(x)
         x = self.ln_f(x)

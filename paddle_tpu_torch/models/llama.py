@@ -156,8 +156,8 @@ class LlamaBlock(nn.Module):
         self.mlp = LlamaMLP(cfg, device)
 
     def forward(self, x):
-        x = x + self.self_attn(self.input_layernorm(x))
-        return x + self.mlp(self.post_attention_layernorm(x))
+        x = impl.add(x, self.self_attn(self.input_layernorm(x)))
+        return impl.add(x, self.mlp(self.post_attention_layernorm(x)))
 
 
 class Llama(nn.Module):

@@ -60,11 +60,15 @@ SIGNATURES = {
     "flash_attention_fwd_f32": [_P] * 10 + [_I] * 8 + [_F, _I, _P],
     "flash_attention_bwd_dq_f32": [_P] * 12 + [_I] * 8 + [_F, _I, _P],
     "flash_attention_bwd_dkv_f32": [_P] * 13 + [_I] * 8 + [_F, _I, _P],
-    # their bf16 instantiations: the same arguments, q, k, v, o, do, dq,
-    # dk and dv bf16 (lse, delta and the masks fp32)
+    # their bf16 and fp16 instantiations: the same arguments, q, k, v, o,
+    # do, dq, dk and dv bf16 or fp16 (lse, delta and the masks fp32); the
+    # fp16 backward's after delta its fp32 ds_scale
     "flash_attention_fwd_bf16": [_P] * 10 + [_I] * 8 + [_F, _I, _P],
     "flash_attention_bwd_dq_bf16": [_P] * 12 + [_I] * 8 + [_F, _I, _P],
     "flash_attention_bwd_dkv_bf16": [_P] * 13 + [_I] * 8 + [_F, _I, _P],
+    "flash_attention_fwd_f16": [_P] * 10 + [_I] * 8 + [_F, _I, _P],
+    "flash_attention_bwd_dq_f16": [_P] * 13 + [_I] * 8 + [_F, _I, _P],
+    "flash_attention_bwd_dkv_f16": [_P] * 14 + [_I] * 8 + [_F, _I, _P],
 }
 
 
@@ -213,6 +217,9 @@ def stream_buffer(name: str, device, stream, n: int, dtype,
 
 # 1-byte element types of quantized pools (the kernels read 4 at a time)
 CODE_DTYPES = (torch.int8, torch.float8_e4m3fn)
+# 16-bit element types of the flash kernels' AMP instantiations (on wgmma
+# at d <= 128)
+HALF_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def require_launchable(name: str, floats, ints, codes=(), scales=(),
@@ -222,15 +229,17 @@ def require_launchable(name: str, floats, ints, codes=(), scales=(),
     read them as float4); 1-byte code operands (int8 or float8_e4m3fn
     pools, one dtype) contiguous and 4-byte aligned (read 4 at a time);
     fp32 scale operands contiguous and 4-byte aligned (read one by one);
-    bf16 operands (the flash kernels' bf16 instantiations) contiguous and
-    16-byte aligned (read 8 at a time)."""
-    if any(t.dtype != torch.bfloat16 for t in halves):
-        raise TypeError(f"{name}: half operands must be bf16, got "
-                        f"{[str(t.dtype) for t in halves]}")
+    16-bit operands (the flash kernels' bf16 and fp16 instantiations) all
+    bf16 or all fp16, contiguous and 16-byte aligned (read 8 at a
+    time)."""
+    if len({t.dtype for t in halves}) > 1 or any(
+            t.dtype not in HALF_DTYPES for t in halves):
+        raise TypeError(f"{name}: half operands must all be bf16 or all "
+                        f"fp16, got {[str(t.dtype) for t in halves]}")
     if not all(t.is_contiguous() for t in halves):
         raise ValueError(f"{name} needs contiguous operands")
     if any(t.data_ptr() % 16 for t in halves):
-        raise ValueError(f"{name}: bf16 operands must be 16-byte aligned")
+        raise ValueError(f"{name}: 16-bit operands must be 16-byte aligned")
     if any(t.dtype != torch.float32 for t in (*floats, *scales)):
         raise TypeError(f"{name}: the CUDA kernel takes fp32 operands, got "
                         f"{[str(t.dtype) for t in (*floats, *scales)]}")

@@ -35,7 +35,8 @@ visible key comes out as zeros with zero gradient.
   flash_forward             wrapper of K3a -> (o, lse)
   flash_backward            wrappers of K3b-dq and K3b-dkv -> (dq, dk, dv);
                             delta = rowsum(dO * O) is plain torch before
-                            the two launches, as in JAX
+                            the two launches, as in JAX, and at fp16 so
+                            are `ds_scales`
   flash_forward_reference   plain PyTorch versions with the kernels' exact
   flash_backward_reference  contract (masked-row guard, 1e-30 clamps);
                             the backward is flash_backward_dq_reference and
@@ -49,24 +50,30 @@ visible key comes out as zeros with zero gradient.
                             mirrored on the CPU (the plain versions compute
                             in fp32, or fp64 for fp64 operands)
 
-Operand dtypes: q, k, v (and o, do) are all fp32 or all bf16 (AMP); lse
-and delta are fp32 either way, and so are the mask and the per-key bias.
-bf16 operands launch the bf16 instantiations of the three kernels (`*_bf16`
-entry points): products on bf16 tensor cores with fp32 accumulators, the
-softmax, lse and delta in fp32, o, dq, dk and dv rounded to bf16 once at
-the end, as the JAX kernels upcast each bf16 tile to fp32 and write their
-outputs in the input dtype. The plain versions do the same (fp32 compute,
-outputs in the input dtype). Mixed operand dtypes raise.
+Operand dtypes: q, k, v (and o, do) are all fp32, all bf16 or all fp16
+(AMP); lse and delta are fp32 either way, and so are the mask and the
+per-key bias. bf16 and fp16 operands launch the 16-bit instantiations of
+the three kernels (`*_bf16`, `*_f16` entry points): products on the
+16-bit tensor cores with fp32 accumulators, the softmax, lse and delta in
+fp32, o, dq, dk and dv rounded to the operands' type once at the end, as
+the JAX kernels upcast each 16-bit tile to fp32 and write their outputs
+in the input dtype. At fp16 an output that passes 65504 is inf, as the
+JAX kernels' and the plain versions' cast makes it (`GradScaler` reads
+that inf to skip the step); the kernels keep dS within fp16's range by a
+power-of-two factor per accumulator row that `ds_scales` chooses from a
+bound of the row's |dS| (csrc/flash_common.cuh). The plain versions
+compute in fp32 and cast the outputs to the input dtype. Mixed operand
+dtypes raise.
 
 On CUDA tensors the wrappers launch the hand-written kernels in
 csrc/flash_attention.cu or raise; on CPU tensors they run the plain
-versions. At bf16 the three entry points take, for d <= 128, the wgmma
-kernels of csrc/flash_attention_wgmma.cu (TMA rings, warp
+versions. At bf16 and fp16 the three entry points take, for d <= 128, the
+wgmma kernels of csrc/flash_attention_wgmma.cu (TMA rings, warp
 specialisation), and for wider heads the mma.sync kernels beside the fp32
 ones; `kernel_variant` names the one a launch takes. `COUNTS` holds one
 LaunchCounts per kernel for each form, keyed by (masked, operand dtype):
-masked is a call with any masking operand, and the dtype fp32 or bf16;
-each launch is also counted under its variant (`form_launches`).
+masked is a call with any masking operand, and the dtype fp32, bf16 or
+fp16; each launch is also counted under its variant (`form_launches`).
 `counts_for` looks a form up and `reset_counts` sets them all to 0, so a
 run can tell which instantiation ran.
 """
@@ -79,7 +86,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from paddle_tpu_torch.ops._build import (
-    LaunchCounts, check, library, refuse_interpret, require_launchable,
+    HALF_DTYPES, LaunchCounts, check, library, refuse_interpret,
+    require_launchable,
 )
 
 NEG_INF = -1e30
@@ -90,20 +98,22 @@ MASKED_BELOW = NEG_INF * 0.5
 MAX_HEAD_DIM = 256
 # the JAX kernel's tile, the granularity of its block mask
 JAX_BLOCK = 128
-# the widest head of the bf16 kernels on wgmma
+# the widest head of the bf16 and fp16 kernels on wgmma
 WGMMA_MAX_HEAD_DIM = 128
 
 _KERNELS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
 # the operand dtypes the kernels take, and each one's entry-point suffix
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
+           torch.float16: "f16"}
 COUNTS = {(masked, dtype): {name: LaunchCounts() for name in _KERNELS}
           for masked in (False, True) for dtype in _SUFFIX}
 
 
 def counts_for(masked: bool, dtype=torch.float32) -> dict:
-    """The LaunchCounts of one form: dense or masked, bf16 or not (the
-    plain versions' fp64 calls count with fp32)."""
-    return COUNTS[(bool(masked), torch.bfloat16 if dtype == torch.bfloat16
+    """The LaunchCounts of one form: dense or masked, by operand dtype
+    (fp32, bf16 or fp16; the plain versions' fp64 calls count with
+    fp32)."""
+    return COUNTS[(bool(masked), dtype if dtype in HALF_DTYPES
                    else torch.float32)]
 
 
@@ -111,12 +121,12 @@ def kernel_variant(name: str, dtype, d: int) -> str:
     """The kernel a launch of ``name`` (one of the three flash kernels)
     takes on the card for operands of ``dtype`` and head dim ``d``, as the
     entry points in csrc/flash_attention.cu choose it: "wgmma" for the bf16
-    forward, dq and dk/dv at d <= WGMMA_MAX_HEAD_DIM
+    and fp16 forward, dq and dk/dv at d <= WGMMA_MAX_HEAD_DIM
     (flash_attention_wgmma.cu), "mma" for every other (mma.sync: 3xTF32 at
-    fp32, bf16 above)."""
+    fp32, bf16 or fp16 above)."""
     if name not in _KERNELS:
         raise ValueError(f"kernel_variant: {name!r} is none of {_KERNELS}")
-    if dtype == torch.bfloat16 and d <= WGMMA_MAX_HEAD_DIM:
+    if dtype in HALF_DTYPES and d <= WGMMA_MAX_HEAD_DIM:
         return "wgmma"
     return "mma"
 
@@ -297,6 +307,42 @@ def flash_backward_dkv_reference(q, k, v, do, lse, delta, causal=True,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+# the fp16 backward's dS times its row's factor stays below this
+# (`ds_scales`): the split's hi term is finite (fp16's largest is 65504)
+# and the bound is at most 2x loose on top of its own looseness
+DS_TOP = 2.0 ** 15
+# the factors' range: 2^+-100 (a row whose bound is 0 takes the largest)
+DS_SCALE_EXP = 100
+
+
+def _pow2_under(bound):
+    """The power of two f with bound * f in [DS_TOP / 2, DS_TOP), within
+    2^+-DS_SCALE_EXP; 2^DS_SCALE_EXP where the bound is 0."""
+    _, e = torch.frexp(bound)          # bound = m 2^e, m in [0.5, 1)
+    e = torch.where(bound > 0, int(math.log2(DS_TOP)) - e,
+                    torch.full_like(e, DS_SCALE_EXP))
+    return torch.ldexp(torch.ones_like(bound),
+                       e.clamp(-DS_SCALE_EXP, DS_SCALE_EXP))
+
+
+def ds_scales(v, do, scale):
+    """The fp16 backward's factors of dS (csrc/flash_common.cuh): fp32
+    powers of two, ([b, h, sq] per query row for dq, [b, h, sk] per key for
+    dk/dv), each bringing a bound of its row's |dS| under DS_TOP. With
+    |dP_ij| = |dO_i . V_j| <= |dO_i| |V_j| and |delta_i| = |dO_i . O_i| <=
+    |dO_i| max_j |V_j| (O_i is a convex combination of the V_j), |dS_ij| =
+    scale P_ij |dP_ij - delta_i| is at most 2 scale |dO_i| max_j |V_j| in
+    query row i and scale max_i |dO_i| (|V_j| + max_j |V_j|) in key j.
+    Plain torch over dO and V, before the launches, as delta is."""
+    norm = torch.linalg.vector_norm
+    vn = norm(v, dim=-1, dtype=torch.float32).transpose(1, 2)    # [b, h, sk]
+    dn = norm(do, dim=-1, dtype=torch.float32).transpose(1, 2)   # [b, h, sq]
+    vmax = vn.amax(dim=-1, keepdim=True)
+    dmax = dn.amax(dim=-1, keepdim=True)
+    return (_pow2_under(2 * scale * dn * vmax).contiguous(),
+            _pow2_under(scale * dmax * (vn + vmax)).contiguous())
+
+
 def backward_delta(o, do):
     """delta = rowsum(dO * O) as fp32 [b, h, sq], the per-row term both
     backward kernels read (plain torch, as in JAX)."""
@@ -318,7 +364,7 @@ def flash_backward_reference(q, k, v, o, do, lse, causal=True, scale=None,
 
 def _check_operands(name, tensors, masks: Masks, lse=()):
     """``tensors`` are the attention operands (q, k, v, and o, do), all
-    fp32 or all bf16; ``lse`` the fp32 row operands."""
+    fp32, all bf16 or all fp16; ``lse`` the fp32 row operands."""
     given = [t for t in (*tensors, *lse, *masks) if t is not None]
     devices = {t.device for t in given}
     if len(devices) != 1:
@@ -334,9 +380,10 @@ def _check_operands(name, tensors, masks: Masks, lse=()):
     floats = [t for t in (masks.mask, masks.kbias) if t is not None]
     dtypes = {t.dtype for t in tensors}
     if len(dtypes) != 1 or not dtypes <= set(_SUFFIX):
-        raise TypeError(f"{name}: q, k, v (and o, do) must all be fp32 or "
-                        f"all bf16, got {[str(t.dtype) for t in tensors]}")
-    if tensors[0].dtype == torch.bfloat16:
+        raise TypeError(f"{name}: q, k, v (and o, do) must all be fp32, all "
+                        f"bf16 or all fp16, got "
+                        f"{[str(t.dtype) for t in tensors]}")
+    if tensors[0].dtype in HALF_DTYPES:
         require_launchable(name, lse, ints, scales=floats, halves=tensors)
     else:
         require_launchable(name, (*tensors, *lse), ints, scales=floats)
@@ -404,28 +451,35 @@ def launch_forward(q, k, v, o, lse, causal, scale, masks=Masks()):
         int(causal), _stream(q)), "flash_forward")
 
 
+def _ds_arg(q, ds_scale):
+    """The fp16 entry points' ds_scale argument (none at fp32 and bf16)."""
+    return (ds_scale.data_ptr(),) if q.dtype == torch.float16 else ()
+
+
 def launch_backward_dq(q, k, v, do, lse, delta, dq, causal, scale,
-                       masks=Masks()):
-    """K3b-dq into dq; the caller has checked the operands."""
+                       masks=Masks(), ds_scale=None):
+    """K3b-dq into dq; the caller has checked the operands (and at fp16
+    given `ds_scales(v, do, scale)[0]` as ds_scale)."""
     b, sq, h, d = q.shape
     ptrs, sizes = _mask_args(q, k, masks)
     check(_entry("flash_attention_bwd_dq", q)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *ptrs, b, h, sq,
-        k.shape[1], d, *sizes, scale, int(causal), _stream(q)),
-        "flash_backward_dq")
+        lse.data_ptr(), delta.data_ptr(), *_ds_arg(q, ds_scale),
+        dq.data_ptr(), *ptrs, b, h, sq, k.shape[1], d, *sizes, scale,
+        int(causal), _stream(q)), "flash_backward_dq")
 
 
 def launch_backward_dkv(q, k, v, do, lse, delta, dk, dv, causal, scale,
-                        masks=Masks()):
-    """K3b-dkv into dk and dv; the caller has checked the operands."""
+                        masks=Masks(), ds_scale=None):
+    """K3b-dkv into dk and dv; the caller has checked the operands (and at
+    fp16 given `ds_scales(v, do, scale)[1]` as ds_scale)."""
     b, sq, h, d = q.shape
     ptrs, sizes = _mask_args(q, k, masks)
     check(_entry("flash_attention_bwd_dkv", q)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *ptrs, b, h, sq, k.shape[1], d, *sizes, scale, int(causal),
-        _stream(q)), "flash_backward_dkv")
+        lse.data_ptr(), delta.data_ptr(), *_ds_arg(q, ds_scale),
+        dk.data_ptr(), dv.data_ptr(), *ptrs, b, h, sq, k.shape[1], d,
+        *sizes, scale, int(causal), _stream(q)), "flash_backward_dkv")
 
 
 def flash_forward(q, k, v, causal=True, scale=None, *, mask=None,
@@ -472,12 +526,17 @@ def flash_backward(q, k, v, o, do, lse, causal=True, scale=None, *,
                          f"{tuple(do.shape)} and lse {tuple(lse.shape)} do "
                          f"not match q {tuple(q.shape)}")
     delta = backward_delta(o, do)
+    row_scale = key_scale = None
+    if q.dtype == torch.float16:
+        row_scale, key_scale = ds_scales(v, do, scale)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     d = q.shape[3]
-    launch_backward_dq(q, k, v, do, lse, delta, dq, causal, scale, m)
+    launch_backward_dq(q, k, v, do, lse, delta, dq, causal, scale, m,
+                       row_scale)
     counts["flash_backward_dq"].count_kernel(
         kernel_variant("flash_backward_dq", q.dtype, d))
-    launch_backward_dkv(q, k, v, do, lse, delta, dk, dv, causal, scale, m)
+    launch_backward_dkv(q, k, v, do, lse, delta, dk, dv, causal, scale, m,
+                        key_scale)
     counts["flash_backward_dkv"].count_kernel(
         kernel_variant("flash_backward_dkv", q.dtype, d))
     return dq, dk, dv

@@ -26,7 +26,10 @@ then computes as the JAX function does in the dtypes it was given: the
 norms take fp32 statistics and cast back to x's dtype before the gain,
 rotary_embedding computes with fp32 tables and returns q's dtype, and
 mixed dtypes promote as jnp promotes them (bf16 with fp32 is fp32).
-Outside auto_cast nothing is cast.
+Outside auto_cast nothing is cast. `add` and `getitem` are the JAX
+Tensor's `+` and indexing, which dispatch as registry ops and so are cast
+under O2 too (an fp32 norm output plus an fp16 branch is fp16 there); the
+models' residual and embedding sums go through them.
 
 The rest of the flash family lowers onto the same kernels as in JAX:
 `flash_attn_unpadded` (cu_seqlens -> segment ids), `flash_attn`,
@@ -51,6 +54,24 @@ _FRAMEWORK_ITEM = "ROADMAP.md 'Still to port' item 12 (the framework)"
 _DROPOUT_ITEM = ("attention dropout is not in the flash kernels: ROADMAP.md "
                  "'Still to port' item 19 (attention dropout); train with "
                  "dropout=0.0")
+
+
+def add(x, y):
+    """x + y as the JAX Tensor's `+` dispatches it: the registry's "add"
+    op, whose inputs AMP casts under O2 (fp32 with fp16 is then fp16, where
+    torch's promotion would give fp32); outside O2 torch's promotion,
+    which is jnp's. The models' residual and embedding sums go through
+    it."""
+    x, y = cast_inputs("add", x, y)
+    return x + y
+
+
+def getitem(x, idx):
+    """x[idx] as the JAX Tensor's indexing dispatches it: the registry's
+    "_getitem" op, whose input AMP casts under O2 (fp32 to the AMP
+    dtype)."""
+    (x,) = cast_inputs("_getitem", x)
+    return x[idx]
 
 
 def repeat_interleave(x, repeats, axis=None):

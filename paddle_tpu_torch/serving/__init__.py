@@ -8,8 +8,9 @@ with recompute-on-resume, deadlines, retries, NaN guard, invariant
 auditor, the shared-prefix page cache with copy-on-write, fused ragged
 steps, speculative decoding) over `KVCachePool` and a `LlamaRunner` or
 `GPTRunner` whose attention runs the port's CUDA kernels, its decode
-kinds as CUDA graphs on the card. The draft proposers stay in
-`serving.speculate`, as in the JAX package.
+kinds as CUDA graphs on the card. The draft proposers (`NgramProposer`,
+`DraftModelProposer`, `AdaptiveK`, `shadow_runner`) and
+`quantized_page_write` are exported here too, as in the JAX package.
 """
 
 from paddle_tpu_torch.serving.engine import (
@@ -18,7 +19,7 @@ from paddle_tpu_torch.serving.engine import (
 )
 from paddle_tpu_torch.serving.kv_cache import (
     SCRATCH_PAGE, BlockAllocator, KVCachePool, PrefixCache, SequenceKV,
-    page_content_hash,
+    page_content_hash, quantized_page_write,
 )
 from paddle_tpu_torch.serving.metrics import (
     Counter, EngineMetrics, Gauge, Histogram,
@@ -34,15 +35,19 @@ from paddle_tpu_torch.serving.resilience import (
 from paddle_tpu_torch.serving.scheduler import (
     FCFSScheduler, Request, RequestState, SamplingParams,
 )
+from paddle_tpu_torch.serving.speculate import (
+    AdaptiveK, DraftModelProposer, NgramProposer, shadow_runner,
+)
 
 __all__ = [
-    "SCRATCH_PAGE", "BlockAllocator", "Counter", "EngineMetrics",
-    "FCFSScheduler", "FaultInjector", "GPTRunner", "Gauge", "Histogram",
-    "InjectedDeviceError", "InvariantViolation",
-    "KVCachePool", "LlamaRunner", "PagedModelRunner", "PrefixCache",
-    "QueueFullError", "Request", "RequestOutput", "RequestState",
-    "SamplingParams", "SequenceKV", "ServingEngine", "TokenEvent",
-    "audit_engine", "bucket_len", "create_engine", "greedy_grid",
-    "naive_generate", "page_content_hash", "paged_attend", "runner_for",
-    "sample_token", "seeded_sample",
+    "SCRATCH_PAGE", "AdaptiveK", "BlockAllocator", "Counter",
+    "DraftModelProposer", "EngineMetrics", "FCFSScheduler", "FaultInjector",
+    "GPTRunner", "Gauge", "Histogram", "InjectedDeviceError",
+    "InvariantViolation", "KVCachePool", "LlamaRunner", "NgramProposer",
+    "PagedModelRunner", "PrefixCache", "QueueFullError", "Request",
+    "RequestOutput", "RequestState", "SamplingParams", "SequenceKV",
+    "ServingEngine", "TokenEvent", "audit_engine", "bucket_len",
+    "create_engine", "greedy_grid", "naive_generate", "page_content_hash",
+    "paged_attend", "quantized_page_write", "runner_for", "sample_token",
+    "seeded_sample", "shadow_runner",
 ]

@@ -672,7 +672,10 @@ class ServingEngine:
         t_plan = self.metrics.clock() - t0
         self.metrics.host_plan_seconds.inc(t_plan)
         if self._inflight is not None:
+            # planning ran under an in-flight launch: host time the device
+            # did not wait for
             self.metrics.planned_ahead_steps.inc()
+            self.metrics.overlapped_plan_seconds.inc(t_plan)
         if self.pipelined:
             # ---- COMMIT: drain and replay the previous step's launch;
             # re-slice the plan after it (a committed fused launch
@@ -729,6 +732,11 @@ class ServingEngine:
         if self.pool.prefix_cache is not None:
             self.metrics.prefix_cached_pages.set(len(self.pool.prefix_cache))
         self.metrics.step_seconds.inc(self.metrics.clock() - t0)
+        tot = self.metrics.step_seconds.value
+        blocked = (self.metrics.drain_wait_seconds.value
+                   + self.metrics.overlapped_plan_seconds.value)
+        self.metrics.device_idle_fraction.set(
+            max(0.0, 1.0 - min(blocked / tot, 1.0)) if tot > 0 else 0.0)
         if self.audit:
             audit_engine(self)
         return events

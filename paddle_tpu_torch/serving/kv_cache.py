@@ -63,7 +63,7 @@ KV_QMAX = 127.0
 KV_DTYPES = ("fp32", "int8", "fp8", "mixed")
 
 # the logical dtypes a pool stores on its "fp32" and "mixed" rungs: the
-# runner's compute dtype (float16 is ROADMAP.md item 21)
+# runner's compute dtype (float16 is ROADMAP.md item 21's serving half)
 POOL_DTYPES = (torch.float32, torch.bfloat16)
 
 # ml_dtypes' float32 -> float8_e4m3fn overflow rule: 464 is the tie
@@ -447,8 +447,9 @@ class KVCachePool:
         if dtype not in POOL_DTYPES:
             raise NotImplementedError(
                 f"KVCachePool(dtype={dtype}): fp32 and bf16 pools are "
-                "ported; float16 serving is ROADMAP.md 'Still to port' "
-                "item 21 (the fp16 kernels)")
+                "ported; float16 pools wait for the fp16 forms of the "
+                "serving kernels (K1-fp16, K2-fp16): ROADMAP.md 'Still to "
+                "port' item 21, its serving half (21B)")
         check_kv_dtype(kv_dtype, "KVCachePool")
         self.num_layers = num_layers
         self.num_blocks = num_blocks

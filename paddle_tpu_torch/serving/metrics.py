@@ -122,10 +122,15 @@ class EngineMetrics:
         # pipelined loop: steps whose planning ran while a launch was in
         # flight
         self.planned_ahead_steps = Counter("planned_ahead_steps")
-        # host-clock split of each step: planning, blocking drains, total
+        # host-clock split of each step: planning (and the part of it run
+        # under an in-flight launch), blocking drains, total
         self.host_plan_seconds = Counter("host_plan_seconds")
+        self.overlapped_plan_seconds = Counter("overlapped_plan_seconds")
         self.drain_wait_seconds = Counter("drain_wait_seconds")
         self.step_seconds = Counter("step_seconds")
+        # 1 - (drain waits + overlapped planning) / step time, set after
+        # every step: the loop time in which the device plausibly waited
+        self.device_idle_fraction = Gauge("device_idle_fraction")
         self.decode_steps = Counter("decode_steps")
         self.queue_depth = Gauge("queue_depth")
         self.running = Gauge("running")
@@ -188,8 +193,11 @@ class EngineMetrics:
         return self.decode_steps.value / t if t > 0 else 0.0
 
     def snapshot(self) -> Dict[str, float]:
+        # every counter and gauge but pool_utilization, which the JAX
+        # snapshot gives only as its peak
         snap = {name: inst.value for name, inst in vars(self).items()
-                if isinstance(inst, (Counter, Gauge))}
+                if isinstance(inst, (Counter, Gauge))
+                and name != "pool_utilization"}
         snap.update({
             "queue_depth_peak": self.queue_depth.peak,
             "pool_utilization_peak": self.pool_utilization.peak,

@@ -1,3 +1,5 @@
-from paddle_tpu_torch.utils.flags import define_flag, flag, set_flags
+from paddle_tpu_torch.utils.flags import (
+    define_flag, flag, flags_version, get_flags, set_flags,
+)
 
-__all__ = ["define_flag", "flag", "set_flags"]
+__all__ = ["define_flag", "flag", "flags_version", "get_flags", "set_flags"]

@@ -3,13 +3,14 @@ reads).
 
 A process-global dict, like the reference's exported flag registry
 (paddle.set_flags / paddle.get_flags); a FLAGS_* environment variable of
-the same name seeds a flag's default when it is defined.
+the same name seeds a flag's default when it is defined. `flags_version`
+counts the `set_flags` calls, as the JAX module's does.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterable, Mapping, Union
 
 _FLAGS: Dict[str, Any] = {}
 
@@ -28,12 +29,30 @@ def define_flag(name: str, default: Any, help_str: str = "") -> None:
         _FLAGS[name] = env
 
 
+_VERSION = [0]
+
+
+def flags_version() -> int:
+    """How many `set_flags` calls there have been."""
+    return _VERSION[0]
+
+
 def set_flags(flags: Mapping[str, Any]) -> None:
-    """Like paddle.set_flags; an unknown name raises KeyError."""
+    """Like paddle.set_flags; an unknown name raises KeyError. Bumps
+    `flags_version`."""
     for k, v in flags.items():
         if k not in _FLAGS:
             raise KeyError(f"unknown flag {k!r}")
         _FLAGS[k] = v
+    _VERSION[0] += 1
+
+
+def get_flags(flags: Union[Iterable[str], str]) -> Dict[str, Any]:
+    """Like paddle.get_flags: a flag name or an iterable of names -> {name:
+    value}; an unknown name raises KeyError."""
+    if isinstance(flags, str):
+        flags = [flags]
+    return {k: _FLAGS[k] for k in flags}
 
 
 def flag(name: str) -> Any:

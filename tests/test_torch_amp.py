@@ -130,13 +130,14 @@ CUSTOM = {"none": ((), ()),
           "custom": (("add", "my_op", "layer_norm"), ("matmul", "reshape"))}
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("custom", sorted(CUSTOM))
 @pytest.mark.parametrize("level", ["O1", "O2"])
 @pytest.mark.parametrize("name", NAMES)
-def test_current_cast_dtype_equals_jax(name, level, custom):
+def test_current_cast_dtype_equals_jax(name, level, custom, dtype):
     white, black = CUSTOM[custom]
     kw = dict(custom_white_list=white, custom_black_list=black, level=level,
-              dtype="bfloat16")
+              dtype=dtype)
     with jamp.auto_cast(**kw):
         ref = jax_amp_state.current_cast_dtype(name)
     with amp.auto_cast(**kw):
@@ -260,30 +261,36 @@ def _port_model(which, params):
     return model
 
 
-def _forward_and_loss(which, model, wrap, loss_fn, level):
+def _forward_and_loss(which, model, wrap, loss_fn, level,
+                      dtype="bfloat16"):
     """The TrainStep's forward (under auto_cast) and loss (outside)."""
     ctx = jamp if wrap is paddle.to_tensor else amp
     if which == "llama":
         ids, labels = _llama_inputs()
-        with ctx.auto_cast(level=level):
+        with ctx.auto_cast(level=level, dtype=dtype):
             out = model(wrap(ids))
         return loss_fn(out, wrap(labels))
     ids, types, att, labels, sop = _ernie_batch()
-    with ctx.auto_cast(level=level):
+    with ctx.auto_cast(level=level, dtype=dtype):
         out = model(wrap(ids), wrap(types), wrap(att))
     return loss_fn(out, wrap(labels), wrap(sop))
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("level", ["O1", "O2"])
 @pytest.mark.parametrize("which", ["llama", "ernie"])
-def test_every_op_takes_and_gives_the_jax_dtypes(which, level, monkeypatch):
+def test_every_op_takes_and_gives_the_jax_dtypes(which, level, dtype,
+                                                 monkeypatch):
+    """At fp16 the cast differs from bf16's: fp16 is a numpy floating type,
+    so an fp16 input to a black-listed op is cast to fp32, where a bf16
+    one is left as it is."""
     jax_model = _jax_model(which)
     params = {k: np.asarray(v) for k, v in
               functionalize(jax_model).param_values().items()}
     model = _port_model(which, params)
     if level == "O2":
-        jamp.decorate(jax_model, level="O2")
-        amp.decorate(model, level="O2")
+        jamp.decorate(jax_model, level="O2", dtype=dtype)
+        amp.decorate(model, level="O2", dtype=dtype)
     jax_loss_fn = (jax_llama_loss_fn if which == "llama"
                    else jax_ernie.ernie_pretrain_loss_fn)
     port_loss_fn = (llama_loss_fn if which == "llama"
@@ -291,10 +298,10 @@ def test_every_op_takes_and_gives_the_jax_dtypes(which, level, monkeypatch):
     ref, ours = [], []
     with _jax_trace(ref):
         ref_loss = _forward_and_loss(which, jax_model, paddle.to_tensor,
-                                     jax_loss_fn, level)
+                                     jax_loss_fn, level, dtype)
     with _port_trace(ours, monkeypatch):
         loss = _forward_and_loss(which, model, torch.from_numpy,
-                                 port_loss_fn, level)
+                                 port_loss_fn, level, dtype)
     assert len(ref) > 10
     assert ours == ref
     assert _dt(loss.dtype) == _dt(ref_loss._value.dtype)
@@ -720,6 +727,13 @@ def test_amp_entry_points_and_probes():
         amp.auto_cast(dtype="int8")
     model = Llama(LlamaConfig(**LLAMA), device="cpu")
     opt = AdamW(parameters=model.named_parameters())
-    with pytest.raises(NotImplementedError, match="item 21"):
+    # fp16 AMP trains (tests/test_torch_fp16_training.py); other dtypes
+    # and levels are errors of the call
+    assert TrainStep(model, llama_loss_fn, opt, amp_level="O2",
+                     amp_dtype="float16").amp_dtype == "float16"
+    with pytest.raises(ValueError, match="float16"):
         TrainStep(model, llama_loss_fn, opt, amp_level="O2",
+                  amp_dtype="float32")
+    with pytest.raises(ValueError, match="amp_level"):
+        TrainStep(model, llama_loss_fn, opt, amp_level="O3",
                   amp_dtype="float16")

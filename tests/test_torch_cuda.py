@@ -44,6 +44,11 @@ kernel names); the bf16 autograd path launches only them; AdamW's multi-tensor s
 (grouped, in chunks) equals its update over each parameter alone within
 1e-6 (fp32 and bf16 parameters with master copies); a small Llama's O1 /
 O2 step through them is held against the dense path at bf16 tolerances.
+Their fp16 instantiations (fp16 AMP) pass the same sweep at fp16, keep
+fp16's range (dO scaled as GradScaler scales it, below fp16's normal
+range, and outputs past 65504: finite exactly where the plain version is),
+launch the fp16 kernels by head dim, and the fp16 autograd path launches
+only them.
 
 The decode kinds run as CUDA graphs on the card: a replayed decode step
 and horizon (greedy and seeded) must equal the eager call on the same
@@ -680,12 +685,12 @@ BF16_FORMS = ["dense", "kbias_soft", "kbias_hard", "mask_mh1", "mask_mhh",
               "bool_dead_rows", "segments", "block_mask"]
 
 
-def _bf16_operands(gen, b, sq, sk, h, d):
+def _bf16_operands(gen, b, sq, sk, h, d, dtype=torch.bfloat16):
     q = torch.randn(b, sq, h, d, device="cuda", generator=gen)
     k, v = (torch.randn(b, sk, h, d, device="cuda", generator=gen)
             for _ in range(2))
     do = torch.randn(b, sq, h, d, device="cuda", generator=gen)
-    return tuple(t.to(torch.bfloat16) for t in (q, k, v, do))
+    return tuple(t.to(dtype) for t in (q, k, v, do))
 
 
 @functools.cache
@@ -716,18 +721,20 @@ def _bf16_misround(kern, plain, exact, what):
     assert share <= cs.MISROUND_GATE, (what, share)
 
 
-def _bf16_vs_fp64(gen, form, d, causal, sq, sk, b=2, h=3):
-    """The bf16 kernels on one case against fp64 (see the sweep below)."""
-    q, k, v, do = _bf16_operands(gen, b, sq, sk, h, d)
+def _bf16_vs_fp64(gen, form, d, causal, sq, sk, b=2, h=3,
+                  dtype=torch.bfloat16):
+    """The bf16 (or fp16) kernels on one case against fp64 (see the sweep
+    below)."""
+    q, k, v, do = _bf16_operands(gen, b, sq, sk, h, d, dtype)
     ops = {} if form == "dense" else _masked_operands(gen, form, b, sq, sk, h)
     # (a bool mask over one key lowers to a per-key bias: mask is None)
     ops = {n: t for n, t in ops.items() if t is not None}
-    counts = fa.counts_for(bool(ops), torch.bfloat16)
+    counts = fa.counts_for(bool(ops), dtype)
     fa.reset_counts()
     o, lse = fa.flash_forward(q, k, v, causal, **ops)
     grads = fa.flash_backward(q, k, v, o, do, lse, causal, **ops)
-    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
-    assert all(g.dtype == torch.bfloat16 for g in grads)
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert all(g.dtype == dtype for g in grads)
     assert {n: (c.kernel_launches, c.plain_launches)
             for n, c in counts.items()} == dict.fromkeys(counts, (1, 0))
     assert all(c.kernel_launches == 0 for c in (*fa.counts_for(False).values(),
@@ -778,11 +785,15 @@ def test_bf16_flash_kernels_against_fp64_at_4096(gen, d):
     _bf16_vs_fp64(gen, "dense", d, True, 4096, 4096, b=1, h=2)
 
 
-def _launched_kernels(fn):
-    """The names of the CUDA kernels ``fn`` launches (torch.profiler)."""
+def _launched_kernels(fn, times=2):
+    """The names of the CUDA kernels ``fn`` launches (torch.profiler), run
+    ``times`` times in one profile: the tracer can lose a kernel while it
+    requests an activity buffer (on the card it dropped one flash kernel
+    now and then), so each kernel gets two chances to be recorded."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(times):
+            fn()
         torch.cuda.synchronize()
     return {e.key for e in prof.key_averages()}
 
@@ -791,7 +802,7 @@ def _launched_kernels(fn):
 def test_bf16_head_dims_launch_their_kernel_variant(gen, d):
     """At bf16 the forward, dq and dk/dv launch their wgmma kernels for
     d <= 128 and the mma.sync kernels above, as `kernel_variant` names them
-    and the counts record them."""
+    and the counts record them (two runs: `_launched_kernels`)."""
     q, k, v, do = _bf16_operands(gen, 1, 200, 200, 2, d)
     fa.reset_counts()
 
@@ -808,7 +819,7 @@ def test_bf16_head_dims_launch_their_kernel_variant(gen, d):
     for name, c in fa.counts_for(False, torch.bfloat16).items():
         variant = fa.kernel_variant(name, torch.bfloat16, d)
         assert variant == ("wgmma" if wgmma else "mma")
-        assert c.form_launches == {variant: 1}, (name, c.form_launches)
+        assert c.form_launches == {variant: 2}, (name, c.form_launches)
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["dense", "masked"])
@@ -830,11 +841,104 @@ def test_bf16_autograd_launches_only_the_bf16_kernels(gen, masked):
 
 
 def test_bf16_kernels_refuse_mixed_dtypes(gen):
+    """One dtype for q, k, v: bf16 beside fp32 or fp16 raises (all-fp16
+    operands launch the fp16 kernels: the fp16 tests below)."""
     q, k, v, _ = _bf16_operands(gen, 1, 16, 16, 2, 64)
-    with pytest.raises(TypeError, match="all be fp32 or all bf16"):
+    with pytest.raises(TypeError, match="all be fp32, all bf16 or all fp16"):
         fa.flash_forward(q, k.float(), v)
-    with pytest.raises(TypeError, match="all be fp32 or all bf16"):
-        fa.flash_forward(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="all be fp32, all bf16 or all fp16"):
+        fa.flash_forward(q.half(), k, v.half())
+
+
+# ------------------------------------------------------ fp16 (fp16 AMP)
+
+# the fp16 kernels: the sweep of the bf16 ones at fp16, and fp16's range
+@pytest.mark.parametrize("d", [40, 64, 96, 128, 256])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("sq,sk", [(1, 1), (63, 63), (257, 257),
+                                   (1000, 1000), (65, 200), (200, 65),
+                                   (256, 256), (100, 384)])
+@pytest.mark.parametrize("form", BF16_FORMS)
+def test_f16_flash_kernels_against_fp64(gen, form, d, causal, sq, sk):
+    """K3a, K3b-dq and K3b-dkv at fp16, dense and in every masked form: o,
+    lse, dq, dk and dv against the plain versions evaluated in fp64 on
+    the same fp16 operands, within twice the fp16 plain versions' error,
+    and o, dq, dk and dv misrounded at most 1/16 of the time."""
+    if form == "block_mask" and (sq % min(128, sq) or sk % min(128, sk)):
+        pytest.skip("a block mask tiles only lengths on the 128-blocks")
+    _bf16_vs_fp64(gen, form, d, causal, sq, sk, dtype=torch.float16)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_f16_flash_kernels_against_fp64_at_4096(gen, d):
+    """The fp16 sweep's gates at 4096 x 4096, causal: the long columns
+    where P's subnormal low term moved dV's rounding before P took its
+    2^14 scale."""
+    _bf16_vs_fp64(gen, "dense", d, True, 4096, 4096, b=1, h=2,
+                  dtype=torch.float16)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("case", range(3), ids=["dS_past_65504",
+                                                "dO_subnormal", "overflow"])
+def test_f16_flash_kernels_keep_fp16s_range(gen, case, d):
+    """`chip_smoke.py`'s RANGE_CASES: dO scaled as GradScaler scales it
+    (|dS| past 65504), below fp16's normal range, and outputs past 65504:
+    finite exactly where the plain version is (inf where its cast is),
+    and its gates on the finite outputs (`check_half`)."""
+    cs = _chip_smoke()
+    label, do_scale, v_scale = cs.RANGE_CASES[case]
+    cs.check_half(gen, label, 1, 1000, 1000, 4, d, True,
+                  dtype=torch.float16, do_scale=do_scale, v_scale=v_scale)
+
+
+@pytest.mark.parametrize("d", [40, 64, 96, 128, 256])
+def test_f16_head_dims_launch_their_kernel_variant(gen, d):
+    """At fp16 the forward, dq and dk/dv launch their fp16 wgmma kernels
+    for d <= 128 and their fp16 mma.sync kernels above, as
+    `kernel_variant` names them and the counts record them (two runs:
+    `_launched_kernels`); no bf16 kernel."""
+    q, k, v, do = _bf16_operands(gen, 1, 200, 200, 2, d, torch.float16)
+    fa.reset_counts()
+
+    def run():
+        o, lse = fa.flash_forward(q, k, v, True)
+        fa.flash_backward(q, k, v, o, do, lse, True)
+
+    names = " ".join(n for n in _launched_kernels(run) if "flash_" in n)
+    wgmma = d <= fa.WGMMA_MAX_HEAD_DIM
+    assert "bf16" not in names, names
+    for kernel in ("flash_fwd_f16", "flash_bwd_dq_f16", "flash_bwd_dkv_f16"):
+        assert (f"{kernel}_wgmma_kernel" in names) == wgmma, (d, names)
+        assert (f"{kernel}_kernel" in names) != wgmma, (d, names)
+    for name, c in fa.counts_for(False, torch.float16).items():
+        variant = fa.kernel_variant(name, torch.float16, d)
+        assert variant == ("wgmma" if wgmma else "mma")
+        assert c.form_launches == {variant: 2}, (name, c.form_launches)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["dense", "masked"])
+def test_f16_autograd_launches_only_the_f16_kernels(gen, masked):
+    """flash_attention's autograd path on fp16 operands launches the fp16
+    forward, dq and dk/dv once each and nothing else; its gradients are
+    finite."""
+    q, k, v, do = _bf16_operands(gen, 2, 200, 200, 4, 64, torch.float16)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    mask = None
+    if masked:
+        mask = ((torch.arange(200, device="cuda") >= 170).float()
+                * -1e4)[None, None, None, :].expand(2, 1, 1, 200)
+    fa.reset_counts()
+    o = fa.flash_attention(q, k, v, causal=not masked, mask=mask)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    assert o.dtype == torch.float16
+    assert all(g.dtype == torch.float16 and torch.isfinite(g).all()
+               for g in grads)
+    ran = fa.counts_for(masked, torch.float16)
+    for group in fa.COUNTS.values():
+        want = (1, 0) if group is ran else (0, 0)
+        assert {n: (c.kernel_launches, c.plain_launches)
+                for n, c in group.items()} == dict.fromkeys(group, want)
 
 
 def test_foreach_adamw_equals_the_per_parameter_update(gen):

@@ -423,7 +423,12 @@ FLASH_KERNEL_NAMES = ["flash_fwd_kernel", "flash_bwd_dq_kernel",
                       "flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel",
                       "flash_fwd_bf16_wgmma_kernel",
                       "flash_bwd_dq_bf16_wgmma_kernel",
-                      "flash_bwd_dkv_bf16_wgmma_kernel"]
+                      "flash_bwd_dkv_bf16_wgmma_kernel",
+                      "flash_fwd_f16_kernel", "flash_bwd_dq_f16_kernel",
+                      "flash_bwd_dkv_f16_kernel",
+                      "flash_fwd_f16_wgmma_kernel",
+                      "flash_bwd_dq_f16_wgmma_kernel",
+                      "flash_bwd_dkv_f16_wgmma_kernel"]
 
 
 @pytest.mark.parametrize("name", FLASH_KERNEL_NAMES)
@@ -449,10 +454,11 @@ def test_smoke_names_kernels_after_a_hash_ending_in_a_length(name):
 def test_smoke_profiles_group_each_flash_kernel_as_its_own(name):
     """The profiles of chip_smoke.py count each flash kernel, the wgmma
     ones included, under its own group (K3a, K3b-dq or K3b-dkv, -bf16 for
-    the bf16 kernels), never under "other"."""
+    the bf16 kernels, -fp16 for the fp16 ones), never under "other"."""
     kernel = ("K3a" if "_fwd_" in name else
               "K3b-dq" if "_dq_" in name else "K3b-dkv")
-    want = kernel + ("-bf16" if "bf16" in name else "")
+    want = kernel + ("-bf16" if "bf16" in name else
+                     "-fp16" if "_f16_" in name else "")
     group = _chip_smoke()._kernel_group(_entry(name, 128))
     assert group.split()[0] == want, (name, group)
 
@@ -516,12 +522,12 @@ def test_smoke_names_the_typed_ragged_span_instantiations(maxd, kv, qt):
 def test_smoke_build_report_requires_tensor_core_products(monkeypatch,
                                                           case):
     """The build report passes when the SASS of every instantiation of the
-    tensor-core kernels (the three flash kernels at fp32 and at bf16, the
-    bf16 wgmma kernels, the ragged span forms) holds its tensor-core
-    products (HMMA; HGMMA in the wgmma kernels and the bf16-q span form),
-    and fails the smoke when
-    one holds none, when a wgmma kernel holds only HMMA, when one is
-    missing, or when ptxas reports spills in a wgmma kernel."""
+    tensor-core kernels (the three flash kernels at fp32, bf16 and fp16,
+    the bf16 and fp16 wgmma kernels, the ragged span forms) holds its
+    tensor-core products (HMMA; HGMMA in the wgmma kernels and the bf16-q
+    span form), and fails the smoke when one holds none, when a wgmma
+    kernel holds only HMMA, when one is missing, or when ptxas reports
+    spills in a wgmma kernel."""
     import re
     import subprocess
     from types import SimpleNamespace
@@ -537,7 +543,7 @@ def test_smoke_build_report_requires_tensor_core_products(monkeypatch,
 
     labels = list(cs.TENSOR_CORE_INSTANTIATIONS)
     wgmma = [lb for lb in labels if lb.startswith(cs.WGMMA_KERNELS)]
-    assert len(wgmma) == 6
+    assert len(wgmma) == 12      # bf16 and fp16, three kernels, d 64 / 128
     hg_labels = [lb for lb in labels if lb.startswith(cs.HGMMA_KERNELS)]
     if case == "wgmma_missing":
         labels.remove(wgmma[-1])

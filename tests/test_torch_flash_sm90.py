@@ -1,12 +1,12 @@
-"""The port's C entry points and the bf16 flash kernels' variant choice,
-checked without a card.
+"""The port's C entry points and the bf16 and fp16 flash kernels' variant
+choice, checked without a card.
 
 The kernels are bound through ctypes (paddle_tpu_torch/ops/_build.py):
 every `extern "C"` entry point in paddle_tpu_torch/csrc/*.cu needs a
 SIGNATURES entry of the same arity, with a pointer type exactly where the C
 function takes a pointer (a pointer passed as a C int is cut to 32 bits,
-which only a card would show). At bf16 the forward, dq and dk/dv entry
-points take their wgmma kernels (csrc/flash_attention_wgmma.cu) for
+which only a card would show). At bf16 and fp16 the forward, dq and dk/dv
+entry points take their wgmma kernels (csrc/flash_attention_wgmma.cu) for
 d <= 128 and their mma.sync kernels above; `kernel_variant` names the one
 a launch takes, and the launch counts record it.
 """
@@ -61,12 +61,13 @@ def test_every_source_is_built():
 
 
 @pytest.mark.parametrize("d", [8, 40, 64, 96, 120, 128, 136, 256])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("name", ["flash_forward", "flash_backward_dq",
                                   "flash_backward_dkv"])
 def test_kernel_variant_by_dtype_and_head_dim(name, dtype, d):
-    want = "wgmma" if dtype == torch.bfloat16 and d <= 128 else "mma"
+    want = "wgmma" if dtype != torch.float32 and d <= 128 else "mma"
     assert fa.kernel_variant(name, dtype, d) == want
 
 
@@ -78,20 +79,31 @@ def test_kernel_variant_refuses_other_names():
 @pytest.mark.parametrize("entry,launcher", [
     ("flash_attention_fwd_bf16", "launch_fwd_bf16_wgmma"),
     ("flash_attention_bwd_dq_bf16", "launch_dq_bf16_wgmma"),
-    ("flash_attention_bwd_dkv_bf16", "launch_dkv_bf16_wgmma")])
+    ("flash_attention_bwd_dkv_bf16", "launch_dkv_bf16_wgmma"),
+    ("flash_attention_fwd_f16", "launch_fwd_f16_wgmma"),
+    ("flash_attention_bwd_dq_f16", "launch_dq_f16_wgmma"),
+    ("flash_attention_bwd_dkv_f16", "launch_dkv_f16_wgmma")])
 def test_entry_points_take_wgmma_up_to_the_wrappers_head_dim(entry,
                                                              launcher):
-    """The bf16 entry points in flash_attention.cu dispatch to the wgmma
-    kernels at the head dim `kernel_variant` names, and every other case to
-    the mma.sync kernel of d = 256."""
+    """The bf16 and fp16 entry points in flash_attention.cu call their
+    kernel's helper (fwd_entry16 and the like) with their element type,
+    and the helper dispatches that type to the wgmma kernels at the head
+    dim `kernel_variant` names, and every other case to the mma.sync
+    kernel of d = 256."""
     text = (CSRC / "flash_attention.cu").read_text()
     body = text[text.index(f'extern "C" int {entry}('):]
     body = body[:body.index("\n}\n")]
-    m = re.search(r"if \(d <= (\d+)\) \{\s*(?://[^\n]*\n\s*)*return "
-                  r"\(int\)flash::(\w+)\(", body)
-    assert m is not None, body
-    assert (int(m.group(1)), m.group(2)) == (fa.WGMMA_MAX_HEAD_DIM, launcher)
-    assert "<256>" in body[m.end():]
+    kind = "kF16" if entry.endswith("_f16") else "kBf16"
+    helper = re.search(r"return (\w+)<(\w+)>\(", body)
+    assert helper is not None and helper.group(2) == kind, body
+    text = text[text.index(f"int {helper.group(1)}("):]
+    text = text[:text.index("\n}\n")]
+    m = re.search(r"if \(dm\.d <= (\d+)\) \{\s*return \(int\)\(H == kF16\s*"
+                  r"\? flash::(\w+)\([^:]*: flash::(\w+)\(", text)
+    assert m is not None, text
+    chosen = m.group(2) if kind == "kF16" else m.group(3)
+    assert (int(m.group(1)), chosen) == (fa.WGMMA_MAX_HEAD_DIM, launcher)
+    assert "<256, H>" in text[m.end():]
 
 
 def test_cpu_launches_count_no_kernel_variant():

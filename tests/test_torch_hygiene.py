@@ -29,7 +29,15 @@ kernel wrapper takes, and what it refuses.
     "fp32" without a mesh raises ValueError as JAX does (F9); `GPTBlock`
     takes (cfg, use_moe=False) (F10) and `RMSNorm` (hidden, eps=1e-6)
     (F11), `device` (and `gen`) keyword-only after them; float16 serving
-    raises naming item 21;
+    raises naming item 21's serving half;
+  * the faults F12-F15 stay repaired: a name a JAX package exports and
+    the port defines imports from the port's package of the same path
+    (F12: the draft proposers, `quantized_page_write`, `GPTBlock`);
+    `get_flags` and `flags_version` follow JAX's (F13); the engine
+    snapshot has the JAX keys but those of items 9-11, and
+    `overlapped_plan_seconds` and `device_idle_fraction` are set as JAX
+    sets them on a scripted clock (F14); `create_serving_engine` refuses
+    `comm_dtype` without a mesh with a ValueError, as JAX does (F15);
   * chip_smoke.py fails, and prints no result, without a card or outside
     a checkout.
 """
@@ -38,6 +46,8 @@ import ast
 import dataclasses
 import importlib
 import inspect
+import itertools
+import pkgutil
 import shutil
 import subprocess
 import sys
@@ -324,12 +334,18 @@ def test_sampled_decoding_is_served(model):
     dict(mesh=object()), dict(dtype="bfloat16"), dict(comm_dtype="int8"),
 ], ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values())))[:8])
 def test_unported_bridge_options_raise(twin, kw):
-    """A mesh and a quantized collective raise naming their ROADMAP item
-    (10); the bridge options ported since (quantized KV beside quantized
-    weights, int4 weights, dtype="bfloat16") serve, token for token as
-    their naive_generate and as the JAX bridge on the same weights."""
+    """A mesh raises naming its ROADMAP item (10), with a quantized
+    collective too; a quantized collective without a mesh is an error of
+    the call (ValueError, as in JAX: F15); the bridge options ported since
+    (quantized KV beside quantized weights, int4 weights,
+    dtype="bfloat16") serve, token for token as their naive_generate and
+    as the JAX bridge on the same weights."""
     jm, pm = twin
-    if next(iter(kw)) in ("mesh", "comm_dtype"):
+    if next(iter(kw)) == "comm_dtype":
+        with pytest.raises(ValueError, match="mesh"):
+            _engine(pm, **kw)
+        kw = dict(kw, mesh=object())
+    if "mesh" in kw:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             _engine(pm, **kw)
         return
@@ -351,15 +367,18 @@ def test_unported_model_and_pool_options_raise(model):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Llama(LlamaConfig(tensor_parallel=True, **SIZES), device="cpu")
     # bf16 pools are ported (a bf16 runner's); float16 waits for the fp16
-    # kernels, item 21
+    # serving kernels, item 21's serving half
     assert KVCachePool(1, 4, 4, 1, 8, dtype=torch.bfloat16,
                        device="cpu").pools[0][0].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="item 21"):
+    with pytest.raises(NotImplementedError, match="item 21, its serving"):
         KVCachePool(1, 4, 4, 1, 8, dtype=torch.float16, device="cpu")
-    # bf16 AMP is ported; the fp16 one still raises, naming its item
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TrainStep(model, llama_loss_fn, AdamW(parameters=model.parameters()),
-                  amp_level="O1", amp_dtype="float16")
+    # bf16 and fp16 AMP train; another AMP dtype is an error of the call
+    opt = AdamW(parameters=model.parameters())
+    assert TrainStep(model, llama_loss_fn, opt, amp_level="O1",
+                     amp_dtype="float16").amp_level == "O1"
+    with pytest.raises(ValueError, match="amp_dtype"):
+        TrainStep(model, llama_loss_fn, opt, amp_level="O1",
+                  amp_dtype="float32")
 
 
 def test_unknown_knob_is_a_type_error(model):
@@ -617,15 +636,171 @@ def test_create_engine_takes_the_jax_parameter(model, param):
 
 
 def test_comm_dtype_without_a_mesh_is_a_value_error(model, jax_model):
-    """F9: the quantized collective needs a mesh; both packages refuse it
-    without one as an error of the call."""
+    """F9, F15: the quantized collective needs a mesh; both packages refuse
+    it without one as an error of the call, through `create_engine` and
+    through `inference.create_serving_engine`; with a mesh the port raises
+    naming item 10."""
     from paddle_tpu.serving import create_engine as jax_create_engine
+    kw = dict(block_size=8, max_model_len=32, num_blocks=8,
+              comm_dtype="int8")
     with pytest.raises(ValueError, match="mesh"):
-        create_engine(model, device="cpu", block_size=8, max_model_len=32,
-                      num_blocks=8, comm_dtype="int8")
+        create_engine(model, device="cpu", **kw)
     with pytest.raises(ValueError, match="mesh"):
-        jax_create_engine(jax_model, block_size=8, max_model_len=32,
-                          num_blocks=8, comm_dtype="int8")
+        jax_create_engine(jax_model, **kw)
+    with pytest.raises(ValueError, match="mesh"):
+        create_serving_engine(model, device="cpu", **kw)
+    with pytest.raises(ValueError, match="mesh"):
+        jax_create_serving_engine(jax_model, **kw)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        create_serving_engine(model, device="cpu", mesh=object(), **kw)
+
+
+# the JAX snapshot's keys of the unported host tier, handoffs, page store
+# and tensor parallelism (items 9-11)
+UNPORTED_METRIC_PREFIXES = ("tp_", "offload_", "pagein_", "host_tier_",
+                            "handoff", "store_")
+
+
+def _scripted_clock():
+    """A clock that reads 0.0, 1.0, 2.0, ... on successive calls."""
+    ticks = itertools.count()
+    return lambda: float(next(ticks))
+
+
+def _metrics_run(pm, jm, **kw):
+    """The same requests through the port's and the JAX engine, each with a
+    scripted clock: (port snapshot, JAX snapshot)."""
+    from paddle_tpu.serving import EngineMetrics as JaxEngineMetrics
+    from paddle_tpu_torch.serving import EngineMetrics
+    sp = SamplingParams(max_tokens=6)
+    eng = _engine(pm, max_batch_size=3, metrics=EngineMetrics(
+        clock=_scripted_clock()), **kw)
+    _serve(eng, PROMPTS, sp)
+    jeng = jax_create_serving_engine(
+        jm, block_size=8, max_model_len=32, num_blocks=8, max_batch_size=3,
+        metrics=JaxEngineMetrics(clock=_scripted_clock()), **kw)
+    for p in PROMPTS:
+        jeng.add_request(p, JaxSamplingParams(max_tokens=6))
+    jeng.run()
+    return eng.metrics.snapshot(), jeng.metrics.snapshot()
+
+
+def test_snapshot_keys_equal_the_jax_keys(twin):
+    """F14: the port's EngineMetrics.snapshot() keys are the JAX ones but
+    those of items 9-11 (and no stray pool_utilization)."""
+    ours, ref = _metrics_run(*twin[::-1])
+    ref_keys = {k for k in ref if not k.startswith(UNPORTED_METRIC_PREFIXES)}
+    assert set(ours) == ref_keys
+    assert "pool_utilization" not in ours
+
+
+@pytest.mark.parametrize("pipelined", [False, True],
+                         ids=["serial", "pipelined"])
+def test_overlapped_plan_and_device_idle_fraction_follow_jax(twin,
+                                                             pipelined):
+    """F14: on a scripted clock, overlapped_plan_seconds (planning under an
+    in-flight launch: none without the pipelined loop) and
+    device_idle_fraction = 1 - min((drain waits + overlapped planning) /
+    step seconds, 1), set as the JAX engine sets them."""
+    kw = dict(decode_horizon=4, pipelined=True) if pipelined else {}
+    ours, ref = _metrics_run(*twin[::-1], **kw)
+    for snap in (ours, ref):
+        blocked = snap["drain_wait_seconds"] + snap["overlapped_plan_seconds"]
+        assert snap["device_idle_fraction"] == pytest.approx(
+            max(0.0, 1.0 - min(blocked / snap["step_seconds"], 1.0)))
+        assert (snap["overlapped_plan_seconds"] > 0) == pipelined
+        assert snap["overlapped_plan_seconds"] <= snap["host_plan_seconds"]
+    assert (ours["planned_ahead_steps"] > 0) == (ref["planned_ahead_steps"]
+                                                 > 0) == pipelined
+
+
+def _package_names(pkg):
+    """A package's public names: its __all__, else every name it binds
+    that is not a module and does not start with an underscore."""
+    if hasattr(pkg, "__all__"):
+        return list(pkg.__all__)
+    return [k for k, v in vars(pkg).items()
+            if not k.startswith("_") and not isinstance(v, types.ModuleType)]
+
+
+def _port_definitions():
+    """{name: module} of every top-level class and function a port module
+    defines (not one it imports)."""
+    defined = {}
+    for info in pkgutil.walk_packages(paddle_tpu_torch.__path__,
+                                      "paddle_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        for k, v in vars(mod).items():
+            if getattr(v, "__module__", None) == mod.__name__:
+                defined.setdefault(k, info.name)
+    return defined
+
+
+PORT_PACKAGES = sorted(
+    info.name for info in pkgutil.walk_packages(paddle_tpu_torch.__path__,
+                                                "paddle_tpu_torch.")
+    if info.ispkg)
+
+
+@pytest.mark.parametrize("package", PORT_PACKAGES)
+def test_ported_names_import_from_the_package_of_the_jax_path(package):
+    """F12: a name the JAX package exports from a package (its __all__, or
+    what its __init__ binds) and that the port defines in any of its
+    modules imports from the port's package of the same path, and is in
+    that package's __all__."""
+    ours = importlib.import_module(package)
+    ref = importlib.import_module(package.replace("paddle_tpu_torch",
+                                                  "paddle_tpu", 1))
+    defined = _port_definitions()
+    missing = [(n, defined[n]) for n in _package_names(ref)
+               if n in defined and not hasattr(ours, n)]
+    assert not missing, f"{package} lacks {missing}"
+    unlisted = [n for n in _package_names(ref)
+                if n in defined and hasattr(ours, "__all__")
+                and n not in ours.__all__]
+    assert not unlisted, f"{package}.__all__ lacks {unlisted}"
+
+
+def test_the_proposers_and_gpt_block_import_from_their_packages():
+    """F12, by name: the four names of serving/speculate.py,
+    quantized_page_write and GPTBlock."""
+    from paddle_tpu_torch.models import GPTBlock
+    from paddle_tpu_torch.serving import (
+        AdaptiveK, DraftModelProposer, NgramProposer, quantized_page_write,
+        shadow_runner,
+    )
+    from paddle_tpu_torch.serving import kv_cache, speculate
+    from paddle_tpu_torch.models import gpt
+    assert GPTBlock is gpt.GPTBlock
+    assert quantized_page_write is kv_cache.quantized_page_write
+    assert (AdaptiveK, DraftModelProposer, NgramProposer, shadow_runner) == (
+        speculate.AdaptiveK, speculate.DraftModelProposer,
+        speculate.NgramProposer, speculate.shadow_runner)
+
+
+def test_get_flags_and_flags_version_follow_jax():
+    """F13: get_flags takes a name or an iterable and returns a dict equal
+    to the JAX one on the same flags; set_flags bumps flags_version by one
+    in both packages, an unknown name raises KeyError in both."""
+    from paddle_tpu.utils import flags as jax_flags
+    from paddle_tpu_torch.utils import flags, flags_version, get_flags
+    name = "FLAGS_use_flash_attention"
+    assert get_flags(name) == jax_flags.get_flags(name) == {name: True}
+    assert get_flags([name]) == jax_flags.get_flags((n for n in [name]))
+    v0, j0 = flags_version(), jax_flags.flags_version()
+    try:
+        flags.set_flags({name: False})
+        jax_flags.set_flags({name: False})
+        assert get_flags(name) == jax_flags.get_flags(name) == {name: False}
+        assert flags_version() - v0 == jax_flags.flags_version() - j0 == 1
+    finally:
+        flags.set_flags({name: True})
+        jax_flags.set_flags({name: True})
+    assert flags_version() - v0 == jax_flags.flags_version() - j0 == 2
+    with pytest.raises(KeyError):
+        get_flags("FLAGS_no_such_flag")
+    with pytest.raises(KeyError):
+        jax_flags.get_flags("FLAGS_no_such_flag")
 
 
 @pytest.mark.parametrize("param", ["learning_rate", "parameters",
@@ -832,9 +1007,9 @@ def test_rms_norm_takes_the_jax_signature():
 
 @pytest.mark.parametrize("dtype", ["float16", torch.float16])
 def test_float16_serving_raises_naming_item_21(model, dtype):
-    """bf16 serving is ported; float16 needs the fp16 kernels (K1-fp16,
-    K2-fp16), ROADMAP.md item 21."""
-    with pytest.raises(NotImplementedError, match="item 21"):
+    """bf16 serving is ported; float16 needs the fp16 serving kernels
+    (K1-fp16, K2-fp16), ROADMAP.md item 21's serving half."""
+    with pytest.raises(NotImplementedError, match="item 21, its serving"):
         _engine(model, dtype=dtype)
 
 

@@ -321,11 +321,14 @@ def test_layer_ops_match_jax():
 def test_unported_training_options_raise():
     model = Llama(LlamaConfig(**SIZES), device="cpu")
     opt = AdamW(parameters=model.parameters())
-    # bf16 AMP trains (tests/test_torch_amp.py); fp16 waits for the flash
-    # kernels' fp16 instantiation, and an unknown level is an error
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*21"):
+    # bf16 and fp16 AMP train (tests/test_torch_amp.py,
+    # tests/test_torch_fp16_training.py); an unknown level or AMP dtype is
+    # an error
+    assert TrainStep(model, llama_loss_fn, opt, amp_level="O1",
+                     amp_dtype="float16").amp_dtype == "float16"
+    with pytest.raises(ValueError, match="amp_dtype"):
         TrainStep(model, llama_loss_fn, opt, amp_level="O1",
-                  amp_dtype="float16")
+                  amp_dtype="float32")
     with pytest.raises(ValueError, match="amp_level"):
         TrainStep(model, llama_loss_fn, opt, amp_level="O3")
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*13"):

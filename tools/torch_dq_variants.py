@@ -8,7 +8,7 @@ replaced ("as it is" replaces none). The package is copied once per variant
 into paddle_tpu_torch/csrc/build/dq_variants/ (git-ignored), the text
 replaced there, and each copy is built and run in its own process, in turn:
 ptxas's spill report for flash_bwd_dq_bf16_wgmma_kernel<64> and <128>, the
-bf16 kernels against fp64 (chip_smoke.py's check_bf16: within 2x the bf16
+bf16 kernels against fp64 (chip_smoke.py's check_half: within 2x the bf16
 plain version's error, misround at most 1/16) at sq = sk = 1, 65 / 200 and
 200 / 65 (d 64 and 128, causal) and 4096 x 4096 (d 128, two heads), then
 dq alone with chip_smoke.py's median_ms (L2 flushed, median of 20
@@ -43,9 +43,9 @@ VARIANTS = {
     "6 stages": [(_TILE, _TILE.replace("ST = 4", "ST = 6"))],
     # dQ's product waited for in its own turn, its stage released there
     "dQ waited in its turn": [
-        ("    wgmma_split<BN>(acc, hi, lo, kt);   // dQ += dS K, waited for "
+        ("    wgmma_split<BN, H>(acc, hi, lo, kt);   // dQ += dS K, waited "
          "next turn\n    prev = st;",
-         "    wgmma_split<BN>(acc, hi, lo, kt);\n    wgmma_wait<0>();\n"
+         "    wgmma_split<BN, H>(acc, hi, lo, kt);\n    wgmma_wait<0>();\n"
          "    reg_fence(acc);\n    if (lane == 0) mbar_arrive(empty(st));")],
 }
 
@@ -80,8 +80,8 @@ def child(tree: Path) -> dict:
         with contextlib.redirect_stdout(io.StringIO()):
             for d in (64, 128):
                 for sq, sk in ((1, 1), (65, 200), (200, 65)):
-                    cs.check_bf16(gen, "variant", 1, sq, sk, 4, d, True)
-            cs.check_bf16(gen, "variant", 1, 4096, 4096, 2, 128, True)
+                    cs.check_half(gen, "variant", 1, sq, sk, 4, d, True)
+            cs.check_half(gen, "variant", 1, 4096, 4096, 2, 128, True)
     except AssertionError as e:
         checks = str(e)[:300]
     ms = {}
