@@ -337,8 +337,10 @@ exits non-zero without printing a result:
               launches of every bf16 variant and form. Timed: the bf16
               variants at phase 8's shapes and K1-bf16 at the verify
               spans.
- 32. weight   LLaMA-2-7B (fp32 compute) with weight_dtype int8, int4
-     ladder   (group 128) and fp8 on phase 4's traffic: the runner's bytes
+ 32. weight   LLaMA-2-7B at 8 of its 32 layers (full width, for the
+     ladder   smoke's time; fp32 compute) with weight_dtype int8, int4
+              (group 128) and fp8
+              on phase 4's traffic: the runner's bytes
               equal the shapes' formula (ladder_bytes), the reduction
               factor fp32 / those bytes, a one-slot engine token-exact
               against naive_generate; reported: tokens/s, decode-step ms,
@@ -386,7 +388,45 @@ exits non-zero without printing a result:
               fp32 step, phase 24's tolerances, each backward from the
               loss times 2^12 (GradScaler's recipe; unscaled, the dense
               fp16 path's gradients fall under fp16's range).
- 37. summary  one JSON line of every kernel's launches, error and times
+ 37. fp16     the fp16 serving kernels (K1-fp16: the bf16-q bodies of
+     kernels  ragged_paged_attention_bf16.cu at fp16 with P times a power
+              of two before its three-term split, per row from its largest
+              P times int8 v scale; K1-q with fp16 q; K2-
+              fp16): phase 31's checks at fp16 at the Llama and GPT shapes
+              and at d = 256 (the tf32 span form and the unsplit decode
+              form on fp16 q), within twice the fp16 plain version's error
+              against fp64 and misrounding at most 1/16; the decode form's
+              batch invariance and graph replay; range cases
+              (RAGGED_RANGE_CASES: int8 k and v scales of 1e-6 and 1e2, k
+              scales of 1e3, v scales of 1e3 whose outputs pass 65504, q
+              x30 over fp16 pools) finite exactly where the plain version
+              is, within twice its error and misrounding at most 1/16;
+              timed as phase 31's rows at fp16 (SDPA at
+              fp16), and K1's d = 256 forms at bf16 and fp16 (16 heads of
+              256: a 256-token chunk, GQA-4 decode rows).
+ 38. fp16     fp16 serving through create_serving_engine(dtype=float16):
+     serving  phase 31 at fp16 on LLaMA-2-7B at full depth (the model cast
+              to fp16 in place after phase 31) and on GPT-3 1.3B: every
+              call through the fp16 variants, no fp32 or bf16 kernel, no
+              plain version, every request finished, no non-finite logit;
+              the horizon engine equal to the per-step engine; one-slot
+              runs over fp16, int8 and fp8 pools token-exact against
+              naive_generate; the 2-layer twins at full width against the
+              fp32 twin (TWIN_TOL at fp16) and the gather path (GATHER_TOL
+              at fp16); GPT-3 1.3B's PagedGPTGenerator at fp16 (K2-fp16
+              once a layer a decode step, finite logits, its gap to the
+              dense fp16 generator's logits within GATHER_TOL at fp16).
+ 39. fp16     at fp16: the weight ladder (int8, int4, fp8 weights, cast by
+     ladder,  dtype= as the JAX bridge casts them: the runner's bytes the
+     mixed,   shapes' formula at fp16, one-slot runs token-exact against
+     spec     naive_generate), the mixed pool (phase 33 at fp16, the fp8
+              tenants' parting margin MIXED_MARGIN at fp16) on LLaMA-2-7B,
+              and at GPT-3 1.3B a speculation arm with an fp16 target's
+              "shadow" (int8) draft beside the off arm: the shadow's
+              matrices int8 (fp16 is a numpy floating type), proposed and
+              accepted > 0, the streams off's but where off's top-2 margin
+              lies within SPEC_F16_MARGIN.
+ 40. summary  one JSON line of every kernel's launches, error and times
               (K1's decode-form times as extra decode_* keys, its engine
               launches by form under launches_by_form, the fp64 ratios
               under fp64_ratio; the masked kernels as *_masked rows with
@@ -408,9 +448,14 @@ exits non-zero without printing a result:
               rows) under fused_step and verify_span; the bf16 variants as
               *_bf16 serving rows with phase 31's launches, their fp64
               ratio and misround share, K1-bf16 at the verify spans, the
-              2-layer twin gap and gather-path gaps; the mixed pool's
-              launches under mixed_launches), the smoke's wall by part
-              (lap), the nvidia-smi line, then the result line.
+              2-layer twin gap and gather-path gaps; the fp16 variants as
+              *_fp16 serving rows likewise, with phase 38's launches, K1's
+              range cases under range_cases and the fp16 speculation arm's
+              launches under spec_fp16_launches; K1's d = 256 forms under
+              d256_chunk and d256_decode of the bf16 and fp16 rows; the
+              mixed pools' launches under mixed_launches), the smoke's
+              wall by part (lap), the nvidia-smi line, then the result
+              line.
 
 fp32 products stay fp32: TF32 is switched off for matmuls and cuDNN. Bounds
 by operations are at fp32-accurate tensor-core products (3xTF32, 495 / 3
@@ -436,6 +481,7 @@ import numpy as np
 import torch
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+BF16, F16 = torch.bfloat16, torch.float16
 # fp32-accurate products on the H100 SXM's tensor cores: 3xTF32 (three
 # TF32 products per fp32 product) at a third of the 495 TFLOP/s TF32 peak
 PEAK_FP32_ACCURATE_FLOP_PER_S = 495e12 / 3
@@ -560,12 +606,12 @@ SPANS_SPLITS = ([0, 254, 255, 256, 4095, 100, 0, 511],
 def _as_kind(k_pool, v_pool, kind, gen):
     """fp32 pools -> (k, v, k_scale, v_scale) of a ``kind`` pool: int8
     codes with seeded per-page, per-kv-head scales in [1e-3, 5.1e-2], or
-    the float8_e4m3fn (bf16) cast of the values; fp32 as given."""
+    the float8_e4m3fn (bf16, fp16) cast of the values; fp32 as given."""
     if kind == "fp32":
         return k_pool, v_pool, None, None
-    if kind == "bf16":
-        return (k_pool.to(torch.bfloat16), v_pool.to(torch.bfloat16), None,
-                None)
+    if kind in HALF_POOLS:
+        return (k_pool.to(HALF_POOLS[kind]), v_pool.to(HALF_POOLS[kind]),
+                None, None)
     if kind == "fp8":
         return (k_pool.to(torch.float8_e4m3fn),
                 v_pool.to(torch.float8_e4m3fn), None, None)
@@ -577,38 +623,44 @@ def _as_kind(k_pool, v_pool, kind, gen):
     return (*codes, *scales)
 
 
-def _k1_label(kind, bf16):
-    """The wrapper variant's label: K1 / K1-q, with bf16 q where asked (a
-    bf16 pool always has bf16 q)."""
-    if kind == "bf16":
-        return "K1-bf16 ragged"
-    return K1_VARIANTS[kind] + (" (bf16 q)" if bf16 else "")
+# the 16-bit pools by name (a 16-bit pool has q of its dtype)
+HALF_POOLS = {"bf16": BF16, "fp16": F16}
 
 
-def _bf16_gates(name, out, ref, exact):
-    """The bf16 rules (phase 20's): the kernel within twice the bf16 plain
-    version's error against fp64 on the same operands, and at most
-    MISROUND_GATE of the outputs the plain version rounds to bf16(exact)
-    rounded elsewhere. Returns (ratio, misround share)."""
+def _k1_label(kind, half=None):
+    """The wrapper variant's label: K1 / K1-q, with 16-bit q (``half``)
+    where asked (a 16-bit pool always has q of its dtype)."""
+    if kind in HALF_POOLS:
+        return f"K1-{kind} ragged"
+    return K1_VARIANTS[kind] + (f" ({HALF_SUFFIX[half]} q)" if half else "")
+
+
+def _half_gates(name, out, ref, exact):
+    """The 16-bit rules (phase 20's): the kernel within twice the 16-bit
+    plain version's error against fp64 on the same operands, and at most
+    MISROUND_GATE of the outputs the plain version rounds to the 16-bit
+    cast of exact rounded elsewhere. Returns (ratio, misround share)."""
     e_kernel, e_plain, ratio = _vs_fp64(out, ref, exact)
     share = misround_share(out, ref, exact)
     if not (ratio <= 2.0 and share <= MISROUND_GATE):
         raise AssertionError(f"{name}: against fp64 {e_kernel:.3e} = "
-                             f"{ratio:.2f}x the bf16 plain version's "
-                             f"{e_plain:.3e}, misround {share:.4f}")
+                             f"{ratio:.2f}x the {HALF_SUFFIX[out.dtype]} "
+                             f"plain version's {e_plain:.3e}, misround "
+                             f"{share:.4f}")
     return ratio, share
 
 
 def check_ragged(n_q, n_kv, gen, label, kind="fp32", spans=SPANS_MIXED,
-                 bf16=False):
+                 half=None, d=128):
     """K1 (fp32 pools) or K1-q (int8 / fp8 pools) against ragged_reference
-    on the same operands; with ``bf16``, bf16 q (over bf16 pools for kind
-    "bf16") and the bf16 gates against fp64 in place of TOL. Returns the
-    max abs error (and with ``bf16`` the fp64 ratio and misround share)."""
+    on the same operands; with ``half`` (bf16 or fp16), q of that dtype
+    (over pools of it for kind "bf16" / "fp16") and the 16-bit gates
+    against fp64 in place of TOL. Returns the max abs error (and with
+    ``half`` the fp64 ratio and misround share)."""
     from paddle_tpu_torch.ops.ragged_paged_attention import (
         ragged_paged_attention, ragged_reference,
     )
-    d, ps = 128, 16
+    ps = 16
     start, qlen, T = spans
     B = len(start)
     P = -(-(max(start) + T) // ps)
@@ -619,46 +671,48 @@ def check_ragged(n_q, n_kv, gen, label, kind="fp32", spans=SPANS_MIXED,
         if n == 0:
             table[b] = 0                          # dead slot: all scratch
     q = torch.randn(B, T, n_q, d, device=gen.device, generator=gen)
-    if bf16:
-        q = q.to(torch.bfloat16)
+    if half:
+        q = q.to(half)
     st = torch.tensor(start, dtype=torch.int32, device=gen.device)
     ql = torch.tensor(qlen, dtype=torch.int32, device=gen.device)
     out = ragged_paged_attention(q, k, v, table, st, ql, k_scale=ks,
                                  v_scale=vs)
     ref = ragged_reference(q, k, v, table, st, ql, k_scale=ks, v_scale=vs)
     err = (out.float() - ref.float()).abs().max().item()
-    name = _k1_label(kind, bf16)
+    name = _k1_label(kind, half)
     for b in range(B):
         if not bool((out[b, qlen[b]:] == 0).all()):
             raise AssertionError(f"{name} {label}: rows past q_len of "
                                  f"sequence {b} are not exactly 0")
     gates = ""
-    if bf16:
-        pools64 = ((k.double(), v.double()) if kind == "bf16" else (k, v))
+    if half:
+        pools64 = ((k.double(), v.double()) if kind in HALF_POOLS
+                   else (k, v))
         exact = ragged_reference(q.double(), *pools64, table, st, ql,
                                  k_scale=ks, v_scale=vs)
-        ratio, share = _bf16_gates(f"{name} {label}", out, ref, exact)
-        gates = (f", against fp64 {ratio:.2f}x the bf16 plain version's "
-                 f"error, misround {share:.4f}")
+        ratio, share = _half_gates(f"{name} {label}", out, ref, exact)
+        gates = (f", against fp64 {ratio:.2f}x the {HALF_SUFFIX[half]} "
+                 f"plain version's error, misround {share:.4f}")
     log(f"kernel {name} {label} (n_q={n_q}, n_kv={n_kv}, d={d}, ps={ps}, "
         f"T={T}, spans start={start} q_len={qlen}): max_abs_err={err:.3e}"
         f"{gates}, padded and dead rows exactly 0")
-    if bf16:
+    if half:
         return err, ratio, share
     if not err <= TOL:
         raise AssertionError(f"{name} {label}: max_abs_err {err} > {TOL}")
     return err
 
 
-def check_paged(gen, h=32, label="", bf16=False):
+def check_paged(gen, h=32, label="", half=None):
     """K2 at ``h`` heads against paged_decode_reference over the engine's
     4096-key table:
     pos on and off page and split boundaries, walks of one split and of
     many (up to the table's last key, 4095), pos past the table (capped)
     and a dead slot (all-scratch table, pos 0). Then batch invariance: each
-    sequence alone must give its batch output bit for bit. With ``bf16``,
-    K2-bf16 (bf16 q and pools) under the bf16 gates against fp64 in place
-    of TOL, returning (max abs error, fp64 ratio, misround share)."""
+    sequence alone must give its batch output bit for bit. With ``half``,
+    K2-bf16 or K2-fp16 (q and pools of that dtype) under the 16-bit gates
+    against fp64 in place of TOL, returning (max abs error, fp64 ratio,
+    misround share)."""
     from paddle_tpu_torch.ops.paged_attention import (
         KEYS_PER_SPLIT, paged_decode_attention, paged_decode_reference,
     )
@@ -669,25 +723,24 @@ def check_paged(gen, h=32, label="", bf16=False):
     table = _tables(b, P, b * P + 1, gen)
     table[-1] = 0                                 # dead slot: all scratch
     q = torch.randn(b, h, d, device=gen.device, generator=gen)
-    if bf16:
-        q, k_pool, v_pool = (t.to(torch.bfloat16) for t in (q, k_pool,
-                                                            v_pool))
+    if half:
+        q, k_pool, v_pool = (t.to(half) for t in (q, k_pool, v_pool))
     p = torch.tensor(pos, dtype=torch.int32, device=gen.device)
     out = paged_decode_attention(q, k_pool, v_pool, table, p)
     ref = paged_decode_reference(q, k_pool, v_pool, table, p)
     err = (out.float() - ref.float()).abs().max().item()
-    name = "K2-bf16" if bf16 else "K2"
+    name = f"K2-{HALF_SUFFIX[half]}" if half else "K2"
     gates = ""
-    if bf16:
+    if half:
         exact = paged_decode_reference(q.double(), k_pool.double(),
                                        v_pool.double(), table, p)
-        ratio, share = _bf16_gates(f"{name}{label}", out, ref, exact)
-        gates = (f", against fp64 {ratio:.2f}x the bf16 plain version's "
-                 f"error, misround {share:.4f}")
+        ratio, share = _half_gates(f"{name}{label}", out, ref, exact)
+        gates = (f", against fp64 {ratio:.2f}x the {HALF_SUFFIX[half]} "
+                 f"plain version's error, misround {share:.4f}")
     log(f"kernel {name} paged_decode{label} (b={b}, h={h}, d={d}, ps={ps}, "
         f"P={P}, {KEYS_PER_SPLIT} keys a split, pos={pos}, the last a dead "
         f"slot): max_abs_err={err:.3e}{gates}")
-    if not bool(torch.isfinite(out).all()) or (not bf16 and not err <= TOL):
+    if not bool(torch.isfinite(out).all()) or (not half and not err <= TOL):
         raise AssertionError(f"{name}: max_abs_err {err} > {TOL}")
     differ = [i for i in range(b) if not torch.equal(
         paged_decode_attention(q[i:i + 1], k_pool, v_pool, table[i:i + 1],
@@ -697,13 +750,13 @@ def check_paged(gen, h=32, label="", bf16=False):
     if differ:
         raise AssertionError(f"{name}: sequences {differ} differ alone from "
                              "their batch output")
-    return (err, ratio, share) if bf16 else err
+    return (err, ratio, share) if half else err
 
 
-def _ragged_operands(gen, n_q, n_kv, kind, spans, d=128, ps=16):
-    """Seeded bf16 q, ``kind`` pools (and int8 scales), a table of
-    distinct pages (all scratch for a dead slot), start_pos and q_len for
-    ``spans``: the operands of a bf16-q K1 launch."""
+def _ragged_operands(gen, n_q, n_kv, kind, spans, d=128, ps=16, half=BF16):
+    """Seeded 16-bit q (``half``), ``kind`` pools (and int8 scales), a
+    table of distinct pages (all scratch for a dead slot), start_pos and
+    q_len for ``spans``: the operands of a 16-bit-q K1 launch."""
     start, qlen, T = spans
     B = len(start)
     P = -(-(max(start) + T) // ps)
@@ -714,39 +767,41 @@ def _ragged_operands(gen, n_q, n_kv, kind, spans, d=128, ps=16):
         if n == 0:
             table[b] = 0
     q = torch.randn(B, T, n_q, d, device=gen.device,
-                    generator=gen).to(torch.bfloat16)
+                    generator=gen).to(half)
     st = torch.tensor(start, dtype=torch.int32, device=gen.device)
     ql = torch.tensor(qlen, dtype=torch.int32, device=gen.device)
     return q, (k, v, table, st, ql), dict(k_scale=ks, v_scale=vs)
 
 
-def check_ragged_invariance(gen, kind, n_q=32, n_kv=8, spans=SPANS_SPLITS):
-    """Phase 31: the bf16-q decode form (the split walk) over a ``kind``
-    pool at decode rows on and across its split boundaries (GQA-4 by
-    default, n_kv = n_q: MHA, the one-row walk): each sequence launched
+def check_ragged_invariance(gen, kind, n_q=32, n_kv=8, spans=SPANS_SPLITS,
+                            half=BF16):
+    """Phases 31 and 37: the 16-bit-q decode form (the split walk) over a
+    ``kind`` pool at decode rows on and across its split boundaries (GQA-4
+    by default, n_kv = n_q: MHA, the one-row walk): each sequence launched
     alone gives its row of the batch launch bit for bit."""
     from paddle_tpu_torch.ops.ragged_paged_attention import (
         ragged_paged_attention,
     )
     q, (k, v, table, st, ql), sc = _ragged_operands(gen, n_q, n_kv, kind,
-                                                    spans)
+                                                    spans, half=half)
     out = ragged_paged_attention(q, k, v, table, st, ql, **sc)
     differ = [b for b in range(q.shape[0]) if not torch.equal(
         ragged_paged_attention(q[b:b + 1], k, v, table[b:b + 1],
                                st[b:b + 1], ql[b:b + 1], **sc)[0], out[b])]
-    log(f"kernel {_k1_label(kind, True)} decode form batch invariance "
+    log(f"kernel {_k1_label(kind, half)} decode form batch invariance "
         f"(q[{q.shape[0]},1,{n_q},128], {n_kv} kv heads, start_pos "
         f"{spans[0]}): each sequence alone equals its batch row bit for "
         f"bit: {not differ}")
     if differ:
-        raise AssertionError(f"{_k1_label(kind, True)}: sequences {differ} "
+        raise AssertionError(f"{_k1_label(kind, half)}: sequences {differ} "
                              "differ alone from their batch rows")
 
 
-def check_ragged_graph(gen, kind, n_q=32, n_kv=8, spans=SPANS_SPLITS):
-    """Phase 31: two chained bf16-q decode-form launches (the second takes
-    the first's output as q, so one replay takes each ticket twice)
-    captured in one CUDA graph on a side stream, whose workspace and
+def check_ragged_graph(gen, kind, n_q=32, n_kv=8, spans=SPANS_SPLITS,
+                       half=BF16):
+    """Phases 31 and 37: two chained 16-bit-q decode-form launches (the
+    second takes the first's output as q, so one replay takes each ticket
+    twice) captured in one CUDA graph on a side stream, whose workspace and
     tickets its warm-up made outside the capture; replayed on new q, the
     graph's output equals the eager launches' bit for bit. The capture's
     counts are taken back out, as the runners do."""
@@ -755,7 +810,7 @@ def check_ragged_graph(gen, kind, n_q=32, n_kv=8, spans=SPANS_SPLITS):
         ragged_paged_attention,
     )
     q, (k, v, table, st, ql), sc = _ragged_operands(gen, n_q, n_kv, kind,
-                                                    spans)
+                                                    spans, half=half)
 
     def body():
         o = ragged_paged_attention(q, k, v, table, st, ql, **sc)
@@ -779,12 +834,100 @@ def check_ragged_graph(gen, kind, n_q=32, n_kv=8, spans=SPANS_SPLITS):
         eager = body()
         torch.cuda.synchronize()
         results.append(torch.equal(out, eager))
-    log(f"kernel {_k1_label(kind, True)} decode form under a CUDA graph "
+    log(f"kernel {_k1_label(kind, half)} decode form under a CUDA graph "
         f"(two chained launches, replayed twice on new q): equals the eager "
         f"launches bit for bit: {results}")
     if not all(results):
-        raise AssertionError(f"{_k1_label(kind, True)}: the graph replay "
+        raise AssertionError(f"{_k1_label(kind, half)}: the graph replay "
                              "parts from the eager launches")
+
+
+# phase 37's range cases of K1 at fp16 q: (label, pool kind, the int8 k
+# scales' and the v scales' choices per page and kv head (None: the usual
+# [1e-3, 5.1e-2]), q's factor). Scales of 1e-6 put P times the v scale far
+# below fp16's normal range and 1e2 above 2^14 (the factor of P a row),
+# with pages of both in one span tile; k scales of 1e3 make scores of
+# ~7e4 (past the 515.8 that an fp16 row's absmax / 127 can reach); v
+# scales of 1e3 make outputs past 65504 (inf where the plain version's
+# cast is); q x30 over fp16 pools makes scores of +-100
+RAGGED_RANGE_CASES = {
+    "int8": ("int8 k, v scales 1e-6 / 1e2", "int8", (1e-6, 1e2),
+             (1e-6, 1e2), 1.0),
+    "int8-overflow": ("int8 v scales 1e3", "int8", None, (1e3, 1e3), 1.0),
+    "fp16": ("fp16 pools, q x30", "fp16", None, None, 30.0),
+    "int8-k-large": ("int8 k scales 1e-3 / 1e3", "int8", (1e-3, 1e3), None,
+                     1.0),
+}
+
+
+def check_ragged_range(gen, case, n_rep, T, d=128):
+    """Phase 37: K1 on fp16 q in a range case (RAGGED_RANGE_CASES) at 2
+    kv heads x n_rep, T rows at start_pos [254, 256, 1500, 3] (q_len T,
+    T // 2, T, and a dead slot): the output finite exactly where the
+    plain version's is (equal to its inf there, but where the exact value
+    lies within FP16_OVERFLOW_EDGE of FP16_OVERFLOW), and on the outputs
+    both give finite within twice the plain version's error against fp64
+    and misrounded (`misround_share`) at most MISROUND_GATE of the time.
+    Reported beside them: a second fp32 evaluation of the plain version
+    (q and k reversed along d, so its sums round elsewhere) against fp64
+    over the plain version's error, the spread of fp32 evaluations at the
+    case's scores. Returns (ratio, misround share)."""
+    from paddle_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention, ragged_reference,
+    )
+    label, kind, k_scales, v_scales, q_mul = RAGGED_RANGE_CASES[case]
+    ps, n_kv = 16, 2
+    start = [254, 256, 1500, 3]
+    qlen = [T, max(1, T // 2), T, 0]
+    B, P = len(start), -(-(max(start) + T) // ps) + 1
+    k_pool, v_pool = _pools(B * P + 1, ps, n_kv, d, gen)
+    k, v, ks, vs = _as_kind(k_pool, v_pool, kind, gen)
+
+    def pick(choices, like):
+        coin = torch.rand(like.shape, device="cuda", generator=gen) < 0.5
+        return torch.where(coin, choices[0], choices[1]).float()
+
+    if k_scales is not None:
+        ks = pick(k_scales, ks)
+    if v_scales is not None:
+        vs = pick(v_scales, vs)
+    table = _tables(B, P, B * P + 1, gen)
+    table[-1] = 0                                 # dead slot: all scratch
+    q = (torch.randn(B, T, n_kv * n_rep, d, device="cuda", generator=gen)
+         * q_mul).to(F16)
+    st = torch.tensor(start, dtype=torch.int32, device="cuda")
+    ql = torch.tensor(qlen, dtype=torch.int32, device="cuda")
+    sc = dict(k_scale=ks, v_scale=vs)
+    out = ragged_paged_attention(q, k, v, table, st, ql, **sc)
+    plain = ragged_reference(q, k, v, table, st, ql, **sc)
+    pools64 = (k.double(), v.double()) if kind in HALF_POOLS else (k, v)
+    exact = ragged_reference(q.double(), *pools64, table, st, ql, **sc)
+    name = f"{_k1_label(kind, F16)} range case {label}"
+    fin_p, fin_x = torch.isfinite(plain), torch.isfinite(out)
+    edge = (exact.abs() - FP16_OVERFLOW).abs() <= FP16_OVERFLOW_EDGE
+    both_inf = ~fin_p & ~fin_x
+    if bool(((fin_p != fin_x) & ~edge).any()) or not torch.equal(
+            out[both_inf], plain[both_inf]):
+        raise AssertionError(f"{name}: not finite exactly where the plain "
+                             "version is, with its inf there")
+    fin = fin_p & fin_x
+    e_kernel, e_plain, ratio = _vs_fp64(out[fin], plain[fin], exact[fin])
+    share = misround_share(out[fin], plain[fin], exact[fin])
+    second = ragged_reference(q.flip(-1), k.flip(-1), v, table, st, ql, **sc)
+    both = fin & torch.isfinite(second)
+    spread = _vs_fp64(second[both], plain[both], exact[both])[2]
+    zeros = all(bool((out[b, n:] == 0).all()) for b, n in enumerate(qlen))
+    log(f"kernel {name} (q[{B},{T},{n_kv * n_rep},{d}], {n_kv} kv heads): "
+        f"{int((~fin_p).sum())} inf outputs, as the plain version's; "
+        f"against fp64 {e_kernel:.3e} = {ratio:.2f}x the plain version's "
+        f"{e_plain:.3e} (a second fp32 evaluation, q and k reversed along "
+        f"d: {spread:.2f}x); misround {share:.4f}; padded and dead rows "
+        f"exactly 0: {zeros}")
+    if not (ratio <= 2.0 and share <= MISROUND_GATE and zeros):
+        raise AssertionError(f"{name}: error against fp64 {ratio:.2f}x the "
+                             f"plain version's, misround {share:.4f}, or "
+                             "rows past q_len not 0")
+    return ratio, share
 
 
 def fp64_ratio(kern, plain, exact) -> float:
@@ -804,19 +947,20 @@ def signed_error(x, exact) -> float:
 
 
 def measure_ragged(gen, n_heads, num_blocks, P, kind="fp32",
-                   spans=SPANS_CHUNK, n_kv=None, bf16=False):
-    """K1 / K1-q at an engine shape, 7B heads (MHA, or ``n_kv`` kv heads):
-    by default the second 256-token chunk of a longer prompt (keys 0..511
-    visible), or the decode step of the engine's sequences (T = 1). Held
-    against the plain version in fp32 (1e-4) and in fp64 (within twice the
-    fp32 plain version's error), then timed. With ``bf16``: bf16 q (over
-    bf16 pools for kind "bf16"), the bf16 gates against fp64, bf16 bytes
-    and the bf16 peak in the bound, SDPA at bf16."""
+                   spans=SPANS_CHUNK, n_kv=None, half=None, d=128):
+    """K1 / K1-q at an engine shape, 7B heads (MHA, or ``n_kv`` kv heads;
+    head dim ``d``): by default the second 256-token chunk of a longer
+    prompt (keys 0..511 visible), or the decode step of the engine's
+    sequences (T = 1). Held against the plain version in fp32 (1e-4) and
+    in fp64 (within twice the fp32 plain version's error), then timed.
+    With ``half`` (bf16 or fp16): q of that dtype (over pools of it for
+    kind "bf16" / "fp16"), the 16-bit gates against fp64, 16-bit bytes and
+    the 16-bit peak in the bound, SDPA at that dtype."""
     from paddle_tpu_torch.ops.ragged_paged_attention import (
         dequantize_pages, ragged_form, ragged_paged_attention,
         ragged_reference,
     )
-    d, ps = 128, 16
+    ps = 16
     n_kv = n_kv or n_heads
     start, qlen, T = spans
     B = len(start)
@@ -826,35 +970,35 @@ def measure_ragged(gen, n_heads, num_blocks, P, kind="fp32",
     pages = [-(-(s + T) // ps) for s in start]   # pages each walk reads
     table = _tables(B, P, num_blocks, gen, used=pages)
     q = torch.randn(B, T, n_heads, d, device="cuda", generator=gen)
-    if bf16:
-        q = q.to(torch.bfloat16)
+    if half:
+        q = q.to(half)
     st = torch.tensor(start, dtype=torch.int32, device="cuda")
     ql = torch.tensor(qlen, dtype=torch.int32, device="cuda")
     args = (q, k, v, table, st, ql)
     kw = dict(k_scale=ks, v_scale=vs)
     form = ragged_form(n_heads // n_kv, T)
-    name = f"{_k1_label(kind, bf16)} {form} form"
+    name = f"{_k1_label(kind, half)} {form} form"
     out = ragged_paged_attention(*args, **kw)
     ref = ragged_reference(*args, **kw)
     err = (out.float() - ref.float()).abs().max().item()
-    if not bf16 and not err <= TOL:
+    if not half and not err <= TOL:
         raise AssertionError(f"{name} engine shape: max_abs_err {err} > "
                              f"{TOL}")
-    pools64 = ((k.double(), v.double()) if kind in ("fp32", "bf16")
+    pools64 = ((k.double(), v.double()) if kind in ("fp32", *HALF_POOLS)
                else (k, v))
     exact = ragged_reference(q.double(), *pools64, table, st, ql, **kw)
     extra = {}
-    if bf16:
-        ratio, extra["misround"] = _bf16_gates(name, out, ref, exact)
+    if half:
+        ratio, extra["misround"] = _half_gates(name, out, ref, exact)
     else:
         ratio = fp64_ratio(out, ref, exact)
     bias = (signed_error(out, exact), signed_error(ref, exact))
     del exact
     log(f"{name} vs fp64 at q[{B},{T},{n_heads},{d}], {n_kv} kv heads: "
-        f"kernel error {ratio:.2f}x the {'bf16' if bf16 else 'fp32'} plain "
-        f"version's; mean signed error kernel {bias[0]:+.2e}, plain "
-        f"{bias[1]:+.2e}"
-        + (f"; misround {extra['misround']:.4f}" if bf16 else ""))
+        f"kernel error {ratio:.2f}x the "
+        f"{HALF_SUFFIX[half] if half else 'fp32'} plain version's; mean "
+        f"signed error kernel {bias[0]:+.2e}, plain {bias[1]:+.2e}"
+        + (f"; misround {extra['misround']:.4f}" if half else ""))
     if not ratio <= 2.0:
         raise AssertionError(f"{name}: error against fp64 {ratio:.2f}x the "
                              "fp32 plain version's, above 2x")
@@ -890,22 +1034,24 @@ def measure_ragged(gen, n_heads, num_blocks, P, kind="fp32",
     flops = 4 * d * n_heads * sum(s + t + 1 for s, n in zip(start, qlen)
                                   for t in range(n))
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / (PEAK_BF16_FLOP_PER_S if bf16
+    t_ops = flops / (PEAK_BF16_FLOP_PER_S if half
                      else PEAK_FP32_ACCURATE_FLOP_PER_S)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=lib, fp64_ratio=ratio, **extra,
-                shape=f"q[{B},{T},{n_heads},{d}]{' bf16' if bf16 else ''} "
+                shape=f"q[{B},{T},{n_heads},{d}]"
+                      f"{' ' + HALF_SUFFIX[half] if half else ''} "
                       f"start_pos={start} {kind} pool[{num_blocks},{ps},"
                       f"{n_kv},{d}] table[{B},{P}] ({form} form)")
 
 
-def measure_paged(gen, n_heads, num_blocks, P, positions, bf16=False):
+def measure_paged(gen, n_heads, num_blocks, P, positions, half=None):
     """K2 at the engine's decode shape: 8 sequences at ``positions``. Held
     against the plain version in fp32 (1e-4) and in fp64 (within twice the
-    fp32 plain version's error), then timed. With ``bf16``: K2-bf16 under
-    the bf16 gates, bf16 bytes in the bound, SDPA at bf16."""
+    fp32 plain version's error), then timed. With ``half``: K2-bf16 or
+    K2-fp16 under the 16-bit gates, 16-bit bytes in the bound, SDPA at
+    that dtype."""
     from paddle_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_reference,
     )
@@ -914,29 +1060,28 @@ def measure_paged(gen, n_heads, num_blocks, P, positions, bf16=False):
     table = _tables(b, P, num_blocks, gen,
                     used=[p // ps + 1 for p in positions])
     q = torch.randn(b, n_heads, d, device="cuda", generator=gen)
-    if bf16:
-        q, k_pool, v_pool = (t.to(torch.bfloat16) for t in (q, k_pool,
-                                                            v_pool))
-    name = "K2-bf16" if bf16 else "K2"
+    if half:
+        q, k_pool, v_pool = (t.to(half) for t in (q, k_pool, v_pool))
+    name = f"K2-{HALF_SUFFIX[half]}" if half else "K2"
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     out = paged_decode_attention(q, k_pool, v_pool, table, pos)
     ref = paged_decode_reference(q, k_pool, v_pool, table, pos)
     err = (out.float() - ref.float()).abs().max().item()
-    if not bf16 and not err <= TOL:
+    if not half and not err <= TOL:
         raise AssertionError(f"K2 engine shape: max_abs_err {err} > {TOL}")
     exact = paged_decode_reference(q.double(), k_pool.double(),
                                    v_pool.double(), table, pos)
     extra = {}
-    if bf16:
-        ratio, extra["misround"] = _bf16_gates(name, out, ref, exact)
+    if half:
+        ratio, extra["misround"] = _half_gates(name, out, ref, exact)
     else:
         ratio = fp64_ratio(out, ref, exact)
     bias = (signed_error(out, exact), signed_error(ref, exact))
     del exact
     log(f"{name} vs fp64 at q[{b},{n_heads},{d}]: kernel error {ratio:.2f}x "
-        f"the {'bf16' if bf16 else 'fp32'} plain version's; mean signed "
-        f"error kernel {bias[0]:+.2e}, plain {bias[1]:+.2e}"
-        + (f"; misround {extra['misround']:.4f}" if bf16 else ""))
+        f"the {HALF_SUFFIX[half] if half else 'fp32'} plain version's; mean "
+        f"signed error kernel {bias[0]:+.2e}, plain {bias[1]:+.2e}"
+        + (f"; misround {extra['misround']:.4f}" if half else ""))
     if not ratio <= 2.0:
         raise AssertionError(f"K2: error against fp64 {ratio:.2f}x the fp32 "
                              "plain version's, above 2x")
@@ -960,13 +1105,14 @@ def measure_paged(gen, n_heads, num_blocks, P, positions, bf16=False):
               + 4 * b * (P + 1))
     flops = 4 * d * n_heads * keys
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / (PEAK_BF16_FLOP_PER_S if bf16
+    t_ops = flops / (PEAK_BF16_FLOP_PER_S if half
                      else PEAK_FP32_ACCURATE_FLOP_PER_S)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=lib, fp64_ratio=ratio, **extra,
-                shape=f"q[{b},{n_heads},{d}]{' bf16' if bf16 else ''} "
+                shape=f"q[{b},{n_heads},{d}]"
+                      f"{' ' + HALF_SUFFIX[half] if half else ''} "
                       f"pos={positions} pool[{num_blocks},{ps},{n_heads},"
                       f"{d}] table[{b},{P}]")
 
@@ -989,7 +1135,8 @@ def check_against_naive(runner, prompt, out_tokens, sp, max_model_len):
 
 def _all_counts():
     """(name, LaunchCounts) of every serving kernel wrapper: the fp32-q
-    variants, then the bf16-q ones (a bf16 runner's)."""
+    variants, then the bf16-q ones (a bf16 runner's), then the fp16-q ones
+    (an fp16 runner's)."""
     import paddle_tpu_torch.ops.paged_attention as k2
     import paddle_tpu_torch.ops.ragged_paged_attention as k1
     return (("ragged_paged_attention", k1.COUNTS),
@@ -999,20 +1146,25 @@ def _all_counts():
             ("ragged_paged_attention_bf16", k1.COUNTS_BF16),
             ("ragged_paged_attention_bf16_int8", k1.COUNTS_BF16_I8),
             ("ragged_paged_attention_bf16_fp8", k1.COUNTS_BF16_F8),
-            ("paged_decode_attention_bf16", k2.COUNTS_BF16))
+            ("paged_decode_attention_bf16", k2.COUNTS_BF16),
+            ("ragged_paged_attention_fp16", k1.COUNTS_F16),
+            ("ragged_paged_attention_fp16_int8", k1.COUNTS_F16_I8),
+            ("ragged_paged_attention_fp16_fp8", k1.COUNTS_F16_F8),
+            ("paged_decode_attention_fp16", k2.COUNTS_F16))
 
 
-def _bf16_name(base, kind):
-    """The bf16-q variant's name of a serving kernel over a ``kind`` pool
-    ("bf16" or "fp32": the runner's dtype; "int8", "fp8")."""
-    return base + "_bf16" + ("" if kind in ("bf16", "fp32") else f"_{kind}")
+def _half_name(base, kind, half=BF16):
+    """The 16-bit-q variant's name of a serving kernel over a ``kind`` pool
+    ("bf16", "fp16" or "fp32": the runner's dtype; "int8", "fp8")."""
+    return (f"{base}_{HALF_SUFFIX[half]}"
+            + ("" if kind in ("fp32", *HALF_POOLS) else f"_{kind}"))
 
 
-def _path_kernels(kv_dtype, bf16=False):
+def _path_kernels(kv_dtype, half=None):
     """The kernels an MHA engine's path launches: K1 for its chunks and K2
-    for its decode steps over fp32 and mixed pools (bf16 variants for a
-    bf16 runner), K1-q for both over int8 / fp8 pools."""
-    sfx = "_bf16" if bf16 else ""
+    for its decode steps over fp32 and mixed pools (16-bit variants for a
+    runner cast to ``half``), K1-q for both over int8 / fp8 pools."""
+    sfx = f"_{HALF_SUFFIX[half]}" if half else ""
     if kv_dtype in ("fp32", "mixed"):
         return (f"ragged_paged_attention{sfx}", f"paged_decode_attention{sfx}")
     return (f"ragged_paged_attention{sfx}_{kv_dtype}",)
@@ -1035,9 +1187,8 @@ def engine_phase(model, cfg, kv_dtype="fp32", seed=0, n_requests=8,
     from paddle_tpu_torch.inference import create_serving_engine
     from paddle_tpu_torch.serving import SamplingParams
 
-    bf16 = dtype is not None
     if gate_naive is None:
-        gate_naive = kv_dtype == "fp32" and not bf16 and not knobs
+        gate_naive = kv_dtype == "fp32" and dtype is None and not knobs
     t0 = time.perf_counter()
     eng = create_serving_engine(
         model, dtype=dtype, device="cuda", block_size=16, num_blocks=1024,
@@ -1046,8 +1197,8 @@ def engine_phase(model, cfg, kv_dtype="fp32", seed=0, n_requests=8,
         **knobs)
     m = eng.metrics
     n_kv = getattr(cfg, "num_kv_heads", cfg.num_heads)
-    what = f"{kv_dtype} KV" + (", bf16" if bf16 else "") + "".join(
-        f", {k}={v}" for k, v in knobs.items())
+    what = f"{kv_dtype} KV" + (f", {HALF_SUFFIX[dtype]}" if dtype else "") \
+        + "".join(f", {k}={v}" for k, v in knobs.items())
     model_gib = sum(p.numel() * p.element_size()
                     for p in model.parameters()) / 2**30
     log(f"engine setup ({what}): {type(model).__name__}, "
@@ -1105,7 +1256,11 @@ def engine_phase(model, cfg, kv_dtype="fp32", seed=0, n_requests=8,
             o.finish_reason != "length" or len(o.output_tokens) != max_tokens
             for o in outs.values()):
         raise AssertionError("not every request finished with max_tokens")
-    path = _path_kernels(kv_dtype, bf16)
+    if m.nan_logit_events.value:
+        raise AssertionError(f"engine ({what}): "
+                             f"{int(m.nan_logit_events.value)} logits rows "
+                             "were not finite")
+    path = _path_kernels(kv_dtype, dtype)
     if len(path) == 2:
         if min(kernel[n] for n in path) == 0:
             raise AssertionError(f"main path missed a kernel: {kernel}")
@@ -1183,7 +1338,7 @@ def gemm_row_invariance(gen, ms=(1, 8, 16, 256, 1024)):
 
 
 def single_slot_check(model, cfg, kv_dtype, prompts, max_tokens=32,
-                      dtype=None, forms=None, **knobs):
+                      dtype=None, forms=None, weights=None, **knobs):
     """An engine with one slot serves each prompt in one prefill chunk and
     then batch-1 decode steps: the row counts of naive_generate, so its
     tokens must equal naive_generate's exactly (int8 scales too: both
@@ -1191,15 +1346,16 @@ def single_slot_check(model, cfg, kv_dtype, prompts, max_tokens=32,
     for the chunk and K2 for the decode steps over fp32 pools (bf16
     variants with ``dtype`` bf16; ``knobs`` such as the weight ladder's
     passed on). Returns the launches by kernel; ``forms``, a dict, takes
-    the engine's launches by form of each kernel."""
+    the engine's launches by form of each kernel, ``weights``, a dict, the
+    runner's weight bytes and reduction factor."""
     from paddle_tpu_torch.inference import create_serving_engine
     from paddle_tpu_torch.serving import SamplingParams
 
+    knobs.setdefault("audit", True)
     eng = create_serving_engine(
         model, dtype=dtype, device="cuda", block_size=16, num_blocks=128,
         max_batch_size=1, max_model_len=1024,
-        max_prefill_tokens_per_step=256, kv_dtype=kv_dtype, audit=True,
-        **knobs)
+        max_prefill_tokens_per_step=256, kv_dtype=kv_dtype, **knobs)
     sp = SamplingParams(max_tokens=max_tokens)
     counts = _all_counts()
     for _, c in counts:
@@ -1207,21 +1363,27 @@ def single_slot_check(model, cfg, kv_dtype, prompts, max_tokens=32,
     ids = [eng.add_request(p, sp) for p in prompts]
     outs = eng.run()
     kernel = {name: c.kernel_launches for name, c in counts}
+    if weights is not None:
+        weights.update(bytes=eng.runner.weight_bytes(),
+                       reduction=eng.metrics.weight_bytes_reduction_x.value)
     if forms is not None:
         forms.update({name: dict(c.form_launches) for name, c in counts
                       if c.form_launches})
-    path = _path_kernels(kv_dtype, dtype is not None)
+    path = _path_kernels(kv_dtype, dtype)
     chunks = int(eng.metrics.prefill_chunks.value)
     decodes = eng.metrics.batch_occupancy.count
     L = cfg.num_layers
     want = ({path[0]: L * (chunks + decodes)} if len(path) == 1
             else {path[0]: L * chunks, path[1]: L * decodes})
-    what = f"{kv_dtype} KV" + (", bf16" if dtype is not None else "") + \
-        "".join(f", {k}={v}" for k, v in knobs.items())
+    what = f"{kv_dtype} KV" + (f", {HALF_SUFFIX[dtype]}" if dtype else "") \
+        + "".join(f", {k}={v}" for k, v in knobs.items() if k != "audit")
     if ({n: k for n, k in kernel.items() if k} != want
             or any(c.plain_launches for _, c in counts)):
         raise AssertionError(f"single-slot engine ({what}): {kernel}, want "
                              f"{want}")
+    if eng.metrics.nan_logit_events.value:
+        raise AssertionError(f"single-slot engine ({what}): logits rows "
+                             "were not finite")
     if not eng.pool.allocator.check_no_leaks():
         raise AssertionError("single-slot engine leaked KV pages")
     for rid, p in zip(ids, prompts):
@@ -1730,7 +1892,7 @@ def _top2_margin(runner, prompt, tokens, j) -> float:
     ctx = list(prompt) + list(tokens[:j])
     n = -(-len(ctx) // runner.block_size)
     pool = KVCachePool(runner.num_layers, n + 1, runner.block_size,
-                       runner.n_kv_heads, runner.head_dim,
+                       runner.n_kv_heads, runner.head_dim, runner.dtype,
                        device=runner.device, kv_dtype=runner.kv_dtype)
     logits, _ = runner.prefill(ctx, pool.allocator.alloc(n), pool.pools)
     top = torch.topk(logits.float(), 2).values
@@ -2246,29 +2408,23 @@ def spec_phase(model, cfg):
     return launches
 
 
-# ------------------- bf16 serving, the weight ladder, the mixed pool
+# -------------- 16-bit serving, the weight ladder, the mixed pool
 
 # phase 31's 2-layer gate: the bf16 runner's logits against its fp32
 # twin's (bf16 weights and activations against fp32 ones: eight bf16
-# rounding steps of 2^-9 through two layers and the head)
-BF16_TWIN_TOL = 2.0 ** -3
-# phase 33: a mixed pool's fp8 tenant decodes through K2 (MHA, its pool
-# holds fp32 values fp8_round gave), the native fp8 pool's through K1-q's
-# decode form: two orders of summation, whose last-bit differences each
-# layer's fp8 write of the next token's K/V can turn into a whole fp8
-# step (phase 25 reads 4.7e-4 to 5.2e-4 of max|logit| at 24 layers for
-# the same drift). The streams may part only where the twin's top-2
-# margin lies within this share of its max|logit|
-MIXED_MARGIN = 1e-3
+# rounding steps of 2^-9 through two layers and the head); phase 38's at
+# fp16 on the same rule, fp16 rounding at 2^-12
+TWIN_TOL = {BF16: 2.0 ** -3, F16: 2.0 ** -6}
 
 
-def bf16_twin_check(model, label):
-    """Phase 31: ``model`` (2 layers at full width, fp32) through two
-    create_serving_engine runners, fp32 and dtype=bfloat16, over their own
-    pools: chunks of 256 and 256 tokens, then 8 one-row decode steps fed
-    the fp32 run's argmax; every call's bf16 logits within BF16_TWIN_TOL
-    of max|logit| of the fp32 twin's; the bf16 run launches only bf16
-    variants (K1-bf16, K2-bf16) and no plain version."""
+def half_twin_check(model, label, dtype=BF16):
+    """Phases 31 and 38: ``model`` (2 layers at full width, fp32) through
+    two create_serving_engine runners, fp32 and ``dtype`` (bf16 or fp16),
+    over their own pools: chunks of 256 and 256 tokens, then 8 one-row
+    decode steps fed the fp32 run's argmax; every call's 16-bit logits
+    within TWIN_TOL of max|logit| of the fp32 twin's, finite; the 16-bit
+    run launches only its variants (K1, K2 of ``dtype``) and no plain
+    version."""
     from paddle_tpu_torch.inference import create_serving_engine
     from paddle_tpu_torch.serving import KVCachePool
 
@@ -2278,8 +2434,8 @@ def bf16_twin_check(model, label):
                                                512).tolist()
     logits, launched = [], None
     feed = []
-    for dtype in (None, torch.bfloat16):
-        runner = create_serving_engine(model, dtype=dtype, device="cuda",
+    for dt in (None, dtype):
+        runner = create_serving_engine(model, dtype=dt, device="cuda",
                                        block_size=ps, max_model_len=ps * P,
                                        num_blocks=P + 1).runner
         pool = KVCachePool(cfg.num_layers, 1 + P, ps, runner.n_kv_heads,
@@ -2295,7 +2451,7 @@ def bf16_twin_check(model, label):
                                              start, table, pools)
             out.append(lg.float().clone())
         for i in range(8):
-            if dtype is None:
+            if dt is None:
                 feed.append(int(torch.argmax(out[-1])))
             lg, pools = runner.decode(np.asarray([feed[i]], np.int32),
                                       np.asarray([table], np.int32),
@@ -2307,15 +2463,17 @@ def bf16_twin_check(model, label):
     kernel, forms, plain = launched
     worst = max(((a - b).abs().max() / a.abs().max()).item()
                 for a, b in zip(*logits))
-    log(f"phase 31 {label}: 2-layer bf16 runner vs its fp32 twin, chunks "
-        f"256 + 256 and 8 decode steps: worst max|logit diff| / max|logit| "
-        f"{worst:.3e} (gate {BF16_TWIN_TOL:.3e}); the bf16 run's launches "
-        f"{kernel}, by form {forms}, plain {plain}")
-    if not worst <= BF16_TWIN_TOL:
-        raise AssertionError(f"{label}: bf16 logits {worst:.3e} of max from "
-                             "the fp32 twin's")
-    if plain or set(kernel) != set(_path_kernels("fp32", True)):
-        raise AssertionError(f"{label}: the bf16 twin launched {kernel}, "
+    finite = all(bool(torch.isfinite(x).all()) for x in logits[1])
+    sfx, tol = HALF_SUFFIX[dtype], TWIN_TOL[dtype]
+    log(f"{PHASE_OF[dtype]} {label}: 2-layer {sfx} runner vs its fp32 twin, "
+        f"chunks 256 + 256 and 8 decode steps: worst max|logit diff| / "
+        f"max|logit| {worst:.3e} (gate {tol:.3e}), finite {finite}; the "
+        f"{sfx} run's launches {kernel}, by form {forms}, plain {plain}")
+    if not (worst <= tol and finite):
+        raise AssertionError(f"{label}: {sfx} logits {worst:.3e} of max from "
+                             f"the fp32 twin's (finite {finite})")
+    if plain or set(kernel) != set(_path_kernels("fp32", dtype)):
+        raise AssertionError(f"{label}: the {sfx} twin launched {kernel}, "
                              f"plain {plain}")
     return worst
 
@@ -2329,60 +2487,77 @@ def bf16_twin_check(model, label):
 # place of rounding to nearest (half a step of bias) part by 1.5e-2 to
 # 1.6e-2, bf16 halves read in the wrong order by 1.4 to 1.6, and both
 # fail this gate; a wrong pool dtype or kernel variant fails the exact
-# launches
-BF16_GATHER_TOL = 1.2e-2
+# launches. Phase 38's at fp16: the same number of output steps (fp16
+# rounds 8x finer, 1.5e-3) holds the fp16-pool rung on an H100 (1.13e-3
+# at LLaMA-2-7B width) but not the int8 rung (1.88e-3): there the two
+# runs' codes part (0.8 % of layer 1's K codes differ, each a whole
+# quantization step, as at bf16), so the gate is 2^-8, a quarter of the
+# fp16 twin's, for every pool; the kernels' rounding is held at the kernel
+# level (phase 37's misround gate)
+GATHER_TOL = {BF16: 1.2e-2, F16: 2.0 ** -8}
+# the phase that checks each 16-bit dtype's serving path
+PHASE_OF = {BF16: "phase 31", F16: "phase 38"}
+# phase 33's gate of an fp8 tenant against the native fp8 engine (K2 over
+# the mixed pool's rounded values against K1-q over fp8 codes): where the
+# two streams part, the twin's top-2 margin within this of its max|logit|;
+# phase 39's at fp16, where two attention paths' logits part by up to
+# GATHER_TOL[F16], within twice that
+MIXED_MARGIN = {None: 1e-3, F16: 2 * GATHER_TOL[F16]}
 
 
-def bf16_gather_check(model, runner_cls, label, gate=True):
-    """Phase 31: ``model`` (2 layers at full width, fp32) through the
-    dtype=bfloat16 runner over bf16, int8 and fp8 pools, its kernels
-    (K1-bf16's span and decode forms and K2-bf16; K1-q with bf16 q)
-    against the same runner's gather path, as phases 7 and 25 hold the
-    fp32 runner: chunks of 256, 256, 8, 3, 1 and 8 decode steps of 1-8
-    rows; the exact launches, no plain version, every call's logits
-    within BF16_GATHER_TOL of max|logit|. Returns {pool: that share}."""
-    n, worst = model.cfg.num_layers, {}
+def half_gather_check(model, runner_cls, label, gate=True, dtype=BF16):
+    """Phases 31 and 38: ``model`` (2 layers at full width, fp32) through
+    the ``dtype`` (bf16 or fp16) runner over pools of that dtype, int8 and
+    fp8 pools, its kernels (K1's span and decode forms and K2 of that
+    dtype; K1-q with 16-bit q) against the same runner's gather path, as
+    phases 7 and 25 hold the fp32 runner: chunks of 256, 256, 8, 3, 1 and
+    8 decode steps of 1-8 rows; the exact launches, no plain version,
+    every call's logits within GATHER_TOL of max|logit|. Returns {pool:
+    that share}."""
+    n, worst, sfx = model.cfg.num_layers, {}, HALF_SUFFIX[dtype]
     for kind in ("fp32", "int8", "fp8"):
-        name = _bf16_name("ragged_paged_attention", kind)
-        # bf16 q's decode form walks the 64-page table in 4 splits
+        name = _half_name("ragged_paged_attention", kind, dtype)
+        # 16-bit q's decode form walks the 64-page table in 4 splits
         if kind == "fp32":
             want = {name: (5 * n, {"span": 2 * n, "decode_split": 3 * n}),
-                    "paged_decode_attention_bf16": (8 * n, {})}
+                    f"paged_decode_attention_{sfx}": (8 * n, {})}
         else:
             want = {name: (13 * n, {"span": 2 * n, "decode_split": 11 * n})}
-        log(f"phase 31 {label}: the bf16 runner against its gather path")
-        worst["bf16" if kind == "fp32" else kind] = quant_model_check(
-            model, runner_cls, kind, want, gate, BF16_GATHER_TOL,
+        log(f"{PHASE_OF[dtype]} {label}: the {sfx} runner against its "
+            "gather path")
+        worst[sfx if kind == "fp32" else kind] = quant_model_check(
+            model, runner_cls, kind, want, gate, GATHER_TOL[dtype],
             chunks=(256, 256, 8, 3, 1), steps=8, rows=tuple(range(1, 9)),
-            dtype=torch.bfloat16)
+            dtype=dtype)
         _free_the_card()
     return worst
 
 
-def bf16_serving_phase(model, cfg, max_model_len=4096):
-    """Phase 31: ``model`` (cast to bf16, its fp32 weights freed) served
-    through create_serving_engine(dtype=torch.bfloat16) on phase 4's
-    traffic: bf16 pools at 8 slots (every call through K1-bf16 and
-    K2-bf16, no other kernel, no plain version); a horizon engine
-    (decode_horizon=8, its decode kinds as CUDA graphs) whose streams
-    equal the per-step engine's token for token; one-slot runs over bf16,
-    int8 and fp8 pools token-exact against naive_generate (K1-q with bf16
-    q on the 1-byte pools). Returns {kernel: launches} of the phase's
-    runs and the per-step engine's launches by form."""
+def half_serving_phase(model, cfg, dtype=BF16, max_model_len=4096):
+    """Phases 31 and 38: ``model`` (cast to ``dtype``, bf16 or fp16, its
+    fp32 weights freed) served through create_serving_engine(dtype=dtype)
+    on phase 4's traffic: pools of that dtype at 8 slots (every call
+    through its K1 and K2 variants, no other kernel, no plain version,
+    every request finished with max_tokens, finite logits); a horizon
+    engine (decode_horizon=8, its decode kinds as CUDA graphs) whose
+    streams equal the per-step engine's token for token; one-slot runs
+    over fp32-rung, int8 and fp8 pools token-exact against naive_generate
+    (K1-q with 16-bit q on the 1-byte pools). Returns {kernel: launches} of the
+    phase's runs and the per-step engine's launches by form."""
     from paddle_tpu_torch.inference import create_serving_engine
     from paddle_tpu_torch.serving import SamplingParams
 
-    bf16 = torch.bfloat16
+    phase = PHASE_OF[dtype]
     t0 = time.perf_counter()
     eng, launches, _, tokens, prompts, forms = engine_phase(
-        model, cfg, dtype=bf16, max_model_len=max_model_len)
+        model, cfg, dtype=dtype, max_model_len=max_model_len)
     profile_phase(eng, cfg)
     del eng
     _free_the_card()
     # the horizon engine on the same traffic: its streams equal the
     # per-step engine's (the same kernels on the same row counts)
     eng = create_serving_engine(
-        model, dtype=bf16, device="cuda", block_size=16, num_blocks=1024,
+        model, dtype=dtype, device="cuda", block_size=16, num_blocks=1024,
         max_batch_size=8, max_model_len=max_model_len,
         max_prefill_tokens_per_step=256, audit=True, decode_horizon=8)
     counts = _zeroed_counts()
@@ -2396,70 +2571,75 @@ def bf16_serving_phase(model, cfg, max_model_len=4096):
     wall = time.perf_counter() - t
     kernel, hforms, plain = _launches(counts)
     got = [outs[i].output_tokens for i in ids]
-    log(f"phase 31 bf16 horizon engine (decode_horizon 8, graphs): "
-        f"{int(m.tokens_generated.value)} tokens in {wall:.3f} s = "
+    log(f"{phase} {HALF_SUFFIX[dtype]} horizon engine (decode_horizon 8, "
+        f"graphs): {int(m.tokens_generated.value)} tokens in {wall:.3f} s = "
         f"{m.tokens_generated.value / wall:.1f} tokens/s, "
         f"{int(m.decode_horizon_steps.value)} horizon steps, captures "
         f"{[(c['kind'], round(c['seconds'], 3)) for c in eng.runner.captures]}"
         f"; launches {kernel}, by form {hforms}, plain {plain}; streams equal "
         f"the per-step engine's {got == tokens}")
-    if got != tokens or plain or set(kernel) != set(
-            _path_kernels("fp32", True)):
-        raise AssertionError("phase 31: the bf16 horizon engine parts from "
-                             "the per-step engine or left its path")
+    if got != tokens or plain or m.nan_logit_events.value or set(
+            kernel) != set(_path_kernels("fp32", dtype)):
+        raise AssertionError(f"{phase}: the horizon engine parts from "
+                             "the per-step engine, left its path or gave "
+                             "non-finite logits")
     if not eng.pool.allocator.check_no_leaks():
-        raise AssertionError("phase 31: the horizon engine leaked pages")
+        raise AssertionError(f"{phase}: the horizon engine leaked pages")
     del eng
     _free_the_card()
     short = sorted(prompts, key=len)[:2]
     single = {}
     for kind in ("fp32", "int8", "fp8"):
         slot_forms = {}
-        single[kind] = single_slot_check(model, cfg, kind, short, dtype=bf16,
-                                         forms=slot_forms)
+        single[kind] = single_slot_check(model, cfg, kind, short,
+                                         dtype=dtype, forms=slot_forms)
         if kind != "fp32":
             # chunks through the span form, decode steps through the split
             # walk (the one-slot engine's 64-page tables: 4 splits)
-            name = _bf16_name("ragged_paged_attention", kind)
+            name = _half_name("ragged_paged_attention", kind, dtype)
             got = slot_forms.get(name, {})
-            log(f"phase 31 one-slot {kind} launches by form: {got}")
+            log(f"{phase} one-slot {kind} launches by form: {got}")
             if set(got) != {"span", "decode_split"}:
-                raise AssertionError(f"phase 31: {name} did not launch the "
+                raise AssertionError(f"{phase}: {name} did not launch the "
                                      f"span form and the split walk: {got}")
             forms[name] = got
         _free_the_card()
-    log(f"phase 31 ({type(model).__name__}): {time.perf_counter() - t0:.1f}"
+    log(f"{phase} ({type(model).__name__}): {time.perf_counter() - t0:.1f}"
         " s")
-    path = {n: launches[n] for n in _path_kernels("fp32", True)}
+    path = {n: launches[n] for n in _path_kernels("fp32", dtype)}
     for kind in ("int8", "fp8"):
         path.update(single[kind])
     return path, forms
 
 
-def ladder_bytes(model, weight_dtype, group=128):
+def ladder_bytes(model, weight_dtype, group=128, dtype=None):
     """The bytes a runner on the weight ladder should hold, from the
     shapes alone: every matmul weight the runner quantizes (the 2-D
     weights but the embeddings) at its rung (int8 codes and an fp32 scale
     an output channel; int4 half a byte an element and an fp32 scale a
     group of rows and output channel; fp8 one byte), every other
-    parameter at fp32."""
-    from paddle_tpu_torch.quantization import int4_weight_bytes
+    parameter at fp32. With ``dtype`` (fp16: create_serving_engine's cast
+    of the whole dict, as the JAX bridge casts it) every floating tensor
+    takes that dtype's bytes: the scales and the other parameters, and the
+    fp8 weights, which come back in it."""
+    fb = 4 if dtype is None else torch.finfo(dtype).bits // 8
     total = 0
     for name, p in model.named_parameters():
         quantized = p.dim() == 2 and not any(
             k in name for k in ("embed", "wte", "wpe"))
+        k, n = p.shape[0], p.shape[-1]
         if not quantized:
-            total += 4 * p.numel()
+            total += fb * p.numel()
         elif weight_dtype == "int4":
-            total += int4_weight_bytes(*p.shape, group)
+            total += (k // 2) * n + fb * n * -(-k // group)
         elif weight_dtype == "int8":
-            total += p.numel() + 4 * p.shape[1]
+            total += p.numel() + fb * n
         else:
-            total += p.numel()
+            total += (1 if dtype is None else fb) * p.numel()
     return total
 
 
-def weight_ladder_phase(model, cfg, ref_tokens):
+def weight_ladder_phase(model, cfg):
     """Phase 32: ``model`` (fp32 compute) with its matmul weights on each
     rung of the ladder, int8, int4 (group 128) and fp8, on phase 4's
     traffic: the engine's tokens/s, decode-step ms and peak memory
@@ -2477,7 +2657,7 @@ def weight_ladder_phase(model, cfg, ref_tokens):
         # the batch engine's naive_generate report is left out: the
         # one-slot run below gates the same runner against it
         eng, _, _, _, prompts, _ = engine_phase(
-            model, cfg, ref_tokens=ref_tokens, report_naive=False, **knobs)
+            model, cfg, report_naive=False, **knobs)
         got = eng.runner.weight_bytes()
         want = ladder_bytes(model, wd, INT4_GROUP_SIZE)
         factors[wd] = eng.metrics.weight_bytes_reduction_x.value
@@ -2498,6 +2678,151 @@ def weight_ladder_phase(model, cfg, ref_tokens):
     return factors
 
 
+def f16_ladder_phase(model, cfg, prompts):
+    """Phase 39 (Llama): ``model`` (cast to fp16) on each rung of the
+    weight ladder, int8, int4 (group 128) and fp8, under
+    create_serving_engine(dtype=float16), which casts the whole dict as
+    the JAX bridge does (scales and fp8 weights come back fp16): the
+    runner's bytes equal `ladder_bytes` at fp16, and a one-slot engine on
+    ``prompts`` is token-exact against naive_generate through K1-fp16 and
+    K2-fp16 alone, with finite logits. The engine runs unaudited: the
+    auditor wants fp32 scales and float8 weights, which the cast replaced,
+    and refuses the cast ladder in the JAX package as here
+    (tests/test_torch_fp16_serving.py). Returns {rung: weight bytes
+    reduction}."""
+    from paddle_tpu_torch.quantization import INT4_GROUP_SIZE
+
+    t0 = time.perf_counter()
+    factors = {}
+    for wd in ("int8", "int4", "fp8"):
+        weights = {}
+        single_slot_check(model, cfg, "fp32", prompts, dtype=F16,
+                          weights=weights, weight_dtype=wd,
+                          weight_group_size=INT4_GROUP_SIZE, audit=False)
+        want = ladder_bytes(model, wd, INT4_GROUP_SIZE, F16)
+        factors[wd] = weights["reduction"]
+        log(f"phase 39 {wd} weights at fp16: runner {weights['bytes']} "
+            f"bytes, the shapes' formula {want}; weight_bytes_reduction_x "
+            f"{factors[wd]:.4f}")
+        if weights["bytes"] != want:
+            raise AssertionError(f"phase 39 {wd}: weight bytes "
+                                 f"{weights['bytes']} != {want}")
+        _free_the_card()
+    log(f"phase 39 ladder: {time.perf_counter() - t0:.1f} s")
+    return factors
+
+
+def f16_generator_check(model, cfg, batch=8, prompt=256, new=32, seed=4,
+                        max_len=512):
+    """Phase 38 (GPT): PagedGPTGenerator over ``model`` cast to fp16
+    (its pools take the dtype of wte.weight, as JAX's): greedy, batch 8,
+    must launch K2-fp16 once a layer on every decode step and nothing
+    else, no plain version; stepped on its own tokens, its logits are
+    finite at every step and within GATHER_TOL[F16] of max|logit| of the
+    dense GPTGenerator's at fp16 (the dense cache's attention: another
+    rounding order); the two generators' token agreement is reported.
+    Returns the K2-fp16 launches."""
+    from paddle_tpu_torch.models.generation import (
+        GPTGenerator, PagedGPTGenerator,
+    )
+
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                        (batch, prompt))).to("cuda")
+    paged = PagedGPTGenerator(model, max_len=max_len)
+    dense = GPTGenerator(model, max_len=max_len)
+    paged.generate(ids, max_new_tokens=2, temperature=0.0)   # set-up
+    counts = _zeroed_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = paged.generate(ids, max_new_tokens=new, temperature=0.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    kernel, _, plain = _launches(counts)
+    want = {"paged_decode_attention_fp16": cfg.num_layers * (new - 1)}
+    out_d = dense.generate(ids, max_new_tokens=new, temperature=0.0)
+
+    def stepwise(g):
+        state = g._make_state(batch)
+        logits, state = g._prefill_call(ids, state)
+        steps = [logits]
+        for i in range(new - 1):
+            logits, state = g._decode_logits_call(out[:, prompt + i], state,
+                                                  prompt + i)
+            steps.append(logits)
+        return steps
+
+    lp, ld = stepwise(paged), stepwise(dense)
+    finite = all(bool(torch.isfinite(x).all()) for x in lp)
+    rel = max(((a.float() - b.float()).abs().max()
+               / b.float().abs().max()).item() for a, b in zip(lp, ld))
+    same = int((out[:, prompt:] == out_d[:, prompt:]).sum())
+    log(f"phase 38 PagedGPTGenerator at fp16: batch {batch}, prompt "
+        f"{prompt}, {new} greedy tokens in {wall:.3f} s "
+        f"({1e3 * wall / new:.2f} ms a token step); launches {kernel}, "
+        f"plain {plain}; logits finite at every step {finite}; against the "
+        f"dense generator at fp16 on the same tokens, worst max|logit diff| "
+        f"/ max|logit| {rel:.3e} (gate {GATHER_TOL[F16]:.3e}), greedy "
+        f"agreement {same}/{batch * new} (reported)")
+    if kernel != want or plain or not finite or not rel <= GATHER_TOL[F16]:
+        raise AssertionError(f"phase 38 paged generator: launches {kernel}, "
+                             f"want {want}, plain {plain}, finite {finite}, "
+                             f"gap to the dense generator {rel:.3e}")
+    return want["paged_decode_attention_fp16"]
+
+
+# phase 39's speculation arm at fp16: the draft arm's streams against the
+# off arm's, which run other kernels (verify spans through K1-fp16's
+# decode form, single tokens through K2-fp16) on other row counts; a
+# parting must sit where two fp16 evaluations of the same logits can swap
+# the top two: within twice the gather gate's gap
+SPEC_F16_MARGIN = 2 * GATHER_TOL[F16]
+
+
+def f16_spec_phase(model, cfg):
+    """Phase 39 (GPT): speculation on an fp16 target (``model`` cast to
+    fp16, create_serving_engine(dtype=float16)) with phase 30's traffic:
+    the off arm and the draft_int8 arm (a "shadow" draft: the shadow of an
+    fp16 target goes down the ladder, since fp16 is a numpy floating
+    type), one round each: the shadow holds int8 codes, proposed and
+    accepted > 0, no plain launch, no leak, finite logits; each request's
+    stream equals off's but where off's top-2 margin lies within
+    SPEC_F16_MARGIN of its max|logit|. Returns the launches by arm."""
+    prompts = spec_requests(cfg)
+    runs, launches = {}, {}
+    arms = dict(SPEC_ARMS)
+    for name in ("off", "draft_int8"):
+        eng = _spec_engine(model, dict(arms[name], dtype=F16))
+        runs[name] = _spec_round(eng, prompts, f"{name} at fp16")
+        launches[name] = runs[name]["kernel"]
+        if eng.metrics.nan_logit_events.value:
+            raise AssertionError(f"phase 39 speculation {name}: non-finite "
+                                 "logits")
+        if name == "draft_int8":
+            draft = eng.proposer.runner
+            quantized = len(draft._quantized_names)
+            codes = sorted({str(draft.params[n].dtype)
+                            for n in draft._quantized_names})
+            log(f"phase 39 speculation: the fp16 target's shadow draft has "
+                f"{quantized} matrices at {draft.weight_dtype}, codes "
+                f"{codes}")
+            if not quantized or draft.weight_dtype != "int8" or not (
+                    runs[name]["proposed"] and runs[name]["accepted"]):
+                raise AssertionError("phase 39 speculation: the shadow of "
+                                     "the fp16 target is not int8, or "
+                                     "nothing was accepted")
+        runner = eng.runner
+        del eng
+        _free_the_card()
+    parted = [_gate_twin(f"phase 39 speculation draft_int8 request {i}",
+                         runner, prompts[i], a, b, SPEC_F16_MARGIN)
+              for i, (a, b) in enumerate(zip(runs["draft_int8"]["tokens"],
+                                             runs["off"]["tokens"]))]
+    log(f"phase 39 speculation at fp16: draft_int8 streams against off's "
+        f"(token where each parts, None = never): {parted}")
+    return launches
+
+
 def _gate_twin(label, runner, prompt, got, want, tol=None):
     """A tenant's stream against its twin's: equal, or (with ``tol``)
     parting only at a token where the twin's top-2 margin lies within
@@ -2510,7 +2835,7 @@ def _gate_twin(label, runner, prompt, got, want, tol=None):
     ctx = list(prompt) + list(want[:j])
     n = -(-len(ctx) // runner.block_size)
     pool = KVCachePool(runner.num_layers, n + 1, runner.block_size,
-                       runner.n_kv_heads, runner.head_dim,
+                       runner.n_kv_heads, runner.head_dim, runner.dtype,
                        device=runner.device, kv_dtype=runner.kv_dtype)
     pool.tag_pages(pool.allocator.alloc(n), pool.native_kv_tag())
     logits = runner.prefill(ctx, list(range(1, n + 1)), pool.pools)[0]
@@ -2525,9 +2850,10 @@ def _gate_twin(label, runner, prompt, got, want, tol=None):
     return j
 
 
-def mixed_pool_phase(model, cfg):
-    """Phase 33: ``model`` on a kv_dtype="mixed" pool with the prefix cache
-    on, phase 28's shared-prompt traffic (request 0 first), requests
+def mixed_pool_phase(model, cfg, dtype=None):
+    """Phase 33 (phase 39 with ``dtype`` fp16: the runner cast to it, the
+    pool storing it): ``model`` on a kv_dtype="mixed" pool with the prefix
+    cache on, phase 28's shared-prompt traffic (request 0 first), requests
     tagged fp32 and fp8 in turn: every request finishes; after every step
     no page is mapped by an fp8 and an fp32 tenant at once (the armed
     auditor also holds each tenant's pages to its tag and the device tag
@@ -2535,15 +2861,17 @@ def mixed_pool_phase(model, cfg):
     leak once the cache is released. Then one-slot twins on the first
     three requests (fp32, fp8, fp32 tenants, 16 tokens): each tenant's
     stream equals its twin engine's, the fp32 engine's exactly, the
-    native fp8 engine's up to MIXED_MARGIN. Returns the run's launches."""
+    native fp8 engine's up to MIXED_MARGIN of the runner's dtype. Returns
+    the run's launches."""
     from paddle_tpu_torch.inference import create_serving_engine
     from paddle_tpu_torch.serving import SamplingParams
 
     t0 = time.perf_counter()
+    phase = "phase 33" if dtype is None else "phase 39"
     prompts = prefix_requests(cfg)
     tags = ["fp32", "fp8"] * (len(prompts) // 2)
     eng = create_serving_engine(
-        model, device="cuda", block_size=16, num_blocks=1024,
+        model, dtype=dtype, device="cuda", block_size=16, num_blocks=1024,
         max_batch_size=8, max_model_len=1024,
         max_prefill_tokens_per_step=256, kv_dtype="mixed",
         enable_prefix_cache=True, audit=True)
@@ -2574,7 +2902,8 @@ def mixed_pool_phase(model, cfg):
     kernel, forms, plain = _launches(counts)
     outs = eng.outputs()
     ttft = [1e3 * outs[i].ttft_s for i in ids]
-    log(f"phase 33 mixed pool (prefix cache on, tenants {tags}): "
+    log(f"{phase} mixed pool ({eng.pool.dtype}, prefix cache on, tenants "
+        f"{tags}): "
         f"{int(m.tokens_generated.value)} tokens in {wall:.3f} s = "
         f"{m.tokens_generated.value / wall:.1f} tokens/s; TTFT mean "
         f"{statistics.mean(ttft):.1f} ms; prefill tokens computed "
@@ -2583,14 +2912,16 @@ def mixed_pool_phase(model, cfg):
         f"{shared}; pool {eng.pool.memory_bytes() / 2**30:.3f} GiB "
         f"(kv_bytes_reduction_x {m.kv_bytes_reduction_x.value:.6f}); "
         f"launches {kernel}, by form {forms}, plain {plain}")
-    if any(outs[i].finish_reason != "length" for i in ids):
-        raise AssertionError("phase 33: not every request finished")
-    if shared or plain or set(kernel) != set(_path_kernels("mixed")):
-        raise AssertionError(f"phase 33: {shared} pages shared across "
+    if any(outs[i].finish_reason != "length" for i in ids) \
+            or m.nan_logit_events.value:
+        raise AssertionError(f"{phase}: not every request finished, or "
+                             "logits were not finite")
+    if shared or plain or set(kernel) != set(_path_kernels("mixed", dtype)):
+        raise AssertionError(f"{phase}: {shared} pages shared across "
                              f"rungs, launches {kernel}, plain {plain}")
     eng.release_prefix_cache()
     if not eng.pool.allocator.check_no_leaks():
-        raise AssertionError("phase 33: leaked pages")
+        raise AssertionError(f"{phase}: leaked pages")
     run = dict(launches=kernel, forms=forms)
     del eng
     _free_the_card()
@@ -2600,8 +2931,8 @@ def mixed_pool_phase(model, cfg):
     streams, runners = {}, {}
     for kind in ("mixed", "fp32", "fp8"):
         eng = create_serving_engine(
-            model, device="cuda", block_size=16, num_blocks=128,
-            max_batch_size=1, max_model_len=1024,
+            model, dtype=dtype, device="cuda", block_size=16,
+            num_blocks=128, max_batch_size=1, max_model_len=1024,
             max_prefill_tokens_per_step=256, kv_dtype=kind,
             enable_prefix_cache=True, audit=True)
         rids = [eng.add_request(p, sp if kind == "mixed"
@@ -2612,18 +2943,18 @@ def mixed_pool_phase(model, cfg):
         runners[kind] = eng.runner
         eng.release_prefix_cache()
         if not eng.pool.allocator.check_no_leaks():
-            raise AssertionError(f"phase 33 one-slot {kind}: leaked pages")
+            raise AssertionError(f"{phase} one-slot {kind}: leaked pages")
         del eng
         _free_the_card()
     parted = []
     for i, sp in enumerate(sps):
         twin = sp.kv_dtype
-        j = _gate_twin(f"phase 33 one-slot {twin} tenant {i}",
+        j = _gate_twin(f"{phase} one-slot {twin} tenant {i}",
                        runners[twin], few[i], streams["mixed"][i],
                        streams[twin][i],
-                       MIXED_MARGIN if twin == "fp8" else None)
+                       MIXED_MARGIN[dtype] if twin == "fp8" else None)
         parted.append(j)
-    log(f"phase 33 one-slot twins: fp32 tenants equal the fp32 engine, fp8 "
+    log(f"{phase} one-slot twins: fp32 tenants equal the fp32 engine, fp8 "
         f"tenants the native fp8 engine (token where each parts, None = "
         f"never: {parted}); {time.perf_counter() - t0:.1f} s")
     return run
@@ -2712,7 +3043,8 @@ def profile_phase(eng, cfg, seed=1, n_requests=8, prompt_len=300,
     dt = eng.runner.dtype
     c1 = k1.counts_for(dt, eng.pool.pools[0][0].dtype)   # K1 or K1-q
     c2 = k2.counts_for(dt)
-    what = f"{eng.kv_dtype} KV" + (", bf16" if dt == torch.bfloat16 else "") \
+    what = f"{eng.kv_dtype} KV" + (f", {HALF_SUFFIX[dt]}" if dt in HALF_SUFFIX
+                                   else "") \
         + (f", {eng.runner.weight_dtype} weights"
            if eng.runner.weight_dtype != "fp32" else "")
 
@@ -4558,12 +4890,13 @@ def gpt_trainer_phase(cfg, seed=0, batch=8, seq=1024, warmup=2, steps=4):
     return trainer, (ids, labels), launches
 
 
-def gpt_phases(gen):
+def gpt_phases(gen, gen16):
     """Phases 25-27 at GPT-3 1.3B: serving, the generators, O1 training,
     an fp32 2-layer step against the dense path and the bf16 K3 kernels
     at the GPT trainer's shape. Returns {kernel: launches on the GPT
     paths}, the bf16 K3 rows at that shape and {serving kernel: max abs
-    error against its plain version at the GPT shapes}."""
+    error against its plain version at the GPT shapes}. Phases 37-39's
+    checks draw from ``gen16``."""
     from paddle_tpu_torch.models import GPT, GPT3_1_3B
     from paddle_tpu_torch.serving import GPTRunner
 
@@ -4598,17 +4931,20 @@ def gpt_phases(gen):
                          for label, spans in (("chunk", SPANS_CHUNK),
                                               ("short chunks", SPANS_SHORT),
                                               ("decode", SPANS_DECODE)))
-    # and their bf16 variants (phase 31) at the same shapes, bf16 gates
-    errs["paged_decode_attention_bf16"] = check_paged(gen, h, " GPT",
-                                                      bf16=True)[0]
-    for kind in ("bf16", "int8", "fp8"):
-        errs[_bf16_name("ragged_paged_attention", kind)] = max(
-            check_ragged(h, h, gen, f"GPT {label}", kind, spans,
-                         bf16=True)[0]
-            for label, spans in (("chunk", SPANS_CHUNK),
-                                 ("short chunks", SPANS_SHORT),
-                                 ("decode", SPANS_DECODE)))
-    lap("serving kernels vs plain, GPT shapes (bf16 variants: phase 31)")
+    # and their bf16 (phase 31) and fp16 (phase 37) variants at the same
+    # shapes, 16-bit gates
+    for half, pool, g in ((BF16, "bf16", gen), (F16, "fp16", gen16)):
+        errs[f"paged_decode_attention_{HALF_SUFFIX[half]}"] = check_paged(
+            g, h, " GPT", half=half)[0]
+        for kind in (pool, "int8", "fp8"):
+            errs[_half_name("ragged_paged_attention", kind, half)] = max(
+                check_ragged(h, h, g, f"GPT {label}", kind, spans,
+                             half=half)[0]
+                for label, spans in (("chunk", SPANS_CHUNK),
+                                     ("short chunks", SPANS_SHORT),
+                                     ("decode", SPANS_DECODE)))
+    lap("serving kernels vs plain, GPT shapes (16-bit variants: phases 31, "
+        "37)")
     # then the same through GPTRunner against its gather path: chunks of
     # 256, 256, 8, 3, 1, decode steps of 1-8 rows; at full depth over
     # fp32 pools; over int8 / fp8 at 2 layers as phase 7 (each run
@@ -4631,10 +4967,11 @@ def gpt_phases(gen):
                           rows=tuple(range(1, 9)))
         _free_the_card()
     lap("GPTRunner vs gather path")
-    bf16_twin_check(small, "GPT-3 1.3B width")
-    bf16_gather_check(small, GPTRunner, "GPT-3 1.3B width")
+    for dt in (BF16, F16):
+        half_twin_check(small, "GPT-3 1.3B width", dt)
+        half_gather_check(small, GPTRunner, "GPT-3 1.3B width", dtype=dt)
     del small
-    lap("phase 31 2-layer twin and gather-path checks")
+    lap("phases 31 and 38 2-layer twin and gather-path checks")
     gpt["paged_generator"] = {
         "paged_decode_attention": gpt_generator_phase(model, cfg)}
     _free_the_card()
@@ -4648,11 +4985,22 @@ def gpt_phases(gen):
     # traffic
     model.to(torch.bfloat16)
     _free_the_card()
-    gpt["bf16"], _ = bf16_serving_phase(model, cfg,
+    gpt["bf16"], _ = half_serving_phase(model, cfg,
                                         max_model_len=cfg.max_seq_len)
+    lap("phase 31 engines")
+    # phases 38-39 at GPT-3 1.3B: the model cast to fp16 in place, phase
+    # 25's traffic, the paged generator, the speculation arm
+    model.to(F16)
+    _free_the_card()
+    gpt["fp16"], _ = half_serving_phase(model, cfg, F16,
+                                        max_model_len=cfg.max_seq_len)
+    gpt["paged_generator_fp16"] = {
+        "paged_decode_attention_fp16": f16_generator_check(model, cfg)}
+    _free_the_card()
+    gpt["speculation_fp16"] = f16_spec_phase(model, cfg)
     del model
     _free_the_card()
-    lap("phase 31 engines")
+    lap("phases 38-39 (GPT)")
     trainer, batch, flash = gpt_trainer_phase(cfg)
     gpt["trainer_o1"] = flash
     train_profile_phase(
@@ -4712,61 +5060,69 @@ def _kernel_label(mangled: str) -> str:
         return mangled
     at, name = found
     # template arguments: integers (Li128E) and the element types of the
-    # serving kernels (f: float, 13__nv_bfloat16), as 'f32' and 'bf16'
-    args = re.match(r"I((?:Li\d+E|f|13__nv_bfloat16)+)E",
+    # serving kernels (f: float, 13__nv_bfloat16, 6__half), as 'f32',
+    # 'bf16' and 'f16'
+    types = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+    args = re.match(r"I((?:Li\d+E|f|13__nv_bfloat16|6__half)+)E",
                     mangled[at + len(name):])
     if not args:
         return name
     return name + "<" + ",".join(
-        a or {"f": "f32"}.get(t, "bf16") for a, t in re.findall(
-            r"Li(\d+)E|(f|13__nv_bfloat16)", args.group(1))) + ">"
+        a or types[t] for a, t in re.findall(
+            r"Li(\d+)E|(f|13__nv_bfloat16|6__half)", args.group(1))) + ">"
 
 
 # the kernels that multiply on the tensor cores, and every instantiation
 # of them the build must hold (the ragged span form's second argument is
-# the pool type: 0 fp32, 1 int8, 2 fp8, 3 bf16, its third q's type: fp32
-# q over fp32, int8 and fp8 pools at d <= 128 and 256, bf16 q over bf16,
-# int8 and fp8 pools at d <= 256 only, RAGGED_SPAN_TYPES; bf16 q's span
-# form for d <= 128 is ragged_span_bf16_kernel<pool type>): the three
-# bf16 and the three fp16 kernels run on wgmma at d <= 128
-# (flash_attention_wgmma.cu) and keep their mma.sync kernels for d <= 256
-# only
+# the pool type: 0 fp32, 1 int8, 2 fp8, 3 bf16, 4 fp16, its third q's
+# type: fp32 q over fp32, int8 and fp8 pools at d <= 128 and 256, bf16 q
+# over bf16, int8 and fp8 pools and fp16 q over fp16, int8 and fp8 pools
+# at d <= 256 only, RAGGED_SPAN_TYPES; 16-bit q's span form for d <= 128
+# is ragged_span_bf16_kernel<pool type> or ragged_span_f16_kernel<pool
+# type>): the three bf16 and the three fp16 kernels run on wgmma at d <=
+# 128 (flash_attention_wgmma.cu) and keep their mma.sync kernels for d <=
+# 256 only
 WGMMA_KERNELS = tuple(names[1] for by in HALF_KERNEL_NAMES.values()
                       for names in by.values())
+# K1's 16-bit-q span forms on wgmma (d <= 128)
+RAGGED_WGMMA_KERNELS = ("ragged_span_bf16_kernel", "ragged_span_f16_kernel")
 # kernels whose SASS must hold wgmma's HGMMA: the bf16 and fp16 flash
-# kernels on wgmma and K1's bf16-q span form
-HGMMA_KERNELS = (*WGMMA_KERNELS, "ragged_span_bf16_kernel")
+# kernels on wgmma and K1's 16-bit-q span forms
+HGMMA_KERNELS = (*WGMMA_KERNELS, *RAGGED_WGMMA_KERNELS)
 # kernels whose ptxas report must show no spill: the wgmma kernels (their
-# accumulators would go through local memory) and K1's bf16-q forms
-NO_SPILL_KERNELS = (*WGMMA_KERNELS, "ragged_span_bf16_kernel",
-                    "ragged_decode_split_kernel", "ragged_decode_row_kernel")
+# accumulators would go through local memory) and K1's 16-bit-q forms
+NO_SPILL_KERNELS = (*WGMMA_KERNELS, *RAGGED_WGMMA_KERNELS,
+                    "ragged_decode_split_kernel", "ragged_decode_row_kernel",
+                    "ragged_decode_split_f16_kernel",
+                    "ragged_decode_row_f16_kernel")
 # the mma.sync kernels of the 16-bit forms (d > 128)
 HALF_MMA_KERNELS = tuple(names[0] for by in HALF_KERNEL_NAMES.values()
                          for names in by.values())
 TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                        "flash_bwd_dkv_kernel", *HALF_MMA_KERNELS,
                        *WGMMA_KERNELS, "ragged_span_kernel",
-                       "ragged_span_bf16_kernel")
+                       *RAGGED_WGMMA_KERNELS)
 RAGGED_SPAN_TYPES = ((0, "f32"), (1, "f32"), (2, "f32"), (3, "bf16"),
-                     (1, "bf16"), (2, "bf16"))
+                     (1, "bf16"), (2, "bf16"), (4, "f16"), (1, "f16"),
+                     (2, "f16"))
 TENSOR_CORE_INSTANTIATIONS = (
     *(f"{k}<{d}>" for k in TENSOR_CORE_KERNELS[:3] for d in (64, 128, 256)),
     *(f"{k}<256>" for k in HALF_MMA_KERNELS),
     *(f"{k}<{d}>" for k in WGMMA_KERNELS for d in (64, 128)),
     *(f"ragged_span_kernel<{d},{kv},{qt}>" for d in (128, 256)
       for kv, qt in RAGGED_SPAN_TYPES if d == 256 or qt == "f32"),
-    *(f"ragged_span_bf16_kernel<{kv}>" for kv, qt in RAGGED_SPAN_TYPES
-      if qt == "bf16"))
+    *(f"ragged_span_{qt}_kernel<{kv}>" for kv, qt in RAGGED_SPAN_TYPES
+      if qt != "f32"))
 
 
 def build_report(build) -> None:
     """Phase 2's report: each kernel entry's registers and spills (ptxas;
-    a wgmma kernel or a bf16-q form of K1 that spills fails the run:
+    a wgmma kernel or a 16-bit-q form of K1 that spills fails the run:
     NO_SPILL_KERNELS), the backward kernels' shared memory per
     instantiation, and whether the SASS of every tensor-core kernel (the
-    three flash kernels, the bf16 wgmma kernels, the ragged span forms)
+    three flash kernels, the 16-bit wgmma kernels, the ragged span forms)
     holds tensor-core instructions in every instantiation (HMMA:
-    mma.sync, HGMMA: wgmma; the wgmma kernels and the bf16 span form
+    mma.sync, HGMMA: wgmma; the wgmma kernels and the 16-bit span forms
     HGMMA), from cuobjdump -sass
     of the built library; one without them, or missing, fails the run."""
     if not build.log:
@@ -4862,24 +5218,60 @@ def main() -> int:
     # (max abs error, fp64 ratio, misround share)
     bf16_checks = {}
     for kind in ("bf16", "int8", "fp8"):
-        bf16_checks[_bf16_name("ragged_paged_attention", kind)] = [
+        bf16_checks[_half_name("ragged_paged_attention", kind)] = [
             check_ragged(32, 32, gen, "MHA decode", kind, SPANS_DECODE,
-                         bf16=True),
+                         half=BF16),
             check_ragged(32, 32, gen, "MHA chunk", kind, SPANS_CHUNK,
-                         bf16=True),
-            check_ragged(32, 8, gen, "GQA", kind, bf16=True),
+                         half=BF16),
+            check_ragged(32, 8, gen, "GQA", kind, half=BF16),
             check_ragged(32, 8, gen, "GQA-4 decode across splits", kind,
-                         SPANS_SPLITS, bf16=True),
+                         SPANS_SPLITS, half=BF16),
             check_ragged(16, 16, gen, "verify spans", kind, SPANS_VERIFY,
-                         bf16=True)]
+                         half=BF16)]
         check_ragged_invariance(gen, kind)              # GQA-4: mma
         check_ragged_invariance(gen, kind, n_kv=32)     # MHA: one row
         check_ragged_graph(gen, kind)
     bf16_checks["paged_decode_attention_bf16"] = [check_paged(gen,
-                                                              bf16=True)]
+                                                              half=BF16)]
     for name, res in bf16_checks.items():
         errs[name] = max(r[0] for r in res)
     lap("serving kernels vs plain, Llama shapes (bf16 variants: phase 31)")
+    # phase 37: the fp16 variants at the same shapes and at d = 256 (the
+    # tf32 span form and the unsplit decode form on 16-bit q), their
+    # decode form's batch invariance and graph replay, and K1's range
+    # cases at fp16. Phases 37-39 draw their inputs from a stream of their
+    # own, so the phases that run before and after them keep their inputs
+    gen16 = torch.Generator(device="cuda")
+    gen16.manual_seed(37)
+    f16_checks = {}
+    for kind in ("fp16", "int8", "fp8"):
+        f16_checks[_half_name("ragged_paged_attention", kind, F16)] = [
+            check_ragged(32, 32, gen16, "MHA decode", kind, SPANS_DECODE,
+                         half=F16),
+            check_ragged(32, 32, gen16, "MHA chunk", kind, SPANS_CHUNK,
+                         half=F16),
+            check_ragged(32, 8, gen16, "GQA", kind, half=F16),
+            check_ragged(32, 8, gen16, "GQA-4 decode across splits", kind,
+                         SPANS_SPLITS, half=F16),
+            check_ragged(16, 16, gen16, "verify spans", kind, SPANS_VERIFY,
+                         half=F16),
+            check_ragged(16, 4, gen16, "d=256 chunk", kind, SPANS_CHUNK,
+                         half=F16, d=256),
+            check_ragged(16, 4, gen16, "d=256 GQA-4 decode", kind,
+                         SPANS_DECODE, half=F16, d=256)]
+        check_ragged_invariance(gen16, kind, half=F16)
+        check_ragged_invariance(gen16, kind, n_kv=32, half=F16)
+        check_ragged_graph(gen16, kind, half=F16)
+    f16_checks["paged_decode_attention_fp16"] = [check_paged(gen16,
+                                                             half=F16)]
+    range_cases = {
+        f"{case} {n_rep}x{T} d={d}": check_ragged_range(gen16, case, n_rep,
+                                                        T, d=d)
+        for case in RAGGED_RANGE_CASES for d in (128, 256)
+        for n_rep, T in ((1, 1), (4, 2), (1, 300), (4, 64))}
+    for name, res in f16_checks.items():
+        errs[name] = max(r[0] for r in res)
+    lap("phase 37: fp16 serving kernels vs plain, Llama shapes, range")
     sampler_phase()
     lap("sampler")
 
@@ -4929,31 +5321,54 @@ def main() -> int:
     mixed = mixed_pool_phase(model, cfg)
     _free_the_card()
     lap("phase 33")
-    ladder = weight_ladder_phase(model, cfg, fp32_tokens)
+    # phase 32 at 8 of LLaMA-2-7B's 32 layers (full width): phases 37-39
+    # took the smoke 84 s longer, and the ladder's bytes and one-slot checks
+    # need no depth
+    ladder_cfg = replace(cfg, num_layers=8)
+    ladder_model = Llama(ladder_cfg, device="cuda", seed=0)
+    ladder = weight_ladder_phase(ladder_model, ladder_cfg)
+    del ladder_model
     _free_the_card()
     lap("phase 32")
     model.to(torch.bfloat16)
     log(f"phase 31: the model cast to bf16, "
         f"{_free_the_card():.2f} GiB allocated")
-    bf16_path, bf16_forms = bf16_serving_phase(model, cfg)
+    bf16_path, bf16_forms = half_serving_phase(model, cfg)
     launches.update(bf16_path)
     forms.update(bf16_forms)
     log(f"phases 31-33: {time.perf_counter() - t_new:.1f} s; weight bytes "
         f"reduction by rung {json.dumps(ladder)}")
+    lap("phase 31 engines")
+    # phases 38-39 on the same model cast to fp16 in place: the fp16
+    # engines, then the weight ladder and the mixed pool at fp16
+    t_new = time.perf_counter()
+    model.to(F16)
+    log(f"phase 38: the model cast to fp16, "
+        f"{_free_the_card():.2f} GiB allocated")
+    f16_path, f16_forms = half_serving_phase(model, cfg, F16)
+    launches.update(f16_path)
+    forms.update(f16_forms)
+    lap("phase 38 engines")
+    ladder16 = f16_ladder_phase(model, cfg, sorted(prompts, key=len)[:2])
+    mixed16 = mixed_pool_phase(model, cfg, dtype=F16)
+    log(f"phases 38-39 (Llama): {time.perf_counter() - t_new:.1f} s; "
+        f"weight bytes reduction by rung at fp16 {json.dumps(ladder16)}")
     del model
     _free_the_card()
-    lap("phase 31 engines")
+    lap("phase 39 ladder and mixed pool")
     small = Llama(replace(cfg, num_layers=2), device="cuda", seed=2)
     for kind in ("int8", "fp8"):
         quant_model_check(small, LlamaRunner, kind, {
             f"ragged_paged_attention_{kind}": (20, {"span": 4,
                                                     "decode": 16})})
     lap("Llama 2-layer int8 / fp8 vs gather path")
-    twin = bf16_twin_check(small, "LLaMA-2-7B width")
-    gather = bf16_gather_check(small, LlamaRunner, "LLaMA-2-7B width")
+    twin = {dt: half_twin_check(small, "LLaMA-2-7B width", dt)
+            for dt in (BF16, F16)}
+    gather = {dt: half_gather_check(small, LlamaRunner, "LLaMA-2-7B width",
+                                    dtype=dt) for dt in (BF16, F16)}
     del small
     _free_the_card()
-    lap("phase 31 2-layer twin and gather-path checks")
+    lap("phases 31 and 38 2-layer twin and gather-path checks")
 
     P = 4096 // 16
     decode = (positions, [1] * len(positions), 1)
@@ -4976,19 +5391,30 @@ def main() -> int:
                                         dec["max_abs_err"])
     meas["paged_decode_attention"] = measure_paged(gen, cfg.num_heads, 1024,
                                                    P, positions)
-    # the bf16 variants (phase 31) at the same shapes: the chunk and the
-    # decode step (over bf16 pools the decode form at GQA n_rep 4: MHA
-    # decode takes K2-bf16), K2-bf16 at the engine's decode positions
-    for kind in ("bf16", "int8", "fp8"):
-        name = _bf16_name("ragged_paged_attention", kind)
-        meas[name] = measure_ragged(gen, cfg.num_heads, 1024, P, kind,
-                                    bf16=True)
-        meas[name]["decode"] = measure_ragged(
-            gen, cfg.num_heads, 1024, P, kind, decode, bf16=True,
-            n_kv=cfg.num_heads // 4 if kind == "bf16" else None)
-    meas["paged_decode_attention_bf16"] = measure_paged(
-        gen, cfg.num_heads, 1024, P, positions, bf16=True)
-    for name, res in bf16_checks.items():
+    # the bf16 variants (phase 31) and the fp16 ones (phase 37) at the
+    # same shapes: the chunk and the decode step (over 16-bit pools the
+    # decode form at GQA n_rep 4: MHA decode takes K2 of that dtype), K2 at
+    # the engine's decode positions; and K1's d = 256 forms at 16 heads of
+    # 256 (the tf32 span form, the unsplit decode form at GQA n_rep 4),
+    # timed by no record before
+    for half, pool, g in ((BF16, "bf16", gen), (F16, "fp16", gen16)):
+        for kind in (pool, "int8", "fp8"):
+            name = _half_name("ragged_paged_attention", kind, half)
+            meas[name] = measure_ragged(g, cfg.num_heads, 1024, P, kind,
+                                        half=half)
+            meas[name]["decode"] = measure_ragged(
+                g, cfg.num_heads, 1024, P, kind, decode, half=half,
+                n_kv=cfg.num_heads // 4 if kind == pool else None)
+        name = f"paged_decode_attention_{HALF_SUFFIX[half]}"
+        meas[name] = measure_paged(g, cfg.num_heads, 1024, P, positions,
+                                   half=half)
+    d256 = {half: {"chunk": measure_ragged(gen16, 16, 1024, P, pool,
+                                           half=half, d=256),
+                   "decode": measure_ragged(gen16, 16, 1024, P, pool,
+                                            decode, n_kv=4, half=half,
+                                            d=256)}
+            for half, pool in ((BF16, "bf16"), (F16, "fp16"))}
+    for name, res in (*bf16_checks.items(), *f16_checks.items()):
         m = meas[name]
         parts = [m] + ([m["decode"]] if "decode" in m else [])
         m["fp64_ratio"] = max([r[1] for r in res]
@@ -5004,15 +5430,17 @@ def main() -> int:
                                                "fp32", SPANS_FUSED),
                   "verify_span": measure_ragged(gen, 16, 1024, P, "fp32",
                                                 SPANS_VERIFY)}
-    bf16_verify = measure_ragged(gen, 16, 1024, P, "bf16", SPANS_VERIFY,
-                                 bf16=True)
+    half_verify = {half: measure_ragged(g, 16, 1024, P, pool, SPANS_VERIFY,
+                                        half=half)
+                   for half, pool, g in ((BF16, "bf16", gen),
+                                         (F16, "fp16", gen16))}
     log(f"serving kernel timings on {card}")
-    lap("serving kernel timings (bf16 variants: phase 31)")
+    lap("serving kernel timings (bf16 variants: phase 31, fp16: phase 37)")
     rows = []
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "fp64_ratio", "misround")
     k1_src = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
-    # bf16 q: the span form for d <= 128 and the split walk (the entry
+    # 16-bit q: the span form for d <= 128 and the split walk (the entry
     # points and d > 128's span form stay in k1_src)
     k1b_src = "paddle_tpu_torch/csrc/ragged_paged_attention_bf16.cu"
     k1_tpu = "paddle_tpu/ops/pallas/ragged_paged_attention.py:142"
@@ -5026,7 +5454,11 @@ def main() -> int:
             ("ragged_paged_attention_bf16", k1b_src, k1_tpu),
             ("ragged_paged_attention_bf16_int8", k1b_src, k1_tpu),
             ("ragged_paged_attention_bf16_fp8", k1b_src, k1_tpu),
-            ("paged_decode_attention_bf16", k2_src, k2_tpu)):
+            ("paged_decode_attention_bf16", k2_src, k2_tpu),
+            ("ragged_paged_attention_fp16", k1b_src, k1_tpu),
+            ("ragged_paged_attention_fp16_int8", k1b_src, k1_tpu),
+            ("ragged_paged_attention_fp16_fp8", k1b_src, k1_tpu),
+            ("paged_decode_attention_fp16", k2_src, k2_tpu)):
         m = meas[name]
         shapes = [(m["shape"], m)]
         if "decode" in m:
@@ -5050,19 +5482,32 @@ def main() -> int:
                         if k in m["decode"]})
         if "decode_mha_fp64_ratio" in m:
             row["decode_mha_fp64_ratio"] = m["decode_mha_fp64_ratio"]
-        if name in mixed["launches"]:       # phase 33's mixed pool
-            row["mixed_launches"] = mixed["launches"][name]
-        if name == "ragged_paged_attention_bf16":
-            t = bf16_verify
-            log(f"timing K1-bf16 at the verify span shape {t['shape']}: "
-                f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-                f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library "
-                f"(SDPA at bf16 on pre-gathered K/V) {t['library_ms']:.4f} "
-                f"ms, max_abs_err {t['max_abs_err']:.3e}")
+        for run in (mixed, mixed16):    # phases 33 and 39's mixed pools
+            if name in run["launches"]:
+                row["mixed_launches"] = run["launches"][name]
+        half = {"ragged_paged_attention_bf16": BF16,
+                "ragged_paged_attention_fp16": F16}.get(name)
+        if half is not None:
+            t = half_verify[half]
+            log(f"timing {_k1_label(HALF_SUFFIX[half])} at the verify span "
+                f"shape {t['shape']}: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}), library (SDPA at {HALF_SUFFIX[half]} "
+                f"on pre-gathered K/V) {t['library_ms']:.4f} ms, max_abs_err "
+                f"{t['max_abs_err']:.3e}")
             row["verify_span"] = {k: t[k] for k in ("shape", "max_abs_err",
                                                     *keys) if k in t}
-            row["twin_2_layer_max_rel"] = twin
-            row["gather_2_layer_max_rel"] = gather
+            for label, t in d256[half].items():
+                log(f"timing {_k1_label(HALF_SUFFIX[half])} at d = 256, "
+                    f"{t['shape']}: kernel {t['ms']:.4f} ms, plain "
+                    f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                    f"({t['bound_by']}), library {t['library_ms']:.4f} ms")
+                row[f"d256_{label}"] = {k: t[k] for k in (
+                    "shape", "max_abs_err", *keys) if k in t}
+            row["twin_2_layer_max_rel"] = twin[half]
+            row["gather_2_layer_max_rel"] = gather[half]
+            if half == F16:
+                row["range_cases"] = range_cases
         if name == "ragged_paged_attention":
             for label, t in new_shapes.items():
                 log(f"timing K1 at the {label.replace('_', ' ')} shape "
@@ -5162,7 +5607,7 @@ def main() -> int:
     log(f"before the GPT phases: {time.perf_counter() - t_start:.1f} s")
 
     # the GPT family at GPT-3 1.3B widths: serving, generators, O1 training
-    gpt_launches, gpt_bf16, gpt_errs = gpt_phases(gen)
+    gpt_launches, gpt_bf16, gpt_errs = gpt_phases(gen, gen16)
     log(f"after the GPT phases: {time.perf_counter() - t_start:.1f} s")
     _free_the_card()
 
@@ -5207,12 +5652,17 @@ def main() -> int:
     lap("phase 36: Llama fp16 O1 TrainStep and twins")
     log(f"phases 34-36: {time.perf_counter() - t_new:.1f} s")
     spec = gpt_launches.pop("speculation")
+    spec16 = gpt_launches.pop("speculation_fp16")
     for row in rows:       # the serving kernels on the GPT paths
         row["gpt_max_abs_err"] = gpt_errs[row["name"]]
         row["gpt_launches"] = {path: n[row["name"]] for path, n in
                                gpt_launches.items() if row["name"] in n}
         row["spec_launches"] = {arm: by[row["name"]] for arm, by in
                                 spec.items() if row["name"] in by}
+        if any(row["name"] in by for by in spec16.values()):
+            row["spec_fp16_launches"] = {arm: by[row["name"]] for arm, by
+                                         in spec16.items()
+                                         if row["name"] in by}
     # the verify spans' launches: K1's decode form in the per-step and
     # fused arms (the draft arm's also counts its draft model's short
     # catch-up chunks)

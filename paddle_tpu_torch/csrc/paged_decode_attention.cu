@@ -1,4 +1,4 @@
-// Paged single-token decode attention (fp32 or bf16, MHA) for Hopper,
+// Paged single-token decode attention (fp32, bf16 or fp16, MHA) for Hopper,
 // sm_90a.
 //
 // Replaces: paddle_tpu/ops/pallas/paged_attention.py ::
@@ -11,12 +11,14 @@
 // with no visible key (pos < 0) gets zeros. Returns [b, h, d].
 //
 // Types (the T template argument): q, the pools and the output all fp32
-// (K2), or all bf16 (K2-bf16, a bf16 serving runner's). As the Pallas
-// kernel casts each tile to fp32 (paged_attention.py:65-67), bf16 values
-// are staged as bf16 (a stage is half the bytes) and widened to fp32
-// where they are read (elem_io.cuh); the softmax, the warps' and the
-// splits' states and the merge stay fp32, and the output is rounded to
-// bf16 where it is written (:89).
+// (K2), all bf16 (K2-bf16, a bf16 serving runner's) or all fp16 (K2-fp16,
+// an fp16 runner's: paged_decode_kernel<., __half>). As the Pallas kernel
+// casts each tile to fp32 (paged_attention.py:65-67), 16-bit values are
+// staged as they are (a stage is half the bytes) and widened to fp32
+// exactly where they are read (elem_io.cuh); the softmax, the warps' and
+// the splits' states and the merge stay fp32, and the output is rounded
+// to q's type where it is written (:89; fp16: to nearest even, inf past
+// 65504).
 //
 // What bounds it on the H100: the bytes. Each visible key costs 2 * d *
 // sizeof(T) bytes of K and V against 4 * d FLOPs, at most one operation
@@ -531,4 +533,16 @@ extern "C" int paged_decode_attention_bf16(
   return dispatch<__nv_bfloat16>(q, k_pool, v_pool, table, pos, out, part,
                                  tickets, b, h, d, page_size, pages_per_seq,
                                  keys_per_split, n_splits, scale, stream);
+}
+
+// the same with q, the pools and out fp16 (K2-fp16; the workspace stays
+// fp32)
+extern "C" int paged_decode_attention_f16(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* pos, void* out, void* part, void* tickets, int b, int h,
+    int d, int page_size, int pages_per_seq, int keys_per_split,
+    int n_splits, float scale, void* stream) {
+  return dispatch<__half>(q, k_pool, v_pool, table, pos, out, part, tickets,
+                          b, h, d, page_size, pages_per_seq, keys_per_split,
+                          n_splits, scale, stream);
 }

@@ -1,9 +1,9 @@
 // What the ragged kernel's two sources share (ragged_paged_attention.cu
-// with the entry points, the fp32-q forms and the bf16-q forms for d >
-// 128; ragged_paged_attention_bf16.cu with the bf16-q forms for d <= 128):
-// the operands of one launch (Ragged), the pool storage types, the keys a
-// block's rows see, the 1-byte pools' codes as fp32, and the launchers the
-// entry points call in the bf16 source.
+// with the entry points, the fp32-q forms and the 16-bit-q forms for d >
+// 128; ragged_paged_attention_bf16.cu with the bf16-q and fp16-q forms for
+// d <= 128): the operands of one launch (Ragged), the pool storage types,
+// the keys a block's rows see, the 1-byte pools' codes as fp32, and the
+// launchers the entry points call in the 16-bit source.
 
 #pragma once
 
@@ -19,7 +19,7 @@ namespace ragged {
 
 // The operands and sizes of one launch.
 struct Ragged {
-  const void* q;      // fp32 or bf16 (the kernels' QT)
+  const void* q;      // fp32, bf16 or fp16 (the kernels' QT)
   const void* k_pool;
   const void* v_pool;
   const float* k_scale;   // [N, n_kv], int8 pools only
@@ -33,7 +33,7 @@ struct Ragged {
   int cpy;   // bytes of one cp.async of a pool row: 16, 8 or 4
 };
 
-// The split walk's workspace (the bf16-q decode form): each split's fp32
+// The split walk's workspace (the 16-bit-q decode form): each split's fp32
 // (acc [d], m, l) for each of its G rows, [B, n_kv, n_splits, G, d + 2]
 // floats, written before it is read (null where n_splits is 1), and one
 // int32 ticket per (sequence, kv head), 0 between launches.
@@ -43,10 +43,13 @@ struct Split {
   int keys_per_split, n_splits;
 };
 
-// The bf16-q launchers (ragged_paged_attention_bf16.cu); kv is the pool
-// storage type (kBF16, kI8, kF8 below).
-cudaError_t launch_span_bf16(const Ragged& a, int kv, int B,
-                             cudaStream_t stream);
+// The 16-bit-q launchers (ragged_paged_attention_bf16.cu), for q of type
+// QT (__nv_bfloat16 or __half); kv is the pool storage type: kBF16 or
+// kFP16 (q's own type), kI8 or kF8 (below).
+template <typename QT>
+cudaError_t launch_span16(const Ragged& a, int kv, int B,
+                          cudaStream_t stream);
+template <typename QT>
 cudaError_t launch_decode_split(const Ragged& a, const Split& sp, int kv,
                                 int B, cudaStream_t stream);
 
@@ -56,15 +59,17 @@ namespace {
 
 using ragged::Ragged;
 
-// storage type of the K/V pools (a template argument)
-constexpr int kF32 = 0, kI8 = 1, kF8 = 2, kBF16 = 3;
+// storage type of the K/V pools (a template argument); kFP16 is the fp16
+// pool (bf16_mma.cuh's kF16 is the products' element type)
+constexpr int kF32 = 0, kI8 = 1, kF8 = 2, kBF16 = 3, kFP16 = 4;
 // G = n_rep * T at or below this takes the decode form (the wrapper's
 // ragged_form mirrors it)
 constexpr int kDecodeRows = 8;
 
 template <int KV>
 struct Elem {
-  static constexpr int bytes = KV == kF32 ? 4 : KV == kBF16 ? 2 : 1;
+  static constexpr int bytes =
+      KV == kF32 ? 4 : KV == kBF16 || KV == kFP16 ? 2 : 1;
 };
 
 // A cp.async of n = 16, 8 or 4 bytes (n uniform across the warp).
@@ -94,7 +99,8 @@ __device__ __forceinline__ int rows_key_end(const Ragged& a, int row0, int n,
 }
 
 // Four codes of a 1-byte pool (little-endian in w) as fp32: exact, so
-// their tf32 split has a zero small half (and they are exact in bf16).
+// their tf32 split has a zero small half (and they are exact in bf16 and
+// in fp16).
 // fp8 NaN codes give NaN.
 template <int KV>
 __device__ __forceinline__ float4 codes4(uint32_t w) {
@@ -114,20 +120,23 @@ __device__ __forceinline__ float4 codes4(uint32_t w) {
 }
 
 // Elements c .. c + 3 (c a multiple of 4) of a staged or pooled row of
-// storage type KV as fp32: fp32 as they are, bf16 widened, 1-byte codes
-// as codes4 gives them (an int8 code still wants its page scale).
+// storage type KV as fp32: fp32 as they are, bf16 and fp16 widened,
+// 1-byte codes as codes4 gives them (an int8 code still wants its page
+// scale).
 template <int KV>
 __device__ __forceinline__ float4 load4(const uint8_t* row, int c) {
   if constexpr (KV == kF32) {
     return ld4(reinterpret_cast<const float*>(row) + c);
   } else if constexpr (KV == kBF16) {
     return ld4(reinterpret_cast<const __nv_bfloat16*>(row) + c);
+  } else if constexpr (KV == kFP16) {
+    return ld4(reinterpret_cast<const __half*>(row) + c);
   } else {
     return codes4<KV>(*reinterpret_cast<const uint32_t*>(row + c));
   }
 }
 
-// Row stride (bytes) of a staged tile of 1-byte codes or bf16 values: d
+// Row stride (bytes) of a staged tile of 1-byte codes or 16-bit values: d
 // rounded to 16 elements, plus 16 bytes.
 template <int KV>
 __host__ __device__ __forceinline__ int code_ld(int d) {

@@ -1,6 +1,7 @@
 // Ragged paged attention for Hopper, sm_90a: fp32 pools (K1), bf16 pools
-// (K1-bf16) and quantized pools (K1-q: int8 codes with per-page,
-// per-kv-head scales, or float8_e4m3fn), with fp32 or bf16 queries.
+// (K1-bf16), fp16 pools (K1-fp16) and quantized pools (K1-q: int8 codes
+// with per-page, per-kv-head scales, or float8_e4m3fn), with fp32, bf16 or
+// fp16 queries.
 //
 // Replaces: paddle_tpu/ops/pallas/ragged_paged_attention.py ::
 //   ragged_paged_attention (kernel body _ragged_kernel, with its
@@ -17,18 +18,19 @@
 //
 // Types (the QT and KV template arguments): fp32 q over fp32, int8 and
 // fp8 pools; bf16 q (a bf16 serving runner's) over bf16, int8 and fp8
-// pools. As in the Pallas kernel, which casts each tile to fp32
+// pools; fp16 q (an fp16 runner's) over fp16, int8 and fp8 pools. As in
+// the Pallas kernel, which casts each tile to fp32
 // (ragged_paged_attention.py:98-100), every value is widened to fp32
 // where it is read (elem_io.cuh), the softmax and the sums stay fp32 and
 // the output is rounded to q's type where it is written (:139).
 //
 // Two forms, chosen by the wrapper from G (ops/ragged_paged_attention.py
 // ragged_form): the span form for G > kDecodeRows, the decode form below.
-// This file holds both forms of fp32 q and both forms of bf16 q for d >
-// 128 (the tf32 span form, the unsplit decode form); bf16 q's span form
-// for d <= 128 (wgmma from a cp.async ring) and its decode form there (the
-// split walk) are in ragged_paged_attention_bf16.cu, whose launchers the
-// bf16 entry points below call (ragged_common.cuh).
+// This file holds both forms of fp32 q and both forms of 16-bit q (bf16,
+// fp16) for d > 128 (the tf32 span form, the unsplit decode form); 16-bit
+// q's span form for d <= 128 (wgmma from a cp.async ring) and its decode
+// form there (the split walk) are in ragged_paged_attention_bf16.cu, whose
+// launchers the 16-bit entry points below call (ragged_common.cuh).
 //
 // Span form (prefill chunks, GQA spans), ragged_span_kernel. What bounds it:
 // a chunk does 4 d FLOPs per visible (row, key) pair against one read of
@@ -69,9 +71,10 @@
 //   rounds otherwise, and through a model's next int8 page write that
 //   flips codes). 16-byte copies where the rows are 16-byte aligned, else
 //   8-byte ones (1-byte rows of d = 8 mod 16) or 4-byte ones (a pool 4
-//   bytes off). bf16 pools (bf16 q at d > 128) take the fp8 pools' path:
-//   a bf16 value is exact in tf32, staged as bf16, one plane, two products
-//   a k-step.
+//   bytes off). bf16 and fp16 pools (16-bit q at d > 128) take the fp8
+//   pools' path: a bf16 or fp16 value is exact in tf32 (fp16's 11
+//   significant bits, its subnormals normal in tf32's exponent range),
+//   staged as it is, one plane, two products a k-step.
 //
 // Decode form (G <= kDecodeRows: decode steps, short GQA spans),
 // ragged_decode_kernel, on the CUDA cores. What bounds it: the page bytes
@@ -88,7 +91,7 @@
 // (m, l, acc) for the G rows, each lane owning float4 column chunks of
 // acc; the warps' states are merged in shared memory at the end. At the
 // engine's decode step (B n_kv = 256 blocks) no split across blocks is
-// needed. bf16 q at d <= 128 takes the split walk instead
+// needed. 16-bit q at d <= 128 takes the split walk instead
 // (ragged_paged_attention_bf16.cu).
 
 #include <cuda_runtime.h>
@@ -112,11 +115,13 @@ struct Span {
   static constexpr int KG = MAXD <= 128 ? 2 : 1;
   // key positions per tile: 32, or 16 where two planes of 32 do not fit
   static constexpr int BN =
-      KV == kF8 || KV == kBF16 || (KV == kI8 && KG == 2) ? 32 : 16;
+      KV == kF8 || KV == kBF16 || KV == kFP16 || (KV == kI8 && KG == 2)
+          ? 32 : 16;
   static constexpr int GTHR = 2 * BM;   // a warp for each 16 rows, a group
   static constexpr int NTHR = KG * GTHR;
   // fp32 values and int8 values dequantized with their page scale are
-  // split (three products); e4m3 and bf16 values are exact in tf32 (two)
+  // split (three products); e4m3, bf16 and fp16 values are exact in tf32
+  // (two)
   static constexpr bool SPLIT = KV == kF32 || KV == kI8;
 };
 
@@ -751,7 +756,7 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
   if (form == 1 && (n_q / n_kv) * T > kDecodeRows) {
     return (int)cudaErrorInvalidValue;
   }
-  // bf16 q's split walk (the decode form at d <= 128): splits of a whole
+  // 16-bit q's split walk (the decode form at d <= 128): splits of a whole
   // number of its warp tiles, enough of them for the table's longest
   // walk, and the workspace and tickets wherever a walk can take two
   if (split != nullptr && form == 1 && d <= 128 &&
@@ -777,16 +782,17 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
                  static_cast<const int32_t*>(q_len), out,
                  T, n_q, n_kv, d, page_size, pages_per_seq, scale, cpy};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (std::is_same_v<QT, __nv_bfloat16>) {
-    // bf16 q: for d <= 128 the wgmma span form and the split walk
+  if constexpr (!std::is_same_v<QT, float>) {
+    // bf16 or fp16 q: for d <= 128 the wgmma span form and the split walk
     // (ragged_paged_attention_bf16.cu), above this file's forms
     if (split == nullptr) return (int)cudaErrorInvalidValue;
     if (d > 128) {
       return form == 1 ? (int)launch_decode<256, KV, QT>(a, B, st)
                        : (int)launch_span<256, KV, QT>(a, B, st);
     }
-    return form == 1 ? (int)ragged::launch_decode_split(a, *split, KV, B, st)
-                     : (int)ragged::launch_span_bf16(a, KV, B, st);
+    return form == 1 ? (int)ragged::launch_decode_split<QT>(a, *split, KV,
+                                                            B, st)
+                     : (int)ragged::launch_span16<QT>(a, KV, B, st);
   } else {
     if (form == 1) {
       return d <= 128 ? (int)launch_decode<128, KV, QT>(a, B, st)
@@ -888,6 +894,58 @@ extern "C" int ragged_paged_attention_bf16_f8(
                             static_cast<int32_t*>(tickets), keys_per_split,
                             n_splits};
   return dispatch<kF8, __nv_bfloat16>(
+      q, k_pool, v_pool, nullptr, nullptr, table, start_pos, q_len, out,
+      &split, B, T, n_q, n_kv, d, page_size, pages_per_seq, form, scale,
+      stream);
+}
+
+// fp16 q (K1-fp16, K1-q with fp16 q; an fp16 output), with the split
+// walk's workspace and tickets as bf16 q's
+
+// fp16 q over fp16 pools (K1-fp16)
+extern "C" int ragged_paged_attention_f16(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* start_pos, const void* q_len, void* out, void* part,
+    void* tickets, int B, int T, int n_q, int n_kv, int d, int page_size,
+    int pages_per_seq, int form, int keys_per_split, int n_splits,
+    float scale, void* stream) {
+  const ragged::Split split{static_cast<float*>(part),
+                            static_cast<int32_t*>(tickets), keys_per_split,
+                            n_splits};
+  return dispatch<kFP16, __half>(
+      q, k_pool, v_pool, nullptr, nullptr, table, start_pos, q_len, out,
+      &split, B, T, n_q, n_kv, d, page_size, pages_per_seq, form, scale,
+      stream);
+}
+
+// fp16 q over int8 code pools with fp32 scales (K1-q)
+extern "C" int ragged_paged_attention_f16_i8(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* table,
+    const void* start_pos, const void* q_len, void* out, void* part,
+    void* tickets, int B, int T, int n_q, int n_kv, int d, int page_size,
+    int pages_per_seq, int form, int keys_per_split, int n_splits,
+    float scale, void* stream) {
+  const ragged::Split split{static_cast<float*>(part),
+                            static_cast<int32_t*>(tickets), keys_per_split,
+                            n_splits};
+  return dispatch<kI8, __half>(
+      q, k_pool, v_pool, k_scale, v_scale, table, start_pos, q_len, out,
+      &split, B, T, n_q, n_kv, d, page_size, pages_per_seq, form, scale,
+      stream);
+}
+
+// fp16 q over float8_e4m3fn pools (K1-q)
+extern "C" int ragged_paged_attention_f16_f8(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* start_pos, const void* q_len, void* out, void* part,
+    void* tickets, int B, int T, int n_q, int n_kv, int d, int page_size,
+    int pages_per_seq, int form, int keys_per_split, int n_splits,
+    float scale, void* stream) {
+  const ragged::Split split{static_cast<float*>(part),
+                            static_cast<int32_t*>(tickets), keys_per_split,
+                            n_splits};
+  return dispatch<kF8, __half>(
       q, k_pool, v_pool, nullptr, nullptr, table, start_pos, q_len, out,
       &split, B, T, n_q, n_kv, d, page_size, pages_per_seq, form, scale,
       stream);

@@ -1,9 +1,10 @@
-// Ragged paged attention with bf16 queries for Hopper, sm_90a, head dims
-// d <= 128: the span form and the decode form over bf16 pools (K1-bf16)
-// and int8 / float8_e4m3fn pools (K1-q with bf16 q). The entry points, and
+// Ragged paged attention with 16-bit queries for Hopper, sm_90a, head
+// dims d <= 128: the span form and the decode form with bf16 q over bf16
+// pools (K1-bf16) and int8 / float8_e4m3fn pools (K1-q with bf16 q), and
+// with fp16 q over fp16 pools (K1-fp16) and int8 / float8_e4m3fn pools
+// (K1-q with fp16 q; the fp16 paragraph at the end). The entry points, and
 // both forms for d > 128 (the tf32 span form, the unsplit decode form),
-// are in
-// ragged_paged_attention.cu.
+// are in ragged_paged_attention.cu.
 //
 // Replaces: paddle_tpu/ops/pallas/ragged_paged_attention.py ::
 //   ragged_paged_attention (kernel body _ragged_kernel; tiles cast to fp32
@@ -13,7 +14,7 @@
 // What they compute is ragged_paged_attention.cu's contract: causal
 // attention for a ragged batch of query spans off the paged pools, GQA
 // rows r = (rep, t) with t = r % T, rows t >= q_len and dead slots exactly
-// 0, softmax and sums in fp32, the output rounded to bf16 where it is
+// 0, softmax and sums in fp32, the output rounded to q's type where it is
 // written.
 //
 // Span form (G = n_rep * T > kDecodeRows: prefill chunks, long GQA spans),
@@ -34,7 +35,7 @@
 //   and widened once into such bf16 tiles (two, alternating), each thread
 //   widening the bytes it copied, the next tile's under this tile's P V
 //   (its K under the S product instead measured slower):
-//   an e4m3 value and an int8 code are exact in bf16 (codes_bf16x4), an
+//   an e4m3 value and an int8 code are exact in bf16 (codes16x4), an
 //   fp8 NaN stays NaN. One group barrier a tile either way, after a proxy
 //   fence for the wgmma's reads;
 // - the block's Q fragments are read from q once into registers (the
@@ -42,7 +43,7 @@
 //   wgmma.m64n32k16 (bf16 operands, fp32 sums: a bf16 x bf16 product is
 //   exact in fp32) over d with K K-major in shared memory; O += P V is
 //   wgmma.m64n128k16 with P split in registers into three bf16 terms
-//   (split3_bf16: P within ~2^-25) from the S accumulators, the smallest
+//   (split3: P within ~2^-25) from the S accumulators, the smallest
 //   first a 16-key step, V an MN-major operand. d < 128 zero-pads q and K
 //   up to d
 //   rounded to 16 and leaves the rest of the output columns unstored;
@@ -93,16 +94,54 @@
 //
 // Wider heads (d > 128) take the forms of ragged_paged_attention.cu:
 // the tf32 span form and the unsplit decode form.
+//
+// fp16 q (ragged_span_f16_kernel, ragged_decode_split_f16_kernel,
+// ragged_decode_row_f16_kernel) runs the same bodies, templated on the
+// 16-bit type H of bf16_mma.cuh (kBf16, kF16) as the flash kernels are:
+// fp16 operands and products, fp32 sums, and three changes for fp16's
+// range (2^-24 .. 65504, where bf16 has fp32's):
+// - P times a power of two F before its split (p_factor), so its terms
+//   stay normal fp16 where bf16's would: over fp16 and fp8 pools F = 2^14
+//   (P <= 1, so P F <= 2^14, the fp16 flash kernels' kPScale); over int8
+//   pools, where each key's v scale is folded into P, F is chosen per row
+//   from w, the row's largest P vs so far (in units of its running max m,
+//   so w shrinks with l and acc), F w in [2^13, 2^14): P vs F <= 2^14
+//   whatever the page scales are, and the keys that weigh most in the row
+//   keep all three terms normal. A row whose F changes rescales its acc by
+//   the ratio (two powers of two: exact), and acc is divided by F at the
+//   end of the walk. Without F a page scale of 1e-2 makes every P below
+//   ~6e-3 subnormal before its split, and one of 1e-6 flushes a page; with
+//   one F a tile, from the tile's largest v scale, a row whose weight lies
+//   on a page of scale 1e-6 beside one of 1e2 in the same tile keeps ~12
+//   bits of it (tests/test_torch_ragged_f16_numerics.py models all three);
+// - P in three fp16 terms, as bf16's three: fp16 carries 11 bits a term,
+//   so two terms of P F would hold P within ~2^-22, but the three-term
+//   design is kept whole (PERF.md §6: every gate at all three pool kinds
+//   holds with it; two terms were not tried on the card);
+// - the codes widened to fp16 (codes16x4): an int8 code c as the fp16
+//   1024 + 128 + c (its biased byte in the low mantissa bits of 2^10) less
+//   1152, exactly; an e4m3 value through the conversion to fp16, exact (an
+//   fp8 NaN stays NaN).
+// The row kernel multiplies V by its scale in fp32 on the CUDA cores and
+// needs none of this.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "bf16_mma.cuh"
 #include "ragged_common.cuh"
 #include "sm90_wgmma.cuh"
 
 namespace {
+
+// The C++ type of the 16-bit element type H (bf16_mma.cuh's kBf16, kF16),
+// which is q's, the output's and the 16-bit pools' type.
+template <int H>
+using Half = std::conditional_t<H == kF16, __half, __nv_bfloat16>;
 
 // A key row of the walk, resolved through the block table ahead of its
 // copy: the table entry is loaded here and first used where the copy is
@@ -131,15 +170,39 @@ __device__ __forceinline__ int64_t key_off(const Ragged& a, int kvh,
               a.n_kv + kvh) * a.d;
 }
 
-// Four codes of a 1-byte pool (little-endian in w) as four bf16 values,
-// exactly. An int8 code c: the float with byte c + 128 in the low
-// mantissa bits of 2^23, less 2^23 + 128, is c exactly, and with at most 8
-// significant bits its bf16 is its top half. An e4m3 value through codes4
-// (an fp8 NaN stays NaN; on the bits of its half instead, measured
-// slower).
-template <int KV>
-__device__ __forceinline__ uint2 codes_bf16x4(uint32_t w) {
-  if constexpr (KV == kI8) {
+// Four codes of a 1-byte pool (little-endian in w) as four values of the
+// 16-bit type H, exactly. bf16: an int8 code c is the float with byte c +
+// 128 in the low mantissa bits of 2^23, less 2^23 + 128, and with at most
+// 8 significant bits its bf16 is its top half; an e4m3 value through
+// codes4 (an fp8 NaN stays NaN; on the bits of its half instead, measured
+// slower). fp16: an int8 code c is the fp16 with byte c + 128 in the low
+// mantissa bits of 2^10 (bits 0x64 above it), less 1152 (an exact fp16
+// subtraction); an e4m3 value is converted to fp16, exactly (NaN stays
+// NaN).
+template <int H, int KV>
+__device__ __forceinline__ uint2 codes16x4(uint32_t w) {
+  if constexpr (H == kF16) {
+    if constexpr (KV == kI8) {
+      const uint32_t u = w ^ 0x80808080u;
+      uint32_t b[2] = {__byte_perm(u, 0x64646464u, 0x4140u),
+                       __byte_perm(u, 0x64646464u, 0x4342u)};
+      const __half2 off = __float2half2_rn(1152.f);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const __half2 c = __hsub2(*reinterpret_cast<const __half2*>(&b[k]),
+                                  off);
+        b[k] = *reinterpret_cast<const uint32_t*>(&c);
+      }
+      return make_uint2(b[0], b[1]);
+    } else {
+      const __half2_raw lo = __nv_cvt_fp8x2_to_halfraw2(
+          static_cast<__nv_fp8x2_storage_t>(w & 0xffffu), __NV_E4M3);
+      const __half2_raw hi = __nv_cvt_fp8x2_to_halfraw2(
+          static_cast<__nv_fp8x2_storage_t>(w >> 16), __NV_E4M3);
+      return make_uint2(lo.x | (uint32_t)lo.y << 16,
+                        hi.x | (uint32_t)hi.y << 16);
+    }
+  } else if constexpr (KV == kI8) {
     const uint32_t u = w ^ 0x80808080u;
     uint32_t f[4];
 #pragma unroll
@@ -156,26 +219,40 @@ __device__ __forceinline__ uint2 codes_bf16x4(uint32_t w) {
   }
 }
 
-// P in three bf16 terms: hi = bf16(p), mid = bf16(p - hi), lo = bf16(p -
-// hi - mid) (each difference exact in fp32), so hi + mid + lo is p within
-// ~2^-25 |p|: with two terms (~2^-17) the tensor-core forms rounded ~10x
-// more outputs to another bf16 than the plain version does, enough to part
-// a 2-layer bf16 model from its gather path beyond chip_smoke.py's gate.
-__device__ __forceinline__ void split3_bf16(float x0, float x1, uint32_t& hi,
-                                            uint32_t& mid, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const float r0 = x0 - hf.x, r1 = x1 - hf.y;
-  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
-  const float2 mf = __bfloat1622float2(m);
-  hi = bf16x2_bits(h);
-  mid = bf16x2_bits(m);
-  lo = pack_bf16(r0 - mf.x, r1 - mf.y);
+// P in three terms of the 16-bit type H: hi = H(p), mid = H(p - hi), lo =
+// H(p - hi - mid) (each difference exact in fp32), so hi + mid + lo is p
+// within ~2^-25 |p| at bf16: with two bf16 terms (~2^-17) the tensor-core
+// forms rounded ~10x more outputs to another bf16 than the plain version
+// does, enough to part a 2-layer bf16 model from its gather path beyond
+// chip_smoke.py's gate. fp16 terms hold 11 bits each, for p scaled into
+// fp16's normal range first (p_factor).
+template <int H>
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
+                                      uint32_t& mid, uint32_t& lo) {
+  if constexpr (H == kF16) {
+    const __half2 h = __floats2half2_rn(x0, x1);
+    const float2 hf = __half22float2(h);
+    const float r0 = x0 - hf.x, r1 = x1 - hf.y;
+    const __half2 m = __floats2half2_rn(r0, r1);
+    const float2 mf = __half22float2(m);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    mid = *reinterpret_cast<const uint32_t*>(&m);
+    lo = pack_f16(r0 - mf.x, r1 - mf.y);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    const float r0 = x0 - hf.x, r1 = x1 - hf.y;
+    const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+    const float2 mf = __bfloat1622float2(m);
+    hi = bf16x2_bits(h);
+    mid = bf16x2_bits(m);
+    lo = pack_bf16(r0 - mf.x, r1 - mf.y);
+  }
 }
 
 // The three-term A fragments of the k-step over columns 16 m .. 16 m + 16
 // of a warp's C fragments c (split_frag_a's layout).
-template <int NT>
+template <int H, int NT>
 __device__ __forceinline__ void split3_frag_a(const float (&c)[NT][4], int m,
                                               uint32_t (&hi)[4],
                                               uint32_t (&mid)[4],
@@ -183,7 +260,90 @@ __device__ __forceinline__ void split3_frag_a(const float (&c)[NT][4], int m,
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     const int i = 2 * m + (q >> 1), r = 2 * (q & 1);
-    split3_bf16(c[i][r], c[i][r + 1], hi[q], mid[q], lo[q]);
+    split3<H>(c[i][r], c[i][r + 1], hi[q], mid[q], lo[q]);
+  }
+}
+
+// fp16 q: P's factor over fp16 and fp8 pools, and the walk's first F
+// (2^14, the fp16 flash kernels' kPScale: P <= 1, so P F <= 2^14)
+constexpr float kPFactor = 16384.f;
+
+// fp16 q: the power of two F that a row's P is multiplied by before its
+// split (the header's fp16 paragraph). w is the row's largest P vs so far
+// (int8 pools; the row's lanes agree on it), F its current factor: F w in
+// [2^13, 2^14), or F kept where the row has no positive finite weight yet
+// (its keys are hidden or zero-filled).
+__device__ __forceinline__ float p_factor(float w, float F) {
+  if (!(w > 0.f) || !isfinite(w)) return F;
+  int e;
+  frexpf(w, &e);   // w = m 2^e, m in [0.5, 1)
+  return ldexpf(1.f, 14 - e);
+}
+
+// The fp16 walk's factors of P, for the fragment rows g (h = 0) and g + 8
+// (h = 1): F[h] the row's factor and acc's unit, w[h] its largest P vs so
+// far (int8 pools), m_prev[h] its running max before this tile.
+struct PFactor {
+  float F[2] = {kPFactor, kPFactor};
+  float w[2] = {0.f, 0.f};
+  float m_prev[2];
+};
+
+// P F for fp16 q at the keys' v scales vs (int8 pools; 1 otherwise), after
+// online_softmax has made s this tile's P at the running max m: over int8
+// pools each row's w is moved to m and raised to the tile's largest P vs,
+// its F chosen (p_factor) and its acc moved from the last F to it by the
+// two powers of two's ratio, exact. kcol(i, r) is the tile column of
+// fragment element (i, r), vs(k) the v scale of column k.
+template <int KV, int NT, int NTO, typename Col, typename Scale>
+__device__ __forceinline__ void scale_p_f16(float (&s)[NT][4],
+                                            float (&acc)[NTO][4],
+                                            PFactor& pf, const float (&m)[2],
+                                            Col kcol, Scale vs) {
+  if constexpr (KV == kI8) {
+    float x[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        s[i][r] *= vs(kcol(i, r));
+        x[r >> 1] = fmaxf(x[r >> 1], s[i][r]);
+      }
+    }
+    float ratio[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      x[h] = fmaxf(x[h], __shfl_xor_sync(0xffffffffu, x[h], 1));
+      x[h] = fmaxf(x[h], __shfl_xor_sync(0xffffffffu, x[h], 2));
+      pf.w[h] = fmaxf(pf.w[h] * expf(pf.m_prev[h] - m[h]), x[h]);
+      const float f = p_factor(pf.w[h], pf.F[h]);
+      ratio[h] = f / pf.F[h];
+      pf.F[h] = f;
+    }
+    if (ratio[0] != 1.f || ratio[1] != 1.f) {
+#pragma unroll
+      for (int j = 0; j < NTO; ++j) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[j][r] *= ratio[r >> 1];
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) s[i][r] *= pf.F[r >> 1];
+  }
+}
+
+// acc / F at the end of an fp16 walk (each row's F a power of two: exact).
+template <int NTO>
+__device__ __forceinline__ void unscale_acc(float (&acc)[NTO][4],
+                                            const PFactor& pf) {
+  const float u[2] = {1.f / pf.F[0], 1.f / pf.F[1]};
+#pragma unroll
+  for (int j = 0; j < NTO; ++j) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[j][r] *= u[r >> 1];
   }
 }
 
@@ -197,8 +357,8 @@ struct SpanB {
   static constexpr int KG = 2, BN = 32, STAGES = 3;
   static constexpr int BM = 64;          // grouped query rows per block
   static constexpr int GTHR = 128, NTHR = KG * GTHR;
-  static constexpr bool WIDEN = KV != kBF16;   // 1-byte pools
-  // bytes of one bf16 tile (K or V): MAXD / 64 boxes of BN rows of 128
+  static constexpr bool WIDEN = Elem<KV>::bytes == 1;   // 1-byte pools
+  // bytes of one 16-bit tile (K or V): MAXD / 64 boxes of BN rows of 128
   // bytes
   static constexpr int TILE = (MAXD / 64) * BN * 128;
 };
@@ -226,23 +386,32 @@ __device__ __forceinline__ uint64_t mn_desc(uint32_t tile, int mm) {
   return sw128_desc(tile + mm * 16 * 128, R * 128, 1024);
 }
 
-// d (+)= a b^T for one 16-deep k-step: a a 64 x 16 bf16 register operand
-// (a warp's 16 rows in mma.sync's A layout), b 32 rows of a K-major tile.
+// d (+)= a b^T for one 16-deep k-step: a a 64 x 16 register operand of
+// the 16-bit type H (a warp's 16 rows in mma.sync's A layout), b 32 rows
+// of a K-major tile.
+#define WGMMA_RS_K_N32(TY)                                                  \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                    \
+      "%8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, "  \
+      "p, 1, 1, 0;\n}\n"                                                    \
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),         \
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),         \
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),         \
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])          \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d))
+template <int H>
 __device__ __forceinline__ void wgmma_rs_k(float (&d)[4][4],
                                            const uint32_t (&a)[4],
                                            uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, "
-      "p, 1, 1, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  if constexpr (H == kF16) {
+    WGMMA_RS_K_N32("f16");
+  } else {
+    WGMMA_RS_K_N32("bf16");
+  }
 }
+#undef WGMMA_RS_K_N32
 
 // Make this thread's writes to shared memory (cp.async copies, stores)
 // visible to the wgmma's reads (the async proxy).
@@ -258,7 +427,7 @@ __host__ __device__ __forceinline__ int sb_raw(int d) {
          (KV == kI8 ? 8 * SpanB<KV>::BN : 0);
 }
 
-// Bytes of one key group's region, a multiple of 1024: bf16 pools the
+// Bytes of one key group's region, a multiple of 1024: 16-bit pools the
 // ring of (K, V) tiles; 1-byte pools two (K, V) pairs of widened tiles,
 // then the ring of raw stages.
 template <int KV>
@@ -281,7 +450,7 @@ size_t span_bf16_smem(int d) {
 }
 
 // Start the copies of this thread's part of one tile row (row `row`,
-// 16-byte chunks part, part + parts, ...): bf16 pools into the swizzled
+// 16-byte chunks part, part + parts, ...): 16-bit pools into the swizzled
 // K and V tiles at kt, kt + TILE (d elements, zero-filled up to d rounded
 // to 16, and wholly for a row past the walk); 1-byte pools into a raw
 // stage (a.cpy-byte copies; for int8 the row's page scales).
@@ -324,9 +493,9 @@ __device__ __forceinline__ void span_load(uint8_t* dst, const Ragged& a,
 }
 
 // Widen the bytes this thread copied of a raw 1-byte stage's K and V rows
-// (its part of row `row`, landed: cp_async_wait) into the swizzled bf16
-// tiles at wk and wk + TILE.
-template <int KV>
+// (its part of row `row`, landed: cp_async_wait) into the swizzled tiles
+// of the 16-bit type H at wk and wk + TILE.
+template <int H, int KV>
 __device__ __forceinline__ void span_widen(const uint8_t* raw, uint8_t* wk,
                                            int d, int cb, int row, int part,
                                            int parts) {
@@ -339,16 +508,15 @@ __device__ __forceinline__ void span_widen(const uint8_t* raw, uint8_t* wk,
     for (int e = c; e < c + cb; e += 4) {
       const int o = sw_off<BN>(row, e >> 3) + ((e & 7) << 1);
       *reinterpret_cast<uint2*>(wk + o) =
-          codes_bf16x4<KV>(*reinterpret_cast<const uint32_t*>(kr + e));
+          codes16x4<H, KV>(*reinterpret_cast<const uint32_t*>(kr + e));
       *reinterpret_cast<uint2*>(wk + S::TILE + o) =
-          codes_bf16x4<KV>(*reinterpret_cast<const uint32_t*>(vr + e));
+          codes16x4<H, KV>(*reinterpret_cast<const uint32_t*>(vr + e));
     }
   }
 }
 
-template <int KV>
-__global__ void __launch_bounds__(SpanB<KV>::NTHR, 1)
-ragged_span_bf16_kernel(Ragged a) {
+template <int H, int KV>
+__device__ __forceinline__ void span_body(const Ragged& a) {
   using S = SpanB<KV>;
   constexpr int BM = S::BM, BN = S::BN, KG = S::KG, GTHR = S::GTHR;
   constexpr int ST = S::STAGES, NT = BN / 8, NTO = S::MAXD / 8;
@@ -368,7 +536,7 @@ ragged_span_bf16_kernel(Ragged a) {
   // the row of every tile this thread copies, and its part of it
   const int lrow = gtid / PARTS, lpart = gtid % PARTS;
   uint8_t* region = smem + kg * sb_group<KV>(d);
-  // bf16 pools: stage s at region + 2 TILE s; 1-byte pools: the widened
+  // 16-bit pools: stage s at region + 2 TILE s; 1-byte pools: the widened
   // pairs at region, raw stage s after them
   uint8_t* raw0 = region + 4 * S::TILE;
 
@@ -400,7 +568,7 @@ ragged_span_bf16_kernel(Ragged a) {
   if constexpr (S::WIDEN) {
     if (kg * BN < kend) {
       cp_async_wait<ST - 2>();
-      span_widen<KV>(stage(0), region, d, a.cpy, lrow, lpart, PARTS);
+      span_widen<H, KV>(stage(0), region, d, a.cpy, lrow, lpart, PARTS);
     }
   }
 
@@ -416,7 +584,7 @@ ragged_span_bf16_kernel(Ragged a) {
     const bool live = row < G && kend > 0;
     last[h] = row < G && tt < qlen ? min(start + tt, kend - 1) : -1;
     const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
-        static_cast<const __nv_bfloat16*>(a.q) +
+        static_cast<const uint16_t*>(a.q) +
         (live ? ((int64_t)(b * a.T + tt) * a.n_q + kvh * n_rep + row / a.T)
                     * d : 0));
 #pragma unroll
@@ -434,6 +602,7 @@ ragged_span_bf16_kernel(Ragged a) {
   for (int j = 0; j < NTO; ++j) {
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   }
+  [[maybe_unused]] PFactor pf;   // fp16: P's factors, acc's units
 
   int j = 0;
   for (int k0 = kg * BN; k0 < kend; k0 += STEP, ++j) {
@@ -461,7 +630,9 @@ ragged_span_bf16_kernel(Ragged a) {
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      if (16 * ks < d) wgmma_rs_k(s, qf[ks], k_desc<BN>(kts, ks), ks > 0);
+      if (16 * ks < d) {
+        wgmma_rs_k<H>(s, qf[ks], k_desc<BN>(kts, ks), ks > 0);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -477,8 +648,18 @@ ragged_span_bf16_kernel(Ragged a) {
         s[i][r] = k0 + kk <= last[r >> 1] ? v : kNegInf;
       }
     }
+    if constexpr (H == kF16) {
+      pf.m_prev[0] = m[0];
+      pf.m_prev[1] = m[1];
+    }
     online_softmax(s, m, l, acc);
-    if constexpr (KV == kI8) {
+    if constexpr (H == kF16) {
+      // P F (and int8's v scales), acc in units of F (l has summed the
+      // unscaled P)
+      scale_p_f16<KV>(s, acc, pf, m,
+                      [&](int i, int r) { return 8 * i + 2 * t + (r & 1); },
+                      [&](int k) { return sc[BN + k]; });
+    } else if constexpr (KV == kI8) {
       // the v scales into P (l has summed the unscaled P)
 #pragma unroll
       for (int i = 0; i < NT; ++i) {
@@ -486,12 +667,12 @@ ragged_span_bf16_kernel(Ragged a) {
         for (int r = 0; r < 4; ++r) s[i][r] *= sc[BN + 8 * i + 2 * t + (r & 1)];
       }
     }
-    // O += P V: P in three bf16 terms from registers, the smallest first
+    // O += P V: P in three 16-bit terms from registers, the smallest first
     // a 16-key step, V an MN-major operand
     uint32_t hi[NT / 2][4], mid[NT / 2][4], lo[NT / 2][4];
 #pragma unroll
     for (int mm = 0; mm < NT / 2; ++mm) {
-      split3_frag_a(s, mm, hi[mm], mid[mm], lo[mm]);
+      split3_frag_a<H>(s, mm, hi[mm], mid[mm], lo[mm]);
     }
     reg_fence(acc);
     reg_fence(hi);
@@ -501,9 +682,9 @@ ragged_span_bf16_kernel(Ragged a) {
 #pragma unroll
     for (int mm = 0; mm < NT / 2; ++mm) {
       const uint64_t desc = mn_desc<BN>(vts, mm);
-      wgmma_rs(acc, lo[mm], desc, 1);
-      wgmma_rs(acc, mid[mm], desc, 1);
-      wgmma_rs(acc, hi[mm], desc, 1);
+      wgmma_rs<H>(acc, lo[mm], desc, 1);
+      wgmma_rs<H>(acc, mid[mm], desc, 1);
+      wgmma_rs<H>(acc, hi[mm], desc, 1);
     }
     wgmma_commit();
     if constexpr (S::WIDEN) {
@@ -511,14 +692,16 @@ ragged_span_bf16_kernel(Ragged a) {
       // tile j - 1's products, done before this tile's barrier
       if (k0 + STEP < kend) {
         cp_async_wait<ST - 2>();
-        span_widen<KV>(stage(j + 1), region + ((j + 1) & 1) * 2 * S::TILE,
-                       d, a.cpy, lrow, lpart, PARTS);
+        span_widen<H, KV>(stage(j + 1),
+                          region + ((j + 1) & 1) * 2 * S::TILE, d, a.cpy,
+                          lrow, lpart, PARTS);
       }
     }
     wgmma_wait<0>();
     reg_fence(acc);
   }
   cp_async_wait<0>();
+  if constexpr (H == kF16) unscale_acc(acc, pf);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
@@ -579,8 +762,8 @@ ragged_span_bf16_kernel(Ragged a) {
     if (row < G) {
       const int tt = row % a.T, head = kvh * n_rep + row / a.T;
       const float inv = 1.f / fmaxf(l[h], 1e-30f);
-      __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(a.out) +
-                           ((int64_t)(b * a.T + tt) * a.n_q + head) * d;
+      Half<H>* dst = static_cast<Half<H>*>(a.out) +
+                     ((int64_t)(b * a.T + tt) * a.n_q + head) * d;
 #pragma unroll
       for (int jj = 0; jj < NTO; ++jj) {
         const int col = 8 * jj + 2 * t;
@@ -592,15 +775,34 @@ ragged_span_bf16_kernel(Ragged a) {
   }
 }
 
+// The span form's kernels: bf16 q and fp16 q (K1-fp16's), one body.
 template <int KV>
+__global__ void __launch_bounds__(SpanB<KV>::NTHR, 1)
+ragged_span_bf16_kernel(Ragged a) {
+  span_body<kBf16, KV>(a);
+}
+
+template <int KV>
+__global__ void __launch_bounds__(SpanB<KV>::NTHR, 1)
+ragged_span_f16_kernel(Ragged a) {
+  span_body<kF16, KV>(a);
+}
+
+template <int H, int KV>
 cudaError_t launch_span_kv(const Ragged& a, int B, cudaStream_t stream) {
   using S = SpanB<KV>;
+  void (*kernel)(Ragged);
+  if constexpr (H == kF16) {
+    kernel = ragged_span_f16_kernel<KV>;
+  } else {
+    kernel = ragged_span_bf16_kernel<KV>;
+  }
   const size_t smem = span_bf16_smem<KV>(a.d);
-  cudaError_t err = opt_in(ragged_span_bf16_kernel<KV>, smem);
+  cudaError_t err = opt_in(kernel, smem);
   if (err != cudaSuccess) return err;
   const int G = (a.n_q / a.n_kv) * a.T;
   const dim3 grid((G + S::BM - 1) / S::BM, a.n_kv, B);
-  ragged_span_bf16_kernel<KV><<<grid, S::NTHR, smem, stream>>>(a);
+  kernel<<<grid, S::NTHR, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -614,18 +816,18 @@ struct DecB {
   static constexpr int KS = MAXD / 16, NTHR = 32 * NW;
 };
 
-// Bytes of a warp's bf16 tile (K or V): KT rows of bf_ld(d) elements,
+// Bytes of a warp's 16-bit tile (K or V): KT rows of bf_ld(d) elements,
 // which ldmatrix reads free of bank conflicts.
 __host__ __device__ __forceinline__ int dec_tile(int d) {
   return DecB::KT * bf_ld(d) * 2;
 }
 
-// Bytes of one warp stage: bf16 pools the K and V tiles; 1-byte pools
+// Bytes of one warp stage: 16-bit pools the K and V tiles; 1-byte pools
 // the K and V code rows (rows of code_ld(d) bytes), then for int8 their
 // page scales [2][KT].
 template <int KV>
 __host__ __device__ __forceinline__ int dec_stage(int d) {
-  return KV == kBF16 ? 2 * dec_tile(d)
+  return Elem<KV>::bytes == 2 ? 2 * dec_tile(d)
                      : 2 * DecB::KT * code_ld<KV>(d) +
                            (KV == kI8 ? 8 * DecB::KT : 0);
 }
@@ -634,7 +836,8 @@ __host__ __device__ __forceinline__ int dec_stage(int d) {
 // and V tiles.
 template <int KV>
 __host__ __device__ __forceinline__ int dec_warp(int d) {
-  return DecB::ST * dec_stage<KV>(d) + (KV == kBF16 ? 0 : 2 * dec_tile(d));
+  return DecB::ST * dec_stage<KV>(d) +
+         (Elem<KV>::bytes == 2 ? 0 : 2 * dec_tile(d));
 }
 
 // Shared memory: the warps' regions (or, after the walk, their merge area:
@@ -707,7 +910,7 @@ __device__ __forceinline__ int item_seq(const int* cum, int B, int item) {
 // otherwise the split's (acc, m, l) go to the workspace and the block that
 // takes the (sequence, kv head)'s ticket last merges every split's in
 // split order and resets the ticket.
-template <int NTHR>
+template <int H, int NTHR>
 __device__ __forceinline__ void finish_item(
     const Ragged& a, const ragged::Split& sp, int B, int G, int b, int kvh,
     int split, int n_split, const float* macc, const float* mm,
@@ -738,7 +941,7 @@ __device__ __forceinline__ void finish_item(
     if (n_split == 1) {
       const float inv = 1.f / fmaxf(den, 1e-30f);
       const int tt = r % a.T, head = kvh * n_rep + r / a.T;
-      st4(static_cast<__nv_bfloat16*>(a.out) +
+      st4(static_cast<Half<H>*>(a.out) +
               ((int64_t)(b * a.T + tt) * a.n_q + head) * d + c,
           make_float4(num.x * inv, num.y * inv, num.z * inv, num.w * inv));
     } else {
@@ -781,7 +984,7 @@ __device__ __forceinline__ void finish_item(
         }
         const float inv = 1.f / fmaxf(Ls, 1e-30f);
         const int tt = r % a.T, head = kvh * n_rep + r / a.T;
-        st4(static_cast<__nv_bfloat16*>(a.out) +
+        st4(static_cast<Half<H>*>(a.out) +
                 ((int64_t)(b * a.T + tt) * a.n_q + head) * d + c,
             make_float4(As.x * inv, As.y * inv, As.z * inv, As.w * inv));
       }
@@ -790,9 +993,9 @@ __device__ __forceinline__ void finish_item(
   }
 }
 
-template <int KV>
-__global__ void __launch_bounds__(DecB::NTHR, DecB::PER_SM)
-ragged_decode_split_kernel(Ragged a, ragged::Split sp, int B) {
+template <int H, int KV>
+__device__ __forceinline__ void split_body(const Ragged& a,
+                                           const ragged::Split& sp, int B) {
   constexpr int NW = DecB::NW, KT = DecB::KT, ST = DecB::ST;
   constexpr int NT = DecB::NT, NTO = DecB::NTO, KS = DecB::KS;
   constexpr int NTHR = DecB::NTHR, EB = Elem<KV>::bytes;
@@ -808,9 +1011,10 @@ ragged_decode_split_kernel(Ragged a, ragged::Split sp, int B) {
   uint8_t* wide = mine + ST * dec_stage<KV>(d);   // 1-byte pools: K, V
   const int n_rep = a.n_q / a.n_kv, G = n_rep * a.T;
   const int kps = sp.keys_per_split;
-  // a pool row's copies: 16-byte chunks of bf16 rows, a.cpy bytes of code
-  // rows; CPR of them a row, lane + 32 i the warp's copy i of a tile
-  const int cb = KV == kBF16 ? 16 : a.cpy, cpr = w * EB / cb;
+  // a pool row's copies: 16-byte chunks of 16-bit rows, a.cpy bytes of
+  // code rows; CPR of them a row, lane + 32 i the warp's copy i of a tile
+  constexpr bool NATIVE = Elem<KV>::bytes == 2;   // a 16-bit pool
+  const int cb = NATIVE ? 16 : a.cpy, cpr = w * EB / cb;
 
   const int* cum = work_list<NTHR>(a, B, G, kps, lists, lists + B + 1);
   const int items = cum[B];
@@ -843,7 +1047,7 @@ ragged_decode_split_kernel(Ragged a, ragged::Split sp, int B) {
       const bool live = g < G && k1 > k0;
       last = g < G && tt < qlen ? min(start + tt, k1 - 1) : -1;
       const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
-          static_cast<const __nv_bfloat16*>(a.q) +
+          static_cast<const uint16_t*>(a.q) +
           (live ? ((int64_t)(b * a.T + tt) * a.n_q + kvh * n_rep + g / a.T)
                       * d : 0));
 #pragma unroll
@@ -871,7 +1075,7 @@ ragged_decode_split_kernel(Ragged a, ragged::Split sp, int B) {
         const uint8_t* kp = static_cast<const uint8_t*>(a.k_pool) + off;
         const uint8_t* vp = static_cast<const uint8_t*>(a.v_pool) + off;
         const bool valid = live && c * cb < d * EB;
-        if constexpr (KV == kBF16) {
+        if constexpr (NATIVE) {
           uint8_t* kd = dst + row * ld * 2 + 16 * c;
           cp_async16(kd, valid ? kp + 16 * c : kp, valid);
           cp_async16(kd + dec_tile(d), valid ? vp + 16 * c : vp, valid);
@@ -898,6 +1102,7 @@ ragged_decode_split_kernel(Ragged a, ragged::Split sp, int B) {
     for (int j = 0; j < NTO; ++j) {
       acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
     }
+    [[maybe_unused]] PFactor pf;   // fp16: P's factors, acc's units
     // the warp's tiles warp, warp + NW, ... through its ring, ST - 1
     // ahead of the one multiplied
     int jt = warp;
@@ -915,10 +1120,10 @@ ragged_decode_split_kernel(Ragged a, ragged::Split sp, int B) {
       uint8_t* stg = mine + (i % ST) * dec_stage<KV>(d);
       const uint16_t* kt;
       const float* sc = nullptr;   // int8: the tile's [k, v][KT] scales
-      if constexpr (KV == kBF16) {
+      if constexpr (NATIVE) {
         kt = reinterpret_cast<const uint16_t*>(stg);
       } else {
-        // widen the bytes this lane copied into the bf16 tiles
+        // widen the bytes this lane copied into the 16-bit tiles
         const int rb = code_ld<KV>(d);
         for (int x = lane; x < KT * cpr; x += 32) {
           const int row = x / cpr, c = x - row * cpr;
@@ -926,8 +1131,8 @@ ragged_decode_split_kernel(Ragged a, ragged::Split sp, int B) {
           uint16_t* wk = reinterpret_cast<uint16_t*>(wide) + row * ld;
           for (int e = cb * c; e < cb * (c + 1); e += 4) {
             *reinterpret_cast<uint2*>(wk + e) =
-                codes_bf16x4<KV>(*reinterpret_cast<const uint32_t*>(kr + e));
-            *reinterpret_cast<uint2*>(wk + KT * ld + e) = codes_bf16x4<KV>(
+                codes16x4<H, KV>(*reinterpret_cast<const uint32_t*>(kr + e));
+            *reinterpret_cast<uint2*>(wk + KT * ld + e) = codes16x4<H, KV>(
                 *reinterpret_cast<const uint32_t*>(kr + KT * rb + e));
           }
         }
@@ -937,7 +1142,7 @@ ragged_decode_split_kernel(Ragged a, ragged::Split sp, int B) {
       __syncwarp();   // the tile is the warp's
       const uint16_t* vt = kt + KT * ld;
       const int key0 = k0 + jt * KT;
-      // S = Q K^T: one bf16 mma a 16-deep k-step, summed in fp32
+      // S = Q K^T: one 16-bit mma a 16-deep k-step, summed in fp32
       float s[NT][4];
 #pragma unroll
       for (int i2 = 0; i2 < NT; ++i2) {
@@ -950,8 +1155,8 @@ ragged_decode_split_kernel(Ragged a, ragged::Split sp, int B) {
           for (int i2 = 0; i2 < NT; i2 += 2) {
             uint32_t b0[2], b1[2];
             frag_b_rows(b0, b1, kt, 8 * i2, 16 * ks, ld, lane);
-            mma_step(s[i2], qf[ks], b0);
-            mma_step(s[i2 + 1], qf[ks], b1);
+            mma_step<H>(s[i2], qf[ks], b0);
+            mma_step<H>(s[i2 + 1], qf[ks], b1);
           }
         }
       }
@@ -966,8 +1171,19 @@ ragged_decode_split_kernel(Ragged a, ragged::Split sp, int B) {
           s[i2][r] = r < 2 && key0 + kk <= last ? v : kNegInf;
         }
       }
+      if constexpr (H == kF16) {
+        pf.m_prev[0] = m[0];
+        pf.m_prev[1] = m[1];
+      }
       online_softmax(s, m, l, acc);
-      if constexpr (KV == kI8) {
+      if constexpr (H == kF16) {
+        // P F (and int8's v scales), acc in units of F (l has summed the
+        // unscaled P)
+        scale_p_f16<KV>(
+            s, acc, pf, m,
+            [&](int i2, int r) { return 8 * i2 + 2 * t + (r & 1); },
+            [&](int k) { return sc[KT + k]; });
+      } else if constexpr (KV == kI8) {
         // the v scales into P (l has summed the unscaled P)
 #pragma unroll
         for (int i2 = 0; i2 < NT; ++i2) {
@@ -977,24 +1193,24 @@ ragged_decode_split_kernel(Ragged a, ragged::Split sp, int B) {
           }
         }
       }
-      // O += P V: P in three bf16 terms, three mma a 16-key k-step, summed
-      // from zero and added in fp32
+      // O += P V: P in three 16-bit terms, three mma a 16-key k-step,
+      // summed from zero and added in fp32
 #pragma unroll
       for (int mm = 0; mm < NT / 2; ++mm) {
         uint32_t hi[4], mid[4], lo[4];
-        split3_frag_a(s, mm, hi, mid, lo);
+        split3_frag_a<H>(s, mm, hi, mid, lo);
 #pragma unroll
         for (int j = 0; j < NTO; j += 2) {
           if (8 * j < d) {
             uint32_t b0[2], b1[2];
             frag_b_cols(b0, b1, vt, 16 * mm, 8 * j, ld, lane);
             float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
-            mma_bf16(p0, lo, b0);
-            mma_bf16(p1, lo, b1);
-            mma_bf16(p0, mid, b0);
-            mma_bf16(p1, mid, b1);
-            mma_bf16(p0, hi, b0);
-            mma_bf16(p1, hi, b1);
+            mma16<H>(p0, lo, b0);
+            mma16<H>(p1, lo, b1);
+            mma16<H>(p0, mid, b0);
+            mma16<H>(p1, mid, b1);
+            mma16<H>(p0, hi, b0);
+            mma16<H>(p1, hi, b1);
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
               acc[j][r] += p0[r];
@@ -1006,6 +1222,7 @@ ragged_decode_split_kernel(Ragged a, ragged::Split sp, int B) {
       __syncwarp();   // this stage (and the widened tiles) consumed
     }
     cp_async_wait<0>();
+    if constexpr (H == kF16) unscale_acc(acc, pf);
     l[0] += __shfl_xor_sync(0xffffffffu, l[0], 1);
     l[0] += __shfl_xor_sync(0xffffffffu, l[0], 2);
     __syncthreads();   // every warp is done with its region
@@ -1031,10 +1248,23 @@ ragged_decode_split_kernel(Ragged a, ragged::Split sp, int B) {
       }
     }
     __syncthreads();
-    finish_item<NTHR>(a, sp, B, G, b, kvh, split, n_split, macc, mm, ml,
-                      &s_last);
+    finish_item<H, NTHR>(a, sp, B, G, b, kvh, split, n_split, macc, mm,
+                         ml, &s_last);
     __syncthreads();   // the regions and the slice are free for the next item
   }
+}
+
+// The split walk's kernels: bf16 q and fp16 q (K1-fp16's), one body.
+template <int KV>
+__global__ void __launch_bounds__(DecB::NTHR, DecB::PER_SM)
+ragged_decode_split_kernel(Ragged a, ragged::Split sp, int B) {
+  split_body<kBf16, KV>(a, sp, B);
+}
+
+template <int KV>
+__global__ void __launch_bounds__(DecB::NTHR, DecB::PER_SM)
+ragged_decode_split_f16_kernel(Ragged a, ragged::Split sp, int B) {
+  split_body<kF16, KV>(a, sp, B);
 }
 
 // The split walk of one grouped row (G = 1: MHA decode), on the CUDA
@@ -1073,9 +1303,9 @@ size_t row_smem_bytes(int d, int B, int keys_per_split) {
 
 // CB: the bytes of one read of a key row from a stage (16, or 8 for
 // 1-byte rows of d = 8 mod 16); the copies into the stage take a.cpy.
-template <int KV, int CB>
-__global__ void __launch_bounds__(DecR::NTHR, 4)
-ragged_decode_row_kernel(Ragged a, ragged::Split sp, int B) {
+template <int H, int KV, int CB>
+__device__ __forceinline__ void row_body(const Ragged& a,
+                                         const ragged::Split& sp, int B) {
   constexpr int NW = DecR::NW, KT = DecR::KT, ST = DecR::ST;
   constexpr int LPK = DecR::LPK, NTHR = DecR::NTHR;
   constexpr int EB = Elem<KV>::bytes, EPC = CB / EB;   // elements a read
@@ -1117,8 +1347,8 @@ ragged_decode_row_kernel(Ragged a, ragged::Split sp, int B) {
     // fp32; zero past d
     float qv[QC][EPC];
     {
-      const __nv_bfloat16* qrow = static_cast<const __nv_bfloat16*>(a.q) +
-                                  ((int64_t)b * a.T * a.n_q + kvh) * d;
+      const Half<H>* qrow = static_cast<const Half<H>*>(a.q) +
+                            ((int64_t)b * a.T * a.n_q + kvh) * d;
 #pragma unroll
       for (int i = 0; i < QC; ++i) {
         const int e0 = (part + LPK * i) * EPC;
@@ -1249,20 +1479,38 @@ ragged_decode_row_kernel(Ragged a, ragged::Split sp, int B) {
       ml[warp * kDecodeRows] = l;
     }
     __syncthreads();
-    finish_item<NTHR>(a, sp, B, 1, b, kvh, split, n_split, macc, mm, ml,
-                      &s_last);
+    finish_item<H, NTHR>(a, sp, B, 1, b, kvh, split, n_split, macc, mm,
+                         ml, &s_last);
     __syncthreads();   // the stages and the slice are free for the next item
   }
 }
 
+// The row walk's kernels: bf16 q and fp16 q (K1-fp16's), one body.
 template <int KV, int CB>
+__global__ void __launch_bounds__(DecR::NTHR, 4)
+ragged_decode_row_kernel(Ragged a, ragged::Split sp, int B) {
+  row_body<kBf16, KV, CB>(a, sp, B);
+}
+
+template <int KV, int CB>
+__global__ void __launch_bounds__(DecR::NTHR, 4)
+ragged_decode_row_f16_kernel(Ragged a, ragged::Split sp, int B) {
+  row_body<kF16, KV, CB>(a, sp, B);
+}
+
+template <int H, int KV, int CB>
 cudaError_t launch_row_cb(const Ragged& a, const ragged::Split& sp, int B,
                           cudaStream_t stream) {
+  void (*kernel)(Ragged, ragged::Split, int);
+  if constexpr (H == kF16) {
+    kernel = ragged_decode_row_f16_kernel<KV, CB>;
+  } else {
+    kernel = ragged_decode_row_kernel<KV, CB>;
+  }
   const size_t smem = row_smem_bytes<KV>(a.d, B, sp.keys_per_split);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      ragged_decode_row_kernel<KV, CB>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   err = cudaGetDevice(&dev);
@@ -1271,7 +1519,7 @@ cudaError_t launch_row_cb(const Ragged& a, const ragged::Split& sp, int B,
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, ragged_decode_row_kernel<KV, CB>, DecR::NTHR, smem);
+        &per_sm, kernel, DecR::NTHR, smem);
   }
   if (err != cudaSuccess) return err;
   const int cap = DecR::PER_SM;
@@ -1279,29 +1527,33 @@ cudaError_t launch_row_cb(const Ragged& a, const ragged::Split& sp, int B,
       (int64_t)sms * (per_sm < 1 ? 1 : per_sm > cap ? cap : per_sm);
   const int64_t items = (int64_t)sp.n_splits * B * a.n_kv;
   const int grid = (int)(items < resident ? items : resident);
-  ragged_decode_row_kernel<KV, CB><<<grid, DecR::NTHR, smem, stream>>>(
-      a, sp, B);
+  kernel<<<grid, DecR::NTHR, smem, stream>>>(a, sp, B);
   return cudaGetLastError();
 }
 
-template <int KV>
+template <int H, int KV>
 cudaError_t launch_split_kv(const Ragged& a, const ragged::Split& sp, int B,
                             cudaStream_t stream) {
   if ((a.n_q / a.n_kv) * a.T == 1) {
     // one row: the CUDA cores' walk (8-byte reads for 1-byte rows of d =
-    // 8 mod 16; bf16 rows are whole 16-byte chunks)
+    // 8 mod 16; 16-bit rows are whole 16-byte chunks)
     if constexpr (Elem<KV>::bytes == 1) {
-      if (a.d % 16 != 0) return launch_row_cb<KV, 8>(a, sp, B, stream);
+      if (a.d % 16 != 0) return launch_row_cb<H, KV, 8>(a, sp, B, stream);
     }
-    return launch_row_cb<KV, 16>(a, sp, B, stream);
+    return launch_row_cb<H, KV, 16>(a, sp, B, stream);
+  }
+  void (*kernel)(Ragged, ragged::Split, int);
+  if constexpr (H == kF16) {
+    kernel = ragged_decode_split_f16_kernel<KV>;
+  } else {
+    kernel = ragged_decode_split_kernel<KV>;
   }
   const size_t smem = split_smem_bytes<KV>(a.d, B, sp.keys_per_split);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   // set at every size: the kernel's static shared memory counts against
   // the default 48 KiB too
   cudaError_t err = cudaFuncSetAttribute(
-      ragged_decode_split_kernel<KV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   // a persistent grid of up to PER_SM blocks an SM (any grid computes
   // the same result)
@@ -1312,7 +1564,7 @@ cudaError_t launch_split_kv(const Ragged& a, const ragged::Split& sp, int B,
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, ragged_decode_split_kernel<KV>, DecB::NTHR, smem);
+        &per_sm, kernel, DecB::NTHR, smem);
   }
   if (err != cudaSuccess) return err;
   const int cap = DecB::PER_SM;
@@ -1320,8 +1572,7 @@ cudaError_t launch_split_kv(const Ragged& a, const ragged::Split& sp, int B,
       (int64_t)sms * (per_sm < 1 ? 1 : per_sm > cap ? cap : per_sm);
   const int64_t items = (int64_t)sp.n_splits * B * a.n_kv;
   const int grid = (int)(items < resident ? items : resident);
-  ragged_decode_split_kernel<KV><<<grid, DecB::NTHR, smem, stream>>>(a, sp,
-                                                                     B);
+  kernel<<<grid, DecB::NTHR, smem, stream>>>(a, sp, B);
   return cudaGetLastError();
 }
 
@@ -1329,24 +1580,40 @@ cudaError_t launch_split_kv(const Ragged& a, const ragged::Split& sp, int B,
 
 namespace ragged {
 
-cudaError_t launch_span_bf16(const Ragged& a, int kv, int B,
-                             cudaStream_t stream) {
+template <typename QT>
+cudaError_t launch_span16(const Ragged& a, int kv, int B,
+                          cudaStream_t stream) {
+  constexpr int H = std::is_same_v<QT, __half> ? kF16 : kBf16;
+  constexpr int kHalfPool = H == kF16 ? kFP16 : kBF16;
   switch (kv) {
-    case kBF16: return launch_span_kv<kBF16>(a, B, stream);
-    case kI8: return launch_span_kv<kI8>(a, B, stream);
-    case kF8: return launch_span_kv<kF8>(a, B, stream);
+    case kHalfPool: return launch_span_kv<H, kHalfPool>(a, B, stream);
+    case kI8: return launch_span_kv<H, kI8>(a, B, stream);
+    case kF8: return launch_span_kv<H, kF8>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+template <typename QT>
 cudaError_t launch_decode_split(const Ragged& a, const Split& sp, int kv,
                                 int B, cudaStream_t stream) {
+  constexpr int H = std::is_same_v<QT, __half> ? kF16 : kBf16;
+  constexpr int kHalfPool = H == kF16 ? kFP16 : kBF16;
   switch (kv) {
-    case kBF16: return launch_split_kv<kBF16>(a, sp, B, stream);
-    case kI8: return launch_split_kv<kI8>(a, sp, B, stream);
-    case kF8: return launch_split_kv<kF8>(a, sp, B, stream);
+    case kHalfPool: return launch_split_kv<H, kHalfPool>(a, sp, B, stream);
+    case kI8: return launch_split_kv<H, kI8>(a, sp, B, stream);
+    case kF8: return launch_split_kv<H, kF8>(a, sp, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
+
+template cudaError_t launch_span16<__nv_bfloat16>(const Ragged&, int, int,
+                                                  cudaStream_t);
+template cudaError_t launch_span16<__half>(const Ragged&, int, int,
+                                           cudaStream_t);
+template cudaError_t launch_decode_split<__nv_bfloat16>(const Ragged&,
+                                                        const Split&, int,
+                                                        int, cudaStream_t);
+template cudaError_t launch_decode_split<__half>(const Ragged&, const Split&,
+                                                 int, int, cudaStream_t);
 
 }  // namespace ragged

@@ -13,20 +13,15 @@ from paddle_tpu_torch.serving.model_runner import runner_for
 _RUNNER_KNOBS = ("block_size", "max_model_len", "attn_impl", "kv_dtype",
                  "weight_dtype", "weight_group_size")
 
-# the serving dtypes by name; float16 serving needs the fp16 forms of the
-# serving kernels, ROADMAP.md 'Still to port' item 21, its serving half
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the serving dtypes by name
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
 
 def _serving_dtype(dtype):
-    """``dtype`` as a torch dtype: fp32 or bf16 (a torch dtype or its
-    name); float16 raises naming item 21's serving half."""
+    """``dtype`` as a torch dtype: fp32, bf16 or fp16 (a torch dtype or its
+    name)."""
     dt = _DTYPES.get(dtype, dtype)
-    if dt in (torch.float16, "float16"):
-        raise NotImplementedError(
-            "dtype=float16: fp16 training is ported, fp16 serving needs the "
-            "fp16 forms of the serving kernels (K1-fp16, K2-fp16): "
-            "ROADMAP.md 'Still to port' item 21, its serving half (21B)")
     if dt not in _DTYPES.values():
         raise ValueError(f"dtype={dtype!r}; expected one of "
                          f"{sorted(_DTYPES)} (or the torch dtypes)")
@@ -44,13 +39,13 @@ def create_serving_engine(model, dtype=None, device="cuda", **kw):
     ragged_batch, num_speculative_tokens and the spec_* knobs among them);
     ``num_blocks`` defaults to 128.
 
-    ``dtype`` (torch.float32 or torch.bfloat16, or their names) casts the
-    runner's parameters, and so its compute and its KV pools, as the JAX
-    bridge does: after the runner is built, every floating parameter is
-    cast, the weight ladder's own included (fp8 weights come back in
-    ``dtype``, int8 and int4 scales become ``dtype``); integer codes stay.
-    The runner's dict is cast, never the model. float16 raises naming
-    ROADMAP.md item 21's serving half, a ``mesh`` naming item 10, and a
+    ``dtype`` (torch.float32, torch.bfloat16 or torch.float16, or their
+    names) casts the runner's parameters, and so its compute and its KV
+    pools, as the JAX bridge does: after the runner is built, every
+    floating parameter is cast, the weight ladder's own included (fp8
+    weights come back in ``dtype``, int8 and int4 scales become
+    ``dtype``); integer codes stay. The runner's dict is cast, never the
+    model. A ``mesh`` raises naming ROADMAP.md item 10, and a
     ``comm_dtype`` other than "fp32" without a mesh is a ValueError, as
     in JAX."""
     mesh = kw.pop("mesh", None)

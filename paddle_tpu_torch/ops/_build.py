@@ -49,11 +49,17 @@ SIGNATURES = {
     "ragged_paged_attention_bf16": [_P] * 9 + [_I] * 10 + [_F, _P],
     "ragged_paged_attention_bf16_i8": [_P] * 11 + [_I] * 10 + [_F, _P],
     "ragged_paged_attention_bf16_f8": [_P] * 9 + [_I] * 10 + [_F, _P],
+    # the same with fp16 q (and an fp16 output) over fp16, int8 and fp8
+    # pools
+    "ragged_paged_attention_f16": [_P] * 9 + [_I] * 10 + [_F, _P],
+    "ragged_paged_attention_f16_i8": [_P] * 11 + [_I] * 10 + [_F, _P],
+    "ragged_paged_attention_f16_f8": [_P] * 9 + [_I] * 10 + [_F, _P],
     # the paged-decode kernel: its tensors, the workspace and the tickets,
     # then b, h, d, page_size, pages_per_seq, keys_per_split, n_splits
     "paged_decode_attention_f32": [_P] * 8 + [_I] * 7 + [_F, _P],
-    # the same with q, the pools and the output bf16
+    # the same with q, the pools and the output bf16, or all fp16
     "paged_decode_attention_bf16": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "paged_decode_attention_f16": [_P] * 8 + [_I] * 7 + [_F, _P],
     # the flash kernels: their tensors, the five masking operands (mask,
     # kbias, qseg, kseg, block_mask; null = absent), then B, H, Sq, Sk, d,
     # the mask's heads and the block mask's block lengths
@@ -218,7 +224,7 @@ def stream_buffer(name: str, device, stream, n: int, dtype,
 # 1-byte element types of quantized pools (the kernels read 4 at a time)
 CODE_DTYPES = (torch.int8, torch.float8_e4m3fn)
 # 16-bit element types of the flash kernels' AMP instantiations (on wgmma
-# at d <= 128)
+# at d <= 128) and of the serving kernels' 16-bit forms
 HALF_DTYPES = (torch.bfloat16, torch.float16)
 
 
@@ -229,9 +235,8 @@ def require_launchable(name: str, floats, ints, codes=(), scales=(),
     read them as float4); 1-byte code operands (int8 or float8_e4m3fn
     pools, one dtype) contiguous and 4-byte aligned (read 4 at a time);
     fp32 scale operands contiguous and 4-byte aligned (read one by one);
-    16-bit operands (the flash kernels' bf16 and fp16 instantiations) all
-    bf16 or all fp16, contiguous and 16-byte aligned (read 8 at a
-    time)."""
+    16-bit operands (the bf16 and fp16 instantiations) all bf16 or all
+    fp16, contiguous and 16-byte aligned (read 8 at a time)."""
     if len({t.dtype for t in halves}) > 1 or any(
             t.dtype not in HALF_DTYPES for t in halves):
         raise TypeError(f"{name}: half operands must all be bf16 or all "

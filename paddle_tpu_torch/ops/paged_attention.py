@@ -6,15 +6,16 @@ pools [num_blocks, block_size, h, d]; block_table [b, pages] int32; pos
 int32 [b] or one position for the whole batch (a Python int or a 0-d
 tensor, broadcast to [b] on q's device, as the JAX kernel broadcasts it),
 keys at positions <= pos visible (the current token's K/V is written
-before the call). Returns [b, h, d]. q and the pools are all fp32 (K2) or
-all bf16 (K2-bf16, a bf16 runner's); the output is in q's dtype, the
-softmax and the sums fp32, as the Pallas kernel casts each tile to fp32.
+before the call). Returns [b, h, d]. q and the pools are all fp32 (K2),
+all bf16 (K2-bf16, a bf16 runner's) or all fp16 (K2-fp16, an fp16
+runner's); the output is in q's dtype, the softmax and the sums fp32, as
+the Pallas kernel casts each tile to fp32.
 
 `paged_decode_attention` launches csrc/paged_decode_attention.cu on a CUDA
-tensor (its fp32 or its bf16 instantiation, never a cast to the other)
+tensor (its fp32, bf16 or fp16 instantiation, never a cast to another)
 and runs `paged_decode_reference` on a CPU tensor. Each dtype counts its
-own launches: `COUNTS` (fp32) and `COUNTS_BF16`. The kernel cuts
-each sequence's visible keys into splits of KEYS_PER_SPLIT keys, scores
+own launches: `COUNTS` (fp32), `COUNTS_BF16` and `COUNTS_F16`. The kernel
+cuts each sequence's visible keys into splits of KEYS_PER_SPLIT keys, scores
 the splits in parallel and merges them in split order;
 `paged_decode_split_reference` is the plain twin of that algebra, for the
 tests. `best_paged_impl` is the serving runner's single dispatch gate,
@@ -31,8 +32,8 @@ import math
 import torch
 
 from paddle_tpu_torch.ops._build import (
-    LaunchCounts, check, library, refuse_interpret, require_launchable,
-    stream_buffer,
+    HALF_DTYPES, LaunchCounts, check, library, refuse_interpret,
+    require_launchable, stream_buffer,
 )
 from paddle_tpu_torch.ops.ragged_paged_attention import (
     MAX_HEAD_DIM, NEG_INF, ragged_attention_ok,
@@ -40,16 +41,18 @@ from paddle_tpu_torch.ops.ragged_paged_attention import (
 
 COUNTS = LaunchCounts()        # fp32 (K2)
 COUNTS_BF16 = LaunchCounts()   # bf16 (K2-bf16)
+COUNTS_F16 = LaunchCounts()    # fp16 (K2-fp16)
 
 # dtype -> (launch counts, C entry point)
 _VARIANTS = {
     torch.float32: (COUNTS, "paged_decode_attention_f32"),
     torch.bfloat16: (COUNTS_BF16, "paged_decode_attention_bf16"),
+    torch.float16: (COUNTS_F16, "paged_decode_attention_f16"),
 }
 
 
 def counts_for(dtype) -> LaunchCounts:
-    """The launch counts of the fp32 or the bf16 kernel."""
+    """The launch counts of the fp32, bf16 or fp16 kernel."""
     return _VARIANTS[dtype][0]
 
 # keys of one split of a sequence's page walk (a multiple of SPLIT_TILE, the
@@ -103,14 +106,14 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos, scale=None,
         raise ValueError(f"paged_decode_attention runs on cuda or cpu "
                          f"tensors, got {q.device}")
     if q.dtype not in _VARIANTS or {k_pool.dtype, v_pool.dtype} != {q.dtype}:
-        raise TypeError(f"paged_decode_attention takes q and pools all fp32 "
-                        f"or all bf16, got {q.dtype} over {k_pool.dtype} / "
-                        f"{v_pool.dtype}")
+        raise TypeError(f"paged_decode_attention takes q and pools all "
+                        f"fp32, all bf16 or all fp16, got {q.dtype} over "
+                        f"{k_pool.dtype} / {v_pool.dtype}")
     # the same operand rules on both devices (see ragged_paged_attention)
-    bf16 = q.dtype == torch.bfloat16
+    half = q.dtype in HALF_DTYPES
     floats = (q, k_pool, v_pool)
-    require_launchable("paged_decode_attention", () if bf16 else floats,
-                       (block_table, pos), halves=floats if bf16 else ())
+    require_launchable("paged_decode_attention", () if half else floats,
+                       (block_table, pos), halves=floats if half else ())
     counts, entry = _VARIANTS[q.dtype]
     if q.device.type == "cpu":
         counts.plain_launches += 1

@@ -1,15 +1,16 @@
 """Ragged paged attention: the serving path's prefill/GQA kernel (K1).
 
 Counterpart of paddle_tpu/ops/pallas/ragged_paged_attention.py, over fp32
-pools (K1), bf16 pools (K1-bf16) and quantized pools (K1-q): int8 codes
-with k_scale / v_scale [num_pages, n_kv] fp32 (one scale per page per kv
-head), or float8_e4m3fn pools. q is fp32 (over fp32, int8 and fp8 pools)
-or bf16 (a bf16 runner's: over bf16, int8 and fp8 pools), and the output
-is in q's dtype. One call computes causal attention for a ragged
+pools (K1), bf16 pools (K1-bf16), fp16 pools (K1-fp16) and quantized pools
+(K1-q): int8 codes with k_scale / v_scale [num_pages, n_kv] fp32 (one
+scale per page per kv head), or float8_e4m3fn pools. q is fp32 (over
+fp32, int8 and fp8 pools), bf16 (a bf16 runner's: over bf16, int8 and
+fp8 pools) or fp16 (an fp16 runner's: over fp16, int8 and fp8 pools), and
+the output is in q's dtype. One call computes causal attention for a ragged
 batch of query spans straight off the paged K/V pools: decode steps
 (q_len = 1), prefill chunks (q_len = chunk at an offset), and dead batch
 slots (q_len = 0). Quantized pages are dequantized inside the page walk
-(code * scale[page, kv head], or the fp8 value as fp32) and bf16 values
+(code * scale[page, kv head], or the fp8 value as fp32) and 16-bit values
 widened to fp32; the softmax and the sums stay fp32, as the Pallas kernel
 casts each tile to fp32, and the output is rounded to q's dtype.
 
@@ -21,28 +22,30 @@ the n_q / n_kv query heads of a kv head from one page walk.
 
 `ragged_paged_attention` is the wrapper: on a CUDA tensor it launches the
 hand-written kernels in csrc/ragged_paged_attention.cu (fp32 q) and
-csrc/ragged_paged_attention_bf16.cu (bf16 q) for the pair (q dtype, pool
-dtype), in the form `ragged_form` picks from the grouped rows G = n_rep *
-T: the span form on the tensor cores for prefill chunks and GQA spans (bf16
-q: wgmma from a cp.async ring at d <= 128, the tf32 span form of fp32 q
-above), the decode form for G <= DECODE_ROWS (on the CUDA cores for fp32
-q, and bf16 q at d > SPLIT_MAX_HEAD_DIM: one block per sequence and kv
-head; bf16 q at d <= SPLIT_MAX_HEAD_DIM: the split walk on the tensor
-cores, each sequence's keys cut into splits of KEYS_PER_SPLIT on a
-persistent grid and merged in split order through a workspace and a
-ticket per sequence and kv head, `decode_splits`,
+csrc/ragged_paged_attention_bf16.cu (bf16 and fp16 q) for the pair (q
+dtype, pool dtype), in the form `ragged_form` picks from the grouped rows
+G = n_rep * T: the span form on the tensor cores for prefill chunks and
+GQA spans (16-bit q: wgmma from a cp.async ring at d <= 128, the tf32 span
+form of fp32 q above), the decode form for G <= DECODE_ROWS (on the CUDA
+cores for fp32 q, and 16-bit q at d > SPLIT_MAX_HEAD_DIM: one block per
+sequence and kv head; 16-bit q at d <= SPLIT_MAX_HEAD_DIM: the split walk
+on the tensor cores, each sequence's keys cut into splits of
+KEYS_PER_SPLIT on a persistent grid and merged in split order through a
+workspace and a ticket per sequence and kv head, `decode_splits`,
 `split_workspace_floats`). On a CPU tensor it runs
 `ragged_reference`, the plain gather + dense-mask version with the same
 output contract, which computes in fp32 (fp64 for fp64 operands: the fp64
-oracle the card's accuracy gate uses). There is no other path: a bf16 q on
-the card launches a bf16 kernel or raises, never a cast and the fp32 one.
-Each (q dtype, pool dtype) pair counts its own launches: `COUNTS` (fp32 q
-over fp32 pools), `COUNTS_I8` and `COUNTS_F8`, and for bf16 q
-`COUNTS_BF16` (bf16 pools), `COUNTS_BF16_I8` and `COUNTS_BF16_F8`, with the
-kernel launches of each form under `form_launches`: "span", "decode" (an
-unsplit decode launch: fp32 q, bf16 q at d > SPLIT_MAX_HEAD_DIM, or over
-a table no longer than one split) and "decode_split" (bf16 q over a
-longer table: the workspace and the tickets in play). A launch inside a captured CUDA graph counts at its
+oracle the card's accuracy gate uses). There is no other path: a 16-bit q
+on the card launches a kernel of its dtype or raises, never a cast and
+another dtype's. Each (q dtype, pool dtype) pair counts its own launches:
+`COUNTS` (fp32 q over fp32 pools), `COUNTS_I8` and `COUNTS_F8`, for bf16 q
+`COUNTS_BF16` (bf16 pools), `COUNTS_BF16_I8` and `COUNTS_BF16_F8`, and for
+fp16 q `COUNTS_F16` (fp16 pools), `COUNTS_F16_I8` and `COUNTS_F16_F8`,
+with the kernel launches of each form under `form_launches`: "span",
+"decode" (an unsplit decode launch: fp32 q, 16-bit q at d >
+SPLIT_MAX_HEAD_DIM, or over a table no longer than one split) and
+"decode_split" (16-bit q over a longer table: the workspace and the
+tickets in play). A launch inside a captured CUDA graph counts at its
 capture; the capturing runner takes that count back out and credits it on
 every replay (`_build.counts_delta`). The output is allocated per call, so
 under a graph it is the graph's buffer, which each replay overwrites; the
@@ -58,8 +61,8 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.ops._build import (
-    LaunchCounts, check, library, refuse_interpret, require_launchable,
-    stream_buffer,
+    HALF_DTYPES, LaunchCounts, check, library, refuse_interpret,
+    require_launchable, stream_buffer,
 )
 
 NEG_INF = -1e30
@@ -71,11 +74,11 @@ MAX_HEAD_DIM = 256
 DECODE_ROWS = 8
 # the C side's form argument
 _FORMS = {"span": 0, "decode": 1}
-# keys of one split of the bf16 decode form's walk (as K2's): a constant,
+# keys of one split of the 16-bit decode form's walk (as K2's): a constant,
 # so a sequence's splits, and its output bit for bit, never depend on the
 # rest of the batch; a multiple of 16, the walk's warp tile
 KEYS_PER_SPLIT = 256
-# the widest head of bf16 q's redesigned forms (the wgmma span form, the
+# the widest head of 16-bit q's redesigned forms (the wgmma span form, the
 # split walk); wider heads take the tf32 span form and the unsplit decode
 # form
 SPLIT_MAX_HEAD_DIM = 128
@@ -86,8 +89,11 @@ COUNTS_F8 = LaunchCounts()     # fp32 q, float8_e4m3fn pools (K1-q)
 COUNTS_BF16 = LaunchCounts()     # bf16 q, bf16 pools (K1-bf16)
 COUNTS_BF16_I8 = LaunchCounts()  # bf16 q, int8 pools + scales (K1-q)
 COUNTS_BF16_F8 = LaunchCounts()  # bf16 q, float8_e4m3fn pools (K1-q)
+COUNTS_F16 = LaunchCounts()      # fp16 q, fp16 pools (K1-fp16)
+COUNTS_F16_I8 = LaunchCounts()   # fp16 q, int8 pools + scales (K1-q)
+COUNTS_F16_F8 = LaunchCounts()   # fp16 q, float8_e4m3fn pools (K1-q)
 
-_F32, _BF16 = torch.float32, torch.bfloat16
+_F32, _BF16, _F16 = torch.float32, torch.bfloat16, torch.float16
 _I8, _F8 = torch.int8, torch.float8_e4m3fn
 # (q dtype, pool dtype) -> (launch counts, C entry point)
 _VARIANTS = {
@@ -97,6 +103,9 @@ _VARIANTS = {
     (_BF16, _BF16): (COUNTS_BF16, "ragged_paged_attention_bf16"),
     (_BF16, _I8): (COUNTS_BF16_I8, "ragged_paged_attention_bf16_i8"),
     (_BF16, _F8): (COUNTS_BF16_F8, "ragged_paged_attention_bf16_f8"),
+    (_F16, _F16): (COUNTS_F16, "ragged_paged_attention_f16"),
+    (_F16, _I8): (COUNTS_F16_I8, "ragged_paged_attention_f16_i8"),
+    (_F16, _F8): (COUNTS_F16_F8, "ragged_paged_attention_f16_f8"),
 }
 
 
@@ -139,12 +148,14 @@ def _check_scales(q, k_pool, v_pool, k_scale, v_scale):
             or (q.dtype, k_pool.dtype) not in _VARIANTS:
         raise TypeError(
             f"ragged_paged_attention takes fp32 q over fp32, int8 or "
-            f"float8_e4m3fn pools, or bf16 q over bf16, int8 or "
-            f"float8_e4m3fn pools, of one dtype; got q {q.dtype} over "
-            f"{k_pool.dtype} / {v_pool.dtype}")
+            f"float8_e4m3fn pools, bf16 q over bf16, int8 or float8_e4m3fn "
+            f"pools, or fp16 q over fp16, int8 or float8_e4m3fn pools, of "
+            f"one dtype; got q {q.dtype} over {k_pool.dtype} / "
+            f"{v_pool.dtype}")
     if (k_pool.dtype == torch.int8) != (k_scale is not None):
         raise ValueError(f"{k_pool.dtype} pools: int8 pools need k_scale "
-                         "and v_scale; bf16, fp32 and fp8 pools take none")
+                         "and v_scale; bf16, fp16, fp32 and fp8 pools take "
+                         "none")
     if k_scale is not None:
         want = (k_pool.shape[0], k_pool.shape[2])
         for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
@@ -159,13 +170,14 @@ def ragged_paged_attention(q, k_pool, v_pool, block_table, start_pos, q_len,
                            v_scale=None):
     """Causal attention for a ragged batch of query spans over paged KV.
     q is fp32 over fp32, int8 (with k_scale / v_scale) or float8_e4m3fn
-    pools, or bf16 over bf16, int8 or float8_e4m3fn pools. Returns [B, T,
-    n_q, d] in q's dtype. ``interpret`` is the JAX flag
-    (`_build.refuse_interpret`).
+    pools, bf16 over bf16, int8 or float8_e4m3fn pools, or fp16 over fp16,
+    int8 or float8_e4m3fn pools. Returns [B, T, n_q, d] in q's dtype.
+    ``interpret`` is the JAX flag (`_build.refuse_interpret`).
 
-    On the card, bf16 q at d <= SPLIT_MAX_HEAD_DIM takes
-    csrc/ragged_paged_attention_bf16.cu: the span form on wgmma (P in two
-    bf16 terms), the decode form as the split walk (bf16 mma.sync), each
+    On the card, bf16 and fp16 q at d <= SPLIT_MAX_HEAD_DIM take
+    csrc/ragged_paged_attention_bf16.cu: the span form on wgmma (P in three
+    16-bit terms; at fp16 times a power of two first), the decode form as
+    the split walk (16-bit mma.sync), each
     sequence's visible keys in splits of KEYS_PER_SPLIT. Where the table
     allows more than one split (`decode_splits`), the launch takes the
     stream's workspace of `split_workspace_floats` fp32 elements and its
@@ -188,11 +200,11 @@ def ragged_paged_attention(q, k_pool, v_pool, block_table, start_pos, q_len,
     # the kernel would refuse
     floats = (q, k_pool, v_pool) if k_pool.dtype == q.dtype else (q,)
     codes = () if k_pool.dtype == q.dtype else (k_pool, v_pool)
-    bf16 = q.dtype == torch.bfloat16
+    half = q.dtype in HALF_DTYPES
     require_launchable(
-        "ragged_paged_attention", () if bf16 else floats,
+        "ragged_paged_attention", () if half else floats,
         (block_table, start_pos, q_len), codes=codes, scales=scales,
-        halves=floats if bf16 else ())
+        halves=floats if half else ())
     counts, entry = _VARIANTS[(q.dtype, k_pool.dtype)]
     if q.device.type == "cpu":
         counts.plain_launches += 1
@@ -211,7 +223,7 @@ def ragged_paged_attention(q, k_pool, v_pool, block_table, start_pos, q_len,
     front = (q.data_ptr(), *pools, block_table.data_ptr(),
              start_pos.data_ptr(), q_len.data_ptr(), out.data_ptr())
     sizes = (B, T, n_q, n_kv, d, page_size, P, _FORMS[form])
-    if not bf16:
+    if not half:
         err = getattr(library(), entry)(*front, *sizes, scale,
                                         stream.cuda_stream)
     else:
@@ -236,14 +248,14 @@ def ragged_paged_attention(q, k_pool, v_pool, block_table, start_pos, q_len,
 def decode_splits(pages_per_seq: int, page_size: int,
                   keys_per_split: int = KEYS_PER_SPLIT) -> int:
     """Splits of the longest walk a [B, pages_per_seq] table allows: the
-    bf16 decode form's n_splits (1: no sequence can take two, the launch
+    16-bit decode form's n_splits (1: no sequence can take two, the launch
     needs no workspace)."""
     return max(1, -(-pages_per_seq * page_size // keys_per_split))
 
 
 def split_workspace_floats(B: int, n_kv: int, G: int, d: int,
                            n_splits: int) -> int:
-    """fp32 elements of the bf16 decode form's workspace: each split's
+    """fp32 elements of the 16-bit decode form's workspace: each split's
     (acc [d], m, l) for each of its G grouped rows, for every (sequence,
     kv head); none where no walk can split."""
     return B * n_kv * n_splits * G * (d + 2) if n_splits > 1 else 0
@@ -253,12 +265,12 @@ def ragged_form(n_rep: int, T: int) -> str:
     """The kernel form for a launch of G = n_rep * T grouped rows per kv
     head: "decode" for G <= DECODE_ROWS, where the page bytes bound the
     work (fp32 q: one block per sequence and kv head on the CUDA cores, its
-    warps splitting the keys; bf16 q at d <= SPLIT_MAX_HEAD_DIM: the split
-    walk, the keys in splits of KEYS_PER_SPLIT on a persistent grid, the G
-    rows padded to 16 on bf16 mma.sync, merged in split order); "span"
-    (blocks of 64 grouped rows on the tensor cores: wgmma for bf16 q at d
-    <= SPLIT_MAX_HEAD_DIM, 3xTF32 mma.sync otherwise) above, where the
-    products do."""
+    warps splitting the keys; 16-bit q at d <= SPLIT_MAX_HEAD_DIM: the
+    split walk, the keys in splits of KEYS_PER_SPLIT on a persistent grid,
+    the G rows padded to 16 on 16-bit mma.sync, merged in split order);
+    "span" (blocks of 64 grouped rows on the tensor cores: wgmma for 16-bit
+    q at d <= SPLIT_MAX_HEAD_DIM, 3xTF32 mma.sync otherwise) above, where
+    the products do."""
     return "decode" if n_rep * T <= DECODE_ROWS else "span"
 
 
@@ -285,10 +297,11 @@ def ragged_reference(q, k_pool, v_pool, block_table, start_pos, q_len,
                      scale=None, k_scale=None, v_scale=None):
     """Plain PyTorch version of the kernel: gather every table page (and
     dequantize it), mask, dense softmax. Padded rows and dead slots
-    produce exact zeros. It computes in fp32 for fp32 and bf16 q (the
-    Pallas kernel's tile casts) and returns q's dtype; fp64 q computes in
-    fp64 (with fp64 or bf16 pools, or 1-byte pools and their scales,
-    which fp64 holds exactly)."""
+    produce exact zeros. It computes in fp32 for fp32, bf16 and fp16 q (the
+    Pallas kernel's tile casts) and returns q's dtype (fp16: rounded to
+    nearest, inf past 65504); fp64 q computes in fp64 (with fp64, bf16 or
+    fp16 pools, or 1-byte pools and their scales, which fp64 holds
+    exactly)."""
     B, T, n_q, d = q.shape
     page_size, n_kv = k_pool.shape[1], k_pool.shape[2]
     n_rep = n_q // n_kv

@@ -211,7 +211,9 @@ def _to_host(x) -> np.ndarray:
     performs funnels through here, so a test can patch this one symbol
     and count how often a step waited on the device."""
     if isinstance(x, torch.Tensor):
-        if x.dtype == torch.bfloat16:   # numpy has no bf16: widen, exactly
+        # numpy has no bf16: widen, exactly (fp16 crosses as it is, as
+        # the JAX engine's fp16 logits do)
+        if x.dtype == torch.bfloat16:
             x = x.float()
         return x.detach().cpu().numpy()
     return np.asarray(x)
@@ -381,7 +383,7 @@ class ServingEngine:
         self._inflight: Optional[_InflightLaunch] = None
         # the KV storage rung is a runner property: the runner quantizes at
         # append time, so the engine builds its pools with the same rung,
-        # in the runner's dtype (fp32, or bf16 after a dtype= cast)
+        # in the runner's dtype (fp32, or bf16 / fp16 after a dtype= cast)
         self.kv_dtype = runner.kv_dtype
         self.pool = KVCachePool(runner.num_layers, num_blocks, block_size,
                                 runner.n_kv_heads, runner.head_dim,

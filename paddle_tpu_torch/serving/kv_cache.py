@@ -7,7 +7,7 @@ slots and padded prefill positions write there, so the allocator never
 hands it out and no live sequence reads it.
 
 Four storage rungs (``kv_dtype``), over the logical ``dtype`` (the
-runner's: fp32, or bf16 for a bf16 runner):
+runner's: fp32, or bf16 / fp16 for a runner cast to it):
   "fp32"  (k_pool, v_pool) in ``dtype``;
   "int8"  (k_codes, v_codes, k_scale, v_scale): int8 codes and one fp32
           scale per page per kv head ([num_blocks, n_kv]), written by
@@ -63,8 +63,8 @@ KV_QMAX = 127.0
 KV_DTYPES = ("fp32", "int8", "fp8", "mixed")
 
 # the logical dtypes a pool stores on its "fp32" and "mixed" rungs: the
-# runner's compute dtype (float16 is ROADMAP.md item 21's serving half)
-POOL_DTYPES = (torch.float32, torch.bfloat16)
+# runner's compute dtype, the dtypes the serving kernels take
+POOL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 # ml_dtypes' float32 -> float8_e4m3fn overflow rule: 464 is the tie
 # between 448 (the largest finite value) and 480, which does not exist;
@@ -429,11 +429,11 @@ class KVCachePool:
 
     The pools live on ``device`` ("cuda" unless the caller passes "cpu";
     keyword-only, after the JAX parameters). ``dtype`` is the logical
-    (compute) dtype, fp32 or bf16; ``kv_dtype`` the storage rung (module
-    docstring). ``mesh`` and ``model_axis`` sit in the JAX places; a mesh
-    raises (sharded pools are ROADMAP.md item 10). Block tables live
-    host-side as python lists per sequence; `pad_table` builds the
-    fixed-width operand."""
+    (compute) dtype, fp32, bf16 or fp16 (`POOL_DTYPES`); ``kv_dtype`` the
+    storage rung (module docstring). ``mesh`` and ``model_axis`` sit in
+    the JAX places; a mesh raises (sharded pools are ROADMAP.md item 10).
+    Block tables live host-side as python lists per sequence; `pad_table`
+    builds the fixed-width operand."""
 
     def __init__(self, num_layers: int, num_blocks: int, block_size: int,
                  n_kv_heads: int, head_dim: int, dtype=torch.float32,
@@ -445,11 +445,8 @@ class KVCachePool:
                 "axis are not ported yet: ROADMAP.md 'Still to port' item "
                 "10 (tensor-parallel serving)")
         if dtype not in POOL_DTYPES:
-            raise NotImplementedError(
-                f"KVCachePool(dtype={dtype}): fp32 and bf16 pools are "
-                "ported; float16 pools wait for the fp16 forms of the "
-                "serving kernels (K1-fp16, K2-fp16): ROADMAP.md 'Still to "
-                "port' item 21, its serving half (21B)")
+            raise ValueError(f"KVCachePool(dtype={dtype}); expected one of "
+                             f"{POOL_DTYPES}")
         check_kv_dtype(kv_dtype, "KVCachePool")
         self.num_layers = num_layers
         self.num_blocks = num_blocks

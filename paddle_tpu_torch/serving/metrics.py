@@ -147,8 +147,8 @@ class EngineMetrics:
         self.sessions_per_pool_x = Gauge("sessions_per_pool_x")
         # the weight ladder: the runner's logical fp32 weight bytes over
         # what its params dict stores (codes and scales counted; 1.0 on
-        # an fp32 runner, 2.0 on a bf16-cast one), set when the engine is
-        # built
+        # an fp32 runner, 2.0 on a bf16- or fp16-cast one), set when the
+        # engine is built
         self.weight_bytes_reduction_x = Gauge("weight_bytes_reduction_x")
         self.pool_used_pages = Gauge("pool_used_pages")
         # pages the prefix cache's index holds after each step

@@ -1,9 +1,10 @@
 """Model runners: paged-KV step functions for the serving engine.
 
 Counterpart of paddle_tpu/serving/model_runner.py for Llama and GPT on one
-device: fp32 or bf16 compute (the dtype of the first floating parameter,
-`dtype`; `inference.create_serving_engine(dtype=...)` casts), over fp32
-(the runner's dtype), int8, fp8 or "mixed" KV pools (``kv_dtype``), with
+device: fp32, bf16 or fp16 compute (the dtype of the first floating
+parameter, `dtype`; `inference.create_serving_engine(dtype=...)` casts),
+over fp32 (the runner's dtype), int8, fp8 or "mixed" KV pools
+(``kv_dtype``), with
 fp32, int8, int4 or fp8 matmul weights (``weight_dtype``, the weight
 ladder: `_quantize_weights`, `_mm`). A runner adapts a model's flat
 parameter dict into the step functions the engine calls over the shared
@@ -40,8 +41,8 @@ reference. "auto" resolves exactly as `best_paged_impl` says on every
 device, except that int8 and fp8 pools never go to the paged-decode
 kernel (it has no dequantize step): their MHA decode takes the ragged
 kernel, as in the JAX package ("mixed" pools store the runner's dtype and
-keep the full dispatch). A bf16 runner's q and pools take the kernels'
-bf16 variants. On CUDA tensors the wrappers launch the
+keep the full dispatch). A bf16 or fp16 runner's q and pools take the
+kernels' variants of its dtype. On CUDA tensors the wrappers launch the
 CUDA kernels, on CPU tensors they run their plain versions. A shape no
 kernel tiles takes the gather path on the CPU and raises on CUDA unless
 the caller asked for attn_impl="reference". Chunk lengths are padded to
@@ -459,7 +460,7 @@ class PagedModelRunner:
 
     def weight_bytes_reduction_x(self) -> float:
         """The whole model's weight-byte reduction against fp32 (1.0 on an
-        fp32 runner, 2.0 on a bf16-cast one)."""
+        fp32 runner, 2.0 on a bf16- or fp16-cast one)."""
         wb = self.weight_bytes()
         return self.weight_bytes_fp32() / wb if wb else 1.0
 
@@ -967,8 +968,8 @@ class LlamaRunner(PagedModelRunner):
     ``device`` when they live elsewhere), the matmul weights through
     `_mm` (the weight ladder quantizes its own dict entries). The `x @ w`
     products are plain torch.matmul in the runner's dtype (fp32 with TF32
-    off, or bf16). The norms and RoPE compute in fp32 and cast back to the
-    activations' dtype at the JAX runner's points. The positional
+    off, bf16 or fp16). The norms and RoPE compute in fp32 and cast back to
+    the activations' dtype at the JAX runner's points. The positional
     parameters are the JAX runner's; ``device`` is keyword-only after
     them."""
 
@@ -1054,8 +1055,8 @@ class GPTRunner(PagedModelRunner):
     (`models.generation._block_params`, `_layer_norm`, `_qkv`, `_mlp`,
     `_head`; their matmuls through the runner's `_mm`). MHA: the
     pools hold all ``num_heads`` heads (n_rep 1), so a decode step takes
-    the paged-decode kernel (K2) over fp32, bf16 and mixed pools and the
-    ragged kernel's decode form (K1-q) over int8 / fp8 pools, and prefill
+    the paged-decode kernel (K2) over fp32, bf16, fp16 and mixed pools and
+    the ragged kernel's decode form (K1-q) over int8 / fp8 pools, and prefill
     chunks the ragged kernel (its span form; a chunk of at most 8 rows its
     decode form). The weight ladder quantizes the fused QKV, the output
     projection, the dense MLP and an untied head; the positional

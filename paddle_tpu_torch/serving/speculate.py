@@ -189,8 +189,10 @@ def shadow_runner(target, weight_dtype: str = "int8"):
     so its quantization costs acceptance, never exactness.
 
     The JAX shadow picks the weights whose numpy dtype is a numpy floating
-    type, which bf16 (ml_dtypes) is not: the shadow of a bf16 target
-    keeps its bf16 weights there, and so it does here."""
+    type, which bf16 (ml_dtypes) is not and fp16 is: the shadow of a bf16
+    target keeps its bf16 weights there, and so it does here, while an
+    fp16 target's shadow goes down the ladder (the scales computed from
+    the fp16 weights, as JAX's quantizers compute them)."""
     if weight_dtype not in WEIGHT_DTYPES:
         raise ValueError(f"unsupported shadow weight_dtype {weight_dtype!r}"
                          f"; expected one of {WEIGHT_DTYPES}")

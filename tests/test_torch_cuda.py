@@ -74,6 +74,16 @@ its eager launches; a mixed (q, pool) pair raises;
 a bf16 engine launches only the bf16 variants, token-exact against its
 naive_generate with one slot, its horizon engine equal to it.
 
+The fp16 serving kernels: the same sweeps at fp16 (K1-fp16 over fp16
+pools, K1-q with fp16 q over int8 / fp8 pools, K2-fp16) within twice
+their fp16 plain versions' error against fp64 and misrounding at most
+1/16; K1's fp16 range cases (int8 page scales of 1e-6 and 1e2, large
+|q.k|) finite exactly where the plain version is, within twice its error;
+the decode form batch-invariant and its graph replay equal to its eager
+launches; each fp16 form launches its own fp16 kernel (by name) and no
+bf16 one; an fp16 engine launches only the fp16 variants, token-exact
+against its naive_generate with one slot.
+
 The GPT family: a GPT engine launches K1 for its prefill chunks and K2
 once a layer for each decode step and no plain version, token-exact
 against its naive_generate; PagedGPTGenerator launches K2 from its scalar
@@ -283,10 +293,10 @@ def test_quantized_ragged_kernel_matches_plain(gen, kind, d, n_rep, ps):
 
 
 def _as_fp64(kind, kp, vp):
-    """The pools as the fp64 evaluation reads them: fp32 and bf16 pools
-    widened, 1-byte codes as they are (their scales widen inside the plain
-    version)."""
-    return ((kp.double(), vp.double()) if kind in ("fp32", "bf16")
+    """The pools as the fp64 evaluation reads them: fp32, bf16 and fp16
+    pools widened, 1-byte codes as they are (their scales widen inside the
+    plain version)."""
+    return ((kp.double(), vp.double()) if kind in ("fp32", "bf16", "fp16")
             else (kp, vp))
 
 
@@ -495,6 +505,27 @@ def test_forward_kernel_is_fp32_class_against_fp64(gen, d, causal, sq, sk):
             for _ in range(2))
     o, lse = fa.flash_forward(q, k, v, causal)
     _forward_vs_fp64(q, k, v, causal, o, lse, (d, causal, sq, sk))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_forward_lse_against_fp64_at_the_trainer_shape_across_seeds(gen,
+                                                                    seed):
+    """`chip_smoke.py`'s check_vs_fp64 forward case (fp32 K3a, q/k/v
+    [1,4096,32,128] causal) on streams of its own: o and lse within twice
+    the fp32 plain version's error against fp64 by the smoke's own ratio
+    (`fp64_ratio`, no floor)."""
+    cs = _chip_smoke()
+    gen.manual_seed(seed)
+    q, k, v = (torch.randn(1, 4096, 32, 128, device="cuda", generator=gen)
+               for _ in range(3))
+    o, lse = fa.flash_forward(q, k, v, True)
+    ro, rlse = fa.flash_forward_reference(q, k, v, True)
+    o64, lse64 = fa.flash_forward_reference(q.double(), k.double(),
+                                            v.double(), True)
+    ratio = {"o": cs.fp64_ratio(o, ro, o64),
+             "lse": cs.fp64_ratio(lse, rlse, lse64)}
+    print(f"seed {seed}: o {ratio['o']:.3f}x, lse {ratio['lse']:.3f}x")
+    assert ratio["o"] <= 2.0 and ratio["lse"] <= 2.0, (seed, ratio)
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])
@@ -1411,34 +1442,36 @@ def test_copy_page_leaves_the_source_unchanged(gen, kv_dtype):
 
 # ------------------------------------------- bf16 serving kernels (K1, K2)
 
-POOL_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8,
-               "fp8": torch.float8_e4m3fn}
+# the pools a bf16 or an fp16 runner serves from, by name: its own dtype's,
+# int8 and fp8
+BF16_POOLS = {"bf16": torch.bfloat16, "int8": torch.int8,
+              "fp8": torch.float8_e4m3fn}
+F16_POOLS = {"fp16": torch.float16, "int8": torch.int8,
+             "fp8": torch.float8_e4m3fn}
+HALF_NAMES = {torch.bfloat16: "bf16", torch.float16: "fp16"}
 
 
-def _bf16_pools(gen, kind, kp, vp):
-    """fp32 pools -> what a bf16 runner serves from: bf16 pools, or the
-    int8 / fp8 pools of `_quantize`."""
-    if kind == "bf16":
-        return kp.to(torch.bfloat16), vp.to(torch.bfloat16), None, None
+def _half_pools(gen, kind, kp, vp):
+    """fp32 pools -> what a 16-bit runner serves from: pools of its dtype
+    (kind "bf16" or "fp16"), or the int8 / fp8 pools of `_quantize`."""
+    if kind in ("bf16", "fp16"):
+        dt = {**BF16_POOLS, **F16_POOLS}[kind]
+        return kp.to(dt), vp.to(dt), None, None
     return _quantize(gen, kp, vp, kind)
 
 
-@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
-@pytest.mark.parametrize("d", [8, 64, 128, 136, 256])
-@pytest.mark.parametrize("ps", [8, 16])
-@pytest.mark.parametrize("n_rep", [1, 4, 8])
-def test_bf16_ragged_kernel_forms_against_fp64(gen, kind, d, ps, n_rep):
-    """Both forms of K1 on bf16 q, over bf16 pools (K1-bf16) and int8 /
-    fp8 pools (K1-q): the spans of the fp32 test above, and decode-form
-    walks of 255, 257 and 4096 keys (on and across the split walk's
-    256-key splits; int8 pages there with scales of 1e-3 and 1e3), also
-    at decode steps (T = 1; at n_rep 1 the one-row walk), a bf16
-    output held against the plain version (fp32 compute, one bf16
-    rounding) and its fp64 evaluation on the same operands within the bf16
-    gates, with rows past q_len and the dead slot exactly 0. A decode
-    launch at d <= SPLIT_MAX_HEAD_DIM over a table of more than one split
-    counts as "decode_split"."""
-    counts = k1.counts_for(torch.bfloat16, POOL_DTYPES[kind])
+def _half_ragged_forms(gen, kind, d, ps, n_rep, half, big):
+    """Both forms of K1 on 16-bit q (``half``) over ``kind`` pools: the
+    spans of the fp32 test above, and decode-form walks of 255, 257 and
+    4096 keys (on and across the split walk's 256-key splits; int8 pages
+    there with scales of 1e-3 and ``big``), also at decode steps (T = 1;
+    at n_rep 1 the one-row walk), a 16-bit output held against the plain
+    version (fp32 compute, one rounding) and its fp64 evaluation on the
+    same operands within the 16-bit gates, with rows past q_len and the
+    dead slot exactly 0. A decode launch at d <= SPLIT_MAX_HEAD_DIM over
+    a table of more than one split counts as "decode_split"."""
+    pools = {"bf16": BF16_POOLS, "fp16": F16_POOLS}[HALF_NAMES[half]]
+    counts = k1.counts_for(half, pools[kind])
     T_dec = k1.DECODE_ROWS // n_rep
     short = ([0, 5, 70, 3], lambda T: [T, 1, max(1, T - 2), 0])
     long = ([255 - T_dec, 257 - T_dec, 4096 - T_dec, 3],
@@ -1454,13 +1487,13 @@ def test_bf16_ragged_kernel_forms_against_fp64(gen, kind, d, ps, n_rep):
         qlens = lens(T)
         pages = (T + max(starts)) // ps + 2
         q, kp, vp, table = _operands(gen, 4, T, 2, n_rep, d, ps, pages)
-        q = q.to(torch.bfloat16)
+        q = q.to(half)
         table[3] = 0                               # dead slot: all scratch
-        k, v, ks, vs = _bf16_pools(gen, kind, kp, vp)
+        k, v, ks, vs = _half_pools(gen, kind, kp, vp)
         if ks is not None and starts is not short[0]:
             ks, vs = (torch.where(torch.rand(t.shape, device="cuda",
                                              generator=gen) < 0.5, 1e-3,
-                                  1e3).float() for t in (ks, vs))
+                                  big).float() for t in (ks, vs))
         st = torch.tensor(starts, dtype=torch.int32, device="cuda")
         ql = torch.tensor(qlens, dtype=torch.int32, device="cuda")
         counts.reset()
@@ -1471,7 +1504,7 @@ def test_bf16_ragged_kernel_forms_against_fp64(gen, kind, d, ps, n_rep):
             form = "decode_split"
         assert counts.form_launches == {form: 1}
         assert counts.plain_launches == 0
-        assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+        assert out.dtype == half and torch.isfinite(out).all()
         plain = k1.ragged_reference(q, k, v, table, st, ql, k_scale=ks,
                                     v_scale=vs)
         exact = k1.ragged_reference(q.double(), *_as_fp64(kind, k, v),
@@ -1482,15 +1515,22 @@ def test_bf16_ragged_kernel_forms_against_fp64(gen, kind, d, ps, n_rep):
             assert bool((out[b, n:] == 0).all()), f"sequence {b}: rows >= {n}"
 
 
-@pytest.mark.parametrize("keys_per_split", [k2.SPLIT_TILE,
-                                            k2.KEYS_PER_SPLIT])
-@pytest.mark.parametrize("d", [8, 64, 96, 128, 256])
-@pytest.mark.parametrize("ps", [1, 8, 16, 32])
-def test_bf16_paged_decode_kernel_against_fp64(gen, monkeypatch,
-                                               keys_per_split, d, ps):
-    """K2-bf16 over the fp32 test's 640-key table: bf16 q and pools, a
-    bf16 output within the bf16 gates against the plain version and its
-    fp64 evaluation on the same operands; the dead slot's output 0."""
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("d", [8, 64, 128, 136, 256])
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+def test_bf16_ragged_kernel_forms_against_fp64(gen, kind, d, ps, n_rep):
+    """Both forms of K1 on bf16 q, over bf16 pools (K1-bf16) and int8 /
+    fp8 pools (K1-q) (`_half_ragged_forms`, int8 scales of 1e-3 and 1e3
+    on the long walks)."""
+    _half_ragged_forms(gen, kind, d, ps, n_rep, torch.bfloat16, 1e3)
+
+
+def _half_paged_decode(monkeypatch, gen, keys_per_split, d, ps, half):
+    """K2 at 16-bit (``half``) over the fp32 test's 640-key table: q and
+    pools of that dtype, an output of it within the 16-bit gates against
+    the plain version and its fp64 evaluation on the same operands; the
+    dead slot's output 0."""
     monkeypatch.setattr(k2, "KEYS_PER_SPLIT", keys_per_split)
     cap = 640
     pages = cap // ps
@@ -1498,20 +1538,31 @@ def test_bf16_paged_decode_kernel_against_fp64(gen, monkeypatch,
                 cap + 77, 0]
     b, h = len(pos_list), 2
     q, kp, vp, table = _operands(gen, b, 1, h, 1, d, ps, pages)
-    q, kp, vp = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    q, kp, vp = (t.to(half) for t in (q, kp, vp))
     table[-1] = 0                                  # dead slot: all scratch
     pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
-    k2.COUNTS_BF16.reset()
+    counts = k2.counts_for(half)
+    counts.reset()
     out = k2.paged_decode_attention(q[:, 0], kp, vp, table, pos)
-    assert k2.COUNTS_BF16.kernel_launches == 1
-    assert k2.COUNTS_BF16.plain_launches == 0
-    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    assert counts.kernel_launches == 1 and counts.plain_launches == 0
+    assert out.dtype == half and torch.isfinite(out).all()
     plain = k2.paged_decode_reference(q[:, 0], kp, vp, table, pos)
     exact = k2.paged_decode_reference(q[:, 0].double(), kp.double(),
                                       vp.double(), table, pos)
-    what = f"K2-bf16 d={d} ps={ps} ks={keys_per_split}"
+    what = f"K2-{HALF_NAMES[half]} d={d} ps={ps} ks={keys_per_split}"
     _bf16_class(out, plain, exact, what)
     _bf16_misround(out, plain, exact, what)
+
+
+@pytest.mark.parametrize("keys_per_split", [k2.SPLIT_TILE,
+                                            k2.KEYS_PER_SPLIT])
+@pytest.mark.parametrize("d", [8, 64, 96, 128, 256])
+@pytest.mark.parametrize("ps", [1, 8, 16, 32])
+def test_bf16_paged_decode_kernel_against_fp64(gen, monkeypatch,
+                                               keys_per_split, d, ps):
+    """K2-bf16 (`_half_paged_decode`)."""
+    _half_paged_decode(monkeypatch, gen, keys_per_split, d, ps,
+                       torch.bfloat16)
 
 
 def test_bf16_paged_decode_kernel_is_batch_invariant(gen):
@@ -1541,10 +1592,10 @@ def test_bf16_ragged_decode_form_is_batch_invariant(gen, kind, n_rep):
     q, kp, vp, table = _operands(gen, len(pos_list), 1, h, n_rep, d, ps,
                                  pages)
     q = q.to(torch.bfloat16)
-    k, v, ks, vs = _bf16_pools(gen, kind, kp, vp)
+    k, v, ks, vs = _half_pools(gen, kind, kp, vp)
     st = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
     ql = torch.ones_like(st)
-    counts = k1.counts_for(torch.bfloat16, POOL_DTYPES[kind])
+    counts = k1.counts_for(torch.bfloat16, BF16_POOLS[kind])
     counts.reset()
     out = k1.ragged_paged_attention(q, k, v, table, st, ql, k_scale=ks,
                                     v_scale=vs)
@@ -1578,15 +1629,14 @@ def test_serving_kernels_refuse_mixed_dtypes(gen):
             k2.paged_decode_attention(args[0][:, 0], *args[1:], table, z)
 
 
-@pytest.mark.parametrize("kv_dtype", ["fp32", "int8", "fp8"])
-@pytest.mark.parametrize("n_kv", [4, 2], ids=["mha", "gqa"])
-def test_bf16_engine_on_the_card_runs_the_bf16_kernels(gen, kv_dtype, n_kv):
-    """create_serving_engine(dtype=bfloat16) on the card: bf16 pools (the
-    "fp32" rung at the runner's dtype) or int8 / fp8 ones, every attention
-    call through a bf16-q kernel (K2-bf16 for MHA decode over bf16 pools),
-    no fp32 kernel and no plain version; a one-slot engine (cuBLAS rounds
-    a row differently at every row count) token-exact against its
-    naive_generate, with the horizon engine's streams equal to it."""
+def _half_engine(kv_dtype, n_kv, half):
+    """create_serving_engine(dtype=half) on the card: pools of that dtype
+    (the "fp32" rung at the runner's dtype) or int8 / fp8 ones, every
+    attention call through a kernel of q's dtype (K2 of that dtype for MHA
+    decode over 16-bit pools), no kernel of another dtype and no plain
+    version; a one-slot engine (cuBLAS rounds a row differently at every
+    row count) token-exact against its naive_generate, with the horizon
+    engine's streams equal to it."""
     from paddle_tpu_torch.inference import create_serving_engine
     cfg = LlamaConfig(vocab_size=211, hidden_size=256, num_layers=2,
                       num_heads=4, num_kv_heads=n_kv, max_seq_len=128)
@@ -1594,31 +1644,143 @@ def test_bf16_engine_on_the_card_runs_the_bf16_kernels(gen, kv_dtype, n_kv):
     rng = np.random.default_rng(0)
     work = [(rng.integers(1, 211, int(rng.integers(5, 70))).tolist(),
              int(rng.integers(2, 12))) for _ in range(4)]
-    bf16 = {"fp32": torch.bfloat16, "int8": torch.int8,
+    pool = {"fp32": half, "int8": torch.int8,
             "fp8": torch.float8_e4m3fn}[kv_dtype]
-    fp32_counts = (k1.COUNTS, k1.COUNTS_I8, k1.COUNTS_F8, k2.COUNTS)
+    mine = (k1.counts_for(half, pool), k2.counts_for(half))
+    others = [c for c in (*k1._VARIANTS.values(), *k2._VARIANTS.values())
+              if c[0] not in mine]
     streams = []
     for knobs in ({}, dict(decode_horizon=4)):
         eng = create_serving_engine(
-            model, dtype=torch.bfloat16, kv_dtype=kv_dtype, block_size=16,
+            model, dtype=half, kv_dtype=kv_dtype, block_size=16,
             num_blocks=24, max_batch_size=1, max_prefill_tokens_per_step=32,
             audit=True, **knobs)
-        assert eng.pool.pools[0][0].dtype == bf16
-        for counts in (*fp32_counts, k1.counts_for(torch.bfloat16, bf16),
-                       k2.COUNTS_BF16):
+        assert eng.runner.dtype == half
+        assert eng.pool.pools[0][0].dtype == pool
+        for counts, _ in (*others, *((c, None) for c in mine)):
             counts.reset()
         ids = [eng.add_request(p, SamplingParams(max_tokens=n))
                for p, n in work]
         outs = eng.run()
-        assert k1.counts_for(torch.bfloat16, bf16).kernel_launches > 0
+        assert mine[0].kernel_launches > 0 and mine[0].plain_launches == 0
         mha_decode = n_kv == cfg.num_heads and kv_dtype == "fp32"
-        assert (k2.COUNTS_BF16.kernel_launches > 0) == mha_decode
+        assert (mine[1].kernel_launches > 0) == mha_decode
         assert all(c.kernel_launches == c.plain_launches == 0
-                   for c in fp32_counts)
-        assert k1.counts_for(torch.bfloat16, bf16).plain_launches == 0
+                   for c, _ in others)
         streams.append([outs[rid].output_tokens for rid in ids])
         assert eng.pool.allocator.check_no_leaks()
     assert streams[0] == streams[1]
     assert streams[0] == [naive_generate(eng.runner, p,
                                          SamplingParams(max_tokens=n))
                           for p, n in work]
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8", "fp8"])
+@pytest.mark.parametrize("n_kv", [4, 2], ids=["mha", "gqa"])
+def test_bf16_engine_on_the_card_runs_the_bf16_kernels(gen, kv_dtype, n_kv):
+    """`_half_engine` at dtype=bfloat16."""
+    _half_engine(kv_dtype, n_kv, torch.bfloat16)
+
+
+# ------------------------------------------- fp16 serving kernels (K1, K2)
+
+@pytest.mark.parametrize("kind", ["fp16", "int8", "fp8"])
+@pytest.mark.parametrize("d", [8, 64, 128, 136, 256])
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+def test_f16_ragged_kernel_forms_against_fp64(gen, kind, d, ps, n_rep):
+    """`_half_ragged_forms` at fp16: K1-fp16 over fp16 pools and K1-q with
+    fp16 q over int8 / fp8 pools, int8 scales of 1e-3 and 1e2 on the long
+    walks (1e3 would take codes past fp16's 65504: the range cases
+    below)."""
+    _half_ragged_forms(gen, kind, d, ps, n_rep, torch.float16, 1e2)
+
+
+@pytest.mark.parametrize("case", ["int8", "int8-overflow", "fp16",
+                                  "int8-k-large"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("n_rep,T", [(1, 1), (4, 2), (1, 300), (4, 64)],
+                         ids=["mha-decode", "gqa-decode", "span-mha",
+                              "span-gqa"])
+def test_f16_ragged_kernel_keeps_fp16s_range(gen, case, d, n_rep, T):
+    """`chip_smoke.py`'s check_ragged_range: int8 pages whose k and v
+    scales are 1e-6 or 1e2 (P times the v scale far below and above
+    fp16's normal range: the factor of P a row), k scales of 1e3 (scores
+    of ~7e4), v scales of 1e3 (outputs past 65504), or fp16 q times 30
+    (scores of +-100); the output finite exactly where the plain
+    version's is, within twice its error against fp64 and misrounding at
+    most 1/16."""
+    _chip_smoke().check_ragged_range(gen, case, n_rep, T, d=d)
+
+
+@pytest.mark.parametrize("keys_per_split", [k2.SPLIT_TILE,
+                                            k2.KEYS_PER_SPLIT])
+@pytest.mark.parametrize("d", [8, 64, 96, 128, 256])
+@pytest.mark.parametrize("ps", [1, 8, 16, 32])
+def test_f16_paged_decode_kernel_against_fp64(gen, monkeypatch,
+                                              keys_per_split, d, ps):
+    """K2-fp16 (`_half_paged_decode`)."""
+    _half_paged_decode(monkeypatch, gen, keys_per_split, d, ps,
+                       torch.float16)
+
+
+@pytest.mark.parametrize("n_rep", [1, 4], ids=["mha", "gqa4"])
+@pytest.mark.parametrize("kind", ["fp16", "int8", "fp8"])
+def test_f16_ragged_decode_form_is_batch_invariant(gen, kind, n_rep):
+    """`chip_smoke.py`'s check_ragged_invariance at fp16: each sequence's
+    rows alone equal its rows inside the batch, bit for bit."""
+    _chip_smoke().check_ragged_invariance(gen, kind, n_q=2 * n_rep, n_kv=2,
+                                          half=torch.float16)
+
+
+@pytest.mark.parametrize("kind", ["fp16", "int8", "fp8"])
+def test_f16_ragged_decode_form_graph_replay_equals_eager(gen, kind):
+    """`chip_smoke.py`'s check_ragged_graph at fp16."""
+    _chip_smoke().check_ragged_graph(gen, kind, n_q=8, n_kv=2,
+                                     half=torch.float16)
+
+
+@pytest.mark.parametrize("kind", ["fp16", "int8", "fp8"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_f16_forms_launch_their_fp16_kernels(gen, kind, d):
+    """Each K1 form on fp16 q launches its fp16 kernel (the span form's
+    ragged_span_f16_kernel, the split walk's ragged_decode_split_f16_kernel
+    and ragged_decode_row_f16_kernel at d <= 128; the tf32 span form and
+    the unsplit decode form above, on fp16 q) and K2-fp16 its
+    paged_decode_kernel<., __half>, never a bf16 one."""
+    T_span, ps, pages = 37, 16, 20
+    q, kp, vp, table = _operands(gen, 2, T_span, 2, 4, d, ps, pages)
+    q = q.half()
+    k, v, ks, vs = _half_pools(gen, kind, kp, vp)
+    st = torch.tensor([0, 270], dtype=torch.int32, device="cuda")
+    ql = torch.tensor([T_span, 1], dtype=torch.int32, device="cuda")
+    one = torch.ones_like(ql)
+
+    def run():
+        k1.ragged_paged_attention(q, k, v, table, st, ql, k_scale=ks,
+                                  v_scale=vs)                      # span
+        k1.ragged_paged_attention(q[:, :2].contiguous(), k, v, table, st,
+                                  one, k_scale=ks, v_scale=vs)     # decode
+        k1.ragged_paged_attention(q[:, :1, :2].contiguous(), k, v, table,
+                                  st, one, k_scale=ks, v_scale=vs)  # a row
+        if kind == "fp16":
+            k2.paged_decode_attention(q[:, 0, :2].contiguous(), k, v, table,
+                                      st)
+
+    names = " ".join(_launched_kernels(run))
+    assert "bf16" not in names, names
+    wide = d > k1.SPLIT_MAX_HEAD_DIM
+    for kernel in ("ragged_span_f16_kernel", "ragged_decode_split_f16_kernel",
+                   "ragged_decode_row_f16_kernel"):
+        assert (kernel in names) != wide, (d, kernel, names)
+    if wide:
+        assert "ragged_span_kernel" in names and "__half" in names, names
+    if kind == "fp16":
+        assert "paged_decode_kernel" in names, names
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8", "fp8"])
+@pytest.mark.parametrize("n_kv", [4, 2], ids=["mha", "gqa"])
+def test_f16_engine_on_the_card_runs_the_f16_kernels(gen, kv_dtype, n_kv):
+    """`_half_engine` at dtype=float16."""
+    _half_engine(kv_dtype, n_kv, torch.float16)

@@ -485,30 +485,32 @@ _RAGGED_BF16_HASH = ("_ZN63_GLOBAL__N__a1b9b748_30_ragged_paged_attention_"
 
 def _typed_span_entry(maxd, kv, qt):
     """The span form's entry with its third template argument, q's type
-    (float, or __nv_bfloat16 for a bf16 runner's q)."""
+    (float, __nv_bfloat16 for a bf16 runner's q, __half for an fp16
+    runner's)."""
     name = "ragged_span_kernel"
-    t = {"f32": "f", "bf16": "13__nv_bfloat16"}[qt]
+    t = {"f32": "f", "bf16": "13__nv_bfloat16", "f16": "6__half"}[qt]
     return (f"{_RAGGED_HASH}{len(name)}{name}ILi{maxd}ELi{kv}E{t}EEvNS_6"
             "RaggedE")
 
 
 @pytest.mark.parametrize("maxd", [128, 256])
 @pytest.mark.parametrize("kv,qt", [(0, "f32"), (1, "f32"), (2, "f32"),
-                                   (3, "bf16"), (1, "bf16"), (2, "bf16")])
+                                   (3, "bf16"), (1, "bf16"), (2, "bf16"),
+                                   (4, "f16"), (1, "f16"), (2, "f16")])
 def test_smoke_names_the_typed_ragged_span_instantiations(maxd, kv, qt):
     """Each (pool type, q type) instantiation of the span form, as the
-    build report must find it among TENSOR_CORE_INSTANTIATIONS; bf16 q at
-    d <= 128 takes the wgmma span form, ragged_span_bf16_kernel<pool
-    type>, in its place."""
+    build report must find it among TENSOR_CORE_INSTANTIATIONS; bf16 (fp16)
+    q at d <= 128 takes the wgmma span form, ragged_span_bf16_kernel<pool
+    type> (ragged_span_f16_kernel<pool type>), in its place."""
     cs = _chip_smoke()
     label = cs._kernel_label(_typed_span_entry(maxd, kv, qt))
     assert label == f"ragged_span_kernel<{maxd},{kv},{qt}>"
-    if qt == "bf16" and maxd == 128:
+    if qt != "f32" and maxd == 128:
         assert label not in cs.TENSOR_CORE_INSTANTIATIONS
-        name = "ragged_span_bf16_kernel"
+        name = f"ragged_span_{qt}_kernel"
         label = cs._kernel_label(
             f"{_RAGGED_BF16_HASH}{len(name)}{name}ILi{kv}EEEvN6ragged6RaggedE")
-        assert label == f"ragged_span_bf16_kernel<{kv}>"
+        assert label == f"ragged_span_{qt}_kernel<{kv}>"
         assert label.startswith(cs.HGMMA_KERNELS)
     assert label in cs.TENSOR_CORE_INSTANTIATIONS
 
@@ -524,8 +526,8 @@ def test_smoke_build_report_requires_tensor_core_products(monkeypatch,
     """The build report passes when the SASS of every instantiation of the
     tensor-core kernels (the three flash kernels at fp32, bf16 and fp16,
     the bf16 and fp16 wgmma kernels, the ragged span forms) holds its
-    tensor-core products (HMMA; HGMMA in the wgmma kernels and the bf16-q
-    span form), and fails the smoke when one holds none, when a wgmma
+    tensor-core products (HMMA; HGMMA in the wgmma kernels and the 16-bit-q
+    span forms), and fails the smoke when one holds none, when a wgmma
     kernel holds only HMMA, when one is missing, or when ptxas reports
     spills in a wgmma kernel."""
     import re

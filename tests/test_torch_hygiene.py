@@ -29,7 +29,8 @@ kernel wrapper takes, and what it refuses.
     "fp32" without a mesh raises ValueError as JAX does (F9); `GPTBlock`
     takes (cfg, use_moe=False) (F10) and `RMSNorm` (hidden, eps=1e-6)
     (F11), `device` (and `gen`) keyword-only after them; float16 serving
-    raises naming item 21's serving half;
+    (item 21's serving half, ported) builds an fp16 engine over fp16
+    pools;
   * the faults F12-F15 stay repaired: a name a JAX package exports and
     the port defines imports from the port's package of the same path
     (F12: the draft proposers, `quantized_page_write`, `GPTBlock`);
@@ -366,12 +367,12 @@ def test_unported_model_and_pool_options_raise(model):
         create_engine(model, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Llama(LlamaConfig(tensor_parallel=True, **SIZES), device="cpu")
-    # bf16 pools are ported (a bf16 runner's); float16 waits for the fp16
-    # serving kernels, item 21's serving half
+    # bf16 and fp16 pools are ported (a bf16 or fp16 runner's, item 21's
+    # serving half)
     assert KVCachePool(1, 4, 4, 1, 8, dtype=torch.bfloat16,
                        device="cpu").pools[0][0].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="item 21, its serving"):
-        KVCachePool(1, 4, 4, 1, 8, dtype=torch.float16, device="cpu")
+    pool = KVCachePool(1, 4, 4, 1, 8, dtype=torch.float16, device="cpu")
+    assert pool.pools[0][0].dtype == pool.pools[0][1].dtype == torch.float16
     # bf16 and fp16 AMP train; another AMP dtype is an error of the call
     opt = AdamW(parameters=model.parameters())
     assert TrainStep(model, llama_loss_fn, opt, amp_level="O1",
@@ -1007,10 +1008,17 @@ def test_rms_norm_takes_the_jax_signature():
 
 @pytest.mark.parametrize("dtype", ["float16", torch.float16])
 def test_float16_serving_raises_naming_item_21(model, dtype):
-    """bf16 serving is ported; float16 needs the fp16 serving kernels
-    (K1-fp16, K2-fp16), ROADMAP.md item 21's serving half."""
-    with pytest.raises(NotImplementedError, match="item 21, its serving"):
-        _engine(model, dtype=dtype)
+    """float16 serving, which raised naming ROADMAP.md item 21's serving
+    half until the fp16 serving kernels (K1-fp16, K2-fp16) were ported:
+    "float16" and torch.float16 each build an fp16 engine over fp16
+    pools, whose greedy tokens equal its naive_generate's through the
+    fp16 variants' plain versions."""
+    eng = _engine(model, dtype=dtype)
+    assert eng.runner.dtype == torch.float16
+    assert eng.pool.pools[0][0].dtype == torch.float16
+    sp = SamplingParams(max_tokens=4)
+    assert _serve(eng, PROMPTS, sp) == [naive_generate(eng.runner, p, sp)
+                                       for p in PROMPTS]
 
 
 # ---------------------------------------------------------- chip_smoke
