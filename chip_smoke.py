@@ -162,7 +162,11 @@ exits non-zero without printing a result:
               first the kernels against their plain versions (phase 9's
               tolerances) and o, lse, dq, dk, dv against the plain versions
               in fp64, within twice the fp32 plain versions' own error
-              (fp32-class products); then each flash kernel against its
+              (fp32-class products; lse's errors printed in ulp too); the
+              forward's o and lse gated so again on the stream the check
+              read once phase 37 had drawn from the smoke's stream
+              (lse_stream_check: seed 0 moved on by phase 37's draws,
+              fault F16); then each flash kernel against its
               plain version, its bound and scaled_dot_product_attention
               as the yardstick, L2 flushed; the backward pair like for
               like: the whole flash_backward and the two kernels alone
@@ -295,8 +299,9 @@ exits non-zero without printing a result:
               256-token chunk steps, decode-only steps of 7 rows and fused
               steps of one 256-token chunk beside the 7 decode rows:
               device ms, K1 ms a launch, idle share.
- 30. specu-   GPT-3 1.3B at full depth with bench.py::child_serving_spec's
-     lation   traffic (8 requests, 256-token prompts repeating a random 3-6
+ 30. specu-   GPT-3 1.3B at full width, 12 of its 24 layers (cut from full
+     lation   depth to pay for phases 40-41), with
+              bench.py::child_serving_spec's traffic (8 requests, 256-token prompts repeating a random 3-6
               token pattern, 64 tokens each, a 64-token prefill budget),
               five arms, each served twice (the first round captures): off
               (decode_horizon 8, pipelined, early stop), per_step (4 draft
@@ -370,7 +375,11 @@ exits non-zero without printing a result:
               finite exactly there (inf where the plain version's cast
               is); (b) phase 20 (b)'s timing at fp16 at both shapes (the
               plain versions and SDPA at fp16; the bound at 2-byte
-              operands and 989 TFLOP/s), each kernel beside its bf16 time.
+              operands and 989 TFLOP/s), each kernel beside its bf16 time;
+              (c) the bf16 and fp16 flash kernels at d = 256 (16 heads of
+              256 at 4096 tokens, causal: the mma.sync instantiations
+              flash_*_{bf16,f16}_kernel<256>) timed against their plain
+              versions, bound and SDPA.
  35. ERNIE    ERNIE-3.0-base at full width and depth, fp16 O2 with
      fp16 O2  GradScaler in an eager loop (ScaledStep: auto_cast O2 fp16,
               scale(loss).backward(), step, update) on phase 15's batch, 2
@@ -420,13 +429,46 @@ exits non-zero without printing a result:
      ladder,  dtype= as the JAX bridge casts them: the runner's bytes the
      mixed,   shapes' formula at fp16, one-slot runs token-exact against
      spec     naive_generate), the mixed pool (phase 33 at fp16, the fp8
-              tenants' parting margin MIXED_MARGIN at fp16) on LLaMA-2-7B,
+              tenants' parting margin MIXED_MARGIN at fp16) on LLaMA-2-7B
+              at 8 of its 32 layers (cut from full depth to pay for
+              phases 40-41),
               and at GPT-3 1.3B a speculation arm with an fp16 target's
               "shadow" (int8) draft beside the off arm: the shadow's
               matrices int8 (fp16 is a numpy floating type), proposed and
               accepted > 0, the streams off's but where off's top-2 margin
               lies within SPEC_F16_MARGIN.
- 40. summary  one JSON line of every kernel's launches, error and times
+ 40. host     the host KV tier (host_tier_phase) at LLaMA-2-7B, full width
+     tier     and depth, fp32 pool, random weights: TIER_KNOBS (120 pages
+              of 16, 8 slots, a 256-token prefill budget, 128 host pages)
+              on 8 requests of 300-600 prompt tokens and 64 new tokens, so
+              decode growth preempts and victims resume by page-in; a
+              serial arm with sync spills, then spill_async=True with
+              pipelined=True. Each arm (tier_arm) under audit_engine after
+              every step, through K1 / K2 and no plain version, every
+              request finished, preemptions, offload_resumes and page-ins
+              > 0, no leaked page or host slot, every restored page read
+              back from the card with its CRC equal to the spilled page's
+              (read back before the spill) and to the tier's hash of the
+              host bytes (TierSpy); the async arm's loop never waits on a
+              spill (blocking_joins and sync_spill_reads 0). Tokens: two
+              resumed requests of the serial arm token-exact against
+              naive_generate (engine_phase's fp32 rule), the async arm's
+              streams equal the serial arm's. An int8 pool at 8 of 32
+              layers through the same page check (codes and scale rows).
+              Printed: each arm's counts, the tier's copy rates (spill and
+              page-in GB/s, CUDA events on its side stream), the device ms
+              of a page-in resume against a recompute resume of the same
+              583-token request, pagein_hidden_ratio, the idle share, the
+              phase's seconds.
+ 41. snapshot phase 40's serial engine run again to a preempted waiter
+     restore  beside running requests, ServingEngine.snapshot through
+              json, inference.restore_serving_engine on a fresh runner,
+              finished: every stream equal to phase 40's uninterrupted
+              run; stream_text over a byte-level vocabulary built here
+              (ByteVocab, spelled HF-style for TokenizerAdapter, CJK
+              characters split across tokens) only appends after every
+              step and ends equal to each stream's whole decode.
+ 42. summary  one JSON line of every kernel's launches, error and times
               (K1's decode-form times as extra decode_* keys, its engine
               launches by form under launches_by_form, the fp64 ratios
               under fp64_ratio; the masked kernels as *_masked rows with
@@ -453,7 +495,11 @@ exits non-zero without printing a result:
               range cases under range_cases and the fp16 speculation arm's
               launches under spec_fp16_launches; K1's d = 256 forms under
               d256_chunk and d256_decode of the bf16 and fp16 rows; the
-              mixed pools' launches under mixed_launches), the smoke's
+              mixed pools' launches under mixed_launches; phase 40's
+              launches of K1, K2 and K1-q int8 under host_tier_launches;
+              the dense bf16 and fp16 flash rows' d = 256 times under
+              d256; the forward's lse ratio on the stream after phase 37
+              under lse_after_phase37_fp64_ratio), the smoke's
               wall by part (lap), the nvidia-smi line, then the result
               line.
 
@@ -936,6 +982,15 @@ def fp64_ratio(kern, plain, exact) -> float:
     e_kernel = (kern.double() - exact).abs().max().item()
     e_plain = (plain.double() - exact).abs().max().item()
     return e_kernel / e_plain
+
+
+def ulp_error(x, exact) -> float:
+    """The largest error of ``x`` against the fp64 ``exact`` in fp32 ulp
+    at max|exact| (the spacing of fp32 there): the error fp64_ratio
+    compares, in units of the output's last place."""
+    top = exact.abs().max().float()
+    ulp = (torch.nextafter(top, top + 1) - top).item()
+    return (x.double() - exact).abs().max().item() / ulp
 
 
 def signed_error(x, exact) -> float:
@@ -3859,10 +3914,12 @@ def check_vs_fp64(gen, b=1, s=4096, h=32, d=128, causal=True, att=None):
     ro, rlse = fa.flash_forward_reference(q, k, v, causal, kbias=kbias)
     fwd = {"o": fp64_ratio(o, ro, o64), "lse": fp64_ratio(lse, rlse, lse64)}
     bias = (signed_error(o, o64), signed_error(ro, o64))
+    ulps = (ulp_error(lse, lse64), ulp_error(rlse, lse64))
     del o64, lse64, ro, rlse
     log(f"flash forward vs fp64 at {form}: o {fwd['o']:.2f}x, lse "
-        f"{fwd['lse']:.2f}x the fp32 plain version's error; o's mean signed "
-        f"error kernel {bias[0]:+.2e}, plain {bias[1]:+.2e}")
+        f"{fwd['lse']:.2f}x the fp32 plain version's error (lse max error "
+        f"kernel {ulps[0]:.2f} ulp, plain {ulps[1]:.2f} ulp); o's mean "
+        f"signed error kernel {bias[0]:+.2e}, plain {bias[1]:+.2e}")
     for name, ratio in fwd.items():
         if not ratio <= 2.0:
             raise AssertionError(f"K3a {name} at {form}: error against fp64 "
@@ -3885,6 +3942,33 @@ def check_vs_fp64(gen, b=1, s=4096, h=32, d=128, causal=True, att=None):
     log(f"flash backward vs fp64 at {form} (max abs error): "
         + "; ".join(parts) + "; each within 2x the fp32 plain version's")
     return err
+
+
+def lse_stream_check(gen, offset, label, b=1, s=4096, h=32, d=128):
+    """F16's other streams: the fp32 K3a forward at the trainer's shape
+    (causal) on unit normals drawn from ``gen`` moved to ``offset``, o and
+    lse gated as check_vs_fp64 gates them (2x the fp32 plain version's
+    error against fp64, no floor), each error printed in ulp too. Returns
+    (o ratio, lse ratio)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gen.set_offset(offset)
+    q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+               for _ in range(3))
+    o, lse = fa.flash_forward(q, k, v, True)
+    ro, rlse = fa.flash_forward_reference(q, k, v, True)
+    o64, lse64 = fa.flash_forward_reference(q.double(), k.double(),
+                                            v.double(), True)
+    ratio = (fp64_ratio(o, ro, o64), fp64_ratio(lse, rlse, lse64))
+    ulps = (ulp_error(lse, lse64), ulp_error(rlse, lse64))
+    log(f"flash forward vs fp64 on {label}: o {ratio[0]:.3f}x, lse "
+        f"{ratio[1]:.3f}x the fp32 plain version's error (lse kernel "
+        f"{ulps[0]:.2f} ulp, plain {ulps[1]:.2f} ulp)")
+    if not max(ratio) <= 2.0:
+        raise AssertionError(f"K3a on {label}: o / lse error against fp64 "
+                             f"{ratio[0]:.2f}x / {ratio[1]:.2f}x the fp32 "
+                             "plain version's, above 2x")
+    return ratio
 
 
 # ------------------------------------------------- bf16 AMP (K3 at bf16)
@@ -4977,7 +5061,13 @@ def gpt_phases(gen, gen16):
     _free_the_card()
     lap("GPT generators")
     t_spec = time.perf_counter()
-    gpt["speculation"] = spec_phase(model, cfg)     # phase 30
+    # phase 30 at 12 of GPT-3 1.3B's 24 layers (full width): phases 40-41
+    # took the smoke ~55 s longer, and the arms' streams, acceptance and
+    # launches by form need no depth
+    spec_cfg = replace(cfg, num_layers=12)
+    spec_model = GPT(spec_cfg, device="cuda", seed=0)
+    gpt["speculation"] = spec_phase(spec_model, spec_cfg)     # phase 30
+    del spec_model
     log(f"phase 30: {time.perf_counter() - t_spec:.1f} s")
     _free_the_card()
     lap("phase 30 (its draft_int8 arm: phase 32)")
@@ -5026,6 +5116,369 @@ def gpt_phases(gen, gen16):
     log(f"GPT paths' launches: {json.dumps(gpt)}")
     lap("GPT bf16 flash checks and timings")
     return gpt, rows, errs
+
+
+# ------------------------------------------------ phases 40-41: host tier
+
+# phase 40's engine: LLaMA-2-7B at full width and depth, fp32 pool, a pool
+# of 120 pages of 16 (1.9 GiB) that phase 40's 8 requests of 300-600 prompt
+# tokens and 64 new tokens cannot hold together (they need 251 pages), so
+# admission fills it and decode growth preempts (twice, in a rehearsal at
+# a small width); 128 host pages (2 GiB pinned: an fp32 page of 16 tokens
+# is 16 MiB over 32 layers) hold the spills
+TIER_KNOBS = dict(block_size=16, num_blocks=120, max_batch_size=8,
+                  max_model_len=1024, max_prefill_tokens_per_step=256,
+                  host_tier_pages=128)
+
+
+def tier_requests(cfg, seed=40, n=8, max_tokens=64):
+    """Phase 40's traffic: n prompts of 300-600 tokens, max_tokens each."""
+    from paddle_tpu_torch.serving import SamplingParams
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(300, 601, n)
+    return ([rng.integers(1, cfg.vocab_size, int(m)).tolist()
+             for m in lens], SamplingParams(max_tokens=max_tokens))
+
+
+def page_crc(pool, page) -> int:
+    """CRC-32 of one device page read back (every layer's pool arrays, in
+    HostKVTier.content_hash's order)."""
+    import zlib
+    h = 0x9E3779B9
+    for layer in pool.read_pages([page]):
+        for a in layer:
+            h = zlib.crc32(a[0].view(torch.uint8).numpy().tobytes(), h)
+    return h
+
+
+class TierSpy:
+    """Phase 40's page check on a live engine: every page a spill copies is
+    read back from the device first and its CRC kept by (slot,
+    generation); every page a page-in restores is read back after the
+    fence, and its CRC must equal the spilled page's and the tier's own
+    hash of the host bytes. ``checked`` counts the restored pages held so.
+    (The reads synchronise the card: a check, not the engine's path.)"""
+
+    def __init__(self, eng):
+        self.eng, self.tier = eng, eng.pool.host_tier
+        self.spilled = {}
+        self.checked = 0
+        spill, fence = self.tier.spill_pages, eng._fence_pagein
+
+        def spill_pages(pages):
+            crcs = [page_crc(eng.pool, p) for p in pages]
+            slots = spill(pages)
+            for s, c in zip(slots, crcs):
+                self.spilled[(s, self.tier.generation(s))] = c
+            return slots
+
+        def fence_pagein(admitted):
+            pairs = [(p, s) for r in admitted for p, s in r.pending_pagein]
+            if pairs:
+                self.tier.sync()     # the hashes are final once joined
+            want = [(p, s, self.spilled.pop((s, self.tier.generation(s))),
+                     self.tier._hash[s]) for p, s in pairs]
+            fence(admitted)
+            for p, s, crc, h in want:
+                got = page_crc(eng.pool, p)
+                if not got == crc == h:
+                    raise AssertionError(
+                        f"phase 40: page {p} paged in from host slot {s} "
+                        f"reads CRC {got:#x}, spilled {crc:#x}, the tier's "
+                        f"hash {h:#x}")
+                self.checked += 1
+
+        self.tier.spill_pages = spill_pages
+        eng._fence_pagein = fence_pagein
+
+
+def tier_arm(model, cfg, label, prompts, sp, **knobs):
+    """One phase 40 arm: the tier engine serves the traffic under the
+    auditor (audit_engine after every step: the tier's slot accounting,
+    owners, the CRC spot check), through the path's kernels and no plain
+    version, with preemptions resumed by page-in and every restored page
+    checked by TierSpy. Returns (the engine, its tokens, the run's
+    numbers)."""
+    from paddle_tpu_torch.inference import create_serving_engine
+
+    kw = {**TIER_KNOBS, **knobs}
+    eng = create_serving_engine(model, device="cuda", audit=True, **kw)
+    spy = TierSpy(eng)
+    counts = _zeroed_counts()
+    ids = [eng.add_request(p, sp) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 0
+    while eng.has_work():
+        eng.step()
+        steps += 1
+    wall = time.perf_counter() - t0
+    kernel, forms, plain = _launches(counts)
+    m, tier = eng.metrics.snapshot(), eng.pool.host_tier
+    outs = eng.outputs()
+    tier.sync()
+    run = {k: m[k] for k in ("preemptions", "offload_spill_pages",
+                             "pagein_pages", "pagein_hidden_pages",
+                             "pagein_hidden_ratio", "offload_resumes",
+                             "offload_recompute_fallbacks",
+                             "host_tier_drops", "device_idle_fraction",
+                             "tokens_generated")}
+    run.update(steps=steps, wall_s=wall, pages_checked=spy.checked,
+               blocking_joins=tier.blocking_joins,
+               sync_spill_reads=tier.sync_spill_reads, launches=kernel,
+               by_form=forms)
+    log(f"phase 40 {label} ({eng.pool.kv_dtype} pool, "
+        f"{cfg.num_layers} layers): {json.dumps(run)}")
+    path = _path_kernels(eng.pool.kv_dtype)
+    if (len(outs) != len(prompts) or any(
+            o.finish_reason != "length" for o in outs.values())):
+        raise AssertionError(f"phase 40 {label}: not every request finished")
+    if m["nan_logit_events"]:
+        raise AssertionError(f"phase 40 {label}: non-finite logits")
+    if plain or set(kernel) != set(path):
+        raise AssertionError(f"phase 40 {label}: launched {kernel}, plain "
+                             f"{plain}; the path is {path}")
+    if not (m["preemptions"] > 0 and m["offload_resumes"] > 0
+            and m["pagein_pages"] > 0):
+        raise AssertionError(f"phase 40 {label}: no page-in resume: {run}")
+    if spy.checked != m["pagein_pages"]:
+        raise AssertionError(f"phase 40 {label}: {spy.checked} restored "
+                             f"pages checked of {m['pagein_pages']}")
+    if knobs.get("spill_async") and (tier.blocking_joins
+                                     or tier.sync_spill_reads):
+        raise AssertionError(f"phase 40 {label}: the engine loop waited on "
+                             f"a spill: {run}")
+    if not eng.pool.allocator.check_no_leaks() or tier.used_count:
+        raise AssertionError(f"phase 40 {label}: leaked device pages or "
+                             "host slots")
+    return eng, [outs[i].output_tokens for i in ids], run
+
+
+def tier_rates(eng, n=32):
+    """The tier's copy rates on the card, CUDA events on its side stream:
+    n pages gathered, then copied into pinned slots (spill), and staged
+    back from them by the engine's _stage_slots (page-in), three times
+    each, the median of bytes over each copy's device time; the gather
+    itself is not timed."""
+    pool, tier = eng.pool, eng.pool.host_tier
+    pages = pool.allocator.alloc(n)
+    slots = tier._free[:n]
+    gathered = [tuple(a.view(torch.uint8) for a in layer)
+                for layer in pool.gather_pages(pages)]
+    nbytes = n * pool.page_bytes()
+    rates = {"spill": [], "pagein": []}
+    staged = None
+    torch.cuda.synchronize()
+    for name in ("spill", "pagein") * 3:
+        # the last page-in's tensors go back to the allocator first, so a
+        # timed page-in allocates from its cache and not from the driver
+        staged = None
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record(tier._stream)
+        if name == "spill":
+            with tier.stream():
+                tier._copy_runs(slots, gathered)
+        else:
+            staged = eng._stage_slots(tier, slots)    # the engine's path
+        end.record(tier._stream)
+        end.synchronize()
+        rates[name].append(nbytes / (start.elapsed_time(end) * 1e-3) / 1e9)
+    del staged, gathered
+    pool.allocator.free(pages)
+    return {name: statistics.median(r) for name, r in rates.items()}
+
+
+def resume_device_ms(eng, prompt):
+    """The device ms of resuming one request of ``prompt`` tokens by
+    recompute (its context prefilled in the engine's 256-token chunks)
+    against by page-in (its pages staged from the tier and scattered, the
+    engine's _stage_slots and write_pages), CUDA events on the compute
+    stream (which waits for the page-in's copies)."""
+    pool, runner, tier = eng.pool, eng.runner, eng.pool.host_tier
+    pages = pool.allocator.alloc(pool.blocks_for_tokens(len(prompt)))
+    table = pool.pad_table(pages, eng.max_pages_per_seq)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for c in range(0, len(prompt), 256):
+        runner.prefill_chunk(prompt[c:c + 256], c, table, pool.pools)
+    end.record()
+    end.synchronize()
+    recompute = start.elapsed_time(end)
+    slots = tier.spill_pages(pages)
+    tier.sync()
+    torch.cuda.synchronize()
+    start.record()
+    staged = list(eng._stage_slots(tier, slots).values())
+    compute = torch.cuda.current_stream()
+    for _, ev in staged:
+        compute.wait_event(ev)
+    pool.write_pages(pages, [tuple(torch.stack([d[li][j] for d, _ in staged])
+                                   for j in range(len(layer)))
+                             for li, layer in enumerate(pool.pools)])
+    end.record()
+    end.synchronize()
+    pagein = start.elapsed_time(end)
+    tier.free_slots(slots)
+    pool.allocator.free(pages)
+    return recompute, pagein
+
+
+def host_tier_phase(model, cfg, int8_model, int8_cfg):
+    """Phase 40: the host KV tier at LLaMA-2-7B (full width and depth, fp32
+    pool, random weights), TIER_KNOBS, phase 40's traffic: a serial arm
+    with sync spills, then spill_async=True with pipelined=True; each arm
+    under tier_arm's gates (every restored page's CRC against its spilled
+    page's and the tier's hash, offload_resumes > 0, no leak, the
+    auditor after every step; the async arm's loop never waiting on a
+    spill). Tokens: two resumed requests of the serial arm token-exact
+    against naive_generate (the fp32 rule of engine_phase), the async
+    pipelined arm's streams equal the serial arm's. Then an int8 pool at
+    ``int8_cfg``'s depth (codes and scale rows through the same page
+    check), the tier's copy rates, a page-in resume against a recompute
+    resume of one request (device ms), each arm's idle share. Returns the
+    numbers, the serial arm's tokens and prompts, and its runner."""
+    from paddle_tpu_torch.serving import naive_generate
+
+    t0 = time.perf_counter()
+    prompts, sp = tier_requests(cfg)
+    eng, tokens, serial = tier_arm(model, cfg, "serial, sync spill",
+                                   prompts, sp)
+    runner = eng.runner
+    resumed = [i for i, r in enumerate(eng._requests.values())
+               if r.num_preemptions][:2]
+    for i in resumed:
+        ref = naive_generate(runner, prompts[i], sp, max_model_len=1024)
+        _gate_streams(f"phase 40 request {i} (resumed) vs naive_generate",
+                      runner, [prompts[i]], [tokens[i]], [ref])
+    log(f"phase 40: resumed requests {resumed} token-exact against "
+        "naive_generate")
+    rates = tier_rates(eng)
+    ms = resume_device_ms(eng, prompts[int(np.argmax(list(map(len,
+                                                              prompts))))])
+    del eng
+    _free_the_card()
+    aeng, atokens, pipelined = tier_arm(model, cfg,
+                                        "spill_async, pipelined", prompts,
+                                        sp, spill_async=True, pipelined=True)
+    del aeng
+    _free_the_card()
+    _gate_streams("phase 40 async pipelined arm vs the serial arm",
+                  runner, prompts, atokens, tokens)
+    qeng, _, int8 = tier_arm(int8_model, int8_cfg, "int8 pool", prompts,
+                             sp, kv_dtype="int8")
+    del qeng
+    _free_the_card()
+    out = {"serial": serial, "async_pipelined": pipelined, "int8": int8,
+           "spill_GBps": rates["spill"], "pagein_GBps": rates["pagein"],
+           "resume_recompute_ms": ms[0], "resume_pagein_ms": ms[1],
+           "resume_speedup_x": ms[0] / ms[1],
+           "seconds": time.perf_counter() - t0}
+    log(f"phase 40: spill {rates['spill']:.2f} GB/s, page-in "
+        f"{rates['pagein']:.2f} GB/s (pinned, the tier's side stream); "
+        f"pagein_hidden_ratio serial {serial['pagein_hidden_ratio']:.3f}, "
+        f"async pipelined {pipelined['pagein_hidden_ratio']:.3f}; resume of "
+        f"a {max(map(len, prompts))}-token request: recompute {ms[0]:.3f} "
+        f"device ms, page-in {ms[1]:.3f} device ms ({ms[0] / ms[1]:.2f}x); "
+        f"idle share serial {serial['device_idle_fraction']:.3f}, async "
+        f"pipelined {pipelined['device_idle_fraction']:.3f}; "
+        f"{out['seconds']:.1f} s")
+    return out, tokens, prompts, runner
+
+
+class ByteVocab:
+    """A byte-level vocabulary built here (phase 41): each id's raw bytes
+    are a 3-byte CJK character, its lead byte, its two continuation bytes
+    or an ASCII letter, so multi-byte characters split across tokens; the
+    tokenizer spells them HF-style, over GPT-2's bytes_to_unicode alphabet
+    (`convert_ids_to_tokens`), which TokenizerAdapter inverts."""
+
+    def __init__(self, vocab):
+        from paddle_tpu_torch.serving.detokenize import _byte_decoder
+        alphabet = {b: c for c, b in _byte_decoder().items()}
+        self.raw = []
+        for i in range(vocab):
+            ch = chr(0x4E00 + (i * 7919) % 20000).encode()
+            self.raw.append((ch, ch[:1], ch[1:],
+                             bytes([0x41 + i % 26]))[i % 4])
+        self.pieces = ["".join(alphabet[b] for b in r) for r in self.raw]
+
+    def convert_ids_to_tokens(self, tok):
+        return self.pieces[int(tok)]
+
+    def text(self, tokens) -> str:
+        return b"".join(self.raw[t] for t in tokens).decode("utf-8",
+                                                            "replace")
+
+
+def snapshot_phase(model, cfg, tokens, prompts, runner):
+    """Phase 41: phase 40's serial engine run again to a state with a
+    preempted waiter and a running request, snapshotted, the snapshot
+    through json, restored on a fresh engine through
+    inference.restore_serving_engine (a fresh runner of the same model,
+    the recorded knobs, the tier's pages not carried), finished: every
+    stream equal to phase 40's uninterrupted serial run. stream_text over
+    ByteVocab (a TokenizerAdapter) after every step only appends, and the
+    final text of every request equals the whole decode of its tokens."""
+    from paddle_tpu_torch.inference import (
+        create_serving_engine, restore_serving_engine,
+    )
+
+    t0 = time.perf_counter()
+    _, sp = tier_requests(cfg)
+    eng = create_serving_engine(model, device="cuda", audit=True,
+                                **TIER_KNOBS)
+    ids = [eng.add_request(p, sp) for p in prompts]
+    state = None
+    for _ in range(400):
+        eng.step()
+        if (any(r.num_preemptions for r in eng.scheduler.waiting)
+                and eng.scheduler.running):
+            state = eng.snapshot()
+            break
+    if state is None:
+        raise AssertionError("phase 41: never a preempted waiter beside a "
+                             "running request")
+    state = json.loads(json.dumps(state))
+    shape = {"running": len(eng.scheduler.running),
+             "waiting": len(eng.scheduler.waiting),
+             "preempted": sum(r["num_preemptions"] > 0
+                              for r in state["requests"]),
+             "finished": len(state["finished"]),
+             "bytes": len(json.dumps(state))}
+    del eng
+    _free_the_card()
+    vocab = ByteVocab(cfg.vocab_size)
+    restored = restore_serving_engine(model, state, device="cuda",
+                                      audit=True, tokenizer=vocab)
+    if restored.pool.host_tier is None or restored.pool.host_tier.used_count:
+        raise AssertionError("phase 41: the restored tier is missing or "
+                             "holds pages")
+    seen = {rid: "" for rid in ids}
+    while restored.has_work():
+        restored.step()
+        for rid in ids:
+            text = restored.stream_text(rid)
+            if not text.startswith(seen[rid]):
+                raise AssertionError(f"phase 41: stream_text of {rid} "
+                                     "rewrote its text")
+            seen[rid] = text
+    outs = restored.outputs()
+    got = [outs[rid].output_tokens for rid in ids]
+    _gate_streams("phase 41 restored run vs phase 40's uninterrupted run",
+                  runner, prompts, got, tokens)
+    for rid, toks in zip(ids, got):
+        if restored.stream_text(rid) != vocab.text(toks):
+            raise AssertionError(f"phase 41: stream_text of {rid} is not "
+                                 "the decode of its tokens")
+    if not restored.pool.allocator.check_no_leaks():
+        raise AssertionError("phase 41: the restored engine leaked pages")
+    shape["seconds"] = time.perf_counter() - t0
+    log(f"phase 41: snapshot at {json.dumps(shape)}; the restored run's "
+        f"{len(ids)} streams equal the uninterrupted run's, stream_text "
+        f"equals each stream's decode ({sum(map(len, seen.values()))} "
+        f"characters); {shape['seconds']:.1f} s")
+    return shape
 
 
 def _free_the_card() -> float:
@@ -5271,6 +5724,9 @@ def main() -> int:
         for n_rep, T in ((1, 1), (4, 2), (1, 300), (4, 64))}
     for name, res in f16_checks.items():
         errs[name] = max(r[0] for r in res)
+    # how far phase 37 moves a stream: F16's "stream after phase 37" is the
+    # smoke's own stream moved on by this much
+    phase37_draws = gen16.get_offset()
     lap("phase 37: fp16 serving kernels vs plain, Llama shapes, range")
     sampler_phase()
     lap("sampler")
@@ -5349,13 +5805,39 @@ def main() -> int:
     launches.update(f16_path)
     forms.update(f16_forms)
     lap("phase 38 engines")
-    ladder16 = f16_ladder_phase(model, cfg, sorted(prompts, key=len)[:2])
-    mixed16 = mixed_pool_phase(model, cfg, dtype=F16)
-    log(f"phases 38-39 (Llama): {time.perf_counter() - t_new:.1f} s; "
-        f"weight bytes reduction by rung at fp16 {json.dumps(ladder16)}")
+    # phase 39 (Llama) at 8 of LLaMA-2-7B's 32 layers (full width), cast to
+    # fp16 as the full model was: phases 40-41 took the smoke ~55 s longer,
+    # and the ladder's bytes, its one-slot checks and the mixed pool's
+    # tenants need no depth
     del model
     _free_the_card()
+    l39_cfg = replace(cfg, num_layers=8)
+    l39 = Llama(l39_cfg, device="cuda", seed=0).to(F16)
+    ladder16 = f16_ladder_phase(l39, l39_cfg, sorted(prompts, key=len)[:2])
+    mixed16 = mixed_pool_phase(l39, l39_cfg, dtype=F16)
+    log(f"phases 38-39 (Llama): {time.perf_counter() - t_new:.1f} s; "
+        f"weight bytes reduction by rung at fp16 {json.dumps(ladder16)}")
+    del l39
+    _free_the_card()
     lap("phase 39 ladder and mixed pool")
+    # phases 40-41: the host KV tier, snapshot / restore and stream_text on
+    # LLaMA-2-7B in fp32 again (the same seed's random weights); the int8
+    # arm at 8 of 32 layers
+    t_new = time.perf_counter()
+    model = Llama(cfg, device="cuda", seed=0)
+    q_cfg = replace(cfg, num_layers=8)
+    q_model = Llama(q_cfg, device="cuda", seed=0)
+    tier, tier_tokens, tier_prompts, tier_runner = host_tier_phase(
+        model, cfg, q_model, q_cfg)
+    del q_model
+    _free_the_card()
+    lap("phase 40")
+    tier["snapshot"] = snapshot_phase(model, cfg, tier_tokens, tier_prompts,
+                                      tier_runner)
+    del model, tier_runner
+    _free_the_card()
+    lap("phase 41")
+    log(f"phases 40-41: {time.perf_counter() - t_new:.1f} s")
     small = Llama(replace(cfg, num_layers=2), device="cuda", seed=2)
     for kind in ("int8", "fp8"):
         quant_model_check(small, LlamaRunner, kind, {
@@ -5547,7 +6029,17 @@ def main() -> int:
     _free_the_card()
     dense_check_phase(replace(cfg, num_layers=2))
     _free_the_card()
+    own = gen.get_offset()
     acc = check_vs_fp64(gen)
+    _free_the_card()
+    # F16: the same gate on the stream the check reads when phase 37 draws
+    # from the smoke's stream first
+    after37 = torch.Generator(device="cuda")
+    after37.manual_seed(0)
+    acc["lse_after_phase37"] = lse_stream_check(
+        after37, own + phase37_draws,
+        f"the stream after phase 37 (seed 0, offset {own} + "
+        f"{phase37_draws})")[1]
     _free_the_card()
     flash = measure_flash(gen)
     _free_the_card()
@@ -5628,6 +6120,16 @@ def main() -> int:
             f"bf16's {x['ms']:.4f})" for n, x in (
                 flash_bf16 if "4096" in shape else masked_bf16).items()
             if n != "pair"))
+    # the 16-bit flash kernels at d = 256 (the mma.sync instantiations
+    # flash_*_{bf16,f16}_kernel<256>), timed by no record before: 16 heads
+    # of 256 at the trainer's 4096 tokens, causal
+    from paddle_tpu_torch.ops import flash_attention as fa
+    flash_d256 = {}
+    for dt in (BF16, f16):
+        flash_d256[dt] = measure_flash(gen, h=16, d=256, dtype=dt)
+        _free_the_card()
+        log(f"{HALF_SUFFIX[dt]} flash kernels at d = 256 launch " + ", ".join(
+            f"{n} {fa.kernel_variant(n, dt, 256)}" for n, _ in FLASH_KERNELS))
     lap("phase 34: fp16 flash kernels vs fp64, timings")
     scaled, masked_fp16_launches, masked_fp16_variants = \
         ernie_fp16_scaler_phase(ERNIE3_BASE, data)
@@ -5659,6 +6161,10 @@ def main() -> int:
                                gpt_launches.items() if row["name"] in n}
         row["spec_launches"] = {arm: by[row["name"]] for arm, by in
                                 spec.items() if row["name"] in by}
+        for arm in ("serial", "async_pipelined", "int8"):
+            n = tier[arm]["launches"].get(row["name"])
+            if n:
+                row.setdefault("host_tier_launches", {})[arm] = n
         if any(row["name"] in by for by in spec16.values()):
             row["spec_fp16_launches"] = {arm: by[row["name"]] for arm, by
                                          in spec16.items()
@@ -5681,6 +6187,9 @@ def main() -> int:
                    **times[name]}
             if name == "flash_forward":
                 row["fp64_ratio"] = errs[1]["fwd_fp64_ratio"]
+                if "lse_after_phase37" in errs[1]:
+                    row["lse_after_phase37_fp64_ratio"] = \
+                        errs[1]["lse_after_phase37"]
             rows.append(row)
     for label, times, launches, variants, kind, dtype, checks in (
             ("_bf16", flash_bf16, bf16_launches, bf16_variants, "dense",
@@ -5704,6 +6213,11 @@ def main() -> int:
                          **times[name],
                          "fp64_ratio": checks[kind]["ratio"][name],
                          "misround": checks[kind]["misround"][name]})
+            if kind == "dense":
+                rows[-1]["d256"] = {
+                    "shape": "[1,4096,16,256] causal",
+                    "kernel": HALF_KERNEL_NAMES[dtype][name][0],
+                    **flash_d256[dtype][name]}
             if kind == "dense" and dtype == torch.bfloat16:
                 rows[-1]["gpt_launches"] = {
                     "trainer_o1": gpt_launches["trainer_o1"][name]}

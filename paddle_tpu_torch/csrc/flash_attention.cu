@@ -34,6 +34,7 @@
 // What the three compute (scale applied to the q.k products):
 //   forward  o = softmax(s) v with an fp32 online softmax (m, l, acc) over
 //            key tiles, lse = m + log(max(l, 1e-30)), o = acc / max(l, 1e-30)
+//            (the fp32 kernel sums lse's l a second time in fp64, below)
 //   dq       dq = scale * sum_k dS K, dS = P * (dO V^T - delta)
 //   dk, dv   dv = P^T dO, dk = scale * dS^T Q
 // with P recomputed from the lse in both backward kernels. A hard-masked
@@ -302,6 +303,29 @@ __device__ __forceinline__ void split_rows(uint32_t* big, uint32_t* small,
   }
 }
 
+// The fp32 forward's lse denominator, summed in fp64 beside the fp32 l that
+// divides o: each tile's p (the fp32 values online_softmax made of s) is
+// added to l64 after l64 is rescaled by exp(m_old - m) in fp64. The fp32 l
+// takes a rounding at every add and an expf rounding at every rescale, a
+// few fp32 ulp of lse over 4096 keys (the plain version sums its row in a
+// tree, 1-2 ulp); l64 takes none that reach fp32, so lse = m + log(l64)
+// rounds once. o keeps the fp32 l, which shares acc's rescales exactly.
+template <int NT>
+__device__ __forceinline__ void lse_sum(const float (&p)[NT][4],
+                                        const float (&m_old)[2],
+                                        const float (&m)[2],
+                                        double (&l64)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (m_old[h] != m[h]) l64[h] *= exp((double)m_old[h] - (double)m[h]);
+  }
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) l64[r >> 1] += (double)p[i][r];
+  }
+}
+
 template <int MAXD>
 __global__ void __launch_bounds__(kThreads, Tiles<MAXD>::kMinBlocks)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -345,7 +369,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   split_rows<BM, NTHR>(qbig, qsmall, q + qoff, q0, dm.Sq - q0, d, ld, rs);
 
   // rows g (h = 0) and g + 8 (h = 1): running max, this lane's partial sum
+  // (and lse's, in fp64: lse_sum)
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  double l64[2] = {0.0, 0.0};
   float acc[NTO][4];
 #pragma unroll
   for (int j = 0; j < NTO; ++j) {
@@ -378,7 +404,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     mma_qk<NT, MAXD, true, false>(s, qbig, qsmall, m0, kbig, ksmall, ld, d,
                                   g, t);
     frag_scores<false>(s, b, head, q0 + m0 + g, k0 + 2 * t, dm);
+    const float m_old[2] = {m[0], m[1]};
     online_softmax(s, m, l, acc);
+    lse_sum(s, m_old, m, l64);
     mma_pv<NT, NTO, true, false>(acc, s, vbig, vsmall, c0, VLD, d, g, t);
     k0 = kn;
   }
@@ -389,6 +417,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    l64[h] += __shfl_xor_sync(0xffffffffu, l64[h], 1);
+    l64[h] += __shfl_xor_sync(0xffffffffu, l64[h], 2);
     const int row = q0 + m0 + g + 8 * h;
     if (row < dm.Sq) {
       const float den = fmaxf(l[h], 1e-30f), inv = 1.f / den;
@@ -402,7 +432,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
       if (t == 0 && c0 == 0) {
-        lse[(int64_t)bh * dm.Sq + row] = m[h] + logf(den);
+        lse[(int64_t)bh * dm.Sq + row] =
+            (float)((double)m[h] + log(fmax(l64[h], 1e-30)));
       }
     }
   }

@@ -1,6 +1,7 @@
 """Inference bridge: models into serving engines.
 
-Counterpart of paddle_tpu/inference/__init__.py::create_serving_engine.
+Counterpart of paddle_tpu/inference/__init__.py::create_serving_engine and
+restore_serving_engine.
 """
 
 from __future__ import annotations
@@ -67,3 +68,28 @@ def create_serving_engine(model, dtype=None, device="cuda", **kw):
                          for k, v in runner.params.items()}
     kw.setdefault("num_blocks", 128)
     return ServingEngine(runner, **kw)
+
+
+def restore_serving_engine(model, state, attn_impl: str = "auto",
+                           mesh=None, *, device="cuda", **kw):
+    """Rebuild a crashed or killed serving engine from
+    ``engine.snapshot()``: a fresh runner for ``model`` on ``device``
+    (default "cuda"), built with the snapshot's block size, model length,
+    kv_dtype, weight_dtype and weight group size, then
+    `ServingEngine.restore`, which replays every request through
+    recompute-on-resume, token for token as an uninterrupted run. Other
+    keywords (metrics, tokenizer, sleep_fn, audit) go to `restore`. A
+    ``mesh`` raises naming ROADMAP.md item 10."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (restoring onto a tensor-parallel runner) is not ported "
+            "yet: ROADMAP.md 'Still to port' item 10")
+    cfg = state["config"]
+    runner = runner_for(model, block_size=cfg["block_size"],
+                        max_model_len=cfg["max_model_len"],
+                        attn_impl=attn_impl,
+                        kv_dtype=cfg.get("kv_dtype", "fp32"),
+                        weight_dtype=cfg.get("weight_dtype", "fp32"),
+                        weight_group_size=cfg.get("weight_group_size", 128),
+                        device=device)
+    return ServingEngine.restore(runner, state, **kw)

@@ -10,16 +10,22 @@ steps, speculative decoding) over `KVCachePool` and a `LlamaRunner` or
 `GPTRunner` whose attention runs the port's CUDA kernels, its decode
 kinds as CUDA graphs on the card. The draft proposers (`NgramProposer`,
 `DraftModelProposer`, `AdaptiveK`, `shadow_runner`) and
-`quantized_page_write` are exported here too, as in the JAX package.
+`quantized_page_write` are exported here too, as in the JAX package, and
+so are the host KV tier (`HostKVTier`, `OffloadRecord`) and the stream
+detokenizer (`StreamDetokenizer`, `TokenizerAdapter`,
+`complete_utf8_prefix`).
 """
 
+from paddle_tpu_torch.serving.detokenize import (
+    StreamDetokenizer, TokenizerAdapter, complete_utf8_prefix,
+)
 from paddle_tpu_torch.serving.engine import (
     RequestOutput, ServingEngine, TokenEvent, create_engine, greedy_grid,
     naive_generate, sample_token, seeded_sample,
 )
 from paddle_tpu_torch.serving.kv_cache import (
-    SCRATCH_PAGE, BlockAllocator, KVCachePool, PrefixCache, SequenceKV,
-    page_content_hash, quantized_page_write,
+    SCRATCH_PAGE, BlockAllocator, HostKVTier, KVCachePool, OffloadRecord,
+    PrefixCache, SequenceKV, page_content_hash, quantized_page_write,
 )
 from paddle_tpu_torch.serving.metrics import (
     Counter, EngineMetrics, Gauge, Histogram,
@@ -42,12 +48,14 @@ from paddle_tpu_torch.serving.speculate import (
 __all__ = [
     "SCRATCH_PAGE", "AdaptiveK", "BlockAllocator", "Counter",
     "DraftModelProposer", "EngineMetrics", "FCFSScheduler", "FaultInjector",
-    "GPTRunner", "Gauge", "Histogram", "InjectedDeviceError",
+    "GPTRunner", "Gauge", "Histogram", "HostKVTier", "InjectedDeviceError",
     "InvariantViolation", "KVCachePool", "LlamaRunner", "NgramProposer",
-    "PagedModelRunner", "PrefixCache", "QueueFullError", "Request",
-    "RequestOutput", "RequestState", "SamplingParams", "SequenceKV",
-    "ServingEngine", "TokenEvent", "audit_engine", "bucket_len",
-    "create_engine", "greedy_grid", "naive_generate", "page_content_hash",
+    "OffloadRecord", "PagedModelRunner", "PrefixCache", "QueueFullError",
+    "Request", "RequestOutput", "RequestState", "SamplingParams",
+    "SequenceKV", "ServingEngine", "StreamDetokenizer", "TokenEvent",
+    "TokenizerAdapter", "audit_engine", "bucket_len",
+    "complete_utf8_prefix", "create_engine", "greedy_grid",
+    "naive_generate", "page_content_hash",
     "paged_attend", "quantized_page_write", "runner_for", "sample_token",
     "seeded_sample", "shadow_runner",
 ]

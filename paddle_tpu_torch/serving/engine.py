@@ -36,7 +36,7 @@ Four knobs change how decode runs, never its tokens:
                        returns the previous launch's tokens, and
                        run() / has_work() / flush() drain the tail
 
-Three more change what a step computes, never its tokens:
+Four more change what a step computes, never its tokens:
   enable_prefix_cache  full KV pages are refcounted and hash-indexed;
                        admission maps the longest cached page-aligned
                        prefix into the table (prefix_hit_tokens), and a
@@ -61,6 +61,29 @@ Three more change what a step computes, never its tokens:
                        (runner.decode_multi_spec, a CUDA graph on the
                        card) that accepts on the device, one drain per
                        horizon (spec_fused_horizons)
+  host_tier_pages=N    a host KV tier of N pinned pages (`HostKVTier`): a
+                       preemption spills the victim's exclusively owned
+                       pages there and its resume pages them back in,
+                       bit for bit (offload_resumes, pagein_pages); the
+                       prefix cache demotes evicted pages there. The
+                       tier's copies run on a side stream; `_fence_pagein`
+                       makes the compute stream wait for a page-in before
+                       it scatters the pages, so every launch of the step
+                       (graph replays included, on the same stream) reads
+                       them. pagein_prefetch stages the next offloaded
+                       waiters' pages at the end of a step
+                       (pagein_hidden_ratio), host_tier_headroom counts
+                       free host slots as admission headroom, spill_async
+                       waits for a spill's copies and hashes them on a
+                       worker thread
+
+`snapshot` serializes every request's state as JSON, and
+`ServingEngine.restore` rebuilds an engine from it, each request
+re-entering through `inject_request` and recompute-on-resume, token for
+token as an uninterrupted run (host pages do not survive). With a
+``tokenizer``, `stream_text` gives a request's text so far through a
+`StreamDetokenizer` (a multi-byte character split across tokens waits for
+its last byte).
 
 Sampling runs where the logits live, through the runner's
 `_sampled_rows`: the per-step path samples the [B, V] logits of a decode
@@ -79,9 +102,9 @@ Failure modes end requests instead of raising from step():
                   was quarantined, or NaN/Inf logits under nan_policy
                   "abort" (or with no finite entry at all)
 
-The JAX engine's other knobs (host tiers, roles, the detokenizer) are
-not ported yet: passing any of them with a value other than its default
-raises NotImplementedError naming its ROADMAP item.
+The JAX engine's knobs of the serving tier (``role``, ``kv_store``,
+``kv_store_owner``) are not ported yet: passing any of them with a value
+other than its default raises NotImplementedError naming ROADMAP item 11.
 
 Where the port departs from the JAX engine: the pools are written in
 place, so an in-flight launch carries no snapshot of the pools it read
@@ -97,13 +120,16 @@ from __future__ import annotations
 import logging
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from paddle_tpu_torch.serving.kv_cache import KVCachePool, SCRATCH_PAGE
+from paddle_tpu_torch.serving.detokenize import StreamDetokenizer
+from paddle_tpu_torch.serving.kv_cache import (
+    SCRATCH_PAGE, KVCachePool, OffloadRecord, consecutive_runs,
+)
 from paddle_tpu_torch.serving.metrics import EngineMetrics
 from paddle_tpu_torch.serving.model_runner import (
     PagedModelRunner, bucket_len, runner_for,
@@ -111,6 +137,7 @@ from paddle_tpu_torch.serving.model_runner import (
 from paddle_tpu_torch.serving.resilience import QueueFullError, audit_engine
 from paddle_tpu_torch.serving.scheduler import (
     FCFSScheduler, Request, RequestState, SamplingParams,
+    ensure_arrival_counter_above,
 )
 from paddle_tpu_torch.serving.speculate import (
     AdaptiveK, DraftModelProposer, NgramProposer, shadow_runner,
@@ -123,14 +150,9 @@ _ITEM = "ROADMAP.md 'Still to port' item "
 # the JAX engine's knobs this port does not carry yet: name -> (the
 # default that keeps the feature off, the ROADMAP item that ports it)
 UNPORTED_KNOBS = {
-    "host_tier_pages": (0, _ITEM + "9 (host tier)"),
-    "host_tier_headroom": (False, _ITEM + "9 (host tier)"),
-    "pagein_prefetch": (2, _ITEM + "9 (host tier)"),
-    "spill_async": (False, _ITEM + "9 (host tier)"),
-    "kv_store": (None, _ITEM + "9 (host tier)"),
-    "kv_store_owner": (None, _ITEM + "9 (host tier)"),
-    "role": ("mixed", _ITEM + "11 (tier)"),
-    "tokenizer": (None, _ITEM + "15 (serving extras: detokenizer)"),
+    "role": ("mixed", _ITEM + "11 (tier: disaggregated roles)"),
+    "kv_store": (None, _ITEM + "11 (tier: the host-wide KV store)"),
+    "kv_store_owner": (None, _ITEM + "11 (tier: the host-wide KV store)"),
 }
 
 
@@ -310,6 +332,15 @@ class ServingEngine:
                            the shared-prefix page cache, fused ragged
                            steps and speculative decoding (module
                            docstring); off by default
+      host_tier_pages      capacity in pages of the host KV tier (0 = no
+                           tier; module docstring)
+      host_tier_headroom   free host slots count as admission headroom
+                           above the watermark
+      pagein_prefetch      how many queue-head offloaded waiters get their
+                           pages staged at the end of a step (0 = stage at
+                           the fence only)
+      spill_async          a spill's copies are waited for and hashed on a
+                           worker thread, never on the engine loop
       spec_max_ngram / spec_min_ngram
                            suffix n-gram lengths the draft proposer
                            matches (longest first, most recent wins)
@@ -323,6 +354,9 @@ class ServingEngine:
                            ("shadow" alone is int8), proposing greedy
                            chains from its own pool (spec_draft_blocks
                            pages); or a runner instance
+      tokenizer            for `stream_text`: an object with
+                           id_to_bytes(tok), convert_ids_to_tokens (HF
+                           style) or decode([tok])
     """
 
     def __init__(self, runner: PagedModelRunner, *, num_blocks: int,
@@ -337,11 +371,15 @@ class ServingEngine:
                  nan_policy: str = "abort",
                  max_prefill_tokens_per_step: Optional[int] = None,
                  enable_prefix_cache: bool = False,
+                 host_tier_pages: int = 0,
+                 host_tier_headroom: bool = False,
+                 pagein_prefetch: int = 2,
                  ragged_batch: bool = False,
                  decode_horizon: int = 1,
                  pipelined: bool = False,
                  horizon_sampling: bool = False,
                  horizon_early_stop: bool = False,
+                 spill_async: bool = False,
                  num_speculative_tokens: int = 0,
                  spec_max_ngram: int = 3,
                  spec_min_ngram: int = 1,
@@ -349,6 +387,7 @@ class ServingEngine:
                  spec_draft_model=None,
                  spec_draft_blocks: Optional[int] = None,
                  spec_ngram_window: Optional[int] = None,
+                 tokenizer=None,
                  sleep_fn: Optional[Callable[[float], None]] = None,
                  audit: Optional[bool] = None,
                  **unported):
@@ -392,6 +431,15 @@ class ServingEngine:
         self.enable_prefix_cache = bool(enable_prefix_cache)
         if self.enable_prefix_cache:
             self.pool.enable_prefix_cache()
+        if host_tier_pages < 0:
+            raise ValueError("host_tier_pages must be >= 0 (0 = no host "
+                             "tier)")
+        if pagein_prefetch < 0:
+            raise ValueError("pagein_prefetch must be >= 0")
+        self.host_tier_pages = int(host_tier_pages)
+        self.host_tier_headroom = bool(host_tier_headroom)
+        self.pagein_prefetch = int(pagein_prefetch)
+        self.spill_async = bool(spill_async)
         self.ragged_batch = bool(ragged_batch)
         if num_speculative_tokens < 0:
             raise ValueError("num_speculative_tokens must be >= 0 (0 = "
@@ -433,12 +481,17 @@ class ServingEngine:
         self.adaptive_k = (AdaptiveK(self.num_speculative_tokens)
                            if self.num_speculative_tokens
                            and self.spec_adaptive_k else None)
+        self.tokenizer = tokenizer
+        self._detoks: Dict[str, StreamDetokenizer] = {}
         self.max_pages_per_seq = self.pool.blocks_for_tokens(
             self.max_model_len)
         self.scheduler = FCFSScheduler(self.pool, max_batch_size,
                                        self.max_pages_per_seq,
                                        admission_watermark,
-                                       max_prefill_tokens_per_step)
+                                       max_prefill_tokens_per_step,
+                                       count_host_headroom=(
+                                           self.host_tier_headroom))
+        self.admission_watermark = admission_watermark
         self.max_batch_size = max_batch_size
         self.max_prefill_tokens_per_step = max_prefill_tokens_per_step
         self.max_queue_depth = max_queue_depth
@@ -460,6 +513,17 @@ class ServingEngine:
             self.pool.kv_bytes_reduction_x())
         self.metrics.weight_bytes_reduction_x.set(
             float(runner.weight_bytes_reduction_x()))
+        # the host tier, built after the metrics it mirrors its spill and
+        # drop accounting into
+        if self.host_tier_pages:
+            self.pool.enable_host_tier(self.host_tier_pages,
+                                       metrics=self.metrics,
+                                       async_spill=self.spill_async)
+        # page-ins staged ahead of their fence: (slot, generation) ->
+        # (the step that issued them, (staged tensors, copy event)); the
+        # generation makes an entry dead once its slot is freed
+        self._pagein_staged: Dict[tuple, tuple] = {}
+        self._step_count = 0
         self._requests: Dict[str, Request] = {}
         self._outputs: Dict[str, RequestOutput] = {}
 
@@ -645,6 +709,105 @@ class ServingEngine:
                                    lambda: _to_host(logits_row),
                                    sampled.get(0))
 
+    # ------------------------------------------------- host-tier page-in
+
+    def _stage_slots(self, tier, slots) -> Dict[int, tuple]:
+        """Issue the host-to-device copies of host-tier slots (the JAX
+        engine's `_stage_slot`, by runs): through the runner's
+        `stage_host_pages`, one copy a pool array for each run of
+        consecutive slots, on the tier's side stream on the card
+        (non-blocking, from the pinned slots). Returns {slot: (its staged
+        per-layer page tensors, the event after its run's copies, None on
+        the CPU)}; nothing waits here."""
+        stage = getattr(self.runner, "stage_host_pages", None)
+        out: Dict[int, tuple] = {}
+        for _, first, n in consecutive_runs(slots):
+            data = tier.read_slots(first, n)
+            with tier.stream():
+                staged = stage(data) if stage is not None else data
+            ev = tier.note_read(*range(first, first + n))
+            for k in range(n):
+                out[first + k] = ([tuple(a[k] for a in layer)
+                                   for layer in staged], ev)
+        return out
+
+    def _fence_pagein(self, admitted: Sequence[Request]) -> None:
+        """Apply every pending page-in of this step's admissions to the
+        pools: THE fence, after which the restored pages are ordinary pool
+        state for this step's launches. Transfers staged in an earlier
+        step (keyed by (slot, generation)) resolve here and count as
+        hidden; the rest stage now. On the card the compute stream waits
+        for the copies' events, then the pages are scattered in place on
+        it. Consumed slots return to the tier."""
+        tier = self.pool.host_tier
+        pending = [r for r in admitted if r.pending_pagein]
+        if tier is None or not pending:
+            return
+        pages: List[int] = []
+        slots: List[int] = []
+        staged_list = []
+        hidden = 0
+        for req in pending:
+            for page, slot in req.pending_pagein:
+                entry = self._pagein_staged.pop(
+                    (slot, tier.generation(slot)), None)
+                if entry is not None:
+                    issued_step, staged = entry
+                    if issued_step < self._step_count:
+                        hidden += 1
+                else:
+                    staged = None            # staged below, with the rest
+                pages.append(page)
+                slots.append(slot)
+                staged_list.append(staged)
+            req.pending_pagein = []
+        now = self._stage_slots(tier, [s for s, st in zip(slots, staged_list)
+                                       if st is None])
+        staged_list = [st if st is not None else now[s]
+                       for s, st in zip(slots, staged_list)]
+        if tier.cuda:
+            compute = torch.cuda.current_stream(self.pool.device)
+            for data, ev in staged_list:
+                compute.wait_event(ev)
+                for layer in data:
+                    for t in layer:
+                        t.record_stream(compute)
+        layer_data = [tuple(torch.stack([d[li][j] for d, _ in staged_list])
+                            for j in range(len(layer)))
+                      for li, layer in enumerate(self.pool.pools)]
+        self.pool.write_pages(pages, layer_data)
+        tier.free_slots(slots)
+        tier.paged_in_pages += len(pages)
+        self.metrics.pagein_pages.inc(len(pages))
+        if hidden:
+            self.metrics.pagein_hidden_pages.inc(hidden)
+
+    def _prefetch_pagein(self) -> None:
+        """Stage the host pages of the next `pagein_prefetch` offloaded
+        waiters at the END of a step, ahead of the admission that maps
+        them, so their copies run under this step's launches. An entry
+        whose slot generation moved on (the waiter was dropped, the slot
+        reused) never resolves and is pruned here."""
+        tier = self.pool.host_tier
+        if tier is None or self.pagein_prefetch <= 0:
+            return
+        for key in list(self._pagein_staged):
+            slot, gen = key
+            if tier.generation(slot) != gen:
+                del self._pagein_staged[key]
+        seen = 0
+        for req in self.scheduler.waiting:
+            if seen >= self.pagein_prefetch:
+                break
+            if req.offload is None:
+                continue
+            seen += 1
+            todo = [s for s in req.offload.slots
+                    if (s, tier.generation(s)) not in self._pagein_staged]
+            for slot, staged in self._stage_slots(tier, todo).items():
+                self._pagein_staged[(slot, tier.generation(slot))] = (
+                    self._step_count, staged)
+
     # ------------------------------------------------------------- step
 
     def step(self) -> List[TokenEvent]:
@@ -660,6 +823,7 @@ class ServingEngine:
         if not self.has_work():
             return []
         self.metrics.mark_active()
+        self._step_count += 1
         t0 = self.metrics.clock()
         events: List[TokenEvent] = []
         # ---- PLAN (host work; pipelined, the previous launch still runs)
@@ -667,9 +831,14 @@ class ServingEngine:
         self._expire_deadlines()
         # admitting against a state that predates the in-flight launch's
         # tokens is safe: its commit only frees pages and slots
-        for req in self.scheduler.admit():
+        admitted = self.scheduler.admit()
+        for req in admitted:
             if req.admit_prefix_tokens:
                 self.metrics.prefix_hit_tokens.inc(req.admit_prefix_tokens)
+        if not self.pipelined:
+            # the page-in fence: every host page an admission mapped is in
+            # the pools before anything this step computes reads it
+            self._fence_pagein(admitted)
         plan = self.scheduler.prefill_plan()
         t_plan = self.metrics.clock() - t0
         self.metrics.host_plan_seconds.inc(t_plan)
@@ -679,10 +848,12 @@ class ServingEngine:
             self.metrics.planned_ahead_steps.inc()
             self.metrics.overlapped_plan_seconds.inc(t_plan)
         if self.pipelined:
-            # ---- COMMIT: drain and replay the previous step's launch;
-            # re-slice the plan after it (a committed fused launch
-            # advanced chunk coverage, and a commit can end a request)
+            # ---- COMMIT: drain and replay the previous step's launch, then
+            # the page-in fence; re-slice the plan after it (a committed
+            # fused launch advanced chunk coverage, and a commit can end a
+            # request)
             events.extend(self._commit_inflight())
+            self._fence_pagein(admitted)
             plan = self.scheduler.prefill_plan()
         # ---- EXECUTE
         fused = bool(self.ragged_batch and plan
@@ -733,6 +904,13 @@ class ServingEngine:
         self.metrics.pool_utilization.set(self.pool.utilization())
         if self.pool.prefix_cache is not None:
             self.metrics.prefix_cached_pages.set(len(self.pool.prefix_cache))
+        tier = self.pool.host_tier
+        if tier is not None:
+            # stage the next resumable requests' pages while this step's
+            # launches still run on the device
+            self._prefetch_pagein()
+            self.metrics.host_tier_bytes.set(tier.bytes_used)
+            self.metrics.host_tier_pages_used.set(tier.used_count)
         self.metrics.step_seconds.inc(self.metrics.clock() - t0)
         tot = self.metrics.step_seconds.value
         blocked = (self.metrics.drain_wait_seconds.value
@@ -1638,6 +1816,32 @@ class ServingEngine:
                           len(req.output_tokens) - 1,
                           finished=reason is not None, finish_reason=reason)
 
+    # -------------------------------------------------------- streaming
+
+    def stream_text(self, request_id: str) -> str:
+        """The detokenized text of a request's generation so far: every
+        output token up to the last byte-complete UTF-8 boundary (a
+        character split across tokens waits for its last byte), and the
+        whole text, dangling bytes replaced, once the request finished.
+        Needs the engine's ``tokenizer``. Safe at any time, after a
+        restore too: the request's detokenizer replays its token history
+        from where it stopped."""
+        if self.tokenizer is None:
+            raise ValueError("stream_text() needs ServingEngine("
+                             "tokenizer=...): an object exposing "
+                             "id_to_bytes(tok) or decode([tok])")
+        req = self._requests.get(request_id)
+        if req is None:
+            raise KeyError(f"unknown request {request_id!r}")
+        d = self._detoks.get(request_id)
+        if d is None:
+            d = self._detoks[request_id] = StreamDetokenizer(self.tokenizer)
+        while not d.finished and d.consumed < len(req.output_tokens):
+            d.push(req.output_tokens[d.consumed])
+        if req.done and not d.finished:
+            d.finish()
+        return d.text
+
     # -------------------------------------------------------------- run
 
     def run(self) -> Dict[str, RequestOutput]:
@@ -1653,12 +1857,230 @@ class ServingEngine:
 
     def release_prefix_cache(self) -> int:
         """Drop the prefix cache's index and its page references:
-        cached-free pages return to the free list, pages still mapped by
-        running sequences stay live. Returns the pages released. After a
-        drain plus this call, check_no_leaks() holds again."""
+        cached-free pages return to the free list (demoted to the host
+        tier when it is on), pages still mapped by running sequences stay
+        live. Returns the pages released. After a drain plus this call,
+        check_no_leaks() holds again."""
         if self.pool.prefix_cache is None:
             return 0
         return self.pool.prefix_cache.clear()
+
+    # ------------------------------------------------ inject / snapshot
+
+    def inject_request(self, prompt_tokens: Sequence[int],
+                       sampling: Optional[SamplingParams] = None, *,
+                       request_id: Optional[str] = None,
+                       output_tokens: Sequence[int] = (),
+                       arrival_index: Optional[int] = None,
+                       num_preemptions: int = 0,
+                       elapsed_s: float = 0.0,
+                       first_token_elapsed_s: Optional[float] = None,
+                       offload: Optional[OffloadRecord] = None) -> str:
+        """Admit a request WITH prior generation state: the restore
+        primitive. The request re-enters the queue with its prompt AND
+        partial ``output_tokens``; admission re-prefills the whole context
+        and the step-indexed sample keys keep the continued stream token
+        for token. Keeping ``arrival_index`` keeps seedless sampling
+        streams and auto ids (the counter moves past it). ``offload`` (a
+        record of slots already in this engine's host tier) resumes by
+        page-in instead. Bypasses the bounded-queue shed gate: recovered
+        requests are never shed by their own restore."""
+        sampling = sampling or SamplingParams()
+        _refuse_session(sampling)
+        if arrival_index is not None:
+            ensure_arrival_counter_above(int(arrival_index))
+            req = Request(prompt_tokens=list(map(int, prompt_tokens)),
+                          sampling=sampling, request_id=request_id or "",
+                          arrival_index=int(arrival_index))
+        else:
+            req = Request(prompt_tokens=list(map(int, prompt_tokens)),
+                          sampling=sampling, request_id=request_id or "")
+        if len(req.prompt_tokens) + sampling.max_tokens > self.max_model_len:
+            raise ValueError(
+                f"prompt({len(req.prompt_tokens)}) + max_tokens"
+                f"({sampling.max_tokens}) exceeds max_model_len="
+                f"{self.max_model_len}")
+        if req.request_id in self._requests:
+            raise ValueError(f"request {req.request_id!r} already present")
+        req.output_tokens = list(map(int, output_tokens))
+        req.num_preemptions = int(num_preemptions)
+        now = self.metrics.clock()
+        req.arrival_time = now - float(elapsed_s)
+        if first_token_elapsed_s is not None:
+            req.first_token_time = req.arrival_time + \
+                float(first_token_elapsed_s)
+        if offload is not None:
+            req.offload = offload
+            req.phase = "offloaded"
+        self._requests[req.request_id] = req
+        self.scheduler.add(req)
+        self.metrics.requests_added.inc()
+        self.metrics.queue_depth.set(self.scheduler.queue_depth)
+        return req.request_id
+
+    def snapshot(self) -> dict:
+        """Crash-safe serialization of ALL request state (prompts,
+        generated tokens, sampling params, arrival order) and the
+        finished outputs, JSON-serializable, in the JAX package's layout.
+        Device and host-tier state is left out: `restore` rebuilds KV by
+        recompute-on-resume, which the step-indexed sample keys make
+        token-exact, and the prefix cache's index (it points at device
+        pages) starts empty. Output tokens hold only committed tokens: an
+        in-flight launch of the pipelined loop is recomputed."""
+        now = self.metrics.clock()
+
+        def req_state(req: Request) -> dict:
+            sp = asdict(req.sampling)
+            sp["stop_token_ids"] = list(sp["stop_token_ids"])
+            return {
+                "request_id": req.request_id,
+                "prompt_tokens": list(req.prompt_tokens),
+                "output_tokens": list(req.output_tokens),
+                "sampling": sp,
+                "arrival_index": req.arrival_index,
+                "num_preemptions": req.num_preemptions,
+                "elapsed_s": now - req.arrival_time,
+                "first_token_elapsed_s": (
+                    req.first_token_time - req.arrival_time
+                    if req.first_token_time is not None else None),
+            }
+
+        # resume priority: running requests first (admission order), then
+        # the waiting queue left to right (preempted first)
+        reqs = [req_state(r) for r in (*self.scheduler.running,
+                                       *self.scheduler.waiting)]
+        return {
+            "version": 1,
+            "config": {
+                "num_blocks": self.pool.num_blocks,
+                "block_size": self.pool.block_size,
+                "max_batch_size": self.max_batch_size,
+                "max_model_len": self.max_model_len,
+                "max_queue_depth": self.max_queue_depth,
+                "shed_policy": self.shed_policy,
+                "admission_watermark": self.admission_watermark,
+                "max_step_retries": self.max_step_retries,
+                "retry_backoff_s": self.retry_backoff_s,
+                "nan_policy": self.nan_policy,
+                "max_prefill_tokens_per_step":
+                    self.max_prefill_tokens_per_step,
+                "enable_prefix_cache": self.enable_prefix_cache,
+                # the tier's knobs ride along, its pages do not (pinned
+                # host memory dies with the process)
+                "host_tier_pages": self.host_tier_pages,
+                "host_tier_headroom": self.host_tier_headroom,
+                "pagein_prefetch": self.pagein_prefetch,
+                "ragged_batch": self.ragged_batch,
+                "decode_horizon": self.decode_horizon,
+                "pipelined": self.pipelined,
+                "horizon_sampling": self.horizon_sampling,
+                "horizon_early_stop": self.horizon_early_stop,
+                "spill_async": self.spill_async,
+                "role": "mixed",
+                "num_speculative_tokens": self.num_speculative_tokens,
+                "spec_max_ngram": self.spec_max_ngram,
+                "spec_min_ngram": self.spec_min_ngram,
+                "spec_adaptive_k": self.spec_adaptive_k,
+                "spec_draft_model": self.spec_draft_model,
+                "spec_draft_blocks": self.spec_draft_blocks,
+                "spec_ngram_window": self.spec_ngram_window,
+                # the dtypes ride along for the record; restore follows
+                # the new runner's (recompute rebuilds KV from tokens)
+                "kv_dtype": self.kv_dtype,
+                "weight_dtype": getattr(self.runner, "weight_dtype",
+                                        "fp32"),
+                "weight_group_size": getattr(self.runner,
+                                             "weight_group_size", 128),
+                "comm_dtype": getattr(self.runner, "comm_dtype", "fp32"),
+                "mesh_axes": None,
+            },
+            "requests": reqs,
+            "finished": [asdict(o) for o in self._outputs.values()],
+        }
+
+    @classmethod
+    def restore(cls, runner: PagedModelRunner, state: dict, *,
+                metrics: Optional[EngineMetrics] = None,
+                tokenizer=None,
+                kv_store=None, kv_store_owner: Optional[str] = None,
+                sleep_fn: Optional[Callable[[float], None]] = None,
+                audit: Optional[bool] = None) -> "ServingEngine":
+        """Rebuild an engine from `snapshot` on a fresh runner. Every
+        in-flight request re-enters the queue with its prompt AND partial
+        generation, and admission re-prefills its whole context, so the
+        continued stream equals an uninterrupted run's. ``kv_store`` and
+        ``kv_store_owner`` take their defaults only (ROADMAP.md item
+        11)."""
+        if state.get("version") != 1:
+            raise ValueError(f"unknown snapshot version {state.get('version')}")
+        cfg = state["config"]
+        draft_model = cfg.get("spec_draft_model")
+        if draft_model == "custom":
+            # a caller-built draft runner cannot be rebuilt from JSON; the
+            # streams stay exact (acceptance never depends on the draft)
+            logger.info("restore: snapshot used a custom draft-model "
+                        "instance; restoring with the n-gram proposer")
+            draft_model = None
+        eng = cls(runner, num_blocks=cfg["num_blocks"],
+                  block_size=cfg["block_size"],
+                  max_batch_size=cfg["max_batch_size"],
+                  max_model_len=cfg["max_model_len"],
+                  max_queue_depth=cfg["max_queue_depth"],
+                  shed_policy=cfg["shed_policy"],
+                  admission_watermark=cfg["admission_watermark"],
+                  max_step_retries=cfg["max_step_retries"],
+                  retry_backoff_s=cfg["retry_backoff_s"],
+                  nan_policy=cfg["nan_policy"],
+                  max_prefill_tokens_per_step=cfg.get(
+                      "max_prefill_tokens_per_step"),
+                  enable_prefix_cache=cfg.get("enable_prefix_cache", False),
+                  host_tier_pages=cfg.get("host_tier_pages", 0),
+                  host_tier_headroom=cfg.get("host_tier_headroom", False),
+                  pagein_prefetch=cfg.get("pagein_prefetch", 2),
+                  ragged_batch=cfg.get("ragged_batch", False),
+                  decode_horizon=cfg.get("decode_horizon", 1),
+                  pipelined=cfg.get("pipelined", False),
+                  horizon_sampling=cfg.get("horizon_sampling", False),
+                  horizon_early_stop=cfg.get("horizon_early_stop", False),
+                  spill_async=cfg.get("spill_async", False),
+                  role=cfg.get("role", "mixed"),
+                  num_speculative_tokens=cfg.get("num_speculative_tokens", 0),
+                  spec_max_ngram=cfg.get("spec_max_ngram", 3),
+                  spec_min_ngram=cfg.get("spec_min_ngram", 1),
+                  spec_adaptive_k=cfg.get("spec_adaptive_k", False),
+                  spec_draft_model=draft_model,
+                  spec_draft_blocks=cfg.get("spec_draft_blocks"),
+                  spec_ngram_window=cfg.get("spec_ngram_window"),
+                  tokenizer=tokenizer,
+                  kv_store=kv_store, kv_store_owner=kv_store_owner,
+                  metrics=metrics, sleep_fn=sleep_fn, audit=audit)
+        for r in state["requests"]:
+            sp = dict(r["sampling"])
+            sp["stop_token_ids"] = tuple(sp.get("stop_token_ids", ()))
+            eng.inject_request(
+                r["prompt_tokens"], SamplingParams(**sp),
+                request_id=r["request_id"],
+                output_tokens=r["output_tokens"],
+                arrival_index=int(r["arrival_index"]),
+                num_preemptions=int(r.get("num_preemptions", 0)),
+                elapsed_s=float(r.get("elapsed_s", 0.0)),
+                first_token_elapsed_s=r.get("first_token_elapsed_s"))
+        for o in state.get("finished", []):
+            eng._outputs[o["request_id"]] = RequestOutput(**o)
+        eng.metrics.queue_depth.set(eng.scheduler.queue_depth)
+        snap_q = (cfg.get("kv_dtype", "fp32"),
+                  cfg.get("weight_dtype", "fp32"),
+                  cfg.get("comm_dtype", "fp32"),
+                  cfg.get("weight_group_size", 128))
+        run_q = (eng.kv_dtype, getattr(runner, "weight_dtype", "fp32"),
+                 getattr(runner, "comm_dtype", "fp32"),
+                 getattr(runner, "weight_group_size", 128))
+        if snap_q != run_q:
+            # legal (restore recomputes KV from tokens), but the continued
+            # stream follows the new runner's quantization
+            logger.info("restore: snapshot kv/weight dtype %s -> runner "
+                        "%s", snap_q, run_q)
+        return eng
 
 
 def naive_generate(runner: PagedModelRunner, prompt_tokens: Sequence[int],

@@ -35,8 +35,14 @@ admission, and forked before any write (`SequenceKV.ensure_writable`,
 the stream the runner's steps and graph replays run on, so it is ordered
 before the write that follows it.
 
-Not ported yet (ROADMAP.md 'Still to port'): the host tier (item 9) and
-mesh-sharded pools (item 10).
+The host tier (`HostKVTier`, `KVCachePool.enable_host_tier`): pinned host
+page buffers laid out like the pool (one per layer per pool array), fed
+by preemption spills and by `PrefixCache` eviction through
+``evict_hook``; a resumed request's pages come back by copy, bit for bit
+(`OffloadRecord`). On the card every copy runs on the tier's side stream,
+ordered against the compute stream by events (`HostKVTier`). The
+host-wide page store of the JAX package (``store=``) belongs to the
+serving tier (ROADMAP.md item 11); mesh-sharded pools are item 10.
 
 A departure: the JAX `chain_seed` folds a tag in with Python's `hash` of a
 tuple holding a string, which changes from one process to the next
@@ -46,9 +52,12 @@ the same in every process.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import zlib
 from bisect import insort
-from typing import Dict, List, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -275,8 +284,12 @@ class PrefixCache:
     wall time) when the allocator runs dry; acquiring a page for a new
     match increfs it back above 1, which pins it. Cached content is never
     written: any page with refcount > 1 is forked before a write
-    (`SequenceKV.ensure_writable`). The JAX package's host-tier parts
-    (`evict_hook`, demoted-prefix matches) wait for ROADMAP.md item 9."""
+    (`SequenceKV.ensure_writable`).
+
+    ``evict_hook(page, chain_hash, reason)`` is called for every page
+    leaving the index, reason "evict" (LRU reclaim) or "clear", while the
+    page is still allocated and its content intact: the host tier demotes
+    it there, and a later `match_tiered` finds it on the host."""
 
     def __init__(self, pool: "KVCachePool"):
         self.pool = pool
@@ -288,6 +301,7 @@ class PrefixCache:
         self.hit_pages = 0
         self.miss_pages = 0
         self.evictions = 0
+        self.evict_hook: Optional[Callable[[int, int, str], None]] = None
 
     def __len__(self) -> int:
         return len(self._index)
@@ -324,9 +338,27 @@ class PrefixCache:
 
     def match_tiered(self, tokens: Sequence[int], tag: Optional[str] = None
                      ) -> Tuple[List[Tuple[int, int]], List[int]]:
-        """`match` and the host tier's demoted pages after it; the host
-        tier is ROADMAP.md item 9, so its part is always empty."""
-        return self.match(tokens, tag), []
+        """`match` extended into the host tier: after the device index
+        misses, the chain continues against the tier's demoted pages.
+        Returns (device matches as `match` gives them, host chain hashes);
+        the scheduler funds a fresh device page for each host hash and the
+        engine pages it in before the step that reads it. The same strict
+        cap as `match`."""
+        matched = self.match(tokens, tag)
+        tier = self.pool.host_tier
+        host: List[int] = []
+        if tier is not None and tier.prefix_count:
+            limit = (len(tokens) - 1) // self.block_size
+            prev = matched[-1][0] if matched else self.pool.chain_seed(tag)
+            for i in range(len(matched), limit):
+                h = page_content_hash(
+                    prev,
+                    tokens[i * self.block_size:(i + 1) * self.block_size])
+                if not tier.has_prefix(h):
+                    break
+                host.append(h)
+                prev = h
+        return matched, host
 
     def acquire(self, matched: List[Tuple[int, int]]) -> None:
         """Pin a match for a sequence: one incref per page and an LRU
@@ -362,6 +394,7 @@ class PrefixCache:
                 self._page_hash[page] = h
                 self.pool.allocator.incref(page)   # the cache's own ref
                 self._touch(page)
+                self._drop_host_duplicate(h)
             kv.hash_chain.append(h)
             kv.registered_pages += 1
             added += 1
@@ -369,15 +402,25 @@ class PrefixCache:
 
     def register_page(self, page: int, h: int) -> bool:
         """Index an already-written page under its chain hash, first
-        writer wins as in `register_seq`. Returns False if the hash is
-        already indexed (the page then stays private)."""
+        writer wins as in `register_seq`: the re-entry of a page promoted
+        from the host tier. Returns False if the hash is already indexed
+        (the page then stays private)."""
         if h in self._index:
             return False
         self._index[h] = page
         self._page_hash[page] = h
         self.pool.allocator.incref(page)
         self._touch(page)
+        self._drop_host_duplicate(h, promoted=True)
         return True
+
+    def _drop_host_duplicate(self, h: int, promoted: bool = False) -> None:
+        """Keep chain hashes device-live XOR host-resident (the auditor's
+        tier invariant): a recomputed registration of a hash the host tier
+        still holds drops the host copy."""
+        tier = self.pool.host_tier
+        if tier is not None:
+            tier.drop_stale_prefix(h, promoted=promoted)
 
     # ---------------------------------------------------------- eviction
 
@@ -393,6 +436,10 @@ class PrefixCache:
                           if alloc.refcount(p) == 1),
                          key=lambda p: self._page_tick[p])[:n]
         for page in victims:
+            if self.evict_hook is not None:
+                # before the decref: the page is allocated and intact, so
+                # the host tier can copy it out
+                self.evict_hook(page, self._page_hash[page], "evict")
             self._unregister(page)
             alloc.decref(page)         # rc 1 -> 0: back to the free list
             self.evictions += 1
@@ -406,12 +453,447 @@ class PrefixCache:
     def clear(self) -> int:
         """Drop the whole index and the cache's references: cached-free
         pages return to the free list, pages still mapped by running
-        sequences stay live. Returns the number of pages dropped."""
+        sequences stay live. Fires evict_hook(page, hash, "clear") for
+        every dropped page, as `evict` does. Returns the number of pages
+        dropped."""
         pages = list(self._page_hash)
         for page in pages:
+            if self.evict_hook is not None:
+                self.evict_hook(page, self._page_hash[page], "clear")
             self._unregister(page)
             self.pool.allocator.decref(page)
         return len(pages)
+
+
+@dataclass
+class OffloadRecord:
+    """One preempted sequence's host-resident KV state.
+
+    ``slots[j]`` holds the host copy of the sequence's page index
+    ``start_page + j``; token positions [0, covered_tokens) are restorable
+    from the prefix cache's pages for [0, start_page) and these slots. The
+    record rides `Request.offload` while the request waits with phase
+    "offloaded"; admission connects it to the matched prefix (a page-in
+    resume) or drops it (the recompute fallback)."""
+
+    start_page: int                        # first page index the slots cover
+    covered_tokens: int                    # positions [0, covered) restorable
+    slots: List[int] = field(default_factory=list)
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """The same storage viewed as bytes (the last dimension widened by the
+    itemsize): pages move as opaque bytes, fp8 and bool planes included."""
+    return t if t.dtype == torch.uint8 else t.view(torch.uint8)
+
+
+def consecutive_runs(slots: Sequence[int]):
+    """(position, first slot, length) of each run of consecutive slots."""
+    out = []
+    for j, s in enumerate(slots):
+        if out and s == out[-1][1] + out[-1][2]:
+            out[-1][2] += 1
+        else:
+            out.append([j, s, 1])
+    return out
+
+
+class HostKVTier:
+    """Host-RAM page tier under the device pool, in private-buffer mode.
+
+    Host buffers mirror the pool layout exactly: one buffer per layer per
+    pool array, [max_pages, *page_shape] in the pool's dtype (fp32 / 16-bit
+    and fp8 pools (k, v); int8 pools the codes AND the scale rows; a mixed
+    pool its tag bits too), so a page-in is bit-identical to the spilled
+    page. On a CUDA pool the buffers are pinned (a failed pin raises; no
+    pageable fallback), on the CPU plain. Slots go out lowest-id-first
+    from a sorted free list, as the device allocator's pages do.
+
+    Two populations share the buffers, each slot owned by one party (the
+    auditor checks it): offload slots, owned by one waiting request's
+    `OffloadRecord` (preemption spilled its exclusively owned pages), and
+    prefix slots, owned by the tier's hash index (`PrefixCache` eviction
+    demoted a full cached page through ``evict_hook``; a later tiered
+    match promotes it onto a fresh device page). A full tier blocks
+    nothing: a spill copies what fits and drops the rest
+    (``host_tier_drops``), and those resumes recompute. Every spilled slot
+    records a CRC-32 content hash over its bytes (`content_hash`, the JAX
+    package's order, so equal bytes hash equally in both packages); the
+    auditor spot-checks a rotating sample.
+
+    The copies on the card. A spill gathers the pages into a fresh device
+    tensor on the compute stream (the snapshot: the pool is written in
+    place, later writes cannot reach it), records an event, and the
+    tier's side stream copies slot runs into the pinned buffer after it;
+    the gathered tensor is held for the side stream (``record_stream``).
+    A sync spill waits for the copies; with ``async_spill`` a worker
+    thread waits on the copies' event and hashes, so the engine loop never
+    blocks on a spill. A page-in reads the pinned slot only through
+    copies on the same side stream (the engine's `_stage_slots`), so it is
+    ordered after the slot's spill without a join, and a later spill into
+    a reused slot waits on the slot's last read event. Host readers of a
+    slot's bytes (`slot_hash`, `read_slot` on the CPU, `sync`) join the
+    slot's pending spill job first; `blocking_joins` counts the joins that
+    waited. A worker job writes a slot's hash only while the slot keeps
+    the generation it was spilled at, so a slot freed and reused under a
+    pending job never takes the old tenant's hash.
+
+    ``store`` (the JAX package's host-wide SharedKVStore) raises: that
+    mode belongs to the serving tier, ROADMAP.md item 11."""
+
+    def __init__(self, pool: "KVCachePool", max_pages: int, metrics=None,
+                 async_spill: bool = False, store=None,
+                 owner: str = "engine"):
+        if store is not None:
+            raise NotImplementedError(
+                "HostKVTier(store=...): the host-wide SharedKVStore "
+                "belongs to the serving tier (router, replicas), not "
+                "ported yet: ROADMAP.md 'Still to port' item 11 (tier)")
+        if max_pages < 1:
+            raise ValueError("host tier needs max_pages >= 1 (omit the "
+                             "tier entirely to disable offload)")
+        self.pool = pool
+        self.store = None
+        self.owner = str(owner)
+        self.max_pages = int(max_pages)
+        self.metrics = metrics             # optional EngineMetrics mirror
+        self.async_spill = bool(async_spill)
+        self._executor = None
+        self._pending: Dict[int, object] = {}     # slot -> Future
+        # jobs of slots freed before they were joined: read once done (the
+        # next spill or free, or sync()), so a failed copy raises on the
+        # engine loop and is never lost
+        self._orphans: List[object] = []
+        self._lock = threading.Lock()             # _hash / _gen vs worker
+        self.cuda = pool.device.type == "cuda"
+        self._bufs: List[Tuple[torch.Tensor, ...]] = [
+            tuple(self._host_buffer(a) for a in layer)
+            for layer in pool.pools]
+        self._byte_bufs = [tuple(_bytes(b) for b in layer)
+                           for layer in self._bufs]
+        # the side stream of every copy between the pool and the buffers,
+        # and each slot's last read (a page-in's host-to-device copy)
+        self._stream = (torch.cuda.Stream(pool.device) if self.cuda
+                        else None)
+        self._read_events: Dict[int, object] = {}
+        self._free: List[int] = list(range(self.max_pages))   # ascending
+        self._hash: Dict[int, Optional[int]] = {}   # slot -> content hash
+        self._gen: Dict[int, int] = {}              # slot -> reuse count
+        self._prefix: Dict[int, int] = {}           # chain hash -> slot
+        self._prefix_slot: Dict[int, int] = {}      # slot -> chain hash
+        # cumulative accounting (the engine mirrors it into its metrics)
+        self.spilled_pages = 0
+        self.paged_in_pages = 0
+        self.dropped_pages = 0              # spills a full tier refused
+        self.resumes = 0                    # page-in resumes served
+        self.fallbacks = 0                  # records dropped to recompute
+        self.sync_spill_reads = 0           # spills the loop waited for
+        self.blocking_joins = 0             # joins that waited on a job
+
+    def _host_buffer(self, a: torch.Tensor) -> torch.Tensor:
+        shape = (self.max_pages,) + tuple(a.shape[1:])
+        if not self.cuda:
+            return torch.zeros(shape, dtype=a.dtype)
+        buf = torch.empty(shape, dtype=a.dtype, pin_memory=True)
+        if not buf.is_pinned():
+            raise RuntimeError(
+                f"HostKVTier: a {shape} {a.dtype} host buffer did not pin; "
+                "the tier refuses pageable memory on a CUDA pool")
+        return buf
+
+    # ------------------------------------------------------- accounting
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_count(self) -> int:
+        return len(self._hash)
+
+    @property
+    def prefix_count(self) -> int:
+        return len(self._prefix)
+
+    @property
+    def bytes_used(self) -> int:
+        """Host bytes the used slots hold: the device pool's per-page cost
+        (code and scale bytes on int8)."""
+        return self.used_count * self.pool.page_bytes()
+
+    @property
+    def capacity_bytes(self) -> int:
+        return self.max_pages * self.pool.page_bytes()
+
+    def generation(self, slot: int) -> int:
+        """Reuse generation of a slot, bumped on every free: a staged
+        page-in keyed by (slot, generation) never serves a later
+        tenant's bytes."""
+        return self._gen.get(slot, 0)
+
+    def slot_hash(self, slot: int) -> int:
+        self._wait_slot(slot)
+        return self._hash[slot]
+
+    def stream(self):
+        """The context of the tier's side stream (a no-op on the CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def note_read(self, *slots: int):
+        """Record the end of a page-in's read of ``slots`` on the side
+        stream (a later spill into one of them waits for it); returns the
+        event, None on the CPU."""
+        if self._stream is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(self._stream)
+        for s in slots:
+            self._read_events[s] = ev
+        return ev
+
+    # ------------------------------------------ async spill worker plumbing
+
+    def _ensure_executor(self):
+        if self._executor is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._executor = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="kv-spill")
+        return self._executor
+
+    def _wait_slot(self, slot: int) -> None:
+        """Join the pending spill job of one slot (a no-op without one).
+        `blocking_joins` counts the joins that actually waited."""
+        fut = self._pending.pop(slot, None)
+        if fut is not None:
+            if not fut.done():
+                self.blocking_joins += 1
+            fut.result()
+
+    def _reap(self) -> None:
+        """Read the finished jobs of freed slots (a failure raises here)."""
+        done, running = [], []
+        for fut in self._orphans:
+            (done if fut.done() else running).append(fut)
+        self._orphans = running
+        for fut in done:
+            fut.result()
+
+    def sync(self) -> None:
+        """Join every pending spill job: the fence the auditor runs before
+        it trusts slot contents and hashes."""
+        pending, self._pending = self._pending, {}
+        orphans, self._orphans = self._orphans, []
+        for fut in {id(f): f for f in (*pending.values(), *orphans)
+                    }.values():
+            fut.result()
+
+    def _spill_job(self, slots: List[int], gens: List[int], gathered,
+                   done) -> None:
+        """The bytes' half of a spill: on the CPU the copy from the
+        gathered snapshot, on the card a wait on the side stream's copies;
+        then each slot's hash, written only while the slot keeps the
+        generation it was spilled at."""
+        if done is None:
+            self._copy_runs(slots, gathered)
+        else:
+            done.synchronize()
+        for s, g in zip(slots, gens):
+            h = self.content_hash(s)
+            with self._lock:
+                if self._gen.get(s, 0) == g and s in self._hash:
+                    self._hash[s] = h
+
+    def _copy_runs(self, slots, gathered) -> None:
+        """Copy the gathered pages into their slots, one copy a run of
+        consecutive slots a pool array (on the side stream, non-blocking,
+        on the card)."""
+        runs = consecutive_runs(slots)
+        for layer_bufs, layer_data in zip(self._byte_bufs, gathered):
+            for buf, data in zip(layer_bufs, layer_data):
+                for j, s, n in runs:
+                    buf[s:s + n].copy_(data[j:j + n], non_blocking=self.cuda)
+
+    def content_hash(self, slot: int) -> int:
+        """CRC-32 over the slot's bytes across every layer buffer, in the
+        JAX package's order: recorded at spill time, re-checked by the
+        auditor, the same in every process (and for the same bytes in
+        both packages)."""
+        h = 0x9E3779B9
+        for layer in self._byte_bufs:
+            for buf in layer:
+                h = zlib.crc32(buf[slot].numpy(), h)
+        return h
+
+    # ------------------------------------------------------------ spill
+
+    def spill_pages(self, device_pages: Sequence[int]) -> List[int]:
+        """Copy device pages into host slots. Takes as many as fit; the
+        overflow is dropped and counted, never an error. Returns the
+        slots, aligned with the leading device_pages they hold."""
+        self._reap()
+        n = min(len(device_pages), len(self._free))
+        slots = self._free[:n]
+        del self._free[:n]
+        dropped = len(device_pages) - n
+        if dropped:
+            self.dropped_pages += dropped
+            if self.metrics is not None:
+                self.metrics.host_tier_drops.inc(dropped)
+        if n == 0:
+            return []
+        gathered = [tuple(_bytes(a) for a in layer)
+                    for layer in self.pool.gather_pages(
+                        list(device_pages)[:n])]
+        with self._lock:
+            for s in slots:
+                self._hash[s] = None
+        gens = [self.generation(s) for s in slots]
+        done = None
+        if self.cuda:
+            compute = torch.cuda.current_stream(self.pool.device)
+            self._stream.wait_stream(compute)
+            for s in slots:
+                ev = self._read_events.pop(s, None)
+                if ev is not None:
+                    self._stream.wait_event(ev)
+            with torch.cuda.stream(self._stream):
+                self._copy_runs(slots, gathered)
+                done = torch.cuda.Event()
+                done.record(self._stream)
+            for layer in gathered:
+                for t in layer:
+                    t.record_stream(self._stream)
+        if self.async_spill:
+            fut = self._ensure_executor().submit(self._spill_job, slots,
+                                                 gens, gathered, done)
+            for s in slots:
+                self._pending[s] = fut
+        else:
+            self.sync_spill_reads += 1
+            self._spill_job(slots, gens, gathered, done)
+        self.spilled_pages += n
+        if self.metrics is not None:
+            self.metrics.offload_spill_pages.inc(n)
+        return slots
+
+    def spill_sequence(self, kv: "SequenceKV", covered_tokens: int
+                       ) -> Optional[OffloadRecord]:
+        """Spill a preemption victim's exclusively owned pages (the ones
+        release() sends back to the free list), covering token positions
+        [registered_pages * block_size, covered_tokens). Leading
+        registered pages stay on the device in the PrefixCache at
+        refcount 1 and re-match at re-admission (or are demoted through
+        evict_hook and re-match on the host). Returns None when nothing is
+        spillable (the recompute path applies); a partial fit trims
+        covered_tokens to the spilled page boundary."""
+        bs = self.pool.block_size
+        covered = min(int(covered_tokens), kv.num_tokens)
+        start = kv.registered_pages
+        end = -(-covered // bs) if covered > 0 else 0
+        if end <= start:
+            return None
+        cand = kv.pages[start:end]
+        alloc = self.pool.allocator
+        if any(alloc.refcount(p) != 1 for p in cand):
+            # a shared page past the registered range would break the
+            # record's contiguity: declined, counted
+            self.note_fallback()
+            return None
+        slots = self.spill_pages(cand)
+        if not slots:
+            return None
+        if len(slots) < len(cand):
+            covered = (start + len(slots)) * bs
+        return OffloadRecord(start_page=start, covered_tokens=covered,
+                             slots=slots)
+
+    # -------------------------------------------- prefix demotion (hook)
+
+    def on_evict(self, page: int, chain_hash: int, reason: str) -> bool:
+        """PrefixCache.evict_hook target: demote a full cached page to the
+        host before the device page is reclaimed, on LRU eviction and on
+        clear() alike. Returns False when the tier is full (the page
+        dies)."""
+        if chain_hash in self._prefix:      # pragma: no cover - the index
+            return False                    # is hash-unique
+        slots = self.spill_pages([page])
+        if not slots:
+            return False
+        self._prefix[chain_hash] = slots[0]
+        self._prefix_slot[slots[0]] = chain_hash
+        return True
+
+    def has_prefix(self, h: int) -> bool:
+        return h in self._prefix
+
+    def promote(self, h: int) -> Optional[int]:
+        """Claim a demoted prefix page for re-promotion: the hash leaves
+        the host index (device-live XOR host-resident) and the slot stays
+        held until the engine's fence pages it in and frees it."""
+        slot = self._prefix.pop(h)
+        del self._prefix_slot[slot]
+        return slot
+
+    def drop_stale_prefix(self, h: int, promoted: bool = False) -> None:
+        """A recomputed registration of ``h`` supersedes the host copy:
+        its slot is freed (a promoted one already left the index)."""
+        if self.has_prefix(h):
+            self.free_slots([self.promote(h)])
+
+    # ---------------------------------------------------------- page-in
+
+    def read_slots(self, first: int, n: int
+                   ) -> List[Tuple[torch.Tensor, ...]]:
+        """The pages of the n consecutive slots from ``first``: per layer a
+        tuple of [n, *page_shape] arrays. On the CPU the slots' pending
+        spill jobs are joined and the arrays are copies (a slot may be
+        reused while they are held). On the card they are the pinned
+        slots themselves, for copies on the side stream only (`stream`):
+        those run after the slots' spill copies, so no join is needed, and
+        `note_read` marks their end for the slots' next spills."""
+        if self.cuda:
+            return [tuple(buf[first:first + n] for buf in layer)
+                    for layer in self._bufs]
+        for s in range(first, first + n):
+            self._wait_slot(s)
+        return [tuple(buf[first:first + n].clone() for buf in layer)
+                for layer in self._bufs]
+
+    def read_slot(self, slot: int) -> List[Tuple[torch.Tensor, ...]]:
+        """One slot's per-layer page arrays, as `read_slots` gives them."""
+        return [tuple(a[0] for a in layer)
+                for layer in self.read_slots(slot, 1)]
+
+    def free_slots(self, slots: Sequence[int]) -> None:
+        """Return slots to the tier, bumping each slot's generation (a
+        pending worker job of the slot then leaves its hash alone, and a
+        staged page-in keyed by the old generation never resolves)."""
+        with self._lock:
+            for s in slots:
+                if s not in self._hash:
+                    raise ValueError(f"double free of host slot {s}")
+                del self._hash[s]
+                fut = self._pending.pop(s, None)
+                if fut is not None:
+                    self._orphans.append(fut)
+                h = self._prefix_slot.pop(s, None)
+                if h is not None:               # dropped, never promoted
+                    del self._prefix[h]
+                self._gen[s] = self._gen.get(s, 0) + 1
+                insort(self._free, s)
+
+    def note_resume(self) -> None:
+        self.resumes += 1
+        if self.metrics is not None:
+            self.metrics.offload_resumes.inc()
+
+    def note_fallback(self) -> None:
+        self.fallbacks += 1
+        if self.metrics is not None:
+            self.metrics.offload_recompute_fallbacks.inc()
 
 
 def check_kv_dtype(kv_dtype: str, context: str) -> None:
@@ -460,6 +942,7 @@ class KVCachePool:
         self.device = resolve_device(device)
         self.allocator = BlockAllocator(num_blocks)
         self.prefix_cache: Optional[PrefixCache] = None
+        self.host_tier: Optional[HostKVTier] = None
         shape = (num_blocks, block_size, n_kv_heads, head_dim)
 
         def zeros(shp, dt):
@@ -521,7 +1004,53 @@ class KVCachePool:
         if self.prefix_cache is None:
             self.prefix_cache = PrefixCache(self)
             self.allocator.evictor = self.prefix_cache
+            if self.host_tier is not None:
+                self.prefix_cache.evict_hook = self.host_tier.on_evict
         return self.prefix_cache
+
+    def enable_host_tier(self, max_pages: int, metrics=None,
+                         async_spill: bool = False, store=None,
+                         owner: str = "engine") -> HostKVTier:
+        """Turn on the host-RAM tier (idempotent): preemption spills
+        exclusively owned pages to host buffers, and prefix-cache eviction
+        demotes cached pages through evict_hook instead of dropping them.
+        ``async_spill`` moves the wait for a spill's copies onto a worker
+        thread; ``store`` raises (ROADMAP.md item 11)."""
+        if self.host_tier is None:
+            self.host_tier = HostKVTier(self, max_pages, metrics=metrics,
+                                        async_spill=async_spill,
+                                        store=store, owner=owner)
+            if self.prefix_cache is not None:
+                self.prefix_cache.evict_hook = self.host_tier.on_evict
+        return self.host_tier
+
+    def gather_pages(self, pages: Sequence[int]) -> List[Tuple]:
+        """The named pages across every layer's pool arrays, gathered into
+        fresh tensors on the pool's device (on the current stream, no
+        sync): a snapshot later in-place writes of the pool cannot reach.
+        Gathered as bytes, so fp8 and bool planes move like any page."""
+        idx = torch.tensor(list(pages), dtype=torch.long, device=self.device)
+        return [tuple(_bytes(a).index_select(0, idx).view(a.dtype)
+                      for a in layer) for layer in self.pools]
+
+    def read_pages(self, pages: Sequence[int]
+                   ) -> List[Tuple[torch.Tensor, ...]]:
+        """Host (CPU) copies of the named pages across every layer's pool
+        arrays: one gather a pool array, then one blocking copy each."""
+        return [tuple(a.cpu() for a in layer)
+                for layer in self.gather_pages(pages)]
+
+    def write_pages(self, pages: Sequence[int], layer_data) -> None:
+        """Scatter page contents into the named pages, IN PLACE on the
+        current stream: the fence half of a page-in. ``layer_data`` mirrors
+        `pools`, per layer a tuple of [len(pages), *page_shape] tensors
+        (staged on the device by the engine, or CPU tensors), cast to the
+        pool array's dtype when they differ."""
+        idx = torch.tensor(list(pages), dtype=torch.long, device=self.device)
+        for layer, data in zip(self.pools, layer_data):
+            for a, d in zip(layer, data):
+                d = torch.as_tensor(d).to(device=self.device, dtype=a.dtype)
+                _bytes(a).index_copy_(0, idx, _bytes(d.contiguous()))
 
     def copy_page(self, src: int, dst: int) -> None:
         """Copy page ``src`` into page ``dst`` across every layer's pools,

@@ -131,6 +131,22 @@ class EngineMetrics:
         # 1 - (drain waits + overlapped planning) / step time, set after
         # every step: the loop time in which the device plausibly waited
         self.device_idle_fraction = Gauge("device_idle_fraction")
+        # the host KV tier: device pages copied to the host (preemption
+        # spills and prefix demotions), pages restored to the device, and
+        # of those the ones whose host-to-device copy was issued in an
+        # EARLIER step than the fence that consumed it (a step of device
+        # work to hide behind); resumed requests by path; spills a full
+        # tier refused (those resumes recompute); the host bytes and
+        # slots in use after each step
+        self.offload_spill_pages = Counter("offload_spill_pages")
+        self.pagein_pages = Counter("pagein_pages")
+        self.pagein_hidden_pages = Counter("pagein_hidden_pages")
+        self.offload_resumes = Counter("offload_resumes")
+        self.offload_recompute_fallbacks = Counter(
+            "offload_recompute_fallbacks")
+        self.host_tier_drops = Counter("host_tier_drops")
+        self.host_tier_bytes = Gauge("host_tier_bytes")
+        self.host_tier_pages_used = Gauge("host_tier_pages_used")
         self.decode_steps = Counter("decode_steps")
         self.queue_depth = Gauge("queue_depth")
         self.running = Gauge("running")
@@ -182,6 +198,13 @@ class EngineMetrics:
         p = self.spec_proposed_tokens.value
         return self.spec_accepted_tokens.value / p if p > 0 else 0.0
 
+    def pagein_hidden_ratio(self) -> float:
+        """Share of paged-in pages whose host-to-device copy was issued at
+        least one engine step before the fence that read them (0.0 when
+        nothing paged in)."""
+        p = self.pagein_pages.value
+        return self.pagein_hidden_pages.value / p if p > 0 else 0.0
+
     def host_syncs_per_token(self) -> float:
         t = self.tokens_generated.value
         return self.host_syncs.value / t if t > 0 else 0.0
@@ -208,6 +231,7 @@ class EngineMetrics:
             "e2e_latency_s_p50": self.e2e_latency_s.percentile(50),
             "e2e_latency_s_p99": self.e2e_latency_s.percentile(99),
             "spec_acceptance_rate": self.spec_acceptance_rate(),
+            "pagein_hidden_ratio": self.pagein_hidden_ratio(),
             "steps_per_token": self.steps_per_token(),
             "host_syncs_per_token": self.host_syncs_per_token(),
             "tokens_per_sec": self.tokens_per_sec(),

@@ -545,6 +545,19 @@ class PagedModelRunner:
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                      for a in host_arrays)
 
+    def stage_host_pages(self, layer_data):
+        """Stage host-tier pages onto the runner's device ahead of the step
+        that reads them. ``layer_data`` is the host tier's slot layout: per
+        layer a tuple of page tensors (K / V pages, and the scale rows on
+        int8 pools), of one slot or of a run of slots (a leading slot
+        axis). The copies are non-blocking on the current stream;
+        the engine issues them on the host tier's side stream from pinned
+        buffers, so they overlap device work, and its fence orders the
+        compute stream after them. On the CPU the tensors come back as
+        they are."""
+        return [tuple(a.to(self.device, non_blocking=True) for a in layer)
+                for layer in layer_data]
+
     def _write_indices(self, positions, tables, valid):
         """positions/valid: [B, T]; tables: [B, P] -> page/off [B, T]
         int64. Invalid positions are redirected to the scratch page."""

@@ -2,20 +2,22 @@
 the serving engine.
 
 Counterpart of paddle_tpu/serving/resilience.py, limited to the state
-this port has: one fp32, int8 or fp8 pool with its prefix cache, no host
-tier, at most one in-flight launch (the pipelined loop).
+this port has: one pool (fp32, 16-bit, int8, fp8 or mixed) with its
+prefix cache and its private host tier, at most one in-flight launch (the
+pipelined loop).
 
   FaultInjector      a drop-in runner wrapper that raises simulated
                      device errors, corrupts logits with NaN, or stalls
                      chosen calls of its six ops (prefill, prefill_chunk,
                      decode, decode_multi, decode_multi_spec, ragged_step)
   audit_engine       page accounting, refcounts, the prefix-cache index,
-                     slots and block tables must agree after every step
+                     the host tier, slots and block tables must agree
+                     after every step
 
 Fault schedules are keyed by call index (never wall time or RNG), so a
 failing trace replays exactly. The replica-crash fault class of the JAX
-injector belongs to the serving tier (ROADMAP.md item 11), and snapshot /
-restore to item 15.
+injector belongs to the serving tier (ROADMAP.md item 11), and so does
+the host-wide page store's auditor (`audit_store`).
 """
 
 from __future__ import annotations
@@ -191,6 +193,11 @@ def audit_engine(engine) -> None:
     tuples have the layout of its kv_dtype (a mixed pool's tag planes
     equal across layers and the host tags), every page a running sequence
     maps carries its owner's kv-dtype tag and no free page carries one,
+    the host tier's slots partition between its free list and one owner
+    each (an offload record of a waiting request or the tier's prefix
+    index), no chain hash is both device-live and host-resident, no
+    page-in survives its step's fence, and a rotating sample of spilled
+    slots still matches its content hash,
     and a quantized runner's weights keep the weight ladder's storage
     contract (int8 codes with fp32 [out] or [out, ceil(in / group)]
     scales, fp8 weights scale-free). A member of the pipelined
@@ -297,6 +304,14 @@ def audit_engine(engine) -> None:
             problems.append("prefix-cache hash index and page index "
                             "disagree")
 
+    # -- the host tier: slots free XOR used, one owner per used slot, the
+    #    prefix index a bijection disjoint from the device index, and a
+    #    rotating CRC spot check of spilled bytes (after joining every
+    #    pending spill job: a slot's bytes and hash are defined only then)
+    tier = getattr(engine.pool, "host_tier", None)
+    if tier is not None:
+        problems += _tier_problems(engine, tier, sched, cache)
+
     # -- slot accounting
     slots = [r.slot for r in sched.running]
     if any(s is None for s in slots):
@@ -392,6 +407,80 @@ def audit_engine(engine) -> None:
 
     if problems:
         raise InvariantViolation("; ".join(problems))
+
+
+def _tier_problems(engine, tier, sched, cache) -> list:
+    """The broken invariants of a private host tier (the JAX auditor's
+    private-tier section)."""
+    problems = []
+    tier.sync()
+    hfree, hused = list(tier._free), set(tier._hash)
+    hfset = set(hfree)
+    if len(hfree) != len(hfset):
+        problems.append("duplicate slots in the host tier free list")
+    if hfset & hused:
+        problems.append(
+            f"host slots both free and used: {sorted(hfset & hused)}")
+    if (hfset | hused) != set(range(tier.max_pages)):
+        problems.append(
+            "host tier slot accounting broken: "
+            f"lost={sorted(set(range(tier.max_pages)) - hfset - hused)}")
+    slot_owner: dict = {}
+    for req in sched.waiting:
+        off = req.offload
+        if off is not None:
+            if req.phase != "offloaded":
+                problems.append(f"{req.request_id} holds an offload record "
+                                f"but phase={req.phase!r}")
+            for s in off.slots:
+                slot_owner[s] = slot_owner.get(s, 0) + 1
+        elif req.phase == "offloaded":
+            problems.append(f"{req.request_id} phase 'offloaded' without "
+                            "an offload record")
+    for req in sched.running:
+        if req.offload is not None:
+            problems.append(f"{req.request_id} RUNNING with an offload "
+                            "record")
+        if req.pending_pagein:
+            problems.append(f"{req.request_id} pending page-ins survived "
+                            "the step fence")
+    dupes = sorted(s for s, c in slot_owner.items() if c > 1)
+    if dupes:
+        problems.append(f"host slots owned by two requests: {dupes}")
+    pslots = set(tier._prefix.values())
+    if len(pslots) != len(tier._prefix):
+        problems.append("host tier prefix index maps two hashes to one "
+                        "slot")
+    if {s: h for h, s in tier._prefix.items()} != tier._prefix_slot:
+        problems.append("host tier prefix index and reverse map disagree")
+    overlap = set(slot_owner) & pslots
+    if overlap:
+        problems.append("host slots owned by a request AND the prefix "
+                        f"index: {sorted(overlap)}")
+    orphans = hused - set(slot_owner) - pslots
+    if orphans:
+        problems.append(f"host slots used but unowned: {sorted(orphans)}")
+    unbacked = (set(slot_owner) | pslots) - hused
+    if unbacked:
+        problems.append(f"host slots owned but not marked used: "
+                        f"{sorted(unbacked)}")
+    if cache is not None:
+        both = set(cache._index) & set(tier._prefix)
+        if both:
+            problems.append(f"{len(both)} prefix hashes resident on device "
+                            "AND host (XOR violated)")
+    sample = sorted(hused)
+    if sample:
+        # a window keyed by the step counter: over a run the spot check
+        # sweeps the whole tier, each audit reads at most 4 slots
+        start = int(engine.metrics.decode_steps.value) % len(sample)
+        for i in range(min(4, len(sample))):
+            s = sample[(start + i) % len(sample)]
+            if tier.content_hash(s) != tier._hash[s]:
+                problems.append(
+                    f"host slot {s} content-hash mismatch: spilled bytes "
+                    "corrupted in the host buffer")
+    return problems
 
 
 def _weight_problems(runner) -> list:

@@ -1,9 +1,13 @@
 """Continuous-batching scheduler: FCFS admission, chunked prefill plans,
 decode reservation, youngest-first preemption.
 
-Counterpart of paddle_tpu/serving/scheduler.py without the host tier.
-Admission maps the longest cached prefix (the pool's `PrefixCache`) into
-a new request's table; `plan_decode_horizon` pre-commits the pages of a
+Counterpart of paddle_tpu/serving/scheduler.py. Admission maps the
+longest cached prefix (the pool's `PrefixCache`) into a new request's
+table; with the pool's host tier on, the match extends into the host's
+demoted pages and a preempted request's `OffloadRecord`, whose pages the
+engine pages in before the step's compute (`pending_pagein`). A
+preemption spills the victim's exclusively owned pages to the tier
+first. `plan_decode_horizon` pre-commits the pages of a
 device-resident decode horizon; `speculation_budget`,
 `reserve_speculation` and `plan_spec_horizon` fund speculative verify
 spans, never by preempting. Determinism contract (the equivalence test
@@ -13,8 +17,9 @@ with naive_generate leans on every clause):
     always yields the same block tables;
   * preemption victims are chosen youngest-first (last admitted), and a
     preempted request resumes with its full context (prompt + generated
-    so far) re-prefilled: recompute, not cache migration (with the
-    prefix cache on, its registered pages come back as cache hits).
+    so far) re-prefilled: recompute (with the prefix cache on, its
+    registered pages come back as cache hits), or, with the host tier,
+    by page-in of its spilled pages, which leaves its tokens unchanged.
 
 `max_prefill_tokens_per_step` bounds the prefill tokens computed per
 engine step, and `prefill_plan()` slices the running requests'
@@ -29,7 +34,9 @@ from dataclasses import dataclass, field
 from enum import Enum
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
-from paddle_tpu_torch.serving.kv_cache import KVCachePool, SequenceKV
+from paddle_tpu_torch.serving.kv_cache import (
+    KVCachePool, OffloadRecord, SequenceKV,
+)
 
 
 @dataclass
@@ -73,10 +80,15 @@ class RequestState(Enum):
 
 _req_counter = itertools.count()
 
-# Request fields of the JAX host tier (item 9), each taken at its default
-# (None, [] or 0) only
-UNPORTED_REQUEST_FIELDS = {"offload": 9, "pending_pagein": 9,
-                           "admit_pagein_tokens": 9}
+
+def ensure_arrival_counter_above(n: int) -> None:
+    """Advance the global arrival counter past ``n``. A restored request
+    keeps its arrival_index (it seeds seedless sampling and names auto
+    request ids), so requests added after a restore must start beyond
+    every restored index."""
+    global _req_counter
+    current = next(_req_counter)
+    _req_counter = itertools.count(max(current + 1, n + 1))
 
 
 @dataclass(eq=False)          # identity semantics: the scheduler tracks
@@ -99,11 +111,11 @@ class Request:                # requests by object, never by field value
     # without the row (nan_policy="greedy"): the next engine step takes
     # the per-step path once, which fetches the real logits
     defer_horizon: bool = False
-    # the JAX host-tier and prefix-cache state, in the JAX order: the port
-    # takes the host-tier fields at their defaults only (`__post_init__`);
-    # admission sets admit_prefix_tokens to the tokens a prefix-cache
-    # match mapped in
-    offload: Optional[object] = None
+    # host-tier state: while WAITING with phase "offloaded", `offload`
+    # names the host slots of this request's spilled KV; admission turns
+    # it into (device page, host slot) pairs the engine's fence restores
+    # before the step's compute, and stamps the admit_* token splits
+    offload: Optional[OffloadRecord] = None
     pending_pagein: List[Tuple[int, int]] = field(default_factory=list)
     admit_prefix_tokens: int = 0
     admit_pagein_tokens: int = 0
@@ -116,12 +128,6 @@ class Request:                # requests by object, never by field value
     def __post_init__(self):
         if not self.prompt_tokens:
             raise ValueError("empty prompt")
-        for name, item in UNPORTED_REQUEST_FIELDS.items():
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"Request({name}={getattr(self, name)!r}): the port "
-                    f"takes it at its default only; ROADMAP.md 'Still to "
-                    f"port' item {item}")
         if not self.request_id:
             self.request_id = f"req-{self.arrival_index}"
 
@@ -146,11 +152,6 @@ class FCFSScheduler:
                  max_pages_per_seq: int, admission_watermark: float = 1.0,
                  max_prefill_tokens_per_step: Optional[int] = None,
                  count_host_headroom: bool = False):
-        if count_host_headroom:
-            raise NotImplementedError(
-                "FCFSScheduler(count_host_headroom=True): the host KV tier "
-                "whose free slots it counts is not ported yet: ROADMAP.md "
-                "'Still to port' item 9 (host KV tier)")
         if max_pages_per_seq > pool.allocator.num_usable:
             raise ValueError(
                 f"max_pages_per_seq={max_pages_per_seq} exceeds the pool's "
@@ -171,6 +172,9 @@ class FCFSScheduler:
         # this many pages, leaving headroom for running sequences to GROW
         self._watermark_pages = int(admission_watermark
                                     * pool.allocator.num_usable)
+        # free host-tier slots count as near-headroom above the watermark:
+        # a growth overflow then spills and pages back in
+        self.count_host_headroom = bool(count_host_headroom)
         self.waiting: Deque[Request] = deque()
         self.running: List[Request] = []     # kept in admission order
         self._admission_counter = itertools.count()
@@ -192,9 +196,14 @@ class FCFSScheduler:
     # --------------------------------------------------------- admission
 
     def _effective_watermark(self) -> int:
-        """The admission high watermark in pages (the port has no host
-        tier whose free slots the JAX package may count as headroom)."""
-        return self._watermark_pages
+        """The admission high watermark in pages. With the host tier on
+        and `count_host_headroom` set, free host slots count as headroom
+        (capped at the pool size)."""
+        wm = self._watermark_pages
+        tier = self.pool.host_tier
+        if tier is not None and self.count_host_headroom:
+            wm = min(self.pool.allocator.num_usable, wm + tier.free_count)
+        return wm
 
     def admit(self) -> List[Request]:
         """Admit queue-head requests while a slot and enough pages exist
@@ -206,10 +215,19 @@ class FCFSScheduler:
         increfed) into its table before the rest is allocated: those
         tokens are live KV already, so prefill starts after them, and
         the pool funds only the unmatched tail. Cached-free pages count as
-        headroom, not pressure."""
+        headroom, not pressure.
+
+        With the host tier on, the match extends into the host: demoted
+        prefix pages and the request's own OffloadRecord map onto fresh
+        device pages whose contents the engine pages in before this
+        step's compute (`pending_pagein`). The record must connect to the
+        matched prefix (its start_page covered by the device and host
+        matches); a hole falls back to the recompute path."""
         admitted: List[Request] = []
         alloc = self.pool.allocator
         cache = self.pool.prefix_cache
+        tier = self.pool.host_tier
+        bs = self.pool.block_size
         while self.waiting and self._free_slots:
             req = self.waiting[0]
             need = self.pool.blocks_for_tokens(req.num_context + 1)
@@ -218,8 +236,11 @@ class FCFSScheduler:
                     f"request {req.request_id} needs {need} pages > "
                     f"max_pages_per_seq={self.max_pages_per_seq}")
             tag = req.sampling.kv_dtype or self.pool.native_kv_tag()
-            matched = (cache.match_tiered(req.context_tokens, tag=tag)[0]
-                       if cache is not None else [])
+            if cache is not None:
+                matched, host_matched = cache.match_tiered(
+                    req.context_tokens, tag=tag)
+            else:
+                matched, host_matched = [], []
             if matched:
                 # pin the match BEFORE any allocation: an incref lifts the
                 # pages above refcount 1, so the eviction alloc may run
@@ -241,8 +262,48 @@ class FCFSScheduler:
             self.waiting.popleft()
             req.kv = SequenceKV(self.pool, kv_tag=tag)
             if matched:
-                req.kv.adopt_prefix(matched, self.pool.block_size)
+                req.kv.adopt_prefix(matched, bs)
+            # host-demoted prefix pages: a fresh device page each, restored
+            # by the engine's fence, re-entering the device index
+            promoted = 0
+            for h in host_matched:
+                slot = tier.promote(h)
+                page = alloc.alloc(1)[0]
+                self.pool.tag_pages([page], tag)
+                cache.register_page(page, h)
+                req.kv.pages.append(page)
+                req.kv.hash_chain.append(h)
+                req.kv.registered_pages += 1
+                req.kv.num_tokens = len(req.kv.pages) * bs
+                req.pending_pagein.append((page, slot))
+                promoted += 1
             req.admit_prefix_tokens = req.kv.num_tokens
+            req.admit_pagein_tokens = 0
+            m_total = len(matched) + promoted
+            off, req.offload = req.offload, None
+            if off is not None and tier is not None:
+                if (m_total >= off.start_page
+                        and off.covered_tokens > req.kv.num_tokens):
+                    for j, slot in enumerate(off.slots):
+                        if off.start_page + j < m_total:
+                            # the prefix match covers this page already
+                            # (same tokens, same KV): the copy is redundant
+                            tier.free_slots([slot])
+                            continue
+                        page = alloc.alloc(1)[0]
+                        self.pool.tag_pages([page], tag)
+                        req.kv.pages.append(page)
+                        req.pending_pagein.append((page, slot))
+                    req.admit_pagein_tokens = (off.covered_tokens
+                                               - req.kv.num_tokens)
+                    req.kv.num_tokens = off.covered_tokens
+                    tier.note_resume()
+                else:
+                    # a hole in the restorable prefix (or the match covers
+                    # everything): release the copies and re-prefill
+                    tier.free_slots(off.slots)
+                    if m_total < off.start_page:
+                        tier.note_fallback()
             req.kv.grow(req.num_context + 1 - req.kv.num_tokens)
             req.slot = self._free_slots.pop(0)
             req.admission_index = next(self._admission_counter)
@@ -437,19 +498,42 @@ class FCFSScheduler:
         return victims
 
     def _preempt(self, req: Request) -> None:
+        tier = self.pool.host_tier
+        if tier is not None and req.kv is not None:
+            # spill the victim's exclusively owned pages BEFORE release()
+            # frees them: resume then restores them by copy. Coverage stops
+            # at context - 1, so the resumed request has a token to compute
+            covered = min(req.kv.num_tokens, req.num_context - 1)
+            req.offload = tier.spill_sequence(req.kv, covered)
         req.kv.release()
         req.kv = None
         self._release_slot(req)
         self.running.remove(req)
         req.state = RequestState.WAITING
+        if req.offload is not None:
+            req.phase = "offloaded"
         req.num_preemptions += 1
+
+    def _drop_offload(self, req: Request) -> None:
+        """Release a request's host-tier state (abort, timeout or shed of
+        an offloaded waiter): the slots return to the tier, the request
+        reverts to a recompute-on-resume waiter."""
+        if req.offload is not None:
+            tier = self.pool.host_tier
+            if tier is not None:
+                tier.free_slots(req.offload.slots)
+            req.offload = None
+            if req.phase == "offloaded":
+                req.phase = "prefill"
 
     # ---------------------------------------------------------- finish
 
     def remove_waiting(self, req: Request) -> None:
         """Drop a queued (never-admitted or preempted) request — the
-        deadline/abort/shed path. It holds no pages or slot."""
+        deadline/abort/shed path. It holds no device pages or slot; its
+        host-tier slots (an offloaded waiter's) are released here."""
         self.waiting.remove(req)      # identity match (Request is eq=False)
+        self._drop_offload(req)
 
     def finish(self, req: Request, reason: str) -> None:
         req.kv.release()

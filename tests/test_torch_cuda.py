@@ -1784,3 +1784,145 @@ def test_f16_forms_launch_their_fp16_kernels(gen, kind, d):
 def test_f16_engine_on_the_card_runs_the_f16_kernels(gen, kv_dtype, n_kv):
     """`_half_engine` at dtype=float16."""
     _half_engine(kv_dtype, n_kv, torch.float16)
+
+
+# ------------------------------------------------------ the host KV tier
+
+
+def _card_pool(gen, kv_dtype):
+    """A 2-layer CUDA pool of 12 pages of random bytes."""
+    from paddle_tpu_torch.serving import KVCachePool
+    pool = KVCachePool(2, 12, 16, 4, 64, kv_dtype=kv_dtype, device="cuda")
+    for layer in pool.pools:
+        for a in layer:
+            b = a.view(torch.uint8)
+            b.copy_(torch.randint(0, 256, b.shape, generator=gen,
+                                  device="cuda", dtype=torch.int32))
+            if a.dtype == torch.float8_e4m3fn:      # no NaN bit patterns
+                a.view(torch.uint8).bitwise_and_(0xF6)
+    return pool
+
+
+def _page_in(pool, pages, slots):
+    """An engine-style page-in: the slots staged on the tier's stream, the
+    compute stream ordered after the copies, the pages scattered."""
+    tier = pool.host_tier
+    staged = []
+    for s in slots:
+        data = tier.read_slot(s)
+        with tier.stream():
+            copies = [tuple(a.to("cuda", non_blocking=True) for a in layer)
+                      for layer in data]
+        ev = tier.note_read(s)
+        torch.cuda.current_stream().wait_event(ev)
+        staged.append(copies)
+    pool.write_pages(pages, [tuple(torch.stack([c[li][j] for c in staged])
+                                   for j in range(len(layer)))
+                             for li, layer in enumerate(pool.pools)])
+
+
+@pytest.mark.parametrize("spill_async", [False, True], ids=["sync", "async"])
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8", "fp8", "mixed"])
+def test_host_tier_round_trip_is_bit_exact_through_pinned_buffers(
+        gen, kv_dtype, spill_async):
+    """A spill of CUDA pages into the tier's pinned buffers and a page-in
+    back restore every byte (codes and scale rows on int8, fp8 bytes, a
+    mixed pool's tag bits); the buffers are pinned; the recorded CRC is
+    the CRC of the device bytes read back."""
+    pool = _card_pool(gen, kv_dtype)
+    tier = pool.enable_host_tier(6, async_spill=spill_async)
+    assert all(b.is_pinned() for layer in tier._bufs for b in layer)
+    pages = [3, 4, 5, 9, 1]
+    before = pool.read_pages(pages)
+    slots = tier.spill_pages(pages)
+    assert slots == [0, 1, 2, 3, 4]
+    for layer in pool.pools:                     # clobber the pages
+        for a in layer:
+            a.view(torch.uint8)[pages] = 0
+    _page_in(pool, pages, slots)
+    after = pool.read_pages(pages)
+    for b_layer, a_layer in zip(before, after):
+        for b, a in zip(b_layer, a_layer):
+            assert torch.equal(b.view(torch.uint8), a.view(torch.uint8))
+    tier.sync()
+    for j, s in enumerate(slots):
+        host = [tuple(a[j:j + 1].contiguous() for a in layer)
+                for layer in before]
+        import zlib
+        h = 0x9E3779B9
+        for layer in host:
+            for a in layer:
+                h = zlib.crc32(a[0].view(torch.uint8).numpy().tobytes(), h)
+        assert tier.slot_hash(s) == h
+    assert tier.sync_spill_reads == (0 if spill_async else 1)
+
+
+def test_slot_reused_under_an_inflight_pagein_reads_the_right_bytes(gen):
+    """A slot freed while its page-in's host-to-device copy may still run
+    and spilled into at once: the page-in reads the first tenant's bytes
+    (the spill waits on the slot's read event on the tier's stream), and
+    the slot then holds the second tenant's."""
+    pool = _card_pool(gen, "fp32")
+    tier = pool.enable_host_tier(1)
+    first = pool.read_pages([2])
+    slot, = tier.spill_pages([2])
+    # keep the compute stream busy so nothing below has run yet
+    big = torch.randn(4096, 4096, device="cuda", generator=gen)
+    for _ in range(8):
+        big = big @ big.T / 4096
+    data = tier.read_slot(slot)
+    with tier.stream():
+        staged = [tuple(a.to("cuda", non_blocking=True) for a in layer)
+                  for layer in data]
+    tier.note_read(slot)
+    tier.free_slots([slot])
+    again, = tier.spill_pages([7])
+    assert again == slot
+    torch.cuda.synchronize()
+    for layer, want in zip(staged, first):        # bytes: random bits
+        for a, w in zip(layer, want):                # hold NaN patterns
+            assert torch.equal(a.cpu().view(torch.uint8),
+                               w[0].view(torch.uint8))
+    second = pool.read_pages([7])
+    tier.sync()
+    for layer, want in zip(tier._bufs, second):
+        for buf, w in zip(layer, want):
+            assert torch.equal(buf[slot].view(torch.uint8),
+                               w[0].view(torch.uint8))
+
+
+def test_async_spill_engine_never_blocks_and_matches_the_sync_engine(gen):
+    """A preempting Llama engine on the card with the tier: with
+    spill_async no spill is waited for on the engine loop
+    (sync_spill_reads 0) and no host reader joins a pending spill
+    (blocking_joins 0); requests resume by page-in, through K1 / K2 and no
+    plain version, and the tokens equal the sync-spill engine's (the same
+    schedule, the same kernels)."""
+    cfg = LlamaConfig(vocab_size=211, hidden_size=256, num_layers=2,
+                      num_heads=4, num_kv_heads=4, max_seq_len=256)
+    runner = LlamaRunner(Llama(cfg, device="cuda", seed=0), block_size=16)
+    rng = np.random.default_rng(3)
+    work = [(rng.integers(1, 211, int(rng.integers(40, 90))).tolist(),
+             int(rng.integers(24, 40))) for _ in range(6)]
+    streams = {}
+    for spill_async in (False, True):
+        eng = ServingEngine(runner, num_blocks=24, max_batch_size=4,
+                            max_prefill_tokens_per_step=64,
+                            host_tier_pages=32, spill_async=spill_async)
+        for counts in (k1.COUNTS, k2.COUNTS):
+            counts.reset()
+        ids = [eng.add_request(p, SamplingParams(max_tokens=n))
+               for p, n in work]
+        outs = eng.run()
+        m, tier = eng.metrics.snapshot(), eng.pool.host_tier
+        assert m["preemptions"] > 0 and m["offload_resumes"] > 0, m
+        assert m["pagein_pages"] > 0
+        assert k1.COUNTS.plain_launches == k2.COUNTS.plain_launches == 0
+        assert k1.COUNTS.kernel_launches > 0 and k2.COUNTS.kernel_launches
+        if spill_async:
+            assert tier.sync_spill_reads == 0 and tier.blocking_joins == 0
+        tier.sync()
+        assert tier.used_count == 0
+        assert eng.pool.allocator.check_no_leaks()
+        streams[spill_async] = [outs[r].output_tokens for r in ids]
+    assert streams[True] == streams[False]

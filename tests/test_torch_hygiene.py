@@ -7,19 +7,21 @@ kernel wrapper takes, and what it refuses.
   * entry points default to "cuda" and raise where no card is usable;
   * CPU tensors run the plain versions: `plain_launches` moves and
     `kernel_launches` never does;
-  * every engine knob the port does not carry raises NotImplementedError
-    naming its ROADMAP item; the four horizon and pipeline knobs, the
-    prefix cache, fused ragged steps, speculation and temperature > 0 are
-    served;
+  * every engine knob the port does not carry (the serving tier's: role,
+    kv_store, kv_store_owner) raises NotImplementedError naming ROADMAP
+    item 11; the host tier's and the detokenizer's knobs (items 9 and 15),
+    the four horizon and pipeline knobs, the prefix cache, fused ragged
+    steps, speculation and temperature > 0 are served;
   * the serving entry points take the JAX package's positional and
     keyword arguments (runner, runner_for, create_serving_engine,
     SamplingParams, naive_generate, KVCachePool), `device` only by
-    keyword; FCFSScheduler, SequenceKV and paged_attend take the JAX
-    parameters the port does not serve at their defaults and refuse any
-    other value naming its ROADMAP item; rotary_embedding takes
-    position_ids as the JAX op does;
+    keyword; paged_attend takes the JAX parameter the port does not serve
+    at its default and refuses any other value naming its ROADMAP item,
+    FCFSScheduler's count_host_headroom and SequenceKV's kv_tag (ported)
+    act as the JAX ones do; rotary_embedding takes position_ids as the
+    JAX op does;
   * the faults F5-F11 stay repaired: `Request` has the JAX fields in the
-    JAX order and refuses the host-tier ones at other values (F5); `Optimizer` takes the JAX base's signature (F6); the kernel
+    JAX order and takes the host-tier ones as the JAX Request does (F5); `Optimizer` takes the JAX base's signature (F6); the kernel
     wrappers take the JAX `interpret` (and `block_q` / `block_k` for
     flash_attention) in their JAX slots, every `ops.*` wrapper's positional
     parameters are its `ops.pallas.*` twin's, and a 64-block block mask
@@ -35,7 +37,7 @@ kernel wrapper takes, and what it refuses.
     the port defines imports from the port's package of the same path
     (F12: the draft proposers, `quantized_page_write`, `GPTBlock`);
     `get_flags` and `flags_version` follow JAX's (F13); the engine
-    snapshot has the JAX keys but those of items 9-11, and
+    snapshot has the JAX keys but those of items 10-11, and
     `overlapped_plan_seconds` and `device_idle_fraction` are set as JAX
     sets them on a scripted clock (F14); `create_serving_engine` refuses
     `comm_dtype` without a mesh with a ValueError, as JAX does (F15);
@@ -91,7 +93,7 @@ from paddle_tpu_torch.models.llama import rope_tables
 from paddle_tpu_torch.ops import _build, impl
 from paddle_tpu_torch.optimizer import AdamW, Optimizer
 from paddle_tpu_torch.serving import (
-    SamplingParams, create_engine, naive_generate,
+    OffloadRecord, SamplingParams, create_engine, naive_generate,
 )
 from paddle_tpu_torch.serving.engine import UNPORTED_KNOBS
 from paddle_tpu_torch.serving.kv_cache import KVCachePool, SequenceKV
@@ -291,11 +293,36 @@ def _engine(model, **kw):
                                  max_model_len=32, num_blocks=8, **kw)
 
 
-@pytest.mark.parametrize("knob", sorted(UNPORTED_KNOBS))
+# the JAX engine's knobs of the host tier (item 9) and the detokenizer
+# (item 15), refused until both were ported: a value other than the
+# default is now served
+HOST_TIER_AND_DETOKENIZER_KNOBS = {
+    "host_tier_pages": 8, "host_tier_headroom": True, "pagein_prefetch": 4,
+    "spill_async": True, "tokenizer": types.SimpleNamespace(
+        id_to_bytes=lambda tok: bytes([65 + tok % 26]))}
+
+
+@pytest.mark.parametrize("knob", sorted(set(UNPORTED_KNOBS)
+                                        | set(HOST_TIER_AND_DETOKENIZER_KNOBS)))
 def test_unported_engine_knob_raises(model, knob):
+    """The knobs left unported (the serving tier's) take their default only
+    and raise naming item 11; those of items 9 and 15 are served at the
+    JAX default and at another value, token for token."""
+    if knob in HOST_TIER_AND_DETOKENIZER_KNOBS:
+        value = HOST_TIER_AND_DETOKENIZER_KNOBS[knob]
+        extra = ({"host_tier_pages": 8} if knob in ("host_tier_headroom",
+                                                    "pagein_prefetch",
+                                                    "spill_async") else {})
+        sp = SamplingParams(max_tokens=6)
+        eng = _engine(model, max_batch_size=3, **{knob: value}, **extra)
+        assert getattr(eng, knob) == value
+        assert _serve(eng, PROMPTS, sp) == _serve(
+            _engine(model, max_batch_size=3), PROMPTS, sp)
+        return
     default, item = UNPORTED_KNOBS[knob]
+    assert "item 11" in item
     _engine(model, **{knob: default})            # the default is accepted
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11"):
         _engine(model, **{knob: _other(default)})
 
 
@@ -523,7 +550,7 @@ def _attend_args(pool):
 
 
 @pytest.mark.parametrize("entry,param,other,item", [
-    ("FCFSScheduler", "count_host_headroom", True, "item 9"),
+    ("FCFSScheduler", "count_host_headroom", True, "item 9"),  # ported
     ("SequenceKV", "kv_tag", "fp8", "item 8"),
     ("paged_attend", "shard_ctx", (object(), "model"), "item 10"),
 ])
@@ -543,6 +570,20 @@ def test_unported_jax_parameters_take_their_default_only(entry, param,
                                                       **kw)}[entry]
     default = inspect.signature(port_fn).parameters[param].default
     call(**{param: default})
+    if entry == "FCFSScheduler":
+        # ported with the host tier (item 9): free host slots lift the
+        # admission watermark as they lift the JAX one
+        jpool = JaxKVCachePool(1, 4, 4, 1, 8)
+        for pl in (pool, jpool):
+            pl.enable_host_tier(5)
+        ours = FCFSScheduler(pool, 1, 2, admission_watermark=0.5,
+                             **{param: other})
+        ref = JaxFCFSScheduler(jpool, 1, 2, admission_watermark=0.5,
+                               **{param: other})
+        assert ours.count_host_headroom is ref.count_host_headroom is True
+        assert ours._effective_watermark() == ref._effective_watermark() \
+            == 3
+        return
     if entry == "SequenceKV":
         # ported with the mixed pool (item 8): the tag stamps every page
         # the sequence allocates, as the JAX SequenceKV stamps them
@@ -595,12 +636,16 @@ def test_request_fields_follow_the_jax_order():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("offload", object(), "item 9"), ("pending_pagein", [(1, 2)], "item 9"),
+    ("offload", OffloadRecord(0, 4, [1]), "item 9"),
+    ("pending_pagein", [(1, 2)], "item 9"),
     ("admit_pagein_tokens", 3, "item 9")])
 def test_request_host_tier_and_prefix_fields_take_their_defaults_only(
         field, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Request([1, 2], **{field: value})
+    """The host-tier fields (item 9, ported) take any value, as the JAX
+    Request's do, and keep it."""
+    ours, ref = Request([1, 2], **{field: value}), \
+        JaxRequest([1, 2], **{field: value})
+    assert getattr(ours, field) == getattr(ref, field) == value
 
 
 @pytest.mark.parametrize("param", ["data_axis", "model_axis",
@@ -656,10 +701,9 @@ def test_comm_dtype_without_a_mesh_is_a_value_error(model, jax_model):
         create_serving_engine(model, device="cpu", mesh=object(), **kw)
 
 
-# the JAX snapshot's keys of the unported host tier, handoffs, page store
-# and tensor parallelism (items 9-11)
-UNPORTED_METRIC_PREFIXES = ("tp_", "offload_", "pagein_", "host_tier_",
-                            "handoff", "store_")
+# the JAX snapshot's keys of the unported handoffs, page store and tensor
+# parallelism (items 10-11)
+UNPORTED_METRIC_PREFIXES = ("tp_", "handoff", "store_")
 
 
 def _scripted_clock():
@@ -688,7 +732,8 @@ def _metrics_run(pm, jm, **kw):
 
 def test_snapshot_keys_equal_the_jax_keys(twin):
     """F14: the port's EngineMetrics.snapshot() keys are the JAX ones but
-    those of items 9-11 (and no stray pool_utilization)."""
+    those of items 10-11 (and no stray pool_utilization): the host tier's
+    (item 9) are required."""
     ours, ref = _metrics_run(*twin[::-1])
     ref_keys = {k for k in ref if not k.startswith(UNPORTED_METRIC_PREFIXES)}
     assert set(ours) == ref_keys
