@@ -299,8 +299,8 @@ exits non-zero without printing a result:
               256-token chunk steps, decode-only steps of 7 rows and fused
               steps of one 256-token chunk beside the 7 decode rows:
               device ms, K1 ms a launch, idle share.
- 30. specu-   GPT-3 1.3B at full width, 12 of its 24 layers (cut from full
-     lation   depth to pay for phases 40-41), with
+ 30. specu-   GPT-3 1.3B at full width, 6 of its 24 layers (cut from full
+     lation   depth to pay for phases 40-44), with
               bench.py::child_serving_spec's traffic (8 requests, 256-token prompts repeating a random 3-6
               token pattern, 64 tokens each, a 64-token prefill budget),
               five arms, each served twice (the first round captures): off
@@ -432,7 +432,8 @@ exits non-zero without printing a result:
               tenants' parting margin MIXED_MARGIN at fp16) on LLaMA-2-7B
               at 8 of its 32 layers (cut from full depth to pay for
               phases 40-41),
-              and at GPT-3 1.3B a speculation arm with an fp16 target's
+              and at GPT-3 1.3B (12 of its 24 layers, cut to pay for
+              phases 42-44) a speculation arm with an fp16 target's
               "shadow" (int8) draft beside the off arm: the shadow's
               matrices int8 (fp16 is a numpy floating type), proposed and
               accepted > 0, the streams off's but where off's top-2 margin
@@ -468,7 +469,48 @@ exits non-zero without printing a result:
               (ByteVocab, spelled HF-style for TokenizerAdapter, CJK
               characters split across tokens) only appends after every
               step and ends equal to each stream's whole decode.
- 42. summary  one JSON line of every kernel's launches, error and times
+ 42. serving  the in-process serving tier (tier_phase) at LLaMA-2-7B, full
+     tier     width and depth, fp32, phase 40's random weights shared by
+              both replicas of create_serving_router (ROUTER_KNOBS: 400
+              pages of 16 each, 8 slots, the prefix cache, horizons of 8,
+              audit=True): 16 greedy requests of 300-600 tokens from 4
+              tenants sharing a 256-token header, 32 new tokens, in two
+              waves, and two chats' second turns under their session ids.
+              Gates: every request finished once (no token delivered
+              twice); streams equal a single engine's on the same prompts,
+              two of them token-exact against naive_generate; the second
+              turns on their session's replica; affinity's prefix hits at
+              least the random policy's; audit_router; no leak; only K1
+              and K2, no plain version; no restart in the fault-free
+              arms, whose longest step and capture set the heartbeat (3x,
+              at least 5 s). Arms: a crash on a warm runner's call and on
+              its restored runner's first (capturing) call, restored twice
+              with the streams unchanged; a stall held on the host until
+              the Supervisor declares the replica hung, restored;
+              rolling_restart mid-stream, after which every old engine,
+              runner and host tier is collected, the card's allocated
+              memory is within one replica's pools and graph pools of its
+              value before and the tiers' pinned bytes are unchanged.
+ 43. split    prefill_replicas=1 of 2 (disagg_phase), each replica's host
+     prefill  tier sized for all the traffic's pages: 16 handoffs out and
+     / decode in, no recompute fallback, every handed-off page (fp32;
+              int8 codes and scale rows at 8 of 32 layers) bit-identical
+              on the card after the decode replica's page-in against the
+              prefill replica's pages before the spill (HandoffSpy);
+              streams equal phase 42's (the int8 arm's reported against
+              an fp32 engine at 8 layers). Printed: handoff bytes, export
+              and import GB/s (host clock), the device ms from a first
+              token on a prefill engine to the first decode step on a
+              decode engine against a decode step, the idle share.
+ 44. durable  a journaled tier (fsync "always", 400 host pages) serves
+     tier     phase 42's traffic halfway and is abandoned (replicas
+              fenced, supervisor stopped, journal closed); then
+              ServingRouter.recover on the card: every stream equal to
+              phase 42's, the finished outputs restored as they were, and
+              drain_replica, run while the first replica to decode after
+              the recovery is held at that call, moves its decoding
+              requests with their pages (stage_migration, no recompute).
+ 45. summary  one JSON line of every kernel's launches, error and times
               (K1's decode-form times as extra decode_* keys, its engine
               launches by form under launches_by_form, the fp64 ratios
               under fp64_ratio; the masked kernels as *_masked rows with
@@ -497,6 +539,7 @@ exits non-zero without printing a result:
               d256_chunk and d256_decode of the bf16 and fp16 rows; the
               mixed pools' launches under mixed_launches; phase 40's
               launches of K1, K2 and K1-q int8 under host_tier_launches;
+              phases 42-44's under tier_launches;
               the dense bf16 and fp16 flash rows' d = 256 times under
               d256; the forward's lse ratio on the stream after phase 37
               under lse_after_phase37_fp64_ratio), the smoke's
@@ -5061,10 +5104,11 @@ def gpt_phases(gen, gen16):
     _free_the_card()
     lap("GPT generators")
     t_spec = time.perf_counter()
-    # phase 30 at 12 of GPT-3 1.3B's 24 layers (full width): phases 40-41
-    # took the smoke ~55 s longer, and the arms' streams, acceptance and
-    # launches by form need no depth
-    spec_cfg = replace(cfg, num_layers=12)
+    # phase 30 at 6 of GPT-3 1.3B's 24 layers (full width): phases 40-41
+    # took the smoke ~55 s longer (12 layers) and phases 42-44 ~147 s more
+    # (6), and the arms' streams, acceptance and launches by form need no
+    # depth
+    spec_cfg = replace(cfg, num_layers=6)
     spec_model = GPT(spec_cfg, device="cuda", seed=0)
     gpt["speculation"] = spec_phase(spec_model, spec_cfg)     # phase 30
     del spec_model
@@ -5086,9 +5130,15 @@ def gpt_phases(gen, gen16):
                                         max_model_len=cfg.max_seq_len)
     gpt["paged_generator_fp16"] = {
         "paged_decode_attention_fp16": f16_generator_check(model, cfg)}
-    _free_the_card()
-    gpt["speculation_fp16"] = f16_spec_phase(model, cfg)
     del model
+    _free_the_card()
+    # phase 39's speculation arm at 12 of the 24 layers (full width):
+    # phases 42-44 took the smoke ~147 s longer, and its streams,
+    # acceptance and launches need no depth
+    spec16_cfg = replace(cfg, num_layers=12)
+    spec16 = GPT(spec16_cfg, device="cuda", seed=0).to(F16)
+    gpt["speculation_fp16"] = f16_spec_phase(spec16, spec16_cfg)
+    del spec16
     _free_the_card()
     lap("phases 38-39 (GPT)")
     trainer, batch, flash = gpt_trainer_phase(cfg)
@@ -5481,6 +5531,742 @@ def snapshot_phase(model, cfg, tokens, prompts, runner):
     return shape
 
 
+# ------------------------------------------ the serving tier (42-44)
+
+# phases 42-44's tier: every replica's engine (fp32 pools of 16-token
+# pages, the prefix cache, 8-step decode horizons, a 256-token prefill
+# budget); the host tier of 64 pages carries a drain's migrations
+ROUTER_KNOBS = dict(block_size=16, num_blocks=400, max_batch_size=8,
+                    max_model_len=1024, max_prefill_tokens_per_step=256,
+                    enable_prefix_cache=True, decode_horizon=8,
+                    host_tier_pages=64)
+
+
+def router_requests(cfg, seed=42, tenants=4, n=16, prefix=256,
+                    max_tokens=32):
+    """Phase 42's traffic: n greedy requests from ``tenants`` tenants, each
+    tenant's prompts sharing a ``prefix``-token header, 300-600 tokens in
+    all, max_tokens each; requests 0 and 1 (tenants 0 and 1) carry the
+    session ids of a chat that sends a second turn."""
+    from paddle_tpu_torch.serving import SamplingParams
+    rng = np.random.default_rng(seed)
+    heads = [rng.integers(1, cfg.vocab_size, prefix).tolist()
+             for _ in range(tenants)]
+    reqs = []
+    for i in range(n):
+        tail = rng.integers(1, cfg.vocab_size,
+                            int(rng.integers(300, 601)) - prefix).tolist()
+        reqs.append((f"q{i}", heads[i % tenants] + tail, SamplingParams(
+            max_tokens=max_tokens,
+            session_id=f"chat-{i}" if i < 2 else None)))
+    return reqs
+
+
+def second_turns(cfg, reqs, outs, seed=43, new=16):
+    """The two chats' second turns: the first turn's prompt, its reply
+    and ``new`` fresh tokens, under the same session id."""
+    rng = np.random.default_rng(seed)
+    return [(f"t{rid[1:]}", p + outs[rid] + rng.integers(
+        1, cfg.vocab_size, new).tolist(), sp)
+        for rid, p, sp in reqs if sp.session_id is not None]
+
+
+class StepClock:
+    """The longest engine step and graph capture a tier's replicas took
+    (host clock), for the heartbeat: each live engine's step is timed."""
+
+    def __init__(self):
+        self.longest = 0.0
+
+    def watch(self, router):
+        for rep in router._replicas:
+            eng = rep.engine
+            if getattr(eng, "_timed", False):
+                continue
+            step = eng.step
+
+            def timed(step=step):
+                t = time.perf_counter()
+                try:
+                    return step()
+                finally:
+                    self.longest = max(self.longest, time.perf_counter() - t)
+            eng.step, eng._timed = timed, True
+
+    @staticmethod
+    def longest_capture(router) -> float:
+        return max((c["seconds"] for rep in router._replicas
+                    for c in getattr(rep.engine.runner, "captures", ())),
+                   default=0.0)
+
+
+def submit_waves(router, reqs, first_wave=4, timeout_s=600.0):
+    """Submit (request id, prompt, sampling) triples in two waves: the first
+    ``first_wave`` (one a tenant), then the rest once each of those has its
+    first token (its header's pages are registered, so a later request can
+    hit them)."""
+    for k, (rid, p, sp) in enumerate(reqs):
+        if k == first_wave:
+            deadline = time.perf_counter() + timeout_s
+            while time.perf_counter() < deadline:
+                with router._lock:
+                    if all(router._reqs[r].tokens
+                           for r, _, _ in reqs[:first_wave]):
+                        break
+                time.sleep(0.002)
+        router.submit(p, sp, request_id=rid)
+
+
+def serve_tier(router, reqs, label, timeout_s=600.0, during=None):
+    """Submit the triples in `submit_waves`' two waves, run ``during`` (if
+    given) while they are served, drain; returns {request id: tokens}."""
+    submit_waves(router, reqs, timeout_s=timeout_s)
+    if during is not None:
+        during()
+    outs = router.drain(timeout_s=timeout_s)
+    got = {rid: outs[rid].output_tokens for rid, _, _ in reqs}
+    for rid, _, sp in reqs:
+        o = outs[rid]
+        if o.finish_reason != "length" or len(o.output_tokens) != \
+                sp.max_tokens:
+            raise AssertionError(f"{label}: {rid} ended {o.finish_reason} "
+                                 f"with {len(o.output_tokens)} tokens")
+    return got
+
+
+def gate_tier(router, label, counts, kv_dtype="fp32", crashes=0, hangs=0,
+              restarts=0):
+    """A tier arm's gates: the auditor over every live replica and the
+    registry, no leaked page once the caches release, only the path's
+    kernels (no plain version), the crash / hang / restart counts the
+    arm expects, no token delivered twice, and no stream left capturing.
+    Returns the arm's numbers."""
+    from paddle_tpu_torch.serving import audit_router
+    from paddle_tpu_torch.serving.model_runner import _capture_stream
+    audit_router(router)
+    kernel, forms, plain = _launches(counts)
+    path = _path_kernels(kv_dtype)
+    if plain or set(kernel) != set(path):
+        raise AssertionError(f"{label}: launched {kernel}, plain {plain}; "
+                             f"the path is {path}")
+    m = router.metrics.snapshot()
+    got = (m["replica_crashes"], m["replica_hangs"], m["replica_restarts"])
+    if got != (crashes, hangs, restarts):
+        raise AssertionError(f"{label}: crashes, hangs, restarts {got}, "
+                             f"expected {(crashes, hangs, restarts)}")
+    if m["duplicate_tokens_dropped"] and not crashes + hangs:
+        raise AssertionError(f"{label}: a fault-free arm re-delivered "
+                             "tokens")
+    with torch.cuda.stream(_capture_stream(torch.device("cuda"))):
+        if torch.cuda.is_current_stream_capturing():
+            raise AssertionError(f"{label}: the capture stream is left "
+                                 "capturing")
+    router.release_prefix_caches()
+    if not router.check_no_leaks():
+        raise AssertionError(f"{label}: leaked device pages")
+    eng = router.metrics_snapshot()["engines"]
+    return {"launches": kernel, "by_form": forms, "crashes": got[0],
+            "hangs": got[1], "restarts": got[2],
+            "prefix_hit_tokens": eng["prefix_hit_tokens"],
+            "prefill_tokens": eng["prefill_tokens"],
+            "tokens": eng["tokens_generated"],
+            "device_idle_fraction": eng["device_idle_fraction"],
+            "duplicate_tokens_dropped": m["duplicate_tokens_dropped"]}
+
+
+def crash_at(runner, call, log_to):
+    """FaultInjector's crash class on ``runner``'s ``call``-th decode call,
+    appending to ``log_to`` "capture" when the runner had captured nothing
+    yet (its first decode call captures a graph) and "warm" otherwise."""
+    from paddle_tpu_torch.serving import FaultInjector
+
+    class Injector(FaultInjector):
+        def _pre(self, op):
+            captured = len(self._runner.captures)
+            try:
+                return super()._pre(op)
+            except BaseException:
+                log_to.append("capture" if captured == 0 else "warm")
+                raise
+    return Injector(runner, crash_calls=[call], crash_target="decode")
+
+
+def tier_phase(model, cfg):
+    """Phase 42: the in-process serving tier at LLaMA-2-7B (full width and
+    depth, fp32 weights shared by every replica, random weights):
+    create_serving_router, 2 replicas, ROUTER_KNOBS, audit=True, on
+    router_requests' traffic and two second turns. Gates: every request
+    finished once; the streams equal a single engine's on the same
+    prompts, the two naive-checked requests token-exact against
+    naive_generate (engine_phase's fp32 rule); the second turns on their
+    session's replica; affinity's prefix hits at least the random
+    policy's; the auditor; no leak; only K1 / K2 launched, no plain
+    version; no restart in the fault-free arms. Arms on the same tier: a
+    replica crash on a warm runner's call and its restore's crash on its
+    first call, a capture (the Supervisor restores twice, the streams
+    unchanged); a stall held
+    past the heartbeat (hung, restored, streams unchanged); rolling_restart
+    mid-stream, after which every old engine, runner and host tier is
+    collected and the card's allocated memory is within one replica's
+    pools and graph pools of its value before. Returns the numbers, the
+    reference streams and the traffic."""
+    import weakref
+
+    from paddle_tpu_torch.inference import (
+        create_serving_engine, create_serving_router,
+    )
+    from paddle_tpu_torch.serving import FaultInjector, naive_generate
+
+    t0 = time.perf_counter()
+    reqs = router_requests(cfg)
+    out = {}
+    # the reference: one engine, the same knobs, the same prompts
+    counts = _zeroed_counts()
+    single = create_serving_engine(model, device="cuda", audit=True,
+                                   **ROUTER_KNOBS)
+    ids = {rid: single.add_request(p, sp, request_id=rid)
+           for rid, p, sp in reqs}
+    souts = single.run()
+    ref = {rid: souts[rid].output_tokens for rid in ids}
+    turns = second_turns(cfg, reqs, ref)
+    for rid, p, sp in turns:
+        single.add_request(p, sp, request_id=rid)
+    souts = single.run()
+    ref.update({rid: souts[rid].output_tokens for rid, _, _ in turns})
+    runner = single.runner
+    runner._graph_cache.clear()     # a weights view for the margins only
+    del single, souts
+    _free_the_card()
+    by_len = sorted(range(len(reqs)), key=lambda i: len(reqs[i][1]))
+    for i in (by_len[-1], by_len[0]):
+        rid, p, sp = reqs[i]
+        _gate_streams(f"phase 42 single engine {rid} vs naive_generate",
+                      runner, [p], [ref[rid]],
+                      [naive_generate(runner, p, sp, max_model_len=1024)])
+    lap("phase 42 reference engine")
+
+    # the fault-free arm; the heartbeat far above any step until measured
+    clock = StepClock()
+    router = create_serving_router(model, replicas=2, device="cuda",
+                                   audit=True, heartbeat_timeout_s=600.0,
+                                   **ROUTER_KNOBS)
+    clock.watch(router)
+    counts = _zeroed_counts()
+    t = time.perf_counter()
+    got = serve_tier(router, reqs, "phase 42 fault-free")
+    homes = {sp.session_id: router._reqs[rid].owner_idx
+             for rid, _, sp in reqs if sp.session_id}
+    tturns = second_turns(cfg, reqs, got)
+    got.update(serve_tier(router, tturns, "phase 42 second turns"))
+    wall = time.perf_counter() - t
+    for rid, _, sp in tturns:
+        if router._reqs[rid].owner_idx != homes[sp.session_id]:
+            raise AssertionError(f"phase 42: the second turn {rid} left its "
+                                 f"session's replica {homes[sp.session_id]}")
+    sticky = router.metrics.snapshot()["session_sticky_hits"]
+    if sticky != len(tturns):
+        raise AssertionError(f"phase 42: {sticky} session-sticky hits of "
+                             f"{len(tturns)} second turns")
+    names = [r for r, _, _ in reqs + tturns]
+    _gate_streams("phase 42 tier vs the single engine", runner,
+                  [p for _, p, _ in reqs + tturns], [got[r] for r in names],
+                  [ref[r] for r in names])
+    ff = gate_tier(router, "phase 42 fault-free", counts)
+    longest_cap = StepClock.longest_capture(router)
+    heartbeat = max(5.0, 3.0 * max(clock.longest, longest_cap))
+    ff.update(wall_s=wall, longest_step_s=clock.longest,
+              longest_capture_s=longest_cap, heartbeat_s=heartbeat,
+              captures=sum(len(rep.engine.runner.captures)
+                           for rep in router._replicas),
+              session_sticky_hits=sticky)
+    out["fault_free"] = ff
+    log(f"phase 42 fault-free: {json.dumps(ff)}; the longest step "
+        f"{clock.longest:.3f} s and capture {longest_cap:.3f} s: heartbeat "
+        f"{heartbeat:.1f} s")
+    router.supervisor.heartbeat_timeout_s = heartbeat
+    lap("phase 42 fault-free tier")
+
+    # a crash on replica 0's second decode call (its graphs captured), then
+    # on the restored replica's first (a capture call)
+    crashed = []
+    rep0 = router._replicas[0]
+    rep0.engine.runner = crash_at(rep0.engine.runner, 2, crashed)
+    factory = router._runner_factory
+
+    def crash_factory(idx):
+        fresh = factory(idx)
+        if idx == 0 and len(crashed) == 1:
+            return crash_at(fresh, 1, crashed)
+        return fresh
+
+    router._runner_factory = crash_factory
+    counts = _zeroed_counts()
+    arm = [(f"c{rid[1:]}", p, sp) for rid, p, sp in reqs]
+    cgot = serve_tier(router, arm, "phase 42 crash arm")
+    router._runner_factory = factory
+    _gate_streams("phase 42 crash arm vs the fault-free arm", runner,
+                  [p for _, p, _ in arm], [cgot[r] for r, _, _ in arm],
+                  [got[r] for r, _, _ in reqs])
+    if crashed != ["warm", "capture"]:
+        raise AssertionError(f"phase 42: crashes at {crashed}, expected a "
+                             "warm runner's call then a capture call")
+    out["crash"] = gate_tier(router, "phase 42 crash arm", counts,
+                             crashes=2, restarts=2)
+    del rep0
+    out["crash"]["crashed_on"] = crashed
+    log(f"phase 42 crash arm: {json.dumps(out['crash'])}")
+    lap("phase 42 crash arm")
+
+    # a stall on replica 1's second decode call, held on the host (no
+    # stream waits) until the Supervisor declares the replica hung
+    held = []
+
+    def hold():
+        t = time.perf_counter()
+        while (router.metrics.replica_hangs.value < 1
+               and time.perf_counter() - t < 10 * heartbeat):
+            time.sleep(0.05)
+        held.append(time.perf_counter() - t)
+
+    rep1 = router._replicas[1]
+    rep1.engine.runner = FaultInjector(rep1.engine.runner, stall_calls=[2],
+                                       on_stall=hold)
+    counts = _zeroed_counts()
+    arm = [(f"h{rid[1:]}", p, sp) for rid, p, sp in reqs]
+    hgot = serve_tier(router, arm, "phase 42 stall arm")
+    _gate_streams("phase 42 stall arm vs the fault-free arm", runner,
+                  [p for _, p, _ in arm], [hgot[r] for r, _, _ in arm],
+                  [got[r] for r, _, _ in reqs])
+    out["stall"] = gate_tier(router, "phase 42 stall arm", counts,
+                             crashes=2, hangs=1, restarts=3)
+    del rep1
+    out["stall"]["held_s"] = held[0] if held else None
+    log(f"phase 42 stall arm: {json.dumps(out['stall'])}")
+    lap("phase 42 stall arm")
+
+    # rolling_restart mid-stream: every old engine released, memory back
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    pinned = sum(b.numel() * b.element_size() for rep in router._replicas
+                 for layer in rep.engine.pool.host_tier._bufs for b in layer)
+    one = max(rep.engine.pool.memory_bytes() + sum(
+        c["pool_bytes"] for c in rep.engine.runner.captures)
+        for rep in router._replicas)
+    old = [weakref.ref(o) for rep in router._replicas
+           for o in (rep.engine, rep.engine.pool.host_tier,
+                     getattr(rep.engine.runner, "_runner",
+                             rep.engine.runner))]
+    counts = _zeroed_counts()
+    arm = [(f"r{rid[1:]}", p, sp) for rid, p, sp in reqs]
+    base = router.metrics.tokens_delivered.value
+
+    def restart_mid_stream():
+        deadline = time.perf_counter() + 300
+        while (router.metrics.tokens_delivered.value < base + 64
+               and time.perf_counter() < deadline):
+            time.sleep(0.005)
+        router.rolling_restart()
+
+    rgot = serve_tier(router, arm, "phase 42 rolling restart",
+                      during=restart_mid_stream)
+    _gate_streams("phase 42 rolling restart vs the fault-free arm", runner,
+                  [p for _, p, _ in arm], [rgot[r] for r, _, _ in arm],
+                  [got[r] for r, _, _ in reqs])
+    rr = gate_tier(router, "phase 42 rolling restart", counts, crashes=2,
+                   hangs=1, restarts=5)
+    m = router.metrics.snapshot()
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    pinned_after = sum(b.numel() * b.element_size()
+                       for rep in router._replicas
+                       for layer in rep.engine.pool.host_tier._bufs
+                       for b in layer)
+    alive = sum(r() is not None for r in old)
+    rr.update(drains=m["replica_drains"], migrations=m["drain_migrations"],
+              allocated_before_GiB=before / 2**30,
+              allocated_after_GiB=after / 2**30,
+              one_replica_GiB=one / 2**30, pinned_before=pinned,
+              pinned_after=pinned_after, old_objects_alive=alive)
+    out["rolling_restart"] = rr
+    log(f"phase 42 rolling restart: {json.dumps(rr)}")
+    if alive:
+        raise AssertionError(f"phase 42: {alive} engines, runners or host "
+                             "tiers of the restarted replicas are alive")
+    if after > before + one or pinned_after != pinned:
+        raise AssertionError(
+            f"phase 42: after rolling_restart {after / 2**30:.3f} GiB "
+            f"allocated against {before / 2**30:.3f} GiB before (one "
+            f"replica {one / 2**30:.3f} GiB), pinned {pinned_after} bytes "
+            f"against {pinned}")
+    if m["replica_drains"] != 2 or m["rolling_restarts"] != 1:
+        raise AssertionError(f"phase 42: rolling restart counts {m}")
+    router.shutdown()
+    del router
+    _free_the_card()
+    lap("phase 42 rolling restart")
+
+    # the random policy on the same traffic: affinity's hits at least its
+    counts = _zeroed_counts()
+    rnd = create_serving_router(model, replicas=2, device="cuda",
+                                audit=True, policy="random",
+                                heartbeat_timeout_s=heartbeat,
+                                **ROUTER_KNOBS)
+    rgot = serve_tier(rnd, reqs, "phase 42 random policy")
+    serve_tier(rnd, second_turns(cfg, reqs, rgot), "phase 42 random turns")
+    out["random"] = gate_tier(rnd, "phase 42 random policy", counts)
+    rnd.shutdown()
+    del rnd
+    _free_the_card()
+    hits = (ff["prefix_hit_tokens"], out["random"]["prefix_hit_tokens"])
+    log(f"phase 42: prefix hit tokens affinity {hits[0]:.0f} (second turns "
+        f"included), random {hits[1]:.0f}")
+    if hits[0] < hits[1]:
+        raise AssertionError(f"phase 42: affinity's prefix hits {hits[0]} "
+                             f"below the random policy's {hits[1]}")
+    out["seconds"] = time.perf_counter() - t0
+    lap("phase 42 random policy")
+    return out, ref, reqs, runner
+
+
+class HandoffSpy:
+    """Phase 43's page check: every request a prefill replica stages has
+    its pages gathered on the card before the spill (a device copy), and
+    every page a decode replica pages in is compared, bit for bit on the
+    card, with that copy after the fence: fp32 pages, int8 codes and
+    scale rows alike. Also times the host side of extract_handoff and
+    import_handoff (the export and import rates)."""
+
+    def __init__(self, router):
+        self.sent = {}
+        self.checked = 0
+        self.export_s = self.import_s = 0.0
+        for rep in router._replicas:
+            eng = rep.engine
+            if rep.role == "prefill":
+                self._wrap_prefill(eng)
+            else:
+                self._wrap_decode(eng)
+
+    def _wrap_prefill(self, eng):
+        stage, extract = eng._stage, eng.extract_handoff
+
+        def _stage(req):
+            covered = min(req.kv.num_tokens, req.num_context - 1)
+            pages = req.kv.pages[:eng.pool.blocks_for_tokens(covered)]
+            self.sent[req.request_id] = eng.pool.gather_pages(pages)
+            return stage(req)
+
+        def extract_handoff(rid):
+            t = time.perf_counter()
+            try:
+                return extract(rid)
+            finally:
+                self.export_s += time.perf_counter() - t
+        eng._stage, eng.extract_handoff = _stage, extract_handoff
+
+    def _wrap_decode(self, eng):
+        fence, imp = eng._fence_pagein, eng.import_handoff
+
+        def import_handoff(state, payload):
+            t = time.perf_counter()
+            try:
+                return imp(state, payload)
+            finally:
+                self.import_s += time.perf_counter() - t
+
+        def _fence_pagein(admitted):
+            fence(admitted)
+            for req in admitted:
+                sent = self.sent.pop(req.request_id, None)
+                if sent is None:
+                    continue
+                # every page the record covers, whether paged in, promoted
+                # from the host prefix index or matched in the device
+                # cache: the prefill replica's bytes
+                n = sent[0][0].shape[0]
+                got = eng.pool.gather_pages(req.kv.pages[:n])
+                for a_layer, b_layer in zip(sent, got):
+                    for a, b in zip(a_layer, b_layer):
+                        if not torch.equal(a.view(torch.uint8),
+                                           b.view(torch.uint8)):
+                            raise AssertionError(
+                                f"phase 43: {req.request_id}'s pages "
+                                "differ on the decode replica from the "
+                                "prefill replica's")
+                self.checked += n
+        eng._fence_pagein, eng.import_handoff = _fence_pagein, \
+            import_handoff
+
+
+def handoff_device_ms(model, reqs):
+    """The device ms from a request's first token on a prefill-role engine
+    to its first decode step on a decode-role engine (the staging spill,
+    the export, the import and CRC checks, the page-in and the step, CUDA
+    events on the compute stream), against the device ms of the next
+    decode step of the same request on a mixed engine."""
+    from paddle_tpu_torch.inference import create_serving_engine
+
+    _, p, sp = reqs[0]
+    # one decode step a step: decode_horizon 1
+    knobs = dict(ROUTER_KNOBS, decode_horizon=1)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    pre = create_serving_engine(model, device="cuda", role="prefill",
+                                **knobs)
+    dec = create_serving_engine(model, device="cuda", role="decode", **knobs)
+    mixed = create_serving_engine(model, device="cuda", **knobs)
+    for eng in (pre, mixed):
+        eng.add_request(p, sp, request_id="m")
+    while not pre._requests["m"].output_tokens:
+        pre.step()
+    while not mixed._requests["m"].output_tokens:
+        mixed.step()
+    mixed.step()                 # the first decode step captures a graph
+    events[0].record()
+    pre.step()                   # stages the request
+    dec.import_handoff(*pre.extract_handoff("m"))
+    while len(dec._requests["m"].output_tokens) < 2:
+        dec.step()
+    events[1].record()
+    events[2].record()
+    n = len(mixed._requests["m"].output_tokens)
+    while len(mixed._requests["m"].output_tokens) == n:
+        mixed.step()
+    events[3].record()
+    events[3].synchronize()
+    out = (events[0].elapsed_time(events[1]),
+           events[2].elapsed_time(events[3]))
+    del pre, dec, mixed
+    _free_the_card()
+    return out
+
+
+def disagg_arm(model, cfg, reqs, label, kv_dtype="fp32"):
+    """One phase 43 arm: prefill_replicas=1 of 2 over ``model``, each
+    replica's host tier sized for every request's pages, the traffic
+    served under HandoffSpy. Gates: every request handed off once with
+    its pages (handoffs out and in = the requests, no recompute
+    fallback), every page paged in bit-identical on the card, only the
+    path's kernels. Returns the streams and the arm's numbers."""
+    from paddle_tpu_torch.inference import create_serving_router
+
+    pages = sum(-(-(len(p) + sp.max_tokens) // 16) for _, p, sp in reqs)
+    counts = _zeroed_counts()
+    router = create_serving_router(
+        model, replicas=2, prefill_replicas=1, device="cuda", audit=True,
+        heartbeat_timeout_s=600.0, kv_dtype=kv_dtype,
+        **dict(ROUTER_KNOBS, host_tier_pages=pages))
+    spy = HandoffSpy(router)
+    t = time.perf_counter()
+    got = serve_tier(router, reqs, f"phase 43 {label}")
+    wall = time.perf_counter() - t
+    numbers = gate_tier(router, f"phase 43 {label}", counts, kv_dtype)
+    rm, eng = router.metrics.snapshot(), router.metrics_snapshot()["engines"]
+    n = len(reqs)
+    if not (eng["handoffs_out"] == eng["handoffs_in"] == rm["handoffs"] == n
+            and eng["handoff_recompute_fallbacks"] == 0
+            and rm["handoff_fallbacks"] == 0):
+        raise AssertionError(f"phase 43 {label}: handoffs {rm['handoffs']}, "
+                             f"out {eng['handoffs_out']}, in "
+                             f"{eng['handoffs_in']}, recomputed "
+                             f"{eng['handoff_recompute_fallbacks']}")
+    if spy.checked != eng["handoff_pages_out"] or spy.sent:
+        raise AssertionError(f"phase 43 {label}: {spy.checked} pages "
+                             f"checked of {eng['handoff_pages_out']} handed "
+                             f"off; {len(spy.sent)} requests never paged in")
+    if any(o.replicas[:2] != [0, 1] for o in router.outputs().values()):
+        raise AssertionError(f"phase 43 {label}: a request did not enter "
+                             "on the prefill replica and end on the decode "
+                             "replica")
+    nbytes = eng["handoff_bytes_out"]
+    numbers.update(
+        wall_s=wall, handoffs=rm["handoffs"],
+        handoff_pages=eng["handoff_pages_in"], pages_checked=spy.checked,
+        handoff_bytes=nbytes, export_GBps=nbytes / spy.export_s / 1e9,
+        import_GBps=nbytes / spy.import_s / 1e9,
+        host_tier_pages=pages)
+    router.shutdown()
+    del router, spy
+    _free_the_card()
+    log(f"phase 43 {label} ({kv_dtype} pool, {cfg.num_layers} layers): "
+        f"{json.dumps(numbers)}")
+    return got, numbers
+
+
+def disagg_phase(model, cfg, q_model, q_cfg, ref, reqs, runner):
+    """Phase 43: disaggregated prefill / decode at LLaMA-2-7B (full width
+    and depth, fp32): disagg_arm's gates, every stream equal to phase
+    42's; then an int8 pool at q_cfg's depth (codes and scale rows
+    bit-identical), its tokens reported against an fp32 engine's on the
+    same model; the device
+    ms from a first token to the first decode step on the other replica
+    against a decode step. Returns the numbers."""
+    t0 = time.perf_counter()
+    got, fp32 = disagg_arm(model, cfg, reqs, "fp32")
+    names = [r for r, _, _ in reqs]
+    _gate_streams("phase 43 disaggregated vs phase 42", runner,
+                  [p for _, p, _ in reqs], [got[r] for r in names],
+                  [ref[r] for r in names])
+    lap("phase 43 fp32 split")
+    qgot, int8 = disagg_arm(q_model, q_cfg, reqs, "int8", kv_dtype="int8")
+    from paddle_tpu_torch.inference import create_serving_engine
+    qref = create_serving_engine(q_model, device="cuda", **ROUTER_KNOBS)
+    for rid, p, sp in reqs:
+        qref.add_request(p, sp, request_id=rid)
+    qouts = qref.run()
+    del qref
+    _free_the_card()
+    _agreement(f"phase 43 int8 split tier vs an fp32 engine at "
+               f"{q_cfg.num_layers} layers", [qgot[r] for r in names],
+               [qouts[r].output_tokens for r in names])
+    lap("phase 43 int8 split")
+    handoff_ms, step_ms = handoff_device_ms(model, reqs)
+    out = {"fp32": fp32, "int8": int8, "first_token_to_decode_ms":
+           handoff_ms, "decode_step_ms": step_ms,
+           "seconds": time.perf_counter() - t0}
+    log(f"phase 43: {fp32['handoff_bytes'] / 2**30:.2f} GiB handed off "
+        f"(fp32), export {fp32['export_GBps']:.2f} GB/s, import "
+        f"{fp32['import_GBps']:.2f} GB/s (host clock); first token on the "
+        f"prefill replica to the first decode step on the decode replica "
+        f"{handoff_ms:.3f} device ms against a decode step "
+        f"{step_ms:.3f} device ms; idle share fp32 "
+        f"{fp32['device_idle_fraction']:.3f}, int8 "
+        f"{int8['device_idle_fraction']:.3f}; {out['seconds']:.1f} s")
+    lap("phase 43 handoff timing")
+    return out
+
+
+def durability_phase(model, cfg, ref, reqs, runner):
+    """Phase 44: a journaled tier (journal_fsync="always", a host tier with
+    room for a drain's pages) serves phase 42's traffic halfway and is
+    abandoned in process (every replica fenced, the supervisor stopped,
+    the journal closed); then ServingRouter.recover on the card rebuilds
+    it from the journal, and drain_replica runs on the first replica to
+    reach a decode call after the recovery, its call held on the host
+    (the injector's stall class) until the drain stops it. Gates: every stream equal to phase 42's,
+    none lost or delivered twice, the finished outputs restored as they
+    were, and the drain moving its decoding requests with their pages
+    (stage_migration, handoffs in, no recompute fallback)."""
+    import shutil as _shutil
+    import tempfile
+
+    import threading
+
+    from paddle_tpu_torch.inference import create_serving_router
+    from paddle_tpu_torch.serving import (
+        FaultInjector, RouterJournal, ServingRouter,
+    )
+
+    t0 = time.perf_counter()
+    knobs = dict(ROUTER_KNOBS, host_tier_pages=400, audit=True,
+                 heartbeat_timeout_s=600.0, journal_fsync="always")
+    tmp = tempfile.mkdtemp(prefix="tier-journal-")
+    path = f"{tmp}/wal.jsonl"
+    tiers = []
+    try:
+        counts = _zeroed_counts()
+        router = create_serving_router(model, replicas=2, device="cuda",
+                                       journal_path=path, **knobs)
+        factory = router._runner_factory
+        submit_waves(router, reqs)
+        half = sum(sp.max_tokens for _, _, sp in reqs) // 2
+        deadline = time.perf_counter() + 300
+        while (router.metrics.tokens_delivered.value < half
+               and time.perf_counter() < deadline):
+            time.sleep(0.002)
+        for rep in router._replicas:          # the crash
+            rep.fenced = True
+            rep.stop = True
+            rep.wake.set()
+        router.supervisor.stop()
+        router._journal.close()
+        delivered = router.metrics.tokens_delivered.value
+        for rep in router._replicas:
+            rep.thread.join(60)
+        del router, rep
+        _free_the_card()
+        state, discarded = RouterJournal.replay(path)
+        done = [rid for rid, r in state["reqs"].items() if r["done"]]
+        # each recovered replica's runner stalls its first decode call
+        # (its batch re-prefilled, decoding); the first replica to get
+        # there is held until the drain below stops it, the other goes on
+        reached, chosen = threading.Event(), []
+        lock = threading.Lock()
+
+        def hold(idx):
+            with lock:
+                if not chosen:
+                    chosen.append(idx)
+                    reached.set()
+            if chosen[0] != idx:
+                return
+            t = time.perf_counter()
+            while not (tiers and tiers[0]._replicas[idx].stop) \
+                    and time.perf_counter() - t < 300:
+                time.sleep(0.001)
+
+        wrapped = set()
+
+        def held_factory(idx):
+            fresh = factory(idx)
+            if idx in wrapped:
+                return fresh
+            wrapped.add(idx)
+            return FaultInjector(fresh, stall_calls=[1],
+                                 on_stall=lambda: hold(idx))
+
+        r2 = ServingRouter.recover(held_factory, path, replicas=2, **knobs)
+        tiers.append(r2)
+        finished = r2.outputs()
+        _gate_streams("phase 44 finished before the crash vs phase 42",
+                      runner, [p for rid, p, _ in reqs if rid in done],
+                      [finished[rid].output_tokens for rid in done],
+                      [ref[rid] for rid in done])
+        if not reached.wait(120):
+            raise AssertionError("phase 44: no replica decoded a recovered "
+                                 "request")
+        moved = r2.drain_replica(chosen[0])
+        outs = r2.drain(timeout_s=600.0)
+        names = [r for r, _, _ in reqs]
+        if sorted(outs) != sorted(names) or any(
+                outs[r].finish_reason != "length" for r in names):
+            raise AssertionError("phase 44: a recovered request was lost or "
+                                 "did not finish")
+        _gate_streams("phase 44 recovered tier vs phase 42", runner,
+                      [p for _, p, _ in reqs], [outs[r].output_tokens
+                                                for r in names],
+                      [ref[r] for r in names])
+        rm, eng = r2.metrics.snapshot(), r2.metrics_snapshot()["engines"]
+        numbers = gate_tier(r2, "phase 44 recovered tier", counts)
+        if not (eng["handoffs_in"] >= 1 and eng["handoff_pages_in"] > 0
+                and eng["handoff_recompute_fallbacks"] == 0
+                and rm["drain_migrations"] == moved >= 1):
+            raise AssertionError(f"phase 44: the drain moved no decoding "
+                                 f"request with its pages: {rm}, {eng}")
+        numbers.update(
+            delivered_before_crash=delivered, finished_before_crash=len(done),
+            discarded_lines=discarded,
+            recovered_requests=rm["recovered_requests"],
+            duplicate_tokens_dropped=rm["duplicate_tokens_dropped"],
+            drained_replica=chosen[0], drain_migrations=moved,
+            drained_with_pages=eng["handoffs_in"],
+            drained_pages=eng["handoff_pages_in"],
+            journal=r2.metrics_snapshot()["journal"],
+            seconds=time.perf_counter() - t0)
+        r2.shutdown()
+        del r2
+        tiers.clear()
+        _free_the_card()
+    finally:
+        for tier in tiers:
+            tier.shutdown()
+        _shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 44: {json.dumps(numbers)}")
+    lap("phase 44")
+    return numbers
+
+
 def _free_the_card() -> float:
     """Collect what the freed phases left; returns GiB still allocated."""
     gc.collect()
@@ -5829,15 +6615,28 @@ def main() -> int:
     q_model = Llama(q_cfg, device="cuda", seed=0)
     tier, tier_tokens, tier_prompts, tier_runner = host_tier_phase(
         model, cfg, q_model, q_cfg)
-    del q_model
     _free_the_card()
     lap("phase 40")
     tier["snapshot"] = snapshot_phase(model, cfg, tier_tokens, tier_prompts,
                                       tier_runner)
-    del model, tier_runner
+    del tier_runner
     _free_the_card()
     lap("phase 41")
     log(f"phases 40-41: {time.perf_counter() - t_new:.1f} s")
+    # phases 42-44: the serving tier over phase 40's LLaMA-2-7B (fp32, its
+    # weights shared by every replica), the int8 split arm at 8 of 32
+    # layers
+    t_new = time.perf_counter()
+    stier, stier_ref, stier_reqs, stier_runner = tier_phase(model, cfg)
+    stier["disagg"] = disagg_phase(model, cfg, q_model, q_cfg, stier_ref,
+                                   stier_reqs, stier_runner)
+    del q_model
+    _free_the_card()
+    stier["durability"] = durability_phase(model, cfg, stier_ref,
+                                           stier_reqs, stier_runner)
+    del model, stier_runner
+    _free_the_card()
+    log(f"phases 42-44: {time.perf_counter() - t_new:.1f} s")
     small = Llama(replace(cfg, num_layers=2), device="cuda", seed=2)
     for kind in ("int8", "fp8"):
         quant_model_check(small, LlamaRunner, kind, {
@@ -6165,6 +6964,17 @@ def main() -> int:
             n = tier[arm]["launches"].get(row["name"])
             if n:
                 row.setdefault("host_tier_launches", {})[arm] = n
+        for arm, numbers in (
+                ("fault_free", stier["fault_free"]),
+                ("crash", stier["crash"]), ("stall", stier["stall"]),
+                ("rolling_restart", stier["rolling_restart"]),
+                ("random_policy", stier["random"]),
+                ("split_fp32", stier["disagg"]["fp32"]),
+                ("split_int8", stier["disagg"]["int8"]),
+                ("recovered", stier["durability"])):
+            n = numbers["launches"].get(row["name"])
+            if n:
+                row.setdefault("tier_launches", {})[arm] = n
         if any(row["name"] in by for by in spec16.values()):
             row["spec_fp16_launches"] = {arm: by[row["name"]] for arm, by
                                          in spec16.items()

@@ -1,10 +1,14 @@
-"""Inference bridge: models into serving engines.
+"""Inference bridge: models into serving engines and serving tiers.
 
-Counterpart of paddle_tpu/inference/__init__.py::create_serving_engine and
-restore_serving_engine.
+Counterpart of paddle_tpu/inference/__init__.py::create_serving_engine,
+create_serving_router and restore_serving_engine.
 """
 
 from __future__ import annotations
+
+import copy
+from collections import OrderedDict
+from typing import Optional
 
 import torch
 
@@ -68,6 +72,71 @@ def create_serving_engine(model, dtype=None, device="cuda", **kw):
                          for k, v in runner.params.items()}
     kw.setdefault("num_blocks", 128)
     return ServingEngine(runner, **kw)
+
+
+def _fresh_runner(template):
+    """A new runner sharing ``template``'s weights (its params dict copied,
+    the tensors shared) and rope tables, with none of its graphs, captures
+    or counters: what a replica and each of its restarts serve from."""
+    runner = copy.copy(template)
+    runner.params = dict(template.params)
+    runner._graph_cache = OrderedDict()
+    runner.captures = []
+    runner._impl_logged = set()
+    runner.reset_attn_counters()
+    return runner
+
+
+def create_serving_router(model, *, replicas: int = 2, dtype=None,
+                          mesh=None, meshes=None, attn_impl: str = "auto",
+                          block_size: int = 16,
+                          max_model_len: Optional[int] = None,
+                          data_axis: str = "data",
+                          model_axis: str = "model",
+                          kv_dtype: str = "fp32",
+                          weight_dtype: str = "fp32",
+                          weight_group_size: int = 128, device="cuda",
+                          **kw):
+    """Build a multi-engine ServingRouter for a model on ``device``
+    (default "cuda"; "cpu" runs the kernels' plain versions): N serving
+    engines, each a worker thread with its own paged KV pool, prefix
+    cache, host tier and graphs, behind one submit / abort / drain
+    surface, with prefix-affinity routing, tier admission control and a
+    crash-restarting Supervisor (serving.router). Every other keyword
+    goes to ServingRouter, and through it to each replica's
+    ServingEngine; ``num_blocks`` defaults to 128. ``mesh`` and
+    ``meshes`` (replicas on sub-meshes) raise naming ROADMAP.md item 10.
+
+    The factory gives each replica, and each restart, a fresh runner over
+    ONE set of weights: the model's tensors are moved to ``device`` (if
+    they are not there) and cast to ``dtype`` once, into a template
+    runner that never serves, and every replica's runner shares its
+    tensors (`data_ptr` equal). A departure by design: the JAX factory's
+    ``astype`` casts per replica, which on the card would hold one more
+    copy of the weights for every replica and every restart (27 GB for
+    LLaMA-2-7B at fp32)."""
+    if mesh is not None or meshes is not None:
+        raise NotImplementedError(
+            "mesh= / meshes= (replicas on tensor-parallel sub-meshes over "
+            f"axes {data_axis!r} / {model_axis!r}) is not ported yet: "
+            "ROADMAP.md 'Still to port' item 10")
+    from paddle_tpu_torch.serving.router import ServingRouter
+
+    template = runner_for(model, block_size=block_size,
+                          max_model_len=max_model_len, attn_impl=attn_impl,
+                          kv_dtype=kv_dtype, weight_dtype=weight_dtype,
+                          weight_group_size=weight_group_size,
+                          device=device)
+    if dtype is not None:
+        dt = _serving_dtype(dtype)
+        template.params = {k: (v.to(dt) if v.is_floating_point() else v)
+                           for k, v in template.params.items()}
+
+    def factory(idx: int):
+        return _fresh_runner(template)
+
+    kw.setdefault("num_blocks", 128)
+    return ServingRouter(factory, replicas=replicas, **kw)
 
 
 def restore_serving_engine(model, state, attn_impl: str = "auto",

@@ -11,9 +11,12 @@ steps, speculative decoding) over `KVCachePool` and a `LlamaRunner` or
 kinds as CUDA graphs on the card. The draft proposers (`NgramProposer`,
 `DraftModelProposer`, `AdaptiveK`, `shadow_runner`) and
 `quantized_page_write` are exported here too, as in the JAX package, and
-so are the host KV tier (`HostKVTier`, `OffloadRecord`) and the stream
+so are the host KV tier (`HostKVTier`, `OffloadRecord`), the stream
 detokenizer (`StreamDetokenizer`, `TokenizerAdapter`,
-`complete_utf8_prefix`).
+`complete_utf8_prefix`) and the in-process serving tier: `ServingRouter`
+over thread replicas (`EngineReplica`, `RouterOutput`, `RouterMetrics`),
+its `Supervisor`, the write-ahead `RouterJournal`, `ReplicaCrashError`,
+`aggregate_snapshots` and `audit_router`.
 """
 
 from paddle_tpu_torch.serving.detokenize import (
@@ -27,8 +30,9 @@ from paddle_tpu_torch.serving.kv_cache import (
     SCRATCH_PAGE, BlockAllocator, HostKVTier, KVCachePool, OffloadRecord,
     PrefixCache, SequenceKV, page_content_hash, quantized_page_write,
 )
+from paddle_tpu_torch.serving.journal import RouterJournal
 from paddle_tpu_torch.serving.metrics import (
-    Counter, EngineMetrics, Gauge, Histogram,
+    Counter, EngineMetrics, Gauge, Histogram, aggregate_snapshots,
 )
 from paddle_tpu_torch.serving.model_runner import (
     GPTRunner, LlamaRunner, PagedModelRunner, bucket_len, paged_attend,
@@ -36,7 +40,10 @@ from paddle_tpu_torch.serving.model_runner import (
 )
 from paddle_tpu_torch.serving.resilience import (
     FaultInjector, InjectedDeviceError, InvariantViolation, QueueFullError,
-    audit_engine,
+    ReplicaCrashError, audit_engine, audit_router,
+)
+from paddle_tpu_torch.serving.router import (
+    EngineReplica, RouterMetrics, RouterOutput, ServingRouter,
 )
 from paddle_tpu_torch.serving.scheduler import (
     FCFSScheduler, Request, RequestState, SamplingParams,
@@ -44,16 +51,20 @@ from paddle_tpu_torch.serving.scheduler import (
 from paddle_tpu_torch.serving.speculate import (
     AdaptiveK, DraftModelProposer, NgramProposer, shadow_runner,
 )
+from paddle_tpu_torch.serving.supervisor import Supervisor
 
 __all__ = [
     "SCRATCH_PAGE", "AdaptiveK", "BlockAllocator", "Counter",
-    "DraftModelProposer", "EngineMetrics", "FCFSScheduler", "FaultInjector",
-    "GPTRunner", "Gauge", "Histogram", "HostKVTier", "InjectedDeviceError",
-    "InvariantViolation", "KVCachePool", "LlamaRunner", "NgramProposer",
-    "OffloadRecord", "PagedModelRunner", "PrefixCache", "QueueFullError",
-    "Request", "RequestOutput", "RequestState", "SamplingParams",
-    "SequenceKV", "ServingEngine", "StreamDetokenizer", "TokenEvent",
-    "TokenizerAdapter", "audit_engine", "bucket_len",
+    "DraftModelProposer", "EngineMetrics", "EngineReplica", "FCFSScheduler",
+    "FaultInjector", "GPTRunner", "Gauge", "Histogram", "HostKVTier",
+    "InjectedDeviceError", "InvariantViolation", "KVCachePool",
+    "LlamaRunner", "NgramProposer", "OffloadRecord", "PagedModelRunner",
+    "PrefixCache", "QueueFullError", "ReplicaCrashError", "Request",
+    "RequestOutput", "RequestState", "RouterJournal", "RouterMetrics",
+    "RouterOutput", "SamplingParams", "SequenceKV", "ServingEngine",
+    "ServingRouter", "StreamDetokenizer", "Supervisor", "TokenEvent",
+    "TokenizerAdapter", "aggregate_snapshots", "audit_engine",
+    "audit_router", "bucket_len",
     "complete_utf8_prefix", "create_engine", "greedy_grid",
     "naive_generate", "page_content_hash",
     "paged_attend", "quantized_page_write", "runner_for", "sample_token",

@@ -102,9 +102,18 @@ Failure modes end requests instead of raising from step():
                   was quarantined, or NaN/Inf logits under nan_policy
                   "abort" (or with no finite entry at all)
 
-The JAX engine's knobs of the serving tier (``role``, ``kv_store``,
-``kv_store_owner``) are not ported yet: passing any of them with a value
-other than its default raises NotImplementedError naming ROADMAP item 11.
+The serving tier above the engine (`router.ServingRouter`) moves requests
+between engines: `role="prefill"` stages every request whose prefill
+completed (first token sampled) in a handoff buffer, its pages spilled to
+the host tier from page 0; `extract_handoff` exports them (numpy page
+arrays with CRC content hashes) and a sibling's `import_handoff` writes
+them into its own tier, re-verifying each hash, and injects the request,
+whose admission then pages them in through the tier's side-stream copy
+and fence. `stage_migration` stages one running request on demand (a
+drain), and `extract_request` takes a waiting one out. The JAX engine's
+host-wide store knobs (``kv_store``, ``kv_store_owner``) belong to the
+process tier: a value other than the default raises NotImplementedError
+naming ROADMAP item 11 (part B).
 
 Where the port departs from the JAX engine: the pools are written in
 place, so an in-flight launch carries no snapshot of the pools it read
@@ -150,9 +159,8 @@ _ITEM = "ROADMAP.md 'Still to port' item "
 # the JAX engine's knobs this port does not carry yet: name -> (the
 # default that keeps the feature off, the ROADMAP item that ports it)
 UNPORTED_KNOBS = {
-    "role": ("mixed", _ITEM + "11 (tier: disaggregated roles)"),
-    "kv_store": (None, _ITEM + "11 (tier: the host-wide KV store)"),
-    "kv_store_owner": (None, _ITEM + "11 (tier: the host-wide KV store)"),
+    "kv_store": (None, _ITEM + "11 (part B: the host-wide KV store)"),
+    "kv_store_owner": (None, _ITEM + "11 (part B: the host-wide KV store)"),
 }
 
 
@@ -188,14 +196,6 @@ class RequestOutput:
     num_preemptions: int = 0
     ttft_s: Optional[float] = None
     e2e_s: Optional[float] = None
-
-
-def _refuse_session(sampling: SamplingParams) -> None:
-    if sampling.session_id is not None:
-        raise NotImplementedError(
-            f"session_id={sampling.session_id!r}: session affinity belongs "
-            "to the serving tier (router, replicas), not ported yet: "
-            + _ITEM + "11 (tier)")
 
 
 def seeded_sample(logits_row, seed: int, step: int, temperature: float,
@@ -380,6 +380,7 @@ class ServingEngine:
                  horizon_sampling: bool = False,
                  horizon_early_stop: bool = False,
                  spill_async: bool = False,
+                 role: str = "mixed",
                  num_speculative_tokens: int = 0,
                  spec_max_ngram: int = 3,
                  spec_min_ngram: int = 1,
@@ -417,6 +418,16 @@ class ServingEngine:
         self.pipelined = bool(pipelined)
         self.horizon_sampling = bool(horizon_sampling)
         self.horizon_early_stop = bool(horizon_early_stop)
+        if role not in ("mixed", "prefill", "decode"):
+            raise ValueError(f"role={role!r}; expected 'mixed', "
+                             "'prefill', or 'decode'")
+        self.role = role
+        # the handoff buffer: requests a prefill-role engine finished
+        # prefilling (or a drain staged), request id -> OffloadRecord of
+        # their spilled pages (None: no pages could ride, the receiver
+        # recomputes); the requests stay in self._requests until
+        # extract_handoff()
+        self._handoffs: Dict[str, Optional[OffloadRecord]] = {}
         # the pipelined loop's single in-flight launch: dispatched at the
         # end of one step, drained and replayed by the next (or flush())
         self._inflight: Optional[_InflightLaunch] = None
@@ -552,7 +563,6 @@ class ServingEngine:
                     sampling: Optional[SamplingParams] = None,
                     request_id: Optional[str] = None) -> str:
         sampling = sampling or SamplingParams()
-        _refuse_session(sampling)
         self._check_kv_dtype(sampling)
         req = Request(prompt_tokens=list(map(int, prompt_tokens)),
                       sampling=sampling, request_id=request_id or "")
@@ -612,7 +622,15 @@ class ServingEngine:
         / error): release whatever it holds, record the RequestOutput with
         the partial generation, bump the matching failure counter."""
         now = self.metrics.clock()
-        if req.state is RequestState.RUNNING:
+        if req.request_id in self._handoffs:
+            # staged for handoff: not in the waiting queue; release the
+            # spilled host slots and finish in place
+            rec = self._handoffs.pop(req.request_id)
+            if rec is not None and self.pool.host_tier is not None:
+                self.pool.host_tier.free_slots(rec.slots)
+            req.state = RequestState.FINISHED
+            req.finish_reason = reason
+        elif req.state is RequestState.RUNNING:
             self.scheduler.finish(req, reason)
         else:
             self.scheduler.remove_waiting(req)
@@ -855,6 +873,13 @@ class ServingEngine:
             events.extend(self._commit_inflight())
             self._fence_pagein(admitted)
             plan = self.scheduler.prefill_plan()
+        if self.role == "prefill":
+            # every request that finished its prefill (decode phase, first
+            # token sampled) leaves the running set here, its pages
+            # spilled to the host tier, parked for the router to ship to a
+            # decode replica; after the commit (nothing in flight) and
+            # before this step's launches, so a staged request joins none
+            self._stage_handoffs()
         # ---- EXECUTE
         fused = bool(self.ragged_batch and plan
                      and self.scheduler.decode_ready())
@@ -1886,7 +1911,6 @@ class ServingEngine:
         page-in instead. Bypasses the bounded-queue shed gate: recovered
         requests are never shed by their own restore."""
         sampling = sampling or SamplingParams()
-        _refuse_session(sampling)
         if arrival_index is not None:
             ensure_arrival_counter_above(int(arrival_index))
             req = Request(prompt_tokens=list(map(int, prompt_tokens)),
@@ -1918,6 +1942,172 @@ class ServingEngine:
         self.metrics.queue_depth.set(self.scheduler.queue_depth)
         return req.request_id
 
+    # ------------------------------------------ migration (router tier)
+
+    # A preemption's OffloadRecord and inject_request already migrate a
+    # request within one engine; these methods stretch the same machinery
+    # across two: spill -> export the slots (page bytes, scale rows, CRC
+    # content hashes) -> import into the sibling's tier -> inject with the
+    # record attached, after which the sibling's page-in path takes over.
+
+    def _stage(self, req: Request) -> None:
+        """Park one running decode-phase request in the handoff buffer:
+        its pages spill to the host tier from page 0 (shared prefix pages
+        included: the record must stand alone on a sibling), coverage
+        clamped to context - 1 as in preemption, so the receiver always
+        computes the position it samples the next token from; the device
+        pages and the slot are released."""
+        tier = self.pool.host_tier
+        rec = None
+        if tier is not None:
+            covered = min(req.kv.num_tokens, req.num_context - 1)
+            rec = tier.spill_sequence(req.kv, covered,
+                                      include_registered=True)
+        self.scheduler.release_running(req)
+        self._release_spec_state(req)
+        req.phase = "handoff"
+        req.offload = None
+        self._handoffs[req.request_id] = rec
+        self.metrics.handoffs_out.inc()
+        if rec is not None:
+            self.metrics.handoff_pages_out.inc(len(rec.slots))
+
+    def _stage_handoffs(self) -> None:
+        """Stage every request that completed its prefill (decode phase,
+        at least one sampled token): the prefill role's step."""
+        for req in [r for r in self.scheduler.running
+                    if r.phase == "decode" and r.output_tokens
+                    and not r.done]:
+            self._stage(req)
+
+    def stage_migration(self, request_id: str) -> bool:
+        """Stage ONE running decode-phase request on demand, whatever the
+        role: the graceful-drain primitive, so a draining replica's
+        running requests ride to a sibling with their pages. Returns False
+        when the request is not stageable (waiting, finished, still
+        prefilling, no sampled token yet); the caller then falls back to
+        extract_request or a registry recompute."""
+        req = self._requests.get(request_id)
+        if (req is None or req.done
+                or req.state is not RequestState.RUNNING
+                or req.phase != "decode" or not req.output_tokens):
+            return False
+        self._stage(req)
+        return True
+
+    def handoff_ready(self) -> List[str]:
+        """Request ids staged for handoff, oldest first."""
+        return list(self._handoffs)
+
+    def _request_state(self, req: Request) -> dict:
+        """The migration state of a request (the snapshot's per-request
+        shape, with a live SamplingParams)."""
+        now = self.metrics.clock()
+        return {
+            "request_id": req.request_id,
+            "prompt_tokens": list(req.prompt_tokens),
+            "output_tokens": list(req.output_tokens),
+            "sampling": req.sampling,
+            "arrival_index": req.arrival_index,
+            "num_preemptions": req.num_preemptions,
+            "elapsed_s": now - req.arrival_time,
+            "first_token_elapsed_s": (
+                req.first_token_time - req.arrival_time
+                if req.first_token_time is not None else None),
+        }
+
+    def extract_handoff(self, request_id: str):
+        """Remove a staged handoff and return (state, payload): the
+        migration state and the page payload, per layer the stacked page
+        arrays (numpy; scale rows included on int8 pools) and each slot's
+        CRC content hash. payload is None when no pages rode along (no
+        tier, or a full one); the receiver then recomputes. The host slots
+        are freed here: the payload owns the bytes now."""
+        if request_id not in self._handoffs:
+            raise KeyError(f"request {request_id!r} is not staged for "
+                           "handoff")
+        rec = self._handoffs.pop(request_id)
+        req = self._requests[request_id]
+        state = self._request_state(req)
+        payload = None
+        tier = self.pool.host_tier
+        if rec is not None and tier is not None:
+            payload = {
+                "start_page": rec.start_page,
+                "covered_tokens": rec.covered_tokens,
+                "hashes": [tier.slot_hash(s) for s in rec.slots],
+                "layers": tier.export_slots(rec.slots),
+            }
+            self.metrics.handoff_bytes_out.inc(sum(
+                int(a.nbytes) for layer in payload["layers"]
+                for a in layer))
+            tier.free_slots(rec.slots)
+        del self._requests[request_id]
+        self._detoks.pop(request_id, None)
+        return state, payload
+
+    def import_handoff(self, state: dict, payload: Optional[dict]) -> str:
+        """Accept a handed-off request: write the page payload into this
+        engine's host tier (each content hash re-verified against the
+        bytes written: a corrupted transfer raises, it is never served)
+        and inject the request with the rebuilt OffloadRecord. Admission
+        then pages the slots in (the side-stream copy and the fence before
+        compute), so the continued stream is token-exact, int8 codes
+        included: the pages are copies, not recompute. A payload that
+        cannot land (no tier here, or a full one) resumes by recompute,
+        counted. A slot-reference payload (the host-wide store's) raises
+        naming ROADMAP.md item 11 part B."""
+        rec = None
+        tier = self.pool.host_tier
+        if payload is not None and payload.get("slot_refs") is not None:
+            raise NotImplementedError(
+                "import_handoff: a slot-reference handoff needs the "
+                "host-wide KV store, not ported yet: " + _ITEM
+                + "11 (part B)")
+        if payload is not None and tier is not None:
+            slots = tier.import_slots(payload["layers"], payload["hashes"])
+            if slots is not None:
+                rec = OffloadRecord(
+                    start_page=int(payload["start_page"]),
+                    covered_tokens=int(payload["covered_tokens"]),
+                    slots=slots)
+        if rec is None:
+            self.metrics.handoff_recompute_fallbacks.inc()
+        else:
+            self.metrics.handoff_pages_in.inc(len(rec.slots))
+        self.metrics.handoffs_in.inc()
+        return self.inject_request(
+            state["prompt_tokens"], state["sampling"],
+            request_id=state["request_id"],
+            output_tokens=state["output_tokens"],
+            arrival_index=(int(state["arrival_index"])
+                           if state.get("arrival_index") is not None
+                           else None),
+            num_preemptions=int(state.get("num_preemptions", 0)),
+            elapsed_s=float(state.get("elapsed_s", 0.0)),
+            first_token_elapsed_s=state.get("first_token_elapsed_s"),
+            offload=rec)
+
+    def extract_request(self, request_id: str) -> dict:
+        """Remove a WAITING request and return its migration state: the
+        router extracts queued requests from a restored or draining
+        replica and injects them into siblings. RUNNING requests hold
+        device pages and cannot move this way; FINISHED ones have nothing
+        to move."""
+        req = self._requests.get(request_id)
+        if req is None:
+            raise KeyError(f"unknown request {request_id!r}")
+        if req.state is not RequestState.WAITING \
+                or request_id in self._handoffs:
+            raise ValueError(
+                f"request {request_id!r} is {req.state.value}; only "
+                "WAITING requests can be extracted")
+        self.scheduler.remove_waiting(req)
+        del self._requests[request_id]
+        self._detoks.pop(request_id, None)
+        self.metrics.queue_depth.set(self.scheduler.queue_depth)
+        return self._request_state(req)
+
     def snapshot(self) -> dict:
         """Crash-safe serialization of ALL request state (prompts,
         generated tokens, sampling params, arrival order) and the
@@ -1946,9 +2136,13 @@ class ServingEngine:
             }
 
         # resume priority: running requests first (admission order), then
-        # the waiting queue left to right (preempted first)
+        # the waiting queue left to right (preempted first); staged
+        # handoffs ride as plain waiters (their host pages die with a
+        # crash, so a restored engine re-prefills them, and a restored
+        # prefill-role engine re-stages them)
         reqs = [req_state(r) for r in (*self.scheduler.running,
                                        *self.scheduler.waiting)]
+        reqs += [req_state(self._requests[rid]) for rid in self._handoffs]
         return {
             "version": 1,
             "config": {
@@ -1976,7 +2170,7 @@ class ServingEngine:
                 "horizon_sampling": self.horizon_sampling,
                 "horizon_early_stop": self.horizon_early_stop,
                 "spill_async": self.spill_async,
-                "role": "mixed",
+                "role": self.role,
                 "num_speculative_tokens": self.num_speculative_tokens,
                 "spec_max_ngram": self.spec_max_ngram,
                 "spec_min_ngram": self.spec_min_ngram,

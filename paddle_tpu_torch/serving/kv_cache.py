@@ -41,8 +41,11 @@ by preemption spills and by `PrefixCache` eviction through
 ``evict_hook``; a resumed request's pages come back by copy, bit for bit
 (`OffloadRecord`). On the card every copy runs on the tier's side stream,
 ordered against the compute stream by events (`HostKVTier`). The
-host-wide page store of the JAX package (``store=``) belongs to the
-serving tier (ROADMAP.md item 11); mesh-sharded pools are item 10.
+prefill / decode handoff of the serving tier moves a request's slots
+between two engines' tiers as numpy arrays (`HostKVTier.export_slots`,
+`import_slots`, CRC-checked at receive). The host-wide page store of the
+JAX package (``store=``, ``spill_pages(publish=)``) belongs to the
+process tier (ROADMAP.md item 11 part B); mesh-sharded pools are item 10.
 
 A departure: the JAX `chain_seed` folds a tag in with Python's `hash` of a
 tuple holding a string, which changes from one process to the next
@@ -59,6 +62,7 @@ from bisect import insort
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from paddle_tpu_torch.device import resolve_device
@@ -487,6 +491,27 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.uint8 else t.view(torch.uint8)
 
 
+# the integer type of a torch dtype numpy has no type for, by width
+_NUMPY_VIEWS = {torch.bfloat16: torch.int16,
+                torch.float8_e4m3fn: torch.uint8}
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor as numpy, bit for bit (bf16 and fp8 as integers)."""
+    view = _NUMPY_VIEWS.get(t.dtype)
+    return (t.view(view) if view is not None else t).numpy()
+
+
+def _from_numpy(arr, dtype: torch.dtype) -> torch.Tensor:
+    """The inverse of `_to_numpy` into ``dtype``: bytes are reinterpreted,
+    never converted, so a payload lands bit for bit."""
+    t = torch.from_numpy(np.require(arr, requirements=("C", "W")))
+    view = _NUMPY_VIEWS.get(dtype)
+    if view is not None:
+        return t.to(view).view(dtype)
+    return t.to(dtype)
+
+
 def consecutive_runs(slots: Sequence[int]):
     """(position, first slot, length) of each run of consecutive slots."""
     out = []
@@ -539,7 +564,7 @@ class HostKVTier:
     pending job never takes the old tenant's hash.
 
     ``store`` (the JAX package's host-wide SharedKVStore) raises: that
-    mode belongs to the serving tier, ROADMAP.md item 11."""
+    mode belongs to the process tier, ROADMAP.md item 11 part B."""
 
     def __init__(self, pool: "KVCachePool", max_pages: int, metrics=None,
                  async_spill: bool = False, store=None,
@@ -547,8 +572,8 @@ class HostKVTier:
         if store is not None:
             raise NotImplementedError(
                 "HostKVTier(store=...): the host-wide SharedKVStore "
-                "belongs to the serving tier (router, replicas), not "
-                "ported yet: ROADMAP.md 'Still to port' item 11 (tier)")
+                "belongs to the process tier, not ported yet: ROADMAP.md "
+                "'Still to port' item 11 (part B)")
         if max_pages < 1:
             raise ValueError("host tier needs max_pages >= 1 (omit the "
                              "tier entirely to disable offload)")
@@ -729,10 +754,18 @@ class HostKVTier:
 
     # ------------------------------------------------------------ spill
 
-    def spill_pages(self, device_pages: Sequence[int]) -> List[int]:
+    def spill_pages(self, device_pages: Sequence[int],
+                    publish: Sequence[Tuple[int, int]] = ()) -> List[int]:
         """Copy device pages into host slots. Takes as many as fit; the
         overflow is dropped and counted, never an error. Returns the
-        slots, aligned with the leading device_pages they hold."""
+        slots, aligned with the leading device_pages they hold.
+        ``publish`` (the host-wide store's index) takes its default only
+        (ROADMAP.md item 11 part B)."""
+        if tuple(publish):
+            raise NotImplementedError(
+                "spill_pages(publish=...): the host-wide store's content "
+                "index is not ported yet: ROADMAP.md 'Still to port' item "
+                "11 (part B)")
         self._reap()
         n = min(len(device_pages), len(self._free))
         slots = self._free[:n]
@@ -779,7 +812,8 @@ class HostKVTier:
             self.metrics.offload_spill_pages.inc(n)
         return slots
 
-    def spill_sequence(self, kv: "SequenceKV", covered_tokens: int
+    def spill_sequence(self, kv: "SequenceKV", covered_tokens: int,
+                       include_registered: bool = False
                        ) -> Optional[OffloadRecord]:
         """Spill a preemption victim's exclusively owned pages (the ones
         release() sends back to the free list), covering token positions
@@ -788,16 +822,22 @@ class HostKVTier:
         refcount 1 and re-match at re-admission (or are demoted through
         evict_hook and re-match on the host). Returns None when nothing is
         spillable (the recompute path applies); a partial fit trims
-        covered_tokens to the spilled page boundary."""
+        covered_tokens to the spilled page boundary.
+
+        ``include_registered`` (the prefill / decode handoff) spills the
+        whole range from page 0, shared pages included: the spill only
+        reads them, and the record must be self-contained on a sibling
+        whose prefix cache holds none of the sender's pages."""
         bs = self.pool.block_size
         covered = min(int(covered_tokens), kv.num_tokens)
-        start = kv.registered_pages
+        start = 0 if include_registered else kv.registered_pages
         end = -(-covered // bs) if covered > 0 else 0
         if end <= start:
             return None
         cand = kv.pages[start:end]
         alloc = self.pool.allocator
-        if any(alloc.refcount(p) != 1 for p in cand):
+        if not include_registered and any(alloc.refcount(p) != 1
+                                          for p in cand):
             # a shared page past the registered range would break the
             # record's contiguity: declined, counted
             self.note_fallback()
@@ -866,6 +906,68 @@ class HostKVTier:
         """One slot's per-layer page arrays, as `read_slots` gives them."""
         return [tuple(a[0] for a in layer)
                 for layer in self.read_slots(slot, 1)]
+
+    def export_slots(self, slots: Sequence[int]
+                     ) -> List[Tuple[np.ndarray, ...]]:
+        """Host copies of several slots in pool-array layout: per layer a
+        tuple of [len(slots), *page_shape] numpy arrays (page bytes, and
+        the scale rows on int8 pools), the handoff's payload. Pending
+        spill jobs of the slots are joined first. A dtype numpy lacks
+        travels as the integer type of its width (bf16 as int16, fp8 as
+        uint8), bit for bit."""
+        for s in slots:
+            self._wait_slot(s)
+        idx = torch.as_tensor(list(slots), dtype=torch.long)
+        return [tuple(_to_numpy(buf.index_select(0, idx)) for buf in layer)
+                for layer in self._bufs]
+
+    def import_slots(self, layer_data, hashes: Sequence[int]
+                     ) -> Optional[List[int]]:
+        """Write a handoff's page payload (export_slots' layout) into
+        fresh slots, the receiving half of the handoff. ``hashes`` are the
+        sender's per-slot content hashes, re-verified against the bytes
+        written: a mismatch frees the slots and raises ValueError, so a
+        corrupted page is never served. Returns None when the tier cannot
+        hold the whole payload (the caller recomputes: a partial import
+        could not connect)."""
+        n = len(hashes)
+        if n == 0:
+            return []
+        self._reap()
+        if n > len(self._free):
+            self.dropped_pages += n
+            if self.metrics is not None:
+                self.metrics.host_tier_drops.inc(n)
+            return None
+        slots = self._free[:n]
+        del self._free[:n]
+        for s in slots:
+            # a page-in may still be reading a reused slot on the side
+            # stream: the host write waits for that read to end
+            ev = self._read_events.pop(s, None)
+            if ev is not None:
+                ev.synchronize()
+        idx = torch.as_tensor(slots, dtype=torch.long)
+        for layer_bufs, data in zip(self._bufs, layer_data):
+            for buf, arr in zip(layer_bufs, data):
+                buf.index_copy_(0, idx, _from_numpy(arr, buf.dtype))
+        bad = []
+        with self._lock:
+            for j, s in enumerate(slots):
+                h = self.content_hash(s)
+                self._hash[s] = h
+                if h != int(hashes[j]):
+                    bad.append(s)
+        if bad:
+            self.free_slots(slots)
+            raise ValueError(
+                f"handoff content-hash mismatch on {len(bad)} of {n} "
+                f"pages (slots {bad}): page bytes corrupted in transfer; "
+                "refusing to serve them")
+        self.spilled_pages += n
+        if self.metrics is not None:
+            self.metrics.offload_spill_pages.inc(n)
+        return slots
 
     def free_slots(self, slots: Sequence[int]) -> None:
         """Return slots to the tier, bumping each slot's generation (a
@@ -1015,7 +1117,7 @@ class KVCachePool:
         exclusively owned pages to host buffers, and prefix-cache eviction
         demotes cached pages through evict_hook instead of dropping them.
         ``async_spill`` moves the wait for a spill's copies onto a worker
-        thread; ``store`` raises (ROADMAP.md item 11)."""
+        thread; ``store`` raises (ROADMAP.md item 11 part B)."""
         if self.host_tier is None:
             self.host_tier = HostKVTier(self, max_pages, metrics=metrics,
                                         async_spill=async_spill,

@@ -1,7 +1,8 @@
 """Serving metrics: counters, gauges, histograms for the engine.
 
 Counterpart of paddle_tpu/serving/metrics.py, holding the instruments the
-engine's default step sets. Everything is plain python on the host: the
+engine's default step sets, and `aggregate_snapshots`, which merges the
+snapshots of a tier's replicas. Everything is plain python on the host: the
 engine records around its device calls. The clock is injectable so
 scheduler unit tests run on a virtual clock. Times are host-clock times;
 a device number (kernel time, idle share) comes from CUDA events or a
@@ -79,6 +80,81 @@ class Histogram:
         return s[rank]
 
 
+# EngineMetrics.snapshot() keys that are cumulative event counts: the keys
+# a tier of replicas can SUM (the JAX package's list, its tensor-parallel
+# and page-store keys included, so an aggregate has the JAX keys). Gauges
+# and peaks take the max, ratios are recomputed from the summed counters,
+# and percentiles are dropped: scalar snapshots cannot be merged into a
+# percentile, so tier latency lives in the router's own histograms.
+SUMMABLE_KEYS = (
+    "requests_added", "requests_finished", "preemptions",
+    "requests_timed_out", "requests_aborted", "step_retries",
+    "nan_logit_events", "shed_requests", "tokens_generated",
+    "prefill_tokens", "prefill_chunks", "prefix_hit_tokens", "cow_copies",
+    "prefix_cached_pages", "attn_kv_bytes_read", "attn_kv_bytes_gather",
+    "tp_comm_bytes", "tp_comm_bytes_fp32",
+    "tp_gather_bytes", "tp_gather_bytes_fp32",
+    "spec_proposed_tokens", "spec_accepted_tokens", "spec_rollback_pages",
+    "spec_fused_horizons", "spec_dead_positions",
+    "host_syncs", "decode_horizon_steps", "horizon_overshoot_tokens",
+    "planned_ahead_steps", "host_plan_seconds", "overlapped_plan_seconds",
+    "drain_wait_seconds", "step_seconds",
+    "offload_spill_pages", "pagein_pages", "pagein_hidden_pages",
+    "offload_resumes", "offload_recompute_fallbacks", "host_tier_drops",
+    "host_tier_bytes",
+    "handoffs_out", "handoffs_in", "handoff_pages_out", "handoff_pages_in",
+    "handoff_recompute_fallbacks", "handoff_bytes_out",
+    "store_hit_pages", "store_dedup_pages",
+    "decode_steps", "queue_depth", "running", "pool_used_pages",
+)
+
+MAX_KEYS = ("queue_depth_peak", "pool_utilization_peak", "busy_seconds")
+
+
+def aggregate_snapshots(snaps) -> Dict[str, float]:
+    """Merge several EngineMetrics snapshots into one tier-level view:
+    counters sum, peaks take the max (replicas run concurrently, so
+    busy_seconds is the max too: the tier was busy as long as its
+    busiest replica), and derived ratios are recomputed from the summed
+    counters. Percentile keys are absent (see SUMMABLE_KEYS)."""
+    snaps = list(snaps)
+    out: Dict[str, float] = {k: 0.0 for k in SUMMABLE_KEYS}
+    for k in MAX_KEYS:
+        out[k] = 0.0
+    for s in snaps:
+        for k in SUMMABLE_KEYS:
+            out[k] += float(s.get(k, 0.0))
+        for k in MAX_KEYS:
+            out[k] = max(out[k], float(s.get(k, 0.0)))
+    toks = out["tokens_generated"]
+    prop = out["spec_proposed_tokens"]
+    out["spec_acceptance_rate"] = (out["spec_accepted_tokens"] / prop
+                                   if prop > 0 else 0.0)
+    pin = out["pagein_pages"]
+    out["pagein_hidden_ratio"] = (out["pagein_hidden_pages"] / pin
+                                  if pin > 0 else 0.0)
+    out["steps_per_token"] = out["decode_steps"] / toks if toks > 0 else 0.0
+    out["host_syncs_per_token"] = out["host_syncs"] / toks if toks > 0 \
+        else 0.0
+    st = out["step_seconds"]
+    out["device_idle_fraction"] = (
+        max(0.0, 1.0 - min((out["drain_wait_seconds"]
+                            + out["overlapped_plan_seconds"]) / st, 1.0))
+        if st > 0 else 0.0)
+    out["tokens_per_sec"] = (toks / out["busy_seconds"]
+                             if out["busy_seconds"] > 0 else 0.0)
+    # the tensor-parallel comm reductions, recomputed from the summed
+    # byte counters (0 on a port engine: TP serving is ROADMAP item 10)
+    comm = out["tp_comm_bytes"]
+    out["tp_comm_bytes_reduction_x"] = (out["tp_comm_bytes_fp32"] / comm
+                                        if comm > 0 else 0.0)
+    gather = out["tp_gather_bytes"]
+    out["tp_gather_bytes_reduction_x"] = (
+        out["tp_gather_bytes_fp32"] / gather if gather > 0 else 0.0)
+    out["replicas"] = float(len(snaps))
+    return out
+
+
 class EngineMetrics:
     """The engine's instrument panel.
 
@@ -147,6 +223,20 @@ class EngineMetrics:
         self.host_tier_drops = Counter("host_tier_drops")
         self.host_tier_bytes = Gauge("host_tier_bytes")
         self.host_tier_pages_used = Gauge("host_tier_pages_used")
+        # the prefill / decode split: requests a prefill-role engine (or a
+        # drain) staged for migration after their first sampled token and
+        # the pages spilled for them; requests an engine accepted by
+        # import_handoff and the pages it imported (content hashes
+        # re-verified at receive); handoffs whose pages could not ride (no
+        # host tier, tier full) and resume by recompute; and the payload
+        # bytes a handoff exported
+        self.handoffs_out = Counter("handoffs_out")
+        self.handoffs_in = Counter("handoffs_in")
+        self.handoff_pages_out = Counter("handoff_pages_out")
+        self.handoff_pages_in = Counter("handoff_pages_in")
+        self.handoff_recompute_fallbacks = Counter(
+            "handoff_recompute_fallbacks")
+        self.handoff_bytes_out = Counter("handoff_bytes_out")
         self.decode_steps = Counter("decode_steps")
         self.queue_depth = Gauge("queue_depth")
         self.running = Gauge("running")

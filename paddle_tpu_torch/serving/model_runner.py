@@ -69,6 +69,20 @@ Where the port departs from the JAX package:
     ``graphs`` set False) every kind runs eagerly: the caller's choice.
     On the card a capture or replay that fails raises; nothing retries
     eagerly;
+  * concurrent runners: the replicas of a serving tier are threads of
+    one process, sharing its CUDA context, its compute stream and one
+    capture stream per device. Every capture (its warm-up call on the
+    capture stream included) holds `_CAPTURE_LOCK`, so captures of
+    concurrent replicas run one at a time, and captures in
+    ``capture_error_mode="thread_local"``, so the other replicas' work
+    (eager chunks, replays, drains, host-tier copies and syncs) goes on
+    during a capture: only the capturing thread is barred from unsafe
+    calls. Why not a capture stream per replica: `torch.cuda.graph`
+    enters with a device synchronize and an `empty_cache`, which PyTorch's
+    allocator refuses while any capture is under way, so captures must be
+    serialized whatever their streams; and cuBLAS keeps a 32 MiB workspace
+    for every stream it has run on, which a stream per replica (and per
+    restart) would hold;
   * the horizon loops are Python loops of the decode bodies (the JAX
     `lax.scan`), inside one graph on the card; a speculative horizon's
     per-row positions, kept counts and stop bits stay device tensors.
@@ -82,6 +96,7 @@ from __future__ import annotations
 
 import logging
 import os
+import threading
 import time
 from collections import OrderedDict
 from typing import Dict, List
@@ -211,7 +226,10 @@ class _CudaGraph:
         self.stream = stream
 
     def capture(self, fn):
-        with torch.cuda.graph(self.graph, stream=self.stream):
+        # thread_local: the other replicas' threads may sync and allocate
+        # while this one captures (the caller holds _CAPTURE_LOCK)
+        with torch.cuda.graph(self.graph, stream=self.stream,
+                              capture_error_mode="thread_local"):
             return fn()
 
     def replay(self) -> None:
@@ -306,6 +324,11 @@ def capture_step(body, host, pools, device, graph):
 # a workspace for every stream it has run on (32 MiB a stream on the H100)
 # and never frees it, so a stream per runner would hold one per runner
 _CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+# held by every capture of the process (the warm-up call on the shared
+# capture stream through the end of the capture): the runners of a
+# serving tier's replica threads capture one at a time
+_CAPTURE_LOCK = threading.Lock()
 
 
 def _capture_stream(device) -> "torch.cuda.Stream":
@@ -614,8 +637,9 @@ class PagedModelRunner:
         if step is not None:
             self._graph_cache.move_to_end(key)
             return step.replay(host)
-        step, first = capture_step(body, host, pools, self.device,
-                                   self._new_graph())
+        with _CAPTURE_LOCK:
+            step, first = capture_step(body, host, pools, self.device,
+                                       self._new_graph())
         self._graph_cache[key] = step
         self.captures.append(dict(kind=kind, key=shape_key,
                                   seconds=step.seconds,

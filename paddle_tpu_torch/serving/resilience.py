@@ -7,21 +7,26 @@ prefix cache and its private host tier, at most one in-flight launch (the
 pipelined loop).
 
   FaultInjector      a drop-in runner wrapper that raises simulated
-                     device errors, corrupts logits with NaN, or stalls
-                     chosen calls of its six ops (prefill, prefill_chunk,
-                     decode, decode_multi, decode_multi_spec, ragged_step)
+                     device errors, corrupts logits with NaN, stalls, or
+                     crashes the whole replica on chosen calls of its six
+                     ops (prefill, prefill_chunk, decode, decode_multi,
+                     decode_multi_spec, ragged_step)
   audit_engine       page accounting, refcounts, the prefix-cache index,
-                     the host tier, slots and block tables must agree
-                     after every step
+                     the host tier (the handoff buffer's slots included),
+                     slots and block tables must agree after every step
+  audit_router       every live replica passes audit_engine, and the
+                     router's at-most-once registry is consistent
 
 Fault schedules are keyed by call index (never wall time or RNG), so a
-failing trace replays exactly. The replica-crash fault class of the JAX
-injector belongs to the serving tier (ROADMAP.md item 11), and so does
-the host-wide page store's auditor (`audit_store`).
+failing trace replays exactly. A crash is raised before the wrapped call
+reaches the runner, so it never leaves a stream capturing or a copy
+half issued. The host-wide page store's auditor (`audit_store`) belongs
+to the process tier (ROADMAP.md item 11 part B).
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Callable, Iterable, Optional
 
@@ -29,6 +34,8 @@ import torch
 
 from paddle_tpu_torch.serving.kv_cache import SCRATCH_PAGE
 from paddle_tpu_torch.serving.model_runner import SCALE_SUFFIX
+
+logger = logging.getLogger(__name__)
 
 
 class InjectedDeviceError(RuntimeError):
@@ -42,6 +49,16 @@ class QueueFullError(RuntimeError):
 class InvariantViolation(AssertionError):
     """Engine state is internally inconsistent (leak / double-own / slot
     corruption). Raised by audit_engine; always a bug, never load."""
+
+
+class ReplicaCrashError(BaseException):
+    """A simulated whole-replica failure. A BaseException on purpose: the
+    engine's transient-fault recovery catches Exception, so a crash is
+    never absorbed by step retries or quarantine; it escapes
+    engine.step() and ends the replica's worker thread, the contract of a
+    real replica death. The router's Supervisor owns it: it fences the
+    replica, restores it from its last snapshot and resubmits what the
+    snapshot missed."""
 
 
 class FaultInjector:
@@ -63,11 +80,10 @@ class FaultInjector:
       nan    run the real step, then set the leading ``nan_fraction`` of
              the vocab to NaN (logits), or zero the finite plane of a
              horizon's packed buffer (decode_multi, decode_multi_spec);
-      stall  call ``on_stall`` (default: time.sleep(stall_s)) first.
-
-    The replica-crash class (``crash_every`` / ``crash_calls``) belongs
-    to the serving tier: it takes its defaults only and raises naming
-    ROADMAP.md item 11 otherwise."""
+      stall  call ``on_stall`` (default: time.sleep(stall_s)) first;
+      crash  raise ReplicaCrashError BEFORE the real runner runs: the
+             engine cannot absorb it, so the call kills the replica
+             (the Supervisor's drill)."""
 
     def __init__(self, runner, *,
                  error_every: int = 0, error_calls: Iterable[int] = (),
@@ -83,16 +99,12 @@ class FaultInjector:
         for t in (error_target, nan_target, stall_target, crash_target):
             if t not in ("prefill", "decode", "both"):
                 raise ValueError(f"fault target {t!r}")
-        if crash_every or tuple(crash_calls):
-            raise NotImplementedError(
-                "FaultInjector(crash_*): replica crashes belong to the "
-                "serving tier (router, supervisor), not ported yet: "
-                "ROADMAP.md 'Still to port' item 11 (tier)")
         if not 0.0 < nan_fraction <= 1.0:
             raise ValueError("nan_fraction must be in (0, 1]")
         self._error = (error_every, frozenset(error_calls), error_target)
         self._nan = (nan_every, frozenset(nan_calls), nan_target)
         self._stall = (stall_every, frozenset(stall_calls), stall_target)
+        self._crash = (crash_every, frozenset(crash_calls), crash_target)
         self.nan_fraction = nan_fraction
         self._on_stall = on_stall or (lambda: time.sleep(stall_s))
         self.calls = {"prefill": 0, "decode": 0}
@@ -120,6 +132,9 @@ class FaultInjector:
         if self._hits(self._stall, op, n):
             self.injected["stall"] += 1
             self._on_stall()
+        if self._hits(self._crash, op, n):
+            self.injected["crash"] += 1
+            raise ReplicaCrashError(f"injected replica crash: {op} call {n}")
         if self._hits(self._error, op, n):
             self.injected["error"] += 1
             raise InjectedDeviceError(f"injected device error: {op} call {n}")
@@ -437,6 +452,14 @@ def _tier_problems(engine, tier, sched, cache) -> list:
         elif req.phase == "offloaded":
             problems.append(f"{req.request_id} phase 'offloaded' without "
                             "an offload record")
+    # the handoff buffer: a staged request's spilled pages are owned by its
+    # record until extract_handoff ships (and frees) them, or an abort
+    # releases them
+    for rec in getattr(engine, "_handoffs", {}).values():
+        if rec is None:
+            continue
+        for s in rec.slots:
+            slot_owner[s] = slot_owner.get(s, 0) + 1
     for req in sched.running:
         if req.offload is not None:
             problems.append(f"{req.request_id} RUNNING with an offload "
@@ -528,3 +551,77 @@ def _weight_problems(runner) -> list:
                             f"!= ({int(w.shape[1])},): one scale per output "
                             "channel")
     return problems
+
+
+def audit_router(router) -> None:
+    """Tier-level invariant auditor: every LIVE replica passes
+    audit_engine, and the router's at-most-once bookkeeping is
+    consistent — each unfinished request is owned by exactly one live
+    replica (or by a failed one the supervisor has not yet recovered,
+    never by two), no request id is in flight on two live engines at
+    once (the double-completion hazard resubmission must never create),
+    delivery cursors match the delivered token streams, and the
+    prefix-affinity index only names valid replicas. Raises
+    InvariantViolation listing every broken invariant."""
+    problems = []
+    replicas = list(router._replicas)
+    for rep in replicas:
+        if rep.status != "live":
+            continue
+        try:
+            with rep.lock:
+                audit_engine(rep.engine)
+        except InvariantViolation as e:
+            problems.append(f"replica {rep.index}: {e}")
+        except BaseException as e:
+            # a replica dying UNDER the audit is a liveness event for
+            # the supervisor, not an invariant violation
+            logger.warning("replica %d unreachable mid-audit: %s",
+                           rep.index, e)
+
+    with router._lock:
+        n = len(replicas)
+        inflight = {}
+        for rep in replicas:
+            if rep.status != "live":
+                continue
+            for rid, req in rep.engine._requests.items():
+                if not req.done:
+                    if rid in inflight:
+                        problems.append(
+                            f"request {rid} in flight on replicas "
+                            f"{inflight[rid]} AND {rep.index}")
+                    inflight[rid] = rep.index
+        for rid, rec in router._reqs.items():
+            if rec.cursor != len(rec.tokens):
+                problems.append(f"request {rid} cursor {rec.cursor} != "
+                                f"{len(rec.tokens)} delivered tokens")
+            if rec.done:
+                continue
+            if not 0 <= rec.owner_idx < n:
+                problems.append(f"request {rid} owned by replica "
+                                f"{rec.owner_idx} out of range")
+                continue
+            owner = replicas[rec.owner_idx]
+            if owner.status == "live":
+                if rec.owner_epoch != owner.epoch:
+                    problems.append(
+                        f"request {rid} owned by stale epoch "
+                        f"{rec.owner_epoch} of live replica {rec.owner_idx}"
+                        f" (now epoch {owner.epoch})")
+                elif rid not in rep_requests(owner):
+                    problems.append(
+                        f"request {rid} owned by live replica "
+                        f"{rec.owner_idx} but unknown to its engine")
+        for h, idx in router._affinity.items():
+            if not 0 <= idx < n:
+                problems.append(f"affinity entry {h} -> replica {idx} "
+                                "out of range")
+
+    if problems:
+        raise InvariantViolation("; ".join(problems))
+
+
+def rep_requests(rep) -> frozenset:
+    """Request ids a replica's engine knows (finished included)."""
+    return frozenset(rep.engine._requests)

@@ -53,8 +53,9 @@ class SamplingParams:
     seed: Optional[int] = None
     stop_token_ids: Tuple[int, ...] = ()
     timeout_s: Optional[float] = None   # deadline from arrival; None = never
-    # session affinity across the replicas of a tier; the engine refuses
-    # any value but None (the tier is ROADMAP.md 'Still to port' item 11)
+    # multi-turn session id: the serving tier (`ServingRouter`) routes a
+    # repeat turn back to the replica that served the session; one engine
+    # ignores it
     session_id: Optional[str] = None
     # per-request KV precision: None = the pool's own rung; otherwise the
     # engine's rung, or "fp32" / "fp8" on a kv_dtype="mixed" engine, whose
@@ -534,6 +535,18 @@ class FCFSScheduler:
         host-tier slots (an offloaded waiter's) are released here."""
         self.waiting.remove(req)      # identity match (Request is eq=False)
         self._drop_offload(req)
+
+    def release_running(self, req: Request) -> None:
+        """Release a RUNNING request's device pages and slot WITHOUT
+        finishing it: the handoff-staging path. The caller has spilled the
+        pages to the host tier; the request leaves the running set in
+        state WAITING but does not rejoin the queue (the engine's handoff
+        buffer owns it until the router extracts it)."""
+        req.kv.release()
+        req.kv = None
+        self._release_slot(req)
+        self.running.remove(req)
+        req.state = RequestState.WAITING
 
     def finish(self, req: Request, reason: str) -> None:
         req.kv.release()

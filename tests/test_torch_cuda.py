@@ -1926,3 +1926,197 @@ def test_async_spill_engine_never_blocks_and_matches_the_sync_engine(gen):
         assert eng.pool.allocator.check_no_leaks()
         streams[spill_async] = [outs[r].output_tokens for r in ids]
     assert streams[True] == streams[False]
+
+
+# ------------------------------------------------ the serving tier
+
+TIER_CFG = LlamaConfig(vocab_size=211, hidden_size=256, num_layers=2,
+                       num_heads=4, num_kv_heads=4, max_seq_len=256)
+TIER_KW = dict(block_size=16, num_blocks=48, max_batch_size=4,
+               max_model_len=256, max_prefill_tokens_per_step=64,
+               decode_horizon=8, audit=True, heartbeat_timeout_s=600.0)
+
+
+def _tier_work(n=8, seed=5):
+    rng = np.random.default_rng(seed)
+    return [(f"w{i}", rng.integers(1, 211, int(rng.integers(40, 120)))
+             .tolist(), SamplingParams(max_tokens=int(rng.integers(16, 40))))
+            for i in range(n)]
+
+
+def _serve(router, work):
+    for rid, p, sp in work:
+        router.submit(p, sp, request_id=rid)
+    outs = router.drain(timeout_s=300)
+    return {rid: outs[rid].output_tokens for rid, _, _ in work}
+
+
+def test_tier_replicas_capture_concurrently_and_match_one_engine(gen,
+                                                                monkeypatch):
+    """Two replicas reach their first decode horizons together (a barrier
+    before each runner's first capture), while a third thread drains
+    device work through synchronising reads: both capture (one at a time,
+    under the capture lock, in thread-local capture mode) and both give a
+    single engine's streams; the replicas share the model's weights."""
+    import threading
+
+    from paddle_tpu_torch.inference import create_serving_router
+    from paddle_tpu_torch.serving import model_runner as mr
+
+    model = Llama(TIER_CFG, device="cuda", seed=0)
+    work = _tier_work()
+    single = ServingEngine(LlamaRunner(model, block_size=16),
+                           **{k: v for k, v in TIER_KW.items()
+                              if k != "heartbeat_timeout_s"})
+    for rid, p, sp in work:
+        single.add_request(p, sp, request_id=rid)
+    ref = {rid: o.output_tokens for rid, o in single.run().items()}
+    barrier = threading.Barrier(2, timeout=60)
+    spans, first = [], set()
+    graphed, capture = mr.PagedModelRunner._graphed, mr.capture_step
+
+    def _graphed(self, kind, shape_key, body, host, pools):
+        if id(self) not in first:
+            first.add(id(self))
+            barrier.wait()
+        return graphed(self, kind, shape_key, body, host, pools)
+
+    def capture_step(*args, **kw):
+        t0 = __import__("time").perf_counter()
+        try:
+            return capture(*args, **kw)
+        finally:
+            spans.append((t0, __import__("time").perf_counter()))
+
+    monkeypatch.setattr(mr.PagedModelRunner, "_graphed", _graphed)
+    monkeypatch.setattr(mr, "capture_step", capture_step)
+    stop = threading.Event()
+
+    def busy():
+        x = torch.randn(512, 512, device="cuda")
+        while not stop.is_set():
+            (x @ x).sum().item()
+
+    noise = threading.Thread(target=busy, daemon=True)
+    noise.start()
+    for counts in (k1.COUNTS, k2.COUNTS):
+        counts.reset()
+    router = create_serving_router(model, replicas=2, device="cuda",
+                                   policy="round_robin", **TIER_KW)
+    try:
+        got = _serve(router, work)
+        runners = [rep.engine.runner for rep in router._replicas]
+        assert all(r.captures for r in runners)
+        name = "embed_tokens.weight"
+        assert runners[0].params[name].data_ptr() == \
+            runners[1].params[name].data_ptr() == \
+            dict(model.named_parameters())[name].data_ptr()
+        assert router.metrics.snapshot()["replica_restarts"] == 0
+    finally:
+        stop.set()
+        noise.join(30)
+        router.shutdown()
+    assert got == ref
+    assert k1.COUNTS.plain_launches == k2.COUNTS.plain_launches == 0
+    assert k2.COUNTS.kernel_launches > 0
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:])), spans
+
+
+def test_tier_rolling_restart_releases_each_replicas_memory(gen):
+    """After rolling_restart every old engine, runner and host tier is
+    collected, the card's allocated memory is within one replica's pools
+    and graph pools of its value before, and the host tiers' pinned bytes
+    are what they were; the streams equal the first run's."""
+    import gc
+    import weakref
+
+    from paddle_tpu_torch.inference import create_serving_router
+
+    model = Llama(TIER_CFG, device="cuda", seed=0)
+    work = _tier_work(seed=7)
+    router = create_serving_router(model, replicas=2, device="cuda",
+                                   host_tier_pages=32, **TIER_KW)
+    try:
+        first = _serve(router, work)
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        one = max(rep.engine.pool.memory_bytes() + sum(
+            c["pool_bytes"] for c in rep.engine.runner.captures)
+            for rep in router._replicas)
+        pinned = [b.numel() * b.element_size()
+                  for rep in router._replicas
+                  for layer in rep.engine.pool.host_tier._bufs
+                  for b in layer]
+        old = [weakref.ref(o) for rep in router._replicas
+               for o in (rep.engine, rep.engine.runner,
+                         rep.engine.pool.host_tier)]
+        assert router.rolling_restart() == 2
+        again = _serve(router, [(f"r{rid}", p, sp) for rid, p, sp in work])
+        gc.collect()
+        torch.cuda.synchronize()
+        assert all(r() is None for r in old)
+        assert torch.cuda.memory_allocated() <= before + one
+        assert [b.numel() * b.element_size() for rep in router._replicas
+                for layer in rep.engine.pool.host_tier._bufs
+                for b in layer] == pinned
+    finally:
+        router.shutdown()
+    assert {f"r{rid}": t for rid, t in first.items()} == again
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
+def test_tier_handoff_pages_arrive_bit_identical(gen, kv_dtype):
+    """A prefill-role engine's staged pages, gathered on the card before
+    the spill, equal the decode engine's pages after its page-in fence,
+    bit for bit (int8 codes and scale rows included); no handoff
+    recomputes, and the fp32 streams equal naive_generate's."""
+    model = Llama(TIER_CFG, device="cuda", seed=0)
+    kw = {k: v for k, v in TIER_KW.items() if k != "heartbeat_timeout_s"}
+    runner = LlamaRunner(model, block_size=16, kv_dtype=kv_dtype)
+    pre = ServingEngine(runner, role="prefill", host_tier_pages=64, **kw)
+    dec = ServingEngine(LlamaRunner(model, block_size=16, kv_dtype=kv_dtype),
+                        role="decode", host_tier_pages=64, **kw)
+    sent = {}
+    stage = pre._stage
+
+    def _stage(req):
+        covered = min(req.kv.num_tokens, req.num_context - 1)
+        pages = req.kv.pages[:pre.pool.blocks_for_tokens(covered)]
+        sent[req.request_id] = pre.pool.gather_pages(pages)
+        stage(req)
+
+    pre._stage = _stage
+    work = _tier_work(n=4, seed=9)
+    for rid, p, sp in work:
+        pre.add_request(p, sp, request_id=rid)
+    for _ in range(200):
+        pre.step()
+        if len(pre.handoff_ready()) == len(work):
+            break
+    for rid in pre.handoff_ready():
+        dec.import_handoff(*pre.extract_handoff(rid))
+    fence = dec._fence_pagein
+    checked = []
+
+    def _fence(admitted):
+        fence(admitted)
+        for req in admitted:
+            want = sent.pop(req.request_id)
+            got = dec.pool.gather_pages(req.kv.pages[:want[0][0].shape[0]])
+            for a_layer, b_layer in zip(want, got):
+                for a, b in zip(a_layer, b_layer):
+                    assert torch.equal(a.view(torch.uint8),
+                                       b.view(torch.uint8))
+            checked.append(want[0][0].shape[0])
+
+    dec._fence_pagein = _fence
+    outs = dec.run()
+    assert not sent and sum(checked) == dec.metrics.handoff_pages_in.value
+    assert dec.metrics.handoff_recompute_fallbacks.value == 0
+    assert len(checked) == len(work)
+    if kv_dtype == "fp32":
+        for rid, p, sp in work:
+            assert outs[rid].output_tokens == naive_generate(
+                runner, p, sp, max_model_len=256)

@@ -7,11 +7,16 @@ kernel wrapper takes, and what it refuses.
   * entry points default to "cuda" and raise where no card is usable;
   * CPU tensors run the plain versions: `plain_launches` moves and
     `kernel_launches` never does;
-  * every engine knob the port does not carry (the serving tier's: role,
+  * every engine knob the port does not carry (the host-wide store's:
     kv_store, kv_store_owner) raises NotImplementedError naming ROADMAP
     item 11; the host tier's and the detokenizer's knobs (items 9 and 15),
-    the four horizon and pipeline knobs, the prefix cache, fused ragged
-    steps, speculation and temperature > 0 are served;
+    the disaggregated role and session ids (item 11 part A), the four
+    horizon and pipeline knobs, the prefix cache, fused ragged steps,
+    speculation and temperature > 0 are served; every knob of the process
+    tier (item 11 part B: the router's process backend, shared store and
+    RPC timeouts, `HostKVTier(store=)`, `spill_pages(publish=)`) takes its
+    JAX default and raises naming item 11 at any other value, and
+    `create_serving_router(mesh= | meshes=)` raises naming item 10;
   * the serving entry points take the JAX package's positional and
     keyword arguments (runner, runner_for, create_serving_engine,
     SamplingParams, naive_generate, KVCachePool), `device` only by
@@ -293,21 +298,22 @@ def _engine(model, **kw):
                                  max_model_len=32, num_blocks=8, **kw)
 
 
-# the JAX engine's knobs of the host tier (item 9) and the detokenizer
-# (item 15), refused until both were ported: a value other than the
-# default is now served
+# the JAX engine's knobs of the host tier (item 9), the detokenizer (item
+# 15) and the disaggregated role (item 11 part A), refused until they were
+# ported: a value other than the default is now served ("decode" is a
+# routing designation, an engine that prefills and decodes)
 HOST_TIER_AND_DETOKENIZER_KNOBS = {
     "host_tier_pages": 8, "host_tier_headroom": True, "pagein_prefetch": 4,
     "spill_async": True, "tokenizer": types.SimpleNamespace(
-        id_to_bytes=lambda tok: bytes([65 + tok % 26]))}
+        id_to_bytes=lambda tok: bytes([65 + tok % 26])), "role": "decode"}
 
 
 @pytest.mark.parametrize("knob", sorted(set(UNPORTED_KNOBS)
                                         | set(HOST_TIER_AND_DETOKENIZER_KNOBS)))
 def test_unported_engine_knob_raises(model, knob):
-    """The knobs left unported (the serving tier's) take their default only
-    and raise naming item 11; those of items 9 and 15 are served at the
-    JAX default and at another value, token for token."""
+    """The knobs left unported (the host-wide store's) take their default
+    only and raise naming item 11; those of items 9, 15 and 11 part A are
+    served at the JAX default and at another value, token for token."""
     if knob in HOST_TIER_AND_DETOKENIZER_KNOBS:
         value = HOST_TIER_AND_DETOKENIZER_KNOBS[knob]
         extra = ({"host_tier_pages": 8} if knob in ("host_tier_headroom",
@@ -409,6 +415,59 @@ def test_unported_model_and_pool_options_raise(model):
                   amp_dtype="float32")
 
 
+# the JAX router's knobs of the process tier (item 11 part B), each with a
+# value other than its JAX default
+PROCESS_TIER_KNOBS = {
+    "backend": "process", "shared_kv_pages": 8, "shared_kv_shm": True,
+    "shared_kv_geometry": {"num_layers": 1}, "rendezvous_timeout_s": 5.0,
+    "command_timeout_s": 5.0, "rpc_fast_timeout_s": 1.0,
+    "rpc_max_retries": 5, "child_env": {"A": "1"}}
+
+
+@pytest.mark.parametrize("knob", sorted(PROCESS_TIER_KNOBS))
+def test_process_tier_router_knob_raises_naming_item_11(model, knob):
+    """Each process-tier knob of the JAX ServingRouter has the JAX default
+    in the port's signature, is accepted there, and raises naming item 11
+    at another value."""
+    from paddle_tpu.serving import ServingRouter as JaxServingRouter
+    from paddle_tpu_torch.inference import create_serving_router
+    from paddle_tpu_torch.serving import ServingRouter
+    default = inspect.signature(ServingRouter).parameters[knob].default
+    assert default == \
+        inspect.signature(JaxServingRouter).parameters[knob].default
+    kw = dict(replicas=1, supervise=False, block_size=8, max_model_len=32,
+              num_blocks=8, device="cpu")
+    create_serving_router(model, **kw, **{knob: default}).shutdown()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11"):
+        create_serving_router(model, **kw,
+                              **{knob: PROCESS_TIER_KNOBS[knob]})
+
+
+def test_process_tier_store_parameters_raise_naming_item_11():
+    """HostKVTier(store=) and spill_pages(publish=) (the host-wide store,
+    item 11 part B) take the JAX default only; mesh= and meshes= of
+    create_serving_router raise naming item 10."""
+    from paddle_tpu.serving.kv_cache import HostKVTier as JaxHostKVTier
+    from paddle_tpu_torch.inference import create_serving_router
+    from paddle_tpu_torch.serving import HostKVTier
+    for fn, jfn, name in ((HostKVTier, JaxHostKVTier, "store"),
+                          (HostKVTier.spill_pages, JaxHostKVTier.spill_pages,
+                           "publish")):
+        assert inspect.signature(fn).parameters[name].default == \
+            inspect.signature(jfn).parameters[name].default
+    pool = KVCachePool(1, 4, 4, 1, 8, device="cpu")
+    tier = pool.enable_host_tier(2)
+    assert tier.spill_pages([], publish=()) == []
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tier.spill_pages([1], publish=[(0, 7)])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        HostKVTier(pool, 2, store=object())
+    m = Llama(LlamaConfig(**SIZES), device="cpu")
+    for kw in ({"mesh": object()}, {"meshes": [object()]}):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            create_serving_router(m, device="cpu", **kw)
+
+
 def test_unknown_knob_is_a_type_error(model):
     with pytest.raises(TypeError, match="no_such_knob"):
         _engine(model, no_such_knob=1)
@@ -492,12 +551,20 @@ def test_other_weight_group_sizes_raise_naming_item_8(twin, entry):
 
 
 def test_session_id_raises_naming_item_11(model):
+    """A session id is served since item 11 part A (the tier routes on it,
+    one engine ignores it: same tokens as without); what still raises
+    naming item 11 is the host-wide store a session's pages would live in
+    across processes (part B)."""
     eng = _engine(model)
+    with_sid = eng.add_request([1, 2], SamplingParams(max_tokens=3,
+                                                      session_id="s"))
+    without = eng.add_request([1, 2], SamplingParams(max_tokens=3,
+                                                     session_id=None))
+    outs = eng.run()
+    assert outs[with_sid].output_tokens == outs[without].output_tokens
+    assert len(outs[with_sid].output_tokens) == 3
     with pytest.raises(NotImplementedError, match="item 11"):
-        eng.add_request([1, 2], SamplingParams(session_id="s"))
-    rid = eng.add_request([1, 2], SamplingParams(max_tokens=3,
-                                                 session_id=None))
-    assert len(eng.run()[rid].output_tokens) == 3
+        _engine(model, kv_store=object())
 
 
 def test_naive_generate_fallback_seed_is_read_on_sampled_paths_only(model):
@@ -701,9 +768,9 @@ def test_comm_dtype_without_a_mesh_is_a_value_error(model, jax_model):
         create_serving_engine(model, device="cpu", mesh=object(), **kw)
 
 
-# the JAX snapshot's keys of the unported handoffs, page store and tensor
-# parallelism (items 10-11)
-UNPORTED_METRIC_PREFIXES = ("tp_", "handoff", "store_")
+# the JAX snapshot's keys of the unported page store and tensor
+# parallelism (items 11 part B and 10); the handoff keys are pinned
+UNPORTED_METRIC_PREFIXES = ("tp_", "store_")
 
 
 def _scripted_clock():
