@@ -41,7 +41,7 @@ exits non-zero without printing a result:
  3s. sampler  the seeded sampler (the runner's _sampled_rows, which every
               sampled token goes through) on the card against the same
               function on the CPU: 64 rows of vocabulary 32000, seeds 0-7 x
-              steps 0-31 x temperatures {0.3, 0.7, 1.0, 1.5} x (top_k,
+              steps 0-7 x temperatures {0.3, 0.7, 1.0, 1.5} x (top_k,
               top_p) in {(None, None), (1, None), (50, None), (None, 0.9),
               (8, 0.9)}. Every token must be equal; one that parts prints
               its perturbed top-2 margin and fails the run.
@@ -84,16 +84,17 @@ exits non-zero without printing a result:
               decode token, host_syncs_per_token, horizon_overshoot_tokens,
               and a torch.profiler split of a horizon of 8 (device busy,
               host wall, idle share) beside phase 5's per-step decode.
-  6. int8,    the same model, requests and budget served from an int8 and
-     fp8      then an fp8 KV pool (kv_dtype="int8" / "fp8", 1024 pages of
-              16, about 4 GiB each). Every prefill chunk and every decode
+  6. int8,    the same model at 8 of its 32 layers (full width; the
+     fp8      process tier of phase 45 took the smoke's time), the same
+              requests and budget served from an int8 and then an fp8 KV
+              pool (kv_dtype="int8" / "fp8", 1024 pages of 16). Every prefill chunk and every decode
               step must launch the K1-q kernel of that dtype once per
               layer, and nothing else: no plain version, no K1 over fp32
               pools, no K2; chunks launch its span form and decode steps
               its decode form, both at least once. No page may leak. Each engine is then
               profiled as in phase 5. Reported, not gated: each
-              engine's greedy agreement with the fp32 engine and with its
-              own naive_generate on two requests. cuBLAS rounds a row of
+              engine's greedy agreement with its own naive_generate on
+              two requests. cuBLAS rounds a row of
               an fp32 x @ w differently for another row count (printed
               first), the batch-8 engine and naive_generate run other row
               counts, and 1-byte K/V turn those 1-ulp differences into
@@ -101,7 +102,8 @@ exits non-zero without printing a result:
               slot serves the two shortest prompts (one chunk each, then
               batch-1 decode steps, naive_generate's row counts) through
               K1-q alone and must equal naive_generate token for token,
-              for int8 and for fp8. Each pool then runs phases 5g and 5h.
+              for int8 and for fp8. Each pool then runs phases 5g and 5h
+              (5h's stop tokens from that pool's own greedy streams).
   7. check    a 2-layer model at full width over int8 and over fp8 pools:
               two 256-token prefill chunks and 8 decode steps (a dead slot
               beside the live one) through K1-q, then the same steps on the
@@ -510,7 +512,39 @@ exits non-zero without printing a result:
               drain_replica, run while the first replica to decode after
               the recovery is held at that call, moves its decoding
               requests with their pages (stage_migration, no recompute).
- 45. summary  one JSON line of every kernel's launches, error and times
+ 45. process  the serving tier over replica PROCESSES (backend="process";
+     tier     python -m paddle_tpu_torch.serving.replica children,
+              rendezvous through a TCPStore, commands over CRC-framed
+              sockets) at LLaMA-2-7B full width and 8 of 32 layers (fp32,
+              seed 0; two full-depth children and a respawn would not fit
+              the card), ROUTER_KNOBS, phase 42's 16 prompts, the parent
+              holding no model while children run. Each child loads the
+              kernel library the parent built (by its hash; its path
+              printed, equal to the parent's, nothing compiled) and
+              records its own launches (counted_runner_factory). Arms:
+              (a) 2 mixed children, streams equal a single in-process
+              engine's; (g) a corrupted frame of an idempotent RPC on a
+              live child is CRC-rejected, NAK'd and retried; (b) SIGKILL
+              of a child mid-stream, respawned by the Supervisor; (c)
+              SIGSTOP of a child, declared hung (heartbeat 3x the longest
+              step, at least 5 s), killed and respawned; (e)
+              rolling_restart mid-stream, the card's free memory back
+              within one child's footprint; (f) the journaled tier
+              abandoned halfway (children killed) and brought back by
+              ServingRouter.recover(..., backend="process"), finished
+              outputs restored; (d) prefill_replicas=1 of 2, fp32 and
+              int8, every handed-off page's CRC on the decode child after
+              its page-in equal to the prefill child's before the spill,
+              no recompute. Streams unchanged in every arm (the int8
+              arm's reported against an int8 engine); every child
+              launches K1 and K2 (K1-q over int8) and no plain version;
+              no request lost or delivered twice; audit_router; no leak;
+              every child joined. Printed: spawn-to-ready seconds per
+              child, torch.cuda.mem_get_info before the spawns, after
+              every respawn and at the end, the handoff bytes and wire
+              GB/s (host clock), the time from a first token to the next
+              on the decode child, the phase's seconds.
+ 46. summary  one JSON line of every kernel's launches, error and times
               (K1's decode-form times as extra decode_* keys, its engine
               launches by form under launches_by_form, the fp64 ratios
               under fp64_ratio; the masked kernels as *_masked rows with
@@ -539,7 +573,8 @@ exits non-zero without printing a result:
               d256_chunk and d256_decode of the bf16 and fp16 rows; the
               mixed pools' launches under mixed_launches; phase 40's
               launches of K1, K2 and K1-q int8 under host_tier_launches;
-              phases 42-44's under tier_launches;
+              phases 42-44's under tier_launches; phase 45's (children's
+              counts) under proc_tier_launches;
               the dense bf16 and fp16 flash rows' d = 256 times under
               d256; the forward's lse ratio on the stream after phase 37
               under lse_after_phase37_fp64_ratio), the smoke's
@@ -558,6 +593,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import re
 import shutil
 import statistics
@@ -565,6 +601,7 @@ import subprocess
 import sys
 import time
 from dataclasses import replace
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1613,7 +1650,7 @@ SAMPLE_CONFIGS = ((None, None), (1, None), (50, None), (None, 0.9), (8, 0.9))
 def sampler_phase(rows=64, vocab=32000):
     """The seeded sampler (`_sampled_rows`, every sampled token's path) on
     the card against the same function on the CPU: 64 rows of vocabulary
-    32000, seeds 0-7 x steps 0-31 x the temperatures, for every (top_k,
+    32000, seeds 0-7 x steps 0-7 x the temperatures, for every (top_k,
     top_p); every token equal. A token that parts prints its perturbed
     top-2 margin (masked logits + Gumbel noise, on the CPU) and fails the
     run."""
@@ -1625,7 +1662,7 @@ def sampler_phase(rows=64, vocab=32000):
     logits = torch.from_numpy(
         (rng.standard_normal((rows, vocab)) * 3).astype(np.float32))
     on_card = logits.cuda()
-    grid = [(seed, step, t) for t in SAMPLE_TEMPS for step in range(32)
+    grid = [(seed, step, t) for t in SAMPLE_TEMPS for step in range(8)
             for seed in range(8)]
     parted, total, card_ms = [], 0, []
     for top_k, top_p in SAMPLE_CONFIGS:
@@ -1656,7 +1693,7 @@ def sampler_phase(rows=64, vocab=32000):
                                float(temps[b]), top_k, top_p, int(card[b]),
                                int(cpu[b]), float(top2[0] - top2[1])))
     log(f"sampler: {total} draws ({rows} rows of vocab {vocab}, seeds 0-7 x "
-        f"steps 0-31 x temperatures {list(SAMPLE_TEMPS)} x (top_k, top_p) "
+        f"steps 0-7 x temperatures {list(SAMPLE_TEMPS)} x (top_k, top_p) "
         f"{list(SAMPLE_CONFIGS)}): card equals CPU on "
         f"{total - len(parted)}; card ms per {rows}-row call median "
         f"{statistics.median(card_ms):.3f} (first call included in max "
@@ -2005,7 +2042,8 @@ def _gate_streams(label, runner, prompts, got, want):
             continue
         j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
                  min(len(a), len(b)))
-        margin = _top2_margin(runner, prompts[i], b, j)
+        margin = (_top2_margin(runner, prompts[i], b, j)
+                  if runner is not None else float("nan"))
         log(f"{label}: request {i} parts at token {j}: {a[j:j + 4]} against "
             f"{b[j:j + 4]}; the top-2 margin of the reference there "
             f"{margin:.4e}")
@@ -6267,6 +6305,660 @@ def durability_phase(model, cfg, ref, reqs, runner):
     return numbers
 
 
+# ------------------------------------------------ the process tier (45)
+
+# phase 45's replicas: LLaMA-2-7B at full width and 8 of its 32 layers in
+# each child process (two full-depth children, 27 GB of fp32 weights each,
+# and a respawned child beside them would not fit the card)
+PROC_LAYERS = 8
+
+
+class _ChildRecorder:
+    """Phase 45's record inside one replica process, rewritten (atomically)
+    to ``counts_dir/<pid>.json`` after every runner call: the process's
+    launches of every serving kernel (kernel and plain, from process start,
+    so a SIGKILLed child leaves its last record), the kernel library's
+    path and build seconds, and the CRC of every handed-off page (page_crc)
+    on the device before its spill here ("staged") and after its page-in
+    here ("landed")."""
+
+    def __init__(self, counts_dir, runner):
+        from paddle_tpu_torch.ops import _build
+        from paddle_tpu_torch.serving import FaultInjector
+        from paddle_tpu_torch.serving.engine import ServingEngine
+
+        self.path = Path(counts_dir) / f"{os.getpid()}.json"
+        self.library = str(_build.BUILD.path)
+        self.built_s = _build.BUILD.seconds
+        self.staged, self.landed, self.expect = [], [], {}
+        rec = self
+
+        class Recorded(FaultInjector):
+            def _post(self, op, n, out, packed=False):
+                out = super()._post(op, n, out, packed)
+                rec.dump()
+                return out
+
+        self.runner = Recorded(runner)
+        # this process holds one engine: patch its class
+        stage, fence = ServingEngine._stage, ServingEngine._fence_pagein
+        imp = ServingEngine.import_handoff
+
+        def _stage(eng, req):
+            if eng.pool.host_tier is not None:
+                covered = min(req.kv.num_tokens, req.num_context - 1)
+                pages = req.kv.pages[:eng.pool.blocks_for_tokens(covered)]
+                rec.staged.append([req.request_id, [
+                    page_crc(eng.pool, p) for p in pages]])
+                rec.dump()
+            return stage(eng, req)
+
+        def import_handoff(eng, state, payload):
+            if payload is not None and payload.get("hashes"):
+                rec.expect[state["request_id"]] = len(payload["hashes"])
+            return imp(eng, state, payload)
+
+        def _fence_pagein(eng, admitted):
+            fence(eng, admitted)
+            for req in admitted:
+                n = rec.expect.pop(req.request_id, None)
+                if n is not None:
+                    rec.landed.append([req.request_id, [
+                        page_crc(eng.pool, p) for p in req.kv.pages[:n]]])
+                    rec.dump()
+
+        ServingEngine._stage = _stage
+        ServingEngine.import_handoff = import_handoff
+        ServingEngine._fence_pagein = _fence_pagein
+        self.dump()
+
+    def dump(self):
+        data = {"library": self.library, "built_s": self.built_s,
+                "counts": {n: [c.kernel_launches, c.plain_launches]
+                           for n, c in _all_counts()},
+                "staged": self.staged, "landed": self.landed}
+        tmp = self.path.with_suffix(".tmp")
+        tmp.write_text(json.dumps(data))
+        os.replace(tmp, self.path)
+
+
+def counted_runner_factory(index=0, *, counts_dir, **kw):
+    """Phase 45's replica factory, imported by each replica process from
+    this file (the spec's sys_path): serving.replica.model_runner_factory's
+    runner after loading the kernel library (built by the parent, found by
+    its hash), wrapped by _ChildRecorder."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.serving.replica import model_runner_factory
+    _build.library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return _ChildRecorder(counts_dir,
+                          model_runner_factory(index, **kw)).runner
+
+
+def _child_records(counts_dir):
+    """Every child's record: {pid: record}."""
+    return {int(f.stem): json.loads(f.read_text())
+            for f in Path(counts_dir).glob("*.json")}
+
+
+def _child_launches(counts_dir):
+    """{kernel: [kernel launches, plain launches]} summed over children."""
+    out = {}
+    for r in _child_records(counts_dir).values():
+        for name, (k, p) in r["counts"].items():
+            tot = out.setdefault(name, [0, 0])
+            tot[0] += k
+            tot[1] += p
+    return out
+
+
+def _free_gib():
+    return torch.cuda.mem_get_info()[0] / 2**30
+
+
+def _await_free(label, want_gib, deadline_s=120.0):
+    """Wait until the card's free memory reaches ``want_gib`` (a dead
+    child's memory is released by CUDA after its exit); returns the
+    free GiB and the seconds waited, and fails past the deadline."""
+    t = time.perf_counter()
+    while True:
+        free = _free_gib()
+        if free >= want_gib:
+            waited = time.perf_counter() - t
+            log(f"phase 45 {label}: {free:.2f} GiB free "
+                f"(waited {waited:.1f} s for {want_gib:.2f})")
+            return free, waited
+        if time.perf_counter() - t > deadline_s:
+            raise AssertionError(f"phase 45 {label}: {free:.2f} GiB free "
+                                 f"after {deadline_s:.0f} s, expected "
+                                 f"{want_gib:.2f}")
+        time.sleep(0.5)
+
+
+class _SpawnLog:
+    """Phase 45's record of every child the launcher starts: the Popen
+    object, its start and the time its engine answered init (host clock),
+    by launcher key. Patches the launcher and client classes until
+    close()."""
+
+    def __init__(self):
+        from paddle_tpu_torch.serving import launch
+        self.launch = launch
+        self.procs, self.started, self.ready = [], {}, {}
+        self._orig = (launch.ReplicaLauncher._spawn_proc,
+                      launch.EngineClient.init)
+        spawn_proc, init = self._orig
+        log_ = self
+
+        def _spawn_proc(launcher, rank):
+            proc, key = spawn_proc(launcher, rank)
+            log_.procs.append(proc)
+            log_.started[key] = time.perf_counter()
+            return proc, key
+
+        def _init(client, *a, **kw):
+            init(client, *a, **kw)
+            log_.ready[client.key] = (time.perf_counter()
+                                      - log_.started[client.key])
+
+        launch.ReplicaLauncher._spawn_proc = _spawn_proc
+        launch.EngineClient.init = _init
+
+    def close(self):
+        (self.launch.ReplicaLauncher._spawn_proc,
+         self.launch.EngineClient.init) = self._orig
+
+    def reap_check(self):
+        """Every child has exited and been reaped; kills any that has not
+        (and fails)."""
+        alive = [p.pid for p in self.procs if p.poll() is None]
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+        if alive:
+            raise AssertionError(f"phase 45: children {alive} outlived "
+                                 "their tier")
+        return [p.returncode for p in self.procs]
+
+
+def _proc_gate(router, label, counts_dir, before, kv_dtype="fp32",
+               crashes=0, hangs=0, restarts=0, recovered=False):
+    """A process-tier arm's gates: audit_router (inside every live child),
+    the children's launches since ``before`` only the path's kernels and
+    no plain version, the crash / hang / restart counts, no token
+    re-delivered (and dropped) in a fault-free arm (a tier recovered from
+    its journal may regenerate what its snapshots lag). Returns the arm's
+    numbers."""
+    from paddle_tpu_torch.serving import audit_router
+    audit_router(router)
+    now = _child_launches(counts_dir)
+    kernel = {n: k - before.get(n, [0, 0])[0] for n, (k, _) in now.items()
+              if k - before.get(n, [0, 0])[0]}
+    plain = sum(p - before.get(n, [0, 0])[1] for n, (_, p) in now.items())
+    path = _path_kernels(kv_dtype)
+    if plain or set(kernel) != set(path):
+        raise AssertionError(f"{label}: the children launched {kernel}, "
+                             f"plain {plain}; the path is {path}")
+    m = router.metrics.snapshot()
+    got = (m["replica_crashes"], m["replica_hangs"], m["replica_restarts"])
+    if got != (crashes, hangs, restarts):
+        raise AssertionError(f"{label}: crashes, hangs, restarts {got}, "
+                             f"expected {(crashes, hangs, restarts)}")
+    if m["duplicate_tokens_dropped"] and not (crashes + hangs or recovered):
+        raise AssertionError(f"{label}: a fault-free arm re-delivered "
+                             "tokens")
+    return {"launches": kernel, "crashes": got[0], "hangs": got[1],
+            "restarts": got[2],
+            "duplicate_tokens_dropped": m["duplicate_tokens_dropped"]}
+
+
+def _release_check(router, label):
+    router.release_prefix_caches()
+    if not router.check_no_leaks():
+        raise AssertionError(f"{label}: a child leaked device pages")
+
+
+def _handoff_crcs(counts_dir, rids):
+    """The staged and landed page CRCs of ``rids`` over every child: each
+    landed entry must equal a staged one. Returns the pages checked."""
+    staged, landed = [], []
+    for r in _child_records(counts_dir).values():
+        staged += [(rid, tuple(c)) for rid, c in r["staged"] if rid in rids]
+        landed += [(rid, tuple(c)) for rid, c in r["landed"] if rid in rids]
+    for rid, crcs in landed:
+        if (rid, crcs) not in staged:
+            raise AssertionError(
+                f"phase 45: {rid}'s pages on the decode child (CRCs "
+                f"{[hex(c) for c in crcs[:4]]}...) differ from the prefill "
+                "child's before the spill")
+    return sum(len(c) for _, c in landed), len(landed)
+
+
+def _process_split_arm(spec, knobs, reqs, ref, counts_dir, label, prefix,
+                       kv_dtype="fp32"):
+    """Phase 45 (d): prefill_replicas=1 of 2 children over the wire, each
+    child's host tier sized for every request's pages. Gates: every
+    request handed off once with its pages (no recompute fallback), every
+    landed page's CRC equal to the staged page's, only the path's kernels
+    in the children; fp32 streams equal the reference, the int8 arm's
+    reported against it. Returns the arm's numbers."""
+    from paddle_tpu_torch.serving import ServingRouter
+
+    pages = sum(-(-(len(p) + sp.max_tokens) // 16) for _, p, sp in reqs)
+    spec = dict(spec, factory_kw=dict(spec["factory_kw"], kv_dtype=kv_dtype))
+    before = _child_launches(counts_dir)
+    router = ServingRouter(spec, replicas=2, backend="process",
+                           prefill_replicas=1,
+                           **dict(knobs, host_tier_pages=pages))
+    try:
+        pre, dec = (rep.engine for rep in router._replicas)
+        moved = {"bytes": 0, "export_s": 0.0, "import_s": 0.0}
+        extract, imp = pre.extract_handoff, dec.import_handoff
+
+        def extract_handoff(rid):
+            t = time.perf_counter()
+            state, payload = extract(rid)
+            moved["export_s"] += time.perf_counter() - t
+            if payload is not None:
+                moved["bytes"] += sum(int(a.nbytes) for layer in
+                                      payload["layers"] for a in layer)
+            return state, payload
+
+        def import_handoff(state, payload):
+            t = time.perf_counter()
+            try:
+                return imp(state, payload)
+            finally:
+                moved["import_s"] += time.perf_counter() - t
+        pre.extract_handoff, dec.import_handoff = extract_handoff, \
+            import_handoff
+        # per request: the host time of its last token from the prefill
+        # child and of its first from the decode child
+        last_pre, first_dec = {}, {}
+        deliver = router._deliver
+
+        def timed_deliver(rep, epoch, events):
+            now = time.perf_counter()
+            for ev in events:
+                if rep.role == "prefill":
+                    last_pre[ev.request_id] = now
+                else:
+                    first_dec.setdefault(ev.request_id, now)
+            return deliver(rep, epoch, events)
+        router._deliver = timed_deliver
+        names = {f"{prefix}{rid[1:]}" for rid, _, _ in reqs}
+        arm = [(f"{prefix}{rid[1:]}", p, sp) for rid, p, sp in reqs]
+        t = time.perf_counter()
+        got = serve_tier(router, arm, f"phase 45 split {label}")
+        wall = time.perf_counter() - t
+        if kv_dtype == "fp32":
+            _gate_streams(f"phase 45 split {label} vs the single engine",
+                          None, [p for _, p, _ in arm],
+                          [got[r] for r, _, _ in arm],
+                          [ref[r] for r, _, _ in reqs])
+        else:
+            _agreement(f"phase 45 split {label} vs an {kv_dtype} engine "
+                       "in one process", [got[r] for r, _, _ in arm],
+                       [ref[r] for r, _, _ in reqs])
+        numbers = _proc_gate(router, f"phase 45 split {label}", counts_dir,
+                             before, kv_dtype)
+        rm = router.metrics.snapshot()
+        eng = router.metrics_snapshot()["engines"]
+        n = len(reqs)
+        checked, landed = _handoff_crcs(counts_dir, names)
+        if not (eng["handoffs_out"] == eng["handoffs_in"] == rm["handoffs"]
+                == landed == n
+                and eng["handoff_recompute_fallbacks"] == 0
+                and rm["handoff_fallbacks"] == 0
+                and checked == eng["handoff_pages_in"] > 0):
+            raise AssertionError(
+                f"phase 45 split {label}: handoffs {rm['handoffs']}, out "
+                f"{eng['handoffs_out']}, in {eng['handoffs_in']}, landed "
+                f"{landed}, recomputed {eng['handoff_recompute_fallbacks']}"
+                f", pages checked {checked} of {eng['handoff_pages_in']}")
+        if any(o.replicas[:2] != [0, 1] for o in router.outputs().values()):
+            raise AssertionError(f"phase 45 split {label}: a request did "
+                                 "not enter on the prefill child and end "
+                                 "on the decode child")
+        _release_check(router, f"phase 45 split {label}")
+        gaps = sorted(first_dec[r] - last_pre[r] for r in names
+                      if r in first_dec and r in last_pre)
+        numbers.update(
+            wall_s=wall, handoffs=rm["handoffs"], pages_checked=checked,
+            handoff_bytes=moved["bytes"],
+            export_GBps=moved["bytes"] / moved["export_s"] / 1e9,
+            import_GBps=moved["bytes"] / moved["import_s"] / 1e9,
+            wire_GBps=moved["bytes"] / (moved["export_s"]
+                                        + moved["import_s"]) / 1e9,
+            prefill_to_decode_token_s={"median": statistics.median(gaps),
+                                   "max": gaps[-1], "n": len(gaps)},
+            host_tier_pages=pages)
+        log(f"phase 45 split {label} ({kv_dtype} pool): "
+            f"{json.dumps(numbers)}")
+        return numbers
+    finally:
+        router.shutdown()
+
+
+def process_tier_phase(cfg, reqs):
+    """Phase 45: the serving tier over replica processes (see the module
+    docstring): arms (a), (g), (b), (c), (e), (f) on one journaled tier of
+    two mixed children, then (d) on split tiers. Returns the numbers."""
+    import signal
+    import tempfile
+    from dataclasses import asdict
+
+    from paddle_tpu_torch.inference import create_serving_engine
+    from paddle_tpu_torch.models import Llama
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.serving import ServingRouter, WireFaultInjector
+
+    t0 = time.perf_counter()
+    pcfg = replace(cfg, num_layers=PROC_LAYERS)
+    out = {"layers": PROC_LAYERS}
+    # the references: single engines in this process on the same weights,
+    # freed before any child starts
+    model = Llama(pcfg, device="cuda", seed=0)
+    refs = {}
+    for kind in ("fp32", "int8"):
+        single = create_serving_engine(model, device="cuda", kv_dtype=kind,
+                                       **ROUTER_KNOBS)
+        for rid, p, sp in reqs:
+            single.add_request(p, sp, request_id=rid)
+        refs[kind] = {k: o.output_tokens for k, o in single.run().items()}
+        del single
+    del model
+    out["parent_GiB_allocated"] = _free_the_card()
+    lap("phase 45 reference engines")
+
+    tmp = tempfile.mkdtemp(prefix="proc-tier-")
+    counts_dir = f"{tmp}/counts"
+    os.makedirs(counts_dir)
+    journal = f"{tmp}/wal.jsonl"
+    spec = {"factory": "chip_smoke:counted_runner_factory",
+            "factory_kw": dict(model="llama", seed=0, block_size=16,
+                               max_model_len=1024, device="cuda",
+                               counts_dir=counts_dir, **asdict(pcfg)),
+            "sys_path": [str(Path(__file__).resolve().parent)]}
+    engine_knobs = {k: v for k, v in ROUTER_KNOBS.items()
+                    if k != "block_size"}
+    knobs = dict(engine_knobs, audit=True, heartbeat_timeout_s=600.0,
+                 command_timeout_s=600.0, rendezvous_timeout_s=300.0)
+    spawns = _SpawnLog()
+    mem = {"before_spawns": _free_gib()}
+    log(f"phase 45: mem_get_info before the spawns: "
+        f"{mem['before_spawns']:.2f} GiB free of "
+        f"{torch.cuda.mem_get_info()[1] / 2**30:.2f}")
+    tiers = []
+    ref = refs["fp32"]
+    try:
+        # (a) two mixed children, journaled from the start for (f)
+        before = _child_launches(counts_dir)
+        router = ServingRouter(spec, replicas=2, backend="process",
+                               journal_path=journal,
+                               journal_fsync="always", **knobs)
+        tiers.append(router)
+        mem["after_spawns"] = _free_gib()
+        one = (mem["before_spawns"] - mem["after_spawns"]) / 2
+        libs = {pid: (r["library"], r["built_s"])
+                for pid, r in _child_records(counts_dir).items()}
+        log(f"phase 45: spawn to ready {json.dumps(spawns.ready)} s; "
+            f"{mem['after_spawns']:.2f} GiB free, one child "
+            f"{one:.2f} GiB; the children's kernel library "
+            f"{json.dumps(libs)}, the parent's {_build.BUILD.path}")
+        if any(lib != str(_build.BUILD.path) or built
+               for lib, built in libs.values()) or len(libs) != 2:
+            raise AssertionError(f"phase 45: the children's kernel library "
+                                 f"{libs} is not the parent's "
+                                 f"{_build.BUILD.path}, or one built it")
+        clock = StepClock()
+        clock.watch(router)
+        t = time.perf_counter()
+        got = serve_tier(router, reqs, "phase 45 fault-free")
+        wall = time.perf_counter() - t
+        _gate_streams("phase 45 process tier vs the single engine", None,
+                      [p for _, p, _ in reqs], [got[r] for r, _, _ in reqs],
+                      [ref[r] for r, _, _ in reqs])
+        if len({router._reqs[r].owner_idx for r, _, _ in reqs}) != 2:
+            raise AssertionError("phase 45: one child served everything")
+        out["fault_free"] = _proc_gate(router, "phase 45 fault-free",
+                                       counts_dir, before)
+        heartbeat = max(5.0, 3.0 * clock.longest)
+        command_s = max(60.0, 4.0 * heartbeat)
+        router.supervisor.heartbeat_timeout_s = heartbeat
+        router._launcher.command_timeout_s = command_s
+        for rep in router._replicas:
+            rep.engine.command_timeout_s = command_s
+        out["fault_free"].update(wall_s=wall, longest_step_s=clock.longest,
+                                 heartbeat_s=heartbeat,
+                                 command_timeout_s=command_s)
+        log(f"phase 45 fault-free: {json.dumps(out['fault_free'])}")
+        lap("phase 45 (a) fault-free")
+
+        # (g) a corrupted request frame of an idempotent RPC on a live child
+        client = router._replicas[0].engine
+        client.wire_faults = WireFaultInjector(corrupt_calls=[1, 3],
+                                               target="idempotent")
+        client.ping()
+        client.metrics.snapshot()
+        client.wire_faults = None
+        st = dict(client.rpc_stats)
+        if st["naks"] < 2 or st["retries"] < 2 or client.dead:
+            raise AssertionError(f"phase 45: the corrupted frames were not "
+                                 f"NAK'd and retried: {st}")
+        out["corrupt_frame"] = st
+        log(f"phase 45 corrupted frames: {json.dumps(st)}")
+
+        # (b) SIGKILL of a child mid-stream: once the arm has delivered 64
+        # tokens, the child with the most tokens still to deliver
+        def mid_stream(act):
+            base = router.metrics.tokens_delivered.value
+            hit = []
+
+            def run():
+                deadline = time.perf_counter() + 300
+                while (router.metrics.tokens_delivered.value < base + 64
+                       and time.perf_counter() < deadline):
+                    time.sleep(0.002)
+                left = {}
+                with router._lock:
+                    for rec in router._reqs.values():
+                        if not rec.done:
+                            left[rec.owner_idx] = left.get(
+                                rec.owner_idx, 0) + (rec.sampling.max_tokens
+                                                     - len(rec.tokens))
+                idx = max(left, key=left.get)
+                hit.append((idx, left[idx],
+                            router._replicas[idx].engine.proc))
+                act(hit[-1][2])
+            return run, hit
+
+        def signalled(sig, label):
+            run, hit = mid_stream(lambda proc: os.kill(proc.pid, sig))
+            arm = [(f"{label[0]}{rid[1:]}", p, sp) for rid, p, sp in reqs]
+            got = serve_tier(router, arm, f"phase 45 {label} arm",
+                             during=run)
+            _gate_streams(f"phase 45 {label} arm vs the fault-free arm",
+                          None, [p for _, p, _ in arm],
+                          [got[r] for r, _, _ in arm],
+                          [ref[r] for r, _, _ in reqs])
+            idx, left, proc = hit[0]
+            if router._replicas[idx].engine.proc is proc:
+                raise AssertionError(f"phase 45: the {label} child was "
+                                     "reused")
+            return {"victim": idx, "victim_tokens_left": left,
+                    "victim_rc": proc.poll()}
+
+        before = _child_launches(counts_dir)
+        victim = signalled(signal.SIGKILL, "kill")
+        out["sigkill"] = _proc_gate(router, "phase 45 SIGKILL arm",
+                                    counts_dir, before, crashes=1,
+                                    restarts=1)
+        out["sigkill"].update(victim)
+        mem["after_sigkill"], out["sigkill"]["free_wait_s"] = _await_free(
+            "after the SIGKILL respawn", mem["after_spawns"] - one / 2)
+        log(f"phase 45 SIGKILL arm: {json.dumps(out['sigkill'])}")
+        lap("phase 45 (b) SIGKILL")
+
+        # (c) SIGSTOP of a child mid-stream: hung, killed, respawned
+        before = _child_launches(counts_dir)
+        victim = signalled(signal.SIGSTOP, "hang")
+        out["sigstop"] = _proc_gate(router, "phase 45 SIGSTOP arm",
+                                    counts_dir, before, crashes=1, hangs=1,
+                                    restarts=2)
+        out["sigstop"].update(victim)
+        mem["after_sigstop"], out["sigstop"]["free_wait_s"] = _await_free(
+            "after the SIGSTOP respawn", mem["after_spawns"] - one / 2)
+        log(f"phase 45 SIGSTOP arm: {json.dumps(out['sigstop'])}")
+        lap("phase 45 (c) SIGSTOP")
+
+        # (e) rolling_restart mid-stream
+        before = _child_launches(counts_dir)
+        free_before = _free_gib()
+        old = [rep.engine.proc for rep in router._replicas]
+        arm = [(f"r{rid[1:]}", p, sp) for rid, p, sp in reqs]
+        rgot = serve_tier(router, arm, "phase 45 rolling restart",
+                          during=mid_stream(
+                              lambda proc: router.rolling_restart())[0])
+        _gate_streams("phase 45 rolling restart vs the fault-free arm",
+                      None, [p for _, p, _ in arm],
+                      [rgot[r] for r, _, _ in arm],
+                      [ref[r] for r, _, _ in reqs])
+        out["rolling_restart"] = _proc_gate(
+            router, "phase 45 rolling restart", counts_dir, before,
+            crashes=1, hangs=1, restarts=4)
+        m = router.metrics.snapshot()
+        if (m["replica_drains"] != 2 or m["rolling_restarts"] != 1
+                or any(p.poll() is None for p in old)):
+            raise AssertionError(f"phase 45: rolling restart counts {m}, "
+                                 "or an old child still runs")
+        mem["after_rolling_restart"], wait = _await_free(
+            "after rolling_restart", free_before - one)
+        out["rolling_restart"].update(
+            drains=m["replica_drains"], migrations=m["drain_migrations"],
+            free_before_GiB=free_before,
+            free_after_GiB=mem["after_rolling_restart"], free_wait_s=wait)
+        log(f"phase 45 rolling restart: {json.dumps(out['rolling_restart'])}")
+        lap("phase 45 (e) rolling restart")
+
+        # (f) the journaled tier abandoned halfway, its children killed as
+        # a dead router's would be, and recovered from the journal
+        arm = [(f"j{rid[1:]}", p, sp) for rid, p, sp in reqs]
+        done_before = router.outputs()
+        half = (router.metrics.tokens_delivered.value
+                + sum(sp.max_tokens for _, _, sp in arm) // 2)
+        submit_waves(router, arm)
+        deadline = time.perf_counter() + 300
+        while (router.metrics.tokens_delivered.value < half
+               and time.perf_counter() < deadline):
+            time.sleep(0.002)
+        for rep in router._replicas:
+            rep.fenced = True
+            rep.stop = True
+            rep.wake.set()
+        router.supervisor.stop()
+        router._journal.close()
+        for rep in router._replicas:
+            rep.thread.join(60)
+            rep.engine.kill()
+        delivered = router.metrics.tokens_delivered.value
+        unfinished = sum(not router._reqs[r].done for r, _, _ in arm)
+        if not unfinished:
+            raise AssertionError("phase 45: every request of the journal "
+                                 "arm finished before the crash")
+        tiers.remove(router)
+        del router, rep, client
+        _await_free("after the abandoned tier's children", mem[
+            "before_spawns"] - one / 2)
+        before = _child_launches(counts_dir)
+        t = time.perf_counter()
+        r2 = ServingRouter.recover(spec, journal, replicas=2,
+                                   backend="process", journal_fsync="always",
+                                   **dict(knobs, heartbeat_timeout_s=heartbeat,
+                                          command_timeout_s=command_s))
+        tiers.append(r2)
+        recover_s = time.perf_counter() - t
+        mem["after_recover"] = _free_gib()
+        restored = r2.outputs()
+        for rid, o in done_before.items():
+            if restored[rid].output_tokens != o.output_tokens:
+                raise AssertionError(f"phase 45: the finished output {rid} "
+                                     "was not restored as it was")
+        outs = r2.drain(timeout_s=600.0)
+        names = [r for r, _, _ in arm]
+        if any(outs[r].finish_reason != "length" for r in names):
+            raise AssertionError("phase 45: a recovered request was lost or "
+                                 "did not finish")
+        _gate_streams("phase 45 recovered tier vs the fault-free arm", None,
+                      [p for _, p, _ in arm],
+                      [outs[r].output_tokens for r in names],
+                      [ref[r] for r, _, _ in reqs])
+        # a second wave through the recovered tier: both new children serve
+        arm2 = [(f"v{rid[1:]}", p, sp) for rid, p, sp in reqs]
+        vgot = serve_tier(r2, arm2, "phase 45 recovered tier, next wave")
+        _gate_streams("phase 45 recovered tier's next wave vs the fault-free"
+                      " arm", None, [p for _, p, _ in arm2],
+                      [vgot[r] for r, _, _ in arm2],
+                      [ref[r] for r, _, _ in reqs])
+        out["recovered"] = _proc_gate(r2, "phase 45 recovered tier",
+                                      counts_dir, before, recovered=True)
+        rm = r2.metrics.snapshot()
+        out["recovered"].update(
+            delivered_before_crash=delivered,
+            unfinished_at_crash=unfinished, restored_outputs=len(done_before), recover_s=recover_s,
+            recovered_requests=rm["recovered_requests"],
+            journal=r2.metrics_snapshot()["journal"])
+        _release_check(r2, "phase 45 recovered tier")
+        log(f"phase 45 recovered tier: {json.dumps(out['recovered'])}")
+        r2.shutdown()
+        tiers.remove(r2)
+        del r2
+        _await_free("after the recovered tier", mem["before_spawns"]
+                    - one / 2)
+        lap("phase 45 (f) journal recovery")
+
+        # (d) prefill / decode split over the wire, fp32 then int8
+        split_knobs = dict(knobs, heartbeat_timeout_s=heartbeat,
+                           command_timeout_s=command_s)
+        out["split_fp32"] = _process_split_arm(
+            spec, split_knobs, reqs, ref, counts_dir, "fp32", "s")
+        _await_free("after the fp32 split", mem["before_spawns"] - one / 2)
+        out["split_int8"] = _process_split_arm(
+            spec, split_knobs, reqs, refs["int8"], counts_dir, "int8", "i",
+            kv_dtype="int8")
+        lap("phase 45 (d) split")
+    finally:
+        for tier in tiers:
+            tier.shutdown()
+        spawns.close()
+        rcs = spawns.reap_check()
+        records = _child_records(counts_dir)
+        shutil.rmtree(tmp, ignore_errors=True)
+    mem["end"] = _free_gib()
+    per_child = {pid: ({n: c[0] for n, c in r["counts"].items() if c[0]},
+                       sum(c[1] for c in r["counts"].values()))
+                 for pid, r in records.items()}
+    log(f"phase 45: launches of each child (kernel, plain): "
+        f"{json.dumps(per_child)}")
+    paths = (set(_path_kernels("fp32")), set(_path_kernels("int8")))
+    for pid, (k, plain) in per_child.items():
+        if plain or set(k) not in paths:
+            raise AssertionError(f"phase 45: child {pid} launched {k}, "
+                                 f"plain {plain}; a child's path is one of "
+                                 f"{paths}")
+    out.update(per_child_launches={p: k for p, (k, _) in per_child.items()},
+               spawn_to_ready_s=spawns.ready, children=len(rcs),
+               children_rcs=rcs, mem_free_GiB=mem, one_child_GiB=one,
+               seconds=time.perf_counter() - t0)
+    log(f"phase 45: {len(rcs)} children spawned, every one reaped (exit "
+        f"codes {rcs}); spawn to ready by child (s) "
+        f"{json.dumps(spawns.ready)}; mem_get_info free GiB "
+        f"{json.dumps(mem)}; {out['seconds']:.1f} s")
+    return out
+
+
 def _free_the_card() -> float:
     """Collect what the freed phases left; returns GiB still allocated."""
     gc.collect()
@@ -6533,21 +7225,28 @@ def main() -> int:
                                                 greedy_stops)}
     gemm_row_invariance(gen)
     lap("Llama fp32 graphs and horizons")
+    # the int8 / fp8 pools at 8 of LLaMA-2-7B's 32 layers (full width):
+    # phase 45 took the smoke ~140 s longer, and these phases' launches a
+    # layer, graph replays, horizons and one-slot checks need no depth
+    q8_cfg = replace(cfg, num_layers=8)
+    q8 = Llama(q8_cfg, device="cuda", seed=0)
     for kind in ("int8", "fp8"):
-        eng, more, _, _, prompts, more_forms = engine_phase(
-            model, cfg, kind, ref_tokens=fp32_tokens)
+        eng, more, _, q_tokens, prompts, more_forms = engine_phase(
+            q8, q8_cfg, kind)
         launches.update(more)
         forms.update(more_forms)
-        profile_phase(eng, cfg)
+        profile_phase(eng, q8_cfg)
         del eng
         _free_the_card()
-        graphs_phase(model, cfg, kind)
+        graphs_phase(q8, q8_cfg, kind)
         _free_the_card()
         horizon_launches[f"ragged_paged_attention_{kind}"] = horizon_phase(
-            model, cfg, kind, greedy_stops)
+            q8, q8_cfg, kind, [t[20] for t in q_tokens[:4]])
         # the two shortest prompts fit one 256-token chunk
-        single_slot_check(model, cfg, kind, sorted(prompts, key=len)[:2])
+        single_slot_check(q8, q8_cfg, kind, sorted(prompts, key=len)[:2])
         _free_the_card()
+    del q8
+    _free_the_card()
     lap("Llama int8 / fp8 engines, graphs, horizons, one-slot")
     # phases 28-29: the shared-prefix page cache and fused ragged steps
     t_new = time.perf_counter()
@@ -6637,6 +7336,10 @@ def main() -> int:
     del model, stier_runner
     _free_the_card()
     log(f"phases 42-44: {time.perf_counter() - t_new:.1f} s")
+    # phase 45: the tier over replica processes at 8 of 32 layers, phase
+    # 42's traffic; the card holds no model of this process meanwhile
+    ptier = process_tier_phase(cfg, stier_reqs)
+    lap("phase 45")
     small = Llama(replace(cfg, num_layers=2), device="cuda", seed=2)
     for kind in ("int8", "fp8"):
         quant_model_check(small, LlamaRunner, kind, {
@@ -6975,6 +7678,11 @@ def main() -> int:
             n = numbers["launches"].get(row["name"])
             if n:
                 row.setdefault("tier_launches", {})[arm] = n
+        for arm in ("fault_free", "sigkill", "sigstop", "rolling_restart",
+                    "recovered", "split_fp32", "split_int8"):
+            n = ptier[arm]["launches"].get(row["name"])
+            if n:
+                row.setdefault("proc_tier_launches", {})[arm] = n
         if any(row["name"] in by for by in spec16.values()):
             row["spec_fp16_launches"] = {arm: by[row["name"]] for arm, by
                                          in spec16.items()

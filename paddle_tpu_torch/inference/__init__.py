@@ -114,7 +114,23 @@ def create_serving_router(model, *, replicas: int = 2, dtype=None,
     tensors (`data_ptr` equal). A departure by design: the JAX factory's
     ``astype`` casts per replica, which on the card would hold one more
     copy of the weights for every replica and every restart (27 GB for
-    LLaMA-2-7B at fp32)."""
+    LLaMA-2-7B at fp32).
+
+    With ``backend="process"`` the router needs a JSON spec its children
+    import a factory from, not a callable over a model object: the call
+    raises TypeError (the JAX bridge's type for it) before building
+    anything. Build such a tier with ``ServingRouter(spec,
+    backend="process", ...)``, e.g. over
+    ``serving.replica.model_runner_factory``."""
+    if kw.get("backend", "thread") == "process":
+        raise TypeError(
+            "create_serving_router(backend='process'): the process "
+            "backend's runner_factory is a JSON spec {'factory': "
+            "'module:callable', 'factory_kw': ...} that each replica "
+            "process imports; a factory over a model object cannot cross "
+            "a process boundary. Use ServingRouter(spec, "
+            "backend='process') with paddle_tpu_torch.serving.replica:"
+            "model_runner_factory")
     if mesh is not None or meshes is not None:
         raise NotImplementedError(
             "mesh= / meshes= (replicas on tensor-parallel sub-meshes over "

@@ -13,10 +13,13 @@ kinds as CUDA graphs on the card. The draft proposers (`NgramProposer`,
 `quantized_page_write` are exported here too, as in the JAX package, and
 so are the host KV tier (`HostKVTier`, `OffloadRecord`), the stream
 detokenizer (`StreamDetokenizer`, `TokenizerAdapter`,
-`complete_utf8_prefix`) and the in-process serving tier: `ServingRouter`
-over thread replicas (`EngineReplica`, `RouterOutput`, `RouterMetrics`),
+`complete_utf8_prefix`) and the serving tier: `ServingRouter` over thread
+or process replicas (`EngineReplica`, `RouterOutput`, `RouterMetrics`),
 its `Supervisor`, the write-ahead `RouterJournal`, `ReplicaCrashError`,
-`aggregate_snapshots` and `audit_router`.
+`aggregate_snapshots` and `audit_router`; for the process backend the
+`ReplicaLauncher` and its `EngineClient` proxy, `ReplicaGoneError`, the
+wire's `WireCorruptionError` / `WireTimeoutError` and the
+`WireFaultInjector`.
 """
 
 from paddle_tpu_torch.serving.detokenize import (
@@ -31,6 +34,7 @@ from paddle_tpu_torch.serving.kv_cache import (
     PrefixCache, SequenceKV, page_content_hash, quantized_page_write,
 )
 from paddle_tpu_torch.serving.journal import RouterJournal
+from paddle_tpu_torch.serving.launch import EngineClient, ReplicaLauncher
 from paddle_tpu_torch.serving.metrics import (
     Counter, EngineMetrics, Gauge, Histogram, aggregate_snapshots,
 )
@@ -40,7 +44,8 @@ from paddle_tpu_torch.serving.model_runner import (
 )
 from paddle_tpu_torch.serving.resilience import (
     FaultInjector, InjectedDeviceError, InvariantViolation, QueueFullError,
-    ReplicaCrashError, audit_engine, audit_router,
+    ReplicaCrashError, ReplicaGoneError, WireFaultInjector, audit_engine,
+    audit_router,
 )
 from paddle_tpu_torch.serving.router import (
     EngineReplica, RouterMetrics, RouterOutput, ServingRouter,
@@ -52,18 +57,24 @@ from paddle_tpu_torch.serving.speculate import (
     AdaptiveK, DraftModelProposer, NgramProposer, shadow_runner,
 )
 from paddle_tpu_torch.serving.supervisor import Supervisor
+from paddle_tpu_torch.serving.wire import (
+    WireCorruptionError, WireTimeoutError,
+)
 
 __all__ = [
     "SCRATCH_PAGE", "AdaptiveK", "BlockAllocator", "Counter",
-    "DraftModelProposer", "EngineMetrics", "EngineReplica", "FCFSScheduler",
+    "DraftModelProposer", "EngineClient", "EngineMetrics", "EngineReplica",
+    "FCFSScheduler",
     "FaultInjector", "GPTRunner", "Gauge", "Histogram", "HostKVTier",
     "InjectedDeviceError", "InvariantViolation", "KVCachePool",
     "LlamaRunner", "NgramProposer", "OffloadRecord", "PagedModelRunner",
-    "PrefixCache", "QueueFullError", "ReplicaCrashError", "Request",
+    "PrefixCache", "QueueFullError", "ReplicaCrashError", "ReplicaGoneError",
+    "ReplicaLauncher", "Request",
     "RequestOutput", "RequestState", "RouterJournal", "RouterMetrics",
     "RouterOutput", "SamplingParams", "SequenceKV", "ServingEngine",
     "ServingRouter", "StreamDetokenizer", "Supervisor", "TokenEvent",
-    "TokenizerAdapter", "aggregate_snapshots", "audit_engine",
+    "TokenizerAdapter", "WireCorruptionError", "WireFaultInjector",
+    "WireTimeoutError", "aggregate_snapshots", "audit_engine",
     "audit_router", "bucket_len",
     "complete_utf8_prefix", "create_engine", "greedy_grid",
     "naive_generate", "page_content_hash",

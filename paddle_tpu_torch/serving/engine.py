@@ -112,8 +112,8 @@ whose admission then pages them in through the tier's side-stream copy
 and fence. `stage_migration` stages one running request on demand (a
 drain), and `extract_request` takes a waiting one out. The JAX engine's
 host-wide store knobs (``kv_store``, ``kv_store_owner``) belong to the
-process tier: a value other than the default raises NotImplementedError
-naming ROADMAP item 11 (part B).
+host-wide KV store: a value other than the default raises
+NotImplementedError naming ROADMAP item 11 (part B2).
 
 Where the port departs from the JAX engine: the pools are written in
 place, so an in-flight launch carries no snapshot of the pools it read
@@ -159,8 +159,8 @@ _ITEM = "ROADMAP.md 'Still to port' item "
 # the JAX engine's knobs this port does not carry yet: name -> (the
 # default that keeps the feature off, the ROADMAP item that ports it)
 UNPORTED_KNOBS = {
-    "kv_store": (None, _ITEM + "11 (part B: the host-wide KV store)"),
-    "kv_store_owner": (None, _ITEM + "11 (part B: the host-wide KV store)"),
+    "kv_store": (None, _ITEM + "11 (part B2: the host-wide KV store)"),
+    "kv_store_owner": (None, _ITEM + "11 (part B2: the host-wide KV store)"),
 }
 
 
@@ -2056,14 +2056,14 @@ class ServingEngine:
         included: the pages are copies, not recompute. A payload that
         cannot land (no tier here, or a full one) resumes by recompute,
         counted. A slot-reference payload (the host-wide store's) raises
-        naming ROADMAP.md item 11 part B."""
+        naming ROADMAP.md item 11 part B2."""
         rec = None
         tier = self.pool.host_tier
         if payload is not None and payload.get("slot_refs") is not None:
             raise NotImplementedError(
                 "import_handoff: a slot-reference handoff needs the "
                 "host-wide KV store, not ported yet: " + _ITEM
-                + "11 (part B)")
+                + "11 (part B2)")
         if payload is not None and tier is not None:
             slots = tier.import_slots(payload["layers"], payload["hashes"])
             if slots is not None:
@@ -2204,7 +2204,7 @@ class ServingEngine:
         generation, and admission re-prefills its whole context, so the
         continued stream equals an uninterrupted run's. ``kv_store`` and
         ``kv_store_owner`` take their defaults only (ROADMAP.md item
-        11)."""
+        11 part B2)."""
         if state.get("version") != 1:
             raise ValueError(f"unknown snapshot version {state.get('version')}")
         cfg = state["config"]

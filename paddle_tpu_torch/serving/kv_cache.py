@@ -45,7 +45,7 @@ prefill / decode handoff of the serving tier moves a request's slots
 between two engines' tiers as numpy arrays (`HostKVTier.export_slots`,
 `import_slots`, CRC-checked at receive). The host-wide page store of the
 JAX package (``store=``, ``spill_pages(publish=)``) belongs to the
-process tier (ROADMAP.md item 11 part B); mesh-sharded pools are item 10.
+host-wide KV store (ROADMAP.md item 11 part B2); mesh-sharded pools are item 10.
 
 A departure: the JAX `chain_seed` folds a tag in with Python's `hash` of a
 tuple holding a string, which changes from one process to the next
@@ -564,7 +564,7 @@ class HostKVTier:
     pending job never takes the old tenant's hash.
 
     ``store`` (the JAX package's host-wide SharedKVStore) raises: that
-    mode belongs to the process tier, ROADMAP.md item 11 part B."""
+    mode belongs to the host-wide KV store, ROADMAP.md item 11 part B2."""
 
     def __init__(self, pool: "KVCachePool", max_pages: int, metrics=None,
                  async_spill: bool = False, store=None,
@@ -572,8 +572,8 @@ class HostKVTier:
         if store is not None:
             raise NotImplementedError(
                 "HostKVTier(store=...): the host-wide SharedKVStore "
-                "belongs to the process tier, not ported yet: ROADMAP.md "
-                "'Still to port' item 11 (part B)")
+                "is not ported yet: ROADMAP.md 'Still to port' item 11 "
+                "(part B2: the host-wide KV store)")
         if max_pages < 1:
             raise ValueError("host tier needs max_pages >= 1 (omit the "
                              "tier entirely to disable offload)")
@@ -760,12 +760,12 @@ class HostKVTier:
         overflow is dropped and counted, never an error. Returns the
         slots, aligned with the leading device_pages they hold.
         ``publish`` (the host-wide store's index) takes its default only
-        (ROADMAP.md item 11 part B)."""
+        (ROADMAP.md item 11 part B2)."""
         if tuple(publish):
             raise NotImplementedError(
                 "spill_pages(publish=...): the host-wide store's content "
                 "index is not ported yet: ROADMAP.md 'Still to port' item "
-                "11 (part B)")
+                "11 (part B2)")
         self._reap()
         n = min(len(device_pages), len(self._free))
         slots = self._free[:n]
@@ -1117,7 +1117,7 @@ class KVCachePool:
         exclusively owned pages to host buffers, and prefix-cache eviction
         demotes cached pages through evict_hook instead of dropping them.
         ``async_spill`` moves the wait for a spill's copies onto a worker
-        thread; ``store`` raises (ROADMAP.md item 11 part B)."""
+        thread; ``store`` raises (ROADMAP.md item 11 part B2)."""
         if self.host_tier is None:
             self.host_tier = HostKVTier(self, max_pages, metrics=metrics,
                                         async_spill=async_spill,

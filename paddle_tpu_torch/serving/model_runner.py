@@ -77,9 +77,16 @@ Where the port departs from the JAX package:
     ``capture_error_mode="thread_local"``, so the other replicas' work
     (eager chunks, replays, drains, host-tier copies and syncs) goes on
     during a capture: only the capturing thread is barred from unsafe
-    calls. Why not a capture stream per replica: `torch.cuda.graph`
-    enters with a device synchronize and an `empty_cache`, which PyTorch's
-    allocator refuses while any capture is under way, so captures must be
+    calls. A capture's warm-up runs for real on the capture stream,
+    whose persistent buffers (K2's split tickets, the 16-bit split walk's
+    workspace) every graph captured on it also uses when it replays, on
+    the compute stream: `_CAPTURE_STREAM_LOCK` keeps another runner's
+    replay from being enqueued between the warm-up's wait on the compute
+    stream and the compute stream's wait on the warm-up, so the two never
+    run at once on the card. Why not a capture stream per replica:
+    `torch.cuda.graph` enters with a device synchronize and an
+    `empty_cache`, which PyTorch's allocator refuses while any capture is
+    under way, so captures must be
     serialized whatever their streams; and cuBLAS keeps a 32 MiB workspace
     for every stream it has run on, which a stream per replica (and per
     restart) would hold;
@@ -274,7 +281,8 @@ class CapturedStep:
         if self.staging and self.staging[0] is not None:
             self._copied = torch.cuda.Event()
             self._copied.record()
-        self.graph.replay()
+        with _CAPTURE_STREAM_LOCK:      # never beside a capture's warm-up
+            self.graph.replay()
         counts_credit(self.credit)
         return self.out
 
@@ -300,10 +308,13 @@ def capture_step(body, host, pools, device, graph):
     stream = getattr(graph, "stream", None)
     if stream is not None:
         main = torch.cuda.current_stream(device)
-        stream.wait_stream(main)
-        with torch.cuda.stream(stream):
-            first = body(pools, *operands)
-        main.wait_stream(stream)
+        with _CAPTURE_STREAM_LOCK:
+            # no replay of a graph captured on this stream may run beside
+            # the warm-up: they share the stream's persistent buffers
+            stream.wait_stream(main)
+            with torch.cuda.stream(stream):
+                first = body(pools, *operands)
+            main.wait_stream(stream)
         first.record_stream(main)
     else:
         first = body(pools, *operands)
@@ -329,6 +340,12 @@ _CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
 # capture stream through the end of the capture): the runners of a
 # serving tier's replica threads capture one at a time
 _CAPTURE_LOCK = threading.Lock()
+
+# held while a capture's warm-up is enqueued on the capture stream (from
+# its wait on the compute stream to the compute stream's wait on it) and
+# while a replay is enqueued: a replay writes the capture stream's
+# persistent buffers (K2's tickets), which the warm-up's kernels use too
+_CAPTURE_STREAM_LOCK = threading.Lock()
 
 
 def _capture_stream(device) -> "torch.cuda.Stream":

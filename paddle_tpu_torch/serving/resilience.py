@@ -14,14 +14,18 @@ pipelined loop).
   audit_engine       page accounting, refcounts, the prefix-cache index,
                      the host tier (the handoff buffer's slots included),
                      slots and block tables must agree after every step
-  audit_router       every live replica passes audit_engine, and the
+  WireFaultInjector  deterministic wire faults of the process tier
+                     (drop, corrupt, truncate, delay, reset) on an
+                     EngineClient's RPCs
+  audit_router       every live replica passes audit_engine (inside the
+                     replica process on the process backend), and the
                      router's at-most-once registry is consistent
 
 Fault schedules are keyed by call index (never wall time or RNG), so a
 failing trace replays exactly. A crash is raised before the wrapped call
 reaches the runner, so it never leaves a stream capturing or a copy
 half issued. The host-wide page store's auditor (`audit_store`) belongs
-to the process tier (ROADMAP.md item 11 part B).
+to ROADMAP.md item 11 part B2.
 """
 
 from __future__ import annotations
@@ -59,6 +63,14 @@ class ReplicaCrashError(BaseException):
     real replica death. The router's Supervisor owns it: it fences the
     replica, restores it from its last snapshot and resubmits what the
     snapshot missed."""
+
+
+class ReplicaGoneError(ReplicaCrashError):
+    """A replica PROCESS is unreachable: its command socket hit EOF, a
+    reset or a deadline, or waitpid reported an exit. A ReplicaCrashError
+    on purpose: the process backend's dead replica rides the same
+    contract as a crashed thread, so the router worker fences it and the
+    Supervisor spawns a fresh process."""
 
 
 class FaultInjector:
@@ -191,6 +203,91 @@ class FaultInjector:
             tokens, tables, start_pos, q_lens, pools,
             full_logits=full_logits)
         return self._post("decode", n, logits), pools
+
+
+class WireFaultInjector:
+    """Deterministic WIRE fault schedules of the process tier: attached to
+    an `EngineClient` (`client.wire_faults = WireFaultInjector(...)`),
+    consulted once per RPC attempt, and keyed by call index over the RPCs
+    `target` matches, never wall time or RNG, so a failing trace replays
+    exactly.
+
+    Fault classes (each with ``*_every`` periodic and ``*_calls`` exact
+    schedules; call indices are 1-based over target-matched RPCs):
+
+      drop      the request's framed bytes never leave the host: the
+                client's deadline trips cleanly (idempotent RPCs retry,
+                mutating ones escalate to the supervisor);
+      corrupt   one payload byte of the outbound request is flipped after
+                framing: the replica's CRC check must reject it and NAK;
+      truncate  only the first half of the framed bytes are sent: the
+                replica blocks mid-frame, the client's deadline trips,
+                and a retry desyncs into a loud connection error;
+      delay     the request is sent, then the client sleeps `delay_s`
+                before reading: a slow but alive replica whose reply lands
+                after the deadline (seq-matched as stale by the retry);
+      reset     the client's half of the connection is shut down under the
+                RPC: always fatal, the supervisor respawns.
+
+    `target` picks which RPCs the schedule counts: "all", "idempotent"
+    (the retry-safe set), "mutating", or an exact command name or tuple of
+    names (e.g. "step").
+    """
+
+    ACTIONS = ("reset", "truncate", "corrupt", "drop", "delay")
+
+    def __init__(self, *, drop_every: int = 0,
+                 drop_calls: Iterable[int] = (),
+                 corrupt_every: int = 0,
+                 corrupt_calls: Iterable[int] = (),
+                 truncate_every: int = 0,
+                 truncate_calls: Iterable[int] = (),
+                 delay_every: int = 0, delay_calls: Iterable[int] = (),
+                 delay_s: float = 0.5,
+                 reset_every: int = 0, reset_calls: Iterable[int] = (),
+                 target="all"):
+        from paddle_tpu_torch.serving.wire import IDEMPOTENT_RPCS
+
+        self._idempotent = IDEMPOTENT_RPCS
+        if isinstance(target, str) and target not in ("all",
+                                                      "idempotent",
+                                                      "mutating"):
+            target = (target,)
+        self.target = target
+        self.delay_s = float(delay_s)
+        self._sched = {
+            "drop": (drop_every, frozenset(drop_calls)),
+            "corrupt": (corrupt_every, frozenset(corrupt_calls)),
+            "truncate": (truncate_every, frozenset(truncate_calls)),
+            "delay": (delay_every, frozenset(delay_calls)),
+            "reset": (reset_every, frozenset(reset_calls)),
+        }
+        self.calls = 0
+        self.injected = {a: 0 for a in self.ACTIONS}
+
+    def _matches(self, cmd: str) -> bool:
+        if self.target == "all":
+            return True
+        if self.target == "idempotent":
+            return cmd in self._idempotent
+        if self.target == "mutating":
+            return cmd not in self._idempotent
+        return cmd in self.target
+
+    def action(self, cmd: str) -> Optional[str]:
+        """The fault to inject on this RPC attempt, or None. Counts only
+        target-matched attempts; the first scheduled class in ACTIONS
+        order wins when several match one index."""
+        if not self._matches(cmd):
+            return None
+        self.calls += 1
+        n = self.calls
+        for act in self.ACTIONS:
+            every, calls = self._sched[act]
+            if (every > 0 and n % every == 0) or n in calls:
+                self.injected[act] += 1
+                return act
+        return None
 
 
 def audit_engine(engine) -> None:
@@ -568,9 +665,17 @@ def audit_router(router) -> None:
     for rep in replicas:
         if rep.status != "live":
             continue
+        remote = getattr(rep.engine, "remote_audit", None)
         try:
             with rep.lock:
-                audit_engine(rep.engine)
+                if remote is not None:
+                    # process backend: audit_engine runs INSIDE the
+                    # replica process; only its verdict crosses the wire
+                    p = remote()
+                    if p:
+                        problems.append(f"replica {rep.index}: {p}")
+                else:
+                    audit_engine(rep.engine)
         except InvariantViolation as e:
             problems.append(f"replica {rep.index}: {e}")
         except BaseException as e:

@@ -1,15 +1,22 @@
 """Multi-engine serving router: prefix-affinity routing over N engine
-replicas, on the thread backend.
+replicas, each a worker thread in this process or an OS process of its
+own.
 
-Counterpart of paddle_tpu/serving/router.py with `backend="thread"`:
-`ServingRouter` owns N engine replicas, each a full ServingEngine (its own
-paged KV pool, scheduler, prefix cache, host tier and CUDA graphs) driven
-by a worker thread, behind one submit / abort / outputs surface. On the
-card the replicas share one CUDA context, one compute stream and the
-model's weights: every replica's runner comes from the caller's factory,
-which hands it the model's parameter tensors (see
-`inference.create_serving_router`); graph captures of concurrent replicas
-are serialized by the runner's capture lock (model_runner).
+Counterpart of paddle_tpu/serving/router.py: `ServingRouter` owns N engine
+replicas, each a full ServingEngine (its own paged KV pool, scheduler,
+prefix cache, host tier and CUDA graphs) driven by a worker thread, behind
+one submit / abort / outputs surface. With `backend="thread"` (the
+default) the engines live in this process: on the card they share one
+CUDA context, one compute stream and the model's weights (every replica's
+runner comes from the caller's factory, which hands it the model's
+parameter tensors, see `inference.create_serving_router`), and graph
+captures of concurrent replicas are serialized by the runner's capture
+lock (model_runner). With `backend="process"` every replica is a child
+process (`python -m paddle_tpu_torch.serving.replica`, its own CUDA
+context and weights) and the worker thread drives it through a
+`launch.EngineClient` over a CRC-framed socket; `runner_factory` is then a
+JSON spec the children import their factory from, and a prefill ->
+decode handoff crosses the wire as page bytes.
 
 Routing is SESSION-STICKY first: a request whose
 `SamplingParams.session_id` names a session the router has seen goes back
@@ -38,9 +45,9 @@ with its KV pages to the least-loaded decode replica
 every registry change is journaled first (`journal.RouterJournal`), and
 `ServingRouter.recover` rebuilds the tier from the journal.
 
-The JAX router's process backend and its host-wide KV store
-(``backend="process"``, ``shared_kv_*``, the rendezvous, command and RPC
-timeouts, ``child_env``) belong to ROADMAP.md item 11 part B: each takes
+The JAX router's host-wide KV store (``shared_kv_pages``,
+``shared_kv_shm``, ``shared_kv_geometry``: shared-memory pages and the
+slot-reference handoff) belongs to ROADMAP.md item 11 part B2: each takes
 its default only and raises NotImplementedError otherwise.
 """
 
@@ -73,20 +80,15 @@ logger = logging.getLogger(__name__)
 
 ROUTING_POLICIES = ("prefix", "least_loaded", "round_robin", "random")
 
-_PART_B = "ROADMAP.md 'Still to port' item 11 (part B: the process tier)"
+_PART_B2 = ("ROADMAP.md 'Still to port' item 11 (part B2: the host-wide "
+            "KV store)")
 
-# the JAX router's knobs of the process backend and the host-wide store:
-# name -> the default this port accepts
-PROCESS_TIER_KNOBS = {
-    "backend": "thread",
+# the JAX router's knobs of the host-wide store: name -> the default this
+# port accepts
+SHARED_KV_KNOBS = {
     "shared_kv_pages": 0,
     "shared_kv_shm": None,
     "shared_kv_geometry": None,
-    "rendezvous_timeout_s": 120.0,
-    "command_timeout_s": 120.0,
-    "rpc_fast_timeout_s": 30.0,
-    "rpc_max_retries": 2,
-    "child_env": None,
 }
 
 
@@ -141,7 +143,10 @@ class EngineReplica:
     touch of the engine (step, add, extract, snapshot); `fenced` is the
     at-most-once kill switch: once set, nothing this object's thread
     delivers is believed, even if the thread is still un-hanging. `role`
-    is "mixed", or "prefill" / "decode" when the router runs split."""
+    is "mixed", or "prefill" / "decode" when the router runs split. On the
+    process backend `engine` is a launch.EngineClient (the same surface,
+    one socket command per call) and `runner` is None: the runner lives in
+    the child."""
 
     def __init__(self, index: int, epoch: int, engine: ServingEngine,
                  runner, now: float, role: str = "mixed"):
@@ -246,8 +251,13 @@ class ServingRouter:
 
     `runner_factory(replica_index)` builds one PagedModelRunner per
     replica and per restart (a dead replica never reuses its possibly
-    wedged runner). Every other keyword is a router knob below or goes to
-    each replica's ServingEngine verbatim.
+    wedged runner). With backend="process" it is a JSON spec instead,
+    {"factory": "module:callable", "factory_kw": {...}, "sys_path":
+    [...]}, resolved inside each child (replica.model_runner_factory
+    builds a seeded Llama or GPT). Every other keyword is a router knob
+    below or goes to each replica's ServingEngine verbatim (as JSON on
+    the process backend: a value that cannot be serialized raises
+    TypeError).
 
     Router knobs:
       replicas             engine replica count
@@ -282,8 +292,20 @@ class ServingRouter:
       journal_fsync        "always" | "interval" (default) | "never"
       journal_compact_every  appends between snapshot compactions
       clock                the host clock of heartbeats and latencies
-    The process tier's knobs (`PROCESS_TIER_KNOBS`) take their defaults
-    only (ROADMAP.md item 11 part B).
+      backend              "thread" (engines in this process) or
+                           "process" (each replica a child process)
+      rendezvous_timeout_s process backend: how long a spawn or respawn
+                           may take to publish its command port
+      command_timeout_s    process backend: the deadline of every command
+                           that may sit behind device work in the child
+      rpc_fast_timeout_s   process backend: the deadline of the health
+                           and stats reads
+      rpc_max_retries      process backend: retries of an idempotent RPC
+                           after a clean deadline trip or a CRC reject
+      child_env            process backend: the children's environment
+                           (default: this process's)
+    The host-wide store's knobs (`SHARED_KV_KNOBS`) take their defaults
+    only (ROADMAP.md item 11 part B2).
     """
 
     def __init__(self, runner_factory, *, replicas: int = 2,
@@ -321,18 +343,14 @@ class ServingRouter:
         if backend not in ("thread", "process"):
             raise ValueError(f"backend={backend!r}; expected 'thread' "
                              "or 'process'")
-        given = dict(backend=backend, shared_kv_pages=shared_kv_pages,
+        given = dict(shared_kv_pages=shared_kv_pages,
                      shared_kv_shm=shared_kv_shm,
-                     shared_kv_geometry=shared_kv_geometry,
-                     rendezvous_timeout_s=rendezvous_timeout_s,
-                     command_timeout_s=command_timeout_s,
-                     rpc_fast_timeout_s=rpc_fast_timeout_s,
-                     rpc_max_retries=rpc_max_retries, child_env=child_env)
+                     shared_kv_geometry=shared_kv_geometry)
         for name, value in given.items():
-            if value != PROCESS_TIER_KNOBS[name]:
+            if value != SHARED_KV_KNOBS[name]:
                 raise NotImplementedError(
                     f"ServingRouter({name}={value!r}) is not ported yet: "
-                    + _PART_B)
+                    + _PART_B2)
         if not 0 <= prefill_replicas < replicas:
             if prefill_replicas != 0:
                 raise ValueError(
@@ -347,6 +365,7 @@ class ServingRouter:
                        + ["decode"] * (replicas - prefill_replicas)
                        if prefill_replicas else ["mixed"] * replicas)
         self._split = prefill_replicas > 0
+        self.backend = backend
         self._runner_factory = runner_factory
         self._policy = policy
         self.max_queue_depth = max_queue_depth
@@ -364,6 +383,8 @@ class ServingRouter:
         self._lock = threading.RLock()
         self._completion = threading.Event()
         self._reqs: Dict[str, _RequestRecord] = {}
+        # steps whose registry change is made but not journaled yet
+        self._unjotted = 0
         self._affinity: Dict[int, int] = {}      # chain hash -> replica
         self._sessions: Dict[str, int] = {}      # session_id -> replica
         self._retired_metrics: List[Dict[str, float]] = []
@@ -372,6 +393,7 @@ class ServingRouter:
         self._rids = itertools.count()
         self._rng = np.random.default_rng(0)
         self._replicas: List[EngineReplica] = []
+        self._launcher = None
         # the write-ahead journal; with _recover_state (the replayed view
         # of a dead router's journal) the file is first compacted to one
         # state record, so a second crash replays the recovered tier
@@ -382,21 +404,43 @@ class ServingRouter:
                 compact_every=journal_compact_every,
                 resume_state=_recover_state)
         recover_snaps = ((_recover_state or {}).get("snaps") or {})
-        for idx in range(replicas):
-            runner = self._make_runner(idx)
-            snap = recover_snaps.get(idx)
-            if snap is not None:
-                # recovery: the replica restarts from its last journaled
-                # snapshot (recompute-on-resume, token-exact); what the
-                # snapshot missed is backfilled from the registry below
-                engine = ServingEngine.restore(
-                    runner, snap, tokenizer=engine_kw.get("tokenizer"),
-                    sleep_fn=engine_kw.get("sleep_fn"),
-                    audit=engine_kw.get("audit"))
-            else:
-                engine = self._build_engine(runner, self._roles[idx])
-            self._spawn(idx, engine, runner, start=False,
-                        role=self._roles[idx])
+        if backend == "process":
+            # every replica a child process: runner_factory is the JSON
+            # spec each child imports its factory from; the rendezvous
+            # rides a TCPStore, and each replica's `engine` here is an
+            # EngineClient over its socket
+            from paddle_tpu_torch.serving.launch import ReplicaLauncher
+
+            self._launcher = ReplicaLauncher(
+                runner_factory, engine_kw,
+                rendezvous_timeout_s=rendezvous_timeout_s,
+                command_timeout_s=command_timeout_s,
+                rpc_fast_timeout_s=rpc_fast_timeout_s,
+                rpc_max_retries=rpc_max_retries, env=child_env)
+            snaps = ([recover_snaps.get(i) for i in range(replicas)]
+                     if recover_snaps else None)
+            for idx, client in enumerate(
+                    self._launcher.spawn_all(self._roles,
+                                             snapshots=snaps)):
+                self._spawn(idx, client, None, start=False,
+                            role=self._roles[idx])
+        else:
+            for idx in range(replicas):
+                runner = self._make_runner(idx)
+                snap = recover_snaps.get(idx)
+                if snap is not None:
+                    # recovery: the replica restarts from its last
+                    # journaled snapshot (recompute-on-resume,
+                    # token-exact); what the snapshot missed is backfilled
+                    # from the registry below
+                    engine = ServingEngine.restore(
+                        runner, snap, tokenizer=engine_kw.get("tokenizer"),
+                        sleep_fn=engine_kw.get("sleep_fn"),
+                        audit=engine_kw.get("audit"))
+                else:
+                    engine = self._build_engine(runner, self._roles[idx])
+                self._spawn(idx, engine, runner, start=False,
+                            role=self._roles[idx])
         self.block_size = self._replicas[0].engine.pool.block_size
         if _recover_state is not None:
             # rebuild the at-most-once registry from the journal BEFORE
@@ -431,7 +475,9 @@ class ServingRouter:
         `runner_factory` and the knobs must describe the tier the dead
         router ran (the journal records request state, not model code).
         The journal keeps being written (compacted first), so recovery
-        survives repeated crashes."""
+        survives repeated crashes. With backend="process" the factory is
+        the tier's JSON spec and a fresh fleet of children restores from
+        the journaled snapshots."""
         state, discarded = RouterJournal.replay(journal_path)
         if discarded:
             logger.warning(
@@ -549,8 +595,15 @@ class ServingRouter:
     def _revive_engine(self, rep: "EngineReplica",
                        snapshot: Optional[dict]):
         """The replacement engine of a dead replica: a FRESH runner and
-        ServingEngine.restore (or a fresh engine). Returns (engine,
-        runner)."""
+        ServingEngine.restore (or a fresh engine). On the process backend:
+        SIGKILL whatever is left of the old process (a SIGSTOP'd one too),
+        spawn a new child and let it restore from the snapshot in its own
+        address space. Returns (engine, runner)."""
+        if self.backend == "process":
+            rep.engine.kill()
+            client = self._launcher.spawn(rep.index, role=rep.role,
+                                          snapshot=snapshot)
+            return client, None
         runner = self._make_runner(rep.index)
         kw = self._engine_kw
         if snapshot is not None:
@@ -560,6 +613,14 @@ class ServingRouter:
         else:
             engine = self._build_engine(runner, rep.role)
         return engine, runner
+
+    def _replica_dead(self, rep: "EngineReplica") -> bool:
+        """waitpid-style liveness probe (process backend): True when the
+        replica's process has exited though no command has surfaced the
+        death yet, so an IDLE replica's SIGKILL is seen without
+        traffic."""
+        probe = getattr(rep.engine, "proc_dead", None)
+        return bool(probe and probe())
 
     def _note_dead(self, rep: "EngineReplica", why: str) -> None:
         """Fence a replica whose death surfaced OUTSIDE its worker thread
@@ -711,12 +772,9 @@ class ServingRouter:
                 if ev.finished:
                     self._finish(rec, ev.finish_reason, jot=False)
                     finished[rec.request_id] = ev.finish_reason
-        # the step's cursor advances as ONE record, and only THEN the
-        # finishes: "done" never becomes durable before its tokens
-        if delivered:
-            self._jot({"t": "tok", "d": delivered})
-        for rid, reason in finished.items():
-            self._jot({"t": "fin", "rid": rid, "reason": reason})
+            if delivered or finished:
+                self._unjotted += 1
+        self._jot_step(delivered, finished)
 
     def _collect(self, rep: EngineReplica) -> None:
         """Pick up completions that produced no TokenEvent (timeout, abort,
@@ -743,10 +801,29 @@ class ServingRouter:
                     self.metrics.tokens_delivered.inc()
                 self._finish(rec, out.finish_reason, jot=False)
                 finished[rid] = out.finish_reason
-        if delivered:
-            self._jot({"t": "tok", "d": delivered})
-        for rid, reason in finished.items():
-            self._jot({"t": "fin", "rid": rid, "reason": reason})
+            if delivered or finished:
+                self._unjotted += 1
+        self._jot_step(delivered, finished)
+
+    def _jot_step(self, delivered: Dict[str, List[int]],
+                  finished: Dict[str, str]) -> None:
+        """Journal a step's cursor advance as ONE record, and only THEN its
+        finishes: "done" never becomes durable before its tokens. The
+        caller counted the step in `_unjotted` under the router lock, with
+        the registry change; drain() waits for the count to fall back, so
+        what it returns is journaled (a crash right after loses none of
+        it)."""
+        if not (delivered or finished):
+            return
+        try:
+            if delivered:
+                self._jot({"t": "tok", "d": delivered})
+            for rid, reason in finished.items():
+                self._jot({"t": "fin", "rid": rid, "reason": reason})
+        finally:
+            with self._lock:
+                self._unjotted -= 1
+            self._completion.set()
 
     def _finish(self, rec: _RequestRecord, reason: str,
                 jot: bool = True) -> None:
@@ -864,6 +941,11 @@ class ServingRouter:
                 if request_id in self._reqs:
                     raise ValueError(f"request {request_id!r} already "
                                      "submitted")
+        elif self.backend == "process":
+            # tier-unique auto ids: each replica PROCESS counts its own
+            # arrivals, so engine-assigned "req-N" names would collide
+            # across replicas in the registry
+            request_id = f"req-p{next(self._rids)}"
         chain = self._affinity_chain(prompt)
         for _ in range(len(self._replicas) + 2):
             rep, how = self._choose(chain, sampling.session_id)
@@ -1193,8 +1275,9 @@ class ServingRouter:
         worker (the graceful stop flushes any pipelined launch), migrate
         its queued AND running requests to siblings (pages ride the
         handoff when the host tier is on, recompute otherwise), then
-        retire it as status 'drained'; `restart_replica` brings a fresh
-        one back. Returns the number of requests migrated."""
+        retire it as status 'drained' (process backend: a bounded
+        shutdown RPC, then the child is reaped); `restart_replica` brings
+        a fresh one back. Returns the number of requests migrated."""
         with self._lock:
             rep = self._replicas[idx]
             if rep.status != "live":
@@ -1220,6 +1303,11 @@ class ServingRouter:
             self._retired_metrics.append(rep.engine.metrics.snapshot())
         except BaseException:            # pragma: no cover
             pass
+        if self.backend == "process":
+            try:
+                rep.engine.shutdown()    # bounded: a shutdown RPC, a reap
+            except BaseException:        # pragma: no cover
+                pass
         with self._lock:
             rep.fenced = True
             rep.status = "drained"
@@ -1235,14 +1323,18 @@ class ServingRouter:
 
     def restart_replica(self, idx: int) -> "EngineReplica":
         """Bring a drained (or retired) replica back as a FRESH engine (new
-        epoch, empty pool) and backfill any registry request the dead
+        epoch, empty pool; a new child on the process backend) and
+        backfill any registry request the dead
         epoch still owns (the no-live-sibling drain case)."""
         rep = self._replicas[idx]
         if rep.status == "live":
             return rep
         old_epoch = rep.epoch
-        runner = self._make_runner(idx)
-        engine = self._build_engine(runner, rep.role)
+        if self.backend == "process":
+            engine, runner = self._launcher.spawn(idx, role=rep.role), None
+        else:
+            runner = self._make_runner(idx)
+            engine = self._build_engine(runner, rep.role)
         new = self._spawn(idx, engine, runner, start=False,
                           role=rep.role)
         for rec in self._orphans(idx, old_epoch):
@@ -1270,8 +1362,9 @@ class ServingRouter:
 
     def kill_replica(self, idx: int, reason: str = "killed") -> bool:
         """Simulate a replica death (a test and drill hook): fence it at
-        once, even mid-step, and leave recovery to the supervisor. Returns
-        False if the replica is not live."""
+        once, even mid-step, and leave recovery to the supervisor (process
+        backend: the child is SIGKILLed). Returns False if the replica is
+        not live."""
         with self._lock:
             rep = self._replicas[idx]
             if rep.status != "live":
@@ -1283,6 +1376,13 @@ class ServingRouter:
             self.metrics.replica_crashes.inc()
             self.metrics.live_replicas.set(
                 sum(1 for r in self._replicas if r.status == "live"))
+        if self.backend == "process":
+            # a drill kill ends the PROCESS (SIGKILL), not just the proxy:
+            # recovery must prove a real respawn
+            try:
+                rep.engine.kill()
+            except Exception:  # pragma: no cover
+                pass
         rep.wake.set()
         self._completion.set()
         return True
@@ -1295,17 +1395,18 @@ class ServingRouter:
 
     def drain(self, timeout_s: Optional[float] = None,
               poll_s: float = 0.02) -> Dict[str, RouterOutput]:
-        """Block until every submitted request has finished; returns
-        outputs(). Polls the supervisor inline, so recovery happens even
-        without its thread. Raises TimeoutError (listing the stuck
-        requests) after `timeout_s`."""
+        """Block until every submitted request has finished and its tokens
+        and finish are journaled; returns outputs(). Polls the supervisor
+        inline, so recovery happens even without its thread. Raises
+        TimeoutError (listing the stuck requests) after `timeout_s`."""
         deadline = (None if timeout_s is None
                     else time.monotonic() + timeout_s)
         while True:
             with self._lock:
                 pending = [rid for rid, rec in self._reqs.items()
                            if not rec.done]
-            if not pending:
+                unjotted = self._unjotted
+            if not pending and not unjotted:
                 return self.outputs()
             if self.supervisor is not None:
                 self.supervisor.poll()
@@ -1392,6 +1493,14 @@ class ServingRouter:
             t = rep.thread
             if t is not None and t.is_alive():
                 t.join(timeout_s)
+        if self.backend == "process":
+            for rep in list(self._replicas):
+                try:
+                    rep.engine.shutdown()
+                except BaseException:  # pragma: no cover
+                    pass
+            if self._launcher is not None:
+                self._launcher.close()
         if self._journal is not None:
             self._journal.close()
 

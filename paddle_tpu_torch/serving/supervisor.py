@@ -1,10 +1,12 @@
 """Crash-restarting supervisor of the serving router.
 
-Counterpart of paddle_tpu/serving/supervisor.py on the thread backend:
+Counterpart of paddle_tpu/serving/supervisor.py:
 
   state machine per replica (status field on EngineReplica):
 
       live --(worker catches BaseException)--> crashed
+      live --(process backend: the replica's process exited, seen by a
+              waitpid probe before any command surfaced it)--> crashed
       live --(has work, no step-progress heartbeat for
               heartbeat_timeout_s)--> hung
       crashed/hung --(recover: fence, fresh runner, restore from the
@@ -25,15 +27,18 @@ Counterpart of paddle_tpu/serving/supervisor.py on the thread backend:
   restore     a FRESH runner from the router's factory (never the
               possibly wedged old one; it shares the model's weights),
               `ServingEngine.restore` on the replica's last snapshot,
-              token-exact by recompute-on-resume.
+              token-exact by recompute-on-resume. On the process backend
+              the old child is SIGKILLed first (a SIGSTOP'd one too) and
+              a NEW child restores the snapshot: a dead or stopped
+              process is never reused.
   backfill    requests the snapshot missed are resubmitted from the
               router's registry with their full delivered prefix; the
               delivery cursor absorbs any overlap.
   redistribute the restored queue re-routes through the normal policy
               (affinity entries for the dead pool are purged first).
 
-The JAX supervisor's process probe (a replica process that exited) and
-its store reaping belong to the process tier, ROADMAP.md item 11 part B.
+The JAX supervisor's reaping of a dead replica's host-wide store slots
+belongs to ROADMAP.md item 11 part B2.
 """
 
 from __future__ import annotations
@@ -94,7 +99,9 @@ class Supervisor:
             try:
                 self.poll()
             except BaseException:        # pragma: no cover - must never
-                logger.exception("supervisor poll failed")   # kill the loop
+                # kill the loop (a respawned replica dying mid-backfill
+                # lands here: the next poll's probe recovers it again)
+                logger.exception("supervisor poll failed")
 
     # ------------------------------------------------------- detection
 
@@ -124,6 +131,21 @@ class Supervisor:
                 if rep in self._recovered:
                     continue
                 if rep.status == "crashed":
+                    self._recover(rep, "crash")
+                    recovered += 1
+                elif (rep.status == "live"
+                        and self.router._replica_dead(rep)):
+                    # the replica PROCESS exited (SIGKILL, OOM, segfault)
+                    # before any command surfaced it: an idle replica's
+                    # corpse is found here, not on traffic
+                    rep.status = "crashed"
+                    rep.fenced = True
+                    rep.stop = True
+                    rc = rep.engine.proc.poll()
+                    rep.crash = f"process exited rc={rc}"
+                    self.router.metrics.replica_crashes.inc()
+                    logger.warning("replica %d process died (rc=%s)",
+                                   rep.index, rc)
                     self._recover(rep, "crash")
                     recovered += 1
                 elif rep.status == "live" and self._hung(rep):

@@ -2120,3 +2120,67 @@ def test_tier_handoff_pages_arrive_bit_identical(gen, kv_dtype):
         for rid, p, sp in work:
             assert outs[rid].output_tokens == naive_generate(
                 runner, p, sp, max_model_len=256)
+
+
+def test_capture_warmup_never_runs_beside_another_runners_replay(gen):
+    """Every graph captured on the shared capture stream uses that
+    stream's K2 ticket buffer when it replays (on the compute stream), and
+    every capture's warm-up runs K2 for real on the capture stream with
+    the same tickets: the two must never run at once, or the split walk's
+    last-split merges read half-written partials. One thread replays a
+    captured chain of K2 calls while another captures fresh chains, each
+    warm-up a chain over other inputs, both keeping the card busy: every
+    replay equals the eager chain bit for bit, and the tickets are left
+    zero."""
+    import threading
+
+    from paddle_tpu_torch.serving import model_runner as mr
+
+    dev = torch.device("cuda")
+    b, h, d, ps, P = 8, 32, 128, 16, 64        # 1024 keys: 4 splits
+    pools = tuple(torch.randn(b * P + 1, ps, h, d, device=dev, generator=gen)
+                  for _ in range(2))
+    tables = (np.arange(b * P, dtype=np.int32).reshape(b, P) + 1)
+    pos = np.full(b, P * ps - 1, dtype=np.int32)
+
+    def host(seed):
+        rng = np.random.default_rng(seed)
+        return (rng.standard_normal((b, h, d)).astype(np.float32), tables,
+                pos - rng.integers(0, 300, b).astype(np.int32))
+
+    def chain(pools, q, t, p):       # 48 K2 calls in a row, each fed back
+        out = q
+        for _ in range(48):
+            out = k2.paged_decode_attention(out, pools[0], pools[1], t, p)
+        return out
+
+    hb = host(0)
+    ref = chain(pools, *(torch.from_numpy(a).to(dev) for a in hb)).clone()
+    replayed, _ = mr.capture_step(chain, hb, pools, dev, mr._CudaGraph(
+        mr._capture_stream(dev)))
+    outs, stop, errors = [], threading.Event(), []
+
+    def replays():
+        try:
+            while not stop.is_set():
+                outs.append(replayed.replay(hb).clone())
+        except BaseException as e:          # reported by the main thread
+            errors.append(e)
+
+    t = threading.Thread(target=replays, daemon=True)
+    t.start()
+    try:
+        for i in range(40):
+            with mr._CAPTURE_LOCK:
+                mr.capture_step(chain, host(i + 1), pools, dev,
+                                mr._CudaGraph(mr._capture_stream(dev)))
+    finally:
+        stop.set()
+        t.join(60)
+    assert not t.is_alive() and not errors, errors
+    torch.cuda.synchronize()
+    assert len(outs) > 40
+    bad = sum(not torch.equal(o, ref) for o in outs)
+    assert bad == 0, f"{bad} of {len(outs)} replays differ from the eager call"
+    tickets = k2._tickets(dev, mr._capture_stream(dev), b * h)
+    assert int(tickets.count_nonzero()) == 0

@@ -3,7 +3,8 @@ write-ahead journal, `ServingRouter.recover`, graceful drain and rolling
 restart.
 
 Ports the thread-backend pins of tests/test_serving_durability.py (its
-wire, RPC-deadline, shutdown and process cases are item 11 part B): a
+wire, RPC-deadline, shutdown and process cases are in
+tests/test_torch_wire.py and tests/test_torch_procs.py): a
 router death loses nothing the journal saw (recover() resumes every
 in-flight request token-exact with none lost or duplicated, at any
 journal truncation offset), and a drained or rolling-restarted tier keeps
@@ -474,6 +475,34 @@ def _crash_router(router):
 
 
 class TestRouterRecover:
+    def test_drain_returns_only_once_its_records_are_journaled(
+            self, model, tmp_path, monkeypatch):
+        """A step's tokens and finishes reach the registry before the
+        worker journals them: drain() must not return in between, or a
+        crash right after it loses finished requests (each journal append
+        slowed here, so the worker is caught between the two)."""
+        import time as _time
+        append = RouterJournal.append
+
+        def slow_append(journal, rec):
+            if rec.get("t") in ("tok", "fin"):
+                _time.sleep(0.05)
+            return append(journal, rec)
+
+        monkeypatch.setattr(RouterJournal, "append", slow_append)
+        work = workload(4, seed=4)
+        jp = str(tmp_path / "wal.jsonl")
+        router = ServingRouter(factory_of(model), replicas=2,
+                               journal_path=jp, **TIER_KW, **ENGINE_KW)
+        rids = [router.submit(p, sp) for p, sp in work]
+        router.drain(timeout_s=60.0)
+        _crash_router(router)
+        router.shutdown()
+        state, _ = RouterJournal.replay(jp)
+        assert all(state["reqs"][rid]["done"] for rid in rids)
+        for rid, (p, sp) in zip(rids, work):
+            assert state["reqs"][rid]["tokens"] == oracle(model, p, sp)
+
     def _run_and_crash(self, model, tmp_path, bar, work, snapshot_every=2):
         jp = str(tmp_path / "wal.jsonl")
         router = ServingRouter(factory_of(model), replicas=2,

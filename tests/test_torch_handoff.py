@@ -2,8 +2,8 @@
 the CPU.
 
 Ports the thread-side pins of tests/test_serving_procs.py (its engine
-handoff, int8 bit-exactness and thread-split cases; the process backend
-is item 11 part B): a prefill-role engine samples each request's first
+handoff, int8 bit-exactness and thread-split cases; the process backend's
+are in tests/test_torch_procs.py): a prefill-role engine samples each request's first
 token, spills its pages from page 0 and parks it; `extract_handoff`
 exports the pages (numpy arrays and CRC content hashes), a sibling's
 `import_handoff` writes them into its own host tier, re-verifying each

@@ -13,9 +13,11 @@ kernel wrapper takes, and what it refuses.
     the disaggregated role and session ids (item 11 part A), the four
     horizon and pipeline knobs, the prefix cache, fused ragged steps,
     speculation and temperature > 0 are served; every knob of the process
-    tier (item 11 part B: the router's process backend, shared store and
-    RPC timeouts, `HostKVTier(store=)`, `spill_pages(publish=)`) takes its
-    JAX default and raises naming item 11 at any other value, and
+    tier has its JAX default; the process backend's (item 11 part B1: the
+    backend, the RPC timeouts and retries, the child environment) are
+    live, and the host-wide store's (part B2: `shared_kv_*`,
+    `HostKVTier(store=)`, `spill_pages(publish=)`) raise naming item 11 at
+    any other value, and
     `create_serving_router(mesh= | meshes=)` raises naming item 10;
   * the serving entry points take the JAX package's positional and
     keyword arguments (runner, runner_for, create_serving_engine,
@@ -422,13 +424,21 @@ PROCESS_TIER_KNOBS = {
     "shared_kv_geometry": {"num_layers": 1}, "rendezvous_timeout_s": 5.0,
     "command_timeout_s": 5.0, "rpc_fast_timeout_s": 1.0,
     "rpc_max_retries": 5, "child_env": {"A": "1"}}
+# those of the host-wide store, still unported (part B2)
+SHARED_KV_KNOBS = ("shared_kv_pages", "shared_kv_shm", "shared_kv_geometry")
 
 
 @pytest.mark.parametrize("knob", sorted(PROCESS_TIER_KNOBS))
 def test_process_tier_router_knob_raises_naming_item_11(model, knob):
     """Each process-tier knob of the JAX ServingRouter has the JAX default
-    in the port's signature, is accepted there, and raises naming item 11
-    at another value."""
+    in the port's signature and is accepted there. At another value the
+    host-wide store's knobs raise naming item 11 (part B2); the process
+    backend's (part B1, ported) are live: backend="process" through the
+    model bridge raises TypeError as the JAX bridge does (a callable
+    factory cannot cross a process boundary; the JSON spec serves it, see
+    tests/test_torch_procs.py), and the timeouts, retries and child
+    environment are taken on the thread backend, which reads none of them,
+    as in JAX."""
     from paddle_tpu.serving import ServingRouter as JaxServingRouter
     from paddle_tpu_torch.inference import create_serving_router
     from paddle_tpu_torch.serving import ServingRouter
@@ -438,14 +448,23 @@ def test_process_tier_router_knob_raises_naming_item_11(model, knob):
     kw = dict(replicas=1, supervise=False, block_size=8, max_model_len=32,
               num_blocks=8, device="cpu")
     create_serving_router(model, **kw, **{knob: default}).shutdown()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11"):
-        create_serving_router(model, **kw,
-                              **{knob: PROCESS_TIER_KNOBS[knob]})
+    other = {knob: PROCESS_TIER_KNOBS[knob]}
+    if knob in SHARED_KV_KNOBS:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md.*item 11.*part B2"):
+            create_serving_router(model, **kw, **other)
+    elif knob == "backend":
+        with pytest.raises(TypeError, match="JSON spec"):
+            create_serving_router(model, **kw, **other)
+    else:
+        router = create_serving_router(model, **kw, **other)
+        assert router.backend == "thread"
+        router.shutdown()
 
 
 def test_process_tier_store_parameters_raise_naming_item_11():
     """HostKVTier(store=) and spill_pages(publish=) (the host-wide store,
-    item 11 part B) take the JAX default only; mesh= and meshes= of
+    item 11 part B2) take the JAX default only; mesh= and meshes= of
     create_serving_router raise naming item 10."""
     from paddle_tpu.serving.kv_cache import HostKVTier as JaxHostKVTier
     from paddle_tpu_torch.inference import create_serving_router
@@ -554,7 +573,7 @@ def test_session_id_raises_naming_item_11(model):
     """A session id is served since item 11 part A (the tier routes on it,
     one engine ignores it: same tokens as without); what still raises
     naming item 11 is the host-wide store a session's pages would live in
-    across processes (part B)."""
+    across processes (part B2)."""
     eng = _engine(model)
     with_sid = eng.add_request([1, 2], SamplingParams(max_tokens=3,
                                                       session_id="s"))

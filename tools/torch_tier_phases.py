@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's phases 42-44 alone (the serving tier at LLaMA-2-7B fp32,
-random weights; the int8 split arm at 8 of 32 layers), after building the
-kernels: the quickest way to re-run the tier's gates on the card.
+"""chip_smoke.py's phases 42-45 alone (the serving tier at LLaMA-2-7B fp32,
+random weights; the int8 split arm at 8 of 32 layers; phase 45 the tier
+over replica processes at 8 of 32 layers), after building the kernels: the
+quickest way to re-run the tier's gates on the card.
 
-    python3 tools/torch_tier_phases.py [42] [43] [44]
+    python3 tools/torch_tier_phases.py [42] [43] [44] [45]
 
-With no argument it runs all three; without 42 the reference streams come
-from one engine on the same traffic. Needs an NVIDIA card.
+With no argument it runs all four; without 42 the reference streams come
+from one engine on the same traffic. Phase 45 alone builds no full-depth
+model: its children build their own, and the parent frees its reference
+engines before they start. Needs an NVIDIA card.
 """
 
 import sys
@@ -30,11 +33,16 @@ def main():
     _build.library()
     cs.lap("build")
     cfg = LLAMA2_7B
+    only = sys.argv[1:] or ["42", "43", "44", "45"]
+    if only == ["45"]:
+        cs.process_tier_phase(cfg, cs.router_requests(cfg))
+        cs.log(f"time by part (s): {cs._LAPS}")
+        cs.log("phases 45: ok")
+        return
     model = Llama(cfg, device="cuda", seed=0)
     q_cfg = replace(cfg, num_layers=8)
     q_model = Llama(q_cfg, device="cuda", seed=0)
     cs.lap("models")
-    only = sys.argv[1:] or ["42", "43", "44"]
     if "42" in only:
         _, ref, reqs, runner = cs.tier_phase(model, cfg)
     else:
@@ -54,6 +62,10 @@ def main():
     cs._free_the_card()
     if "44" in only:
         cs.durability_phase(model, cfg, ref, reqs, runner)
+    if "45" in only:
+        del model, runner
+        cs._free_the_card()
+        cs.process_tier_phase(cfg, reqs)
     cs.log(f"time by part (s): {cs._LAPS}")
     cs.log("phases " + " ".join(only) + ": ok")
 
