@@ -472,8 +472,9 @@ exits non-zero without printing a result:
               characters split across tokens) only appends after every
               step and ends equal to each stream's whole decode.
  42. serving  the in-process serving tier (tier_phase) at LLaMA-2-7B, full
-     tier     width and depth, fp32, phase 40's random weights shared by
-              both replicas of create_serving_router (ROUTER_KNOBS: 400
+     tier     width and 8 of 32 layers (full depth until phase 46 took the
+              smoke's time), fp32, phase 40's int8 arm's random weights
+              shared by both replicas of create_serving_router (ROUTER_KNOBS: 400
               pages of 16 each, 8 slots, the prefix cache, horizons of 8,
               audit=True): 16 greedy requests of 300-600 tokens from 4
               tenants sharing a 256-token header, 32 new tokens, in two
@@ -493,19 +494,21 @@ exits non-zero without printing a result:
               runner and host tier is collected, the card's allocated
               memory is within one replica's pools and graph pools of its
               value before and the tiers' pinned bytes are unchanged.
- 43. split    prefill_replicas=1 of 2 (disagg_phase), each replica's host
-     prefill  tier sized for all the traffic's pages: 16 handoffs out and
-     / decode in, no recompute fallback, every handed-off page (fp32;
-              int8 codes and scale rows at 8 of 32 layers) bit-identical
-              on the card after the decode replica's page-in against the
-              prefill replica's pages before the spill (HandoffSpy);
-              streams equal phase 42's (the int8 arm's reported against
-              an fp32 engine at 8 layers). Printed: handoff bytes, export
-              and import GB/s (host clock), the device ms from a first
-              token on a prefill engine to the first decode step on a
-              decode engine against a decode step, the idle share.
- 44. durable  a journaled tier (fsync "always", 400 host pages) serves
-     tier     phase 42's traffic halfway and is abandoned (replicas
+ 43. split    prefill_replicas=1 of 2 (disagg_phase) at 8 of 32 layers
+     prefill  (since phase 46 took the smoke's time), each replica's host
+     / decode tier sized for all the traffic's pages: 16 handoffs out and
+              in, no recompute fallback, every handed-off page (fp32;
+              int8 codes and scale rows) bit-identical on the card after
+              the decode replica's page-in against the prefill replica's
+              pages before the spill (HandoffSpy); the fp32 streams equal
+              a single fp32 engine's at 8 layers (the int8 arm's reported
+              against it). Printed: handoff bytes, export and import GB/s
+              (host clock), the device ms from a first token on a prefill
+              engine to the first decode step on a decode engine against
+              a decode step (at full depth), the idle share.
+ 44. durable  a journaled tier (fsync "always", 400 host pages; phase 42's
+     tier     model, 8 of 32 layers) serves
+              phase 42's traffic halfway and is abandoned (replicas
               fenced, supervisor stopped, journal closed); then
               ServingRouter.recover on the card: every stream equal to
               phase 42's, the finished outputs restored as they were, and
@@ -544,7 +547,51 @@ exits non-zero without printing a result:
               every respawn and at the end, the handoff bytes and wire
               GB/s (host clock), the time from a first token to the next
               on the decode child, the phase's seconds.
- 46. summary  one JSON line of every kernel's launches, error and times
+ 46. host-   the host-wide KV store (store_tier_phase): LLaMA-2-7B at full
+     wide KV  width and 8 of 32 layers, fp32, seed 0, phase 42's traffic and
+     store    second turns; a store of 512 pages (2 GiB) at most half of
+              /dev/shm's free space (fewer layers first, never a narrower
+              page, never below 64 pages; segments an earlier run left are
+              reported and left alone). Arms: (a) two thread replicas over
+              one in-process store (pinned buffers): streams equal a
+              single engine's; a rolling restart demotes both caches into
+              the store and the chats' second turns resume from it
+              (store_hit_pages at least the pages their first turns
+              wrote, none of those tokens recomputed); audit_store clean;
+              (b) prefill_replicas=1 of 2 over the store: 16 handoffs by
+              slot reference (handoff_bytes_out 0, no fallback), a shared
+              header's second handoff a ref (store_dedup_pages > 0), every
+              page bit-identical on the card after its page-in
+              (HandoffSpy); the device ms from a first token to the first
+              decode step over the store, printed beside phase 43's; (c)
+              two replica processes over a shared-memory store (the
+              router's StoreServer serving the metadata), split: the
+              handoff frames carry no page byte, every handed-off page's
+              CRC on the decode child equal to the prefill child's, no
+              wire or recompute fallback, streams equal the single
+              engine's; (d) the decode child SIGKILLed while it holds
+              store refs (SIGSTOPped first, its refs read): the Supervisor
+              reaps its owner under the store's lock (the index kept, the
+              dead key owning nothing), audit_store clean with the live
+              owners, free + used = the store's pages, the segments still
+              there, streams unchanged; (e) the journaled tier abandoned
+              halfway (children killed, the store's server closed), one
+              journaled index entry's bytes corrupted in the segment, then
+              ServingRouter.recover(..., backend="process",
+              shared_kv_pages=...): the same segments reattached, every
+              other journaled entry revived (CRC-checked), the corrupted
+              one dropped, streams unchanged; (f) no segment of the phase
+              left under /dev/shm, its free space back, every child
+              reaped, no tensor of the phase left on the card and its free
+              memory back within 1 GiB (workspaces of the CUDA context and
+              libraries for what the phase used first). Every
+              child launches K1 and K2 and no plain version. Printed:
+              /dev/shm's size and free space before and after, the store's
+              pages and bytes, store_hit_pages and store_dedup_pages, the
+              store RPCs per handoff, spill and page-in GB/s (host clock),
+              the time from a first token to the next in (b) and (c), the
+              phase's seconds.
+ 47. summary  one JSON line of every kernel's launches, error and times
               (K1's decode-form times as extra decode_* keys, its engine
               launches by form under launches_by_form, the fp64 ratios
               under fp64_ratio; the masked kernels as *_masked rows with
@@ -574,7 +621,8 @@ exits non-zero without printing a result:
               mixed pools' launches under mixed_launches; phase 40's
               launches of K1, K2 and K1-q int8 under host_tier_launches;
               phases 42-44's under tier_launches; phase 45's (children's
-              counts) under proc_tier_launches;
+              counts) under proc_tier_launches; phase 46's under
+              store_tier_launches;
               the dense bf16 and fp16 flash rows' d = 256 times under
               d256; the forward's lse ratio on the stream after phase 37
               under lse_after_phase37_fp64_ratio), the smoke's
@@ -5730,8 +5778,9 @@ def crash_at(runner, call, log_to):
 
 
 def tier_phase(model, cfg):
-    """Phase 42: the in-process serving tier at LLaMA-2-7B (full width and
-    depth, fp32 weights shared by every replica, random weights):
+    """Phase 42: the in-process serving tier at LLaMA-2-7B (full width,
+    ``cfg``'s depth: 8 of 32 layers since phase 46 took the smoke's time;
+    fp32 weights shared by every replica, random weights):
     create_serving_router, 2 replicas, ROUTER_KNOBS, audit=True, on
     router_requests' traffic and two second turns. Gates: every request
     finished once; the streams equal a single engine's on the same
@@ -6038,21 +6087,31 @@ class HandoffSpy:
             import_handoff
 
 
-def handoff_device_ms(model, reqs):
+def handoff_device_ms(model, reqs, store_pages=0):
     """The device ms from a request's first token on a prefill-role engine
     to its first decode step on a decode-role engine (the staging spill,
     the export, the import and CRC checks, the page-in and the step, CUDA
     events on the compute stream), against the device ms of the next
-    decode step of the same request on a mixed engine."""
+    decode step of the same request on a mixed engine. With
+    ``store_pages`` the two engines share a host-wide store of that many
+    pages (phase 46: the handoff is a slot reference)."""
     from paddle_tpu_torch.inference import create_serving_engine
+    from paddle_tpu_torch.serving import SharedKVStore
 
     _, p, sp = reqs[0]
     # one decode step a step: decode_horizon 1
     knobs = dict(ROUTER_KNOBS, decode_horizon=1)
     events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    shared = {}
+    if store_pages:
+        cfg = model.cfg
+        shared["kv_store"] = SharedKVStore(SharedKVStore.layout_for(
+            cfg.num_layers, knobs["block_size"], cfg.num_kv_heads,
+            cfg.hidden_size // cfg.num_heads), store_pages, pin_memory=True)
     pre = create_serving_engine(model, device="cuda", role="prefill",
-                                **knobs)
-    dec = create_serving_engine(model, device="cuda", role="decode", **knobs)
+                                kv_store_owner="pre", **shared, **knobs)
+    dec = create_serving_engine(model, device="cuda", role="decode",
+                                kv_store_owner="dec", **shared, **knobs)
     mixed = create_serving_engine(model, device="cuda", **knobs)
     for eng in (pre, mixed):
         eng.add_request(p, sp, request_id="m")
@@ -6076,6 +6135,8 @@ def handoff_device_ms(model, reqs):
     out = (events[0].elapsed_time(events[1]),
            events[2].elapsed_time(events[3]))
     del pre, dec, mixed
+    if shared:
+        shared["kv_store"].close()
     _free_the_card()
     return out
 
@@ -6132,31 +6193,33 @@ def disagg_arm(model, cfg, reqs, label, kv_dtype="fp32"):
     return got, numbers
 
 
-def disagg_phase(model, cfg, q_model, q_cfg, ref, reqs, runner):
-    """Phase 43: disaggregated prefill / decode at LLaMA-2-7B (full width
-    and depth, fp32): disagg_arm's gates, every stream equal to phase
-    42's; then an int8 pool at q_cfg's depth (codes and scale rows
-    bit-identical), its tokens reported against an fp32 engine's on the
-    same model; the device
-    ms from a first token to the first decode step on the other replica
-    against a decode step. Returns the numbers."""
-    t0 = time.perf_counter()
-    got, fp32 = disagg_arm(model, cfg, reqs, "fp32")
-    names = [r for r, _, _ in reqs]
-    _gate_streams("phase 43 disaggregated vs phase 42", runner,
-                  [p for _, p, _ in reqs], [got[r] for r in names],
-                  [ref[r] for r in names])
-    lap("phase 43 fp32 split")
-    qgot, int8 = disagg_arm(q_model, q_cfg, reqs, "int8", kv_dtype="int8")
+def disagg_phase(model, cfg, reqs):
+    """Phase 43: disaggregated prefill / decode at LLaMA-2-7B's full width
+    and cfg's depth (8 of 32 layers since phase 46 took the smoke's time):
+    disagg_arm's gates, fp32 pools with every stream equal to a single
+    fp32 engine's on the same model, then an int8 pool (codes and scale
+    rows bit-identical), its tokens reported against the same engine's;
+    the device ms from a first token to the first decode step on the
+    other replica against a decode step. Returns the numbers."""
     from paddle_tpu_torch.inference import create_serving_engine
-    qref = create_serving_engine(q_model, device="cuda", **ROUTER_KNOBS)
+
+    t0 = time.perf_counter()
+    ref = create_serving_engine(model, device="cuda", **ROUTER_KNOBS)
     for rid, p, sp in reqs:
-        qref.add_request(p, sp, request_id=rid)
-    qouts = qref.run()
-    del qref
+        ref.add_request(p, sp, request_id=rid)
+    qouts = ref.run()
+    del ref
     _free_the_card()
+    names = [r for r, _, _ in reqs]
+    got, fp32 = disagg_arm(model, cfg, reqs, "fp32")
+    _gate_streams(f"phase 43 disaggregated vs an fp32 engine at "
+                  f"{cfg.num_layers} layers", None,
+                  [p for _, p, _ in reqs], [got[r] for r in names],
+                  [qouts[r].output_tokens for r in names])
+    lap("phase 43 fp32 split")
+    qgot, int8 = disagg_arm(model, cfg, reqs, "int8", kv_dtype="int8")
     _agreement(f"phase 43 int8 split tier vs an fp32 engine at "
-               f"{q_cfg.num_layers} layers", [qgot[r] for r in names],
+               f"{cfg.num_layers} layers", [qgot[r] for r in names],
                [qouts[r].output_tokens for r in names])
     lap("phase 43 int8 split")
     handoff_ms, step_ms = handoff_device_ms(model, reqs)
@@ -6313,14 +6376,86 @@ def durability_phase(model, cfg, ref, reqs, runner):
 PROC_LAYERS = 8
 
 
+def store_timing(rec):
+    """Patch ServingEngine's store paths (the spill of a handoff's pages in
+    _stage, extract_handoff, import_handoff, the page-in fence) to add up,
+    into ``rec`` by path, the calls, host seconds, pages copied (spilled
+    or paged in), dedup refs and store RPCs (a replica child's
+    SharedKVStoreClient counts its round trips) of engines over a
+    host-wide store. Returns the undo."""
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    names = ("_stage", "extract_handoff", "import_handoff", "_fence_pagein")
+    orig = {n: getattr(ServingEngine, n) for n in names}
+
+    def wrap(name):
+        fn = orig[name]
+
+        def timed(eng, *a, **kw):
+            store, tier = eng.kv_store, eng.pool.host_tier
+            if store is None:
+                return fn(eng, *a, **kw)
+            n0 = getattr(store, "rpc_count", 0)
+            c0 = (tier.spilled_pages, tier.paged_in_pages, tier.store_dedups)
+            t = time.perf_counter()
+            try:
+                return fn(eng, *a, **kw)
+            finally:
+                dt = time.perf_counter() - t
+                r = rec.setdefault(name, {"calls": 0, "s": 0.0, "pages": 0,
+                                          "dedups": 0, "rpcs": 0,
+                                          "page_bytes": 0})
+                c1 = (tier.spilled_pages, tier.paged_in_pages,
+                      tier.store_dedups)
+                r["calls"] += 1
+                r["s"] += dt
+                r["pages"] += (c1[0] - c0[0]) + (c1[1] - c0[1])
+                r["dedups"] += c1[2] - c0[2]
+                r["rpcs"] += getattr(store, "rpc_count", 0) - n0
+                r["page_bytes"] = eng.pool.page_bytes()
+        return timed
+    for n in names:
+        setattr(ServingEngine, n, wrap(n))
+
+    def undo():
+        for n, fn in orig.items():
+            setattr(ServingEngine, n, fn)
+    return undo
+
+
+def store_rates(recs):
+    """Spill and page-in GB/s (host clock) and store RPCs per handoff from
+    store_timing records (summed over processes)."""
+    tot = {}
+    for rec in recs:
+        for name, r in rec.items():
+            t = tot.setdefault(name, {k: 0 for k in r})
+            for k, v in r.items():
+                t[k] = v if k == "page_bytes" else t[k] + v
+    st, fe = tot.get("_stage", {}), tot.get("_fence_pagein", {})
+    handoffs = max(1, tot.get("extract_handoff", {}).get("calls", 0))
+    rpcs = {n: tot.get(n, {}).get("rpcs", 0) for n in (
+        "_stage", "extract_handoff", "import_handoff", "_fence_pagein")}
+    return {
+        "spill_GBps": (st["pages"] * st["page_bytes"] / st["s"] / 1e9
+                       if st.get("s") else None),
+        "pagein_GBps": (fe["pages"] * fe["page_bytes"] / fe["s"] / 1e9
+                        if fe.get("s") and fe.get("pages") else None),
+        "spilled_pages": st.get("pages", 0),
+        "dedup_refs": st.get("dedups", 0),
+        "paged_in_pages": fe.get("pages", 0),
+        "store_rpcs": rpcs,
+        "store_rpcs_per_handoff": sum(rpcs.values()) / handoffs}
+
+
 class _ChildRecorder:
     """Phase 45's record inside one replica process, rewritten (atomically)
     to ``counts_dir/<pid>.json`` after every runner call: the process's
     launches of every serving kernel (kernel and plain, from process start,
     so a SIGKILLed child leaves its last record), the kernel library's
-    path and build seconds, and the CRC of every handed-off page (page_crc)
+    path and build seconds, the CRC of every handed-off page (page_crc)
     on the device before its spill here ("staged") and after its page-in
-    here ("landed")."""
+    here ("landed"), and, over a host-wide store, the host seconds, pages
+    and store RPCs of its handoff and page-in paths (store_timing)."""
 
     def __init__(self, counts_dir, runner):
         from paddle_tpu_torch.ops import _build
@@ -6331,6 +6466,10 @@ class _ChildRecorder:
         self.library = str(_build.BUILD.path)
         self.built_s = _build.BUILD.seconds
         self.staged, self.landed, self.expect = [], [], {}
+        # the store paths' timing sits under the CRC reads below, which it
+        # must not count
+        self.store = {}
+        store_timing(self.store)
         rec = self
 
         class Recorded(FaultInjector):
@@ -6376,7 +6515,8 @@ class _ChildRecorder:
         data = {"library": self.library, "built_s": self.built_s,
                 "counts": {n: [c.kernel_launches, c.plain_launches]
                            for n, c in _all_counts()},
-                "staged": self.staged, "landed": self.landed}
+                "staged": self.staged, "landed": self.landed,
+                "store": self.store}
         tmp = self.path.with_suffix(".tmp")
         tmp.write_text(json.dumps(data))
         os.replace(tmp, self.path)
@@ -6417,7 +6557,7 @@ def _free_gib():
     return torch.cuda.mem_get_info()[0] / 2**30
 
 
-def _await_free(label, want_gib, deadline_s=120.0):
+def _await_free(label, want_gib, deadline_s=120.0, phase="phase 45"):
     """Wait until the card's free memory reaches ``want_gib`` (a dead
     child's memory is released by CUDA after its exit); returns the
     free GiB and the seconds waited, and fails past the deadline."""
@@ -6426,11 +6566,11 @@ def _await_free(label, want_gib, deadline_s=120.0):
         free = _free_gib()
         if free >= want_gib:
             waited = time.perf_counter() - t
-            log(f"phase 45 {label}: {free:.2f} GiB free "
+            log(f"{phase} {label}: {free:.2f} GiB free "
                 f"(waited {waited:.1f} s for {want_gib:.2f})")
             return free, waited
         if time.perf_counter() - t > deadline_s:
-            raise AssertionError(f"phase 45 {label}: {free:.2f} GiB free "
+            raise AssertionError(f"{phase} {label}: {free:.2f} GiB free "
                                  f"after {deadline_s:.0f} s, expected "
                                  f"{want_gib:.2f}")
         time.sleep(0.5)
@@ -6959,6 +7099,545 @@ def process_tier_phase(cfg, reqs):
     return out
 
 
+# ------------------------------------------- the host-wide KV store (46)
+
+# phase 46's store: 512 pages of LLaMA-2-7B at 8 of its 32 layers (fp32,
+# 4 MiB a page: 2 GiB), at most half of /dev/shm's free space; where that
+# does not fit, fewer layers first (never a narrower page), then fewer
+# pages, and never fewer than 64
+STORE_PAGES, STORE_MIN_PAGES = 512, 64
+
+
+def _shm_usage() -> dict:
+    u = shutil.disk_usage("/dev/shm")
+    return {"total": u.total, "used": u.used, "free": u.free}
+
+
+def store_size(cfg, free: int):
+    """(layers, pages, page bytes) of phase 46's store for ``free`` bytes of
+    /dev/shm (STORE_PAGES' rule)."""
+    def page_bytes(layers):
+        return (2 * layers * ROUTER_KNOBS["block_size"] * cfg.num_kv_heads
+                * (cfg.hidden_size // cfg.num_heads) * 4)
+    for layers in (PROC_LAYERS, 4, 2, 1):
+        if STORE_PAGES * page_bytes(layers) <= free // 2:
+            return layers, STORE_PAGES, page_bytes(layers)
+    pages = free // 2 // page_bytes(1)
+    if pages < STORE_MIN_PAGES:
+        raise AssertionError(
+            f"phase 46: /dev/shm has {free} bytes free; half of it holds "
+            f"{pages} pages of one layer, below {STORE_MIN_PAGES}")
+    return 1, int(pages), page_bytes(1)
+
+
+def _store_segments_exist(names):
+    return [n for n in names if os.path.exists(f"/dev/shm/{n.lstrip('/')}")]
+
+
+def _thread_store_arms(model, scfg, reqs, turns, ref, pages):
+    """Phase 46 (a) and (b): thread replicas over one in-process store (no
+    shared memory; pinned buffers). Returns the arms' numbers."""
+    from paddle_tpu_torch.inference import create_serving_router
+    from paddle_tpu_torch.serving import audit_store
+
+    out = {}
+    # (a) a rolling restart demotes both replicas' caches into the store;
+    # the chats' second turns then resume from it on either replica
+    counts = _zeroed_counts()
+    router = create_serving_router(
+        model, replicas=2, device="cuda", audit=True,
+        heartbeat_timeout_s=600.0, shared_kv_pages=pages, **ROUTER_KNOBS)
+    try:
+        if router.kv_store.use_shm or router.kv_store.max_pages != pages:
+            raise AssertionError("phase 46 (a): the thread tier's store is "
+                                 "not an in-process one of "
+                                 f"{pages} pages")
+        got = serve_tier(router, reqs, "phase 46 (a)")
+        _gate_streams("phase 46 (a) store-backed tier vs the single engine",
+                      None, [p for _, p, _ in reqs],
+                      [got[r] for r, _, _ in reqs],
+                      [ref[r] for r, _, _ in reqs])
+        router.rolling_restart()
+        base = router.metrics_snapshot()["engines"]
+        tgot = serve_tier(router, turns, "phase 46 (a) second turns")
+        _gate_streams("phase 46 (a) second turns vs the single engine",
+                      None, [p for _, p, _ in turns],
+                      [tgot[r] for r, _, _ in turns],
+                      [ref[r] for r, _, _ in turns])
+        m = router.metrics_snapshot()["engines"]
+        hits = m["store_hit_pages"] - base["store_hit_pages"]
+        computed = m["prefill_tokens"] - base["prefill_tokens"]
+        bs = ROUTER_KNOBS["block_size"]
+        # the first turns' written pages: prompt and all but the last token
+        covered = sum((len(p) + sp.max_tokens - 1) // bs
+                      for _, p, sp in reqs if sp.session_id is not None)
+        context = sum(len(p) for _, p, _ in turns)
+        if hits < covered or computed != context - bs * hits:
+            raise AssertionError(
+                f"phase 46 (a): the second turns hit {hits} store pages of "
+                f"the {covered} their first turns wrote and computed "
+                f"{computed} of {context} tokens")
+        audit_store(router.kv_store)
+        numbers = gate_tier(router, "phase 46 (a)", counts, restarts=2)
+        numbers.update(store_hit_pages=hits, turn2_prefill_tokens=computed,
+                       turn2_context_tokens=context, covered_pages=covered,
+                       store=router.kv_store.stats())
+        out["threads_restart"] = numbers
+        log(f"phase 46 (a) threads, rolling restart: {json.dumps(numbers)}")
+    finally:
+        router.shutdown()
+        del router
+        _free_the_card()
+    lap("phase 46 (a) threads, store resume")
+
+    # (b) the split tier hands off by slot reference
+    counts = _zeroed_counts()
+    rec = {}
+    undo = store_timing(rec)
+    router = create_serving_router(
+        model, replicas=2, prefill_replicas=1, device="cuda", audit=True,
+        heartbeat_timeout_s=600.0, shared_kv_pages=pages, **ROUTER_KNOBS)
+    try:
+        spy = HandoffSpy(router)
+        t = time.perf_counter()
+        got = serve_tier(router, reqs, "phase 46 (b)")
+        wall = time.perf_counter() - t
+        _gate_streams("phase 46 (b) slot-reference split vs the single "
+                      "engine", None, [p for _, p, _ in reqs],
+                      [got[r] for r, _, _ in reqs],
+                      [ref[r] for r, _, _ in reqs])
+        rm = router.metrics.snapshot()
+        eng = router.metrics_snapshot()["engines"]
+        n = len(reqs)
+        if not (eng["handoffs_out"] == eng["handoffs_in"] == rm["handoffs"]
+                == n and eng["handoff_recompute_fallbacks"] == 0
+                and rm["handoff_fallbacks"] == 0
+                and eng["handoff_bytes_out"] == 0
+                and eng["store_dedup_pages"] > 0):
+            raise AssertionError(
+                f"phase 46 (b): handoffs {rm['handoffs']}, in "
+                f"{eng['handoffs_in']}, recomputed "
+                f"{eng['handoff_recompute_fallbacks']}, bytes "
+                f"{eng['handoff_bytes_out']}, dedup refs "
+                f"{eng['store_dedup_pages']}")
+        if spy.checked != eng["handoff_pages_out"] or spy.sent:
+            raise AssertionError(f"phase 46 (b): {spy.checked} pages checked "
+                                 f"of {eng['handoff_pages_out']}")
+        audit_store(router.kv_store)
+        numbers = gate_tier(router, "phase 46 (b)", counts)
+        numbers.update(wall_s=wall, handoffs=rm["handoffs"],
+                       pages_checked=spy.checked,
+                       handoff_bytes=eng["handoff_bytes_out"],
+                       store_dedup_pages=eng["store_dedup_pages"],
+                       store_hit_pages=eng["store_hit_pages"],
+                       store=router.kv_store.stats(), **store_rates([rec]))
+        out["threads_split"] = numbers
+        log(f"phase 46 (b) threads, slot-reference split: "
+            f"{json.dumps(numbers)}")
+    finally:
+        undo()
+        router.shutdown()
+        del router
+        _free_the_card()
+    handoff_ms, step_ms = handoff_device_ms(model, reqs, store_pages=pages)
+    out["threads_split"].update(first_token_to_decode_ms=handoff_ms,
+                                decode_step_ms=step_ms)
+    log(f"phase 46 (b): first token on the prefill engine to the first "
+        f"decode step on the decode engine over the store {handoff_ms:.3f} "
+        f"device ms (phase 43 prints the private tiers' at this depth) "
+        f"against a decode step {step_ms:.3f} device ms (not gated)")
+    lap("phase 46 (b) threads, slot-reference split")
+    return out
+
+
+def store_tier_phase(cfg, reqs):
+    """Phase 46: the host-wide KV store (see the module docstring): thread
+    arms (a) and (b) over an in-process store, then (c) a split tier of two
+    replica processes over a shared-memory store, (d) the SIGKILL of its
+    decode child while it holds store refs and (e) the router's loss, on
+    one journaled tier, and (f) the teardown's checks. Returns the
+    numbers."""
+    import signal
+    import tempfile
+    from dataclasses import asdict
+
+    from paddle_tpu_torch.inference import create_serving_engine
+    from paddle_tpu_torch.models import Llama
+    from paddle_tpu_torch.serving import (
+        ServingRouter, SharedKVStore, audit_store, wire,
+    )
+    from paddle_tpu_torch.serving.journal import RouterJournal
+
+    t0 = time.perf_counter()
+    shm_before = _shm_usage()
+    mine = {n for n in os.listdir("/dev/shm") if n.startswith("psm_")}
+    if mine:
+        log(f"phase 46: /dev/shm holds {len(mine)} segments made before this "
+            f"run (left alone): {sorted(mine)[:8]}")
+    layers, pages, page_bytes = store_size(cfg, shm_before["free"])
+    scfg = replace(cfg, num_layers=layers)
+    out = {"layers": layers, "store_pages": pages, "page_bytes": page_bytes,
+           "store_bytes": pages * page_bytes, "shm_before": shm_before}
+    log(f"phase 46: /dev/shm {json.dumps(shm_before)} bytes; the store: "
+        f"{pages} pages of {page_bytes} bytes ({layers} of "
+        f"{cfg.num_layers} layers), {pages * page_bytes / 2**30:.2f} GiB")
+    _free_the_card()
+    mem_before, alloc_before = _free_gib(), torch.cuda.memory_allocated()
+    # the reference: one engine on the same weights, both turns
+    model = Llama(scfg, device="cuda", seed=0)
+    single = create_serving_engine(model, device="cuda", **ROUTER_KNOBS)
+    for rid, p, sp in reqs:
+        single.add_request(p, sp, request_id=rid)
+    ref = {k: o.output_tokens for k, o in single.run().items()}
+    turns = second_turns(cfg, reqs, ref)
+    for rid, p, sp in turns:
+        single.add_request(p, sp, request_id=rid)
+    ref.update({rid: single.run()[rid].output_tokens
+                for rid, _, _ in turns})
+    del single
+    _free_the_card()
+    lap("phase 46 reference engine")
+    out.update(_thread_store_arms(model, scfg, reqs, turns, ref, pages))
+    del model
+    _free_the_card()
+
+    tmp = tempfile.mkdtemp(prefix="store-tier-")
+    counts_dir = f"{tmp}/counts"
+    os.makedirs(counts_dir)
+    journal = f"{tmp}/wal.jsonl"
+    spec = {"factory": "chip_smoke:counted_runner_factory",
+            "factory_kw": dict(model="llama", seed=0, block_size=16,
+                               max_model_len=1024, device="cuda",
+                               counts_dir=counts_dir, **asdict(scfg)),
+            "sys_path": [str(Path(__file__).resolve().parent)]}
+    geometry = {"num_layers": layers, "block_size": 16,
+                "n_kv_heads": scfg.num_kv_heads,
+                "head_dim": scfg.hidden_size // scfg.num_heads}
+    engine_knobs = {k: v for k, v in ROUTER_KNOBS.items()
+                    if k != "block_size"}
+    knobs = dict(engine_knobs, audit=True, heartbeat_timeout_s=600.0,
+                 command_timeout_s=600.0, rendezvous_timeout_s=300.0)
+    store_kw = dict(prefill_replicas=1, shared_kv_pages=pages,
+                    shared_kv_geometry=geometry)
+    spawns = _SpawnLog()
+    tiers, segments = [], []
+    try:
+        # (c) two children over the shared-memory store, split
+        before = _child_launches(counts_dir)
+        router = ServingRouter(spec, replicas=2, backend="process",
+                               journal_path=journal, journal_fsync="always",
+                               **store_kw, **knobs)
+        tiers.append(router)
+        store = router.kv_store
+        segments = list(store.attach_spec()["segments"])
+        if not store.use_shm or _store_segments_exist(segments) != segments:
+            raise AssertionError(f"phase 46 (c): the store's segments "
+                                 f"{segments} are not under /dev/shm")
+        pre, dec = (rep.engine for rep in router._replicas)
+        moved = {"page_bytes": 0, "frame_bytes": 0, "export_s": 0.0,
+                 "import_s": 0.0}
+        extract, imp = pre.extract_handoff, dec.import_handoff
+
+        def extract_handoff(rid):
+            t = time.perf_counter()
+            state, payload = extract(rid)
+            moved["export_s"] += time.perf_counter() - t
+            if payload is not None:
+                moved["page_bytes"] += sum(
+                    int(a.nbytes) for layer in payload.get("layers", ())
+                    for a in layer)
+                header, frames = wire.handoff_to_wire(payload)
+                moved["frame_bytes"] += len(json.dumps(header)) + sum(
+                    int(f.nbytes) for f in frames)
+            return state, payload
+
+        def import_handoff(state, payload):
+            t = time.perf_counter()
+            try:
+                return imp(state, payload)
+            finally:
+                moved["import_s"] += time.perf_counter() - t
+        pre.extract_handoff, dec.import_handoff = extract_handoff, \
+            import_handoff
+        last_pre, first_dec = {}, {}
+        deliver = router._deliver
+
+        def timed_deliver(rep, epoch, events):
+            now = time.perf_counter()
+            for ev in events:
+                if rep.role == "prefill":
+                    last_pre[ev.request_id] = now
+                else:
+                    first_dec.setdefault(ev.request_id, now)
+            return deliver(rep, epoch, events)
+        router._deliver = timed_deliver
+        clock = StepClock()
+        clock.watch(router)
+        arm = [(f"c{rid[1:]}", p, sp) for rid, p, sp in reqs]
+        names = {r for r, _, _ in arm}
+        t = time.perf_counter()
+        got = serve_tier(router, arm, "phase 46 (c)")
+        wall = time.perf_counter() - t
+        _gate_streams("phase 46 (c) processes over the store vs the single "
+                      "engine", None, [p for _, p, _ in arm],
+                      [got[r] for r, _, _ in arm],
+                      [ref[r] for r, _, _ in reqs])
+        numbers = _proc_gate(router, "phase 46 (c)", counts_dir, before)
+        rm = router.metrics.snapshot()
+        eng = router.metrics_snapshot()["engines"]
+        checked, landed = _handoff_crcs(counts_dir, names)
+        n = len(arm)
+        if not (eng["handoffs_out"] == eng["handoffs_in"] == rm["handoffs"]
+                == landed == n and eng["handoff_recompute_fallbacks"] == 0
+                and rm["handoff_fallbacks"] == 0
+                and eng["handoff_bytes_out"] == 0
+                and moved["page_bytes"] == 0
+                and checked == eng["handoff_pages_in"] > 0):
+            raise AssertionError(
+                f"phase 46 (c): handoffs {rm['handoffs']}, landed {landed}, "
+                f"recomputed {eng['handoff_recompute_fallbacks']}, fallbacks "
+                f"{rm['handoff_fallbacks']}, page bytes {moved['page_bytes']}"
+                f", pages checked {checked} of {eng['handoff_pages_in']}")
+        if any(o.replicas[:2] != [0, 1] for o in router.outputs().values()):
+            raise AssertionError("phase 46 (c): a request did not enter on "
+                                 "the prefill child and end on the decode "
+                                 "child")
+        gaps = sorted(first_dec[r] - last_pre[r] for r in names
+                      if r in first_dec and r in last_pre)
+        rates = store_rates(r.get("store", {}) for r in
+                            _child_records(counts_dir).values())
+        numbers.update(
+            wall_s=wall, handoffs=rm["handoffs"], pages_checked=checked,
+            handoff_page_bytes=moved["page_bytes"],
+            handoff_frame_bytes=moved["frame_bytes"],
+            export_s=moved["export_s"], import_s=moved["import_s"],
+            prefill_to_decode_token_s={"median": statistics.median(gaps),
+                                       "max": gaps[-1], "n": len(gaps)},
+            store_hit_pages=eng["store_hit_pages"],
+            store_dedup_pages=eng["store_dedup_pages"],
+            store=store.stats(), **rates)
+        heartbeat = max(5.0, 3.0 * clock.longest)
+        command_s = max(60.0, 4.0 * heartbeat)
+        router.supervisor.heartbeat_timeout_s = heartbeat
+        router._launcher.command_timeout_s = command_s
+        for rep in router._replicas:
+            rep.engine.command_timeout_s = command_s
+        numbers.update(longest_step_s=clock.longest, heartbeat_s=heartbeat,
+                       command_timeout_s=command_s)
+        out["processes_split"] = numbers
+        log(f"phase 46 (c) processes over the shm store: "
+            f"{json.dumps(numbers)}")
+        log(f"phase 46 (c): the handoff frames carried "
+            f"{moved['frame_bytes']} bytes for {rm['handoffs']:.0f} handoffs "
+            f"(phase 45: 1.93 GB of pages over the wire); store RPCs per "
+            f"handoff {rates['store_rpcs_per_handoff']:.1f}; spill "
+            f"{rates['spill_GBps']} GB/s, page-in {rates['pagein_GBps']} "
+            "GB/s (host clock, pageable shared memory)")
+        lap("phase 46 (c) processes, slot-reference split")
+
+        # (d) SIGKILL of the decode child while it holds store refs
+        before = _child_launches(counts_dir)
+        reap = {}
+        orig_reap = router._reap_store_owner
+
+        def checked_reap(rep):
+            # the reap and the index around it under the store's lock:
+            # no other op interleaves
+            with store._lock:
+                idx = dict(store._prefix)
+                freed = orig_reap(rep)
+                kept = all(store._prefix.get(h) == s
+                           and s not in store._free for h, s in idx.items())
+                reap.setdefault("reaps", []).append(
+                    {"owner": rep.store_owner, "freed": freed,
+                     "index_entries": len(idx), "index_kept": kept,
+                     "owner_left": sum(rep.store_owner in o for o in
+                                       store._owners.values())})
+            return freed
+        router._reap_store_owner = checked_reap
+        victim = {}
+
+        def kill_holding_refs():
+            rep = router._replicas[1]
+            key, proc = rep.engine.key, rep.engine.proc
+            deadline = time.perf_counter() + 300
+            while time.perf_counter() < deadline:
+                if any(key in o for o in store.owners_snapshot().values()):
+                    os.kill(proc.pid, signal.SIGSTOP)
+                    held = sum(o.get(key, 0) for o in
+                               store.owners_snapshot().values())
+                    if held:
+                        victim.update(key=key, refs=held, pid=proc.pid)
+                        os.kill(proc.pid, signal.SIGKILL)
+                        return
+                    os.kill(proc.pid, signal.SIGCONT)
+                time.sleep(0.001)
+            raise AssertionError("phase 46 (d): the decode child never held "
+                                 "a store ref")
+        arm = [(f"k{rid[1:]}", p, sp) for rid, p, sp in reqs]
+        kgot = serve_tier(router, arm, "phase 46 (d)",
+                          during=kill_holding_refs)
+        _gate_streams("phase 46 (d) after the SIGKILL vs the single engine",
+                      None, [p for _, p, _ in arm],
+                      [kgot[r] for r, _, _ in arm],
+                      [ref[r] for r, _, _ in reqs])
+        numbers = _proc_gate(router, "phase 46 (d)", counts_dir, before,
+                             crashes=1, restarts=1)
+        mine_reaps = [r for r in reap.get("reaps", ())
+                      if r["owner"] == victim["key"]]
+        audit_store(store, {rep.store_owner for rep in router._replicas})
+        if (len(mine_reaps) != 1 or not mine_reaps[0]["index_kept"]
+                or mine_reaps[0]["owner_left"]
+                or any(victim["key"] in o
+                       for o in store.owners_snapshot().values())
+                or store.free_count + store.used_count != pages
+                or _store_segments_exist(segments) != segments):
+            raise AssertionError(f"phase 46 (d): reaps {reap}, victim "
+                                 f"{victim}, segments "
+                                 f"{_store_segments_exist(segments)}")
+        numbers.update(victim=victim, reap=mine_reaps[0],
+                       store=store.stats())
+        out["processes_sigkill"] = numbers
+        log(f"phase 46 (d) SIGKILL of the decode child holding store refs: "
+            f"{json.dumps(numbers)}")
+        lap("phase 46 (d) processes, SIGKILL")
+
+        # (e) the router lost halfway; recover reattaches the segments and
+        # revives the journaled index, minus an entry corrupted here
+        arm = [(f"j{rid[1:]}", p, sp) for rid, p, sp in reqs]
+        half = (router.metrics.tokens_delivered.value
+                + sum(sp.max_tokens for _, _, sp in arm) // 2)
+        submit_waves(router, arm)
+        deadline = time.perf_counter() + 300
+        while (router.metrics.tokens_delivered.value < half
+               and time.perf_counter() < deadline):
+            time.sleep(0.002)
+        for rep in router._replicas:
+            rep.fenced = True
+            rep.stop = True
+            rep.wake.set()
+        router.supervisor.stop()
+        for rep in router._replicas:
+            rep.thread.join(60)
+        router._journal.close()
+        router._store_server.close()
+        for rep in router._replicas:
+            rep.engine.kill()
+        unfinished = sum(not router._reqs[r].done for r, _, _ in arm)
+        state, _ = RouterJournal.replay(journal)
+        entries = [e for e in (state.get("store_idx") or {}).get(
+            "prefix", ()) if store.content_hash(e[1]) == e[3]]
+        if not entries or not unfinished:
+            raise AssertionError(f"phase 46 (e): {len(entries)} journaled "
+                                 f"index entries, {unfinished} requests "
+                                 "unfinished at the crash")
+        vh, vs = entries[0][0], entries[0][1]
+        store.bufs[0][0][vs] += 1.0            # the segment's bytes
+        tiers.remove(router)
+        store.close(unlink=False)              # the dead router's mapping
+        del router, store, pre, dec, rep
+        restored = []
+        orig_restore = SharedKVStore.restore_index
+
+        def restore_index(st, idx_state):
+            n = orig_restore(st, idx_state)
+            restored.append((n, st.has_prefix(vh),
+                             list(st._segment_names)))
+            return n
+        SharedKVStore.restore_index = restore_index
+        before = _child_launches(counts_dir)
+        try:
+            t = time.perf_counter()
+            r2 = ServingRouter.recover(
+                spec, journal, replicas=2, backend="process",
+                journal_fsync="always", **store_kw,
+                **dict(knobs, heartbeat_timeout_s=heartbeat,
+                       command_timeout_s=command_s))
+        finally:
+            SharedKVStore.restore_index = orig_restore
+        tiers.append(r2)
+        recover_s = time.perf_counter() - t
+        if restored != [(len(entries) - 1, False, segments)]:
+            raise AssertionError(
+                f"phase 46 (e): restore_index {restored[:1]}, expected "
+                f"{len(entries) - 1} of {len(entries)} entries revived over "
+                f"the segments {segments}, the corrupted one dropped")
+        outs = r2.drain(timeout_s=600.0)
+        names = [r for r, _, _ in arm]
+        if any(outs[r].finish_reason != "length" for r in names):
+            raise AssertionError("phase 46 (e): a recovered request was lost "
+                                 "or did not finish")
+        _gate_streams("phase 46 (e) recovered tier vs the single engine",
+                      None, [p for _, p, _ in arm],
+                      [outs[r].output_tokens for r in names],
+                      [ref[r] for r, _, _ in reqs])
+        numbers = _proc_gate(r2, "phase 46 (e)", counts_dir, before,
+                             recovered=True)
+        if r2.kv_store.has_prefix(vh) and r2.kv_store._prefix[vh] == vs \
+                and r2.kv_store.slot_hash(vs) != r2.kv_store.content_hash(vs):
+            raise AssertionError("phase 46 (e): the corrupted slot serves")
+        numbers.update(journaled_entries=len(entries),
+                       revived_entries=restored[0][0], recover_s=recover_s,
+                       unfinished_at_crash=unfinished,
+                       recovered_requests=r2.metrics.snapshot()[
+                           "recovered_requests"], store=r2.kv_store.stats())
+        _release_check(r2, "phase 46 (e)")
+        out["processes_recovered"] = numbers
+        log(f"phase 46 (e) router loss and recover: {json.dumps(numbers)}")
+        r2.shutdown()
+        tiers.remove(r2)
+        del r2
+        lap("phase 46 (e) processes, router loss")
+    finally:
+        for tier in tiers:
+            tier.shutdown()
+        spawns.close()
+        rcs = spawns.reap_check()
+        records = _child_records(counts_dir)
+        shutil.rmtree(tmp, ignore_errors=True)
+        SharedKVStore.unlink_spec({"segments": segments})
+    # (f) the teardown: no segment of the phase's, /dev/shm's space back,
+    # every child reaped, the card's memory back: no tensor of the phase
+    # left, and the free memory within 1 GiB (the CUDA context's and the
+    # libraries' workspaces for the streams and kernels the phase used
+    # first; a child holds 9.2 GiB)
+    left = _store_segments_exist(segments)
+    shm_after = _shm_usage()
+    _free_the_card()
+    alloc_after = torch.cuda.memory_allocated()
+    free_after, _ = _await_free("at the end", mem_before - 1.0,
+                                phase="phase 46")
+    if (left or shm_after["free"] < shm_before["free"] - page_bytes
+            or alloc_after > alloc_before):
+        raise AssertionError(f"phase 46 (f): segments left {left}, /dev/shm "
+                             f"free {shm_after['free']} after, "
+                             f"{shm_before['free']} before; allocated "
+                             f"{alloc_after} bytes after, {alloc_before} "
+                             "before")
+    per_child = {pid: ({n: c[0] for n, c in r["counts"].items() if c[0]},
+                       sum(c[1] for c in r["counts"].values()))
+                 for pid, r in records.items()}
+    path = set(_path_kernels("fp32"))
+    for pid, (k, plain) in per_child.items():
+        if plain or set(k) != path:
+            raise AssertionError(f"phase 46: child {pid} launched {k}, "
+                                 f"plain {plain}; the path is {path}")
+    out.update(shm_after=shm_after, segments=segments, children=len(rcs),
+               children_rcs=rcs, mem_free_GiB={"before": mem_before,
+                                               "after": free_after},
+               allocated_bytes={"before": alloc_before,
+                                "after": alloc_after},
+               per_child_launches={p: k for p, (k, _) in per_child.items()},
+               seconds=time.perf_counter() - t0)
+    log(f"phase 46: /dev/shm {json.dumps(shm_after)} bytes after "
+        f"({json.dumps(shm_before)} before); {len(rcs)} children spawned, "
+        f"every one reaped (exit codes {rcs}); no segment left of "
+        f"{segments}; mem_get_info free {mem_before:.2f} GiB before, "
+        f"{free_after:.2f} after; {out['seconds']:.1f} s")
+    lap("phase 46")
+    return out
+
+
 def _free_the_card() -> float:
     """Collect what the freed phases left; returns GiB still allocated."""
     gc.collect()
@@ -7322,24 +8001,28 @@ def main() -> int:
     _free_the_card()
     lap("phase 41")
     log(f"phases 40-41: {time.perf_counter() - t_new:.1f} s")
-    # phases 42-44: the serving tier over phase 40's LLaMA-2-7B (fp32, its
-    # weights shared by every replica), the int8 split arm at 8 of 32
-    # layers
+    # phases 42-44: the serving tier over phase 40's int8 arm's model, 8 of
+    # LLaMA-2-7B's 32 layers (fp32, its weights shared by every replica):
+    # phase 46 took the smoke's time, and the tier's gates (streams,
+    # failures, memory, handoff bytes) need no depth
     t_new = time.perf_counter()
-    stier, stier_ref, stier_reqs, stier_runner = tier_phase(model, cfg)
-    stier["disagg"] = disagg_phase(model, cfg, q_model, q_cfg, stier_ref,
-                                   stier_reqs, stier_runner)
-    del q_model
+    del model
     _free_the_card()
-    stier["durability"] = durability_phase(model, cfg, stier_ref,
+    stier, stier_ref, stier_reqs, stier_runner = tier_phase(q_model, q_cfg)
+    stier["disagg"] = disagg_phase(q_model, q_cfg, stier_reqs)
+    stier["durability"] = durability_phase(q_model, q_cfg, stier_ref,
                                            stier_reqs, stier_runner)
-    del model, stier_runner
+    del q_model, stier_runner
     _free_the_card()
     log(f"phases 42-44: {time.perf_counter() - t_new:.1f} s")
     # phase 45: the tier over replica processes at 8 of 32 layers, phase
     # 42's traffic; the card holds no model of this process meanwhile
     ptier = process_tier_phase(cfg, stier_reqs)
     lap("phase 45")
+    # phase 46: the host-wide KV store at 8 of 32 layers, phase 42's
+    # traffic and second turns: thread replicas, then replica processes
+    # over shared memory
+    store_tier = store_tier_phase(cfg, stier_reqs)
     small = Llama(replace(cfg, num_layers=2), device="cuda", seed=2)
     for kind in ("int8", "fp8"):
         quant_model_check(small, LlamaRunner, kind, {
@@ -7683,6 +8366,11 @@ def main() -> int:
             n = ptier[arm]["launches"].get(row["name"])
             if n:
                 row.setdefault("proc_tier_launches", {})[arm] = n
+        for arm in ("threads_restart", "threads_split", "processes_split",
+                    "processes_sigkill", "processes_recovered"):
+            n = store_tier[arm]["launches"].get(row["name"])
+            if n:
+                row.setdefault("store_tier_launches", {})[arm] = n
         if any(row["name"] in by for by in spec16.values()):
             row["spec_fp16_launches"] = {arm: by[row["name"]] for arm, by
                                          in spec16.items()

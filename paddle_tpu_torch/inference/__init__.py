@@ -106,6 +106,9 @@ def create_serving_router(model, *, replicas: int = 2, dtype=None,
     goes to ServingRouter, and through it to each replica's
     ServingEngine; ``num_blocks`` defaults to 128. ``mesh`` and
     ``meshes`` (replicas on sub-meshes) raise naming ROADMAP.md item 10.
+    ``shared_kv_pages`` (and ``shared_kv_shm``) put every replica's host
+    tier over one host-wide SharedKVStore, as on the JAX bridge; the
+    store's layout is the template runner's pool geometry.
 
     The factory gives each replica, and each restart, a fresh runner over
     ONE set of weights: the model's tensors are moved to ``device`` (if

@@ -19,7 +19,9 @@ its `Supervisor`, the write-ahead `RouterJournal`, `ReplicaCrashError`,
 `aggregate_snapshots` and `audit_router`; for the process backend the
 `ReplicaLauncher` and its `EngineClient` proxy, `ReplicaGoneError`, the
 wire's `WireCorruptionError` / `WireTimeoutError` and the
-`WireFaultInjector`.
+`WireFaultInjector`; and the host-wide KV store under the tiers
+(`SharedKVStore`, served to replica processes by `StoreServer` and reached
+through `SharedKVStoreClient`) with its auditor `audit_store`.
 """
 
 from paddle_tpu_torch.serving.detokenize import (
@@ -31,7 +33,8 @@ from paddle_tpu_torch.serving.engine import (
 )
 from paddle_tpu_torch.serving.kv_cache import (
     SCRATCH_PAGE, BlockAllocator, HostKVTier, KVCachePool, OffloadRecord,
-    PrefixCache, SequenceKV, page_content_hash, quantized_page_write,
+    PrefixCache, SequenceKV, SharedKVStore, page_content_hash,
+    quantized_page_write,
 )
 from paddle_tpu_torch.serving.journal import RouterJournal
 from paddle_tpu_torch.serving.launch import EngineClient, ReplicaLauncher
@@ -45,7 +48,7 @@ from paddle_tpu_torch.serving.model_runner import (
 from paddle_tpu_torch.serving.resilience import (
     FaultInjector, InjectedDeviceError, InvariantViolation, QueueFullError,
     ReplicaCrashError, ReplicaGoneError, WireFaultInjector, audit_engine,
-    audit_router,
+    audit_router, audit_store,
 )
 from paddle_tpu_torch.serving.router import (
     EngineReplica, RouterMetrics, RouterOutput, ServingRouter,
@@ -55,6 +58,9 @@ from paddle_tpu_torch.serving.scheduler import (
 )
 from paddle_tpu_torch.serving.speculate import (
     AdaptiveK, DraftModelProposer, NgramProposer, shadow_runner,
+)
+from paddle_tpu_torch.serving.store_service import (
+    SharedKVStoreClient, StoreServer,
 )
 from paddle_tpu_torch.serving.supervisor import Supervisor
 from paddle_tpu_torch.serving.wire import (
@@ -72,10 +78,11 @@ __all__ = [
     "ReplicaLauncher", "Request",
     "RequestOutput", "RequestState", "RouterJournal", "RouterMetrics",
     "RouterOutput", "SamplingParams", "SequenceKV", "ServingEngine",
-    "ServingRouter", "StreamDetokenizer", "Supervisor", "TokenEvent",
+    "ServingRouter", "SharedKVStore", "SharedKVStoreClient",
+    "StoreServer", "StreamDetokenizer", "Supervisor", "TokenEvent",
     "TokenizerAdapter", "WireCorruptionError", "WireFaultInjector",
     "WireTimeoutError", "aggregate_snapshots", "audit_engine",
-    "audit_router", "bucket_len",
+    "audit_router", "audit_store", "bucket_len",
     "complete_utf8_prefix", "create_engine", "greedy_grid",
     "naive_generate", "page_content_hash",
     "paged_attend", "quantized_page_write", "runner_for", "sample_token",

@@ -110,10 +110,13 @@ arrays with CRC content hashes) and a sibling's `import_handoff` writes
 them into its own tier, re-verifying each hash, and injects the request,
 whose admission then pages them in through the tier's side-stream copy
 and fence. `stage_migration` stages one running request on demand (a
-drain), and `extract_request` takes a waiting one out. The JAX engine's
-host-wide store knobs (``kv_store``, ``kv_store_owner``) belong to the
-host-wide KV store: a value other than the default raises
-NotImplementedError naming ROADMAP item 11 (part B2).
+drain), and `extract_request` takes a waiting one out. With ``kv_store``
+(a host-wide `kv_cache.SharedKVStore`, or a replica child's
+`store_service.SharedKVStoreClient`) the host tier is a facade over the
+store under this engine's ``kv_store_owner`` tag, and a handoff carries
+slot references (ids, generations and CRCs) instead of page bytes: the
+sender moves its refs to a transfer tag, the receiver adopts them after
+checking each generation and CRC.
 
 Where the port departs from the JAX engine: the pools are written in
 place, so an in-flight launch carries no snapshot of the pools it read
@@ -155,26 +158,6 @@ from paddle_tpu_torch.serving.speculate import (
 logger = logging.getLogger(__name__)
 
 _ITEM = "ROADMAP.md 'Still to port' item "
-
-# the JAX engine's knobs this port does not carry yet: name -> (the
-# default that keeps the feature off, the ROADMAP item that ports it)
-UNPORTED_KNOBS = {
-    "kv_store": (None, _ITEM + "11 (part B2: the host-wide KV store)"),
-    "kv_store_owner": (None, _ITEM + "11 (part B2: the host-wide KV store)"),
-}
-
-
-def refuse_unported(knobs: Dict[str, object]) -> None:
-    """Raise for any JAX engine knob this port does not carry, unless it
-    holds its default; unknown names raise TypeError like any keyword."""
-    for name, value in knobs.items():
-        if name not in UNPORTED_KNOBS:
-            raise TypeError(f"unexpected engine knob {name!r}")
-        default, item = UNPORTED_KNOBS[name]
-        if value != default:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet: {item}")
-
 
 @dataclass
 class TokenEvent:
@@ -381,6 +364,8 @@ class ServingEngine:
                  horizon_early_stop: bool = False,
                  spill_async: bool = False,
                  role: str = "mixed",
+                 kv_store=None,
+                 kv_store_owner: Optional[str] = None,
                  num_speculative_tokens: int = 0,
                  spec_max_ngram: int = 3,
                  spec_min_ngram: int = 1,
@@ -390,9 +375,7 @@ class ServingEngine:
                  spec_ngram_window: Optional[int] = None,
                  tokenizer=None,
                  sleep_fn: Optional[Callable[[float], None]] = None,
-                 audit: Optional[bool] = None,
-                 **unported):
-        refuse_unported(unported)
+                 audit: Optional[bool] = None):
         self.runner = runner
         block_size = block_size or runner.block_size
         if block_size != runner.block_size:
@@ -525,8 +508,18 @@ class ServingEngine:
         self.metrics.weight_bytes_reduction_x.set(
             float(runner.weight_bytes_reduction_x()))
         # the host tier, built after the metrics it mirrors its spill and
-        # drop accounting into
-        if self.host_tier_pages:
+        # drop accounting into; with a kv_store, a facade over the
+        # host-wide store (its capacity, refs under this engine's owner)
+        self.kv_store = kv_store
+        self.kv_store_owner = (str(kv_store_owner) if kv_store_owner
+                               else f"eng-{id(self):x}")
+        if kv_store is not None:
+            self.pool.enable_host_tier(kv_store.max_pages,
+                                       metrics=self.metrics,
+                                       async_spill=self.spill_async,
+                                       store=kv_store,
+                                       owner=self.kv_store_owner)
+        elif self.host_tier_pages:
             self.pool.enable_host_tier(self.host_tier_pages,
                                        metrics=self.metrics,
                                        async_spill=self.spill_async)
@@ -2022,7 +2015,10 @@ class ServingEngine:
         arrays (numpy; scale rows included on int8 pools) and each slot's
         CRC content hash. payload is None when no pages rode along (no
         tier, or a full one); the receiver then recomputes. The host slots
-        are freed here: the payload owns the bytes now."""
+        are freed here: the payload owns the bytes now. Over a host-wide
+        store the payload is slot references instead ("slot_refs",
+        "gens", "hashes", "xfer_owner"): this engine's refs move to the
+        transfer tag "xfer:<request id>" and no page byte is copied."""
         if request_id not in self._handoffs:
             raise KeyError(f"request {request_id!r} is not staged for "
                            "handoff")
@@ -2031,7 +2027,19 @@ class ServingEngine:
         state = self._request_state(req)
         payload = None
         tier = self.pool.host_tier
-        if rec is not None and tier is not None:
+        if rec is not None and tier is not None and tier.store is not None:
+            xfer = f"xfer:{request_id}"
+            hashes = [tier.slot_hash(s) for s in rec.slots]
+            tier.retag_out(rec.slots, xfer)
+            payload = {
+                "start_page": rec.start_page,
+                "covered_tokens": rec.covered_tokens,
+                "slot_refs": list(rec.slots),
+                "gens": [tier.generation(s) for s in rec.slots],
+                "hashes": hashes,
+                "xfer_owner": xfer,
+            }
+        elif rec is not None and tier is not None:
             payload = {
                 "start_page": rec.start_page,
                 "covered_tokens": rec.covered_tokens,
@@ -2055,17 +2063,28 @@ class ServingEngine:
         compute), so the continued stream is token-exact, int8 codes
         included: the pages are copies, not recompute. A payload that
         cannot land (no tier here, or a full one) resumes by recompute,
-        counted. A slot-reference payload (the host-wide store's) raises
-        naming ROADMAP.md item 11 part B2."""
+        counted. A slot-reference payload is adopted from the host-wide
+        store this engine shares with the sender (a stale generation
+        recomputes, a CRC mismatch raises); an engine without a store
+        raises ValueError for one."""
         rec = None
         tier = self.pool.host_tier
-        if payload is not None and payload.get("slot_refs") is not None:
-            raise NotImplementedError(
-                "import_handoff: a slot-reference handoff needs the "
-                "host-wide KV store, not ported yet: " + _ITEM
-                + "11 (part B2)")
+        refs = payload is not None and payload.get("slot_refs") is not None
+        if refs and (tier is None or tier.store is None):
+            # loud, not a silent recompute: the sender moved its refs to a
+            # transfer tag, which the router's fallback reaps
+            raise ValueError(
+                "received a slot-reference handoff but this engine has no "
+                "shared KV store: sender and receiver must share one host "
+                "store")
         if payload is not None and tier is not None:
-            slots = tier.import_slots(payload["layers"], payload["hashes"])
+            if refs:
+                slots = tier.adopt_slots(
+                    payload["slot_refs"], payload["gens"],
+                    payload["hashes"], payload["xfer_owner"])
+            else:
+                slots = tier.import_slots(payload["layers"],
+                                          payload["hashes"])
             if slots is not None:
                 rec = OffloadRecord(
                     start_page=int(payload["start_page"]),
@@ -2203,8 +2222,8 @@ class ServingEngine:
         in-flight request re-enters the queue with its prompt AND partial
         generation, and admission re-prefills its whole context, so the
         continued stream equals an uninterrupted run's. ``kv_store`` and
-        ``kv_store_owner`` take their defaults only (ROADMAP.md item
-        11 part B2)."""
+        ``kv_store_owner`` attach the restored engine's host tier to a
+        host-wide store, as the constructor's do."""
         if state.get("version") != 1:
             raise ValueError(f"unknown snapshot version {state.get('version')}")
         cfg = state["config"]

@@ -90,9 +90,8 @@ def _apply(state: dict, rec: dict) -> None:
     elif t == "snap":
         state["snaps"][int(rec["rep"])] = rec["snapshot"]
     elif t == "store":
-        # the host-wide store's segment map (written by the JAX router
-        # with a shared store, ROADMAP.md item 11 part B2): carried through
-        # replay unread
+        # the host-wide store's segment map: recover() reattaches (or
+        # unlinks) the segments it names
         state["store"] = rec.get("spec")
     elif t == "store_idx":
         state["store_idx"] = rec.get("state")

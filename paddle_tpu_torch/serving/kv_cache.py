@@ -43,9 +43,14 @@ by preemption spills and by `PrefixCache` eviction through
 ordered against the compute stream by events (`HostKVTier`). The
 prefill / decode handoff of the serving tier moves a request's slots
 between two engines' tiers as numpy arrays (`HostKVTier.export_slots`,
-`import_slots`, CRC-checked at receive). The host-wide page store of the
-JAX package (``store=``, ``spill_pages(publish=)``) belongs to the
-host-wide KV store (ROADMAP.md item 11 part B2); mesh-sharded pools are item 10.
+`import_slots`, CRC-checked at receive).
+
+The host-wide KV store (`SharedKVStore`): one content-addressed page store
+per host under every replica's tier (``enable_host_tier(store=,
+owner=)``), its bytes in torch host tensors or in shared-memory segments
+that replica processes map, its metadata refcounted by owner and indexed
+by chain hash; a handoff between engines of one host moves slot
+references. Mesh-sharded pools are ROADMAP.md item 10.
 
 A departure: the JAX `chain_seed` folds a tag in with Python's `hash` of a
 tuple holding a string, which changes from one process to the next
@@ -523,6 +528,597 @@ def consecutive_runs(slots: Sequence[int]):
     return out
 
 
+# the dtype names of a store layout (the JAX package's numpy names) and
+# their torch dtypes: a layout maps by name, never through np.dtype, which
+# knows bfloat16 and float8_e4m3fn only where ml_dtypes is imported
+STORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16, "int8": torch.int8,
+                "uint8": torch.uint8, "bool": torch.bool}
+if fp8_supported():
+    STORE_DTYPES["float8_e4m3fn"] = torch.float8_e4m3fn
+
+
+def dtype_name(dt) -> str:
+    """The layout name of a torch dtype or a dtype name ("float32", ...)."""
+    name = dt if isinstance(dt, str) else str(dt).replace("torch.", "")
+    if name not in STORE_DTYPES:
+        raise ValueError(f"no store dtype named {name!r}; expected one of "
+                         f"{sorted(STORE_DTYPES)}")
+    return name
+
+
+def _layout_bytes(shape, name: str) -> int:
+    return (int(np.prod(shape, dtype=np.int64))
+            * STORE_DTYPES[name].itemsize)
+
+
+def _open_shm(name: str, tracked: bool = False):
+    """Attach an existing shared_memory segment. ``tracked=False`` (a
+    replica child) keeps the attaching process's resource tracker out of
+    it: on Python < 3.13 an attach registers the segment, and the tracker
+    unlinks it when that process dies, SIGKILL included, pulling the store
+    out from under the router; only the owning router unlinks.
+    ``tracked=True`` (a recovering router that will own and unlink the
+    segment) keeps the registration, so unlink's unregister balances."""
+    from multiprocessing import shared_memory
+
+    if tracked:
+        return shared_memory.SharedMemory(name=name)
+    try:
+        return shared_memory.SharedMemory(name=name, track=False)
+    except TypeError:                      # python < 3.13
+        seg = shared_memory.SharedMemory(name=name)
+        try:
+            from multiprocessing import resource_tracker
+
+            resource_tracker.unregister(seg._name,  # noqa: SLF001
+                                        "shared_memory")
+        except Exception:                  # pragma: no cover
+            pass
+        return seg
+
+
+def _segment_views(seg, full, name: str) -> torch.Tensor:
+    """A [max_pages, *page_shape] tensor over a segment's bytes. The view
+    owns the mapping from then on: it holds an export of it (through
+    np.frombuffer; torch.frombuffer and np.ndarray(buffer=) let go of
+    theirs), and the segment lets go of it, so the mapping lives exactly
+    as long as a view of it does (never unmapped under one, never closed
+    with a BufferError) and the segment keeps only its name and file."""
+    nbytes = _layout_bytes(full, name)
+    raw = torch.from_numpy(np.frombuffer(seg.buf, np.uint8, count=nbytes))
+    seg._buf = seg._mmap = None            # noqa: SLF001 - the view owns it
+    return raw.view(STORE_DTYPES[name]).view(full)
+
+
+def _close_segments(segments, unlink: bool) -> None:
+    """Close (and unlink) shared-memory segments whose mappings their views
+    own (`_segment_views`): the file is closed and, with ``unlink``,
+    removed; each mapping goes with its last view."""
+    for seg in segments:
+        seg.close()
+        if unlink:
+            try:
+                seg.unlink()
+            except FileNotFoundError:
+                pass
+
+
+class SharedKVStore:
+    """Host-wide content-addressed KV page store: ONE store per host under
+    every engine replica's host tier (`HostKVTier(store=...)`), owned by
+    the router. The page bytes live in torch host tensors (the thread
+    backend: every engine shares the router's address space; pinned when
+    ``pin_memory``) or in `multiprocessing.shared_memory` segments
+    (``use_shm``, the process backend) that replica children map, so page
+    bytes never cross a socket between processes of one host.
+
+    Two reference classes keep a slot alive, audited tier-wide
+    (resilience.audit_store):
+
+      owner refs   per-(slot, owner) counts. An owner is one engine
+                   incarnation (the router's "r0o3", or a child's launcher
+                   key) holding the slot in an OffloadRecord or a pending
+                   page-in, or a transfer tag ("xfer:<rid>") while a
+                   handoff is between two engines. `reap_owner` releases
+                   all a dead replica held.
+      index ref    the content index's single ref per indexed slot:
+                   `index_prefix(chain_hash, slot)` publishes a full page
+                   under its token-chain hash; a second publication of the
+                   chain is a dedup (no copy), and `acquire_prefix` hands
+                   any engine a ref on the one resident copy. LRU eviction
+                   in tick order reclaims index-only slots when the free
+                   list runs dry.
+
+    A slot returns to the free list when both classes are at zero; its
+    generation then bumps, so staged transfers and stale handoff references
+    invalidate themselves. Content hashes are CRC-32 over the slot's bytes
+    (the JAX package's order: equal bytes hash equally in both packages and
+    in every process), re-checked by the auditor's rotating spot check and
+    at every handoff adoption.
+
+    The layout is the JAX package's: per layer, per pool array, (page
+    shape, dtype name), names mapped to torch dtypes by name
+    (`STORE_DTYPES`). Departures from the JAX store: before it creates its
+    segments the store checks the free space of /dev/shm and raises
+    OSError with the bytes needed and the bytes free (a segment larger
+    than the free tmpfs space is created all the same, and the process
+    dies of SIGBUS on its first write); and `close` unlinks even when a
+    view of a mapping is still alive."""
+
+    def __init__(self, layout, max_pages: int, *, use_shm: bool = False,
+                 _attach: Optional[dict] = None, pin_memory: bool = False):
+        if max_pages < 1:
+            raise ValueError("SharedKVStore needs max_pages >= 1")
+        self.layout = [tuple((tuple(int(d) for d in shape), dtype_name(dt))
+                             for shape, dt in layer) for layer in layout]
+        self.max_pages = int(max_pages)
+        self.use_shm = bool(use_shm)
+        self.pin_memory = bool(pin_memory)
+        self._owns_segments = _attach is None
+        # the views first, the segments after them: when the store dies
+        # its views are freed before its segments close
+        segments: List = []
+        self.bufs = self._map_buffers(_attach, segments)
+        self.byte_bufs = [tuple(_bytes(b) for b in layer)
+                          for layer in self.bufs]
+        self._segments = segments
+        self._segment_names = [seg.name for seg in segments]
+        self._lock = threading.RLock()
+        self._free: List[int] = list(range(self.max_pages))
+        # slot -> {owner: count}; an empty or missing dict: no owner refs
+        self._owners: Dict[int, Dict[str, int]] = {}
+        self._indexed: set = set()         # slots the prefix index pins
+        self._hash: Dict[int, Optional[int]] = {}
+        self._gen: Dict[int, int] = {}
+        self._prefix: Dict[int, int] = {}        # chain hash -> slot
+        self._prefix_slot: Dict[int, int] = {}   # slot -> chain hash
+        self._tick = 0
+        self._slot_tick: Dict[int, int] = {}
+        # cumulative tier-wide accounting (stats(), the audit)
+        self.published_pages = 0           # fresh pages indexed
+        self.dedup_pages = 0               # publications skipped: resident
+        self.prefix_hits = 0               # acquire_prefix successes
+        self.evictions = 0                 # LRU index-only reclaims
+        self.reaped_slots = 0              # freed by dead-owner reaping
+        self.dropped_pages = 0             # allocs a full store refused
+
+    # ------------------------------------------------------ construction
+
+    @classmethod
+    def layout_for(cls, num_layers: int, block_size: int, n_kv_heads: int,
+                   head_dim: int, dtype="float32",
+                   kv_dtype: str = "fp32") -> list:
+        """The page layout of a pool geometry: the per-page slices of
+        KVCachePool's layer tuples, as the JAX package lists them."""
+        dt = dtype_name(dtype)
+        page = (block_size, n_kv_heads, head_dim)
+        if kv_dtype == "int8":
+            layer = ((page, "int8"), (page, "int8"),
+                     ((n_kv_heads,), "float32"), ((n_kv_heads,), "float32"))
+        elif kv_dtype == "fp8":
+            layer = ((page, "float8_e4m3fn"), (page, "float8_e4m3fn"))
+        elif kv_dtype == "mixed":
+            # pages in the logical dtype and the page's tag bit
+            layer = ((page, dt), (page, dt), ((), "bool"))
+        else:
+            layer = ((page, dt), (page, dt))
+        return [layer for _ in range(num_layers)]
+
+    @classmethod
+    def for_runner(cls, runner, max_pages: int, *, use_shm: bool = False
+                   ) -> "SharedKVStore":
+        """A store sized for a runner's pool geometry (the thread backend:
+        every replica must share the model geometry, which the tiers
+        check when they attach). A runner on the card gets pinned
+        buffers (without shm)."""
+        device = getattr(runner, "device", None)
+        on_card = getattr(device, "type", device) == "cuda"
+        return cls(cls.layout_for(
+            runner.num_layers, runner.block_size, runner.n_kv_heads,
+            runner.head_dim, runner.dtype,
+            getattr(runner, "kv_dtype", "fp32")), max_pages,
+            use_shm=use_shm, pin_memory=on_card and not use_shm)
+
+    @classmethod
+    def for_geometry(cls, geometry: dict, max_pages: int, *,
+                     use_shm: bool = False) -> "SharedKVStore":
+        """A store of a JSON-able geometry (the process backend, where the
+        router holds no runner): {num_layers, block_size, n_kv_heads,
+        head_dim, dtype?, kv_dtype?}."""
+        return cls(cls.layout_for(
+            int(geometry["num_layers"]), int(geometry["block_size"]),
+            int(geometry["n_kv_heads"]), int(geometry["head_dim"]),
+            geometry.get("dtype", "float32"),
+            geometry.get("kv_dtype", "fp32")), max_pages, use_shm=use_shm)
+
+    def _map_buffers(self, attach: Optional[dict], segments: List):
+        fulls = [[((self.max_pages,) + shape, dt) for shape, dt in layer]
+                 for layer in self.layout]
+        if attach is None and self.use_shm:
+            import shutil
+
+            need = sum(max(1, _layout_bytes(full, dt))
+                       for layer in fulls for full, dt in layer)
+            free = shutil.disk_usage("/dev/shm").free
+            if need > free:
+                raise OSError(
+                    f"SharedKVStore: {self.max_pages} pages need {need} "
+                    f"bytes of /dev/shm, {free} bytes are free")
+        names = iter(attach["segments"]) if attach is not None else None
+        bufs = []
+        for layer in fulls:
+            arrs = []
+            for full, dt in layer:
+                if attach is not None:
+                    # a reattach: this process owns the segments from now
+                    # on (it unlinks them), so tracking stays balanced
+                    seg = _open_shm(next(names), tracked=True)
+                elif self.use_shm:
+                    from multiprocessing import shared_memory
+
+                    seg = shared_memory.SharedMemory(
+                        create=True, size=max(1, _layout_bytes(full, dt)))
+                else:
+                    seg = None
+                if seg is None:
+                    arr = torch.zeros(full, dtype=STORE_DTYPES[dt],
+                                      pin_memory=self.pin_memory)
+                else:
+                    segments.append(seg)
+                    arr = _segment_views(seg, full, dt)
+                    if attach is None:
+                        arr.zero_()        # commit the pages now
+                arrs.append(arr)
+            bufs.append(tuple(arrs))
+        return bufs
+
+    def attach_spec(self) -> Optional[dict]:
+        """What a replica child (or a recovering router) needs to map the
+        same segment bytes: the segment names in layout order and the
+        layout. None without shm."""
+        if not self.use_shm:
+            return None
+        return {"max_pages": self.max_pages,
+                "layout": [[[list(shape), dt] for shape, dt in layer]
+                           for layer in self.layout],
+                "segments": list(self._segment_names)}
+
+    @classmethod
+    def reattach(cls, spec: dict) -> "SharedKVStore":
+        """Map an existing store's segments (router recovery: segments
+        survive a router SIGKILL until unlinked) with EMPTY metadata;
+        restore_index() then revives the journaled entries whose bytes
+        still CRC-verify."""
+        layout = [tuple((tuple(shape), dt) for shape, dt in layer)
+                  for layer in spec["layout"]]
+        store = cls(layout, int(spec["max_pages"]), use_shm=True,
+                    _attach=spec)
+        store._owns_segments = True        # the recovered router owns them
+        return store
+
+    @staticmethod
+    def unlink_spec(spec: Optional[dict]) -> int:
+        """Unlink a dead store's segments (recovery decided not to
+        reattach). Returns the segments unlinked."""
+        if not spec:
+            return 0
+        n = 0
+        for name in spec.get("segments", ()):
+            try:
+                seg = _open_shm(name, tracked=True)
+            except FileNotFoundError:
+                continue
+            _close_segments([seg], unlink=True)
+            n += 1
+        return n
+
+    def close(self, unlink: Optional[bool] = None) -> None:
+        """Drop the buffers and the segment mappings; the creating (or
+        recovered) router also unlinks, so host memory is returned when
+        the tier shuts down."""
+        if unlink is None:
+            unlink = self._owns_segments
+        self.bufs, self.byte_bufs = [], []
+        segments, self._segments = self._segments, []
+        _close_segments(segments, unlink)
+
+    # ------------------------------------------------------- accounting
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_count(self) -> int:
+        return self.max_pages - len(self._free)
+
+    @property
+    def prefix_count(self) -> int:
+        return len(self._prefix)
+
+    def page_bytes(self) -> int:
+        return sum(_layout_bytes(shape, dt)
+                   for layer in self.layout for shape, dt in layer)
+
+    @property
+    def bytes_used(self) -> int:
+        return self.used_count * self.page_bytes()
+
+    def refcount(self, slot: int) -> int:
+        with self._lock:
+            return (sum(self._owners.get(slot, {}).values())
+                    + (1 if slot in self._indexed else 0))
+
+    def owner_count(self, slot: int, owner: str) -> int:
+        with self._lock:
+            return self._owners.get(slot, {}).get(owner, 0)
+
+    def owners_snapshot(self) -> Dict[int, Dict[str, int]]:
+        with self._lock:
+            return {s: dict(o) for s, o in self._owners.items() if o}
+
+    def generation(self, slot: int) -> int:
+        with self._lock:
+            return self._gen.get(slot, 0)
+
+    def slot_hash(self, slot: int) -> Optional[int]:
+        with self._lock:
+            return self._hash.get(slot)
+
+    def set_hash(self, slot: int, h: int) -> None:
+        with self._lock:
+            self._hash[slot] = int(h)
+
+    def stats(self) -> Dict[str, float]:
+        with self._lock:
+            return {
+                "store_max_pages": float(self.max_pages),
+                "store_free": float(len(self._free)),
+                "store_used": float(self.max_pages - len(self._free)),
+                "store_prefix_pages": float(len(self._prefix)),
+                "store_published_pages": float(self.published_pages),
+                "store_dedup_pages": float(self.dedup_pages),
+                "store_prefix_hits": float(self.prefix_hits),
+                "store_evictions": float(self.evictions),
+                "store_reaped_slots": float(self.reaped_slots),
+                "store_dropped_pages": float(self.dropped_pages),
+                "store_bytes_used": float(self.bytes_used),
+            }
+
+    # ------------------------------------------------------- slot refs
+
+    def _touch_locked(self, slot: int) -> None:
+        self._tick += 1
+        self._slot_tick[slot] = self._tick
+
+    def alloc(self, n: int, owner: str) -> List[int]:
+        """Up to n slots at one ``owner`` ref each, lowest id first. A dry
+        free list first evicts LRU index-only slots; what still cannot be
+        funded is dropped and counted, never an error."""
+        with self._lock:
+            if n > len(self._free):
+                self._evict_locked(n - len(self._free))
+            take = min(n, len(self._free))
+            if take < n:
+                self.dropped_pages += n - take
+            slots, self._free = self._free[:take], self._free[take:]
+            for s in slots:
+                self._owners[s] = {owner: 1}
+                self._hash[s] = None
+                self._touch_locked(s)
+            return slots
+
+    def incref(self, slots: Sequence[int], owner: str) -> None:
+        with self._lock:
+            for s in slots:
+                own = self._owners.setdefault(s, {})
+                if not own and s not in self._indexed:
+                    raise ValueError(f"incref of free store slot {s}")
+                own[owner] = own.get(owner, 0) + 1
+
+    def release(self, slots: Sequence[int], owner: str) -> None:
+        """Drop one ``owner`` ref per listed slot; a slot left with no
+        owner ref and no index ref is freed (its generation bumps).
+        Over-release raises: the tier-wide double-free guard."""
+        with self._lock:
+            for s in slots:
+                own = self._owners.get(s)
+                if not own or own.get(owner, 0) <= 0:
+                    raise ValueError(
+                        f"release of store slot {s} not held by "
+                        f"{owner!r}")
+                own[owner] -= 1
+                if own[owner] == 0:
+                    del own[owner]
+                self._maybe_free_locked(s)
+
+    def retag(self, slots: Sequence[int], old_owner: str,
+              new_owner: str) -> None:
+        """Move one ref per slot from ``old_owner`` to ``new_owner`` at
+        once: the slot-reference handoff's transfer of ownership (prefill
+        engine -> "xfer:<rid>" -> decode engine); no byte moves."""
+        with self._lock:
+            for s in slots:
+                own = self._owners.get(s)
+                if not own or own.get(old_owner, 0) <= 0:
+                    raise ValueError(
+                        f"retag of store slot {s}: no ref held by "
+                        f"{old_owner!r}")
+                own[old_owner] -= 1
+                if own[old_owner] == 0:
+                    del own[old_owner]
+                own[new_owner] = own.get(new_owner, 0) + 1
+
+    def _maybe_free_locked(self, s: int) -> bool:
+        if self._owners.get(s) or s in self._indexed:
+            return False
+        self._owners.pop(s, None)
+        self._hash.pop(s, None)
+        self._slot_tick.pop(s, None)
+        self._gen[s] = self._gen.get(s, 0) + 1
+        insort(self._free, s)
+        return True
+
+    def reap_owner(self, owner: str) -> int:
+        """Release every ref a dead owner held (supervisor recovery, drain
+        residue, abandoned transfer tags). Slots a sibling or the index
+        still references survive; the rest are freed. Returns the slots
+        freed."""
+        with self._lock:
+            freed = 0
+            for s in list(self._owners):
+                own = self._owners.get(s)
+                if own and owner in own:
+                    del own[owner]
+                    if self._maybe_free_locked(s):
+                        freed += 1
+            self.reaped_slots += freed
+            return freed
+
+    # ---------------------------------------------------- content index
+
+    def has_prefix(self, h: int) -> bool:
+        with self._lock:
+            return h in self._prefix
+
+    def index_prefix(self, h: int, slot: int) -> bool:
+        """Publish a written slot under its token-chain hash; the index
+        takes its own ref, so the content outlives the publisher. False:
+        the chain is already resident (a dedup; the first publication
+        wins)."""
+        with self._lock:
+            if h in self._prefix:
+                self.dedup_pages += 1
+                return False
+            self._prefix[h] = slot
+            self._prefix_slot[slot] = h
+            self._indexed.add(slot)
+            self.published_pages += 1
+            self._touch_locked(slot)
+            return True
+
+    def acquire_prefix(self, h: int, owner: str) -> Optional[int]:
+        """One ``owner`` ref on the chain's resident slot for a page-in
+        (the chain stays indexed and keeps serving every sibling). None on
+        a miss (the recompute fallback applies)."""
+        with self._lock:
+            slot = self._prefix.get(h)
+            if slot is None:
+                return None
+            own = self._owners.setdefault(slot, {})
+            own[owner] = own.get(owner, 0) + 1
+            self.prefix_hits += 1
+            self._touch_locked(slot)
+            return slot
+
+    def drop_prefix(self, h: int) -> bool:
+        """Remove a chain from the index and drop the index's ref (a
+        recomputed device registration supersedes the store copy
+        tier-wide). Engines holding page-in refs keep the bytes alive
+        until their fences release them."""
+        with self._lock:
+            slot = self._prefix.pop(h, None)
+            if slot is None:
+                return False
+            del self._prefix_slot[slot]
+            self._indexed.discard(slot)
+            self._maybe_free_locked(slot)
+            return True
+
+    def _evict_locked(self, n: int) -> int:
+        """Reclaim up to n index-only slots (no owner refs), least
+        recently used first by the tick."""
+        victims = sorted((s for s in self._indexed
+                          if not self._owners.get(s)),
+                         key=lambda s: self._slot_tick.get(s, 0))[:n]
+        for s in victims:
+            h = self._prefix_slot.pop(s)
+            del self._prefix[h]
+            self._indexed.discard(s)
+            self._maybe_free_locked(s)
+            self.evictions += 1
+        return len(victims)
+
+    # ------------------------------------------------------ byte access
+
+    def read_slot(self, slot: int) -> List[Tuple[torch.Tensor, ...]]:
+        """Copies of one slot's per-layer page arrays."""
+        return [tuple(buf[slot].clone() for buf in layer)
+                for layer in self.bufs]
+
+    def export_slots(self, slots: Sequence[int]
+                     ) -> List[Tuple[np.ndarray, ...]]:
+        """Stacked numpy copies of several slots (export_slots' layout of
+        the tier: a dtype numpy lacks as the integer type of its width)."""
+        idx = torch.as_tensor(list(slots), dtype=torch.long)
+        return [tuple(_to_numpy(buf.index_select(0, idx)) for buf in layer)
+                for layer in self.bufs]
+
+    def content_hash(self, slot: int) -> int:
+        """CRC-32 over the slot's bytes across every layer buffer, in the
+        JAX package's order (HostKVTier records the same)."""
+        h = 0x9E3779B9
+        for layer in self.byte_bufs:
+            for buf in layer:
+                h = zlib.crc32(buf[slot].numpy(), h)
+        return h
+
+    def scrub(self) -> int:
+        """Re-CRC every indexed slot and drop the entries whose bytes no
+        longer match their recorded hash: corrupted content recomputes,
+        never serves. Returns the entries dropped."""
+        with self._lock:
+            entries = list(self._prefix.items())
+        dropped = 0
+        for h, s in entries:
+            rec = self.slot_hash(s)
+            if rec is not None and self.content_hash(s) != rec:
+                if self.drop_prefix(h):
+                    dropped += 1
+        return dropped
+
+    # ------------------------------------------------ journal round trip
+
+    def journal_state(self) -> dict:
+        """The content index as a JSON-able record, journaled beside the
+        replica snapshots so ServingRouter.recover can revive it over
+        segments that survived a router SIGKILL. Only indexed slots ride
+        along: owner refs belong to engines that died with the router."""
+        with self._lock:
+            return {"prefix": [
+                [int(h), int(s), int(self._gen.get(s, 0)),
+                 int(self._hash.get(s) or 0)]
+                for h, s in self._prefix.items()]}
+
+    def restore_index(self, state: Optional[dict]) -> int:
+        """Revive journaled index entries on a reattached store. Each
+        entry is CRC-verified against the bytes of the slot it names
+        first: a slot whose bytes did not survive is skipped, and its
+        content recomputes on demand. Returns the entries restored."""
+        if not state:
+            return 0
+        restored = 0
+        for h, s, g, crc in state.get("prefix", ()):
+            s = int(s)
+            if not 0 <= s < self.max_pages:
+                continue
+            if self.content_hash(s) != int(crc):
+                continue                   # corrupt or stale: recompute
+            with self._lock:
+                if int(h) in self._prefix or s not in self._free:
+                    continue
+                self._free.remove(s)
+                self._prefix[int(h)] = s
+                self._prefix_slot[s] = int(h)
+                self._indexed.add(s)
+                self._hash[s] = int(crc)
+                self._gen[s] = int(g)
+                self._touch_locked(s)
+            restored += 1
+        return restored
+
+
 class HostKVTier:
     """Host-RAM page tier under the device pool, in private-buffer mode.
 
@@ -563,23 +1159,34 @@ class HostKVTier:
     the generation it was spilled at, so a slot freed and reused under a
     pending job never takes the old tenant's hash.
 
-    ``store`` (the JAX package's host-wide SharedKVStore) raises: that
-    mode belongs to the host-wide KV store, ROADMAP.md item 11 part B2."""
+    ``store`` (a `SharedKVStore`, or a replica child's
+    `store_service.SharedKVStoreClient`) makes the tier a facade over the
+    host-wide store, under this engine's ``owner`` tag: its capacity, its
+    slots, their generations and hashes and the prefix index are the
+    store's, and its buffers are the store's (shared-memory views under
+    the process backend). Spills of registered fp32 pages and prefix
+    demotions publish into the store's index (a chain already resident is
+    a dedup: a ref, no copy), a promotion takes a ref on the one resident
+    copy and leaves it indexed, and a handoff moves slot references
+    (`retag_out`, `adopt_slots`) instead of bytes. The stream ordering is
+    the private tier's; in store mode a slot a page-in still reads is
+    released only once its read event has passed, since another engine may
+    spill into it next. Shared-memory mappings are pageable, so a copy
+    between them and the card is synchronous with the host (the side
+    stream still orders it)."""
 
     def __init__(self, pool: "KVCachePool", max_pages: int, metrics=None,
                  async_spill: bool = False, store=None,
                  owner: str = "engine"):
-        if store is not None:
-            raise NotImplementedError(
-                "HostKVTier(store=...): the host-wide SharedKVStore "
-                "is not ported yet: ROADMAP.md 'Still to port' item 11 "
-                "(part B2: the host-wide KV store)")
-        if max_pages < 1:
+        if store is None and max_pages < 1:
             raise ValueError("host tier needs max_pages >= 1 (omit the "
                              "tier entirely to disable offload)")
         self.pool = pool
-        self.store = None
+        self.store = store
         self.owner = str(owner)
+        if store is not None:
+            self._validate_store_layout(pool, store)
+            max_pages = store.max_pages
         self.max_pages = int(max_pages)
         self.metrics = metrics             # optional EngineMetrics mirror
         self.async_spill = bool(async_spill)
@@ -591,29 +1198,71 @@ class HostKVTier:
         self._orphans: List[object] = []
         self._lock = threading.Lock()             # _hash / _gen vs worker
         self.cuda = pool.device.type == "cuda"
-        self._bufs: List[Tuple[torch.Tensor, ...]] = [
-            tuple(self._host_buffer(a) for a in layer)
-            for layer in pool.pools]
-        self._byte_bufs = [tuple(_bytes(b) for b in layer)
-                           for layer in self._bufs]
+        # private buffers (store mode reads the store's through `_bufs`,
+        # so closing the store leaves no tier holding a view of it)
+        self._own_bufs: List[Tuple[torch.Tensor, ...]] = []
+        self._own_byte_bufs: List[Tuple[torch.Tensor, ...]] = []
+        if store is None:
+            self._own_bufs = [tuple(self._host_buffer(a) for a in layer)
+                              for layer in pool.pools]
+            self._own_byte_bufs = [tuple(_bytes(b) for b in layer)
+                                   for layer in self._own_bufs]
         # the side stream of every copy between the pool and the buffers,
         # and each slot's last read (a page-in's host-to-device copy)
         self._stream = (torch.cuda.Stream(pool.device) if self.cuda
                         else None)
         self._read_events: Dict[int, object] = {}
-        self._free: List[int] = list(range(self.max_pages))   # ascending
-        self._hash: Dict[int, Optional[int]] = {}   # slot -> content hash
-        self._gen: Dict[int, int] = {}              # slot -> reuse count
-        self._prefix: Dict[int, int] = {}           # chain hash -> slot
-        self._prefix_slot: Dict[int, int] = {}      # slot -> chain hash
+        # store mode: releases waiting for a page-in's read to end
+        self._deferred: List[Tuple[object, List[int]]] = []
+        if store is None:
+            self._free: List[int] = list(range(self.max_pages))  # asc.
+            self._hash: Dict[int, Optional[int]] = {}   # slot -> hash
+            self._gen: Dict[int, int] = {}              # slot -> reuses
+            self._prefix: Dict[int, int] = {}           # chain -> slot
+            self._prefix_slot: Dict[int, int] = {}      # slot -> chain
+        else:
+            self._free = self._hash = self._gen = None
+            self._prefix = self._prefix_slot = None
         # cumulative accounting (the engine mirrors it into its metrics)
         self.spilled_pages = 0
         self.paged_in_pages = 0
         self.dropped_pages = 0              # spills a full tier refused
         self.resumes = 0                    # page-in resumes served
         self.fallbacks = 0                  # records dropped to recompute
+        self.store_hits = 0                 # pages acquired from the index
+        self.store_dedups = 0               # copies skipped: chain resident
+        self.store_published = 0            # pages this engine indexed
         self.sync_spill_reads = 0           # spills the loop waited for
         self.blocking_joins = 0             # joins that waited on a job
+
+    @staticmethod
+    def _validate_store_layout(pool: "KVCachePool", store) -> None:
+        """A store serves only pools of the exact page geometry it was
+        built for: a replica of another model geometry mapping the same
+        segments would corrupt every sibling. Loud, at attach time."""
+        want = [tuple((tuple(a.shape[1:]), dtype_name(a.dtype))
+                      for a in layer) for layer in pool.pools]
+        have = [tuple((tuple(shape), dtype_name(dt))
+                      for shape, dt in layer) for layer in store.layout]
+        if want != have:
+            raise ValueError(
+                "SharedKVStore layout mismatch: pool pages are "
+                f"{want[0] if want else '?'} x {len(want)} layers but "
+                f"the store was built for "
+                f"{have[0] if have else '?'} x {len(have)} layers: "
+                "every replica sharing a store must run the same model "
+                "geometry and kv_dtype")
+
+    @property
+    def _bufs(self) -> List[Tuple[torch.Tensor, ...]]:
+        """Per layer, the host buffer of each pool array."""
+        return self.store.bufs if self.store is not None else self._own_bufs
+
+    @property
+    def _byte_bufs(self) -> List[Tuple[torch.Tensor, ...]]:
+        """`_bufs` viewed as bytes."""
+        return (self.store.byte_bufs if self.store is not None
+                else self._own_byte_bufs)
 
     def _host_buffer(self, a: torch.Tensor) -> torch.Tensor:
         shape = (self.max_pages,) + tuple(a.shape[1:])
@@ -630,14 +1279,20 @@ class HostKVTier:
 
     @property
     def free_count(self) -> int:
+        if self.store is not None:
+            return self.store.free_count
         return len(self._free)
 
     @property
     def used_count(self) -> int:
+        if self.store is not None:
+            return self.store.used_count
         return len(self._hash)
 
     @property
     def prefix_count(self) -> int:
+        if self.store is not None:
+            return self.store.prefix_count
         return len(self._prefix)
 
     @property
@@ -654,10 +1309,14 @@ class HostKVTier:
         """Reuse generation of a slot, bumped on every free: a staged
         page-in keyed by (slot, generation) never serves a later
         tenant's bytes."""
+        if self.store is not None:
+            return self.store.generation(slot)
         return self._gen.get(slot, 0)
 
     def slot_hash(self, slot: int) -> int:
         self._wait_slot(slot)
+        if self.store is not None:
+            return self.store.slot_hash(slot)
         return self._hash[slot]
 
     def stream(self):
@@ -698,33 +1357,69 @@ class HostKVTier:
             fut.result()
 
     def _reap(self) -> None:
-        """Read the finished jobs of freed slots (a failure raises here)."""
+        """Read the finished jobs of freed slots (a failure raises here),
+        and make the releases whose page-in reads have passed (store
+        mode)."""
         done, running = [], []
         for fut in self._orphans:
             (done if fut.done() else running).append(fut)
         self._orphans = running
         for fut in done:
             fut.result()
+        if self._deferred:
+            later = []
+            for ev, slots in self._deferred:
+                if ev.query():
+                    self.store.release(slots, self.owner)
+                else:
+                    later.append((ev, slots))
+            self._deferred = later
 
     def sync(self) -> None:
-        """Join every pending spill job: the fence the auditor runs before
-        it trusts slot contents and hashes."""
+        """Join every pending spill job (and, in store mode, every read a
+        deferred release waits for): the fence the auditor runs before it
+        trusts slot contents and hashes."""
         pending, self._pending = self._pending, {}
         orphans, self._orphans = self._orphans, []
         for fut in {id(f): f for f in (*pending.values(), *orphans)
                     }.values():
             fut.result()
+        deferred, self._deferred = self._deferred, []
+        for ev, slots in deferred:
+            ev.synchronize()
+            self.store.release(slots, self.owner)
 
     def _spill_job(self, slots: List[int], gens: List[int], gathered,
-                   done) -> None:
+                   done, publish=()) -> None:
         """The bytes' half of a spill: on the CPU the copy from the
         gathered snapshot, on the card a wait on the side stream's copies;
         then each slot's hash, written only while the slot keeps the
-        generation it was spilled at."""
+        generation it was spilled at; then, in store mode, the chain
+        hashes published into the store's index, strictly after the bytes
+        landed, so a sibling never pages in a half-written slot."""
+        if self.store is not None and gens is not None:
+            live = [s for s, g in zip(slots, gens)
+                    if self.store.generation(s) == g]
+            if len(live) < len(slots):
+                # a slot reaped meanwhile (its engine died) is neither
+                # written here nor hashed nor published
+                keep = set(live)
+                gathered = [tuple(a[[j for j, s in enumerate(slots)
+                                     if s in keep]] for a in layer)
+                            for layer in gathered]
+                publish = [(s, h) for s, h in publish if s in keep]
+                slots = live
         if done is None:
             self._copy_runs(slots, gathered)
         else:
             done.synchronize()
+        if self.store is not None:
+            for s in slots:
+                self.store.set_hash(s, self.content_hash(s))
+            for s, h in publish:
+                if self.store.index_prefix(h, s):
+                    self.store_published += 1
+            return
         for s, g in zip(slots, gens):
             h = self.content_hash(s)
             with self._lock:
@@ -754,22 +1449,29 @@ class HostKVTier:
 
     # ------------------------------------------------------------ spill
 
+    def _take_slots(self, n: int) -> List[int]:
+        """Up to n fresh slots (the store's under this engine's owner tag
+        in store mode), lowest id first."""
+        if self.store is not None:
+            return self.store.alloc(n, self.owner)
+        slots = self._free[:n]
+        del self._free[:n]
+        return slots
+
     def spill_pages(self, device_pages: Sequence[int],
                     publish: Sequence[Tuple[int, int]] = ()) -> List[int]:
         """Copy device pages into host slots. Takes as many as fit; the
         overflow is dropped and counted, never an error. Returns the
         slots, aligned with the leading device_pages they hold.
-        ``publish`` (the host-wide store's index) takes its default only
-        (ROADMAP.md item 11 part B2)."""
-        if tuple(publish):
-            raise NotImplementedError(
-                "spill_pages(publish=...): the host-wide store's content "
-                "index is not ported yet: ROADMAP.md 'Still to port' item "
-                "11 (part B2)")
+        ``publish`` (store mode) maps positions in ``device_pages`` to
+        chain hashes to index tier-wide once the bytes land; positions
+        past the fitted prefix are dropped with their pages."""
+        if tuple(publish) and self.store is None:
+            raise ValueError("spill_pages(publish=...) needs a store-backed "
+                             "tier (the private tier keeps its own index)")
         self._reap()
-        n = min(len(device_pages), len(self._free))
-        slots = self._free[:n]
-        del self._free[:n]
+        slots = self._take_slots(len(device_pages))
+        n = len(slots)
         dropped = len(device_pages) - n
         if dropped:
             self.dropped_pages += dropped
@@ -777,13 +1479,20 @@ class HostKVTier:
                 self.metrics.host_tier_drops.inc(dropped)
         if n == 0:
             return []
+        pub = [(slots[i], h) for i, h in publish if i < n]
         gathered = [tuple(_bytes(a) for a in layer)
                     for layer in self.pool.gather_pages(
                         list(device_pages)[:n])]
-        with self._lock:
-            for s in slots:
-                self._hash[s] = None
-        gens = [self.generation(s) for s in slots]
+        if self.store is None:
+            with self._lock:
+                for s in slots:
+                    self._hash[s] = None
+            gens = [self.generation(s) for s in slots]
+        else:
+            # the store guards an async job's writes by generation (a
+            # reaped slot is never written); a sync spill needs no guard
+            gens = ([self.generation(s) for s in slots]
+                    if self.async_spill else None)
         done = None
         if self.cuda:
             compute = torch.cuda.current_stream(self.pool.device)
@@ -801,12 +1510,12 @@ class HostKVTier:
                     t.record_stream(self._stream)
         if self.async_spill:
             fut = self._ensure_executor().submit(self._spill_job, slots,
-                                                 gens, gathered, done)
+                                                 gens, gathered, done, pub)
             for s in slots:
                 self._pending[s] = fut
         else:
             self.sync_spill_reads += 1
-            self._spill_job(slots, gens, gathered, done)
+            self._spill_job(slots, gens, gathered, done, pub)
         self.spilled_pages += n
         if self.metrics is not None:
             self.metrics.offload_spill_pages.inc(n)
@@ -827,7 +1536,16 @@ class HostKVTier:
         ``include_registered`` (the prefill / decode handoff) spills the
         whole range from page 0, shared pages included: the spill only
         reads them, and the record must be self-contained on a sibling
-        whose prefix cache holds none of the sender's pages."""
+        whose prefix cache holds none of the sender's pages.
+
+        Store mode adds content-addressed dedup on fp32 pools: a
+        registered page whose chain is already resident tier-wide
+        contributes a ref on the resident copy instead of a copy, and the
+        registered pages spilled fresh are published once their bytes
+        land. Other pools skip dedup and publication (int8 codes depend
+        on the chunk history, so equal chains need not mean equal bytes:
+        the record carries this sequence's own bytes) but use store
+        slots."""
         bs = self.pool.block_size
         covered = min(int(covered_tokens), kv.num_tokens)
         start = 0 if include_registered else kv.registered_pages
@@ -842,7 +1560,10 @@ class HostKVTier:
             # record's contiguity: declined, counted
             self.note_fallback()
             return None
-        slots = self.spill_pages(cand)
+        if self.store is None or self.pool.kv_dtype != "fp32":
+            slots = self.spill_pages(cand)
+        else:
+            slots = self._spill_dedup(kv, start, cand)
         if not slots:
             return None
         if len(slots) < len(cand):
@@ -850,13 +1571,79 @@ class HostKVTier:
         return OffloadRecord(start_page=start, covered_tokens=covered,
                              slots=slots)
 
+    def _spill_dedup(self, kv: "SequenceKV", start: int,
+                     cand: List[int]) -> List[int]:
+        """Store-mode spill of ``cand`` (pages from index ``start``): refs
+        on resident chains, fresh copies (published if registered) for
+        the rest. A partial fit ends the slots at the first hole, and the
+        refs past it are released, so the record stays contiguous."""
+        slots: List[Optional[int]] = [None] * len(cand)
+        fresh_pages: List[int] = []
+        fresh_pos: List[int] = []
+        publish: List[Tuple[int, int]] = []   # (fresh_pages idx, hash)
+        for j, page in enumerate(cand):
+            idx = start + j
+            h = kv.hash_chain[idx] if idx < kv.registered_pages else None
+            if h is not None:
+                s = self.store.acquire_prefix(h, self.owner)
+                if s is not None:
+                    self._wait_slot(s)     # never reference a half-copy
+                    slots[j] = s
+                    self.store_dedups += 1
+                    if self.metrics is not None:
+                        self.metrics.store_dedup_pages.inc()
+                    continue
+                publish.append((len(fresh_pages), h))
+            fresh_pages.append(page)
+            fresh_pos.append(j)
+        for j, s in zip(fresh_pos, self.spill_pages(fresh_pages,
+                                                    publish=publish)):
+            slots[j] = s
+        k = 0
+        while k < len(slots) and slots[k] is not None:
+            k += 1
+        tail = [s for s in slots[k:] if s is not None]
+        if tail:
+            self.store.release(tail, self.owner)
+        return list(slots[:k])
+
     # -------------------------------------------- prefix demotion (hook)
 
     def on_evict(self, page: int, chain_hash: int, reason: str) -> bool:
         """PrefixCache.evict_hook target: demote a full cached page to the
         host before the device page is reclaimed, on LRU eviction and on
         clear() alike. Returns False when the tier is full (the page
-        dies)."""
+        dies). Store mode publishes tier-wide: a chain already resident is
+        a dedup (no copy), else the page spills into a slot the index
+        alone owns once published."""
+        if self.store is not None:
+            if self.store.has_prefix(chain_hash):
+                self.store_dedups += 1
+                if self.metrics is not None:
+                    self.metrics.store_dedup_pages.inc()
+                return True
+            slots = self.spill_pages([page], publish=[(0, chain_hash)])
+            if not slots:
+                return False
+            s = slots[0]
+            if self.async_spill:
+                # the release is a second job on the same one-thread
+                # executor, so it runs after the copy and publication;
+                # the slot's pending future becomes it, so joiners wait
+                # through both
+                first = self._pending.get(s)
+
+                def _release(s=s, first=first):
+                    if first is not None:
+                        first.result()
+                    try:
+                        self.store.release([s], self.owner)
+                    except ValueError:     # pragma: no cover - reaped
+                        pass
+                self._pending[s] = self._ensure_executor().submit(_release)
+            else:
+                self.store.release([s], self.owner)
+            return True
         if chain_hash in self._prefix:      # pragma: no cover - the index
             return False                    # is hash-unique
         slots = self.spill_pages([page])
@@ -867,19 +1654,38 @@ class HostKVTier:
         return True
 
     def has_prefix(self, h: int) -> bool:
+        if self.store is not None:
+            return self.store.has_prefix(h)
         return h in self._prefix
 
     def promote(self, h: int) -> Optional[int]:
         """Claim a demoted prefix page for re-promotion: the hash leaves
         the host index (device-live XOR host-resident) and the slot stays
-        held until the engine's fence pages it in and frees it."""
+        held until the engine's fence pages it in and frees it. Store
+        mode: the hash stays indexed (the same bytes keep serving every
+        sibling) and this engine takes a ref for its page-in; None when
+        the entry raced away tier-wide (the caller recomputes)."""
+        if self.store is not None:
+            slot = self.store.acquire_prefix(h, self.owner)
+            if slot is not None:
+                self.store_hits += 1
+                if self.metrics is not None:
+                    self.metrics.store_hit_pages.inc()
+            return slot
         slot = self._prefix.pop(h)
         del self._prefix_slot[slot]
         return slot
 
     def drop_stale_prefix(self, h: int, promoted: bool = False) -> None:
         """A recomputed registration of ``h`` supersedes the host copy:
-        its slot is freed (a promoted one already left the index)."""
+        its slot is freed (a promoted one already left the index). Store
+        mode drops the index entry tier-wide unless the registration was
+        paged in from it (``promoted``); siblings' page-ins keep the bytes
+        alive through their own refs."""
+        if self.store is not None:
+            if not promoted and self.store.has_prefix(h):
+                self.store.drop_prefix(h)
+            return
         if self.has_prefix(h):
             self.free_slots([self.promote(h)])
 
@@ -890,9 +1696,9 @@ class HostKVTier:
         """The pages of the n consecutive slots from ``first``: per layer a
         tuple of [n, *page_shape] arrays. On the CPU the slots' pending
         spill jobs are joined and the arrays are copies (a slot may be
-        reused while they are held). On the card they are the pinned
-        slots themselves, for copies on the side stream only (`stream`):
-        those run after the slots' spill copies, so no join is needed, and
+        reused while they are held). On the card they are the slots
+        themselves, for copies on the side stream only (`stream`): those
+        run after the slots' spill copies, so no join is needed, and
         `note_read` marks their end for the slots' next spills."""
         if self.cuda:
             return [tuple(buf[first:first + n] for buf in layer)
@@ -929,18 +1735,25 @@ class HostKVTier:
         written: a mismatch frees the slots and raises ValueError, so a
         corrupted page is never served. Returns None when the tier cannot
         hold the whole payload (the caller recomputes: a partial import
-        could not connect)."""
+        could not connect). Engines of one host sharing a store hand off
+        by slot reference instead (`adopt_slots`)."""
         n = len(hashes)
         if n == 0:
             return []
         self._reap()
-        if n > len(self._free):
+        if self.store is None and n > len(self._free):
+            slots = None
+        else:
+            slots = self._take_slots(n)
+            if len(slots) < n:
+                if slots:
+                    self.store.release(slots, self.owner)
+                slots = None
+        if slots is None:
             self.dropped_pages += n
             if self.metrics is not None:
                 self.metrics.host_tier_drops.inc(n)
             return None
-        slots = self._free[:n]
-        del self._free[:n]
         for s in slots:
             # a page-in may still be reading a reused slot on the side
             # stream: the host write waits for that read to end
@@ -952,12 +1765,15 @@ class HostKVTier:
             for buf, arr in zip(layer_bufs, data):
                 buf.index_copy_(0, idx, _from_numpy(arr, buf.dtype))
         bad = []
-        with self._lock:
-            for j, s in enumerate(slots):
-                h = self.content_hash(s)
-                self._hash[s] = h
-                if h != int(hashes[j]):
-                    bad.append(s)
+        for j, s in enumerate(slots):
+            h = self.content_hash(s)
+            if self.store is not None:
+                self.store.set_hash(s, h)
+            else:
+                with self._lock:
+                    self._hash[s] = h
+            if h != int(hashes[j]):
+                bad.append(s)
         if bad:
             self.free_slots(slots)
             raise ValueError(
@@ -969,10 +1785,66 @@ class HostKVTier:
             self.metrics.offload_spill_pages.inc(n)
         return slots
 
+    # ------------------------------------ slot-reference transfer (store)
+
+    def retag_out(self, slots: Sequence[int], to_owner: str) -> None:
+        """Hand this engine's refs on ``slots`` to a transfer tag (the
+        extract half of a slot-reference handoff): pending spill jobs are
+        joined first, so the reference never names half-written bytes,
+        then the store moves the refs; no byte is touched."""
+        for s in slots:
+            self._wait_slot(s)
+        self.store.retag(list(slots), self.owner, to_owner)
+
+    def adopt_slots(self, slots: Sequence[int], gens: Sequence[int],
+                    hashes: Sequence[int], from_owner: str
+                    ) -> Optional[List[int]]:
+        """Accept a slot-reference handoff: each slot's generation must be
+        current (a stale reference names recycled bytes: None, the
+        recompute fallback) and its CRC must match the bytes in the store
+        (a mismatch raises ValueError, never served); then the refs move
+        from the transfer tag to this engine. No page byte moves."""
+        slots = [int(s) for s in slots]
+        stale = [s for s, g in zip(slots, gens)
+                 if self.store.generation(s) != int(g)]
+        if stale:
+            self.store.release(slots, from_owner)
+            self.note_fallback()
+            return None
+        bad = [s for s, h in zip(slots, hashes)
+               if self.content_hash(s) != int(h)]
+        if bad:
+            self.store.release(slots, from_owner)
+            raise ValueError(
+                f"handoff content-hash mismatch on {len(bad)} of "
+                f"{len(slots)} store slots ({bad}): segment bytes "
+                "corrupted; refusing to serve them")
+        self.store.retag(slots, from_owner, self.owner)
+        return slots
+
     def free_slots(self, slots: Sequence[int]) -> None:
         """Return slots to the tier, bumping each slot's generation (a
         pending worker job of the slot then leaves its hash alone, and a
-        staged page-in keyed by the old generation never resolves)."""
+        staged page-in keyed by the old generation never resolves). Store
+        mode releases this engine's refs (a slot is reclaimed when no
+        sibling, transfer or index ref is left) after joining the slots'
+        spill jobs; a slot a page-in still reads on the side stream is
+        released once that read has passed."""
+        if self.store is not None:
+            self._reap()
+            for s in slots:
+                self._wait_slot(s)
+            now, later = [], {}
+            for s in slots:
+                ev = self._read_events.pop(s, None)
+                if ev is not None and not ev.query():
+                    later.setdefault(id(ev), (ev, []))[1].append(s)
+                else:
+                    now.append(s)
+            if now:
+                self.store.release(now, self.owner)
+            self._deferred.extend(later.values())
+            return
         with self._lock:
             for s in slots:
                 if s not in self._hash:
@@ -1117,7 +1989,10 @@ class KVCachePool:
         exclusively owned pages to host buffers, and prefix-cache eviction
         demotes cached pages through evict_hook instead of dropping them.
         ``async_spill`` moves the wait for a spill's copies onto a worker
-        thread; ``store`` raises (ROADMAP.md item 11 part B2)."""
+        thread. ``store`` backs the tier with a host-wide SharedKVStore
+        under this engine's ``owner`` tag instead of private buffers:
+        spills publish tier-wide, admission matches every replica's
+        demotions, and handoffs move slot references instead of bytes."""
         if self.host_tier is None:
             self.host_tier = HostKVTier(self, max_pages, metrics=metrics,
                                         async_spill=async_spill,

@@ -381,10 +381,11 @@ class EngineClient:
 
     def init(self, spec: dict, engine_kw: dict,
              snapshot: Optional[dict] = None,
-             init_timeout_s: Optional[float] = None) -> None:
+             init_timeout_s: Optional[float] = None,
+             store: Optional[dict] = None) -> None:
         reply, _ = self._call(
             {"cmd": "init", "spec": spec, "engine_kw": engine_kw,
-             "index": self.rank, "snapshot": snapshot},
+             "index": self.rank, "snapshot": snapshot, "store": store},
             timeout=init_timeout_s or max(self.command_timeout_s, 300.0))
         self.pool.block_size = int(reply["block_size"])
         self.max_batch_size = int(reply["max_batch_size"])
@@ -558,6 +559,9 @@ class ReplicaLauncher:
                   as tokenizers or metrics cannot cross a process
                   boundary: a loud TypeError here)
     env          the children's environment (default: this process's)
+    store_spec   the host-wide KV store's attach ({"attach": segment
+                  map, "addr": metadata service}) or None; each child's
+                  init carries it with the child's key as its owner tag
     """
 
     def __init__(self, spec: dict, engine_kw: dict, *,
@@ -565,7 +569,8 @@ class ReplicaLauncher:
                  command_timeout_s: float = 120.0,
                  rpc_fast_timeout_s: float = 30.0,
                  rpc_max_retries: int = 2,
-                 env: Optional[dict] = None):
+                 env: Optional[dict] = None,
+                 store_spec: Optional[dict] = None):
         from torch.distributed import TCPStore
 
         try:
@@ -581,6 +586,9 @@ class ReplicaLauncher:
         self.command_timeout_s = command_timeout_s
         self.rpc_fast_timeout_s = rpc_fast_timeout_s
         self.rpc_max_retries = rpc_max_retries
+        # the host-wide KV store's attach ({"attach", "addr"}); each child
+        # gets it with its launcher key as its owner tag
+        self.store_spec = store_spec
         self.session = f"serving-{uuid.uuid4().hex[:8]}"
         self._env = dict(env if env is not None else os.environ)
         _repo_pythonpath(self._env)
@@ -653,11 +661,17 @@ class ReplicaLauncher:
         kw = dict(engine_kw if engine_kw is not None else self.engine_kw)
         kw["role"] = role
         try:
-            client.init(self.spec, kw, snapshot=snapshot)
+            client.init(self.spec, kw, snapshot=snapshot,
+                        store=self._store_for(key))
         except BaseException:
             client.kill()
             raise
         return client
+
+    def _store_for(self, key: str) -> Optional[dict]:
+        if self.store_spec is None:
+            return None
+        return {**self.store_spec, "owner": key}
 
     def _client(self, proc, sock, rank, key) -> EngineClient:
         return EngineClient(proc, sock, rank, key,
@@ -714,7 +728,8 @@ class ReplicaLauncher:
                 kw["role"] = role
                 client.init(self.spec, kw,
                             snapshot=(snapshots[rank] if snapshots
-                                      else None))
+                                      else None),
+                            store=self._store_for(client.key))
             return clients
         except BaseException:
             for client in clients:

@@ -237,6 +237,11 @@ class EngineMetrics:
         self.handoff_recompute_fallbacks = Counter(
             "handoff_recompute_fallbacks")
         self.handoff_bytes_out = Counter("handoff_bytes_out")
+        # the host-wide KV store: pages this engine paged in from the
+        # store's content index (a sibling's demotion served it), and
+        # copies skipped because the chain was already resident
+        self.store_hit_pages = Counter("store_hit_pages")
+        self.store_dedup_pages = Counter("store_dedup_pages")
         self.decode_steps = Counter("decode_steps")
         self.queue_depth = Gauge("queue_depth")
         self.running = Gauge("running")

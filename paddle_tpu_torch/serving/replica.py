@@ -14,7 +14,9 @@ and accepts exactly one connection: the parent's command channel.
 
 Commands (a JSON header and optional binary page frames, see wire.py):
 init (build the runner through an importable factory, or
-ServingEngine.restore from a snapshot), submit / abort / step / flush /
+ServingEngine.restore from a snapshot; with a ``store`` field, attach the
+router's host-wide KV store: map its shared-memory segments and connect
+to its metadata service, `store_service.SharedKVStoreClient`), submit / abort / step / flush /
 snapshot / inject / extract / handoff_extract / handoff_inject /
 stage_migration / release_prefix_cache / check_no_leaks / metrics / audit
 / requests / ping / shutdown. Every reply carries a `stats` block (queue
@@ -41,10 +43,6 @@ import importlib
 import socket
 import sys
 from typing import Optional
-
-_PART_B2 = ("ROADMAP.md 'Still to port' item 11 (part B2: the host-wide KV "
-            "store)")
-
 
 def resolve_factory(spec: dict):
     """Import `module:callable` (after prepending spec["sys_path"]): how a
@@ -96,6 +94,7 @@ class ReplicaServer:
 
     def __init__(self):
         self.engine = None
+        self._kv_store = None       # the SharedKVStoreClient when attached
         self.steps = 0
         # finished outputs the parent has ACKED: outputs ride every reply
         # until acked in a later command header, so a reply lost to a
@@ -145,10 +144,6 @@ class ReplicaServer:
     def _init(self, header: dict) -> dict:
         from paddle_tpu_torch.serving.engine import ServingEngine
 
-        if header.get("store") is not None:
-            raise NotImplementedError(
-                "a replica attached to the host-wide KV store is not "
-                "ported yet: " + _PART_B2)
         spec = header["spec"]
         factory = resolve_factory(spec)
         try:
@@ -156,11 +151,28 @@ class ReplicaServer:
                              **spec.get("factory_kw", {}))
         except TypeError:           # index-blind factories are fine too
             runner = factory(**spec.get("factory_kw", {}))
+        # the host-wide store's attach: map the router's segments and open
+        # the metadata channel; this engine's host tier is then the store,
+        # under this child's owner tag
+        store_info = header.get("store")
+        kv_store = kv_owner = None
+        if store_info is not None:
+            from paddle_tpu_torch.serving.store_service import (
+                SharedKVStoreClient,
+            )
+
+            kv_store = SharedKVStoreClient(store_info["attach"],
+                                           store_info["addr"])
+            kv_owner = store_info.get("owner")
+            self._kv_store = kv_store
         snap = header.get("snapshot")
         if snap is not None:
-            self.engine = ServingEngine.restore(runner, snap)
+            self.engine = ServingEngine.restore(
+                runner, snap, kv_store=kv_store, kv_store_owner=kv_owner)
         else:
-            self.engine = ServingEngine(runner, **header["engine_kw"])
+            self.engine = ServingEngine(runner, kv_store=kv_store,
+                                        kv_store_owner=kv_owner,
+                                        **header["engine_kw"])
         return self._reply(
             block_size=self.engine.pool.block_size,
             max_batch_size=self.engine.max_batch_size,

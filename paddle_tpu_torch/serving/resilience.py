@@ -24,8 +24,9 @@ pipelined loop).
 Fault schedules are keyed by call index (never wall time or RNG), so a
 failing trace replays exactly. A crash is raised before the wrapped call
 reaches the runner, so it never leaves a stream capturing or a copy
-half issued. The host-wide page store's auditor (`audit_store`) belongs
-to ROADMAP.md item 11 part B2.
+half issued. `audit_store` (and `store_audit_problems`) checks the
+host-wide page store: its slot partition, refcounts and index, the live
+owners, and a rotating CRC spot check of its bytes.
 """
 
 from __future__ import annotations
@@ -421,7 +422,9 @@ def audit_engine(engine) -> None:
     #    rotating CRC spot check of spilled bytes (after joining every
     #    pending spill job: a slot's bytes and hash are defined only then)
     tier = getattr(engine.pool, "host_tier", None)
-    if tier is not None:
+    if tier is not None and tier.store is not None:
+        problems += _store_tier_problems(engine, tier, sched)
+    elif tier is not None:
         problems += _tier_problems(engine, tier, sched, cache)
 
     # -- slot accounting
@@ -519,6 +522,54 @@ def audit_engine(engine) -> None:
 
     if problems:
         raise InvariantViolation("; ".join(problems))
+
+
+def _store_tier_problems(engine, tier, sched) -> list:
+    """The broken invariants of a store-backed tier, from this engine's
+    side (the JAX auditor's store branch): every slot an offload record or
+    a staged handoff names carries at least as many of this engine's owner
+    refs, and no page-in survives the step fence. The slot partition, the
+    refcounts and the index are tier-wide: `store_audit_problems` checks
+    them where the store lives (here on the thread backend, in the router
+    on the process backend). The device-XOR-host check is gone on
+    purpose: the shared index mirrors device-live hashes (a promotion
+    keeps the store copy serving the siblings)."""
+    problems = []
+    tier.sync()
+    store = tier.store
+    need: dict = {}
+    for req in sched.waiting:
+        off = req.offload
+        if off is not None:
+            if req.phase != "offloaded":
+                problems.append(f"{req.request_id} holds an offload record "
+                                f"but phase={req.phase!r}")
+            for s in off.slots:
+                need[s] = need.get(s, 0) + 1
+        elif req.phase == "offloaded":
+            problems.append(f"{req.request_id} phase 'offloaded' without "
+                            "an offload record")
+    for rec in getattr(engine, "_handoffs", {}).values():
+        if rec is not None:
+            for s in rec.slots:
+                need[s] = need.get(s, 0) + 1
+    for req in sched.running:
+        if req.offload is not None:
+            problems.append(f"{req.request_id} RUNNING with an offload "
+                            "record")
+        if req.pending_pagein:
+            problems.append(f"{req.request_id} pending page-ins survived "
+                            "the step fence")
+    for s, cnt in need.items():
+        have = store.owner_count(s, tier.owner)
+        if have < cnt:
+            problems.append(
+                f"store slot {s}: engine {tier.owner!r} references it "
+                f"{cnt}x but holds only {have} store refs")
+    if getattr(store, "_lock", None) is not None:
+        problems += store_audit_problems(
+            store, tick=int(engine.metrics.decode_steps.value))
+    return problems
 
 
 def _tier_problems(engine, tier, sched, cache) -> list:
@@ -650,6 +701,84 @@ def _weight_problems(runner) -> list:
     return problems
 
 
+def store_audit_problems(store, live_owners: Optional[set] = None,
+                         tick: int = 0, spot_checks: int = 4) -> list:
+    """The broken invariants of one SharedKVStore, as a list (audit_engine
+    folds them in, audit_store raises):
+
+      * the free and used slots partition range(max_pages), no duplicate;
+      * the prefix index, its reverse map and the indexed set agree;
+      * every used slot is referenced (owner refs and / or the index ref),
+        no free slot is, no hash survives on an unreferenced slot;
+      * with ``live_owners``: every owner tag is a live engine
+        incarnation or a transfer in flight ("xfer:*"): a dead replica's
+        refs must have been reaped;
+      * a rotating window of ``spot_checks`` slots, keyed by ``tick``, is
+        re-CRC'd against the recorded hashes, so corrupted segment bytes
+        are caught before any replica serves them."""
+    problems = []
+    with store._lock:
+        free = list(store._free)
+        fset = set(free)
+        owned = {s for s, o in store._owners.items() if o}
+        indexed = set(store._indexed)
+        used = owned | indexed
+        everything = set(range(store.max_pages))
+        if len(free) != len(fset):
+            problems.append("duplicate slots in the store free list")
+        if fset & used:
+            problems.append("store slots both free and referenced: "
+                            f"{sorted(fset & used)}")
+        if (fset | used) != everything:
+            problems.append(
+                "store slot accounting broken: "
+                f"lost={sorted(everything - fset - used)} "
+                f"foreign={sorted((fset | used) - everything)}")
+        stale_hash = sorted(set(store._hash) - used)
+        if stale_hash:
+            problems.append("store hash bookkeeping survives on "
+                            f"unreferenced slots: {stale_hash}")
+        if len(set(store._prefix.values())) != len(store._prefix):
+            problems.append("store prefix index maps two hashes to one "
+                            "slot")
+        if {s: h for h, s in store._prefix.items()} != store._prefix_slot:
+            problems.append("store prefix index and reverse map disagree")
+        if indexed != set(store._prefix.values()):
+            problems.append("store indexed-slot set disagrees with the "
+                            "prefix index")
+        for s, own in store._owners.items():
+            if any(c <= 0 for c in own.values()):
+                problems.append(f"store slot {s} holds a non-positive "
+                                f"owner count: {own}")
+        if live_owners is not None:
+            for s, own in store._owners.items():
+                for o in own:
+                    if o not in live_owners and not str(o).startswith(
+                            "xfer:"):
+                        problems.append(
+                            f"store slot {s} referenced by dead or unknown "
+                            f"owner {o!r}: reap leaked")
+        sample = sorted(s for s in used if store._hash.get(s) is not None)
+    if sample:
+        start = int(tick) % len(sample)
+        for i in range(min(spot_checks, len(sample))):
+            s = sample[(start + i) % len(sample)]
+            recorded = store.slot_hash(s)
+            if recorded is not None and store.content_hash(s) != recorded:
+                problems.append(f"store slot {s} content-hash mismatch: "
+                                "segment bytes corrupted")
+    return problems
+
+
+def audit_store(store, live_owners: Optional[set] = None,
+                tick: int = 0) -> None:
+    """Raise InvariantViolation on any broken SharedKVStore invariant (see
+    store_audit_problems)."""
+    problems = store_audit_problems(store, live_owners, tick)
+    if problems:
+        raise InvariantViolation("; ".join(problems))
+
+
 def audit_router(router) -> None:
     """Tier-level invariant auditor: every LIVE replica passes
     audit_engine, and the router's at-most-once bookkeeping is
@@ -683,6 +812,29 @@ def audit_router(router) -> None:
             # the supervisor, not an invariant violation
             logger.warning("replica %d unreachable mid-audit: %s",
                            rep.index, e)
+
+    store = getattr(router, "kv_store", None)
+    if store is not None:
+        # the host-wide store: every live replica's tier joins its pending
+        # spill jobs, then the store is audited against the LIVE owner set
+        # (a dead replica's un-reaped refs are a violation)
+        live_owners = set()
+        for rep in replicas:
+            if rep.status != "live":
+                continue
+            if rep.store_owner:
+                live_owners.add(rep.store_owner)
+            t = getattr(getattr(rep.engine, "pool", None), "host_tier",
+                        None)
+            if t is not None:
+                try:
+                    with rep.lock:
+                        t.sync()
+                except BaseException:      # pragma: no cover - dying
+                    pass
+        problems.extend(store_audit_problems(
+            store, live_owners,
+            tick=int(router.metrics.requests_completed.value)))
 
     with router._lock:
         n = len(replicas)

@@ -45,10 +45,14 @@ with its KV pages to the least-loaded decode replica
 every registry change is journaled first (`journal.RouterJournal`), and
 `ServingRouter.recover` rebuilds the tier from the journal.
 
-The JAX router's host-wide KV store (``shared_kv_pages``,
-``shared_kv_shm``, ``shared_kv_geometry``: shared-memory pages and the
-slot-reference handoff) belongs to ROADMAP.md item 11 part B2: each takes
-its default only and raises NotImplementedError otherwise.
+With `shared_kv_pages` the replicas' host tiers are facades over ONE
+host-wide `kv_cache.SharedKVStore` the router owns: a demotion by any
+replica serves every replica's admission, a handoff moves slot references
+instead of page bytes, and a dead replica's refs are reaped by refcount.
+On the process backend the store's bytes live in shared-memory segments
+every child maps, and its metadata is served to the children by a
+`store_service.StoreServer`; the segments survive a router crash, and
+`recover` reattaches them and revives the journaled content index.
 """
 
 from __future__ import annotations
@@ -79,17 +83,6 @@ from paddle_tpu_torch.serving.wire import (
 logger = logging.getLogger(__name__)
 
 ROUTING_POLICIES = ("prefix", "least_loaded", "round_robin", "random")
-
-_PART_B2 = ("ROADMAP.md 'Still to port' item 11 (part B2: the host-wide "
-            "KV store)")
-
-# the JAX router's knobs of the host-wide store: name -> the default this
-# port accepts
-SHARED_KV_KNOBS = {
-    "shared_kv_pages": 0,
-    "shared_kv_shm": None,
-    "shared_kv_geometry": None,
-}
 
 
 @dataclass
@@ -165,6 +158,8 @@ class EngineReplica:
         self.last_beat = now          # step-progress heartbeat
         self.last_snapshot: Optional[dict] = None
         self.thread: Optional[threading.Thread] = None
+        # the engine incarnation's owner tag in the host-wide store
+        self.store_owner: Optional[str] = None
 
 
 class RouterMetrics:
@@ -304,8 +299,22 @@ class ServingRouter:
                            after a clean deadline trip or a CRC reject
       child_env            process backend: the children's environment
                            (default: this process's)
-    The host-wide store's knobs (`SHARED_KV_KNOBS`) take their defaults
-    only (ROADMAP.md item 11 part B2).
+      shared_kv_pages      capacity in pages of ONE router-owned host-wide
+                           SharedKVStore under every replica's host tier
+                           (instead of private tiers): spills and
+                           demotions publish into it (dedup by chain
+                           hash), admission on any replica resolves its
+                           prefix against it, handoffs move slot
+                           references, a dead replica's refs are reaped.
+                           0 = off (private tiers via host_tier_pages)
+      shared_kv_shm        back the store with shared-memory segments
+                           (None: on the process backend, not on threads);
+                           they survive a router crash, so recover() can
+                           reattach them
+      shared_kv_geometry   process backend: the pool's page geometry
+                           {num_layers, block_size, n_kv_heads, head_dim,
+                           dtype?, kv_dtype?} (the router holds no runner
+                           to take it from)
     """
 
     def __init__(self, runner_factory, *, replicas: int = 2,
@@ -343,14 +352,8 @@ class ServingRouter:
         if backend not in ("thread", "process"):
             raise ValueError(f"backend={backend!r}; expected 'thread' "
                              "or 'process'")
-        given = dict(shared_kv_pages=shared_kv_pages,
-                     shared_kv_shm=shared_kv_shm,
-                     shared_kv_geometry=shared_kv_geometry)
-        for name, value in given.items():
-            if value != SHARED_KV_KNOBS[name]:
-                raise NotImplementedError(
-                    f"ServingRouter({name}={value!r}) is not ported yet: "
-                    + _PART_B2)
+        if shared_kv_pages < 0:
+            raise ValueError("shared_kv_pages must be >= 0")
         if not 0 <= prefill_replicas < replicas:
             if prefill_replicas != 0:
                 raise ValueError(
@@ -394,6 +397,12 @@ class ServingRouter:
         self._rng = np.random.default_rng(0)
         self._replicas: List[EngineReplica] = []
         self._launcher = None
+        # the host-wide KV store, when shared_kv_pages
+        self.shared_kv_pages = int(shared_kv_pages)
+        self._shared_kv_shm = shared_kv_shm
+        self.kv_store = None
+        self._store_server = None
+        self._owner_seq = itertools.count()
         # the write-ahead journal; with _recover_state (the replayed view
         # of a dead router's journal) the file is first compacted to one
         # state record, so a second crash replays the recovered tier
@@ -411,23 +420,39 @@ class ServingRouter:
             # EngineClient over its socket
             from paddle_tpu_torch.serving.launch import ReplicaLauncher
 
-            self._launcher = ReplicaLauncher(
-                runner_factory, engine_kw,
-                rendezvous_timeout_s=rendezvous_timeout_s,
-                command_timeout_s=command_timeout_s,
-                rpc_fast_timeout_s=rpc_fast_timeout_s,
-                rpc_max_retries=rpc_max_retries, env=child_env)
-            snaps = ([recover_snaps.get(i) for i in range(replicas)]
-                     if recover_snaps else None)
-            for idx, client in enumerate(
-                    self._launcher.spawn_all(self._roles,
-                                             snapshots=snaps)):
+            # the store exists before any child: its segments and the
+            # metadata service's address ride each child's init command
+            self._init_store(geometry=shared_kv_geometry,
+                             recover_state=_recover_state)
+            try:
+                self._launcher = ReplicaLauncher(
+                    runner_factory, engine_kw,
+                    rendezvous_timeout_s=rendezvous_timeout_s,
+                    command_timeout_s=command_timeout_s,
+                    rpc_fast_timeout_s=rpc_fast_timeout_s,
+                    rpc_max_retries=rpc_max_retries, env=child_env,
+                    store_spec=self._store_attach_spec())
+                snaps = ([recover_snaps.get(i) for i in range(replicas)]
+                         if recover_snaps else None)
+                clients = self._launcher.spawn_all(self._roles,
+                                                   snapshots=snaps)
+            except BaseException:
+                # no tier came up: its store's segments go with it
+                self._close_store()
+                raise
+            for idx, client in enumerate(clients):
                 self._spawn(idx, client, None, start=False,
                             role=self._roles[idx])
         else:
             for idx in range(replicas):
                 runner = self._make_runner(idx)
+                if idx == 0:
+                    # the store's page layout is the pool's: the first
+                    # runner fixes it (the tiers check every other one)
+                    self._init_store(runner=runner,
+                                     recover_state=_recover_state)
                 snap = recover_snaps.get(idx)
+                owner = self._mint_owner(idx)
                 if snap is not None:
                     # recovery: the replica restarts from its last
                     # journaled snapshot (recompute-on-resume,
@@ -436,9 +461,11 @@ class ServingRouter:
                     engine = ServingEngine.restore(
                         runner, snap, tokenizer=engine_kw.get("tokenizer"),
                         sleep_fn=engine_kw.get("sleep_fn"),
-                        audit=engine_kw.get("audit"))
+                        audit=engine_kw.get("audit"),
+                        kv_store=self.kv_store, kv_store_owner=owner)
                 else:
-                    engine = self._build_engine(runner, self._roles[idx])
+                    engine = self._build_engine(runner, self._roles[idx],
+                                                store_owner=owner)
                 self._spawn(idx, engine, runner, start=False,
                             role=self._roles[idx])
         self.block_size = self._replicas[0].engine.pool.block_size
@@ -548,10 +575,15 @@ class ServingRouter:
             if len(rec.tokens) >= sampling.max_tokens:
                 self._finish(rec, "length")
                 continue
-            owner = next(
-                (rep for rep in live
-                 if rid in rep.engine._requests
-                 and not rep.engine._requests[rid].done), None)
+            # the journaled owner first: a split tier's snapshots, taken
+            # at different steps, may carry a handed-off request on both
+            # sides, and the decode side's is the later
+            holders = [rep for rep in live
+                       if rid in rep.engine._requests
+                       and not rep.engine._requests[rid].done]
+            owner = next((rep for rep in holders
+                          if rep.index == rec.owner_idx),
+                         holders[0] if holders else None)
             if owner is not None:
                 self._adopt(owner, rec)
             else:
@@ -569,16 +601,110 @@ class ServingRouter:
                 self._inject(target, rec)
             self.metrics.recovered_requests.inc()
         # zombies: a restored snapshot resurrected requests the tier
-        # already finished; abort them instead of burning compute
+        # already finished, or a copy of a request another replica owns
+        # now; abort them instead of burning compute (or serving twice)
         for rep in live:
             for rid in list(rep.engine._requests):
                 req = rep.engine._requests[rid]
                 rec = self._reqs.get(rid)
-                if not req.done and (rec is None or rec.done):
+                if not req.done and (rec is None or rec.done
+                                     or rec.owner_idx != rep.index):
                     try:
                         rep.engine.abort(rid, "aborted")
                     except BaseException:    # pragma: no cover
                         pass
+
+    # ------------------------------------------------ the host-wide store
+
+    def _mint_owner(self, idx: int) -> Optional[str]:
+        """The store owner tag of one engine incarnation, unique per
+        (replica, restart): a respawned replica is never taken for its dead
+        predecessor's un-reaped refs."""
+        if not self.shared_kv_pages:
+            return None
+        return f"r{idx}o{next(self._owner_seq)}"
+
+    def _init_store(self, runner=None, geometry=None,
+                    recover_state: Optional[dict] = None) -> None:
+        """Build the host-wide store, or on recovery REATTACH the dead
+        router's segments (they survive until unlinked) and revive the
+        journaled content index, each entry CRC-verified against the
+        surviving bytes first. A journaled store this router will not
+        revive is unlinked."""
+        from paddle_tpu_torch.serving.kv_cache import SharedKVStore
+
+        old_spec = (recover_state or {}).get("store")
+        if not self.shared_kv_pages:
+            if old_spec:
+                SharedKVStore.unlink_spec(old_spec)
+            return
+        use_shm = (self._shared_kv_shm if self._shared_kv_shm is not None
+                   else self.backend == "process")
+        if self.backend == "process" and not use_shm:
+            raise ValueError(
+                "shared_kv_pages with backend='process' needs shared "
+                "memory (shared_kv_shm=False cannot reach the children)")
+        store = None
+        if old_spec and use_shm:
+            try:
+                store = SharedKVStore.reattach(old_spec)
+                revived = store.restore_index(
+                    (recover_state or {}).get("store_idx"))
+                logger.info("recover: reattached the shared KV store (%d "
+                            "journaled prefix pages revived)", revived)
+            except (OSError, ValueError, KeyError) as e:
+                logger.warning("recover: store reattach failed (%s); "
+                               "starting fresh", e)
+                SharedKVStore.unlink_spec(old_spec)
+                store = None
+        elif old_spec:
+            SharedKVStore.unlink_spec(old_spec)
+        if store is None:
+            if geometry is not None:
+                store = SharedKVStore.for_geometry(
+                    geometry, self.shared_kv_pages, use_shm=use_shm)
+            elif runner is not None:
+                store = SharedKVStore.for_runner(
+                    runner, self.shared_kv_pages, use_shm=use_shm)
+            else:
+                raise ValueError(
+                    "shared_kv_pages with backend='process' needs "
+                    "shared_kv_geometry={num_layers, block_size, "
+                    "n_kv_heads, head_dim, dtype?, kv_dtype?}: the router "
+                    "process holds no runner to take the page layout from")
+        self.kv_store = store
+        self._jot({"t": "store", "spec": store.attach_spec()})
+        if self.backend == "process":
+            from paddle_tpu_torch.serving.store_service import StoreServer
+
+            self._store_server = StoreServer(store)
+
+    def _store_attach_spec(self) -> Optional[dict]:
+        """What a replica child needs to join the store (the launcher ships
+        it in the init command): the segment map and the metadata
+        service's address."""
+        if self.kv_store is None or self._store_server is None:
+            return None
+        return {"attach": self.kv_store.attach_spec(),
+                "addr": list(self._store_server.address)}
+
+    def _reap_store_owner(self, rep: "EngineReplica") -> int:
+        """Release every store ref a dead or drained replica incarnation
+        still holds: its slots are reclaimed by refcount (indexed content
+        and the siblings' refs survive). Returns the slots freed."""
+        if self.kv_store is None or not rep.store_owner:
+            return 0
+        freed = self.kv_store.reap_owner(rep.store_owner)
+        if freed:
+            logger.info("reaped %d store slots from dead replica %d "
+                        "(owner %s)", freed, rep.index, rep.store_owner)
+        return freed
+
+    def _jot_store_index(self) -> None:
+        """Journal the store's content index (recover() revives it)."""
+        if self.kv_store is not None:
+            self._jot({"t": "store_idx",
+                       "state": self.kv_store.journal_state()})
 
     # --------------------------------------------------------- plumbing
 
@@ -589,8 +715,13 @@ class ServingRouter:
             # zero-arg factories are fine too (index-blind replicas)
             return self._runner_factory()
 
-    def _build_engine(self, runner, role: str = "mixed") -> ServingEngine:
-        return ServingEngine(runner, role=role, **self._engine_kw)
+    def _build_engine(self, runner, role: str = "mixed",
+                      store_owner: Optional[str] = None) -> ServingEngine:
+        kw = dict(self._engine_kw)
+        if self.kv_store is not None:
+            kw["kv_store"] = self.kv_store
+            kw["kv_store_owner"] = store_owner
+        return ServingEngine(runner, role=role, **kw)
 
     def _revive_engine(self, rep: "EngineReplica",
                        snapshot: Optional[dict]):
@@ -606,12 +737,14 @@ class ServingRouter:
             return client, None
         runner = self._make_runner(rep.index)
         kw = self._engine_kw
+        owner = self._mint_owner(rep.index)
         if snapshot is not None:
             engine = ServingEngine.restore(
                 runner, snapshot, tokenizer=kw.get("tokenizer"),
-                sleep_fn=kw.get("sleep_fn"), audit=kw.get("audit"))
+                sleep_fn=kw.get("sleep_fn"), audit=kw.get("audit"),
+                kv_store=self.kv_store, kv_store_owner=owner)
         else:
-            engine = self._build_engine(runner, rep.role)
+            engine = self._build_engine(runner, rep.role, store_owner=owner)
         return engine, runner
 
     def _replica_dead(self, rep: "EngineReplica") -> bool:
@@ -646,6 +779,11 @@ class ServingRouter:
                             self._clock(),
                             role=role if role is not None
                             else self._roles[idx])
+        if self.kv_store is not None:
+            # the incarnation's owner tag: a child's launcher key (unique
+            # per spawn), a thread engine's minted tag
+            rep.store_owner = (getattr(engine, "key", None)
+                               or getattr(engine, "kv_store_owner", None))
         with self._lock:
             if idx == len(self._replicas):
                 self._replicas.append(rep)
@@ -722,6 +860,9 @@ class ServingRouter:
                         # replica: recover() restores from it
                         self._jot({"t": "snap", "rep": rep.index,
                                    "snapshot": rep.last_snapshot})
+                        # the store's content index rides beside the
+                        # snapshots
+                        self._jot_store_index()
                     stepped = True
             if rep.role == "prefill" and not rep.fenced and not rep.stop:
                 # migrate every staged handoff to a decode replica. Outside
@@ -1193,6 +1334,10 @@ class ServingRouter:
                                "resubmission", rec.request_id,
                                target.index, e)
             self.metrics.handoff_fallbacks.inc()
+            if self.kv_store is not None:
+                # the transfer tag's refs die with the failed handoff (a
+                # no-op where import_handoff already released them)
+                self.kv_store.reap_owner(f"xfer:{rec.request_id}")
             fallback = self._choose_decode()
             with self._lock:
                 live = [r for r in self._replicas if r.status == "live"]
@@ -1298,6 +1443,17 @@ class ServingRouter:
         moved = 0
         for rec in self._orphans(rep.index, rep.epoch):
             moved += self._migrate_out(rep, rec)
+        if self.kv_store is not None:
+            # a draining replica demotes its whole device prefix cache
+            # into the store (clear() fires evict_hook per page: publish,
+            # or dedup), so the sessions it served resume on any sibling
+            # by page-in: the zero-recompute rolling restart
+            try:
+                with rep.lock:
+                    rep.engine.release_prefix_cache()
+            except BaseException:        # pragma: no cover - dying
+                pass
+            self._jot_store_index()
         # the drained engine's counters join tier history
         try:
             self._retired_metrics.append(rep.engine.metrics.snapshot())
@@ -1315,6 +1471,7 @@ class ServingRouter:
                               if i != idx}
             self._sessions = {s: i for s, i in self._sessions.items()
                               if i != idx}
+        self._reap_store_owner(rep)
         self.metrics.replica_drains.inc()
         self._completion.set()
         logger.info("replica %d drained (%d requests migrated)",
@@ -1334,7 +1491,8 @@ class ServingRouter:
             engine, runner = self._launcher.spawn(idx, role=rep.role), None
         else:
             runner = self._make_runner(idx)
-            engine = self._build_engine(runner, rep.role)
+            engine = self._build_engine(runner, rep.role,
+                                        store_owner=self._mint_owner(idx))
         new = self._spawn(idx, engine, runner, start=False,
                           role=rep.role)
         for rec in self._orphans(idx, old_epoch):
@@ -1459,6 +1617,8 @@ class ServingRouter:
                "per_replica": per}
         if self._journal is not None:
             out["journal"] = self._journal.stats()
+        if self.kv_store is not None:
+            out["store"] = self.kv_store.stats()
         return out
 
     # --------------------------------------------------------- teardown
@@ -1503,6 +1663,17 @@ class ServingRouter:
                 self._launcher.close()
         if self._journal is not None:
             self._journal.close()
+        self._close_store()
+
+    def _close_store(self) -> None:
+        """Stop the store's metadata service and close the store (its
+        creating or recovering router unlinks its segments)."""
+        if self._store_server is not None:
+            self._store_server.close()
+            self._store_server = None
+        if self.kv_store is not None:
+            self.kv_store.close()
+            self.kv_store = None
 
     def __enter__(self) -> "ServingRouter":
         return self

@@ -265,10 +265,15 @@ class FCFSScheduler:
             if matched:
                 req.kv.adopt_prefix(matched, bs)
             # host-demoted prefix pages: a fresh device page each, restored
-            # by the engine's fence, re-entering the device index
+            # by the engine's fence, re-entering the device index. Over a
+            # host-wide store a promotion may miss (a sibling's recomputed
+            # registration dropped the entry since the match): the chain
+            # ends there and the rest recomputes
             promoted = 0
             for h in host_matched:
                 slot = tier.promote(h)
+                if slot is None:
+                    break
                 page = alloc.alloc(1)[0]
                 self.pool.tag_pages([page], tag)
                 cache.register_page(page, h)

@@ -37,8 +37,8 @@ Counterpart of paddle_tpu/serving/supervisor.py:
   redistribute the restored queue re-routes through the normal policy
               (affinity entries for the dead pool are purged first).
 
-The JAX supervisor's reaping of a dead replica's host-wide store slots
-belongs to ROADMAP.md item 11 part B2.
+With a host-wide store (`ServingRouter(shared_kv_pages=)`) recovery first
+reaps the dead incarnation's store refs, and so does retiring a replica.
 """
 
 from __future__ import annotations
@@ -177,6 +177,10 @@ class Supervisor:
             router._retired_metrics.append(rep.engine.metrics.snapshot())
         except BaseException:            # pragma: no cover
             pass
+        # release every host-wide store ref the dead incarnation held: its
+        # offload and transfer slots are reclaimed by refcount, while
+        # content the index owns and the siblings' refs survive it
+        router._reap_store_owner(rep)
         orphans = router._orphans(rep.index, rep.epoch)
         if self.max_restarts is not None \
                 and self.restarts >= self.max_restarts:
@@ -232,6 +236,7 @@ class Supervisor:
         requests re-route to the survivors (or fail loudly with reason
         'error' when none remain) — degraded, never wedged."""
         rep.status = "retired"
+        self.router._reap_store_owner(rep)
         with self.router._lock:
             self.router.metrics.live_replicas.set(
                 sum(1 for r in self.router._replicas

@@ -7,17 +7,16 @@ kernel wrapper takes, and what it refuses.
   * entry points default to "cuda" and raise where no card is usable;
   * CPU tensors run the plain versions: `plain_launches` moves and
     `kernel_launches` never does;
-  * every engine knob the port does not carry (the host-wide store's:
-    kv_store, kv_store_owner) raises NotImplementedError naming ROADMAP
-    item 11; the host tier's and the detokenizer's knobs (items 9 and 15),
-    the disaggregated role and session ids (item 11 part A), the four
+  * every engine knob of the JAX engine is carried: the host-wide
+    store's (item 11 part B2: kv_store, kv_store_owner), the host tier's
+    and the detokenizer's (items 9 and 15), the disaggregated role and
+    session ids (item 11 part A), the four
     horizon and pipeline knobs, the prefix cache, fused ragged steps,
     speculation and temperature > 0 are served; every knob of the process
     tier has its JAX default; the process backend's (item 11 part B1: the
-    backend, the RPC timeouts and retries, the child environment) are
-    live, and the host-wide store's (part B2: `shared_kv_*`,
-    `HostKVTier(store=)`, `spill_pages(publish=)`) raise naming item 11 at
-    any other value, and
+    backend, the RPC timeouts and retries, the child environment) and the
+    host-wide store's (part B2: `shared_kv_*`, `HostKVTier(store=)`,
+    `spill_pages(publish=)`) are live, and
     `create_serving_router(mesh= | meshes=)` raises naming item 10;
   * the serving entry points take the JAX package's positional and
     keyword arguments (runner, runner_for, create_serving_engine,
@@ -102,7 +101,6 @@ from paddle_tpu_torch.optimizer import AdamW, Optimizer
 from paddle_tpu_torch.serving import (
     OffloadRecord, SamplingParams, create_engine, naive_generate,
 )
-from paddle_tpu_torch.serving.engine import UNPORTED_KNOBS
 from paddle_tpu_torch.serving.kv_cache import KVCachePool, SequenceKV
 from paddle_tpu_torch.serving.model_runner import (
     LlamaRunner, paged_attend, runner_for,
@@ -266,16 +264,6 @@ def test_untileable_shape_raises_on_cuda_runner(attn_impl):
 # ------------------------------------------------------ unported knobs
 
 
-def _other(default):
-    if isinstance(default, bool):
-        return not default
-    if isinstance(default, int):
-        return default + 2
-    if isinstance(default, str):
-        return default + "-other"
-    return object()
-
-
 @pytest.fixture(scope="module")
 def model():
     return Llama(LlamaConfig(**SIZES), device="cpu")
@@ -310,12 +298,34 @@ HOST_TIER_AND_DETOKENIZER_KNOBS = {
         id_to_bytes=lambda tok: bytes([65 + tok % 26])), "role": "decode"}
 
 
-@pytest.mark.parametrize("knob", sorted(set(UNPORTED_KNOBS)
+# the host-wide store's knobs (item 11 part B2), refused until it was ported
+STORE_KNOBS = ("kv_store", "kv_store_owner")
+
+
+@pytest.mark.parametrize("knob", sorted(set(STORE_KNOBS)
                                         | set(HOST_TIER_AND_DETOKENIZER_KNOBS)))
 def test_unported_engine_knob_raises(model, knob):
-    """The knobs left unported (the host-wide store's) take their default
-    only and raise naming item 11; those of items 9, 15 and 11 part A are
-    served at the JAX default and at another value, token for token."""
+    """No engine knob is left unported: those of items 9, 15, 11 part A and
+    11 part B2 (the host-wide store) are served at the JAX default and at
+    another value, token for token; the store's knobs have the JAX
+    defaults."""
+    if knob in STORE_KNOBS:
+        from paddle_tpu.serving import ServingEngine as JaxServingEngine
+        from paddle_tpu_torch.serving import ServingEngine
+        from paddle_tpu_torch.serving.kv_cache import SharedKVStore
+        assert inspect.signature(ServingEngine).parameters[knob].default \
+            == inspect.signature(JaxServingEngine).parameters[knob].default
+        sp = SamplingParams(max_tokens=6)
+        plain = _engine(model, max_batch_size=3)
+        store = SharedKVStore.for_runner(plain.runner, 16)
+        eng = _engine(model, max_batch_size=3, kv_store=store,
+                      kv_store_owner="r0" if knob == "kv_store_owner"
+                      else None)
+        assert eng.kv_store is store and eng.pool.host_tier.store is store
+        assert eng.kv_store_owner == ("r0" if knob == "kv_store_owner"
+                                      else f"eng-{id(eng):x}")
+        assert _serve(eng, PROMPTS, sp) == _serve(plain, PROMPTS, sp)
+        return
     if knob in HOST_TIER_AND_DETOKENIZER_KNOBS:
         value = HOST_TIER_AND_DETOKENIZER_KNOBS[knob]
         extra = ({"host_tier_pages": 8} if knob in ("host_tier_headroom",
@@ -327,11 +337,7 @@ def test_unported_engine_knob_raises(model, knob):
         assert _serve(eng, PROMPTS, sp) == _serve(
             _engine(model, max_batch_size=3), PROMPTS, sp)
         return
-    default, item = UNPORTED_KNOBS[knob]
-    assert "item 11" in item
-    _engine(model, **{knob: default})            # the default is accepted
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11"):
-        _engine(model, **{knob: _other(default)})
+    raise AssertionError(f"{knob}: no such knob")   # pragma: no cover
 
 
 def _serve(eng, prompts, sp):
@@ -424,7 +430,7 @@ PROCESS_TIER_KNOBS = {
     "shared_kv_geometry": {"num_layers": 1}, "rendezvous_timeout_s": 5.0,
     "command_timeout_s": 5.0, "rpc_fast_timeout_s": 1.0,
     "rpc_max_retries": 5, "child_env": {"A": "1"}}
-# those of the host-wide store, still unported (part B2)
+# those of the host-wide store (part B2)
 SHARED_KV_KNOBS = ("shared_kv_pages", "shared_kv_shm", "shared_kv_geometry")
 
 
@@ -432,8 +438,11 @@ SHARED_KV_KNOBS = ("shared_kv_pages", "shared_kv_shm", "shared_kv_geometry")
 def test_process_tier_router_knob_raises_naming_item_11(model, knob):
     """Each process-tier knob of the JAX ServingRouter has the JAX default
     in the port's signature and is accepted there. At another value the
-    host-wide store's knobs raise naming item 11 (part B2); the process
-    backend's (part B1, ported) are live: backend="process" through the
+    host-wide store's knobs (part B2) are live: with shared_kv_pages the
+    thread tier builds one store of that many pages over the first
+    runner's geometry (shared memory with shared_kv_shm=True; a geometry
+    is the process backend's and the thread tier reads none, as in JAX);
+    the process backend's (part B1) are live too: backend="process" through the
     model bridge raises TypeError as the JAX bridge does (a callable
     factory cannot cross a process boundary; the JSON spec serves it, see
     tests/test_torch_procs.py), and the timeouts, retries and child
@@ -450,9 +459,15 @@ def test_process_tier_router_knob_raises_naming_item_11(model, knob):
     create_serving_router(model, **kw, **{knob: default}).shutdown()
     other = {knob: PROCESS_TIER_KNOBS[knob]}
     if knob in SHARED_KV_KNOBS:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md.*item 11.*part B2"):
-            create_serving_router(model, **kw, **other)
+        other.setdefault("shared_kv_pages", 8)
+        router = create_serving_router(model, **kw, **other)
+        try:
+            store = router.kv_store
+            assert store.max_pages == 8
+            assert store.use_shm == (knob == "shared_kv_shm")
+            assert router._replicas[0].engine.pool.host_tier.store is store
+        finally:
+            router.shutdown()
     elif knob == "backend":
         with pytest.raises(TypeError, match="JSON spec"):
             create_serving_router(model, **kw, **other)
@@ -464,8 +479,11 @@ def test_process_tier_router_knob_raises_naming_item_11(model, knob):
 
 def test_process_tier_store_parameters_raise_naming_item_11():
     """HostKVTier(store=) and spill_pages(publish=) (the host-wide store,
-    item 11 part B2) take the JAX default only; mesh= and meshes= of
-    create_serving_router raise naming item 10."""
+    item 11 part B2) have the JAX defaults and are live: a store-backed
+    tier publishes a spilled page under its chain hash (a private tier,
+    which keeps its own index, refuses a publication with ValueError);
+    mesh= and meshes= of create_serving_router raise naming item 10."""
+    from paddle_tpu_torch.serving.kv_cache import SharedKVStore
     from paddle_tpu.serving.kv_cache import HostKVTier as JaxHostKVTier
     from paddle_tpu_torch.inference import create_serving_router
     from paddle_tpu_torch.serving import HostKVTier
@@ -477,10 +495,13 @@ def test_process_tier_store_parameters_raise_naming_item_11():
     pool = KVCachePool(1, 4, 4, 1, 8, device="cpu")
     tier = pool.enable_host_tier(2)
     assert tier.spill_pages([], publish=()) == []
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="store-backed"):
         tier.spill_pages([1], publish=[(0, 7)])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        HostKVTier(pool, 2, store=object())
+    store = SharedKVStore(SharedKVStore.layout_for(1, 4, 1, 8), 2)
+    stier = HostKVTier(pool, 2, store=store, owner="e0")
+    slots = stier.spill_pages([1], publish=[(0, 7)])
+    assert store.has_prefix(7) and store.refcount(slots[0]) == 2
+    assert store.slot_hash(slots[0]) == store.content_hash(slots[0])
     m = Llama(LlamaConfig(**SIZES), device="cpu")
     for kw in ({"mesh": object()}, {"meshes": [object()]}):
         with pytest.raises(NotImplementedError, match="item 10"):
@@ -571,9 +592,10 @@ def test_other_weight_group_sizes_raise_naming_item_8(twin, entry):
 
 def test_session_id_raises_naming_item_11(model):
     """A session id is served since item 11 part A (the tier routes on it,
-    one engine ignores it: same tokens as without); what still raises
-    naming item 11 is the host-wide store a session's pages would live in
-    across processes (part B2)."""
+    one engine ignores it: same tokens as without), and since part B2 over
+    the host-wide store a session's pages live in across replicas: an
+    engine over a store serves the same tokens, and a store of another
+    page geometry is refused loudly."""
     eng = _engine(model)
     with_sid = eng.add_request([1, 2], SamplingParams(max_tokens=3,
                                                       session_id="s"))
@@ -582,8 +604,15 @@ def test_session_id_raises_naming_item_11(model):
     outs = eng.run()
     assert outs[with_sid].output_tokens == outs[without].output_tokens
     assert len(outs[with_sid].output_tokens) == 3
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _engine(model, kv_store=object())
+    from paddle_tpu_torch.serving.kv_cache import SharedKVStore
+    store = SharedKVStore.for_runner(eng.runner, 16)
+    over = _engine(model, kv_store=store)
+    sid = over.add_request([1, 2], SamplingParams(max_tokens=3,
+                                                  session_id="s"))
+    assert over.run()[sid].output_tokens == outs[with_sid].output_tokens
+    with pytest.raises(ValueError, match="layout mismatch"):
+        _engine(model, kv_store=SharedKVStore(
+            SharedKVStore.layout_for(1, 4, 1, 16), 4))
 
 
 def test_naive_generate_fallback_seed_is_read_on_sampled_paths_only(model):
@@ -789,7 +818,7 @@ def test_comm_dtype_without_a_mesh_is_a_value_error(model, jax_model):
 
 # the JAX snapshot's keys of the unported page store and tensor
 # parallelism (items 11 part B and 10); the handoff keys are pinned
-UNPORTED_METRIC_PREFIXES = ("tp_", "store_")
+UNPORTED_METRIC_PREFIXES = ("tp_",)
 
 
 def _scripted_clock():
@@ -818,8 +847,8 @@ def _metrics_run(pm, jm, **kw):
 
 def test_snapshot_keys_equal_the_jax_keys(twin):
     """F14: the port's EngineMetrics.snapshot() keys are the JAX ones but
-    those of items 10-11 (and no stray pool_utilization): the host tier's
-    (item 9) are required."""
+    those of item 10 (and no stray pool_utilization): the host tier's
+    (item 9) and the host-wide store's (item 11) are required."""
     ours, ref = _metrics_run(*twin[::-1])
     ref_keys = {k for k in ref if not k.startswith(UNPORTED_METRIC_PREFIXES)}
     assert set(ours) == ref_keys

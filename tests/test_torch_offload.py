@@ -181,13 +181,19 @@ def test_content_hash_equals_the_jax_hash_of_the_same_bytes(kv_dtype):
 
 
 def test_host_tier_validation_and_accounting():
-    """JAX pin :144, and the host-wide store taking its default only."""
+    """JAX pin :144, and a host-wide store of another page geometry
+    refused loudly (a store of the pool's geometry is served, see
+    tests/test_torch_shared_kv.py)."""
+    from paddle_tpu_torch.serving.kv_cache import SharedKVStore
     pool = KVCachePool(num_layers=1, num_blocks=6, block_size=4,
                        n_kv_heads=1, head_dim=2, device="cpu")
     with pytest.raises(ValueError):
         pool.enable_host_tier(0)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        HostKVTier(pool, 2, store=object())
+    with pytest.raises(ValueError, match="layout mismatch"):
+        HostKVTier(pool, 2, store=SharedKVStore(
+            SharedKVStore.layout_for(1, 8, 1, 2), 2))
+    assert HostKVTier(pool, 0, store=SharedKVStore(
+        SharedKVStore.layout_for(1, 4, 1, 2), 3)).max_pages == 3
     tier = pool.enable_host_tier(2)
     assert pool.enable_host_tier(99) is tier      # idempotent
     assert tier.capacity_bytes == 2 * pool.page_bytes()

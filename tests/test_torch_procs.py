@@ -52,6 +52,9 @@ STUB_SPEC = {"factory": "test_torch_procs:stub_runner_factory",
              "sys_path": [TESTS_DIR]}
 ENGINE_KW = dict(num_blocks=24, max_batch_size=4, max_model_len=MAXLEN,
                  enable_prefix_cache=True, max_prefill_tokens_per_step=8)
+# the stub's pool geometry, for a process tier's host-wide store
+STORE_GEOMETRY = {"num_layers": 1, "block_size": BLOCK, "n_kv_heads": 1,
+                  "head_dim": 1}
 # six test workers share eight cores: the rendezvous deadline leaves room
 TIER_KW = dict(backend="process", heartbeat_timeout_s=60.0,
                poll_interval_s=0.05, rendezvous_timeout_s=120.0)
@@ -228,9 +231,33 @@ class TestRendezvous:
         ("shared_kv_pages", 8), ("shared_kv_shm", True),
         ("shared_kv_geometry", {"num_layers": 1})])
     def test_shared_kv_knobs_raise_naming_part_b2(self, knob, value):
-        with pytest.raises(NotImplementedError, match="part B2"):
-            ServingRouter(STUB_SPEC, replicas=2, backend="process",
-                          **{knob: value}, **ENGINE_KW)
+        """The host-wide store's knobs are served (the store tests below
+        and tests/test_torch_shared_kv.py); what raises is a combination
+        the process backend cannot serve, before any child starts:
+        shared_kv_pages without a geometry (ValueError, as in JAX),
+        shared_kv_shm=False (its children could not map the store), and
+        a geometry the store cannot be built from (KeyError, as in JAX).
+        The knobs alone, without pages, build no store."""
+        jax_router = pytest.importorskip("paddle_tpu.serving.router")
+        kw = {knob: value}
+        if knob == "shared_kv_pages":
+            bad = [(kw, ValueError, "shared_kv_geometry")]
+        elif knob == "shared_kv_shm":
+            bad = [(dict(kw, shared_kv_pages=8, shared_kv_shm=False,
+                         shared_kv_geometry=STORE_GEOMETRY), ValueError,
+                    "shared memory")]
+        else:
+            bad = [(dict(kw, shared_kv_pages=8), KeyError, "block_size")]
+        for given, exc, match in bad:
+            with pytest.raises(exc, match=match):
+                ServingRouter(STUB_SPEC, replicas=2, backend="process",
+                              **given, **ENGINE_KW)
+            if exc is not ValueError or "geometry" in match:
+                # the JAX router raises the same type for it
+                with pytest.raises(exc):
+                    jax_router.ServingRouter(
+                        STUB_SPEC, replicas=2, backend="process",
+                        **given, **ENGINE_KW)
 
 
 # ------------------------------- RPC deadlines, retries and shutdown
@@ -655,6 +682,146 @@ class TestProcessRouter:
             audit_router(router)
         finally:
             router.shutdown()
+
+
+class TestProcessStore:
+    """The host-wide KV store under a process tier (the process drills of
+    tests/test_serving_shared_kv.py, and chip_smoke.py's phase 46 (d) and
+    (e) on the CPU): a shared-memory store the router owns, slot-reference
+    handoffs, the reap of a SIGKILLed child's refs, and a router's loss
+    recovered over the surviving segments."""
+
+    def _split(self, proc_env, **kw):
+        return _router(proc_env, prefill_replicas=1, shared_kv_pages=96,
+                       shared_kv_geometry=STORE_GEOMETRY, **kw)
+
+    def test_sigkilled_decode_child_refs_reaped_index_kept(self, proc_env):
+        """The decode child, SIGSTOPped while it holds store refs and then
+        SIGKILLed: the supervisor reaps its owner tag (the refs freed, the
+        index untouched), a fresh child takes over, streams exact, the
+        store's audit clean with the live owners, its segments intact."""
+        from paddle_tpu_torch.serving import audit_store
+        router = self._split(proc_env, snapshot_every_steps=2)
+        first = _children(router)
+        reaps = []
+        orig = router._reap_store_owner
+
+        def reap(rep):
+            store = router.kv_store
+            with store._lock:
+                idx = dict(store._prefix)
+                freed = orig(rep)
+                reaps.append((rep.store_owner, freed, all(
+                    store._prefix.get(h) == s for h, s in idx.items())))
+            return freed
+        router._reap_store_owner = reap
+        try:
+            store = router.kv_store
+            names = store.attach_spec()["segments"]
+            key = router._replicas[1].engine.key
+            work = workload(12, seed=3)
+            rids = [router.submit(p, sp) for p, sp in work]
+            held = 0
+            deadline = time.monotonic() + 60
+            while not held and time.monotonic() < deadline:
+                if any(key in o for o in store.owners_snapshot().values()):
+                    os.kill(first[1].pid, signal.SIGSTOP)
+                    held = sum(o.get(key, 0)
+                               for o in store.owners_snapshot().values())
+                    if not held:
+                        os.kill(first[1].pid, signal.SIGCONT)
+                time.sleep(0.001)
+            assert held, "the decode child never held a store ref"
+            os.kill(first[1].pid, signal.SIGKILL)
+            outs = router.drain(timeout_s=120.0)
+            _exact(outs, rids, work)
+            audit_router(router)
+            audit_store(store, {rep.store_owner for rep in router._replicas})
+            assert [(o, kept) for o, _, kept in reaps] == [(key, True)]
+            assert not any(key in o for o in
+                           store.owners_snapshot().values())
+            assert all(os.path.exists(f"/dev/shm/{n}") for n in names)
+            assert router._replicas[1].engine.key != key
+        finally:
+            router.shutdown()
+        _assert_reaped(first)
+
+    def test_split_store_tier_recovers_over_its_segments(self, proc_env,
+                                                         tmp_path):
+        """A journaled split tier over the store, abandoned mid-stream (a
+        router crash: its children killed, its metadata service gone, the
+        segments left), one journaled index entry's bytes corrupted:
+        recover() reattaches the same segments, revives every other
+        journaled entry (CRC-checked) and drops the corrupted one; a
+        handed-off request both restored children carry runs on one only
+        (its journaled owner), and every stream is exact."""
+        from paddle_tpu_torch.serving import SharedKVStore
+        from paddle_tpu_torch.serving.journal import RouterJournal
+        jp = str(tmp_path / "wal.jsonl")
+        router = self._split(proc_env, journal_path=jp,
+                             snapshot_every_steps=1)
+        work = workload(10, seed=4)
+        spec = router.kv_store.attach_spec()
+        r2 = None
+        try:
+            rids = [router.submit(p, sp) for p, sp in work]
+            deadline = time.monotonic() + 60
+            while (router._replicas[1].steps_done < 2
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)           # both children journaled
+            for rep in router._replicas:        # the crash
+                rep.fenced = True
+                rep.stop = True
+                rep.wake.set()
+            router.supervisor.stop()
+            for rep in router._replicas:
+                rep.thread.join(30)
+            router._journal.close()
+            router._store_server.close()
+            for rep in router._replicas:
+                rep.engine.kill()
+            store = router.kv_store
+            state, _ = RouterJournal.replay(jp)
+            entries = [e for e in state["store_idx"]["prefix"]
+                       if store.content_hash(e[1]) == e[3]]
+            assert entries
+            store.bufs[0][0][entries[0][1]] += 1.0
+            store.close(unlink=False)
+            # the prefill child's snapshot taken before a handoff, the
+            # decode child's after it: one request in both, journaled as
+            # the decode child's (the window a slow prefill step leaves
+            # open on the card)
+            dup = next(r for r in state["snaps"][0]["requests"]
+                       if not state["reqs"][r["request_id"]]["done"])
+            state["reqs"][dup["request_id"]]["owner"] = 1
+            state["snaps"][1]["requests"].append(dup)
+            RouterJournal(jp, resume_state=state).close()
+            revived = []
+            real = SharedKVStore.restore_index
+
+            def restore_index(st, idx):
+                revived.append((real(st, idx), st.has_prefix(entries[0][0]),
+                                list(st._segment_names)))
+                return revived[-1][0]
+            SharedKVStore.restore_index = restore_index
+            try:
+                r2 = ServingRouter.recover(
+                    STUB_SPEC, jp, replicas=2, snapshot_every_steps=1,
+                    child_env=proc_env, prefill_replicas=1,
+                    shared_kv_pages=96, shared_kv_geometry=STORE_GEOMETRY,
+                    **dict(TIER_KW, **ENGINE_KW))
+            finally:
+                SharedKVStore.restore_index = real
+            assert revived == [(len(entries) - 1, False,
+                                spec["segments"])]
+            outs = r2.drain(timeout_s=120.0)
+            audit_router(r2)
+            _exact(outs, rids, work)
+            assert r2.metrics.snapshot()["replica_crashes"] == 0
+        finally:
+            if r2 is not None:
+                r2.shutdown()
+            SharedKVStore.unlink_spec(spec)
 
 
 # ------------------------------------------ a Llama in every child

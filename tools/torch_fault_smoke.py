@@ -35,6 +35,22 @@ Classes:
     conn_reset            the command connection dies under a step:
                           respawn
 
+With `--shared-kv [N]` (N store pages, default 64) the tool runs the
+host-wide KV store's drill instead (tools/fault_smoke.py --shared-kv): two
+thread replicas over ONE SharedKVStore, a session workload whose second
+turns resume from the store after a rolling restart, and one fault at the
+store's weakest moment:
+
+    none                  baseline: turn 2 pages in from the store
+    replica_kill          a replica dies during turn 2: the supervisor
+                          reaps its store refs (index-owned pages survive)
+    router_kill           the router dies during turn 2 over a shared-
+                          memory store: recover() reattaches the segments
+                          and revives the journaled index
+    corrupt_slot          an indexed slot's bytes are corrupted: the
+                          auditor's spot check trips, scrub() drops the
+                          entry, the turn recomputes it
+
 Prints one JSON line per class; exits 0 iff every class is ok. On the
 card (the default device) the children launch the port's kernels; with
 --device cpu the children get CUDA_VISIBLE_DEVICES="" and run the plain
@@ -58,6 +74,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 PROC_FAULTS = ("none", "replica_sigkill", "replica_sigstop", "handoff",
                "handoff_prefill_kill")
 NET_FAULTS = ("router_kill", "frame_corrupt", "rpc_delay", "conn_reset")
+SHARED_KV_FAULTS = ("none", "replica_kill", "router_kill", "corrupt_slot")
 VOCAB = 97
 
 
@@ -343,6 +360,125 @@ def run_wire_class(fault, runner, args):
             "retry_path_exercised": retried, **rec}
 
 
+def run_shared_kv_class(fault: str, runner, args) -> dict:
+    """One fault class of the host-wide store (module docstring): 2 thread
+    replicas over ONE SharedKVStore, the sessions' turn 1, a rolling
+    restart (the draining replicas demote their caches into the store),
+    then turn 2 with the class's fault."""
+    from paddle_tpu_torch.serving import (
+        InvariantViolation, SamplingParams, ServingRouter, audit_router,
+        audit_store, naive_generate,
+    )
+
+    rng = np.random.default_rng(0)
+    jp = (tempfile.mktemp(suffix=".jsonl") if fault == "router_kill"
+          else None)
+    rkw = dict(replicas=2, num_blocks=args.num_blocks,
+               max_batch_size=args.max_batch,
+               max_model_len=args.max_model_len, max_step_retries=2,
+               retry_backoff_s=0.001, audit=True, enable_prefix_cache=True,
+               max_prefill_tokens_per_step=args.chunk or None,
+               heartbeat_timeout_s=args.heartbeat, poll_interval_s=0.05,
+               shared_kv_pages=args.shared_kv, snapshot_every_steps=1)
+    if jp is not None:
+        rkw.update(journal_path=jp, journal_fsync="always",
+                   shared_kv_shm=True)
+
+    def factory(idx=0):
+        return _runner(args)
+    router = ServingRouter(factory, **rkw)
+    header = [int(t) for t in rng.integers(1, VOCAB, 2 * args.block_size)]
+    work, t2, outs1, recovery = [], [], {}, {}
+    crashed = dead_owner = spec = None
+    try:
+        for i in range(args.requests):
+            prompt = header + [int(t) for t in rng.integers(
+                1, VOCAB, int(rng.integers(2, 8)))]
+            sp = SamplingParams(max_tokens=int(rng.integers(
+                3, args.max_tokens)), session_id=f"s{i}")
+            work.append((router.submit(prompt, sp), prompt, sp))
+        outs1 = router.drain(timeout_s=600.0)
+        audit_router(router)
+        router.rolling_restart()
+        store = router.kv_store
+        recovery["store_prefix_pages"] = store.prefix_count
+        if fault == "corrupt_slot":
+            victim = next(iter(store._prefix.values()))
+            store.bufs[0][0][victim] += 1.0
+            try:
+                audit_store(store)
+                recovery["spot_check_tripped"] = False
+            except InvariantViolation:
+                recovery["spot_check_tripped"] = True
+            recovery["scrubbed"] = store.scrub()
+        for i, (rid, p, sp) in enumerate(work):
+            p2 = p + outs1[rid].output_tokens
+            sp2 = SamplingParams(max_tokens=4, session_id=f"s{i}")
+            t2.append((router.submit(p2, sp2), p2, sp2))
+        if fault == "replica_kill":
+            dead_owner = router._replicas[0].store_owner
+            router.kill_replica(0)
+        elif fault == "router_kill":
+            for rep in router._replicas:
+                rep.fenced = True
+                rep.stop = True
+                rep.wake.set()
+            router.supervisor.stop()
+            router._journal.close()
+            for rep in router._replicas:
+                rep.thread.join(60)
+            spec = router.kv_store.attach_spec()
+            dead = router
+            t0 = time.perf_counter()
+            router = ServingRouter.recover(
+                factory, jp, **{k: v for k, v in rkw.items()
+                                if k != "journal_path"})
+            dead.kv_store.close(unlink=False)
+            recovery["router_recovery_s"] = time.perf_counter() - t0
+            recovery["store_index_revived"] = router.kv_store.prefix_count
+        outs = router.drain(timeout_s=600.0)
+        audit_router(router)
+    except Exception as e:          # must never happen: the point
+        crashed = f"{type(e).__name__}: {e}"
+        outs = router.outputs()
+    rm = router.metrics.snapshot()
+    agg = router.metrics_snapshot()["engines"]
+    owners = (router.kv_store.owners_snapshot()
+              if router.kv_store is not None else {})
+    reaped = all(dead_owner not in own for own in owners.values())
+    router.release_prefix_caches()
+    leaks_ok = router.check_no_leaks()
+    oracle_ok = all(
+        (outs.get(rid) or outs1.get(rid)) is not None
+        and (outs.get(rid) or outs1.get(rid)).output_tokens
+        == naive_generate(runner, p, sp, max_model_len=args.max_model_len)
+        for rid, p, sp in work + t2)
+    router.shutdown()
+    if spec is not None:
+        from paddle_tpu_torch.serving import SharedKVStore
+        SharedKVStore.unlink_spec(spec)     # a no-op after the shutdown
+    if jp is not None and os.path.exists(jp):
+        os.unlink(jp)
+    ok = (crashed is None and leaks_ok and oracle_ok and reaped
+          and all(o.finish_reason for o in outs.values())
+          and recovery.get("store_prefix_pages", 0) > 0
+          and agg["store_hit_pages"] > 0
+          and (fault != "replica_kill" or rm["replica_restarts"] >= 1)
+          and (fault != "router_kill"
+               or recovery.get("store_index_revived", 0) > 0)
+          and (fault != "corrupt_slot"
+               or (recovery.get("spot_check_tripped")
+                   and recovery.get("scrubbed", 0) >= 1)))
+    return {"fault": f"shared_kv_{fault}", "ok": ok,
+            "requests": len(work) + len(t2),
+            "no_unhandled_exception": crashed is None, "crash": crashed,
+            "oracle_token_equal": oracle_ok, "pages_leaked": not leaks_ok,
+            "dead_owner_reaped": reaped,
+            "store_hit_pages": agg["store_hit_pages"],
+            "store_dedup_pages": agg["store_dedup_pages"],
+            "replica_restarts": rm["replica_restarts"], **recovery}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -358,6 +494,9 @@ def main() -> int:
     ap.add_argument("--chunk", type=int, default=8)
     ap.add_argument("--heartbeat", type=float, default=15.0,
                     help="the sigstop class's heartbeat, seconds")
+    ap.add_argument("--shared-kv", type=int, nargs="?", const=64, default=0,
+                    help="run the host-wide store's drill over N store "
+                         "pages (default 64)")
     ap.add_argument("--net-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.net_child:
@@ -367,8 +506,16 @@ def main() -> int:
         torch.set_num_threads(1)
     runner = _runner(args)
     ok = True
-    for fault in [f for f in args.faults.split(",") if f]:
-        if fault in PROC_FAULTS:
+    faults = [f for f in args.faults.split(",") if f]
+    if args.shared_kv and args.faults == ap.get_default("faults"):
+        faults = list(SHARED_KV_FAULTS)
+    for fault in faults:
+        if args.shared_kv:
+            if fault not in SHARED_KV_FAULTS:
+                raise SystemExit(f"unknown store fault class {fault!r}; "
+                                 f"expected one of {SHARED_KV_FAULTS}")
+            rec = run_shared_kv_class(fault, runner, args)
+        elif fault in PROC_FAULTS:
             rec = run_proc_class(fault, runner, args)
         elif fault == "router_kill":
             rec = run_router_kill(runner, args)

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's phases 42-45 alone (the serving tier at LLaMA-2-7B fp32,
-random weights; the int8 split arm at 8 of 32 layers; phase 45 the tier
-over replica processes at 8 of 32 layers), after building the kernels: the
-quickest way to re-run the tier's gates on the card.
+"""chip_smoke.py's phases 42-46 alone (the serving tier at LLaMA-2-7B fp32,
+full width and 8 of 32 layers, random weights; phase 45 the tier over
+replica processes and phase 46 the host-wide KV store, at the same depth),
+after building the kernels: the quickest way to re-run the tier's gates on
+the card.
 
-    python3 tools/torch_tier_phases.py [42] [43] [44] [45]
+    python3 tools/torch_tier_phases.py [42] [43] [44] [45] [46]
 
-With no argument it runs all four; without 42 the reference streams come
-from one engine on the same traffic. Phase 45 alone builds no full-depth
-model: its children build their own, and the parent frees its reference
-engines before they start. Needs an NVIDIA card.
+With no argument it runs all five; without 42 the reference streams come
+from one engine on the same traffic. Phase 45 builds no model here
+(its children build their own, and the parent frees its reference engines
+before they start); phase 46 frees its thread arms' model before its
+children start. Needs an NVIDIA card.
 """
 
 import sys
@@ -33,18 +35,22 @@ def main():
     _build.library()
     cs.lap("build")
     cfg = LLAMA2_7B
-    only = sys.argv[1:] or ["42", "43", "44", "45"]
-    if only == ["45"]:
-        cs.process_tier_phase(cfg, cs.router_requests(cfg))
+    only = sys.argv[1:] or ["42", "43", "44", "45", "46"]
+    if set(only) <= {"45", "46"}:
+        reqs = cs.router_requests(cfg)
+        if "45" in only:
+            cs.process_tier_phase(cfg, reqs)
+        if "46" in only:
+            cs.store_tier_phase(cfg, reqs)
         cs.log(f"time by part (s): {cs._LAPS}")
-        cs.log("phases 45: ok")
+        cs.log("phases " + " ".join(only) + ": ok")
         return
-    model = Llama(cfg, device="cuda", seed=0)
-    q_cfg = replace(cfg, num_layers=8)
-    q_model = Llama(q_cfg, device="cuda", seed=0)
+    # phases 42-44 run at 8 of the 32 layers, as in the smoke
+    t_cfg = replace(cfg, num_layers=8)
+    model = Llama(t_cfg, device="cuda", seed=0)
     cs.lap("models")
     if "42" in only:
-        _, ref, reqs, runner = cs.tier_phase(model, cfg)
+        _, ref, reqs, runner = cs.tier_phase(model, t_cfg)
     else:
         reqs = cs.router_requests(cfg)
         single = create_serving_engine(model, device="cuda",
@@ -57,15 +63,15 @@ def main():
         del single
         cs._free_the_card()
     if "43" in only:
-        cs.disagg_phase(model, cfg, q_model, q_cfg, ref, reqs, runner)
-    del q_model
-    cs._free_the_card()
+        cs.disagg_phase(model, t_cfg, reqs)
     if "44" in only:
-        cs.durability_phase(model, cfg, ref, reqs, runner)
+        cs.durability_phase(model, t_cfg, ref, reqs, runner)
+    del model, runner
+    cs._free_the_card()
     if "45" in only:
-        del model, runner
-        cs._free_the_card()
         cs.process_tier_phase(cfg, reqs)
+    if "46" in only:
+        cs.store_tier_phase(cfg, reqs)
     cs.log(f"time by part (s): {cs._LAPS}")
     cs.log("phases " + " ".join(only) + ": ok")
 
