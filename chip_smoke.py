@@ -591,7 +591,49 @@ exits non-zero without printing a result:
               store RPCs per handoff, spill and page-in GB/s (host clock),
               the time from a first token to the next in (b) and (c), the
               phase's seconds.
- 47. summary  one JSON line of every kernel's launches, error and times
+ 47. tensor   tensor-parallel serving of LLaMA-2-7B (full width) on a
+     parallel  mesh of tp shards on the one card
+              (serving_mesh(1, tp, devices=[cuda:0] * tp)), each shard's
+              weights views of the model's, its pools n_kv / tp heads:
+              (a) fp32 at tp = 2, full depth, phase 4's traffic and
+              weights: token-exact against the sharded runner's
+              naive_generate on two requests (phase 4's gate); the streams
+              phase 4's, or parting only where the unsharded runner's top-2
+              margin is within 1e-4 of max|logit|; a prefill's and two
+              decode steps' logits within 1e-4 of max|logit| of the
+              unsharded runner's; per-shard pool bytes half the pool's; K1
+              and K2 once a layer a shard on every call, only on 16-head
+              pool slices, no plain version. (b) comm_dtype="int8" on the
+              same weights: tp_comm_bytes_reduction_x and
+              tp_gather_bytes_reduction_x = 4 / (1 + 4/128); a one-slot
+              engine token-exact against naive_generate on the two
+              shortest prompts (phase 6's rule for quantized arms);
+              quantized_psum / quantized_allgather on the card bit-equal to
+              their numpy references (tp 2 and 4, chunks 4 and 128, widths
+              4096 and 130); the teacher-forced top-5 overlap and mean
+              |dlogit| against (a)'s runner, reported (JAX's toy-model
+              gates, 0.99 and 0.05, do not hold at LLaMA-2-7B's random
+              weights over 32 layers: PERF.md §6), and at 8 layers gated
+              at >= 0.9 and <= 0.05; at both depths every step's logits
+              part from the fp32 runner's by more than 1e-3 of max|logit|
+              (an int8 runner that ran the fp32 reduction fails). (c) bf16
+              compute over an int8 pool at tp = 2, 8 of 32 layers: bf16-q
+              K1-q once a layer a shard, both forms, the scale pools split;
+              streams a single-device bf16 / int8 engine's or parting
+              where its margin is within GATHER_TOL[bf16]; a one-slot
+              engine token-exact against naive_generate. (d) fp32 at
+              tp = 4, 8 of 32 layers: a
+              decode_horizon=8 engine with the host tier on phase 40's
+              traffic under phase 40's gates (CUDA graphs over 4 shards,
+              every paged-in page's CRC in the logical layout), a snapshot
+              of it restored onto a tp = 2 runner finishing its streams
+              (margin rule at 1e-4). Printed: device and wall ms of a
+              256-token chunk and an 8-row decode step at tp 1 / 2 / 4 (8
+              layers), capture seconds, per-shard memory, each reduction
+              timed alone and its share of the step, K1 at [1,256,16,128]
+              and K2 at [8,16,128] (the per-shard heads) against plain,
+              bound and SDPA.
+ 48. summary  one JSON line of every kernel's launches, error and times
               (K1's decode-form times as extra decode_* keys, its engine
               launches by form under launches_by_form, the fp64 ratios
               under fp64_ratio; the masked kernels as *_masked rows with
@@ -1444,24 +1486,32 @@ def engine_phase(model, cfg, kv_dtype="fp32", seed=0, n_requests=8,
                              f"{int(m.nan_logit_events.value)} logits rows "
                              "were not finite")
     path = _path_kernels(kv_dtype, dtype)
+    # a sharded runner (phase 47) launches each kernel once a shard
+    shards = eng.runner.tp_size
     if len(path) == 2:
         if min(kernel[n] for n in path) == 0:
             raise AssertionError(f"main path missed a kernel: {kernel}")
-        # MHA decode: K2 once a layer on every decode call
+        # MHA decode: K2 once a layer (a shard) on every decode call
         calls = m.batch_occupancy.count
-        if kernel[path[1]] != cfg.num_layers * calls:
+        if kernel[path[1]] != cfg.num_layers * shards * calls:
             raise AssertionError(
                 f"{path[1]} launched {kernel[path[1]]} times, not "
-                f"{cfg.num_layers} layers x {calls} decode calls")
+                f"{cfg.num_layers} layers x {shards} shards x {calls} "
+                "decode calls")
     else:
         # K1-q on every prefill chunk and every decode call, once a layer
+        # (a shard)
         calls = int(m.prefill_chunks.value) + m.batch_occupancy.count
-        if kernel[path[0]] != cfg.num_layers * calls:
+        if kernel[path[0]] != cfg.num_layers * shards * calls:
             raise AssertionError(
                 f"{path[0]} launched {kernel[path[0]]} times, not "
-                f"{cfg.num_layers} layers x {calls} calls")
+                f"{cfg.num_layers} layers x {shards} shards x {calls} "
+                "calls")
         # chunks take the span form, decode steps (G = 1) the decode form
-        if set(forms.get(path[0], {})) != {"span", "decode"}:
+        # (16-bit q: the split walk over tables of more than one split)
+        got = set(forms.get(path[0], {}))
+        if "span" not in got or not got & {"decode", "decode_split"} or \
+                got - {"span", "decode", "decode_split"}:
             raise AssertionError(f"{path[0]} did not launch both forms: "
                                  f"{forms}")
     if plain != 0 or any(n not in path and k for n, k in kernel.items()):
@@ -1555,7 +1605,7 @@ def single_slot_check(model, cfg, kv_dtype, prompts, max_tokens=32,
     path = _path_kernels(kv_dtype, dtype)
     chunks = int(eng.metrics.prefill_chunks.value)
     decodes = eng.metrics.batch_occupancy.count
-    L = cfg.num_layers
+    L = cfg.num_layers * eng.runner.tp_size     # once a layer a shard
     want = ({path[0]: L * (chunks + decodes)} if len(path) == 1
             else {path[0]: L * chunks, path[1]: L * decodes})
     what = f"{kv_dtype} KV" + (f", {HALF_SUFFIX[dtype]}" if dtype else "") \
@@ -1611,7 +1661,7 @@ def quant_paths(model, runner_cls, kind, seed=2, chunks=(256, 256),
                            runner.head_dim, runner.dtype, device="cuda",
                            kv_dtype=kind)
         table = pool.pad_table(pool.allocator.alloc(P), P)
-        pools, logits, start = pool.pools, [], 0
+        pools, logits, start = pool.shards, [], 0
         # copies: a replayed decode returns its graph's output buffer,
         # which the next replay overwrites
         for c in chunks:
@@ -1628,7 +1678,7 @@ def quant_paths(model, runner_cls, kind, seed=2, chunks=(256, 256),
                 np.asarray([table] + [[0] * P] * dead, np.int32),
                 np.asarray([n + i] + [0] * dead, np.int32), pools)
             logits.append(lg[0].float().clone())
-        return logits, pools
+        return logits, pools[0]                 # the one shard's layers
 
     counts = _all_counts()
     for _, c in counts:
@@ -1795,9 +1845,9 @@ def graphs_phase(model, cfg, kv_dtype, B=8, seed=3):
         pool = KVCachePool(cfg.num_layers, B * P + 1, 16, runner.n_kv_heads,
                            runner.head_dim, device="cuda", kv_dtype=kv_dtype)
         rows = [pool.pad_table(pool.allocator.alloc(P), P) for _ in prompts]
-        firsts = [int(torch.argmax(runner.prefill(p, r, pool.pools)[0]))
+        firsts = [int(torch.argmax(runner.prefill(p, r, pool.shards)[0]))
                   for p, r in zip(prompts, rows)]
-        pools.append(pool.pools)
+        pools.append(pool.shards)
         tables = np.asarray(rows, np.int32)
     pos = np.asarray([len(p) for p in prompts], np.int32)
     fed = np.asarray(firsts, np.int32)
@@ -1839,7 +1889,8 @@ def graphs_phase(model, cfg, kv_dtype, B=8, seed=3):
         fed = last.to(torch.int32).cpu().numpy()
     plain = sum(c.plain_launches for _, c in every)
     same_pools = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
-                     for la, lb in zip(*pools) for a, b in zip(la, lb))
+                     for sa, sb in zip(*pools) for la, lb in zip(sa, sb)
+                     for a, b in zip(la, lb))
     for cap in runner.captures:
         log(f"graphs ({kv_dtype} KV) capture {cap['kind']} key {cap['key']}:"
             f" {cap['seconds']:.3f} s, graph pool "
@@ -2077,7 +2128,7 @@ def _top2_margin(runner, prompt, tokens, j) -> float:
     pool = KVCachePool(runner.num_layers, n + 1, runner.block_size,
                        runner.n_kv_heads, runner.head_dim, runner.dtype,
                        device=runner.device, kv_dtype=runner.kv_dtype)
-    logits, _ = runner.prefill(ctx, pool.allocator.alloc(n), pool.pools)
+    logits, _ = runner.prefill(ctx, pool.allocator.alloc(n), pool.shards)
     top = torch.topk(logits.float(), 2).values
     return float(top[0] - top[1])
 
@@ -2627,7 +2678,7 @@ def half_twin_check(model, label, dtype=BF16):
         table = pool.pad_table(pool.allocator.alloc(P), P)
         counts = _zeroed_counts()
         out = []
-        pools = pool.pools
+        pools = pool.shards
         # copies: a replayed decode returns its graph's output buffer,
         # which the next replay overwrites
         for start in (0, 256):
@@ -3022,7 +3073,7 @@ def _gate_twin(label, runner, prompt, got, want, tol=None):
                        runner.n_kv_heads, runner.head_dim, runner.dtype,
                        device=runner.device, kv_dtype=runner.kv_dtype)
     pool.tag_pages(pool.allocator.alloc(n), pool.native_kv_tag())
-    logits = runner.prefill(ctx, list(range(1, n + 1)), pool.pools)[0]
+    logits = runner.prefill(ctx, list(range(1, n + 1)), pool.shards)[0]
     top2 = torch.topk(logits.float(), 2).values
     margin = (top2[0] - top2[1]).item()
     top = logits.float().abs().max().item()
@@ -3225,7 +3276,7 @@ def profile_phase(eng, cfg, seed=1, n_requests=8, prompt_len=300,
 
     rng = np.random.default_rng(seed)
     dt = eng.runner.dtype
-    c1 = k1.counts_for(dt, eng.pool.pools[0][0].dtype)   # K1 or K1-q
+    c1 = k1.counts_for(dt, eng.pool.shards[0][0][0].dtype)   # K1 or K1-q
     c2 = k2.counts_for(dt)
     what = f"{eng.kv_dtype} KV" + (f", {HALF_SUFFIX[dt]}" if dt in HALF_SUFFIX
                                    else "") \
@@ -5328,8 +5379,8 @@ class TierSpy:
         eng._fence_pagein = fence_pagein
 
 
-def tier_arm(model, cfg, label, prompts, sp, **knobs):
-    """One phase 40 arm: the tier engine serves the traffic under the
+def tier_arm(model, cfg, label, prompts, sp, phase="phase 40", **knobs):
+    """One phase 40 arm (or ``phase``'s): the tier engine serves the traffic under the
     auditor (audit_engine after every step: the tier's slot accounting,
     owners, the CRC spot check), through the path's kernels and no plain
     version, with preemptions resumed by page-in and every restored page
@@ -5363,29 +5414,29 @@ def tier_arm(model, cfg, label, prompts, sp, **knobs):
                blocking_joins=tier.blocking_joins,
                sync_spill_reads=tier.sync_spill_reads, launches=kernel,
                by_form=forms)
-    log(f"phase 40 {label} ({eng.pool.kv_dtype} pool, "
+    log(f"{phase} {label} ({eng.pool.kv_dtype} pool, "
         f"{cfg.num_layers} layers): {json.dumps(run)}")
     path = _path_kernels(eng.pool.kv_dtype)
     if (len(outs) != len(prompts) or any(
             o.finish_reason != "length" for o in outs.values())):
-        raise AssertionError(f"phase 40 {label}: not every request finished")
+        raise AssertionError(f"{phase} {label}: not every request finished")
     if m["nan_logit_events"]:
-        raise AssertionError(f"phase 40 {label}: non-finite logits")
+        raise AssertionError(f"{phase} {label}: non-finite logits")
     if plain or set(kernel) != set(path):
-        raise AssertionError(f"phase 40 {label}: launched {kernel}, plain "
+        raise AssertionError(f"{phase} {label}: launched {kernel}, plain "
                              f"{plain}; the path is {path}")
     if not (m["preemptions"] > 0 and m["offload_resumes"] > 0
             and m["pagein_pages"] > 0):
-        raise AssertionError(f"phase 40 {label}: no page-in resume: {run}")
+        raise AssertionError(f"{phase} {label}: no page-in resume: {run}")
     if spy.checked != m["pagein_pages"]:
-        raise AssertionError(f"phase 40 {label}: {spy.checked} restored "
+        raise AssertionError(f"{phase} {label}: {spy.checked} restored "
                              f"pages checked of {m['pagein_pages']}")
     if knobs.get("spill_async") and (tier.blocking_joins
                                      or tier.sync_spill_reads):
-        raise AssertionError(f"phase 40 {label}: the engine loop waited on "
+        raise AssertionError(f"{phase} {label}: the engine loop waited on "
                              f"a spill: {run}")
     if not eng.pool.allocator.check_no_leaks() or tier.used_count:
-        raise AssertionError(f"phase 40 {label}: leaked device pages or "
+        raise AssertionError(f"{phase} {label}: leaked device pages or "
                              "host slots")
     return eng, [outs[i].output_tokens for i in ids], run
 
@@ -5437,7 +5488,7 @@ def resume_device_ms(eng, prompt):
     torch.cuda.synchronize()
     start.record()
     for c in range(0, len(prompt), 256):
-        runner.prefill_chunk(prompt[c:c + 256], c, table, pool.pools)
+        runner.prefill_chunk(prompt[c:c + 256], c, table, pool.shards)
     end.record()
     end.synchronize()
     recompute = start.elapsed_time(end)
@@ -7638,6 +7689,438 @@ def store_tier_phase(cfg, reqs):
     return out
 
 
+# --------------------------------------- tensor-parallel serving (47)
+
+# the ratio of fp32 to int8 wire bytes of a row of 4096 (or 16000) values:
+# one code byte each plus a 4-byte scale per 128-value chunk
+QCOMM_REDUCTION = 4 / (1 + 4 / 128)
+# phase 47 (b)'s accuracy gate of int8 comm against the fp32 sharded
+# runner at 8 layers, teacher-forced (read 0.9647 / 0.0326 on the H100),
+# and the least max|dlogit| / max|logit| of a step, at 10 x TOL (the fp32
+# sharded runner's own gate), that shows the int8 reduction ran
+QCOMM_TOP5_MIN, QCOMM_DLOGIT_MAX = 0.9, 0.05
+QCOMM_PARTS_MIN = 10 * TOL
+
+
+def card_mesh(tp):
+    """A (data=1, model=tp) serving mesh of tp shards on card 0."""
+    from paddle_tpu_torch.serving import serving_mesh
+    return serving_mesh(1, tp, devices=[torch.device("cuda", 0)] * tp)
+
+
+class HeadSpy:
+    """The kv heads of every pool slice K1 and K2 are called on (the
+    names the runner calls; a graph replay makes no call), restored by
+    close()."""
+
+    def __init__(self):
+        import paddle_tpu_torch.serving.model_runner as mr
+        self.mr = mr
+        self.orig = (mr.ragged_paged_attention, mr.paged_decode_attention)
+        self.heads = {"K1": set(), "K2": set()}
+
+        def spy(name, fn):
+            def call(q, k_pool, *a, **kw):
+                self.heads[name].add(int(k_pool.shape[2]))
+                return fn(q, k_pool, *a, **kw)
+            return call
+        mr.ragged_paged_attention = spy("K1", self.orig[0])
+        mr.paged_decode_attention = spy("K2", self.orig[1])
+
+    def close(self):
+        self.mr.ragged_paged_attention, self.mr.paged_decode_attention = \
+            self.orig
+
+
+def _runner_logits(runners, prompt, steps, feed_from=0):
+    """Teacher-forced logits of ``runners`` (each over a pool of its own
+    mesh, eagerly): a prefill of ``prompt`` then ``steps`` decode steps,
+    each fed runners[feed_from]'s argmax. Returns per runner the list of
+    fp32 logits [V]."""
+    from paddle_tpu_torch.serving import KVCachePool
+    P = -(-(len(prompt) + steps) // 16)
+    out, state = [], []
+    for r in runners:
+        pool = KVCachePool(r.num_layers, P + 1, 16, r.n_kv_heads,
+                           r.head_dim, r.dtype, mesh=r.mesh,
+                           model_axis=r.model_axis, device="cuda",
+                           kv_dtype=r.kv_dtype)
+        table = pool.pad_table(pool.allocator.alloc(P), P)
+        graphs, r.graphs = r.graphs, False
+        lg, pools = r.prefill(prompt, table, pool.shards)
+        out.append([lg.float().clone()])
+        state.append((pool, table, pools, graphs))
+    for i in range(steps):
+        tok = int(torch.argmax(out[feed_from][-1]))
+        pos = np.asarray([len(prompt) + i], np.int32)
+        for j, r in enumerate(runners):
+            pool, table, pools, graphs = state[j]
+            lg, pools = r.decode(np.asarray([tok], np.int32),
+                                 np.asarray(table, np.int32)[None], pos,
+                                 pools)
+            out[j].append(lg[0].float().clone())
+            state[j] = (pool, table, pools, graphs)
+    for r, (_, _, _, graphs) in zip(runners, state):
+        r.graphs = graphs
+    return out
+
+
+def _teacher_forced(ref, quant, prompt, steps=16):
+    """``quant``'s logits against ``ref``'s over ``ref``'s greedy stream:
+    the mean top-5 overlap, the mean |dlogit|, the mean |logit| and the
+    least step's max|dlogit| over its max|logit|."""
+    lf = _runner_logits([ref, quant], prompt, steps)
+    return {"top5": float(np.mean([
+                len(set(torch.topk(a, 5).indices.tolist())
+                    & set(torch.topk(b, 5).indices.tolist())) / 5.0
+                for a, b in zip(*lf)])),
+            "mean_abs_dlogit": float(np.mean([(a - b).abs().mean().item()
+                                              for a, b in zip(*lf)])),
+            "mean_abs_logit": float(np.mean([a.abs().mean().item()
+                                             for a in lf[0]])),
+            "min_step_rel": min((a - b).abs().max().item()
+                                / a.abs().max().item()
+                                for a, b in zip(*lf))}
+
+
+def qcomm_card_check(gen):
+    """quantized_psum / quantized_allgather on card tensors against the
+    numpy references, bit for bit: tp 2 and 4, chunks 4 and 128, widths
+    4096 and 130 (which 128 does not divide)."""
+    from paddle_tpu_torch.quantization import qcomm
+    cases = 0
+    for tp in (2, 4):
+        for chunk in (4, 128):
+            for width in (4096, 130):
+                parts = [torch.randn(8, width, device="cuda", generator=gen)
+                         * 10.0 ** (i - 1) for i in range(tp)]
+                host = [p.cpu().numpy() for p in parts]
+                for fn, ref in (
+                        (qcomm.quantized_psum,
+                         qcomm.quantized_allreduce_reference),
+                        (qcomm.quantized_allgather,
+                         qcomm.quantized_allgather_reference)):
+                    got = fn(parts, chunk=chunk)
+                    want = ref(host, chunk=chunk)
+                    for g in got:
+                        if not np.array_equal(g.cpu().numpy(), want):
+                            raise AssertionError(
+                                f"phase 47: {fn.__name__} on the card at tp "
+                                f"{tp}, chunk {chunk}, width {width} is not "
+                                "bit-equal to its numpy reference")
+                    cases += 1
+    return cases
+
+
+def _step_ms(runner, chunk_tokens, decode_rows, reps=5):
+    """Device and wall ms of one 256-token prefill chunk (eager) and of one
+    decode step of ``decode_rows`` sequences (a graph replay after its
+    capture) on ``runner`` over a pool of its mesh: medians of ``reps``
+    after two warm-ups. Returns (chunk, decode) dicts."""
+    from paddle_tpu_torch.serving import KVCachePool
+    P = 64
+    pool = KVCachePool(runner.num_layers, decode_rows * P + 1, 16,
+                       runner.n_kv_heads, runner.head_dim, runner.dtype,
+                       mesh=runner.mesh, model_axis=runner.model_axis,
+                       device="cuda")
+    tables = [pool.pad_table(pool.allocator.alloc(P), P)
+              for _ in range(decode_rows)]
+    pools = pool.shards
+
+    def timed(fn):
+        dev, wall = [], []
+        for i in range(reps + 2):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            if i >= 2:
+                wall.append(1e3 * (time.perf_counter() - t))
+                dev.append(start.elapsed_time(end))
+        return {"device_ms": statistics.median(dev),
+                "wall_ms": statistics.median(wall)}
+
+    chunk = timed(lambda: runner.prefill_chunk(chunk_tokens, 256, tables[0],
+                                               pools))
+    toks = np.ones(decode_rows, np.int32)
+    tabs = np.asarray(tables, np.int32)
+    pos = np.full(decode_rows, 300, np.int32)
+    decode = timed(lambda: runner.decode(toks, tabs, pos, pools))
+    return chunk, decode
+
+
+def tp_phase(model, cfg, q_model, q_cfg, fp32_tokens, positions):
+    """Phase 47: tensor-parallel serving of LLaMA-2-7B (full width) on
+    serving_mesh(1, tp, devices=[cuda:0] * tp), the shards' weights views
+    of the model's. (a) fp32 at tp = 2 and full depth, phase 4's traffic
+    and weights: the engine's tokens equal its runner's naive_generate on
+    two requests (phase 4's gate), the streams phase 4's where not parting
+    at a token whose top-2 margin lies within TOL of max|logit| (the
+    unsharded runner's), a prefill's and two decode steps' logits within
+    TOL of max|logit| of the unsharded runner's, per-shard pool bytes half
+    the pool's, K1 and K2 launched once a layer a shard on every call at
+    16 kv heads and no plain version. (b) comm_dtype="int8" on the same
+    weights: both wire-byte reductions 4 / (1 + 4/128), a one-slot
+    engine's tokens equal to its runner's naive_generate on the two
+    shortest prompts (phase 6's rule for quantized arms),
+    quantized_psum / quantized_allgather on the card bit-equal to the
+    numpy references; the teacher-forced top-5 overlap and mean |dlogit|
+    against the fp32 sharded runner at 32 layers (reported) and at 8
+    (gated: QCOMM_TOP5_MIN, QCOMM_DLOGIT_MAX), every step's logits parting
+    from the fp32 runner's by more than QCOMM_PARTS_MIN of max|logit| at
+    both depths. (c) bf16 compute over an int8 pool at tp = 2, 8 of
+    32 layers: bf16-q K1-q once a layer a shard (both forms), the scale
+    pools split; the streams a single-device bf16 / int8 engine's where
+    not parting at a token whose top-2 margin lies within GATHER_TOL[bf16]
+    of max|logit|; a one-slot engine token-exact against naive_generate.
+    (d) fp32 at tp = 4, 8 of 32 layers: a decode-horizon engine (its
+    decode kinds CUDA graphs over 4 shards) with the host tier, phase
+    40's traffic under phase 40's gates (every paged-in page's CRC, read
+    back in the logical layout, equal to its spilled page's and the
+    tier's hash); a snapshot of it restored onto a tp = 2 runner finishes
+    its streams (the margin rule at TOL). Then the device and wall ms of a
+    chunk and a decode step at tp 1 / 2 / 4 at that depth, the
+    reductions' share of the decode step (each reduction timed alone at
+    its shape), K1 and K2 at the per-shard head count. Returns the
+    numbers."""
+    from paddle_tpu_torch.inference import (
+        create_serving_engine, restore_serving_engine,
+    )
+    from paddle_tpu_torch.parallel import psum
+    from paddle_tpu_torch.quantization.qcomm import quantized_psum
+    from paddle_tpu_torch.serving import LlamaRunner
+
+    t0 = time.perf_counter()
+    out = {}
+    mesh2, mesh4 = card_mesh(2), card_mesh(4)
+    ref = LlamaRunner(model, 16, 4096)        # the unsharded runner
+    # (a) fp32 at tp = 2, full depth
+    spy = HeadSpy()
+    try:
+        eng, launches, _, tokens, prompts, forms = engine_phase(
+            model, cfg, gate_naive=True, mesh=mesh2)
+    finally:
+        spy.close()
+    runner = eng.runner
+    shard_heads = cfg.num_kv_heads // 2 if cfg.num_kv_heads else \
+        cfg.num_heads // 2
+    if spy.heads != {"K1": {shard_heads}, "K2": {shard_heads}}:
+        raise AssertionError(f"phase 47 (a): K1 / K2 called on pool slices "
+                             f"of {spy.heads} kv heads, not {shard_heads}")
+    pool = eng.pool
+    if pool.per_shard_memory_bytes() != pool.memory_bytes() // 2 or any(
+            a.shape[2] != shard_heads for shard in pool.shards
+            for layer in shard for a in layer):
+        raise AssertionError("phase 47 (a): the pool is not split in two "
+                             "halves of the kv heads")
+    views = all(sp[n].untyped_storage().data_ptr()
+                == v.untyped_storage().data_ptr()
+                for n, v in runner.params.items()
+                for sp in runner._shard_params)
+    if not views:
+        raise AssertionError("phase 47 (a): a shard's weight is a copy")
+    parted = [_gate_twin(f"phase 47 (a) request {i} vs phase 4", ref,
+                         prompts[i], a, b, TOL)
+              for i, (a, b) in enumerate(zip(tokens, fp32_tokens))]
+    a_logits = _runner_logits([ref, runner], prompts[0][:300], 2)
+    rel = max((x - y).abs().max().item() / x.abs().max().item()
+              for x, y in zip(*a_logits))
+    if not rel <= TOL:
+        raise AssertionError(f"phase 47 (a): sharded logits part from the "
+                             f"unsharded runner's by {rel:.3e} of max|logit|")
+    caps = [(c["kind"], round(c["seconds"], 3)) for c in runner.captures]
+    out["a"] = {"launches": launches, "by_form": forms, "parted": parted,
+                "logits_rel": rel, "heads": shard_heads,
+                "per_shard_gib": pool.per_shard_memory_bytes() / 2**30,
+                "pool_gib": pool.memory_bytes() / 2**30, "captures": caps}
+    log(f"phase 47 (a) fp32 tp=2, {cfg.num_layers} layers: "
+        f"{json.dumps(out['a'])}")
+    del eng, pool
+    runner._graph_cache.clear()
+    _free_the_card()
+    lap("phase 47 (a) fp32 tp=2")
+    # (b) int8 comm on the same weights
+    eng, q_launches, _, q_tokens, _, _ = engine_phase(
+        model, cfg, mesh=mesh2, comm_dtype="int8", report_naive=False,
+        ref_tokens=tokens)
+    snap = eng.metrics.snapshot()
+    reductions = {k: snap[k] for k in ("tp_comm_bytes_reduction_x",
+                                       "tp_gather_bytes_reduction_x")}
+    if any(abs(x - QCOMM_REDUCTION) > 1e-9 for x in reductions.values()):
+        raise AssertionError(f"phase 47 (b): wire-byte reductions "
+                             f"{reductions}, not {QCOMM_REDUCTION}")
+    qrunner = eng.runner
+    del eng
+    _free_the_card()
+    # token-exact against naive_generate as phase 6 gates its quantized
+    # pools: one slot, each prompt in one chunk (naive_generate's row
+    # counts; a batch's rounding moves an int8 code, and a moved code a
+    # token, at these widths)
+    single_slot_check(model, cfg, "fp32", sorted(prompts, key=len)[:2],
+                      mesh=mesh2, comm_dtype="int8")
+    _free_the_card()
+    # teacher-forced accuracy against the fp32 sharded runner, at full
+    # depth (reported: the quantization error of the reductions adds up
+    # over depth, PERF.md §6) and at 8 layers (gated); at both, every
+    # step's logits part from the fp32 runner's by more than rounding, so
+    # an int8 runner that ran the fp32 reduction fails
+    accuracy = {cfg.num_layers: _teacher_forced(runner, qrunner,
+                                                prompts[1][:300])}
+    del qrunner
+    _free_the_card()
+    accuracy[q_cfg.num_layers] = _teacher_forced(
+        LlamaRunner(q_model, 16, 4096).shard(mesh2),
+        LlamaRunner(q_model, 16, 4096).shard(mesh2, comm_dtype="int8"),
+        prompts[1][:300])
+    tf8 = accuracy[q_cfg.num_layers]
+    if not (tf8["top5"] >= QCOMM_TOP5_MIN
+            and tf8["mean_abs_dlogit"] <= QCOMM_DLOGIT_MAX):
+        raise AssertionError(
+            f"phase 47 (b): int8 comm at {q_cfg.num_layers} layers reads "
+            f"top-5 {tf8['top5']:.4f} (gate >= {QCOMM_TOP5_MIN}), mean "
+            f"|dlogit| {tf8['mean_abs_dlogit']:.4f} (gate <= "
+            f"{QCOMM_DLOGIT_MAX}) against the fp32 sharded runner")
+    parts = {k: a["min_step_rel"] for k, a in accuracy.items()}
+    if min(parts.values()) <= QCOMM_PARTS_MIN:
+        raise AssertionError(
+            f"phase 47 (b): an int8-comm step's logits lie within "
+            f"{QCOMM_PARTS_MIN} of max|logit| of the fp32 runner's "
+            f"(least step by depth: {parts}): the int8 reduction did not "
+            "run")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(47)
+    cases = qcomm_card_check(gen)
+    out["b"] = {"launches": q_launches, **reductions,
+                "teacher_forced": accuracy,
+                "qcomm_cases_bit_equal": cases,
+                "tp_comm_bytes": snap["tp_comm_bytes"],
+                "tp_gather_bytes": snap["tp_gather_bytes"]}
+    log(f"phase 47 (b) int8 comm tp=2: {json.dumps(out['b'])}")
+    del a_logits
+    _free_the_card()
+    lap("phase 47 (b) int8 comm")
+    # (c) bf16 over an int8 pool at tp = 2, 8 layers
+    base, _, _, c_ref, c_prompts, _ = engine_phase(
+        q_model, q_cfg, "int8", dtype=BF16, report_naive=False)
+    c_runner = base.runner
+    del base
+    _free_the_card()
+    eng, c_launches, _, c_tokens, _, c_forms = engine_phase(
+        q_model, q_cfg, "int8", dtype=BF16, report_naive=False, mesh=mesh2)
+    if any(s[0][2].shape != (eng.pool.num_blocks, shard_heads)
+           for s in eng.pool.shards):
+        raise AssertionError("phase 47 (c): the scale pools are not split")
+    del eng
+    _free_the_card()
+    c_parted = [_gate_twin(f"phase 47 (c) request {i} vs one device",
+                           c_runner, c_prompts[i], a, b, GATHER_TOL[BF16])
+                for i, (a, b) in enumerate(zip(c_tokens, c_ref))]
+    del c_runner
+    single_slot_check(q_model, q_cfg, "int8", sorted(c_prompts,
+                                                     key=len)[:2],
+                      dtype=BF16, mesh=mesh2)
+    _free_the_card()
+    out["c"] = {"launches": c_launches, "by_form": c_forms,
+                "parted": c_parted}
+    log(f"phase 47 (c) bf16 / int8 pool tp=2, {q_cfg.num_layers} layers: "
+        f"{json.dumps(out['c'])}")
+    lap("phase 47 (c) bf16 int8 pool")
+    # (d) fp32 at tp = 4, 8 layers: horizons as graphs, the host tier, a
+    # snapshot restored onto tp = 2
+    d_prompts, sp = tier_requests(q_cfg)
+    eng, d_tokens, run = tier_arm(q_model, q_cfg, "(d) tp=4", d_prompts,
+                                  sp, phase="phase 47", mesh=mesh4,
+                                  decode_horizon=8)
+    kinds = sorted({c["kind"] for c in eng.runner.captures})
+    if "decode_multi" not in kinds:
+        raise AssertionError(f"phase 47 (d): no horizon graph ({kinds})")
+    d_caps = [(c["kind"], round(c["seconds"], 3), c["pool_bytes"])
+              for c in eng.runner.captures]
+    d_shard = eng.pool.per_shard_memory_bytes()
+    del eng
+    _free_the_card()
+    snap_eng = create_serving_engine(q_model, device="cuda", audit=True,
+                                     mesh=mesh4, decode_horizon=8,
+                                     **TIER_KNOBS)
+    ids = [snap_eng.add_request(p, sp) for p in d_prompts]
+    for _ in range(12):
+        snap_eng.step()
+    state = json.loads(json.dumps(snap_eng.snapshot()))
+    del snap_eng
+    _free_the_card()
+    restored = restore_serving_engine(q_model, state, mesh=mesh2,
+                                      device="cuda", audit=True)
+    if restored.runner.tp_size != 2 or state["config"]["mesh_axes"] != {
+            "data": 1, "model": 4}:
+        raise AssertionError("phase 47 (d): the restore did not move the "
+                             "snapshot of tp=4 onto tp=2")
+    restored.run()
+    outs = restored.outputs()
+    del restored
+    _free_the_card()
+    d_ref = LlamaRunner(q_model, 16, 1024)
+    d_parted = [_gate_twin(f"phase 47 (d) restored request {i}", d_ref,
+                           d_prompts[i], outs[rid].output_tokens,
+                           d_tokens[i], TOL)
+                for i, rid in enumerate(ids)]
+    out["d"] = {"tier": run, "captures": d_caps, "restored_parted": d_parted,
+                "per_shard_gib": d_shard / 2**30}
+    log(f"phase 47 (d) fp32 tp=4, {q_cfg.num_layers} layers: "
+        f"{json.dumps(out['d'])}")
+    lap("phase 47 (d) tp=4 tier and restore")
+    # step times at tp 1 / 2 / 4 (8 layers), the reductions alone, K1 / K2
+    # at the per-shard heads
+    rng = np.random.default_rng(47)
+    chunk = rng.integers(1, q_cfg.vocab_size, 256).tolist()
+    steps = {}
+    for tp in (1, 2, 4):
+        r = LlamaRunner(q_model, 16, 1024)
+        if tp > 1:
+            r.shard(card_mesh(tp))
+        c, d = _step_ms(r, chunk, 8)
+        steps[tp] = {"chunk": c, "decode": d,
+                     "capture_s": [round(x["seconds"], 3)
+                                   for x in r.captures]}
+        del r
+        _free_the_card()
+    H = q_cfg.hidden_size
+    n_red = 2 * q_cfg.num_layers + 1
+    share = {}
+    for tp in (2, 4):
+        for label, rows in (("chunk", 256), ("decode", 8)):
+            parts = [torch.randn(rows, H, device="cuda", generator=gen)
+                     for _ in range(tp)]
+            fp = median_ms(lambda: psum(parts))
+            q8 = median_ms(lambda: quantized_psum(parts))
+            step = steps[tp][label]["device_ms"]
+            share[f"tp{tp}_{label}"] = {
+                "psum_ms": fp, "quantized_psum_ms": q8,
+                "reductions": n_red, "fp32_share": n_red * fp / step,
+                "int8_share": n_red * q8 / step}
+    shard_k = {"K1_chunk": measure_ragged(gen, cfg.num_heads // 2, 1024,
+                                          256, "fp32"),
+               "K2_decode": measure_paged(gen, cfg.num_heads // 2, 1024,
+                                          256, positions)}
+    out["steps"], out["reduction_share"] = steps, share
+    out["shard_kernels"] = {k: {x: v[x] for x in (
+        "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err") if x in v} for k, v in shard_k.items()}
+    log(f"phase 47 step ms at {q_cfg.num_layers} layers by tp: "
+        f"{json.dumps(steps)}")
+    log(f"phase 47 reductions timed alone, share of the step's device "
+        f"time: {json.dumps(share)}")
+    log(f"phase 47 K1 / K2 at the per-shard head count: "
+        f"{json.dumps(out['shard_kernels'])}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 47: {out['seconds']:.1f} s")
+    lap("phase 47 timings")
+    return out
+
+
 def _free_the_card() -> float:
     """Collect what the freed phases left; returns GiB still allocated."""
     gc.collect()
@@ -8001,6 +8484,10 @@ def main() -> int:
     _free_the_card()
     lap("phase 41")
     log(f"phases 40-41: {time.perf_counter() - t_new:.1f} s")
+    # phase 47: tensor-parallel serving on the same weights (phase 4's
+    # seed) at full depth, then at phase 40's int8 arm's 8 layers
+    tp = tp_phase(model, cfg, q_model, q_cfg, fp32_tokens, positions)
+    _free_the_card()
     # phases 42-44: the serving tier over phase 40's int8 arm's model, 8 of
     # LLaMA-2-7B's 32 layers (fp32, its weights shared by every replica):
     # phase 46 took the smoke's time, and the tier's gates (streams,
@@ -8371,6 +8858,18 @@ def main() -> int:
             n = store_tier[arm]["launches"].get(row["name"])
             if n:
                 row.setdefault("store_tier_launches", {})[arm] = n
+        # phase 47: every launch of a shard counted, each at its heads
+        for arm, by in (("fp32_tp2", tp["a"]["launches"]),
+                        ("int8_comm_tp2", tp["b"]["launches"]),
+                        ("bf16_int8_pool_tp2", tp["c"]["launches"]),
+                        ("fp32_tp4_tier", tp["d"]["tier"]["launches"])):
+            n = by.get(row["name"])
+            if n:
+                row.setdefault("tp_launches", {})[arm] = n
+        shard = {"ragged_paged_attention": "K1_chunk",
+                 "paged_decode_attention": "K2_decode"}.get(row["name"])
+        if shard:
+            row["tp_shard_shape"] = tp["shard_kernels"][shard]
         if any(row["name"] in by for by in spec16.values()):
             row["spec_fp16_launches"] = {arm: by[row["name"]] for arm, by
                                          in spec16.items()

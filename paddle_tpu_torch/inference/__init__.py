@@ -50,9 +50,10 @@ def create_serving_engine(model, dtype=None, device="cuda", **kw):
     floating parameter is cast, the weight ladder's own included (fp8
     weights come back in ``dtype``, int8 and int4 scales become
     ``dtype``); integer codes stay. The runner's dict is cast, never the
-    model. A ``mesh`` raises naming ROADMAP.md item 10, and a
-    ``comm_dtype`` other than "fp32" without a mesh is a ValueError, as
-    in JAX."""
+    model. A ``mesh`` (`parallel.mesh.serving_mesh`) serves
+    tensor-parallel with the row-parallel collective at ``comm_dtype``:
+    cast first, shard second, as in JAX; a ``comm_dtype`` other than
+    "fp32" without a mesh is a ValueError, as in JAX."""
     mesh = kw.pop("mesh", None)
     comm_dtype = kw.pop("comm_dtype", "fp32")
     if comm_dtype != "fp32" and mesh is None:
@@ -60,16 +61,14 @@ def create_serving_engine(model, dtype=None, device="cuda", **kw):
             f"comm_dtype={comm_dtype!r} needs a tensor-parallel mesh: the "
             "quantized collective replaces the row-parallel allreduce, "
             "which only exists at tp > 1")
-    if mesh is not None:
-        raise NotImplementedError(
-            f"mesh= (tensor-parallel serving, comm_dtype={comm_dtype!r}) is "
-            "not ported yet: ROADMAP.md 'Still to port' item 10")
     dt = _serving_dtype(dtype) if dtype is not None else None
     runner = runner_for(model, device=device,
                         **{k: kw.pop(k) for k in _RUNNER_KNOBS if k in kw})
     if dt is not None:
         runner.params = {k: (v.to(dt) if v.is_floating_point() else v)
                          for k, v in runner.params.items()}
+    if mesh is not None:
+        runner.shard(mesh, comm_dtype=comm_dtype)
     kw.setdefault("num_blocks", 128)
     return ServingEngine(runner, **kw)
 
@@ -80,6 +79,7 @@ def _fresh_runner(template):
     or counters: what a replica and each of its restarts serve from."""
     runner = copy.copy(template)
     runner.params = dict(template.params)
+    runner._mesh_params = [dict(sp) for sp in template._mesh_params]
     runner._graph_cache = OrderedDict()
     runner.captures = []
     runner._impl_logged = set()
@@ -104,8 +104,11 @@ def create_serving_router(model, *, replicas: int = 2, dtype=None,
     surface, with prefix-affinity routing, tier admission control and a
     crash-restarting Supervisor (serving.router). Every other keyword
     goes to ServingRouter, and through it to each replica's
-    ServingEngine; ``num_blocks`` defaults to 128. ``mesh`` and
-    ``meshes`` (replicas on sub-meshes) raise naming ROADMAP.md item 10.
+    ServingEngine; ``num_blocks`` defaults to 128. Replicas on sub-meshes,
+    as in JAX: ``meshes`` gives replica i the mesh ``meshes[i]`` (too few
+    is a ValueError); a single ``mesh`` whose ``data_axis`` degree equals
+    ``replicas`` (> 1) splits into `replica_submeshes`, and any other
+    ``mesh`` shards every replica alike.
     ``shared_kv_pages`` (and ``shared_kv_shm``) put every replica's host
     tier over one host-wide SharedKVStore, as on the JAX bridge; the
     store's layout is the template runner's pool geometry.
@@ -114,10 +117,12 @@ def create_serving_router(model, *, replicas: int = 2, dtype=None,
     ONE set of weights: the model's tensors are moved to ``device`` (if
     they are not there) and cast to ``dtype`` once, into a template
     runner that never serves, and every replica's runner shares its
-    tensors (`data_ptr` equal). A departure by design: the JAX factory's
-    ``astype`` casts per replica, which on the card would hold one more
-    copy of the weights for every replica and every restart (27 GB for
-    LLaMA-2-7B at fp32).
+    tensors (`data_ptr` equal). With meshes the template is sharded once
+    for each distinct mesh (its shards views of the same tensors), and a
+    replica copies the template of its mesh. A departure by design: the
+    JAX factory's ``astype`` casts per replica, which on the card would
+    hold one more copy of the weights for every replica and every restart
+    (27 GB for LLaMA-2-7B at fp32).
 
     With ``backend="process"`` the router needs a JSON spec its children
     import a factory from, not a callable over a model object: the call
@@ -134,11 +139,16 @@ def create_serving_router(model, *, replicas: int = 2, dtype=None,
             "a process boundary. Use ServingRouter(spec, "
             "backend='process') with paddle_tpu_torch.serving.replica:"
             "model_runner_factory")
-    if mesh is not None or meshes is not None:
-        raise NotImplementedError(
-            "mesh= / meshes= (replicas on tensor-parallel sub-meshes over "
-            f"axes {data_axis!r} / {model_axis!r}) is not ported yet: "
-            "ROADMAP.md 'Still to port' item 10")
+    if meshes is None and mesh is not None:
+        data = dict(mesh.shape).get(data_axis, 1)
+        if data == replicas and replicas > 1:
+            from paddle_tpu_torch.parallel.mesh import replica_submeshes
+            meshes = replica_submeshes(mesh, data_axis=data_axis,
+                                       model_axis=model_axis)
+        else:
+            meshes = [mesh] * replicas
+    if meshes is not None and len(meshes) < replicas:
+        raise ValueError(f"{len(meshes)} meshes for {replicas} replicas")
     from paddle_tpu_torch.serving.router import ServingRouter
 
     template = runner_for(model, block_size=block_size,
@@ -151,8 +161,19 @@ def create_serving_router(model, *, replicas: int = 2, dtype=None,
         template.params = {k: (v.to(dt) if v.is_floating_point() else v)
                            for k, v in template.params.items()}
 
+    sharded = {}        # mesh -> the template sharded over it
+
+    def template_for(m):
+        if m is None:
+            return template
+        if m not in sharded:
+            sharded[m] = _fresh_runner(template).shard(
+                m, model_axis=model_axis)
+        return sharded[m]
+
     def factory(idx: int):
-        return _fresh_runner(template)
+        m = meshes[idx] if meshes is not None else None
+        return _fresh_runner(template_for(m))
 
     kw.setdefault("num_blocks", 128)
     return ServingRouter(factory, replicas=replicas, **kw)
@@ -163,15 +184,11 @@ def restore_serving_engine(model, state, attn_impl: str = "auto",
     """Rebuild a crashed or killed serving engine from
     ``engine.snapshot()``: a fresh runner for ``model`` on ``device``
     (default "cuda"), built with the snapshot's block size, model length,
-    kv_dtype, weight_dtype and weight group size, then
+    kv_dtype, weight_dtype and weight group size (sharded over ``mesh``
+    when one is given, which may differ from the snapshot's), then
     `ServingEngine.restore`, which replays every request through
     recompute-on-resume, token for token as an uninterrupted run. Other
-    keywords (metrics, tokenizer, sleep_fn, audit) go to `restore`. A
-    ``mesh`` raises naming ROADMAP.md item 10."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (restoring onto a tensor-parallel runner) is not ported "
-            "yet: ROADMAP.md 'Still to port' item 10")
+    keywords (metrics, tokenizer, sleep_fn, audit) go to `restore`."""
     cfg = state["config"]
     runner = runner_for(model, block_size=cfg["block_size"],
                         max_model_len=cfg["max_model_len"],
@@ -180,4 +197,6 @@ def restore_serving_engine(model, state, attn_impl: str = "auto",
                         weight_dtype=cfg.get("weight_dtype", "fp32"),
                         weight_group_size=cfg.get("weight_group_size", 128),
                         device=device)
+    if mesh is not None:
+        runner.shard(mesh)
     return ServingEngine.restore(runner, state, **kw)

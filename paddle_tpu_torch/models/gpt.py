@@ -40,8 +40,11 @@ from paddle_tpu_torch.models.ernie import (
 )
 from paddle_tpu_torch.ops import impl
 
-TP_ITEM = ("ROADMAP.md 'Still to port' item 10 (tensor-parallel "
-           "serving)")
+# the models' own tensor-parallel layers (mp_layers) and the generators'
+# meshes belong to distributed training; the serving engine's tensor
+# parallelism is the runner's (serving.model_runner.PagedModelRunner.shard)
+TP_ITEM = ("ROADMAP.md 'Still to port' item 13 (distributed training: "
+           "mp_layers and the current mesh)")
 DIST_ITEM = "ROADMAP.md 'Still to port' item 13 (distributed training)"
 
 

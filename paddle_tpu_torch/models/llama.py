@@ -171,8 +171,10 @@ class Llama(nn.Module):
         super().__init__()
         if cfg.tensor_parallel:
             raise NotImplementedError(
-                "tensor_parallel Llama is not ported yet: ROADMAP.md "
-                "'Still to port' item 10 (tensor-parallel serving)")
+                "tensor_parallel Llama (mp_layers) is not ported yet: "
+                "ROADMAP.md 'Still to port' item 13 (distributed "
+                "training); a serving runner shards through "
+                "PagedModelRunner.shard(mesh)")
         dev = resolve_device(device)
         self.cfg = cfg
         self.embed_tokens = nn.Module()

@@ -1,29 +1,35 @@
 """Continuous-batching LLM serving over a paged KV cache, in PyTorch.
 
-Counterpart of paddle_tpu/serving for the single-device Llama and GPT
-paths over fp32, int8 and fp8 KV pools: `ServingEngine` (FCFS admission,
-chunked prefill, batched decode or device-resident decode horizons, the
-pipelined loop, greedy or seeded sampling, youngest-first preemption
-with recompute-on-resume, deadlines, retries, NaN guard, invariant
-auditor, the shared-prefix page cache with copy-on-write, fused ragged
-steps, speculative decoding) over `KVCachePool` and a `LlamaRunner` or
-`GPTRunner` whose attention runs the port's CUDA kernels, its decode
-kinds as CUDA graphs on the card. The draft proposers (`NgramProposer`,
-`DraftModelProposer`, `AdaptiveK`, `shadow_runner`) and
-`quantized_page_write` are exported here too, as in the JAX package, and
-so are the host KV tier (`HostKVTier`, `OffloadRecord`), the stream
-detokenizer (`StreamDetokenizer`, `TokenizerAdapter`,
-`complete_utf8_prefix`) and the serving tier: `ServingRouter` over thread
-or process replicas (`EngineReplica`, `RouterOutput`, `RouterMetrics`),
-its `Supervisor`, the write-ahead `RouterJournal`, `ReplicaCrashError`,
-`aggregate_snapshots` and `audit_router`; for the process backend the
-`ReplicaLauncher` and its `EngineClient` proxy, `ReplicaGoneError`, the
-wire's `WireCorruptionError` / `WireTimeoutError` and the
-`WireFaultInjector`; and the host-wide KV store under the tiers
-(`SharedKVStore`, served to replica processes by `StoreServer` and reached
-through `SharedKVStoreClient`) with its auditor `audit_store`.
+Counterpart of paddle_tpu/serving for the Llama and GPT paths, on one
+device or tensor-parallel over a mesh, over fp32, int8 and fp8 KV pools:
+`ServingEngine` (FCFS admission, chunked prefill, batched decode or
+device-resident decode horizons, the pipelined loop, greedy or seeded
+sampling, youngest-first preemption with recompute-on-resume, deadlines,
+retries, NaN guard, invariant auditor, the shared-prefix page cache with
+copy-on-write, fused ragged steps, speculative decoding) over
+`KVCachePool` and a `LlamaRunner` or `GPTRunner` whose attention runs
+the port's CUDA kernels, its decode kinds as CUDA graphs on the card.
+The draft proposers (`NgramProposer`, `DraftModelProposer`, `AdaptiveK`,
+`shadow_runner`) and `quantized_page_write` are exported here too, as in
+the JAX package, and so are the host KV tier (`HostKVTier`,
+`OffloadRecord`), the stream detokenizer (`StreamDetokenizer`,
+`TokenizerAdapter`, `complete_utf8_prefix`) and the serving tier:
+`ServingRouter` over thread or process replicas (`EngineReplica`,
+`RouterOutput`, `RouterMetrics`), its `Supervisor`, the write-ahead
+`RouterJournal`, `ReplicaCrashError`, `aggregate_snapshots` and
+`audit_router`; for the process backend the `ReplicaLauncher` and its
+`EngineClient` proxy, `ReplicaGoneError`, the wire's
+`WireCorruptionError` / `WireTimeoutError` and the `WireFaultInjector`;
+and the host-wide KV store under the tiers (`SharedKVStore`, served to
+replica processes by `StoreServer` and reached through
+`SharedKVStoreClient`) with its auditor `audit_store`. Tensor-parallel
+serving's mesh and placements are exported as in the JAX package:
+`serving_mesh`, `replica_submeshes` and `SpecLayout`
+(`paddle_tpu_torch.parallel`).
 """
 
+from paddle_tpu_torch.parallel.compat import SpecLayout
+from paddle_tpu_torch.parallel.mesh import replica_submeshes, serving_mesh
 from paddle_tpu_torch.serving.detokenize import (
     StreamDetokenizer, TokenizerAdapter, complete_utf8_prefix,
 )
@@ -78,13 +84,14 @@ __all__ = [
     "ReplicaLauncher", "Request",
     "RequestOutput", "RequestState", "RouterJournal", "RouterMetrics",
     "RouterOutput", "SamplingParams", "SequenceKV", "ServingEngine",
-    "ServingRouter", "SharedKVStore", "SharedKVStoreClient",
+    "ServingRouter", "SharedKVStore", "SharedKVStoreClient", "SpecLayout",
     "StoreServer", "StreamDetokenizer", "Supervisor", "TokenEvent",
     "TokenizerAdapter", "WireCorruptionError", "WireFaultInjector",
     "WireTimeoutError", "aggregate_snapshots", "audit_engine",
     "audit_router", "audit_store", "bucket_len",
     "complete_utf8_prefix", "create_engine", "greedy_grid",
     "naive_generate", "page_content_hash",
-    "paged_attend", "quantized_page_write", "runner_for", "sample_token",
-    "seeded_sample", "shadow_runner",
+    "paged_attend", "quantized_page_write", "replica_submeshes",
+    "runner_for", "sample_token", "seeded_sample", "serving_mesh",
+    "shadow_runner",
 ]

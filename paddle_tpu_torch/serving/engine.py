@@ -157,7 +157,6 @@ from paddle_tpu_torch.serving.speculate import (
 
 logger = logging.getLogger(__name__)
 
-_ITEM = "ROADMAP.md 'Still to port' item "
 
 @dataclass
 class TokenEvent:
@@ -418,10 +417,17 @@ class ServingEngine:
         # append time, so the engine builds its pools with the same rung,
         # in the runner's dtype (fp32, or bf16 / fp16 after a dtype= cast)
         self.kv_dtype = runner.kv_dtype
+        # a sharded runner (runner.shard(mesh)) brings its mesh along: the
+        # pools are born split on the kv-head axis over its model axis;
+        # the allocator, tables, scheduler and prefix cache stay mesh-blind
+        self.mesh = getattr(runner, "mesh", None)
         self.pool = KVCachePool(runner.num_layers, num_blocks, block_size,
                                 runner.n_kv_heads, runner.head_dim,
-                                runner.dtype, device=runner.device,
-                                kv_dtype=self.kv_dtype)
+                                runner.dtype, mesh=self.mesh,
+                                model_axis=getattr(runner, "model_axis",
+                                                   "model"),
+                                kv_dtype=self.kv_dtype,
+                                device=runner.device)
         self.enable_prefix_cache = bool(enable_prefix_cache)
         if self.enable_prefix_cache:
             self.pool.enable_prefix_cache()
@@ -783,9 +789,10 @@ class ServingEngine:
                 for layer in data:
                     for t in layer:
                         t.record_stream(compute)
+        first = staged_list[0][0]
         layer_data = [tuple(torch.stack([d[li][j] for d, _ in staged_list])
-                            for j in range(len(layer)))
-                      for li, layer in enumerate(self.pool.pools)]
+                            for j in range(len(first[li])))
+                      for li in range(len(first))]
         self.pool.write_pages(pages, layer_data)
         tier.free_slots(slots)
         tier.paged_in_pages += len(pages)
@@ -915,6 +922,16 @@ class ServingEngine:
         self.metrics.attn_kv_bytes_read.set(self.runner.attn_kv_bytes_read)
         self.metrics.attn_kv_bytes_gather.set(
             self.runner.attn_kv_bytes_gather)
+        # the tensor-parallel wire bytes a shard moved (row-parallel
+        # allreduces, the logits gather) at the comm dtype vs fp32
+        for name in ("tp_comm_bytes", "tp_gather_bytes"):
+            wire = getattr(self.runner, name, None)
+            if wire is not None:
+                fp32 = getattr(self.runner, name + "_fp32")
+                getattr(self.metrics, name).set(wire)
+                getattr(self.metrics, name + "_fp32").set(fp32)
+                getattr(self.metrics, name + "_reduction_x").set(
+                    fp32 / wire if wire else 0.0)
         a = self.pool.allocator
         self.metrics.queue_depth.set(self.scheduler.queue_depth)
         self.metrics.running.set(len(self.scheduler.running))
@@ -981,7 +998,7 @@ class ServingEngine:
         for attempt in range(self.max_step_retries + 1):
             try:
                 logits, new_pools = self.runner.prefill_chunk(
-                    chunk, start, table, self.pool.pools)
+                    chunk, start, table, self.pool.shards)
                 break
             except Exception:
                 if attempt >= self.max_step_retries:
@@ -992,7 +1009,7 @@ class ServingEngine:
                 self.metrics.step_retries.inc()
                 self._sleep(delay)
                 delay *= 2
-        self.pool.pools = new_pools
+        self.pool.shards = new_pools
         req.kv.num_tokens = end
         self.metrics.prefill_tokens.inc(end - start)
         self.metrics.prefill_chunks.inc()
@@ -1046,7 +1063,7 @@ class ServingEngine:
             groups = self._sample_groups(slots, self.max_batch_size)
             try:
                 logits, new_pools = self.runner.decode(
-                    *self._decode_operands(batch), self.pool.pools)
+                    *self._decode_operands(batch), self.pool.shards)
                 grid = token_grid(logits, groups)
                 break
             except Exception:
@@ -1061,7 +1078,7 @@ class ServingEngine:
                 self._finish_abnormal(batch[-1], "error")
                 attempts = 0
                 delay = self.retry_backoff_s
-        self.pool.pools = new_pools
+        self.pool.shards = new_pools
         self.metrics.batch_occupancy.observe(len(batch))
         if defer:
             self._inflight = _InflightLaunch("decode", slots, grid, 1,
@@ -1219,7 +1236,7 @@ class ServingEngine:
             groups = self._span_groups(spans, B, T if full else None)
             try:
                 logits, new_pools = self.runner.ragged_step(
-                    tokens, tables, starts, qlens, self.pool.pools,
+                    tokens, tables, starts, qlens, self.pool.shards,
                     full_logits=full)
                 grid = token_grid(logits, groups)
                 break
@@ -1237,7 +1254,7 @@ class ServingEngine:
                 self._finish_abnormal(victim, "error")
                 attempts = 0
                 delay = self.retry_backoff_s
-        self.pool.pools = new_pools
+        self.pool.shards = new_pools
         self.metrics.batch_occupancy.observe(len(spans))
         if defer and not full:
             self._inflight = _InflightLaunch(
@@ -1493,7 +1510,7 @@ class ServingEngine:
                           top_k=top_k, top_p=top_p)
             try:
                 packed, new_pools = self.runner.decode_multi_spec(
-                    tokens, tables, pos, self.pool.pools, drafts, **kw)
+                    tokens, tables, pos, self.pool.shards, drafts, **kw)
                 break
             except Exception:
                 if attempts < self.max_step_retries:
@@ -1507,7 +1524,7 @@ class ServingEngine:
                 self._finish_abnormal(batch[-1], "error")
                 attempts = 0
                 delay = self.retry_backoff_s
-        self.pool.pools = new_pools
+        self.pool.shards = new_pools
         self.metrics.batch_occupancy.observe(len(batch))
         self.metrics.decode_horizon_steps.inc(s)
         self.metrics.spec_fused_horizons.inc()
@@ -1689,7 +1706,7 @@ class ServingEngine:
             ctx = self._horizon_ctx(batch, s)
             try:
                 packed, new_pools = self.runner.decode_multi(
-                    *self._decode_operands(batch), self.pool.pools, s,
+                    *self._decode_operands(batch), self.pool.shards, s,
                     **ctx)
                 break
             except Exception:
@@ -1704,7 +1721,7 @@ class ServingEngine:
                 self._finish_abnormal(batch[-1], "error")
                 attempts = 0
                 delay = self.retry_backoff_s
-        self.pool.pools = new_pools
+        self.pool.shards = new_pools
         self.metrics.batch_occupancy.observe(len(batch))
         self.metrics.decode_horizon_steps.inc(s)
         slots = [(r, r.slot) for r in batch]
@@ -2205,7 +2222,11 @@ class ServingEngine:
                 "weight_group_size": getattr(self.runner,
                                              "weight_group_size", 128),
                 "comm_dtype": getattr(self.runner, "comm_dtype", "fp32"),
-                "mesh_axes": None,
+                # the mesh's shape for the record; restore follows the new
+                # runner's mesh (recompute-on-resume is sharding-blind)
+                "mesh_axes": (
+                    {str(a): int(n) for a, n in self.mesh.shape.items()}
+                    if self.mesh is not None else None),
             },
             "requests": reqs,
             "finished": [asdict(o) for o in self._outputs.values()],
@@ -2281,6 +2302,14 @@ class ServingEngine:
         for o in state.get("finished", []):
             eng._outputs[o["request_id"]] = RequestOutput(**o)
         eng.metrics.queue_depth.set(eng.scheduler.queue_depth)
+        snap_mesh = cfg.get("mesh_axes")
+        run_mesh = ({str(a): int(n) for a, n in eng.mesh.shape.items()}
+                    if eng.mesh is not None else None)
+        if snap_mesh != run_mesh:
+            # legal (recompute-on-resume is token-exact on any mesh), but
+            # capacity and throughput differ
+            logger.info("restore: snapshot mesh %s -> runner mesh %s",
+                        snap_mesh, run_mesh)
         snap_q = (cfg.get("kv_dtype", "fp32"),
                   cfg.get("weight_dtype", "fp32"),
                   cfg.get("comm_dtype", "fp32"),
@@ -2311,6 +2340,8 @@ def naive_generate(runner: PagedModelRunner, prompt_tokens: Sequence[int],
     max_pages = -(-max_model_len // runner.block_size)
     pool = KVCachePool(runner.num_layers, max_pages + 1, runner.block_size,
                        runner.n_kv_heads, runner.head_dim, runner.dtype,
+                       mesh=getattr(runner, "mesh", None),
+                       model_axis=getattr(runner, "model_axis", "model"),
                        device=runner.device, kv_dtype=runner.kv_dtype)
     pages = pool.allocator.alloc(max_pages)
     # the oracle's pages carry the request's effective tag, so a mixed
@@ -2318,7 +2349,7 @@ def naive_generate(runner: PagedModelRunner, prompt_tokens: Sequence[int],
     pool.tag_pages(pages, sampling.kv_dtype or pool.native_kv_tag())
     table = pool.pad_table(pages, max_pages)
     tokens = list(map(int, prompt_tokens))
-    logits, pools = runner.prefill(tokens, table, pool.pools)
+    logits, pools = runner.prefill(tokens, table, pool.shards)
     tok = sample_token(logits, sampling, 0, fallback_seed)
     out: List[int] = [tok]
     tables = np.asarray(table, np.int32)[None]
@@ -2344,25 +2375,26 @@ def create_engine(model, *, num_blocks: int = 128, block_size: int = 16,
     """Build a ServingEngine for a supported model (Llama or GPT) on
     ``device`` (default "cuda"; pass "cpu" for the plain versions). The
     parameters are the JAX package's, in its order, ``device`` after
-    them. Without a mesh ``data_axis`` and ``model_axis`` are ignored, as
-    JAX ignores them, and ``comm_dtype`` other than "fp32" is an error of
-    the call (ValueError, as in JAX: the quantized collective needs a
-    mesh); a mesh (tensor-parallel serving) raises naming ROADMAP.md item
-    10; ``weight_group_size`` goes to the runner."""
+    them. A ``mesh`` (`parallel.mesh.serving_mesh`) serves
+    tensor-parallel: the runner is sharded over its ``model_axis``
+    (`PagedModelRunner.shard`, with ``data_axis`` and ``comm_dtype``) and
+    the pools split on the kv-head axis; without one ``data_axis`` and
+    ``model_axis`` are ignored, as JAX ignores them, and ``comm_dtype``
+    other than "fp32" is an error of the call (ValueError, as in JAX: the
+    quantized collective needs a mesh). ``weight_group_size`` goes to the
+    runner."""
     if comm_dtype != "fp32" and mesh is None:
         raise ValueError(
             f"comm_dtype={comm_dtype!r} needs a tensor-parallel mesh: the "
             "quantized collective replaces the row-parallel allreduce, "
             "which only exists at tp > 1")
-    if mesh is not None:
-        raise NotImplementedError(
-            f"mesh= (tensor-parallel serving over axes {data_axis!r} / "
-            f"{model_axis!r}, comm_dtype={comm_dtype!r}) is not ported yet: "
-            + _ITEM + "10 (TP)")
     runner = runner_for(model, block_size=block_size,
                         max_model_len=max_model_len, attn_impl=attn_impl,
                         kv_dtype=kv_dtype, weight_dtype=weight_dtype,
                         weight_group_size=weight_group_size, device=device)
+    if mesh is not None:
+        runner.shard(mesh, data_axis=data_axis, model_axis=model_axis,
+                     comm_dtype=comm_dtype)
     return ServingEngine(runner, num_blocks=num_blocks,
                          block_size=block_size,
                          max_batch_size=max_batch_size,

@@ -1,6 +1,6 @@
 """Paged KV-cache pool + block allocator for the serving engine.
 
-Counterpart of paddle_tpu/serving/kv_cache.py for one device. Per layer
+Counterpart of paddle_tpu/serving/kv_cache.py. Per layer
 a tuple of [num_blocks, block_size, n_kv_heads, head_dim] pools, block
 tables of int32 page ids. Page 0 is RESERVED as scratch: dead batch
 slots and padded prefill positions write there, so the allocator never
@@ -50,7 +50,12 @@ per host under every replica's tier (``enable_host_tier(store=,
 owner=)``), its bytes in torch host tensors or in shared-memory segments
 that replica processes map, its metadata refcounted by owner and indexed
 by chain hash; a handoff between engines of one host moves slot
-references. Mesh-sharded pools are ROADMAP.md item 10.
+references.
+
+A pool over a mesh (`KVCachePool(mesh=)`) holds each layer's arrays as
+one tensor a model shard, split on the kv-head axis; every page that
+leaves it (gathers, host-tier spills and page-ins, handoffs, the store)
+keeps the logical layout of all heads.
 
 A departure: the JAX `chain_seed` folds a tag in with Python's `hash` of a
 tuple holding a string, which changes from one process to the next
@@ -1203,8 +1208,9 @@ class HostKVTier:
         self._own_bufs: List[Tuple[torch.Tensor, ...]] = []
         self._own_byte_bufs: List[Tuple[torch.Tensor, ...]] = []
         if store is None:
-            self._own_bufs = [tuple(self._host_buffer(a) for a in layer)
-                              for layer in pool.pools]
+            self._own_bufs = [tuple(self._host_buffer(shape, dt)
+                                    for shape, dt in layer)
+                              for layer in pool.page_layout()]
             self._own_byte_bufs = [tuple(_bytes(b) for b in layer)
                                    for layer in self._own_bufs]
         # the side stream of every copy between the pool and the buffers,
@@ -1240,8 +1246,8 @@ class HostKVTier:
         """A store serves only pools of the exact page geometry it was
         built for: a replica of another model geometry mapping the same
         segments would corrupt every sibling. Loud, at attach time."""
-        want = [tuple((tuple(a.shape[1:]), dtype_name(a.dtype))
-                      for a in layer) for layer in pool.pools]
+        want = [tuple((shape, dtype_name(dt)) for shape, dt in layer)
+                for layer in pool.page_layout()]
         have = [tuple((tuple(shape), dtype_name(dt))
                       for shape, dt in layer) for layer in store.layout]
         if want != have:
@@ -1264,14 +1270,14 @@ class HostKVTier:
         return (self.store.byte_bufs if self.store is not None
                 else self._own_byte_bufs)
 
-    def _host_buffer(self, a: torch.Tensor) -> torch.Tensor:
-        shape = (self.max_pages,) + tuple(a.shape[1:])
+    def _host_buffer(self, page_shape, dtype) -> torch.Tensor:
+        shape = (self.max_pages,) + tuple(page_shape)
         if not self.cuda:
-            return torch.zeros(shape, dtype=a.dtype)
-        buf = torch.empty(shape, dtype=a.dtype, pin_memory=True)
+            return torch.zeros(shape, dtype=dtype)
+        buf = torch.empty(shape, dtype=dtype, pin_memory=True)
         if not buf.is_pinned():
             raise RuntimeError(
-                f"HostKVTier: a {shape} {a.dtype} host buffer did not pin; "
+                f"HostKVTier: a {shape} {dtype} host buffer did not pin; "
                 "the tier refuses pageable memory on a CUDA pool")
         return buf
 
@@ -1886,20 +1892,29 @@ class KVCachePool:
     The pools live on ``device`` ("cuda" unless the caller passes "cpu";
     keyword-only, after the JAX parameters). ``dtype`` is the logical
     (compute) dtype, fp32, bf16 or fp16 (`POOL_DTYPES`); ``kv_dtype`` the
-    storage rung (module docstring). ``mesh`` and ``model_axis`` sit in
-    the JAX places; a mesh raises (sharded pools are ROADMAP.md item 10).
-    Block tables live host-side as python lists per sequence; `pad_table`
-    builds the fixed-width operand."""
+    storage rung (module docstring). Block tables live host-side as python
+    lists per sequence; `pad_table` builds the fixed-width operand.
+
+    With a ``mesh`` (`parallel.mesh.Mesh`) the pools are born split on the
+    kv-head axis over the mesh's ``model_axis``, on its devices (``device``
+    is then the first shard's): each of the tp shards holds every page's
+    slice of n_kv_heads / tp heads, in contiguous tensors of its own
+    ([blocks, block, n_kv / tp, d], and [blocks, n_kv / tp] scale pools on
+    an int8 pool; a mixed pool's tag plane, which has no head axis, is
+    replicated on every shard). ``shards`` lists each shard's layer tuples,
+    one shard on an unsharded pool: the runner's operand. ``pools`` is the
+    JAX package's shape, the layer list of an unsharded pool (that one
+    shard's list); a sharded pool has no such list and raises. The allocator,
+    the block tables and the PrefixCache stay mesh-blind: one page id
+    names the same page on every shard. Every byte that leaves the pool
+    keeps the JAX logical layout, the shards joined on the head axis
+    (`gather_pages`, `read_pages`, `write_pages`, `page_layout`), so a
+    sharded pool's exported page is bit-equal to an unsharded pool's."""
 
     def __init__(self, num_layers: int, num_blocks: int, block_size: int,
                  n_kv_heads: int, head_dim: int, dtype=torch.float32,
                  mesh=None, model_axis: str = "model",
                  kv_dtype: str = "fp32", *, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "KVCachePool(mesh=...): pools sharded over a mesh's model "
-                "axis are not ported yet: ROADMAP.md 'Still to port' item "
-                "10 (tensor-parallel serving)")
         if dtype not in POOL_DTYPES:
             raise ValueError(f"KVCachePool(dtype={dtype}); expected one of "
                              f"{POOL_DTYPES}")
@@ -1913,31 +1928,89 @@ class KVCachePool:
         self.kv_dtype = kv_dtype
         self.mesh = mesh
         self.model_axis = model_axis
-        self.device = resolve_device(device)
+        self.tp_size = 1
+        if mesh is not None:
+            self.tp_size = int(mesh.shape[model_axis])
+            if n_kv_heads % self.tp_size:
+                raise ValueError(
+                    f"n_kv_heads={n_kv_heads} is not divisible by the "
+                    f"model-axis degree {self.tp_size}: the paged pools "
+                    "shard in whole kv-heads (GQA rule)")
+            devices = mesh.axis_devices(model_axis)
+        else:
+            devices = [resolve_device(device)]
+        self.device = devices[0]
         self.allocator = BlockAllocator(num_blocks)
         self.prefix_cache: Optional[PrefixCache] = None
         self.host_tier: Optional[HostKVTier] = None
-        shape = (num_blocks, block_size, n_kv_heads, head_dim)
+        self.shards: List[List[Tuple[torch.Tensor, ...]]] = [
+            self._shard_pools(dev) for dev in devices]
+
+    @property
+    def pools(self) -> List[Tuple[torch.Tensor, ...]]:
+        """The layer tuples of an unsharded pool (the JAX package's
+        ``pools``)."""
+        if self.tp_size > 1:
+            raise AttributeError(
+                f"a pool sharded over {self.tp_size} shards holds its "
+                "layers per shard: read `shards`")
+        return self.shards[0]
+
+    @pools.setter
+    def pools(self, layers) -> None:
+        if self.tp_size > 1:
+            raise AttributeError(
+                f"a pool sharded over {self.tp_size} shards holds its "
+                "layers per shard: assign `shards`")
+        self.shards = [layers]
+
+    def _shard_pools(self, dev) -> List[Tuple[torch.Tensor, ...]]:
+        """One shard's layer tuples on ``dev``, at n_kv_heads / tp heads."""
+        heads = self.n_kv_heads // self.tp_size
+        shape = (self.num_blocks, self.block_size, heads, self.head_dim)
 
         def zeros(shp, dt):
-            return torch.zeros(shp, dtype=dt, device=self.device)
+            return torch.zeros(shp, dtype=dt, device=dev)
 
-        if kv_dtype == "int8":
-            sshape = (num_blocks, n_kv_heads)  # one scale per page per head
-            self.pools = [(zeros(shape, torch.int8), zeros(shape, torch.int8),
-                           zeros(sshape, torch.float32),
-                           zeros(sshape, torch.float32))
-                          for _ in range(num_layers)]
-        elif kv_dtype == "mixed":
+        if self.kv_dtype == "int8":
+            sshape = (self.num_blocks, heads)  # one scale a page a head
+            return [(zeros(shape, torch.int8), zeros(shape, torch.int8),
+                     zeros(sshape, torch.float32),
+                     zeros(sshape, torch.float32))
+                    for _ in range(self.num_layers)]
+        if self.kv_dtype == "mixed":
             # storage in the logical dtype and a tag plane per layer (kept
             # equal; `tag_pages` sets them all), which steers the writes
-            self.pools = [(zeros(shape, dtype), zeros(shape, dtype),
-                           zeros((num_blocks,), torch.bool))
-                          for _ in range(num_layers)]
-        else:
-            store = torch.float8_e4m3fn if kv_dtype == "fp8" else dtype
-            self.pools = [(zeros(shape, store), zeros(shape, store))
-                          for _ in range(num_layers)]
+            return [(zeros(shape, self.dtype), zeros(shape, self.dtype),
+                     zeros((self.num_blocks,), torch.bool))
+                    for _ in range(self.num_layers)]
+        store = torch.float8_e4m3fn if self.kv_dtype == "fp8" else self.dtype
+        return [(zeros(shape, store), zeros(shape, store))
+                for _ in range(self.num_layers)]
+
+    @staticmethod
+    def _head_axis(j: int) -> Optional[int]:
+        """The kv-head axis of a layer tuple's array j, counted on the
+        [blocks, ...] pool arrays and on [n, ...] page stacks alike: 2 for
+        K / V, 1 for int8 scales; None for a tag plane (no head axis)."""
+        return {0: 2, 1: 2}.get(j, 1)
+
+    def _is_tag(self, j: int) -> bool:
+        return self.kv_dtype == "mixed" and j == 2
+
+    def page_layout(self) -> List[Tuple[Tuple[tuple, torch.dtype], ...]]:
+        """Per layer, each pool array's logical page shape (all kv heads)
+        and storage dtype: the layout of every byte that leaves the pool."""
+        out = []
+        for layer in self.shards[0]:
+            arrays = []
+            for j, a in enumerate(layer):
+                shape = list(a.shape[1:])
+                if not self._is_tag(j):
+                    shape[self._head_axis(j) - 1] *= self.tp_size
+                arrays.append((tuple(shape), a.dtype))
+            out.append(tuple(arrays))
+        return out
 
     def native_kv_tag(self) -> str:
         """The kv_dtype tag a request gets when it does not ask for one:
@@ -1965,10 +2038,11 @@ class KVCachePool:
         for p in pages:
             self.allocator._tags[p] = tag
         if self.kv_dtype == "mixed":
-            idx = torch.tensor(list(pages), dtype=torch.long,
-                               device=self.device)
-            for layer in self.pools:
-                layer[2][idx] = tag == "fp8"
+            for shard in self.shards:
+                idx = torch.tensor(list(pages), dtype=torch.long,
+                                   device=shard[0][2].device)
+                for layer in shard:
+                    layer[2][idx] = tag == "fp8"
 
     def page_tag(self, page: int) -> Optional[str]:
         return self.allocator._tags.get(page)
@@ -2005,10 +2079,22 @@ class KVCachePool:
         """The named pages across every layer's pool arrays, gathered into
         fresh tensors on the pool's device (on the current stream, no
         sync): a snapshot later in-place writes of the pool cannot reach.
-        Gathered as bytes, so fp8 and bool planes move like any page."""
-        idx = torch.tensor(list(pages), dtype=torch.long, device=self.device)
-        return [tuple(_bytes(a).index_select(0, idx).view(a.dtype)
-                      for a in layer) for layer in self.pools]
+        Gathered as bytes, so fp8 and bool planes move like any page. A
+        sharded pool's shards are joined on the head axis on the first
+        shard's device: the logical layout."""
+        got = []
+        for shard in self.shards:
+            idx = torch.tensor(list(pages), dtype=torch.long,
+                               device=shard[0][0].device)
+            got.append([tuple(_bytes(a).index_select(0, idx).view(a.dtype)
+                              for a in layer) for layer in shard])
+        if self.tp_size == 1:
+            return got[0]
+        return [tuple(got[0][li][j] if self._is_tag(j) else torch.cat(
+                    [g[li][j].to(self.device) for g in got],
+                    dim=self._head_axis(j))
+                      for j in range(len(layer)))
+                for li, layer in enumerate(got[0])]
 
     def read_pages(self, pages: Sequence[int]
                    ) -> List[Tuple[torch.Tensor, ...]]:
@@ -2019,27 +2105,36 @@ class KVCachePool:
 
     def write_pages(self, pages: Sequence[int], layer_data) -> None:
         """Scatter page contents into the named pages, IN PLACE on the
-        current stream: the fence half of a page-in. ``layer_data`` mirrors
-        `pools`, per layer a tuple of [len(pages), *page_shape] tensors
-        (staged on the device by the engine, or CPU tensors), cast to the
-        pool array's dtype when they differ."""
-        idx = torch.tensor(list(pages), dtype=torch.long, device=self.device)
-        for layer, data in zip(self.pools, layer_data):
-            for a, d in zip(layer, data):
-                d = torch.as_tensor(d).to(device=self.device, dtype=a.dtype)
-                _bytes(a).index_copy_(0, idx, _bytes(d.contiguous()))
+        current stream: the fence half of a page-in. ``layer_data`` is in
+        the logical layout (`page_layout`), per layer a tuple of
+        [len(pages), *page_shape] tensors (staged on the device by the
+        engine, or CPU tensors), cast to the pool array's dtype when they
+        differ; a sharded pool takes each shard's head slice."""
+        for s, shard in enumerate(self.shards):
+            dev = shard[0][0].device
+            idx = torch.tensor(list(pages), dtype=torch.long, device=dev)
+            for layer, data in zip(shard, layer_data):
+                for j, (a, d) in enumerate(zip(layer, data)):
+                    d = torch.as_tensor(d)
+                    if self.tp_size > 1 and not self._is_tag(j):
+                        ax = self._head_axis(j)
+                        n = a.shape[ax]
+                        d = d.narrow(ax, s * n, n)
+                    d = d.to(device=dev, dtype=a.dtype)
+                    _bytes(a).index_copy_(0, idx, _bytes(d.contiguous()))
 
     def copy_page(self, src: int, dst: int) -> None:
-        """Copy page ``src`` into page ``dst`` across every layer's pools,
-        IN PLACE on the current stream: the data move behind a
-        copy-on-write fork. Pages move as opaque bytes, so on an int8
-        pool the scale rows ([num_blocks, n_kv], page-indexed like the
-        codes) travel with the codes, and on a mixed pool the tag bits
+        """Copy page ``src`` into page ``dst`` across every layer's pools
+        of every shard, IN PLACE on the current stream: the data move
+        behind a copy-on-write fork. Pages move as opaque bytes, so on an
+        int8 pool the scale rows ([num_blocks, n_kv], page-indexed like
+        the codes) travel with the codes, and on a mixed pool the tag bits
         (the fork is tagged again with its owner's tag right after)."""
-        for layer in self.pools:
-            for t in layer:
-                v = t.view(torch.uint8)
-                v[dst].copy_(v[src])
+        for shard in self.shards:
+            for layer in shard:
+                for t in layer:
+                    v = t.view(torch.uint8)
+                    v[dst].copy_(v[src])
 
     def blocks_for_tokens(self, n_tokens: int) -> int:
         """Pages needed to hold n_tokens KV entries."""
@@ -2083,8 +2178,14 @@ class KVCachePool:
         return self.unquantized_page_bytes() / self.page_bytes()
 
     def memory_bytes(self) -> int:
-        """Pool bytes as stored: codes plus scales on an int8 pool."""
+        """Pool bytes as stored, across the whole mesh (sharding never
+        changes it): codes plus scales on an int8 pool."""
         return self.num_blocks * self.page_bytes()
+
+    def per_shard_memory_bytes(self) -> int:
+        """Pool bytes ONE model shard holds: memory_bytes() // tp, as the
+        JAX package counts it."""
+        return self.memory_bytes() // self.tp_size
 
 
 class SequenceKV:

@@ -144,7 +144,7 @@ def aggregate_snapshots(snaps) -> Dict[str, float]:
     out["tokens_per_sec"] = (toks / out["busy_seconds"]
                              if out["busy_seconds"] > 0 else 0.0)
     # the tensor-parallel comm reductions, recomputed from the summed
-    # byte counters (0 on a port engine: TP serving is ROADMAP item 10)
+    # byte counters
     comm = out["tp_comm_bytes"]
     out["tp_comm_bytes_reduction_x"] = (out["tp_comm_bytes_fp32"] / comm
                                         if comm > 0 else 0.0)
@@ -250,6 +250,17 @@ class EngineMetrics:
         # from the runner's host-side accounting each step
         self.attn_kv_bytes_read = Gauge("attn_kv_bytes_read")
         self.attn_kv_bytes_gather = Gauge("attn_kv_bytes_gather")
+        # tensor-parallel wire bytes a shard moved through the row-parallel
+        # allreduces and the logits gather at the runner's comm dtype
+        # (scale bytes counted) vs fp32 for the same calls, and their
+        # ratios: mirrored from the runner's host-side counters each step
+        self.tp_comm_bytes = Gauge("tp_comm_bytes")
+        self.tp_comm_bytes_fp32 = Gauge("tp_comm_bytes_fp32")
+        self.tp_comm_bytes_reduction_x = Gauge("tp_comm_bytes_reduction_x")
+        self.tp_gather_bytes = Gauge("tp_gather_bytes")
+        self.tp_gather_bytes_fp32 = Gauge("tp_gather_bytes_fp32")
+        self.tp_gather_bytes_reduction_x = Gauge(
+            "tp_gather_bytes_reduction_x")
         # per-page byte reduction of the pool against storing it at the
         # logical dtype (scale bytes counted; 1.0 on fp32 pools), and the
         # matching sessions-per-fixed-memory factor, set from the pool's

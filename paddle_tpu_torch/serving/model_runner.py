@@ -1,7 +1,8 @@
 """Model runners: paged-KV step functions for the serving engine.
 
-Counterpart of paddle_tpu/serving/model_runner.py for Llama and GPT on one
-device: fp32, bf16 or fp16 compute (the dtype of the first floating
+Counterpart of paddle_tpu/serving/model_runner.py for Llama and GPT, on one
+device or sharded over a mesh's model axis (`shard`): fp32, bf16 or fp16
+compute (the dtype of the first floating
 parameter, `dtype`; `inference.create_serving_engine(dtype=...)` casts),
 over fp32 (the runner's dtype), int8, fp8 or "mixed" KV pools
 (``kv_dtype``), with
@@ -21,6 +22,11 @@ page pool:
   ragged_step(tokens[B, T], tables, start_pos[B], q_lens[B], pools,
               full_logits=False)                     -> (logits[B, V] or
                                                          [B, T, V], pools)
+
+``pools`` is the page pool's `KVCachePool.shards`: each shard's list of
+layer tuples, one shard on an unsharded pool (whose `KVCachePool.pools`
+is that shard's list, the JAX package's shape). One `_forward` serves
+both: an unsharded runner is a runner of one shard.
 
 `decode_multi` is the device-resident horizon: s decode steps in one
 call, each step's token (the argmax, or a seeded sample with
@@ -92,7 +98,16 @@ Where the port departs from the JAX package:
     restart) would hold;
   * the horizon loops are Python loops of the decode bodies (the JAX
     `lax.scan`), inside one graph on the card; a speculative horizon's
-    per-row positions, kept counts and stop bits stay device tensors.
+    per-row positions, kept counts and stop bits stay device tensors;
+  * tensor parallelism is single-controller, as the JAX engine is, but
+    explicit where JAX leaves the partition to GSPMD: `_forward` runs each
+    shard's column products, its attention over its own pool slices at
+    n_heads / tp and n_kv_heads / tp heads and its row products' partials,
+    and the layout's collectives (`SpecLayout.row_parallel_reduce`,
+    `column_parallel_gather`) join them; replicated activations are
+    computed once. An unsharded runner is the case of one shard. The
+    steps take the pool's `shards` where the JAX runner takes its
+    ``pools``. A sharded decode kind is still one CUDA graph.
 
 The instrumented-pool counters (`attn_kv_bytes_read` /
 `attn_kv_bytes_gather`) account the pool bytes each dispatch touches vs
@@ -114,7 +129,7 @@ import torch.nn.functional as F
 
 from paddle_tpu_torch.core import random as prandom
 from paddle_tpu_torch.models.generation import (
-    _block_params, _head, _layer_norm, _mlp, _qkv, _sample,
+    DIST_ITEM, _layer_norm, _sample,
     masked_cache_attention, model_params, paged_gather,
 )
 from paddle_tpu_torch.models.gpt import GPT
@@ -131,6 +146,9 @@ from paddle_tpu_torch.ops.ragged_paged_attention import (
 )
 from paddle_tpu_torch.quantization.int4 import int4_matmul, int4_quantize
 from paddle_tpu_torch.quantization.int8 import _weight_quantize
+from paddle_tpu_torch.quantization.qcomm import (
+    COMM_DTYPES, allgather_bytes, allreduce_bytes,
+)
 from paddle_tpu_torch.serving.kv_cache import (
     SCRATCH_PAGE, _fp8_cast, check_kv_dtype, fp8_page_write, fp8_round,
     quantized_page_write, require_fp8,
@@ -172,14 +190,22 @@ def paged_attend(q, k_new, v_new, layer_pools, tables, write_page,
     dequantize with the per-page-per-head scales); tables: [B, P] int32;
     write_page/write_off: [B, T] int64; pos_q: [B] int32 context position
     of q row 0; q_len: [B] int32 live rows per span. impl is the resolved
-    attention path ("reference" | "paged_decode" | "ragged"). shard_ctx,
-    the JAX (mesh, model_axis) of a sharded runner, raises unless None
-    (ROADMAP.md item 10). Returns ([B, T, n_h*d], layer_pools)."""
+    attention path ("reference" | "paged_decode" | "ragged"). shard_ctx is
+    the (mesh, model_axis) of a sharded runner's per-shard call: q, k_new,
+    v_new and layer_pools are then one shard's (n_h / tp and n_kv / tp
+    heads, its own pool slices), and the call runs as an unsharded one at
+    those head counts (the JAX package maps the kernel over the model axis
+    with shard_map; here the runner calls it once a shard). Returns
+    ([B, T, n_h*d], layer_pools)."""
     if shard_ctx is not None:
-        raise NotImplementedError(
-            "paged_attend(shard_ctx=...): kernels mapped over a mesh's "
-            "model axis are not ported yet: ROADMAP.md 'Still to port' "
-            "item 10 (tensor-parallel serving)")
+        mesh, axis = shard_ctx
+        tp = int(mesh.shape[axis])
+        heads = layer_pools[0].shape[2]
+        if k_new.shape[2] != heads or q.shape[2] != n_rep * heads:
+            raise ValueError(
+                f"paged_attend(shard_ctx=tp {tp}): a shard's call takes its "
+                f"own heads; got q {q.shape[2]} / kv {k_new.shape[2]} heads "
+                f"over a pool slice of {heads} kv heads (n_rep {n_rep})")
     k_pool, v_pool = layer_pools[:2]
     scales = (None, None)
     quantized = len(layer_pools) == 4
@@ -358,11 +384,21 @@ def _capture_stream(device) -> "torch.cuda.Stream":
     return stream
 
 
+def _flat_tensors(x):
+    """The tensors of a nested list / tuple, in order."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    else:
+        for y in x:
+            yield from _flat_tensors(y)
+
+
 def _pools_key(pools) -> tuple:
-    """The pools' addresses, shapes and dtypes: a graph writes the pools it
-    was captured on, or any that later lie at the same addresses."""
+    """The pools' addresses, shapes and dtypes (every shard's tensors on a
+    sharded pool): a graph writes the pools it was captured on, or any
+    that later lie at the same addresses."""
     return tuple((t.data_ptr(), tuple(t.shape), t.dtype)
-                 for layer in pools for t in layer)
+                 for t in _flat_tensors(pools))
 
 
 class PagedModelRunner:
@@ -370,7 +406,8 @@ class PagedModelRunner:
 
     Subclasses set the architecture fields in __init__ and implement
     `_forward(tokens, positions, write_page, write_off, tables, pos_q,
-    q_lens, pools) -> (logits[B, T, V], pools)`.
+    q_lens, pools) -> (logits[B, T, V], pools)` over ``pools``, the pool's
+    shards.
     """
 
     num_layers: int
@@ -414,6 +451,28 @@ class PagedModelRunner:
         # attention path touches vs what the gather path would have read
         self.attn_kv_bytes_read = 0.0
         self.attn_kv_bytes_gather = 0.0
+        # tensor parallelism (`shard`): unsharded until a mesh is given
+        self.mesh = None
+        self.data_axis = "data"
+        self.model_axis = "model"
+        self.tp_size = 1
+        self.comm_dtype = "fp32"
+        self._layout = None
+        self._specs: Dict[str, tuple] = {}
+        # each shard's parameter dict and device once sharded
+        # (`_shard_params` / `_shard_devices` read them)
+        self._mesh_params: List[Dict[str, torch.Tensor]] = []
+        self._mesh_devices: List[torch.device] = []
+        self._row_names: frozenset = frozenset()
+        self._row_out_dims: tuple = ()
+        self._gather_names: frozenset = frozenset()
+        self._gather_out_dims: tuple = ()
+        # per-shard wire bytes of the row-parallel allreduces and of the
+        # logits gather at the comm dtype, and what fp32 would move
+        self.tp_comm_bytes = 0.0
+        self.tp_comm_bytes_fp32 = 0.0
+        self.tp_gather_bytes = 0.0
+        self.tp_gather_bytes_fp32 = 0.0
         # CUDA graphs of the decode kinds on the card (`_graphed`); False
         # runs them eagerly there too
         self.graphs = True
@@ -462,13 +521,15 @@ class PagedModelRunner:
                     self.weight_dtype, len(names), self.weight_group_size)
         self._quantized_names = frozenset(names)
 
-    def _mm(self, params, name, x):
+    def _mm(self, params, name, x, epilogue: bool = True):
         """x @ a possibly quantized weight. fp32 (or cast) weights take the
         plain ``x @ w``; fp8 weights are cast to x's dtype first; int8
         codes are cast to x's dtype and their per-output-channel scale
         multiplies the product (``x @ (q * s)`` by linearity); int4 goes
         through `int4_matmul`'s grouped epilogue. Codes and scales are
-        cast to x's dtype as the JAX runner casts them."""
+        cast to x's dtype as the JAX runner casts them. ``epilogue`` False
+        leaves int8's scale to the caller (a row-parallel product applies
+        it after the reduce)."""
         w = params[name]
         s = params.get(name + SCALE_SUFFIX)
         if s is None:
@@ -477,7 +538,8 @@ class PagedModelRunner:
             return x @ w
         if s.dim() == 2:
             return int4_matmul(x, w, s, self.weight_group_size)
-        return (x @ w.to(x.dtype)) * s.to(x.dtype)
+        out = x @ w.to(x.dtype)
+        return out * s.to(x.dtype) if epilogue else out
 
     def weight_bytes(self) -> int:
         """Resident bytes of the whole params dict at their storage dtypes:
@@ -503,6 +565,266 @@ class PagedModelRunner:
         fp32 runner, 2.0 on a bf16- or fp16-cast one)."""
         wb = self.weight_bytes()
         return self.weight_bytes_fp32() / wb if wb else 1.0
+
+    # ------------------------------------------------- tensor parallelism
+
+    @property
+    def is_sharded(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def _shard_params(self) -> List[Dict[str, torch.Tensor]]:
+        """Each shard's parameters: an unsharded runner is one shard,
+        its own ``params``."""
+        return self._mesh_params if self.mesh is not None else [self.params]
+
+    @property
+    def _shard_devices(self) -> List[torch.device]:
+        return self._mesh_devices if self.mesh is not None else [self.device]
+
+    @property
+    def _shard_ctx(self):
+        """`paged_attend`'s shard_ctx for one shard's call (None when
+        unsharded)."""
+        return None if self.mesh is None else (self.mesh, self.model_axis)
+
+    def _param_specs(self, layout) -> Dict[str, tuple]:
+        """name -> PartitionSpec for this architecture (subclass hook;
+        unlisted params ride replicated)."""
+        raise NotImplementedError
+
+    @staticmethod
+    def _spec_fits(shape, spec, mesh) -> bool:
+        """Every sharded dim divides evenly across its mesh axes."""
+        for dim, axes in zip(shape, tuple(spec)):
+            if axes is None:
+                continue
+            names = axes if isinstance(axes, tuple) else (axes,)
+            parts = int(np.prod([mesh.shape[a] for a in names]))
+            if dim % parts:
+                return False
+        return True
+
+    def shard(self, mesh, *, data_axis: str = "data",
+              model_axis: str = "model",
+              comm_dtype: str = "fp32") -> "PagedModelRunner":
+        """Shard this runner's weights over ``mesh``'s model axis (a
+        `parallel.mesh.Mesh`); returns self. The placements are the JAX
+        runner's (`_param_specs`, `SpecLayout`): QKV / gate / up (GPT's
+        fc1) column-parallel, out-proj / down-proj (fc2) row-parallel with
+        the layout's `row_parallel_reduce()` on their partial products,
+        embeddings vocab-sharded, an untied lm_head column-parallel with
+        its logits gathered by `column_parallel_gather()`; GPT's fused
+        QKV stays replicated (its (3, heads, d) columns would split across
+        q / k / v) and each shard takes its heads of the product. A
+        quantized weight's scale shards with it (int8's [out] vector on
+        the out axis, int4's [out, groups] matrix on the transposed spec,
+        an int4 row-parallel shard owning whole groups); a weight whose
+        sharded dim does not divide stays replicated with its scale,
+        logged. n_kv_heads and n_heads must divide by tp (GQA shards in
+        whole kv heads). The engine builds its pools over the same mesh.
+
+        Each shard's tensors are the ``params`` tensors themselves where
+        replicated and views of them where sharded (narrowed on the
+        sharded dim), on the shard's device: on a mesh whose shards share
+        the weights' device (every mesh the port runs: one card, or the
+        CPU) no weight is copied. A runner on another device than the
+        mesh's moves its parameters there first."""
+        from paddle_tpu_torch.parallel.compat import P, SpecLayout
+
+        if comm_dtype not in COMM_DTYPES:
+            raise ValueError(f"comm_dtype={comm_dtype!r}; expected one "
+                             f"of {COMM_DTYPES}")
+        for axis in (data_axis, model_axis):
+            if axis not in mesh.axis_names:
+                raise ValueError(
+                    f"mesh axes {mesh.axis_names} lack {axis!r}: build "
+                    "the serving mesh with parallel.mesh.serving_mesh("
+                    "data, model)")
+        tp = int(mesh.shape[model_axis])
+        if self.n_kv_heads % tp:
+            raise ValueError(
+                f"n_kv_heads={self.n_kv_heads} is not divisible by the "
+                f"tensor-parallel degree {tp} ({model_axis!r} axis): GQA "
+                "shards along kv-heads, so every shard needs a whole "
+                "kv-head slice of the paged pools; choose tp dividing "
+                "n_kv_heads or reshape the mesh")
+        if self.n_heads % tp:
+            raise ValueError(
+                f"n_heads={self.n_heads} is not divisible by the tensor-"
+                f"parallel degree {tp} ({model_axis!r} axis)")
+        devices = mesh.axis_devices(model_axis)
+        if devices[0] != self.device:
+            self.params = {k: v.to(devices[0])
+                           for k, v in self.params.items()}
+            self.device = devices[0]
+            self._move_tables(self.device)
+        layout = SpecLayout(data_axis=data_axis, model_axis=model_axis,
+                            comm_dtype=comm_dtype)
+        specs = dict(self._param_specs(layout))
+        # a quantized weight's scale takes its placement from the weight's
+        # spec: int8's [out] the out axis, int4's [out, groups] the
+        # transposed spec; fp8 has no scale
+        for name in list(specs):
+            sname = name + SCALE_SUFFIX
+            if sname in self.params:
+                spec = tuple(specs[name])
+                if len(spec) < 2:
+                    specs[sname] = P()
+                elif self.params[sname].dim() == 2:
+                    specs[sname] = P(spec[1], spec[0])
+                else:
+                    specs[sname] = P(spec[1])
+        final: Dict[str, tuple] = {}
+        for name, v in self.params.items():
+            if name.endswith(SCALE_SUFFIX):
+                continue                # placed with its weight below
+            spec = tuple(specs.get(name, P()))
+            sname = name + SCALE_SUFFIX
+            sspec = tuple(specs.get(sname, P()))
+            fits = spec == () or self._spec_fits(v.shape, spec, mesh)
+            if fits and sname in self.params and sspec != ():
+                sarr = self.params[sname]
+                fits = self._spec_fits(sarr.shape, sspec, mesh)
+                if fits and sarr.dim() == 2 and \
+                        spec == tuple(layout.row_parallel()):
+                    # int4 row-parallel: whole reduction groups a shard
+                    # (the logical in-dim is twice the packed rows)
+                    k = 2 * int(v.shape[0])
+                    fits = (k // tp) % min(self.weight_group_size, k) == 0
+            if spec != () and not fits:
+                logger.warning(
+                    "shard: %s %s does not divide over %s: this param "
+                    "(and its scale) stays replicated", name,
+                    tuple(v.shape), spec)
+                spec, sspec = (), ()
+            final[name] = P(*spec)
+            if sname in self.params:
+                final[sname] = P(*sspec)
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.model_axis = model_axis
+        self.tp_size = tp
+        self.comm_dtype = comm_dtype
+        self._layout = layout
+        self._specs = final
+        self._mesh_devices = devices
+        self._mesh_params = [
+            {name: self._local(v, final[name], s).to(devices[s])
+             for name, v in self.params.items()} for s in range(tp)]
+        row = tuple(layout.row_parallel())
+        rows = sorted(n for n in specs if not n.endswith(SCALE_SUFFIX)
+                      and tuple(final.get(n, ())) == row)
+        col = tuple(layout.column_parallel())
+        gathers = sorted(n for n in ("lm_head.weight",)
+                         if n in self.params and tuple(final[n]) == col)
+        self._row_names = frozenset(rows)
+        self._row_out_dims = tuple(int(self.params[n].shape[1])
+                                   for n in rows)
+        self._gather_names = frozenset(gathers)
+        self._gather_out_dims = tuple(int(self.params[n].shape[1]) // tp
+                                      for n in gathers)
+        self._graph_cache.clear()       # graphs are per forward
+        logger.info(
+            "serving runner sharded: mesh=%s tp=%d (%d/%d heads, %d/%d "
+            "kv-heads per shard) comm_dtype=%s (%d row-parallel "
+            "allreduces + %d column-parallel gathers/step)",
+            dict(mesh.shape), tp, self.n_heads // tp, self.n_heads,
+            self.n_kv_heads // tp, self.n_kv_heads, comm_dtype,
+            len(rows), len(gathers))
+        return self
+
+    def _move_tables(self, device) -> None:
+        """Move the runner's non-parameter device tables (subclass hook)."""
+
+    def _local(self, v: torch.Tensor, spec: tuple, s: int) -> torch.Tensor:
+        """Shard ``s``'s part of a parameter: ``v`` narrowed on each dim
+        its spec puts on the model axis (a view), or ``v`` itself."""
+        for dim, axis in enumerate(spec):
+            if axis == self.model_axis:
+                n = v.shape[dim] // self.tp_size
+                v = v.narrow(dim, s * n, n)
+        return v
+
+    def _sharded(self, name: str) -> bool:
+        return any(a == self.model_axis for a in self._specs.get(name, ()))
+
+    def _shard_slice(self, name: str, s: int, dim: int = -1):
+        """Shard ``s``'s slice (1/tp of ``dim``) of a parameter, whether it
+        is sharded (its own view) or replicated (narrowed here)."""
+        if self._sharded(name):
+            return self._shard_params[s][name]
+        v = self._shard_params[s][name]
+        n = v.shape[dim] // self.tp_size
+        return v.narrow(dim, s * n, n)
+
+    def _col(self, name: str, h) -> List[torch.Tensor]:
+        """A column-parallel product of the replicated input ``h``: each
+        shard's output columns. A weight left replicated computes the
+        whole product once and each shard takes its columns."""
+        if self._sharded(name):
+            return [self._mm(sp, name, h.to(dev)) for sp, dev in
+                    zip(self._shard_params, self._shard_devices)]
+        full = self._mm(self._shard_params[0], name, h)
+        n = full.shape[-1] // self.tp_size
+        return [full.narrow(-1, s * n, n).to(dev)
+                for s, dev in enumerate(self._shard_devices)]
+
+    def _row(self, name: str, parts) -> torch.Tensor:
+        """A row-parallel product of the shards' input slices ``parts``,
+        returned replicated (the first shard's copy). Each shard's `_mm`
+        multiplies its rows (int4's grouped epilogue and fp8's cast
+        in-shard), the layout's `row_parallel_reduce()` sums the partial
+        products, and int8's per-output-channel scale, replicated,
+        multiplies the sum. A weight left replicated (every weight of an
+        unsharded runner) joins the inputs and multiplies once."""
+        if name not in self._row_names:
+            x = parts[0] if len(parts) == 1 else torch.cat(
+                [p.to(self.device) for p in parts], dim=-1)
+            return self._mm(self._shard_params[0], name, x)
+        partial = [self._mm(sp, name, x, epilogue=False)
+                   for sp, x in zip(self._shard_params, parts)]
+        out = self._layout.row_parallel_reduce()(partial)[0]
+        s = self._shard_params[0].get(name + SCALE_SUFFIX)
+        if s is not None and s.dim() == 1:
+            out = out * s.to(out.dtype)
+        return out
+
+    def _embed(self, name: str, tokens) -> torch.Tensor:
+        """The embedding lookup of a vocab-sharded table: each shard looks
+        up the tokens in its rows (zeros elsewhere) and the plain psum
+        joins them, exactly (the JAX package's GSPMD lookup)."""
+        if not self._sharded(name):
+            return F.embedding(tokens, self._shard_params[0][name])
+        from paddle_tpu_torch.parallel.mesh import psum
+        parts = []
+        for s, (sp, dev) in enumerate(zip(self._shard_params,
+                                          self._shard_devices)):
+            table = sp[name]
+            n = table.shape[0]
+            local = tokens.to(dev) - s * n
+            hit = (local >= 0) & (local < n)
+            e = F.embedding(local.clamp(0, n - 1), table)
+            parts.append(torch.where(hit[..., None], e,
+                                     torch.zeros_like(e)))
+        return psum(parts)[0]
+
+    def _logits(self, x, head: str, table: str) -> torch.Tensor:
+        """The logits of the final hidden states: an untied ``head``
+        through `_mm` (column-parallel: each shard's vocab slice, joined by
+        the layout's `column_parallel_gather()`), or a tied ``table``
+        (vocab-sharded: each shard's slice, joined by the plain gather)."""
+        from paddle_tpu_torch.parallel.mesh import all_gather
+        if head in self._shard_params[0]:
+            if head not in self._gather_names:
+                return self._mm(self._shard_params[0], head, x)
+            gather = self._layout.column_parallel_gather()
+            return gather([self._mm(sp, head, x.to(dev)) for sp, dev in
+                           zip(self._shard_params, self._shard_devices)])[0]
+        if not self._sharded(table):
+            return x @ self._shard_params[0][table].T
+        return all_gather([x.to(dev) @ sp[table].T for sp, dev in
+                           zip(self._shard_params, self._shard_devices)])[0]
 
     # --------------------------------------------------------- dispatch
 
@@ -552,10 +874,12 @@ class PagedModelRunner:
         int8 pools count the code bytes PLUS the per-page-per-head scale
         bytes the dequantize reads, fp8 pools one byte per element, the
         others (fp32 and "mixed" pools store the runner's dtype; the tag
-        plane is never read by the attention) its itemsize."""
-        data = self.block_size * self.n_kv_heads * self.head_dim
+        plane is never read by the attention) its itemsize. A sharded
+        runner counts one shard's n_kv / tp heads."""
+        nkv = self.n_kv_heads // self.tp_size      # per shard
+        data = self.block_size * nkv * self.head_dim
         if self.kv_dtype == "int8":
-            return 2 * self.num_layers * (data + self.n_kv_heads * 4)
+            return 2 * self.num_layers * (data + nkv * 4)
         if self.kv_dtype == "fp8":
             return 2 * self.num_layers * data
         return 2 * self.num_layers * data * self.dtype.itemsize
@@ -574,14 +898,38 @@ class PagedModelRunner:
         self.attn_kv_bytes_read += pages * per_page
         self.attn_kv_bytes_gather += gather_pages * per_page
 
+    def _account_comm(self, rows: int, steps: int = 1) -> None:
+        """Bump the comm counters for one step call: every forward runs one
+        allreduce of [rows, out] a row-parallel weight and one gather of
+        [rows, V / tp] a gathered head, counted per shard at the comm
+        dtype and at fp32 (`qcomm.allreduce_bytes` / `allgather_bytes`,
+        scale bytes included), from the call's padded operand rows."""
+        if self.tp_size <= 1 or not (self._row_out_dims
+                                     or self._gather_out_dims):
+            return
+        r = int(rows) * int(steps)
+        for d in self._row_out_dims:
+            self.tp_comm_bytes_fp32 += allreduce_bytes(r, d, "fp32")
+            self.tp_comm_bytes += allreduce_bytes(r, d, self.comm_dtype)
+        for d in self._gather_out_dims:
+            self.tp_gather_bytes_fp32 += allgather_bytes(r, d, "fp32")
+            self.tp_gather_bytes += allgather_bytes(r, d, self.comm_dtype)
+
     def reset_attn_counters(self) -> None:
         self.attn_kv_bytes_read = 0.0
         self.attn_kv_bytes_gather = 0.0
+        self.tp_comm_bytes = 0.0
+        self.tp_comm_bytes_fp32 = 0.0
+        self.tp_gather_bytes = 0.0
+        self.tp_gather_bytes_fp32 = 0.0
 
     # ------------------------------------------------------------- steps
 
     def _stage(self, *host_arrays):
-        """Copy host operands to the runner's device, one copy each."""
+        """Copy host operands to the runner's device, one copy each. On a
+        sharded runner that is the first shard's device, which every shard
+        of a mesh the port runs shares (the JAX runner's one replicated
+        device_put)."""
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                      for a in host_arrays)
 
@@ -594,7 +942,10 @@ class PagedModelRunner:
         the engine issues them on the host tier's side stream from pinned
         buffers, so they overlap device work, and its fence orders the
         compute stream after them. On the CPU the tensors come back as
-        they are."""
+        they are. On a sharded runner the pages stay in the logical layout
+        (all kv heads) on the shards' device, and `KVCachePool.write_pages`
+        scatters each shard's head slice into its pools (a departure: the
+        JAX runner stages them head-sharded)."""
         return [tuple(a.to(self.device, non_blocking=True) for a in layer)
                 for layer in layer_data]
 
@@ -623,6 +974,7 @@ class PagedModelRunner:
         padded[0, :t] = tokens
         self._account_attn(self._attn_impl_for(tb), np.asarray([start_pos]),
                            np.asarray([t]), len(table_row))
+        self._account_comm(tb)
         toks, table, span = self._stage(
             padded, np.asarray(table_row, np.int32)[None],
             np.asarray([start_pos, t], np.int32))
@@ -855,6 +1207,7 @@ class PagedModelRunner:
         B, P = tabs.shape
         self._account_attn(self._attn_impl_for(1), pos_np,
                            np.ones_like(pos_np), P)
+        self._account_comm(B)
         host = (np.asarray(tokens, np.int32), tabs, pos_np)
         return self._launch("decode", (B, P), self._decode_body, host,
                             pools), pools
@@ -884,6 +1237,7 @@ class PagedModelRunner:
         impl = self._attn_impl_for(1)
         for t in range(num_steps):      # inner step t attends at pos + t
             self._account_attn(impl, pos_np + t, np.ones_like(pos_np), P)
+        self._account_comm(B, steps=num_steps)
         toks = np.asarray(tokens, np.int32)
         sampling = temps is not None
         if not (sampling or early_stop):
@@ -943,6 +1297,7 @@ class PagedModelRunner:
         spans = np.full((B,), K + 1, np.int32)
         for t in range(num_steps):   # upper-bounds the per-step reads
             self._account_attn(impl, pos_np + t * (K + 1), spans, P)
+        self._account_comm(B * (K + 1), steps=num_steps)
         sampling = temps is not None
         seeds = np.zeros((B,), np.int64) if seeds is None \
             else np.asarray(seeds, np.int64)
@@ -1007,6 +1362,7 @@ class PagedModelRunner:
         tabs = np.asarray(tables, np.int32)
         self._account_attn(self._attn_impl_for(T), start_pos, q_lens,
                            tabs.shape[1])
+        self._account_comm(tokens.shape[0] * T)
         body = self._ragged_core if full_logits else self._ragged_step
         return body(pools, *self._stage(tokens, tabs, start_pos,
                                         q_lens)), pools
@@ -1057,6 +1413,29 @@ class LlamaRunner(PagedModelRunner):
             # embeddings stay floating (a lookup table; a tied head too)
             self._quantize_weights(names)
 
+    def _param_specs(self, layout):
+        """Megatron placements of the Llama block (the JAX runner's):
+        Q / K / V and gate / up column-parallel, o_proj / down_proj
+        row-parallel, embeddings vocab-sharded, an untied lm_head
+        column-parallel; norms replicated."""
+        col, row = layout.column_parallel(), layout.row_parallel()
+        specs = {"embed_tokens.weight": layout.embeddings()}
+        for i in range(self.num_layers):
+            pre = f"layers.{i}."
+            for n in ("self_attn.q_proj.weight", "self_attn.k_proj.weight",
+                      "self_attn.v_proj.weight", "mlp.gate_proj.weight",
+                      "mlp.up_proj.weight"):
+                specs[pre + n] = col
+            specs[pre + "self_attn.o_proj.weight"] = row
+            specs[pre + "mlp.down_proj.weight"] = row
+        if "lm_head.weight" in self.params:
+            specs["lm_head.weight"] = col
+        return specs
+
+    def _move_tables(self, device) -> None:
+        self._rope_cos = self._rope_cos.to(device)
+        self._rope_sin = self._rope_sin.to(device)
+
     def _rope(self, x, cos, sin):
         # rotate-half convention of ops.rotary_embedding; the fp32 tables
         # promote the product, cast back to x's dtype
@@ -1071,43 +1450,55 @@ class LlamaRunner(PagedModelRunner):
 
     def _forward(self, tokens, positions, write_page, write_off, tables,
                  pos_q, q_lens, pools):
-        cfg, p = self.cfg, self.params
+        """One forward over the runner's shards (one when unsharded):
+        ``pools`` holds each shard's layer tuples. Replicated activations
+        (the residual stream, the norms) are computed once on the first
+        shard's device; each shard runs its column products, its attention
+        at n_heads / tp and n_kv_heads / tp heads over its own pool slices
+        (the kernels launch once a shard), and its row products' partials,
+        which the layout's reduce sums: two reductions a layer, plus the
+        vocab-sharded embedding's."""
+        cfg = self.cfg
         B, T = tokens.shape
-        d = self.head_dim
+        d, tp = self.head_dim, self.tp_size
+        nh, nkv = self.n_heads // tp, self.n_kv_heads // tp
         impl = self._attn_impl_for(T)
-        x = F.embedding(tokens, p["embed_tokens.weight"])
+        ctx = self._shard_ctx
+        x = self._embed("embed_tokens.weight", tokens)
         cos = self._rope_cos[positions]                      # [B, T, d]
         sin = self._rope_sin[positions]
+        p0 = self._shard_params[0]
         for i in range(cfg.num_layers):
             pre = f"layers.{i}."
-            h = self._rms(x, p[pre + "input_layernorm.weight"])
-            q = self._mm(p, pre + "self_attn.q_proj.weight", h
-                         ).reshape(B, T, self.n_heads, d)
-            k = self._mm(p, pre + "self_attn.k_proj.weight", h
-                         ).reshape(B, T, self.n_kv_heads, d)
-            v = self._mm(p, pre + "self_attn.v_proj.weight", h
-                         ).reshape(B, T, self.n_kv_heads, d)
-            q = self._rope(q, cos, sin)
-            k = self._rope(k, cos, sin)
-            out, _ = paged_attend(q, k, v, pools[i], tables, write_page,
-                                  write_off, pos_q, q_lens, self.n_rep, impl)
-            x = x + self._mm(p, pre + "self_attn.o_proj.weight", out)
-            h = self._rms(x, p[pre + "post_attention_layernorm.weight"])
-            gate = self._mm(p, pre + "mlp.gate_proj.weight", h)
-            up = self._mm(p, pre + "mlp.up_proj.weight", h)
-            x = x + self._mm(p, pre + "mlp.down_proj.weight",
-                             F.silu(gate) * up)
-        x = self._rms(x, p["norm.weight"])
-        if cfg.tie_embeddings:
-            return x @ p["embed_tokens.weight"].T, pools
-        return self._mm(p, "lm_head.weight", x), pools
+            h = self._rms(x, p0[pre + "input_layernorm.weight"])
+            qs = self._col(pre + "self_attn.q_proj.weight", h)
+            ks = self._col(pre + "self_attn.k_proj.weight", h)
+            vs = self._col(pre + "self_attn.v_proj.weight", h)
+            outs = []
+            for sh, dev in enumerate(self._shard_devices):
+                c, sn = cos.to(dev), sin.to(dev)
+                q = self._rope(qs[sh].reshape(B, T, nh, d), c, sn)
+                k = self._rope(ks[sh].reshape(B, T, nkv, d), c, sn)
+                v = vs[sh].reshape(B, T, nkv, d)
+                out, _ = paged_attend(
+                    q, k, v, pools[sh][i], tables.to(dev),
+                    write_page.to(dev), write_off.to(dev), pos_q.to(dev),
+                    q_lens.to(dev), self.n_rep, impl, shard_ctx=ctx)
+                outs.append(out)
+            x = x + self._row(pre + "self_attn.o_proj.weight", outs)
+            h = self._rms(x, p0[pre + "post_attention_layernorm.weight"])
+            gates = self._col(pre + "mlp.gate_proj.weight", h)
+            ups = self._col(pre + "mlp.up_proj.weight", h)
+            x = x + self._row(pre + "mlp.down_proj.weight",
+                              [F.silu(g) * u for g, u in zip(gates, ups)])
+        x = self._rms(x, p0["norm.weight"])
+        return self._logits(x, "lm_head.weight", "embed_tokens.weight"), pools
 
 
 class GPTRunner(PagedModelRunner):
     """Paged-step adapter for models.GPT (pre-LN, learned positions, fused
-    QKV, GELU MLP), over the functional block helpers the generators run
-    (`models.generation._block_params`, `_layer_norm`, `_qkv`, `_mlp`,
-    `_head`; their matmuls through the runner's `_mm`). MHA: the
+    QKV, GELU MLP), its matmuls through the runner's `_mm` and its norms
+    through the generators' `models.generation._layer_norm`. MHA: the
     pools hold all ``num_heads`` heads (n_rep 1), so a decode step takes
     the paged-decode kernel (K2) over fp32, bf16, fp16 and mixed pools and
     the ragged kernel's decode form (K1-q) over int8 / fp8 pools, and prefill
@@ -1115,8 +1506,8 @@ class GPTRunner(PagedModelRunner):
     decode form). The weight ladder quantizes the fused QKV, the output
     projection, the dense MLP and an untied head; the positional
     parameters are the JAX runner's, ``device`` keyword-only after them.
-    The JAX runner's tensor-parallel placements (`_param_specs`,
-    `_constrain_heads`) wait for item 10."""
+    Over a mesh (`shard`) the JAX runner's placements apply
+    (`_param_specs`)."""
 
     def __init__(self, model: GPT, block_size: int = 16,
                  max_model_len: int | None = None, attn_impl: str = "auto",
@@ -1146,24 +1537,67 @@ class GPTRunner(PagedModelRunner):
                 names.append("lm_head.weight")
             self._quantize_weights(names)
 
+    def _param_specs(self, layout):
+        """GPT placements (the JAX runner's): the fused attn.qkv keeps its
+        (3, heads, d) columns replicated (a flat column shard would split
+        across q / k / v; the head-sharded pools carry the attention
+        split), out-proj and fc2 row-parallel, fc1 and its bias
+        column-parallel, the vocab matrices sharded."""
+        col, row = layout.column_parallel(), layout.row_parallel()
+        specs = {"wte.weight": layout.embeddings()}
+        for i in range(self.num_layers):
+            pre = f"blocks.{i}."
+            specs[pre + "attn.out.weight"] = row
+            specs[pre + "mlp.fc1.weight"] = col
+            specs[pre + "mlp.fc1.bias"] = layout.bias_column()
+            specs[pre + "mlp.fc2.weight"] = row
+        if "lm_head.weight" in self.params:
+            specs["lm_head.weight"] = col
+        return specs
+
     def _forward(self, tokens, positions, write_page, write_off, tables,
                  pos_q, q_lens, pools):
-        cfg, params = self.cfg, self.params
-        T = tokens.shape[1]
+        """One forward over the runner's shards, as `LlamaRunner._forward`:
+        the replicated fused QKV product is computed once and each shard
+        attends over its heads of it."""
+        cfg = self.cfg
+        B, T = tokens.shape
+        d, tp = self.head_dim, self.tp_size
+        nh = self.n_heads // tp
         impl = self._attn_impl_for(T)
-        x = (F.embedding(tokens, params["wte.weight"])
-             + params["wpe.weight"][positions])
+        ctx = self._shard_ctx
+        p0 = self._shard_params[0]
+        x = self._embed("wte.weight", tokens) + p0["wpe.weight"][positions]
         for i in range(cfg.num_layers):
-            p = _block_params(params, i)
-            h = _layer_norm(x, p["ln1.weight"], p["ln1.bias"])
-            q, k, v = _qkv(p, h, self.n_heads, self._mm)
-            out, _ = paged_attend(q, k, v, pools[i], tables, write_page,
-                                  write_off, pos_q, q_lens, 1, impl)
-            x = x + (self._mm(p, "attn.out.weight", out)
-                     + p["attn.out.bias"])
-            h = _layer_norm(x, p["ln2.weight"], p["ln2.bias"])
-            x = x + _mlp(p, h, self._mm)
-        return _head(params, x, self._mm), pools
+            pre = f"blocks.{i}."
+            if pre + "mlp.gate" in p0:
+                raise NotImplementedError(
+                    f"a switch-MoE block (mlp.gate) is not ported yet: "
+                    f"{DIST_ITEM}")
+            h = _layer_norm(x, p0[pre + "ln1.weight"], p0[pre + "ln1.bias"])
+            qkv = (self._mm(p0, pre + "attn.qkv.weight", h)
+                   + p0[pre + "attn.qkv.bias"]).reshape(B, T, 3,
+                                                        self.n_heads, d)
+            outs = []
+            for sh, dev in enumerate(self._shard_devices):
+                q, k, v = (qkv[:, :, j, sh * nh:(sh + 1) * nh].contiguous()
+                           .to(dev) for j in range(3))
+                out, _ = paged_attend(
+                    q, k, v, pools[sh][i], tables.to(dev),
+                    write_page.to(dev), write_off.to(dev), pos_q.to(dev),
+                    q_lens.to(dev), 1, impl, shard_ctx=ctx)
+                outs.append(out)
+            x = x + (self._row(pre + "attn.out.weight", outs)
+                     + p0[pre + "attn.out.bias"])
+            h = _layer_norm(x, p0[pre + "ln2.weight"], p0[pre + "ln2.bias"])
+            hs = [F.gelu(f + self._shard_slice(pre + "mlp.fc1.bias", sh),
+                         approximate="tanh")
+                  for sh, f in enumerate(self._col(pre + "mlp.fc1.weight",
+                                                   h))]
+            x = x + (self._row(pre + "mlp.fc2.weight", hs)
+                     + p0[pre + "mlp.fc2.bias"])
+        x = _layer_norm(x, p0["ln_f.weight"], p0["ln_f.bias"])
+        return self._logits(x, "lm_head.weight", "wte.weight"), pools
 
 
 def runner_for(model, block_size: int = 16, max_model_len: int | None = None,

@@ -80,10 +80,13 @@ class FaultInjector:
     Drop-in: the runner's attributes (block_size, num_layers, dtype, ...)
     delegate through, so ``ServingEngine(FaultInjector(runner, ...),
     ...)`` behaves exactly like the bare runner except on the scheduled
-    calls. Call indices are 1-based and counted PER OP ("prefill": prefill
-    and prefill_chunk; "decode": decode, decode_multi, decode_multi_spec
-    and ragged_step, each the step's decode call site), so
-    ``error_every=5`` fails decode calls 5, 10, 15, ...
+    calls; a sharded runner's ``mesh``, ``model_axis`` and ``tp_size``
+    too, so the engine builds kv-head-sharded pools, and an injected error
+    hits the sharded launch before any shard's device work. Call indices
+    are 1-based and counted PER OP ("prefill": prefill and prefill_chunk;
+    "decode": decode, decode_multi, decode_multi_spec and ragged_step,
+    each the step's decode call site), so ``error_every=5`` fails decode
+    calls 5, 10, 15, ...
 
     Fault classes (each with ``*_every`` periodic and ``*_calls`` exact
     schedules, and a target op "prefill" | "decode" | "both"):
@@ -451,30 +454,65 @@ def audit_engine(engine) -> None:
     want_len = {"int8": 4, "mixed": 3}.get(pool.kv_dtype, 2)
     want_dtype = {"int8": torch.int8,
                   "fp8": torch.float8_e4m3fn}.get(pool.kv_dtype, pool.dtype)
-    for li, layer in enumerate(pool.pools):
-        if len(layer) != want_len:
-            problems.append(f"layer {li} pool tuple has {len(layer)} entries "
-                            f"!= {want_len} for kv_dtype={pool.kv_dtype}")
-            continue
-        for nm, arr in zip("kv", layer[:2]):
-            if arr.dtype != want_dtype:
-                problems.append(f"layer {li} {nm}-pool dtype {arr.dtype} != "
-                                f"{want_dtype} on a {pool.kv_dtype} pool")
-        if pool.kv_dtype == "mixed":
-            tag = layer[2]
-            if tag.dtype != torch.bool or tuple(tag.shape) != (
-                    pool.num_blocks,):
+    tp = getattr(pool, "tp_size", 1)
+    heads = pool.n_kv_heads // tp
+    shards = pool.shards
+    for sh, layers in enumerate(shards):
+        where = f"shard {sh} " if tp > 1 else ""
+        for li, layer in enumerate(layers):
+            if len(layer) != want_len:
                 problems.append(
-                    f"layer {li} tag plane {tuple(tag.shape)} {tag.dtype} "
-                    f"!= ({pool.num_blocks},) bool")
-            continue
-        for nm, arr in zip("kv", layer[2:]):
-            if (tuple(arr.shape) != (pool.num_blocks, pool.n_kv_heads)
-                    or arr.dtype != torch.float32):
-                problems.append(
-                    f"layer {li} {nm}-scale pool {tuple(arr.shape)} "
-                    f"{arr.dtype} != {(pool.num_blocks, pool.n_kv_heads)} "
-                    "float32: one scale per page per kv head")
+                    f"{where}layer {li} pool tuple has {len(layer)} entries "
+                    f"!= {want_len} for kv_dtype={pool.kv_dtype}")
+                continue
+            for nm, arr in zip("kv", layer[:2]):
+                if arr.dtype != want_dtype:
+                    problems.append(
+                        f"{where}layer {li} {nm}-pool dtype {arr.dtype} != "
+                        f"{want_dtype} on a {pool.kv_dtype} pool")
+            if pool.kv_dtype == "mixed":
+                tag = layer[2]
+                if tag.dtype != torch.bool or tuple(tag.shape) != (
+                        pool.num_blocks,):
+                    problems.append(
+                        f"{where}layer {li} tag plane {tuple(tag.shape)} "
+                        f"{tag.dtype} != ({pool.num_blocks},) bool")
+            if tp > 1:
+                # -- sharded pools: every shard holds EVERY page's slice
+                #    of n_kv / tp heads (the block tables are replicated,
+                #    so a page id names the same page on every shard), its
+                #    int8 scale pools split on the same head axis
+                named = [("k", layer[0], (pool.num_blocks, pool.block_size,
+                                          heads, pool.head_dim)),
+                         ("v", layer[1], (pool.num_blocks, pool.block_size,
+                                          heads, pool.head_dim))]
+                if pool.kv_dtype == "int8":
+                    named += [("k-scale", layer[2], (pool.num_blocks, heads)),
+                              ("v-scale", layer[3], (pool.num_blocks, heads))]
+                for nm, arr, want in named:
+                    if tuple(arr.shape) != want:
+                        problems.append(
+                            f"{where}layer {li} {nm}-pool per-shard shape "
+                            f"{tuple(arr.shape)} != {want}: every shard "
+                            f"holds all {pool.num_blocks} pages sharded only "
+                            "on the kv-head axis")
+                for nm, arr in zip("kv", layer[2:]):
+                    if pool.kv_dtype == "int8" and arr.dtype != torch.float32:
+                        problems.append(
+                            f"{where}layer {li} {nm}-scale pool dtype "
+                            f"{arr.dtype} != float32: one fp32 scale per "
+                            "page per kv head")
+                continue
+            if pool.kv_dtype == "mixed":
+                continue
+            for nm, arr in zip("kv", layer[2:]):
+                if (tuple(arr.shape) != (pool.num_blocks, pool.n_kv_heads)
+                        or arr.dtype != torch.float32):
+                    problems.append(
+                        f"layer {li} {nm}-scale pool {tuple(arr.shape)} "
+                        f"{arr.dtype} != "
+                        f"{(pool.num_blocks, pool.n_kv_heads)} float32: one "
+                        "scale per page per kv head")
 
     # -- kv-dtype tags: every page a running sequence owns carries its
     #    owner's tag, only allocated pages carry one, never the scratch
@@ -496,11 +534,13 @@ def audit_engine(engine) -> None:
                 f"{req.request_id} (kv_tag={req.kv.kv_tag!r}) owns pages "
                 f"with mismatched tags: "
                 f"{[(p, tags.get(p)) for p in bad[:8]]}")
-    if pool.kv_dtype == "mixed" and pool.pools and all(
-            len(layer) == 3 for layer in pool.pools):
-        planes = [layer[2] for layer in pool.pools]
+    layers = [layer for layers in shards for layer in layers]
+    if pool.kv_dtype == "mixed" and layers and all(
+            len(layer) == 3 for layer in layers):
+        planes = [layer[2] for layer in layers]
         if any(not torch.equal(planes[0], pl) for pl in planes[1:]):
-            problems.append("mixed-pool tag planes disagree across layers")
+            problems.append("mixed-pool tag planes disagree across layers "
+                            "or shards")
         plane = planes[0].cpu().tolist()
         for p in sorted(aset):
             if plane[p] != (tags.get(p) == "fp8"):

@@ -213,6 +213,9 @@ def shadow_runner(target, weight_dtype: str = "int8"):
                  and not any(k in name for k in skip)]
         r.weight_dtype = weight_dtype
         r._quantize_weights(names)
+        if r.mesh is not None:     # the shards' views follow the new dict
+            r.shard(r.mesh, data_axis=r.data_axis, model_axis=r.model_axis,
+                    comm_dtype=r.comm_dtype)
     return r
 
 
@@ -237,7 +240,9 @@ class DraftModelProposer:
         self.pool = KVCachePool(
             runner.num_layers, (num_blocks or 4 * (self.max_pages + 1)),
             runner.block_size, runner.n_kv_heads, runner.head_dim,
-            runner.dtype, kv_dtype=runner.kv_dtype, device=runner.device)
+            runner.dtype, mesh=getattr(runner, "mesh", None),
+            model_axis=getattr(runner, "model_axis", "model"),
+            kv_dtype=runner.kv_dtype, device=runner.device)
         # request_id -> {"tokens": covered by draft KV, "pages": [...]}
         self._seqs: Dict[str, dict] = {}
         self._lru: List[str] = []       # least recently proposed first
@@ -318,14 +323,14 @@ class DraftModelProposer:
         try:
             try:
                 logits, _ = self.runner.prefill_chunk(
-                    ctx[covered:], covered, table, self.pool.pools)
+                    ctx[covered:], covered, table, self.pool.shards)
                 st["tokens"] = list(ctx)
                 chain = [int(torch.argmax(logits))]
                 if length > 1:
                     packed, _ = self.runner.decode_multi(
                         np.asarray([chain[0]], np.int32),
                         np.asarray(table, np.int32)[None],
-                        np.asarray([len(ctx)], np.int32), self.pool.pools,
+                        np.asarray([len(ctx)], np.int32), self.pool.shards,
                         num_steps=length - 1)
                     chain.extend(int(t) for t in
                                  torch.as_tensor(packed)[0, 0].tolist())

@@ -13,7 +13,8 @@ class TorchStubRunner:
     step writes its tokens through the block table (layer 0, head 0, dim
     0) IN PLACE, and the next-token logits are one-hot at a hash of the
     whole history gathered back from the pool, so a wrong page, a stale
-    table or a page-in of the wrong bytes changes the tokens."""
+    table or a page-in of the wrong bytes changes the tokens. ``pools``
+    is the pool's shards, as the port's runners take it."""
 
     num_layers = 1
     n_heads = 1
@@ -52,7 +53,7 @@ class TorchStubRunner:
         return self.prefill_chunk(tokens, 0, table, pools)
 
     def prefill_chunk(self, tokens, start_pos, table, pools):
-        k = pools[0][0]
+        k = pools[0][0][0]
         for i, t in enumerate(tokens):
             p = start_pos + i
             k[int(table[p // self.block_size]), p % self.block_size,
@@ -61,7 +62,7 @@ class TorchStubRunner:
         return self._logits(self._history(k, table, end)), pools
 
     def decode(self, tokens, tables, pos, pools):
-        k = pools[0][0]
+        k = pools[0][0][0]
         tokens, tables, pos = (np.asarray(a) for a in (tokens, tables, pos))
         out = torch.zeros(tokens.shape[0], self.vocab_size)
         for b in range(tokens.shape[0]):

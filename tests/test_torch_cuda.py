@@ -1080,8 +1080,8 @@ def _prefilled_pools(runner, prompt, P=8):
                        runner.n_kv_heads, runner.head_dim, device="cuda",
                        kv_dtype=runner.kv_dtype)
     table = pool.pad_table(pool.allocator.alloc(P), P)
-    runner.prefill(prompt, table, pool.pools)
-    return pool.pools, np.asarray([table, [0] * P], np.int32)
+    runner.prefill(prompt, table, pool.shards)
+    return pool.shards, np.asarray([table, [0] * P], np.int32)
 
 
 @pytest.mark.parametrize("kv_dtype", ["fp32", "int8", "fp8"])
@@ -1119,7 +1119,7 @@ def test_graph_replay_equals_eager_bitwise(gen, kv_dtype):
     assert sum(c.plain_launches for c in every) == 0
     assert [c["kind"] for c in runner.captures] == [
         "decode", "decode_multi", "decode_multi_x"]
-    for a, b in zip(pools_e, pools_g):
+    for a, b in zip(pools_e[0], pools_g[0]):
         for x, y in zip(a, b):
             assert torch.equal(x.view(torch.uint8) if x.element_size() == 1
                                else x, y.view(torch.uint8)
@@ -1309,7 +1309,7 @@ def _spec_pools(runner, prompts, P=8):
     tables = []
     for p in prompts:
         tables.append(pool.pad_table(pool.allocator.alloc(P), P))
-        runner.prefill(p, tables[-1], pool.pools)
+        runner.prefill(p, tables[-1], pool.shards)
     return pool, np.asarray(tables, np.int32)
 
 
@@ -1336,9 +1336,9 @@ def test_fused_ragged_launch_matches_plain(gen, kv_dtype):
     k1_counts = {"fp32": k1.COUNTS, "int8": k1.COUNTS_I8,
                  "fp8": k1.COUNTS_F8}[kv_dtype]
     k1_counts.reset()
-    got, _ = runner.ragged_step(tokens, tabs, starts, qlens, pool.pools,
+    got, _ = runner.ragged_step(tokens, tabs, starts, qlens, pool.shards,
                                 full_logits=True)
-    want, _ = ref.ragged_step(tokens, tabs, starts, qlens, pool_r.pools,
+    want, _ = ref.ragged_step(tokens, tabs, starts, qlens, pool_r.shards,
                               full_logits=True)
     assert k1_counts.form_launches == {"span": GRAPH_CFG["num_layers"]}
     rows = [(0, t) for t in range(T)] + [(1, 0), (2, 0)]
@@ -1385,11 +1385,12 @@ def test_speculative_horizon_graph_replay_equals_eager(gen, kv_dtype,
                 np.asarray([40 + 16 * i, 23 + 16 * i]))
         before = [c.kernel_launches for c in every]
         runner.graphs = False
-        out_e, _ = runner.decode_multi_spec(*args, pool_e.pools, drafts, **kw)
+        out_e, _ = runner.decode_multi_spec(*args, pool_e.shards, drafts,
+                                            **kw)
         out_e = out_e.clone()
         mid = [c.kernel_launches for c in every]
         runner.graphs = True
-        out_g, _ = runner.decode_multi_spec(*args, pool_g.pools, drafts,
+        out_g, _ = runner.decode_multi_spec(*args, pool_g.shards, drafts,
                                             **kw)
         torch.cuda.synchronize()
         after = [c.kernel_launches for c in every]
@@ -1417,7 +1418,7 @@ def test_copy_page_leaves_the_source_unchanged(gen, kv_dtype):
     prompt = np.random.default_rng(4).integers(1, 211, 20).tolist()
     a = SequenceKV(pool)
     a.grow(len(prompt) + 1)
-    runner.prefill(prompt, pool.pad_table(a.pages, 4), pool.pools)
+    runner.prefill(prompt, pool.pad_table(a.pages, 4), pool.shards)
     a.num_tokens = len(prompt)
     cache.register_seq(a, prompt)
     b = SequenceKV(pool)
@@ -2183,4 +2184,82 @@ def test_capture_warmup_never_runs_beside_another_runners_replay(gen):
     bad = sum(not torch.equal(o, ref) for o in outs)
     assert bad == 0, f"{bad} of {len(outs)} replays differ from the eager call"
     tickets = k2._tickets(dev, mr._capture_stream(dev), b * h)
+    assert int(tickets.count_nonzero()) == 0
+
+
+# ------------------------------------------- tensor-parallel serving
+
+def _card_mesh(tp):
+    from paddle_tpu_torch.serving import serving_mesh
+    return serving_mesh(1, tp, devices=[torch.device("cuda", 0)] * tp)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("width", [4096, 130])
+@pytest.mark.parametrize("chunk", [4, 128])
+def test_qcomm_on_the_card_bit_equals_numpy(gen, tp, width, chunk):
+    """quantized_psum / quantized_allgather over card tensors equal the
+    numpy references bit for bit (the references need no card)."""
+    from paddle_tpu_torch.quantization import qcomm
+    parts = [torch.randn(8, width, device="cuda", generator=gen)
+             * 10.0 ** (i - 1) for i in range(tp)]
+    host = [p.cpu().numpy() for p in parts]
+    for fn, ref in ((qcomm.quantized_psum,
+                     qcomm.quantized_allreduce_reference),
+                    (qcomm.quantized_allgather,
+                     qcomm.quantized_allgather_reference)):
+        want = ref(host, chunk=chunk)
+        for got in fn(parts, chunk=chunk):
+            assert got.is_cuda
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("comm_dtype", ["fp32", "int8"])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_sharded_decode_graph_replay_equals_eager(gen, tp, comm_dtype):
+    """A sharded runner's decode kinds are one capture each on the one
+    card: replays equal the eager calls bit for bit over every shard's
+    pools, each shard's K2 launched in sequence on the capture stream's
+    tickets (left zero)."""
+    from paddle_tpu_torch.serving import KVCachePool
+    import paddle_tpu_torch.serving.model_runner as mr
+    model = Llama(LlamaConfig(**GRAPH_CFG), device="cuda", seed=0)
+    runner = LlamaRunner(model, block_size=16).shard(
+        _card_mesh(tp), comm_dtype=comm_dtype)
+    prompt = np.random.default_rng(0).integers(1, 211, 40).tolist()
+
+    def prefilled():
+        pool = KVCachePool(runner.num_layers, 10, 16, runner.n_kv_heads,
+                           runner.head_dim, mesh=runner.mesh, device="cuda")
+        table = pool.pad_table(pool.allocator.alloc(8), 8)
+        runner.prefill(prompt, table, pool.shards)
+        return pool, np.asarray([table, [0] * 8], np.int32)
+
+    (pool_g, tabs), (pool_e, _) = prefilled(), prefilled()
+    before = k2.COUNTS.kernel_launches
+    calls = [("decode", (np.asarray([5 + i, 0]), tabs,
+                         np.asarray([40 + i, 0])), ()) for i in range(3)]
+    calls += [("decode_multi", (np.asarray([3, 0]), tabs,
+                                np.asarray([43 + 8 * i, 0])), (8,))
+              for i in range(2)]
+    for kind, args, n in calls:
+        runner.graphs = False
+        out_e, _ = getattr(runner, kind)(*args, pool_e.shards, *n)
+        out_e = out_e.clone()
+        runner.graphs = True
+        out_g, _ = getattr(runner, kind)(*args, pool_g.shards, *n)
+        torch.cuda.synchronize()
+        assert torch.equal(out_g, out_e), (kind, tp, comm_dtype)
+    # K2 once a layer a shard on every decode step of both runs
+    steps = 2 * (3 + 2 * 8)
+    assert k2.COUNTS.kernel_launches - before == \
+        runner.num_layers * tp * steps
+    assert [c["kind"] for c in runner.captures] == ["decode",
+                                                    "decode_multi"]
+    for a, b in zip(pool_e.gather_pages(list(range(10))),
+                    pool_g.gather_pages(list(range(10)))):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tickets = k2._tickets(dev, mr._capture_stream(dev), 1)
     assert int(tickets.count_nonzero()) == 0

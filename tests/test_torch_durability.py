@@ -19,6 +19,7 @@ shut down and its threads joined.
 """
 
 import json
+import time
 
 import numpy as np
 import pytest
@@ -33,6 +34,7 @@ from paddle_tpu.serving import RouterJournal as JaxRouterJournal
 from paddle_tpu.serving import SamplingParams as JaxSamplingParams
 from paddle_tpu.serving import ServingRouter as JaxServingRouter
 from paddle_tpu.serving import wire as jax_wire
+from _step_gate import StepGate
 from paddle_tpu_torch.models import Llama, LlamaConfig
 from paddle_tpu_torch.serving import (
     LlamaRunner, RouterJournal, SamplingParams, ServingRouter, audit_router,
@@ -367,15 +369,26 @@ class TestDrainRollingRestart:
         try:
             work = [(list(range(1 + k, 13 + k)), SamplingParams(
                 max_tokens=24)) for k in range(4)]
+            # replica 0 steps only when the test lets it: after each step
+            # the test reads its running set, and drains it before the
+            # replica can take another step
+            rep = router._replicas[0]
+            gate = StepGate(rep)
+            gate.close()
             rids = [router.submit(p, sp, request_id=f"m{k}")
                     for k, (p, sp) in enumerate(work)]
-            _wait_tokens(router, 8)
-            with router._replicas[0].lock:
-                running = [r.request_id for r in
-                           router._replicas[0].engine.scheduler.running
-                           if r.output_tokens]
-            assert running
+            deadline = time.monotonic() + 60
+            while True:
+                gate.step_once()
+                with rep.lock:
+                    running = [r.request_id for r in
+                               rep.engine.scheduler.running
+                               if r.output_tokens]
+                if running:
+                    break
+                assert time.monotonic() < deadline, "replica 0 never decoded"
             router.drain_replica(0)
+            gate.open()
             outs = router.drain(timeout_s=60.0)
             audit_router(router)
             for rid, (p, sp) in zip(rids, work):

@@ -301,7 +301,7 @@ def _teacher_forced(jr, pr, steps=12):
         pool = cls(r.num_layers, 13, 8, r.n_kv_heads, r.head_dim, r.dtype,
                    kv_dtype=r.kv_dtype, **kw)
         tables.append(pool.pad_table(pool.allocator.alloc(12), 12))
-        pools.append(pool.pools)
+        pools.append(pool.shards if r is pr else pool.pools)
     p = list(map(int, np.random.default_rng(5).integers(1, jr.vocab_size,
                                                         20)))
     lj, pools[0] = jr.prefill(p, tables[0], pools[0])
@@ -376,8 +376,8 @@ def test_f16_runner_stays_near_its_fp32_twin(pairs, model):
     r16 = create_serving_engine(pm, dtype=torch.float16, **kw).runner
     p = list(range(3, 23))
     pools = [KVCachePool(2, 13, 8, r.n_kv_heads, r.head_dim, r.dtype,
-                         device="cpu").pools for r in (r32, r16)]
-    assert pools[1][0][0].dtype == torch.float16
+                         device="cpu").shards for r in (r32, r16)]
+    assert pools[1][0][0][0].dtype == torch.float16
     table = list(range(1, 13))
     l32, _ = r32.prefill(p, table, pools[0])
     l16, _ = r16.prefill(p, table, pools[1])

@@ -257,9 +257,9 @@ def test_generator_matches_jax_generator():
 
 
 def test_unported_generation_options_raise(models):
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         gen.GPTGenerator(models["port"], mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         gen.PagedKVCache(1, 16, 2, 8, 1, torch.float32, block_size=8,
                          sharding=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):

@@ -380,7 +380,7 @@ def test_scheduled_o2_steps_match_jax():
 # ------------------------------------------------------------ the knobs
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("tensor_parallel", True, "item 10"),
+    ("tensor_parallel", True, "item 13"),
     ("sequence_parallel", True, "item 13"),
     ("moe_every", 1, "item 13"),
 ])

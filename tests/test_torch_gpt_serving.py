@@ -117,7 +117,7 @@ def test_step_logits_match_jax_runner(pair, kv_dtype, attn_impl):
     d = pr.head_dim
     jpools = JaxKVCachePool(2, 1 + P, bs, 2, d, kv_dtype=kv_dtype).pools
     ppools = KVCachePool(2, 1 + P, bs, 2, d, device="cpu",
-                         kv_dtype=kv_dtype).pools
+                         kv_dtype=kv_dtype).shards
     table = [3, 1, 4, 2, 5, 0, 0, 0]
     toks = [int(t) for t in np.random.default_rng(1).integers(1, 89, 20)]
     for start, end in ((0, 13), (13, 20)):

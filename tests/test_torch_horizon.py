@@ -145,7 +145,7 @@ def test_decode_multi_matches_jax_runner(pair):
     table = jpool.pad_table(jpool.allocator.alloc(8), 8)
     ppool.allocator.alloc(8)
     jl, jpools = jr.prefill(prompt, table, jpool.pools)
-    pl, ppools = pr.prefill(prompt, table, ppool.pools)
+    pl, ppools = pr.prefill(prompt, table, ppool.shards)
     fed = int(np.argmax(np.asarray(jl)))
     assert fed == int(torch.argmax(pl))
     tabs = np.asarray([table, [0] * 8], np.int32)
@@ -165,8 +165,8 @@ def test_decode_multi_equals_decode_steps(runner):
     for _ in range(2):
         pool = KVCachePool(2, 10, 8, 2, 16, device="cpu")
         table = pool.pad_table(pool.allocator.alloc(8), 8)
-        runner.prefill([4, 8, 15, 16, 23, 42], table, pool.pools)
-        pools.append(pool.pools)
+        runner.prefill([4, 8, 15, 16, 23, 42], table, pool.shards)
+        pools.append(pool.shards)
     tabs = np.asarray([table], np.int32)
     packed, _ = runner.decode_multi(np.asarray([7], np.int32), tabs,
                                     np.asarray([6], np.int32), pools[0], 5)
@@ -390,10 +390,12 @@ class StubGraph:
         self.pools = pools
 
     def capture(self, fn):
-        saved = [t.clone() for layer in self.pools for t in layer]
+        saved = [t.clone() for shard in self.pools for layer in shard
+                 for t in layer]
         self.fn = fn
         self.out = fn()
-        for t, old in zip((t for layer in self.pools for t in layer), saved):
+        for t, old in zip((t for shard in self.pools for layer in shard
+                           for t in layer), saved):
             t.copy_(old)
         return self.out
 
@@ -409,8 +411,8 @@ def _prefilled(runner, prompt):
     pool = KVCachePool(2, 10, 8, 2, 16, device="cpu",
                        kv_dtype=runner.kv_dtype)
     table = pool.pad_table(pool.allocator.alloc(8), 8)
-    runner.prefill(prompt, table, pool.pools)
-    return pool.pools, np.asarray([table, [0] * 8], np.int32)
+    runner.prefill(prompt, table, pool.shards)
+    return pool.shards, np.asarray([table, [0] * 8], np.int32)
 
 
 @pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
@@ -448,7 +450,7 @@ def test_graph_replays_credit_the_eager_launch_counts(pair, kv_dtype,
     assert [c["kind"] for c in graphed.captures] == ["decode",
                                                      "decode_multi_x"]
     assert eager.captures == []
-    for a, b in zip(pools_e, pools_g):
+    for a, b in zip(pools_e[0], pools_g[0]):
         for x, y in zip(a, b):
             assert torch.equal(x, y)
 

@@ -17,13 +17,13 @@ kernel wrapper takes, and what it refuses.
     backend, the RPC timeouts and retries, the child environment) and the
     host-wide store's (part B2: `shared_kv_*`, `HostKVTier(store=)`,
     `spill_pages(publish=)`) are live, and
-    `create_serving_router(mesh= | meshes=)` raises naming item 10;
+    `create_serving_router(mesh= | meshes=)` puts replicas on meshes
+    (item 10);
   * the serving entry points take the JAX package's positional and
     keyword arguments (runner, runner_for, create_serving_engine,
     SamplingParams, naive_generate, KVCachePool), `device` only by
-    keyword; paged_attend takes the JAX parameter the port does not serve
-    at its default and refuses any other value naming its ROADMAP item,
-    FCFSScheduler's count_host_headroom and SequenceKV's kv_tag (ported)
+    keyword; paged_attend's shard_ctx (item 10, ported) takes a shard's
+    call, FCFSScheduler's count_host_headroom and SequenceKV's kv_tag (ported)
     act as the JAX ones do; rotary_embedding takes position_ids as the
     JAX op does;
   * the faults F5-F11 stay repaired: `Request` has the JAX fields in the
@@ -43,7 +43,7 @@ kernel wrapper takes, and what it refuses.
     the port defines imports from the port's package of the same path
     (F12: the draft proposers, `quantized_page_write`, `GPTBlock`);
     `get_flags` and `flags_version` follow JAX's (F13); the engine
-    snapshot has the JAX keys but those of items 10-11, and
+    snapshot has the JAX keys, the six `tp_*` ones included, and
     `overlapped_plan_seconds` and `device_idle_fraction` are set as JAX
     sets them on a scripted clock (F14); `create_serving_engine` refuses
     `comm_dtype` without a mesh with a ValueError, as JAX does (F15);
@@ -100,6 +100,7 @@ from paddle_tpu_torch.ops import _build, impl
 from paddle_tpu_torch.optimizer import AdamW, Optimizer
 from paddle_tpu_torch.serving import (
     OffloadRecord, SamplingParams, create_engine, naive_generate,
+    serving_mesh,
 )
 from paddle_tpu_torch.serving.kv_cache import KVCachePool, SequenceKV
 from paddle_tpu_torch.serving.model_runner import (
@@ -349,6 +350,9 @@ def _serve(eng, prompts, sp):
 
 PROMPTS = ([1, 2, 3], [4, 5, 6, 7, 8], [9, 10])
 
+# a tensor-parallel mesh of two shards on the CPU
+CPU_MESH2 = serving_mesh(1, 2, devices=["cpu"] * 2)
+
 
 @pytest.mark.parametrize("knob,value", [
     ("decode_horizon", 4), ("pipelined", True), ("horizon_sampling", True),
@@ -373,28 +377,31 @@ def test_sampled_decoding_is_served(model):
 @pytest.mark.parametrize("kw", [
     dict(kv_dtype="int8", weight_dtype="int8"),
     dict(kv_dtype="fp8", weight_dtype="fp8"), dict(weight_dtype="int4"),
-    dict(mesh=object()), dict(dtype="bfloat16"), dict(comm_dtype="int8"),
-], ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values())))[:8])
+    dict(mesh=CPU_MESH2), dict(dtype="bfloat16"), dict(comm_dtype="int8"),
+], ids=["kv_dtype=int8", "kv_dtype=fp8", "weight_dtype=int4",
+        "mesh=<object ", "dtype=bfloat16", "comm_dtype=int8"])
 def test_unported_bridge_options_raise(twin, kw):
-    """A mesh raises naming its ROADMAP item (10), with a quantized
-    collective too; a quantized collective without a mesh is an error of
-    the call (ValueError, as in JAX: F15); the bridge options ported since
-    (quantized KV beside quantized weights, int4 weights,
-    dtype="bfloat16") serve, token for token as their naive_generate and
-    as the JAX bridge on the same weights."""
+    """Every bridge option is ported: a mesh (item 10) serves a
+    tensor-parallel engine, with a quantized collective too; a quantized
+    collective without a mesh is an error of the call (ValueError, as in
+    JAX: F15); quantized KV beside quantized weights, int4 weights and
+    dtype="bfloat16" serve. Each token for token as its naive_generate
+    and as the JAX bridge on the same weights (over a JAX mesh of the same
+    shape)."""
     jm, pm = twin
     if next(iter(kw)) == "comm_dtype":
         with pytest.raises(ValueError, match="mesh"):
             _engine(pm, **kw)
-        kw = dict(kw, mesh=object())
-    if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            _engine(pm, **kw)
-        return
+        kw = dict(kw, mesh=CPU_MESH2)
     sp = SamplingParams(max_tokens=4)
     eng = _engine(pm, **kw)
+    if "mesh" in kw:
+        assert eng.runner.tp_size == eng.pool.tp_size == 2
     got = _serve(eng, PROMPTS, sp)
     assert got == [naive_generate(eng.runner, p, sp) for p in PROMPTS]
+    if "mesh" in kw:
+        from paddle_tpu.parallel.mesh import serving_mesh as jax_mesh
+        kw = dict(kw, mesh=jax_mesh(data=1, model=2))
     jeng = jax_create_serving_engine(jm, block_size=8, max_model_len=32,
                                      num_blocks=8, **kw)
     ids = [jeng.add_request(p, JaxSamplingParams(max_tokens=4))
@@ -404,9 +411,11 @@ def test_unported_bridge_options_raise(twin, kw):
 
 
 def test_unported_model_and_pool_options_raise(model):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        create_engine(model, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # a mesh shards the serving runner (item 10, ported); the model's own
+    # tensor-parallel layers are item 13's
+    assert create_engine(model, device="cpu", mesh=CPU_MESH2,
+                         num_blocks=8).pool.tp_size == 2
+    with pytest.raises(NotImplementedError, match="item 13"):
         Llama(LlamaConfig(tensor_parallel=True, **SIZES), device="cpu")
     # bf16 and fp16 pools are ported (a bf16 or fp16 runner's, item 21's
     # serving half)
@@ -482,7 +491,8 @@ def test_process_tier_store_parameters_raise_naming_item_11():
     item 11 part B2) have the JAX defaults and are live: a store-backed
     tier publishes a spilled page under its chain hash (a private tier,
     which keeps its own index, refuses a publication with ValueError);
-    mesh= and meshes= of create_serving_router raise naming item 10."""
+    mesh= and meshes= of create_serving_router (item 10) put the replicas
+    on meshes, too few meshes a ValueError as in JAX."""
     from paddle_tpu_torch.serving.kv_cache import SharedKVStore
     from paddle_tpu.serving.kv_cache import HostKVTier as JaxHostKVTier
     from paddle_tpu_torch.inference import create_serving_router
@@ -503,9 +513,14 @@ def test_process_tier_store_parameters_raise_naming_item_11():
     assert store.has_prefix(7) and store.refcount(slots[0]) == 2
     assert store.slot_hash(slots[0]) == store.content_hash(slots[0])
     m = Llama(LlamaConfig(**SIZES), device="cpu")
-    for kw in ({"mesh": object()}, {"meshes": [object()]}):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            create_serving_router(m, device="cpu", **kw)
+    for kw in ({"mesh": CPU_MESH2}, {"meshes": [CPU_MESH2] * 2}):
+        router = create_serving_router(m, device="cpu", num_blocks=8, **kw)
+        try:
+            assert [r.runner.tp_size for r in router._replicas] == [2, 2]
+        finally:
+            router.shutdown()
+    with pytest.raises(ValueError, match="meshes for 2 replicas"):
+        create_serving_router(m, device="cpu", meshes=[CPU_MESH2])
 
 
 def test_unknown_knob_is_a_type_error(model):
@@ -650,8 +665,15 @@ def test_kv_cache_pool_takes_the_jax_arguments():
     assert (ours.kv_dtype, ours.mesh, ours.model_axis) == \
         (ref.kv_dtype, ref.mesh, ref.model_axis) == ("int8", None, "model")
     assert len(ours.pools[0]) == len(ref.pools[0]) == 4
-    with pytest.raises(NotImplementedError, match="item 10"):
-        KVCachePool(1, 4, 4, 1, 8, mesh=object(), device="cpu")
+    # a mesh splits the pools on the kv-head axis (item 10, ported)
+    from paddle_tpu.parallel.mesh import serving_mesh as jax_mesh
+    ours = KVCachePool(1, 4, 4, 2, 8, torch.float32, CPU_MESH2, "model",
+                       "int8", device="cpu")
+    ref = JaxKVCachePool(1, 4, 4, 2, 8, jnp.float32, jax_mesh(1, 2),
+                         "model", "int8")
+    assert ours.tp_size == ref.tp_size == 2
+    assert ours.per_shard_memory_bytes() == ref.per_shard_memory_bytes()
+    assert ours.shards[1][0][2].shape == (4, 1)
 
 
 def _attend_args(pool):
@@ -667,7 +689,7 @@ def _attend_args(pool):
 @pytest.mark.parametrize("entry,param,other,item", [
     ("FCFSScheduler", "count_host_headroom", True, "item 9"),  # ported
     ("SequenceKV", "kv_tag", "fp8", "item 8"),
-    ("paged_attend", "shard_ctx", (object(), "model"), "item 10"),
+    ("paged_attend", "shard_ctx", (CPU_MESH2, "model"), "item 10"),
 ])
 def test_unported_jax_parameters_take_their_default_only(entry, param,
                                                          other, item):
@@ -714,8 +736,12 @@ def test_unported_jax_parameters_take_their_default_only(entry, param,
         assert mixed.pools[0][2].tolist() == \
             np.asarray(jmixed.pools[0][2]).tolist()
         return
-    with pytest.raises(NotImplementedError, match=item):
-        call(**{param: other})
+    # paged_attend (item 10, ported): shard_ctx marks one shard's call, at
+    # the shard's own heads, the same call as an unsharded one
+    plain = paged_attend(*_attend_args(pool))[0]
+    fresh = KVCachePool(1, 4, 4, 1, 8, device="cpu")
+    assert torch.equal(paged_attend(*_attend_args(fresh), **{param: other})
+                       [0], plain)
 
 
 def test_rotary_embedding_takes_position_ids_as_jax_does():
@@ -790,17 +816,19 @@ def test_create_engine_takes_the_jax_parameter(model, param):
         assert eng.runner.params["layers.0.mlp.up_proj.weight::scale"
                                  ].shape[1] == SIZES["hidden_size"] // 16
     else:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            create_engine(model, device="cpu", block_size=8,
-                          max_model_len=32, num_blocks=8, mesh=object(),
-                          **{param: ref[param].default})
+        # with a mesh (item 10, ported) the parameter reaches the shard
+        eng = create_engine(model, device="cpu", block_size=8,
+                            max_model_len=32, num_blocks=8, mesh=CPU_MESH2,
+                            **{param: ref[param].default})
+        assert eng.runner.tp_size == 2
+        assert getattr(eng.runner, param) == ref[param].default
 
 
 def test_comm_dtype_without_a_mesh_is_a_value_error(model, jax_model):
     """F9, F15: the quantized collective needs a mesh; both packages refuse
     it without one as an error of the call, through `create_engine` and
-    through `inference.create_serving_engine`; with a mesh the port raises
-    naming item 10."""
+    through `inference.create_serving_engine`; with a mesh (item 10) both
+    serve it."""
     from paddle_tpu.serving import create_engine as jax_create_engine
     kw = dict(block_size=8, max_model_len=32, num_blocks=8,
               comm_dtype="int8")
@@ -812,13 +840,13 @@ def test_comm_dtype_without_a_mesh_is_a_value_error(model, jax_model):
         create_serving_engine(model, device="cpu", **kw)
     with pytest.raises(ValueError, match="mesh"):
         jax_create_serving_engine(jax_model, **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        create_serving_engine(model, device="cpu", mesh=object(), **kw)
+    eng = create_serving_engine(model, device="cpu", mesh=CPU_MESH2, **kw)
+    assert eng.runner.comm_dtype == "int8"
 
 
-# the JAX snapshot's keys of the unported page store and tensor
-# parallelism (items 11 part B and 10); the handoff keys are pinned
-UNPORTED_METRIC_PREFIXES = ("tp_",)
+# the JAX snapshot's keys the port leaves out: none since the tensor-
+# parallel ones (item 10) were ported
+UNPORTED_METRIC_PREFIXES = ()
 
 
 def _scripted_clock():
@@ -846,9 +874,9 @@ def _metrics_run(pm, jm, **kw):
 
 
 def test_snapshot_keys_equal_the_jax_keys(twin):
-    """F14: the port's EngineMetrics.snapshot() keys are the JAX ones but
-    those of item 10 (and no stray pool_utilization): the host tier's
-    (item 9) and the host-wide store's (item 11) are required."""
+    """F14: the port's EngineMetrics.snapshot() keys are the JAX ones (and
+    no stray pool_utilization): the host tier's (item 9), the host-wide
+    store's (item 11) and tensor parallelism's (item 10) are required."""
     ours, ref = _metrics_run(*twin[::-1])
     ref_keys = {k for k in ref if not k.startswith(UNPORTED_METRIC_PREFIXES)}
     assert set(ours) == ref_keys

@@ -447,7 +447,7 @@ def test_step_logits_and_pools_match_jax_runner(pair, kv_dtype, attn_impl):
     n_kv, d = pr.n_kv_heads, pr.head_dim
     jpools = JaxKVCachePool(2, 1 + P, bs, n_kv, d, kv_dtype=kv_dtype).pools
     ppools = KVCachePool(2, 1 + P, bs, n_kv, d, device="cpu",
-                         kv_dtype=kv_dtype).pools
+                         kv_dtype=kv_dtype).shards
     table = [3, 1, 4, 2, 5, 0, 0, 0]
     toks = [int(t) for t in np.random.default_rng(1).integers(1, 97, 20)]
     for start, end in ((0, 13), (13, 20)):
@@ -466,7 +466,7 @@ def test_step_logits_and_pools_match_jax_runner(pair, kv_dtype, attn_impl):
                                    atol=LOGIT_ATOL, rtol=0)
         tok = int(np.argmax(np.asarray(jl)[0]))
     live = [1, 2, 3, 4, 5]
-    for jlayer, player in zip(jpools, ppools):
+    for jlayer, player in zip(jpools, ppools[0]):
         ours, ref = _pool_numpy(player), _pool_numpy(jlayer)
         assert len(ours) == len(ref) == (4 if kv_dtype == "int8" else 2)
         for o, r in zip(ours[2:], ref[2:]):           # int8 scales
@@ -563,13 +563,13 @@ def test_int8_decode_retry_leaves_pools_bit_identical(pair):
     pool = KVCachePool(2, 6, 8, runner.n_kv_heads, runner.head_dim,
                        device="cpu", kv_dtype="int8")
     table = pool.pad_table(pool.allocator.alloc(3), 5)
-    _, pools = runner.prefill(list(range(1, 12)), table, pool.pools)
+    _, pools = runner.prefill(list(range(1, 12)), table, pool.shards)
     tables = np.asarray([table], np.int32)
     args = (np.asarray([5], np.int32), tables, np.asarray([11], np.int32))
     runner.decode(*args, pools)
-    once = [tuple(a.clone() for a in layer) for layer in pools]
+    once = [tuple(a.clone() for a in layer) for layer in pools[0]]
     runner.decode(*args, pools)
-    for a, b in zip(once, pools):
+    for a, b in zip(once, pools[0]):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 

@@ -206,7 +206,7 @@ def test_mha_fp8_tenant_logits_equal_the_native_fp8_pool(mha, prompts):
         pages = pool.allocator.alloc(12)
         pool.tag_pages(pages, "fp8")
         tables.append(pool.pad_table(pages, 12))
-        pools.append(pool.pools)
+        pools.append(pool.shards)
     p = prompts[2]
     lm, _ = mixed.prefill(p, tables[0], pools[0])
     ln, _ = native.prefill(p, tables[1], pools[1])

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from _step_gate import StepGate
 from _torch_stub import TorchStubRunner
 from paddle_tpu_torch.serving import (
     ReplicaGoneError, SamplingParams, ServingEngine, ServingRouter,
@@ -532,11 +533,24 @@ class TestProcessRouter:
                 router.submit([1 + w, 2, 3], SamplingParams(max_tokens=2),
                               request_id=f"warm-{w}")
             router.drain(timeout_s=60.0)
+            # replica 0 steps only when the test lets it, so it certainly
+            # holds unfinished work, between steps, when its child stops
+            gate = StepGate(router._replicas[0])
+            gate.close()
             work = workload(8, seed=3)
             rids = [router.submit(p, sp) for p, sp in work]
-            _wait_tokens(router, 12)
+
+            def replica0(pred):
+                with router._lock:
+                    return [r for r in rids if router._reqs[r].owner_idx == 0
+                            and pred(router._reqs[r])]
+            assert replica0(lambda rec: True), "replica 0 got no request"
+            while not replica0(lambda rec: rec.tokens):
+                gate.step_once()
+            assert replica0(lambda rec: not rec.done)
             stopped = router._replicas[0].engine.proc
             os.kill(stopped.pid, signal.SIGSTOP)
+            gate.open()
             outs = router.drain(timeout_s=120.0)
             audit_router(router)
             _exact(outs, rids, work)

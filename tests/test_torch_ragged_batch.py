@@ -93,7 +93,7 @@ def test_ragged_step_matches_jax_runner(pair, kv_dtype, full):
     n_kv, d = pr.n_kv_heads, pr.head_dim
     jpools = JaxKVCachePool(2, 13, bs, n_kv, d, kv_dtype=kv_dtype).pools
     ppools = KVCachePool(2, 13, bs, n_kv, d, device="cpu",
-                         kv_dtype=kv_dtype).pools
+                         kv_dtype=kv_dtype).shards
     rng = np.random.default_rng(2)
     seqs = [rng.integers(1, _vocab(pair), n).tolist() for n in (20, 11, 9)]
     tabs = [[3, 1, 4, 0, 0, 0, 0, 0], [2, 5, 0, 0, 0, 0, 0, 0],
@@ -138,7 +138,7 @@ def test_ragged_step_launches_the_ragged_kernel_once_a_layer(pair):
     tokens = np.ones((3, 8), np.int32)
     tables = np.asarray([[1, 2], [3, 4], [0, 0]], np.int32)
     pr.ragged_step(tokens, tables, np.asarray([0, 5, 0], np.int32),
-                   np.asarray([8, 1, 0], np.int32), pool.pools)
+                   np.asarray([8, 1, 0], np.int32), pool.shards)
     assert k1.COUNTS.plain_launches == pm.cfg.num_layers
     assert k2.COUNTS.plain_launches == 0
 

@@ -1,7 +1,7 @@
 """The port's serving router against the JAX package, on the CPU.
 
 Ports the thread-backend pins of tests/test_serving_router.py (its two
-sub-mesh cases are item 10): every stream through `ServingRouter` equals a
+sub-mesh cases are in tests/test_torch_tp.py): every stream through `ServingRouter` equals a
 single engine's and `naive_generate`'s however requests are spread over
 replicas, shed between queues, or moved by a replica kill, an injected
 crash or a hang and the Supervisor's restore; nothing is lost or

@@ -173,7 +173,7 @@ def test_step_logits_and_pools_match_jax_runner(pair, attn_impl):
     ppool = KVCachePool(2, 1 + P, bs, n_kv, d, device="cpu")
     table = [3, 1, 4, 2, 5, 0, 0, 0]
     toks = [int(t) for t in np.random.default_rng(1).integers(1, 97, 20)]
-    jpools, ppools = jpool.pools, ppool.pools
+    jpools, ppools = jpool.pools, ppool.shards
     for start, end in ((0, 13), (13, 20)):
         jl, jpools = jr.prefill_chunk(toks[start:end], start, table, jpools)
         pl, ppools = pr.prefill_chunk(toks[start:end], start, table, ppools)
@@ -190,7 +190,7 @@ def test_step_logits_and_pools_match_jax_runner(pair, attn_impl):
                                    atol=LOGIT_ATOL, rtol=0)
         tok = int(np.argmax(np.asarray(jl)[0]))
     live = [1, 2, 3, 4, 5]
-    for (jk, jv), (pk, pv) in zip(jpools, ppools):
+    for (jk, jv), (pk, pv) in zip(jpools, ppools[0]):
         np.testing.assert_allclose(pk[live].numpy(), np.asarray(jk)[live],
                                    atol=1e-5, rtol=0)
         np.testing.assert_allclose(pv[live].numpy(), np.asarray(jv)[live],

@@ -227,5 +227,12 @@ def test_restore_serving_engine_rebuilds_with_the_recorded_dtypes(
     assert len(new_ids) == 2
     for rid_w, rid_g in zip(ids, sorted(got, key=lambda r: int(r[4:]))):
         assert got[rid_g].output_tokens == want[rid_w].output_tokens
-    with pytest.raises(NotImplementedError, match="item 10"):
-        restore_serving_engine(pm, state, mesh=object(), device="cpu")
+    # onto a runner over a mesh (item 10, ported; one kv head: one
+    # shard): the mesh may differ from the snapshot's, the streams do not
+    from paddle_tpu_torch.serving import serving_mesh
+    on_mesh = restore_serving_engine(
+        pm, state, mesh=serving_mesh(1, 1, devices=["cpu"]), device="cpu")
+    assert on_mesh.runner.is_sharded and on_mesh.pool.mesh is not None
+    got = on_mesh.run()
+    for rid_w, rid_g in zip(ids, sorted(got, key=lambda r: int(r[4:]))):
+        assert got[rid_g].output_tokens == want[rid_w].output_tokens

@@ -161,7 +161,7 @@ def test_decode_multi_spec_planes_equal_jax(pair, gpt_pair, model, sampling):
     pr = runner_for(pm, bs, MAX_LEN)
     n_kv, d = pr.n_kv_heads, pr.head_dim
     jpools = JaxKVCachePool(2, 1 + B * P, bs, n_kv, d).pools
-    ppools = KVCachePool(2, 1 + B * P, bs, n_kv, d, device="cpu").pools
+    ppools = KVCachePool(2, 1 + B * P, bs, n_kv, d, device="cpu").shards
     rng = np.random.default_rng(4)
     tables = np.arange(1, 1 + B * P, dtype=np.int32).reshape(B, P)
     lens = [13, 9, 20]

@@ -257,7 +257,7 @@ def test_step_logits_match_jax_runner(llama_pair, gpt_pair, kind,
     P = 8
     jpools = JaxKVCachePool(2, 1 + P, 8, pr.n_kv_heads, pr.head_dim).pools
     ppools = KVCachePool(2, 1 + P, 8, pr.n_kv_heads, pr.head_dim,
-                         device="cpu").pools
+                         device="cpu").shards
     table = [3, 1, 4, 2, 5, 0, 0, 0]
     toks = _prompts(pr.vocab_size, n=1, seed=11)[0] * 2
     n = len(toks)
@@ -301,7 +301,8 @@ def _teacher_forced(ref_runner, q_runner, steps=16):
     for r in (ref_runner, q_runner):
         pool = pool_for(r)
         tbls.append(pool.pad_table(pool.allocator.alloc(12), 12))
-        pools.append(pool.pools)
+        pools.append(pool.shards if isinstance(pool, KVCachePool)
+                     else pool.pools)
     l_ref, pools[0] = ref_runner.prefill(p, tbls[0], pools[0])
     l_q, pools[1] = q_runner.prefill(p, tbls[1], pools[1])
     toks, overlaps, agree, cross = list(p), [], 0, 0

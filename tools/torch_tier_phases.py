@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's phases 42-46 alone (the serving tier at LLaMA-2-7B fp32,
+"""chip_smoke.py's phases 42-47 alone (the serving tier at LLaMA-2-7B fp32,
 full width and 8 of 32 layers, random weights; phase 45 the tier over
-replica processes and phase 46 the host-wide KV store, at the same depth),
-after building the kernels: the quickest way to re-run the tier's gates on
-the card.
+replica processes and phase 46 the host-wide KV store, at the same depth;
+phase 47 tensor-parallel serving at full depth and at 8 layers), after
+building the kernels: the quickest way to re-run the tier's gates on the
+card.
 
-    python3 tools/torch_tier_phases.py [42] [43] [44] [45] [46]
+    python3 tools/torch_tier_phases.py [42] [43] [44] [45] [46] [47]
 
-With no argument it runs all five; without 42 the reference streams come
-from one engine on the same traffic. Phase 45 builds no model here
+With no argument it runs 42-46; without 42 the reference streams come
+from one engine on the same traffic. Phase 47 first serves phase 4's
+traffic on one device (its reference streams and decode positions). Phase 45 builds no model here
 (its children build their own, and the parent frees its reference engines
 before they start); phase 46 frees its thread arms' model before its
 children start. Needs an NVIDIA card.
@@ -36,6 +38,22 @@ def main():
     cs.lap("build")
     cfg = LLAMA2_7B
     only = sys.argv[1:] or ["42", "43", "44", "45", "46"]
+    if "47" in only:
+        model = Llama(cfg, device="cuda", seed=0)
+        q_cfg = replace(cfg, num_layers=8)
+        q_model = Llama(q_cfg, device="cuda", seed=0)
+        eng, _, positions, tokens, _, _ = cs.engine_phase(model, cfg)
+        del eng
+        cs._free_the_card()
+        cs.lap("phase 4 reference")
+        cs.tp_phase(model, cfg, q_model, q_cfg, tokens, positions)
+        del model, q_model
+        cs._free_the_card()
+        only = [p for p in only if p != "47"]
+        if not only:
+            cs.log(f"time by part (s): {cs._LAPS}")
+            cs.log("phases 47: ok")
+            return
     if set(only) <= {"45", "46"}:
         reqs = cs.router_requests(cfg)
         if "45" in only:
