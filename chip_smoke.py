@@ -633,7 +633,31 @@ exits non-zero without printing a result:
               timed alone and its share of the step, K1 at [1,256,16,128]
               and K2 at [8,16,128] (the per-shard heads) against plain,
               bound and SDPA.
- 48. summary  one JSON line of every kernel's launches, error and times
+ 48. framework the Paddle-style Tensor and its op surface
+              (paddle_tpu_torch.Tensor, _C_ops) on the card: (a) one
+              LLaMA-2-7B decoder layer (hidden 4096, 32 heads x 128, FFN
+              11008, RMSNorm, RoPE, SwiGLU) at [1, 4096] tokens, causal,
+              written only with port Tensors and _C_ops
+              (tests/_framework_layers.py), forward and loss.backward(),
+              held against models/llama.py::LlamaBlock on the same
+              weights (output and every weight gradient within 1e-5 of
+              max|value|: the same ops in the same dtypes); K3a, K3b-dq
+              and K3b-dkv launched once each (counts zeroed before, read
+              after), no plain version, no other form, torch's
+              scaled_dot_product_attention never reached; (b) the same
+              layer under amp.auto_cast O1 bf16 (the wgmma forms, gate
+              1e-2); (c) one ERNIE-3.0-base layer at 16 x 512 padded tokens
+              through _C_ops.scaled_dot_product_attention(attn_mask=...)
+              (the masked fp32 kernels once each) against
+              models/ernie.py::ErnieBlock; (d) the op sweep: every case of
+              the CPU tests' table (tests/_torch_op_cases.py) on CUDA
+              Tensors against CPU Tensors, forward and, for
+              differentiable ops, the inputs' gradients, at rtol 1e-4 /
+              atol 1e-5 (or the case's looser tolerance), the random ops
+              by seed determinism and moments. Printed: each arm's gaps,
+              launches and seconds, the sweep's count and seconds, the
+              phase's seconds and launches.
+ 49. summary  one JSON line of every kernel's launches, error and times
               (K1's decode-form times as extra decode_* keys, its engine
               launches by form under launches_by_form, the fp64 ratios
               under fp64_ratio; the masked kernels as *_masked rows with
@@ -667,7 +691,9 @@ exits non-zero without printing a result:
               store_tier_launches;
               the dense bf16 and fp16 flash rows' d = 256 times under
               d256; the forward's lse ratio on the stream after phase 37
-              under lse_after_phase37_fp64_ratio), the smoke's
+              under lse_after_phase37_fp64_ratio; phase 48's launches of
+              the dense fp32, masked fp32 and dense bf16 flash rows under
+              ops_launches), the smoke's
               wall by part (lap), the nvidia-smi line, then the result
               line.
 
@@ -8121,6 +8147,222 @@ def tp_phase(model, cfg, q_model, q_cfg, fp32_tokens, positions):
     return out
 
 
+# ------------------------ phase 48: the Paddle-style Tensor and _C_ops
+
+# the card against the CPU in the op sweep: CUDA's transcendental functions
+# round differently from the CPU's by a few ulp and its reductions sum in
+# another order, so the sweep holds the card to rtol 1e-4, atol 1e-5 (or
+# the case's own looser tolerance)
+SWEEP_TOL = (1e-4, 1e-5)
+# the layers through _C_ops against the port's models on the same weights:
+# the same ops in the same dtypes (fp32, or bf16 O1 casts), so the gates
+# are tight; the measured gaps are printed
+LAYER_TOL = {"fp32": 1e-5, "bf16": 1e-2}
+
+
+def _tests_path():
+    """The repo's tests/ on sys.path: the op sweep's case table and the
+    layers written with _C_ops live there (they import no jax)."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+
+
+def _init_linears(block, gen):
+    with torch.no_grad():
+        for mod in block.modules():
+            if hasattr(mod, "std") and hasattr(mod, "weight"):
+                mod.weight.normal_(0.0, mod.std, generator=gen)
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+@contextlib.contextmanager
+def _no_library_attention():
+    """Fail on any call of torch's scaled_dot_product_attention."""
+    import torch.nn.functional as F
+    real = F.scaled_dot_product_attention
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("phase 48 reached torch's "
+                             "scaled_dot_product_attention")
+    F.scaled_dot_product_attention = refuse
+    try:
+        yield
+    finally:
+        F.scaled_dot_product_attention = real
+
+
+def _layer_arm(label, block, layer, x, extra, ref_fn, masked, dtype, gen,
+               amp_level=None, head_dim=128):
+    """One layer written with _C_ops on port Tensors over ``block``'s
+    weights: forward and loss.backward() with the flash counts zeroed
+    before and read after (each kernel of the form once, no plain version,
+    no other form, never torch's SDPA), then the same forward and backward
+    through the module, and the output and every weight gradient held
+    against it."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    def cast_ctx():
+        return (amp.auto_cast(level=amp_level, dtype="bfloat16")
+                if amp_level else contextlib.nullcontext())
+
+    t0 = time.perf_counter()
+    params = {n: P.Tensor(w.detach().clone(), stop_gradient=False)
+              for n, w in block.named_parameters()}
+    w = torch.randn(x.shape, generator=gen, device="cuda")
+    fa.reset_counts()
+    with _no_library_attention():
+        with cast_ctx():
+            out = layer(P, P.Tensor(x), params, *extra)
+        (out * P.Tensor(w)).sum().backward()
+    torch.cuda.synchronize()
+    counts = _flash_counts(masked, dtype)
+    others = _other_flash_launches(masked, dtype)
+    if counts != {name: (1, 0) for name in counts} or others:
+        raise AssertionError(f"phase 48 {label}: flash launches "
+                             f"(kernel, plain) {counts}, {others} of "
+                             "other forms or plain; want each kernel once")
+    variants = (_variant_launches(f"phase 48 {label}", masked, dtype,
+                                  head_dim, 1)
+                if dtype != torch.float32 else None)
+    seconds = time.perf_counter() - t0
+    with cast_ctx():
+        ref = ref_fn(x)
+    (ref * w).sum().backward()
+    err = _rel_err(out._value, ref)
+    grads = {n: _rel_err(params[n].grad._value, wt.grad)
+             for n, wt in block.named_parameters()}
+    tol = LAYER_TOL["fp32" if amp_level is None else "bf16"]
+    worst = max(grads.values())
+    log(f"phase 48 {label}: output rel err {err:.3g}, worst weight-grad "
+        f"rel err {worst:.3g} ({max(grads, key=grads.get)}) against the "
+        f"model's block (gate {tol:g}); flash launches "
+        f"{ {n: c[0] for n, c in counts.items()} }"
+        + (f" by variant {variants}" if variants else "")
+        + f", no plain, no SDPA; {seconds:.2f} s")
+    if not (err <= tol and worst <= tol):
+        raise AssertionError(f"phase 48 {label}: the _C_ops layer parts "
+                             f"from the model's block ({err}, {grads})")
+    for t in params.values():
+        t.clear_grad()
+    block.zero_grad(set_to_none=True)
+    return {"launches": {n: c[0] for n, c in counts.items()},
+            "out_rel_err": err, "grad_rel_err": worst, "seconds": seconds}
+
+
+def _op_sweep(P):
+    """The CPU tests' case table through the port on CUDA Tensors against
+    the same ops on CPU Tensors: forward values, dtypes and shapes, and
+    the inputs' gradients of differentiable ops; the random ops by dtype,
+    shape, determinism under seed and moments against the CPU's draws."""
+    _tests_path()
+    import _torch_op_cases as oc
+    problems = []
+    t0 = time.perf_counter()
+    n = 0
+    for case in oc.CASES:
+        n += 1
+        try:
+            if case.rng:
+                P.set_device("gpu")
+                P.seed(5)
+                got = oc.draw(P, case)
+                P.seed(5)
+                again = oc.draw(P, case)
+                P.set_device("cpu")
+                ref = oc.draw(P, case)
+                if not np.array_equal(got[2], again[2]):
+                    problems.append((case.id, "not determined by seed"))
+                if not oc.moments_agree(ref, got):
+                    problems.append((case.id, f"draws {got[:2]} mean "
+                                     f"{got[2].mean()} std {got[2].std()} "
+                                     f"vs the CPU's {ref[:2]} "
+                                     f"{ref[2].mean()} {ref[2].std()}"))
+                continue
+            P.set_device("gpu")
+            got = oc.run(P, case)
+            P.set_device("cpu")
+            ref = oc.run(P, case)
+            rtol, atol = case.tol or (oc.RTOL, oc.ATOL)
+            bad = oc.compare(ref, got, max(rtol, SWEEP_TOL[0]),
+                             max(atol, SWEEP_TOL[1]))
+            if bad:
+                problems.append((case.id, bad))
+        except Exception as e:          # noqa: BLE001 (every case reported)
+            problems.append((case.id, f"{type(e).__name__}: {e}"[:300]))
+    P.set_device("gpu")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    log(f"phase 48 op sweep: {n} cases of {len({c.op for c in oc.CASES})} "
+        f"ops on CUDA tensors against CPU tensors (values, dtypes, shapes, "
+        f"gradients; rng ops by moments), {len(problems)} failed, "
+        f"{seconds:.1f} s")
+    for case_id, why in problems:
+        log(f"phase 48 op sweep FAILED {case_id}: {why}")
+    if problems:
+        raise AssertionError(f"phase 48: {len(problems)} op-sweep cases "
+                             "failed on the card")
+    return {"cases": n, "seconds": seconds}
+
+
+def framework_phase():
+    """Phase 48: the Paddle-style Tensor and its op surface on the card."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.models import ERNIE3_BASE, LLAMA2_7B
+    from paddle_tpu_torch.models.ernie import ErnieBlock
+    from paddle_tpu_torch.models.llama import LlamaBlock, rope_tables
+    _tests_path()
+    from _framework_layers import ernie_layer, llama_layer
+
+    t0 = time.perf_counter()
+    P.set_device("gpu")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(48)
+    res = {}
+    cfg = LLAMA2_7B
+    s, d = 4096, cfg.hidden_size // cfg.num_heads
+    block = LlamaBlock(cfg, torch.device("cuda"))
+    _init_linears(block, gen)
+    x = torch.randn(1, s, cfg.hidden_size, generator=gen, device="cuda")
+    cos, sin = rope_tables(s, d, cfg.rope_theta, device="cuda")
+    extra = (P.Tensor(cos), P.Tensor(sin), cfg.num_heads, cfg.rms_eps)
+    res["llama_fp32"] = _layer_arm(
+        "(a) LLaMA-2-7B layer fp32 [1, 4096]", block, llama_layer, x, extra,
+        block, False, torch.float32, gen)
+    res["llama_bf16_o1"] = _layer_arm(
+        "(b) LLaMA-2-7B layer bf16 O1 [1, 4096]", block, llama_layer, x,
+        extra, block, False, torch.bfloat16, gen, amp_level="O1")
+    del block, x, extra, cos, sin
+    _free_the_card()
+    e_cfg = ERNIE3_BASE
+    block = ErnieBlock(e_cfg, torch.device("cuda"), gen)
+    _init_linears(block, gen)
+    x = torch.randn(16, 512, e_cfg.hidden_size, generator=gen,
+                    device="cuda")
+    mask = (1.0 - _padded(gen, 16, 512)[:, None, None, :].float()) * -1e4
+    res["ernie_fp32"] = _layer_arm(
+        "(c) ERNIE-3.0-base layer fp32 16 x 512 padded", block, ernie_layer,
+        x, (P.Tensor(mask), e_cfg.num_heads, block.ln1.epsilon),
+        lambda v: block(v, attn_mask=mask), True, torch.float32, gen)
+    del block, x, mask
+    _free_the_card()
+    res["sweep"] = _op_sweep(P)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 48 seconds: {res['seconds']:.1f}")
+    log("phase 48 launches: " + json.dumps(
+        {arm: res[arm]["launches"] for arm in ("llama_fp32",
+                                               "llama_bf16_o1",
+                                               "ernie_fp32")}))
+    return res
+
+
 def _free_the_card() -> float:
     """Collect what the freed phases left; returns GiB still allocated."""
     gc.collect()
@@ -8825,6 +9067,9 @@ def main() -> int:
     _free_the_card()
     lap("phase 36: Llama fp16 O1 TrainStep and twins")
     log(f"phases 34-36: {time.perf_counter() - t_new:.1f} s")
+    framework = framework_phase()
+    _free_the_card()
+    lap("phase 48: the Tensor and _C_ops")
     spec = gpt_launches.pop("speculation")
     spec16 = gpt_launches.pop("speculation_fp16")
     for row in rows:       # the serving kernels on the GPT paths
@@ -8927,6 +9172,14 @@ def main() -> int:
                 rows[-1]["gpt_launches"] = {
                     "trainer_o1": gpt_launches["trainer_o1"][name]}
                 rows[-1]["gpt_shape"] = gpt_bf16[name]
+    # phase 48's layers through _C_ops: each flash kernel's launches there
+    for row in rows:
+        for suffix, arm in (("", "llama_fp32"), ("_masked", "ernie_fp32"),
+                            ("_bf16", "llama_bf16_o1")):
+            for name, _ in FLASH_KERNELS:
+                if row["name"] == name + suffix:
+                    row["ops_launches"] = {
+                        arm: framework[arm]["launches"][name]}
     lap("kernels line")
     log(f"time by part (s): {json.dumps(_LAPS)}")
     log(json.dumps({"kernels": rows}))

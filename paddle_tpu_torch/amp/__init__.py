@@ -14,8 +14,9 @@ the classic recipe with dynamic loss scaling (`GradScaler`, as in the JAX
 package; TrainStep does none, as the JAX one does none). The cast rules
 differ between the two as in JAX: the cast touches numpy's floating types
 only, so an fp16 input to a black-listed op is cast to fp32 where a bf16
-one is not (`state.cast_inputs`). `amp.debugging` hooks the JAX
-registry, which the port does not have: it waits for item 12.
+one is not (`state.cast_inputs`). `amp.debugging` (over the
+registry's TRACE_HOOK / STATS_HOOK / CHECK_HOOK, which the port now has)
+waits for item 12 part (d).
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ import torch
 from paddle_tpu_torch.amp.state import (
     BLACK_LIST, WHITE_LIST, amp_state, cast_inputs, current_cast_dtype,
 )
+from paddle_tpu_torch.core.tensor import Tensor
 
-__all__ = ["BLACK_LIST", "WHITE_LIST", "GradScaler", "amp_guard",
+__all__ = ["BLACK_LIST", "Tensor", "WHITE_LIST", "GradScaler", "amp_guard",
            "amp_state", "auto_cast", "cast_inputs", "current_cast_dtype",
            "decorate", "is_bfloat16_supported", "is_float16_supported"]
 

@@ -26,6 +26,20 @@ inside a captured CUDA graph.
   Generator, default_generator, the JAX package's RNG state (seed, key,
   seed, get_rng_state,          offset; next_key = fold_in(key, ++offset))
   set_rng_state
+  torch_generator(key, device)  a torch.Generator seeded from a key
+
+The Generator's keys are bit-equal to JAX's: the same seed gives the same
+key and the same sequence of `next_key()`s. What the port draws from a
+key is not: an op of the registry marked `rng` (dropout, uniform,
+gaussian, bernoulli, ...) gets `torch_generator(next_key(), device)`,
+an explicit torch.Generator seeded from the key's 64 bits on the device
+of the op's tensors, and draws with torch's samplers, where JAX draws
+with jax.random's threefry samplers. So the draws have the same dtype,
+shape and distribution as JAX's and are deterministic under `seed`, but
+are not the same numbers; this is the departure already recorded for
+dropout (ROADMAP.md, "Departures by design", the dropout stream). The
+sampled tokens of the serving path (`categorical` above) stay bit-equal
+to jax.
 
 The logarithm is `xla_log`, not torch.log: XLA evaluates log on the CPU
 with its own polynomial (Cephes' coefficients, several steps fused into
@@ -235,3 +249,12 @@ def get_rng_state() -> dict:
 
 def set_rng_state(state) -> None:
     default_generator.set_state(state)
+
+
+def torch_generator(k: torch.Tensor, device) -> torch.Generator:
+    """A torch.Generator on ``device`` seeded from the 64 bits of the
+    threefry key ``k`` (high word first)."""
+    hi, lo = (int(w) for w in k.reshape(-1).tolist())
+    gen = torch.Generator(device=device)
+    gen.manual_seed((hi << 32) | lo)
+    return gen

@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from paddle_tpu_torch.core.tensor import Tensor
 from paddle_tpu_torch.serving.engine import ServingEngine
 from paddle_tpu_torch.serving.model_runner import runner_for
 

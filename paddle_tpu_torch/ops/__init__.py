@@ -7,9 +7,15 @@ a wrapper, a plain PyTorch version and launch counts (`COUNTS`):
                           by a torch.autograd.Function (training)
   _build                  nvcc build at first use, ctypes loader
 
-and `impl`, the plain ops of the training path (SDPA dispatch, RMSNorm,
-RoPE, SwiGLU, embedding, cross-entropy).
+and the op surface: `registry` (the table of `ops.yaml`, `dispatch`,
+`C_OPS`), `impl` and `impl_extra` (the ops themselves; the attention ops
+over the K3 kernels).
 
-Import the functions from their modules; the package re-exports nothing,
-so ``paddle_tpu_torch.ops.ragged_paged_attention`` names the module.
+The package re-exports the registry's `C_OPS`, `OPS` and `dispatch`, as
+the JAX package's does; import the kernels' functions from their modules
+(``paddle_tpu_torch.ops.ragged_paged_attention`` names the module).
 """
+
+from paddle_tpu_torch.ops.registry import C_OPS, OPS, dispatch
+
+__all__ = ["C_OPS", "OPS", "dispatch"]

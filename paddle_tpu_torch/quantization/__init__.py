@@ -9,6 +9,8 @@ as plain torch ops. The QAT / PTQ surface of the JAX
 `quantization/__init__.py` is ROADMAP.md 'Still to port' item 14.
 """
 
+from paddle_tpu_torch.core.tensor import Parameter, Tensor
+from paddle_tpu_torch.ops.registry import OpDef, dispatch
 from paddle_tpu_torch.quantization.int4 import (
     INT4_GROUP_SIZE, INT4_QMAX, int4_dequantize, int4_dequantize_reference,
     int4_matmul, int4_quantize, int4_weight_bytes,
@@ -22,8 +24,9 @@ from paddle_tpu_torch.quantization.qcomm import (
     quantized_psum,
 )
 
-__all__ = ["INT4_GROUP_SIZE", "INT4_QMAX", "allgather_bytes",
-           "allreduce_bytes", "int4_dequantize", "int4_dequantize_reference",
+__all__ = ["INT4_GROUP_SIZE", "INT4_QMAX", "OpDef", "Parameter", "Tensor",
+           "allgather_bytes", "allreduce_bytes", "dispatch",
+           "int4_dequantize", "int4_dequantize_reference",
            "int4_matmul", "int4_quantize", "int4_weight_bytes",
            "quantized_allgather", "quantized_allgather_reference",
            "quantized_allreduce_reference", "quantized_psum"]

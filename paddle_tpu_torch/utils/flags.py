@@ -59,5 +59,9 @@ def flag(name: str) -> Any:
     return _FLAGS[name]
 
 
+define_flag("FLAGS_check_nan_inf", False, "scan op outputs for NaN/Inf")
+define_flag("FLAGS_eager_op_jit", True,
+            "no effect in the port: there is no per-op compile")
+define_flag("FLAGS_default_dtype", "float32", "default floating dtype")
 define_flag("FLAGS_use_flash_attention", True,
             "route attention through the flash kernels")

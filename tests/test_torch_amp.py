@@ -11,7 +11,9 @@ does), the port's kernels run their plain versions (CPU tensors). Then:
     (and a few on neither), at O1 and O2, with and without custom lists;
   * the dtype flow: every op of the models' forwards and losses that the
     port runs through `ops.impl` takes and gives the dtypes the JAX
-    registry's dispatch records for it, at O1 and O2 (exact);
+    registry's dispatch records for it, at O1 and O2 (exact); so does
+    every op a short program dispatches through the port's registry
+    (`_C_ops`, the Tensor operators) against the JAX registry's;
   * the O1 TrainStep against the JAX TrainStep(amp_level="O1"): the step-1
     loss and every gradient, and the losses of 4 AdamW steps, for Llama
     and for ERNIE (n_inputs=3); a JAX O1 run resumes in the port;
@@ -44,6 +46,7 @@ import pytest
 import torch
 
 import paddle_tpu as paddle
+import paddle_tpu_torch
 import paddle_tpu.amp as jamp
 import paddle_tpu.ops.impl as jax_impl
 import paddle_tpu.ops.pallas.flash_attention as jfa
@@ -276,14 +279,92 @@ def _forward_and_loss(which, model, wrap, loss_fn, level,
     return loss_fn(out, wrap(labels), wrap(sop))
 
 
+def _registry_program(P):
+    """Registry ops on Tensors, the same code for either package: white-,
+    black- and unlisted ops, the operators (`+`, `*`, `[]`), a list input,
+    integer inputs and an fp16 input."""
+    rng = np.random.default_rng(0)
+    x = P.to_tensor(rng.standard_normal((4, 6)).astype(np.float32))
+    w = P.to_tensor(rng.standard_normal((6, 6)).astype(np.float32))
+    y = P.to_tensor(rng.standard_normal((4, 6)).astype(np.float16))
+    ids = P.to_tensor(np.array([[0, 2], [5, 1]]))
+    lab = P.to_tensor(np.array([1, 0, 5, 2]))
+    c = P._C_ops
+    h = c.matmul(x, w)
+    h = c.exp(c.tanh(h)) + x
+    h = c.relu(h) * 2.0
+    p = c.softmax(h, axis=-1)
+    m = c.mean(c.concat([p, y], axis=0), axis=0)
+    z = c.multiply(y, y)
+    r = c.rms_norm(z) + c.layer_norm(x, epsilon=1e-5)
+    e = c.embedding(ids, w)
+    q = c.reshape(e, [-1])[3]
+    loss = c.cross_entropy(c.linear(r, w), lab) + c.sum(m) + q
+    return c.scaled_dot_product_attention(
+        c.reshape(h, [1, 4, 1, 6]), c.reshape(x, [1, 4, 1, 6]),
+        c.reshape(z, [1, 4, 1, 6])), loss
+
+
+def _registry_flow(level, dtype):
+    """The op-by-op dtype log of `_registry_program` under auto_cast from
+    each package's registry hooks (inputs before the cast, outputs)."""
+    from paddle_tpu_torch.core import place
+    from paddle_tpu_torch.ops import registry
+
+    def record(reg, log, floats):
+        def before(name, args, kwargs):
+            log.append([name, floats(list(args) + list(kwargs.values())),
+                        None])
+
+        def after(name, outs):
+            [e for e in log if e[2] is None][-1][2] = [_dt(o.dtype)
+                                                      for o in outs]
+
+        reg.TRACE_HOOK[0], reg.CHECK_HOOK[0] = before, after
+
+    def port_floats(obj):
+        if isinstance(obj, paddle_tpu_torch.Tensor):
+            obj = obj._value
+        if isinstance(obj, (list, tuple)):
+            return [d for e in obj for d in port_floats(e)]
+        return [_dt(obj.dtype)] if isinstance(obj, torch.Tensor) and \
+            obj.is_floating_point() else []
+
+    saved = place._expected_place
+    logs = []
+    try:
+        paddle_tpu_torch.set_device("cpu")
+        for P, reg, floats, ctx in (
+                (paddle, jax_registry, _jax_float_dtypes, jamp),
+                (paddle_tpu_torch, registry, port_floats, amp)):
+            log = []
+            record(reg, log, floats)
+            with ctx.auto_cast(level=level, dtype=dtype):
+                out, loss = _registry_program(P)
+            logs.append((log, _dt(out.dtype), _dt(loss.dtype)))
+    finally:
+        for reg in (jax_registry, registry):
+            reg.TRACE_HOOK[0] = reg.CHECK_HOOK[0] = None
+        place._expected_place = saved
+    (ref, ref_out, ref_loss), (ours, out, loss) = logs
+    assert len(ref) > 15
+    assert ours == ref
+    assert (out, loss) == (ref_out, ref_loss)
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("level", ["O1", "O2"])
-@pytest.mark.parametrize("which", ["llama", "ernie"])
+@pytest.mark.parametrize("which", ["llama", "ernie", "registry"])
 def test_every_op_takes_and_gives_the_jax_dtypes(which, level, dtype,
                                                  monkeypatch):
     """At fp16 the cast differs from bf16's: fp16 is a numpy floating type,
     so an fp16 input to a black-listed op is cast to fp32, where a bf16
-    one is left as it is."""
+    one is left as it is. "registry": the ops dispatched through the
+    port's registry (`_C_ops` and the Tensor operators) against the JAX
+    registry's, every op of a short program logged by the hooks."""
+    if which == "registry":
+        _registry_flow(level, dtype)
+        return
     jax_model = _jax_model(which)
     params = {k: np.asarray(v) for k, v in
               functionalize(jax_model).param_values().items()}

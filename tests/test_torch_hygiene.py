@@ -3,7 +3,9 @@ kernel wrapper takes, and what it refuses.
 
   * nothing in paddle_tpu_torch/ (amp/ included) or chip_smoke.py imports
     jax or the JAX package (an AST scan, so a lazy import inside a
-    function counts too); the port's AMP lists equal the JAX lists;
+    function counts too), nor yaml (the card's machine has none); the
+    port's AMP lists equal the JAX lists; the port's ops.yaml, read by
+    its own parser, equals the JAX table entry by entry;
   * entry points default to "cuda" and raise where no card is usable;
   * CPU tensors run the plain versions: `plain_launches` moves and
     `kernel_launches` never does;
@@ -142,6 +144,46 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")]
     assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
+def test_port_imports_no_yaml(path):
+    """The card's machine has no PyYAML: the port reads its ops.yaml with
+    a parser of its own."""
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] == "yaml"]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_the_op_table_equals_the_jax_table():
+    """ops/ops.yaml as the port's parser reads it equals yaml.safe_load of
+    the JAX package's, entry by entry and field by field."""
+    import yaml
+
+    from paddle_tpu_torch.ops import registry
+
+    fields = ("name", "diff", "dynamic", "rng", "method", "inplace")
+    defaults = {"diff": True, "dynamic": False, "rng": False,
+                "method": True, "inplace": None}
+
+    def norm(entries):
+        return [tuple(e.get(f, defaults.get(f)) for f in fields)
+                for e in entries]
+
+    jax_path = Path(paddle.__file__).parent / "ops" / "ops.yaml"
+    ours_path = Path(paddle_tpu_torch.__file__).parent / "ops" / "ops.yaml"
+    ref = yaml.safe_load(jax_path.read_text())["ops"]
+    ours = registry.parse_table(ours_path.read_text())
+    assert norm(ours) == norm(ref) and len(ref) == 383
+    assert all(set(e) <= set(fields) for e in ours)
+    # the JAX OPS also holds ops other JAX modules register at import
+    jax_ops = __import__("paddle_tpu.ops.registry", fromlist=["OPS"]).OPS
+    assert set(registry.OPS) == {e["name"] for e in ref} | {"_getitem"}
+    for name, op in registry.OPS.items():
+        ref_op = jax_ops[name]
+        assert (op.diff, op.dynamic, op.rng, op.method, op.inplace) == (
+            ref_op.diff, ref_op.dynamic, ref_op.rng, ref_op.method,
+            ref_op.inplace), name
 
 
 def test_scan_sees_the_whole_port():
@@ -913,16 +955,35 @@ def _package_names(pkg):
 
 
 def _port_definitions():
-    """{name: module} of every top-level class and function a port module
-    defines (not one it imports)."""
+    """{name: [modules]} of every top-level class and function a port
+    module defines (not one it imports)."""
     defined = {}
     for info in pkgutil.walk_packages(paddle_tpu_torch.__path__,
                                       "paddle_tpu_torch."):
         mod = importlib.import_module(info.name)
         for k, v in vars(mod).items():
             if getattr(v, "__module__", None) == mod.__name__:
-                defined.setdefault(k, info.name)
+                defined.setdefault(k, []).append(info.name)
     return defined
+
+
+# the op table's functions carry Paddle's op names, which other JAX
+# packages reuse for other things (parallel's gather / scatter / split)
+OP_MODULES = ("paddle_tpu_torch.ops.impl", "paddle_tpu_torch.ops.impl_extra")
+
+
+def _ported(ref, name, defined):
+    """The port module defining ``name`` as the counterpart of the JAX
+    package's ``ref.name``: the port module of the JAX object's own module
+    path, else any port module but the op table's, or None."""
+    mods = defined.get(name, [])
+    home = getattr(getattr(ref, name), "__module__", None)
+    if isinstance(home, str) and home.startswith("paddle_tpu."):
+        want = home.replace("paddle_tpu", "paddle_tpu_torch", 1)
+        if want in mods:
+            return want
+    others = [m for m in mods if m not in OP_MODULES]
+    return others[0] if others else None
 
 
 PORT_PACKAGES = sorted(
@@ -934,18 +995,19 @@ PORT_PACKAGES = sorted(
 @pytest.mark.parametrize("package", PORT_PACKAGES)
 def test_ported_names_import_from_the_package_of_the_jax_path(package):
     """F12: a name the JAX package exports from a package (its __all__, or
-    what its __init__ binds) and that the port defines in any of its
-    modules imports from the port's package of the same path, and is in
-    that package's __all__."""
+    what its __init__ binds) and that the port defines (`_ported`: a
+    function of the op table counts only as the JAX op's counterpart)
+    imports from the port's package of the same path, and is in that
+    package's __all__."""
     ours = importlib.import_module(package)
     ref = importlib.import_module(package.replace("paddle_tpu_torch",
                                                   "paddle_tpu", 1))
     defined = _port_definitions()
-    missing = [(n, defined[n]) for n in _package_names(ref)
-               if n in defined and not hasattr(ours, n)]
+    ported = {n: _ported(ref, n, defined) for n in _package_names(ref)}
+    ported = {n: m for n, m in ported.items() if m is not None}
+    missing = [(n, m) for n, m in ported.items() if not hasattr(ours, n)]
     assert not missing, f"{package} lacks {missing}"
-    unlisted = [n for n in _package_names(ref)
-                if n in defined and hasattr(ours, "__all__")
+    unlisted = [n for n in ported if hasattr(ours, "__all__")
                 and n not in ours.__all__]
     assert not unlisted, f"{package}.__all__ lacks {unlisted}"
 
@@ -975,6 +1037,12 @@ def test_get_flags_and_flags_version_follow_jax():
     from paddle_tpu_torch.utils import flags, flags_version, get_flags
     name = "FLAGS_use_flash_attention"
     assert get_flags(name) == jax_flags.get_flags(name) == {name: True}
+    # the framework's three flags, with the JAX defaults
+    three = ["FLAGS_check_nan_inf", "FLAGS_eager_op_jit",
+             "FLAGS_default_dtype"]
+    assert get_flags(three) == jax_flags.get_flags(three) == {
+        "FLAGS_check_nan_inf": False, "FLAGS_eager_op_jit": True,
+        "FLAGS_default_dtype": "float32"}
     assert get_flags([name]) == jax_flags.get_flags((n for n in [name]))
     v0, j0 = flags_version(), jax_flags.flags_version()
     try:
@@ -986,6 +1054,17 @@ def test_get_flags_and_flags_version_follow_jax():
         flags.set_flags({name: True})
         jax_flags.set_flags({name: True})
     assert flags_version() - v0 == jax_flags.flags_version() - j0 == 2
+    for n, v in (("FLAGS_check_nan_inf", True),
+                 ("FLAGS_default_dtype", "float16")):
+        old = get_flags(n)
+        try:
+            flags.set_flags({n: v})
+            jax_flags.set_flags({n: v})
+            assert get_flags(n) == jax_flags.get_flags(n) == {n: v}
+        finally:
+            flags.set_flags(old)
+            jax_flags.set_flags(old)
+    assert flags_version() - v0 == jax_flags.flags_version() - j0 == 6
     with pytest.raises(KeyError):
         get_flags("FLAGS_no_such_flag")
     with pytest.raises(KeyError):

@@ -345,6 +345,8 @@ def test_unported_training_options_raise():
         torch.float32
     with pytest.raises(TypeError, match="floating"):
         AdamW(parameters=[torch.zeros(3, dtype=torch.int32)])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        impl.cross_entropy(torch.zeros(2, 3), torch.zeros(2, 3),
-                           soft_label=True)
+    # soft labels are served since the framework's op surface (ROADMAP
+    # item 12 part a): uniform labels over uniform logits cost log 3
+    soft = impl.cross_entropy(torch.zeros(2, 3), torch.full((2, 3), 1 / 3),
+                              soft_label=True)
+    assert abs(float(soft) - np.log(3)) < 1e-6
